@@ -1,0 +1,266 @@
+"""Config schema for the repro framework.
+
+Every assigned architecture is described by one ``ArchConfig``; every
+benchmark/dry-run cell is an (ArchConfig, ShapeConfig) pair. Configs are
+plain frozen dataclasses so they hash and can key a cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Shapes (assigned input-shape set; identical for all LM-family archs)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode" | "long_decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "long_decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Architecture config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    n_shared_experts: int = 0
+    # layers [0, n_dense_layers) use a dense FFN instead of MoE
+    n_dense_layers: int = 0
+    dense_d_ff: int = 0          # d_ff of those dense layers (0 -> d_ff)
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+    # expert parallel if n_experts % lanes == 0, else TP inside experts
+    expert_parallel: bool = True
+    # pad the expert table to the next lane multiple with router-masked dead
+    # experts (model-equivalent) so EP applies to non-divisible counts
+    pad_experts_to: int = 0
+
+    @property
+    def n_experts_padded(self) -> int:
+        return max(self.pad_experts_to, self.n_experts)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba2"         # "mamba2" | "mlstm"
+    state_dim: int = 64          # N (mamba2) / ignored for mlstm
+    conv_width: int = 4
+    expansion: int = 2           # d_inner = expansion * d_model
+    head_dim: int = 64           # mamba2 P (d_inner // head_dim heads)
+    chunk_size: int = 256        # chunked-scan block
+    qk_dim_factor: float = 0.5   # mlstm: qk dim = factor * d_inner
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    # --- attention details ---
+    rope_theta: float = 10000.0
+    use_mla: bool = False
+    mla: MLAConfig = MLAConfig()
+    parallel_block: bool = False     # stablelm-2 style parallel attn+FFN
+    # pad Q heads to the next lane multiple with output-masked dead heads
+    # (model-equivalent incl. gradients) so attention TP-shards when
+    # n_heads doesn't divide the lane axis (barber's-pole realignment)
+    pad_heads_to: int = 0
+    # --- MoE ---
+    moe: MoEConfig = MoEConfig()
+    # --- SSM / hybrid ---
+    ssm: SSMConfig = SSMConfig()
+    attn_every: int = 0              # hybrid: shared attn block every k layers
+    shared_attn_block: bool = False  # hybrid: attn block weights are shared
+    # --- enc-dec ---
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    # --- multimodal stub frontends ---
+    cross_attn_every: int = 0        # vlm: cross-attn layer every k layers
+    frontend_seq: int = 0            # vlm/audio: stub embedding sequence length
+    frontend_dim: int = 0            # stub embedding dim (0 -> d_model)
+    # --- numerics / losses ---
+    norm_eps: float = 1e-5
+    activation: str = "silu"         # silu | gelu
+    tie_embeddings: bool = False
+    mtp_depth: int = 0               # DeepSeek multi-token-prediction depth
+    # --- training-policy knobs (overridable per run) ---
+    param_dtype: str = "float32"     # master/param dtype
+    compute_dtype: str = "bfloat16"
+    remat: str = "full"              # "none" | "full" | "dots"
+    # blockwise-parallel attention (models.attention.chunked_attention):
+    # flash-kernel routing, KV chunk, per-q-block checkpoint policy
+    attn_flash: str = "auto"         # "auto" | "on" | "off"
+    attn_chunk: int = 1024
+    attn_threshold: int = 0          # quadratic fast-path cap;
+                                     # 0 -> models.attention.CHUNK_THRESHOLD
+    attn_block_remat: str = "none"   # "none"|"everything"|"nothing"|"dots"|
+                                     # "dots_no_batch"
+    fsdp: bool = False               # shard params/opt over data axis too
+    opt_state_dtype: str = "float32"
+    scan_layers: bool = True
+    # long-context support marker (sub-quadratic token mixing)
+    subquadratic: bool = False
+
+    # ---- derived ----
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def n_heads_padded(self) -> int:
+        return max(self.pad_heads_to, self.n_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe.n_experts > 0
+
+    @property
+    def n_decoder_layers(self) -> int:
+        return self.n_layers
+
+    def supports_shape(self, shape: ShapeConfig) -> bool:
+        """long_500k only runs for sub-quadratic token mixers (assignment rule)."""
+        if shape.kind == "long_decode":
+            return self.subquadratic
+        return True
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), for 6ND math."""
+        d, hd = self.d_model, self.resolved_head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        # attention
+        if self.use_mla:
+            m = self.mla
+            per_layer += d * m.q_lora_rank
+            per_layer += m.q_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+            per_layer += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            per_layer += m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+            per_layer += self.n_heads * m.v_head_dim * d
+        elif self.family in ("ssm",) or (self.family == "hybrid" and not self.shared_attn_block):
+            per_layer += 0  # handled by ssm term below
+        else:
+            per_layer += d * self.n_heads * hd  # Q
+            per_layer += 2 * d * self.n_kv_heads * hd  # K,V
+            per_layer += self.n_heads * hd * d  # O
+        # ffn / moe / ssm
+        if self.family in ("ssm", "hybrid"):
+            di = self.ssm.expansion * d
+            if self.ssm.kind == "mamba2":
+                # in_proj (z,x,B,C,dt) + out_proj + conv
+                nh = di // self.ssm.head_dim
+                per_layer += d * (2 * di + 2 * self.ssm.state_dim + nh) + di * d
+                per_layer += self.ssm.conv_width * (di + 2 * self.ssm.state_dim)
+            else:  # mlstm
+                qk = int(di * self.ssm.qk_dim_factor)
+                per_layer += d * (2 * qk + 2 * di) + di * d + 3 * di  # q,k,v,o,gates
+            if self.d_ff:
+                per_layer += 3 * d * self.d_ff
+        elif self.is_moe:
+            pass  # handled below (layer-dependent)
+        else:
+            mult = 3 if self.activation == "silu" else 2
+            per_layer += mult * d * self.d_ff
+        total = emb + self.n_layers * per_layer
+        if self.is_moe:
+            m = self.moe
+            dense_ff = m.dense_d_ff or self.d_ff
+            n_moe_layers = self.n_layers - m.n_dense_layers
+            total += m.n_dense_layers * 3 * d * dense_ff
+            total += n_moe_layers * (m.n_experts + m.n_shared_experts) * 3 * d * m.expert_d_ff
+            total += n_moe_layers * d * m.n_experts  # router
+        if self.family == "hybrid" and self.shared_attn_block:
+            # one shared attention+FFN block (weight-tied)
+            total += d * (self.n_heads * hd) + 2 * d * self.n_kv_heads * hd \
+                + self.n_heads * hd * d + 3 * d * self.d_ff
+        if self.is_encoder_decoder:
+            # encoder layers + cross-attn in decoder
+            enc_per = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+                + self.n_heads * hd * d + 2 * d * self.d_ff
+            total += self.n_encoder_layers * enc_per
+            total += self.n_layers * (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                                      + self.n_heads * hd * d)
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        m = self.moe
+        total = self.param_count()
+        n_moe_layers = self.n_layers - m.n_dense_layers
+        all_exp = n_moe_layers * m.n_experts * 3 * self.d_model * m.expert_d_ff
+        act_exp = n_moe_layers * (m.top_k + m.n_shared_experts) * 3 * self.d_model * m.expert_d_ff
+        return int(total - all_exp + act_exp)
+
+
+def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
+    """A tiny same-family config for CPU smoke tests."""
+    small = dict(
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads else 4,
+        head_dim=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        frontend_seq=8 if cfg.frontend_seq else 0,
+        frontend_dim=64 if cfg.frontend_dim else 0,
+        n_encoder_layers=2 if cfg.is_encoder_decoder else 0,
+        attn_every=2 if cfg.attn_every else 0,
+        cross_attn_every=2 if cfg.cross_attn_every else 0,
+        mtp_depth=min(cfg.mtp_depth, 1),
+        scan_layers=False,
+        remat="none",
+        compute_dtype="float32",
+    )
+    if cfg.is_moe:
+        small["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2, expert_d_ff=64,
+            n_dense_layers=min(cfg.moe.n_dense_layers, 1), dense_d_ff=128,
+        )
+    if cfg.family in ("ssm", "hybrid"):
+        small["ssm"] = dataclasses.replace(
+            cfg.ssm, state_dim=8, head_dim=16, chunk_size=16, expansion=2,
+        )
+    if cfg.use_mla:
+        small["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                 qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                 v_head_dim=16)
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

@@ -1,0 +1,183 @@
+"""Model zoo: template + forward.
+
+Only the **dense** family (GQA decoder blocks) is ported so far; the other
+families of the reference (moe, ssm, hybrid, vlm, audio) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+Layer parameters are stacked along a leading ``layers`` axis, as in the
+reference. PyTorch runs eagerly, so ``cfg.scan_layers`` has no meaning
+here: the stack is walked by a Python loop either way, each layer a view
+of the stacked tensors. ``cfg.remat`` likewise only matters to a backward
+pass and is ignored by the forward.
+
+Decode uses per-sequence KV caches (see attention.py): ``forward`` with a
+cache writes the new KV rows **into the cache tensors it was given** and
+returns them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.precision import torch_dtype
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import gqa_attention, gqa_template
+from repro_torch.models.layers import P, rms_norm, tree_map
+from repro_torch.models.mlp import mlp, mlp_template
+
+# where each family that is not ported yet stands in ROADMAP.md
+_FAMILY_ROADMAP = {
+    "moe": "Queue A, 'Remaining model families'",
+    "vlm": "Queue A, 'Remaining model families'",
+    "audio": "Queue A, 'Remaining model families'",
+    "ssm": "Queue A, 'SSM family'",
+    "hybrid": "Queue A, 'SSM family'",
+}
+
+
+def _require_dense(cfg: ArchConfig):
+    if cfg.family == "dense" and not cfg.use_mla:
+        return
+    if cfg.family != "dense" and cfg.family not in _FAMILY_ROADMAP:
+        raise ValueError(cfg.family)
+    where = _FAMILY_ROADMAP.get(cfg.family,
+                                "Queue A, 'Remaining model families'")
+    raise NotImplementedError(
+        f"model family {cfg.family!r} ({cfg.name}) is not ported yet: see "
+        f"ROADMAP.md {where}")
+
+
+# ---------------------------------------------------------------------------
+# Templates
+# ---------------------------------------------------------------------------
+
+
+def _stack(tmpl, n: int):
+    """Add a leading stacked-layers dim to every leaf."""
+    if isinstance(tmpl, P):
+        return P((n,) + tmpl.shape, ("layers",) + tmpl.axes, tmpl.init,
+                 tmpl.std)
+    return {k: _stack(v, n) for k, v in tmpl.items()}
+
+
+def _dense_layer_template(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": P((cfg.d_model,), ("embed",), "ones"),
+        "attn": gqa_template(cfg),
+        "ln2": P((cfg.d_model,), ("embed",), "ones"),
+        "mlp": mlp_template(cfg.d_model, cfg.d_ff, cfg.activation),
+    }
+
+
+def model_template(cfg: ArchConfig) -> dict:
+    _require_dense(cfg)
+    d = cfg.d_model
+    t: dict = {
+        "embed": P((cfg.vocab_size, d), ("vocab", "embed"), "normal", 0.02),
+        "final_norm": P((d,), ("embed",), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        t["unembed"] = P((d, cfg.vocab_size), ("embed", "vocab"), "normal",
+                         0.02)
+    t["layers"] = _stack(_dense_layer_template(cfg), cfg.n_layers)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Blocks (forward)
+# ---------------------------------------------------------------------------
+
+
+def dense_block(cfg, p, x, positions, cache=None, causal=True):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, new_cache = gqa_attention(cfg, p["attn"], h, positions, cache=cache,
+                                 causal=causal)
+    if cfg.parallel_block:
+        return x + a + mlp(p["mlp"], h, cfg.activation), new_cache
+    x = x + a
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp(p["mlp"], h2, cfg.activation)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Full forward
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ArchConfig, params: dict, tokens, *,
+            cache: Optional[dict] = None, head_fn=None):
+    """Shared forward. tokens (B,S) integer, on the parameters' device.
+
+    cache=None  -> full causal forward (scoring), returns
+                   (logits, aux, extras)
+    cache=dict  -> prefill (lengths=0, S=prompt) or decode (S small);
+                   returns (logits, aux, new_cache). ``cache["k"]`` and
+                   ``cache["v"]`` are updated in place and are the tensors
+                   in ``new_cache``; ``new_cache["lengths"]`` is a new
+                   tensor, ``cache["lengths"]`` is left as it was.
+    head_fn     -> optional ``(x, unembed) -> logits`` replacing the final
+                   product — the serving degrade ladder routes the logits
+                   head through the CUDA kernels here
+                   (``kernels.ops.lm_head``).
+
+    ``aux`` is the (zero) auxiliary loss the mixture-of-experts families
+    will fill; it is kept so the return shape matches the reference.
+    """
+    _require_dense(cfg)
+    b, s = tokens.shape
+    dev = tokens.device
+    compute_dtype = torch_dtype(cfg.compute_dtype)
+    x = params["embed"][tokens.long()].to(compute_dtype)
+
+    steps = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    if cache is not None:
+        lengths = cache["lengths"]
+        positions = lengths[:, None].to(torch.int32) + steps
+    else:
+        lengths = None
+        positions = steps.expand(b, s)
+
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        p_i = tree_map(lambda a: a[i], layers)
+        c_i = None if cache is None else {
+            "k": cache["k"][i], "v": cache["v"][i], "lengths": lengths}
+        x, _ = dense_block(cfg, p_i, x, positions, cache=c_i)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    unembed = unembed.to(compute_dtype)
+    if head_fn is not None:
+        logits = head_fn(x, unembed)
+    else:
+        logits = x @ unembed
+
+    if cache is not None:
+        return logits, aux, {"k": cache["k"], "v": cache["v"],
+                             "lengths": lengths + s}
+    return logits, aux, {"final_hidden": x}
+
+
+# ---------------------------------------------------------------------------
+# Cache init
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               cache_dtype=torch.bfloat16, device=None):
+    """Decode cache tree of zeros on ``device`` (default: the card; raises
+    without one): ``k``/``v`` (n_layers, batch, max_seq, n_kv_heads,
+    head_dim) and int32 ``lengths`` (batch,)."""
+    _require_dense(cfg)
+    device = resolve_device(device)
+    dt = torch_dtype(cache_dtype)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"lengths": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device),
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}

@@ -1,0 +1,248 @@
+r"""Request scheduler: bounded admission, deadlines, retry/backoff, quarantine.
+
+The serving analogue of Ara's decoupled dispatch queue (PAPER §III-A):
+the queue absorbs bursts without corrupting in-flight state, and — like
+AraXL's hierarchical arbitration — backpressure is *structured*: when the
+queue is full or a deadline cannot be met, the request is rejected or
+shed with a named :class:`RejectReason` instead of growing host memory
+without bound.  The engine (``serving/engine.py``) owns the slots and the
+device steps; this module owns everything host-side that happens before
+and after a request holds a slot.
+
+Lifecycle (``Request.state``)::
+
+    QUEUED -> PREFILL -> DECODE -> DONE        (eos or budget reached)
+                               \-> EVICTED     (KV hit max_seq; partial)
+                               \-> TIMED_OUT   (deadline passed; partial)
+                               \-> FAILED      (quarantined after retries)
+    submit() may short-circuit to REJECTED (never enters the queue).
+
+Transient step failures (NaN logits, corrupted KV, stalled slot) send the
+request back to QUEUED with ``retries += 1`` and an exponential-backoff
+eligibility gate; after ``max_retries`` requeues the request is
+*quarantined* (state FAILED, listed in ``Scheduler.quarantined``) so one
+poison request can never wedge the batch.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import enum
+from typing import Deque, List, Optional
+
+import numpy as np
+
+
+class State(str, enum.Enum):
+    QUEUED = "queued"
+    PREFILL = "prefill"
+    DECODE = "decode"
+    DONE = "done"
+    FAILED = "failed"
+    EVICTED = "evicted"
+    TIMED_OUT = "timed_out"
+    REJECTED = "rejected"
+
+    def terminal(self) -> bool:
+        return self in (State.DONE, State.FAILED, State.EVICTED,
+                        State.TIMED_OUT, State.REJECTED)
+
+
+class RejectReason(str, enum.Enum):
+    """Structured admission rejects — the named backpressure signals."""
+    QUEUE_FULL = "R_QUEUE_FULL"             # bounded FIFO at capacity
+    PROMPT_TOO_LONG = "R_PROMPT_TOO_LONG"   # len(prompt) > max_seq
+    BAD_REQUEST = "R_BAD_REQUEST"           # empty prompt / budget < 1
+    DEADLINE_INFEASIBLE = "R_DEADLINE_INFEASIBLE"  # can't finish in time
+
+
+# shed/timeout codes recorded on requests the scheduler gives up on
+T_EXPIRED = "T_DEADLINE_EXPIRED"        # TTL passed while queued/active
+T_INFEASIBLE = "T_DEADLINE_INFEASIBLE"  # budget no longer fits the TTL
+Q_QUARANTINED = "Q_QUARANTINED"         # poison request after max_retries
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request.
+
+    Token accounting (pinned semantics, asserted by
+    ``tests/test_serving.py::test_budget_and_eos_semantics``):
+
+    - ``max_new_tokens`` is the total number of *generated* tokens. The
+      token produced by prefill (from the last prompt position) counts
+      toward the budget, so ``len(out_tokens) <= max_new_tokens`` always,
+      with equality on budget-terminated requests.
+    - ``eos_id`` stops generation when a generated token equals it; the
+      eos token *is* included in ``out_tokens``. The default ``-1`` never
+      matches a vocab id, i.e. never stops early.
+    - ``deadline`` is a TTL in engine ticks (steps) from submission;
+      ``None`` means no deadline. A request whose remaining budget cannot
+      fit inside its remaining TTL is shed (``T_DEADLINE_INFEASIBLE``);
+      one that overruns while queued or decoding is timed out
+      (``T_DEADLINE_EXPIRED``) with whatever partial output it has.
+    """
+    uid: int
+    prompt: np.ndarray               # (S,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0         # 0 -> greedy
+    eos_id: int = -1                 # -1 -> never stops early
+    deadline: Optional[int] = None   # ticks from submit; None -> none
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False               # kept for pre-scheduler callers
+    state: State = State.QUEUED
+    finish_reason: str = ""          # detail code for terminal states
+    submit_tick: int = -1
+    first_token_tick: int = -1
+    finish_tick: int = -1
+    retries: int = 0
+    not_before: int = 0              # backoff eligibility gate (tick)
+
+    def finish(self, state: State, tick: int, reason: str = "") -> None:
+        self.state = state
+        self.finish_tick = tick
+        self.finish_reason = reason or self.finish_reason
+        self.done = state == State.DONE
+
+    def deadline_tick(self) -> Optional[int]:
+        if self.deadline is None:
+            return None
+        return self.submit_tick + self.deadline
+
+    def remaining_budget(self) -> int:
+        return self.max_new_tokens - len(self.out_tokens)
+
+
+class Scheduler:
+    """Bounded admission queue + deadline/retry/quarantine policy.
+
+    Pure host code (numpy only): unit-testable without a model, and shared by
+    the engine, the fault registry, and the load-generator benchmark.
+    """
+
+    def __init__(self, *, slots: int, max_seq: int, max_queue: int = 256,
+                 max_retries: int = 2, backoff_base: int = 2):
+        self.slots = slots
+        self.max_seq = max_seq
+        self.max_queue = max_queue
+        self.max_retries = max_retries
+        self.backoff_base = backoff_base
+        self.queue: Deque[Request] = collections.deque()
+        self.rejected: List[Request] = []
+        self.shed: List[Request] = []
+        self.quarantined: List[Request] = []
+        self.counters: collections.Counter = collections.Counter()
+
+    # -- admission -----------------------------------------------------------
+
+    def submit(self, req: Request, now: int) -> Optional[RejectReason]:
+        """Admit ``req`` to the bounded queue or reject with a reason."""
+        reason = self._admission_reason(req, now)
+        if reason is not None:
+            req.state = State.REJECTED
+            req.finish_reason = reason.value
+            req.finish_tick = now
+            self.rejected.append(req)
+            self.counters[reason.value] += 1
+            return reason
+        req.state = State.QUEUED
+        req.submit_tick = now
+        self.queue.append(req)
+        self.counters["accepted"] += 1
+        return None
+
+    def _admission_reason(self, req: Request,
+                          now: int) -> Optional[RejectReason]:
+        if len(req.prompt) == 0 or req.max_new_tokens < 1:
+            return RejectReason.BAD_REQUEST
+        if len(req.prompt) > self.max_seq:
+            return RejectReason.PROMPT_TOO_LONG
+        if len(self.queue) >= self.max_queue:
+            return RejectReason.QUEUE_FULL
+        if req.deadline is not None and req.deadline < self._min_service(req):
+            return RejectReason.DEADLINE_INFEASIBLE
+        return None
+
+    @staticmethod
+    def _min_service(req: Request) -> int:
+        """Lower bound on ticks to finish: one prefill tick produces the
+        first token, then one tick per remaining budgeted token. An early
+        eos could beat this, but feasibility is budget-based (worst-case)
+        by policy — see docs/serving.md."""
+        return max(req.max_new_tokens - len(req.out_tokens), 1)
+
+    # -- per-tick maintenance ------------------------------------------------
+
+    def tick(self, now: int) -> List[Request]:
+        """Expire/shed queued requests whose deadline passed or can no
+        longer be met. Returns the requests given up on this tick."""
+        dropped: List[Request] = []
+        keep: Deque[Request] = collections.deque()
+        while self.queue:
+            req = self.queue.popleft()
+            dl = req.deadline_tick()
+            if dl is None:
+                keep.append(req)
+            elif now >= dl:
+                req.finish(State.TIMED_OUT, now, T_EXPIRED)
+                self.counters[T_EXPIRED] += 1
+                self.shed.append(req)
+                dropped.append(req)
+            elif dl - now < self._min_service(req):
+                req.finish(State.TIMED_OUT, now, T_INFEASIBLE)
+                self.counters[T_INFEASIBLE] += 1
+                self.shed.append(req)
+                dropped.append(req)
+            else:
+                keep.append(req)
+        self.queue = keep
+        return dropped
+
+    def next_ready(self, now: int) -> Optional[Request]:
+        """Pop the first request whose backoff gate has opened, preserving
+        FIFO order of the rest."""
+        for _ in range(len(self.queue)):
+            req = self.queue.popleft()
+            if req.not_before <= now:
+                return req
+            self.queue.append(req)   # rotate: still backing off
+        return None
+
+    # -- retry / quarantine --------------------------------------------------
+
+    def requeue(self, req: Request, now: int, cause: str) -> bool:
+        """Send a request back after a transient step failure.
+
+        Retry restarts generation from the prompt (``out_tokens`` is
+        cleared — greedy decode is idempotent, so a successful retry is
+        indistinguishable from a clean run). Returns False when the
+        request exhausted its retries and was quarantined instead.
+        """
+        req.retries += 1
+        req.out_tokens = []
+        if req.retries > self.max_retries:
+            req.finish(State.FAILED, now, f"{Q_QUARANTINED}:{cause}")
+            self.quarantined.append(req)
+            self.counters[Q_QUARANTINED] += 1
+            return False
+        req.state = State.QUEUED
+        req.not_before = now + self.backoff_base ** req.retries
+        self.counters["retries"] += 1
+        # requeue at the front: the request already paid its queue wait
+        self.queue.appendleft(req)
+        return True
+
+    # -- introspection -------------------------------------------------------
+
+    def pressure(self, active: int) -> float:
+        """Offered load vs slot capacity; the degrade ladder's input."""
+        return (len(self.queue) + active) / max(self.slots, 1)
+
+    def stats(self) -> dict:
+        return {
+            "queued": len(self.queue),
+            "rejected": len(self.rejected),
+            "shed": len(self.shed),
+            "quarantined": len(self.quarantined),
+            "counters": dict(self.counters),
+        }
