@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Needs a CUDA device, ``nvcc`` and nothing else: it builds the kernels from
-``src/repro_torch/kernels/csrc`` and serves randomly initialised
-tinyllama-1.1b at full width and full depth. Without a CUDA device, or in a
-directory that lacks the package, it exits non-zero and prints no result.
-Phases, one JSON line each:
+``src/repro_torch/kernels/csrc``, serves randomly initialised tinyllama-1.1b
+at full width and full depth, and trains it at full width and depth for a
+few steps. Without a CUDA device, or in a directory that lacks the package,
+it exits non-zero and prints no result. Phases, one JSON line each:
 
 1. ``env``     the card's name and power limit, torch / CUDA / nvcc versions.
 2. ``build``   compiles the kernels (seconds, registers and spills per kernel).
@@ -16,20 +16,38 @@ Phases, one JSON line each:
                small shape with 16-wide blocks and at ragged shapes, and the
                logits head at shapes its default blocks do not tile; then
                times kernel, plain version and library call.
-4. ``serve``   tinyllama-1.1b, 8 slots, 16 requests, degrade ladder down to
+4. ``attention`` the three blockwise-attention kernels (forward, dQ,
+               dK/dV) against their plain versions on the card: at the
+               training shape (B 4, H 32, S 2048, D 64, bf16, causal), at
+               the ragged and small-block shapes of the CPU tests, with
+               fully dead rows, in float32, bfloat16, float16 and float64;
+               the public autograd path against the CPU's; then times
+               kernels, plain versions, bounds and
+               ``F.scaled_dot_product_attention`` as a yardstick.
+5. ``serve``   tinyllama-1.1b, 8 slots, 16 requests, degrade ladder down to
                the int8 logits head; checks states, tokens, events and that
                the int8 kernel was launched once per int8 step.
-5. ``serve_exact`` the same model in float32, depth cut to 4 layers, against
+6. ``serve_exact`` the same model in float32, depth cut to 4 layers, against
                a greedy full-forward oracle (tokens equal, logits within
                1e-3); the cached decode path at full depth against the full
-               forward in float64 (logits within 1e-7, tokens equal), with
+               forward in float64 (logits within 1e-3, tokens equal), with
                the float32 runs held to that witness; and the bf16
-               logits-head route through ``matmul``.
+               logits-head route through ``matmul``. The full forward (no
+               cache) goes through the attention kernel here.
+7. ``train``   tinyllama-1.1b unreduced (bf16 compute, fp32 parameters,
+               ``remat="full"``), batch 4 x 2048 of ``SyntheticLM``, 4 steps
+               of the port's train step through the attention kernels:
+               loss, grad norm, learning rate, changed parameters and the
+               exact launch counts per step (2L forward, L dQ, L dK/dV).
+8. ``train_exact`` one train step's loss and gradients, kernel route
+               against the route forced off: at full width and 2 layers in
+               float32, and at full width and depth in float64.
 
-Then one line ``{"kernels": [...]}`` (launch counts of phases 4-5, error,
-times and bound per kernel), one line with the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``. Any failed check
-raises: nothing is caught and passed over.
+Then one line ``{"kernels": [...]}`` (launch counts of the serving phases
+5 and 6 for the matmul kernels and of phase 7 for the attention kernels,
+error, times and bound per kernel), one line with the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed
+check raises: nothing is caught and passed over.
 """
 from __future__ import annotations
 
@@ -51,17 +69,25 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.precision import (PEAK_BYTES_PER_S,  # noqa: E402
                                         PEAKS_FLOPS)
+from repro_torch.data.pipeline import (DataConfig, SyntheticLM,  # noqa: E402
+                                       to_device)
+from repro_torch.kernels import attention as att  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
-from repro_torch.models.layers import (init_params, tree_map,  # noqa: E402
-                                       tree_size_bytes)
+from repro_torch.models.layers import (init_params, tree_leaves,  # noqa: E402
+                                       tree_map, tree_size_bytes,
+                                       value_and_grad)
 from repro_torch.models.transformer import (forward, init_cache,  # noqa: E402
-                                            model_template)
+                                            lm_loss, model_template)
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.step import make_train_step  # noqa: E402
 from repro_torch.serving import (DegradeLadder, Request,  # noqa: E402
                                  ServingEngine, State)
 
 PATH_SHAPE = (8, 2048, 32000)      # (slots, d_model, vocab) of tinyllama-1.1b
 SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
+TRAIN_ATT = (4, 32, 2048, 64)      # (batch, heads, seq, head_dim) in training
+ATT_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 DEV = "cuda"                       # every tensor of this script lives here
 
 
@@ -174,8 +200,8 @@ BF16_ULP = 2.0 ** -7  # one step of a bfloat16 result, relative to the value
 F16_ULP = 2.0 ** -10  # ... of a float16 result
 
 
-def _check_float(name, got, ref, rel, results, **detail):
-    """|got - ref| <= rel * |ref| + ACC_TOL * max|ref| elementwise.
+def _check_float(name, got, ref, rel, results, acc=ACC_TOL, **detail):
+    """|got - ref| <= rel * |ref| + acc * max|ref| elementwise.
 
     Both sides multiply the same operands exactly and accumulate in fp32, so
     they differ by summation order only: ACC_TOL of the largest result
@@ -186,10 +212,10 @@ def _check_float(name, got, ref, rel, results, **detail):
     ref = ref.to(torch.float64)
     scale = float(ref.abs().max())
     err = (got.to(torch.float64) - ref).abs()
-    ok = bool((err <= rel * ref.abs() + ACC_TOL * scale).all())
+    ok = bool((err <= rel * ref.abs() + acc * scale).all())
     results.append({"check": name, "max_err": float(err.max()),
                     "ref_max": scale, "rel_tol": rel,
-                    "abs_tol": ACC_TOL * scale, **detail})
+                    "abs_tol": acc * scale, **detail})
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: {results[-1]}")
@@ -336,7 +362,194 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve tinyllama-1.1b at full width and depth
+# phase 4: the attention kernels against their plain versions, on the card
+# ---------------------------------------------------------------------------
+
+
+# Tolerances of a kernel against its plain version on the same inputs, as
+# (rel, share of max|ref|). float32: summation order only (ACC_TOL).
+# bfloat16 / float16: the outputs are narrow, and p (forward; dK/dV) and ds
+# (backward) are rounded to the narrow type from fp32 values that the two
+# sides compute in different summation orders, so a rounding may fall on
+# either side of a tie: one step of the output type, relative to the value
+# and to the largest value. float64: 1e-12 of the largest value.
+ATT_TOL = {torch.float32: (0.0, ACC_TOL),
+           torch.bfloat16: (BF16_ULP, BF16_ULP / 2),
+           torch.float16: (F16_ULP, F16_ULP / 2),
+           torch.float64: (0.0, 1e-12)}
+
+
+def _att_inputs(b, h, sq, sk, d, dtype, seed, p_valid=1.0, dead=False):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v = (torch.randn((b, h, s_, d), generator=gen, device=DEV,
+                           dtype=torch.float64).to(dtype)
+               for s_ in (sq, sk, sk))
+    kv_valid = torch.rand((b, sk), generator=gen, device=DEV) < p_valid
+    if dead:
+        kv_valid[0] = False                   # batch 0: every row dead
+    dout = torch.randn((b, h, sq, d), generator=gen, device=DEV,
+                       dtype=torch.float64).to(dtype)
+    return q, k, v, kv_valid, dout
+
+
+def check_attention(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
+                    results, p_valid=0.9, dead=False):
+    """Forward, dQ and dK/dV kernels against their plain versions on the
+    same padded, flattened operands; the probe exactly. Returns the
+    operands and the kernels' outputs."""
+    q, k, v, kv_valid, dout = _att_inputs(b, h, sq, sk, d, dtype, seed,
+                                          p_valid, dead)
+    qf, kf, vf, kvm, bq, bk = att._prepare(q, k, v, kv_valid, bq, bk)
+    geom = dict(causal=causal, bq=bq, bk=bk)
+    out, lse, probe = att.flash_fwd(qf, kf, vf, kvm, **geom)
+    p_out, p_lse, p_probe = att.flash_fwd_plain(qf, kf, vf, kvm, **geom)
+    torch.cuda.synchronize()
+    rel, acc = ATT_TOL[dtype]
+    short = str(dtype).replace("torch.", "")
+    name = f"{tag} {short}{' causal' if causal else ''}"
+    assert out.dtype == dtype and lse.dtype == p_lse.dtype
+    _check_float(f"flash_fwd out {name}", out, p_out, rel, results, acc)
+    dead_rows = p_lse <= att.NEG_INF * 0.5
+    if not torch.equal(lse <= att.NEG_INF * 0.5, dead_rows):
+        raise AssertionError(f"flash_fwd lse {name}: dead rows differ")
+    # lse is fp32 (fp64) whatever the operands: summation order only
+    lse_acc = 1e-12 if dtype == torch.float64 else ACC_TOL
+    _check_float(f"flash_fwd lse {name}", lse[~dead_rows], p_lse[~dead_rows],
+                 0.0, results, lse_acc)
+    _check_exact(f"flash_fwd probe {name}", probe, p_probe, results)
+    doutf = torch.nn.functional.pad(
+        dout, (0, 0, 0, qf.shape[1] - sq)).reshape(qf.shape).contiguous()
+    delta = (doutf.to(p_lse.dtype) * p_out.to(p_lse.dtype)).sum(-1)
+    args = (qf, kf, vf, kvm, doutf, p_lse, delta)
+    dq = att.flash_bwd_dq(*args, **geom)
+    dk, dv = att.flash_bwd_dkv(*args, **geom)
+    torch.cuda.synchronize()
+    _check_float(f"flash_bwd_dq {name}", dq,
+                 att.flash_bwd_dq_plain(*args, **geom), rel, results, acc)
+    p_dk, p_dv = att.flash_bwd_dkv_plain(*args, **geom)
+    _check_float(f"flash_bwd_dkv dk {name}", dk, p_dk, rel, results, acc)
+    _check_float(f"flash_bwd_dkv dv {name}", dv, p_dv, rel, results, acc)
+    if dead:
+        g0 = h                              # batch 0 holds groups 0..h-1
+        for what, t in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+            if float(t[:g0].abs().max()) != 0.0:
+                raise AssertionError(f"{name}: dead rows give non-zero {what}")
+        results.append({"check": f"dead rows zero {name}", "max_err": 0,
+                        "tol": 0})
+    return dict(q=q, k=k, v=v, kv_valid=kv_valid, dout=dout, qf=qf, kf=kf,
+                vf=vf, kvm=kvm, doutf=doutf, lse=lse, delta=delta, geom=geom,
+                probe=probe, n=(qf.shape[1] // bq))
+
+
+def check_attention_autograd(results):
+    """The public path with autograd (padding, flattening, the Function's
+    backward) on the card against the same on CPU tensors, where the plain
+    versions run: out and the three grads, fp32 and fp64."""
+    for dtype in (torch.float32, torch.float64):
+        q, k, v, kv_valid, dout = _att_inputs(2, 2, 45, 45, 16, dtype, 31,
+                                              p_valid=0.9)
+        got, want = [], []
+        for dev, dst in ((DEV, got), ("cpu", want)):
+            args = [t.detach().to(dev).requires_grad_(True)
+                    for t in (q, k, v)]
+            o = att.flash_attention(*args, kv_valid=kv_valid.to(dev),
+                                    causal=True, bq=16, bk=8)
+            dst.extend([o, *torch.autograd.grad(o, args, dout.to(dev))])
+        short = str(dtype).replace("torch.", "")
+        rel, acc = ATT_TOL[dtype]
+        for what, a, b_ in zip(("out", "dq", "dk", "dv"), got, want):
+            _check_float(f"flash_attention autograd {what} {short}",
+                         a.detach(), b_.detach().to(DEV), rel, results, acc)
+
+
+def att_bound(op: str, b, h, s, d, elt: int):
+    """Least time for one causal call at (b, h, s, d): the bytes of its
+    inputs and outputs once over the memory rate, or its products over the
+    bf16 tensor-core peak — the products of the causal triangle this input
+    needs (S(S+1)/2 pairs per head): forward q.k and p.v, dQ q.k, dO.v and
+    ds.k, dK/dV those two plus p.dO and ds.q, each 2*D operations a pair."""
+    g, pairs = b * h, s * (s + 1) / 2
+    mat = g * s * d * elt                       # one (G,S,D) operand
+    vec = g * s * 4                             # one (G,S) fp32 row vector
+    n_in, n_out, n_vec, n_prod = {
+        "flash_fwd": (3, 1, 3, 2),              # q k v | out | kvm, lse, probe
+        "flash_bwd_dq": (4, 1, 3, 3),           # q k v dO | dq | kvm lse delta
+        "flash_bwd_dkv": (4, 2, 3, 4)}[op]
+    t_bytes = ((n_in + n_out) * mat + n_vec * vec) / PEAK_BYTES_PER_S
+    t_ops = n_prod * 2 * d * g * pairs / PEAKS_FLOPS["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_attention():
+    results: list = []
+    b, h, s, d = TRAIN_ATT
+    ops_ = check_attention("train", b, h, s, s, d, torch.bfloat16, True,
+                           128, 128, 10, results, p_valid=1.0)
+    n = ops_["n"]
+    if int(ops_["probe"].sum()) != b * h * n * (n + 1) // 2:
+        raise AssertionError("causal probe does not sum to G*n(n+1)/2")
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        for i, (sq, sk, bq, bk, causal) in enumerate((
+                (64, 64, 16, 16, True), (64, 64, 16, 16, False),
+                (48, 80, 16, 16, False), (33, 33, 16, 8, True),
+                (33, 33, 16, 8, False), (130, 70, 32, 32, False),
+                (7, 128, 32, 32, False), (20, 20, 32, 32, True))):
+            check_attention(f"{sq}x{sk} b{bq}x{bk}", 2, 2, sq, sk, 16, dtype,
+                            causal, bq, bk, 20 + i, results)
+        check_attention("dead 32x32 b8x8", 2, 2, 32, 32, 8, dtype, False, 8,
+                        8, 30, results, dead=True)
+        check_attention("d128 256x256 b128x64", 1, 2, 256, 256, 128, dtype,
+                        True, 128, 64, 31, results)
+    check_attention("f16 256x256 b32x128", 1, 2, 256, 256, 64,
+                    torch.float16, True, 32, 128, 32, results)
+    check_attention("train f32", 1, 4, s, s, d, torch.float32, True, 128, 128,
+                    33, results, p_valid=1.0)
+    check_attention_autograd(results)
+
+    # times at the training shape
+    qf, kf, vf, kvm = (ops_[x] for x in ("qf", "kf", "vf", "kvm"))
+    bwd = (qf, kf, vf, kvm, ops_["doutf"], ops_["lse"], ops_["delta"])
+    geom = ops_["geom"]
+    heavy = dict(warmup=2, reps=5, inner=3)
+    timed = {
+        "flash_fwd": {
+            "ms": time_ms(lambda: att.flash_fwd(qf, kf, vf, kvm, **geom)),
+            "plain_ms": time_ms(lambda: att.flash_fwd_plain(
+                qf, kf, vf, kvm, **geom), **heavy)},
+        "flash_bwd_dq": {
+            "ms": time_ms(lambda: att.flash_bwd_dq(*bwd, **geom)),
+            "plain_ms": time_ms(lambda: att.flash_bwd_dq_plain(*bwd, **geom),
+                                **heavy)},
+        "flash_bwd_dkv": {
+            "ms": time_ms(lambda: att.flash_bwd_dkv(*bwd, **geom)),
+            "plain_ms": time_ms(lambda: att.flash_bwd_dkv_plain(
+                *bwd, **geom), **heavy)},
+    }
+    # the library's fused attention, a yardstick only: its forward, and its
+    # backward, which yields dQ, dK and dV together
+    q4, k4, v4 = (ops_[x].detach().requires_grad_(True) for x in "qkv")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True))
+    o4 = sdpa(q4, k4, v4, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), ops_["dout"], retain_graph=True))
+    for name, lib in (("flash_fwd", lib_fwd), ("flash_bwd_dq", lib_bwd),
+                      ("flash_bwd_dkv", lib_bwd)):
+        bnd, by = att_bound(name, b, h, s, d, 2)
+        timed[name].update(bound_ms=bnd, bound_by=by, library_ms=lib)
+    timed["library_note"] = ("F.scaled_dot_product_attention(is_causal=True)"
+                             " on (4,32,2048,64) bf16: forward, and its "
+                             "backward (dQ, dK, dV together) for both "
+                             "backward rows")
+    emit("attention", shape=list(TRAIN_ATT), dtype="bfloat16", causal=True,
+         blocks=[geom["bq"], geom["bk"]], n_checks=len(results),
+         checks=results, timed=timed)
+    return results, timed
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve tinyllama-1.1b at full width and depth
 # ---------------------------------------------------------------------------
 
 
@@ -405,7 +618,7 @@ def phase_serve(cfg, params):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: float32 against the full-forward oracle; the bf16 head route
+# phase 6: float32 against the full-forward oracle; the bf16 head route
 # ---------------------------------------------------------------------------
 
 
@@ -571,11 +784,208 @@ def phase_serve_exact(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: train tinyllama-1.1b at full width and depth
+# ---------------------------------------------------------------------------
 
 
-def kernels_line(results, timed, launches):
-    def err_of(check):
-        return next(r["max_err"] for r in results if r["check"] == check)
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048   # TinyLlama's context length
+
+
+def _train_cfgs():
+    """The model as configured (fp32 parameters, bf16 compute, full remat,
+    attention route "auto" = the kernels on the card) and the optimizer as
+    ``launch/train.py`` builds it for this many steps."""
+    cfg = get_config("tinyllama-1.1b")
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat, cfg.attn_flash) \
+        == ("float32", "bfloat16", "full", "auto"), cfg
+    opt = adamw.OptConfig(peak_lr=3e-4, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                          decay_steps=TRAIN_STEPS)
+    return cfg, opt
+
+
+def phase_train(att_timed):
+    cfg, opt = _train_cfgs()
+    L = cfg.n_layers
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(model_template(cfg), gen, dtype=cfg.param_dtype,
+                         device=DEV)
+    state = {"params": params, "opt": adamw.init(opt, params)}
+    step_fn = make_train_step(cfg, opt).step_fn
+    source = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    batches = [to_device(source.batch(i), DEV) for i in range(TRAIN_STEPS)]
+    probe = {"embed": params["embed"][:4, :8].clone(),
+             "wq": params["layers"]["attn"]["wq"][L - 1, :8, 0, :8].clone()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    att.reset_launches()           # the training path starts here
+    rows, per_step = [], []
+    for i, batch in enumerate(batches):
+        before = dict(att.LAUNCHES)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        m = {k: float(v) for k, v in metrics.items()}
+        counts = {k: att.LAUNCHES[k] - before[k] for k in att.LAUNCHES}
+        per_step.append(counts)
+        rows.append({"step": i + 1, "ms": ms, **m, "launches": counts})
+        emit("train_step", **rows[-1])
+    launches = dict(att.LAUNCHES)  # read right after the training path
+    peak = torch.cuda.max_memory_allocated()
+
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    for counts in per_step:
+        assert counts == want, (counts, want)
+    for r in rows:
+        assert np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]), r
+        assert r["grad_norm"] > 0, r
+        lr = float(adamw.schedule(opt, r["step"]))
+        assert r["lr"] == lr, (r["lr"], lr)
+    assert abs(rows[0]["loss"] - np.log(cfg.vocab_size)) < 1.0, rows[0]
+    assert len({r["loss"] for r in rows}) == len(rows), rows
+    p = state["params"]
+    assert not torch.equal(p["embed"][:4, :8], probe["embed"])
+    assert not torch.equal(p["layers"]["attn"]["wq"][L - 1, :8, 0, :8],
+                           probe["wq"])
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(p))
+
+    steady = [r["ms"] for r in rows[1:]]    # the first step is the warm-up
+    step_ms = statistics.mean(steady)
+    kernel_ms = sum(want[k] * att_timed[k]["ms"] for k in want)
+    emit("train", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
+         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         remat=cfg.remat, losses=[r["loss"] for r in rows],
+         step_ms=[r["ms"] for r in rows], steady_step_ms=step_ms,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+         launches_per_step=want, launches_total=launches,
+         attention_kernels_ms_per_step=kernel_ms,
+         attention_kernels_share=kernel_ms / step_ms,
+         max_memory_allocated=peak)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: one train step, kernel route against the route forced off
+# ---------------------------------------------------------------------------
+
+
+FP32_LOSS_TOL = 1e-5   # fp32, 2 layers: summation order only
+FP32_GRAD_TOL = 1e-4   # ... of max|grad| of each parameter
+# float64 at the configured init: the reference's init law takes the fan-in
+# of a (d, heads, head_dim) projection from the heads axis (wk, wv std 0.5,
+# wq 0.18, wo 0.125, where 1/sqrt(2048) = 0.022 would be the model width's),
+# so the random stack is chaotic: the serving witness (phase serve_exact)
+# reads 6e-4 between two summation orders of the float64 forward at 22
+# layers, and the gradient norm at init is ~1e16. The loss is held to the
+# witness's own limit (FP64_TOL) at every depth; the gradients only at 2
+# layers, where float64 still resolves them; deeper, their gap is printed.
+FP64_GRAD_TOL = 1e-9
+TRAIN_DEPTHS = (2, 8, 22)
+# float64 at full depth with the attention projections rescaled to the
+# model width's fan-in (1/sqrt(2048)), a stack that is not chaotic: loss
+# and gradients must then agree as float64 rounding allows, with ~1e10
+# room for amplification over 22 layers
+CONDITIONED_TOL = 1e-6
+
+
+def _loss_and_grads(cfg, params, batch, flash):
+    cfg = dataclasses.replace(cfg, attn_flash=flash)
+    before = dict(att.LAUNCHES)
+    (loss, _), grads = value_and_grad(
+        lambda p, b: lm_loss(cfg, p, b))(params, batch)
+    torch.cuda.synchronize()
+    return loss, grads, {k: att.LAUNCHES[k] - before[k] for k in before}
+
+
+def _route_gap(cfg, params, batch):
+    """Loss and gradients on the kernel route ("auto" on the card) and on
+    the route forced off; the kernel route's launch counts are exact.
+    Returns the loss gap and the largest gradient gap as a share of
+    max|grad| of its parameter."""
+    l_on, g_on, n_on = _loss_and_grads(cfg, params, batch, "auto")
+    l_off, g_off, n_off = _loss_and_grads(cfg, params, batch, "off")
+    L = cfg.n_layers
+    assert n_on == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L}, n_on
+    assert not any(n_off.values()), n_off
+    worst = 0.0
+    for a, b_ in zip(tree_leaves(g_on), tree_leaves(g_off)):
+        assert a.dtype == b_.dtype and bool(torch.isfinite(a).all())
+        scale = float(b_.abs().max())
+        worst = max(worst, float((a - b_).abs().max()) / max(scale, 1e-30))
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                 for g in tree_leaves(g_off))))
+    return {"n_layers": L, "loss": float(l_on),
+            "loss_gap": abs(float(l_on) - float(l_off)),
+            "grad_gap_of_max": worst, "grad_norm": gnorm}
+
+
+def _conditioned(params, cfg):
+    """The same parameters with the attention projections rescaled to the
+    model width's fan-in, 1/sqrt(d_model), instead of the init law's
+    1/sqrt(heads) (wq, wk, wv) and 1/sqrt(head_dim) (wo)."""
+    attn = params["layers"]["attn"]
+    d = cfg.d_model
+    scaled = {k: w * (w.shape[-2] / d) ** 0.5 if k != "wo"
+              else w * (w.shape[-2] / (w.shape[-3] * w.shape[-2])) ** 0.5
+              for k, w in attn.items()}
+    layers = dict(params["layers"], attn=scaled)
+    return dict(params, layers=layers)
+
+
+def phase_train_exact():
+    cfg, _ = _train_cfgs()
+    source = SyntheticLM(DataConfig(seq_len=256, global_batch=2,
+                                    vocab_size=cfg.vocab_size, seed=1))
+    batch = to_device(source.batch(0), DEV)
+    c32 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    p32 = init_params(model_template(c32), gen, device=DEV)
+    fp32 = _route_gap(c32, p32, batch)
+    del p32
+    assert fp32["loss_gap"] <= FP32_LOSS_TOL, fp32
+    assert fp32["grad_gap_of_max"] <= FP32_GRAD_TOL, fp32
+
+    c64 = dataclasses.replace(cfg, param_dtype="float64",
+                              compute_dtype="float64")
+    p64 = init_params(model_template(c64), gen, dtype="float64", device=DEV)
+    short = {k: v[:1, :128] for k, v in batch.items()}
+    by_depth = []
+    for n in TRAIN_DEPTHS:
+        cn, pn = _cut(c64, p64, n, "float64")
+        row = _route_gap(cn, pn, short)
+        by_depth.append(row)
+        emit("train_drift", init="configured", **row)
+    cond = _route_gap(c64, _conditioned(p64, c64), short)
+    emit("train_drift", init="conditioned", **cond)
+    del p64
+    for row in by_depth:
+        assert row["loss_gap"] <= FP64_TOL, row
+    assert by_depth[0]["grad_gap_of_max"] <= FP64_GRAD_TOL, by_depth[0]
+    assert by_depth[-1]["n_layers"] == cfg.n_layers
+    assert cond["loss_gap"] <= CONDITIONED_TOL, cond
+    assert cond["grad_gap_of_max"] <= CONDITIONED_TOL, cond
+    emit("train_exact", fp32={"batch": [2, 256], **fp32,
+                              "loss_tol": FP32_LOSS_TOL,
+                              "grad_tol": FP32_GRAD_TOL},
+         fp64_configured=by_depth, fp64_loss_tol=FP64_TOL,
+         fp64_grad_tol_2_layers=FP64_GRAD_TOL,
+         fp64_conditioned={"batch": [1, 128], **cond,
+                           "tol": CONDITIONED_TOL})
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernels_line(results, timed, launches, att_results, att_timed,
+                 att_launches):
+    def err_of(check, res=results):
+        return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
     bf16, int8 = timed["bfloat16"], timed["int8"]
     rows = [
@@ -596,10 +1006,29 @@ def kernels_line(results, timed, launches):
          "library_ms": int8["library_ms"], "shape": list(PATH_SHAPE),
          "dtype": "int8->int32"},
     ]
+    checks = {"flash_fwd": "flash_fwd out train bfloat16 causal",
+              "flash_bwd_dq": "flash_bwd_dq train bfloat16 causal",
+              "flash_bwd_dkv": "flash_bwd_dkv dk train bfloat16 causal"}
+    replaces = {"flash_fwd": "src/repro/kernels/attention.py:131",
+                "flash_bwd_dq": "src/repro/kernels/attention.py:276",
+                "flash_bwd_dkv": "src/repro/kernels/attention.py:293"}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        t = att_timed[name]
+        err = err_of(checks[name], att_results)
+        if name == "flash_bwd_dkv":
+            err = max(err, err_of("flash_bwd_dkv dv train bfloat16 causal",
+                                  att_results))
+        rows.append({"name": name, "route": "cuda", "source": ATT_SOURCE,
+                     "replaces": replaces[name],
+                     "launches": att_launches[name], "max_abs_err": err,
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"], "shape": list(TRAIN_ATT),
+                     "dtype": "bfloat16, causal"})
     for row in rows:
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched "
-                                 f"{row['name']}: {launches}")
+                                 f"{row['name']}: {launches} {att_launches}")
     return {"kernels": rows}
 
 
@@ -611,16 +1040,25 @@ def main():
     smi = phase_env()
     phase_build()
     results, timed = phase_kernels()
+    att_results, att_timed = phase_attention()
 
     cfg = get_config("tinyllama-1.1b")
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = init_params(model_template(cfg), gen, device=DEV)
-    phase_serve(cfg, params)          # sets the launch counts to 0 first
+    phase_serve(cfg, params)          # sets the matmul counts to 0 first
     phase_serve_exact(cfg, params)
-    launches = dict(mm.LAUNCHES)      # read right after the main path
+    launches = dict(mm.LAUNCHES)      # read right after the serving path
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    att_launches = phase_train(att_timed)   # sets its counts to 0 first
+    torch.cuda.empty_cache()
+    phase_train_exact()
     torch.cuda.synchronize()
 
-    print(json.dumps(kernels_line(results, timed, launches)), flush=True)
+    print(json.dumps(kernels_line(results, timed, launches, att_results,
+                                  att_timed, att_launches)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,11 @@ from repro_torch.device import resolve_device
 def _leaf(x, device, dtype):
     # torch.tensor copies: the tree never aliases the caller's arrays
     # (cache tensors are written in place)
-    t = torch.tensor(np.asarray(x))
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":    # numpy's extension type: via float32,
+        t = torch.tensor(a.astype(np.float32)).to(torch.bfloat16)  # exact
+    else:
+        t = torch.tensor(a)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -41,3 +45,23 @@ def cache_from_numpy(cache, device=None):
     out = {k: _leaf(v, device, None) for k, v in cache.items()}
     out["lengths"] = out["lengths"].to(torch.int32)
     return out
+
+
+def opt_state_from_numpy(opt, device=None):
+    """AdamW state ``{"m", "v", "step"}``: the moment trees keep each
+    leaf's dtype (bfloat16 moments included), ``step`` becomes an int32
+    scalar."""
+    device = resolve_device(device)
+    return {"m": params_from_numpy(opt["m"], device),
+            "v": params_from_numpy(opt["v"], device),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def train_state_from_numpy(state, device=None, dtype=None):
+    """A train state ``{"params", "opt": {"m", "v", "step"}}``, so that both
+    packages can step from the same state; ``dtype`` recasts the
+    parameters only."""
+    device = resolve_device(device)
+    return {"params": params_from_numpy(state["params"], device, dtype),
+            "opt": opt_state_from_numpy(state["opt"], device)}

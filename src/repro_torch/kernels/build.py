@@ -23,6 +23,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,6 +34,15 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C signatures per source: every pointer and the stream are c_void_p (a bare
 # Python int would be passed as a 32-bit int and cut the pointer).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "attention": {
+        # q, k, v, kvm, out, lse, probe; G, Sq, Sk, D, bq, bk, causal,
+        # dtype; stream
+        "repro_flash_fwd": (_vp,) * 7 + (_int,) * 8 + (_vp,),
+        # q, k, v, kvm, dout, lse, delta, dq; G ... dtype; stream
+        "repro_flash_bwd_dq": (_vp,) * 8 + (_int,) * 8 + (_vp,),
+        # q, k, v, kvm, dout, lse, delta, dk, dv; G ... dtype; stream
+        "repro_flash_bwd_dkv": (_vp,) * 9 + (_int,) * 8 + (_vp,),
+    },
     "matmul": {
         "repro_matmul": (_vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
         "repro_matmul_int8": (_vp, _vp, _vp, _int, _int, _int, _int, _int,
@@ -120,3 +131,19 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def launch(fn, device, *args) -> int:
+    """Call a C launcher on ``device``'s current stream; returns its
+    cudaError. The device is switched only when it is not the current one."""
+    if device.index is not None \
+            and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def raise_on_launch_error(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError "
+                           f"{err}")

@@ -80,22 +80,6 @@ def _check_launchable(a, b, what: str):
                          f"grid ({_MAX_GRID_ROWS * 8} rows)")
 
 
-def _launch(fn, device, *args) -> int:
-    """Call a C launcher on ``device``'s current stream; returns its
-    cudaError. The device is switched only when it is not the current one."""
-    if device.index is not None \
-            and device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            return fn(*args, torch.cuda.current_stream().cuda_stream)
-    return fn(*args, torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on_launch_error(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with cudaError "
-                           f"{err}")
-
-
 # ---------------------------------------------------------------------------
 # matmul
 # ---------------------------------------------------------------------------
@@ -139,10 +123,10 @@ def matmul(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
     _check_launchable(a, b, "matmul")
     lib = build.load("matmul")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    err = _launch(lib.repro_matmul, a.device, a.data_ptr(), b.data_ptr(),
+    err = build.launch(lib.repro_matmul, a.device, a.data_ptr(), b.data_ptr(),
                   out.data_ptr(), m, k, n, _FLOAT_CODES[a.dtype],
                   _FLOAT_CODES[out_dtype])
-    _raise_on_launch_error(err, "matmul")
+    build.raise_on_launch_error(err, "matmul")
     LAUNCHES["matmul"] += 1
     return out
 
@@ -211,9 +195,9 @@ def matmul_int8(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
     _check_launchable(a, b, "matmul_int8")
     lib = build.load("matmul")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    err = _launch(lib.repro_matmul_int8, a.device, a.data_ptr(),
+    err = build.launch(lib.repro_matmul_int8, a.device, a.data_ptr(),
                   b.data_ptr(), out.data_ptr(), m, k, n, shift,
                   int(out_dtype == torch.int8))
-    _raise_on_launch_error(err, "matmul_int8")
+    build.raise_on_launch_error(err, "matmul_int8")
     LAUNCHES["matmul_int8"] += 1
     return out

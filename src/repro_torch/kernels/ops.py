@@ -8,14 +8,14 @@ unless the caller passes ``lmul=`` explicitly — register grouping and
 element width travel together, as in vsetvl.
 
 Only the kernels that have been ported have a wrapper here (``matmul``,
-``matmul_int8`` and the logits head over them); the others arrive with
-their kernels.
+``matmul_int8`` and the logits head over them, ``flash_attention``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.precision import Policy, dtype_name, torch_dtype
+from repro_torch.kernels.attention import flash_attention as _flash
 from repro_torch.kernels.matmul import matmul as _matmul
 from repro_torch.kernels.matmul import matmul_int8 as _matmul_int8
 
@@ -41,6 +41,17 @@ def matmul_int8(a, b, *, policy: Policy | None = None, **kw):
     if policy is not None:
         kw.setdefault("lmul", policy.lmul)
     return _matmul_int8(a, b, **kw)
+
+
+def flash_attention(q, k, v, *, policy: Policy | None = None, **kw):
+    """Blockwise flash attention with a training-grade backward (see
+    kernels/attention.py). ``policy.attn_bq``/``attn_bk`` pick the block
+    shapes; ``kv_valid`` passes through uncast (it is a mask, not data)."""
+    if policy is not None:
+        kw.setdefault("bq", policy.attn_bq)
+        kw.setdefault("bk", policy.attn_bk)
+    q, k, v = _cast(policy, q, k, v)
+    return _flash(q, k, v, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -5,26 +5,30 @@ parallel attention: the KV axis is walked chunk by chunk with a running
 max / denominator, so the score matrix is never materialized past one
 chunk. Sequences at or below the threshold take one masked softmax.
 
+The no-cache causal case (training, and the full forward a scorer runs)
+routes through the blockwise-attention kernel, ``kernels.ops.
+flash_attention`` (CUDA forward and recompute-p backward), when
+:func:`flash_route_enabled` says so: by default when the operands lie on a
+CUDA device, as the reference takes its kernel on its accelerator. On the
+CPU, or with the route off, the same case computes through the quadratic /
+per-q-block branches, whose per-q-block ``torch.utils.checkpoint`` policy
+(``block_remat``) bounds the residuals a backward pass keeps.
+
 Convention (shared with the reference and its kernel): rows with NO valid
 key output zeros.
-
-The fused blockwise-attention kernel of the reference is not ported yet
-(ROADMAP Queue B3). Until it is, ``flash_route_enabled("auto")`` is False
-and the triangular (no-cache, training-shaped) case computes through the
-quadratic / per-q-block branches, exactly as the reference does when its
-kernel route is off. Forcing the route on raises ``NotImplementedError`` —
-it never quietly takes another path.
 
 KV-cache decode supports per-sequence lengths (continuous batching) via a
 row-wise indexed write, in place.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (P, apply_rope, repeat_kv,
@@ -34,14 +38,14 @@ NEG_INF = -1e30
 CHUNK_THRESHOLD = 2048  # use chunked attention when kv_len exceeds this
 KV_CHUNK = 1024
 
-def flash_route_enabled(mode: str = "auto") -> bool:
-    """Should attention route through the fused blockwise kernel?
+def flash_route_enabled(mode: str = "auto", device=None) -> bool:
+    """Should attention route through the blockwise-attention kernel?
 
     ``mode`` is the config knob ("auto" | "on" | "off"). The
-    ``REPRO_FLASH_ATTENTION`` env var (1/0) overrides. "auto" resolves to
-    **off** until the kernel is ported (ROADMAP Queue B3); a caller that
-    gets True here and reaches the kernel's call site gets
-    ``NotImplementedError``."""
+    ``REPRO_FLASH_ATTENTION`` env var (1/0) overrides. "auto" means kernel
+    on the accelerator: True when ``device`` (where the operands lie) is a
+    CUDA device, False on the CPU, where the kernel's plain version would
+    only repeat the blockwise branches' arithmetic."""
     env = os.environ.get("REPRO_FLASH_ATTENTION", "").strip().lower()
     if env in ("1", "on", "true"):
         return True
@@ -49,7 +53,72 @@ def flash_route_enabled(mode: str = "auto") -> bool:
         return False
     if mode == "on":
         return True
-    return False
+    if mode == "off":
+        return False
+    return device is not None and torch.device(device).type == "cuda"
+
+
+# the reference's jax.checkpoint policies, by the matrix products whose
+# outputs a policy keeps: "dots" keeps every product, batched ones too
+# (bmm), "dots_no_batch" only those without batch dimensions (mm)
+_SAVED_PRODUCTS = {
+    "dots": {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default},
+    "dots_no_batch": {torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default},
+}
+_CKPT_POLICIES = ("everything", "nothing", "dots", "dots_no_batch")
+
+
+def checkpoint_policy(name: str):
+    """The ``torch.utils.checkpoint`` context for a named policy of the
+    per-q-block triangular loop (the blockwise-parallel-transformer knob),
+    shared with ``transformer._maybe_remat``. "none" -> None (no
+    checkpoint); "everything" -> None too, since saving every residual is
+    what plain autograd does; "nothing" -> a context that saves no
+    residual; "dots" / "dots_no_batch" -> a selective-checkpoint context
+    that saves the matrix products' outputs and recomputes the rest. Any
+    other name raises ``ValueError``: no policy is mapped to another."""
+    if name in (None, "none", ""):
+        return None
+    if name not in _CKPT_POLICIES:
+        raise ValueError(
+            f"unknown checkpoint policy {name!r}; pick one of "
+            f"{['none', *_CKPT_POLICIES]}")
+    if name == "everything":
+        return None
+    if name == "nothing":
+        return _ckpt.noop_context_fn
+    saved = _SAVED_PRODUCTS[name]
+
+    def policy(ctx, op, *args, **kwargs):
+        return (_ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def checkpointed(fn, name: str):
+    """``fn`` under the named checkpoint policy (see
+    :func:`checkpoint_policy`); ``fn`` itself for "none" and
+    "everything"."""
+    context_fn = checkpoint_policy(name)
+    if context_fn is None:
+        return fn
+
+    def wrapped(*args):
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                context_fn=context_fn)
+    return wrapped
+
+
+def _flash_attention(q, k, v, kv_valid, causal: bool):
+    """(B,S,H,D)-layout adapter around kernels.ops.flash_attention."""
+    from repro_torch.kernels import ops as kops
+    out = kops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        kv_valid=kv_valid, causal=causal)
+    return out.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +164,8 @@ def _masked_softmax_attn(q, k, v, mask):
 
 
 def chunked_attention(q, k, v, q_pos, kv_valid, kv_offset=0, chunk=KV_CHUNK,
-                      triangular=False, threshold=None, use_flash="auto"):
+                      triangular=False, threshold=None, use_flash="auto",
+                      block_remat="none"):
     """Blockwise online-softmax attention over KV chunks.
 
     q: (B,S,H,D); k,v: (B,T,H,D); q_pos: (B,S) absolute positions;
@@ -104,11 +174,13 @@ def chunked_attention(q, k, v, q_pos, kv_valid, kv_offset=0, chunk=KV_CHUNK,
 
     ``triangular=True`` (S==T, q_pos==arange, kv_offset==0) splits queries
     into blocks and runs each block only against its causal prefix of KV
-    chunks. When the flash route is forced on (``use_flash="on"`` or
-    ``REPRO_FLASH_ATTENTION=1``) that case raises ``NotImplementedError``:
-    the fused kernel is ROADMAP Queue B3. The reference's per-q-block
-    rematerialization policy (``block_remat``) only matters to a backward
-    pass and arrives with the training slice.
+    chunks. When the flash route is enabled (``use_flash`` /
+    ``REPRO_FLASH_ATTENTION``, see :func:`flash_route_enabled`) that case
+    dispatches to the blockwise-attention kernel — same math, fused, with
+    its own backward. Otherwise ``block_remat`` names the per-q-block
+    checkpoint policy ("none" | "everything" | "nothing" | "dots" |
+    "dots_no_batch", see :func:`checkpoint_policy`) bounding the residuals
+    a backward pass keeps.
 
     ``threshold`` caps the materialized quadratic fast path (defaults to
     CHUNK_THRESHOLD); sequences at or below it take one masked softmax.
@@ -121,11 +193,10 @@ def chunked_attention(q, k, v, q_pos, kv_valid, kv_offset=0, chunk=KV_CHUNK,
         threshold = CHUNK_THRESHOLD
 
     tri = triangular and s_len == t_len and kv_offset == 0
-    if tri and flash_route_enabled(use_flash):
-        raise NotImplementedError(
-            "the fused blockwise-attention kernel is not ported yet "
-            "(ROADMAP Queue B3); set use_flash/attn_flash to 'auto' or "
-            "'off' and unset REPRO_FLASH_ATTENTION")
+    if tri and flash_route_enabled(use_flash, device=dev):
+        # q_pos is arange(S) by the triangular contract, so the kernel's
+        # index-vs-index causal mask is exactly this mask
+        return _flash_attention(q, k, v, kv_valid, causal=True)
 
     if t_len <= max(chunk, threshold):
         mask = (kv_pos[None, None, None, :] <= q_pos[:, None, :, None]) \
@@ -133,14 +204,15 @@ def chunked_attention(q, k, v, q_pos, kv_valid, kv_offset=0, chunk=KV_CHUNK,
         return _masked_softmax_attn(q, k, v, mask)
 
     if tri and s_len % chunk == 0:
+        blk = checkpointed(functools.partial(
+            chunked_attention, kv_offset=kv_offset, chunk=chunk,
+            threshold=threshold), block_remat)
         outs = []
         for i in range(s_len // chunk):
             sl = slice(i * chunk, (i + 1) * chunk)
             t_hi = (i + 1) * chunk
-            outs.append(chunked_attention(
-                q[:, sl], k[:, :t_hi], v[:, :t_hi], q_pos[:, sl],
-                kv_valid[:, :t_hi], kv_offset=kv_offset, chunk=chunk,
-                threshold=threshold))
+            outs.append(blk(q[:, sl], k[:, :t_hi], v[:, :t_hi],
+                            q_pos[:, sl], kv_valid[:, :t_hi]))
         return torch.cat(outs, dim=1)
 
     # rectangular loop over KV chunks, slicing K/V in place; the ragged
@@ -252,7 +324,9 @@ def gqa_attention(cfg: ArchConfig, p: dict, x, positions, *,
                             chunk=getattr(cfg, "attn_chunk", KV_CHUNK),
                             threshold=getattr(cfg, "attn_threshold", 0)
                             or None,
-                            use_flash=getattr(cfg, "attn_flash", "auto"))
+                            use_flash=getattr(cfg, "attn_flash", "auto"),
+                            block_remat=getattr(cfg, "attn_block_remat",
+                                                "none"))
     out = _mask_pad_heads(cfg, out)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, new_cache

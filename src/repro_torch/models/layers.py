@@ -90,11 +90,36 @@ def tree_leaves(tree):
         yield tree
 
 
-def tree_map(fn, tree):
-    """``fn`` over every tensor of a nested dict, keys kept."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over every tensor of a nested dict, keys kept; with further
+    trees of the same keys, ``fn`` takes one leaf of each."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def value_and_grad(loss_fn):
+    """The twin of ``jax.value_and_grad(loss_fn, has_aux=True)`` over a
+    dict-of-tensors tree: ``loss_fn(params, batch) -> (loss, metrics)``
+    becomes ``(params, batch) -> ((loss, metrics), grads)``, the grads a
+    tree of the params' keys. The params are differentiated through
+    detached views (no copy); loss and metrics come back detached."""
+    def fn(params, batch):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, metrics = loss_fn(leaves, batch)
+        flat = list(tree_leaves(leaves))
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        it = iter(g if g is not None else torch.zeros_like(p)
+                  for g, p in zip(grads, flat))
+        # tree_leaves walks keys in sorted order: rebuild in that order
+        def rebuild(node):
+            if isinstance(node, dict):
+                return {k: rebuild(node[k]) for k in sorted(node)}
+            return next(it)
+        return ((loss.detach(), tree_map(lambda m: m.detach(), metrics)),
+                rebuild(leaves))
+    return fn
 
 
 def tree_size_bytes(tree) -> int:

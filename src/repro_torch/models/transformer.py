@@ -7,8 +7,13 @@ families of the reference (moe, ssm, hybrid, vlm, audio) raise
 Layer parameters are stacked along a leading ``layers`` axis, as in the
 reference. PyTorch runs eagerly, so ``cfg.scan_layers`` has no meaning
 here: the stack is walked by a Python loop either way, each layer a view
-of the stacked tensors. ``cfg.remat`` likewise only matters to a backward
-pass and is ignored by the forward.
+of the stacked tensors. ``cfg.remat`` wraps each layer of the no-cache
+forward when autograd records it: "full" is ``torch.utils.checkpoint`` per
+layer (the layer runs again in the backward pass), the named policies
+("dots", ...) share ``models.attention.checkpoint_policy``'s vocabulary
+with the per-q-block knob of the blockwise attention path. Training
+attention routes through ``chunked_attention`` — and from there the
+blockwise-attention kernel when ``cfg.attn_flash`` allows.
 
 Decode uses per-sequence KV caches (see attention.py): ``forward`` with a
 cache writes the new KV rows **into the cache tensors it was given** and
@@ -19,12 +24,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.precision import torch_dtype
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import gqa_attention, gqa_template
-from repro_torch.models.layers import P, rms_norm, tree_map
+from repro_torch.models.attention import checkpointed, gqa_attention, \
+    gqa_template
+from repro_torch.models.layers import P, rms_norm, tree_map, widen
 from repro_torch.models.mlp import mlp, mlp_template
 
 # where each family that is not ported yet stands in ROADMAP.md
@@ -102,6 +109,17 @@ def dense_block(cfg, p, x, positions, cache=None, causal=True):
     return x, new_cache
 
 
+def _maybe_remat(fn, cfg: ArchConfig):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return lambda *args: _ckpt.checkpoint(fn, *args, use_reentrant=False)
+    # named policies share models.attention's vocabulary; "dots" keeps its
+    # historical meaning (no-batch-dims dots, the scan-body default)
+    name = "dots_no_batch" if cfg.remat == "dots" else cfg.remat
+    return checkpointed(fn, name)
+
+
 # ---------------------------------------------------------------------------
 # Full forward
 # ---------------------------------------------------------------------------
@@ -111,8 +129,9 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
             cache: Optional[dict] = None, head_fn=None):
     """Shared forward. tokens (B,S) integer, on the parameters' device.
 
-    cache=None  -> full causal forward (scoring), returns
-                   (logits, aux, extras)
+    cache=None  -> full causal forward (training / scoring), returns
+                   (logits, aux, extras); with autograd recording, each
+                   layer runs under ``cfg.remat``
     cache=dict  -> prefill (lengths=0, S=prompt) or decode (S small);
                    returns (logits, aux, new_cache). ``cache["k"]`` and
                    ``cache["v"]`` are updated in place and are the tensors
@@ -141,11 +160,19 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
         positions = steps.expand(b, s)
 
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    layers = params["layers"]
+    # one view per layer; unbind's backward stacks the layers' gradients
+    # once, where indexing would add a zero-padded copy of the whole stack
+    # per layer
+    layers = tree_map(lambda a: a.unbind(0), params["layers"])
+    remat = cache is None and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p_i = tree_map(lambda a: a[i], layers)
-        c_i = None if cache is None else {
-            "k": cache["k"][i], "v": cache["v"][i], "lengths": lengths}
+        if cache is None:
+            def layer(x, p_i=p_i):
+                return dense_block(cfg, p_i, x, positions)[0]
+            x = _maybe_remat(layer, cfg)(x) if remat else layer(x)
+            continue
+        c_i = {"k": cache["k"][i], "v": cache["v"][i], "lengths": lengths}
         x, _ = dense_block(cfg, p_i, x, positions, cache=c_i)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -160,6 +187,29 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
         return logits, aux, {"k": cache["k"], "v": cache["v"],
                              "lengths": lengths + s}
     return logits, aux, {"final_hidden": x}
+
+
+# ---------------------------------------------------------------------------
+# Losses / steps-facing API
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(cfg: ArchConfig, params, batch):
+    """Next-token CE (+ the MoE aux loss, zero for the dense family).
+    batch = {"tokens", "labels"} (B,S) integer tensors on the parameters'
+    device. Returns (total, {"ce", "aux"})."""
+    logits, aux, _ = forward(cfg, params, batch["tokens"])
+    loss = _ce(logits, batch["labels"])
+    total = loss + 0.01 * aux
+    return total, {"ce": loss, "aux": aux}
+
+
+def _ce(logits, labels):
+    """Mean cross-entropy in fp32 (float64 for float64 logits)."""
+    logits = widen(logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 # ---------------------------------------------------------------------------

@@ -41,9 +41,17 @@ def test_the_walk_sees_the_whole_port():
     names = {p.relative_to(REPO).as_posix() for p in FILES}
     assert "chip_smoke.py" in names and (REPO / "chip_smoke.py").exists()
     for must in ("src/repro_torch/kernels/matmul.py",
+                 "src/repro_torch/kernels/attention.py",
                  "src/repro_torch/serving/engine.py",
                  "src/repro_torch/models/transformer.py",
-                 "src/repro_torch/launch/serve.py"):
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/train/step.py",
+                 "src/repro_torch/train/trainer.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/ft/elastic.py",
+                 "src/repro_torch/core/stripmine.py"):
         assert must in names
 
 
@@ -75,7 +83,11 @@ def test_importing_the_port_does_not_import_jax():
     import subprocess
     code = ("import sys; sys.path.insert(0, %r); "
             "import repro_torch.serving, repro_torch.launch.serve, "
-            "repro_torch.convert, repro_torch.kernels.ops; "
+            "repro_torch.convert, repro_torch.kernels.ops, "
+            "repro_torch.kernels.attention, repro_torch.launch.train, "
+            "repro_torch.train.trainer, repro_torch.train.step, "
+            "repro_torch.optim.adamw, repro_torch.data.pipeline, "
+            "repro_torch.ft.elastic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))"
             % str(PKG.parent))
@@ -89,6 +101,7 @@ def test_the_kernel_library_is_only_needed_at_launch():
     wrappers on CPU tensors never gets there."""
     from repro_torch.kernels import build
     assert (build.CSRC / "matmul.cu").exists()
+    assert (build.CSRC / "attention.cu").exists()
     assert set(build.SIGNATURES) == {p.stem for p in build.CSRC.glob("*.cu")}
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build.library_path("matmul").parent == REPO / "build" / "repro_torch"

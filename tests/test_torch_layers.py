@@ -211,13 +211,16 @@ def test_chunked_attention_triangular_blocks_and_forced_flash():
     want = jattn.chunked_attention(*args_j, chunk=8, threshold=8,
                                    triangular=True, use_flash="off")
     close(got, want)
-    # "auto" is off until the fused kernel is ported; forcing it on raises
+    # "auto" means the kernel on a CUDA device, so it is off for CPU
+    # tensors; forcing it on takes the kernel's route (its plain version on
+    # the CPU) and computes the same function
     assert tattn.flash_route_enabled("auto") is False
+    assert tattn.flash_route_enabled("auto", device="cpu") is False
     assert tattn.flash_route_enabled("off") is False
     assert tattn.flash_route_enabled("on") is True
-    with pytest.raises(NotImplementedError, match="B3"):
-        tattn.chunked_attention(*args_t, chunk=8, threshold=8,
-                                triangular=True, use_flash="on")
+    forced = tattn.chunked_attention(*args_t, chunk=8, threshold=8,
+                                     triangular=True, use_flash="on")
+    close(forced, want)
 
 
 def test_flash_env_override(monkeypatch):
