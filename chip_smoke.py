@@ -5,9 +5,11 @@
 
 Needs a CUDA device, ``nvcc`` and nothing else: it builds the kernels from
 ``src/repro_torch/kernels/csrc``, serves randomly initialised tinyllama-1.1b
-at full width and full depth, and trains it at full width and depth for a
-few steps. Without a CUDA device, or in a directory that lacks the package,
-it exits non-zero and prints no result. Phases, one JSON line each:
+at full width and full depth, trains it at full width and depth for a few
+steps, runs the paper's kernels and the scan kernel at their real shapes,
+and serves zamba2-7b and xlstm-1.3b at full width. Without a CUDA device,
+or in a directory that lacks the package, it exits non-zero and prints no
+result. Phases, one JSON line each:
 
 1. ``env``     the card's name and power limit, torch / CUDA / nvcc versions.
 2. ``build``   compiles the kernels (seconds, registers and spills per kernel).
@@ -21,7 +23,9 @@ it exits non-zero and prints no result. Phases, one JSON line each:
                training shape (B 4, H 32, S 2048, D 64, bf16, causal), at
                the ragged and small-block shapes of the CPU tests, with
                fully dead rows, in float32, bfloat16, float16 and float64;
-               the public autograd path against the CPU's; then times
+               at zamba2-7b's serving-oracle shape (1, 32, 136, head_dim
+               112) in float32 and bfloat16; the public autograd path
+               against the CPU's; then times
                kernels, plain versions, bounds and
                ``F.scaled_dot_product_attention`` as a yardstick.
 5. ``serve``   tinyllama-1.1b, 8 slots, 16 requests, degrade ladder down to
@@ -33,7 +37,8 @@ it exits non-zero and prints no result. Phases, one JSON line each:
                forward in float64 (logits within 1e-3, tokens equal), with
                the float32 runs held to that witness; and the bf16
                logits-head route through ``matmul``. The full forward (no
-               cache) goes through the attention kernel here.
+               cache) goes through the attention kernel here; the oracle's
+               launches of it are counted from 0.
 7. ``train``   tinyllama-1.1b unreduced (bf16 compute, fp32 parameters,
                ``remat="full"``), batch 4 x 2048 of ``SyntheticLM``, 4 steps
                of the port's train step through the attention kernels:
@@ -42,16 +47,46 @@ it exits non-zero and prints no result. Phases, one JSON line each:
 8. ``train_exact`` one train step's loss and gradients, kernel route
                against the route forced off: at full width and 2 layers in
                float32, and at full width and depth in float64.
+9. ``paper_kernels`` the paper's DAXPY (float64, n 256; float32, n 2^26)
+               and DCONV (GoogLeNet layer 1, float32 and bf16 -> f32
+               through a Policy) through ``ops.axpy`` / ``ops.conv2d``,
+               their launches counted; every case against the plain
+               version (bf16 at 2^26, the benchmark's 2^20, an lmul 8
+               case, unaligned addresses, float64 and bf16 convolutions,
+               the CPU tests' shapes), the contract's ValueErrors on CUDA
+               tensors; times against ``torch.add(y, x, alpha=a)`` and
+               ``F.conv2d`` with cuDNN's TF32 off.
+10. ``ssm_kernel`` ``ops.ssm_scan`` at one layer of zamba2-7b (BH 448, S
+               2048, N 64, P 64, chunk 256) and of xlstm-1.3b (BH 16, N
+               512, P 1025), float32 and bfloat16, against its plain
+               version and the model's ``chunked_linear_attention``; the
+               benchmark's shape, S equal to and below the chunk, ragged
+               N and P, float64; ``S % chunk != 0`` raises; times (no
+               library call computes this function).
+11. ``serve_ssm`` zamba2-7b unreduced (81 layers, d_model 3584) on 8 slots
+               with 16 requests, and xlstm-1.3b unreduced (48 layers) on 2
+               slots with 4, each through the degrade ladder down to the
+               int8 head; checks as in phase 5.
+12. ``serve_ssm_exact`` phase 6's first half for each of the two, depth
+               cut (zamba2-7b 7 layers: one group, the shared block, one
+               tail layer; xlstm-1.3b 4): float32 against the greedy
+               full-forward oracle (tokens equal, logits within 1e-3);
+               zamba2-7b's oracle runs its shared attention through the
+               attention kernel at head_dim 112.
 
-Then one line ``{"kernels": [...]}`` (launch counts of the serving phases
-5 and 6 for the matmul kernels and of phase 7 for the attention kernels,
-error, times and bound per kernel), one line with the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed
-check raises: nothing is caught and passed over.
+Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
+of the serving phases 5, 6 and 11 for the matmul kernels, of phase 7 and
+the oracles of 6 and 12 for the forward attention kernel (each path's count
+in ``launches_by_path``), of phase 7 for the backward ones, of phases 9-10
+for axpy, conv and the scan; error, times and bound per kernel), one line
+with the card's name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``. Any failed check raises: nothing is caught and passed
+over.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -68,15 +103,19 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.precision import (PEAK_BYTES_PER_S,  # noqa: E402
-                                        PEAKS_FLOPS)
+                                        PEAKS_FLOPS, Policy)
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM,  # noqa: E402
                                        to_device)
 from repro_torch.kernels import attention as att  # noqa: E402
+from repro_torch.kernels import axpy as ax  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import conv as cv  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.models.layers import (init_params, tree_leaves,  # noqa: E402
                                        tree_map, tree_size_bytes,
                                        value_and_grad)
+from repro_torch.models.ssm import chunked_linear_attention  # noqa: E402
 from repro_torch.models.transformer import (forward, init_cache,  # noqa: E402
                                             lm_loss, model_template)
 from repro_torch.optim import adamw  # noqa: E402
@@ -87,8 +126,19 @@ from repro_torch.serving import (DegradeLadder, Request,  # noqa: E402
 PATH_SHAPE = (8, 2048, 32000)      # (slots, d_model, vocab) of tinyllama-1.1b
 SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
 TRAIN_ATT = (4, 32, 2048, 64)      # (batch, heads, seq, head_dim) in training
+# (batch, heads, Sq, Sk, head_dim) of zamba2-7b's shared attention in the
+# serving oracle, whose prompts of 32-128 tokens grow by up to 8
+ZAMBA_ATT = (1, 32, 136, 136, 112)
 ATT_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 DEV = "cuda"                       # every tensor of this script lives here
+
+
+def free_memory():
+    """Collect unreachable objects first (a reference cycle can hold tensors
+    that no name reaches), then return the allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def emit(phase: str, **fields):
@@ -200,8 +250,9 @@ BF16_ULP = 2.0 ** -7  # one step of a bfloat16 result, relative to the value
 F16_ULP = 2.0 ** -10  # ... of a float16 result
 
 
-def _check_float(name, got, ref, rel, results, acc=ACC_TOL, **detail):
-    """|got - ref| <= rel * |ref| + acc * max|ref| elementwise.
+def _check_float(name, got, ref, rel, results, acc=ACC_TOL, atol=0.0,
+                 **detail):
+    """|got - ref| <= rel * |ref| + acc * max|ref| + atol elementwise.
 
     Both sides multiply the same operands exactly and accumulate in fp32, so
     they differ by summation order only: ACC_TOL of the largest result
@@ -209,13 +260,14 @@ def _check_float(name, got, ref, rel, results, acc=ACC_TOL, **detail):
     unpacked lane moves a result by about 1/sqrt(K) of the scale, hundreds
     of times the allowance. ``rel`` is for a narrow output alone, where the two fp32
     sums may round to neighbouring narrow values: one step of that type."""
+    equal = got.dtype == ref.dtype and torch.equal(got, ref)
     ref = ref.to(torch.float64)
     scale = float(ref.abs().max())
     err = (got.to(torch.float64) - ref).abs()
-    ok = bool((err <= rel * ref.abs() + acc * scale).all())
+    ok = bool((err <= rel * ref.abs() + acc * scale + atol).all())
     results.append({"check": name, "max_err": float(err.max()),
                     "ref_max": scale, "rel_tol": rel,
-                    "abs_tol": acc * scale, **detail})
+                    "abs_tol": acc * scale + atol, "equal": equal, **detail})
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: {results[-1]}")
@@ -505,6 +557,12 @@ def phase_attention():
                     torch.float16, True, 32, 128, 32, results)
     check_attention("train f32", 1, 4, s, s, d, torch.float32, True, 128, 128,
                     33, results, p_valid=1.0)
+    # zamba2-7b's shared attention as the serving oracle's full forward
+    # gives it: (1, 32, S, 112), the kernel's 128 head columns of which 16
+    # are zero, the default 128x128 blocks over a ragged tail
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        check_attention(f"zamba2 {ZAMBA_ATT}", *ZAMBA_ATT, dtype, True, 128,
+                        128, 34 + i, results, p_valid=1.0)
     check_attention_autograd(results)
 
     # times at the training shape
@@ -549,7 +607,7 @@ def phase_attention():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serve tinyllama-1.1b at full width and depth
+# phase 5 (and 11): serve a model at full width through the degrade ladder
 # ---------------------------------------------------------------------------
 
 
@@ -564,10 +622,14 @@ def make_requests(cfg, rng, n, max_new):
     return reqs
 
 
-def phase_serve(cfg, params):
+def phase_serve(cfg, params, slots=8, n_requests=16, phase="serve"):
+    """Serve ``n_requests`` of 32-128 prompt tokens and 32 new tokens on
+    ``slots`` slots through the degrade ladder (pressure 2 -> int8 head,
+    then 1 -> bf16), after a warm-up on a throw-away engine; the matmul
+    counts are set to 0 right before the path and returned right after."""
     # warm-up on a throw-away engine held at the int8 rung: first-call costs
     # (library handles, allocator growth) stay out of the timed run
-    warm = ServingEngine(cfg, params, slots=8, max_seq=512, device=DEV,
+    warm = ServingEngine(cfg, params, slots=slots, max_seq=512, device=DEV,
                          degrade=DegradeLadder(bf16_at=0.0, int8_at=0.0))
     for r in make_requests(cfg, np.random.RandomState(1), 2, 4):
         warm.submit(r)
@@ -576,16 +638,17 @@ def phase_serve(cfg, params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    engine = ServingEngine(cfg, params, slots=8, max_seq=512, device=DEV,
+    engine = ServingEngine(cfg, params, slots=slots, max_seq=512, device=DEV,
                            degrade=DegradeLadder(bf16_at=1.0, int8_at=2.0))
-    reqs = make_requests(cfg, np.random.RandomState(0), 16, 32)
-    mm.reset_launches()            # the main path starts here
+    reqs = make_requests(cfg, np.random.RandomState(0), n_requests, 32)
+    mm.reset_launches()            # the serving path starts here
     t0 = time.perf_counter()
     for r in reqs:
         assert engine.submit(r) is None
     engine.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = dict(mm.LAUNCHES)   # read right after the serving path
 
     assert all(r.state == State.DONE for r in reqs), \
         [(r.uid, r.state.value, r.finish_reason) for r in reqs]
@@ -594,8 +657,12 @@ def phase_serve(cfg, params):
     assert not engine.events, engine.events
     assert not any(key.startswith("I_") for key in engine.counters)
     n_int8 = engine.counters["degraded_steps_int8"]
-    assert n_int8 > 0, dict(engine.counters)
-    assert mm.LAUNCHES["matmul_int8"] == n_int8, (mm.LAUNCHES, n_int8)
+    assert n_int8 > 0 and engine.counters["degraded_steps_bf16"] > 0, \
+        dict(engine.counters)
+    assert launches["matmul_int8"] == n_int8, (launches, n_int8)
+    for key, t in engine.cache.items():
+        if key != "lengths":
+            assert bool(torch.isfinite(t).all()), key
 
     new_tokens = sum(len(r.out_tokens) for r in reqs)
     decode = {k[len("decode_"):]: {"steps": c, "mean_ms": 1e3 * s / c}
@@ -604,17 +671,22 @@ def phase_serve(cfg, params):
     prefill = {int(k[len("prefill_"):]): 1e3 * s / c
                for k, (c, s) in engine.timers.items()
                if k.startswith("prefill_")}
-    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
-         param_bytes=tree_size_bytes(params), slots=8, max_seq=512,
+    emit(phase, arch=cfg.name, family=cfg.family,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         compute_dtype=cfg.compute_dtype,
+         param_count=sum(t.numel() for t in tree_leaves(params)),
+         param_bytes=tree_size_bytes(params),
+         cache_bytes=tree_size_bytes(engine.cache), slots=slots, max_seq=512,
          requests=len(reqs), new_tokens=new_tokens, wall_s=wall,
          tokens_per_s=new_tokens / wall, ticks=engine.tick,
          decode_steps=decode,
          prefill_ms_by_prompt_len=dict(sorted(prefill.items())),
          counters=dict(engine.counters),
-         matmul_int8_launches=mm.LAUNCHES["matmul_int8"],
-         head_route=ops.lm_head_route(8, cfg.d_model, cfg.vocab_size, "int8"),
+         matmul_int8_launches=launches["matmul_int8"],
+         head_route=ops.lm_head_route(slots, cfg.d_model, cfg.vocab_size,
+                                      "int8", device=DEV),
          max_memory_allocated=torch.cuda.max_memory_allocated())
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -730,13 +802,27 @@ def full_depth_witness(cfg, params, prompts):
     return by_depth
 
 
+def _attention_layers(cfg, n_layers):
+    """Attention blocks one forward of the first ``n_layers`` layers runs:
+    every layer of the dense family, the shared block after each whole group
+    of ``attn_every`` Mamba2 layers of the hybrid family, none in the ssm
+    family."""
+    return {"dense": n_layers, "ssm": 0,
+            "hybrid": n_layers // max(cfg.attn_every, 1)}[cfg.family]
+
+
 @torch.inference_mode()
-def phase_serve_exact(cfg, params):
-    """float32 at full width. The engine's tokens are held to the greedy
-    full-forward oracle at ``EXACT_LAYERS`` layers, where float32 rounding
-    cannot yet flip a token; the cached path at full depth is held by
-    :func:`full_depth_witness`."""
-    cfg32, cut = _cut(cfg, params, EXACT_LAYERS, "float32")
+def phase_serve_exact(cfg, params, n_layers=EXACT_LAYERS, full_depth=True,
+                      phase="serve_exact"):
+    """float32 at full width, depth cut to ``n_layers``. The engine's tokens
+    are held to the greedy full-forward oracle, where float32 rounding
+    cannot yet flip a token, and the cached path's logits to within 1e-3 of
+    the full forward's. The oracle's full forward runs its attention through
+    ``flash_fwd``: that count is set to 0 right before the oracle and
+    returned, read right after it. With ``full_depth``, the cached path at
+    full depth is held by :func:`full_depth_witness` and the bf16
+    logits-head route is checked."""
+    cfg32, cut = _cut(cfg, params, n_layers, "float32")
     engine = ServingEngine(cfg32, cut, slots=8, max_seq=512, degrade=None,
                            device=DEV)
     reqs = make_requests(cfg32, np.random.RandomState(2), 2, 8)
@@ -745,15 +831,27 @@ def phase_serve_exact(cfg, params):
     engine.run_to_completion()
     assert all(r.state == State.DONE for r in reqs)
     assert engine.counters["degraded_steps"] == 0 and not engine.events
+    del engine
+    att.reset_launches()           # the oracle's path starts here
     for r in reqs:
         want = oracle_tokens(cfg32, cut, r.prompt, 8)
-        assert r.out_tokens == want, (r.uid, r.out_tokens, want)
-    del engine
+        assert r.out_tokens == want, (cfg.name, r.uid, r.out_tokens, want)
+    flash = att.LAUNCHES["flash_fwd"]    # read right after the oracle
+    # 8 full forwards per request
+    assert flash == 2 * 8 * _attention_layers(cfg, n_layers), flash
 
     # logits of the cached steps against the full forward's last position
     (pc, pf), (dc, df), _ = _cached_and_full(cfg32, cut, reqs[0].prompt)
     err_prefill, err_decode = _gap(pc, pf), _gap(dc, df)
     assert err_prefill < 1e-3 and err_decode < 1e-3, (err_prefill, err_decode)
+    fields = dict(arch=cfg.name, n_layers=n_layers, requests=len(reqs),
+                  new_tokens=16, tokens_equal_oracle=True,
+                  logits_err_prefill=err_prefill,
+                  logits_err_decode=err_decode, logits_tol=1e-3,
+                  flash_fwd_launches=flash, head_dim=cfg.resolved_head_dim)
+    if not full_depth:
+        emit(phase, **fields)
+        return flash
     by_depth = full_depth_witness(cfg, params, [r.prompt for r in reqs])
     assert mm.LAUNCHES["matmul"] == 0     # float32 serving launches no kernel
 
@@ -768,10 +866,7 @@ def phase_serve_exact(cfg, params):
     assert out.dtype == torch.float32 and out.shape == (8, 1, cfg.vocab_size)
     assert rel < 0.05, rel
     assert mm.LAUNCHES["matmul"] == before + 1, mm.LAUNCHES
-    emit("serve_exact", n_layers=EXACT_LAYERS, requests=len(reqs),
-         new_tokens=16, tokens_equal_oracle=True,
-         logits_err_prefill=err_prefill, logits_err_decode=err_decode,
-         logits_tol=1e-3, full_depth_layers=cfg.n_layers,
+    emit(phase, **fields, full_depth_layers=cfg.n_layers,
          fp64_tol=FP64_TOL, witness_factor=WITNESS_FACTOR,
          witness_slack=WITNESS_SLACK,
          fp64_tokens_equal_oracle=True,
@@ -781,6 +876,7 @@ def phase_serve_exact(cfg, params):
                                               "bfloat16"),
          lm_head_bf16_rel_err=rel, lm_head_bf16_tol=0.05,
          matmul_launches=mm.LAUNCHES["matmul"])
+    return flash
 
 
 # ---------------------------------------------------------------------------
@@ -980,10 +1076,394 @@ def phase_train_exact():
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the paper's kernels (axpy, conv2d_direct) against their plain
+# versions, on the card
+# ---------------------------------------------------------------------------
 
 
-def kernels_line(results, timed, launches, att_results, att_timed,
-                 att_launches):
+AXPY_SOURCE = "src/repro_torch/kernels/csrc/axpy.cu"
+CONV_SOURCE = "src/repro_torch/kernels/csrc/conv.cu"
+SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+AXPY_N = 1 << 26                   # 768 MB moved in f32, far past the L2
+GOOGLENET_L1 = (3, 118, 118, 64, 7, 7)   # (C, H, W, OC, KH, KW), pre-padded
+# tolerances of a kernel against its plain version, elementwise
+# |got - ref| <= rtol * |ref| + atol: float32 at the CPU tests' own
+# (tests/test_kernels.py: _tol for axpy, 2e-4 for conv, 3e-4 for the scan),
+# a narrow output within one step of its type, float64 within 1e-12 of
+# the largest value
+AXPY_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (BF16_ULP, 0.0)}
+CONV_TOL = (2e-4, 2e-4)
+SSM_TOL = (3e-4, 3e-4)
+FP64_REL = 1e-12
+
+
+def _check_close(name, got, ref, rtol, atol, results):
+    """The tests' form, |got - ref| <= rtol * |ref| + atol elementwise, on a
+    result of the plain version's dtype and shape."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} against "
+                             f"{ref.dtype}{tuple(ref.shape)}")
+    _check_float(name, got, ref, rtol, results, acc=0.0, atol=atol)
+
+
+def _raises_value_error(name, fn, results):
+    try:
+        fn()
+    except ValueError as e:
+        results.append({"check": name, "raised": str(e)[:120]})
+        return
+    raise AssertionError(f"{name}: no ValueError")
+
+
+def _randn(shape, dtype, seed, scale=1.0):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=DEV,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def _axpy_tol(dtype, ref):
+    if dtype == torch.float64:
+        return 0.0, FP64_REL * float(ref.abs().max())
+    return AXPY_TOL[dtype]
+
+
+def _conv_tol(out_dtype, ref):
+    if out_dtype == torch.float64:
+        return 0.0, FP64_REL * float(ref.abs().max())
+    if out_dtype == torch.bfloat16:
+        return BF16_ULP, CONV_TOL[1]
+    return CONV_TOL
+
+
+def paper_bound(kind, shape, elt):
+    """Least time for one call: the bytes of inputs and outputs once over
+    the memory rate, or the operations over the float32 CUDA-core rate
+    (these kernels multiply on the CUDA cores in fp32 or fp64; fp64 is
+    taken at the fp32 rate, which flatters it)."""
+    if kind == "axpy":
+        (n,) = shape
+        t_bytes, t_ops = 3 * n * elt / PEAK_BYTES_PER_S, \
+            2 * n / PEAKS_FLOPS["float32"]
+    else:
+        c, h, w, oc, kh, kw = shape
+        ho, wo = h - kh + 1, w - kw + 1
+        t_bytes = (c * h * w + oc * c * kh * kw + oc * ho * wo) * elt \
+            / PEAK_BYTES_PER_S
+        t_ops = 2 * oc * c * kh * kw * ho * wo / PEAKS_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_paper_kernels():
+    """The paper's DAXPY and DCONV through the public kernel API
+    (``ops.axpy``, ``ops.conv2d``) — their path: counts set to 0 before it
+    and read after it — then every case against the plain version, the
+    contract's ValueErrors on CUDA tensors, and the times."""
+    results: list = []
+    torch.backends.cudnn.allow_tf32 = False   # F.conv2d is timed below
+    x32, y32 = _randn((AXPY_N,), torch.float32, 40), \
+        _randn((AXPY_N,), torch.float32, 41)
+    xg = _randn(GOOGLENET_L1[:3], torch.float32, 42)
+    wg = _randn((GOOGLENET_L1[3], GOOGLENET_L1[0]) + GOOGLENET_L1[4:],
+                torch.float32, 43, 0.2)
+    x64, y64 = _randn((256,), torch.float64, 44), _randn((256,),
+                                                          torch.float64, 45)
+    bf16 = Policy(compute_dtype="bfloat16")
+    # the path: the paper's kernels as a user calls them
+    ax.reset_launches()
+    cv.reset_launches()
+    path = {
+        "daxpy_f64_256": ops.axpy(2.5, x64, y64),
+        "axpy_f32_2^26": ops.axpy(2.5, x32, y32),
+        "dconv_f32": ops.conv2d(xg, wg),
+        "dconv_bf16_to_f32": ops.conv2d(xg, wg, policy=bf16,
+                                        out_dtype=torch.float32),
+    }
+    torch.cuda.synchronize()
+    launches = {"axpy": ax.LAUNCHES["axpy"],
+                "conv2d_direct": cv.LAUNCHES["conv2d_direct"]}
+    assert launches == {"axpy": 2, "conv2d_direct": 2}, launches
+    ref = ax.axpy_plain(2.5, x64, y64)
+    _check_close("path daxpy f64 256", path["daxpy_f64_256"], ref,
+                 *_axpy_tol(torch.float64, ref), results)
+    _check_close("path axpy f32 2^26", path["axpy_f32_2^26"],
+                 ax.axpy_plain(2.5, x32, y32), *AXPY_TOL[torch.float32],
+                 results)
+    ref = cv.conv2d_plain(xg, wg)
+    _check_close("path dconv f32 googlenet1", path["dconv_f32"], ref,
+                 *CONV_TOL, results)
+    _check_close("path dconv f32 vs fp64", path["dconv_f32"],
+                 cv.conv2d_plain(xg.double(), wg.double()).float(),
+                 *CONV_TOL, results)
+    ref = cv.conv2d_plain(xg.bfloat16(), wg.bfloat16(),
+                          out_dtype=torch.float32)
+    _check_close("path dconv bf16->f32 googlenet1",
+                 path["dconv_bf16_to_f32"], ref, *CONV_TOL, results)
+    del path
+
+    # axpy: sizes, dtypes, lmul, an address that is not 16-byte aligned
+    for i, (n, dt, block, lmul, offset) in enumerate((
+            (AXPY_N, torch.bfloat16, 64 * 1024, 1, 0),
+            (1 << 20, torch.float32, 64 * 1024, 1, 0),
+            (256, torch.float64, 64 * 1024, 1, 0),
+            (4096, torch.float32, 512, 8, 0),
+            (1000, torch.float32, 8, 1, 1),
+            (1000, torch.bfloat16, 8, 1, 3),
+            (12345, torch.float16, 5, 1, 0))):
+        xs = _randn((n + offset,), dt, 50 + i)[offset:]
+        ys = _randn((n + offset,), dt, 60 + i)[offset:]
+        got = ax.axpy(-1.75, xs, ys, block=block, lmul=lmul)
+        ref = ax.axpy_plain(-1.75, xs, ys)
+        tol = (F16_ULP, 0.0) if dt == torch.float16 else _axpy_tol(dt, ref)
+        short = str(dt).replace("torch.", "")
+        _check_close(f"axpy {short} n={n} lmul={lmul} offset={offset}", got,
+                     ref, *tol, results)
+    # conv: GoogLeNet layer 1 in float64 and to a bf16 output; the CPU
+    # tests' shapes
+    for dt, out_dt in ((torch.float64, None), (torch.bfloat16, None)):
+        got = cv.conv2d_direct(xg.to(dt), wg.to(dt), out_dtype=out_dt)
+        ref = cv.conv2d_plain(xg.to(dt), wg.to(dt), out_dtype=out_dt)
+        short = str(dt).replace("torch.", "")
+        _check_close(f"conv {short} googlenet1", got, ref,
+                     *_conv_tol(ref.dtype, ref), results)
+    for i, (c, h, w, oc, kh, kw) in enumerate(((1, 8, 16, 2, 3, 3),
+                                              (3, 12, 20, 4, 7, 7),
+                                              (3, 10, 118, 8, 7, 7),
+                                              (5, 9, 33, 3, 2, 5))):
+        xr = _randn((c, h, w), torch.float32, 70 + i)
+        wr = _randn((oc, c, kh, kw), torch.float32, 80 + i, 0.2)
+        _check_close(f"conv f32 {(c, h, w, oc, kh, kw)}",
+                     cv.conv2d_direct(xr, wr), cv.conv2d_plain(xr, wr),
+                     *CONV_TOL, results)
+    _raises_value_error("conv channels disagree", lambda: ops.conv2d(
+        xg, wg[:, :2].contiguous()), results)
+    # 256 channels of 3 rows of width 512 exceed the block's shared memory
+    _raises_value_error("conv input rows beyond shared memory",
+                        lambda: ops.conv2d(
+                            torch.zeros((256, 3, 512), device=DEV),
+                            torch.zeros((1, 256, 3, 3), device=DEV)),
+                        results)
+    _raises_value_error("axpy n not a multiple of block", lambda: ops.axpy(
+        1.0, x64[:100], y64[:100], block=64), results)
+    torch.cuda.synchronize()
+
+    # times
+    timed = {}
+    heavy = dict(warmup=2, reps=5, inner=3)
+    for key, xs, ys in (("f32_2^26", x32, y32),
+                        ("bf16_2^26", x32.bfloat16(), y32.bfloat16()),
+                        ("f32_2^20", x32[:1 << 20], y32[:1 << 20]),
+                        ("f64_256", x64, y64)):
+        bnd, by = paper_bound("axpy", xs.shape, xs.element_size())
+        a = float(torch.tensor(2.5, dtype=xs.dtype))
+        timed[f"axpy_{key}"] = {
+            "ms": time_ms(lambda: ax.axpy(2.5, xs, ys)),
+            "plain_ms": time_ms(lambda: ax.axpy_plain(2.5, xs, ys)),
+            "library_ms": time_ms(lambda: torch.add(ys, xs, alpha=a)),
+            "bound_ms": bnd, "bound_by": by}
+    for key, dt, kw in (("f32", torch.float32, {}),
+                        ("bf16_to_f32", torch.bfloat16,
+                         {"out_dtype": torch.float32}),
+                        ("f64", torch.float64, {})):
+        xs, ws = xg.to(dt), wg.to(dt)
+        bnd, by = paper_bound("conv", GOOGLENET_L1, xs.element_size())
+        lib_x, lib_w = xs[None].to(kw.get("out_dtype", dt)), \
+            ws.to(kw.get("out_dtype", dt))
+        timed[f"conv_googlenet1_{key}"] = {
+            "ms": time_ms(lambda: cv.conv2d_direct(xs, ws, **kw)),
+            "plain_ms": time_ms(lambda: cv.conv2d_plain(xs, ws, **kw),
+                                **heavy),
+            "library_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                lib_x, lib_w)),
+            "bound_ms": bnd, "bound_by": by}
+    timed["library_note"] = ("axpy: torch.add(y, x, alpha=a); conv: "
+                             "F.conv2d on (1,C,H,W) with cuDNN TF32 off "
+                             "(bf16 row: on the same values in f32)")
+    emit("paper_kernels", launches=launches, n_checks=len(results),
+         checks=results, timed=timed,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    return results, timed, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the scan kernel against its plain version and the model's
+# chunked_linear_attention, at the SSM layers' shapes
+# ---------------------------------------------------------------------------
+
+
+def _ssm_layer_shapes():
+    """(name, BH, S, N, P, chunk) of one layer of each served SSM model at
+    batch 4 and 2048 tokens, from its config: zamba2-7b's Mamba2 heads
+    (d_inner / head_dim, state N, head_dim P) and xlstm-1.3b's mLSTM heads
+    (d_qk / heads, d_inner / heads + the ones column)."""
+    z, x = get_config("zamba2-7b"), get_config("xlstm-1.3b")
+    zd = z.ssm.expansion * z.d_model
+    xd = x.ssm.expansion * x.d_model
+    xqk = int(xd * x.ssm.qk_dim_factor)
+    return (("zamba2-7b", 4 * (zd // z.ssm.head_dim), 2048, z.ssm.state_dim,
+             z.ssm.head_dim, z.ssm.chunk_size),
+            ("xlstm-1.3b", 4 * x.n_heads, 2048, xqk // x.n_heads,
+             xd // x.n_heads + 1, x.ssm.chunk_size))
+
+
+def _ssm_inputs(bh, s, n, p, dtype, seed):
+    """The CPU tests' statistics: q, v ~ N(0,1), k ~ 0.3 N(0,1),
+    log_decay in (-0.5, 0], scale in [0, 1); log_decay and scale float32."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((bh, s, n), generator=gen, device=DEV).to(dtype)
+    k = (torch.randn((bh, s, n), generator=gen, device=DEV) * 0.3).to(dtype)
+    v = torch.randn((bh, s, p), generator=gen, device=DEV).to(dtype)
+    ld = -torch.rand((bh, s), generator=gen, device=DEV) * 0.5
+    sc = torch.rand((bh, s), generator=gen, device=DEV)
+    return q, k, v, ld, sc
+
+
+def _as_model(t, b, h):
+    """(B*H, S, ...) -> (B, S, H, ...), the model's layout."""
+    return t.reshape((b, h) + t.shape[1:]).transpose(1, 2)
+
+
+def ssm_bound(bh, s, n, p, chunk, elt):
+    """Least time for one call: inputs and output once over the memory
+    rate, or the products the causal chunked form needs over the float32
+    CUDA-core rate (the reference does every product in fp32): per (bh,
+    chunk of c) q.k^T and w.v over the c(c+1)/2 causal pairs, q.state and
+    the state update over c x N x P, 2 operations a multiply-add."""
+    pairs = chunk * (chunk + 1) / 2
+    per_chunk = 2 * pairs * (n + p) + 4 * chunk * n * p
+    t_ops = bh * (s // chunk) * per_chunk / PEAKS_FLOPS["float32"]
+    t_bytes = (bh * s * (2 * n + 2 * p) * elt + 2 * bh * s * 4) \
+        / PEAK_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_ssm_kernel():
+    results: list = []
+    layers = _ssm_layer_shapes()
+    f32_inputs = {}
+    # the path: ops.ssm_scan at both layers' shapes, float32 and bfloat16
+    ss.reset_launches()
+    outs = {}
+    for name, bh, s, n, p, chunk in layers:
+        for dt in (torch.float32, torch.bfloat16):
+            args = _ssm_inputs(bh, s, n, p, dt, 90)
+            if dt == torch.float32:
+                f32_inputs[name] = args
+            outs[(name, dt)] = (ops.ssm_scan(*args, chunk=chunk), args)
+    torch.cuda.synchronize()
+    launches = {"ssm_scan": ss.LAUNCHES["ssm_scan"]}
+    assert launches["ssm_scan"] == 2 * len(layers), launches
+    for (name, dt), (got, args) in outs.items():
+        bh, s, n, p, chunk = next(row[1:] for row in layers
+                                  if row[0] == name)
+        short = str(dt).replace("torch.", "")
+        tag = f"{name} ({bh},{s},{n},{p}) c{chunk} {short}"
+        ref = ss.ssm_scan_plain(*args, chunk=chunk)
+        if dt == torch.float32:
+            _check_close(f"ssm_scan {tag}", got, ref, *SSM_TOL, results)
+            # the model's core on the same numbers, in its (B,S,H,.) layout
+            b, h = 4, bh // 4
+            y_model, _ = chunked_linear_attention(
+                *(_as_model(t, b, h) for t in args), chunk=chunk)
+            y_model = y_model.transpose(1, 2).reshape(bh, s, p)
+            _check_close(f"ssm_scan vs chunked_linear_attention {tag}", got,
+                         y_model.contiguous(), *SSM_TOL, results)
+        else:
+            _check_close(f"ssm_scan {tag}", got, ref, BF16_ULP, 1e-5
+                         * float(ref.float().abs().max()), results)
+    del outs
+    # the kernel_bench shape, S equal to the chunk, S below the default
+    # chunk, ragged N and P, float64
+    for i, (bh, s, n, p, chunk, dt) in enumerate((
+            (8, 4096, 64, 64, 128, torch.float32),
+            (6, 256, 64, 64, 256, torch.float32),
+            (5, 100, 40, 70, 128, torch.float32),
+            (3, 96, 33, 65, 32, torch.float32),
+            (2, 32, 8, 8, 8, torch.float32),
+            (4, 512, 64, 130, 128, torch.float64),
+            (2, 256, 512, 33, 128, torch.float64))):
+        args = _ssm_inputs(bh, s, n, p, dt, 100 + i)
+        got = ss.ssm_scan(*args, chunk=chunk)
+        ref = ss.ssm_scan_plain(*args, chunk=chunk)
+        tol = SSM_TOL if dt == torch.float32 \
+            else (0.0, FP64_REL * float(ref.abs().max()))
+        short = str(dt).replace("torch.", "")
+        _check_close(f"ssm_scan ({bh},{s},{n},{p}) c{chunk} {short}", got,
+                     ref, *tol, results)
+    args = _ssm_inputs(2, 300, 8, 8, torch.float32, 120)
+    _raises_value_error("ssm_scan S % chunk != 0", lambda: ops.ssm_scan(
+        *args, chunk=128), results)
+    # a state of N 2048 at chunk 256 exceeds the block's shared memory
+    args = _ssm_inputs(1, 256, 2048, 8, torch.float32, 121)
+    _raises_value_error("ssm_scan state beyond shared memory",
+                        lambda: ops.ssm_scan(*args, chunk=256), results)
+    torch.cuda.synchronize()
+
+    timed = {}
+    heavy = dict(warmup=1, reps=5, inner=2)
+    for name, bh, s, n, p, chunk in layers:
+        args = f32_inputs[name]
+        bnd, by = ssm_bound(bh, s, n, p, chunk, 4)
+        timed[name] = {
+            "shape": [bh, s, n, p], "chunk": chunk,
+            "ms": time_ms(lambda: ss.ssm_scan(*args, chunk=chunk), **heavy),
+            "plain_ms": time_ms(lambda: ss.ssm_scan_plain(*args, chunk=chunk),
+                                **heavy),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    timed["library_note"] = ("null: no single PyTorch call computes the "
+                             "chunked decayed linear attention")
+    emit("ssm_kernel", launches=launches, n_checks=len(results),
+         checks=results, timed=timed)
+    return results, timed, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: serve zamba2-7b and xlstm-1.3b at full width
+# ---------------------------------------------------------------------------
+
+
+# (arch, slots, requests): 16 requests over 8 slots and 4 over 2 both start
+# at pressure 2 (int8 head) and end at 1 (bf16 compute)
+SSM_SERVE = (("zamba2-7b", 8, 16), ("xlstm-1.3b", 2, 4))
+SSM_EXACT_LAYERS = {"zamba2-7b": 7, "xlstm-1.3b": 4}
+
+
+def run_ssm_serving():
+    """Both SSM-family models at full width: serve, then the exact check on
+    the same random parameters; each tree is freed before the next."""
+    out = {}
+    for arch, slots, n_requests in SSM_SERVE:
+        # what earlier phases still hold: nothing of any size
+        emit("serve_ssm_start", arch=arch,
+             memory_allocated=torch.cuda.memory_allocated())
+        cfg = get_config(arch)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        params = init_params(model_template(cfg), gen, device=DEV)
+        launches = phase_serve(cfg, params, slots, n_requests, "serve_ssm")
+        # zamba2-7b: one group of 6 Mamba2 layers, the shared block and one
+        # tail layer; xlstm-1.3b: 4 layers
+        flash = phase_serve_exact(cfg, params, SSM_EXACT_LAYERS[arch],
+                                  full_depth=False, phase="serve_ssm_exact")
+        out[arch] = {"matmul_int8": launches["matmul_int8"],
+                     "flash_fwd": flash}
+        del params
+        free_memory()
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernels_line(results, timed, launches, serve_flash, att_results,
+                 att_timed, att_launches, paper, ssm, ssm_serving):
+    """One row per TPU kernel. ``launches`` / ``att_launches`` are the
+    counts read after the tinyllama serving and training paths,
+    ``serve_flash`` the forward kernel's count in tinyllama's serving
+    oracle, ``paper`` and ``ssm`` the (checks, times, counts) of phases
+    9-10, ``ssm_serving`` the counts read after each SSM-family serving
+    path: rows 2-3 add what those paths launched (the int8 head; the
+    oracles' attention, zamba2-7b's shared block at head_dim 112)."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -1025,10 +1505,51 @@ def kernels_line(results, timed, launches, att_results, att_timed,
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "shape": list(TRAIN_ATT),
                      "dtype": "bfloat16, causal"})
+    # rows 2-3 run on more than one path: each path's count, set to 0 just
+    # before it and read just after, and their sum
+    rows[1]["launches_by_path"] = {
+        "serve tinyllama-1.1b": launches["matmul_int8"],
+        **{f"serve {a}": v["matmul_int8"] for a, v in ssm_serving.items()}}
+    rows[2]["launches_by_path"] = {
+        "train tinyllama-1.1b": att_launches["flash_fwd"],
+        "serve_exact oracle tinyllama-1.1b": serve_flash,
+        **{f"serve_exact oracle {a}": v["flash_fwd"]
+           for a, v in ssm_serving.items()}}
+    for row in rows[1:3]:
+        row["launches"] = sum(row["launches_by_path"].values())
+    p_res, p_timed, p_launches = paper
+    for name, key, check, shape in (
+            ("axpy", "axpy_f32_2^26", "path axpy f32 2^26", [AXPY_N]),
+            ("conv2d_direct", "conv_googlenet1_f32",
+             "path dconv f32 googlenet1", list(GOOGLENET_L1))):
+        t = p_timed[key]
+        rows.append({"name": name, "route": "cuda",
+                     "source": AXPY_SOURCE if name == "axpy" else CONV_SOURCE,
+                     "replaces": "src/repro/kernels/axpy.py:38"
+                     if name == "axpy" else "src/repro/kernels/conv.py:50",
+                     "launches": p_launches[name],
+                     "max_abs_err": err_of(check, p_res),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"], "shape": shape,
+                     "dtype": "float32"})
+    s_res, s_timed, s_launches = ssm
+    t = s_timed["zamba2-7b"]
+    bh, s_, n, p = t["shape"]
+    rows.append({"name": "ssm_scan", "route": "cuda", "source": SSM_SOURCE,
+                 "replaces": "src/repro/kernels/ssm_scan.py:67",
+                 "launches": s_launches["ssm_scan"],
+                 "max_abs_err": err_of(
+                     f"ssm_scan zamba2-7b ({bh},{s_},{n},{p}) c{t['chunk']} "
+                     f"float32", s_res),
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": None, "shape": t["shape"],
+                 "dtype": f"float32, chunk {t['chunk']}"})
     for row in rows:
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched "
-                                 f"{row['name']}: {launches} {att_launches}")
+                                 f"{row['name']}: {rows}")
     return {"kernels": rows}
 
 
@@ -1046,19 +1567,24 @@ def main():
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = init_params(model_template(cfg), gen, device=DEV)
     phase_serve(cfg, params)          # sets the matmul counts to 0 first
-    phase_serve_exact(cfg, params)
+    serve_flash = phase_serve_exact(cfg, params)
     launches = dict(mm.LAUNCHES)      # read right after the serving path
     del params
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    free_memory()
 
     att_launches = phase_train(att_timed)   # sets its counts to 0 first
-    torch.cuda.empty_cache()
+    free_memory()
     phase_train_exact()
-    torch.cuda.synchronize()
+    free_memory()
 
-    print(json.dumps(kernels_line(results, timed, launches, att_results,
-                                  att_timed, att_launches)), flush=True)
+    paper = phase_paper_kernels()           # each sets its counts to 0 first
+    ssm = phase_ssm_kernel()
+    free_memory()
+    ssm_serving = run_ssm_serving()
+
+    print(json.dumps(kernels_line(results, timed, launches, serve_flash,
+                                  att_results, att_timed, att_launches, paper,
+                                  ssm, ssm_serving)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

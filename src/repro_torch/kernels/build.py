@@ -34,6 +34,25 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C signatures per source: every pointer and the stream are c_void_p (a bare
 # Python int would be passed as a 32-bit int and cut the pointer).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "axpy": {
+        # alpha, x, y, out; n, dtype; stream
+        "repro_axpy": (ctypes.c_double, _vp, _vp, _vp, ctypes.c_int64, _int,
+                       _vp),
+    },
+    "conv": {
+        # x, w, out; C, H, W, OC, KH, KW, dtype, out_dtype; stream
+        "repro_conv2d": (_vp,) * 3 + (_int,) * 8 + (_vp,),
+        # C, H, W, KH, KW, dtype -> output rows per block (0: does not fit)
+        "repro_conv2d_rows": (_int,) * 6,
+        "repro_conv2d_smem_budget": (),
+    },
+    "ssm_scan": {
+        # q, k, v, log_decay, scale, y; BH, S, N, P, chunk, dtype; stream
+        "repro_ssm_scan": (_vp,) * 6 + (_int,) * 6 + (_vp,),
+        # N, chunk, dtype -> shared-memory bytes per block
+        "repro_ssm_scan_smem_bytes": (_int,) * 3,
+        "repro_ssm_scan_smem_limit": (),
+    },
     "attention": {
         # q, k, v, kvm, out, lse, probe; G, Sq, Sk, D, bq, bk, causal,
         # dtype; stream

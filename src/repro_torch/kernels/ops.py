@@ -7,8 +7,10 @@ likewise flows into the block-shape contract (core.stripmine.lmul_tile)
 unless the caller passes ``lmul=`` explicitly — register grouping and
 element width travel together, as in vsetvl.
 
-Only the kernels that have been ported have a wrapper here (``matmul``,
-``matmul_int8`` and the logits head over them, ``flash_attention``).
+Every kernel of the reference has its wrapper here: ``matmul``,
+``matmul_int8`` and the logits head over them, ``axpy``, ``conv2d``,
+``flash_attention`` and ``ssm_scan``. Each reaches a hand-written CUDA
+kernel for CUDA tensors and its plain PyTorch version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -16,8 +18,11 @@ import torch
 
 from repro_torch.core.precision import Policy, dtype_name, torch_dtype
 from repro_torch.kernels.attention import flash_attention as _flash
+from repro_torch.kernels.axpy import axpy as _axpy
+from repro_torch.kernels.conv import conv2d_direct as _conv
 from repro_torch.kernels.matmul import matmul as _matmul
 from repro_torch.kernels.matmul import matmul_int8 as _matmul_int8
+from repro_torch.kernels.ssm_scan import ssm_scan as _ssm
 
 
 def _cast(policy, *tensors):
@@ -43,6 +48,18 @@ def matmul_int8(a, b, *, policy: Policy | None = None, **kw):
     return _matmul_int8(a, b, **kw)
 
 
+def axpy(alpha, x, y, *, policy: Policy | None = None, **kw):
+    if policy is not None:
+        kw.setdefault("lmul", policy.lmul)
+    x, y = _cast(policy, x, y)
+    return _axpy(alpha, x, y, **kw)
+
+
+def conv2d(x, w, *, policy: Policy | None = None, **kw):
+    x, w = _cast(policy, x, w)
+    return _conv(x, w, **kw)
+
+
 def flash_attention(q, k, v, *, policy: Policy | None = None, **kw):
     """Blockwise flash attention with a training-grade backward (see
     kernels/attention.py). ``policy.attn_bq``/``attn_bk`` pick the block
@@ -52,6 +69,10 @@ def flash_attention(q, k, v, *, policy: Policy | None = None, **kw):
         kw.setdefault("bk", policy.attn_bk)
     q, k, v = _cast(policy, q, k, v)
     return _flash(q, k, v, **kw)
+
+
+def ssm_scan(q, k, v, log_decay, scale, **kw):
+    return _ssm(q, k, v, log_decay, scale, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --requests 8 --slots 4 --max-new 16
 
-Runs on the card (``--device cuda``, the default) and fails without one;
-``--device cpu --reduced`` is the small CPU rehearsal. Parameters are
-randomly initialised from ``--seed``.
+Any ported family serves: the dense models, ``--arch xlstm-1.3b`` (mLSTM)
+and ``--arch zamba2-7b`` (Mamba2 + shared attention). Runs on the card
+(``--device cuda``, the default) and fails without one; ``--device cpu
+--reduced`` is the small CPU rehearsal. Parameters are randomly
+initialised from ``--seed``.
 """
 from __future__ import annotations
 

@@ -112,14 +112,19 @@ def value_and_grad(loss_fn):
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
         it = iter(g if g is not None else torch.zeros_like(p)
                   for g, p in zip(grads, flat))
-        # tree_leaves walks keys in sorted order: rebuild in that order
-        def rebuild(node):
-            if isinstance(node, dict):
-                return {k: rebuild(node[k]) for k in sorted(node)}
-            return next(it)
         return ((loss.detach(), tree_map(lambda m: m.detach(), metrics)),
-                rebuild(leaves))
+                _fill_like(leaves, it))
     return fn
+
+
+def _fill_like(tree, it):
+    """A tree of ``tree``'s keys whose leaves are taken from ``it`` in the
+    order :func:`tree_leaves` walks (sorted keys). A module-level function:
+    a recursive closure would form a reference cycle that keeps ``it``, and
+    the gradients it holds, alive until the cycle collector runs."""
+    if isinstance(tree, dict):
+        return {k: _fill_like(tree[k], it) for k in sorted(tree)}
+    return next(it)
 
 
 def tree_size_bytes(tree) -> int:

@@ -42,6 +42,10 @@ def test_the_walk_sees_the_whole_port():
     assert "chip_smoke.py" in names and (REPO / "chip_smoke.py").exists()
     for must in ("src/repro_torch/kernels/matmul.py",
                  "src/repro_torch/kernels/attention.py",
+                 "src/repro_torch/kernels/axpy.py",
+                 "src/repro_torch/kernels/conv.py",
+                 "src/repro_torch/kernels/ssm_scan.py",
+                 "src/repro_torch/models/ssm.py",
                  "src/repro_torch/serving/engine.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/launch/serve.py",
@@ -84,7 +88,9 @@ def test_importing_the_port_does_not_import_jax():
     code = ("import sys; sys.path.insert(0, %r); "
             "import repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.convert, repro_torch.kernels.ops, "
-            "repro_torch.kernels.attention, repro_torch.launch.train, "
+            "repro_torch.kernels.attention, repro_torch.kernels.axpy, "
+            "repro_torch.kernels.conv, repro_torch.kernels.ssm_scan, "
+            "repro_torch.models.ssm, repro_torch.launch.train, "
             "repro_torch.train.trainer, repro_torch.train.step, "
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
             "repro_torch.ft.elastic; "
@@ -100,8 +106,8 @@ def test_the_kernel_library_is_only_needed_at_launch():
     """Without nvcc a build raises, naming nvcc; importing and calling the
     wrappers on CPU tensors never gets there."""
     from repro_torch.kernels import build
-    assert (build.CSRC / "matmul.cu").exists()
-    assert (build.CSRC / "attention.cu").exists()
+    for name in ("matmul", "attention", "axpy", "conv", "ssm_scan"):
+        assert (build.CSRC / f"{name}.cu").exists()
     assert set(build.SIGNATURES) == {p.stem for p in build.CSRC.glob("*.cu")}
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build.library_path("matmul").parent == REPO / "build" / "repro_torch"

@@ -274,3 +274,23 @@ def test_gqa_attention_without_and_with_cache(arch):
     close(got, want, rtol=1e-5, atol=2e-5)
     close(gc["k"], wc["k"])
     close(gc["v"], wc["v"])
+
+
+def test_value_and_grad_frees_its_gradients_without_the_cycle_collector():
+    """Dropping the result of ``value_and_grad`` frees the gradients at
+    once: nothing in it forms a reference cycle that would keep them (on
+    the card, gigabytes of them) alive until the cycle collector runs."""
+    import gc
+    import weakref
+    params = {"a": torch.randn(3, 4), "b": {"c": torch.randn(4)}}
+    fn = tlayers.value_and_grad(
+        lambda p, x: (((x @ p["a"]) * p["b"]["c"]).sum(), {}))
+    gc.disable()
+    try:
+        (_, _), grads = fn(params, torch.randn(2, 3))
+        assert set(grads) == {"a", "b"} and grads["b"]["c"].shape == (4,)
+        ref = weakref.ref(grads["a"])
+        del grads
+        assert ref() is None
+    finally:
+        gc.enable()

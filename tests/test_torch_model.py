@@ -153,7 +153,9 @@ def test_head_fn_replaces_the_final_product():
     torch.testing.assert_close(plus, base + 1.0)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if a not in DENSE])
+@pytest.mark.parametrize(
+    "arch", [a for a in ARCH_NAMES if tget(a).family not in ("dense", "ssm",
+                                                            "hybrid")])
 def test_other_families_raise_not_implemented(arch):
     cfg = treduced(tget(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
