@@ -25,9 +25,17 @@ result. Phases, one JSON line each:
                fully dead rows, in float32, bfloat16, float16 and float64;
                at zamba2-7b's serving-oracle shape (1, 32, 136, head_dim
                112) in float32 and bfloat16; the public autograd path
-               against the CPU's; then times
+               against the CPU's; bfloat16 at (2,8,2048,64) with a dead
+               batch, at (1,4,2048,64) with blocks 128 x 64 and at
+               (1,4,1024,128), float16 at (1,4,2048,64), where the
+               backward's tensor-core tiles split differently, and at
+               head_dim 45 (staged element by element); two
+               launches of each backward kernel bit-equal; then times
                kernels, plain versions, bounds and
-               ``F.scaled_dot_product_attention`` as a yardstick.
+               ``F.scaled_dot_product_attention`` as a yardstick. A line
+               ``attention_ptxas`` before it gives the registers and spills
+               of every backward specialisation (none may spill on the
+               tensor cores at 64 head columns).
 5. ``serve``   tinyllama-1.1b, 8 slots, 16 requests, degrade ladder down to
                the int8 logits head; checks states, tokens, events and that
                the int8 kernel was launched once per int8 step.
@@ -514,6 +522,54 @@ def check_attention_autograd(results):
                          a.detach(), b_.detach().to(DEV), rel, results, acc)
 
 
+def check_backward_deterministic(ops_, results):
+    """Two launches of each backward kernel on the same bf16 inputs are
+    bit-equal: every output row has one writer, no atomics."""
+    bwd = (ops_["qf"], ops_["kf"], ops_["vf"], ops_["kvm"], ops_["doutf"],
+           ops_["lse"], ops_["delta"])
+    first = (att.flash_bwd_dq(*bwd, **ops_["geom"]),
+             *att.flash_bwd_dkv(*bwd, **ops_["geom"]))
+    second = (att.flash_bwd_dq(*bwd, **ops_["geom"]),
+              *att.flash_bwd_dkv(*bwd, **ops_["geom"]))
+    torch.cuda.synchronize()
+    for what, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"two launches give different {what}")
+        results.append({"check": f"two launches bit-equal {what} bfloat16",
+                        "max_err": 0, "tol": 0})
+
+
+_MANGLED_TYPE = {"13__nv_bfloat16": "bfloat16", "6__half": "float16",
+                 "f": "float32", "d": "float64"}
+
+
+def attention_ptxas(log=None):
+    """Registers and spills of every specialisation of the two backward
+    kernels, from what ``ptxas -v`` wrote into the attention library's build
+    log (or into ``log``)."""
+    if log is None:
+        log = build.library_path("attention").with_suffix(".log").read_text()
+    rows = []
+    for name, body in re.findall(
+            r"Compiling entry function '(\w+)'(.*?)(?=ptxas info\s*:\s*"
+            r"Compiling|\Z)", log, flags=re.S):
+        m = re.search(r"(flash_bwd_dkv|flash_bwd_dq)_(mma|kernel)I"
+                      r"(13__nv_bfloat16|6__half|f|d)[fd]?Li(\d+)E", name)
+        if not m:
+            continue
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", body)
+        rows.append({
+            "kernel": m.group(1), "dtype": _MANGLED_TYPE[m.group(3)],
+            "head_cols": int(m.group(4)),
+            "units": "tensor cores" if m.group(2) == "mma" else "CUDA cores",
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_store_bytes": int(spill.group(1)) if spill else None,
+            "spill_load_bytes": int(spill.group(2)) if spill else None})
+    return rows
+
+
 def att_bound(op: str, b, h, s, d, elt: int):
     """Least time for one causal call at (b, h, s, d): the bytes of its
     inputs and outputs once over the memory rate, or its products over the
@@ -534,6 +590,14 @@ def att_bound(op: str, b, h, s, d, elt: int):
 
 
 def phase_attention():
+    ptxas = attention_ptxas()
+    emit("attention_ptxas", kernels=ptxas)
+    mma64 = [r for r in ptxas
+             if r["units"] == "tensor cores" and r["head_cols"] == 64]
+    if len(mma64) != 4 or any(r["spill_store_bytes"] != 0
+                              or r["spill_load_bytes"] != 0 for r in mma64):
+        raise AssertionError(f"tensor-core backward at 64 head columns: "
+                             f"missing or spilling {mma64}")
     results: list = []
     b, h, s, d = TRAIN_ATT
     ops_ = check_attention("train", b, h, s, s, d, torch.bfloat16, True,
@@ -564,6 +628,20 @@ def phase_attention():
         check_attention(f"zamba2 {ZAMBA_ATT}", *ZAMBA_ATT, dtype, True, 128,
                         128, 34 + i, results, p_valid=1.0)
     check_attention_autograd(results)
+    # bfloat16 / float16 geometries where the backward's tensor-core tiles
+    # (64 rows a block, streamed tiles of 64 or 32) split differently
+    check_attention("dead (2,8,2048,64)", 2, 8, s, s, d, torch.bfloat16, True,
+                    128, 128, 40, results, p_valid=0.9, dead=True)
+    check_attention("(1,4,2048,64) b128x64", 1, 4, s, s, d, torch.bfloat16,
+                    True, 128, 64, 41, results)
+    check_attention("(1,4,1024,128)", 1, 4, 1024, 1024, 128, torch.bfloat16,
+                    True, 128, 128, 42, results)
+    check_attention("f16 (1,4,2048,64)", 1, 4, s, s, d, torch.float16, True,
+                    128, 128, 43, results)
+    # a head width that is not a multiple of 8: staged element by element
+    check_attention("d45 100x100 b32x32", 1, 2, 100, 100, 45, torch.bfloat16,
+                    True, 32, 32, 44, results)
+    check_backward_deterministic(ops_, results)
 
     # times at the training shape
     qf, kf, vf, kvm = (ops_[x] for x in ("qf", "kf", "vf", "kvm"))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``build/repro_torch/<name>-<hash>.so`` under the repository root
 (or under ``$REPRO_TORCH_BUILD_DIR``), compiled by ``nvcc`` for ``sm_90a``
-at first use and keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is not. Sources are compiled in
+at first use and keyed by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is not. Sources are compiled in
 parallel, one ``nvcc`` process each. Nothing here includes PyTorch's
 headers: a source builds in seconds.
 
@@ -95,8 +96,13 @@ def find_nvcc() -> str:
 
 
 def source_hash(name: str) -> str:
+    """Hash of ``<name>.cu``, of every header ``csrc/*.cuh`` (in sorted
+    order: any source may include any of them) and of the flags."""
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

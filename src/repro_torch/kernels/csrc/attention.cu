@@ -26,34 +26,65 @@
 //  - p is rounded to v's type before P.V, ds to k's (q's) type before
 //    dS.K (dS^T.Q), p to dO's type before P^T.dO, exactly where the
 //    reference calls astype;
-//  - float32, bfloat16 and float16 operands accumulate in float32 with true
-//    fp32 FMAs (no TF32); float64 operands accumulate in float64 and lse,
-//    delta are float64 then (float32 otherwise).
+//  - float32, bfloat16 and float16 operands accumulate in float32: float32
+//    with true fp32 FMAs (no TF32), bfloat16 and float16 the same in the
+//    forward and in the tensor cores' fp32 accumulators (exact products of
+//    the narrow operands) in the backward; float64 operands accumulate in
+//    float64 and lse, delta are float64 then (float32 otherwise).
 //
 // What bounds it on an H100 at the training shape (B 4, H 32, S 2048,
-// D 64, bf16, causal): about 516 operations per byte moved (the causal
-// forward is 4*G*S^2*D/2 = 6.9e10 FLOP over 134 MB of q, k, v and out), far
-// above the card's ridge of ~295 for bf16: arithmetic, not memory. The
-// card's bound is its bf16 tensor-core rate; this first version runs on the
-// CUDA cores in fp32 (67 TFLOP/s), so its own ceiling is ~15x the card's
-// bound.
+// D 64, bf16, causal): operations, not memory. The products of the causal
+// triangle (S(S+1)/2 pairs per head, 2*D operations a pair per product)
+// over the bf16 tensor-core rate of 989 TFLOP/s: the forward's two products
+// 6.9e10 FLOP (0.070 ms) over 134 MB of q, k, v and out, about 516
+// operations per byte, far above the card's ridge of ~295; dQ's three
+// products (q.k, dO.v, ds.k) 1.03e11 FLOP (0.104 ms); dK/dV's four (q.k,
+// dO.v, p.dO, ds.q) 1.37e11 FLOP (0.139 ms).
 //
 // What the design does about it:
-//  - Nothing O(S^2) reaches device memory: each (64 x 64) score tile (32 x
-//    32 for float64) lives in shared memory only, the backward recomputes p
-//    from q, k and the saved lse.
-//  - Operand tiles are staged in shared memory in the accumulator type,
-//    rows padded by one element so that the transposed reads (K^T, Q^T)
-//    hit distinct banks; every tile product is a 16 x 16 thread grid in
-//    which each thread owns a 4 x 4 (2 x 2) micro-tile of the scores and a
-//    4 x (D/16) micro-tile of the accumulator, in registers, and reads one
-//    column of A (a broadcast) and one row of B (consecutive) per k.
-//  - The row statistics of the online softmax are reduced by the 4 (8)
-//    threads of a row with warp shuffles.
+//  - Nothing O(S^2) reaches device memory: each score tile lives in
+//    registers or shared memory only, the backward recomputes p from q, k
+//    and the saved lse.
+//  - Backward, bfloat16 and float16 operands (flash_bwd_dq_mma,
+//    flash_bwd_dkv_mma): every tile product runs on the tensor cores as
+//    mma.sync m16n8k16 with fp32 accumulators (mma_sm90.cuh). A block of
+//    four warps owns 64 rows, 16 per warp: query rows in dQ, which holds
+//    its Q and dO tiles and streams K, V in tiles of 64 keys; key rows in
+//    dK/dV, which holds its K and V tiles and streams Q, dO with their lse
+//    and delta in tiles of 64 queries (32 at head widths above 64). The
+//    streamed tiles are double-buffered with 16-byte cp.async copies, so
+//    the next tile is in flight while this one computes. Tiles stay in
+//    their own type in shared memory, rows padded by 16 bytes so that
+//    ldmatrix is free of bank conflicts. Scores are C fragments in
+//    registers, formed in passes of 32 keys (dQ) or 16 queries (dK/dV),
+//    masked by select (masked, padded and dead entries exactly 0) and
+//    turned into p and ds there; rounded to the operands' type and packed
+//    in pairs they are the A fragments of the next product, which is the
+//    reference's astype. dK/dV forms the scores transposed (keys by
+//    queries), so P^T and dS^T feed dV += P^T dO and dK += dS^T Q as they
+//    stand. The passes keep a thread within 128 registers at 64 head
+//    columns without spilling, so four blocks (16 warps) share an SM and
+//    hide each other's latencies; that, the heads-fastest block order
+//    (heavy causal blocks of every head first) and ex2.approx for exp were
+//    chosen by timing (tools/torch_attention_variants.py). Each output row
+//    has one writer: no atomics, deterministic.
+//  - Forward (all types) and the float32 / float64 backward: the first
+//    version on the CUDA cores in true fp32 (fp64) FMAs, no TF32. Operand
+//    tiles are staged in shared memory in the accumulator type, rows padded
+//    by one element so that the transposed reads (K^T, Q^T) hit distinct
+//    banks; every tile product is a 16 x 16 thread grid in which each
+//    thread owns a 4 x 4 (2 x 2) micro-tile of the scores and a 4 x (D/16)
+//    micro-tile of the accumulator. Its ceiling is the fp32 rate (67
+//    TFLOP/s), ~15x the card's bound. The row statistics of the online
+//    softmax are reduced by the 4 (8) threads of a row with warp shuffles.
 //  - Heavy causal blocks are scheduled first (the forward and dQ take
 //    q-blocks from the last; dK/dV's heavy blocks are the first kv-blocks).
-// Tensor-core instructions (mma.sync / wgmma), TMA and warp specialisation
-// are what a faster version would add.
+//  - The wrapper's bq, bk set the block-skip bounds above; each kernel's own
+//    tile is its own choice and splits a wrapper block into parts (grid z).
+// What a faster version adds: wgmma (four warps on a 64-row tile, B from
+// shared memory), TMA copies with mbarriers, warp specialisation (a
+// producer warp keeping the ring of tiles full); the tensor-core design for
+// the forward.
 //
 // C interface (loaded with ctypes): each function launches on the given
 // stream, does not synchronise, allocates nothing and returns the launch's
@@ -65,7 +96,12 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -488,6 +524,381 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 / float16 backward on the tensor cores (mma.sync m16n8k16, fp32
+// accumulators): one block of four warps owns 64 rows (queries in dQ, keys
+// in dK/dV), 16 per warp; the other operand streams through shared memory
+// in tiles double-buffered with cp.async
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRows = 16 * kMmaWarps;  // the block's own rows
+
+template <typename T>
+constexpr bool kTensorCore = std::is_same<T, __nv_bfloat16>::value || std::is_same<T, __half>::value;
+
+template <int DP> struct MmaTiles {
+  // a staged row is 16 bytes longer than the head, so the 8 rows one
+  // ldmatrix reads start in 8 distinct groups of 4 banks: no conflict
+  static constexpr int LD = DP + 8;
+  static constexpr int kDqKeys = 64;                      // keys per step of dQ's loop
+  static constexpr int kDqPass = 32;                      // ... and per pass of its scores
+  static constexpr int kDkvQueries = DP <= 64 ? 64 : 32;  // queries per step of dK/dV's loop
+  static constexpr int kDkvPass = 16;                     // ... and per pass of its scores
+  // resident blocks an SM must be able to hold (caps the registers at 128
+  // a thread: four blocks of 128 threads; the smem of four fits)
+  static constexpr int kMinBlocks = DP <= 64 ? 4 : 1;
+};
+
+// rows x DP tile of a row-major (., D) operand into shared memory with row
+// stride DP + 8; zeros where r >= rows or d >= D. With vec (D % 8 == 0,
+// 16-byte aligned operands) as 16-byte cp.async copies in flight until
+// waited for, else element by element.
+template <int ROWS, int DP, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, int rows, int D, bool vec) {
+  constexpr int LD = DP + 8;
+  if (vec) {
+    constexpr int C = DP / 8;               // 16-byte chunks a row
+    constexpr int STEP = kMmaThreads / C;   // rows the block covers at once
+    const int d = (threadIdx.x % C) * 8;
+#pragma unroll
+    for (int r = threadIdx.x / C; r < ROWS; r += STEP) {
+      const bool full = r < rows && d < D;
+      mma_sm90::cp_async16(dst + r * LD + d, full ? src + (size_t)r * D + d : src, full);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += kMmaThreads) {
+      const int r = i / DP, d = i % DP;
+      dst[r * LD + d] = (r < rows && d < D) ? src[(size_t)r * D + d] : narrow<T, float>(0.f);
+    }
+  }
+}
+
+// n entries of a 4-byte row vector (lse, delta, kvm) into shared memory by
+// cp.async; zeros from entry `rows` on
+template <typename V>
+__device__ __forceinline__ void stage_vec(V* dst, const V* __restrict__ src, int n, int rows) {
+  for (int i = threadIdx.x; i < n; i += kMmaThreads) {
+    const bool full = i < rows;
+    mma_sm90::cp_async4(dst + i, src + (full ? i : 0), full);
+  }
+}
+
+// dQ: block per (g, 64-row part of a q-block), the heads fastest and the
+// heaviest (last) q-blocks first; warp w owns the query rows 16w..16w+15 of
+// the part. Keys 0 .. k_end (the reference's block skip) stream in tiles of
+// 64.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads, MmaTiles<DP>::kMinBlocks)
+flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const int* __restrict__ kvm, const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int D, int bq, int bk,
+                 int causal, int vec) {
+  using namespace mma_sm90;
+  constexpr int LD = MmaTiles<DP>::LD, BK = MmaTiles<DP>::kDqKeys, KP = MmaTiles<DP>::kDqPass;
+  constexpr int KS = DP / 16;  // k16 steps over the head
+  constexpr int NP = KP / 8;   // n8 tiles over a pass of keys
+  constexpr int ND = DP / 8;   // n8 tiles over the head
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + kMmaRows * LD;
+  T* Ks = dOs + kMmaRows * LD;  // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;     // [2][BK][LD]
+  int* kvm_s = reinterpret_cast<int*>(Vs + 2 * BK * LD);  // [2][BK]
+
+  // the heads fastest, the heaviest causal q-blocks (the last) first
+  const int n_q = Sq / bq, parts = (bq + kMmaRows - 1) / kMmaRows;
+  const int G = gridDim.x / (n_q * parts);
+  const int g = blockIdx.x % G, rest = blockIdx.x / G;
+  const int qb = n_q - 1 - rest / parts;
+  const int r0 = qb * bq + (rest % parts) * kMmaRows;
+  const int rows = min(kMmaRows, qb * bq + bq - r0);
+  const int n_k = Sk / bk;
+  const int kb_last = causal ? min(n_k - 1, (qb * bq + bq - 1) / bk) : n_k - 1;
+  const int k_end = (kb_last + 1) * bk;
+  const size_t qoff = (size_t)g * Sq * D, koff = (size_t)g * Sk * D;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+
+  auto stage_kv = [&](int buf, int c0) {
+    const int cols = min(BK, k_end - c0);
+    stage_tile<BK, DP>(Ks + buf * BK * LD, k + koff + (size_t)c0 * D, cols, D, vec);
+    stage_tile<BK, DP>(Vs + buf * BK * LD, v + koff + (size_t)c0 * D, cols, D, vec);
+    stage_vec(kvm_s + buf * BK, kvm + (size_t)g * Sk + c0, BK, cols);
+  };
+  stage_tile<kMmaRows, DP>(Qs, q + qoff + (size_t)r0 * D, rows, D, vec);
+  stage_tile<kMmaRows, DP>(dOs, dout + qoff + (size_t)r0 * D, rows, D, vec);
+  stage_kv(0, 0);
+  cp_async_commit();
+
+  // this thread's two query rows: 16w + gr and 16w + gr + 8
+  const int qr = warp * 16 + gr;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = qr + 8 * h < rows;
+    const size_t at = (size_t)g * Sq + r0 + qr + 8 * h;
+    lse_r[h] = live ? safe_lse(lse[at]) : 0.f;
+    delta_r[h] = live ? delta[at] : 0.f;
+  }
+  const bool warp_live = warp * 16 < rows;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  int buf = 0;
+  for (int c0 = 0; c0 < k_end; c0 += BK, buf ^= 1) {
+    const int cols = min(BK, k_end - c0);
+    if (c0 + BK < k_end) stage_kv(buf ^ 1, c0 + BK);
+    cp_async_commit();  // possibly empty: the count of groups stays uniform
+    cp_async_wait<1>();  // everything but the tile just requested has landed
+    // every key of the tile valid? Thread i < BK reads the flag it copied
+    const bool all_keys = __syncthreads_and(threadIdx.x >= BK || kvm_s[buf * BK + threadIdx.x] != 0);
+    if (warp_live) {
+      const T* Kb = Ks + buf * BK * LD;
+      const T* Vb = Vs + buf * BK * LD;
+      const int* mb = kvm_s + buf * BK;
+      // masked entries of dS are exactly 0, by select; a warp whose rows are
+      // live and see every key of the tile (all keys valid, the tile below
+      // the causal diagonal) masks nothing
+      const bool interior = all_keys && warp * 16 + 16 <= rows && (!causal || r0 + warp * 16 >= c0 + BK - 1);
+      // the scores in passes of KP keys: fewer of them live in registers
+#pragma unroll 1
+      for (int k0 = 0; k0 < BK; k0 += KP) {
+        float s[NP][4], dp[NP][4];
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+        }
+        // S = Q K^T and dP = dO V^T over the head
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t qa[4], da[4];
+          ldmatrix_x4(qa, Qs + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+          ldmatrix_x4(da, dOs + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int np = 0; np < NP / 2; ++np) {
+            const int at = (k0 + np * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 + ((lane / 8) % 2) * 8;
+            uint32_t b[4];
+            ldmatrix_x4(b, Kb + at);
+            mma_16816<T>(s[2 * np], qa, b[0], b[1]);
+            mma_16816<T>(s[2 * np + 1], qa, b[2], b[3]);
+            ldmatrix_x4(b, Vb + at);
+            mma_16816<T>(dp[2 * np], da, b[0], b[1]);
+            mma_16816<T>(dp[2 * np + 1], da, b[2], b[3]);
+          }
+        }
+        // dS = P (dP - delta) scale into s
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+          const int kc0 = k0 + n * 8 + 2 * tq;
+          const int2 m2 = *reinterpret_cast<const int2*>(mb + kc0);
+          const bool valid[2] = {m2.x != 0, m2.y != 0};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e / 2, kc = kc0 + e % 2;
+            const bool keep = interior || (qr + 8 * h < rows && kc < cols && valid[e % 2] &&
+                                           (!causal || r0 + qr + 8 * h >= c0 + kc));
+            const float p = __expf(s[n][e] * scale - lse_r[h]);
+            s[n][e] = keep ? p * (dp[n][e] - delta_r[h]) * scale : 0.f;
+          }
+        }
+        // dQ += dS K (ds.astype(k.dtype))
+#pragma unroll
+        for (int j = 0; j < NP / 2; ++j) {
+          uint32_t dsa[4];
+          pack_a<T>(dsa, s[2 * j], s[2 * j + 1]);
+#pragma unroll
+          for (int dpair = 0; dpair < ND / 2; ++dpair) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, Kb + (k0 + j * 16 + lane % 16) * LD + dpair * 16 + (lane / 16) * 8);
+            mma_16816<T>(acc[2 * dpair], dsa, b[0], b[1]);
+            mma_16816<T>(acc[2 * dpair + 1], dsa, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer has been read before the next-but-one tile lands in it
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = qr + 8 * (e / 2), d = n * 8 + 2 * tq + e % 2;
+      if (r < rows && d < D) dq[qoff + (size_t)(r0 + r) * D + d] = narrow<T, float>(acc[n][e]);
+    }
+  }
+}
+
+// dK / dV: block per (g, 64-row part of a kv-block), the heads fastest and
+// the heaviest (first) kv-blocks first; warp w owns the key rows
+// 16w..16w+15 of the part. Queries from the reference's causal start
+// ((kb*bk)/bq)*bq to Sq stream in tiles of kDkvQueries with their lse and
+// delta. Scores are formed transposed (rows keys, columns queries), so P^T
+// and dS^T are A fragments of dV += P^T dO and dK += dS^T Q as they stand.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads, MmaTiles<DP>::kMinBlocks)
+flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const int* __restrict__ kvm, const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk,
+                  int D, int bq, int bk, int causal, int vec) {
+  using namespace mma_sm90;
+  constexpr int LD = MmaTiles<DP>::LD, BQ = MmaTiles<DP>::kDkvQueries, QP = MmaTiles<DP>::kDkvPass;
+  constexpr int KS = DP / 16;
+  constexpr int NP = QP / 8;  // n8 tiles over a pass of queries
+  constexpr int ND = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + kMmaRows * LD;
+  T* Qs = Vs + kMmaRows * LD;  // [2][BQ][LD]
+  T* dOs = Qs + 2 * BQ * LD;   // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                              // [2][BQ]
+
+  // the heads fastest, the heaviest causal kv-blocks (the first) first
+  const int n_k = Sk / bk, parts = (bk + kMmaRows - 1) / kMmaRows;
+  const int G = gridDim.x / (n_k * parts);
+  const int g = blockIdx.x % G, rest = blockIdx.x / G;
+  const int kb = rest / parts;
+  const int c0 = kb * bk + (rest % parts) * kMmaRows;
+  const int crows = min(kMmaRows, kb * bk + bk - c0);
+  const int q_lo = causal ? ((kb * bk) / bq) * bq : 0;  // the block skip, from below
+  const size_t qoff = (size_t)g * Sq * D, koff = (size_t)g * Sk * D;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+
+  auto stage_q = [&](int buf, int r0) {
+    const int rows = min(BQ, Sq - r0);
+    stage_tile<BQ, DP>(Qs + buf * BQ * LD, q + qoff + (size_t)r0 * D, rows, D, vec);
+    stage_tile<BQ, DP>(dOs + buf * BQ * LD, dout + qoff + (size_t)r0 * D, rows, D, vec);
+    stage_vec(lse_s + buf * BQ, lse + (size_t)g * Sq + r0, BQ, rows);
+    stage_vec(delta_s + buf * BQ, delta + (size_t)g * Sq + r0, BQ, rows);
+  };
+  stage_tile<kMmaRows, DP>(Ks, k + koff + (size_t)c0 * D, crows, D, vec);
+  stage_tile<kMmaRows, DP>(Vs, v + koff + (size_t)c0 * D, crows, D, vec);
+  if (q_lo < Sq) stage_q(0, q_lo);
+  cp_async_commit();
+
+  // this thread's two key rows: 16w + gr and 16w + gr + 8
+  const int kr = warp * 16 + gr;
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) key_ok[h] = kr + 8 * h < crows && kvm[(size_t)g * Sk + c0 + kr + 8 * h] != 0;
+  const bool warp_live = warp * 16 < crows;
+  const bool all_keys = __syncthreads_and(key_ok[0] && key_ok[1]);  // all 64 keys live and valid
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+  int buf = 0;
+  for (int r0 = q_lo; r0 < Sq; r0 += BQ, buf ^= 1) {
+    const int rows = min(BQ, Sq - r0);
+    if (r0 + BQ < Sq) stage_q(buf ^ 1, r0 + BQ);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (warp_live) {
+      const T* Qb = Qs + buf * BQ * LD;
+      const T* dOb = dOs + buf * BQ * LD;
+      const float* lb = lse_s + buf * BQ;
+      const float* db = delta_s + buf * BQ;
+      // masked entries of P^T and dS^T are exactly 0, by select; a warp
+      // whose keys are all valid and below every query of the tile (the
+      // causal diagonal passed) masks nothing
+      const bool interior = all_keys && rows == BQ && (!causal || r0 >= c0 + warp * 16 + 15);
+      // the scores in passes of QP queries: fewer of them live in registers
+#pragma unroll 1
+      for (int q0 = 0; q0 < BQ; q0 += QP) {
+        float s[NP][4], dp[NP][4];
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+        }
+        // S^T = K Q^T and dP^T = V dO^T over the head
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t ka[4], va[4];
+          ldmatrix_x4(ka, Ks + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+          ldmatrix_x4(va, Vs + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int np = 0; np < NP / 2; ++np) {
+            const int at = (q0 + np * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 + ((lane / 8) % 2) * 8;
+            uint32_t b[4];
+            ldmatrix_x4(b, Qb + at);
+            mma_16816<T>(s[2 * np], ka, b[0], b[1]);
+            mma_16816<T>(s[2 * np + 1], ka, b[2], b[3]);
+            ldmatrix_x4(b, dOb + at);
+            mma_16816<T>(dp[2 * np], va, b[0], b[1]);
+            mma_16816<T>(dp[2 * np + 1], va, b[2], b[3]);
+          }
+        }
+        // P^T into s, dS^T into dp
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+          const int qc0 = q0 + n * 8 + 2 * tq;
+          const float2 l2 = *reinterpret_cast<const float2*>(lb + qc0);
+          const float2 d2 = *reinterpret_cast<const float2*>(db + qc0);
+          const float lsafe[2] = {safe_lse(l2.x), safe_lse(l2.y)}, dl[2] = {d2.x, d2.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e / 2, qc = qc0 + e % 2;
+            const bool keep = interior || (key_ok[h] && qc < rows && (!causal || r0 + qc >= c0 + kr + 8 * h));
+            const float p = __expf(s[n][e] * scale - lsafe[e % 2]);
+            const float ds = p * (dp[n][e] - dl[e % 2]) * scale;
+            s[n][e] = keep ? p : 0.f;
+            dp[n][e] = keep ? ds : 0.f;
+          }
+        }
+        // dV += P^T dO (p.astype(do.dtype)), dK += dS^T Q (ds.astype(q.dtype))
+#pragma unroll
+        for (int j = 0; j < NP / 2; ++j) {
+          uint32_t pa[4], dsa[4];
+          pack_a<T>(pa, s[2 * j], s[2 * j + 1]);
+          pack_a<T>(dsa, dp[2 * j], dp[2 * j + 1]);
+#pragma unroll
+          for (int dpair = 0; dpair < ND / 2; ++dpair) {
+            const int at = (q0 + j * 16 + lane % 16) * LD + dpair * 16 + (lane / 16) * 8;
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, dOb + at);
+            mma_16816<T>(dv_acc[2 * dpair], pa, b[0], b[1]);
+            mma_16816<T>(dv_acc[2 * dpair + 1], pa, b[2], b[3]);
+            ldmatrix_x4_trans(b, Qb + at);
+            mma_16816<T>(dk_acc[2 * dpair], dsa, b[0], b[1]);
+            mma_16816<T>(dk_acc[2 * dpair + 1], dsa, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = kr + 8 * (e / 2), d = n * 8 + 2 * tq + e % 2;
+      if (c < crows && d < D) {
+        const size_t at = koff + (size_t)(c0 + c) * D + d;
+        dk[at] = narrow<T, float>(dk_acc[n][e]);
+        dv[at] = narrow<T, float>(dv_acc[n][e]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -509,31 +920,80 @@ template <typename T, typename A, int DP> struct Fwd {
   }
 };
 
+// 16-byte cp.async copies need D % 8 == 0 and 16-byte aligned operands
+inline int vec16(const Params& p) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
+                         reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.dout);
+  return p.D % 8 == 0 && bits % 16 == 0;
+}
+
+template <typename T, int DP> struct BwdDqMma {
+  static int run(const Params& p, cudaStream_t s) {
+    constexpr int LD = MmaTiles<DP>::LD, BK = MmaTiles<DP>::kDqKeys;
+    const size_t smem = (2 * kMmaRows + 4 * BK) * LD * sizeof(T) + 2 * BK * sizeof(int);
+    auto kernel = flash_bwd_dq_mma<T, DP>;
+    if (int e = prepare(kernel, smem)) return e;
+    const long long blocks = (long long)p.G * (p.Sq / p.bq) * ((p.bq + kMmaRows - 1) / kMmaRows);
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, kMmaThreads, smem, s>>>(
+        static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.v), p.kvm,
+        static_cast<const T*>(p.dout), static_cast<const float*>(p.lse_in), static_cast<const float*>(p.delta),
+        static_cast<T*>(p.dq), p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal, vec16(p));
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename T, int DP> struct BwdDkvMma {
+  static int run(const Params& p, cudaStream_t s) {
+    constexpr int LD = MmaTiles<DP>::LD, BQ = MmaTiles<DP>::kDkvQueries;
+    const size_t smem = (2 * kMmaRows + 4 * BQ) * LD * sizeof(T) + 4 * BQ * sizeof(float);
+    auto kernel = flash_bwd_dkv_mma<T, DP>;
+    if (int e = prepare(kernel, smem)) return e;
+    const long long blocks = (long long)p.G * (p.Sk / p.bk) * ((p.bk + kMmaRows - 1) / kMmaRows);
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, kMmaThreads, smem, s>>>(
+        static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.v), p.kvm,
+        static_cast<const T*>(p.dout), static_cast<const float*>(p.lse_in), static_cast<const float*>(p.delta),
+        static_cast<T*>(p.dk), static_cast<T*>(p.dv), p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal, vec16(p));
+    return (int)cudaGetLastError();
+  }
+};
+
+// bfloat16 and float16 take the tensor-core kernels; float32 and float64
+// the CUDA-core ones (true fp32 / fp64 FMAs)
 template <typename T, typename A, int DP> struct BwdDq {
   static int run(const Params& p, cudaStream_t s) {
-    constexpr int TL = Tile<A>::value, LD = DP + 1, LS = TL + 1;
-    const size_t smem = (4 * TL * LD + TL * LS + 2 * TL) * sizeof(A) + TL * sizeof(int);
-    auto kernel = flash_bwd_dq_kernel<T, A, DP>;
-    if (int e = prepare(kernel, smem)) return e;
-    kernel<<<dim3(p.G, p.Sq / p.bq), kThreads, smem, s>>>(
-        static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.v), p.kvm,
-        static_cast<const T*>(p.dout), static_cast<const A*>(p.lse_in), static_cast<const A*>(p.delta),
-        static_cast<T*>(p.dq), p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal);
-    return (int)cudaGetLastError();
+    if constexpr (kTensorCore<T>) {
+      return BwdDqMma<T, DP>::run(p, s);
+    } else {
+      constexpr int TL = Tile<A>::value, LD = DP + 1, LS = TL + 1;
+      const size_t smem = (4 * TL * LD + TL * LS + 2 * TL) * sizeof(A) + TL * sizeof(int);
+      auto kernel = flash_bwd_dq_kernel<T, A, DP>;
+      if (int e = prepare(kernel, smem)) return e;
+      kernel<<<dim3(p.G, p.Sq / p.bq), kThreads, smem, s>>>(
+          static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.v), p.kvm,
+          static_cast<const T*>(p.dout), static_cast<const A*>(p.lse_in), static_cast<const A*>(p.delta),
+          static_cast<T*>(p.dq), p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal);
+      return (int)cudaGetLastError();
+    }
   }
 };
 
 template <typename T, typename A, int DP> struct BwdDkv {
   static int run(const Params& p, cudaStream_t s) {
-    constexpr int TL = Tile<A>::value, LD = DP + 1, LS = TL + 1;
-    const size_t smem = (4 * TL * LD + 2 * TL * LS + 2 * TL) * sizeof(A) + TL * sizeof(int);
-    auto kernel = flash_bwd_dkv_kernel<T, A, DP>;
-    if (int e = prepare(kernel, smem)) return e;
-    kernel<<<dim3(p.G, p.Sk / p.bk), kThreads, smem, s>>>(
-        static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.v), p.kvm,
-        static_cast<const T*>(p.dout), static_cast<const A*>(p.lse_in), static_cast<const A*>(p.delta),
-        static_cast<T*>(p.dk), static_cast<T*>(p.dv), p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal);
-    return (int)cudaGetLastError();
+    if constexpr (kTensorCore<T>) {
+      return BwdDkvMma<T, DP>::run(p, s);
+    } else {
+      constexpr int TL = Tile<A>::value, LD = DP + 1, LS = TL + 1;
+      const size_t smem = (4 * TL * LD + 2 * TL * LS + 2 * TL) * sizeof(A) + TL * sizeof(int);
+      auto kernel = flash_bwd_dkv_kernel<T, A, DP>;
+      if (int e = prepare(kernel, smem)) return e;
+      kernel<<<dim3(p.G, p.Sk / p.bk), kThreads, smem, s>>>(
+          static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.v), p.kvm,
+          static_cast<const T*>(p.dout), static_cast<const A*>(p.lse_in), static_cast<const A*>(p.delta),
+          static_cast<T*>(p.dk), static_cast<T*>(p.dv), p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal);
+      return (int)cudaGetLastError();
+    }
   }
 };
 

@@ -17,6 +17,7 @@ import torch
 from repro.core.precision import Policy as JPolicy
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.attention import _flash_core_bwd
 from repro.kernels.attention import flash_attention_probe as jprobe
 from repro.models import attention as jattn
 from repro_torch.core.precision import Policy as TPolicy
@@ -138,6 +139,92 @@ def test_custom_backward_matches_autograd_in_float64(causal, sq, sk, bq, bk):
         torch.testing.assert_close(a, b_, rtol=0, atol=1e-10,
                                    msg=f"d{name}")
         assert float(a[1].abs().max()) == 0.0, f"d{name} of dead rows"
+
+
+# ---------------------------------------------------------------------------
+# The backward's plain versions, which chip_smoke.py holds the CUDA kernels
+# to, against the reference's backward kernels on the same flat operands
+# ---------------------------------------------------------------------------
+
+
+BWD_CASES = [(64, 64, 16, 16, True, False), (64, 64, 16, 16, False, False),
+             (48, 80, 16, 16, False, False), (33, 33, 16, 8, True, False),
+             (33, 33, 16, 8, False, False), (32, 32, 8, 8, False, True)]
+
+
+def _flat_bwd_operands(seed, sq, sk, bq, bk, causal, dead, b=2, h=2, d=16):
+    """Flat padded operands as the backward kernels get them: q (G,Sq_p,D)
+    and k, v (G,Sk_p,D) with zero pad rows; kvm (G,Sk_p) int32, the pad
+    invalid (and every key of batch 0 when ``dead``); out, dout (G,Sq_p,D);
+    lse (G,Sq_p) float32, each row's log-sum-exp over its masked scores,
+    NEG_INF for a row with no valid key."""
+    r = np.random.RandomState(seed)
+    sq_p, sk_p, g = -(-sq // bq) * bq, -(-sk // bk) * bk, b * h
+    q = np.zeros((g, sq_p, d), np.float32)
+    k = np.zeros((g, sk_p, d), np.float32)
+    v = np.zeros((g, sk_p, d), np.float32)
+    q[:, :sq], k[:, :sk], v[:, :sk] = (r.randn(g, n, d)
+                                       for n in (sq, sk, sk))
+    valid = r.rand(b, sk_p) < 0.9
+    valid[:, sk:] = False
+    if dead:
+        valid[0] = False
+    kvm = np.repeat(valid, h, axis=0).astype(np.int32)    # g = batch*h + head
+    mask = (kvm != 0)[:, None, :].repeat(sq_p, axis=1)
+    if causal:
+        mask &= np.tril(np.ones((sq_p, sk_p), bool))[None]
+    s = np.einsum("gqd,gkd->gqk", q.astype(np.float64), k) / np.sqrt(d)
+    s = np.where(mask, s, -np.inf)
+    live = mask.any(-1)
+    m = np.where(live, s.max(-1), 0.0)
+    with np.errstate(divide="ignore"):
+        lse = m + np.log(np.exp(s - m[..., None]).sum(-1))
+    lse = np.where(live, lse, tka.NEG_INF).astype(np.float32)
+    out, dout = (r.randn(g, sq_p, d).astype(np.float32) for _ in range(2))
+    return q, k, v, kvm, out, dout, lse
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,bq,bk,causal,dead", BWD_CASES)
+def test_plain_backward_matches_reference_kernels(dtype, sq, sk, bq, bk,
+                                                  causal, dead):
+    """``flash_bwd_dq_plain`` / ``flash_bwd_dkv_plain`` against the
+    reference's ``_flash_core_bwd`` (its two Pallas kernels, interpret
+    mode) on identical flat operands, delta formed as each side forms it:
+    float32 within 1e-5; bfloat16 within one bf16 step of the larger of the
+    two values (both round ds and p at the same points but sum in other
+    orders, so a rounding may fall on either side of a tie); dead rows give
+    exactly 0 on both sides."""
+    ops = _flat_bwd_operands(sq * 100 + sk + 7 * dead, sq, sk, bq, bk,
+                             causal, dead)
+    q, k, v, kvm, out, dout, lse = ops
+    jq, jk, jv, jout, jdout = (jnp.asarray(a, JDT[dtype])
+                               for a in (q, k, v, out, dout))
+    want = _flash_core_bwd(causal, bq, bk, True,
+                           (jq, jk, jv, jnp.asarray(kvm), jout,
+                            jnp.asarray(lse)), jdout)[:3]
+    tq, tk, tv, tout, tdout = (torch.from_numpy(a).to(TDT[dtype])
+                               for a in (q, k, v, out, dout))
+    tlse = torch.from_numpy(lse)
+    # as _FlashCore.backward forms it
+    delta = (tdout.to(tlse.dtype) * tout.to(tlse.dtype)).sum(dim=-1)
+    args = (tq, tk, tv, torch.from_numpy(kvm), tdout, tlse, delta)
+    geom = dict(causal=causal, bq=bq, bk=bk)
+    got = (tka.flash_bwd_dq_plain(*args, **geom),
+           *tka.flash_bwd_dkv_plain(*args, **geom))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == TDT[dtype] and tuple(a.shape) == w.shape
+        a, w = _np(a), np.asarray(w, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(a, w, rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+        else:
+            big = np.maximum(np.abs(a), np.abs(w))
+            step = np.exp2(np.floor(np.log2(np.where(big > 0, big, 1.0))) - 7)
+            assert (np.abs(a - w) <= step).all(), \
+                f"{name}: {np.abs(a - w).max()} over one bf16 step"
+        if dead:
+            assert not a[:2].any() and not w[:2].any(), f"dead rows {name}"
 
 
 @pytest.mark.parametrize("s,bq,bk", [(64, 16, 16), (64, 16, 8), (48, 8, 16)])

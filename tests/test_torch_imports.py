@@ -116,3 +116,34 @@ def test_the_kernel_library_is_only_needed_at_launch():
             "/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc"):
             build.find_nvcc()
+
+
+def test_source_hash_covers_the_headers(tmp_path, monkeypatch):
+    """A library is keyed by its source, the headers beside it and the
+    flags: editing or adding a ``csrc/*.cuh`` changes the hash (and the
+    library path) of every source, so no stale library is loaded; undoing
+    the edit gives the first hash back, and other files do not count."""
+    from repro_torch.kernels import build
+    for f in build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = sorted(build.SIGNATURES)
+
+    def hashes():
+        return {n: build.source_hash(n) for n in names}
+
+    first = hashes()
+    header = tmp_path / "mma_sm90.cuh"
+    text = header.read_text()
+    header.write_text(text + "\n// edited\n")
+    edited = hashes()
+    assert all(edited[n] != first[n] for n in names)
+    assert build.library_path("attention").name \
+        == f"attention-{edited['attention']}.so"
+    header.write_text(text)
+    assert hashes() == first
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert hashes() == first
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert all(h != first[n] for n, h in hashes().items())

@@ -39,9 +39,11 @@ from repro_torch.models.transformer import model_template  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
 
-# CUDA kernel names of csrc/attention.cu, by wrapper
-OWN = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
-       "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+# CUDA kernel names of csrc/attention.cu by wrapper, as prefixes: each
+# backward wrapper launches a tensor-core kernel (``*_mma``) for bfloat16 and
+# float16 and a CUDA-core one (``*_kernel``) for float32 and float64
+OWN = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
+       "flash_bwd_dkv": "flash_bwd_dkv_"}
 
 
 def main():
