@@ -28,14 +28,15 @@ result. Phases, one JSON line each:
                against the CPU's; bfloat16 at (2,8,2048,64) with a dead
                batch, at (1,4,2048,64) with blocks 128 x 64 and at
                (1,4,1024,128), float16 at (1,4,2048,64), where the
-               backward's tensor-core tiles split differently, and at
+               tensor-core tiles split differently, and at
                head_dim 45 (staged element by element); two
-               launches of each backward kernel bit-equal; then times
+               launches of each kernel bit-equal; then times
                kernels, plain versions, bounds and
-               ``F.scaled_dot_product_attention`` as a yardstick. A line
+               ``F.scaled_dot_product_attention`` as a yardstick, and the
+               forward at zamba2-7b's oracle shape. A line
                ``attention_ptxas`` before it gives the registers and spills
-               of every backward specialisation (none may spill on the
-               tensor cores at 64 head columns).
+               of every specialisation of the three kernels (none may
+               spill on the tensor cores at 64 head columns).
 5. ``serve``   tinyllama-1.1b, 8 slots, 16 requests, degrade ladder down to
                the int8 logits head; checks states, tokens, events and that
                the int8 kernel was launched once per int8 step.
@@ -61,9 +62,13 @@ result. Phases, one JSON line each:
                their launches counted; every case against the plain
                version (bf16 at 2^26, the benchmark's 2^20, an lmul 8
                case, unaligned addresses, float64 and bf16 convolutions,
-               the CPU tests' shapes), the contract's ValueErrors on CUDA
-               tensors; times against ``torch.add(y, x, alpha=a)`` and
-               ``F.conv2d`` with cuDNN's TF32 off.
+               the CPU tests' shapes, GoogLeNet's 3x3 layer, 3x3 at 256
+               and 512 channels); every
+               convolution bit-equal to its plain version, with the
+               kernel route it took (compile-time taps or general); the
+               contract's ValueErrors on CUDA tensors; times against
+               ``torch.add(y, x, alpha=a)`` and ``F.conv2d`` with cuDNN's
+               TF32 off.
 10. ``ssm_kernel`` ``ops.ssm_scan`` at one layer of zamba2-7b (BH 448, S
                2048, N 64, P 64, chunk 256) and of xlstm-1.3b (BH 16, N
                512, P 1025), float32 and bfloat16, against its plain
@@ -522,17 +527,20 @@ def check_attention_autograd(results):
                          a.detach(), b_.detach().to(DEV), rel, results, acc)
 
 
-def check_backward_deterministic(ops_, results):
-    """Two launches of each backward kernel on the same bf16 inputs are
-    bit-equal: every output row has one writer, no atomics."""
-    bwd = (ops_["qf"], ops_["kf"], ops_["vf"], ops_["kvm"], ops_["doutf"],
-           ops_["lse"], ops_["delta"])
-    first = (att.flash_bwd_dq(*bwd, **ops_["geom"]),
-             *att.flash_bwd_dkv(*bwd, **ops_["geom"]))
-    second = (att.flash_bwd_dq(*bwd, **ops_["geom"]),
-              *att.flash_bwd_dkv(*bwd, **ops_["geom"]))
+def check_deterministic(ops_, results):
+    """Two launches of each kernel on the same bf16 inputs are bit-equal:
+    every output element has one writer, no atomics."""
+    fwd = (ops_["qf"], ops_["kf"], ops_["vf"], ops_["kvm"])
+    bwd = fwd + (ops_["doutf"], ops_["lse"], ops_["delta"])
+
+    def run():
+        return (*att.flash_fwd(*fwd, **ops_["geom"]),
+                att.flash_bwd_dq(*bwd, **ops_["geom"]),
+                *att.flash_bwd_dkv(*bwd, **ops_["geom"]))
+    first, second = run(), run()
     torch.cuda.synchronize()
-    for what, a, b_ in zip(("dq", "dk", "dv"), first, second):
+    for what, a, b_ in zip(("out", "lse", "probe", "dq", "dk", "dv"), first,
+                           second):
         if not torch.equal(a, b_):
             raise AssertionError(f"two launches give different {what}")
         results.append({"check": f"two launches bit-equal {what} bfloat16",
@@ -544,16 +552,16 @@ _MANGLED_TYPE = {"13__nv_bfloat16": "bfloat16", "6__half": "float16",
 
 
 def attention_ptxas(log=None):
-    """Registers and spills of every specialisation of the two backward
-    kernels, from what ``ptxas -v`` wrote into the attention library's build
-    log (or into ``log``)."""
+    """Registers and spills of every specialisation of the forward and the
+    two backward kernels, from what ``ptxas -v`` wrote into the attention
+    library's build log (or into ``log``)."""
     if log is None:
         log = build.library_path("attention").with_suffix(".log").read_text()
     rows = []
     for name, body in re.findall(
             r"Compiling entry function '(\w+)'(.*?)(?=ptxas info\s*:\s*"
             r"Compiling|\Z)", log, flags=re.S):
-        m = re.search(r"(flash_bwd_dkv|flash_bwd_dq)_(mma|kernel)I"
+        m = re.search(r"(flash_fwd|flash_bwd_dkv|flash_bwd_dq)_(mma|kernel)I"
                       r"(13__nv_bfloat16|6__half|f|d)[fd]?Li(\d+)E", name)
         if not m:
             continue
@@ -570,10 +578,11 @@ def attention_ptxas(log=None):
     return rows
 
 
-def att_bound(op: str, b, h, s, d, elt: int):
+def att_bound(op: str, b, h, s, d, elt: int, dtype: str = "bfloat16"):
     """Least time for one causal call at (b, h, s, d): the bytes of its
     inputs and outputs once over the memory rate, or its products over the
-    bf16 tensor-core peak — the products of the causal triangle this input
+    peak rate for ``dtype`` (bf16: the tensor cores; float32: the CUDA
+    cores, TF32 being off) — the products of the causal triangle this input
     needs (S(S+1)/2 pairs per head): forward q.k and p.v, dQ q.k, dO.v and
     ds.k, dK/dV those two plus p.dO and ds.q, each 2*D operations a pair."""
     g, pairs = b * h, s * (s + 1) / 2
@@ -584,7 +593,7 @@ def att_bound(op: str, b, h, s, d, elt: int):
         "flash_bwd_dq": (4, 1, 3, 3),           # q k v dO | dq | kvm lse delta
         "flash_bwd_dkv": (4, 2, 3, 4)}[op]
     t_bytes = ((n_in + n_out) * mat + n_vec * vec) / PEAK_BYTES_PER_S
-    t_ops = n_prod * 2 * d * g * pairs / PEAKS_FLOPS["bfloat16"]
+    t_ops = n_prod * 2 * d * g * pairs / PEAKS_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -592,11 +601,12 @@ def att_bound(op: str, b, h, s, d, elt: int):
 def phase_attention():
     ptxas = attention_ptxas()
     emit("attention_ptxas", kernels=ptxas)
+    # the forward and both backward kernels, bf16 and f16 each
     mma64 = [r for r in ptxas
              if r["units"] == "tensor cores" and r["head_cols"] == 64]
-    if len(mma64) != 4 or any(r["spill_store_bytes"] != 0
+    if len(mma64) != 6 or any(r["spill_store_bytes"] != 0
                               or r["spill_load_bytes"] != 0 for r in mma64):
-        raise AssertionError(f"tensor-core backward at 64 head columns: "
+        raise AssertionError(f"tensor-core kernels at 64 head columns: "
                              f"missing or spilling {mma64}")
     results: list = []
     b, h, s, d = TRAIN_ATT
@@ -641,7 +651,7 @@ def phase_attention():
     # a head width that is not a multiple of 8: staged element by element
     check_attention("d45 100x100 b32x32", 1, 2, 100, 100, 45, torch.bfloat16,
                     True, 32, 32, 44, results)
-    check_backward_deterministic(ops_, results)
+    check_deterministic(ops_, results)
 
     # times at the training shape
     qf, kf, vf, kvm = (ops_[x] for x in ("qf", "kf", "vf", "kvm"))
@@ -678,6 +688,24 @@ def phase_attention():
                              " on (4,32,2048,64) bf16: forward, and its "
                              "backward (dQ, dK, dV together) for both "
                              "backward rows")
+    # the forward at zamba2-7b's oracle shape, where its shared attention
+    # runs (head_dim 112 in the kernel's 128 columns)
+    zb, zh, zsq, zsk, zd = ZAMBA_ATT
+    for dtype in (torch.float32, torch.bfloat16):
+        short = str(dtype).replace("torch.", "")
+        q, k, v, kv_valid, _ = _att_inputs(zb, zh, zsq, zsk, zd, dtype, 36,
+                                           p_valid=1.0)
+        qz, kz, vz, kvz, zbq, zbk = att._prepare(q, k, v, kv_valid, 128, 128)
+        zgeom = dict(causal=True, bq=zbq, bk=zbk)
+        bnd, by = att_bound("flash_fwd", zb, zh, zsq, zd,
+                            q.element_size(), short)
+        timed[f"flash_fwd_zamba2_{short}"] = {
+            "shape": list(ZAMBA_ATT), "blocks": [zbq, zbk],
+            "ms": time_ms(lambda: att.flash_fwd(qz, kz, vz, kvz, **zgeom)),
+            "plain_ms": time_ms(lambda: att.flash_fwd_plain(
+                qz, kz, vz, kvz, **zgeom), **heavy),
+            "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True)),
+            "bound_ms": bnd, "bound_by": by}
     emit("attention", shape=list(TRAIN_ATT), dtype="bfloat16", causal=True,
          blocks=[geom["bq"], geom["bk"]], n_checks=len(results),
          checks=results, timed=timed)
@@ -1164,6 +1192,8 @@ CONV_SOURCE = "src/repro_torch/kernels/csrc/conv.cu"
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 AXPY_N = 1 << 26                   # 768 MB moved in f32, far past the L2
 GOOGLENET_L1 = (3, 118, 118, 64, 7, 7)   # (C, H, W, OC, KH, KW), pre-padded
+# GoogLeNet's 3x3 convolution (conv2/3x3: 64 -> 192 channels at 56 x 56)
+GOOGLENET_3X3 = (64, 58, 58, 192, 3, 3)
 # tolerances of a kernel against its plain version, elementwise
 # |got - ref| <= rtol * |ref| + atol: float32 at the CPU tests' own
 # (tests/test_kernels.py: _tol for axpy, 2e-4 for conv, 3e-4 for the scan),
@@ -1182,6 +1212,19 @@ def _check_close(name, got, ref, rtol, atol, results):
         raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} against "
                              f"{ref.dtype}{tuple(ref.shape)}")
     _check_float(name, got, ref, rtol, results, acc=0.0, atol=atol)
+
+
+def _check_conv(name, got, ref, x, w, results, tol=CONV_TOL, exact=True):
+    """A convolution of x, w against a plain version: the tolerance check,
+    the kernel route that ran (``conv.kernel_route``: compile-time taps or
+    general) and, where ``exact`` (the plain version on the same operands),
+    bit-equality: both sum each output's taps in the order c -> kr -> t
+    with the same roundings."""
+    _check_close(name, got, ref, *tol, results)
+    results[-1]["route"] = cv.kernel_route(x, w)
+    if exact and not results[-1]["equal"]:
+        raise AssertionError(f"{name}: not bit-equal to the plain version: "
+                             f"{results[-1]}")
 
 
 def _raises_value_error(name, fn, results):
@@ -1268,15 +1311,16 @@ def phase_paper_kernels():
                  ax.axpy_plain(2.5, x32, y32), *AXPY_TOL[torch.float32],
                  results)
     ref = cv.conv2d_plain(xg, wg)
-    _check_close("path dconv f32 googlenet1", path["dconv_f32"], ref,
-                 *CONV_TOL, results)
-    _check_close("path dconv f32 vs fp64", path["dconv_f32"],
-                 cv.conv2d_plain(xg.double(), wg.double()).float(),
-                 *CONV_TOL, results)
+    _check_conv("path dconv f32 googlenet1", path["dconv_f32"], ref, xg, wg,
+                results)
+    _check_conv("path dconv f32 vs fp64", path["dconv_f32"],
+                cv.conv2d_plain(xg.double(), wg.double()).float(), xg, wg,
+                results, exact=False)
     ref = cv.conv2d_plain(xg.bfloat16(), wg.bfloat16(),
                           out_dtype=torch.float32)
-    _check_close("path dconv bf16->f32 googlenet1",
-                 path["dconv_bf16_to_f32"], ref, *CONV_TOL, results)
+    _check_conv("path dconv bf16->f32 googlenet1",
+                path["dconv_bf16_to_f32"], ref, xg.bfloat16(), wg.bfloat16(),
+                results)
     del path
 
     # axpy: sizes, dtypes, lmul, an address that is not 16-byte aligned
@@ -1297,22 +1341,43 @@ def phase_paper_kernels():
         _check_close(f"axpy {short} n={n} lmul={lmul} offset={offset}", got,
                      ref, *tol, results)
     # conv: GoogLeNet layer 1 in float64 and to a bf16 output; the CPU
-    # tests' shapes
+    # tests' shapes and GoogLeNet's 3x3 layer (both kernel routes)
     for dt, out_dt in ((torch.float64, None), (torch.bfloat16, None)):
         got = cv.conv2d_direct(xg.to(dt), wg.to(dt), out_dtype=out_dt)
         ref = cv.conv2d_plain(xg.to(dt), wg.to(dt), out_dtype=out_dt)
         short = str(dt).replace("torch.", "")
-        _check_close(f"conv {short} googlenet1", got, ref,
-                     *_conv_tol(ref.dtype, ref), results)
-    for i, (c, h, w, oc, kh, kw) in enumerate(((1, 8, 16, 2, 3, 3),
-                                              (3, 12, 20, 4, 7, 7),
-                                              (3, 10, 118, 8, 7, 7),
-                                              (5, 9, 33, 3, 2, 5))):
+        _check_conv(f"conv {short} googlenet1", got, ref, xg.to(dt),
+                    wg.to(dt), results, tol=_conv_tol(ref.dtype, ref))
+    for i, (c, h, w, oc, kh_, kw_) in enumerate(((1, 8, 16, 2, 3, 3),
+                                                (3, 12, 20, 4, 7, 7),
+                                                (3, 10, 118, 8, 7, 7),
+                                                (5, 9, 33, 3, 2, 5),
+                                                GOOGLENET_3X3)):
         xr = _randn((c, h, w), torch.float32, 70 + i)
-        wr = _randn((oc, c, kh, kw), torch.float32, 80 + i, 0.2)
-        _check_close(f"conv f32 {(c, h, w, oc, kh, kw)}",
-                     cv.conv2d_direct(xr, wr), cv.conv2d_plain(xr, wr),
-                     *CONV_TOL, results)
+        wr = _randn((oc, c, kh_, kw_), torch.float32, 80 + i, 0.2)
+        _check_conv(f"conv f32 {(c, h, w, oc, kh_, kw_)}",
+                    cv.conv2d_direct(xr, wr), cv.conv2d_plain(xr, wr), xr,
+                    wr, results)
+    # 3x3 at many channels, pre-padded (ResNet's last stage at 7x7, VGG's
+    # 512 channels at 14x14): the taps route's staging does not fit a block,
+    # the general kernel runs them (float64 at 512 x 16 x 16 fits neither)
+    for i, (c, h, w, dt) in enumerate(((512, 9, 9, torch.float32),
+                                       (512, 16, 16, torch.float32),
+                                       (512, 9, 9, torch.float64),
+                                       (256, 16, 16, torch.float64))):
+        xr = _randn((c, h, w), dt, 100 + i)
+        wr = _randn((c, c, 3, 3), dt, 110 + i, 0.05)
+        short = str(dt).replace("torch.", "")
+        ref = cv.conv2d_plain(xr, wr)
+        _check_conv(f"conv {short} {(c, h, w, c, 3, 3)}",
+                    cv.conv2d_direct(xr, wr), ref, xr, wr, results,
+                    tol=_conv_tol(dt, ref))
+        if results[-1]["route"] != "general":
+            raise AssertionError(f"{results[-1]['check']}: route "
+                                 f"{results[-1]['route']}, not general")
+    routes = {r["route"] for r in results if "route" in r}
+    if routes != {"taps", "general"}:
+        raise AssertionError(f"conv routes exercised: {routes}")
     _raises_value_error("conv channels disagree", lambda: ops.conv2d(
         xg, wg[:, :2].contiguous()), results)
     # 256 channels of 3 rows of width 512 exceed the block's shared memory
@@ -1353,7 +1418,19 @@ def phase_paper_kernels():
                                 **heavy),
             "library_ms": time_ms(lambda: torch.nn.functional.conv2d(
                 lib_x, lib_w)),
-            "bound_ms": bnd, "bound_by": by}
+            "bound_ms": bnd, "bound_by": by,
+            "route": cv.kernel_route(xs, ws)}
+    c, h, w, oc, kh_, kw_ = GOOGLENET_3X3
+    xs, ws = _randn((c, h, w), torch.float32, 90), \
+        _randn((oc, c, kh_, kw_), torch.float32, 91, 0.05)
+    bnd, by = paper_bound("conv", GOOGLENET_3X3, 4)
+    timed["conv_googlenet_3x3_f32"] = {
+        "shape": list(GOOGLENET_3X3),
+        "ms": time_ms(lambda: cv.conv2d_direct(xs, ws)),
+        "plain_ms": time_ms(lambda: cv.conv2d_plain(xs, ws), **heavy),
+        "library_ms": time_ms(lambda: torch.nn.functional.conv2d(xs[None],
+                                                                 ws)),
+        "bound_ms": bnd, "bound_by": by, "route": cv.kernel_route(xs, ws)}
     timed["library_note"] = ("axpy: torch.add(y, x, alpha=a); conv: "
                              "F.conv2d on (1,C,H,W) with cuDNN TF32 off "
                              "(bf16 row: on the same values in f32)")
@@ -1595,6 +1672,11 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
            for a, v in ssm_serving.items()}}
     for row in rows[1:3]:
         row["launches"] = sum(row["launches_by_path"].values())
+    # the forward also at zamba2-7b's oracle shape (its own times and bound)
+    rows[2]["zamba2_oracle"] = {
+        dt: {k: att_timed[f"flash_fwd_zamba2_{dt}"][k]
+             for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+        for dt in ("float32", "bfloat16")}
     p_res, p_timed, p_launches = paper
     for name, key, check, shape in (
             ("axpy", "axpy_f32_2^26", "path axpy f32 2^26", [AXPY_N]),

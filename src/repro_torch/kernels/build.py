@@ -46,6 +46,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # C, H, W, KH, KW, dtype -> output rows per block (0: does not fit)
         "repro_conv2d_rows": (_int,) * 6,
         "repro_conv2d_smem_budget": (),
+        # C, H, W, KH, KW, dtype -> 1 compile-time taps, 0 the general
+        # (runtime-taps) kernel
+        "repro_conv2d_route": (_int,) * 6,
     },
     "ssm_scan": {
         # q, k, v, log_decay, scale, y; BH, S, N, P, chunk, dtype; stream

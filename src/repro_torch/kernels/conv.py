@@ -6,9 +6,13 @@ for Hopper.
 VALID, stride 1, x (C,H,W) pre-padded, w (OC,C,KH,KW) ->
 (OC, H-KH+1, W-KW+1). Ara computes one output row per vector register,
 accumulating C*KH*KW shifted FMAs (§V-C); the kernel keeps that structure —
-a block per (output channel, run of output rows), the input rows it needs
-and the channel's weights staged in shared memory, every output the sum of
-its taps in the order c -> kr -> t — and no im2col.
+a block per (group of output channels, run of output rows), the input rows
+it needs and the group's weights staged in shared memory, each thread
+sliding a window of input values held in registers over the taps, every
+output the sum of its taps in the order c -> kr -> t — and no im2col.
+Taps of 7x7 and 3x3 are compile-time constants in the kernel; other shapes,
+and those whose channels and weights do not fit that kernel's shared memory,
+take a general kernel with runtime tap loops (:func:`kernel_route`).
 
 Accumulation is float32 whatever the input width (bf16/f16 inputs are the
 Ara 2x32/4x16 datapath-split path), float64 for float64 operands; the
@@ -60,6 +64,18 @@ def conv2d_plain(x, w, *, out_dtype=None):
                 acc = acc + wa[:, ci, kr, t, None, None] \
                     * xa[None, ci, kr:kr + h_out, t:t + w_out]
     return acc.to(out_dtype)
+
+
+def kernel_route(x, w) -> str:
+    """The CUDA kernel ``conv2d_direct(x, w)`` launches, as the source
+    decides it from the shapes and x's dtype: ``"taps"`` (taps known at
+    compile time: 7x7 and 3x3, where the channels and the group's weights
+    fit its shared memory) or ``"general"`` (runtime tap loops). Needs the
+    built library."""
+    c, h, wid = x.shape
+    _, _, kh, kw = w.shape
+    return "taps" if build.load("conv").repro_conv2d_route(
+        c, h, wid, kh, kw, _DTYPE_CODES[x.dtype]) else "general"
 
 
 def conv2d_direct(x, w, *, out_dtype=None):

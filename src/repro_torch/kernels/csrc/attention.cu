@@ -27,10 +27,10 @@
 //    dS.K (dS^T.Q), p to dO's type before P^T.dO, exactly where the
 //    reference calls astype;
 //  - float32, bfloat16 and float16 operands accumulate in float32: float32
-//    with true fp32 FMAs (no TF32), bfloat16 and float16 the same in the
-//    forward and in the tensor cores' fp32 accumulators (exact products of
-//    the narrow operands) in the backward; float64 operands accumulate in
-//    float64 and lse, delta are float64 then (float32 otherwise).
+//    with true fp32 FMAs (no TF32), bfloat16 and float16 in the tensor
+//    cores' fp32 accumulators (exact products of the narrow operands);
+//    float64 operands accumulate in float64 and lse, delta are float64 then
+//    (float32 otherwise).
 //
 // What bounds it on an H100 at the training shape (B 4, H 32, S 2048,
 // D 64, bf16, causal): operations, not memory. The products of the causal
@@ -45,46 +45,63 @@
 //  - Nothing O(S^2) reaches device memory: each score tile lives in
 //    registers or shared memory only, the backward recomputes p from q, k
 //    and the saved lse.
-//  - Backward, bfloat16 and float16 operands (flash_bwd_dq_mma,
+//  - bfloat16 and float16 operands (flash_fwd_mma, flash_bwd_dq_mma,
 //    flash_bwd_dkv_mma): every tile product runs on the tensor cores as
 //    mma.sync m16n8k16 with fp32 accumulators (mma_sm90.cuh). A block of
-//    four warps owns 64 rows, 16 per warp: query rows in dQ, which holds
-//    its Q and dO tiles and streams K, V in tiles of 64 keys; key rows in
-//    dK/dV, which holds its K and V tiles and streams Q, dO with their lse
-//    and delta in tiles of 64 queries (32 at head widths above 64). The
-//    streamed tiles are double-buffered with 16-byte cp.async copies, so
-//    the next tile is in flight while this one computes. Tiles stay in
-//    their own type in shared memory, rows padded by 16 bytes so that
-//    ldmatrix is free of bank conflicts. Scores are C fragments in
-//    registers, formed in passes of 32 keys (dQ) or 16 queries (dK/dV),
-//    masked by select (masked, padded and dead entries exactly 0) and
-//    turned into p and ds there; rounded to the operands' type and packed
-//    in pairs they are the A fragments of the next product, which is the
-//    reference's astype. dK/dV forms the scores transposed (keys by
-//    queries), so P^T and dS^T feed dV += P^T dO and dK += dS^T Q as they
-//    stand. The passes keep a thread within 128 registers at 64 head
-//    columns without spilling, so four blocks (16 warps) share an SM and
-//    hide each other's latencies; that, the heads-fastest block order
-//    (heavy causal blocks of every head first) and ex2.approx for exp were
-//    chosen by timing (tools/torch_attention_variants.py). Each output row
-//    has one writer: no atomics, deterministic.
-//  - Forward (all types) and the float32 / float64 backward: the first
-//    version on the CUDA cores in true fp32 (fp64) FMAs, no TF32. Operand
-//    tiles are staged in shared memory in the accumulator type, rows padded
-//    by one element so that the transposed reads (K^T, Q^T) hit distinct
-//    banks; every tile product is a 16 x 16 thread grid in which each
-//    thread owns a 4 x 4 (2 x 2) micro-tile of the scores and a 4 x (D/16)
-//    micro-tile of the accumulator. Its ceiling is the fp32 rate (67
-//    TFLOP/s), ~15x the card's bound. The row statistics of the online
-//    softmax are reduced by the 4 (8) threads of a row with warp shuffles.
+//    four warps owns 64 rows, 16 per warp: query rows in the forward and
+//    dQ, which hold their Q (and dO) tiles and stream K, V in tiles of 64
+//    keys; key rows in dK/dV, which holds its K and V tiles and streams Q,
+//    dO with their lse and delta in tiles of 64 queries (32 at head widths
+//    above 64). The streamed tiles are double-buffered with 16-byte
+//    cp.async copies, so the next tile is in flight while this one
+//    computes. Tiles stay in their own type in shared memory, rows padded
+//    by 16 bytes so that ldmatrix is free of bank conflicts. Scores are C
+//    fragments in registers, masked by select (masked, padded and dead
+//    entries exactly 0 after the exp) and turned into p (and ds) there;
+//    rounded to the operands' type and packed in pairs they are the A
+//    fragments of the next product, which is the reference's astype. dK/dV
+//    forms the scores transposed (keys by queries), so P^T and dS^T feed
+//    dV += P^T dO and dK += dS^T Q as they stand.
+//  - Forward: the online softmax stays in registers. Each warp forms the
+//    scores of its 16 rows against the whole 64-key tile (the plain
+//    version's chunk, so p is rounded against the same running max), takes
+//    the row max over the four lanes of a row with two shuffles, rescales
+//    its accumulator by alpha and adds P V. Scores are kept in log2 units
+//    (scale * log2 e folded into one multiply) so that every exp is one
+//    ex2.approx; each lane sums l over its own columns, the four sums are
+//    added once at the end. Q's A fragments are held in registers across
+//    the key loop at up to 64 head columns (16 registers) and re-read by
+//    ldmatrix per k16 step at 128. The scores of a whole tile take more
+//    registers than the backward's passes: the forward is bounded to 168
+//    a thread (three blocks an SM), without spilling. A warp whose rows all
+//    lie before a tile's first key (causal) skips the tile: that leaves its
+//    statistics as a fully masked tile would.
+//  - Backward: scores are formed in passes of 32 keys (dQ) or 16 queries
+//    (dK/dV), so that a thread keeps within 128 registers at 64 head
+//    columns without spilling.
+//  - Four blocks (16 warps) of the backward, three of the forward, share
+//    an SM at 64 head columns and hide each other's latencies; that, the
+//    heads-fastest block order (heavy causal blocks of every head first),
+//    the tile and pass sizes, the held Q fragments and ex2.approx for exp
+//    were chosen by timing (tools/torch_attention_variants.py).
+//    Each output row has one writer: no atomics, deterministic.
+//  - float32 and float64 operands (flash_fwd_kernel, flash_bwd_dq_kernel,
+//    flash_bwd_dkv_kernel): on the CUDA cores in true fp32 (fp64) FMAs, no
+//    TF32. Operand tiles are staged in shared memory in the accumulator
+//    type, rows padded by one element so that the transposed reads (K^T,
+//    Q^T) hit distinct banks; every tile product is a 16 x 16 thread grid
+//    in which each thread owns a 4 x 4 (2 x 2) micro-tile of the scores
+//    and a 4 x (D/16) micro-tile of the accumulator. Its ceiling is the
+//    fp32 rate (67 TFLOP/s), ~15x the card's bound. The row statistics of
+//    the online softmax are reduced by the 4 (8) threads of a row with warp
+//    shuffles.
 //  - Heavy causal blocks are scheduled first (the forward and dQ take
 //    q-blocks from the last; dK/dV's heavy blocks are the first kv-blocks).
 //  - The wrapper's bq, bk set the block-skip bounds above; each kernel's own
-//    tile is its own choice and splits a wrapper block into parts (grid z).
+//    tile is its own choice and splits a wrapper block into parts.
 // What a faster version adds: wgmma (four warps on a 64-row tile, B from
 // shared memory), TMA copies with mbarriers, warp specialisation (a
-// producer warp keeping the ring of tiles full); the tensor-core design for
-// the forward.
+// producer warp keeping the ring of tiles full).
 //
 // C interface (loaded with ctypes): each function launches on the given
 // stream, does not synchronise, allocates nothing and returns the launch's
@@ -199,7 +216,8 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// forward: one block per (g, q-block); KV loop up to the causal bound
+// float32 / float64 forward: one block per (g, q-block); KV loop up to the
+// causal bound
 // ---------------------------------------------------------------------------
 
 template <typename T, typename A, int DP>
@@ -524,10 +542,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 / float16 backward on the tensor cores (mma.sync m16n8k16, fp32
-// accumulators): one block of four warps owns 64 rows (queries in dQ, keys
-// in dK/dV), 16 per warp; the other operand streams through shared memory
-// in tiles double-buffered with cp.async
+// bfloat16 / float16 forward and backward on the tensor cores (mma.sync
+// m16n8k16, fp32 accumulators): one block of four warps owns 64 rows
+// (queries in the forward and dQ, keys in dK/dV), 16 per warp; the other
+// operand streams through shared memory in tiles double-buffered with
+// cp.async
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaWarps = 4;
@@ -545,9 +564,13 @@ template <int DP> struct MmaTiles {
   static constexpr int kDqPass = 32;                      // ... and per pass of its scores
   static constexpr int kDkvQueries = DP <= 64 ? 64 : 32;  // queries per step of dK/dV's loop
   static constexpr int kDkvPass = 16;                     // ... and per pass of its scores
+  static constexpr int kFwdKeys = 64;                     // keys per step of the forward's loop
+  static constexpr bool kFwdHoldQ = DP <= 64;             // Q's A fragments kept in registers
   // resident blocks an SM must be able to hold (caps the registers at 128
-  // a thread: four blocks of 128 threads; the smem of four fits)
+  // a thread: four blocks of 128 threads; the smem of four fits); the
+  // forward's scores of a whole 64-key tile need more: three, 168
   static constexpr int kMinBlocks = DP <= 64 ? 4 : 1;
+  static constexpr int kFwdMinBlocks = DP <= 64 ? 3 : 1;
 };
 
 // rows x DP tile of a row-major (., D) operand into shared memory with row
@@ -558,7 +581,7 @@ template <int ROWS, int DP, typename T>
 __device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, int rows, int D, bool vec) {
   constexpr int LD = DP + 8;
   if (vec) {
-    constexpr int C = DP / 8;               // 16-byte chunks a row
+    constexpr int C = DP / 8;      // 16-byte chunks a row
     constexpr int STEP = kMmaThreads / C;   // rows the block covers at once
     const int d = (threadIdx.x % C) * 8;
 #pragma unroll
@@ -581,6 +604,214 @@ __device__ __forceinline__ void stage_vec(V* dst, const V* __restrict__ src, int
   for (int i = threadIdx.x; i < n; i += kMmaThreads) {
     const bool full = i < rows;
     mma_sm90::cp_async4(dst + i, src + (full ? i : 0), full);
+  }
+}
+
+// 2^x on the special-function unit (ex2.approx, about 2 ulp); +0 for the
+// masked scores (NEG_INF) and for anything below -126 - 24
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// forward: block per (g, 64-row part of a q-block), the
+// heads fastest and the heaviest (last) q-blocks first, as dQ; warp w owns
+// the query rows 16w..16w+15 of the part. Keys 0 .. k_end (the reference's
+// block skip) stream in tiles of kFwdKeys, double-buffered. Scores, the
+// online softmax's running max m and the denominator l live in registers,
+// in log2 units (s * scale * log2 e, p = 2^(s - m)); each lane sums l over
+// its own key columns and the four lanes of a row add their sums at the end
+// (alpha is the same on all four, so the partial sums rescale alike).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads, MmaTiles<DP>::kFwdMinBlocks)
+flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const int* __restrict__ kvm, T* __restrict__ out, float* __restrict__ lse,
+              int* __restrict__ probe, int Sq, int Sk, int D, int bq, int bk, int causal, int vec) {
+  using namespace mma_sm90;
+  using Tiles = MmaTiles<DP>;
+  constexpr int LD = Tiles::LD, BK = Tiles::kFwdKeys;
+  constexpr int ROWS = kMmaRows;               // the block's own query rows
+  constexpr int KS = DP / 16;                  // k16 steps over the head
+  constexpr int NK = BK / 8;                   // n8 tiles over a tile of keys
+  constexpr int ND = DP / 8;                   // n8 tiles over the head
+  constexpr bool kHoldQ = Tiles::kFwdHoldQ;
+  static_assert(kMmaThreads >= BK, "every key flag of a tile is read by one thread");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + ROWS * LD;     // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
+  int* kvm_s = reinterpret_cast<int*>(Vs + 2 * BK * LD);  // [2][BK]
+
+  // the heads fastest, the heaviest causal q-blocks (the last) first
+  const int n_q = Sq / bq, parts = (bq + ROWS - 1) / ROWS;
+  const int G = gridDim.x / (n_q * parts);
+  const int g = blockIdx.x % G, rest = blockIdx.x / G;
+  const int qb = n_q - 1 - rest / parts, part = rest % parts;
+  const int r0 = qb * bq + part * ROWS;
+  const int rows = min(ROWS, qb * bq + bq - r0);
+  const int n_k = Sk / bk;
+  const int kb_last = causal ? min(n_k - 1, (qb * bq + bq - 1) / bk) : n_k - 1;
+  const int k_end = (kb_last + 1) * bk;  // the block skip: keys past it are never read
+  // the probe (trip count in KV blocks of bk keys) has one writer a q-block
+  if (part == 0 && threadIdx.x == 0) probe[(size_t)g * n_q + qb] = kb_last + 1;
+  const size_t qoff = (size_t)g * Sq * D, koff = (size_t)g * Sk * D;
+  const float sl2 = (float)(1.4426950408889634 / sqrt((double)D));  // scale * log2 e
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+
+  auto stage_kv = [&](int buf, int c0) {
+    const int cols = min(BK, k_end - c0);
+    stage_tile<BK, DP>(Ks + buf * BK * LD, k + koff + (size_t)c0 * D, cols, D, vec);
+    stage_tile<BK, DP>(Vs + buf * BK * LD, v + koff + (size_t)c0 * D, cols, D, vec);
+    stage_vec(kvm_s + buf * BK, kvm + (size_t)g * Sk + c0, BK, cols);
+  };
+  stage_tile<ROWS, DP>(Qs, q + qoff + (size_t)r0 * D, rows, D, vec);
+  cp_async_commit();
+  stage_kv(0, 0);
+  cp_async_commit();
+
+  // this thread's two query rows: 16w + gr and 16w + gr + 8
+  const int qr = warp * 16 + gr;
+  const bool warp_live = warp * 16 < rows;
+  cp_async_wait<1>();  // the Q tile has landed
+  __syncthreads();
+  uint32_t qa[kHoldQ ? KS : 1][4];  // Q's A fragments over the head, if held
+  if constexpr (kHoldQ) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qa[ks], Qs + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {float(kNegInf), float(kNegInf)}, l[2] = {0.f, 0.f};
+
+  int buf = 0;
+  for (int c0 = 0; c0 < k_end; c0 += BK, buf ^= 1) {
+    const int cols = min(BK, k_end - c0);
+    if (c0 + BK < k_end) stage_kv(buf ^ 1, c0 + BK);
+    cp_async_commit();  // possibly empty: the count of groups stays uniform
+    cp_async_wait<1>();  // everything but the tile just requested has landed
+    // every key of the tile valid? Thread i < BK reads the flag it copied
+    const bool all_keys = __syncthreads_and(threadIdx.x >= BK || kvm_s[buf * BK + threadIdx.x] != 0);
+    // causal: a warp whose last row lies before the tile's first key sees
+    // none of it; skipping the tile leaves m, l and acc as they are, which
+    // is what alpha 1 and p 0 would do
+    const bool above = causal && c0 > r0 + warp * 16 + 15;
+    if (warp_live && !above) {
+      const T* Kb = Ks + buf * BK * LD;
+      const T* Vb = Vs + buf * BK * LD;
+      const int* mb = kvm_s + buf * BK;
+      // masked scores are NEG_INF by select; a warp whose rows are live and
+      // see every key of the tile (all keys valid, the tile below the causal
+      // diagonal) masks nothing
+      const bool interior = all_keys && warp * 16 + 16 <= rows && (!causal || r0 + warp * 16 >= c0 + BK - 1);
+      // S = Q K^T over the head
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        if constexpr (kHoldQ) {
+          a[0] = qa[ks][0]; a[1] = qa[ks][1]; a[2] = qa[ks][2]; a[3] = qa[ks][3];
+        } else {
+          ldmatrix_x4(a, Qs + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+        }
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4(b, Kb + (np * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 + ((lane / 8) % 2) * 8);
+          mma_16816<T>(s[2 * np], a, b[0], b[1]);
+          mma_16816<T>(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // scale and mask, then the row max over the tile (the quad's 4 lanes)
+      float mx[2] = {float(kNegInf), float(kNegInf)};
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const int kc0 = n * 8 + 2 * tq;
+        const int2 m2 = *reinterpret_cast<const int2*>(mb + kc0);
+        const bool valid[2] = {m2.x != 0, m2.y != 0};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, kc = kc0 + e % 2;
+          const bool keep = interior || (qr + 8 * h < rows && kc < cols && valid[e % 2] &&
+                                         (!causal || r0 + qr + 8 * h >= c0 + kc));
+          s[n][e] = keep ? s[n][e] * sl2 : float(kNegInf);
+          mx[h] = fmaxf(mx[h], s[n][e]);
+        }
+      }
+      float m_safe[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        // dead rows keep m_new == NEG_INF: exp against 0 underflows their
+        // masked scores to 0 instead of exp(0) == 1; m - m_new is 0 there
+        m_safe[h] = m_new > float(kDeadRow) ? m_new : 0.f;
+        const float alpha = exp2_fast(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[n][2 * h] *= alpha;
+          acc[n][2 * h + 1] *= alpha;
+        }
+      }
+      // p = 2^(s - m_safe); l sums the unrounded p, as the reference does;
+      // p packed at once into the A fragments of P V (p.astype(v.dtype)),
+      // half the registers of the fp32 scores
+      uint32_t pa[NK / 2][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2_fast(s[n][e] - m_safe[e / 2]);
+          l[e / 2] += s[n][e];
+        }
+        if (n % 2 == 1) pack_a<T>(pa[n / 2], s[n - 1], s[n]);
+      }
+      // O += P V
+#pragma unroll
+      for (int j = 0; j < NK / 2; ++j) {
+#pragma unroll
+        for (int dpair = 0; dpair < ND / 2; ++dpair) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Vb + (j * 16 + lane % 16) * LD + dpair * 16 + (lane / 16) * 8);
+          mma_16816<T>(acc[2 * dpair], pa[j], b[0], b[1]);
+          mma_16816<T>(acc[2 * dpair + 1], pa[j], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer has been read before the next-but-one tile lands in it
+  }
+  cp_async_wait<0>();
+
+  // out = acc / l (0 where l == 0), lse = m + log l (NEG_INF there); every
+  // element has one writer
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = qr + 8 * h;
+    if (r >= rows) continue;
+    const bool live = l[h] > 0.f;
+    T* orow = out + qoff + (size_t)(r0 + r) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int d = n * 8 + 2 * tq;
+      const float o0 = live ? acc[n][2 * h] / l[h] : 0.f, o1 = live ? acc[n][2 * h + 1] / l[h] : 0.f;
+      if (vec) {  // D % 8 == 0 and 16-byte aligned rows: the pair as one word
+        if (d < D) *reinterpret_cast<uint32_t*>(orow + d) = pack2<T>(o0, o1);
+      } else {
+        if (d < D) orow[d] = narrow<T, float>(o0);
+        if (d + 1 < D) orow[d + 1] = narrow<T, float>(o1);
+      }
+    }
+    if (tq == 0) lse[(size_t)g * Sq + r0 + r] = live ? m[h] * 0.6931471805599453f + logf(l[h]) : float(kNegInf);
   }
 }
 
@@ -907,25 +1138,51 @@ int prepare(Kernel kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, typename A, int DP> struct Fwd {
+// 16-byte cp.async copies (and the forward's paired stores) need D % 8 == 0
+// and 16-byte aligned operands
+inline int vec16(const Params& p) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
+                         reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.dout) |
+                         reinterpret_cast<uintptr_t>(p.out);
+  return p.D % 8 == 0 && bits % 16 == 0;
+}
+
+template <typename T, int DP> struct FwdMma {
   static int run(const Params& p, cudaStream_t s) {
-    constexpr int TL = Tile<A>::value, LD = DP + 1, LS = TL + 1;
-    const size_t smem = (3 * TL * LD + TL * LS + 3 * TL) * sizeof(A) + TL * sizeof(int);
-    auto kernel = flash_fwd_kernel<T, A, DP>;
+    using Tiles = MmaTiles<DP>;
+    constexpr int LD = Tiles::LD, BK = Tiles::kFwdKeys;
+    const size_t smem = (kMmaRows + 4 * BK) * LD * sizeof(T) + 2 * BK * sizeof(int);
+    auto kernel = flash_fwd_mma<T, DP>;
     if (int e = prepare(kernel, smem)) return e;
-    kernel<<<dim3(p.G, p.Sq / p.bq), kThreads, smem, s>>>(
+    const long long blocks = (long long)p.G * (p.Sq / p.bq) * ((p.bq + kMmaRows - 1) / kMmaRows);
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, kMmaThreads, smem, s>>>(
         static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.v), p.kvm,
-        static_cast<T*>(p.out), static_cast<A*>(p.lse), p.probe, p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal);
+        static_cast<T*>(p.out), static_cast<float*>(p.lse), p.probe, p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal,
+        vec16(p));
     return (int)cudaGetLastError();
   }
 };
 
-// 16-byte cp.async copies need D % 8 == 0 and 16-byte aligned operands
-inline int vec16(const Params& p) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
-                         reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.dout);
-  return p.D % 8 == 0 && bits % 16 == 0;
-}
+// bfloat16 and float16 take the tensor-core forward; float32 and float64
+// the CUDA-core one (true fp32 / fp64 FMAs)
+template <typename T, typename A, int DP> struct Fwd {
+  static int run(const Params& p, cudaStream_t s) {
+    if constexpr (kTensorCore<T>) {
+      return FwdMma<T, DP>::run(p, s);
+    } else {
+      constexpr int TL = Tile<A>::value, LD = DP + 1, LS = TL + 1;
+      const size_t smem = (3 * TL * LD + TL * LS + 3 * TL) * sizeof(A) + TL * sizeof(int);
+      auto kernel = flash_fwd_kernel<T, A, DP>;
+      if (int e = prepare(kernel, smem)) return e;
+      kernel<<<dim3(p.G, p.Sq / p.bq), kThreads, smem, s>>>(
+          static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.v), p.kvm,
+          static_cast<T*>(p.out), static_cast<A*>(p.lse), p.probe, p.Sq, p.Sk, p.D, p.bq, p.bk, p.causal);
+      return (int)cudaGetLastError();
+    }
+  }
+};
+
 
 template <typename T, int DP> struct BwdDqMma {
   static int run(const Params& p, cudaStream_t s) {

@@ -17,7 +17,7 @@ import torch
 from repro.core.precision import Policy as JPolicy
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.attention import _flash_core_bwd
+from repro.kernels.attention import _flash_core_bwd, _fwd_call
 from repro.kernels.attention import flash_attention_probe as jprobe
 from repro.models import attention as jattn
 from repro_torch.core.precision import Policy as TPolicy
@@ -225,6 +225,88 @@ def test_plain_backward_matches_reference_kernels(dtype, sq, sk, bq, bk,
                 f"{name}: {np.abs(a - w).max()} over one bf16 step"
         if dead:
             assert not a[:2].any() and not w[:2].any(), f"dead rows {name}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,bq,bk,causal,dead", BWD_CASES)
+def test_plain_forward_matches_reference_kernel(dtype, sq, sk, bq, bk,
+                                                causal, dead):
+    """``flash_fwd_plain`` against the reference's ``_fwd_call`` (its Pallas
+    forward, interpret mode) on identical flat operands: float32 ``out`` and
+    ``lse`` within 1e-5; ``lse`` (float32 on both sides) within 1e-5 for
+    bfloat16 too; the probe exactly; dead rows give ``out`` exactly 0 and
+    ``lse`` at most NEG_INF/2 on both sides.
+
+    bfloat16 ``out``: both sides round p to v's dtype, but against running
+    maxima over other key chunks (the plain version's ``FWD_CHUNK`` keys,
+    the reference's ``bk``), so a rounded p may differ by one bf16 step of
+    p, which moves out by at most 2^-7 * sum_j p_j |v_j| / l; each side then
+    rounds out once. Tolerance: one bf16 step of the larger of the two
+    values plus 2^-7 of that attention-weighted |v| (readings reach 0.39 of
+    it; the one-step term alone fails where out cancels to near 0). At
+    the reference's chunk the two are compared exactly:
+    ``test_plain_forward_rounds_p_as_reference_at_its_chunk``."""
+    q, k, v, kvm, _, _, _ = _flat_bwd_operands(sq * 100 + sk + 7 * dead, sq,
+                                               sk, bq, bk, causal, dead)
+    geom = dict(causal=causal, bq=bq, bk=bk)
+    jq, jk, jv = (jnp.asarray(a, JDT[dtype]) for a in (q, k, v))
+    want = _fwd_call(jq, jk, jv, jnp.asarray(kvm), interpret=True, **geom)
+    out, lse, probe = tka.flash_fwd_plain(
+        *(torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v)),
+        torch.from_numpy(kvm), **geom)
+    w_out, w_lse = (np.asarray(a, np.float32) for a in want[:2])
+    assert out.dtype == TDT[dtype] and tuple(out.shape) == w_out.shape
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == w_lse.shape
+    out, lse = _np(out), _np(lse)
+    mask = (kvm != 0)[:, None, :].repeat(q.shape[1], axis=1)
+    if causal:
+        mask &= np.tril(np.ones((q.shape[1], k.shape[1]), bool))[None]
+    if dtype == "float32":
+        np.testing.assert_allclose(out, w_out, rtol=1e-5, atol=1e-5)
+    else:
+        qd, kd, vd = (np.asarray(a, np.float32).astype(np.float64)
+                      for a in (jq, jk, jv))
+        s = np.where(mask, np.einsum("gqd,gkd->gqk", qd, kd)
+                     / np.sqrt(q.shape[-1]), -np.inf)
+        p = np.exp(s - np.where(mask.any(-1), s.max(-1), 0.0)[..., None])
+        l = np.where(mask.any(-1), p.sum(-1), 1.0)[..., None]
+        wabs = np.einsum("gqk,gkd->gqd", p / l, np.abs(vd))
+        big = np.maximum(np.abs(out), np.abs(w_out))
+        step = np.exp2(np.floor(np.log2(np.where(big > 0, big, 1.0))) - 7)
+        err = np.abs(out - w_out)
+        assert (err <= step + 2.0 ** -7 * wabs).all(), \
+            f"out: {err.max()} over one bf16 step plus p's rounding"
+    np.testing.assert_allclose(lse, w_lse, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(probe.numpy(), np.asarray(want[2]))
+    dead_rows = ~mask.any(-1)
+    assert dead_rows.any() == dead
+    for o, ls in ((out, lse), (w_out, w_lse)):
+        assert not o[dead_rows].any(), "dead rows give a non-zero out"
+        assert (ls[dead_rows] <= tka.NEG_INF / 2).all(), "dead rows' lse"
+
+
+@pytest.mark.parametrize("sq,sk,bq,bk,causal,dead", BWD_CASES)
+def test_plain_forward_rounds_p_as_reference_at_its_chunk(
+        monkeypatch, sq, sk, bq, bk, causal, dead):
+    """With the plain version's ``FWD_CHUNK`` set to the reference's ``bk``,
+    both sides take the running max over the same keys and round p to
+    bfloat16 against it: bfloat16 ``out`` equals the reference's ``_fwd_call``
+    (interpret mode) exactly, and so does ``lse`` within 1e-5. A plain
+    version that skipped p's rounding to v's dtype would be off by about
+    2^-9 of the attention-weighted |v|."""
+    monkeypatch.setattr(tka, "FWD_CHUNK", bk)
+    q, k, v, kvm, _, _, _ = _flat_bwd_operands(sq * 100 + sk + 7 * dead, sq,
+                                               sk, bq, bk, causal, dead)
+    geom = dict(causal=causal, bq=bq, bk=bk)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = _fwd_call(jq, jk, jv, jnp.asarray(kvm), interpret=True, **geom)
+    out, lse, _ = tka.flash_fwd_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        torch.from_numpy(kvm), **geom)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(out), np.asarray(want[0], np.float32))
+    np.testing.assert_allclose(_np(lse), np.asarray(want[1], np.float32),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("s,bq,bk", [(64, 16, 16), (64, 16, 8), (48, 8, 16)])

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Tuning aid for the tensor-core backward kernels of
-``src/repro_torch/kernels/csrc/attention.cu``, on the card.
+"""Tuning aid for the tensor-core kernels of
+``src/repro_torch/kernels/csrc/attention.cu`` (the forward, dQ and dK/dV),
+on the card.
 
-    python3 tools/torch_attention_variants.py [--variants base expf ...]
+    python3 tools/torch_attention_variants.py [--variants base fwd_expf ...]
 
 Builds a copy of the source once per variant — a named set of text
 substitutions in the copy (``VARIANTS``; ``a+b`` applies both) — checks the
-bfloat16 ``flash_bwd_dq`` and ``flash_bwd_dkv`` of each against their plain
-versions at the training shape (4,32,2048,64), causal, blocks 128 x 128,
-with ``chip_smoke.ATT_TOL``, and times them in turns (a, b, ..., b, a)
-within this one call, beside the library's fused backward
+bfloat16 ``flash_fwd`` (out, lse, probe), ``flash_bwd_dq`` and
+``flash_bwd_dkv`` of each against their plain versions at the training
+shape (4,32,2048,64), causal, blocks 128 x 128, with
+``chip_smoke.ATT_TOL``, and times the three in turns (a, b, ..., b, a)
+within this one call, beside the library's fused forward and backward
 (``F.scaled_dot_product_attention``). Each variant's line carries the
 registers and spills of its tensor-core kernels from ``ptxas -v``.
 
@@ -36,7 +38,8 @@ from repro_torch.kernels import attention as att  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
 _DQ_ORDER = ("  const int G = gridDim.x / (n_q * parts);\n"
-             "  const int g = blockIdx.x % G, rest = blockIdx.x / G;")
+             "  const int g = blockIdx.x % G, rest = blockIdx.x / G;\n"
+             "  const int qb = n_q - 1 - rest / parts;\n")
 _DKV_ORDER = ("  const int G = gridDim.x / (n_k * parts);\n"
               "  const int g = blockIdx.x % G, rest = blockIdx.x / G;")
 
@@ -47,7 +50,8 @@ VARIANTS = {
     # stay in the L2 cache) instead of the heads fastest
     "dq_head_by_head": [(_DQ_ORDER, "  const int G = gridDim.x / (n_q * "
                          "parts);\n  const int g = blockIdx.x / (n_q * parts),"
-                         " rest = blockIdx.x % (n_q * parts);", 1)],
+                         " rest = blockIdx.x % (n_q * parts);\n  const int qb"
+                         " = n_q - 1 - rest / parts;\n", 1)],
     "dkv_head_by_head": [(_DKV_ORDER, "  const int G = gridDim.x / (n_k * "
                           "parts);\n  const int g = blockIdx.x / (n_k * "
                           "parts), rest = blockIdx.x % (n_k * parts);", 1)],
@@ -67,7 +71,37 @@ VARIANTS = {
     "dq_pass64": [("kDqPass = 32;", "kDqPass = kDqKeys;", 1)],
     "dkv_pass64": [("kDkvPass = 16;", "kDkvPass = kDkvQueries;", 1)],
     "dkv_pass32": [("kDkvPass = 16;", "kDkvPass = 32;", 1)],
+    # forward: tiles of 128 keys (a p rounded against the running max of
+    # 128 keys, not the plain version's 64)
+    "fwd_keys128": [("kFwdKeys = 64;", "kFwdKeys = 128;", 1)],
+    # eight warps, 128 rows a block, no register bound: the block of all
+    # three tensor-core kernels is the one constant kMmaWarps (compare the
+    # forward's time; the backward's spill under its four-block bound)
+    "fwd_warps8": [("constexpr int kMmaWarps = 4;",
+                    "constexpr int kMmaWarps = 8;", 1),
+                   ("kFwdMinBlocks = DP <= 64 ? 3 : 1;", "kFwdMinBlocks = 1;",
+                    1)],
+    # forward: Q's fragments re-read by ldmatrix per k16 step, not held in
+    # registers across the key loop
+    "fwd_q_reread": [("kFwdHoldQ = DP <= 64;", "kFwdHoldQ = false;", 1)],
+    # forward: the accurate exp2f instead of ex2.approx
+    "fwd_expf": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+                  "y = exp2f(x);", 1)],
+    # forward: no register bound, or bounds of two or four blocks an SM at
+    # 64 head columns (255 or 128 registers a thread) for the default three
+    # (168)
+    "fwd_min_blocks1": [("kFwdMinBlocks = DP <= 64 ? 3 : 1;",
+                         "kFwdMinBlocks = 1;", 1)],
+    "fwd_min_blocks2": [("kFwdMinBlocks = DP <= 64 ? 3 : 1;",
+                         "kFwdMinBlocks = DP <= 64 ? 2 : 1;", 1)],
+    "fwd_min_blocks4": [("kFwdMinBlocks = DP <= 64 ? 3 : 1;",
+                         "kFwdMinBlocks = DP <= 64 ? 4 : 1;", 1)],
 }
+# what a run without --variants builds: the forward's variants (the
+# backward's were measured when they were chosen)
+DEFAULT = ["base", "fwd_keys128", "fwd_keys128+fwd_min_blocks2", "fwd_warps8",
+           "fwd_q_reread", "fwd_expf", "fwd_min_blocks2", "fwd_min_blocks4",
+           "fwd_q_reread+fwd_min_blocks4"]
 
 
 def variant_source(key: str) -> str:
@@ -113,7 +147,7 @@ def build_variants(keys):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--variants", nargs="*", default=DEFAULT)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -125,7 +159,8 @@ def main():
                                              10, p_valid=1.0)
     qf, kf, vf, kvm, bq, bk = att._prepare(q, k, v, kv_valid, 128, 128)
     geom = dict(causal=True, bq=bq, bk=bk)
-    out, lse, _ = att.flash_fwd_plain(qf, kf, vf, kvm, **geom)
+    fwd = (qf, kf, vf, kvm)
+    out, lse, probe = att.flash_fwd_plain(*fwd, **geom)
     doutf = dout.reshape(qf.shape).contiguous()
     delta = (doutf.float() * out.float()).sum(-1)
     bwd = (qf, kf, vf, kvm, doutf, lse, delta)
@@ -134,26 +169,40 @@ def main():
     rel, acc = cs.ATT_TOL[torch.bfloat16]
 
     times = {key: [] for key in libs}
+    failed = {}
     for key in list(libs) + list(libs)[::-1]:
+        if key in failed:
+            continue
         build._LIBS["attention"] = libs[key][0]
         results: list = []
+        got_out, got_lse, got_probe = att.flash_fwd(*fwd, **geom)
         dq = att.flash_bwd_dq(*bwd, **geom)
         dk, dv = att.flash_bwd_dkv(*bwd, **geom)
         torch.cuda.synchronize()
-        for what, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
-                               ("dv", dv, ref_dv)):
-            cs._check_float(f"{key} {what}", got, ref, rel, results, acc)
+        try:    # a variant that disagrees is reported, not timed
+            for what, got, ref in (("out", got_out, out), ("dq", dq, ref_dq),
+                                   ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+                cs._check_float(f"{key} {what}", got, ref, rel, results, acc)
+            cs._check_float(f"{key} lse", got_lse, lse, 0.0, results)
+            cs._check_exact(f"{key} probe", got_probe, probe, results)
+        except AssertionError as e:
+            failed[key] = str(e)[:300]
+            continue
         times[key].append({
+            "flash_fwd": cs.time_ms(lambda: att.flash_fwd(*fwd, **geom)),
             "flash_bwd_dq": cs.time_ms(lambda: att.flash_bwd_dq(*bwd, **geom)),
             "flash_bwd_dkv": cs.time_ms(
                 lambda: att.flash_bwd_dkv(*bwd, **geom))})
     build._LIBS.pop("attention")
     for key, (_, ptxas) in libs.items():
-        print(json.dumps({"variant": key, "ptxas": ptxas, "ms": times[key]}))
+        print(json.dumps({"variant": key, "ptxas": ptxas, "ms": times[key],
+                          "check_failed": failed.get(key)}))
 
     q4, k4, v4 = (t.detach().requires_grad_(True) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     o4 = sdpa(q4, k4, v4, is_causal=True)
+    print(json.dumps({"library_forward_ms": cs.time_ms(
+        lambda: sdpa(q, k, v, is_causal=True))}))
     print(json.dumps({"library_backward_ms": cs.time_ms(
         lambda: torch.autograd.grad(o4, (q4, k4, v4), dout,
                                     retain_graph=True))}))

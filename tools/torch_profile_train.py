@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -40,8 +41,9 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
 
 # CUDA kernel names of csrc/attention.cu by wrapper, as prefixes: each
-# backward wrapper launches a tensor-core kernel (``*_mma``) for bfloat16 and
-# float16 and a CUDA-core one (``*_kernel``) for float32 and float64
+# wrapper launches a tensor-core kernel (``*_mma``: ``flash_fwd_mma``,
+# ``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) for bfloat16 and float16 and
+# a CUDA-core one (``*_kernel``) for float32 and float64
 OWN = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
        "flash_bwd_dkv": "flash_bwd_dkv_"}
 
@@ -102,6 +104,10 @@ def main():
     own = {name: sum(e.self_device_time_total for e in events
                      if kernel in e.key) / per
            for name, kernel in OWN.items()}
+    # which CUDA kernels each wrapper's prefix matched (flash_fwd_mma, ...)
+    matched = {name: sorted({re.search(kernel + r"[a-z]+", e.key).group(0)
+                             for e in events if kernel in e.key})
+               for name, kernel in OWN.items()}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:args.top]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -119,6 +125,7 @@ def main():
         "own_kernel_launches_per_step":
             {k: v / args.steps for k, v in att.LAUNCHES.items()},
         "attention_kernels_ms_per_step": own,
+        "attention_kernels_matched": matched,
         "attention_kernels_share_of_busy": sum(own.values()) / busy_ms,
         "top_kernels": [
             {"name": e.key[:80], "calls_per_step": e.count / args.steps,
