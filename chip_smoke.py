@@ -15,9 +15,15 @@ result. Phases, one JSON line each:
 2. ``build``   compiles the kernels (seconds, registers and spills per kernel).
 3. ``kernels`` every kernel against its plain PyTorch version on the card,
                at the serving shape (8,2048)@(2048,32000), at 128^3, at a
-               small shape with 16-wide blocks and at ragged shapes, and the
-               logits head at shapes its default blocks do not tile; then
-               times kernel, plain version and library call.
+               small shape with 16-wide blocks and at ragged shapes, at the
+               paper's 256^3 and 512^3, at (129,77,93), at M = 16 and 17
+               (the skinny / tiled boundary) and at tinyllama-1.1b's MLP
+               projection (8192,2048)@(2048,5632), bf16 and f32 (fp64
+               references), and the logits head at shapes its default
+               blocks do not tile; asserts that all four matmul routes
+               (``kernels.matmul.kernel_route``) ran; then times kernel,
+               plain version and ``torch.matmul`` at the head shape, 256^3,
+               512^3 and the projection, each with its route.
 4. ``attention`` the three blockwise-attention kernels (forward, dQ,
                dK/dV) against their plain versions on the card: at the
                training shape (B 4, H 32, S 2048, D 64, bf16, causal), at
@@ -74,8 +80,10 @@ result. Phases, one JSON line each:
                512, P 1025), float32 and bfloat16, against its plain
                version and the model's ``chunked_linear_attention``; the
                benchmark's shape, S equal to and below the chunk, ragged
-               N and P, float64; ``S % chunk != 0`` raises; times (no
-               library call computes this function).
+               N and P, float64, N 2048 at chunk 256, a chunk of 1024;
+               ``S % chunk != 0`` and a chunk past the block's shared
+               memory raise; times at both layers in float32 and bfloat16
+               (no library call computes this function).
 11. ``serve_ssm`` zamba2-7b unreduced (81 layers, d_model 3584) on 8 slots
                with 16 requests, and xlstm-1.3b unreduced (48 layers) on 2
                slots with 4, each through the degrade ladder down to the
@@ -137,6 +145,8 @@ from repro_torch.serving import (DegradeLadder, Request,  # noqa: E402
                                  ServingEngine, State)
 
 PATH_SHAPE = (8, 2048, 32000)      # (slots, d_model, vocab) of tinyllama-1.1b
+# tinyllama-1.1b's MLP up-projection at train batch 4 x 2048 tokens
+LARGE_SHAPE = (8192, 2048, 5632)
 SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
 TRAIN_ATT = (4, 32, 2048, 64)      # (batch, heads, seq, head_dim) in training
 # (batch, heads, Sq, Sk, head_dim) of zamba2-7b's shared attention in the
@@ -294,6 +304,15 @@ def _check_exact(name, got, ref, results, **detail):
     results.append({"check": name, "max_err": 0, "tol": 0, **detail})
 
 
+ROUTES_RAN: set = set()   # matmul routes taken by the checks of phase 3
+
+
+def _route(m, k, n, dt):
+    route = mm.kernel_route(m, k, n, dt)
+    ROUTES_RAN.add(route)
+    return route
+
+
 def check_shape(m, k, n, blocks, seed, results):
     dev = DEV
     tag = f"{m}x{k}x{n}"
@@ -301,6 +320,7 @@ def check_shape(m, k, n, blocks, seed, results):
     a32 = torch.from_numpy(r.randn(m, k).astype(np.float32)).to(dev)
     b32 = torch.from_numpy(r.randn(k, n).astype(np.float32)).to(dev)
     # float32: against an fp64 product — true fp32 products, no TF32
+    _route(m, k, n, torch.float32)
     got = mm.matmul(a32, b32, **blocks)
     _check_float(f"matmul f32 {tag}", got, a32.double() @ b32.double(), 0.0,
                  results)
@@ -309,6 +329,7 @@ def check_shape(m, k, n, blocks, seed, results):
     for dt, ulp in ((torch.bfloat16, BF16_ULP), (torch.float16, F16_ULP)):
         a, b = a32.to(dt), b32.to(dt)
         short = str(dt).replace("torch.", "")
+        _route(m, k, n, dt)
         got = mm.matmul(a, b, out_dtype=torch.float32, **blocks)
         _check_float(f"matmul {short}->f32 {tag}", got,
                      mm.matmul_plain(a, b, out_dtype=torch.float32), 0.0,
@@ -367,8 +388,57 @@ def check_ragged_head(results):
     torch.cuda.synchronize()
 
 
+def check_large(results):
+    """tinyllama-1.1b's MLP projection at train batch 4 x 2048, bf16 and
+    f32, against the plain version and an fp64 product (the tiled routes
+    at a size where they are bound by operations)."""
+    m, k, n = LARGE_SHAPE
+    tag = f"{m}x{k}x{n}"
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    a32 = torch.randn((m, k), generator=gen, device=DEV)
+    b32 = torch.randn((k, n), generator=gen, device=DEV)
+    want64 = a32.to(torch.bfloat16).double() @ b32.to(torch.bfloat16).double()
+    a, b = a32.bfloat16(), b32.bfloat16()
+    assert _route(m, k, n, torch.bfloat16) == "tiled_mma"
+    got = mm.matmul(a, b, out_dtype=torch.float32)
+    _check_float(f"matmul bfloat16->f32 {tag}", got,
+                 mm.matmul_plain(a, b, out_dtype=torch.float32), 0.0,
+                 results)
+    _check_float(f"matmul bfloat16->f32 vs fp64 {tag}", got, want64, 0.0,
+                 results)
+    _check_float(f"matmul bfloat16->bfloat16 {tag}", mm.matmul(a, b),
+                 mm.matmul_plain(a, b), BF16_ULP, results)
+    del want64, got
+    assert _route(m, k, n, torch.float32) == "tiled_fma"
+    got = mm.matmul(a32, b32)
+    _check_float(f"matmul f32 vs fp64 {tag}", got, a32.double() @ b32.double(),
+                 0.0, results)
+    torch.cuda.synchronize()
+
+
+def time_matmul(m, k, n, dt, seed):
+    """Kernel, plain version and ``torch.matmul`` at one shape, fp32 out
+    for narrow operands (the head's form), with the bound and the route."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    a = torch.randn((m, k), generator=gen, device=DEV).to(dt)
+    b = torch.randn((k, n), generator=gen, device=DEV).to(dt)
+    short = str(dt).replace("torch.", "")
+    out_dt = torch.float32
+    bnd, by = bound_ms(m, k, n, a.element_size(), 4, PEAKS_FLOPS[short])
+    big = m * k * n > 1e10
+    kw = dict(warmup=2, reps=5, inner=3) if big else {}
+    return {"shape": [m, k, n], "dtype": f"{short}->float32",
+            "route": mm.kernel_route(m, k, n, dt),
+            "ms": time_ms(lambda: mm.matmul(a, b, out_dtype=out_dt), **kw),
+            "plain_ms": time_ms(lambda: mm.matmul_plain(
+                a, b, out_dtype=out_dt), **kw),
+            "library_ms": time_ms(lambda: torch.matmul(a, b), **kw),
+            "bound_ms": bnd, "bound_by": by}
+
+
 def phase_kernels():
     results: list = []
+    ROUTES_RAN.clear()
     check_ragged_head(results)
     check_shape(*PATH_SHAPE, {}, 0, results)
     check_shape(128, 128, 128, {}, 1, results)
@@ -377,6 +447,15 @@ def phase_kernels():
     check_shape(16, 100, 80, {}, 4, results)    # ragged: part-filled tile
     check_shape(24, 4224, 256, {}, 5, results)  # several K chunks, 3 row tiles
     check_shape(8, 2627, 256, {"bk": 1}, 6, results)  # K chunks, ragged end
+    # the paper's square MATMUL sizes (the tiled routes), a ragged tiled
+    # shape, and both sides of the skinny / tiled boundary
+    check_shape(256, 256, 256, {}, 12, results)
+    check_shape(512, 512, 512, {}, 13, results)
+    check_shape(129, 77, 93, {"bm": 129, "bn": 93, "bk": 77}, 14, results)
+    check_shape(16, 2048, 1000, {"bn": 1000}, 15, results)
+    check_shape(17, 2048, 1000, {"bn": 1000}, 16, results)
+    check_large(results)
+    assert ROUTES_RAN == set(mm.ROUTES), ROUTES_RAN
 
     # times at the serving shape
     m, k, n = PATH_SHAPE
@@ -422,7 +501,18 @@ def phase_kernels():
     timed["lm_head_bfloat16_ms"] = time_ms(
         lambda: ops.lm_head(x, w, compute_dtype="bfloat16"))
     timed["plain_head_bfloat16_ms"] = time_ms(lambda: x @ w)
-    emit("kernels", shape=list(PATH_SHAPE), checks=results, timed=timed)
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        timed[str(dt).replace("torch.", "")]["route"] = mm.kernel_route(
+            m, k, n, dt)
+    # matmul at the paper's square sizes and at a size bound by operations
+    timed["shapes"] = [time_matmul(sz, sz, sz, dt, 20 + sz)
+                       for sz in (256, 512)
+                       for dt in (torch.float32, torch.bfloat16,
+                                  torch.float16)]
+    timed["shapes"] += [time_matmul(*LARGE_SHAPE, dt, 30)
+                        for dt in (torch.bfloat16, torch.float32)]
+    emit("kernels", shape=list(PATH_SHAPE), routes=sorted(ROUTES_RAN),
+         checks=results, timed=timed)
     return results, timed
 
 
@@ -1549,23 +1639,38 @@ def phase_ssm_kernel():
     args = _ssm_inputs(2, 300, 8, 8, torch.float32, 120)
     _raises_value_error("ssm_scan S % chunk != 0", lambda: ops.ssm_scan(
         *args, chunk=128), results)
-    # a state of N 2048 at chunk 256 exceeds the block's shared memory
-    args = _ssm_inputs(1, 256, 2048, 8, torch.float32, 121)
-    _raises_value_error("ssm_scan state beyond shared memory",
-                        lambda: ops.ssm_scan(*args, chunk=256), results)
+    # shared memory: a state of N 2048 at chunk 256 is staged in slices, so
+    # it runs; so does a chunk of 1024 where P fits one column tile (the
+    # scores stream a tile of keys at a time); where P spans several tiles,
+    # the scores of all the chunk's keys stay resident, and a chunk of 1024
+    # exceeds the block
+    for i, (bh, s, n, p, chunk) in enumerate(((1, 256, 2048, 8, 256),
+                                              (1, 1024, 8, 8, 1024))):
+        args = _ssm_inputs(bh, s, n, p, torch.float32, 121 + i)
+        _check_close(f"ssm_scan ({bh},{s},{n},{p}) c{chunk} float32",
+                     ss.ssm_scan(*args, chunk=chunk),
+                     ss.ssm_scan_plain(*args, chunk=chunk), *SSM_TOL, results)
+    args = _ssm_inputs(1, 1024, 8, 72, torch.float32, 123)
+    _raises_value_error("ssm_scan chunk beyond shared memory",
+                        lambda: ops.ssm_scan(*args, chunk=1024), results)
     torch.cuda.synchronize()
 
     timed = {}
     heavy = dict(warmup=1, reps=5, inner=2)
     for name, bh, s, n, p, chunk in layers:
-        args = f32_inputs[name]
-        bnd, by = ssm_bound(bh, s, n, p, chunk, 4)
-        timed[name] = {
-            "shape": [bh, s, n, p], "chunk": chunk,
-            "ms": time_ms(lambda: ss.ssm_scan(*args, chunk=chunk), **heavy),
-            "plain_ms": time_ms(lambda: ss.ssm_scan_plain(*args, chunk=chunk),
-                                **heavy),
-            "library_ms": None, "bound_ms": bnd, "bound_by": by}
+        for dt in (torch.float32, torch.bfloat16):
+            args = f32_inputs[name] if dt == torch.float32 \
+                else _ssm_inputs(bh, s, n, p, dt, 90)
+            key = name if dt == torch.float32 else f"{name} bfloat16"
+            bnd, by = ssm_bound(bh, s, n, p, chunk, args[0].element_size())
+            timed[key] = {
+                "shape": [bh, s, n, p], "chunk": chunk,
+                "dtype": str(dt).replace("torch.", ""),
+                "ms": time_ms(lambda: ss.ssm_scan(*args, chunk=chunk),
+                              **heavy),
+                "plain_ms": time_ms(lambda: ss.ssm_scan_plain(
+                    *args, chunk=chunk), **heavy),
+                "library_ms": None, "bound_ms": bnd, "bound_by": by}
     timed["library_note"] = ("null: no single PyTorch call computes the "
                              "chunked decayed linear attention")
     emit("ssm_kernel", launches=launches, n_checks=len(results),
@@ -1631,7 +1736,8 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
          "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
          "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
          "library_ms": bf16["library_ms"], "shape": list(PATH_SHAPE),
-         "dtype": "bfloat16->float32"},
+         "dtype": "bfloat16->float32", "kernel_route": bf16["route"],
+         "routes_checked": sorted(ROUTES_RAN), "shapes": timed["shapes"]},
         {"name": "matmul_int8", "route": "cuda", "source": SOURCE,
          "replaces": "src/repro/kernels/matmul.py:137",
          "launches": launches["matmul_int8"],
@@ -1705,7 +1811,11 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": None, "shape": t["shape"],
-                 "dtype": f"float32, chunk {t['chunk']}"})
+                 "dtype": f"float32, chunk {t['chunk']}",
+                 "layers": {k_: {f: v_[f] for f in ("shape", "dtype", "ms",
+                                                     "plain_ms", "bound_ms")}
+                            for k_, v_ in s_timed.items()
+                            if isinstance(v_, dict)}})
     for row in rows:
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched "

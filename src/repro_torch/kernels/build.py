@@ -51,10 +51,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "repro_conv2d_route": (_int,) * 6,
     },
     "ssm_scan": {
-        # q, k, v, log_decay, scale, y; BH, S, N, P, chunk, dtype; stream
-        "repro_ssm_scan": (_vp,) * 6 + (_int,) * 6 + (_vp,),
-        # N, chunk, dtype -> shared-memory bytes per block
-        "repro_ssm_scan_smem_bytes": (_int,) * 3,
+        # q, k, v, log_decay, scale, y, states, dec, yx; BH, S, N, P,
+        # chunk, dtype; stream
+        "repro_ssm_scan": (_vp,) * 9 + (_int,) * 6 + (_vp,),
+        # N, P, chunk, dtype -> shared-memory bytes of the largest block
+        "repro_ssm_scan_smem_bytes": (_int,) * 4,
+        # N, P, chunk, dtype -> 1: the cross-chunk term takes a pass of its
+        # own and a (BH, S, P) scratch
+        "repro_ssm_scan_cross_scratch": (_int,) * 4,
         "repro_ssm_scan_smem_limit": (),
     },
     "attention": {
@@ -68,6 +72,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "matmul": {
         "repro_matmul": (_vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
+        # M, K, N, in_dtype -> route code (0 skinny_mma, 1 tiled_mma,
+        # 2 skinny_fma, 3 tiled_fma)
+        "repro_matmul_route": (_int,) * 4,
+        # in_dtype (3: matmul_int8) -> most rows of a one launch takes
+        "repro_matmul_max_rows": (_int,),
         "repro_matmul_int8": (_vp, _vp, _vp, _int, _int, _int, _int, _int,
                               _vp),
     },

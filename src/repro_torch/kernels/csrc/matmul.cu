@@ -1,6 +1,6 @@
-// Matrix products for the logits head: matmul (f32 / bf16 / f16 operands,
-// fp32 accumulation) and matmul_int8 (int8 operands, exact int32
-// accumulation, optional requantization).
+// Matrix products: matmul (f32 / bf16 / f16 operands, fp32 accumulation) and
+// matmul_int8 (int8 operands, exact int32 accumulation, optional
+// requantization).
 //
 // Replaces: repro/kernels/matmul.py::_matmul_kernel (wrapper `matmul`) and
 // ::_matmul_int8_kernel (wrapper `matmul_int8`). There the K axis is the
@@ -10,39 +10,50 @@
 // the code before the loop is the first-step init, the code after it the
 // last-step epilogue, and the accumulator is in registers.
 //
-// What bounds it on an H100 at the serving shape, a(slots, 2048) @
-// b(2048, 32000) with slots <= 16: every element of b is used only `slots`
-// times, far below the card's ridge of a few hundred operations per byte, so
-// the bound is the time to read b once from device memory — 131 MB in bf16,
-// 65.5 MB in int8, 262 MB in f32 — and not arithmetic.
+// matmul takes one of four routes, picked by the source from the operand
+// type and the rows M (repro_matmul_route):
 //
-// What the design does about it:
-//  - A tile of few rows and many columns: 8 rows of a by 128 columns of b
-//    per block, one block per output tile, 250 blocks over N = 32000. An M
-//    larger than 8 adds grid rows and reads b again (served by L2 where it
-//    fits): right, and fast only for the skinny shape this path has.
-//  - b never passes through shared memory. Each thread reads 16 bytes of one
-//    row of b (4 f32, 8 bf16/f16 or 16 int8 columns) straight into
-//    registers, neighbouring threads on neighbouring addresses, and keeps an
-//    8 x (its columns) accumulator in registers. The loads of 8 rows (matmul)
-//    or 2 x 4 rows (matmul_int8) are issued before the first is used: with
-//    one load in flight per thread the kernels ran at about half the rate.
-//    The few rows of a are staged in shared memory per K chunk, already
-//    converted, and read as broadcasts.
-//  - The 256 threads of a block cover the 128 columns several times over;
-//    each replica takes every KS-th row of b (a K slice). After the loop the
-//    slices are summed: by shuffles inside a warp, then through shared
-//    memory across warps, in a fixed order, so results are deterministic.
-//  - int8 uses __dp4a: four rows of b are loaded, each 4x4 byte block is
-//    transposed in registers (__byte_perm) so that one 32-bit word holds one
-//    column's four consecutive k, and multiplied with a word of a that holds
-//    the same four k of one row.
-//  - Ragged edges are masked in the kernel: rows past M and k past K read as
-//    zero, columns past N are neither read nor written; where N or the base
-//    address does not allow 16-byte loads the kernel reads b element by
-//    element.
-// Tensor-core instructions (mma.sync / wgmma), cp.async / TMA and a weight
-// layout made for them are what a faster version would add.
+//  0 `skinny_mma`, bf16/f16 with M <= 16: the serving head, a(slots, 2048)
+//    @ b(2048, 32000). Each element of b is used M times, far below the
+//    card's ridge of ~295 operations a byte, so the bound is reading b once
+//    (131 MB in bf16: 0.039 ms at 3.35 TB/s). The product runs on the
+//    tensor cores with the operands swapped, out^T (16 n x 8 m) = b^T (16 n
+//    x 16 k) . a^T (16 k x 8 m), one mma.sync m16n8k16 per step: b^T's A
+//    fragments come from row-major b tiles by ldmatrix.x4.trans, a^T is the
+//    col-major B operand, which is a's own row-major layout (ldmatrix).
+//    One block per SM (the launcher asks the device), each taking an equal
+//    share of N in units of 16 columns (up to 256), so no SM idles and none
+//    takes two shares; its 8 warps own 32 columns each. b streams through
+//    shared memory in a ring of kSkStages tiles of kSkBK rows, filled by
+//    16-byte cp.async three tiles ahead (48 KB in flight an SM); a's 16 x
+//    kSkBK tile travels with each b tile, so any K fits. The transposed
+//    accumulator is staged in shared memory and written out in rows.
+//  1 `tiled_mma`, bf16/f16 with M > 16: the paper's MATMUL (256^2, 512^2)
+//    and the model's projections, bound by operations at large sizes.
+//    Block tiles of 128 x 128 x 64 in a ring of 3 cp.async stages, eight
+//    warps of 64 x 32, ldmatrix (.trans for b), mma.sync with fp32
+//    accumulators; where those tiles would not give every SM one, 64 x 64 x
+//    32 tiles of four warps.
+//  2 `skinny_fma`, float32 with M <= 16: the first kernel, kept: 8 rows of a
+//    by 128 columns a block, b read straight into registers (16 bytes a
+//    load, kU rows ahead), fp32 FMAs; K slices summed in a fixed order.
+//  3 `tiled_fma`, float32 with M > 16: no tensor cores (TF32 would round the
+//    operands; the port keeps fp32 products). A register-blocked CUDA-core
+//    GEMM: 128 x 128 block tiles (64 x 64 where those would not fill the
+//    SMs), 8 x 8 (4 x 4) outputs a thread, a and b staged in double-buffered
+//    shared memory (a transposed) from registers loaded one tile ahead,
+//    16-byte shared loads; b is read once per 128 rows, not per 8.
+// Ragged edges are masked in the kernels: tiles past M, N or K are filled
+// with zeros by the copy (cp.async with a source size of 0) and not stored;
+// where N, K or a base address does not allow 16-byte copies, that operand
+// is staged element by element into the same tiles.
+//
+// matmul_int8 (the first kernel, unchanged): 8 rows of a by 128 columns of
+// b a block; b straight into registers, 16 bytes a load; __dp4a on 4x4 byte
+// blocks transposed in registers (__byte_perm), so that one 32-bit word
+// holds one column's four consecutive k; K slices summed by shuffles and
+// shared memory in a fixed order. Bound at the head shape: reading b once,
+// 65.5 MB. Tensor-core int8 (mma.sync s8) is its next step.
 //
 // C interface (loaded with ctypes): each function launches on the given
 // stream, does not synchronise, allocates nothing and returns the launch's
@@ -52,6 +63,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -108,7 +121,7 @@ __device__ __forceinline__ void reduce_slices(Acc (&acc)[kBM][VEC], Acc* red, St
 }
 
 // ---------------------------------------------------------------------------
-// matmul: f32 / bf16 / f16 operands, fp32 accumulation, one cast at the end
+// route 2 (skinny_fma): float32 operands, M <= 16, fp32 FMAs, one cast at the end
 // ---------------------------------------------------------------------------
 
 template <typename TIn, int VEC>
@@ -133,7 +146,7 @@ __device__ __forceinline__ void fma_rows(float (&acc)[kBM][VEC], const float* a_
 
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
-matmul_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restrict__ out,
+matmul_fma_skinny(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restrict__ out,
               int M, int K, int N, int vec_ok) {
   constexpr int VEC = 16 / sizeof(TIn);  // columns per thread: one 16-byte load
   constexpr int TN = kBN / VEC;          // threads along N
@@ -352,14 +365,463 @@ matmul_int8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b, T
   });
 }
 
+
+// ---------------------------------------------------------------------------
+// routes 0-1 (skinny_mma, tiled_mma): bf16 / f16 operands on the tensor cores
+// ---------------------------------------------------------------------------
+
+using mma_sm90::cp_async16;
+using mma_sm90::cp_async_commit;
+using mma_sm90::cp_async_wait;
+using mma_sm90::ldmatrix_x4;
+using mma_sm90::ldmatrix_x4_trans;
+using mma_sm90::mma_16816;
+
+constexpr int kSkM = 16;          // rows of a the skinny route takes (M <= kSkM)
+constexpr int kSkBN = 256;        // most columns of b a block takes (16 a unit)
+constexpr int kSkBK = 32;         // k per stage of the ring
+constexpr int kSkStages = 4;      // stages of the ring (kSkStages - 1 in flight)
+constexpr int kSkThreads = kSkBN;  // a warp for each 32 columns
+constexpr int kSkLdB = kSkBN + 8; // padded rows: ldmatrix reads 8 rows without bank conflicts
+constexpr int kSkLdA = kSkBK + 8;
+constexpr size_t kSkSmem = (size_t)kSkStages * (kSkBK * kSkLdB + kSkM * kSkLdA) * 2;
+static_assert(kSkBN % 32 == 0 && kSkBK % 16 == 0, "skinny tile");
+static_assert(kSkM * (kSkBN + 4) * 4 <= kSkSmem, "the transpose buffer must fit the ring");
+
+// tiled_mma block tiles (rows x columns x k, warp tile, ring stages): the
+// large one where its tiles fill the card, the small one below that
+constexpr int kTBM = 128, kTBN = 128, kTBK = 64, kTWM = 64, kTWN = 32, kTStages = 3, kTMinBlocks = 2;
+constexpr int kSBM = 64, kSBN = 64, kSBK = 32, kSWM = 32, kSWN = 32, kSStages = 4, kSMinBlocks = 4;
+constexpr int kSMs = 132;         // an H100's SMs, where the device cannot be asked
+
+template <int BM, int BN, int BK, int STAGES>
+constexpr size_t tiled_smem() {
+  return (size_t)STAGES * (BM * (BK + 8) + BK * (BN + 8)) * 2;
+}
+
+constexpr int kGridY = 65535;     // gridDim.y limit: row tiles of a launch
+
+// rows x 8-element chunks of a row-major 16-bit array with row stride lds,
+// from (r0, c0), into dst with row stride ld; rows from rows_total and
+// columns from c_end on read as zero. vec: 16-byte cp.async, zero-filled
+// past the edges (lds and c_end multiples of 8 and a 16-byte aligned base,
+// so a chunk is wholly inside or outside); else element by element.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void stage16(uint16_t* dst, int ld, const uint16_t* src, int lds, int r0,
+                                        int rows_total, int c0, int c_end, bool vec) {
+  constexpr int CH = COLS / 8;
+#pragma unroll
+  for (int it = 0; it < (ROWS * CH + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if (i >= ROWS * CH) break;
+    const int r = i / CH, c = (i % CH) * 8;
+    const int gr = r0 + r, gc = c0 + c;
+    uint16_t* d = dst + r * ld + c;
+    if (vec) {
+      const bool full = gr < rows_total && gc < c_end;
+      cp_async16(d, full ? src + (size_t)gr * lds + gc : src, full);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        d[e] = (gr < rows_total && gc + e < c_end) ? src[(size_t)gr * lds + gc + e] : (uint16_t)0;
+      }
+    }
+  }
+}
+
+template <typename T, typename TOut>
+__global__ void __launch_bounds__(kSkThreads)
+matmul_mma_skinny(const T* __restrict__ a, const T* __restrict__ b, TOut* __restrict__ out, int M, int K, int N,
+                  int a_vec, int b_vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* Bs = reinterpret_cast<uint16_t*>(smem_raw);  // [kSkStages][kSkBK][kSkLdB]
+  uint16_t* As = Bs + kSkStages * kSkBK * kSkLdB;         // [kSkStages][kSkM][kSkLdA]
+  const uint16_t* a16 = reinterpret_cast<const uint16_t*>(a);
+  const uint16_t* b16 = reinterpret_cast<const uint16_t*>(b);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // an equal share of the 16-column units for each block: gridDim.x is the
+  // card's SM count (or more, up to kSkBN / 16 units a block)
+  const int units = (N + 15) / 16;
+  const int n0 = (int)((long long)blockIdx.x * units / gridDim.x) * 16;
+  const int n_end = min(N, (int)((long long)(blockIdx.x + 1) * units / gridDim.x) * 16);
+  const int ktiles = (K + kSkBK - 1) / kSkBK;
+  const bool two_m = M > 8;  // rows 8..15 exist: the second n8 tile of out^T
+
+  auto load = [&](int kt) {
+    const int slot = kt % kSkStages, k0 = kt * kSkBK;
+    stage16<kSkBK, kSkBN, kSkThreads>(Bs + slot * kSkBK * kSkLdB, kSkLdB, b16, N, k0, K, n0, n_end, b_vec);
+    stage16<kSkM, kSkBK, kSkThreads>(As + slot * kSkM * kSkLdA, kSkLdA, a16, K, 0, M, k0, K, a_vec);
+  };
+#pragma unroll
+  for (int s = 0; s < kSkStages - 1; ++s) {
+    if (s < ktiles) load(s);
+    cp_async_commit();
+  }
+
+  float acc[2][2][4];  // [16 columns of the warp's 32][8 rows of a][C fragment]
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][u][e] = 0.f;
+    }
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kSkStages - 2>();
+    __syncthreads();  // tile kt has landed for everyone; tile kt - 1 is read
+    // refill the slot of tile kt - 1 now, so kSkStages - 1 tiles are in
+    // flight while this one is multiplied
+    if (kt + kSkStages - 1 < ktiles) load(kt + kSkStages - 1);
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+    const uint16_t* bs = Bs + (kt % kSkStages) * kSkBK * kSkLdB;
+    const uint16_t* as = As + (kt % kSkStages) * kSkM * kSkLdA;
+#pragma unroll
+    for (int kk = 0; kk < kSkBK; kk += 16) {
+      // a^T as the B operand: rows 0-7 of a in bf[0..1], rows 8-15 in bf[2..3]
+      uint32_t bf[4];
+      ldmatrix_x4(bf, as + (lane % 8 + (lane / 16) * 8) * kSkLdA + kk + ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        // b^T (16 columns of b x 16 k) as the A operand, from b's k rows
+        uint32_t af[4];
+        ldmatrix_x4_trans(af, bs + (kk + lane % 8 + (lane / 16) * 8) * kSkLdB + warp * 32 + t * 16 +
+                                  ((lane / 8) % 2) * 8);
+        mma_16816<T>(acc[t][0], af, bf[0], bf[1]);
+        if (two_m) mma_16816<T>(acc[t][1], af, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it becomes the transpose buffer
+
+  // out^T fragments -> Os[m][n] -> rows of out
+  constexpr int LDO = kSkBN + 4;
+  float* os = reinterpret_cast<float*>(smem_raw);
+  const int gr = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int n = warp * 32 + t * 16 + gr, m = u * 8 + 2 * tq;
+      os[m * LDO + n] = acc[t][u][0];
+      os[(m + 1) * LDO + n] = acc[t][u][1];
+      os[m * LDO + n + 8] = acc[t][u][2];
+      os[(m + 1) * LDO + n + 8] = acc[t][u][3];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < M * kSkBN; i += kSkThreads) {
+    const int m = i / kSkBN, c = i % kSkBN;
+    if (n0 + c < n_end) out[(size_t)m * N + n0 + c] = from_float<TOut>(os[m * LDO + c]);
+  }
+}
+
+// a pair of adjacent outputs (row, col), (row, col + 1); pair: both in range
+// and the pair's address aligned for one store
+template <typename TOut>
+__device__ __forceinline__ void store2(TOut* out, size_t idx, float v0, float v1, bool pair, bool second) {
+  if (pair) {
+    if constexpr (sizeof(TOut) == 4) {
+      *reinterpret_cast<float2*>(out + idx) = make_float2(v0, v1);
+    } else {
+      const uint32_t w = mma_sm90::pack2<TOut>(v0, v1);
+      *reinterpret_cast<uint32_t*>(out + idx) = w;
+    }
+  } else {
+    out[idx] = from_float<TOut>(v0);
+    if (second) out[idx + 1] = from_float<TOut>(v1);
+  }
+}
+
+// block tile BM x BN x BK, warps of WM x WN, a ring of STAGES, at least
+// MINB blocks an SM (the register budget a thread gets)
+template <typename T, typename TOut, int BM, int BN, int BK, int WM, int WN, int STAGES, int MINB>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MINB)
+matmul_mma_tiled(const T* __restrict__ a, const T* __restrict__ b, TOut* __restrict__ out, int M, int K, int N,
+                 int a_vec, int b_vec) {
+  constexpr int NT = (BM / WM) * (BN / WN) * 32;
+  constexpr int LDA = BK + 8, LDB = BN + 8;
+  constexpr int MI = WM / 16, NJ = WN / 8;  // m16 and n8 tiles of a warp
+  static_assert(WN % 16 == 0 && BK % 16 == 0, "tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* As = reinterpret_cast<uint16_t*>(smem_raw);  // [STAGES][BM][LDA]
+  uint16_t* Bs = As + STAGES * BM * LDA;                  // [STAGES][BK][LDB]
+  const uint16_t* a16 = reinterpret_cast<const uint16_t*>(a);
+  const uint16_t* b16 = reinterpret_cast<const uint16_t*>(b);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int ktiles = (K + BK - 1) / BK;
+
+  auto load = [&](int kt) {
+    const int slot = kt % STAGES, k0 = kt * BK;
+    stage16<BM, BK, NT>(As + slot * BM * LDA, LDA, a16, K, m0, M, k0, K, a_vec);
+    stage16<BK, BN, NT>(Bs + slot * BK * LDB, LDB, b16, N, k0, K, n0, N, b_vec);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load(s);
+    cp_async_commit();
+  }
+
+  float acc[MI][NJ][4];  // [m16 tile][n8 tile][C fragment]: the warp's WM x WN
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < ktiles) load(kt + STAGES - 1);  // the slot of tile kt - 1
+    cp_async_commit();
+    const uint16_t* as = As + (kt % STAGES) * BM * LDA + (wm * WM) * LDA;
+    const uint16_t* bs = Bs + (kt % STAGES) * BK * LDB + wn * WN;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[MI][4], bf[NJ / 2][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) ldmatrix_x4(af[i], as + (i * 16 + lane % 16) * LDA + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < NJ / 2; ++j) {
+        ldmatrix_x4_trans(bf[j], bs + (kk + lane % 16) * LDB + j * 16 + (lane / 16) * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_16816<T>(acc[i][j], af[i], bf[j / 2][(j % 2) * 2], bf[j / 2][(j % 2) * 2 + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gr = lane / 4, tq = lane % 4;
+  const bool even = (N % 2) == 0;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * WM + i * 16 + gr + h * 8;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = n0 + wn * WN + j * 8 + 2 * tq;
+        if (col >= N) continue;
+        const bool second = col + 1 < N;
+        store2<TOut>(out, (size_t)row * N + col, acc[i][j][2 * h], acc[i][j][2 * h + 1], even && second, second);
+      }
+    }
+  }
+}
+
+template <typename T, typename TOut, int BM, int BN, int BK, int WM, int WN, int STAGES, int MINB>
+int launch_mma_tiled(const T* a, const T* b, TOut* out, int M, int K, int N, int a_vec, int b_vec,
+                     cudaStream_t stream) {
+  constexpr size_t smem = tiled_smem<BM, BN, BK, STAGES>();
+  static_assert(smem <= 232448, "tiled_mma ring exceeds shared memory");
+  auto kernel = matmul_mma_tiled<T, TOut, BM, BN, BK, WM, WN, STAGES, MINB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, (BM / WM) * (BN / WN) * 32, smem, stream>>>(a, b, out, M, K, N, a_vec, b_vec);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// route 3 (tiled_fma): float32 operands, M > 16, register-blocked CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFBK = 8;
+constexpr int kFThreads = 256;  // 16 x 16 threads, TM x TM outputs each
+
+// rows of thread tm's tile: groups of four, 64 apart (16-byte shared loads)
+__device__ __forceinline__ int frow(int tm, int i) { return (i / 4) * 64 + tm * 4 + i % 4; }
+
+// block tile (16 TM) x (16 TM); TM = 8 (128 x 128) or 4 (64 x 64)
+template <typename TOut, int TM>
+__global__ void __launch_bounds__(kFThreads)
+matmul_fma_tiled(const float* __restrict__ a, const float* __restrict__ b, TOut* __restrict__ out, int M, int K,
+                 int N, int a_vec, int b_vec) {
+  constexpr int BM = 16 * TM, LD = BM + 4;  // padded: the transposed stores of a hit 32 banks
+  __shared__ __align__(16) float As[2][kFBK][LD];  // a transposed: [k][m]
+  __shared__ __align__(16) float Bs[2][kFBK][LD];  // [k][n]
+  const int tid = threadIdx.x;
+  const int tm = tid / 16, tn = tid % 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BM;
+  // this thread's share of a tile (threads below 2 BM): a row am, 4 k from
+  // ka; b row kb, 4 columns from nb
+  const bool loader = tid < 2 * BM;
+  const int am = tid / 2, ka = (tid % 2) * 4;
+  const int kb = tid / (BM / 4), nb = (tid % (BM / 4)) * 4;
+  const int ktiles = (K + kFBK - 1) / kFBK;
+
+  float ra[4], rb[4];
+  auto fetch = [&](int kt) {
+    if (!loader) return;
+    const int k0 = kt * kFBK;
+    const int gm = m0 + am, gk = k0 + ka;
+    if (a_vec && gm < M && gk + 3 < K) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(a + (size_t)gm * K + gk));
+      ra[0] = v.x; ra[1] = v.y; ra[2] = v.z; ra[3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ra[e] = (gm < M && gk + e < K) ? a[(size_t)gm * K + gk + e] : 0.f;
+    }
+    const int gkb = k0 + kb, gn = n0 + nb;
+    if (b_vec && gkb < K && gn + 3 < N) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(b + (size_t)gkb * N + gn));
+      rb[0] = v.x; rb[1] = v.y; rb[2] = v.z; rb[3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rb[e] = (gkb < K && gn + e < N) ? b[(size_t)gkb * N + gn + e] : 0.f;
+    }
+  };
+  auto put = [&](int slot) {
+    if (!loader) return;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) As[slot][ka + e][am] = ra[e];
+    *reinterpret_cast<float4*>(&Bs[slot][kb][nb]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+  };
+
+  float acc[TM][TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
+  }
+  fetch(0);
+  put(0);
+  __syncthreads();
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int slot = kt % 2;
+    if (kt + 1 < ktiles) fetch(kt + 1);  // in flight while this tile is used
+#pragma unroll
+    for (int k = 0; k < kFBK; ++k) {
+      float av[TM], bv[TM];
+#pragma unroll
+      for (int g = 0; g < TM / 4; ++g) {
+        const float4 x = *reinterpret_cast<const float4*>(&As[slot][k][g * 64 + tm * 4]);
+        const float4 y = *reinterpret_cast<const float4*>(&Bs[slot][k][g * 64 + tn * 4]);
+        av[4 * g] = x.x; av[4 * g + 1] = x.y; av[4 * g + 2] = x.z; av[4 * g + 3] = x.w;
+        bv[4 * g] = y.x; bv[4 * g + 1] = y.y; bv[4 * g + 2] = y.z; bv[4 * g + 3] = y.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    if (kt + 1 < ktiles) put(slot ^ 1);  // that slot was read in step kt - 1
+    __syncthreads();
+  }
+
+  const bool vec_out = (N % 4) == 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + frow(tm, i);
+    if (row >= M) continue;
+#pragma unroll
+    for (int h = 0; h < TM / 4; ++h) {
+      const int col = n0 + h * 64 + tn * 4;
+      TOut* o = out + (size_t)row * N + col;
+      if constexpr (sizeof(TOut) == 4) {
+        if (vec_out && col + 3 < N) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < N) o[e] = from_float<TOut>(acc[i][4 * h + e]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
 inline dim3 tile_grid(int M, int N) { return dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM); }
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the current device's SM count (asked once per device)
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return kSMs;
+  if (counts[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1) n = kSMs;
+    counts[dev] = n;
+  }
+  return counts[dev];
+}
+
+// the large block tile where its tiles alone fill the card's SMs
+inline bool large_tiles(int M, int N, int BM, int BN) {
+  return (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN) >= sm_count();
+}
+
+// dtype codes: 0 float32, 1 bfloat16, 2 float16
+inline int route_of(int M, int in_dtype) {
+  if (in_dtype == 0) return M <= kSkM ? 2 : 3;
+  return M <= kSkM ? 0 : 1;
+}
 
 template <typename TIn, typename TOut>
 int launch_matmul(const void* a, const void* b, void* out, int M, int K, int N, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(TIn);
-  const int vec_ok = (N % VEC == 0) && (reinterpret_cast<uintptr_t>(b) % 16 == 0);
-  matmul_kernel<TIn, TOut><<<tile_grid(M, N), kThreads, 0, stream>>>(
-      static_cast<const TIn*>(a), static_cast<const TIn*>(b), static_cast<TOut*>(out), M, K, N, vec_ok);
+  const TIn* pa = static_cast<const TIn*>(a);
+  const TIn* pb = static_cast<const TIn*>(b);
+  TOut* po = static_cast<TOut*>(out);
+  if constexpr (sizeof(TIn) == 4) {
+    if (M <= kSkM) {
+      const int vec_ok = (N % 4 == 0) && aligned16(b);
+      matmul_fma_skinny<TIn, TOut><<<tile_grid(M, N), kThreads, 0, stream>>>(pa, pb, po, M, K, N, vec_ok);
+    } else {
+      const int a_vec = (K % 4 == 0) && aligned16(a), b_vec = (N % 4 == 0) && aligned16(b);
+      if (large_tiles(M, N, 128, 128)) {
+        const dim3 grid((N + 127) / 128, (M + 127) / 128);
+        matmul_fma_tiled<TOut, 8><<<grid, kFThreads, 0, stream>>>(pa, pb, po, M, K, N, a_vec, b_vec);
+      } else {
+        const dim3 grid((N + 63) / 64, (M + 63) / 64);
+        matmul_fma_tiled<TOut, 4><<<grid, kFThreads, 0, stream>>>(pa, pb, po, M, K, N, a_vec, b_vec);
+      }
+    }
+  } else {
+    const int a_vec = (K % 8 == 0) && aligned16(a), b_vec = (N % 8 == 0) && aligned16(b);
+    if (M <= kSkM) {
+      auto kernel = matmul_mma_skinny<TIn, TOut>;
+      if (kSkSmem > 48 * 1024) {
+        const cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSkSmem);
+        if (e != cudaSuccess) return (int)e;
+      }
+      // one block an SM, each with an equal share of the columns; more
+      // blocks only where a share would exceed kSkBN columns
+      const int units = (N + 15) / 16;
+      int grid = sm_count();
+      grid = max(grid, (units + kSkBN / 16 - 1) / (kSkBN / 16));
+      grid = min(grid, units);
+      kernel<<<grid, kSkThreads, kSkSmem, stream>>>(pa, pb, po, M, K, N, a_vec, b_vec);
+    } else if (large_tiles(M, N, kTBM, kTBN)) {
+      return launch_mma_tiled<TIn, TOut, kTBM, kTBN, kTBK, kTWM, kTWN, kTStages, kTMinBlocks>(pa, pb, po, M, K, N, a_vec,
+                                                                                 b_vec, stream);
+    } else {
+      return launch_mma_tiled<TIn, TOut, kSBM, kSBN, kSBK, kSWM, kSWN, kSStages, kSMinBlocks>(pa, pb, po, M, K, N, a_vec,
+                                                                                 b_vec, stream);
+    }
+  }
   return (int)cudaGetLastError();
 }
 
@@ -376,11 +838,12 @@ int launch_matmul_out(const void* a, const void* b, void* out, int M, int K, int
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 float16. a (M,K), b (K,N), out (M,N),
-// all row-major and contiguous; a and b share in_dtype.
+// a (M,K), b (K,N), out (M,N), all row-major and contiguous; a and b share
+// in_dtype (codes as route_of). M <= repro_matmul_max_rows(in_dtype).
 extern "C" int repro_matmul(const void* a, const void* b, void* out, int M, int K, int N, int in_dtype,
                             int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
   switch (in_dtype) {
     case 0: return launch_matmul_out<float>(a, b, out, M, K, N, out_dtype, s);
     case 1: return launch_matmul_out<__nv_bfloat16>(a, b, out, M, K, N, out_dtype, s);
@@ -389,13 +852,35 @@ extern "C" int repro_matmul(const void* a, const void* b, void* out, int M, int 
   return (int)cudaErrorInvalidValue;
 }
 
+// The route repro_matmul takes for M rows of in_dtype operands: 0
+// skinny_mma, 1 tiled_mma, 2 skinny_fma, 3 tiled_fma; -1 for a bad code.
+// K and N do not enter the choice today; they are part of the question.
+extern "C" int repro_matmul_route(int M, int K, int N, int in_dtype) {
+  (void)K;
+  (void)N;
+  if (M < 1 || in_dtype < 0 || in_dtype > 2) return -1;
+  return route_of(M, in_dtype);
+}
+
+// The most rows of a that one launch takes, from the grid that really
+// launches: in_dtype 0-2 for repro_matmul (row tiles of 128 rows on grid.y
+// for the tiled routes; the skinny routes take M <= 16, and the 64-row
+// tiles only shapes with fewer tiles than the card has SMs), 3 for
+// repro_matmul_int8 (8 rows a block on grid.y).
+extern "C" int repro_matmul_max_rows(int in_dtype) {
+  if (in_dtype == 3) return kGridY * kBM;
+  if (in_dtype < 0 || in_dtype > 2) return -1;
+  constexpr int rows = kTBM < 128 ? kTBM : 128;  // tiled_fma's large tile has 128
+  return kGridY * rows;
+}
+
 // int8 a (M,K) @ int8 b (K,N) -> out (M,N), int32 (out_int8 == 0) or int8.
 // shift in [0, 31]; 0 means no requantization.
 extern "C" int repro_matmul_int8(const void* a, const void* b, void* out, int M, int K, int N, int shift,
                                  int out_int8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shift < 0 || shift > 31) return (int)cudaErrorInvalidValue;
-  const int vec_ok = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(b) % 16 == 0);
+  const int vec_ok = (N % 16 == 0) && aligned16(b);
   const int a_words_ok = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(a) % 4 == 0);
   const int8_t* pa = static_cast<const int8_t*>(a);
   const int8_t* pb = static_cast<const int8_t*>(b);

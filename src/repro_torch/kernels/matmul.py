@@ -14,9 +14,11 @@ Each wrapper:
   ``shift``) and its **shape contract**: where the reference asserts, the
   wrapper raises ``ValueError`` naming the shapes, so callers that route
   on "does this shape tile?" route identically. The block arguments are
-  validated and otherwise only a hint: the CUDA tile (8 rows by 128
-  columns, K loop inside the block) is the kernel's own choice, and the
-  kernel masks its own ragged edges;
+  validated and otherwise only a hint: the CUDA source picks its own route
+  and tile from the operand type and the rows (:func:`kernel_route`:
+  tensor cores for bf16/f16 — a swapped skinny product for M <= 16, block
+  tiles above; CUDA-core fp32 FMAs for float32), and the kernels mask their
+  own ragged edges;
 - takes the plain PyTorch version (``matmul_plain``, ``matmul_int8_plain``)
   **only for CPU tensors**. For CUDA tensors it launches the kernel on the
   current stream, without synchronising, or raises; no library routine
@@ -36,7 +38,9 @@ from repro_torch.kernels import build
 LAUNCHES = {"matmul": 0, "matmul_int8": 0}
 
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_GRID_ROWS = 65535          # gridDim.y limit; 8 rows of `a` per block
+_INT8_CODE = 3                  # repro_matmul_max_rows' code for matmul_int8
+# the source's route codes (repro_matmul_route)
+ROUTES = ("skinny_mma", "tiled_mma", "skinny_fma", "tiled_fma")
 
 
 def reset_launches() -> None:
@@ -71,13 +75,33 @@ def _check_operands(a, b, what: str):
                          f"({a.device}, {b.device})")
 
 
-def _check_launchable(a, b, what: str):
+def _check_launchable(lib, a, b, code: int, what: str):
+    """Contiguity, and the rows one launch takes as the source states them
+    for the grid that really launches (``repro_matmul_max_rows``)."""
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{what}: operands must be contiguous (strides "
                          f"{a.stride()}, {b.stride()})")
-    if -(-a.shape[0] // 8) > _MAX_GRID_ROWS:
+    max_rows = lib.repro_matmul_max_rows(code)
+    if a.shape[0] > max_rows:
         raise ValueError(f"{what}: m={a.shape[0]} exceeds the kernel's "
-                         f"grid ({_MAX_GRID_ROWS * 8} rows)")
+                         f"grid ({max_rows} rows)")
+
+
+def kernel_route(m: int, k: int, n: int, dtype) -> str:
+    """The kernel ``matmul`` launches for an (m,k) @ (k,n) product of
+    ``dtype`` operands, as the CUDA source decides it
+    (``repro_matmul_route``): ``"skinny_mma"`` (bf16/f16, m <= 16),
+    ``"tiled_mma"`` (bf16/f16, m > 16), ``"skinny_fma"`` (float32, m <=
+    16) or ``"tiled_fma"`` (float32, m > 16). Needs the built library."""
+    dtype = torch_dtype(dtype)
+    if dtype not in _FLOAT_CODES:
+        raise ValueError(f"matmul: no route for {dtype}")
+    code = build.load("matmul").repro_matmul_route(m, k, n,
+                                                   _FLOAT_CODES[dtype])
+    if code < 0:
+        raise ValueError(f"matmul: the source has no route for m={m}, "
+                         f"{dtype}")
+    return ROUTES[code]
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +127,7 @@ def matmul(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
     ``lmul`` (the register-grouping analogue, widening the N block through
     ``lmul_tile``) are held to the reference's divisibility contract and
     raise ``ValueError`` where it would assert; they do not pick the CUDA
-    tile.
+    route or tile (:func:`kernel_route`).
     """
     _check_operands(a, b, "matmul")
     if a.dtype not in _FLOAT_CODES or b.dtype != a.dtype:
@@ -120,8 +144,8 @@ def matmul(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
         return matmul_plain(a, b, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"matmul: unsupported device {a.device}")
-    _check_launchable(a, b, "matmul")
     lib = build.load("matmul")
+    _check_launchable(lib, a, b, _FLOAT_CODES[a.dtype], "matmul")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = build.launch(lib.repro_matmul, a.device, a.data_ptr(), b.data_ptr(),
                   out.data_ptr(), m, k, n, _FLOAT_CODES[a.dtype],
@@ -192,8 +216,8 @@ def matmul_int8(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
         return matmul_int8_plain(a, b, out_dtype=out_dtype, shift=shift)
     if a.device.type != "cuda":
         raise ValueError(f"matmul_int8: unsupported device {a.device}")
-    _check_launchable(a, b, "matmul_int8")
     lib = build.load("matmul")
+    _check_launchable(lib, a, b, _INT8_CODE, "matmul_int8")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = build.launch(lib.repro_matmul_int8, a.device, a.data_ptr(),
                   b.data_ptr(), out.data_ptr(), m, k, n, shift,

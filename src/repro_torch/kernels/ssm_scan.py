@@ -8,10 +8,14 @@ Hopper.
 ``kernels/ssm_scan.py``: the chunkwise-parallel form — quadratic
 decay-masked attention inside a chunk, the recurrence across chunks carried
 in a float32 state. The reference runs the chunk axis as the innermost,
-in-order TPU grid axis with the state in VMEM scratch; the CUDA kernel runs
-it as a loop inside a block that holds one ``(bh, p-tile)`` slice of the
-state in shared memory (see the source for why the state is split by
-columns, and what that costs).
+in-order TPU grid axis with the state in VMEM scratch; the CUDA source
+splits the same arithmetic into SSD's chunk-parallel passes, launched by
+one call: every chunk's own state contribution, the states passed from
+chunk to chunk (the only pass in order), and each chunk's outputs with
+q·kᵀ formed once per tile of rows and keys — the cross-chunk term in a
+pass of its own where P spans several column tiles (see the source's
+note). :func:`ssm_scan_passes` is a plain mirror of those passes for the
+tests; the card never runs it.
 
 Contract, as the reference's: ``chunk = min(chunk, S)`` and ``S % chunk``
 must be 0 (a bare ``assert`` there, ``ValueError`` here); y comes back in
@@ -110,6 +114,45 @@ def ssm_scan_plain(q, k, v, log_decay, scale, *, chunk: int = 128):
     return torch.cat(ys, dim=1).to(v.dtype)
 
 
+def ssm_scan_passes(q, k, v, log_decay, scale, *, chunk: int = 128):
+    """Plain mirror of the CUDA kernel's three passes, a test aid (never
+    on a card path): (1) each chunk's state contribution ``dS_c = (k *
+    gk)ᵀ·v`` with ``gk = scale * exp(cd_last - cd)``, all chunks at once;
+    (2) the states entering each chunk, ``S_in(c+1) = S_in(c) *
+    exp(cd_last,c) + dS_c`` from zeros; (3) every chunk's output at once,
+    ``exp(cd) * (q·S_in) + (tril(q·kᵀ * exp(cd_i - cd_j)) * scale_j)·v``.
+    Accumulates in float32 (float64 for float64 operands)."""
+    chunk = _contract(q, k, v, log_decay, scale, chunk)
+    acc_t = _acc_dtype(v.dtype)
+    bh, s, n = q.shape
+    p_dim, nc = v.shape[-1], s // chunk
+
+    def chunks(t):
+        return t.to(acc_t).reshape((bh, nc, chunk) + t.shape[2:])
+    qc, kc, vc, ldc, scc = map(chunks, (q, k, v, log_decay, scale))
+    cd = torch.cumsum(ldc, dim=-1)                           # (bh, nc, c)
+    cd_last = cd[..., -1:]
+    # pass 1: every chunk's own contribution (the last one is not needed)
+    gk = scc * torch.exp(cd_last - cd)
+    d_state = (kc * gk[..., None]).transpose(-1, -2) @ vc    # (bh,nc,n,p)
+    # pass 2: the state entering each chunk, in order
+    s_in = [torch.zeros((bh, n, p_dim), dtype=acc_t, device=q.device)]
+    for c in range(nc - 1):
+        s_in.append(s_in[-1] * torch.exp(cd_last[:, c])[..., None]
+                    + d_state[:, c])
+    s_in = torch.stack(s_in, dim=1)
+    # pass 3: outputs, q·kᵀ once per chunk; the mask is a select
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))
+    scores = qc @ kc.transpose(-1, -2)
+    w = torch.where(tri, scores * torch.exp(cd[..., :, None]
+                                            - cd[..., None, :]),
+                    torch.zeros((), dtype=acc_t, device=q.device)) \
+        * scc[..., None, :]
+    y = torch.exp(cd)[..., None] * (qc @ s_in) + w @ vc
+    return y.reshape(bh, s, p_dim).to(v.dtype)
+
+
 def ssm_scan(q, k, v, log_decay, scale, *, chunk: int = 128):
     """q,k (BH, S, N); v (BH, S, P); log_decay, scale (BH, S) ->
     y (BH, S, P) in v's dtype. float32 state; matches
@@ -136,18 +179,31 @@ def ssm_scan(q, k, v, log_decay, scale, *, chunk: int = 128):
         raise ValueError(f"ssm_scan: BH={bh} exceeds the kernel's grid "
                          f"({_MAX_BH})")
     lib = build.load("ssm_scan")
-    # the source's own layout decides what fits a block
-    need = lib.repro_ssm_scan_smem_bytes(n, chunk, _DTYPE_CODES[v.dtype])
+    # the source's own layout decides what fits a block (the chunk sets it)
+    need = lib.repro_ssm_scan_smem_bytes(n, p_dim, chunk,
+                                         _DTYPE_CODES[v.dtype])
     limit = lib.repro_ssm_scan_smem_limit()
     if need > limit:
-        raise ValueError(f"ssm_scan: N={n}, chunk={chunk} need {need} bytes "
-                         f"of shared memory per block; the kernel has "
-                         f"{limit}")
+        raise ValueError(f"ssm_scan: N={n}, P={p_dim}, chunk={chunk} need "
+                         f"{need} bytes of shared memory per block; the "
+                         f"kernel has {limit}")
     y = torch.empty_like(v)
+    # scratch of passes 1-2: each chunk's state, then the state entering
+    # the next chunk (in place), and each chunk's total decay; none when
+    # the sequence is one chunk. Where P spans several column tiles, the
+    # cross-chunk term has a pass of its own and lands in yx.
+    nc1 = s // chunk - 1
+    states = torch.empty((bh, nc1, n, p_dim), dtype=acc_t, device=q.device)
+    dec = torch.empty((bh, nc1), dtype=acc_t, device=q.device)
+    cross = nc1 > 0 and lib.repro_ssm_scan_cross_scratch(
+        n, p_dim, chunk, _DTYPE_CODES[v.dtype])
+    yx = torch.empty((bh, s, p_dim) if cross else (0,), dtype=acc_t,
+                     device=q.device)
     err = build.launch(lib.repro_ssm_scan, q.device, q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), ld.data_ptr(),
-                       sc.data_ptr(), y.data_ptr(), bh, s, n, p_dim, chunk,
-                       _DTYPE_CODES[v.dtype])
+                       sc.data_ptr(), y.data_ptr(), states.data_ptr(),
+                       dec.data_ptr(), yx.data_ptr(), bh, s, n, p_dim,
+                       chunk, _DTYPE_CODES[v.dtype])
     build.raise_on_launch_error(err, "ssm_scan")
     LAUNCHES["ssm_scan"] += 1
     return y

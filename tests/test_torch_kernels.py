@@ -210,6 +210,74 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert tmm.LAUNCHES == {"matmul": 0, "matmul_int8": 0}
 
 
+class _FakeMatmulLib:
+    """Stands in for the built ``csrc/matmul.cu`` where no card is: its
+    row limit and route answers, as the source gives them."""
+    ROW_LIMIT = {0: 65535 * 128, 1: 65535 * 128, 2: 65535 * 128,
+                 3: 65535 * 8}
+
+    def repro_matmul_max_rows(self, code):
+        return self.ROW_LIMIT[code]
+
+    def repro_matmul_route(self, m, k, n, code):
+        return (2 if m <= 16 else 3) if code == 0 else (0 if m <= 16 else 1)
+
+
+def test_matmul_row_limit_is_the_sources():
+    """The wrapper holds a launch to the rows the source says its grid
+    takes (``repro_matmul_max_rows``): 128-row tiles for matmul, 8-row
+    tiles for matmul_int8, each up to 65535 grid rows; non-contiguous
+    operands raise first."""
+    lib = _FakeMatmulLib()
+    b = torch.empty((1, 0))
+    for code, rows in lib.ROW_LIMIT.items():
+        tmm._check_launchable(lib, torch.empty((rows, 0)), b, code, "x")
+        with pytest.raises(ValueError, match=f"grid \\({rows} rows\\)"):
+            tmm._check_launchable(lib, torch.empty((rows + 1, 0)), b, code,
+                                  "x")
+        with pytest.raises(ValueError, match="contiguous"):
+            tmm._check_launchable(lib, torch.empty((4, 2)).t(), b, code, "x")
+    assert lib.ROW_LIMIT[1] > 65535 * 8      # the old 8-row grid's limit
+
+
+@pytest.mark.parametrize("m,dtype,want", [
+    (1, "bfloat16", "skinny_mma"), (16, "float16", "skinny_mma"),
+    (17, "bfloat16", "tiled_mma"), (8192, "float16", "tiled_mma"),
+    (16, "float32", "skinny_fma"), (17, "float32", "tiled_fma")])
+def test_matmul_kernel_route_names(monkeypatch, m, dtype, want):
+    """``kernel_route`` reports the source's route code by name; the
+    boundary is M = 16 / 17 for every operand type."""
+    monkeypatch.setattr(tmm.build, "load", lambda name: _FakeMatmulLib())
+    assert tmm.kernel_route(m, 2048, 32000, dtype) == want
+    assert set(tmm.ROUTES) == {"skinny_mma", "tiled_mma", "skinny_fma",
+                               "tiled_fma"}
+
+
+def test_matmul_kernel_route_refuses_int8(monkeypatch):
+    monkeypatch.setattr(tmm.build, "load", lambda name: _FakeMatmulLib())
+    with pytest.raises(ValueError):
+        tmm.kernel_route(8, 64, 64, torch.int8)
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (16, 256, 200, 16, 200, 128), (17, 256, 200, 17, 200, 128),
+    (129, 77, 93, 129, 93, 77), (256, 256, 256, 128, 128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_matmul_route_shapes_match_reference(m, k, n, bm, bn, bk, dtype):
+    """Both sides of the skinny / tiled boundary, a ragged tiled shape and
+    the paper's 256^3: the wrapper keeps the reference's numbers and output
+    type at each (on the card these are chip_smoke.py's new checks)."""
+    r = np.random.RandomState(m + n)
+    a, b = r.randn(m, k).astype(np.float32), r.randn(k, n).astype(np.float32)
+    want = jops.matmul(jnp.asarray(a, JDT[dtype]), jnp.asarray(b, JDT[dtype]),
+                       bm=bm, bn=bn, bk=bk, interpret=True)
+    got = tops.matmul(torch.from_numpy(a).to(TDT[dtype]),
+                      torch.from_numpy(b).to(TDT[dtype]), bm=bm, bn=bn, bk=bk)
+    assert got.dtype == TDT[dtype] and got.shape == (m, n)
+    np.testing.assert_allclose(_np32(got), np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype] * 4)
+
+
 def test_lm_head_routes():
     cases = [((8, 64, 256, "float32"), "einsum-fp32"),
              ((8, 64, 256, "bfloat16"), "bfloat16"),

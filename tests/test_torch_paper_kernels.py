@@ -339,15 +339,88 @@ def test_ssm_scan_dtype_contract():
 
 
 def test_ssm_scan_shared_memory_limit_is_the_kernels_only():
-    """A state of N 2048 at chunk 256 does not fit the CUDA kernel's block
-    (the card raises ``ValueError``, ``chip_smoke.py`` ``ssm_kernel``); the
-    plain version has no such limit and meets the reference's recurrence."""
-    arrays = _ssm_inputs(1, 256, 2048, 3, 13)
-    got = tssm.ssm_scan(*map(_t, arrays), chunk=256)
-    assert got.shape == (1, 256, 3)
-    np.testing.assert_allclose(
-        _np(got), _jnp(jref.ssm_scan_ref(*(jnp.asarray(a) for a in arrays))),
-        rtol=3e-4, atol=3e-4)
+    """A chunk of 1024 with P past one column tile does not fit the CUDA
+    kernel's block, whose scores tile holds the chunk's keys (the card
+    raises ``ValueError``, ``chip_smoke.py`` ``ssm_kernel``; N 2048 at chunk
+    256 runs there); the plain version has no such limit and meets the
+    reference's recurrence at both shapes."""
+    for (bh, s, n, p, chunk, seed) in ((1, 1024, 8, 72, 1024, 13),
+                                       (1, 256, 2048, 3, 256, 14)):
+        arrays = _ssm_inputs(bh, s, n, p, seed)
+        got = tssm.ssm_scan(*map(_t, arrays), chunk=chunk)
+        assert got.shape == (bh, s, p)
+        np.testing.assert_allclose(
+            _np(got),
+            _jnp(jref.ssm_scan_ref(*(jnp.asarray(a) for a in arrays))),
+            rtol=3e-4, atol=3e-4)
+
+
+# the kernel's three passes, mirrored in plain PyTorch (ssm_scan_passes):
+# S equal to one chunk (no state is passed), several chunks, N and P that
+# tile nothing, a chunk that tiles no row block, and float64
+PASS_CASES = [
+    (2, 32, 8, 8, 32, "float32"),
+    (2, 64, 8, 8, 16, "float32"),
+    (3, 96, 33, 65, 32, "float32"),
+    (2, 48, 5, 7, 12, "float32"),
+    (4, 64, 16, 32, 16, "float64"),
+    (2, 40, 6, 9, 8, "float64"),
+]
+
+
+@pytest.mark.parametrize("bh,s,n,p,chunk,dtype", PASS_CASES)
+def test_ssm_scan_passes_match_reference_kernel_and_plain(bh, s, n, p, chunk,
+                                                         dtype):
+    arrays = _ssm_inputs(bh, s, n, p, bh * s + n + p)
+    td = torch.float64 if dtype == "float64" else torch.float32
+    tens = [torch.from_numpy(a.astype(np.float64)).to(td) for a in arrays]
+    got = tssm.ssm_scan_passes(*tens, chunk=chunk)
+    assert got.shape == (bh, s, p) and got.dtype == td
+    plain = tssm.ssm_scan_plain(*tens, chunk=chunk)
+    torch.testing.assert_close(got, plain, rtol=3e-4, atol=3e-4)
+    j = [jnp.asarray(a) for a in arrays]
+    want = jops.ssm_scan(*j, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(got.numpy().astype(np.float32), _jnp(want),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_ssm_scan_passes_narrow_operands_keep_v_dtype():
+    """bfloat16 operands are widened as in the plain version and y comes
+    back in bfloat16, within one step of the Pallas kernel's result."""
+    arrays = _ssm_inputs(2, 64, 8, 8, 21)
+    q, k, v = (_t(a, torch.bfloat16) for a in arrays[:3])
+    got = tssm.ssm_scan_passes(q, k, v, _t(arrays[3]), _t(arrays[4]),
+                               chunk=16)
+    assert got.dtype == torch.bfloat16
+    j = [jnp.asarray(a, jnp.bfloat16) for a in arrays[:3]] \
+        + [jnp.asarray(a) for a in arrays[3:]]
+    want = jops.ssm_scan(*j, chunk=16, interpret=True)
+    scale = float(np.abs(_jnp(want)).max())
+    np.testing.assert_allclose(_np(got), _jnp(want), rtol=2e-2,
+                               atol=2e-2 * scale)
+
+
+def test_ssm_scan_passes_masks_by_select():
+    """A decay steep enough that exp(cd_i - cd_j) overflows above the
+    diagonal leaves y finite in the mirror, as in the plain version: the
+    mask is a select, never a multiply by 0/1 (inf * 0 would be NaN)."""
+    arrays = list(_ssm_inputs(1, 32, 4, 4, 22))
+    arrays[3] = np.full((1, 32), -40.0, np.float32)   # exp(40 * 31) = inf
+    tens = [_t(a) for a in arrays]
+    got = tssm.ssm_scan_passes(*tens, chunk=32)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, tssm.ssm_scan_plain(*tens, chunk=32),
+                               rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("shapes,chunk,match", [
+    (((2, 30, 4), (2, 30, 4), (2, 30, 3), (2, 30), (2, 30)), 8, "multiple"),
+    (((2, 30, 4), (2, 30, 5), (2, 30, 3), (2, 30), (2, 30)), 10, "expected"),
+])
+def test_ssm_scan_passes_keep_the_contract(shapes, chunk, match):
+    with pytest.raises(ValueError, match=match):
+        tssm.ssm_scan_passes(*[torch.zeros(sh) for sh in shapes],
+                             chunk=chunk)
 
 
 # ---------------------------------------------------------------------------
