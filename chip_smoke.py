@@ -20,10 +20,15 @@ result. Phases, one JSON line each:
                (the skinny / tiled boundary) and at tinyllama-1.1b's MLP
                projection (8192,2048)@(2048,5632), bf16 and f32 (fp64
                references), and the logits head at shapes its default
-               blocks do not tile; asserts that all four matmul routes
-               (``kernels.matmul.kernel_route``) ran; then times kernel,
-               plain version and ``torch.matmul`` at the head shape, 256^3,
-               512^3 and the projection, each with its route.
+               blocks do not tile; ``matmul_int8`` exact (int32, shift 7,
+               saturated int8) at each of those shapes and at the two SSM
+               models' int8 heads and the projection; asserts that all
+               four matmul routes (``kernels.matmul.kernel_route``) and
+               both int8 routes (``kernel_route_int8``) ran; then times
+               kernel, plain version and ``torch.matmul`` at the head
+               shape, 256^3, 512^3 and the projection, and ``matmul_int8``
+               beside ``torch._int_mm`` (or its refusal) at the three int8
+               heads, 256^3, 512^3 and the projection, each with its route.
 4. ``attention`` the three blockwise-attention kernels (forward, dQ,
                dK/dV) against their plain versions on the card: at the
                training shape (B 4, H 32, S 2048, D 64, bf16, causal), at
@@ -72,9 +77,10 @@ result. Phases, one JSON line each:
                and 512 channels); every
                convolution bit-equal to its plain version, with the
                kernel route it took (compile-time taps or general); the
-               contract's ValueErrors on CUDA tensors; times against
-               ``torch.add(y, x, alpha=a)`` and ``F.conv2d`` with cuDNN's
-               TF32 off.
+               contract's ValueErrors on CUDA tensors; times: ``axpy``
+               against ``torch.add(y, x, alpha=a)`` in five alternating
+               turns at each size, the convolutions against ``F.conv2d``
+               with cuDNN's TF32 off.
 10. ``ssm_kernel`` ``ops.ssm_scan`` at one layer of zamba2-7b (BH 448, S
                2048, N 64, P 64, chunk 256) and of xlstm-1.3b (BH 16, N
                512, P 1025), float32 and bfloat16, against its plain
@@ -305,12 +311,30 @@ def _check_exact(name, got, ref, results, **detail):
 
 
 ROUTES_RAN: set = set()   # matmul routes taken by the checks of phase 3
+INT8_ROUTES_RAN: set = set()   # ... and matmul_int8 routes
 
 
 def _route(m, k, n, dt):
     route = mm.kernel_route(m, k, n, dt)
     ROUTES_RAN.add(route)
     return route
+
+
+def _route_int8(m, k, n):
+    route = mm.kernel_route_int8(m, k, n)
+    INT8_ROUTES_RAN.add(route)
+    return route
+
+
+def check_int8(ai, bi, tag, blocks, results):
+    """matmul_int8 exact against its plain version: int32, shift 7 with an
+    int32 output, shift 7 saturated to int8; the route it took."""
+    route = _route_int8(ai.shape[0], ai.shape[1], bi.shape[1])
+    for kw in ({}, {"shift": 7}, {"shift": 7, "out_dtype": torch.int8}):
+        got = mm.matmul_int8(ai, bi, **kw, **blocks)
+        _check_exact(f"matmul_int8 {kw or 'int32'} {tag}", got,
+                     mm.matmul_int8_plain(ai, bi, **kw), results,
+                     route=route)
 
 
 def check_shape(m, k, n, blocks, seed, results):
@@ -343,11 +367,59 @@ def check_shape(m, k, n, blocks, seed, results):
     lo, hi = (-64, 64) if k <= 128 else (-128, 128)
     ai = torch.from_numpy(r.randint(lo, hi, (m, k)).astype(np.int8)).to(dev)
     bi = torch.from_numpy(r.randint(lo, hi, (k, n)).astype(np.int8)).to(dev)
-    for kw in ({}, {"shift": 7}, {"shift": 7, "out_dtype": torch.int8}):
-        got = mm.matmul_int8(ai, bi, **kw, **blocks)
-        _check_exact(f"matmul_int8 {kw or 'int32'} {tag}", got,
-                     mm.matmul_int8_plain(ai, bi, **kw), results)
+    check_int8(ai, bi, tag, blocks, results)
     torch.cuda.synchronize()
+
+
+def _int8_operands(m, k, n, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    ai = torch.randint(-128, 128, (m, k), generator=gen, device=DEV,
+                       dtype=torch.int8)
+    bi = torch.randint(-128, 128, (k, n), generator=gen, device=DEV,
+                       dtype=torch.int8)
+    return ai, bi
+
+
+def int8_shapes():
+    """(name, (M, K, N)) of matmul_int8 where it runs or is measured: the
+    three served models' int8 heads (slots, d_model, vocab), the paper's
+    int8 MATMUL squares (``benchmarks/multiprecision.py``) and
+    LARGE_SHAPE, where the tiled route is bound by operations."""
+    heads = [("tinyllama-1.1b head", PATH_SHAPE)]
+    for arch, slots, _ in SSM_SERVE:
+        cfg = get_config(arch)
+        heads.append((f"{arch} head", (slots, cfg.d_model, cfg.vocab_size)))
+    return heads + [("256^3", (256, 256, 256)), ("512^3", (512, 512, 512)),
+                    ("projection", LARGE_SHAPE)]
+
+
+def int8_library_ms(ai, bi, **kw):
+    """``torch._int_mm`` on the same operands, the one library call for
+    this function: (ms, None), or (None, its refusal) where it does not
+    take the shape (few rows). Only a yardstick: the port never calls it."""
+    if not hasattr(torch, "_int_mm"):
+        return None, "this torch build has no _int_mm"
+    try:
+        torch._int_mm(ai, bi)
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+    return time_ms(lambda: torch._int_mm(ai, bi), **kw), None
+
+
+def time_matmul_int8(name, m, k, n, seed):
+    """Kernel, plain version and ``torch._int_mm`` at one shape, int32
+    output, operands from randint(-128, 128), with the bound and route."""
+    ai, bi = _int8_operands(m, k, n, seed)
+    bnd, by = bound_ms(m, k, n, 1, 4, PEAKS_FLOPS["int8"])
+    big = m * k * n > 1e10
+    kw = dict(warmup=2, reps=5, inner=3) if big else {}
+    library_ms, note = int8_library_ms(ai, bi, **kw)
+    return {"name": name, "shape": [m, k, n], "dtype": "int8->int32",
+            "route": mm.kernel_route_int8(m, k, n),
+            "ms": time_ms(lambda: mm.matmul_int8(ai, bi), **kw),
+            "plain_ms": time_ms(lambda: mm.matmul_int8_plain(ai, bi), **kw),
+            "library_ms": library_ms, "library_note": note,
+            "bound_ms": bnd, "bound_by": by}
 
 
 def check_ragged_head(results):
@@ -439,6 +511,7 @@ def time_matmul(m, k, n, dt, seed):
 def phase_kernels():
     results: list = []
     ROUTES_RAN.clear()
+    INT8_ROUTES_RAN.clear()
     check_ragged_head(results)
     check_shape(*PATH_SHAPE, {}, 0, results)
     check_shape(128, 128, 128, {}, 1, results)
@@ -455,7 +528,15 @@ def phase_kernels():
     check_shape(16, 2048, 1000, {"bn": 1000}, 15, results)
     check_shape(17, 2048, 1000, {"bn": 1000}, 16, results)
     check_large(results)
+    # matmul_int8 at the SSM heads and the projection shape, full int8 range
+    for i, (name, (m, k, n)) in enumerate(int8_shapes()):
+        if name.startswith(("zamba2", "xlstm", "projection")):
+            ai, bi = _int8_operands(m, k, n, 40 + i)
+            check_int8(ai, bi, f"{m}x{k}x{n}", {}, results)
+            del ai, bi
+    torch.cuda.synchronize()
     assert ROUTES_RAN == set(mm.ROUTES), ROUTES_RAN
+    assert INT8_ROUTES_RAN == set(mm.ROUTES_INT8), INT8_ROUTES_RAN
 
     # times at the serving shape
     m, k, n = PATH_SHAPE
@@ -473,25 +554,6 @@ def phase_kernels():
                 a, b, out_dtype=torch.float32)),
             "library_ms": time_ms(lambda: torch.matmul(a, b)),
             "bound_ms": bnd, "bound_by": by}
-    ai = torch.from_numpy(r.randint(-128, 128, (m, k)).astype(np.int8)).to(DEV)
-    bi = torch.from_numpy(r.randint(-128, 128, (k, n)).astype(np.int8)).to(DEV)
-    bnd, by = bound_ms(m, k, n, 1, 4, PEAKS_FLOPS["int8"])
-    # torch._int_mm is the one library call for this function; it is only
-    # a yardstick here, and it refuses some shapes (few rows): then null
-    library_ms, library_note = None, None
-    if hasattr(torch, "_int_mm"):
-        try:
-            torch._int_mm(ai, bi)
-            library_ms = time_ms(lambda: torch._int_mm(ai, bi))
-        except RuntimeError as e:
-            library_note = str(e).splitlines()[0][:200]
-    else:
-        library_note = "this torch build has no _int_mm"
-    timed["int8"] = {
-        "ms": time_ms(lambda: mm.matmul_int8(ai, bi)),
-        "plain_ms": time_ms(lambda: mm.matmul_int8_plain(ai, bi)),
-        "library_ms": library_ms, "library_note": library_note,
-        "bound_ms": bnd, "bound_by": by}
     # the whole logits head as the engine calls it: quantizes x AND the
     # whole unembedding on every call, then the kernel, then dequantizes
     x = a32.to(torch.bfloat16)[:, None, :]
@@ -511,8 +573,12 @@ def phase_kernels():
                                   torch.float16)]
     timed["shapes"] += [time_matmul(*LARGE_SHAPE, dt, 30)
                         for dt in (torch.bfloat16, torch.float32)]
+    # matmul_int8 at the heads, the paper's squares and the projection
+    timed["int8_shapes"] = [time_matmul_int8(name, *shape, 50 + i)
+                            for i, (name, shape) in enumerate(int8_shapes())]
+    timed["int8"] = timed["int8_shapes"][0]           # the serving shape
     emit("kernels", shape=list(PATH_SHAPE), routes=sorted(ROUTES_RAN),
-         checks=results, timed=timed)
+         int8_routes=sorted(INT8_ROUTES_RAN), checks=results, timed=timed)
     return results, timed
 
 
@@ -1365,6 +1431,23 @@ def paper_bound(kind, shape, elt):
                                        else "operations")
 
 
+AXPY_TURNS = 5
+
+
+def axpy_turns(xs, ys, alpha=2.5, turns=AXPY_TURNS):
+    """``axpy`` and ``torch.add(y, x, alpha=a)`` (a: alpha rounded to x's
+    dtype, so both compute one function) timed in alternating turns, the
+    kernel first in even turns: {"axpy": [ms, ...], "torch.add": [...]}."""
+    a = float(torch.tensor(alpha, dtype=xs.dtype))
+    fns = {"axpy": lambda: ax.axpy(alpha, xs, ys),
+           "torch.add": lambda: torch.add(ys, xs, alpha=a)}
+    out = {name: [] for name in fns}
+    for t in range(turns):
+        for name in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+            out[name].append(time_ms(fns[name]))
+    return out
+
+
 def phase_paper_kernels():
     """The paper's DAXPY and DCONV through the public kernel API
     (``ops.axpy``, ``ops.conv2d``) — their path: counts set to 0 before it
@@ -1488,12 +1571,12 @@ def phase_paper_kernels():
                         ("f32_2^20", x32[:1 << 20], y32[:1 << 20]),
                         ("f64_256", x64, y64)):
         bnd, by = paper_bound("axpy", xs.shape, xs.element_size())
-        a = float(torch.tensor(2.5, dtype=xs.dtype))
+        turns = axpy_turns(xs, ys)
         timed[f"axpy_{key}"] = {
-            "ms": time_ms(lambda: ax.axpy(2.5, xs, ys)),
+            "ms": statistics.median(turns["axpy"]),
             "plain_ms": time_ms(lambda: ax.axpy_plain(2.5, xs, ys)),
-            "library_ms": time_ms(lambda: torch.add(ys, xs, alpha=a)),
-            "bound_ms": bnd, "bound_by": by}
+            "library_ms": statistics.median(turns["torch.add"]),
+            "bound_ms": bnd, "bound_by": by, "turns": turns}
     for key, dt, kw in (("f32", torch.float32, {}),
                         ("bf16_to_f32", torch.bfloat16,
                          {"out_dtype": torch.float32}),
@@ -1744,8 +1827,11 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
          "max_abs_err": err_of(f"matmul_int8 int32 {tag}"),
          "ms": int8["ms"], "plain_ms": int8["plain_ms"],
          "bound_ms": int8["bound_ms"], "bound_by": int8["bound_by"],
-         "library_ms": int8["library_ms"], "shape": list(PATH_SHAPE),
-         "dtype": "int8->int32"},
+         "library_ms": int8["library_ms"],
+         "library_note": int8["library_note"], "shape": list(PATH_SHAPE),
+         "dtype": "int8->int32", "kernel_route": int8["route"],
+         "routes_checked": sorted(INT8_ROUTES_RAN),
+         "shapes": timed["int8_shapes"]},
     ]
     checks = {"flash_fwd": "flash_fwd out train bfloat16 causal",
               "flash_bwd_dq": "flash_bwd_dq train bfloat16 causal",
@@ -1799,6 +1885,11 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "shape": shape,
                      "dtype": "float32"})
+        if name == "axpy":     # the turns against torch.add, every size
+            rows[-1]["turns"] = {k_[5:]: {**v_["turns"],
+                                          "bound_ms": v_["bound_ms"]}
+                                 for k_, v_ in p_timed.items()
+                                 if k_.startswith("axpy_")}
     s_res, s_timed, s_launches = ssm
     t = s_timed["zamba2-7b"]
     bh, s_, n, p = t["shape"]

@@ -75,6 +75,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # M, K, N, in_dtype -> route code (0 skinny_mma, 1 tiled_mma,
         # 2 skinny_fma, 3 tiled_fma)
         "repro_matmul_route": (_int,) * 4,
+        # M, K, N -> matmul_int8's route code (0 skinny_imma, 1 tiled_imma)
+        "repro_matmul_int8_route": (_int,) * 3,
         # in_dtype (3: matmul_int8) -> most rows of a one launch takes
         "repro_matmul_max_rows": (_int,),
         "repro_matmul_int8": (_vp, _vp, _vp, _int, _int, _int, _int, _int,

@@ -4,22 +4,32 @@
 // Replaces: repro/kernels/axpy.py::_axpy_kernel (wrapper `axpy`). There one
 // VMEM strip of `block` elements per grid step lets the Pallas pipeline
 // overlap the next strip's loads with this strip's FMAs. Here `block` and
-// `lmul` are the wrapper's contract only: blocks run in no order, and the
-// kernel is one grid-stride loop over 16-byte vectors.
+// `lmul` are the wrapper's contract only: each CUDA block takes its own
+// fixed, contiguous piece of the vectors in one pass.
 //
 // What bounds it on an H100: two loads and one store per multiply-add
 // (1/12 operation per byte in float32), so the time to move 3n elements
 // through device memory, far left of the card's ridge; the arithmetic is
-// free.
+// free. At the paper's large size (2^26 elements, 768 MB in float32) the
+// stream is 15 times the L2 and nothing is read twice; at 2^20 (12 MB) the
+// three arrays fit the 50 MB L2.
 //
 // What the design does about it:
-//  - every thread moves 16 bytes per load and per store (4 f32, 8 bf16/f16,
-//    2 f64), neighbouring threads on neighbouring addresses, and issues the
-//    loads of kU vectors of x and of y before it uses the first: enough
-//    bytes in flight per SM to approach the memory rate;
-//  - a grid-stride loop over vectors with a fixed grid, then the ragged
-//    tail element by element; where a base address is not 16-byte aligned
-//    the whole array goes element by element.
+//  - one pass, no grid-stride loop: block b takes the kThreads * kU vectors
+//    from b * kThreads * kU, so the grid is as many blocks as the vectors
+//    need, and the card's scheduler keeps every SM full to the end with no
+//    tail of a fixed grid's last trip;
+//  - one vector of x and of y a thread (kU), its width picked by size
+//    (`launch`): past half the L2, 8 bytes (kStreamVecBytes), the most
+//    threads, and so the most loads, in flight for the bytes; measured
+//    against 16-byte vectors, several vectors a thread, streaming cache
+//    hints and Hopper's 1-D bulk copies through shared memory
+//    (tools/torch_kernel_variants.py --axpy), it is the one that keeps
+//    pace with torch.add at 2^26. Where the three arrays fit half the L2,
+//    16 bytes (kResidentVecBytes): fewer, wider requests are faster there;
+//  - plain loads and stores; the ragged tail (n % vector) element by
+//    element in block 0; where a base address is not aligned to the
+//    vector, every element on its own.
 //
 // Rounding: where the reference rounds. `alpha` arrives already rounded to
 // x's dtype (the wrapper does that, as jnp.asarray(alpha, x.dtype) does).
@@ -38,11 +48,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kU = 4;             // vectors of x and of y loaded ahead per thread
-constexpr int kMaxBlocks = 4096;  // grid cap; the loop strides over the rest
+constexpr int kU = 1;                  // vectors of x and of y a thread loads before it uses the first
+constexpr int kStreamVecBytes = 8;     // bytes of a vector past half the L2 (16 or 8)
+constexpr int kResidentVecBytes = 16;  // ... where the three arrays fit half the L2
+
+template <int VB>
+using VecOf = std::conditional_t<VB == 16, uint4, uint2>;
+
+// plain ld.global / st.global: the streaming hints (ld.global.cs,
+// .nc.L1::no_allocate, st.global.cs) measured no faster
+template <typename V>
+__device__ __forceinline__ V load_vec(const V* p) {
+  return *p;
+}
+
+template <typename V>
+__device__ __forceinline__ void store_vec(V* p, const V& v) {
+  *p = v;
+}
 
 // one rounding per operation, in the element type
 __device__ __forceinline__ float axpy1(float a, float x, float y) {
@@ -60,68 +88,102 @@ __device__ __forceinline__ __half axpy1(__half a, __half x, __half y) {
   return __float2half_rn(__fadd_rn(__half2float(p), __half2float(y)));
 }
 
-template <typename T>
+template <typename T, typename V>
+__device__ __forceinline__ V axpy_vec(T alpha, const V& rx, const V& ry) {
+  constexpr int VEC = sizeof(V) / sizeof(T);
+  V ro;
+  const T* ex = reinterpret_cast<const T*>(&rx);
+  const T* ey = reinterpret_cast<const T*>(&ry);
+  T* eo = reinterpret_cast<T*>(&ro);
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) eo[c] = axpy1(alpha, ex[c], ey[c]);
+  return ro;
+}
+
+// kU vectors of VB bytes a thread; vec_ok: all three bases aligned to VB
+template <typename T, int VB>
 __global__ void __launch_bounds__(kThreads)
 axpy_kernel(T alpha, const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ out, int64_t n,
             int vec_ok) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  int64_t done = 0;  // elements covered by the vector loop
+  using V = VecOf<VB>;
+  constexpr int VEC = VB / sizeof(T);
+  static_assert(VEC >= 1, "a vector holds at least one element");
+  const int64_t first = (int64_t)blockIdx.x * kThreads * kU + threadIdx.x;
   if (vec_ok) {
     const int64_t nvec = n / VEC;
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-    const uint4* yv = reinterpret_cast<const uint4*>(y);
-    uint4* ov = reinterpret_cast<uint4*>(out);
-    int64_t i = tid;
-    // kU vectors per thread per trip, all loads issued before the first use
-    for (; i + (kU - 1) * stride < nvec; i += kU * stride) {
-      uint4 rx[kU], ry[kU];
+    const V* xv = reinterpret_cast<const V*>(x);
+    const V* yv = reinterpret_cast<const V*>(y);
+    V* ov = reinterpret_cast<V*>(out);
+    V rx[kU], ry[kU];
+    if ((int64_t)(blockIdx.x + 1) * kThreads * kU <= nvec) {  // a whole block: no bounds
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
-        rx[u] = __ldg(xv + i + u * stride);
-        ry[u] = __ldg(yv + i + u * stride);
+        rx[u] = load_vec(xv + first + u * kThreads);
+        ry[u] = load_vec(yv + first + u * kThreads);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) store_vec(ov + first + u * kThreads, axpy_vec(alpha, rx[u], ry[u]));
+    } else {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int64_t i = first + u * kThreads;
+        if (i < nvec) {
+          rx[u] = load_vec(xv + i);
+          ry[u] = load_vec(yv + i);
+        }
       }
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
-        uint4 ro;
-        const T* ex = reinterpret_cast<const T*>(&rx[u]);
-        const T* ey = reinterpret_cast<const T*>(&ry[u]);
-        T* eo = reinterpret_cast<T*>(&ro);
-#pragma unroll
-        for (int c = 0; c < VEC; ++c) eo[c] = axpy1(alpha, ex[c], ey[c]);
-        ov[i + u * stride] = ro;
+        const int64_t i = first + u * kThreads;
+        if (i < nvec) store_vec(ov + i, axpy_vec(alpha, rx[u], ry[u]));
       }
     }
-    for (; i < nvec; i += stride) {
-      const uint4 rx = __ldg(xv + i), ry = __ldg(yv + i);
-      uint4 ro;
-      const T* ex = reinterpret_cast<const T*>(&rx);
-      const T* ey = reinterpret_cast<const T*>(&ry);
-      T* eo = reinterpret_cast<T*>(&ro);
+    // the ragged tail: fewer than VEC elements
+    const int64_t e = nvec * VEC + threadIdx.x;
+    if (blockIdx.x == 0 && e < n) out[e] = axpy1(alpha, x[e], y[e]);
+  } else {
 #pragma unroll
-      for (int c = 0; c < VEC; ++c) eo[c] = axpy1(alpha, ex[c], ey[c]);
-      ov[i] = ro;
+    for (int u = 0; u < kU; ++u) {
+      const int64_t i = first + u * kThreads;
+      if (i < n) out[i] = axpy1(alpha, x[i], y[i]);
     }
-    done = nvec * VEC;
   }
-  // the ragged tail, or everything where 16-byte vectors do not fit
-  for (int64_t i = done + tid; i < n; i += stride) out[i] = axpy1(alpha, x[i], y[i]);
+}
+
+// the current device's L2 bytes (asked once per device; 50 MB, an H100's,
+// where the device cannot be asked)
+inline int64_t l2_bytes() {
+  static int64_t bytes[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 50LL << 20;
+  if (bytes[dev] == 0) {
+    int v = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrL2CacheSize, dev) != cudaSuccess || v < 1) v = 50 << 20;
+    bytes[dev] = v;
+  }
+  return bytes[dev];
+}
+
+template <typename T, int VB>
+int launch_shape(T alpha, const void* x, const void* y, void* out, int64_t n, cudaStream_t stream) {
+  constexpr int VEC = VB / sizeof(T);
+  const int vec_ok = (reinterpret_cast<uintptr_t>(x) % VB == 0) && (reinterpret_cast<uintptr_t>(y) % VB == 0) &&
+                     (reinterpret_cast<uintptr_t>(out) % VB == 0);
+  const int64_t work = vec_ok ? n / VEC : n;  // vectors, or elements
+  int64_t blocks = (work + (int64_t)kThreads * kU - 1) / ((int64_t)kThreads * kU);
+  if (blocks < 1) blocks = 1;  // n < VEC: block 0 takes the tail
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  axpy_kernel<T, VB><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      alpha, static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(out), n, vec_ok);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(T alpha, const void* x, const void* y, void* out, int64_t n, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int vec_ok = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (reinterpret_cast<uintptr_t>(y) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const int64_t work = vec_ok ? (n / VEC + n % VEC) : n;  // loop trips of the widest pass
-  int64_t blocks = (work + (int64_t)kThreads * kU - 1) / ((int64_t)kThreads * kU);
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  axpy_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(alpha, static_cast<const T*>(x),
-                                                            static_cast<const T*>(y), static_cast<T*>(out), n,
-                                                            vec_ok);
-  return (int)cudaGetLastError();
+  if (3 * n * (int64_t)sizeof(T) > l2_bytes() / 2) {
+    return launch_shape<T, kStreamVecBytes>(alpha, x, y, out, n, stream);
+  }
+  return launch_shape<T, kResidentVecBytes>(alpha, x, y, out, n, stream);
 }
 
 }  // namespace

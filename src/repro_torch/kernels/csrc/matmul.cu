@@ -11,7 +11,7 @@
 // last-step epilogue, and the accumulator is in registers.
 //
 // matmul takes one of four routes, picked by the source from the operand
-// type and the rows M (repro_matmul_route):
+// type and the rows M (repro_matmul_route); matmul_int8 one of two (below):
 //
 //  0 `skinny_mma`, bf16/f16 with M <= 16: the serving head, a(slots, 2048)
 //    @ b(2048, 32000). Each element of b is used M times, far below the
@@ -48,12 +48,43 @@
 // where N, K or a base address does not allow 16-byte copies, that operand
 // is staged element by element into the same tiles.
 //
-// matmul_int8 (the first kernel, unchanged): 8 rows of a by 128 columns of
-// b a block; b straight into registers, 16 bytes a load; __dp4a on 4x4 byte
-// blocks transposed in registers (__byte_perm), so that one 32-bit word
-// holds one column's four consecutive k; K slices summed by shuffles and
-// shared memory in a fixed order. Bound at the head shape: reading b once,
-// 65.5 MB. Tensor-core int8 (mma.sync s8) is its next step.
+// matmul_int8 takes one of two routes, picked by the source from the rows M
+// (repro_matmul_int8_route), both on the int8 tensor cores (mma.sync
+// m16n8k32 s8 x s8 -> s32, no .satfinite: int32 sums wrap as the
+// reference's accumulator does), with the epilogue of the reference (add
+// half with int32 wrap-around, arithmetic shift, saturate only an int8
+// output) applied to each accumulator as it is stored:
+//
+//  0 `skinny_imma`, M <= 16: the int8 logits heads, a(slots, 2048 | 3584)
+//    @ b(.., 32000 | 50304). Bound by reading b once (65.5 MB at
+//    tinyllama-1.1b's head: 0.0196 ms at 3.35 TB/s), so it is skinny_mma
+//    in int8: out^T = b^T . a^T, blocks with equal shares of 16-column
+//    units (at least one block an SM), b streamed through a cp.async ring
+//    of kI8SkStages tiles of kI8SkBK k x kI8SkBN columns, a's rows the B
+//    operand by plain ldmatrix (16 bytes a row are 32 int8 of k). Shares
+//    of at most 128 columns, four warps of 32 (two or three blocks an SM
+//    at the heads), were faster than skinny_mma's 256 columns of eight
+//    warps, and than 64-column shares or deeper rings
+//    (tools/torch_kernel_variants.py --mm qk:...). What differs from
+//    bf16 is b^T: the A operand wants four consecutive k of one column in
+//    a 32-bit register, b is row-major, and ldmatrix's 8-bit transposing
+//    shapes need sm_100; so b^T comes from 32-bit shared loads of four rows
+//    and a 4x4 byte transpose (__byte_perm). The four columns one word
+//    holds feed rows gr and gr + 8 of two m16 tiles, and the epilogue
+//    stores each thread's four adjacent columns as one vector. The tile's
+//    16-byte chunks are XOR-swizzled by row so that the four rows a quad
+//    reads hit distinct banks (b_chunk).
+//  1 `tiled_imma`, M > 16: the paper's int8 MATMUL (256^3, 512^3) and
+//    projection-sized products, bound by operations at large sizes (1,979
+//    TOP/s). Block tiles of 128 x 128 x 64 in a ring of 4 cp.async
+//    stages, eight warps of 64 x 32, two blocks an SM (64 x 64 x 64 tiles
+//    of four warps where the large ones would not give every SM one),
+//    ldmatrix for a, the same byte transpose for b (a word of four columns
+//    feeds four n8 tiles, so a thread ends with 8 adjacent columns of a
+//    row), int32 accumulators.
+// Ragged M, N and K are masked by zero fill as in the float routes; where
+// N, K or a base address does not allow 16-byte copies, that operand is
+// staged byte by byte (stage8).
 //
 // C interface (loaded with ctypes): each function launches on the given
 // stream, does not synchronise, allocates nothing and returns the launch's
@@ -72,8 +103,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBM = 8;    // rows of a (and of out) per block
 constexpr int kBN = 128;  // columns of b (and of out) per block
-constexpr int kU = 8;     // matmul: rows of b loaded ahead per thread
-constexpr int kUI = 2;    // matmul_int8: groups of four rows loaded ahead per thread
+constexpr int kU = 8;     // skinny_fma: rows of b loaded ahead per thread
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -218,153 +248,6 @@ matmul_fma_skinny(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __
     if (row0 + m < M && colb + c < N) out[(size_t)(row0 + m) * N + colb + c] = from_float<TOut>(s);
   });
 }
-
-// ---------------------------------------------------------------------------
-// matmul_int8: int8 operands, exact int32 accumulation, requantize at the end
-// ---------------------------------------------------------------------------
-
-// acc[m][c] += sum_j a[m][k+j] * b[k+j][c] for four consecutive k and 16
-// columns. x[j][w] is row k+j of b, columns 4w .. 4w+3 (byte 0 the lowest
-// column); a_w points at the word of As that holds a[0][k .. k+3].
-__device__ __forceinline__ void dp4a_group(int (&acc)[kBM][16], const int* a_w, int stride,
-                                           const uint32_t (&x)[4][4]) {
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    // transpose the 4x4 byte block: t[i] = column 4w+i, byte j = row k+j
-    const uint32_t lo01 = __byte_perm(x[0][w], x[1][w], 0x5140);
-    const uint32_t hi01 = __byte_perm(x[0][w], x[1][w], 0x7362);
-    const uint32_t lo23 = __byte_perm(x[2][w], x[3][w], 0x5140);
-    const uint32_t hi23 = __byte_perm(x[2][w], x[3][w], 0x7362);
-    uint32_t t[4];
-    t[0] = __byte_perm(lo01, lo23, 0x5410);
-    t[1] = __byte_perm(lo01, lo23, 0x7632);
-    t[2] = __byte_perm(hi01, hi23, 0x5410);
-    t[3] = __byte_perm(hi01, hi23, 0x7632);
-#pragma unroll
-    for (int m = 0; m < kBM; ++m) {
-      const int aw = a_w[m * stride];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][4 * w + i] = __dp4a(aw, (int)t[i], acc[m][4 * w + i]);
-    }
-  }
-}
-
-template <typename TOut>  // int32_t or int8_t
-__global__ void __launch_bounds__(kThreads)
-matmul_int8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b, TOut* __restrict__ out,
-                   int M, int K, int N, int shift, int vec_ok, int a_words_ok) {
-  constexpr int VEC = 16;
-  constexpr int TN = kBN / VEC;      // 8 threads along N
-  constexpr int KS = kThreads / TN;  // 32 K slices, each step takes 4 consecutive k
-  constexpr int BKC = 2048;          // k per staged chunk of a
-  constexpr int BKW = BKC / 4;       // ... in 32-bit words of four k
-  static_assert(kBM * BKW <= kWarps * kBM * kBN, "a chunk must fit the reduction buffer");
-  __shared__ __align__(16) int smem[kWarps * kBM * kBN];  // a chunk [kBM][BKW], later the slices
-  int* As = smem;
-
-  const int tid = threadIdx.x;
-  const int tn = tid % TN, ks = tid / TN;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN + tn * VEC;
-
-  int acc[kBM][VEC];
-#pragma unroll
-  for (int m = 0; m < kBM; ++m) {
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) acc[m][c] = 0;
-  }
-
-  for (int kc = 0; kc < K; kc += BKC) {
-    const int klen = min(BKC, K - kc);
-    __syncthreads();
-    // a word of As holds a[row][k .. k+3], byte 0 the lowest k; k past K are zero
-    for (int i = tid; i < kBM * BKW; i += kThreads) {
-      const int m = i / BKW, w = i % BKW;
-      uint32_t word = 0;
-      if (row0 + m < M && 4 * w < klen) {
-        const int8_t* p = a + (size_t)(row0 + m) * K + kc + 4 * w;
-        if (a_words_ok && 4 * w + 4 <= klen) {
-          word = *reinterpret_cast<const uint32_t*>(p);
-        } else {
-          for (int j = 0; j < 4; ++j) {
-            if (4 * w + j < klen) word |= (uint32_t)(uint8_t)p[j] << (8 * j);
-          }
-        }
-      }
-      As[m * BKW + w] = (int)word;
-    }
-    __syncthreads();
-    if (col0 < N) {
-      int kw = ks;  // index of a group of four k (one word of As) in this chunk
-      if (vec_ok) {
-        // kUI whole groups at a time: 4 * kUI 16-byte loads in flight per thread
-        for (; 4 * (kw + (kUI - 1) * KS) + 4 <= klen; kw += kUI * KS) {
-          uint4 raw[kUI][4];
-#pragma unroll
-          for (int u = 0; u < kUI; ++u) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              raw[u][j] = __ldg(reinterpret_cast<const uint4*>(
-                  b + (size_t)(kc + 4 * (kw + u * KS) + j) * N + col0));
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kUI; ++u) {
-            uint32_t x[4][4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              x[j][0] = raw[u][j].x; x[j][1] = raw[u][j].y; x[j][2] = raw[u][j].z; x[j][3] = raw[u][j].w;
-            }
-            dp4a_group(acc, As + kw + u * KS, BKW, x);
-          }
-        }
-      }
-      // the rest of the chunk, rows past K read as zero — all of the chunk
-      // where 16-byte loads do not fit
-      for (; 4 * kw < klen; kw += KS) {
-        uint32_t x[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kk = 4 * kw + j;
-          x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0u;
-          if (kk < klen) {
-            const int8_t* brow = b + (size_t)(kc + kk) * N;
-            if (vec_ok) {
-              const uint4 raw = __ldg(reinterpret_cast<const uint4*>(brow + col0));
-              x[j][0] = raw.x; x[j][1] = raw.y; x[j][2] = raw.z; x[j][3] = raw.w;
-            } else {
-#pragma unroll
-              for (int w = 0; w < 4; ++w) {
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                  const int c = col0 + 4 * w + i;
-                  if (c < N) x[j][w] |= (uint32_t)(uint8_t)brow[c] << (8 * i);
-                }
-              }
-            }
-          }
-        }
-        dp4a_group(acc, As + kw, BKW, x);
-      }
-    }
-  }
-  __syncthreads();
-
-  const int colb = blockIdx.x * kBN;
-  reduce_slices<int, VEC>(acc, smem, [&](int m, int c, int s) {
-    if (row0 + m < M && colb + c < N) {
-      if (shift > 0) {
-        // add half with int32 wrap-around (in unsigned: signed overflow is
-        // undefined), then arithmetic shift right: round to nearest, ties up
-        const uint32_t u = (uint32_t)s + (1u << (shift - 1));
-        s = (int)u >> shift;
-      }
-      if (sizeof(TOut) == 1) s = max(-128, min(127, s));  // saturate, not wrap
-      out[(size_t)(row0 + m) * N + colb + c] = (TOut)s;
-    }
-  });
-}
-
 
 // ---------------------------------------------------------------------------
 // routes 0-1 (skinny_mma, tiled_mma): bf16 / f16 operands on the tensor cores
@@ -636,6 +519,347 @@ int launch_mma_tiled(const T* a, const T* b, TOut* out, int M, int K, int N, int
 }
 
 // ---------------------------------------------------------------------------
+// matmul_int8 (skinny_imma, tiled_imma): int8 operands on the int8 tensor
+// cores, exact int32 accumulation, requantized at the end
+// ---------------------------------------------------------------------------
+
+// c += a b, one m16n8k32 product of s8 operands with s32 accumulators. No
+// .satfinite: the sum wraps, as the reference's int32 accumulator does.
+// Fragments: a[0] (row gr, k 4tq..4tq+3), a[1] (row gr+8, same k), a[2] and
+// a[3] (the same rows, k 16+4tq..); b0 (k 4tq.., column gr), b1 (k 16+4tq..);
+// c[0], c[1] (row gr, columns 2tq, 2tq+1), c[2], c[3] (row gr+8). Byte for
+// byte that is the bf16 m16n8k16 layout, so ldmatrix (b16, not transposed)
+// gives a's fragments from row-major rows of k as it does for bf16.
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 16-byte chunk that holds chunk c of row r in a tile of b with CH
+// chunks a row. A thread reads one 32-bit word from each of the rows 4q ..
+// 4q+3 (q = lane % 4), the same word of each; rows 4 apart fall on the same
+// banks where a row is a multiple of 128 bytes, so row r's chunks are XORed
+// with 2((r / 4) % 4): the four q then read four distinct pairs of chunks.
+template <int CH>
+__host__ __device__ __forceinline__ int b_chunk(int r, int c) {
+  static_assert(CH >= 4 && (CH & (CH - 1)) == 0, "chunks a row");
+  return c ^ ((((r >> 2) & 3) << 1) & (CH - 1));
+}
+
+// rows x 16-byte chunks of a row-major int8 array with row stride lds, from
+// (r0, c0), into dst with row stride ld (chunks placed by b_chunk where SWZ);
+// rows from rows_total and columns from c_end on read as zero. vec: 16-byte
+// cp.async, zero-filled past the edges (lds and c_end multiples of 16 and a
+// 16-byte aligned base, so a chunk is wholly inside or outside); else byte
+// by byte.
+template <int ROWS, int COLS, int NT, bool SWZ>
+__device__ __forceinline__ void stage8(uint8_t* dst, int ld, const int8_t* src, int lds, int r0, int rows_total,
+                                       int c0, int c_end, bool vec) {
+  constexpr int CH = COLS / 16;
+#pragma unroll
+  for (int it = 0; it < (ROWS * CH + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if (i >= ROWS * CH) break;
+    const int r = i / CH, ch = i % CH;
+    const int gr = r0 + r, gc = c0 + ch * 16;
+    int dch = ch;
+    if constexpr (SWZ) dch = b_chunk<CH>(r, ch);
+    uint8_t* d = dst + r * ld + dch * 16;
+    if (vec) {
+      const bool full = gr < rows_total && gc < c_end;
+      cp_async16(d, full ? src + (size_t)gr * lds + gc : src, full);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        d[e] = (gr < rows_total && gc + e < c_end) ? (uint8_t)src[(size_t)gr * lds + gc + e] : (uint8_t)0;
+      }
+    }
+  }
+}
+
+// Word w (bytes 4w .. 4w+3) of the rows r0 .. r0+3 of a b tile (BN bytes a
+// row, swizzled), transposed: t[i] holds column 4w + i, byte j from row
+// r0 + j, i.e. four consecutive k of one column, as a fragment wants them.
+template <int BN>
+__device__ __forceinline__ void load_cols4(const uint8_t* tile, int r0, int w, uint32_t (&t)[4]) {
+  uint32_t x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = r0 + j;
+    x[j] = *reinterpret_cast<const uint32_t*>(tile + r * BN + b_chunk<BN / 16>(r, w >> 2) * 16 + (w & 3) * 4);
+  }
+  // the 4x4 byte transpose
+  const uint32_t lo01 = __byte_perm(x[0], x[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(x[0], x[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(x[2], x[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(x[2], x[3], 0x7362);
+  t[0] = __byte_perm(lo01, lo23, 0x5410);
+  t[1] = __byte_perm(lo01, lo23, 0x7632);
+  t[2] = __byte_perm(hi01, hi23, 0x5410);
+  t[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// the epilogue of one accumulator: add half with int32 wrap-around (in
+// unsigned: signed overflow is undefined), arithmetic shift right (round to
+// nearest, ties up), then saturate only for an int8 output
+template <typename TOut>
+__device__ __forceinline__ TOut requantize(int s, int shift) {
+  if (shift > 0) {
+    const uint32_t u = (uint32_t)s + (1u << (shift - 1));
+    s = (int)u >> shift;
+  }
+  if (sizeof(TOut) == 1) s = max(-128, min(127, s));
+  return (TOut)s;
+}
+
+// out[idx .. idx+3] from four accumulators, the first `valid` of them in
+// range; vec: idx is a multiple of 4 on a 16-byte aligned base, so all
+// four go in one store
+template <typename TOut>
+__device__ __forceinline__ void store4(TOut* out, size_t idx, const int (&v)[4], int valid, bool vec, int shift) {
+  if (vec && valid >= 4) {
+    if constexpr (sizeof(TOut) == 4) {
+      *reinterpret_cast<int4*>(out + idx) = make_int4(requantize<TOut>(v[0], shift), requantize<TOut>(v[1], shift),
+                                                      requantize<TOut>(v[2], shift), requantize<TOut>(v[3], shift));
+    } else {
+      uint32_t w = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w |= (uint32_t)(uint8_t)requantize<TOut>(v[e], shift) << (8 * e);
+      *reinterpret_cast<uint32_t*>(out + idx) = w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (e < valid) out[idx + e] = requantize<TOut>(v[e], shift);
+  }
+}
+
+constexpr int kI8SkM = 16;        // rows of a skinny_imma takes (M <= kI8SkM)
+constexpr int kI8SkBN = 128;      // most columns of b a block takes (16 a unit)
+constexpr int kI8SkBK = 64;       // k per stage of the ring
+constexpr int kI8SkStages = 4;    // stages of the ring (kI8SkStages - 1 in flight)
+constexpr int kI8SkThreads = kI8SkBN;      // a warp for each 32 columns
+constexpr int kI8SkLdA = kI8SkBK + 16;     // padded rows: ldmatrix reads 8 rows without bank conflicts
+constexpr size_t kI8SkSmem = (size_t)kI8SkStages * (kI8SkBK * kI8SkBN + kI8SkM * kI8SkLdA);
+static_assert(kI8SkBN % 64 == 0 && kI8SkBK % 32 == 0, "skinny int8 tile");
+
+// tiled_imma block tiles (rows x columns x k, warp tile, ring stages, blocks
+// an SM): the large one where its tiles fill the card, the small one below
+constexpr int kI8BM = 128, kI8BN = 128, kI8BK = 64, kI8WM = 64, kI8WN = 32, kI8Stages = 4, kI8MinBlocks = 2;
+constexpr int kI8SBM = 64, kI8SBN = 64, kI8SBK = 64, kI8SWM = 32, kI8SWN = 32, kI8SStages = 4, kI8SMinBlocks = 4;
+
+// out^T (16 columns of b x 8 rows of a) = b^T (16 x 32 k) . a^T (32 k x 8),
+// one m16n8k32 per step. Warp w owns the 32 columns n0 + 32w .. of its
+// block; its m16 tile t (0 or 1) takes, as row r, column 4r + 2t (r < 8)
+// or 4(r - 8) + 2t + 1 (r >= 8): the four columns one transposed word
+// holds feed rows gr and gr + 8 of two tiles, and the epilogue puts them
+// back in order.
+template <typename TOut>
+__global__ void __launch_bounds__(kI8SkThreads)
+matmul_imma_skinny(const int8_t* __restrict__ a, const int8_t* __restrict__ b, TOut* __restrict__ out, int M, int K,
+                   int N, int shift, int a_vec, int b_vec, int out_vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* Bs = smem_raw;                                // [kI8SkStages][kI8SkBK][kI8SkBN], swizzled
+  uint8_t* As = Bs + kI8SkStages * kI8SkBK * kI8SkBN;     // [kI8SkStages][kI8SkM][kI8SkLdA]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  // an equal share of the 16-column units for each block, as skinny_mma
+  const int units = (N + 15) / 16;
+  const int n0 = (int)((long long)blockIdx.x * units / gridDim.x) * 16;
+  const int n_end = min(N, (int)((long long)(blockIdx.x + 1) * units / gridDim.x) * 16);
+  const int ktiles = (K + kI8SkBK - 1) / kI8SkBK;
+  const bool two_m = M > 8;  // rows 8..15 exist: the second n8 tile of out^T
+
+  auto load = [&](int kt) {
+    const int slot = kt % kI8SkStages, k0 = kt * kI8SkBK;
+    stage8<kI8SkBK, kI8SkBN, kI8SkThreads, true>(Bs + slot * kI8SkBK * kI8SkBN, kI8SkBN, b, N, k0, K, n0, n_end,
+                                                 b_vec);
+    stage8<kI8SkM, kI8SkBK, kI8SkThreads, false>(As + slot * kI8SkM * kI8SkLdA, kI8SkLdA, a, K, 0, M, k0, K, a_vec);
+  };
+#pragma unroll
+  for (int s = 0; s < kI8SkStages - 1; ++s) {
+    if (s < ktiles) load(s);
+    cp_async_commit();
+  }
+
+  int acc[2][2][4];  // [m16 tile][8 rows of a][C fragment]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][u][e] = 0;
+    }
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kI8SkStages - 2>();
+    __syncthreads();  // tile kt has landed for everyone; tile kt - 1 is read
+    if (kt + kI8SkStages - 1 < ktiles) load(kt + kI8SkStages - 1);
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+    const uint8_t* bs = Bs + (kt % kI8SkStages) * kI8SkBK * kI8SkBN;
+    const uint8_t* as = As + (kt % kI8SkStages) * kI8SkM * kI8SkLdA;
+#pragma unroll
+    for (int kk = 0; kk < kI8SkBK; kk += 32) {
+      // a^T as the B operand: rows 0-7 of a in bf[0..1], rows 8-15 in bf[2..3]
+      uint32_t bf[4];
+      ldmatrix_x4(bf, as + (lane % 8 + (lane / 16) * 8) * kI8SkLdA + kk + ((lane / 8) % 2) * 16);
+      // b^T as the A operand: h picks the k half (a[0..1] or a[2..3]);
+      // column 4gr + 2t + s is row gr + 8s of tile t
+      uint32_t af[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t t[4];
+        load_cols4<kI8SkBN>(bs, kk + 16 * h + 4 * tq, warp * 8 + gr, t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) af[i / 2][2 * h + i % 2] = t[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_s8_16832(acc[i][0], af[i], bf[0], bf[1]);
+        if (two_m) mma_s8_16832(acc[i][1], af[i], bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // c[e] of tile t: row 8u + 2tq + (e & 1) of out, column 4gr + 2t + e / 2
+  // of the warp's 32: c[e] and c[e + 2] of both tiles are four adjacent
+  // columns
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 8 * u + 2 * tq + e;
+      const int col = n0 + warp * 32 + 4 * gr;
+      if (m >= M || col >= n_end) continue;
+      const int v[4] = {acc[0][u][e], acc[0][u][e + 2], acc[1][u][e], acc[1][u][e + 2]};
+      store4<TOut>(out, (size_t)m * N + col, v, n_end - col, out_vec, shift);
+    }
+  }
+}
+
+// block tile BM x BN x BK, warps of WM x WN, a ring of STAGES, at least
+// MINB blocks an SM. a's fragments by ldmatrix; b's by 32-bit loads and the
+// byte transpose: word g of a warp's columns gives n8 tiles 4g .. 4g+3,
+// tile 4g + i taking as column c the column 32g + 4c + i of the warp's WN.
+template <typename TOut, int BM, int BN, int BK, int WM, int WN, int STAGES, int MINB>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MINB)
+matmul_imma_tiled(const int8_t* __restrict__ a, const int8_t* __restrict__ b, TOut* __restrict__ out, int M, int K,
+                  int N, int shift, int a_vec, int b_vec, int out_vec) {
+  constexpr int NT = (BM / WM) * (BN / WN) * 32;
+  constexpr int LDA = BK + 16;
+  constexpr int MI = WM / 16, NG = WN / 32, NJ = 4 * NG;  // m16 tiles, words, n8 tiles of a warp
+  static_assert(WM % 16 == 0 && WN % 32 == 0 && BK % 32 == 0 && BN % 64 == 0, "tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* As = smem_raw;                   // [STAGES][BM][LDA]
+  uint8_t* Bs = As + STAGES * BM * LDA;     // [STAGES][BK][BN], swizzled
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int ktiles = (K + BK - 1) / BK;
+
+  auto load = [&](int kt) {
+    const int slot = kt % STAGES, k0 = kt * BK;
+    stage8<BM, BK, NT, false>(As + slot * BM * LDA, LDA, a, K, m0, M, k0, K, a_vec);
+    stage8<BK, BN, NT, true>(Bs + slot * BK * BN, BN, b, N, k0, K, n0, N, b_vec);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load(s);
+    cp_async_commit();
+  }
+
+  int acc[MI][NJ][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    }
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < ktiles) load(kt + STAGES - 1);  // the slot of tile kt - 1
+    cp_async_commit();
+    const uint8_t* as = As + (kt % STAGES) * BM * LDA + (wm * WM) * LDA;
+    const uint8_t* bs = Bs + (kt % STAGES) * BK * BN;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t af[MI][4], bfr[NJ][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) ldmatrix_x4(af[i], as + (i * 16 + lane % 16) * LDA + kk + (lane / 16) * 16);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t t[4];
+          load_cols4<BN>(bs, kk + 16 * h + 4 * tq, (wn * WN) / 4 + 8 * g + gr, t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) bfr[4 * g + i][h] = t[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_s8_16832(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // c[2h], c[2h+1] of tile 4g + i: row gr + 8h, columns 32g + 8tq + i and
+  // 32g + 8tq + 4 + i of the warp's: a thread holds 8 adjacent columns
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * WM + i * 16 + gr + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const int col = n0 + wn * WN + 32 * g + 8 * tq;
+        if (col >= N) continue;
+        const int v0[4] = {acc[i][4 * g][2 * h], acc[i][4 * g + 1][2 * h], acc[i][4 * g + 2][2 * h],
+                           acc[i][4 * g + 3][2 * h]};
+        const int v1[4] = {acc[i][4 * g][2 * h + 1], acc[i][4 * g + 1][2 * h + 1], acc[i][4 * g + 2][2 * h + 1],
+                           acc[i][4 * g + 3][2 * h + 1]};
+        store4<TOut>(out, (size_t)row * N + col, v0, N - col, out_vec, shift);
+        if (col + 4 < N) store4<TOut>(out, (size_t)row * N + col + 4, v1, N - col - 4, out_vec, shift);
+      }
+    }
+  }
+}
+
+template <int BM, int BN, int BK, int STAGES>
+constexpr size_t imma_smem() {
+  return (size_t)STAGES * (BM * (BK + 16) + BK * BN);
+}
+
+template <typename TOut, int BM, int BN, int BK, int WM, int WN, int STAGES, int MINB>
+int launch_imma_tiled(const int8_t* a, const int8_t* b, TOut* out, int M, int K, int N, int shift, int a_vec,
+                      int b_vec, int out_vec, cudaStream_t stream) {
+  constexpr size_t smem = imma_smem<BM, BN, BK, STAGES>();
+  static_assert(smem <= 232448, "tiled_imma ring exceeds shared memory");
+  auto kernel = matmul_imma_tiled<TOut, BM, BN, BK, WM, WN, STAGES, MINB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, (BM / WM) * (BN / WN) * 32, smem, stream>>>(a, b, out, M, K, N, shift, a_vec, b_vec, out_vec);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // route 3 (tiled_fma): float32 operands, M > 16, register-blocked CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -836,6 +1060,38 @@ int launch_matmul_out(const void* a, const void* b, void* out, int M, int K, int
   return (int)cudaErrorInvalidValue;
 }
 
+// matmul_int8's route for M rows: 0 skinny_imma (M <= 16), 1 tiled_imma
+inline int route_int8(int M) { return M <= kI8SkM ? 0 : 1; }
+
+template <typename TOut>
+int launch_matmul_int8(const int8_t* a, const int8_t* b, TOut* out, int M, int K, int N, int shift,
+                       cudaStream_t stream) {
+  const int a_vec = (K % 16 == 0) && aligned16(a), b_vec = (N % 16 == 0) && aligned16(b);
+  const int out_vec = (N % 4 == 0) && aligned16(out);
+  if (route_int8(M) == 0) {
+    auto kernel = matmul_imma_skinny<TOut>;
+    if (kI8SkSmem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kI8SkSmem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    // one block an SM, each with an equal share of the columns; more
+    // blocks only where a share would exceed kI8SkBN columns
+    const int units = (N + 15) / 16;
+    int grid = sm_count();
+    grid = max(grid, (units + kI8SkBN / 16 - 1) / (kI8SkBN / 16));
+    grid = min(grid, units);
+    kernel<<<grid, kI8SkThreads, kI8SkSmem, stream>>>(a, b, out, M, K, N, shift, a_vec, b_vec, out_vec);
+    return (int)cudaGetLastError();
+  }
+  if (large_tiles(M, N, kI8BM, kI8BN)) {
+    return launch_imma_tiled<TOut, kI8BM, kI8BN, kI8BK, kI8WM, kI8WN, kI8Stages, kI8MinBlocks>(
+        a, b, out, M, K, N, shift, a_vec, b_vec, out_vec, stream);
+  }
+  return launch_imma_tiled<TOut, kI8SBM, kI8SBN, kI8SBK, kI8SWM, kI8SWN, kI8SStages, kI8SMinBlocks>(
+      a, b, out, M, K, N, shift, a_vec, b_vec, out_vec, stream);
+}
+
 }  // namespace
 
 // a (M,K), b (K,N), out (M,N), all row-major and contiguous; a and b share
@@ -862,13 +1118,23 @@ extern "C" int repro_matmul_route(int M, int K, int N, int in_dtype) {
   return route_of(M, in_dtype);
 }
 
+// The route repro_matmul_int8 takes for an (M,K) @ (K,N) product: 0
+// skinny_imma, 1 tiled_imma; -1 for no rows. K and N do not enter the
+// choice today; they are part of the question.
+extern "C" int repro_matmul_int8_route(int M, int K, int N) {
+  (void)K;
+  (void)N;
+  if (M < 1) return -1;
+  return route_int8(M);
+}
+
 // The most rows of a that one launch takes, from the grid that really
-// launches: in_dtype 0-2 for repro_matmul (row tiles of 128 rows on grid.y
-// for the tiled routes; the skinny routes take M <= 16, and the 64-row
-// tiles only shapes with fewer tiles than the card has SMs), 3 for
-// repro_matmul_int8 (8 rows a block on grid.y).
+// launches: in_dtype 0-2 for repro_matmul, 3 for repro_matmul_int8. The
+// tiled routes put row tiles on grid.y: 128 rows each (tiled_fma's and
+// tiled_mma's, tiled_imma's kI8BM); the skinny routes take M <= 16, and
+// the 64-row tiles run only shapes with fewer tiles than the card has SMs.
 extern "C" int repro_matmul_max_rows(int in_dtype) {
-  if (in_dtype == 3) return kGridY * kBM;
+  if (in_dtype == 3) return kGridY * kI8BM;
   if (in_dtype < 0 || in_dtype > 2) return -1;
   constexpr int rows = kTBM < 128 ? kTBM : 128;  // tiled_fma's large tile has 128
   return kGridY * rows;
@@ -879,17 +1145,9 @@ extern "C" int repro_matmul_max_rows(int in_dtype) {
 extern "C" int repro_matmul_int8(const void* a, const void* b, void* out, int M, int K, int N, int shift,
                                  int out_int8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (shift < 0 || shift > 31) return (int)cudaErrorInvalidValue;
-  const int vec_ok = (N % 16 == 0) && aligned16(b);
-  const int a_words_ok = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(a) % 4 == 0);
+  if (M < 1 || K < 1 || N < 1 || shift < 0 || shift > 31) return (int)cudaErrorInvalidValue;
   const int8_t* pa = static_cast<const int8_t*>(a);
   const int8_t* pb = static_cast<const int8_t*>(b);
-  if (out_int8) {
-    matmul_int8_kernel<int8_t><<<tile_grid(M, N), kThreads, 0, s>>>(
-        pa, pb, static_cast<int8_t*>(out), M, K, N, shift, vec_ok, a_words_ok);
-  } else {
-    matmul_int8_kernel<int32_t><<<tile_grid(M, N), kThreads, 0, s>>>(
-        pa, pb, static_cast<int32_t*>(out), M, K, N, shift, vec_ok, a_words_ok);
-  }
-  return (int)cudaGetLastError();
+  if (out_int8) return launch_matmul_int8<int8_t>(pa, pb, static_cast<int8_t*>(out), M, K, N, shift, s);
+  return launch_matmul_int8<int32_t>(pa, pb, static_cast<int32_t*>(out), M, K, N, shift, s);
 }

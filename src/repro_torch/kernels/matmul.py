@@ -17,8 +17,9 @@ Each wrapper:
   validated and otherwise only a hint: the CUDA source picks its own route
   and tile from the operand type and the rows (:func:`kernel_route`:
   tensor cores for bf16/f16 — a swapped skinny product for M <= 16, block
-  tiles above; CUDA-core fp32 FMAs for float32), and the kernels mask their
-  own ragged edges;
+  tiles above; CUDA-core fp32 FMAs for float32; :func:`kernel_route_int8`:
+  the int8 tensor cores, ``skinny_imma`` for M <= 16 and ``tiled_imma``
+  above), and the kernels mask their own ragged edges;
 - takes the plain PyTorch version (``matmul_plain``, ``matmul_int8_plain``)
   **only for CPU tensors**. For CUDA tensors it launches the kernel on the
   current stream, without synchronising, or raises; no library routine
@@ -39,8 +40,9 @@ LAUNCHES = {"matmul": 0, "matmul_int8": 0}
 
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _INT8_CODE = 3                  # repro_matmul_max_rows' code for matmul_int8
-# the source's route codes (repro_matmul_route)
+# the source's route codes (repro_matmul_route, repro_matmul_int8_route)
 ROUTES = ("skinny_mma", "tiled_mma", "skinny_fma", "tiled_fma")
+ROUTES_INT8 = ("skinny_imma", "tiled_imma")
 
 
 def reset_launches() -> None:
@@ -102,6 +104,17 @@ def kernel_route(m: int, k: int, n: int, dtype) -> str:
         raise ValueError(f"matmul: the source has no route for m={m}, "
                          f"{dtype}")
     return ROUTES[code]
+
+
+def kernel_route_int8(m: int, k: int, n: int) -> str:
+    """The kernel ``matmul_int8`` launches for an (m,k) @ (k,n) product, as
+    the CUDA source decides it (``repro_matmul_int8_route``):
+    ``"skinny_imma"`` (m <= 16) or ``"tiled_imma"`` (m > 16), both on the
+    int8 tensor cores. Needs the built library."""
+    code = build.load("matmul").repro_matmul_int8_route(m, k, n)
+    if code < 0:
+        raise ValueError(f"matmul_int8: the source has no route for m={m}")
+    return ROUTES_INT8[code]
 
 
 # ---------------------------------------------------------------------------

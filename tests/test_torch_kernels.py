@@ -212,9 +212,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 class _FakeMatmulLib:
     """Stands in for the built ``csrc/matmul.cu`` where no card is: its
-    row limit and route answers, as the source gives them."""
+    row limit and route answers, as the source gives them
+    (``test_fake_matmul_library_is_the_source`` holds the two together)."""
     ROW_LIMIT = {0: 65535 * 128, 1: 65535 * 128, 2: 65535 * 128,
-                 3: 65535 * 8}
+                 3: 65535 * 128}
 
     def repro_matmul_max_rows(self, code):
         return self.ROW_LIMIT[code]
@@ -222,12 +223,43 @@ class _FakeMatmulLib:
     def repro_matmul_route(self, m, k, n, code):
         return (2 if m <= 16 else 3) if code == 0 else (0 if m <= 16 else 1)
 
+    def repro_matmul_int8_route(self, m, k, n):
+        return -1 if m < 1 else (0 if m <= 16 else 1)
+
+
+def _source_constants():
+    """The integer constants of ``csrc/matmul.cu`` that the row limit and
+    the route boundaries are made of."""
+    import re
+    from repro_torch.kernels import build
+    text = (build.CSRC / "matmul.cu").read_text()
+    return {name: int(value) for name, value in
+            re.findall(r"\b(k\w+) = (\d+)[,;]", text)}, text
+
+
+def test_fake_matmul_library_is_the_source():
+    """The fake's answers are the source's: the row limit is grid.y's
+    65535 row tiles of the tiled routes' large tiles (128 rows for matmul,
+    ``kI8BM`` for matmul_int8, whose small tiles only run shapes with fewer
+    tiles than SMs), and both types switch route above 16 rows."""
+    consts, text = _source_constants()
+    assert consts["kGridY"] == 65535
+    assert consts["kTBM"] == 128 and consts["kSkM"] == 16
+    assert consts["kI8BM"] == 128 and consts["kI8SkM"] == 16
+    assert "if (in_dtype == 3) return kGridY * kI8BM;" in text
+    assert "return M <= kI8SkM ? 0 : 1;" in text
+    lib = _FakeMatmulLib()
+    assert lib.ROW_LIMIT[3] == consts["kGridY"] * consts["kI8BM"]
+    assert lib.ROW_LIMIT[0] == consts["kGridY"] * consts["kTBM"]
+    for m in (1, 16, 17):
+        assert lib.repro_matmul_int8_route(m, 8, 8) == (m > consts["kI8SkM"])
+
 
 def test_matmul_row_limit_is_the_sources():
     """The wrapper holds a launch to the rows the source says its grid
-    takes (``repro_matmul_max_rows``): 128-row tiles for matmul, 8-row
-    tiles for matmul_int8, each up to 65535 grid rows; non-contiguous
-    operands raise first."""
+    takes (``repro_matmul_max_rows``): 128-row tiles for matmul and for
+    matmul_int8, each up to 65535 grid rows; non-contiguous operands raise
+    first."""
     lib = _FakeMatmulLib()
     b = torch.empty((1, 0))
     for code, rows in lib.ROW_LIMIT.items():
@@ -257,6 +289,48 @@ def test_matmul_kernel_route_refuses_int8(monkeypatch):
     monkeypatch.setattr(tmm.build, "load", lambda name: _FakeMatmulLib())
     with pytest.raises(ValueError):
         tmm.kernel_route(8, 64, 64, torch.int8)
+
+
+@pytest.mark.parametrize("m,want", [
+    (1, "skinny_imma"), (16, "skinny_imma"), (17, "tiled_imma"),
+    (8192, "tiled_imma")])
+def test_matmul_int8_kernel_route_names(monkeypatch, m, want):
+    """``kernel_route_int8`` reports the source's int8 route code by name,
+    with the boundary at M = 16 / 17; a code below 0 raises."""
+    monkeypatch.setattr(tmm.build, "load", lambda name: _FakeMatmulLib())
+    assert tmm.kernel_route_int8(m, 2048, 32000) == want
+    assert tmm.ROUTES_INT8 == ("skinny_imma", "tiled_imma")
+    with pytest.raises(ValueError):
+        tmm.kernel_route_int8(0, 2048, 32000)
+
+
+def _meta(*shape, dtype=torch.int8):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("a,b,kw", [
+    (_meta(8, 16, dtype=torch.float32), _meta(16, 8), {}),
+    (_meta(8, 16), _meta(16, 8, dtype=torch.uint8), {}),
+    (_meta(8, 16), _meta(16, 8), {"out_dtype": torch.float32}),
+    (_meta(8, 16), _meta(16, 8), {"out_dtype": torch.int16}),
+    (_meta(8, 16), _meta(16, 8), {"shift": 32}),
+    (_meta(8, 16), _meta(16, 8), {"shift": -1}),
+    (_meta(8, 16), _meta(12, 8), {}),
+    (_meta(2, 8, 16), _meta(16, 8), {}),
+    (_meta(8, 16), _meta(16, 24), {"bn": 16}),
+    (_meta(8, 16), _meta(16, 8), {}),       # valid, but not a CUDA device
+])
+def test_matmul_int8_contract_raises_before_any_launch(monkeypatch, a, b, kw):
+    """Wrong dtypes, shapes and shifts raise ValueError before the library
+    is loaded, and so before any launch; so does a device that is neither
+    the CPU nor CUDA."""
+    def no_load(name):
+        raise AssertionError("the library was loaded")
+    monkeypatch.setattr(tmm.build, "load", no_load)
+    tmm.reset_launches()
+    with pytest.raises(ValueError):
+        tmm.matmul_int8(a, b, **kw)
+    assert tmm.LAUNCHES["matmul_int8"] == 0
 
 
 @pytest.mark.parametrize("m,k,n,bm,bn,bk", [

@@ -2,18 +2,18 @@
 """Tuning aid for ``src/repro_torch/kernels/csrc/matmul.cu``, ``conv.cu``
 and ``ssm_scan.cu``, on the card.
 
-    python3 tools/torch_kernel_variants.py [--variants 1,1 4,2 8,2 8,4]
+    python3 tools/torch_kernel_variants.py [--variants 1 4 8 16]
         [--widths 4096 16384 32000 128000]
     python3 tools/torch_kernel_variants.py --conv [4,16,4,4 4,8,4,4 general ...]
-    python3 tools/torch_kernel_variants.py [--mm [VARIANT ...]] [--axpy]
-        [--ssm] [--ssm-variants [NAME ...]]
+    python3 tools/torch_kernel_variants.py [--mm [VARIANT ...]]
+        [--axpy [VARIANT ...]] [--ssm] [--ssm-variants [NAME ...]]
 
-1. Builds a copy of the source once per variant ``U,UI`` — how many rows
-   of ``b`` a thread loads before it uses the first (the constants ``kU``
-   for matmul and ``kUI``, groups of four rows, for matmul_int8, rewritten
-   in the copy) — checks each against the plain version and times it at
-   the serving shape
-   (8,2048)@(2048,32000), in turns (a, b, ..., b, a) within this one call.
+1. Builds a copy of the source once per variant ``U`` — how many rows of
+   ``b`` a thread of the float32 skinny route loads before it uses the
+   first (the constant ``kU``, rewritten in the copy) — checks each
+   against the plain version and times it at the serving shape
+   (8,2048)@(2048,32000), in turns (a, b, ..., b, a) within this one call,
+   with matmul_int8 beside it.
 2. Times the default build against the width N of ``b``, from an operand
    that fits the L2 cache to one far larger, with the bytes of ``b`` over the
    time as a rate.
@@ -32,16 +32,24 @@ With ``--mm``, instead: builds a copy of ``matmul.cu`` once per tile
 variant of its tensor-core routes and times all of them in turns at the
 serving head (8,2048)@(2048,32000), at 256^3 and 512^3 and at
 (8192,2048)@(2048,5632), bf16 with fp32 output, each checked against
-``matmul_plain``, beside ``torch.matmul``. ``sk:BN,BK,STAGES`` rewrites
-the skinny route's most columns a block, k per stage and ring depth
+``matmul_plain``, beside ``torch.matmul``; and matmul_int8 with an int32
+output at the six shapes of ``chip_smoke.int8_shapes`` (the three int8
+heads, 256^3, 512^3, the projection), each exact against
+``matmul_int8_plain``, beside ``torch._int_mm`` where it takes the shape
+(its refusal where it does not). ``sk:BN,BK,STAGES`` rewrites the bf16
+skinny route's most columns a block, k per stage and ring depth
 (``kSkBN``, ``kSkBK``, ``kSkStages``); ``t:BM,BN,BK,WM,WN,STAGES,MINB``
-the tiled route's large tile (``kTBM`` ... ``kTMinBlocks``) and
-``s:...`` its small one (``kSBM`` ...); ``base`` is the source as it
-stands, and ``file:PATH`` builds another ``matmul.cu`` (a parent
-commit's, for a comparison in one call).
+the bf16 tiled route's large tile (``kTBM`` ... ``kTMinBlocks``) and
+``s:...`` its small one (``kSBM`` ...); ``qk:``, ``q:`` and ``qs:`` the
+same for the int8 routes (``kI8SkBN`` ..., ``kI8BM`` ..., ``kI8SBM``
+...); ``base`` is the source as it stands, and ``file:PATH`` builds
+another ``matmul.cu`` (a parent commit's, for a comparison in one call).
 
-With ``--axpy``: ``axpy`` and ``torch.add(y, x, alpha=a)`` timed in turns,
-five turns in one call, at n = 2^26 in float32 and bfloat16.
+With ``--axpy``: source variants of ``axpy.cu`` (``build_axpy_variants``:
+``base``, ``file:PATH``, ``onepass:...`` constants, the ``bulk`` design
+of ``AXPY_BULK``), each checked for bit-equality with ``axpy_plain``
+(every dtype, unaligned addresses), timed in five turns beside
+``torch.add(y, x, alpha=a)`` at f32 and bf16 2^26, f32 2^20 and f64 256.
 
 With ``--ssm``: the scan's passes (``chunk_states``, ``pass_states``,
 ``chunk_cross`` where it runs, ``chunk_outputs``) timed by
@@ -176,6 +184,13 @@ def conv_main(variants):
 MM_SKINNY = ("kSkBN", "kSkBK", "kSkStages")
 MM_TILED = ("kTBM", "kTBN", "kTBK", "kTWM", "kTWN", "kTStages", "kTMinBlocks")
 MM_SMALL = ("kSBM", "kSBN", "kSBK", "kSWM", "kSWN", "kSStages", "kSMinBlocks")
+MM_I8_SKINNY = ("kI8SkBN", "kI8SkBK", "kI8SkStages")
+MM_I8_TILED = ("kI8BM", "kI8BN", "kI8BK", "kI8WM", "kI8WN", "kI8Stages",
+               "kI8MinBlocks")
+MM_I8_SMALL = ("kI8SBM", "kI8SBN", "kI8SBK", "kI8SWM", "kI8SWN",
+               "kI8SStages", "kI8SMinBlocks")
+MM_KINDS = {"sk": MM_SKINNY, "t": MM_TILED, "s": MM_SMALL,
+            "qk": MM_I8_SKINNY, "q": MM_I8_TILED, "qs": MM_I8_SMALL}
 MM_DEFAULT = ["base", "sk:128,32,4", "sk:256,64,3", "sk:256,32,6",
               "t:128,128,32,64,32,4,2", "s:64,64,32,32,32,6,4"]
 MM_SHAPES = ((8, 2048, 32000), (256, 256, 256), (512, 512, 512),
@@ -201,9 +216,7 @@ def build_mm_variants(keys):
             text = source
         else:
             kind, vals = key.split(":")
-            vals = vals.split(",")
-            text = _set_constants(source, {"sk": MM_SKINNY, "t": MM_TILED,
-                                           "s": MM_SMALL}[kind], vals)
+            text = _set_constants(source, MM_KINDS[kind], vals.split(","))
         cu = out_dir / f"matmul_v{i}.cu"
         cu.write_text(text)
         so = cu.with_suffix(".so")
@@ -215,11 +228,14 @@ def build_mm_variants(keys):
     for key, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {key}:\n{log}")
+            if key == "base":
+                raise RuntimeError(f"nvcc failed for variant {key}:\n{log}")
+            print(json.dumps({"variant": key, "nvcc_failed": log[-2000:]}))
+            continue
         lib = ctypes.CDLL(str(so))
-        lib.repro_matmul.argtypes = list(
-            build.SIGNATURES["matmul"]["repro_matmul"])
-        lib.repro_matmul.restype = ctypes.c_int
+        for fn in ("repro_matmul", "repro_matmul_int8"):
+            getattr(lib, fn).argtypes = list(build.SIGNATURES["matmul"][fn])
+            getattr(lib, fn).restype = ctypes.c_int
         regs = sorted({int(line.split("Used")[1].split("registers")[0])
                        for line in log.splitlines() if "Used" in line})
         spills = sorted({int(line.split("bytes spill stores")[0]
@@ -248,6 +264,24 @@ def mm_main(keys):
         assert err == 0, err
         return out
 
+    ops8 = {}
+    for i, (_, shape) in enumerate(cs.int8_shapes()):
+        ai, bi = cs._int8_operands(*shape, 50 + i)
+        ops8[shape] = (ai, bi, mm.matmul_int8_plain(ai, bi))
+
+    def run8(lib, a, b):
+        m, k = a.shape
+        n = b.shape[1]
+        out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+        err = lib.repro_matmul_int8(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), m, k, n, 0, 0, stream)
+        assert err == 0, err
+        return out
+
+    def kw_of(shape):
+        big = shape[0] * shape[1] * shape[2] > 1e10
+        return dict(warmup=2, reps=5, inner=3) if big else {}
+
     times = {key: [] for key in libs}
     for key in list(libs) + list(libs)[::-1]:
         lib = libs[key][0]
@@ -259,36 +293,332 @@ def mm_main(keys):
             if err > tol:
                 raise AssertionError(f"variant {key} at {shape}: max error "
                                      f"{err} > {tol}")
-            big = shape[0] * shape[1] * shape[2] > 1e10
-            kw = dict(warmup=2, reps=5, inner=3) if big else {}
             row["x".join(map(str, shape))] = cs.time_ms(
-                lambda: run(lib, a, b), **kw)
+                lambda: run(lib, a, b), **kw_of(shape))
+        for shape, (a, b, ref) in ops8.items():
+            if not torch.equal(run8(lib, a, b), ref):
+                raise AssertionError(f"variant {key}: int8 at {shape} "
+                                     f"differs from matmul_int8_plain")
+            row["int8 " + "x".join(map(str, shape))] = cs.time_ms(
+                lambda: run8(lib, a, b), **kw_of(shape))
         times[key].append(row)
     for key, (_, regs, spills) in libs.items():
         print(json.dumps({"variant": key, "registers": regs,
                           "spill_store_bytes": spills, "ms": times[key]}))
-    print(json.dumps({"library_ms": {
-        "x".join(map(str, shape)): cs.time_ms(lambda: torch.matmul(a, b))
-        for shape, (a, b, _) in ops.items()}}))
+    library = {"x".join(map(str, shape)): cs.time_ms(lambda: torch.matmul(a, b))
+               for shape, (a, b, _) in ops.items()}
+    for shape, (a, b, _) in ops8.items():
+        ms, note = cs.int8_library_ms(a, b, **kw_of(shape))
+        library["int8 " + "x".join(map(str, shape))] = ms if note is None \
+            else note
+    print(json.dumps({"library_ms": library}))
 
 
-def axpy_main(turns=5):
-    out = {}
-    for dt in (torch.float32, torch.bfloat16):
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        x = torch.randn(cs.AXPY_N, generator=gen, device="cuda").to(dt)
-        y = torch.randn(cs.AXPY_N, generator=gen, device="cuda").to(dt)
-        alpha = 2.5
-        assert torch.equal(ax.axpy(alpha, x, y), ax.axpy_plain(alpha, x, y))
-        rows = {"axpy": [], "torch.add": []}
-        for _ in range(turns):
-            rows["axpy"].append(cs.time_ms(lambda: ax.axpy(alpha, x, y)))
-            rows["torch.add"].append(cs.time_ms(
-                lambda: torch.add(y, x, alpha=alpha)))
-        bound, _ = cs.paper_bound("axpy", (cs.AXPY_N,), x.element_size())
-        out[str(dt).replace("torch.", "")] = {"n": cs.AXPY_N, **rows,
-                                              "bound_ms": bound}
-    print(json.dumps({"axpy_vs_add": out}))
+# axpy designs other than the committed one, as whole sources: "bulk",
+# Hopper's 1-D bulk copies through a ring of shared stages
+AXPY_BULK = r"""
+// axpy by Hopper's bulk copies: persistent blocks (kBlocksPerSM an SM), each
+// streaming chunks of x and y (kChunk bytes each) by 1-D cp.async.bulk into
+// a ring of kStages shared stages (an mbarrier a stage, complete_tx),
+// computing y_stage = alpha * x_stage + y_stage in shared memory and writing
+// the stage back to `out` by cp.async.bulk shared -> global. Same rounding
+// as axpy.cu; unaligned bases go element by element.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kChunk = 16384;     // bytes of x (and of y) a stage
+constexpr int kStages = 4;
+constexpr int kBlocksPerSM = 1;
+
+__device__ __forceinline__ float axpy1(float a, float x, float y) { return __fadd_rn(__fmul_rn(a, x), y); }
+__device__ __forceinline__ double axpy1(double a, double x, double y) { return __dadd_rn(__dmul_rn(a, x), y); }
+__device__ __forceinline__ __nv_bfloat16 axpy1(__nv_bfloat16 a, __nv_bfloat16 x, __nv_bfloat16 y) {
+  const __nv_bfloat16 p = __float2bfloat16_rn(__fmul_rn(__bfloat162float(a), __bfloat162float(x)));
+  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(p), __bfloat162float(y)));
+}
+__device__ __forceinline__ __half axpy1(__half a, __half x, __half y) {
+  const __half p = __float2half_rn(__fmul_rn(__half2float(a), __half2float(x)));
+  return __float2half_rn(__fadd_rn(__half2float(p), __half2float(y)));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0, spins = 0;
+  while (!done) {
+    if (++spins > (1u << 22)) __trap();  // a lost copy: fail, do not hang
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
+               "r"(bytes)
+               : "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+axpy_bulk(T alpha, const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ out, int64_t n) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int E = kChunk / (int)sizeof(T);  // elements a stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  T* ys = reinterpret_cast<T*>(smem + kStages * kChunk);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * kStages * kChunk);
+  const int64_t nbulk = n / VEC * VEC;
+  const int64_t nchunks = (nbulk + E - 1) / E;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bar[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int64_t c, int s) {
+    const int64_t e0 = c * E;
+    const uint32_t bytes = (uint32_t)(min((int64_t)E, nbulk - e0) * sizeof(T));
+    mbar_expect_tx(&bar[s], 2 * bytes);
+    bulk_g2s(xs + s * E, x + e0, bytes, &bar[s]);
+    bulk_g2s(ys + s * E, y + e0, bytes, &bar[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      const int64_t c = blockIdx.x + (int64_t)s * gridDim.x;
+      if (c < nchunks) issue(c, s);
+    }
+  }
+  for (int64_t it = 0;; ++it) {
+    const int64_t c = blockIdx.x + it * gridDim.x;
+    if (c >= nchunks) break;
+    const int s = (int)(it % kStages);
+    mbar_wait(&bar[s], (uint32_t)((it / kStages) & 1));
+    const int64_t e0 = c * E;
+    const int cnt = (int)min((int64_t)E, nbulk - e0);
+    const uint4* xv = reinterpret_cast<const uint4*>(xs + s * E);
+    uint4* yv = reinterpret_cast<uint4*>(ys + s * E);
+    for (int v = tid; v < cnt / VEC; v += kThreads) {
+      const uint4 rx = xv[v], ry = yv[v];
+      uint4 ro;
+      const T* ex = reinterpret_cast<const T*>(&rx);
+      const T* ey = reinterpret_cast<const T*>(&ry);
+      T* eo = reinterpret_cast<T*>(&ro);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) eo[q] = axpy1(alpha, ex[q], ey[q]);
+      yv[v] = ro;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {
+      bulk_s2g(out + e0, ys + s * E, (uint32_t)(cnt * sizeof(T)));
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      if (it >= 1) {
+        // the store of the previous stage has read its shared memory: refill it
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        const int64_t cn = blockIdx.x + (it - 1 + kStages) * gridDim.x;
+        if (cn < nchunks) issue(cn, (int)((it - 1) % kStages));
+      }
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  const int64_t e = nbulk + tid;  // the ragged tail, fewer than VEC elements
+  if (blockIdx.x == 0 && e < n) out[e] = axpy1(alpha, x[e], y[e]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) axpy_elements(T alpha, const T* x, const T* y, T* out, int64_t n) {
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += (int64_t)gridDim.x * kThreads) {
+    out[i] = axpy1(alpha, x[i], y[i]);
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1) n = 132;
+  }
+  return n;
+}
+
+template <typename T>
+int launch(T alpha, const void* x, const void* y, void* out, int64_t n, cudaStream_t stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (reinterpret_cast<uintptr_t>(y) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  const T* px = static_cast<const T*>(x);
+  const T* py = static_cast<const T*>(y);
+  T* po = static_cast<T*>(out);
+  if (!aligned) {
+    int64_t blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > 4096) blocks = 4096;
+    axpy_elements<T><<<(unsigned)blocks, kThreads, 0, stream>>>(alpha, px, py, po, n);
+    return (int)cudaGetLastError();
+  }
+  constexpr int smem = 2 * kStages * kChunk + 8 * kStages;
+  auto kernel = axpy_bulk<T>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t chunks = (n + kChunk / (int64_t)sizeof(T) - 1) / (kChunk / (int64_t)sizeof(T));
+  int64_t grid = (int64_t)sm_count() * kBlocksPerSM;
+  if (grid > chunks) grid = chunks;
+  if (grid < 1) grid = 1;
+  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(alpha, px, py, po, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_axpy(double alpha, const void* x, const void* y, void* out, int64_t n, int dtype,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch<float>((float)alpha, x, y, out, n, s);
+    case 1: return launch<__nv_bfloat16>(__float2bfloat16_rn((float)alpha), x, y, out, n, s);
+    case 2: return launch<__half>(__float2half_rn((float)alpha), x, y, out, n, s);
+    case 3: return launch<double>(alpha, x, y, out, n, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+"""
+AXPY_ONEPASS = ("kU", "kThreads", "kStreamVecBytes", "kResidentVecBytes")
+# cache hints for axpy.cu's loads and stores (``hints:LOAD,STORE``)
+AXPY_LOADS = {"plain": "return *p;", "nc": "return __ldg(p);",
+              "cs": "return __ldcs(p);"}
+AXPY_STORES = {"plain": "*p = v;", "cs": "__stcs(p, v);"}
+AXPY_BULK_CONSTANTS = ("kChunk", "kStages", "kBlocksPerSM")
+AXPY_DEFAULT = ["base", "onepass:1,256,16", "onepass:4,256,16,16",
+                "hints:nc,plain", "hints:cs,cs", "bulk", "bulk:32768,3,1",
+                "bulk:8192,4,2"]
+AXPY_CASES = (("f32_2^26", torch.float32, 1 << 26),
+              ("bf16_2^26", torch.bfloat16, 1 << 26),
+              ("f32_2^20", torch.float32, 1 << 20),
+              ("f64_256", torch.float64, 256))
+
+
+def build_axpy_variants(keys):
+    """``base`` (axpy.cu as it stands), ``file:PATH`` (another axpy.cu,
+    e.g. a parent commit's), ``onepass:U,THREADS,VECBYTES[,VECBYTES]``
+    (axpy.cu's constants rewritten: vectors a thread, threads a block,
+    vector bytes past half the L2 and, optionally, within it),
+    ``hints:LOAD,STORE`` (axpy.cu with the cache hints of AXPY_LOADS and
+    AXPY_STORES), ``bulk`` or
+    ``bulk:CHUNK,STAGES,BLOCKS_PER_SM`` (AXPY_BULK). A variant that does
+    not build is reported and left out."""
+    out_dir = build.build_dir() / "axpy_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = (build.CSRC / "axpy.cu").read_text()
+    procs = {}
+    for i, key in enumerate(keys):
+        kind, _, vals = key.partition(":")
+        if kind == "file":
+            text = open(vals).read()
+        elif kind == "base":
+            text = source
+        elif kind == "onepass":
+            text = _set_constants(source, AXPY_ONEPASS, vals.split(","))
+        elif kind == "hints":
+            load, store = vals.split(",")
+            assert source.count(AXPY_LOADS["plain"]) == 1 \
+                and source.count(AXPY_STORES["plain"]) == 1
+            text = source.replace(AXPY_LOADS["plain"], AXPY_LOADS[load]) \
+                .replace(AXPY_STORES["plain"], AXPY_STORES[store])
+        elif kind == "bulk":
+            text = AXPY_BULK if not vals else _set_constants(
+                AXPY_BULK, AXPY_BULK_CONSTANTS, vals.split(","))
+        else:
+            raise ValueError(f"unknown axpy variant {key}")
+        cu = out_dir / f"axpy_v{i}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        procs[key] = (so, _compile(cu, so))
+    libs = {}
+    for key, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(json.dumps({"variant": key, "nvcc_failed": log[-2000:]}))
+            continue
+        lib = ctypes.CDLL(str(so))
+        lib.repro_axpy.argtypes = list(build.SIGNATURES["axpy"]["repro_axpy"])
+        lib.repro_axpy.restype = ctypes.c_int
+        libs[key] = lib
+    return libs
+
+
+def axpy_main(keys, turns=5):
+    """Each variant checked for bit-equality with ``axpy_plain`` (every
+    dtype, ragged n, unaligned addresses), then all of them and
+    ``torch.add(y, x, alpha=a)`` timed in turns, the order reversed every
+    other turn."""
+    libs = build_axpy_variants(keys)
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+             torch.float64: 3}
+
+    def run(lib, alpha, x, y):
+        out = torch.empty_like(x)
+        a = float(torch.tensor(alpha, dtype=x.dtype))
+        err = lib.repro_axpy(a, x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                             x.shape[0], codes[x.dtype], stream)
+        assert err == 0, err
+        return out
+
+    checks = [(n, dt, off) for n, dt, off in (
+        (1 << 20, torch.float32, 0), (12345, torch.float16, 0),
+        (4099, torch.bfloat16, 0), (256, torch.float64, 0),
+        (1000, torch.float32, 1), (1000, torch.bfloat16, 3),
+        (1003, torch.float64, 1), (3, torch.float32, 0))]
+    for key, lib in list(libs.items()):
+        for i, (n, dt, off) in enumerate(checks):
+            x = cs._randn((n + off,), dt, 50 + i)[off:]
+            y = cs._randn((n + off,), dt, 60 + i)[off:]
+            if not torch.equal(run(lib, -1.75, x, y),
+                               ax.axpy_plain(-1.75, x, y)):
+                print(json.dumps({"variant": key, "bit_equal": False,
+                                  "case": [n, str(dt), off]}))
+                del libs[key]
+                break
+    cases = {tag: (cs._randn((n,), dt, 3), cs._randn((n,), dt, 4))
+             for tag, dt, n in AXPY_CASES}
+    names = ["torch.add"] + list(libs)
+    times = {name: {tag: [] for tag in cases} for name in names}
+    for t in range(turns):
+        for name in (names if t % 2 == 0 else names[::-1]):
+            for tag, (x, y) in cases.items():
+                if name == "torch.add":
+                    a = float(torch.tensor(2.5, dtype=x.dtype))
+                    fn = (lambda x=x, y=y, a=a: torch.add(y, x, alpha=a))
+                else:
+                    fn = (lambda x=x, y=y, lib=libs[name]: run(lib, 2.5, x, y))
+                times[name][tag].append(cs.time_ms(fn))
+    bounds = {tag: cs.paper_bound("axpy", x.shape, x.element_size())[0]
+              for tag, (x, _) in cases.items()}
+    for name in names:
+        print(json.dumps({"axpy_variant": name, "bit_equal": name != "torch.add"
+                          or None, "ms": times[name], "bound_ms": bounds}))
 
 
 def ssm_main():
@@ -391,23 +721,20 @@ def build_variants(variants):
     out_dir.mkdir(parents=True, exist_ok=True)
     source = (build.CSRC / "matmul.cu").read_text()
     procs = {}
-    for u, ui in variants:
+    for u in variants:
         text, n_u = re.subn(r"constexpr int kU = \d+;",
                             f"constexpr int kU = {u};", source)
-        text, n_ui = re.subn(r"constexpr int kUI = \d+;",
-                             f"constexpr int kUI = {ui};", text)
-        assert (n_u, n_ui) == (1, 1), "kU / kUI not found in matmul.cu"
-        cu = out_dir / f"matmul_u{u}_ui{ui}.cu"
+        assert n_u == 1, "kU not found in matmul.cu"
+        cu = out_dir / f"matmul_u{u}.cu"
         cu.write_text(text)
         so = cu.with_suffix(".so")
-        procs[(u, ui)] = (so, _compile(cu, so))
+        procs[u] = (so, _compile(cu, so))
     return _collect(procs, "matmul")
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", nargs="*",
-                    default=["1,1", "4,2", "8,2", "8,4"])
+    ap.add_argument("--variants", nargs="*", type=int, default=[1, 4, 8, 16])
     ap.add_argument("--widths", nargs="*", type=int,
                     default=[4096, 16384, 32000, 128000])
     ap.add_argument("--conv", nargs="*", default=None, metavar="R,G,C,O",
@@ -416,8 +743,9 @@ def main():
     ap.add_argument("--mm", nargs="*", default=None, metavar="VARIANT",
                     help="time matmul.cu tensor-core tile variants instead "
                     "(default set without values)")
-    ap.add_argument("--axpy", action="store_true",
-                    help="time axpy against torch.add in turns instead")
+    ap.add_argument("--axpy", nargs="*", default=None, metavar="VARIANT",
+                    help="time axpy.cu variants against torch.add in turns "
+                    "instead (default set without values)")
     ap.add_argument("--ssm", action="store_true",
                     help="time the scan's three passes instead")
     ap.add_argument("--ssm-variants", nargs="*", default=None,
@@ -430,12 +758,12 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    if args.mm is not None or args.axpy or args.ssm \
+    if args.mm is not None or args.axpy is not None or args.ssm \
             or args.ssm_variants is not None:
         if args.mm is not None:
             mm_main(args.mm or MM_DEFAULT)
-        if args.axpy:
-            axpy_main()
+        if args.axpy is not None:
+            axpy_main(args.axpy or AXPY_DEFAULT)
         if args.ssm:
             ssm_main()
         if args.ssm_variants is not None:
@@ -451,8 +779,7 @@ def main():
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip())
         return 0
-    variants = [tuple(int(x) for x in v.split(",")) for v in args.variants]
-    libs = build_variants(variants)
+    libs = build_variants(args.variants)
 
     r = np.random.RandomState(7)
     a32 = torch.from_numpy(r.randn(M, K).astype(np.float32)).cuda()
@@ -489,7 +816,7 @@ def main():
             "float32": cs.time_ms(lambda: run_fp(lib, a32, b32, 0)),
             "int8": cs.time_ms(lambda: run_i8(lib))})
     for key, (_, regs) in libs.items():
-        print(json.dumps({"variant": {"U": key[0], "UI": key[1]},
+        print(json.dumps({"variant": {"U": key},
                           "registers": regs, "ms": times[key]}))
     print(json.dumps({"library_ms": {
         "bfloat16": cs.time_ms(lambda: torch.matmul(ab, bb)),
