@@ -7,9 +7,10 @@ Needs a CUDA device, ``nvcc`` and nothing else: it builds the kernels from
 ``src/repro_torch/kernels/csrc``, serves randomly initialised tinyllama-1.1b
 at full width and full depth, trains it at full width and depth for a few
 steps, runs the paper's kernels and the scan kernel at their real shapes,
-and serves zamba2-7b and xlstm-1.3b at full width. Without a CUDA device,
-or in a directory that lacks the package, it exits non-zero and prints no
-result. Phases, one JSON line each:
+serves zamba2-7b and xlstm-1.3b at full width, and runs the Ara vector
+engine on the differential grid and the paper's Listing-1 matmul. Without
+a CUDA device, or in a directory that lacks the package, it exits
+non-zero and prints no result. Phases, one JSON line each:
 
 1. ``env``     the card's name and power limit, torch / CUDA / nvcc versions.
 2. ``build``   compiles the kernels (seconds, registers and spills per kernel).
@@ -100,6 +101,26 @@ result. Phases, one JSON line each:
                full-forward oracle (tokens equal, logits within 1e-3);
                zamba2-7b's oracle runs its shared attention through the
                attention kernel at head_dim 112.
+13. ``vector_engine`` the Ara vector engine (``core.vector_engine.
+               ReferenceEngine``, which builds no CUDA kernel): the 21-cell
+               SEW x LMUL differential grid, 20 programs a cell, in float32
+               and float64 against the copied numpy oracle
+               (``testing.differential``, ``diff.TOL``), and in float32,
+               float64 and int32 (the integer cells) against the same
+               engine on the CPU, bit for bit; Listing-1 at n = 64 bit-equal
+               to the CPU run, and three Listing-1 programs batched with
+               three grid programs, also bit-equal (groups of three replay
+               CUDA graphs); Listing-1 at n = 256 on 16 lanes' VLMAX
+               (1024 elements) in float64 against numpy's ``A @ B + C``
+               (1e-12 of its largest entry), timed, with its scoreboard and
+               closed-form cycles; the demo's masked argmax against
+               ``np.argmax``; and what a CUDA graph of a group shape costs
+               and saves (Listing-1 n = 64 eager and replayed on one
+               runner, bit-equal: capture seconds a graph over the seconds
+               a replay saves, the repeats at which a capture pays, beside
+               ``staging.GRAPH_MIN_REPEATS``). Prints wall
+               seconds, rows/s and programs/s on the card, and the same
+               grid's seconds on the host CPU.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6 and 11 for the matmul kernels, of phase 7 and
@@ -129,6 +150,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.ara import AraConfig  # noqa: E402
+from repro_torch.core import isa, staging  # noqa: E402
+from repro_torch.core import perfmodel as pm  # noqa: E402
 from repro_torch.core.precision import (PEAK_BYTES_PER_S,  # noqa: E402
                                         PEAKS_FLOPS, Policy)
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM,  # noqa: E402
@@ -147,8 +171,11 @@ from repro_torch.models.transformer import (forward, init_cache,  # noqa: E402
                                             lm_loss, model_template)
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
+from repro_torch.core.vector_engine import (ReferenceEngine,  # noqa: E402
+                                            simulate_timing)
 from repro_torch.serving import (DegradeLadder, Request,  # noqa: E402
                                  ServingEngine, State)
+from repro_torch.testing import differential as diff  # noqa: E402
 
 PATH_SHAPE = (8, 2048, 32000)      # (slots, d_model, vocab) of tinyllama-1.1b
 # tinyllama-1.1b's MLP up-projection at train batch 4 x 2048 tokens
@@ -1796,6 +1823,246 @@ def run_ssm_serving():
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the Ara vector engine (no CUDA kernel of its own)
+# ---------------------------------------------------------------------------
+
+ENGINE_GRID_N = 20          # programs per SEW x LMUL cell: 420 a dtype
+ENGINE_CHECK_N = 64         # Listing-1 held bit for bit to the CPU run
+ENGINE_N = 256              # Listing-1 at the paper's marquee size ...
+ENGINE_LANES = 16           # ... on 16 lanes' VLMAX (1024 DP elements)
+ENGINE_REL = 1e-12          # against numpy's A @ B + C (another order)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (any NaN matches any NaN: CPU and card
+    may spell a generated NaN differently)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ua, ub = a.view(f"u{a.itemsize}"), b.view(f"u{b.itemsize}")
+    if a.dtype.kind == "f":
+        return bool(np.all((ua == ub) | (np.isnan(a) & np.isnan(b))))
+    return bool(np.array_equal(ua, ub))
+
+
+def _engine_results_equal(card, cpu):
+    """``run_many`` results of two engines, bit for bit."""
+    (m1, s1), (m2, s2) = card, cpu
+    return len(m1) == len(m2) and all(
+        _same_bits(a, b) for a, b in zip(m1, m2)) and all(
+        _same_bits(np.array([x[k] for k in sorted(x)]),
+                   np.array([y[k] for k in sorted(y)]))
+        for x, y in zip(s1, s2))
+
+
+def _engine_grid(dtype, device, results):
+    """The 21-cell SEW x LMUL grid (integer cells only for int32 storage):
+    the engine on ``device`` against the numpy oracle at ``diff.TOL``
+    (float storage) and against the same engine on the CPU at tol=0."""
+    cfg = AraConfig(lanes=2)
+    card = ReferenceEngine(cfg, vlmax=diff.VLMAX64, dtype=dtype,
+                           device=device)
+    cpu = ReferenceEngine(cfg, vlmax=diff.VLMAX64, dtype=dtype,
+                          device="cpu")
+    win = diff.grid_window(diff.VLMAX64)
+    cells = [c for c in diff.cells(ENGINE_GRID_N)
+             if dtype != torch.int32 or c[0] in isa.INT_SEWS]
+    ran, clock = [], [0.0]
+
+    def card_batch(progs, mems, srs):
+        t0 = time.perf_counter()
+        out = card.run_many(progs, mems, srs, window=win)
+        clock[0] += time.perf_counter() - t0
+        ran.append((progs, mems, srs, out))
+        return out
+
+    name = str(dtype).replace("torch.", "")
+    if dtype == torch.int32:
+        # the oracle keeps a float scalar file where int32 storage
+        # truncates it on entry, so int32 is held to the CPU run alone
+        for sew, lmul, seeds in cells:
+            batch = [diff.random_program(np.random.RandomState(seed), sew,
+                                         lmul) for seed in seeds]
+            card_batch([b[0] for b in batch], [b[1] for b in batch],
+                       [dict(b[2]) for b in batch])
+        checked = sum(len(r[0]) for r in ran)
+    else:
+        storage = np.float64 if dtype == torch.float64 else np.float32
+        checked = diff.run_cells(
+            card_batch, diff.oracle_batch(diff.VLMAX64, storage=storage),
+            cells, label=f"vector_engine {name} vs oracle")
+    t0 = time.perf_counter()
+    same = all(_engine_results_equal(
+        out, cpu.run_many(progs, mems, srs, window=win))
+        for progs, mems, srs, out in ran)
+    cpu_s = time.perf_counter() - t0
+    if not same:
+        raise AssertionError(f"vector_engine grid {name}: the card's "
+                             "results differ from the CPU run's")
+    rows = sum(len(staging.encode_program(p, diff.VLMAX64))
+               for progs, *_ in ran for p in progs)
+    results.append({"name": f"grid {name}", "programs": checked,
+                    "cells": len(cells), "oracle": dtype != torch.int32,
+                    "bit_equal_to_cpu": same})
+    return {"programs": checked, "rows": rows, "card_s": clock[0],
+            "programs_per_s": checked / clock[0],
+            "rows_per_s": rows / clock[0], "cpu_s": cpu_s}
+
+
+def _listing1(n, cfg, seed):
+    rng = np.random.RandomState(seed)
+    a, b, c = rng.randn(n, n), rng.randn(n, n), rng.randn(n, n)
+    mem = np.concatenate([a.ravel(), b.ravel(), c.ravel()])
+    prog = isa.matmul_program(n, 0, n * n, 2 * n * n, t=4,
+                              vlmax=cfg.vlmax_dp)
+    return prog, mem, a @ b + c
+
+
+def _graph_break_even(cfg, prog, mem, device):
+    """One program run with CUDA graphs and then eagerly on one runner
+    (bit-equal): the capture seconds a graph, the seconds a replayed group
+    saves against its eager branch, and their ratio, the repeats a group
+    shape needs in one call before its capture pays."""
+    eng = ReferenceEngine(cfg, cache=staging.TraceCache(), device=device)
+    eng.run(prog, mem)                                  # build, warm up
+    runner, = eng.cache._fns.values()
+    inner, stat = runner._graphs, {"graphs": 0, "replays": 0, "s": 0.0}
+
+    def timed_graphs(c, groups):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphs = inner(c, groups)
+        torch.cuda.synchronize()
+        stat["s"] += time.perf_counter() - t0
+        stat["graphs"] += len(graphs)
+        stat["replays"] += sum((key, end - start, nf) in graphs
+                               for _, start, end, key, nf in groups)
+        return graphs
+
+    runner._graphs = timed_graphs
+    t0 = time.perf_counter()
+    replayed = eng.run(prog, mem)
+    graph_s = time.perf_counter() - t0
+    runner.graphs = False
+    t0 = time.perf_counter()
+    eager = eng.run(prog, mem)
+    eager_s = time.perf_counter() - t0
+    if not _engine_results_equal(([replayed[0]], [replayed[1]]),
+                                 ([eager[0]], [eager[1]])):
+        raise AssertionError("vector_engine: replayed graphs differ from "
+                             "the eager run")
+    capture = stat["s"] / stat["graphs"]
+    saved = (eager_s - (graph_s - stat["s"])) / stat["replays"]
+    return {"rows": len(prog), "graphs": stat["graphs"],
+            "replays": stat["replays"], "graph_s": graph_s,
+            "eager_s": eager_s, "capture_ms_per_graph": 1e3 * capture,
+            "saved_ms_per_replay": 1e3 * saved,
+            "break_even_repeats": capture / saved,
+            "min_repeats": staging.GRAPH_MIN_REPEATS}
+
+
+def phase_vector_engine(smi, device=DEV):
+    """Phase 13: the staged ReferenceEngine on the card (float64 storage
+    unless named): the grid in float32, float64 and int32; Listing-1 at
+    n = 64 bit-equal to the CPU run; Listing-1 at n = 256 on 16 lanes'
+    VLMAX against numpy, timed, with its scoreboard cycles; a batch mixing
+    Listing-1 and grid programs bit-equal to the CPU run; the demo's
+    masked argmax. Wall seconds on the host clock (each call ends in the
+    one copy of its results to the host)."""
+    results, timed = [], {}
+    for dtype in (torch.float32, torch.float64, torch.int32):
+        timed[f"grid_{str(dtype).replace('torch.', '')}"] = _engine_grid(
+            dtype, device, results)
+
+    cfg = AraConfig(lanes=4)
+    prog, mem, _ = _listing1(ENGINE_CHECK_N, cfg, 1)
+    t0 = time.perf_counter()
+    card = ReferenceEngine(cfg, device=device).run(prog, mem)
+    card_s = time.perf_counter() - t0
+    cpu = ReferenceEngine(cfg, device="cpu").run(prog, mem)
+    if not (_same_bits(card[0], cpu[0])
+            and _engine_results_equal(([card[0]], [card[1]]),
+                                      ([cpu[0]], [cpu[1]]))):
+        raise AssertionError("vector_engine Listing-1 n=64: the card's "
+                             "result differs from the CPU run's")
+    results.append({"name": f"listing1 n={ENGINE_CHECK_N} lanes=4",
+                    "bit_equal_to_cpu": True})
+    timed["listing1_64"] = {"rows": len(prog), "card_s": card_s,
+                            "rows_per_s": len(prog) / card_s}
+    timed["graph_break_even"] = _graph_break_even(cfg, prog, mem, device)
+
+    # one batch of three Listing-1 programs beside three grid programs:
+    # the rows the three share recur as groups of 3 (replayed graphs)
+    # while the grid programs run beside them
+    cfg = AraConfig(lanes=2)
+    batch = [_listing1(16, cfg, seed) for seed in range(3)]
+    refs = [b[2] for b in batch]
+    batch += [diff.random_program(np.random.RandomState(seed), sew, 2,
+                                  vlmax64=cfg.vlmax_dp)
+              for seed, sew in ((0, 32), (1, 16), (2, 64))]
+    progs, mems = [b[0] for b in batch], [b[1] for b in batch]
+    srs = [{0: 0.5}] * len(batch)
+    got = ReferenceEngine(cfg, device=device).run_many(progs, mems, srs)
+    if not _engine_results_equal(got, ReferenceEngine(
+            cfg, device="cpu").run_many(progs, mems, srs)):
+        raise AssertionError("vector_engine mixed batch: the card's results "
+                             "differ from the CPU run's")
+    for out, ref in zip(got[0], refs):
+        err = np.abs(out[2 * 256:].reshape(16, 16) - ref).max()
+        if not err <= ENGINE_REL * np.abs(ref).max():
+            raise AssertionError(f"vector_engine mixed batch: Listing-1 "
+                                 f"error {err:.3e}")
+    results.append({"name": "mixed batch: 3 x listing1 n=16, 3 grid programs",
+                    "bit_equal_to_cpu": True})
+
+    cfg = AraConfig(lanes=ENGINE_LANES)
+    n = ENGINE_N
+    prog, mem, ref = _listing1(n, cfg, 0)
+    t0 = time.perf_counter()
+    staging.pack_tables([staging.encode_program(prog, cfg.vlmax_dp)])
+    encode_s = time.perf_counter() - t0      # the host's share of the run
+    eng = ReferenceEngine(cfg, device=device)
+    t0 = time.perf_counter()
+    out, _ = eng.run(prog, mem)
+    wall = time.perf_counter() - t0
+    err = float(np.abs(out[2 * n * n:].reshape(n, n) - ref).max()
+                / np.abs(ref).max())
+    if not err <= ENGINE_REL:
+        raise AssertionError(f"vector_engine Listing-1 n={n}: error "
+                             f"{err:.3e} relative to max |A B + C| "
+                             f"exceeds {ENGINE_REL}")
+    tr = simulate_timing(prog, cfg)
+    results.append({"name": f"listing1 n={n} lanes={ENGINE_LANES}",
+                    "max_rel_err": err})
+    timed["listing1_256"] = {
+        "n": n, "lanes": ENGINE_LANES, "vlmax": cfg.vlmax_dp,
+        "rows": len(prog), "wall_s": wall, "rows_per_s": len(prog) / wall,
+        "encode_s": encode_s,
+        "max_rel_err": err, "scoreboard_cycles": tr.cycles,
+        "closed_form_cycles": pm.matmul_cycles(cfg, n),
+        "unit_busy": tr.unit_busy}
+
+    vl = 32
+    rng = np.random.RandomState(0)
+    vals = rng.randn(vl)
+    vals[vl // 3] = vals[2 * vl // 3] = vals.max() + 1.0   # tie
+    mem2 = np.zeros(4 * vl + 64)
+    mem2[:vl] = vals
+    mem2[vl:2 * vl] = np.arange(vl, dtype=float)
+    amax = [isa.VSETVL(vl, 32, 1), isa.VLD(4, 0)] \
+        + isa.argmax_program(4, vl, sd=0, huge_sreg=1)
+    _, s = ReferenceEngine(AraConfig(lanes=4), device=device).run(
+        amax, mem2, sregs={1: float(vl + 9)})
+    if int(s[0]) != int(np.argmax(vals)):
+        raise AssertionError(f"vector_engine argmax {int(s[0])} != "
+                             f"numpy's {int(np.argmax(vals))}")
+    results.append({"name": f"masked argmax vl={vl}", "argmax": int(s[0])})
+    emit("vector_engine", gpu=smi, n_checks=len(results), checks=results,
+         timed=timed)
+    return results, timed
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
@@ -1942,6 +2209,8 @@ def main():
     ssm = phase_ssm_kernel()
     free_memory()
     ssm_serving = run_ssm_serving()
+    free_memory()
+    phase_vector_engine(smi)
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,

@@ -6,9 +6,9 @@ cores run bf16/fp16 at twice the TF32 rate and int8 at twice the bf16 rate.
 This module is the single source for per-precision peaks (roofline
 denominators) and the cast policy used by models (params fp32 master,
 compute dtype configurable, fp32 accumulation — matching the kernels).
-The Ara-side arithmetic of the reference module (FLOP per cycle per lane,
-issue amortization) arrives with the vector engines and the performance
-model that use it.
+The Ara side reads ``ARA_FLOP_PER_CYCLE_PER_LANE``: the analytical model
+(``core/perfmodel.py``) and ``configs/ara.py`` take their per-precision
+peaks from it.
 """
 from __future__ import annotations
 
@@ -30,6 +30,12 @@ PEAKS_FLOPS = {
 }
 # Device memory rate of the same part (80 GB HBM3), bytes/s.
 PEAK_BYTES_PER_S = 3.35e12
+
+# Ara's per-precision peak (FLOP/cycle/lane), the paper's datapath split.
+# SINGLE SOURCE for the multi-precision speedup claim: AraConfig
+# .peak_flop_per_cycle, perfmodel's per-ew utilization, and the kernel
+# benchmarks' predicted speedups all consult this table.
+ARA_FLOP_PER_CYCLE_PER_LANE = {64: 2, 32: 4, 16: 8, 8: 16}
 
 # SEW (bits) <-> dtype name used by the vector engines. SEW=8 is the
 # integer lane (no FP8 format): int8 two's complement.

@@ -55,7 +55,14 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/train/trainer.py",
                  "src/repro_torch/data/pipeline.py",
                  "src/repro_torch/ft/elastic.py",
-                 "src/repro_torch/core/stripmine.py"):
+                 "src/repro_torch/core/stripmine.py",
+                 "src/repro_torch/configs/ara.py",
+                 "src/repro_torch/core/isa.py",
+                 "src/repro_torch/core/analysis.py",
+                 "src/repro_torch/core/perfmodel.py",
+                 "src/repro_torch/core/staging.py",
+                 "src/repro_torch/core/vector_engine.py",
+                 "src/repro_torch/testing/differential.py"):
         assert must in names
 
 
@@ -93,7 +100,8 @@ def test_importing_the_port_does_not_import_jax():
             "repro_torch.models.ssm, repro_torch.launch.train, "
             "repro_torch.train.trainer, repro_torch.train.step, "
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
-            "repro_torch.ft.elastic; "
+            "repro_torch.ft.elastic, repro_torch.core.vector_engine, "
+            "repro_torch.testing.differential; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))"
             % str(PKG.parent))
