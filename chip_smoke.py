@@ -8,7 +8,8 @@ Needs a CUDA device, ``nvcc`` and nothing else: it builds the kernels from
 at full width and full depth, trains it at full width and depth for a few
 steps, runs the paper's kernels and the scan kernel at their real shapes,
 serves zamba2-7b and xlstm-1.3b at full width, and runs the Ara vector
-engine on the differential grid and the paper's Listing-1 matmul. Without
+engine (one lane, lane-partitioned and clustered) on the differential grid
+and the paper's Listing-1 matmul. Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
 
@@ -121,6 +122,18 @@ non-zero and prints no result. Phases, one JSON line each:
                ``staging.GRAPH_MIN_REPEATS``). Prints wall
                seconds, rows/s and programs/s on the card, and the same
                grid's seconds on the host CPU.
+14. ``vector_engine_lanes`` the lane-partitioned ``LaneEngine`` (2 lanes)
+               and the ``ClusterEngine`` at (2,2), (2,4) and (4,2) on the
+               grid, 5 programs a cell, in float32, float64 and int32, each
+               bit-equal to the card's ReferenceEngine on the same batch and
+               to the same engine on the CPU (programs/s beside the
+               ReferenceEngine's); Listing-1 at n = 256 on 16 lanes in
+               float64 through a flat 16-lane LaneEngine and a 4 x 4
+               ClusterEngine, bit-equal to phase 13's ReferenceEngine
+               result (wall s, rows/s, encode s, cross-lane folds by unit);
+               the scoreboard at 1 and 4 clusters beside the closed form;
+               ``benchmarks/torch_scaleout.py``'s ``--verify`` at 2x2 and
+               4x2 on the card.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6 and 11 for the matmul kernels, of phase 7 and
@@ -171,7 +184,9 @@ from repro_torch.models.transformer import (forward, init_cache,  # noqa: E402
                                             lm_loss, model_template)
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
-from repro_torch.core.vector_engine import (ReferenceEngine,  # noqa: E402
+from repro_torch.core.cluster import ClusterEngine  # noqa: E402
+from repro_torch.core.vector_engine import (LaneEngine,  # noqa: E402
+                                            ReferenceEngine, make_lane_mesh,
                                             simulate_timing)
 from repro_torch.serving import (DegradeLadder, Request,  # noqa: E402
                                  ServingEngine, State)
@@ -2059,6 +2074,142 @@ def phase_vector_engine(smi, device=DEV):
     results.append({"name": f"masked argmax vl={vl}", "argmax": int(s[0])})
     emit("vector_engine", gpu=smi, n_checks=len(results), checks=results,
          timed=timed)
+    return results, timed, (prog, mem, out)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the lane-partitioned and clustered Ara engines (no CUDA kernel)
+# ---------------------------------------------------------------------------
+
+LANE_GRID_N = 5             # programs per SEW x LMUL cell: 105 a dtype
+LANE_TOPOLOGIES = (("lane", 2), ("cluster", 2, 2), ("cluster", 2, 4),
+                   ("cluster", 4, 2))
+LISTING_TOPOLOGIES = (("lane", 16), ("cluster", 4, 4))
+
+
+def _topology_name(t):
+    return f"lane{t[1]}" if t[0] == "lane" else f"cluster{t[1]}x{t[2]}"
+
+
+def _lane_engine(topology, cfg, dtype, device, **kw):
+    if topology[0] == "lane":
+        return LaneEngine(cfg, make_lane_mesh(topology[1]), dtype=dtype,
+                          device=device, **kw)
+    return ClusterEngine(cfg, topology[1], topology[2], dtype=dtype,
+                         device=device, **kw)
+
+
+def _lanes_grid(dtype, device, results):
+    """The grid (integer cells only for int32 storage), one batch a cell
+    through the card's ReferenceEngine and each topology on the card and
+    on the CPU: every result bit-equal to the ReferenceEngine's and to the
+    CPU run's. Card seconds per engine on the host clock."""
+    cfg = AraConfig(lanes=2)
+    win = diff.grid_window(diff.VLMAX64)
+    ref = ReferenceEngine(cfg, vlmax=diff.VLMAX64, dtype=dtype,
+                          cache=staging.TraceCache(), device=device)
+    engines = {_topology_name(t): tuple(
+        _lane_engine(t, cfg, dtype, dev, vlmax=diff.VLMAX64,
+                     cache=staging.TraceCache()) for dev in (device, "cpu"))
+        for t in LANE_TOPOLOGIES}
+    clock = dict.fromkeys(["ref", *engines], 0.0)
+    name, programs = str(dtype).replace("torch.", ""), 0
+    for sew, lmul, seeds in diff.cells(LANE_GRID_N):
+        if dtype == torch.int32 and sew not in isa.INT_SEWS:
+            continue
+        batch = [diff.random_program(np.random.RandomState(seed), sew, lmul)
+                 for seed in seeds]
+        args = [b[0] for b in batch], [b[1] for b in batch]
+        t0 = time.perf_counter()
+        want = ref.run_many(*args, [dict(b[2]) for b in batch], window=win)
+        clock["ref"] += time.perf_counter() - t0
+        for eng, (card, cpu) in engines.items():
+            t0 = time.perf_counter()
+            got = card.run_many(*args, [dict(b[2]) for b in batch],
+                                window=win)
+            clock[eng] += time.perf_counter() - t0
+            if not _engine_results_equal(got, want):
+                raise AssertionError(
+                    f"vector_engine_lanes grid {name} {eng} sew={sew} "
+                    f"lmul={lmul}: differs from the ReferenceEngine")
+            if not _engine_results_equal(got, cpu.run_many(
+                    *args, [dict(b[2]) for b in batch], window=win)):
+                raise AssertionError(
+                    f"vector_engine_lanes grid {name} {eng} sew={sew} "
+                    f"lmul={lmul}: the card differs from the CPU run")
+        programs += len(batch)
+    out = {"programs": programs,
+           "ref_programs_per_s": programs / clock["ref"]}
+    for eng, (card, _) in engines.items():
+        st = card.cache.stats
+        if st.compiles != 1:
+            raise AssertionError(f"vector_engine_lanes grid {name} {eng}: "
+                                 f"{st.compiles} runners, not one")
+        out[eng] = {"programs_per_s": programs / clock[eng],
+                    "vs_ref": clock["ref"] / clock[eng],
+                    "folds": dict(st.folds),
+                    "fold_stages": dict(st.fold_stages)}
+        results.append({"name": f"grid {name} {eng}", "programs": programs,
+                        "bit_equal_to_reference_and_cpu": True})
+    return out
+
+
+def _load_script(rel):
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(
+        "_" + os.path.basename(rel)[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_vector_engine_lanes(smi, listing, device=DEV):
+    """Phase 14: the LaneEngine and ClusterEngine on the card. ``listing``
+    is phase 13's (program, memory, ReferenceEngine result) of Listing-1
+    at n = 256 on 16 lanes' VLMAX, float64."""
+    results, timed = [], {}
+    for dtype in (torch.float32, torch.float64, torch.int32):
+        timed[f"grid_{str(dtype).replace('torch.', '')}"] = _lanes_grid(
+            dtype, device, results)
+
+    cfg, n = AraConfig(lanes=ENGINE_LANES), ENGINE_N
+    prog, mem, want = listing
+    for topology in LISTING_TOPOLOGIES:
+        eng = _lane_engine(topology, cfg, torch.float64, device,
+                           cache=staging.TraceCache())
+        t0 = time.perf_counter()
+        staging.pack_tables([staging.encode_program(prog, eng.vlmax64)])
+        encode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, _ = eng.run(prog, mem)
+        wall = time.perf_counter() - t0
+        name = _topology_name(topology)
+        if not _same_bits(out, want):
+            raise AssertionError(f"vector_engine_lanes Listing-1 n={n} "
+                                 f"{name}: differs from the ReferenceEngine")
+        st = eng.cache.stats
+        results.append({"name": f"listing1 n={n} {name}",
+                        "bit_equal_to_reference": True})
+        timed[f"listing1_256_{name}"] = {
+            "n": n, "lanes": eng.lanes, "vlmax": eng.vlmax, "rows": len(prog),
+            "wall_s": wall, "rows_per_s": len(prog) / wall,
+            "encode_s": encode_s, "folds": dict(st.folds),
+            "fold_stages": dict(st.fold_stages)}
+
+    timed["cycles_listing1_256"] = {
+        f"clusters_{c}": {"scoreboard": simulate_timing(
+            prog, cfg, clusters=c).cycles,
+            "closed_form": pm.matmul_cycles(cfg, n, clusters=c)}
+        for c in (1, 4)}
+
+    scaleout = _load_script("benchmarks/torch_scaleout.py")
+    timed["scaleout_verify"] = scaleout.run_verify([(2, 2), (4, 2)],
+                                                   device=device)
+    results.append({"name": "torch_scaleout --verify 2x2,4x2",
+                    "bit_exact": True})
+    emit("vector_engine_lanes", gpu=smi, n_checks=len(results),
+         checks=results, timed=timed)
     return results, timed
 
 
@@ -2210,7 +2361,8 @@ def main():
     free_memory()
     ssm_serving = run_ssm_serving()
     free_memory()
-    phase_vector_engine(smi)
+    _, _, listing = phase_vector_engine(smi)
+    phase_vector_engine_lanes(smi, listing)
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,

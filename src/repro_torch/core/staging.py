@@ -1,9 +1,9 @@
 """Staged engine runtime on PyTorch: encode once, run a batch of ISA programs.
 
-The port of the reference package's ``core/staging.py``, single device
-only. A program runs as a table of instruction rows; what the reference
-compiles into one XLA executable per shape *signature*, this module builds
-into one :class:`Runner` per signature:
+The port of the reference package's ``core/staging.py``. A program runs as
+a table of instruction rows; what the reference compiles into one XLA
+executable per shape *signature*, this module builds into one
+:class:`Runner` per signature:
 
 - :func:`resolve_vtype` — the host-side pre-pass. Walks a program once,
   legality-checks every instruction via ``isa.check_insn`` (both the engine
@@ -15,10 +15,10 @@ into one :class:`Runner` per signature:
   bucketed length. Copied from the reference, so both packages encode a
   program into the same table.
 - :class:`Signature` — the static shape key of an encoded batch (engine
-  kind, lanes, register slots, element window, padded memory words and
-  program length, batch, storage dtype, device).
+  kind, lanes, clusters, register slots, element window, padded memory
+  words and program length, batch, storage dtype, lane topology, device).
 - :class:`TraceCache` — an LRU of runners keyed by Signature, with
-  hit/miss/build counters.
+  hit/miss/build counters and the runners' cross-lane fold counts.
 - :func:`build_runner` — builds the runner for one signature. It keeps its
   index tensors on the signature's device and runs the rows in order; the
   opcode of each row is known on the host (the encoded table is numpy), so
@@ -27,6 +27,13 @@ into one :class:`Runner` per signature:
   programs as a few tensor operations. Where the reference ``vmap``s every
   branch and selects one, this runs only the branches the batch takes. No
   value comes back to the host inside the row loop.
+
+Lanes (the reference's ``shard_map`` over a lane mesh) are a leading
+dimension of the register file on one device: lane ``l`` holds elements
+``l, l + lanes, ...`` of every register group, memory and the scalar file
+are one copy per program, and every exchange across lanes goes through
+:meth:`Runner._fold`, the reference's ``psum``/``pmax`` (:class:`Mesh`
+describes the lane topology; it has no devices).
 
 Semantics are the reference's bit for bit (the tests hold the two packages
 to tol=0). Where torch lacks the reference's primitive, the docstrings of
@@ -220,10 +227,47 @@ def pack_tables(tables, pad_to=None):
 
 
 @dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A lane topology on one device: named axes and their sizes, in
+    nesting order (``("lanes",)`` for the flat LaneEngine, ``("clusters",
+    "lanes")`` for the ClusterEngine). It stands for the reference's
+    ``jax.sharding.Mesh`` where the reference reads one: ``shape[axis]``
+    and ``axis_names``. One card has no device per lane, so it holds no
+    devices."""
+    axis_names: tuple
+    sizes: tuple
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes) \
+                or len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"mesh axes {self.axis_names} and sizes "
+                             f"{self.sizes} do not pair up")
+        if any(int(n) < 1 for n in self.sizes):
+            raise ValueError(f"mesh sizes {self.sizes} must be >= 1")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def mesh_fingerprint(mesh, axes) -> tuple:
+    """The topology identity of a mesh: per-axis (name, size) pairs in
+    nesting order. The reference adds the device order, which one card
+    does not have (the device is part of :class:`Signature`). A flat
+    4-lane mesh, a 2x2 and a 4x1 clusters x lanes mesh give distinct
+    fingerprints, so the cache never replays one's runner for another."""
+    missing = [a for a in axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"axes {missing} are not in the mesh's "
+                         f"{tuple(mesh.axis_names)}")
+    return tuple((a, int(mesh.shape[a])) for a in axes)
+
+
+@dataclasses.dataclass(frozen=True)
 class Signature:
     """Static shape key of an encoded batch — everything a runner is built
     for. Programs differing only in opcodes/operands/vtype share one."""
-    kind: str            # "ref" (the lane and cluster kinds are not ported)
+    kind: str            # "ref" | "lane" | "cluster"
     lanes: int           # TOTAL lanes across all clusters
     slots: int           # per-lane element slots per vector register
     window: int          # global flat element window (>= the batch max vl)
@@ -231,7 +275,7 @@ class Signature:
     prog_len: int        # padded instruction rows
     batch: int
     storage: str         # canonical dtype name
-    mesh_key: tuple = ()  # mesh fingerprint; empty on one device
+    mesh_key: tuple = ()  # mesh_fingerprint(): axis names and sizes
     clusters: int = 1    # mesh nesting: lanes are grouped clusters-ways
     device: str = "cpu"  # where the runner keeps its tensors
 
@@ -241,12 +285,23 @@ class CacheStats:
     hits: int = 0
     misses: int = 0
     compiles: int = 0    # runners built
+    # cross-lane folds the runners made, by unit: "vlsu" (the stores),
+    # "sldu" (slide, extract, reductions), "vxsat" (the sticky flag); and
+    # the reductions over a mesh axis they took: one per fold over
+    # "lanes", a second over "clusters" for the ClusterEngine
+    folds: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    fold_stages: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
 
     def snapshot(self) -> "CacheStats":
-        return dataclasses.replace(self)
+        return dataclasses.replace(self, folds=self.folds.copy(),
+                                   fold_stages=self.fold_stages.copy())
 
     def reset(self):
         self.hits = self.misses = self.compiles = 0
+        self.folds.clear()
+        self.fold_stages.clear()
 
 
 class TraceCache:
@@ -519,14 +574,15 @@ def _drain(device):
 
 class _Call:
     """One runner call's state on the device, every tensor indexed flat
-    (``take`` / ``index_put_``): the register file (batch, 33, slots),
-    memory (batch, words), scalars (batch, 32), and the table (P, F + 4,
-    batch): per row, the batch sorted by group, its :data:`DATA` columns,
-    batch index and offsets (``P_IDX``, ``PV``, ``PM``, ``PS``)."""
+    (``take`` / ``index_put_``): the register file (batch, lanes, 33,
+    slots), memory (batch, words), scalars (batch, 32), and the table (P,
+    F + 4, batch): per row, the batch sorted by group, its :data:`DATA`
+    columns, batch index and offsets (``P_IDX``, ``PV``, ``PM``, ``PS``);
+    and the call's cross-lane folds by unit and by mesh axis."""
 
     def __init__(self, run, mems, svecs, sizes, order, rows):
         perm = order.T                                   # (P, batch)
-        vstride = (NREGS + 1) * run.sig.slots
+        vstride = run.lanes * (NREGS + 1) * run.sig.slots
         cols = [np.take_along_axis(rows[f], order, axis=0).T for f in DATA]
         cols += [perm, perm * vstride, perm * mems.shape[1],
                  perm * svecs.shape[1]]
@@ -534,9 +590,11 @@ class _Call:
                                              dtype=np.int64)
         self.table = torch.from_numpy(self.table_np).to(run.device)
         self.sizes = sizes
-        self.state(torch.zeros((mems.shape[0], NREGS + 1, run.sig.slots),
-                               dtype=run.dtype, device=run.device),
-                   mems, svecs)
+        self.folds = collections.Counter()     # by unit
+        self.stages = collections.Counter()    # by mesh axis
+        self.state(torch.zeros(
+            (mems.shape[0], run.lanes, NREGS + 1, run.sig.slots),
+            dtype=run.dtype, device=run.device), mems, svecs)
 
     def state(self, v, mem, s):
         self.v, self.vf = v, v.view(-1)
@@ -546,6 +604,8 @@ class _Call:
     def scratch(self) -> "_Call":
         """The same call on zeroed copies of the state (graph warm-up)."""
         other = copy.copy(self)
+        other.folds = collections.Counter()
+        other.stages = collections.Counter()
         other.state(torch.zeros_like(self.v), torch.zeros_like(self.mem),
                     torch.zeros_like(self.s))
         return other
@@ -558,7 +618,7 @@ class _Group:
     the row decoded from the group ``key``."""
 
     __slots__ = ("c", "f", "sewi", "wsewi", "sew", "wsew", "vm", "vpr",
-                 "rtab", "wtab", "sink", "nf", "e", "_mask", "_act", "_pv")
+                 "rtab", "wtab", "sink", "nf", "ids", "_mask", "_act", "_pv")
 
     def __init__(self, run, c, f, key, nf):
         self.c, self.f, self.nf = c, f, nf
@@ -566,7 +626,7 @@ class _Group:
         self.sew, self.wsew = isa.SEWS[self.sewi], isa.SEWS[self.wsewi]
         self.vm, self.vpr = (key >> 10) & 1, key >> 11
         self.rtab, self.wtab, self.sink = run._layout(self.vpr)
-        self.e = run.e
+        self.ids = run.ids
         self._mask = self._act = self._pv = None
 
     @property
@@ -598,9 +658,9 @@ class _Group:
 
     @property
     def mask(self):
-        """Body elements (index < vl), (G, window)."""
+        """Body elements (global element id < vl), (G, window)."""
         if self._mask is None:
-            self._mask = self.e < self.f[VL].unsqueeze(1)
+            self._mask = self.ids < self.f[VL].unsqueeze(1)
         return self._mask
 
 
@@ -613,9 +673,16 @@ class Runner:
     int64 true memory words; ``rows`` the packed numpy table of
     :func:`pack_tables`.
 
-    Register file (batch, 33, slots): element ``m`` of the group based at
-    ``r`` lives at register ``r + m // vpr``, slot ``m % vpr`` (the
-    reference's layout with one lane). Row 32 is a sink reached only by
+    Register file (batch, lanes, 33, slots), the reference's per-lane
+    layout with the lane axis a leading dimension: lane ``l``'s local slot
+    ``p`` of a group's window holds global element ``l + p * lanes``, at
+    register ``r + p // spr``, slot ``p % spr`` (``spr = vpr // lanes``
+    elements of a register per lane; one lane is the reference engine's
+    identity layout). A group's window is read lane-major, lane ``l``'s
+    ``window / lanes`` elements at positions ``l * window / lanes + p``,
+    so a lane-local row (arithmetic, compares, logicals, VMERGE, loads,
+    VINS) runs over the lanes as over more elements, each element under
+    its global id (``ids``). Row 32 of each lane is a sink reached only by
     the writes the reference drops (outside the body, inactive, masked
     off), so every ``index_put_`` has distinct live indices and stays
     deterministic. The layout of a group's window is a table per register
@@ -624,22 +691,36 @@ class Runner:
     ``take`` / ``index_put_``. Integer storage runs on exact int64 tensors
     and wraps where the reference's int32 trace wraps; the result converts
     back to int32 at the engine's boundary.
+
+    With more than one lane, the rows the reference reconciles across its
+    mesh (the stores, VSUXEI, VEXT, VSLIDE, the reductions, the sticky
+    vxsat) exchange through :meth:`_fold` alone: each lane fills a buffer
+    of its own, as each of the reference's devices does, and the buffers
+    reduce over the lane dimension. With one lane nothing is exchanged
+    and those rows keep their direct forms.
     """
 
     def __init__(self, sig: Signature, stats: CacheStats):
-        if sig.kind != "ref" or sig.lanes != 1 or sig.clusters != 1:
-            raise NotImplementedError(
+        if sig.kind not in ("ref", "lane", "cluster") or sig.lanes < 1 \
+                or sig.clusters < 1 or sig.lanes % sig.clusters \
+                or (sig.kind == "ref" and sig.lanes != 1):
+            raise ValueError(
                 f"no runner for {sig.kind!r} with {sig.lanes} lanes in "
-                f"{sig.clusters} clusters: only the single-device "
-                "reference engine is ported (lanes and clusters are "
-                "ROADMAP Queue A12)")
+                f"{sig.clusters} clusters")
+        if sig.window % sig.lanes:
+            raise ValueError(f"window {sig.window} is not a multiple of "
+                             f"{sig.lanes} lanes")
         storage = torch_dtype(sig.storage)
         if storage not in _STORAGES:
             raise ValueError(f"storage {sig.storage!r} not supported; "
                              f"use one of {[str(d) for d in _STORAGES]}")
         stats.compiles += 1
-        self.sig = sig
+        self.sig, self.stats = sig, stats
         self.device = torch.device(sig.device)
+        self.lanes, self.clusters = sig.lanes, sig.clusters
+        # the ClusterEngine folds over its (clusters, lanes) mesh in two
+        # stages, whatever its shape (a 1x4 grid too)
+        self.staged = sig.kind == "cluster"
         self.int_storage = not storage.is_floating_point
         self.dtype = torch.int64 if self.int_storage else storage
         # largest int32 the storage represents exactly: f32's 24-bit
@@ -652,6 +733,10 @@ class Runner:
         self.words = sig.mem_words
         self.red_p = 1 << max(sig.window - 1, 0).bit_length()
         self.e = torch.arange(sig.window, device=self.device)
+        # global element id at each position of a lane-major window
+        wl = sig.window // sig.lanes
+        self.ids = self.e if sig.lanes == 1 \
+            else self.e % wl * sig.lanes + self.e // wl
         self._layouts = {}
         self.graphs = self.device.type == "cuda"   # replay recurring rows
 
@@ -740,8 +825,12 @@ class Runner:
             else:
                 replay[0].copy_(c.table[r, :, start:end])
                 replay[1].replay()
+                c.folds.update(replay[2])
+                c.stages.update(replay[3])
         if graphs:
             _drain(self.device)      # the graphs go with this frame
+        self.stats.folds.update(c.folds)
+        self.stats.fold_stages.update(c.stages)
         return mems, svecs
 
     def _graphs(self, c, groups):
@@ -750,7 +839,7 @@ class Runner:
         captured once before the row loop on a static copy of its table
         columns, after a warm-up run on scratch state. A replay runs the
         same kernels on the same data as the eager branch, so the results
-        are the same bits."""
+        are the same bits; each replay counts the folds its capture made."""
         counts = collections.Counter((key, end - start, nf)
                                      for _, start, end, key, nf in groups)
         sample = {}
@@ -760,27 +849,34 @@ class Runner:
                 sample[shape] = c.table[r, :, start:end]
         graphs = {}
         scratch = c.scratch() if sample else None
+        folds, stages = c.folds, c.stages
         for (key, n, nf), cols in sample.items():
             branch = self._branches[key & 63]
             static = cols.clone()
             branch(_Group(self, scratch, cols.clone(), key, nf))
-            graphs[(key, n, nf)] = (static, _capture(
-                lambda b=branch, f=static, k=key, m=nf:
-                b(_Group(self, c, f, k, m))))
+            c.folds, c.stages = collections.Counter(), collections.Counter()
+            graph = _capture(lambda b=branch, f=static, k=key, m=nf:
+                             b(_Group(self, c, f, k, m)))
+            graphs[(key, n, nf)] = (static, graph, c.folds, c.stages)
+        c.folds, c.stages = folds, stages
         return graphs
 
     def _layout(self, vpr: int):
-        """Flat register-file offsets of a window at ``vpr`` elements per
-        register, per base register (NREGS, window): for reads, clamped to
-        v31 as the reference clamps (those elements lie past the group and
-        are never used); for writes, clamped to the sink row; and the sink
-        itself. Built once per capacity."""
+        """Flat register-file offsets of a lane-major window at ``vpr``
+        elements per register, per base register (NREGS, window): for
+        reads, clamped to v31 as the reference clamps (those elements lie
+        past the group and are never used); for writes, clamped to the
+        lane's sink row; and the sink itself. Built once per capacity."""
         lay = self._layouts.get(vpr)
         if lay is None:
-            slots = self.sig.slots
-            reg = torch.arange(NREGS, device=self.device)[:, None] \
-                + self.e // vpr
-            slot = self.e % vpr
+            slots, lanes = self.sig.slots, self.lanes
+            spr = max(vpr // lanes, 1)       # a register's slots per lane
+            p, slot = self.e, self.e % spr   # the lane's local slot
+            if lanes > 1:
+                wl = self.window // lanes
+                p = self.e % wl
+                slot = p % spr + (self.e // wl) * ((NREGS + 1) * slots)
+            reg = torch.arange(NREGS, device=self.device)[:, None] + p // spr
             lay = self._layouts[vpr] = (
                 reg.clamp(max=NREGS - 1) * slots + slot,
                 reg.clamp(max=SINK) * slots + slot, SINK * slots + slot)
@@ -860,10 +956,54 @@ class Runner:
 
     # -- memory ---------------------------------------------------------------
 
+    # -- exchanges across lanes -----------------------------------------------
+
+    def _fold(self, g, unit, x, reduce="sum"):
+        """The reference's ``allsum`` / ``allmax``: ``x`` (G, lanes, ...)
+        reduced over its lane dimension — for the ClusterEngine within each
+        cluster first, then across clusters, as the reference's nested
+        ``psum``/``pmax``. Every fold is exact: at each position one lane
+        holds the live value and the others the identity (a -0.0 comes
+        out +0.0, as from the reference's ``psum``). Counted by ``unit``
+        and by mesh axis in the runner's stats."""
+        g.c.folds[unit] += 1
+        g.c.stages["lanes"] += 1
+        red = torch.sum if reduce == "sum" else torch.amax
+        if self.staged:
+            g.c.stages["clusters"] += 1
+            x = red(x.unflatten(1, (self.clusters, -1)), 2)
+        return red(x, 1)
+
+    def _scatter(self, g, unit, n, idx, vals, fill=0, reduce="sum"):
+        """The reference's ``all<reduce>(full(n, fill).at[idx].<reduce>(
+        vals))`` for a lane-major window ``idx``, ``vals`` (G, window):
+        each lane scatters its elements into a buffer of ``n`` of its own
+        (``reduce`` "sum", "amax", or "set" at indices distinct within a
+        lane) and the buffers fold over the lanes (:meth:`_fold`); with
+        one lane, the one buffer (G, n)."""
+        batch, lanes = idx.shape[0], self.lanes
+        shape = (batch, n) if lanes == 1 else (batch, lanes, n)
+        buf = torch.full(shape, fill, dtype=vals.dtype, device=self.device)
+        if lanes > 1:
+            idx, vals = idx.view(batch, lanes, -1), vals.view(batch, lanes, -1)
+        dim = len(shape) - 1
+        if reduce == "sum":
+            buf.scatter_add_(dim, idx, vals)
+        elif reduce == "amax":
+            buf.scatter_reduce_(dim, idx, vals, "amax")
+        else:
+            buf.scatter_(dim, idx, vals)
+        if lanes == 1:
+            return buf
+        return self._fold(g, unit, buf, "amax" if reduce == "amax" else "sum")
+
+    # -- memory ---------------------------------------------------------------
+
     def _mstore(self, g, gidx, vals, ok):
-        """VLSU collect, in the reference's form: scatter-add the valid
-        contributions onto zeros, count writers per address, and take the
-        sum where an address has a writer. Dead lanes add a zero at index 0.
+        """VLSU collect, in the reference's form: each lane scatter-adds
+        its valid contributions onto zeros and counts its writers per
+        address, the sums and counts fold over the lanes, and an address
+        with a writer takes the sum. Dead elements add a zero at index 0.
         On CUDA ``scatter_add_`` is atomic and its order unspecified; the
         sum is exact all the same, because every address has at most one
         live writer besides those zeros (x + 0 = x, and a -0.0 writer
@@ -873,11 +1013,9 @@ class Runner:
         words = self.words
         gi = torch.where(ok, gidx, 0)
         gi = torch.where(gi < -words, words, gi.remainder(words))
-        shape = (gi.shape[0], words + 1)
-        upd = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        upd.scatter_add_(1, gi, torch.where(ok, vals, self.zero))
-        cnt = torch.zeros(shape, dtype=torch.int32, device=self.device)
-        cnt.scatter_add_(1, gi, ok.to(torch.int32))
+        upd = self._scatter(g, "vlsu", words + 1, gi,
+                            torch.where(ok, vals, self.zero))
+        cnt = self._scatter(g, "vlsu", words + 1, gi, ok.to(torch.int32))
         p = g.p
         g.c.mem.index_copy_(0, p, torch.where(
             cnt[:, :words] > 0, upd[:, :words], g.c.mem.index_select(0, p)))
@@ -886,12 +1024,12 @@ class Runner:
     # write drops them, as it drops the reference's reads of address 0
 
     def _vld(self, g):
-        idx = g.f[IMM].unsqueeze(1) + self.e
+        idx = g.f[IMM].unsqueeze(1) + self.ids
         act = self._act(g)
         self._W(g, g.f[RD], self._q(self._load(g, idx), g.sew), act)
 
     def _vlds(self, g):
-        idx = g.f[IMM].unsqueeze(1) + g.f[AUX].unsqueeze(1) * self.e
+        idx = g.f[IMM].unsqueeze(1) + g.f[AUX].unsqueeze(1) * self.ids
         act = self._act(g)
         self._W(g, g.f[RD], self._q(self._load(g, idx), g.sew), act)
 
@@ -908,14 +1046,14 @@ class Runner:
 
     def _vlseg(self, g):
         nf = g.f[AUX].unsqueeze(1)
-        base = g.f[IMM].unsqueeze(1) + nf * self.e
+        base = g.f[IMM].unsqueeze(1) + nf * self.ids
         for f in range(g.nf):
             self._W(g, g.f[RD] + f * g.f[LMUL],
                     self._q(self._load(g, base + f), g.sew),
                     g.mask & (f < nf))
 
     def _vst(self, g):
-        gi = g.f[IMM].unsqueeze(1) + self.e
+        gi = g.f[IMM].unsqueeze(1) + self.ids
         self._mstore(g, gi, self._R(g, g.f[RD]),
                      self._act(g) & (gi < g.size))
 
@@ -923,22 +1061,22 @@ class Runner:
         nf = g.f[AUX].unsqueeze(1)
         size = g.size
         for f in range(g.nf):
-            gi = g.f[IMM].unsqueeze(1) + f + nf * self.e
+            gi = g.f[IMM].unsqueeze(1) + f + nf * self.ids
             ok = g.mask & (f < nf) & (gi < size)
             self._mstore(g, gi, self._R(g, g.f[RD] + f * g.f[LMUL]), ok)
 
     def _vsuxei(self, g):
         # highest element wins: each address's winning element id by a
-        # max-scatter, then only the winner contributes
+        # max-scatter folded over the lanes, then only the winner
+        # contributes
         act = self._act(g)
         gi = self._indexed(g)
-        shape = (gi.shape[0], self.words)
-        order = torch.full(shape, -1, dtype=torch.int64, device=self.device)
-        order.scatter_reduce_(1, gi, torch.where(act, self.e, -1), "amax")
-        win = act & (order.gather(1, gi) == self.e)
-        contrib = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        contrib.scatter_add_(1, torch.where(win, gi, 0), torch.where(
-            win, self._R(g, g.f[RD]), self.zero))
+        order = self._scatter(g, "vlsu", self.words, gi,
+                              torch.where(act, self.ids, -1), -1, "amax")
+        win = act & (order.gather(1, gi) == self.ids)
+        contrib = self._scatter(g, "vlsu", self.words,
+                                torch.where(win, gi, 0), torch.where(
+                                    win, self._R(g, g.f[RD]), self.zero))
         p = g.p
         g.c.mem.index_copy_(0, p, torch.where(
             order >= 0, contrib, g.c.mem.index_select(0, p)))
@@ -980,7 +1118,12 @@ class Runner:
                                  self._to_int(self._R(g, g.f[RB])), g.sew)
             self._W(g, g.f[RD], res, act)
             if sticky:
-                flag = (act & sat).any(1).to(self.dtype)
+                if self.lanes == 1:
+                    flag = (act & sat).any(1).to(self.dtype)
+                else:
+                    flag = self._fold(g, "vxsat", (act & sat).view(
+                        sat.shape[0], self.lanes, -1).any(2).to(self.dtype),
+                        "amax")
                 idx = g.ps + isa.VXSAT_SREG
                 g.c.sf.index_put_(
                     (idx,), torch.maximum(g.c.sf.take(idx), flag))
@@ -996,6 +1139,13 @@ class Runner:
         # the reference sums the one hit element with zeros: an extract of
         # -0.0 reads +0.0, so does this (+ 0); at-or-past vl it reads 0
         aux = g.f[AUX]
+        if self.lanes > 1:
+            hit = g.mask & (self.ids == aux.unsqueeze(1))
+            val = torch.where(hit, self._R(g, g.f[RA]), self.zero)
+            val = self._fold(g, "sldu", val.view(
+                val.shape[0], self.lanes, -1).sum(2))
+            g.c.sf.index_put_((g.ps + g.f[SD],), val)
+            return
         ok = (aux >= 0) & (aux < g.f[VL])
         reg = (g.f[RA] + aux.div(g.vpr, rounding_mode="floor")).clamp_(
             0, NREGS - 1)
@@ -1005,10 +1155,16 @@ class Runner:
                           torch.where(ok, val, self.zero) + 0)
 
     def _vslide(self, g):
-        # tail-undisturbed (Ara2/RVV 1.0): body elements whose source would
-        # come from at-or-past vl are NOT written
+        # SLDU: the group materialised globally (each lane places its
+        # elements at their global ids, folded over the lanes), then the
+        # gather at i + amount. Tail-undisturbed (Ara2/RVV 1.0): body
+        # elements whose source would come from at-or-past vl are NOT
+        # written
         src = torch.where(g.mask, self._R(g, g.f[RA]), self.zero)
-        shifted = self.e + g.f[AUX].unsqueeze(1)
+        if self.lanes > 1:
+            src = self._scatter(g, "sldu", self.window,
+                                self.ids.expand_as(src), src, reduce="set")
+        shifted = self.ids + g.f[AUX].unsqueeze(1)
         tgt = shifted.clamp(0, self.window - 1)
         self._W(g, g.f[RD], src.gather(1, tgt),
                 g.mask & (shifted < g.f[VL].unsqueeze(1)))
@@ -1041,11 +1197,13 @@ class Runner:
         self._W(g, g.f[RD], vals, g.mask)
 
     def _red(self, kind, wide=False):
-        # classless tree reduction: the ACTIVE body in place, the rest and
-        # the pow2 padding the op identity, folded in halves (lo op hi):
-        # the summation order is the contract the oracle's _tree_reduce
-        # mirrors. With one lane, the reference's scatter of the body into
-        # the window is the identity placement, so a select stands for it
+        # classless tree reduction: the ACTIVE body at its global ids, the
+        # rest and the pow2 padding the op identity, folded in halves (lo
+        # op hi): the summation order is the contract the oracle's
+        # _tree_reduce mirrors. With lanes, each lane places its active
+        # elements and counts them, folded over the lanes as the
+        # reference's two psums; with one lane the placement is the
+        # identity, so a select stands for it
         if kind == "sum":
             comb = torch.add
         elif self.int_storage:
@@ -1056,8 +1214,17 @@ class Runner:
         def op(g):
             ident = {"sum": self.zero, "max": self.max_ident[g.sewi],
                      "min": self.min_ident[g.sewi]}[kind]
-            vec = torch.where(self._act(g), self._R(g, g.f[RA]), ident)
-            if self.red_p > self.window:
+            act = self._act(g)
+            if self.lanes > 1:
+                idx = self.ids.expand_as(act)
+                vec = self._scatter(g, "sldu", self.red_p, idx, torch.where(
+                    act, self._R(g, g.f[RA]), self.zero), reduce="set")
+                cnt = self._scatter(g, "sldu", self.red_p, idx,
+                                    act.to(torch.int32), reduce="set")
+                vec = torch.where(cnt > 0, vec, ident)
+            else:
+                vec = torch.where(act, self._R(g, g.f[RA]), ident)
+            if vec.shape[1] < self.red_p:
                 vec = torch.cat([vec, ident.expand(
                     vec.shape[0], self.red_p - self.window)], 1)
             n = self.red_p
@@ -1074,14 +1241,41 @@ class Runner:
 
 def build_runner(sig: Signature, stats: CacheStats, mesh=None,
                  axis: str = None, axes: tuple = None) -> Runner:
-    """Build the one :class:`Runner` for ``sig`` (single device).
+    """Build the one :class:`Runner` for ``sig``.
 
-    The reference's ``mesh``/``axis``/``axes`` select its lane-sharded and
-    clustered executables; those engines are not ported (ROADMAP Queue
-    A12), and passing any of them raises ``NotImplementedError``."""
+    The runner's topology is the signature's: ``kind`` "ref" (one lane),
+    "lane" (``sig.lanes`` lanes, one fold over them) or "cluster" (the
+    lanes in ``sig.clusters`` clusters, folded within a cluster, then
+    across). ``mesh`` (a :class:`Mesh`), ``axis`` (the LaneEngine's lane
+    axis) and ``axes`` (the ClusterEngine's (clusters, lanes) pair) name
+    it as the reference's arguments do; given, they must agree with the
+    signature, else ``ValueError`` (an axis the mesh lacks included). A
+    mesh given alone names its axes itself; an axis or axes alone stand
+    for a mesh of the signature's sizes."""
     if mesh is not None or axis is not None or axes is not None:
-        raise NotImplementedError(
-            "build_runner: mesh/axis/axes select the lane- and "
-            "cluster-sharded engines, which are not ported (ROADMAP Queue "
-            "A12, lanes and clusters); only mesh=None runs")
+        if axis is not None and axes is not None:
+            raise ValueError("build_runner: give axis (lanes) or axes "
+                             "(clusters, lanes), not both")
+        if axes is not None:
+            names = tuple(axes)
+        elif axis is not None:
+            names = (axis,)
+        else:
+            names = tuple(mesh.axis_names)
+        if len(names) not in (1, 2):
+            raise ValueError(f"build_runner: a lane mesh has one or two "
+                             f"axes, not {names}")
+        if mesh is None:
+            sizes = (sig.lanes,) if len(names) == 1 \
+                else (sig.clusters, sig.lanes // sig.clusters)
+            mesh = Mesh(names, sizes)
+        key = mesh_fingerprint(mesh, names)
+        sizes = [n for _, n in key]
+        want = ("lane", sizes[0], 1) if len(names) == 1 \
+            else ("cluster", sizes[0] * sizes[1], sizes[0])
+        if (sig.kind, sig.lanes, sig.clusters) != want:
+            raise ValueError(
+                f"build_runner: mesh axes {key} do not describe a "
+                f"{sig.kind!r} signature of {sig.lanes} lanes in "
+                f"{sig.clusters} clusters")
     return Runner(sig, stats)

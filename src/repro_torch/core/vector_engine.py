@@ -1,9 +1,9 @@
-"""Ara vector engine on PyTorch: single-device execution of core/isa.py
-programs, and the scoreboard.
+"""Ara vector engine on PyTorch: lane-parallel execution of core/isa.py
+programs on one device, and the scoreboard.
 
 The port of the reference package's ``core/vector_engine.py``:
 
-- ``ReferenceEngine`` — the single-device engine, a *staged interpreter*
+- ``ReferenceEngine`` — the one-lane engine, a *staged interpreter*
   over ``core.staging``: a program is encoded once on the host into a
   structure-of-arrays instruction table (legality checked in the same
   pre-pass), and one runner per shape signature — cached in the LRU
@@ -13,14 +13,22 @@ The port of the reference package's ``core/vector_engine.py``:
   ``ReferenceEngine`` bit for bit (float32, float64, int32 storage) where
   no float operand or result is subnormal: XLA:CPU flushes those to zero,
   the port keeps IEEE's gradual underflow, as the numpy oracle does.
+- ``LaneEngine`` — the same semantics with the vector registers
+  partitioned over ``lanes`` (the paper's element-partitioned VRF,
+  §III-E2): element ``i`` of a register lives on lane ``i % lanes``.
+  Where the reference shards the lanes over a device mesh, one card
+  holds them as a leading dimension of the register file. Arithmetic is
+  lane-local; VSLIDE/VEXT and the reductions reconcile over the lanes
+  (the SLDU), VST and the indexed/segment stores over memory (the VLSU)
+  — the only all-lane units, exactly the paper's scalability argument.
+  The runner counts those folds by unit (``cache.stats.folds``). The
+  clustered ``ClusterEngine`` is in ``core/cluster.py``.
 - ``simulate_timing`` — the event-driven scoreboard (issue interval,
   per-unit occupancy, chaining lag), pure host code copied from the
   reference; it cross-validates the closed-form ``core/perfmodel.py``.
 
 The engine runs on the card unless the caller asks for the CPU
-(``device="cpu"``); it never moves work to the CPU on its own. The
-lane-sharded ``LaneEngine`` and the clustered ``ClusterEngine`` are not
-ported (ROADMAP Queue A12).
+(``device="cpu"``); it never moves work to the CPU on its own.
 
 Multi-precision (§III-E4): the engine honors VSETVL's SEW. Registers are
 fixed-size byte slices, so VLMAX scales by 64/SEW; every arithmetic result
@@ -179,6 +187,42 @@ class ReferenceEngine(_StagedEngine):
     """Single-device staged engine (the lanes=1 degenerate layout)."""
 
     kind = "ref"
+
+
+def make_lane_mesh(lanes: int, axis: str = "lanes") -> staging.Mesh:
+    """The flat lane topology of a ``LaneEngine``: one axis of ``lanes``
+    (the reference builds a device mesh; one card has no device per
+    lane)."""
+    return staging.Mesh((axis,), (int(lanes),))
+
+
+class LaneEngine(_StagedEngine):
+    """Same semantics, vector registers partitioned over lanes.
+
+    Local layout: lane ``l`` holds elements l, l+lanes, l+2*lanes, ...
+    (interleaved, barber's-pole equivalent), preserved across register
+    groups. Memory and the scalar file are one copy per program (the
+    reference replicates them on every device and keeps the copies equal
+    through its folds); stores reconcile through the runner's lane folds,
+    making the VLSU the single all-lane unit. ``mesh`` is a
+    :class:`staging.Mesh` (``make_lane_mesh``) naming ``axis``.
+    """
+
+    kind = "lane"
+
+    def __init__(self, cfg: AraConfig, mesh, axis: str = "lanes",
+                 vlmax: Optional[int] = None, dtype=torch.float32,
+                 cache: Optional[staging.TraceCache] = None,
+                 lint: bool = False, device=None):
+        self.mesh = mesh
+        self.axis = axis
+        # topology identity (axis names, sizes): a flat 4-lane mesh never
+        # shares a runner with another topology of 4 lanes (a 2x2 grid)
+        self.mesh_key = staging.mesh_fingerprint(mesh, (axis,))
+        self.lanes = int(mesh.shape[axis])
+        vlmax = vlmax or cfg.vlmax_dp
+        super().__init__(cfg, (vlmax // self.lanes) * self.lanes,
+                         dtype=dtype, cache=cache, lint=lint, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,3 @@
-"""Test support shipped with the port: the differential harness (a copy of
-the reference package's, pinned to it by a test)."""
+"""Test support shipped with the port: the differential harness and the
+fault-injection audit (copies of the reference package's, pinned to them by
+a test)."""

@@ -101,7 +101,8 @@ def _cell_batch(d, sew, lmul, seeds):
 # ---------------------------------------------------------------------------
 
 COPIES = ("configs/ara.py", "core/isa.py", "core/analysis.py",
-          "core/perfmodel.py", "testing/differential.py")
+          "core/perfmodel.py", "testing/differential.py",
+          "testing/faults.py")
 
 
 def _as_port(text):
@@ -827,16 +828,41 @@ def test_vxsat_does_not_leak_across_batched_programs():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"axis": "lanes"},
-                                {"axes": ("clusters", "lanes")}])
-def test_mesh_arguments_raise_not_implemented(kw):
-    sig = _engine().signature(window=8, mem_words=64, prog_len=8, batch=1)
-    with pytest.raises(NotImplementedError, match="A12"):
-        staging.build_runner(sig, staging.CacheStats(), **kw)
-    with pytest.raises(NotImplementedError, match="A12"):
-        staging.build_runner(staging.Signature(
-            kind="lane", lanes=4, slots=16, window=8, mem_words=64,
-            prog_len=8, batch=1, storage="float32"), staging.CacheStats())
+@pytest.mark.parametrize("kw", ["mesh", "axis", "axes"])
+def test_mesh_arguments_build_lane_and_cluster_runners(kw):
+    """``mesh``/``axis``/``axes`` name the lane topology of a "lane" or
+    "cluster" signature and build its runner (``tests/test_torch_lanes.py``
+    holds those runners to this engine bit for bit); an axis the mesh
+    lacks raises ``ValueError``, and so does a lane mesh for the one-lane
+    signature."""
+    from repro_torch.core.cluster import CLUSTER_AXES, make_cluster_mesh
+    from repro_torch.core.vector_engine import make_lane_mesh
+    flat = staging.Signature(kind="lane", lanes=4, slots=16, window=8,
+                             mem_words=64, prog_len=8, batch=1,
+                             storage="float32", mesh_key=(("lanes", 4),))
+    grid = staging.Signature(kind="cluster", lanes=4, slots=16, window=8,
+                             mem_words=64, prog_len=8, batch=1,
+                             storage="float32", clusters=2,
+                             mesh_key=(("clusters", 2), ("lanes", 2)))
+    sig, given, missing = {
+        "mesh": (flat, {"mesh": make_lane_mesh(4)},
+                 {"mesh": make_lane_mesh(4), "axis": "x"}),
+        "axis": (flat, {"axis": "lanes"},
+                 {"mesh": make_lane_mesh(4, axis="x"), "axis": "lanes"}),
+        "axes": (grid, {"axes": CLUSTER_AXES},
+                 {"mesh": make_cluster_mesh(2, 2), "axes": ("c", "lanes")}),
+    }[kw]
+    stats = staging.CacheStats()
+    runner = staging.build_runner(sig, stats, **given)
+    assert (runner.lanes, runner.clusters, stats.compiles) \
+        == (4, sig.clusters, 1)
+    assert runner.staged == (kw == "axes")
+    with pytest.raises(ValueError, match="not in the mesh"):
+        staging.build_runner(sig, stats, **missing)
+    ref = _engine().signature(window=8, mem_words=64, prog_len=8, batch=1)
+    with pytest.raises(ValueError):
+        staging.build_runner(ref, stats, **given)
+    assert stats.compiles == 1
 
 
 def test_the_default_device_is_the_card():

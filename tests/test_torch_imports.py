@@ -14,7 +14,10 @@ torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the port's scripts beside the reference's: benchmarks, tools, examples
+SCRIPTS = sorted(p for d in ("benchmarks", "tools", "examples")
+                 for p in (REPO / d).glob("torch_*.py"))
+FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
 
 
@@ -62,7 +65,16 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/core/perfmodel.py",
                  "src/repro_torch/core/staging.py",
                  "src/repro_torch/core/vector_engine.py",
-                 "src/repro_torch/testing/differential.py"):
+                 "src/repro_torch/testing/differential.py",
+                 "src/repro_torch/testing/faults.py",
+                 "src/repro_torch/core/cluster.py",
+                 "tools/torch_vlint.py",
+                 "benchmarks/torch_scaleout.py",
+                 "benchmarks/torch_fig5_matmul.py",
+                 "benchmarks/torch_fig6_kernels.py",
+                 "benchmarks/torch_table1_hwacha.py",
+                 "benchmarks/torch_table3_efficiency.py",
+                 "examples/torch_vector_engine_demo.py"):
         assert must in names
 
 
@@ -101,6 +113,7 @@ def test_importing_the_port_does_not_import_jax():
             "repro_torch.train.trainer, repro_torch.train.step, "
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
             "repro_torch.ft.elastic, repro_torch.core.vector_engine, "
+            "repro_torch.core.cluster, repro_torch.testing.faults, "
             "repro_torch.testing.differential; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))"
