@@ -7,9 +7,11 @@ Needs a CUDA device, ``nvcc`` and nothing else: it builds the kernels from
 ``src/repro_torch/kernels/csrc``, serves randomly initialised tinyllama-1.1b
 at full width and full depth, trains it at full width and depth for a few
 steps, runs the paper's kernels and the scan kernel at their real shapes,
-serves zamba2-7b and xlstm-1.3b at full width, and runs the Ara vector
-engine (one lane, lane-partitioned and clustered) on the differential grid
-and the paper's Listing-1 matmul. Without
+serves zamba2-7b and xlstm-1.3b, granite-moe-3b-a800m, deepseek-v3-671b
+(MLA, depth cut), llama-3.2-vision-11b (one group) and seamless-m4t-medium
+at full width, and runs the Ara vector engine (one lane, lane-partitioned
+and clustered) on the differential grid and the paper's Listing-1 matmul.
+Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
 
@@ -134,12 +136,45 @@ non-zero and prints no result. Phases, one JSON line each:
                the scoreboard at 1 and 4 clusters beside the closed form;
                ``benchmarks/torch_scaleout.py``'s ``--verify`` at 2x2 and
                4x2 on the card.
+15. ``serve_moe`` granite-moe-3b-a800m unreduced (32 layers of 40 routed
+               experts, top 8, in a table padded to 48; vocabulary 49155)
+               in float32, 8 slots, 16 requests asking for 18-32 tokens,
+               through all three rungs (int8 head, bf16, the model's
+               float32); checks as in phase 5. Its int8 head
+               (8,1536)@(1536,49155) takes whole-dimension blocks; phase 3
+               checks and times ``matmul_int8`` there.
+16. ``serve_moe_exact`` the same tree at 2 layers, float32, capacity
+               factor 8.0 (no token dropped): the engine's greedy tokens
+               equal to the full-forward oracle's, cached logits within
+               1e-3; the oracle's attention through ``flash_fwd``.
+17. ``serve_mla`` deepseek-v3-671b at full width, 1 dense + 1 MoE layer
+               (256 routed experts and a shared one) and the MTP module,
+               bf16 as configured (29.8 GB): the serve steps' prefill and
+               absorbed decode against the no-cache forward, float32
+               compute the witness; a from-zero prefill of 2048 tokens (the
+               triangular q-block loop) against the same without the hint;
+               ``_mla_triangular`` against ``mla_chunked`` at S 2048;
+               ``lm_loss`` with its MTP term; peak memory; then the engine
+               (``serve_mla_engine``) as in phase 5 with 8 new tokens, its
+               int8 head (8,7168)@(7168,129280).
+18. ``serve_cross`` llama-3.2-vision-11b (one group: 5 self layers and a
+               cross layer, gate set to 0.5; float32) and
+               seamless-m4t-medium (12 + 12 layers; float64): prefill and 4
+               decode steps through ``make_prefill_step`` /
+               ``make_decode_step`` against the no-cache forward (1e-3),
+               the cross layers through ``flash_fwd``'s non-causal mode,
+               its launches counted; the forward kernel against its plain
+               version at the cross shapes (2,32,Sq,1600,128) and
+               (2,16,Sq,512,64), Sq 128 and 1, bf16 and f32, with dead
+               rows; times at both in bf16 beside the plain version and
+               ``F.scaled_dot_product_attention``.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
-of the serving phases 5, 6 and 11 for the matmul kernels, of phase 7 and
-the oracles of 6 and 12 for the forward attention kernel (each path's count
-in ``launches_by_path``), of phase 7 for the backward ones, of phases 9-10
-for axpy, conv and the scan; error, times and bound per kernel), one line
+of the serving phases 5, 6, 11, 15 and 17 for the matmul kernels, of phase
+7, the oracles of 6, 12 and 16, phase 17's loss and phase 18's serve steps
+for the forward attention kernel (each path's count in
+``launches_by_path``), of phase 7 for the backward ones, of phases 9-10 for
+axpy, conv and the scan; error, times and bound per kernel), one line
 with the card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises: nothing is caught and passed
 over.
@@ -161,13 +196,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.ara import AraConfig  # noqa: E402
 from repro_torch.core import isa, staging  # noqa: E402
 from repro_torch.core import perfmodel as pm  # noqa: E402
 from repro_torch.core.precision import (PEAK_BYTES_PER_S,  # noqa: E402
-                                        PEAKS_FLOPS, Policy)
+                                        PEAKS_FLOPS, Policy, torch_dtype)
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM,  # noqa: E402
                                        to_device)
 from repro_torch.kernels import attention as att  # noqa: E402
@@ -176,6 +212,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import conv as cv  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models.layers import (init_params, tree_leaves,  # noqa: E402
                                        tree_map, tree_size_bytes,
                                        value_and_grad)
@@ -183,7 +220,8 @@ from repro_torch.models.ssm import chunked_linear_attention  # noqa: E402
 from repro_torch.models.transformer import (forward, init_cache,  # noqa: E402
                                             lm_loss, model_template)
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.train.step import make_train_step  # noqa: E402
+from repro_torch.train.step import (make_decode_step,  # noqa: E402
+                                    make_prefill_step, make_train_step)
 from repro_torch.core.cluster import ClusterEngine  # noqa: E402
 from repro_torch.core.vector_engine import (LaneEngine,  # noqa: E402
                                             ReferenceEngine, make_lane_mesh,
@@ -201,6 +239,8 @@ TRAIN_ATT = (4, 32, 2048, 64)      # (batch, heads, seq, head_dim) in training
 # serving oracle, whose prompts of 32-128 tokens grow by up to 8
 ZAMBA_ATT = (1, 32, 136, 136, 112)
 ATT_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+MOE_ARCH, MLA_ARCH = "granite-moe-3b-a800m", "deepseek-v3-671b"
+VISION_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "seamless-m4t-medium"
 DEV = "cuda"                       # every tensor of this script lives here
 
 
@@ -428,7 +468,8 @@ def int8_shapes():
     int8 MATMUL squares (``benchmarks/multiprecision.py``) and
     LARGE_SHAPE, where the tiled route is bound by operations."""
     heads = [("tinyllama-1.1b head", PATH_SHAPE)]
-    for arch, slots, _ in SSM_SERVE:
+    for arch, slots in [a[:2] for a in SSM_SERVE] + [(MOE_ARCH, 8),
+                                                    (MLA_ARCH, 8)]:
         cfg = get_config(arch)
         heads.append((f"{arch} head", (slots, cfg.d_model, cfg.vocab_size)))
     return heads + [("256^3", (256, 256, 256)), ("512^3", (512, 512, 512)),
@@ -448,17 +489,26 @@ def int8_library_ms(ai, bi, **kw):
     return time_ms(lambda: torch._int_mm(ai, bi), **kw), None
 
 
+def head_blocks(m, k, n):
+    """The blocks ``ops.lm_head`` gives the kernels for an (m,k)@(k,n) head:
+    the defaults where they tile it, whole dimensions where not."""
+    return {} if ops._block_tiles(m, k, n) else {"bm": m, "bn": n, "bk": k}
+
+
 def time_matmul_int8(name, m, k, n, seed):
     """Kernel, plain version and ``torch._int_mm`` at one shape, int32
-    output, operands from randint(-128, 128), with the bound and route."""
+    output, operands from randint(-128, 128), with the bound and route;
+    the kernel at the blocks ``ops.lm_head`` would give it."""
     ai, bi = _int8_operands(m, k, n, seed)
+    blocks = head_blocks(m, k, n)
     bnd, by = bound_ms(m, k, n, 1, 4, PEAKS_FLOPS["int8"])
     big = m * k * n > 1e10
     kw = dict(warmup=2, reps=5, inner=3) if big else {}
     library_ms, note = int8_library_ms(ai, bi, **kw)
     return {"name": name, "shape": [m, k, n], "dtype": "int8->int32",
             "route": mm.kernel_route_int8(m, k, n),
-            "ms": time_ms(lambda: mm.matmul_int8(ai, bi), **kw),
+            "blocks": blocks,
+            "ms": time_ms(lambda: mm.matmul_int8(ai, bi, **blocks), **kw),
             "plain_ms": time_ms(lambda: mm.matmul_int8_plain(ai, bi), **kw),
             "library_ms": library_ms, "library_note": note,
             "bound_ms": bnd, "bound_by": by}
@@ -570,11 +620,14 @@ def phase_kernels():
     check_shape(16, 2048, 1000, {"bn": 1000}, 15, results)
     check_shape(17, 2048, 1000, {"bn": 1000}, 16, results)
     check_large(results)
-    # matmul_int8 at the SSM heads and the projection shape, full int8 range
+    # matmul_int8 at the other served models' heads (granite-moe-3b-a800m's
+    # odd vocabulary of 49155 takes whole-dimension blocks, as lm_head
+    # gives them) and the projection shape, full int8 range
     for i, (name, (m, k, n)) in enumerate(int8_shapes()):
-        if name.startswith(("zamba2", "xlstm", "projection")):
+        if name.startswith(("zamba2", "xlstm", MOE_ARCH, MLA_ARCH,
+                            "projection")):
             ai, bi = _int8_operands(m, k, n, 40 + i)
-            check_int8(ai, bi, f"{m}x{k}x{n}", {}, results)
+            check_int8(ai, bi, f"{m}x{k}x{n}", head_blocks(m, k, n), results)
             del ai, bi
     torch.cuda.synchronize()
     assert ROUTES_RAN == set(mm.ROUTES), ROUTES_RAN
@@ -655,11 +708,12 @@ def _att_inputs(b, h, sq, sk, d, dtype, seed, p_valid=1.0, dead=False):
     return q, k, v, kv_valid, dout
 
 
-def check_attention(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
-                    results, p_valid=0.9, dead=False):
-    """Forward, dQ and dK/dV kernels against their plain versions on the
-    same padded, flattened operands; the probe exactly. Returns the
-    operands and the kernels' outputs."""
+def check_attention_fwd(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
+                        results, p_valid=0.9, dead=False):
+    """The forward kernel against its plain version on the same padded,
+    flattened operands: output, lse (dead rows alike) and the probe
+    exactly. Returns the operands, the kernel's outputs and the plain
+    ones."""
     q, k, v, kv_valid, dout = _att_inputs(b, h, sq, sk, d, dtype, seed,
                                           p_valid, dead)
     qf, kf, vf, kvm, bq, bk = att._prepare(q, k, v, kv_valid, bq, bk)
@@ -680,9 +734,24 @@ def check_attention(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
     _check_float(f"flash_fwd lse {name}", lse[~dead_rows], p_lse[~dead_rows],
                  0.0, results, lse_acc)
     _check_exact(f"flash_fwd probe {name}", probe, p_probe, results)
+    return dict(q=q, k=k, v=v, kv_valid=kv_valid, dout=dout, qf=qf, kf=kf,
+                vf=vf, kvm=kvm, out=out, lse=lse, probe=probe, p_out=p_out,
+                p_lse=p_lse, geom=geom, name=name)
+
+
+def check_attention(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
+                    results, p_valid=0.9, dead=False):
+    """Forward, dQ and dK/dV kernels against their plain versions on the
+    same padded, flattened operands; the probe exactly. Returns the
+    operands and the kernels' outputs."""
+    f = check_attention_fwd(tag, b, h, sq, sk, d, dtype, causal, bq, bk,
+                            seed, results, p_valid, dead)
+    qf, kf, vf, kvm, geom = (f[n] for n in ("qf", "kf", "vf", "kvm", "geom"))
+    rel, acc = ATT_TOL[dtype]
+    name, p_lse = f["name"], f["p_lse"]
     doutf = torch.nn.functional.pad(
-        dout, (0, 0, 0, qf.shape[1] - sq)).reshape(qf.shape).contiguous()
-    delta = (doutf.to(p_lse.dtype) * p_out.to(p_lse.dtype)).sum(-1)
+        f["dout"], (0, 0, 0, qf.shape[1] - sq)).reshape(qf.shape).contiguous()
+    delta = (doutf.to(p_lse.dtype) * f["p_out"].to(p_lse.dtype)).sum(-1)
     args = (qf, kf, vf, kvm, doutf, p_lse, delta)
     dq = att.flash_bwd_dq(*args, **geom)
     dk, dv = att.flash_bwd_dkv(*args, **geom)
@@ -694,14 +763,13 @@ def check_attention(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
     _check_float(f"flash_bwd_dkv dv {name}", dv, p_dv, rel, results, acc)
     if dead:
         g0 = h                              # batch 0 holds groups 0..h-1
-        for what, t in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+        for what, t in (("out", f["out"]), ("dq", dq), ("dk", dk),
+                        ("dv", dv)):
             if float(t[:g0].abs().max()) != 0.0:
                 raise AssertionError(f"{name}: dead rows give non-zero {what}")
         results.append({"check": f"dead rows zero {name}", "max_err": 0,
                         "tol": 0})
-    return dict(q=q, k=k, v=v, kv_valid=kv_valid, dout=dout, qf=qf, kf=kf,
-                vf=vf, kvm=kvm, doutf=doutf, lse=lse, delta=delta, geom=geom,
-                probe=probe, n=(qf.shape[1] // bq))
+    return dict(f, doutf=doutf, delta=delta, n=qf.shape[1] // geom["bq"])
 
 
 def check_attention_autograd(results):
@@ -915,22 +983,29 @@ def phase_attention():
 # ---------------------------------------------------------------------------
 
 
-def make_requests(cfg, rng, n, max_new):
+def make_requests(cfg, rng, n, max_new, spread=0):
+    """``n`` requests of 32-128 prompt tokens; request ``i`` asks for
+    ``max_new - spread * (7 - i % 8)`` new tokens."""
     reqs = []
     for i in range(n):
         plen = int(rng.randint(32, 129))
         reqs.append(Request(
             uid=i, prompt=rng.randint(0, cfg.vocab_size,
                                       size=plen).astype(np.int32),
-            max_new_tokens=max_new))
+            max_new_tokens=max_new - spread * (7 - i % 8)))
     return reqs
 
 
-def phase_serve(cfg, params, slots=8, n_requests=16, phase="serve"):
-    """Serve ``n_requests`` of 32-128 prompt tokens and 32 new tokens on
-    ``slots`` slots through the degrade ladder (pressure 2 -> int8 head,
-    then 1 -> bf16), after a warm-up on a throw-away engine; the matmul
-    counts are set to 0 right before the path and returned right after."""
+def phase_serve(cfg, params, slots=8, n_requests=16, phase="serve",
+                max_new=32, spread=0):
+    """Serve ``n_requests`` of 32-128 prompt tokens and ``max_new`` new
+    tokens on ``slots`` slots through the degrade ladder (pressure 2 ->
+    int8 head, then 1 -> bf16), after a warm-up on a throw-away engine; the
+    matmul counts are set to 0 right before the path and returned right
+    after. With ``spread``, the requests ask for 2 ... ``max_new`` tokens
+    in steps of ``spread`` (see :func:`make_requests`), so that the last
+    ones finish one by one and the pressure falls below 1: the model's own
+    precision (rung ``fp32``) then serves too, and must."""
     # warm-up on a throw-away engine held at the int8 rung: first-call costs
     # (library handles, allocator growth) stay out of the timed run
     warm = ServingEngine(cfg, params, slots=slots, max_seq=512, device=DEV,
@@ -944,7 +1019,8 @@ def phase_serve(cfg, params, slots=8, n_requests=16, phase="serve"):
 
     engine = ServingEngine(cfg, params, slots=slots, max_seq=512, device=DEV,
                            degrade=DegradeLadder(bf16_at=1.0, int8_at=2.0))
-    reqs = make_requests(cfg, np.random.RandomState(0), n_requests, 32)
+    reqs = make_requests(cfg, np.random.RandomState(0), n_requests, max_new,
+                         spread)
     mm.reset_launches()            # the serving path starts here
     t0 = time.perf_counter()
     for r in reqs:
@@ -956,7 +1032,7 @@ def phase_serve(cfg, params, slots=8, n_requests=16, phase="serve"):
 
     assert all(r.state == State.DONE for r in reqs), \
         [(r.uid, r.state.value, r.finish_reason) for r in reqs]
-    assert all(len(r.out_tokens) == 32 for r in reqs)
+    assert all(len(r.out_tokens) == r.max_new_tokens for r in reqs)
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens)
     assert not engine.events, engine.events
     assert not any(key.startswith("I_") for key in engine.counters)
@@ -964,6 +1040,8 @@ def phase_serve(cfg, params, slots=8, n_requests=16, phase="serve"):
     assert n_int8 > 0 and engine.counters["degraded_steps_bf16"] > 0, \
         dict(engine.counters)
     assert launches["matmul_int8"] == n_int8, (launches, n_int8)
+    if spread:
+        assert "decode_fp32" in engine.timers, dict(engine.timers)
     for key, t in engine.cache.items():
         if key != "lengths":
             assert bool(torch.isfinite(t).all()), key
@@ -975,6 +1053,8 @@ def phase_serve(cfg, params, slots=8, n_requests=16, phase="serve"):
     prefill = {int(k[len("prefill_"):]): 1e3 * s / c
                for k, (c, s) in engine.timers.items()
                if k.startswith("prefill_")}
+    steps = [(c, s) for k, (c, s) in engine.timers.items()
+             if k.startswith("decode_")]
     emit(phase, arch=cfg.name, family=cfg.family,
          n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
          compute_dtype=cfg.compute_dtype,
@@ -984,6 +1064,8 @@ def phase_serve(cfg, params, slots=8, n_requests=16, phase="serve"):
          requests=len(reqs), new_tokens=new_tokens, wall_s=wall,
          tokens_per_s=new_tokens / wall, ticks=engine.tick,
          decode_steps=decode,
+         decode_steps_per_s=sum(c for c, _ in steps) / sum(
+             s for _, s in steps),
          prefill_ms_by_prompt_len=dict(sorted(prefill.items())),
          counters=dict(engine.counters),
          matmul_int8_launches=launches["matmul_int8"],
@@ -1111,7 +1193,7 @@ def _attention_layers(cfg, n_layers):
     every layer of the dense family, the shared block after each whole group
     of ``attn_every`` Mamba2 layers of the hybrid family, none in the ssm
     family."""
-    return {"dense": n_layers, "ssm": 0,
+    return {"dense": n_layers, "moe": n_layers, "ssm": 0,
             "hybrid": n_layers // max(cfg.attn_every, 1)}[cfg.family]
 
 
@@ -1838,6 +1920,373 @@ def run_ssm_serving():
 
 
 # ---------------------------------------------------------------------------
+# phases 15-18: the mixture-of-experts, MLA, vision and encoder-decoder
+# families at full width
+# ---------------------------------------------------------------------------
+
+MOE_EXACT_LAYERS = 2
+EXACT_CAPACITY = 8.0      # no token dropped: cached and full forwards agree
+CROSS_GATE = 0.5          # the reference initialises the gate to zero
+# (batch, heads, Sq, Sk, head_dim) of the cross layers in phase 18: the
+# vision model's 1600 patch embeddings, the audio encoder's 512 frames; Sq
+# is the prompt in a prefill and 1 in a decode step
+CROSS_ATT = {VISION_ARCH: (2, 32, 128, 1600, 128),
+             AUDIO_ARCH: (2, 16, 128, 512, 64)}
+
+
+def with_capacity(cfg, factor):
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+
+
+def run_moe_serving(cfg):
+    """Phases 15-16, granite-moe-3b-a800m at full width and depth in
+    float32 (``cfg``): serve through all three rungs of the ladder, then
+    the exact check at 2 layers with capacity factor 8.0 (no drops, so the
+    cached path and the full forward route alike), on one random tree."""
+    emit("serve_moe_start", arch=cfg.name,
+         memory_allocated=torch.cuda.memory_allocated())
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(model_template(cfg), gen, device=DEV)
+    launches = phase_serve(cfg, params, 8, 16, "serve_moe", spread=2)
+    flash = phase_serve_exact(with_capacity(cfg, EXACT_CAPACITY), params,
+                              MOE_EXACT_LAYERS, full_depth=False,
+                              phase="serve_moe_exact")
+    del params
+    free_memory()
+    return {"matmul_int8": launches["matmul_int8"], "flash_fwd": flash}
+
+
+def _logit_gap(a, b):
+    """max |a - b| over max |b|, in float64."""
+    b = b.double()
+    return float((a.double() - b).abs().max() / b.abs().max())
+
+
+def check_mla_triangular(cfg, s_len, results):
+    """``_mla_triangular`` (two q blocks of 1024 when S = 2048) against one
+    ``mla_chunked`` call over all keys, on the same bf16 inputs at the
+    model's widths: the same online softmax, another split of the rows."""
+    m = cfg.mla
+    gen = torch.Generator(device=DEV).manual_seed(9)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(
+            torch.bfloat16)
+    qn = rnd(1, s_len, cfg.n_heads, m.qk_nope_head_dim)
+    qr = rnd(1, s_len, cfg.n_heads, m.qk_rope_head_dim)
+    ckv, ckr = rnd(1, s_len, m.kv_lora_rank), rnd(1, s_len,
+                                                 m.qk_rope_head_dim)
+    wkv = rnd(m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim,
+              scale=m.kv_lora_rank ** -0.5)
+    pos = torch.arange(s_len, device=DEV, dtype=torch.int32)[None, :]
+    tri = attn_mod._mla_triangular(cfg, qn, qr, ckv, ckr, wkv, pos)
+    whole = attn_mod.mla_chunked(
+        cfg, qn, qr, ckv, ckr, wkv, pos,
+        torch.ones((1, s_len), dtype=torch.bool, device=DEV))
+    _check_float(f"mla _mla_triangular vs mla_chunked S={s_len} bfloat16",
+                 tri, whole, BF16_ULP, results, BF16_ULP / 2)
+
+
+@torch.inference_mode()
+def phase_serve_mla(cfg, params, prompt=64, steps=4, tri_len=2048):
+    """Phase 17, deepseek-v3-671b at full width, 1 dense + 1 MoE layer,
+    bf16 parameters and compute (``cfg``, capacity factor 8.0 where a
+    cached path is held to the full forward): the serve steps' prefill and
+    the absorbed decode against the no-cache forward, with float32 compute
+    as the witness (as :func:`full_depth_witness`: the bf16 cached logits
+    no further from float32's than WITNESS_FACTOR times bf16's own full
+    forward, plus 1e-3 of the largest logit); a from-zero prefill of
+    ``tri_len`` tokens that fills its cache (the triangular q-block loop in
+    both layers) against the same prompt without the hint, within the
+    witness's largest gap; ``_mla_triangular`` against ``mla_chunked`` at
+    S = ``tri_len``; ``lm_loss`` with its MTP term, finite; then the engine
+    at 8 slots through the ladder (the int8 head at (8,7168)@(7168,129280)).
+    Returns the launches of each path."""
+    results, gaps = [], {}
+    exact = with_capacity(cfg, EXACT_CAPACITY)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    t0 = time.perf_counter()
+    lg, cache = make_prefill_step(exact, None, prompt + steps)(
+        params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    assert cache["c_kv"].shape == (1, 2, prompt + steps,
+                                   cfg.mla.kv_lora_rank)
+    decode = make_decode_step(exact)
+    cached, seq, decode_s = [lg], toks, 0.0
+    for _ in range(steps):
+        nxt = torch.argmax(cached[-1], dim=-1).to(torch.int32)[:, None]
+        seq = torch.cat([seq, nxt], dim=1)
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, {"tokens": nxt})
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+        cached.append(lg)
+    # the no-cache forward over the whole sequence gives every prefix's
+    # last logits (causal, and no token dropped at capacity factor 8); in
+    # float32 compute it is the witness of bf16's own rounding
+    full, _, _ = forward(exact, params, seq)
+    full32, _, _ = forward(dataclasses.replace(exact, compute_dtype="float32"),
+                           params, seq)
+    gaps.update(cached_vs_full32=[], full_vs_full32=[])
+    for i, lg in enumerate(cached):
+        at = prompt - 1 + i
+        assert torch.isfinite(lg).all() and torch.isfinite(full[:, at]).all()
+        gaps["cached_vs_full32"].append(_logit_gap(lg, full32[:, at]))
+        gaps["full_vs_full32"].append(_logit_gap(full[:, at], full32[:, at]))
+    for cached_gap, oracle_gap in zip(gaps["cached_vs_full32"],
+                                      gaps["full_vs_full32"]):
+        assert cached_gap <= WITNESS_FACTOR * oracle_gap + 1e-3, gaps
+    del full, full32
+
+    long = torch.randint(0, cfg.vocab_size, (1, tri_len), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    calls = []
+    tri = attn_mod._mla_triangular
+    attn_mod._mla_triangular = lambda *a, **k: calls.append(1) or tri(*a, **k)
+    try:
+        t0 = time.perf_counter()
+        hinted, _ = make_prefill_step(exact, None, tri_len)(
+            params, {"tokens": long})
+        torch.cuda.synchronize()
+        hint_ms = 1e3 * (time.perf_counter() - t0)
+        assert len(calls) == cfg.n_layers, calls      # every MLA layer
+        cache = init_cache(exact, 1, tri_len, device=DEV)
+        plain, _, _ = forward(exact, params, long, cache=cache)  # no hint
+        plain = plain[:, -1]
+        assert len(calls) == cfg.n_layers, calls      # mla_chunked only
+    finally:
+        attn_mod._mla_triangular = tri
+    # the same arithmetic per query row, split into other row blocks, where
+    # a rounding may fall the other way: held to what all of bf16's
+    # roundings move the logits by (the witness above), plus the slack
+    gaps["hint_vs_no_hint"] = _logit_gap(hinted, plain)
+    hint_tol = max(gaps["full_vs_full32"]) + 1e-3
+    assert gaps["hint_vs_no_hint"] <= hint_tol, gaps
+    check_mla_triangular(cfg, tri_len, results)
+    free_memory()
+
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    att.reset_launches()             # the loss's path starts here
+    total, metrics = lm_loss(cfg, params, batch)
+    loss_flash = att.LAUNCHES["flash_fwd"]       # read right after it
+    assert loss_flash == 1, att.LAUNCHES          # the MTP layer's GQA
+    for key in ("ce", "aux", "mtp"):
+        assert bool(torch.isfinite(metrics[key])), metrics
+    emit("serve_mla", arch=cfg.name, n_layers=cfg.n_layers,
+         n_dense_layers=cfg.moe.n_dense_layers, compute_dtype=cfg.compute_dtype,
+         param_count=sum(t.numel() for t in tree_leaves(params)),
+         param_bytes=tree_size_bytes(params), prompt=prompt, steps=steps,
+         prefill_ms=prefill_ms, decode_ms=1e3 * decode_s / steps,
+         from_zero_prefill_len=tri_len, from_zero_prefill_ms=hint_ms,
+         triangular_calls=len(calls), rel_gaps=gaps,
+         witness_factor=WITNESS_FACTOR, hint_rel_tol=hint_tol,
+         loss={k: float(v) for k, v in metrics.items()},
+         loss_total=float(total), loss_flash_fwd_launches=loss_flash,
+         checks=results,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    launches = phase_serve(cfg, params, 8, 16, "serve_mla_engine", max_new=8)
+    return {"matmul_int8": launches["matmul_int8"], "flash_fwd": loss_flash}
+
+
+def run_mla_serving(cfg):
+    emit("serve_mla_start", arch=cfg.name,
+         memory_allocated=torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(model_template(cfg), gen,
+                         dtype=torch_dtype(cfg.param_dtype), device=DEV)
+    emit("serve_mla_params", param_bytes=tree_size_bytes(params),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    out = phase_serve_mla(cfg, params)
+    del params
+    free_memory()
+    return out
+
+
+def cross_bound(b, h, sq, sk, d, elt, dtype):
+    """Least time for one non-causal forward: q, k, v read and out written
+    once plus the key mask and lse, or the two products (q.k and p.v, 2*D
+    operations a pair) of every query with every key."""
+    g = b * h
+    t_bytes = ((2 * sq + 2 * sk) * g * d * elt + g * (sk + sq) * 4) \
+        / PEAK_BYTES_PER_S
+    t_ops = 2 * 2 * d * g * sq * sk / PEAKS_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_cross_kernel(arch, results):
+    """The forward kernel in its non-causal mode at ``arch``'s cross shape,
+    against its plain version: bf16 and f32 with every memory row valid
+    (as the model calls it), bf16 with some invalid and batch 0 dead, at
+    Sq = prompt and Sq = 1 (one-row query blocks); then the times of the
+    bf16 calls beside the plain version and F.scaled_dot_product_attention
+    on the same operands."""
+    b, h, sq, sk, d = CROSS_ATT[arch]
+    timed = {}
+    for i, rows in enumerate((sq, 1)):
+        for j, dtype in enumerate((torch.bfloat16, torch.float32)):
+            f = check_attention_fwd(f"cross {arch} ({b},{h},{rows},{sk},{d})",
+                                    b, h, rows, sk, d, dtype, False, 128, 128,
+                                    60 + 4 * i + j, results, p_valid=1.0)
+            if dtype == torch.bfloat16:
+                kw = dict(zip(("qf", "kf", "vf", "kvm"),
+                              (f[n] for n in ("qf", "kf", "vf", "kvm"))))
+                bnd, by = cross_bound(b, h, rows, sk, d, 2, "bfloat16")
+                timed[f"sq{rows}"] = {
+                    "shape": [b, h, rows, sk, d], "dtype": "bfloat16",
+                    "causal": False, "blocks": [f["geom"]["bq"],
+                                                f["geom"]["bk"]],
+                    "max_abs_err": float((f["out"].double()
+                                          - f["p_out"].double()).abs().max()),
+                    "ms": time_ms(lambda: att.flash_fwd(**kw, **f["geom"])),
+                    "plain_ms": time_ms(lambda: att.flash_fwd_plain(
+                        **kw, **f["geom"]), warmup=2, reps=5, inner=3),
+                    "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                        f["q"], f["k"], f["v"])),
+                    "bound_ms": bnd, "bound_by": by}
+        check_attention_fwd(f"cross {arch} dead ({b},{h},{rows},{sk},{d})",
+                            b, h, rows, sk, d, torch.bfloat16, False, 128,
+                            128, 70 + i, results, p_valid=0.9, dead=True)
+    torch.cuda.synchronize()
+    return timed
+
+
+def _cross_layers(cfg):
+    """Cross-attention calls in one forward: the vision model's cross
+    blocks, every decoder layer of the encoder-decoder model."""
+    return cfg.n_layers // cfg.cross_attn_every if cfg.family == "vlm" \
+        else cfg.n_layers
+
+
+@torch.inference_mode()
+def serve_cross_steps(cfg, params, prompt=128, steps=4, tol=None):
+    """The serve steps of one frontend model: ``make_prefill_step`` into a
+    cache of ``prompt + steps`` rows, then ``steps`` greedy
+    ``make_decode_step`` calls, the frontend in every batch, each step's
+    logits against the no-cache forward's at that position (held within
+    ``tol`` where given, else only printed). The cross layers run through
+    the kernel's non-causal mode: its launches are counted from 0 right
+    before the steps and read right after them. Returns (launches, fields
+    to print)."""
+    dt = params["embed"].dtype
+    b = CROSS_ATT[cfg.name][0]
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    fe = torch.randn((b, cfg.frontend_seq, cfg.frontend_dim or cfg.d_model),
+                     generator=gen, device=DEV, dtype=torch.float32).to(dt)
+    toks = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    prefill = make_prefill_step(cfg, None, prompt + steps, cache_dtype=dt)
+    decode = make_decode_step(cfg)
+    att.reset_launches()           # the serving path starts here
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, {"tokens": toks, "frontend_emb": fe})
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    cached, seq, decode_s = [lg], toks, 0.0
+    for _ in range(steps):
+        nxt = torch.argmax(cached[-1], dim=-1).to(torch.int32)[:, None]
+        seq = torch.cat([seq, nxt], dim=1)
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, {"tokens": nxt, "frontend_emb": fe})
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+        cached.append(lg)
+    flash = att.LAUNCHES["flash_fwd"]     # read right after the path
+    assert flash == _cross_layers(cfg) * (1 + steps), (flash, cfg.name)
+    full, _, _ = forward(cfg, params, seq, frontend_emb=fe)
+    gaps, tokens_equal = [], True
+    for i, lg in enumerate(cached):
+        at = prompt - 1 + i
+        assert lg.dtype == dt and torch.isfinite(lg).all()
+        gaps.append(_gap(lg, full[:, at]))
+        tokens_equal &= bool(torch.equal(torch.argmax(lg, -1),
+                                         torch.argmax(full[:, at], -1)))
+    if tol is not None:
+        assert max(gaps) < tol, (cfg.name, cfg.compute_dtype, gaps)
+    return flash, {"compute_dtype": cfg.compute_dtype, "batch": b,
+                   "prompt": prompt, "steps": steps, "prefill_ms": prefill_ms,
+                   "decode_ms": 1e3 * decode_s / steps, "logits_err": gaps,
+                   "logits_tol": tol, "logit_max": float(full.abs().max()),
+                   "greedy_tokens_equal": tokens_equal,
+                   "flash_fwd_launches": flash}
+
+
+def phase_serve_cross(cfg, params):
+    """Phase 18 for one frontend model at full width (``params`` float32):
+    the forward kernel against its plain version at the model's cross
+    shape (:func:`check_cross_kernel`); the serve steps in float64 held to
+    the no-cache forward within FP64_TOL; the same steps in float32 and in
+    bfloat16 (the configured compute, timed), their gaps printed: the
+    random stack is chaotic (see :func:`full_depth_witness`), so that in
+    float32 one summation order against another moves the vision model's
+    logits by far more than 1e-3. Returns ({dtype: launches}, checks,
+    times)."""
+    results = []
+    timed = check_cross_kernel(cfg.name, results)
+    launches, runs = {}, {}
+    for dtype, tol in (("float64", FP64_TOL), ("float32", None),
+                       ("bfloat16", None)):
+        run_cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        cast = tree_map(lambda a: a.to(torch_dtype(dtype)), params)
+        launches[dtype], runs[dtype] = serve_cross_steps(run_cfg, cast,
+                                                         tol=tol)
+        del cast
+        free_memory()
+    emit("serve_cross", arch=cfg.name, family=cfg.family,
+         n_layers=cfg.n_layers, n_encoder_layers=cfg.n_encoder_layers,
+         d_model=cfg.d_model,
+         param_count=sum(t.numel() for t in tree_leaves(params)),
+         cross_gate=(float(params["cross_layers"]["attn"]["gate"][0])
+                     if "cross_layers" in params else None),
+         runs=runs, n_checks=len(results), checks=results, timed=timed,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    return launches, results, timed
+
+
+def serving_cfgs():
+    """The configurations of phases 15-18, at full width:
+    granite-moe-3b-a800m at full depth in float32; deepseek-v3-671b cut to
+    1 dense + 1 MoE layer (and its MTP module), bf16 as configured;
+    llama-3.2-vision-11b cut to one group (5 self layers and a cross
+    layer); seamless-m4t-medium at full depth (12 + 12 layers)."""
+    ds = get_config(MLA_ARCH)
+    vision = get_config(VISION_ARCH)
+    return {
+        MOE_ARCH: dataclasses.replace(get_config(MOE_ARCH),
+                                      compute_dtype="float32"),
+        MLA_ARCH: dataclasses.replace(
+            ds, n_layers=2, moe=dataclasses.replace(ds.moe,
+                                                    n_dense_layers=1)),
+        VISION_ARCH: dataclasses.replace(vision,
+                                         n_layers=vision.cross_attn_every),
+        AUDIO_ARCH: get_config(AUDIO_ARCH)}
+
+
+def run_cross_serving(cfgs):
+    """Phase 18 for each config of ``cfgs``, each tree freed before the
+    next; float32 parameters from seed 0, the vision model's gate set to
+    CROSS_GATE."""
+    out = {}
+    for cfg in cfgs:
+        emit("serve_cross_start", arch=cfg.name,
+             memory_allocated=torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        params = init_params(model_template(cfg), gen, device=DEV)
+        if "cross_layers" in params:
+            params["cross_layers"]["attn"]["gate"].fill_(CROSS_GATE)
+        out[cfg.name] = phase_serve_cross(cfg, params)
+        del params
+        free_memory()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the Ara vector engine (no CUDA kernel of its own)
 # ---------------------------------------------------------------------------
 
@@ -2217,14 +2666,18 @@ def phase_vector_engine_lanes(smi, listing, device=DEV):
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
-                 att_timed, att_launches, paper, ssm, ssm_serving):
+                 att_timed, att_launches, paper, ssm, ssm_serving,
+                 moe_serving, mla_serving, cross_serving):
     """One row per TPU kernel. ``launches`` / ``att_launches`` are the
     counts read after the tinyllama serving and training paths,
     ``serve_flash`` the forward kernel's count in tinyllama's serving
     oracle, ``paper`` and ``ssm`` the (checks, times, counts) of phases
-    9-10, ``ssm_serving`` the counts read after each SSM-family serving
-    path: rows 2-3 add what those paths launched (the int8 head; the
-    oracles' attention, zamba2-7b's shared block at head_dim 112)."""
+    9-10, ``ssm_serving``, ``moe_serving`` and ``mla_serving`` the counts
+    read after each of those serving paths, ``cross_serving`` phase 18's
+    (launches, checks, times) per model: rows 2-3 add what those paths
+    launched (the int8 head; the oracles' attention, zamba2-7b's shared
+    block at head_dim 112, the MTP layer's, and the cross layers' in the
+    kernel's non-causal mode)."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -2274,12 +2727,18 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     # before it and read just after, and their sum
     rows[1]["launches_by_path"] = {
         "serve tinyllama-1.1b": launches["matmul_int8"],
-        **{f"serve {a}": v["matmul_int8"] for a, v in ssm_serving.items()}}
+        **{f"serve {a}": v["matmul_int8"] for a, v in ssm_serving.items()},
+        f"serve_moe {MOE_ARCH}": moe_serving["matmul_int8"],
+        f"serve_mla engine {MLA_ARCH}": mla_serving["matmul_int8"]}
     rows[2]["launches_by_path"] = {
         "train tinyllama-1.1b": att_launches["flash_fwd"],
         "serve_exact oracle tinyllama-1.1b": serve_flash,
         **{f"serve_exact oracle {a}": v["flash_fwd"]
-           for a, v in ssm_serving.items()}}
+           for a, v in ssm_serving.items()},
+        f"serve_moe_exact oracle {MOE_ARCH}": moe_serving["flash_fwd"],
+        f"serve_mla lm_loss (MTP layer) {MLA_ARCH}": mla_serving["flash_fwd"],
+        **{f"serve_cross {a} {dt} (non-causal)": n
+           for a, v in cross_serving.items() for dt, n in v[0].items()}}
     for row in rows[1:3]:
         row["launches"] = sum(row["launches_by_path"].values())
     # the forward also at zamba2-7b's oracle shape (its own times and bound)
@@ -2287,6 +2746,8 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
         dt: {k: att_timed[f"flash_fwd_zamba2_{dt}"][k]
              for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
         for dt in ("float32", "bfloat16")}
+    # the non-causal mode at the cross layers' shapes (Sq = prompt and 1)
+    rows[2]["cross_shapes"] = {a: v[2] for a, v in cross_serving.items()}
     p_res, p_timed, p_launches = paper
     for name, key, check, shape in (
             ("axpy", "axpy_f32_2^26", "path axpy f32 2^26", [AXPY_N]),
@@ -2361,12 +2822,17 @@ def main():
     free_memory()
     ssm_serving = run_ssm_serving()
     free_memory()
+    cfgs = serving_cfgs()
+    moe_serving = run_moe_serving(cfgs[MOE_ARCH])
+    mla_serving = run_mla_serving(cfgs[MLA_ARCH])
+    cross_serving = run_cross_serving([cfgs[VISION_ARCH], cfgs[AUDIO_ARCH]])
     _, _, listing = phase_vector_engine(smi)
     phase_vector_engine_lanes(smi, listing)
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,
-                                  ssm, ssm_serving)), flush=True)
+                                  ssm, ssm_serving, moe_serving, mla_serving,
+                                  cross_serving)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,17 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --requests 8 --slots 4 --max-new 16
 
-Any ported family serves: the dense models, ``--arch xlstm-1.3b`` (mLSTM)
-and ``--arch zamba2-7b`` (Mamba2 + shared attention). Runs on the card
-(``--device cuda``, the default) and fails without one; ``--device cpu
---reduced`` is the small CPU rehearsal. Parameters are randomly
-initialised from ``--seed``.
+The dense models, the mixture-of-experts models (``--arch
+granite-moe-3b-a800m``, ``--arch deepseek-v3-671b``), ``--arch xlstm-1.3b``
+(mLSTM) and ``--arch zamba2-7b`` (Mamba2 + shared attention) serve. The
+vision and encoder-decoder models (llama-3.2-vision-11b,
+seamless-m4t-medium) need their stub frontend's embeddings (the vision
+model at every step, the encoder-decoder model at its prefill), which the
+engine's requests do not carry: for them the launcher
+raises ``ValueError`` (they serve through ``train.step.make_prefill_step``
+and ``make_decode_step``). Runs on the card (``--device cuda``, the
+default) and fails without one; ``--device cpu --reduced`` is the small
+CPU rehearsal. Parameters are randomly initialised from ``--seed``.
 """
 from __future__ import annotations
 
@@ -36,8 +42,14 @@ def main():
     from repro_torch.models.transformer import model_template
     from repro_torch.serving.engine import Request, ServingEngine
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.frontend_seq:
+        raise ValueError(
+            f"{args.arch} ({cfg.family}) needs its frontend's embeddings, "
+            f"which the serving engine does not pass: serve it through "
+            f"repro_torch.train.step.make_prefill_step and make_decode_step "
+            f"with frontend_emb")
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = reduced(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)

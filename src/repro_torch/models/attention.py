@@ -1,4 +1,5 @@
-"""Attention blocks: GQA (+RoPE) with a KV cache.
+"""Attention blocks: GQA (+RoPE) with a KV cache, cross-attention, and
+DeepSeek's Multi-head Latent Attention (MLA).
 
 Long sequences use a chunked online-softmax formulation — blockwise-
 parallel attention: the KV axis is walked chunk by chunk with a running
@@ -13,6 +14,17 @@ CUDA device, as the reference takes its kernel on its accelerator. On the
 CPU, or with the route off, the same case computes through the quadratic /
 per-q-block branches, whose per-q-block ``torch.utils.checkpoint`` policy
 (``block_remat``) bounds the residuals a backward pass keeps.
+
+Cross-attention (vision and encoder-decoder models) is pure key-validity
+masking, no causal term: with the route enabled it is the kernel's
+non-causal mode, with ``memory_valid`` as ``kv_valid``.
+
+MLA keeps a compressed cache (``c_kv`` of the latent width and the rotary
+``k_rope``): prefill and the no-cache forward expand K/V chunk by chunk
+from it (``_mla_chunked``, an online softmax as above); a one-token decode
+takes the absorbed form, scoring and summing in the latent space. Its
+products are plain ``torch.einsum`` calls, as the reference's are plain
+einsums outside any Pallas kernel.
 
 Convention (shared with the reference and its kernel): rows with NO valid
 key output zeros.
@@ -31,7 +43,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (P, apply_rope, repeat_kv,
+from repro_torch.models.layers import (P, apply_rope, repeat_kv, rms_norm,
                                        rotary_embedding, widen)
 
 NEG_INF = -1e30
@@ -126,14 +138,40 @@ def _flash_attention(q, k, v, kv_valid, causal: bool):
 # ---------------------------------------------------------------------------
 
 
-def gqa_template(cfg: ArchConfig) -> dict:
+def gqa_template(cfg: ArchConfig, cross: bool = False) -> dict:
+    """``cross`` adds the vision model's ``q_norm`` (kept for a like-for-like
+    tree: the reference never reads it) and the tanh ``gate``, initialised
+    to zero, so that a cross layer adds nothing at init."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hp, hkv = cfg.n_heads_padded, cfg.n_kv_heads
-    return {
+    t = {
         "wq": P((d, hp, hd), ("embed", "heads", "head_dim"), "fan_in"),
         "wk": P((d, hkv, hd), ("embed", "kv_heads", "head_dim"), "fan_in"),
         "wv": P((d, hkv, hd), ("embed", "kv_heads", "head_dim"), "fan_in"),
         "wo": P((hp, hd, d), ("heads", "head_dim", "embed"), "fan_in"),
+    }
+    if cross:
+        t["q_norm"] = P((d,), ("embed",), "ones")
+        t["gate"] = P((), (), "zeros")  # tanh-gated cross-attn (llama3.2-V)
+    return t
+
+
+def mla_template(cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": P((d, m.q_lora_rank), ("embed", "q_lora"), "fan_in"),
+        "q_norm": P((m.q_lora_rank,), ("q_lora",), "ones"),
+        "wq_b": P((m.q_lora_rank, h, qk), ("q_lora", "heads", "head_dim"),
+                  "fan_in"),
+        "wkv_a": P((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                   ("embed", "kv_lora"), "fan_in"),
+        "kv_norm": P((m.kv_lora_rank,), ("kv_lora",), "ones"),
+        "wkv_b": P((m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim),
+                   ("kv_lora", "heads", "head_dim"), "fan_in"),
+        "wo": P((h, m.v_head_dim, d), ("heads", "head_dim", "embed"),
+                "fan_in"),
     }
 
 
@@ -251,29 +289,36 @@ def chunked_attention(q, k, v, q_pos, kv_valid, kv_offset=0, chunk=KV_CHUNK,
 # ---------------------------------------------------------------------------
 
 
-def update_cache(cache_k, cache_v, k_new, v_new, lengths):
-    """Write new KV rows at per-sequence positions, **in place**.
+def write_rows(cache, new, lengths):
+    """Write ``new`` (B, S_new, ...) into ``cache`` (B, Smax, ...) at
+    per-sequence positions, **in place**, and return ``cache``.
 
-    cache_k/v: (B, Smax, Hkv, D); k/v_new: (B, S_new, Hkv, D); lengths: (B,)
     Row ``b`` is written at ``[start_b, start_b + S_new)``. The start is
     clamped so the slice fits, ``start_b = clip(lengths[b], 0, Smax -
     S_new)``, which is what the reference's dynamic-update-slice does for
     an out-of-range start — so both stacks compute the same thing for every
     input (an unclamped indexed write would be a device-side fault). The
     hardened engine never relies on the clamp: it retires a slot at
-    capacity (``I_KV_CAPACITY``). Returns the same two tensors.
+    capacity (``I_KV_CAPACITY``).
     """
-    smax, s_new = cache_k.shape[1], k_new.shape[1]
+    smax, s_new = cache.shape[1], new.shape[1]
     if s_new > smax:
         raise ValueError(f"update_cache: {s_new} new rows do not fit a cache "
                          f"of {smax}")
-    dev = cache_k.device
+    dev = cache.device
     start = lengths.to(torch.int64).clamp(0, smax - s_new)
     rows = start[:, None] + torch.arange(s_new, device=dev)[None, :]
-    batch = torch.arange(cache_k.shape[0], device=dev)[:, None]
-    cache_k[batch, rows] = k_new.to(cache_k.dtype)
-    cache_v[batch, rows] = v_new.to(cache_v.dtype)
-    return cache_k, cache_v
+    batch = torch.arange(cache.shape[0], device=dev)[:, None]
+    cache[batch, rows] = new.to(cache.dtype)
+    return cache
+
+
+def update_cache(cache_k, cache_v, k_new, v_new, lengths):
+    """Write new KV rows at per-sequence positions, **in place**
+    (:func:`write_rows`). cache_k/v: (B, Smax, Hkv, D); k/v_new: (B, S_new,
+    Hkv, D); lengths: (B,). Returns the same two tensors."""
+    return (write_rows(cache_k, k_new, lengths),
+            write_rows(cache_v, v_new, lengths))
 
 
 # ---------------------------------------------------------------------------
@@ -346,3 +391,193 @@ def _mask_pad_heads(cfg: ArchConfig, out):
     head_live = (torch.arange(hp, device=out.device) % per_group_pad) \
         < per_group_live
     return out * head_live.to(out.dtype)[None, None, :, None]
+
+
+def cross_attention(cfg: ArchConfig, p: dict, x, memory, memory_valid=None):
+    """Cross-attn to encoder/vision memory (B,T,d). Tanh-gated if gate in p.
+
+    With the flash route enabled (on a CUDA device by default) it runs the
+    blockwise-attention kernel in its non-causal mode with ``memory_valid``
+    as ``kv_valid``: pure key-validity masking is exactly that mode, and
+    rows with no valid key output zeros either way."""
+    h, hkv = cfg.n_heads_padded, cfg.n_kv_heads
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("btd,dhk->bthk", memory, p["wk"].to(x.dtype))
+    v = torch.einsum("btd,dhk->bthk", memory, p["wv"].to(x.dtype))
+    k = repeat_kv(k, h // hkv)
+    v = repeat_kv(v, h // hkv)
+    b, t = memory.shape[:2]
+    if memory_valid is None:
+        memory_valid = torch.ones((b, t), dtype=torch.bool, device=x.device)
+    if flash_route_enabled(getattr(cfg, "attn_flash", "auto"),
+                           device=x.device):
+        out = _flash_attention(q, k, v, memory_valid, causal=False)
+    else:
+        out = _masked_softmax_attn(q, k, v, memory_valid[:, None, None, :])
+    out = _mask_pad_heads(cfg, out)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if "gate" in p:
+        out = torch.tanh(p["gate"]).to(x.dtype) * out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def _mla_triangular(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos,
+                    chunk=KV_CHUNK, lane_local=False):
+    """Causal-triangle q-block loop around mla_chunked (no-cache forward and
+    from-zero prefill: S == T, positions == arange): q block ``i`` runs only
+    against the first ``i + 1`` chunks of keys. The loop runs when S is a
+    whole number of chunks, more than one; otherwise one mla_chunked call
+    walks all keys."""
+    s_len = q_nope.shape[1]
+    b = c_kv.shape[0]
+    if s_len % chunk or s_len <= chunk:
+        return mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos,
+                           torch.ones((b, c_kv.shape[1]), dtype=torch.bool,
+                                      device=c_kv.device), chunk,
+                           lane_local=lane_local)
+    outs = []
+    for i in range(s_len // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t_hi = (i + 1) * chunk
+        outs.append(mla_chunked(
+            cfg, q_nope[:, sl], q_rope[:, sl], c_kv[:, :t_hi],
+            k_rope[:, :t_hi], wkv_b, q_pos[:, sl],
+            torch.ones((b, t_hi), dtype=torch.bool, device=c_kv.device),
+            chunk, lane_local=lane_local))
+    return torch.cat(outs, dim=1)
+
+
+def mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos, kv_valid,
+                chunk=KV_CHUNK, lane_local=False):
+    """The reference's dispatcher, which runs a lane-local ``shard_map``
+    under a device mesh. The port runs on one device, where the reference
+    too always takes :func:`_mla_chunked`; ``lane_local`` is accepted and
+    has no effect until the multi-device machinery is ported."""
+    del lane_local
+    return _mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos,
+                        kv_valid, chunk)
+
+
+def _mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos, kv_valid,
+                 chunk=KV_CHUNK):
+    """Chunked MLA attention without materializing the expanded K/V.
+
+    K and V are expanded chunk by chunk from the compressed cache inside an
+    online softmax over the chunks, and the rope term stays a separate
+    head-free product. q_nope (B,S,H,nope); q_rope (B,S,H,rope); c_kv
+    (B,T,kv_lora); k_rope (B,T,rope), already rotary-encoded. Scores
+    accumulate in fp32 (float64 for float64 operands). The ragged last
+    chunk is simply shorter: the reference pads it with invalid keys,
+    which contribute nothing.
+    """
+    m = cfg.mla
+    nope, rope, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    b, s_len, h, _ = q_nope.shape
+    t_len = c_kv.shape[1]
+    dev = q_nope.device
+    scale = 1.0 / math.sqrt(nope + rope)
+    kv_pos = torch.arange(t_len, dtype=torch.int32, device=dev)
+    chunk = min(chunk, t_len)
+
+    wide = torch.promote_types(q_nope.dtype, torch.float32)
+    acc = torch.zeros((b, s_len, h, dv), dtype=wide, device=dev)
+    m_run = torch.full((b, h, s_len), NEG_INF, dtype=wide, device=dev)
+    l_run = torch.zeros((b, h, s_len), dtype=wide, device=dev)
+    qn, qr = widen(q_nope), widen(q_rope)
+    for start in range(0, t_len, chunk):
+        ckv_b = c_kv[:, start:start + chunk]
+        validb = kv_valid[:, start:start + chunk]
+        posb = kv_pos[start:start + chunk]
+        kv_b = torch.einsum("btr,rhk->bthk", ckv_b, wkv_b)
+        k_nope_b, v_b = kv_b[..., :nope], kv_b[..., nope:]
+        sc = torch.einsum("bshk,bthk->bhst", qn, widen(k_nope_b))
+        sc = sc + torch.einsum("bshk,btk->bhst", qr,
+                               widen(k_rope[:, start:start + chunk]))
+        sc = sc * scale
+        mask = (posb[None, None, None, :] <= q_pos[:, None, :, None]) \
+            & validb[:, None, None, :]
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m_run, sc.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        m_safe = torch.where(m_new > NEG_INF * 0.5, m_new,
+                             torch.zeros_like(m_new))      # dead rows -> 0
+        p = torch.exp(sc - m_safe[..., None])
+        l_run = l_run * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhst,bthd->bshd", p.to(v_b.dtype), v_b)
+        acc = acc * alpha.transpose(1, 2)[..., None] + widen(pv)
+        m_run = m_new
+    out = acc / l_run.clamp_min(1e-30).transpose(1, 2)[..., None]
+    return out.to(q_nope.dtype)
+
+
+def mla_attention(cfg: ArchConfig, p: dict, x, positions, *,
+                  cache: Optional[dict] = None, prefill_from_zero=False):
+    """Multi-head Latent Attention.
+
+    No cache and prefill: the expanded form. Decode (a cache and one new
+    token): the absorbed form — scores and values computed directly in the
+    compressed kv_lora space, so the cache is ``c_kv`` (B, Smax, kv_lora)
+    and ``k_rope`` (B, Smax, rope) whatever the head count. The cache's two
+    tensors are written in place (:func:`write_rows`) and returned.
+    """
+    m = cfg.mla
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+
+    q_lat = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(x.dtype)),
+                     p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"].to(x.dtype))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"].to(x.dtype))
+    c_kv = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., m.kv_lora_rank:]
+
+    cos, sin = rotary_embedding(positions, rope, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    wkv_b = p["wkv_b"].to(x.dtype)
+
+    if cache is None:
+        out = _mla_triangular(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b,
+                              positions)
+        new_cache = None
+    else:
+        w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+        ckv = write_rows(cache["c_kv"], c_kv, cache["lengths"])
+        ckr = write_rows(cache["k_rope"], k_rope, cache["lengths"])
+        new_cache = {"c_kv": ckv, "k_rope": ckr}
+        t_len = ckv.shape[1]
+        kv_valid = torch.arange(t_len, dtype=torch.int32,
+                                device=x.device)[None, :] \
+            <= positions[:, -1:]
+        ckv_x, ckr_x = ckv.to(x.dtype), ckr.to(x.dtype)
+
+        if x.shape[1] > 1:
+            # prefill: chunked attention over the updated compressed cache;
+            # a from-zero prefill that fills the cache walks the triangle
+            if prefill_from_zero and x.shape[1] == t_len:
+                out = _mla_triangular(cfg, q_nope, q_rope, ckv_x, ckr_x,
+                                      wkv_b, positions, lane_local=True)
+            else:
+                out = mla_chunked(cfg, q_nope, q_rope, ckv_x, ckr_x, wkv_b,
+                                  positions, kv_valid, lane_local=True)
+        else:
+            # absorbed single-token decode: O(kv_lora) per cached token
+            q_c = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)  # absorb W_UK
+            s = torch.einsum("bshr,btr->bhst", widen(q_c), widen(ckv_x))
+            s = s + torch.einsum("bshk,btk->bhst", widen(q_rope),
+                                 widen(ckr_x))
+            s = s * (1.0 / math.sqrt(nope + rope))
+            s = torch.where(kv_valid[:, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            pr = torch.softmax(s, dim=-1).to(x.dtype)
+            o_c = torch.einsum("bhst,btr->bshr", pr, ckv_x)
+            out = torch.einsum("bshr,rhk->bshk", o_c, w_uv)
+
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return out, new_cache

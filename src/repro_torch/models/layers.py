@@ -70,7 +70,8 @@ def init_params(template, generator: torch.Generator,
             std = p.std
         x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * std).to(dtype)
+        # scaled in place: a full-width expert table is ~15 GB in fp32
+        return x.mul_(std).to(dtype)
 
     out: dict = {}
     for path, p in _leaves(template):

@@ -1,10 +1,16 @@
-"""Model zoo: template + forward.
+"""Model zoo: template + forward, every family of the reference.
 
-Ported families: **dense** (GQA decoder blocks), **ssm** (mLSTM blocks,
-xlstm-1.3b) and **hybrid** (Mamba2 layers with one weight-shared
-attention+FFN block after every ``attn_every`` of them, zamba2-7b). The
-reference's other families (moe, vlm, audio) and MLA attention raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Families: **dense** (GQA decoder blocks), **moe** (GQA or MLA attention
+with mixture-of-experts FFNs, optional leading dense layers and a
+multi-token-prediction module: granite-moe-3b-a800m, deepseek-v3-671b),
+**ssm** (mLSTM blocks, xlstm-1.3b), **hybrid** (Mamba2 layers with one
+weight-shared attention+FFN block after every ``attn_every`` of them,
+zamba2-7b), **vlm** (a tanh-gated cross-attention block after every
+``cross_attn_every`` self-attention layers, llama-3.2-vision-11b) and
+**audio** (a non-causal encoder over the frontend's frames, decoder layers
+with cross-attention to its output, seamless-m4t-medium). The vlm and
+audio frontends are stubs, as in the reference: the caller passes their
+embeddings as ``frontend_emb``.
 
 Layer parameters are stacked along a leading ``layers`` axis, as in the
 reference. PyTorch runs eagerly, so ``cfg.scan_layers`` has no meaning
@@ -19,12 +25,16 @@ blockwise-attention kernel when ``cfg.attn_flash`` allows; so does the
 hybrid family's shared attention block in a no-cache forward.
 
 Decode uses per-sequence KV caches (see attention.py) and recurrent states
-(ssm.py): ``forward`` with a cache writes the new KV rows and the new
-``conv``/``ssm`` states **into the cache tensors it was given** and returns
-them.
+(ssm.py): ``forward`` with a cache writes the new KV rows (or MLA's
+compressed rows), the new ``conv``/``ssm`` states and the encoder's
+``memory`` **into the cache tensors it was given** and returns them.
+
+Multi-device execution (a mesh context, expert parallelism) waits for
+ROADMAP Queue A 13: every function here runs on one device.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -34,25 +44,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.precision import torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import checkpointed, gqa_attention, \
-    gqa_template
-from repro_torch.models.layers import P, rms_norm, tree_map, widen
+from repro_torch.models.attention import (checkpointed, cross_attention,
+                                          gqa_attention, gqa_template,
+                                          mla_attention, mla_template)
+from repro_torch.models.layers import (P, rms_norm, tree_leaves, tree_map,
+                                       widen)
 from repro_torch.models.mlp import mlp, mlp_template
-
-_PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-_NOT_PORTED_FAMILIES = ("moe", "vlm", "audio")
-
-
-def _require_ported(cfg: ArchConfig):
-    if cfg.family in _PORTED_FAMILIES and not cfg.use_mla:
-        return
-    if cfg.family not in _PORTED_FAMILIES + _NOT_PORTED_FAMILIES:
-        raise ValueError(cfg.family)
-    what = "MLA attention" if cfg.family in _PORTED_FAMILIES \
-        else f"model family {cfg.family!r}"
-    raise NotImplementedError(
-        f"{what} ({cfg.name}) is not ported yet: see ROADMAP.md Queue A, "
-        f"item A9 'Remaining model families'")
+from repro_torch.models.moe import moe_block, moe_template
 
 
 # ---------------------------------------------------------------------------
@@ -68,17 +66,35 @@ def _stack(tmpl, n: int):
     return {k: _stack(v, n) for k, v in tmpl.items()}
 
 
+def _attn_layer_template(cfg: ArchConfig, cross=False) -> dict:
+    t = {"ln1": P((cfg.d_model,), ("embed",), "ones")}
+    t["attn"] = mla_template(cfg) if cfg.use_mla \
+        else gqa_template(cfg, cross=cross)
+    return t
+
+
 def _dense_layer_template(cfg: ArchConfig) -> dict:
-    return {
-        "ln1": P((cfg.d_model,), ("embed",), "ones"),
-        "attn": gqa_template(cfg),
-        "ln2": P((cfg.d_model,), ("embed",), "ones"),
-        "mlp": mlp_template(cfg.d_model, cfg.d_ff, cfg.activation),
-    }
+    t = _attn_layer_template(cfg)
+    t["ln2"] = P((cfg.d_model,), ("embed",), "ones")
+    t["mlp"] = mlp_template(cfg.d_model, cfg.d_ff, cfg.activation)
+    return t
+
+
+def _moe_layer_template(cfg: ArchConfig) -> dict:
+    t = _attn_layer_template(cfg)
+    t["ln2"] = P((cfg.d_model,), ("embed",), "ones")
+    t["moe"] = moe_template(cfg)
+    return t
+
+
+def _dense_ffn_cfg(cfg: ArchConfig, **upd) -> ArchConfig:
+    """The config of a MoE model's dense layers (and of its MTP layer): the
+    dense FFN width ``moe.dense_d_ff`` (0 -> ``d_ff``)."""
+    return dataclasses.replace(cfg, d_ff=cfg.moe.dense_d_ff or cfg.d_ff,
+                               **upd)
 
 
 def model_template(cfg: ArchConfig) -> dict:
-    _require_ported(cfg)
     d = cfg.d_model
     t: dict = {
         "embed": P((cfg.vocab_size, d), ("vocab", "embed"), "normal", 0.02),
@@ -87,17 +103,53 @@ def model_template(cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         t["unembed"] = P((d, cfg.vocab_size), ("embed", "vocab"), "normal",
                          0.02)
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam == "dense":
         t["layers"] = _stack(_dense_layer_template(cfg), cfg.n_layers)
-    elif cfg.family == "ssm":
+    elif fam == "moe":
+        m = cfg.moe
+        if m.n_dense_layers:
+            t["dense_layers"] = _stack(
+                _dense_layer_template(_dense_ffn_cfg(cfg)), m.n_dense_layers)
+        t["layers"] = _stack(_moe_layer_template(cfg),
+                             cfg.n_layers - m.n_dense_layers)
+        if cfg.mtp_depth:
+            t["mtp"] = {
+                "proj": P((2 * d, d), (None, "embed"), "fan_in"),
+                "norm_h": P((d,), ("embed",), "ones"),
+                "norm_e": P((d,), ("embed",), "ones"),
+                "layer": _dense_layer_template(
+                    _dense_ffn_cfg(cfg, use_mla=False)),
+            }
+    elif fam == "ssm":
         layer = {"ln1": P((d,), ("embed",), "ones"),
                  "mix": ssm_mod.mlstm_template(cfg)}
         t["layers"] = _stack(layer, cfg.n_layers)
-    else:                                                    # hybrid
+    elif fam == "hybrid":
         layer = {"ln1": P((d,), ("embed",), "ones"),
                  "mix": ssm_mod.mamba2_template(cfg)}
         t["layers"] = _stack(layer, cfg.n_layers)
         t["shared_attn"] = _dense_layer_template(cfg)
+    elif fam == "vlm":
+        if cfg.n_layers % cfg.cross_attn_every:
+            raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                             f"multiple of cross_attn_every "
+                             f"{cfg.cross_attn_every}")
+        t["layers"] = _stack(_dense_layer_template(cfg), cfg.n_layers)
+        xt = _attn_layer_template(cfg, cross=True)
+        xt["ln2"] = P((d,), ("embed",), "ones")
+        xt["mlp"] = mlp_template(d, cfg.d_ff, cfg.activation)
+        t["cross_layers"] = _stack(xt, cfg.n_layers // cfg.cross_attn_every)
+    elif fam == "audio":
+        t["enc_layers"] = _stack(_dense_layer_template(cfg),
+                                 cfg.n_encoder_layers)
+        t["enc_norm"] = P((d,), ("embed",), "ones")
+        dec = _dense_layer_template(cfg)
+        dec["ln_x"] = P((d,), ("embed",), "ones")
+        dec["xattn"] = gqa_template(cfg)
+        t["layers"] = _stack(dec, cfg.n_layers)
+    else:
+        raise ValueError(fam)
     return t
 
 
@@ -106,16 +158,65 @@ def model_template(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def dense_block(cfg, p, x, positions, cache=None, causal=True):
+_PREFILL_FROM_ZERO = False
+
+
+def set_prefill_hint(value: bool):
+    """Static hint from the serving layer: the incoming cache is fresh
+    (lengths == 0, the prompt fills it end to end), so MLA's prefill may
+    walk the causal triangle only (``_mla_triangular``). A module-level
+    flag, as in the reference; ``train.step.make_prefill_step`` sets it
+    around one forward and clears it in a ``finally``."""
+    global _PREFILL_FROM_ZERO
+    _PREFILL_FROM_ZERO = bool(value)
+
+
+def _attn_block(cfg, p, x, positions, cache=None, causal=True):
+    """Pre-norm attention (MLA or GQA). Returns (attention output, the
+    normed input, the layer's new cache entries or None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, new_cache = gqa_attention(cfg, p["attn"], h, positions, cache=cache,
-                                 causal=causal)
+    if cfg.use_mla:
+        a, new_cache = mla_attention(cfg, p["attn"], h, positions,
+                                     cache=cache,
+                                     prefill_from_zero=_PREFILL_FROM_ZERO)
+    else:
+        a, new_cache = gqa_attention(cfg, p["attn"], h, positions,
+                                     cache=cache, causal=causal)
+    return a, h, new_cache
+
+
+def dense_block(cfg, p, x, positions, cache=None, causal=True, memory=None):
+    """Attention + FFN; an encoder-decoder layer (``xattn`` in ``p``) adds
+    cross-attention to ``memory`` between the two."""
+    a, h, new_cache = _attn_block(cfg, p, x, positions, cache, causal)
     if cfg.parallel_block:
         return x + a + mlp(p["mlp"], h, cfg.activation), new_cache
     x = x + a
+    if memory is not None and "xattn" in p:
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + cross_attention(cfg, p["xattn"], hx, memory)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + mlp(p["mlp"], h2, cfg.activation)
     return x, new_cache
+
+
+def moe_layer(cfg, p, x, positions, ctx=None, cache=None):
+    """Attention + mixture-of-experts FFN. Returns (x, aux, new cache
+    entries or None). ``ctx`` must be None (see ``moe.moe_block``)."""
+    a, _, new_cache = _attn_block(cfg, p, x, positions, cache)
+    x = x + a
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, aux = moe_block(cfg, p["moe"], h2, ctx)
+    return x + y, aux, new_cache
+
+
+def _cross_block(cfg, p, x, memory):
+    """The vision model's gated cross-attention layer + FFN."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + cross_attention(cfg, p["attn"], h, memory)
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp(p["mlp"], h2, cfg.activation)
+    return x, None
 
 
 def mix_layer(cfg, p, x, state=None):
@@ -144,8 +245,17 @@ def _maybe_remat(fn, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
+def _frontend(cfg: ArchConfig, frontend_emb, dtype):
+    if frontend_emb is None:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) needs frontend_emb, the stub "
+            f"frontend's embeddings (B, {cfg.frontend_seq}, "
+            f"{cfg.frontend_dim or cfg.d_model})")
+    return frontend_emb.to(dtype)
+
+
 def forward(cfg: ArchConfig, params: dict, tokens, *,
-            cache: Optional[dict] = None, head_fn=None):
+            cache: Optional[dict] = None, frontend_emb=None, head_fn=None):
     """Shared forward. tokens (B,S) integer, on the parameters' device.
 
     cache=None  -> full causal forward (training / scoring), returns
@@ -153,19 +263,25 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
                    layer runs under ``cfg.remat``
     cache=dict  -> prefill (lengths=0, S=prompt) or decode (S small);
                    returns (logits, aux, new_cache). Every tensor of the
-                   cache but ``lengths`` (``k``/``v``; ``conv``/``ssm``;
-                   ``attn_k``/``attn_v``) is updated in place and is the
-                   same tensor in ``new_cache``; ``new_cache["lengths"]``
-                   is a new tensor, ``cache["lengths"]`` is left as it was.
+                   cache but ``lengths`` (``k``/``v``; ``c_kv``/``k_rope``
+                   and their ``dense_`` twins; ``conv``/``ssm``;
+                   ``attn_k``/``attn_v``; ``memory``) is updated in place
+                   and is the same tensor in ``new_cache``;
+                   ``new_cache["lengths"]`` is a new tensor,
+                   ``cache["lengths"]`` is left as it was.
+    frontend_emb -> (B, frontend_seq, frontend_dim) stub embeddings: the
+                   vlm family's cross-attention memory, needed at every
+                   call; the audio family's encoder input, needed except
+                   for a one-token step with ``memory`` in the cache (the
+                   encoder's output, stored there by the prefill).
     head_fn     -> optional ``(x, unembed) -> logits`` replacing the final
                    product — the serving degrade ladder routes the logits
                    head through the CUDA kernels here
                    (``kernels.ops.lm_head``).
 
-    ``aux`` is the (zero) auxiliary loss the mixture-of-experts families
-    will fill; it is kept so the return shape matches the reference.
+    ``aux`` is the mixture-of-experts load-balance loss summed over the MoE
+    layers (zero for the other families).
     """
-    _require_ported(cfg)
     b, s = tokens.shape
     dev = tokens.device
     compute_dtype = torch_dtype(cfg.compute_dtype)
@@ -187,12 +303,37 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
         autograd records it."""
         return _maybe_remat(fn, cfg)(x) if remat else fn(x)
 
-    def attn_block(p, x, kv=None):
-        """A dense block; ``kv`` = its (k, v) cache tensors, or None."""
+    # each block below is a function of its own parameters: a checkpoint
+    # recomputes it in the backward pass, after the layer loop has moved on
+
+    def layer_cache(i, keys, prefix=""):
+        """Layer ``i``'s views of the cache tensors ``prefix + key``, which
+        its attention writes in place; None without a cache."""
         if cache is None:
-            return run(lambda x: dense_block(cfg, p, x, positions)[0], x)
-        c = {"k": kv[0], "v": kv[1], "lengths": lengths}
-        return dense_block(cfg, p, x, positions, cache=c)[0]
+            return None
+        c = {k: cache[prefix + k][i] for k in keys}
+        c["lengths"] = lengths
+        return c
+
+    def attn_block(p, x, c, memory=None):
+        """A dense block; ``c`` = its cache views, or None."""
+        if cache is None:
+            return run(lambda x: dense_block(cfg, p, x, positions,
+                                             memory=memory)[0], x)
+        return dense_block(cfg, p, x, positions, cache=c, memory=memory)[0]
+
+    def moe(p, x, c):
+        """A MoE layer: (x, aux)."""
+        if cache is None:
+            return run(lambda x: moe_layer(cfg, p, x, positions)[:2], x)
+        return moe_layer(cfg, p, x, positions, cache=c)[:2]
+
+    def cross_block(p, x, memory):
+        return run(lambda x: _cross_block(cfg, p, x, memory)[0], x)
+
+    def encoder_block(p, x, enc_pos):
+        return run(lambda x: dense_block(cfg, p, x, enc_pos,
+                                         causal=False)[0], x)
 
     def mix(p, x, i):
         """Mixing layer ``i``; its recurrent state is read from and written
@@ -205,24 +346,63 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
         cache["ssm"][i].copy_(new["ssm"])
         return x
 
-    # one view per layer; unbind's backward stacks the layers' gradients
-    # once, where indexing would add a zero-padded copy of the whole stack
-    # per layer
-    layers = tree_map(lambda a: a.unbind(0), params["layers"])
-    for i in range(cfg.n_layers):
-        p_i = tree_map(lambda a: a[i], layers)
-        if cfg.family == "dense":
-            kv = None if cache is None else (cache["k"][i], cache["v"][i])
-            x = attn_block(p_i, x, kv)
-            continue
-        x = mix(p_i, x, i)
-        # hybrid: the shared block closes each whole group of attn_every
-        # layers; the tail layers after the last group have none
-        if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-            g = i // cfg.attn_every
-            kv = None if cache is None \
-                else (cache["attn_k"][g], cache["attn_v"][g])
-            x = attn_block(params["shared_attn"], x, kv)
+    def unstack(tree):
+        """One view per layer; unbind's backward stacks the layers'
+        gradients once, where indexing would add a zero-padded copy of the
+        whole stack per layer."""
+        per = tree_map(lambda a: a.unbind(0), tree)
+        n = next(tree_leaves(tree)).shape[0]
+        return [tree_map(lambda a: a[i], per) for i in range(n)]
+
+    fam = cfg.family
+    memory, fresh_memory = None, False
+    if fam == "vlm":
+        memory = _frontend(cfg, frontend_emb, compute_dtype)
+    elif fam == "audio":
+        # a one-token step reads the encoder's output from the cache; a
+        # prefill or a full forward runs the encoder and stores it
+        if cache is not None and "memory" in cache and s == 1:
+            memory = cache["memory"].to(compute_dtype)
+        else:
+            memory = _frontend(cfg, frontend_emb, compute_dtype)
+            enc_pos = torch.arange(memory.shape[1], dtype=torch.int32,
+                                   device=dev)[None, :].expand(
+                                       memory.shape[:2])
+            for p_i in unstack(params["enc_layers"]):
+                memory = encoder_block(p_i, memory, enc_pos)
+            memory = rms_norm(memory, params["enc_norm"], cfg.norm_eps)
+            fresh_memory = True
+
+    if fam in ("dense", "vlm", "audio"):
+        cross = unstack(params["cross_layers"]) if fam == "vlm" else None
+        for i, p_i in enumerate(unstack(params["layers"])):
+            x = attn_block(p_i, x, layer_cache(i, ("k", "v")),
+                           memory if fam == "audio" else None)
+            # vlm: a cross block closes each group of cross_attn_every
+            if fam == "vlm" and (i + 1) % cfg.cross_attn_every == 0:
+                x = cross_block(cross[i // cfg.cross_attn_every], x, memory)
+    elif fam == "moe":
+        kv_keys = ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
+        if cfg.moe.n_dense_layers:
+            for i, p_i in enumerate(unstack(params["dense_layers"])):
+                x = attn_block(p_i, x, layer_cache(i, kv_keys, "dense_"))
+        for i, p_i in enumerate(unstack(params["layers"])):
+            x, a = moe(p_i, x, layer_cache(i, kv_keys))
+            aux = aux + a
+    elif fam in ("ssm", "hybrid"):
+        for i, p_i in enumerate(unstack(params["layers"])):
+            x = mix(p_i, x, i)
+            # hybrid: the shared block closes each whole group of
+            # attn_every layers; the tail layers after the last group have
+            # none
+            if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                g = i // cfg.attn_every
+                c = None if cache is None else {
+                    "k": cache["attn_k"][g], "v": cache["attn_v"][g],
+                    "lengths": lengths}
+                x = attn_block(params["shared_attn"], x, c)
+    else:
+        raise ValueError(fam)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
@@ -234,6 +414,11 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
 
     if cache is not None:
         new_cache = {k: v for k, v in cache.items() if k != "lengths"}
+        if fresh_memory:
+            if "memory" in cache:
+                cache["memory"].copy_(memory)
+            else:
+                new_cache["memory"] = memory
         new_cache["lengths"] = lengths + s
         return logits, aux, new_cache
     return logits, aux, {"final_hidden": x}
@@ -245,13 +430,20 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
 
 
 def lm_loss(cfg: ArchConfig, params, batch):
-    """Next-token CE (+ the MoE aux loss, zero for the dense family).
-    batch = {"tokens", "labels"} (B,S) integer tensors on the parameters'
-    device. Returns (total, {"ce", "aux"})."""
-    logits, aux, _ = forward(cfg, params, batch["tokens"])
+    """Next-token CE + 0.01 x the MoE aux loss (+ 0.3 x the MTP loss where
+    the model has an MTP module). batch = {"tokens", "labels"} (B,S)
+    integer tensors on the parameters' device, and ``frontend_emb`` for
+    the vlm and audio families. Returns (total, {"ce", "aux"[, "mtp"]})."""
+    logits, aux, extras = forward(cfg, params, batch["tokens"],
+                                  frontend_emb=batch.get("frontend_emb"))
     loss = _ce(logits, batch["labels"])
     total = loss + 0.01 * aux
-    return total, {"ce": loss, "aux": aux}
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp_depth and "mtp" in params:
+        mtp_loss = _mtp_loss(cfg, params, batch, extras["final_hidden"])
+        total = total + 0.3 * mtp_loss
+        metrics["mtp"] = mtp_loss
+    return total, metrics
 
 
 def _ce(logits, labels):
@@ -260,6 +452,27 @@ def _ce(logits, labels):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def _mtp_loss(cfg, params, batch, hidden):
+    """DeepSeek MTP (depth 1): predict t+2 from [h_t ; emb(label_t)]."""
+    p = params["mtp"]
+    compute_dtype = torch_dtype(cfg.compute_dtype)
+    labels = batch["labels"]
+    emb = params["embed"][labels.long()].to(compute_dtype)
+    h = torch.cat([rms_norm(hidden, p["norm_h"], cfg.norm_eps),
+                   rms_norm(emb, p["norm_e"], cfg.norm_eps)], dim=-1)
+    h = h @ p["proj"].to(compute_dtype)
+    b, s = batch["tokens"].shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=h.device)[None, :].expand(b, s)
+    h, _ = dense_block(_dense_ffn_cfg(cfg, use_mla=False), p["layer"], h,
+                       positions)
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    logits = h @ unembed.to(compute_dtype)
+    # labels shifted one more step: predict labels[t+1] at position t
+    mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+    return _ce(logits, mtp_labels)
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +485,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     """Decode cache tree of zeros on ``device`` (default: the card; raises
     without one), with int32 ``lengths`` (batch,) and, by family:
 
-    - dense: ``k``/``v`` (n_layers, batch, max_seq, n_kv_heads, head_dim);
+    - dense, vlm, audio: ``k``/``v`` (n_layers, batch, max_seq, n_kv_heads,
+      head_dim); audio also ``memory`` (batch, frontend_seq, frontend_dim),
+      the encoder's output;
+    - moe: per MoE layer ``k``/``v`` as above, or with MLA ``c_kv``
+      (n_moe, batch, max_seq, kv_lora_rank) and ``k_rope`` (n_moe, batch,
+      max_seq, qk_rope_head_dim); the leading dense layers' twins under
+      ``dense_k`` ... ``dense_k_rope`` (n_dense, ...);
     - ssm: ``conv`` (n_layers, batch, conv_width-1, d_inner) and ``ssm``
       (n_layers, batch, heads, d_qk/heads, d_inner/heads + 1);
     - hybrid: ``conv`` (n_layers, batch, conv_width-1, d_inner + 2N),
@@ -280,27 +499,47 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
       block's ``attn_k``/``attn_v`` (n_groups, batch, max_seq, n_kv_heads,
       head_dim).
 
-    ``ssm`` is float32 whatever ``cache_dtype`` is, as in the reference —
-    float64 for a float64 cache, the port's convention."""
-    _require_ported(cfg)
+    ``ssm`` and ``memory`` are float32 whatever ``cache_dtype`` is, as in
+    the reference — float64 for a float64 cache, the port's convention."""
     device = resolve_device(device)
     dt = torch_dtype(cache_dtype)
+    wide = torch.promote_types(dt, torch.float32)
     c = {"lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     kv_shape = (max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam in ("dense", "vlm", "audio"):
         for key in ("k", "v"):
-            c[key] = torch.zeros((cfg.n_layers, batch) + kv_shape, dtype=dt,
-                                 device=device)
+            c[key] = zeros((cfg.n_layers, batch) + kv_shape)
+        if fam == "audio":
+            c["memory"] = zeros((batch, cfg.frontend_seq,
+                                 cfg.frontend_dim or cfg.d_model), wide)
         return c
-    init_state = ssm_mod.mlstm_init_state if cfg.family == "ssm" \
+    if fam == "moe":
+        n_dense = cfg.moe.n_dense_layers
+        if cfg.use_mla:
+            shapes = {"c_kv": (max_seq, cfg.mla.kv_lora_rank),
+                      "k_rope": (max_seq, cfg.mla.qk_rope_head_dim)}
+        else:
+            shapes = {"k": kv_shape, "v": kv_shape}
+        for key, sh in shapes.items():
+            c[key] = zeros((cfg.n_layers - n_dense, batch) + sh)
+            if n_dense:
+                c["dense_" + key] = zeros((n_dense, batch) + sh)
+        return c
+    if fam not in ("ssm", "hybrid"):
+        raise ValueError(fam)
+    init_state = ssm_mod.mlstm_init_state if fam == "ssm" \
         else ssm_mod.mamba2_init_state
     one = init_state(cfg, batch, dtype=dt, device="meta")
     for key in ("conv", "ssm"):
-        c[key] = torch.zeros((cfg.n_layers,) + tuple(one[key].shape),
-                             dtype=one[key].dtype, device=device)
-    if cfg.family == "hybrid":
+        c[key] = zeros((cfg.n_layers,) + tuple(one[key].shape),
+                       one[key].dtype)
+    if fam == "hybrid":
         n_groups = cfg.n_layers // cfg.attn_every
         for key in ("attn_k", "attn_v"):
-            c[key] = torch.zeros((n_groups, batch) + kv_shape, dtype=dt,
-                                 device=device)
+            c[key] = zeros((n_groups, batch) + kv_shape)
     return c

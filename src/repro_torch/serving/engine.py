@@ -126,8 +126,11 @@ def decode_step(cfg: ArchConfig, mode: str, params, cache, tokens,
                 active_mask, temps, nan_mask, generator):
     """One decode step (all slots). ``mode`` picks the degrade rung: fp32
     (the model's configured precision), bf16 compute, or bf16 compute with
-    the int8 logits head. ``cache["k"]``/``["v"]`` are written in place.
-    Returns (next_tok (slots,), finite (slots,), new_cache)."""
+    the int8 logits head. Every tensor of the cache but ``lengths`` (KV
+    rows, MLA's compressed rows, recurrent states, by family) is written
+    in place. Returns (next_tok (slots,), finite (slots,), new_cache).
+    The mixture-of-experts families route every slot, inactive ones too,
+    so that they take expert capacity as in the reference."""
     mcfg = _mode_cfg(cfg, mode)
     head_fn = _int8_head if mode == "int8" else None
     logits, _, new_cache = tf.forward(mcfg, params, tokens, cache=cache,

@@ -1,4 +1,4 @@
-"""The train step.
+"""The train step, and the serve steps.
 
 ``make_train_step`` returns a bundle whose ``step_fn(state, batch) ->
 (state, metrics)`` is the reference's train step on one device: the loss
@@ -11,6 +11,10 @@ The reference's bundle also carries PartitionSpec trees (``state_specs``,
 ``named``, ``sanitize_specs``, ``train_state_specs``) for ``jax.jit``'s
 shardings. On one card they have no meaning; they wait for the
 multi-device machinery (ROADMAP Queue A 13), and this bundle omits them.
+
+``make_prefill_step`` / ``make_decode_step`` are the reference's serve
+steps on one device: the way the vision and encoder-decoder models serve,
+since they take the frontend's embeddings in the batch.
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ from repro_torch.core.stripmine import stripmined_grads
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import value_and_grad
 from repro_torch.optim import adamw
+
+_NO_MESH = ("runs on one device; a mesh context waits for the multi-device "
+            "machinery (ROADMAP Queue A 13)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +78,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig, ctx=None,
     state's tensors are updated in place (see ``optim.adamw.update``) and
     returned. ``ctx`` (the reference's mesh context) must be None."""
     if ctx is not None:
-        raise NotImplementedError(
-            "make_train_step runs on one device; a mesh context waits for "
-            "the multi-device machinery (ROADMAP Queue A 13)")
+        raise NotImplementedError(f"make_train_step {_NO_MESH}")
     cfg = apply_attn_overrides(cfg, attn)
 
     def loss_fn(params, batch):
@@ -92,3 +97,52 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig, ctx=None,
         return {"params": new_params, "opt": new_opt}, metrics
 
     return TrainStepBundle(train_step, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg: ArchConfig, ctx=None, max_seq: int = 0,
+                      cache_dtype=None):
+    """``prefill(params, batch) -> (logits_last, cache)``: a fresh cache of
+    ``max_seq`` rows on the tokens' device (``cache_dtype``: the
+    reference's bfloat16 by default), filled by one forward under the
+    from-zero prefill hint. ``batch`` = {"tokens" (B,S)[, "frontend_emb"]}.
+    ``ctx`` must be None."""
+    if ctx is not None:
+        raise NotImplementedError(f"make_prefill_step {_NO_MESH}")
+    if max_seq < 1:
+        raise ValueError(f"make_prefill_step: max_seq must be positive, got "
+                         f"{max_seq}")
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        kw = {} if cache_dtype is None else {"cache_dtype": cache_dtype}
+        cache = tf.init_cache(cfg, tokens.shape[0], max_seq,
+                              device=tokens.device, **kw)
+        tf.set_prefill_hint(True)
+        try:
+            logits, _, cache = tf.forward(
+                cfg, params, tokens, cache=cache,
+                frontend_emb=batch.get("frontend_emb"))
+        finally:
+            tf.set_prefill_hint(False)
+        return logits[:, -1], cache
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig, ctx=None):
+    """``decode(params, cache, batch) -> (logits, new_cache)``, the cache's
+    tensors written in place (see ``models.transformer.forward``).
+    ``ctx`` must be None."""
+    if ctx is not None:
+        raise NotImplementedError(f"make_decode_step {_NO_MESH}")
+
+    def decode(params, cache, batch):
+        logits, _, cache = tf.forward(
+            cfg, params, batch["tokens"], cache=cache,
+            frontend_emb=batch.get("frontend_emb"))
+        return logits[:, -1], cache
+    return decode

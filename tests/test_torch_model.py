@@ -51,8 +51,18 @@ def test_configs_are_identical_copies(arch):
         == dataclasses.asdict(treduced(tget(arch)))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_params_from_numpy_round_trips(arch):
+    """Every architecture: the converted tree has the reference's keys,
+    shapes and values, and the port's own template describes it."""
     cj, ct, pj, pt = _pair(arch)
     assert _shapes(pt) == _shapes(pj)
     # the port's own template describes exactly this tree
@@ -60,10 +70,12 @@ def test_params_from_numpy_round_trips(arch):
     assert _shapes(jax.tree_util.tree_map(
         lambda p: np.empty(p.shape), tmpl,
         is_leaf=lambda x: not isinstance(x, dict))) == _shapes(pj)
-    leaf_j = np.asarray(pj["layers"]["attn"]["wq"])
-    assert pt["layers"]["attn"]["wq"].dtype == torch.float32
-    np.testing.assert_array_equal(pt["layers"]["attn"]["wq"].numpy(), leaf_j)
+    want = dict(_leaves(pj))
+    for path, leaf in _leaves(pt):
+        assert leaf.dtype == torch.float32, path
+        np.testing.assert_array_equal(leaf.numpy(), np.asarray(want[path]))
     # owned copy, optional recast
+    leaf_j = np.asarray(pj["embed"])
     half = convert.params_from_numpy({"w": leaf_j}, device="cpu",
                                      dtype="bfloat16")
     assert half["w"].dtype == torch.bfloat16
@@ -153,17 +165,18 @@ def test_head_fn_replaces_the_final_product():
     torch.testing.assert_close(plus, base + 1.0)
 
 
-@pytest.mark.parametrize(
-    "arch", [a for a in ARCH_NAMES if tget(a).family not in ("dense", "ssm",
-                                                            "hybrid")])
-def test_other_families_raise_not_implemented(arch):
-    cfg = treduced(tget(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.model_template(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.forward(cfg, {}, torch.zeros((1, 2), dtype=torch.int32))
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_launch_serve_refuses_frontend_families(arch, monkeypatch, capsys):
+    """The serving engine passes no frontend embeddings, so the launcher
+    refuses the vision and encoder-decoder models with a ValueError naming
+    the serve steps (the reference's launcher fails inside the forward)."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", arch, "--reduced",
+                                     "--device", "cpu"])
+    with pytest.raises(ValueError, match="make_prefill_step"):
+        serve.main()
+    assert capsys.readouterr().out == ""
 
 
 def test_entry_points_default_to_the_card():

@@ -321,14 +321,6 @@ def test_lm_loss_and_grads_match_reference(arch):
         _close(node, gjl, atol=1e-4, rel_to_max=True, msg=str(path))
 
 
-def test_unported_families_still_raise():
-    for arch in ("granite-moe-3b-a800m", "llama-3.2-vision-11b",
-                 "seamless-m4t-medium", "deepseek-v3-671b"):
-        cfg = treduced(tget(arch))
-        with pytest.raises(NotImplementedError, match="A9"):
-            ttf.model_template(cfg)
-
-
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
