@@ -9,8 +9,10 @@ at full width and full depth, trains it at full width and depth for a few
 steps, runs the paper's kernels and the scan kernel at their real shapes,
 serves zamba2-7b and xlstm-1.3b, granite-moe-3b-a800m, deepseek-v3-671b
 (MLA, depth cut), llama-3.2-vision-11b (one group) and seamless-m4t-medium
-at full width, and runs the Ara vector engine (one lane, lane-partitioned
-and clustered) on the differential grid and the paper's Listing-1 matmul.
+at full width, runs the Ara vector engine (one lane, lane-partitioned
+and clustered) on the differential grid and the paper's Listing-1 matmul,
+and runs the fault-tolerance slice: the serving fault registry and its
+load gate on tinyllama-1.1b, and training that checkpoints and resumes.
 Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
@@ -168,15 +170,41 @@ non-zero and prints no result. Phases, one JSON line each:
                (2,16,Sq,512,64), Sq 128 and 1, bf16 and f32, with dead
                rows; times at both in bf16 beside the plain version and
                ``F.scaled_dot_product_attention``.
+19. ``serve_faults`` every class of ``serving.faults.REGISTRY`` through
+               ``verify`` on tinyllama-1.1b at full width, depth cut to 4
+               layers, float32 (installed by ``faults.use_fixture``):
+               detected by its code, recovered from with the survivors'
+               greedy tokens equal to the full-forward oracle's (its
+               attention through ``flash_fwd``, counted), and damage on
+               the legacy engine; a token that flips is printed with its
+               top-2 logit gap beside the cached-versus-full gap, and fails.
+20. ``serving_load`` ``benchmarks/torch_serving_load.py``'s ``bench`` at the
+               reference's traffic (120 ticks, 0.5 arrivals a tick, 4
+               slots, ``max_seq`` 32, ladder at 2.0 / 4.0) on tinyllama-1.1b
+               at full width and depth in its configured precision: zero
+               undetected escapes, both rungs in the faulted phase, one
+               ``matmul_int8`` launch per int8 decode step; goodput and
+               P50/P99 latency in ticks and seconds, every counter.
+21. ``train_restart`` the trainer on tinyllama-1.1b at full width, 2 layers,
+               batch 4 x 2048 (fp32 parameters, bf16 compute, full remat):
+               6 steps straight saving every 3, and 3 + 3 through a
+               checkpoint, the resumed state equal to the straight one bit
+               for bit (or, if two straight runs differ, within their gap,
+               which is printed); ``ft.elastic.recover`` onto the card; a
+               ``save(blocking=False)`` then one more in-place step
+               restores the values before that step; the seconds the loop
+               blocks in ``save`` beside the writer's; the attention
+               kernels' launches. Checkpoints under ``tempfile.mkdtemp()``,
+               deleted afterwards.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
-of the serving phases 5, 6, 11, 15 and 17 for the matmul kernels, of phase
-7, the oracles of 6, 12 and 16, phase 17's loss and phase 18's serve steps
-for the forward attention kernel (each path's count in
-``launches_by_path``), of phase 7 for the backward ones, of phases 9-10 for
-axpy, conv and the scan; error, times and bound per kernel), one line
-with the card's name and power limit, and as the last line ``{"ok": true,
-"device": {...}}``. Any failed check raises: nothing is caught and passed
+of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
+phases 7 and 21, the oracles of 6, 12, 16 and 19, phase 17's loss and
+phase 18's serve steps for the forward attention kernel (each path's count
+in ``launches_by_path``), of phases 7 and 21 for the backward ones, of
+phases 9-10 for axpy, conv and the scan; error, times and bound per
+kernel), one line with the card's name and power limit, and as the last
+line ``{"ok": true, "device": {...}}``. Any failed check raises: nothing is caught and passed
 over.
 """
 from __future__ import annotations
@@ -186,9 +214,11 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -198,6 +228,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.ara import AraConfig  # noqa: E402
 from repro_torch.core import isa, staging  # noqa: E402
@@ -229,6 +260,9 @@ from repro_torch.core.vector_engine import (LaneEngine,  # noqa: E402
 from repro_torch.serving import (DegradeLadder, Request,  # noqa: E402
                                  ServingEngine, State)
 from repro_torch.testing import differential as diff  # noqa: E402
+from repro_torch.ft import elastic  # noqa: E402
+from repro_torch.serving import faults  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 PATH_SHAPE = (8, 2048, 32000)      # (slots, d_model, vocab) of tinyllama-1.1b
 # tinyllama-1.1b's MLP up-projection at train batch 4 x 2048 tokens
@@ -2663,21 +2697,295 @@ def phase_vector_engine_lanes(smi, listing, device=DEV):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the serving fault registry on the card, at full width
+# ---------------------------------------------------------------------------
+
+
+def _flip_report(cfg, params, prompt, out):
+    """Where ``out`` (an engine's greedy tokens) first leaves the oracle's:
+    the oracle's top-2 logit gap at that token beside the gap between the
+    cached path's logits and the full forward's over the same prefix."""
+    want = faults.oracle(prompt, len(out))
+    i = next(j for j, (a, b) in enumerate(zip(out, want)) if a != b)
+    prefix = np.concatenate([np.asarray(prompt, np.int32),
+                             np.asarray(want[:i], np.int32)])
+    if i == 0:
+        (cached, full), _, _ = _cached_and_full(cfg, params, prefix)
+    else:
+        nxt = torch.tensor([[int(prefix[-1])]], device=DEV, dtype=torch.int32)
+        _, (cached, full), _ = _cached_and_full(cfg, params, prefix[:-1], nxt)
+    return {"index": i, "got": out[i], "want": want[i],
+            "top2_gap": float(torch.topk(full.double(), 2).values.diff()
+                              .abs()),
+            "cached_vs_full": _gap(cached, full)}
+
+
+@torch.inference_mode()
+def phase_serve_faults(cfg, params, n_layers=EXACT_LAYERS):
+    """Every class of ``serving.faults.REGISTRY`` through ``verify`` on the
+    card: tinyllama-1.1b at full width, depth cut to ``n_layers``, float32,
+    where ``serve_exact`` holds the engine's greedy tokens equal to the
+    oracle's. Each class must be detected by its code, recovered from with
+    the survivors equal to the oracle, and do damage to the legacy engine.
+    Where a survivor's token differs from the oracle's, the flip is printed
+    (:func:`_flip_report`) and the phase fails. The oracle's full forwards
+    run their attention through ``flash_fwd``: that count is set to 0 right
+    before the registry and returned, read right after it."""
+    cfg32, cut = _cut(cfg, params, n_layers, "float32")
+    faults.use_fixture(cfg32, cut)
+    mismatches = []
+    matches = faults._matches_oracle
+
+    def recording(req):
+        ok = matches(req)
+        if not ok and req.out_tokens:
+            mismatches.append((np.array(req.prompt), list(req.out_tokens)))
+        return ok
+    faults._matches_oracle = recording
+    reports = []
+    att.reset_launches()           # the registry's path starts here
+    t0 = time.perf_counter()
+    try:
+        for fault in faults.REGISTRY:
+            mismatches.clear()
+            t1 = time.perf_counter()
+            try:
+                rep = faults.verify(fault)
+            except AssertionError:
+                emit("serve_faults_flip", fault=fault.name,
+                     flips=[_flip_report(cfg32, cut, p, o)
+                            for p, o in mismatches])
+                raise
+            rep["seconds"] = time.perf_counter() - t1
+            reports.append(rep)
+            emit("serve_faults_class", **rep)
+    finally:
+        faults._matches_oracle = matches
+        # drop the installed fixture: its views hold the model's storage
+        faults._installed.clear()
+        faults._oracle_cached.cache_clear()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    flash = att.LAUNCHES["flash_fwd"]    # read right after the registry
+    per_forward = _attention_layers(cfg, n_layers)
+    assert len(reports) == 10 and flash > 0 and flash % per_forward == 0, \
+        (len(reports), flash)
+    emit("serve_faults", arch=cfg.name, n_layers=n_layers,
+         d_model=cfg.d_model, compute_dtype="float32", classes=len(reports),
+         detected_recovered_nonvacuous=[r["name"] for r in reports],
+         seconds=seconds, flash_fwd_launches=flash,
+         oracle_forwards=flash // per_forward)
+    return flash
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the load gate (benchmarks/torch_serving_load.py) on the card
+# ---------------------------------------------------------------------------
+
+
+LOAD = dict(duration=120, rate=0.5, slots=4, max_seq=32, seed=0)
+
+
+def phase_serving_load(cfg, params):
+    """``torch_serving_load.bench`` at the reference's traffic (``LOAD``,
+    the degrade ladder armed at 2.0 / 4.0) on tinyllama-1.1b at full width
+    and depth in its configured precision. Zero undetected escapes, both
+    rungs in the faulted phase, and one ``matmul_int8`` launch per int8
+    decode step: that count is set to 0 right before the benchmark and
+    returned, read right after it."""
+    load = _load_script("benchmarks/torch_serving_load.py")
+    mm.reset_launches()            # the load's path starts here
+    res = load.bench(**LOAD, fixture=(cfg, params))
+    torch.cuda.synchronize()
+    launches = dict(mm.LAUNCHES)   # read right after the load
+    clean, faulted = res["clean"], res["faulted"]
+    assert faulted["undetected_escapes"] == 0, faulted["missing_detections"]
+    assert faulted["injections"] > 0, faulted
+    assert faulted["degraded_steps_bf16"] > 0, faulted
+    assert faulted["degraded_steps_int8"] > 0, faulted
+    int8_steps = clean["degraded_steps_int8"] + faulted["degraded_steps_int8"]
+    assert launches["matmul_int8"] == int8_steps, (launches, int8_steps)
+    assert res["config"]["backend"].startswith(DEV), res["config"]
+    for phase in ("clean", "faulted"):
+        row = {k: v for k, v in res[phase].items()
+               if k != "missing_detections"}
+        emit("serving_load", load_phase=phase, **row)
+    emit("serving_load_config", arch=cfg.name, n_layers=cfg.n_layers,
+         compute_dtype=cfg.compute_dtype, **res["config"],
+         matmul_int8_launches=launches["matmul_int8"])
+    return launches["matmul_int8"]
+
+
+# ---------------------------------------------------------------------------
+# phase 21: training that checkpoints and resumes, on the card
+# ---------------------------------------------------------------------------
+
+
+RESTART_LAYERS = 2
+RESTART_STEPS, RESTART_AT = 6, 3
+
+
+def _leaf_gaps(a, b):
+    """{leaf path: (bit-equal, max |a - b|)} over two states, the leaves in
+    the checkpoint's order."""
+    out = {}
+    for (path, x), (path_y, y) in zip(ckpt._flatten(a), ckpt._flatten(b)):
+        assert path == path_y and x.dtype == y.dtype \
+            and x.shape == y.shape, (path, path_y)
+        same = torch.equal(x.reshape(-1).view(torch.uint8),
+                           y.reshape(-1).view(torch.uint8))
+        out["/".join(path)] = (same, 0.0 if same else
+                               float((x.double() - y.double()).abs().max()))
+    return out
+
+
+def phase_train_restart():
+    """The trainer's checkpoint/restart on the card: tinyllama-1.1b at full
+    width, depth cut to ``RESTART_LAYERS``, as configured (fp32
+    parameters, bf16 compute, full remat), batch 4 x 2048 of
+    ``SyntheticLM``, a learning-rate schedule that does not depend on
+    ``steps``. Run A takes ``RESTART_STEPS`` steps straight, saving every
+    ``RESTART_AT``; run B stops at ``RESTART_AT`` in a second directory;
+    run C asks for ``RESTART_STEPS`` on B's directory and must resume at
+    ``RESTART_AT`` and end on A's state bit for bit. A second straight run
+    (A2) shows whether a straight run repeats itself on the card: if it
+    does not, the leaves where it differs are printed and C is held, leaf
+    by leaf, to that measured gap. Then ``ft.elastic.recover`` must return
+    A's saved state bit for bit, and a ``save(blocking=False)`` followed by
+    one more in-place step must restore the values before that step. The
+    attention kernels' counts are set to 0 before run A and returned, read
+    after the last step. The checkpoints live in a temporary directory,
+    deleted at the end."""
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              n_layers=RESTART_LAYERS)
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) \
+        == ("float32", "bfloat16", "full"), cfg
+    opt = adamw.OptConfig(peak_lr=3e-4, warmup_steps=2, decay_steps=60)
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+
+    def trainer(ckpt_dir, steps):
+        return Trainer(cfg, opt, data,
+                       TrainerConfig(steps=steps, ckpt_dir=ckpt_dir,
+                                     ckpt_every=RESTART_AT, log_every=1),
+                       device=DEV)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    dir_a, dir_b, dir_d = (os.path.join(root, n) for n in "abd")
+    runs = {}
+    try:
+        att.reset_launches()       # the restart's path starts here
+        for name, d, steps in (("A", dir_a, RESTART_STEPS),
+                               ("A2", None, RESTART_STEPS),
+                               ("B", dir_b, RESTART_AT)):
+            tr = trainer(d, steps)
+            t0 = time.perf_counter()
+            step, state = tr.run()
+            runs[name] = {"tr": tr, "state": state, "step": step,
+                          "wall_s": time.perf_counter() - t0}
+        del runs["B"]["state"]
+        tr_c = trainer(dir_b, RESTART_STEPS)
+        start, _ = tr_c.restore_or_init()
+        assert start == RESTART_AT, start
+        t0 = time.perf_counter()
+        step_c, state_c = tr_c.run()
+        runs["C"] = {"tr": tr_c, "step": step_c,
+                     "wall_s": time.perf_counter() - t0}
+        assert step_c == runs["A"]["step"] == RESTART_STEPS
+        assert ckpt.latest_steps(dir_a) == [RESTART_AT, RESTART_STEPS]
+        assert ckpt.latest_steps(dir_b) == [RESTART_AT, RESTART_STEPS]
+        state_a = runs["A"]["state"]
+        for r in runs.values():
+            assert all(np.isfinite(m["loss"]) for m in r["tr"].metrics_log)
+
+        repeat = _leaf_gaps(runs["A2"].pop("state"), state_a)
+        resumed = _leaf_gaps(state_c, state_a)
+        del state_c
+        straight_repeats = all(same for same, _ in repeat.values())
+        if not straight_repeats:
+            emit("train_restart_straight_runs_differ",
+                 leaves={p: g for p, (same, g) in repeat.items()
+                         if not same})
+        for path, (same, gap) in resumed.items():
+            if straight_repeats:
+                assert same, (path, gap)
+            else:
+                assert gap <= repeat[path][1], (path, gap, repeat[path][1])
+
+        built = []
+        step_r, state_r = elastic.recover(dir_a, DEV, lambda: built.append(1))
+        assert step_r == RESTART_STEPS and not built
+        assert all(same for same, _ in _leaf_gaps(state_r, state_a).values())
+
+        # save without waiting for the disk, then one more in-place step
+        batch = to_device(runs["A"]["tr"].source.batch(RESTART_STEPS), DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer = ckpt.save(dir_d, RESTART_STEPS, state_a, blocking=False)
+        block_s = time.perf_counter() - t0
+        state_a, _ = runs["A"]["tr"].step_fn(state_a, batch)
+        torch.cuda.synchronize()
+        writer.join()
+        write_s = time.perf_counter() - t0
+        stepped = _leaf_gaps(state_a, state_r)
+        assert not stepped["params/embed"][0], "the step changed nothing"
+        _, state_d = ckpt.restore(dir_d, device=DEV)
+        assert all(same for same, _ in _leaf_gaps(state_d, state_r).values())
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dir_d, s, f))
+                         for s in os.listdir(dir_d)
+                         for f in os.listdir(os.path.join(dir_d, s)))
+        del state_a, state_r, state_d
+        torch.cuda.synchronize()
+        launches = dict(att.LAUNCHES)   # read right after the last step
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    n_steps = 2 * RESTART_STEPS + RESTART_AT + (RESTART_STEPS - RESTART_AT) + 1
+    L = RESTART_LAYERS
+    want = {"flash_fwd": 2 * L * n_steps, "flash_bwd_dq": L * n_steps,
+            "flash_bwd_dkv": L * n_steps}
+    assert launches == want, (launches, want)
+    step_ms = {n: [1e3 * t for t in r["tr"].monitor.times]
+               for n, r in runs.items()}
+    emit("train_restart", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
+         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=RESTART_STEPS,
+         resumed_at=RESTART_AT, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+         straight_runs_bit_equal=straight_repeats,
+         resumed_bit_equal=all(s for s, _ in resumed.values()),
+         resumed_max_gap=max(g for _, g in resumed.values()),
+         leaves=len(resumed), recover_bit_equal=True,
+         nonblocking_save_immune=True,
+         losses={n: [m["loss"] for m in r["tr"].metrics_log]
+                 for n, r in runs.items()},
+         step_ms=step_ms,
+         steady_step_ms=statistics.median(
+             t for n in ("A", "A2") for t in step_ms[n][1:]),
+         run_wall_s={n: r["wall_s"] for n, r in runs.items()},
+         save_block_ms=1e3 * block_s, save_write_s=write_s,
+         checkpoint_bytes=ckpt_bytes, launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
                  att_timed, att_launches, paper, ssm, ssm_serving,
-                 moe_serving, mla_serving, cross_serving):
+                 moe_serving, mla_serving, cross_serving, faults_flash,
+                 load_int8, restart_launches):
     """One row per TPU kernel. ``launches`` / ``att_launches`` are the
     counts read after the tinyllama serving and training paths,
     ``serve_flash`` the forward kernel's count in tinyllama's serving
     oracle, ``paper`` and ``ssm`` the (checks, times, counts) of phases
     9-10, ``ssm_serving``, ``moe_serving`` and ``mla_serving`` the counts
     read after each of those serving paths, ``cross_serving`` phase 18's
-    (launches, checks, times) per model: rows 2-3 add what those paths
-    launched (the int8 head; the oracles' attention, zamba2-7b's shared
-    block at head_dim 112, the MTP layer's, and the cross layers' in the
-    kernel's non-causal mode)."""
+    (launches, checks, times) per model, ``faults_flash``, ``load_int8``
+    and ``restart_launches`` the counts of phases 19-21: rows 2-5 add what
+    those paths launched (the int8 head; the oracles' attention, zamba2-7b's
+    shared block at head_dim 112, the MTP layer's, and the cross layers' in
+    the kernel's non-causal mode; the restarted training's three attention
+    kernels)."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -2725,13 +3033,18 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
                      "dtype": "bfloat16, causal"})
     # rows 2-3 run on more than one path: each path's count, set to 0 just
     # before it and read just after, and their sum
+    restart = f"train_restart tinyllama-1.1b ({RESTART_LAYERS} layers)"
     rows[1]["launches_by_path"] = {
         "serve tinyllama-1.1b": launches["matmul_int8"],
         **{f"serve {a}": v["matmul_int8"] for a, v in ssm_serving.items()},
         f"serve_moe {MOE_ARCH}": moe_serving["matmul_int8"],
-        f"serve_mla engine {MLA_ARCH}": mla_serving["matmul_int8"]}
+        f"serve_mla engine {MLA_ARCH}": mla_serving["matmul_int8"],
+        "serving_load tinyllama-1.1b": load_int8}
     rows[2]["launches_by_path"] = {
         "train tinyllama-1.1b": att_launches["flash_fwd"],
+        restart: restart_launches["flash_fwd"],
+        f"serve_faults oracle tinyllama-1.1b ({EXACT_LAYERS} layers)":
+            faults_flash,
         "serve_exact oracle tinyllama-1.1b": serve_flash,
         **{f"serve_exact oracle {a}": v["flash_fwd"]
            for a, v in ssm_serving.items()},
@@ -2739,7 +3052,11 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
         f"serve_mla lm_loss (MTP layer) {MLA_ARCH}": mla_serving["flash_fwd"],
         **{f"serve_cross {a} {dt} (non-causal)": n
            for a, v in cross_serving.items() for dt, n in v[0].items()}}
-    for row in rows[1:3]:
+    for row in rows[3:5]:
+        row["launches_by_path"] = {
+            "train tinyllama-1.1b": att_launches[row["name"]],
+            restart: restart_launches[row["name"]]}
+    for row in rows[1:5]:
         row["launches"] = sum(row["launches_by_path"].values())
     # the forward also at zamba2-7b's oracle shape (its own times and bound)
     rows[2]["zamba2_oracle"] = {
@@ -2809,12 +3126,16 @@ def main():
     phase_serve(cfg, params)          # sets the matmul counts to 0 first
     serve_flash = phase_serve_exact(cfg, params)
     launches = dict(mm.LAUNCHES)      # read right after the serving path
+    faults_flash = phase_serve_faults(cfg, params)  # each sets its counts
+    load_int8 = phase_serving_load(cfg, params)     # to 0 first
     del params
     free_memory()
 
     att_launches = phase_train(att_timed)   # sets its counts to 0 first
     free_memory()
     phase_train_exact()
+    free_memory()
+    restart_launches = phase_train_restart()    # sets its counts to 0 first
     free_memory()
 
     paper = phase_paper_kernels()           # each sets its counts to 0 first
@@ -2832,7 +3153,8 @@ def main():
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,
                                   ssm, ssm_serving, moe_serving, mla_serving,
-                                  cross_serving)), flush=True)
+                                  cross_serving, faults_flash, load_int8,
+                                  restart_launches)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,27 @@
-"""Fault tolerance: straggler detection.
+"""Fault tolerance: straggler detection, heartbeat bookkeeping, elastic
+re-mesh policy, checkpoint-based recovery.
 
-``StragglerMonitor`` is a copy of the reference's (pure host code): robust
-per-step timing (median + k*MAD) that flags outlier steps — a slow step
-throttles the run, so detection must be cheap. The reference module's
-heartbeat tracking, elastic re-mesh plan and checkpoint-based recovery wait
-for the checkpoint module and the multi-device machinery (ROADMAP Queue A
-10 and 13).
+``StragglerMonitor``, ``Heartbeat``, ``HeartbeatTracker``, ``ElasticPlan``
+and ``plan_remesh`` are copies of the reference's (pure host code), pinned
+to its source by ``tests/test_torch_checkpoint.py``:
+
+- ``StragglerMonitor``: robust per-step timing (median + k*MAD) that flags
+  outlier steps — a slow step throttles the run, so detection must be
+  cheap.
+- ``HeartbeatTracker``: dead hosts from missed heartbeats (poll-based).
+- ``ElasticPlan`` / ``plan_remesh``: given the surviving device count, the
+  largest valid (data, model) mesh and the new global batch.
+
+``recover`` restores the latest checkpoint onto one device (``device`` in
+place of the reference's target shardings; the mesh itself waits for the
+multi-device machinery, ROADMAP Queue A 13) or builds a fresh state.
 """
 from __future__ import annotations
 
+import dataclasses
 import statistics
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 
 class StragglerMonitor:
@@ -49,3 +59,68 @@ class StragglerMonitor:
     @property
     def median(self) -> float:
         return statistics.median(self.times) if self.times else 0.0
+
+
+@dataclasses.dataclass
+class Heartbeat:
+    host: int
+    last_seen: float
+
+
+class HeartbeatTracker:
+    """Detect dead hosts from missed heartbeats (poll-based)."""
+
+    def __init__(self, n_hosts: int, timeout_s: float = 60.0):
+        self.timeout = timeout_s
+        now = time.monotonic()
+        self.beats = {h: Heartbeat(h, now) for h in range(n_hosts)}
+
+    def beat(self, host: int, t: Optional[float] = None):
+        self.beats[host].last_seen = t if t is not None else time.monotonic()
+
+    def dead_hosts(self, now: Optional[float] = None) -> list[int]:
+        now = now if now is not None else time.monotonic()
+        return [h for h, b in self.beats.items()
+                if now - b.last_seen > self.timeout]
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    data: int
+    model: int
+    n_devices: int
+    global_batch: int
+    note: str
+
+    @property
+    def mesh_shape(self):
+        return (self.data, self.model)
+
+
+def plan_remesh(n_surviving: int, model: int, old_global_batch: int,
+                min_data: int = 1) -> ElasticPlan:
+    """Largest (data, model) mesh from survivors; lane axis preserved.
+
+    Batch policy: keep per-data-shard batch constant (scales global batch
+    down with data axis) so activation memory per device is unchanged.
+    """
+    data = max(n_surviving // model, min_data)
+    if data * model > n_surviving:
+        raise ValueError(f"cannot build mesh: {n_surviving} devices "
+                         f"< model axis {model}")
+    # keep global batch divisible by the new data axis
+    per_shard = max(old_global_batch // data, 1)
+    new_batch = per_shard * data
+    return ElasticPlan(data, model, data * model, new_batch,
+                       note=f"remesh {data}x{model} from {n_surviving} "
+                            f"survivors; global_batch {new_batch}")
+
+
+def recover(ckpt_dir: str, device, build_state: Callable,
+            step_hint: Optional[int] = None):
+    """Restore-or-init onto ``device``."""
+    from repro_torch.checkpoint import ckpt
+    step, state = ckpt.restore(ckpt_dir, step=step_hint, device=device)
+    if state is None:
+        return 0, build_state()
+    return step, state

@@ -1,13 +1,15 @@
 """Training launcher.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
-      --steps 50 [--reduced] [--fuse-steps 4] [--grad-accum 2] \
-      [--seq-len 2048 --batch 4] [--device cuda]
+      --steps 50 [--reduced] [--ckpt-dir DIR --ckpt-every 25] \
+      [--fuse-steps 4] [--grad-accum 2] [--seq-len 2048 --batch 4] \
+      [--device cuda]
 
 The reference's flags, minus ``--data/--model`` (one device, no mesh),
 plus ``--device`` (default: the card; raises without one).
 ``--reduced --device cpu`` runs the smoke-scale config on the CPU as a
-rehearsal; ``--ckpt-dir`` raises until checkpointing is ported.
+rehearsal. With ``--ckpt-dir`` the run saves every ``--ckpt-every`` steps
+and at its end, and resumes from the latest checkpoint found there.
 """
 from __future__ import annotations
 

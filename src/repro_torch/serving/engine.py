@@ -290,7 +290,9 @@ class ServingEngine:
         """Host-side slot/KV consistency: the I_SLOT_LEAK and I_KV_BOUNDS
         detectors. Runs before admission so reclaimed capacity is reusable
         in the same step."""
-        lengths = self.cache["lengths"].cpu().numpy()
+        # a snapshot, as the reference's: ``_free_slot`` writes the pool in
+        # place, and on a CPU tensor ``.numpy()`` would share its memory
+        lengths = self.cache["lengths"].cpu().numpy().copy()
         for slot in list(self.active):
             req = self.active[slot]
             if req is None or req.state.terminal():

@@ -1,11 +1,13 @@
-"""Training loop on one device: straggler monitoring, multi-step fusion,
-gradient accumulation, logging.
+"""Training loop on one device: checkpoint/restart, straggler monitoring,
+multi-step fusion, gradient accumulation, logging.
 
-The reference's loop begins with restore-or-init and checkpoints every
-``ckpt_every`` steps; the checkpoint module is not ported yet (ROADMAP
-Queue A 10), so a ``ckpt_dir`` raises here and the loop always begins from
-a fresh init. A mesh raises too (Queue A 13). ``fuse_steps`` = k runs k
-steps behind one call (core/stripmine.fuse_steps).
+Restart contract (the reference's): the loop always begins with
+restore-or-init; a SIGKILL at any point loses at most ``ckpt_every`` steps
+(checkpoints are atomic), and a restart resumes exactly — the state, the
+step and hence the batch and the learning rate are those of the run that
+was cut. The state is restored onto the trainer's device. A mesh raises
+(ROADMAP Queue A 13). ``fuse_steps`` = k runs k steps behind one call
+(core/stripmine.fuse_steps).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.stripmine import fuse_steps as _fuse
 from repro_torch.data.pipeline import DataConfig, make_source, to_device
@@ -45,10 +48,6 @@ class Trainer:
             raise NotImplementedError(
                 "Trainer runs on one device; a mesh waits for the "
                 "multi-device machinery (ROADMAP Queue A 13)")
-        if tcfg.ckpt_dir:
-            raise NotImplementedError(
-                "checkpointing (checkpoint/ckpt.py) is not ported yet: "
-                "ROADMAP Queue A 10")
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
@@ -71,6 +70,10 @@ class Trainer:
         return {"params": params, "opt": adamw.init(self.opt_cfg, params)}
 
     def restore_or_init(self):
+        if self.tcfg.ckpt_dir:
+            step, state = ckpt.restore(self.tcfg.ckpt_dir, device=self.device)
+            if state is not None:
+                return step, state
         return 0, self.init_state()
 
     # -- loop ---------------------------------------------------------------
@@ -80,6 +83,7 @@ class Trainer:
         t = self.tcfg
         fused = _fuse(self.step_fn, t.fuse_steps) if t.fuse_steps > 1 else None
         step = start
+        pending_save = None
         while step < t.steps:
             self.monitor.start_step()
             if fused is not None:
@@ -103,4 +107,13 @@ class Trainer:
                 self.metrics_log.append(m)
                 if on_step:
                     on_step(m)
+            if t.ckpt_dir and (step % t.ckpt_every == 0 or step >= t.steps):
+                if pending_save is not None:
+                    pending_save.join()
+                # the state is on the host when save returns: the next
+                # step's in-place update cannot reach the checkpoint
+                pending_save = ckpt.save(t.ckpt_dir, step, state,
+                                         blocking=False)
+        if pending_save is not None:
+            pending_save.join()
         return step, state

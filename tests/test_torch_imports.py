@@ -74,7 +74,12 @@ def test_the_walk_sees_the_whole_port():
                  "benchmarks/torch_fig6_kernels.py",
                  "benchmarks/torch_table1_hwacha.py",
                  "benchmarks/torch_table3_efficiency.py",
-                 "examples/torch_vector_engine_demo.py"):
+                 "examples/torch_vector_engine_demo.py",
+                 "src/repro_torch/serving/faults.py",
+                 "src/repro_torch/checkpoint/ckpt.py",
+                 "benchmarks/torch_serving_load.py",
+                 "examples/torch_serve_lm.py",
+                 "examples/torch_train_lm.py"):
         assert must in names
 
 
@@ -114,7 +119,8 @@ def test_importing_the_port_does_not_import_jax():
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
             "repro_torch.ft.elastic, repro_torch.core.vector_engine, "
             "repro_torch.core.cluster, repro_torch.testing.faults, "
-            "repro_torch.testing.differential; "
+            "repro_torch.testing.differential, repro_torch.serving.faults, "
+            "repro_torch.checkpoint.ckpt; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))"
             % str(PKG.parent))

@@ -324,9 +324,6 @@ def test_attn_overrides_and_one_device_contract():
     with pytest.raises(NotImplementedError, match="Queue A 13"):
         tstep.make_train_step(cfg, tadamw.OptConfig(), ctx=object())
     data = tdata.DataConfig(seq_len=8, global_batch=2, vocab_size=256)
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        Trainer(cfg, tadamw.OptConfig(), data,
-                TrainerConfig(ckpt_dir="ckpt"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A 13"):
         Trainer(cfg, tadamw.OptConfig(), data, TrainerConfig(),
                 mesh=object(), device="cpu")
