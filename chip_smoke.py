@@ -11,9 +11,9 @@ serves zamba2-7b and xlstm-1.3b, granite-moe-3b-a800m, deepseek-v3-671b
 (MLA, depth cut), llama-3.2-vision-11b (one group) and seamless-m4t-medium
 at full width, runs the Ara vector engine (one lane, lane-partitioned
 and clustered) on the differential grid and the paper's Listing-1 matmul,
-and runs the fault-tolerance slice: the serving fault registry and its
-load gate on tinyllama-1.1b, and training that checkpoints and resumes.
-Without
+runs the fault-tolerance slice: the serving fault registry and its
+load gate on tinyllama-1.1b, and training that checkpoints and resumes,
+and trains the other five families at full width. Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
 
@@ -47,13 +47,24 @@ non-zero and prints no result. Phases, one JSON line each:
                (1,4,1024,128), float16 at (1,4,2048,64), where the
                tensor-core tiles split differently, and at
                head_dim 45 (staged element by element); two
-               launches of each kernel bit-equal; then times
+               launches of each kernel bit-equal; at the family train
+               steps' shapes (phases 22-26) in bf16 and float32: the
+               vision cross layer (2,32,2048,1600,128) and the audio one
+               (2,16,2048,512,64), non-causal, the vision case with dead
+               keys and a dead batch row (zeros in out, dq, dk, dv),
+               zamba2-7b's shared block (2,32,2048,2048,112) and head_dim
+               128 (2,32,2048,2048,128), causal; then times
                kernels, plain versions, bounds and
                ``F.scaled_dot_product_attention`` as a yardstick, and the
-               forward at zamba2-7b's oracle shape. A line
+               forward at zamba2-7b's oracle shape, and the three bf16
+               kernels at the four train shapes beside SDPA's forward and
+               backward. A line
                ``attention_ptxas`` before it gives the registers and spills
                of every specialisation of the three kernels (none may
-               spill on the tensor cores at 64 head columns).
+               spill on the tensor cores at 64 head columns), and
+               ``attention_ptxas_bwd_dp128`` the backward kernels' 128-
+               column specialisations, where head_dim 112 and 128 run
+               (printed, not gated).
 5. ``serve``   tinyllama-1.1b, 8 slots, 16 requests, degrade ladder down to
                the int8 logits head; checks states, tokens, events and that
                the int8 kernel was launched once per int8 step.
@@ -169,7 +180,10 @@ non-zero and prints no result. Phases, one JSON line each:
                version at the cross shapes (2,32,Sq,1600,128) and
                (2,16,Sq,512,64), Sq 128 and 1, bf16 and f32, with dead
                rows; times at both in bf16 beside the plain version and
-               ``F.scaled_dot_product_attention``.
+               ``F.scaled_dot_product_attention``; and float32 held at
+               one self and one cross layer (vision) and one encoder and
+               one decoder layer (audio), cached logits within 1e-3 of the
+               largest logit of the no-cache forward's.
 19. ``serve_faults`` every class of ``serving.faults.REGISTRY`` through
                ``verify`` on tinyllama-1.1b at full width, depth cut to 4
                layers, float32 (installed by ``faults.use_fixture``):
@@ -196,12 +210,36 @@ non-zero and prints no result. Phases, one JSON line each:
                blocks in ``save`` beside the writer's; the attention
                kernels' launches. Checkpoints under ``tempfile.mkdtemp()``,
                deleted afterwards.
+22-26. ``train_moe`` (granite-moe-3b-a800m, 16 of 32 layers), ``train_mla``
+               (deepseek-v3-671b: 1 dense + 1 MoE layer with 32 of 256
+               routed experts, and the MTP module; bf16 parameters and
+               moments; 2 x 2048), ``train_hybrid`` (zamba2-7b, 12 of 81
+               layers: the shared block twice), ``train_ssm`` (xlstm-1.3b,
+               48 layers) and ``train_cross`` (llama-3.2-vision-11b,
+               one group, gate 0.5; seamless-m4t-medium, 12 + 12 layers;
+               stub ``frontend_emb`` in the batch): full width, the
+               config's dtypes, full remat, AdamW, 3 steps at 4 x 2048
+               of ``SyntheticLM``: each step's loss and grad norm finite,
+               the learning rate ``adamw.schedule``'s, the embedding, the
+               first and last layer and the router, gate, shared block or
+               MTP module moved, and the attention kernels' launches
+               exactly ``train_launches`` (full remat: the forward twice a
+               layer; MLA, the mLSTM and Mamba2 layers and the audio
+               encoder take none); step ms, tokens/s, peak memory,
+               ``reduced`` and seconds. Then one step's loss and gradients
+               at 2 layers or fewer (zamba2-7b: 6, its first shared block;
+               vision: one self and one cross layer): float32, kernel route
+               against the route forced off, at the configured init and
+               with the attention projections at the width's fan-in;
+               float64 kernel route against plain; deepseek-v3 and
+               xlstm-1.3b float32 against float64.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
-phases 7 and 21, the oracles of 6, 12, 16 and 19, phase 17's loss and
-phase 18's serve steps for the forward attention kernel (each path's count
-in ``launches_by_path``), of phases 7 and 21 for the backward ones, of
+phases 7, 21 and 22-26, the oracles of 6, 12, 16 and 19, phase 17's loss
+and phase 18's serve steps for the forward attention kernel (each path's
+count in ``launches_by_path``), of phases 7, 21 and 22-26 for the backward
+ones, of
 phases 9-10 for axpy, conv and the scan; error, times and bound per
 kernel), one line with the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: nothing is caught and passed
@@ -878,24 +916,116 @@ def attention_ptxas(log=None):
     return rows
 
 
-def att_bound(op: str, b, h, s, d, elt: int, dtype: str = "bfloat16"):
-    """Least time for one causal call at (b, h, s, d): the bytes of its
-    inputs and outputs once over the memory rate, or its products over the
-    peak rate for ``dtype`` (bf16: the tensor cores; float32: the CUDA
-    cores, TF32 being off) — the products of the causal triangle this input
-    needs (S(S+1)/2 pairs per head): forward q.k and p.v, dQ q.k, dO.v and
-    ds.k, dK/dV those two plus p.dO and ds.q, each 2*D operations a pair."""
-    g, pairs = b * h, s * (s + 1) / 2
-    mat = g * s * d * elt                       # one (G,S,D) operand
-    vec = g * s * 4                             # one (G,S) fp32 row vector
-    n_in, n_out, n_vec, n_prod = {
-        "flash_fwd": (3, 1, 3, 2),              # q k v | out | kvm, lse, probe
-        "flash_bwd_dq": (4, 1, 3, 3),           # q k v dO | dq | kvm lse delta
-        "flash_bwd_dkv": (4, 2, 3, 4)}[op]
-    t_bytes = ((n_in + n_out) * mat + n_vec * vec) / PEAK_BYTES_PER_S
+def att_bound(op: str, b, h, s, d, elt: int, dtype: str = "bfloat16",
+              sk=None, causal=True):
+    """Least time for one call at (b, h, s queries, ``sk`` keys (default
+    s), d): the bytes of its inputs and outputs once over the memory rate,
+    or its products over the peak rate for ``dtype`` (bf16: the tensor
+    cores; float32: the CUDA cores, TF32 being off) — the products of the
+    (query, key) pairs this input needs, the causal triangle's S(S+1)/2 a
+    head or, without the causal term, the whole Sq x Sk rectangle: forward
+    q.k and p.v, dQ q.k, dO.v and ds.k, dK/dV those two plus p.dO and
+    ds.q, each 2*D operations a pair."""
+    sk = s if sk is None else sk
+    g = b * h
+    pairs = s * (s + 1) / 2 if causal else s * sk
+    q_mat, k_mat = g * s * d * elt, g * sk * d * elt  # one (G,S,D) operand
+    q_vec, k_vec = g * s * 4, g * sk * 4               # one fp32 row vector
+    t_bytes, n_prod = {
+        # q k v | out | kvm, lse, probe
+        "flash_fwd": (2 * q_mat + 2 * k_mat + k_vec + 2 * q_vec, 2),
+        # q k v dO | dq | kvm lse delta
+        "flash_bwd_dq": (3 * q_mat + 2 * k_mat + k_vec + 2 * q_vec, 3),
+        # q k v dO | dk dv | kvm lse delta
+        "flash_bwd_dkv": (2 * q_mat + 4 * k_mat + k_vec + 2 * q_vec, 4)}[op]
+    t_bytes /= PEAK_BYTES_PER_S
     t_ops = n_prod * 2 * d * g * pairs / PEAKS_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# (tag, (batch, heads, Sq, Sk, head_dim), causal, dead) where the train
+# steps of phases 22-26 run the three kernels: the vision and audio cross
+# layers (non-causal; the vision case also checked with dead keys and a
+# dead batch row), zamba2-7b's shared block (head_dim 112 in the kernels' 128
+# columns) and head_dim 128 (the vision self layers, deepseek-v3's MTP
+# layer), causal
+TRAIN_SHAPES = (
+    ("vision cross", (2, 32, 2048, 1600, 128), False, True),
+    ("audio cross", (2, 16, 2048, 512, 64), False, False),
+    ("zamba2 shared", (2, 32, 2048, 2048, 112), True, False),
+    ("d128", (2, 32, 2048, 2048, 128), True, False),
+)
+SHAPE_TIMING = dict(warmup=2, reps=10, inner=5)
+SHAPE_HEAVY = dict(warmup=1, reps=3, inner=2)   # the plain versions
+
+
+def time_attention(f, shape, causal, results, timing=SHAPE_TIMING,
+                   heavy=SHAPE_HEAVY):
+    """Device ms of the three bf16 kernels on the operands ``f`` of
+    :func:`check_attention` at ``shape`` (batch, heads, Sq, Sk, head_dim),
+    beside their plain versions (timed with ``heavy``), their bounds and
+    F.scaled_dot_product_attention's forward and backward (dQ, dK, dV
+    together; no key mask), each with its largest error in ``results``."""
+    b, h, sq, sk, d = shape
+    qf, kf, vf, kvm, geom = (f[n] for n in ("qf", "kf", "vf", "kvm", "geom"))
+    bwd = (qf, kf, vf, kvm, f["doutf"], f["lse"], f["delta"])
+    errs = {r["check"]: r["max_err"] for r in results}
+    sdpa = F.scaled_dot_product_attention
+    q4, k4, v4 = (f[x].detach().requires_grad_(True) for x in "qkv")
+    lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), **timing)
+    o4 = sdpa(q4, k4, v4, is_causal=causal)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), f["dout"], retain_graph=True), **timing)
+    row = {"shape": list(shape), "causal": causal, "dtype": "bfloat16",
+           "blocks": [geom["bq"], geom["bk"]],
+           "library_note": "F.scaled_dot_product_attention, no key mask: "
+                           "forward; backward (dQ, dK, dV together)"}
+    for name, fn, plain, err in (
+            ("flash_fwd", lambda: att.flash_fwd(qf, kf, vf, kvm, **geom),
+             lambda: att.flash_fwd_plain(qf, kf, vf, kvm, **geom),
+             errs[f"flash_fwd out {f['name']}"]),
+            ("flash_bwd_dq", lambda: att.flash_bwd_dq(*bwd, **geom),
+             lambda: att.flash_bwd_dq_plain(*bwd, **geom),
+             errs[f"flash_bwd_dq {f['name']}"]),
+            ("flash_bwd_dkv", lambda: att.flash_bwd_dkv(*bwd, **geom),
+             lambda: att.flash_bwd_dkv_plain(*bwd, **geom),
+             max(errs[f"flash_bwd_dkv dk {f['name']}"],
+                 errs[f"flash_bwd_dkv dv {f['name']}"]))):
+        bnd, by = att_bound(name, b, h, sq, d, 2, sk=sk, causal=causal)
+        row[name] = {"ms": time_ms(fn, **timing),
+                     "plain_ms": time_ms(plain, **heavy),
+                     "library_ms": lib_fwd if name == "flash_fwd"
+                     else lib_bwd,
+                     "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+    return row
+
+
+def check_train_shapes(results):
+    """The forward, dQ and dK/dV against their plain versions at
+    TRAIN_SHAPES in bfloat16 and float32 (dead rows zero in out, dq, dk and
+    dv where the shape has them); the bf16 kernels timed on operands with
+    every key live, as the train step gives them (its frontend memory has
+    no mask), so that the bound's full rectangle is the work timed; where
+    the shape's check has dead keys, those operands are checked too.
+    Returns {tag: times}."""
+    timed = {}
+    for i, (tag, shape, causal, dead) in enumerate(TRAIN_SHAPES):
+        for j, dtype in enumerate((torch.bfloat16, torch.float32)):
+            f = check_attention(f"{tag} {shape}", *shape, dtype, causal, 128,
+                                128, 80 + 2 * i + j, results,
+                                p_valid=0.9 if dead else 1.0, dead=dead)
+            if dtype == torch.bfloat16 and dead:
+                del f
+                free_memory()
+                f = check_attention(f"{tag} live {shape}", *shape, dtype,
+                                    causal, 128, 128, 90 + i, results,
+                                    p_valid=1.0)
+            if dtype == torch.bfloat16:
+                timed[tag] = time_attention(f, shape, causal, results)
+            del f
+            free_memory()
+    return timed
 
 
 def phase_attention():
@@ -908,6 +1038,10 @@ def phase_attention():
                               or r["spill_load_bytes"] != 0 for r in mma64):
         raise AssertionError(f"tensor-core kernels at 64 head columns: "
                              f"missing or spilling {mma64}")
+    # head_dim 112 and 128 both run in the 128-column specialisation
+    emit("attention_ptxas_bwd_dp128", head_dims=[112, 128], kernels=[
+        r for r in ptxas
+        if r["kernel"] != "flash_fwd" and r["head_cols"] == 128])
     results: list = []
     b, h, s, d = TRAIN_ATT
     ops_ = check_attention("train", b, h, s, s, d, torch.bfloat16, True,
@@ -952,42 +1086,19 @@ def phase_attention():
     check_attention("d45 100x100 b32x32", 1, 2, 100, 100, 45, torch.bfloat16,
                     True, 32, 32, 44, results)
     check_deterministic(ops_, results)
+    train_shapes = check_train_shapes(results)
 
-    # times at the training shape
-    qf, kf, vf, kvm = (ops_[x] for x in ("qf", "kf", "vf", "kvm"))
-    bwd = (qf, kf, vf, kvm, ops_["doutf"], ops_["lse"], ops_["delta"])
-    geom = ops_["geom"]
+    # times at the training shape (the kernels over 20 batches of 10)
     heavy = dict(warmup=2, reps=5, inner=3)
-    timed = {
-        "flash_fwd": {
-            "ms": time_ms(lambda: att.flash_fwd(qf, kf, vf, kvm, **geom)),
-            "plain_ms": time_ms(lambda: att.flash_fwd_plain(
-                qf, kf, vf, kvm, **geom), **heavy)},
-        "flash_bwd_dq": {
-            "ms": time_ms(lambda: att.flash_bwd_dq(*bwd, **geom)),
-            "plain_ms": time_ms(lambda: att.flash_bwd_dq_plain(*bwd, **geom),
-                                **heavy)},
-        "flash_bwd_dkv": {
-            "ms": time_ms(lambda: att.flash_bwd_dkv(*bwd, **geom)),
-            "plain_ms": time_ms(lambda: att.flash_bwd_dkv_plain(
-                *bwd, **geom), **heavy)},
-    }
-    # the library's fused attention, a yardstick only: its forward, and its
-    # backward, which yields dQ, dK and dV together
-    q4, k4, v4 = (ops_[x].detach().requires_grad_(True) for x in "qkv")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True))
-    o4 = sdpa(q4, k4, v4, is_causal=True)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        o4, (q4, k4, v4), ops_["dout"], retain_graph=True))
-    for name, lib in (("flash_fwd", lib_fwd), ("flash_bwd_dq", lib_bwd),
-                      ("flash_bwd_dkv", lib_bwd)):
-        bnd, by = att_bound(name, b, h, s, d, 2)
-        timed[name].update(bound_ms=bnd, bound_by=by, library_ms=lib)
+    row = time_attention(ops_, (b, h, s, s, d), True, results, timing={},
+                         heavy=heavy)
+    timed = {name: row[name]
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     timed["library_note"] = ("F.scaled_dot_product_attention(is_causal=True)"
                              " on (4,32,2048,64) bf16: forward, and its "
                              "backward (dQ, dK, dV together) for both "
                              "backward rows")
+    sdpa = F.scaled_dot_product_attention
     # the forward at zamba2-7b's oracle shape, where its shared attention
     # runs (head_dim 112 in the kernel's 128 columns)
     zb, zh, zsq, zsk, zd = ZAMBA_ATT
@@ -1006,8 +1117,9 @@ def phase_attention():
                 qz, kz, vz, kvz, **zgeom), **heavy),
             "library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True)),
             "bound_ms": bnd, "bound_by": by}
+    timed["train_shapes"] = train_shapes
     emit("attention", shape=list(TRAIN_ATT), dtype="bfloat16", causal=True,
-         blocks=[geom["bq"], geom["bk"]], n_checks=len(results),
+         blocks=row["blocks"], n_checks=len(results),
          checks=results, timed=timed)
     return results, timed
 
@@ -1420,14 +1532,14 @@ def _loss_and_grads(cfg, params, batch, flash):
 
 def _route_gap(cfg, params, batch):
     """Loss and gradients on the kernel route ("auto" on the card) and on
-    the route forced off; the kernel route's launch counts are exact.
+    the route forced off; the kernel route's launch counts are exactly
+    :func:`train_launches`.
     Returns the loss gap and the largest gradient gap as a share of
     max|grad| of its parameter."""
     l_on, g_on, n_on = _loss_and_grads(cfg, params, batch, "auto")
     l_off, g_off, n_off = _loss_and_grads(cfg, params, batch, "off")
     L = cfg.n_layers
-    assert n_on == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
-                    "flash_bwd_dkv": L}, n_on
+    assert n_on == train_launches(cfg), (n_on, train_launches(cfg))
     assert not any(n_off.values()), n_off
     worst = 0.0
     for a, b_ in zip(tree_leaves(g_on), tree_leaves(g_off)):
@@ -1441,17 +1553,39 @@ def _route_gap(cfg, params, batch):
             "grad_gap_of_max": worst, "grad_norm": gnorm}
 
 
+def _bf16_route_gap(cfg, params, batch):
+    """The largest gradient gap, as a share of its leaf's largest entry,
+    of the kernel route in bfloat16 compute from the float32 route forced
+    off, on the same float32 parameters: what a lower-precision route
+    reads."""
+    c16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    _, g16, _ = _loss_and_grads(c16, params, batch, "auto")
+    _, g32, _ = _loss_and_grads(cfg, params, batch, "off")
+    return {"grad_gap_of_max": max(
+        float((a - b_).abs().max()) / max(float(b_.abs().max()), 1e-30)
+        for a, b_ in zip(tree_leaves(g16), tree_leaves(g32)))}
+
+
 def _conditioned(params, cfg):
-    """The same parameters with the attention projections rescaled to the
-    model width's fan-in, 1/sqrt(d_model), instead of the init law's
-    1/sqrt(heads) (wq, wk, wv) and 1/sqrt(head_dim) (wo)."""
-    attn = params["layers"]["attn"]
+    """The same parameters with the projections of every GQA attention
+    block (a dict holding wq, wk, wv and wo: self, cross, shared, encoder
+    and MTP layers) rescaled to the model width's fan-in, 1/sqrt(d_model),
+    instead of the init law's 1/sqrt(heads) (wq, wk, wv) and
+    1/sqrt(head_dim) (wo); every other leaf as it was."""
     d = cfg.d_model
-    scaled = {k: w * (w.shape[-2] / d) ** 0.5 if k != "wo"
-              else w * (w.shape[-2] / (w.shape[-3] * w.shape[-2])) ** 0.5
-              for k, w in attn.items()}
-    layers = dict(params["layers"], attn=scaled)
-    return dict(params, layers=layers)
+
+    def scaled(k, w):
+        if k in ("wq", "wk", "wv"):
+            return w * (w.shape[-2] / d) ** 0.5
+        return w * (1.0 / w.shape[-3]) ** 0.5 if k == "wo" else w
+
+    def walk(t):
+        if not isinstance(t, dict):
+            return t
+        if {"wq", "wk", "wv", "wo"} <= t.keys():
+            return {k: scaled(k, w) for k, w in t.items()}
+        return {k: walk(v) for k, v in t.items()}
+    return walk(params)
 
 
 def phase_train_exact():
@@ -2141,18 +2275,6 @@ def run_mla_serving(cfg):
     return out
 
 
-def cross_bound(b, h, sq, sk, d, elt, dtype):
-    """Least time for one non-causal forward: q, k, v read and out written
-    once plus the key mask and lse, or the two products (q.k and p.v, 2*D
-    operations a pair) of every query with every key."""
-    g = b * h
-    t_bytes = ((2 * sq + 2 * sk) * g * d * elt + g * (sk + sq) * 4) \
-        / PEAK_BYTES_PER_S
-    t_ops = 2 * 2 * d * g * sq * sk / PEAKS_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def check_cross_kernel(arch, results):
     """The forward kernel in its non-causal mode at ``arch``'s cross shape,
     against its plain version: bf16 and f32 with every memory row valid
@@ -2170,7 +2292,8 @@ def check_cross_kernel(arch, results):
             if dtype == torch.bfloat16:
                 kw = dict(zip(("qf", "kf", "vf", "kvm"),
                               (f[n] for n in ("qf", "kf", "vf", "kvm"))))
-                bnd, by = cross_bound(b, h, rows, sk, d, 2, "bfloat16")
+                bnd, by = att_bound("flash_fwd", b, h, rows, d, 2, sk=sk,
+                                    causal=False)
                 timed[f"sq{rows}"] = {
                     "shape": [b, h, rows, sk, d], "dtype": "bfloat16",
                     "causal": False, "blocks": [f["geom"]["bq"],
@@ -2250,6 +2373,27 @@ def serve_cross_steps(cfg, params, prompt=128, steps=4, tol=None):
                    "flash_fwd_launches": flash}
 
 
+# where serve_cross holds float32 (4 layers or fewer: the random stack is
+# chaotic deeper): one self layer and its cross layer; one encoder and one
+# decoder layer. Cached logits against the full forward's within
+# CROSS_FP32_TOL of the largest logit (serve_exact holds the dense model to
+# 1e-3 absolute; the vision cut's prefill reads 1.9e-3 absolute, and at
+# 2 + 2 layers the audio model's 9.6e-3 of 3.79: the init law's attention
+# projections amplify float32 rounding from the first layers on).
+CROSS_FP32_CUT = {VISION_ARCH: (("n_layers", 1), ("cross_attn_every", 1)),
+                  AUDIO_ARCH: (("n_layers", 1), ("n_encoder_layers", 1))}
+CROSS_FP32_TOL = 1e-3
+
+
+def _cut_stacks(cfg, params):
+    """The first layers of each stacked tree that ``cfg``'s depths keep."""
+    keep = {"layers": cfg.n_layers,
+            "cross_layers": cfg.n_layers // max(cfg.cross_attn_every, 1),
+            "enc_layers": cfg.n_encoder_layers}
+    return {k: tree_map(lambda a, n=keep[k]: a[:n], v) if k in keep else v
+            for k, v in params.items()}
+
+
 def phase_serve_cross(cfg, params):
     """Phase 18 for one frontend model at full width (``params`` float32):
     the forward kernel against its plain version at the model's cross
@@ -2258,7 +2402,8 @@ def phase_serve_cross(cfg, params):
     bfloat16 (the configured compute, timed), their gaps printed: the
     random stack is chaotic (see :func:`full_depth_witness`), so that in
     float32 one summation order against another moves the vision model's
-    logits by far more than 1e-3. Returns ({dtype: launches}, checks,
+    logits by far more than 1e-3; and float32 held within CROSS_FP32_TOL
+    at the depth CROSS_FP32_CUT keeps. Returns ({run: launches}, checks,
     times)."""
     results = []
     timed = check_cross_kernel(cfg.name, results)
@@ -2271,6 +2416,14 @@ def phase_serve_cross(cfg, params):
                                                          tol=tol)
         del cast
         free_memory()
+    cut_cfg = dataclasses.replace(_replace(cfg, CROSS_FP32_CUT[cfg.name]),
+                                  compute_dtype="float32")
+    held = "float32, " + ", ".join(f"{k} {v}"
+                                   for k, v in CROSS_FP32_CUT[cfg.name])
+    launches[held], runs[held] = serve_cross_steps(
+        cut_cfg, _cut_stacks(cut_cfg, params))
+    runs[held].update(cut=dict(CROSS_FP32_CUT[cfg.name]),
+                      logits_rel_tol=CROSS_FP32_TOL)
     emit("serve_cross", arch=cfg.name, family=cfg.family,
          n_layers=cfg.n_layers, n_encoder_layers=cfg.n_encoder_layers,
          d_model=cfg.d_model,
@@ -2279,6 +2432,9 @@ def phase_serve_cross(cfg, params):
                      if "cross_layers" in params else None),
          runs=runs, n_checks=len(results), checks=results, timed=timed,
          max_memory_allocated=torch.cuda.max_memory_allocated())
+    held = runs[held]
+    assert max(held["logits_err"]) <= CROSS_FP32_TOL * held["logit_max"], \
+        held
     return launches, results, timed
 
 
@@ -2968,12 +3124,380 @@ def phase_train_restart():
 
 
 # ---------------------------------------------------------------------------
+# phases 22-26: train the other families at full width
+# ---------------------------------------------------------------------------
+
+
+def train_launches(cfg):
+    """Launches of each attention kernel in one train step of ``cfg``
+    (one forward and backward of ``lm_loss`` without a cache), from the
+    code: each attention call of a layer under ``remat="full"`` runs the
+    forward twice (again when the backward recomputes the layer) and each
+    backward kernel once. The kernel takes the causal self-attention of the
+    dense, moe (GQA), vlm and audio decoder layers and of the hybrid
+    family's shared block (after each whole group of ``attn_every`` Mamba2
+    layers), and the cross layers (non-causal); not MLA, not the mLSTM and
+    Mamba2 layers, not the audio encoder (non-causal self-attention, which
+    the reference routes through its kernel only when triangular). The MTP
+    layer (GQA) runs outside the layer loop, without remat: once each."""
+    fam, n = cfg.family, cfg.n_layers
+    remat = 2 if cfg.remat == "full" else 1
+    layers = {"dense": n, "moe": 0 if cfg.use_mla else n, "ssm": 0,
+              "hybrid": n // max(cfg.attn_every, 1),
+              "vlm": n + n // max(cfg.cross_attn_every, 1),
+              "audio": 2 * n}[fam]
+    once = 1 if cfg.mtp_depth else 0
+    return {"flash_fwd": remat * layers + once,
+            "flash_bwd_dq": layers + once, "flash_bwd_dkv": layers + once}
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyRun:
+    """One family's train phase: the configuration ``arch`` cut by
+    ``cut`` (depth, and the routed experts for deepseek-v3), trained on
+    ``batch`` sequences of TRAIN_SEQ tokens a step; ``exact`` cuts it for
+    the exactness checks (float32 and float64); ``fp64_route``: the float64
+    kernel route against the plain route fits the card (else float32 is
+    held against float64, the route forced on in both)."""
+    phase: str
+    arch: str
+    cut: tuple
+    batch: int
+    exact: tuple
+    fp64_route: bool = True
+
+
+def _replace(cfg, cut):
+    """``cfg`` with the fields of ``cut`` ((name, value) pairs; "moe."
+    names replace fields of ``cfg.moe``)."""
+    top = {k: v for k, v in cut if not k.startswith("moe.")}
+    moe = {k[4:]: v for k, v in cut if k.startswith("moe.")}
+    if moe:
+        top["moe"] = dataclasses.replace(cfg.moe, **moe)
+    return dataclasses.replace(cfg, **top)
+
+
+FAMILY_STEPS = 3
+FAMILY_RUNS = (
+    # 16 of 32 layers: the state of all 32 (63 GB) leaves no room for the
+    # step's activations
+    FamilyRun("train_moe", MOE_ARCH, (("n_layers", 16),), 4,
+              (("n_layers", 2),)),
+    # 1 dense + 1 MoE layer (MLA) and the MTP module, 32 of 256 routed
+    # experts: one MoE layer's 256 experts alone are 11.3 G parameters;
+    # 2 x 2048: the triangular MLA loop keeps fp32 scores of 128 heads
+    FamilyRun("train_mla", MLA_ARCH,
+              (("n_layers", 2), ("moe.n_dense_layers", 1),
+               ("moe.n_experts", 32)), 2,
+              (("n_layers", 2), ("moe.n_dense_layers", 1),
+               ("moe.n_experts", 8)), fp64_route=False),
+    # 12 of 81 layers: two groups of 6 Mamba2 layers, each closed by the
+    # shared block; the exactness cut is one group (the least depth that
+    # reaches the shared block)
+    FamilyRun("train_hybrid", "zamba2-7b", (("n_layers", 12),), 4,
+              (("n_layers", 6),)),
+    FamilyRun("train_ssm", "xlstm-1.3b", (), 4, (("n_layers", 2),),
+              fp64_route=False),
+    # one group: 5 self layers and the cross layer; the exactness cut is
+    # one self layer and its cross layer
+    FamilyRun("train_cross", VISION_ARCH, (("n_layers", 5),), 4,
+              (("n_layers", 1), ("cross_attn_every", 1))),
+    FamilyRun("train_cross", AUDIO_ARCH, (), 4,
+              (("n_layers", 1), ("n_encoder_layers", 1))),
+)
+# the float32 step against float64 (route forced on in both), where no
+# float64 kernel route is held (deepseek-v3, xlstm-1.3b): the loss gap as a
+# share of the float64 loss, the gradients' as a share of each float64
+# leaf's largest entry, at the exactness cut. Measured on the card:
+# deepseek-v3 4.4e-7 and 2.6e-3 (its MTP loss alone is ~620 at init),
+# xlstm-1.3b 1.2e-7 and 4.2e-4 (the mLSTM normaliser, as in
+# tests/test_torch_train_families.py)
+PRECISION_LOSS_TOL = 1e-5
+PRECISION_GRAD_TOL = 5e-3
+# the float32 route gap at the configured init of a stack that the
+# conditioned check also holds (all but the mixture-of-experts families,
+# which are held to FP32_GRAD_TOL there): the init's attention projections
+# amplify rounding (vision, 1 self + 1 cross layer: 3.84e-4 of a leaf's
+# largest gradient, the same in every run; float64's route gap 1.9e-12
+# there; zamba2-7b and seamless-m4t-medium 2.0e-5 and 2.1e-5). A bfloat16
+# kernel route against the float32 plain route (``bf16_route``) must read
+# above it, so that the limit would fail a lower-precision route
+INIT_GRAD_TOL = 1e-3
+
+
+def _family_batch(cfg, b, s, seed, step=0):
+    """``SyntheticLM``'s batch ``step`` on the card, with stub frontend
+    embeddings (float32, from ``seed``) for the vision and encoder-decoder
+    models, as the reference's tests pass them."""
+    batch = to_device(SyntheticLM(DataConfig(
+        seq_len=s, global_batch=b, vocab_size=cfg.vocab_size,
+        seed=seed)).batch(step), DEV)
+    if cfg.frontend_seq:
+        gen = torch.Generator(device=DEV).manual_seed(seed + 100 + step)
+        batch["frontend_emb"] = torch.randn(
+            (b, cfg.frontend_seq, cfg.frontend_dim or cfg.d_model),
+            generator=gen, device=DEV)
+    return batch
+
+
+def _family_params(cfg, seed, dtype=None):
+    """Parameters on the card from ``seed`` (the config's own dtype unless
+    ``dtype``), the vision cross gate set to CROSS_GATE: at its initial
+    zero a cross layer adds nothing and passes back a zero gradient."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = init_params(model_template(cfg), gen,
+                         dtype=dtype or cfg.param_dtype, device=DEV)
+    if "cross_layers" in params:
+        params["cross_layers"]["attn"]["gate"].fill_(CROSS_GATE)
+    return params
+
+
+def _probe_paths(cfg):
+    """(name, path, layer index or None) of the leaves whose moves a train
+    phase asserts: the first and last layer of the stack, and the router,
+    gate, shared block and MTP module where the family has them."""
+    fam, last = cfg.family, cfg.n_layers - 1
+    if fam == "moe":
+        first = (("dense_layers", "attn", "wq_a", 0) if cfg.use_mla
+                 else ("layers", "attn", "wq", 0))
+        wq = "wq_a" if cfg.use_mla else "wq"
+        n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+        out = [("first layer", first[:-1], first[-1]),
+               ("last layer", ("layers", "attn", wq), n_moe - 1),
+               ("router", ("layers", "moe", "router"), n_moe - 1)]
+        if cfg.mtp_depth:
+            out.append(("mtp", ("mtp", "proj"), None))
+        return out
+    if fam in ("ssm", "hybrid"):
+        out = [("first layer", ("layers", "mix", "out_proj"), 0),
+               ("last layer", ("layers", "mix", "out_proj"), last)]
+        if fam == "hybrid":
+            out.append(("shared block", ("shared_attn", "attn", "wq"), None))
+        return out
+    if fam == "vlm":
+        return [("first layer", ("layers", "attn", "wq"), 0),
+                ("last layer", ("layers", "attn", "wq"), last),
+                ("cross layer", ("cross_layers", "attn", "wq"), 0),
+                ("gate", ("cross_layers", "attn", "gate"), 0)]
+    return [("first layer", ("enc_layers", "attn", "wq"), 0),
+            ("last layer", ("layers", "attn", "wq"), last),
+            ("cross attention", ("layers", "xattn", "wq"), last)]
+
+
+def _probe(params, path, index, rows):
+    """A copy of a few entries of one leaf: ``rows`` of the embedding, else
+    the first 4096 of layer ``index`` (or of the whole leaf)."""
+    t = params
+    for k in path:
+        t = t[k]
+    if path == ("embed",):
+        return t[rows].clone()
+    if index is not None:
+        t = t[index]
+    return t.reshape(-1)[:4096].clone()
+
+
+def _precision_gap(c32, c64, seed, batch):
+    """Loss and gradients in float32 and in float64 (the route forced on,
+    ``auto``, in both) from the same parameters, drawn in float32 from
+    ``seed``: the loss gap and the largest gradient gap as a share of its
+    float64 leaf's largest entry. The float32 gradients wait on the host
+    while float64 runs, and the float32 tree is freed once widened, so that
+    deepseek-v3's float64 tree (32 GB) fits beside its gradients."""
+    params = _family_params(c32, seed, dtype="float32")
+    l32, g32, n32 = _loss_and_grads(c32, params, batch, "auto")
+    g32 = tree_map(lambda g: g.cpu(), g32)
+    p64 = tree_map(lambda a: a.double(), params)
+    del params
+    free_memory()
+    l64, g64, n64 = _loss_and_grads(c64, p64, batch, "auto")
+    del p64
+    assert n32 == n64 == train_launches(c32), (n32, n64)
+    worst = 0.0
+    for a, b_ in zip(tree_leaves(g32), tree_leaves(g64)):
+        assert bool(torch.isfinite(b_).all())
+        scale = float(b_.abs().max())
+        gap = float((a.to(DEV).double() - b_).abs().max())
+        worst = max(worst, gap / max(scale, 1e-30))
+    del g64
+    return {"n_layers": c32.n_layers, "loss": float(l32),
+            "loss_fp64": float(l64), "loss_gap": abs(float(l32) - float(l64)),
+            "grad_gap_of_max": worst}
+
+
+def family_exactness(run, full):
+    """One train step's loss and gradients at the exactness cut of ``run``
+    at full width, batch 2 x 256: float32, kernel route against the route
+    forced off (exact launch counts), at the configured init and, but for
+    the mixture-of-experts families, with the attention projections
+    conditioned (:func:`_conditioned`) and beside the bfloat16 kernel
+    route's gap (:func:`_bf16_route_gap`); float64 at the configured init,
+    kernel route against plain; or, where no kernel runs or the float64
+    tree does not fit beside two sets of gradients, float32 against
+    float64. Returns the gaps; :func:`assert_exact` holds them.
+
+    The configured init amplifies rounding through the attention
+    projections (the vision cut: 3.8e-4 of a leaf's largest gradient
+    between the routes in float32, 1.9e-12 in float64, the same ratio as
+    their unit roundings), hence the conditioned check. A router takes
+    none: there the two routes' roundings tip near-ties of its top-k
+    (granite-moe-3b-a800m conditioned: 5.8e-2 of a leaf's largest
+    gradient), a discrete step that is not the kernel's."""
+    cut = _replace(full, run.exact)
+    c32 = dataclasses.replace(cut, compute_dtype="float32")
+    c64 = dataclasses.replace(cut, compute_dtype="float64")
+    batch = _family_batch(cut, 2, 256, seed=1)
+    out = {"cut": dict(run.exact), "batch": [2, 256]}
+    if any(train_launches(c32).values()):
+        params = _family_params(c32, 1, dtype="float32")
+        out["fp32"] = _route_gap(c32, params, batch)
+        if not c32.is_moe:
+            out["fp32_conditioned"] = _route_gap(
+                c32, _conditioned(params, c32), batch)
+            out["bf16_route"] = _bf16_route_gap(c32, params, batch)
+        del params
+        free_memory()
+    if run.fp64_route:
+        p64 = _family_params(c64, 1, dtype="float64")
+        out["fp64"] = _route_gap(c64, p64, batch)
+        del p64
+    else:
+        out["fp32_vs_fp64"] = _precision_gap(c32, c64, 1, batch)
+    free_memory()
+    return out
+
+
+def assert_exact(out):
+    """The float32 route gap with conditioned projections within
+    FP32_LOSS_TOL / FP32_GRAD_TOL (of each leaf's largest entry); at the
+    configured init within FP32_LOSS_TOL and, where the conditioned check
+    also holds the stack, INIT_GRAD_TOL (which the bfloat16 route must
+    exceed), else FP32_GRAD_TOL; the float64 route gap within FP64_TOL /
+    FP64_GRAD_TOL; float32 against float64 within PRECISION_LOSS_TOL (of
+    the loss) / PRECISION_GRAD_TOL."""
+    if "fp32" in out:
+        grad_tol = FP32_GRAD_TOL
+        if "fp32_conditioned" in out:
+            grad_tol = INIT_GRAD_TOL
+            assert out["bf16_route"]["grad_gap_of_max"] > INIT_GRAD_TOL, out
+            assert out["fp32_conditioned"]["loss_gap"] <= FP32_LOSS_TOL, out
+            assert out["fp32_conditioned"]["grad_gap_of_max"] \
+                <= FP32_GRAD_TOL, out
+        assert out["fp32"]["loss_gap"] <= FP32_LOSS_TOL, out
+        assert out["fp32"]["grad_gap_of_max"] <= grad_tol, (grad_tol, out)
+    if "fp64" in out:
+        assert out["fp64"]["loss_gap"] <= FP64_TOL, out
+        assert out["fp64"]["grad_gap_of_max"] <= FP64_GRAD_TOL, out
+    if "fp32_vs_fp64" in out:
+        gap = out["fp32_vs_fp64"]
+        assert gap["loss_gap"] <= PRECISION_LOSS_TOL * abs(gap["loss_fp64"]), \
+            out
+        assert gap["grad_gap_of_max"] <= PRECISION_GRAD_TOL, out
+
+
+def phase_train_family(run):
+    """Phases 22-26, one family at full width: ``FAMILY_STEPS`` steps of
+    the port's train step (the config's own dtypes: fp32 parameters and
+    bf16 compute, deepseek-v3 bf16 parameters and bf16 moments; full remat;
+    AdamW), each step's loss and grad norm finite, the learning rate
+    ``adamw.schedule``'s, the probed leaves moved, and the attention
+    kernels' launches exactly :func:`train_launches`; then
+    :func:`family_exactness`. The launch counts are set to 0 before the
+    first step and returned, read after the last."""
+    t0 = time.perf_counter()
+    full = get_config(run.arch)
+    cfg = _replace(full, run.cut)
+    assert (cfg.compute_dtype, cfg.remat, cfg.attn_flash) \
+        == ("bfloat16", "full", "auto"), cfg
+    opt = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=60,
+                          moment_dtype=cfg.opt_state_dtype)
+    emit(f"{run.phase}_start", arch=cfg.name,
+         memory_allocated=torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    params = _family_params(cfg, 0)
+    state = {"params": params, "opt": adamw.init(opt, params)}
+    step_fn = make_train_step(cfg, opt).step_fn
+    batches = [_family_batch(cfg, run.batch, TRAIN_SEQ, 0, i)
+               for i in range(FAMILY_STEPS)]
+    probes = [("embedding", ("embed",), None)] + _probe_paths(cfg)
+    want = train_launches(cfg)
+    torch.cuda.synchronize()
+
+    att.reset_launches()           # this family's training path starts here
+    rows = []
+    for i, batch in enumerate(batches):
+        toks = batch["tokens"][0, :8].long()
+        before = [_probe(state["params"], path, j, toks)
+                  for _, path, j in probes]
+        launched = dict(att.LAUNCHES)
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1)
+        moved = {name: not torch.equal(_probe(state["params"], path, j, toks),
+                                       b_)
+                 for (name, path, j), b_ in zip(probes, before)}
+        counts = {k: att.LAUNCHES[k] - launched[k] for k in att.LAUNCHES}
+        rows.append({"step": i + 1, "ms": ms,
+                     **{k: float(v) for k, v in metrics.items()},
+                     "launches": counts, "moved": moved})
+        emit(f"{run.phase}_step", arch=cfg.name, **rows[-1])
+    launches = dict(att.LAUNCHES)  # read right after the training path
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_bytes = tree_size_bytes(state["params"]) \
+        + tree_size_bytes(state["opt"])
+    del state, params, batches, step_fn
+    free_memory()
+    exact = family_exactness(run, full)
+    steady = [r["ms"] for r in rows[1:]]    # the first step is the warm-up
+    step_ms = statistics.mean(steady)
+    reduced = {k: v for k, v in run.cut}
+    emit(run.phase, arch=cfg.name, family=cfg.family, reduced=reduced,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, param_count=n_params,
+         state_bytes=state_bytes, batch=run.batch, seq_len=TRAIN_SEQ,
+         steps=FAMILY_STEPS, param_dtype=cfg.param_dtype,
+         moment_dtype=opt.moment_dtype, compute_dtype=cfg.compute_dtype,
+         remat=cfg.remat, losses=[r["loss"] for r in rows],
+         grad_norms=[r["grad_norm"] for r in rows],
+         step_ms=[r["ms"] for r in rows], steady_step_ms=step_ms,
+         tokens_per_s=run.batch * TRAIN_SEQ / (step_ms / 1e3),
+         max_memory_allocated=peak, launches_per_step=want,
+         launches_total=launches, exact=exact,
+         fp32_loss_tol=FP32_LOSS_TOL, fp32_grad_tol=FP32_GRAD_TOL,
+         init_grad_tol=INIT_GRAD_TOL, fp64_loss_tol=FP64_TOL,
+         fp64_grad_tol=FP64_GRAD_TOL,
+         precision_loss_tol=PRECISION_LOSS_TOL,
+         precision_grad_tol=PRECISION_GRAD_TOL,
+         seconds=time.perf_counter() - t0)
+    for r in rows:
+        assert r["launches"] == want, (r["launches"], want)
+        assert all(np.isfinite(v) for v in r.values()
+                   if isinstance(v, float)), r
+        assert r["grad_norm"] > 0, r
+        # on the card, as the step computes it
+        lr = adamw.schedule(opt, torch.tensor(r["step"], dtype=torch.int32,
+                                              device=DEV))
+        assert r["lr"] == float(lr), (r, float(lr))
+        assert all(r["moved"].values()), r
+    assert len({r["loss"] for r in rows}) == len(rows), rows
+    assert_exact(exact)
+    return launches
+
+
+def run_family_training():
+    """Phases 22-26 in turn, each tree freed before the next. Returns
+    {"<phase> <arch>": launches}."""
+    return {f"{r.phase} {r.arch}": phase_train_family(r) for r in FAMILY_RUNS}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
                  att_timed, att_launches, paper, ssm, ssm_serving,
                  moe_serving, mla_serving, cross_serving, faults_flash,
-                 load_int8, restart_launches):
+                 load_int8, restart_launches, family_launches):
     """One row per TPU kernel. ``launches`` / ``att_launches`` are the
     counts read after the tinyllama serving and training paths,
     ``serve_flash`` the forward kernel's count in tinyllama's serving
@@ -2981,11 +3505,12 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     9-10, ``ssm_serving``, ``moe_serving`` and ``mla_serving`` the counts
     read after each of those serving paths, ``cross_serving`` phase 18's
     (launches, checks, times) per model, ``faults_flash``, ``load_int8``
-    and ``restart_launches`` the counts of phases 19-21: rows 2-5 add what
-    those paths launched (the int8 head; the oracles' attention, zamba2-7b's
-    shared block at head_dim 112, the MTP layer's, and the cross layers' in
-    the kernel's non-causal mode; the restarted training's three attention
-    kernels)."""
+    and ``restart_launches`` the counts of phases 19-21, ``family_launches``
+    those of phases 22-26 by phase and model: rows 2-5 add what those paths
+    launched (the int8 head; the oracles' attention, zamba2-7b's shared
+    block at head_dim 112, the MTP layer's, and the cross layers' in the
+    kernel's non-causal mode; the restarted training's and the families'
+    training's three attention kernels)."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -3056,6 +3581,9 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
         row["launches_by_path"] = {
             "train tinyllama-1.1b": att_launches[row["name"]],
             restart: restart_launches[row["name"]]}
+    for row in rows[2:5]:
+        row["launches_by_path"].update(
+            {path: n[row["name"]] for path, n in family_launches.items()})
     for row in rows[1:5]:
         row["launches"] = sum(row["launches_by_path"].values())
     # the forward also at zamba2-7b's oracle shape (its own times and bound)
@@ -3065,6 +3593,12 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
         for dt in ("float32", "bfloat16")}
     # the non-causal mode at the cross layers' shapes (Sq = prompt and 1)
     rows[2]["cross_shapes"] = {a: v[2] for a, v in cross_serving.items()}
+    # the three kernels at the family train steps' shapes (phase attention)
+    for row in rows[2:5]:
+        row["train_shapes"] = {
+            tag: {"shape": t["shape"], "causal": t["causal"],
+                  **t[row["name"]]}
+            for tag, t in att_timed["train_shapes"].items()}
     p_res, p_timed, p_launches = paper
     for name, key, check, shape in (
             ("axpy", "axpy_f32_2^26", "path axpy f32 2^26", [AXPY_N]),
@@ -3137,6 +3671,7 @@ def main():
     free_memory()
     restart_launches = phase_train_restart()    # sets its counts to 0 first
     free_memory()
+    family_launches = run_family_training()     # each sets its counts to 0
 
     paper = phase_paper_kernels()           # each sets its counts to 0 first
     ssm = phase_ssm_kernel()
@@ -3154,7 +3689,8 @@ def main():
                                   att_results, att_timed, att_launches, paper,
                                   ssm, ssm_serving, moe_serving, mla_serving,
                                   cross_serving, faults_flash, load_int8,
-                                  restart_launches)), flush=True)
+                                  restart_launches, family_launches)),
+          flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

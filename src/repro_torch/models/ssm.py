@@ -77,12 +77,17 @@ def chunked_linear_attention(q, k, v, log_decay, scale,
         # cross-chunk: y_off[t] = q_t . (exp(cd_t) * state)
         q_dec = widen(qb) * torch.exp(cd)[..., None]
         y_off = torch.einsum("bqhn,bhnp->bqhp", q_dec, state)
-        # within-chunk: L[t,s] = exp(cd_t - cd_s) for s <= t
+        # within-chunk: L[t,s] = exp(cd_t - cd_s) for s <= t. Above the
+        # diagonal cd_t - cd_s >= 0 grows with the chunk's total decay, and
+        # exp overflows there once it passes ~88 (fp32); the reference
+        # takes exp first and masks after, so its backward multiplies that
+        # inf by the mask's zero gradient: NaN. The exponent is masked
+        # first here (exp(-inf) = 0): the same forward, and the same
+        # gradient wherever the reference's is finite.
         scores = torch.einsum("bqhn,bshn->bqsh", widen(qb), widen(kb))
         ldiff = cd[:, :, None, :] - cd[:, None, :, :]         # (B,q,s,H)
-        decay = torch.where(tri[None, :, :, None], torch.exp(ldiff),
-                            torch.zeros((), dtype=ldiff.dtype,
-                                        device=q.device))
+        decay = torch.exp(ldiff.masked_fill(~tri[None, :, :, None],
+                                            float("-inf")))
         w = scores * decay * sb[:, None, :, :]
         y_diag = torch.einsum("bqsh,bshp->bqhp", w, widen(vb))
         # state update: decay to end-of-chunk, add chunk contributions

@@ -6,7 +6,8 @@ optimizer state mirrors the parameter tree. Same fp32 math, the same
 ``p.ndim >= 2`` weight-decay rule and ``moment_dtype``. One difference of
 form: :func:`update` writes the new parameters and moments **in place**
 (under ``torch.no_grad()``) and returns the same tensors — at full width a
-second copy of parameters and moments would cost several GB.
+second copy of parameters and moments would cost several GB — and a leaf
+larger than ``UPDATE_SLICE`` elements in slices, the same values.
 """
 from __future__ import annotations
 
@@ -17,6 +18,13 @@ import torch
 
 from repro_torch.core.precision import torch_dtype
 from repro_torch.models.layers import tree_leaves, tree_map, widen
+
+
+# elements a leaf's update takes at once: a larger leaf is updated in
+# slices along its first axis, so that its fp32 temporaries (~6 of them)
+# stay near 128 MB each; whole, a full-width embedding's (0.93 G elements
+# in deepseek-v3-671b) take ~22 GB, which set the train step's peak memory
+UPDATE_SLICE = 1 << 25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,18 +84,30 @@ def update(cfg: OptConfig, grads, opt_state, params):
     bc1 = 1 - cfg.b1 ** step_f
     bc2 = 1 - cfg.b2 ** step_f
 
-    def upd(p, g, m, v):
+    def upd_slice(p, g, m, v, decay):
         g = widen(g) * scale
         m32 = cfg.b1 * widen(m) + (1 - cfg.b1) * g
         v32 = cfg.b2 * widen(v) + (1 - cfg.b2) * torch.square(g)
         mhat = m32 / bc1
         vhat = v32 / bc2
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.dim() >= 2:  # no weight decay on norms/biases/scalars
+        if decay:
             delta = delta + cfg.weight_decay * widen(p)
         p.copy_(widen(p) - lr * delta)
         m.copy_(m32)
         v.copy_(v32)
+
+    def upd(p, g, m, v):
+        if p.dim() == 0:
+            upd_slice(p, g, m, v, False)
+            return p
+        decay = p.dim() >= 2  # no weight decay on norms/biases
+        # elementwise, so slicing along the first axis changes no value; a
+        # leaf of at most UPDATE_SLICE elements is one slice
+        rows = max(1, UPDATE_SLICE // max(1, math.prod(p.shape[1:])))
+        for i in range(0, p.shape[0], rows):
+            s = slice(i, i + rows)
+            upd_slice(p[s], g[s], m[s], v[s], decay)
         return p
 
     new_params = tree_map(upd, params, grads, opt_state["m"],

@@ -107,6 +107,53 @@ def test_chunked_linear_attention_matches_reference(s, chunk, with_state):
     _close(stt, stj, rel_to_max=True)
 
 
+def _core_grads_jax(arrays, gout, chunk):
+    def f(*xs):
+        y, st = jssm.chunked_linear_attention(*xs, chunk=chunk)
+        return jnp.sum(y * gout) + jnp.sum(st)
+    return jax.grad(f, argnums=tuple(range(5)))(*map(jnp.asarray, arrays))
+
+
+def _core_grads_torch(arrays, gout, chunk, dtype=torch.float32):
+    xs = [_t(a).to(dtype).requires_grad_(True) for a in arrays]
+    y, st = tssm.chunked_linear_attention(*xs, chunk=chunk)
+    (torch.sum(y * _t(gout).to(dtype)) + torch.sum(st)).backward()
+    return [x.grad for x in xs]
+
+
+@pytest.mark.parametrize("decay", [0.5, 1.0])
+def test_chunked_linear_attention_grads_where_the_reference_overflows(decay):
+    """A chunk of 128 steps whose log decay is -``decay`` a step: above the
+    diagonal exp(cd_t - cd_s) reaches exp(127 * decay). At 0.5 (exp(63.5)
+    is finite) the port's gradients are the reference's. At 1.0 it
+    overflows float32: the reference masks after exp, and its backward
+    then multiplies inf by zero, so its gradients are NaN (what training
+    zamba2-7b and xlstm-1.3b at full width meets in their first step); the
+    port masks the exponent first, so the forward is the reference's and
+    the gradients are finite, and equal to the port's float64 ones."""
+    b, s, h, n, p, chunk = 1, 128, 2, 4, 3, 128
+    q, k, v, _, scale = _core_inputs(b, s, h, n, p, 7)
+    log_decay = np.full((b, s, h), -decay, np.float32)
+    arrays = (q, k, v, log_decay, scale)
+    gout = np.random.RandomState(8).randn(b, s, h, p).astype(np.float32)
+    yj, _ = jssm.chunked_linear_attention(*map(jnp.asarray, arrays),
+                                          chunk=chunk)
+    yt, _ = tssm.chunked_linear_attention(*map(_t, arrays), chunk=chunk)
+    _close(yt, yj)
+    gj = _core_grads_jax(arrays, gout, chunk)
+    gt = _core_grads_torch(arrays, gout, chunk)
+    g64 = _core_grads_torch(arrays, gout, chunk, torch.float64)
+    for name, a, want, exact in zip("q k v log_decay scale".split(), gt, gj,
+                                    g64):
+        assert bool(torch.isfinite(a).all()), name
+        _close(a, exact.numpy(), atol=1e-4, rel_to_max=True,
+               msg=f"{name} against float64")
+        if decay == 0.5:
+            _close(a, want, atol=1e-4, rel_to_max=True, msg=name)
+    if decay == 1.0:
+        assert any(bool(np.isnan(np.asarray(g)).any()) for g in gj)
+
+
 def test_chunked_linear_attention_bf16_inputs_keep_a_float32_state():
     arrays = _core_inputs(1, 24, 2, 4, 6, 3)
     q, k, v = (_t(a).to(torch.bfloat16) for a in arrays[:3])

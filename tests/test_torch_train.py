@@ -140,6 +140,34 @@ def test_adamw_update_matches_reference(moment_dtype):
     assert float(torch.abs(pt["w"] - torch.from_numpy(params["w"])).max()) > 0
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_update_in_slices_is_bit_equal(moment_dtype, monkeypatch):
+    """A leaf larger than ``UPDATE_SLICE`` elements is updated in slices
+    along its first axis: three updates give the same parameters and
+    moments, bit for bit, as whole-leaf updates, for a scalar, a vector
+    (no weight decay) and 2-D and 3-D leaves."""
+    r = np.random.RandomState(3)
+    params = {"s": np.float32(0.7), "b": r.randn(29).astype(np.float32),
+              "w": r.randn(13, 5).astype(np.float32),
+              "u": r.randn(3, 4, 6).astype(np.float32)}
+    grads = [{k: (np.asarray(r.randn(*np.shape(a))) * 0.3).astype(np.float32)
+              for k, a in params.items()} for _ in range(3)]
+    cfg = tadamw.OptConfig(warmup_steps=1, decay_steps=10, peak_lr=1e-2,
+                           moment_dtype=moment_dtype)
+    runs = []
+    for size in (1 << 25, 7):
+        monkeypatch.setattr(tadamw, "UPDATE_SLICE", size)
+        pt = convert.params_from_numpy(params, device="cpu")
+        ot = tadamw.init(cfg, pt)
+        for g in grads:
+            pt, ot, _ = tadamw.update(
+                cfg, convert.params_from_numpy(g, device="cpu"), ot, pt)
+        runs.append((pt, ot["m"], ot["v"]))
+    for whole, sliced in zip(*runs):
+        for a, b in zip(tree_leaves(whole), tree_leaves(sliced)):
+            assert torch.equal(a, b)
+
+
 def test_global_norm_matches_reference():
     r = np.random.RandomState(2)
     tree = {"a": r.randn(4, 3).astype(np.float32),
@@ -354,16 +382,38 @@ def test_trainer_fuse_steps_equal_single_steps():
     assert log1[-1]["loss"] < log1[0]["loss"] + 1.0
 
 
-def test_launch_train_reduced_on_the_cpu_exits_zero():
-    res = subprocess.run(
+def _launch_train(arch):
+    return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
          "--device", "cpu", "--steps", "3", "--seq-len", "16", "--batch",
-         "2"], capture_output=True, text=True, timeout=300,
+         "2", "--arch", arch], capture_output=True, text=True, timeout=300,
         env={**__import__("os").environ,
              "PYTHONPATH": str(__import__("pathlib").Path(__file__)
                                .resolve().parents[1] / "src")})
+
+
+# one config of each family whose batches are tokens only
+@pytest.mark.parametrize("arch", [ARCH, "granite-moe-3b-a800m", "xlstm-1.3b",
+                                  "zamba2-7b"])
+def test_launch_train_reduced_on_the_cpu_exits_zero(arch):
+    res = _launch_train(arch)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "done at step 3" in res.stdout
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_launch_train_refuses_frontend_families(arch):
+    """The launcher's trainer makes tokens only (as the reference's), so
+    the vision and encoder-decoder models, which need the frontend's
+    embeddings in every batch, stop at the first step with the port's
+    ``ValueError`` naming ``frontend_emb``; the reference's launcher
+    crashes there with an ``AttributeError`` (``None.astype``)."""
+    res = _launch_train(arch)
+    assert res.returncode != 0, res.stdout
+    assert "ValueError" in res.stderr and "frontend_emb" in res.stderr, \
+        res.stderr
+    assert "done at step" not in res.stdout
 
 
 def test_train_state_from_numpy_keeps_moment_dtypes():
