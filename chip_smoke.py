@@ -13,7 +13,10 @@ at full width, runs the Ara vector engine (one lane, lane-partitioned
 and clustered) on the differential grid and the paper's Listing-1 matmul,
 runs the fault-tolerance slice: the serving fault registry and its
 load gate on tinyllama-1.1b, and training that checkpoints and resumes,
-and trains the other five families at full width. Without
+trains the other five families at full width, and drives the main
+path's measurement scripts (the quickstart's twin for every arch, the
+kernel bench, the multi-precision sweep, long-context attention to
+32768 tokens with its gates, the engine's throughput). Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
 
@@ -233,16 +236,57 @@ non-zero and prints no result. Phases, one JSON line each:
                with the attention projections at the width's fan-in;
                float64 kernel route against plain; deepseek-v3 and
                xlstm-1.3b float32 against float64.
+27. ``quickstart`` ``examples/torch_quickstart.py``'s ``run`` for each of
+               the ten archs on the card (reduced config, batch 2 x 32):
+               its five lines, finite loss, grad norm and aux, the logits'
+               shape, and the attention kernels' launches exactly
+               ``quickstart_launches`` (a forward and a train step; none
+               for xlstm-1.3b).
+28. ``kernel_bench`` ``benchmarks/torch_kernel_bench.py``'s rows at the
+               reference's shapes (matmul 256^3 f32, axpy 2^20 f32,
+               GoogLeNet-1 f32, attention (1,8,1024,64) bf16 causal with
+               256 x 256 blocks, the scan (8,4096,64) f32): each kernel
+               against its plain version first (``BENCH_TOL``: phases 3,
+               4, 9 and 10's tolerances; the conv bit-equal), then the
+               rows, every ``_cuda`` row's launches equal to its calls
+               (3) and each kernel launched once more (the warm call);
+               ``_plain`` and ``_library`` rows beside them.
+29. ``multiprecision`` ``benchmarks/torch_multiprecision.py``'s rows (the
+               Ara model, the scoreboard, and ``ops.matmul`` at f32, bf16
+               and f16 and ``ops.matmul_int8`` at 256 and 512, every
+               kernel row ``source=cuda``): each product against its
+               plain version (f32 at ACC_TOL, bf16 / f16 within one step
+               of the plain product of the narrowed operands and within
+               3e-2 / 0.5 of the f32 product, int8 exact); launches
+               4 a row (warm + 3).
+30. ``attention_long`` ``benchmarks/torch_attention_long.py``'s full sweep
+               (1, 4, S, 64) bf16 causal, S 1024-32768, through the
+               quadratic, blockwise and kernel paths, and its four gates
+               (gate 3 in its card form: kernel >= blockwise fwd+bwd
+               tokens/s at 32768; gate 4: the reduced tinyllama-1.1b's
+               train step at 32768 tokens, f32, head_dim 16, through the
+               kernels); each part's attention launches exact. The kernel
+               path's output and q/k/v gradients against its kernels'
+               plain versions (a group at a time) at every swept S, at
+               ATT_TOL's bf16 limits; the three kernels at gate 4's shape
+               (1, 4, 32768, 16) f32 causal against theirs at ACC_TOL.
+31. ``engine_throughput`` ``benchmarks/torch_engine_throughput.py``'s
+               ``bench`` on the card: uncached one runner build a program,
+               cached, batched and each sweep one, the lint pass none;
+               programs/s and the cached_batched/uncached ratio beside the
+               reference's 10x bar (printed, not gated).
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
 phases 7, 21 and 22-26, the oracles of 6, 12, 16 and 19, phase 17's loss
-and phase 18's serve steps for the forward attention kernel (each path's
-count in ``launches_by_path``), of phases 7, 21 and 22-26 for the backward
-ones, of
-phases 9-10 for axpy, conv and the scan; error, times and bound per
-kernel), one line with the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``. Any failed check raises: nothing is caught and passed
+and phase 18's serve steps for the forward attention kernel, of phases 7,
+21 and 22-26 for the backward ones, of phases 9-10 for axpy, conv and the
+scan, and of phases 27-30 for the kernels they launch: each path's count
+in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
+``multiprecision``, ``attention_long rows`` and ``attention_long gate
+1`` / ``2`` / ``4``; error, times and bound per kernel), one line with the
+card's name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``. Any failed check raises: nothing is caught and passed
 over.
 """
 from __future__ import annotations
@@ -266,6 +310,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from benchmarks.torch_timing import hold_the_card  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.ara import AraConfig  # noqa: E402
@@ -328,28 +373,13 @@ def emit(phase: str, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-_BLOCKER = []
-
-
-def _hold_the_card():
-    """Queue about 3 ms of device work (two large bf16 products, which also
-    sweep the L2 cache), so that what the host enqueues next piles up behind
-    it and then runs back to back, with no wait for the host in between."""
-    if not _BLOCKER:
-        _BLOCKER.append(torch.ones((8192, 8192), dtype=torch.bfloat16,
-                                   device=DEV))
-    big = _BLOCKER[0]
-    torch.mm(big, big)
-    torch.mm(big, big)
-
-
 def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 10) -> float:
     """Device ms per call of ``fn``: the median over ``reps`` batches of the
     time of ``inner`` back-to-back calls between two CUDA events, over
     ``inner``. The host needs tens of microseconds per call — as long as the
     kernels timed here run — so each batch is enqueued while the card is
-    held busy (:func:`_hold_the_card`): the events then bracket device work
-    only, not the card waiting for the host."""
+    held busy (``benchmarks.torch_timing.hold_the_card``): the events then
+    bracket device work only, not the card waiting for the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -357,7 +387,7 @@ def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 10) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        _hold_the_card()
+        hold_the_card(DEV)
         start.record()
         for _ in range(inner):
             fn()
@@ -780,18 +810,30 @@ def _att_inputs(b, h, sq, sk, d, dtype, seed, p_valid=1.0, dead=False):
     return q, k, v, kv_valid, dout
 
 
+def _plain_by_group(fn, *args, **geom):
+    """The plain attention version ``fn`` on one group (batch x head) of
+    the flat operands at a time, its results concatenated: the plain
+    backward holds (Sq, Sk) fp32 matrices, 4 GiB a group at 32768 keys."""
+    parts = [fn(*(a[g:g + 1] for a in args), **geom)
+             for g in range(args[0].shape[0])]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
 def check_attention_fwd(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
                         results, p_valid=0.9, dead=False):
-    """The forward kernel against its plain version on the same padded,
-    flattened operands: output, lse (dead rows alike) and the probe
-    exactly. Returns the operands, the kernel's outputs and the plain
-    ones."""
+    """The forward kernel against its plain version (a group at a time) on
+    the same padded, flattened operands: output, lse (dead rows alike) and
+    the probe exactly. Returns the operands, the kernel's outputs and the
+    plain ones."""
     q, k, v, kv_valid, dout = _att_inputs(b, h, sq, sk, d, dtype, seed,
                                           p_valid, dead)
     qf, kf, vf, kvm, bq, bk = att._prepare(q, k, v, kv_valid, bq, bk)
     geom = dict(causal=causal, bq=bq, bk=bk)
     out, lse, probe = att.flash_fwd(qf, kf, vf, kvm, **geom)
-    p_out, p_lse, p_probe = att.flash_fwd_plain(qf, kf, vf, kvm, **geom)
+    p_out, p_lse, p_probe = _plain_by_group(att.flash_fwd_plain, qf, kf, vf,
+                                            kvm, **geom)
     torch.cuda.synchronize()
     rel, acc = ATT_TOL[dtype]
     short = str(dtype).replace("torch.", "")
@@ -813,9 +855,9 @@ def check_attention_fwd(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
 
 def check_attention(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
                     results, p_valid=0.9, dead=False):
-    """Forward, dQ and dK/dV kernels against their plain versions on the
-    same padded, flattened operands; the probe exactly. Returns the
-    operands and the kernels' outputs."""
+    """Forward, dQ and dK/dV kernels against their plain versions (a group
+    at a time) on the same padded, flattened operands; the probe exactly.
+    Returns the operands and the kernels' outputs."""
     f = check_attention_fwd(tag, b, h, sq, sk, d, dtype, causal, bq, bk,
                             seed, results, p_valid, dead)
     qf, kf, vf, kvm, geom = (f[n] for n in ("qf", "kf", "vf", "kvm", "geom"))
@@ -829,8 +871,9 @@ def check_attention(tag, b, h, sq, sk, d, dtype, causal, bq, bk, seed,
     dk, dv = att.flash_bwd_dkv(*args, **geom)
     torch.cuda.synchronize()
     _check_float(f"flash_bwd_dq {name}", dq,
-                 att.flash_bwd_dq_plain(*args, **geom), rel, results, acc)
-    p_dk, p_dv = att.flash_bwd_dkv_plain(*args, **geom)
+                 _plain_by_group(att.flash_bwd_dq_plain, *args, **geom), rel,
+                 results, acc)
+    p_dk, p_dv = _plain_by_group(att.flash_bwd_dkv_plain, *args, **geom)
     _check_float(f"flash_bwd_dkv dk {name}", dk, p_dk, rel, results, acc)
     _check_float(f"flash_bwd_dkv dv {name}", dv, p_dv, rel, results, acc)
     if dead:
@@ -3492,12 +3535,306 @@ def run_family_training():
 
 
 # ---------------------------------------------------------------------------
+# phases 27-31: the main path's measurement surface (the quickstart's twin,
+# the kernel bench, the multi-precision sweep, long-context attention and
+# the engine's throughput), each through its script's own entry points
+# ---------------------------------------------------------------------------
+
+
+def quickstart_launches(cfg):
+    """Launches of each attention kernel in the quickstart on ``cfg`` (the
+    reduced config, ``remat="none"``): one forward without a cache (the
+    layers' attention, not the MTP layer) and one train step
+    (:func:`train_launches`)."""
+    want = train_launches(cfg)
+    once = 1 if cfg.mtp_depth else 0
+    return {**want, "flash_fwd": 2 * want["flash_fwd"] - once}
+
+
+def phase_quickstart():
+    """Phase 27: ``examples/torch_quickstart.py``'s ``run`` for every arch
+    on the card: its five lines, finite loss and grad norm, the logits'
+    shape, and the attention kernels' launches exactly
+    :func:`quickstart_launches` (set to 0 before each arch, read after).
+    Returns {"quickstart <arch>": launches}."""
+    from repro_torch.configs import ARCH_NAMES, reduced
+    qs = _load_script("examples/torch_quickstart.py")
+    by_path = {}
+    for arch in ARCH_NAMES:
+        lines = []
+        att.reset_launches()       # this arch's quickstart starts here
+        t0 = time.perf_counter()
+        res = qs.run(arch, DEV, emit=lines.append)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(att.LAUNCHES)  # read right after it
+        cfg = reduced(get_config(arch))
+        want = quickstart_launches(cfg)
+        emit("quickstart", arch=arch, lines=lines, seconds=seconds,
+             launches=launches, want=want,
+             **{k: res[k] for k in ("loss", "grad_norm", "aux",
+                                    "logits_shape", "reduced_params_mb")})
+        assert len(lines) == 5 and lines[0].startswith(f"{arch}:"), lines
+        assert res["logits_shape"] == (2, 32, cfg.vocab_size), res
+        assert all(np.isfinite(res[k]) for k in ("loss", "grad_norm",
+                                                 "aux")), res
+        assert res["grad_norm"] > 0, res
+        assert launches == want, (arch, launches, want)
+        by_path[f"quickstart {arch}"] = launches
+    free_memory()
+    return by_path
+
+
+KERNEL_MODULES = (mm, att, ax, cv, ss)
+
+
+def reset_all_launches():
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
+
+
+def read_all_launches():
+    return {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}
+
+
+# kernel_bench's rows against their plain versions: the tolerances of
+# phases 3, 4, 9 and 10 for the same kernels and dtypes
+BENCH_TOL = {"matmul256_f32": ("float", 0.0, ACC_TOL),
+             "axpy_1M_f32": ("close",) + AXPY_TOL[torch.float32],
+             "conv_googlenet1_f32": ("conv",),
+             "attention_1k_bf16": ("float",) + ATT_TOL[torch.bfloat16],
+             "ssm_scan_4k_f32": ("close",) + SSM_TOL}
+
+
+def phase_kernel_bench():
+    """Phase 28: ``benchmarks/torch_kernel_bench.py`` on the card. Each
+    case's kernel against its plain version first (tolerances
+    ``BENCH_TOL``; those launches are not the path's); then its ``rows``
+    with every launch count set to 0 before and read after: each ``_cuda``
+    row's launches equal its calls, and each kernel launched once more
+    than that (the warm call). Returns (checks, rows, launches)."""
+    kb = _load_script("benchmarks/torch_kernel_bench.py")
+    cases = kb.cases(DEV)
+    results = []
+    with torch.no_grad():
+        for c in cases:
+            got, want = c.kernel(), c.plain()
+            torch.cuda.synchronize()
+            kind, *tol = BENCH_TOL[c.name]
+            name = f"kernel_bench {c.name}"
+            if kind == "float":
+                _check_float(name, got, want, tol[0], results, tol[1])
+            elif kind == "close":
+                _check_close(name, got, want, *tol, results)
+            else:
+                _check_conv(name, got, want, *c.operands, results)
+    reset_all_launches()           # the bench's path starts here
+    rows = kb.rows(DEV, cases)
+    torch.cuda.synchronize()
+    launches = read_all_launches()  # read right after it
+    kernel_rows = [r for r in rows if r["source"] == "cuda"]
+    assert len(kernel_rows) == len(cases), rows
+    assert not any(r["source"] == "plain_cpu" for r in rows), rows
+    for r, c in zip(kernel_rows, cases):
+        assert r["kernel"] == f"{c.name}_cuda", (r, c.name)
+        assert r["launches"] == r["calls"] == kb.ITERS, r
+        assert launches[c.counter[1]] == kb.ITERS + 1, (launches, c.name)
+    emit("kernel_bench", rows=rows, checks=results, launches=launches)
+    return results, rows, launches
+
+
+def phase_multiprecision():
+    """Phase 29: ``benchmarks/torch_multiprecision.py`` on the card: every
+    kernel row's product against its plain version (fp32 at ACC_TOL; bf16
+    and f16 within one step of the narrow output of the plain product of
+    the same narrowed operands, and within ``tests/test_multiprecision``'s
+    3e-2 / 0.5 of the fp32 product; int8 exact), then ``main``'s rows with
+    the counts set to 0 before and read after: ``ops.matmul`` launched
+    ITERS + 1 times a float row and ``ops.matmul_int8`` a int8 row, every
+    kernel row ``source=cuda``. Returns (checks, rows, launches)."""
+    mp = _load_script("benchmarks/torch_multiprecision.py")
+    rng = np.random.RandomState(0)
+    results = []
+    sizes = (256, 512)
+    with torch.no_grad():
+        for n in sizes:
+            a32, b32, a8, b8 = mp.kernel_operands(n, rng, DEV)
+            calls = mp.kernel_calls(a32, b32, a8, b8)
+            want32 = mm.matmul_plain(a32, b32)
+            _check_float(f"multiprecision float32 {n}", calls["float32"](),
+                         want32, 0.0, results)
+            for name, ulp in (("bfloat16", BF16_ULP), ("float16", F16_ULP)):
+                dt = torch_dtype(name)
+                got = calls[name]()
+                _check_float(f"multiprecision {name} {n}", got,
+                             mm.matmul_plain(a32.to(dt), b32.to(dt)), ulp,
+                             results)
+                err = float((got.float() - want32).abs().sub(
+                    3e-2 * want32.abs()).max())
+                results.append({"check": f"multiprecision {name} {n} vs "
+                                f"float32", "max_excess": err, "rtol": 3e-2,
+                                "atol": 0.5})
+                assert err <= 0.5, results[-1]
+            _check_exact(f"multiprecision int8 {n}", calls["int8"](),
+                         mm.matmul_int8_plain(a8, b8), results)
+    rows = []
+    mm.reset_launches()            # the sweep's path starts here
+    mp.main(lambda table, row: rows.append(row), device=DEV)
+    torch.cuda.synchronize()
+    launches = dict(mm.LAUNCHES)   # read right after it
+    kernel_rows = [r for r in rows if r["source"] not in ("perfmodel",
+                                                           "scoreboard")]
+    assert {r["source"] for r in kernel_rows} == {"cuda"}, kernel_rows
+    assert len(kernel_rows) == 4 * len(sizes), kernel_rows
+    per_call = mp.ITERS + 1
+    assert launches == {"matmul": 3 * len(sizes) * per_call,
+                        "matmul_int8": len(sizes) * per_call}, launches
+    emit("multiprecision", rows=rows, checks=results, launches=launches)
+    return results, rows, launches
+
+
+ATT_LONG = dict(b=1, h=4, d=64, chunk=1024, budget_mb=1024)  # the defaults
+
+
+def check_long_path(al, s, results):
+    """The rows' kernel path at ``s`` (``chunked_attention`` with the kernel
+    route on, (1, s, 4, 64) bf16 causal, every key live) against the plain
+    versions of its three kernels on the same operands, run a group at a
+    time: the output and the gradients of q, k and v for one random dO,
+    at ATT_TOL's bfloat16 limits."""
+    b, h, d = ATT_LONG["b"], ATT_LONG["h"], ATT_LONG["d"]
+    rng = np.random.default_rng(s)
+    q, k, v, pos, valid = al._inputs(rng, b, s, h, d, torch.bfloat16, DEV)
+    dout = torch.from_numpy(rng.standard_normal((b, s, h, d))).to(
+        DEV, torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = al._path_fn("kernel", pos, valid, s, ATT_LONG["chunk"])(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    qf, kf, vf, kvm, bq, bk = att._prepare(
+        *(t.transpose(1, 2) for t in (q, k, v)), valid, al.KERNEL_BLOCK,
+        al.KERNEL_BLOCK)
+    assert qf.shape[1] == s, "the sweep's lengths are block multiples"
+    geom = dict(causal=True, bq=bq, bk=bk)
+    p_out, p_lse, _ = _plain_by_group(att.flash_fwd_plain, qf, kf, vf, kvm,
+                                      **geom)
+    doutf = dout.transpose(1, 2).reshape(qf.shape).contiguous()
+    delta = (doutf.float() * p_out.float()).sum(-1)
+    args = (qf, kf, vf, kvm, doutf, p_lse, delta)
+    p_dq = _plain_by_group(att.flash_bwd_dq_plain, *args, **geom)
+    p_dk, p_dv = _plain_by_group(att.flash_bwd_dkv_plain, *args, **geom)
+    torch.cuda.synchronize()
+    rel, acc = ATT_TOL[torch.bfloat16]
+    for what, got, want in (("out", out, p_out), ("dq", grads[0], p_dq),
+                            ("dk", grads[1], p_dk), ("dv", grads[2], p_dv)):
+        _check_float(f"attention_long kernel path {what} seq {s}",
+                     got.detach(), want.reshape(b, h, s, d).transpose(1, 2),
+                     rel, results, acc)
+
+
+def phase_attention_long():
+    """Phase 30: ``benchmarks/torch_attention_long.py`` on the card, its
+    full sweep (``FULL_SEQS`` to 32768) and all four gates, gate 3 in its
+    card form (kernel >= blockwise fwd+bwd tokens/s at the largest seq).
+    The rows' kernel path is held against its kernels' plain versions at
+    every swept seq (:func:`check_long_path`), and the three kernels at
+    gate 4's shape, (1, 4, 32768, 16) f32 causal with 128 x 128 blocks
+    (the CUDA-core route), against theirs at ACC_TOL
+    (:func:`check_attention`); those launches are not the path's.
+    Each part's attention launches are set to 0 before it and read after:
+    the rows' kernel path 3 forwards and 3 forward+backwards a seq (one
+    warm call and 2 timed), gate 1 one forward and backward a case, gate 2
+    one forward, gate 4 :func:`train_launches` of the reduced model.
+    Returns ({part: launches}, rows, gates)."""
+    al = _load_script("benchmarks/torch_attention_long.py")
+    from repro_torch.configs import reduced
+    lines, by_part, seconds, gates, checks = [], {}, {}, {}, []
+
+    def part(name, fn):
+        att.reset_launches()       # this part's path starts here
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        by_part[name] = dict(att.LAUNCHES)   # read right after it
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    rows, ceiling = part("rows", lambda: al.bench_rows(
+        al.FULL_SEQS, emit=lines.append, device=DEV, **ATT_LONG))
+    free_memory()
+    for s in al.FULL_SEQS:
+        check_long_path(al, s, checks)
+        free_memory()
+    gates["backward_matches_ref"] = part(
+        "gate 1", lambda: al.gate_backward_matches_ref(lines.append, DEV))
+    gates["causal_skip"] = part(
+        "gate 2", lambda: al.gate_causal_skip(lines.append, DEV))
+    gate_seq = al.FULL_SEQS[-1]
+    gates["throughput"] = al.gate_blockwise_beats_quadratic(
+        rows, gate_seq, lines.append, DEV)
+    train_seq = 4 * ceiling
+    tiny = reduced(get_config("tinyllama-1.1b"))
+    check_attention("attention_long gate 4", 1, tiny.n_heads, train_seq,
+                    train_seq, tiny.head_dim, torch.float32, True,
+                    al.KERNEL_BLOCK, al.KERNEL_BLOCK, 47, checks,
+                    p_valid=1.0)
+    free_memory()
+    gates["long_train_step"] = part(
+        "gate 4", lambda: al.gate_long_train_step(train_seq, lines.append,
+                                                  DEV))
+    free_memory()
+    emit("attention_long", rows=rows, gates=gates, lines=lines,
+         checks=checks, quadratic_ceiling=ceiling, gate_seq=gate_seq,
+         train_seq=train_seq, launches=by_part, seconds=seconds, **ATT_LONG)
+    assert all(gates.values()), gates
+    assert any(ln.startswith("attention_gate,gate=throughput,seq=")
+               and "fast=kernel,slow=blockwise" in ln for ln in lines), lines
+    assert not any("skipped" in r for r in rows if r["path"] != "quadratic"), \
+        rows
+    n = len(al.FULL_SEQS)
+    tl = train_launches(tiny)
+    want = {"rows": (6 * n, 3 * n, 3 * n), "gate 1": (4, 4, 4),
+            "gate 2": (1, 0, 0), "gate 4": tuple(tl.values())}
+    for name, (f, dq, dkv) in want.items():
+        got = by_part[name]
+        assert (got["flash_fwd"], got["flash_bwd_dq"],
+                got["flash_bwd_dkv"]) == (f, dq, dkv), (name, got)
+    return {f"attention_long {k}": c for k, c in by_part.items()}, rows, \
+        gates
+
+
+ENGINE_BAR = 10.0     # the reference CI's --min-speedup
+
+
+def phase_engine_throughput():
+    """Phase 31: ``benchmarks/torch_engine_throughput.py``'s ``bench`` on
+    the card at its defaults. Its counters: uncached builds one runner a
+    program, cached and batched one, the lint pass none, each SEW=8 and
+    mask sweep one; the rates and the cached_batched/uncached ratio beside
+    the reference's bar (printed, not gated: the port builds a runner
+    where the reference compiles with XLA)."""
+    et = _load_script("benchmarks/torch_engine_throughput.py")
+    res = et.bench(device=DEV)
+    cfg = res["config"]
+    assert res["uncached"]["compiles"] == cfg["uncached_n"], res
+    for path in ("cached", "cached_batched", "lint_overhead"):
+        assert res[path]["compiles"] == 1, (path, res[path])
+    for sweep in ("int8_cells", "mask_cells"):
+        assert res[sweep] and all(r["compiles"] == 1
+                                  for r in res[sweep].values()), res[sweep]
+    assert cfg["backend"] == "cuda", cfg
+    ratio = res["speedup_cached_batched_vs_uncached"]
+    emit("engine_throughput", **res, reference_bar=ENGINE_BAR,
+         meets_reference_bar=ratio >= ENGINE_BAR)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
                  att_timed, att_launches, paper, ssm, ssm_serving,
                  moe_serving, mla_serving, cross_serving, faults_flash,
-                 load_int8, restart_launches, family_launches):
+                 load_int8, restart_launches, family_launches, surface):
     """One row per TPU kernel. ``launches`` / ``att_launches`` are the
     counts read after the tinyllama serving and training paths,
     ``serve_flash`` the forward kernel's count in tinyllama's serving
@@ -3510,7 +3847,10 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     launched (the int8 head; the oracles' attention, zamba2-7b's shared
     block at head_dim 112, the MTP layer's, and the cross layers' in the
     kernel's non-causal mode; the restarted training's and the families'
-    training's three attention kernels)."""
+    training's three attention kernels). ``surface`` holds phases 27-31's
+    counts by path (the quickstart per arch, ``kernel_bench``,
+    ``multiprecision``, ``attention_long``'s rows and gates): every row
+    adds those that launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -3584,8 +3924,7 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     for row in rows[2:5]:
         row["launches_by_path"].update(
             {path: n[row["name"]] for path, n in family_launches.items()})
-    for row in rows[1:5]:
-        row["launches"] = sum(row["launches_by_path"].values())
+    rows[0]["launches_by_path"] = {"serve tinyllama-1.1b": launches["matmul"]}
     # the forward also at zamba2-7b's oracle shape (its own times and bound)
     rows[2]["zamba2_oracle"] = {
         dt: {k: att_timed[f"flash_fwd_zamba2_{dt}"][k]
@@ -3637,6 +3976,17 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
                                                      "plain_ms", "bound_ms")}
                             for k_, v_ in s_timed.items()
                             if isinstance(v_, dict)}})
+    # phases 27-31: each kernel's count on each path that launched it
+    rows[5]["launches_by_path"] = {"paper_kernels": p_launches["axpy"]}
+    rows[6]["launches_by_path"] = {
+        "paper_kernels": p_launches["conv2d_direct"]}
+    rows[7]["launches_by_path"] = {"ssm_kernel": s_launches["ssm_scan"]}
+    for path, counts in surface.items():
+        for row in rows:
+            if counts.get(row["name"]):
+                row["launches_by_path"][path] = counts[row["name"]]
+    for row in rows:
+        row["launches"] = sum(row["launches_by_path"].values())
     for row in rows:
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched "
@@ -3684,12 +4034,21 @@ def main():
     cross_serving = run_cross_serving([cfgs[VISION_ARCH], cfgs[AUDIO_ARCH]])
     _, _, listing = phase_vector_engine(smi)
     phase_vector_engine_lanes(smi, listing)
+    free_memory()
+    surface = phase_quickstart()            # each sets its counts to 0 first
+    surface["kernel_bench"] = phase_kernel_bench()[2]
+    surface["multiprecision"] = phase_multiprecision()[2]
+    free_memory()
+    surface.update(phase_attention_long()[0])
+    free_memory()
+    phase_engine_throughput()
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,
                                   ssm, ssm_serving, moe_serving, mla_serving,
                                   cross_serving, faults_flash, load_int8,
-                                  restart_launches, family_launches)),
+                                  restart_launches, family_launches,
+                                  surface)),
           flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -76,6 +76,22 @@ def sew_for_dtype(dtype) -> int:
     return DTYPE_TO_SEW[dtype_name(dtype)]
 
 
+def ara_speedup_vs_dp(sew: int) -> float:
+    """Paper §III-E4 prediction: throughput gain vs the 64-bit datapath."""
+    return (ARA_FLOP_PER_CYCLE_PER_LANE[sew]
+            / ARA_FLOP_PER_CYCLE_PER_LANE[64])
+
+
+def issue_amortization(vl: int, lanes: int, sew: int = 64, lmul: int = 1,
+                       issue_interval: float = 5.0) -> float:
+    """§IV in closed form: FPU-busy cycles of one grouped vector FMA per
+    issue slot it consumes. >= 1 means the 5-cycle issue interval is fully
+    hidden; register grouping multiplies the numerator by LMUL, which is
+    why Ara2 adds it for short-vector workloads."""
+    chain = (lmul * vl / lanes) / (64 // sew)   # busy cycles per insn
+    return chain / issue_interval
+
+
 @dataclasses.dataclass(frozen=True)
 class Policy:
     param_dtype: str = "float32"
@@ -95,6 +111,19 @@ class Policy:
         """Ara element width equivalent of the compute dtype."""
         return sew_for_dtype(self.compute_dtype)
 
+    def ara_peak_flop_per_cycle(self, lanes: int) -> int:
+        """Ara-side peak at this policy's compute width."""
+        return lanes * ARA_FLOP_PER_CYCLE_PER_LANE[self.sew]
+
+    def ara_speedup(self) -> float:
+        return ara_speedup_vs_dp(self.sew)
+
+    def issue_amortization(self, vl: int, lanes: int,
+                           issue_interval: float = 5.0) -> float:
+        """Chain length per issue slot at this policy's SEW and LMUL."""
+        return issue_amortization(vl, lanes, self.sew, self.lmul,
+                                  issue_interval)
+
     def cast_params(self, tree):
         """Floating leaves of a dict-of-tensors tree at the compute dtype."""
         return cast_tree(tree, self.compute_dtype)
@@ -107,3 +136,14 @@ def cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: cast_tree(v, dt) for k, v in tree.items()}
     return tree.to(dt) if tree.is_floating_point() else tree
+
+
+def bytes_per_element(dtype) -> int:
+    return torch_dtype(dtype).itemsize
+
+
+def speedup_vs_fp32(dtype: str) -> float:
+    """Peak rate of ``dtype`` over float32's, from this module's H100
+    table: bf16 reads 989/67 (the tensor cores against the CUDA cores'
+    true fp32), where the reference's TPU table gives 2.0."""
+    return PEAKS_FLOPS[dtype] / PEAKS_FLOPS["float32"]

@@ -79,7 +79,15 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/checkpoint/ckpt.py",
                  "benchmarks/torch_serving_load.py",
                  "examples/torch_serve_lm.py",
-                 "examples/torch_train_lm.py"):
+                 "examples/torch_train_lm.py",
+                 "src/repro_torch/core/roofline.py",
+                 "examples/torch_quickstart.py",
+                 "benchmarks/torch_kernel_bench.py",
+                 "benchmarks/torch_multiprecision.py",
+                 "benchmarks/torch_attention_long.py",
+                 "benchmarks/torch_engine_throughput.py",
+                 "benchmarks/torch_run.py",
+                 "benchmarks/torch_timing.py"):
         assert must in names
 
 
