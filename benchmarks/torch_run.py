@@ -9,8 +9,8 @@ Prints ``table,key=value,...`` CSV-ish lines; exits 1 if a module failed.
 ``--device`` (default: the card; raises without one) is where
 ``kernel_bench`` and ``multiprecision`` run their kernels; the figure and
 table twins are host code. The reference's dry-run roofline summary reads
-the XLA dry-run farm's reports (``launch/report.py``), which wait for the
-multi-device machinery (ROADMAP Queue A 13), so that section prints its
+the XLA dry-run farm's reports (``launch/report.py``), whose twin waits
+for the XLA readers' slice (ROADMAP Queue A13b), so that section prints its
 skip line.
 """
 import argparse
@@ -55,7 +55,8 @@ def main(argv=None) -> None:
 
     print("# dryrun_roofline skipped: the dry-run farm's reports "
           "(launch/report.py) read compiled XLA HLO over a device mesh; "
-          "their port waits for ROADMAP Queue A 13", flush=True)
+          "their twin, a FLOP/byte count of a torch step, waits for ROADMAP "
+          "Queue A13b (the XLA readers)", flush=True)
 
     sys.exit(1 if failures else 0)
 

@@ -16,7 +16,11 @@ load gate on tinyllama-1.1b, and training that checkpoints and resumes,
 trains the other five families at full width, and drives the main
 path's measurement scripts (the quickstart's twin for every arch, the
 kernel bench, the multi-precision sweep, long-context attention to
-32768 tokens with its gates, the engine's throughput). Without
+32768 tokens with its gates, the engine's throughput), and the
+multi-device machinery with the mesh held as tensor dimensions on the
+card (ring matmuls, the GPipe pipeline, the int8 compressed all-reduce,
+granite-moe-3b-a800m trained on a (2, 4) mesh through the expert-parallel
+route, deepseek-v3-671b served on a (1, 4) mesh). Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
 
@@ -275,6 +279,33 @@ non-zero and prints no result. Phases, one JSON line each:
                cached, batched and each sweep one, the lint pass none;
                programs/s and the cached_batched/uncached ratio beside the
                reference's 10x bar (printed, not gated).
+32. ``mesh_chaining`` ``core.chaining``'s ``all_gather_matmul`` at groups
+               1, 2, 4, 8 and ``matmul_reduce_scatter`` on a (1, 8) mesh at
+               (8192,2048)@(2048,5632): float32 against a float64 product,
+               bf16 against the float32 product of the narrowed operands;
+               ppermute counts exact; times beside ``torch.matmul``.
+33. ``mesh_pipeline`` ``pipeline_loss`` on tinyllama-1.1b at full width, 4
+               stages of 2 layers, 8 microbatches of 1 x 2048, bf16,
+               forward and backward, against the layers in sequence
+               (output bit-equal or within a bf16 step, gradients within
+               ``PIPE_GRAD_TOL``); B3-B5 launches exact (M x S x 2 each);
+               ``bubble_fraction(4, 8)`` beside the times.
+34. ``mesh_compression`` ``compressed_psum`` on a (4, 1) mesh over
+               tinyllama-1.1b's gradient tree (full width, 2 layers): mean
+               within the reference's bound, residual below |g|max / 100,
+               int8 wire bytes beside the f32 ring's.
+35. ``mesh_train`` one full-width MoE layer through ``moe_ep_shard_map``
+               on (2, 4) against ``moe_dense_dispatch`` (2048 tokens,
+               capacity factor 16); then granite-moe-3b-a800m (16 layers)
+               through ``Trainer(mesh=make_mesh(2, 4))``, 3 steps at 8 x
+               2048 on the expert-parallel route (3 all_to_all a chunk a
+               MoE layer a pass), B3-B5 launches exact, tokens/s and peak
+               memory beside the one-device step at 4 x 2048.
+36. ``mesh_serve`` deepseek-v3-671b at phase 17's cut on a (1, 4) mesh:
+               prefill (MLA lane-local) and 4 decode steps against the
+               same steps without a mesh (within bf16's own rounding), and
+               ``ServingEngine(ctx=...)``'s greedy tokens equal to the
+               engine's without a mesh.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -284,7 +315,8 @@ and phase 18's serve steps for the forward attention kernel, of phases 7,
 scan, and of phases 27-30 for the kernels they launch: each path's count
 in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
-1`` / ``2`` / ``4``; error, times and bound per kernel), one line with the
+1`` / ``2`` / ``4``, and phases 33 and 35's ``mesh_pipeline`` and
+``mesh_train``; error, times and bound per kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises: nothing is caught and passed
 over.
@@ -292,6 +324,7 @@ over.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -314,7 +347,8 @@ from benchmarks.torch_timing import hold_the_card  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.ara import AraConfig  # noqa: E402
-from repro_torch.core import isa, staging  # noqa: E402
+from repro_torch.core import chaining, compat, isa, staging  # noqa: E402
+from repro_torch.core.compat import PartitionSpec as PS  # noqa: E402
 from repro_torch.core import perfmodel as pm  # noqa: E402
 from repro_torch.core.precision import (PEAK_BYTES_PER_S,  # noqa: E402
                                         PEAKS_FLOPS, Policy, torch_dtype)
@@ -326,14 +360,22 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import conv as cv  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.moe import (moe_dense_dispatch,  # noqa: E402
+                                    moe_ep_shard_map, moe_template)
+from repro_torch.models.sharding import MeshCtx  # noqa: E402
 from repro_torch.models.layers import (init_params, tree_leaves,  # noqa: E402
                                        tree_map, tree_size_bytes,
                                        value_and_grad)
 from repro_torch.models.ssm import chunked_linear_attention  # noqa: E402
-from repro_torch.models.transformer import (forward, init_cache,  # noqa: E402
-                                            lm_loss, model_template)
+from repro_torch.models.transformer import (dense_block,  # noqa: E402
+                                            forward, init_cache, lm_loss,
+                                            model_template)
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim.compression import (compressed_psum,  # noqa: E402
+                                           init_residuals)
 from repro_torch.train.step import (make_decode_step,  # noqa: E402
                                     make_prefill_step, make_train_step)
 from repro_torch.core.cluster import ClusterEngine  # noqa: E402
@@ -345,6 +387,8 @@ from repro_torch.serving import (DegradeLadder, Request,  # noqa: E402
 from repro_torch.testing import differential as diff  # noqa: E402
 from repro_torch.ft import elastic  # noqa: E402
 from repro_torch.serving import faults  # noqa: E402
+from repro_torch.train.pipeline import (bubble_fraction,  # noqa: E402
+                                        pipeline_apply, pipeline_loss)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 PATH_SHAPE = (8, 2048, 32000)      # (slots, d_model, vocab) of tinyllama-1.1b
@@ -3829,6 +3873,466 @@ def phase_engine_throughput():
 
 
 # ---------------------------------------------------------------------------
+# phases 32-36: the multi-device machinery, the mesh held as tensor
+# dimensions on the one card (core/compat.py)
+# ---------------------------------------------------------------------------
+
+
+MESH_GROUPS = (1, 2, 4, 8)
+MESH_TIMING = dict(warmup=1, reps=3, inner=1)   # one call is 8 GEMMs' work
+
+
+def phase_mesh_chaining(smi):
+    """Phase 32: ``core.chaining``'s ring matmuls on a (1, 8) mesh at
+    tinyllama-1.1b's MLP projection (8192,2048)@(2048,5632):
+    ``all_gather_matmul`` at groups 1, 2, 4 and 8 and
+    ``matmul_reduce_scatter``, in float32 against one float64 product
+    (ACC_TOL of its largest entry) and in bfloat16 against the float32
+    product of the narrowed operands (one bf16 step plus ACC_TOL); the
+    ppermute counts exactly ``(group - 1) + 8/group`` and 8. Each device of
+    the all-gather computes the whole product, so a call does 8 GEMMs'
+    work on one card. Times beside one ``torch.matmul`` (printed, not
+    gated)."""
+    t0 = time.perf_counter()
+    m, k, n = LARGE_SHAPE
+    mesh = make_mesh(1, 8)
+    gen = torch.Generator(device=DEV).manual_seed(32)
+    x = torch.randn((m, k), generator=gen, device=DEV)
+    w = torch.randn((k, n), generator=gen, device=DEV)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    results, rows = [], {}
+    for dt in (torch.float32, torch.bfloat16):
+        xd, wd = x.to(dt), w.to(dt)
+        if dt == torch.float32:
+            ref, rel = (xd.double() @ wd.double()), 0.0
+        else:
+            ref, rel = xd.float() @ wd.float(), BF16_ULP
+        name = str(dt)[6:]
+        for g in MESH_GROUPS + ("rs",):
+            if g == "rs":
+                fn = lambda: chaining.matmul_reduce_scatter(xd, wd, mesh,
+                                                            "model")
+                hops = 8
+            else:
+                fn = lambda g=g: chaining.all_gather_matmul(
+                    xd, wd, mesh, "model", group=g)
+                hops = (g - 1) + 8 // g
+            compat.reset_counts()
+            y = fn()
+            counts = compat.read_counts()
+            assert counts["ppermute"]["calls"] == hops, (g, counts)
+            _check_float(f"mesh {name} group {g}", y, ref, rel, results)
+            del y
+            rows[f"{name} {g}"] = {"ms": time_ms(fn, **MESH_TIMING),
+                                   "ppermutes": hops,
+                                   "ppermute_bytes": counts["ppermute"]
+                                   ["bytes"]}
+        rows[f"{name} torch.matmul"] = {"ms": time_ms(
+            lambda: torch.matmul(xd, wd), **MESH_TIMING)}
+        del ref
+    emit("mesh_chaining", gpu=smi, shape=[m, k, n], mesh=[1, 8],
+         checks=results, times=rows, seconds=time.perf_counter() - t0)
+
+
+PIPE_STAGES, PIPE_MICRO, PIPE_LAYERS = 4, 8, 2   # stages x layers a stage
+PIPE_GRAD_TOL = 1e-4   # f32 sums of 8 microbatches' gradients, their order
+
+
+def phase_mesh_pipeline(smi):
+    """Phase 33: ``train.pipeline`` on tinyllama-1.1b at full width, 4
+    stages of 2 ``dense_block`` layers (8 layers, fp32 parameters, bf16
+    compute), M = 8 microbatches of 1 x 2048: ``pipeline_loss`` forward and
+    backward against the same layers applied to each microbatch in
+    sequence — the output bit-equal (or within one bf16 step), the
+    gradients within PIPE_GRAD_TOL of each leaf's largest (their f32 sums
+    over the microbatches run in another order) — and the attention
+    kernels' launches exactly M x S x 2 each (the port skips inactive
+    stages: ``pipeline.py``). ``bubble_fraction(4, 8)`` beside the
+    forward and backward's seconds, the two timed in turns (sequential,
+    pipeline, pipeline, sequential) after a first, untimed call of each:
+    one card runs the stages one after another, so the bubble costs
+    nothing here and the times read the schedule's overhead only. Returns
+    the launches."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              n_layers=PIPE_STAGES * PIPE_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    params = init_params(model_template(cfg), gen, device=DEV)
+    stages = tree_map(lambda a: a.reshape((PIPE_STAGES, PIPE_LAYERS)
+                                          + a.shape[1:]), params["layers"])
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_MICRO, 1, TRAIN_SEQ),
+                         generator=gen, device=DEV)
+    x = params["embed"][toks].to(torch.bfloat16)
+    c = torch.randn(x.shape, generator=gen, device=DEV)
+    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=DEV)[None]
+    mesh = staging.Mesh(("pod",), (PIPE_STAGES,))
+
+    def stage_fn(p, h):
+        for j in range(PIPE_LAYERS):
+            h = dense_block(cfg, tree_map(lambda a: a[j], p), h, pos)[0]
+        return h
+
+    def loss_fn(out, target):
+        return torch.mean(out.float() * target)
+
+    def grads(run):
+        leaves = tree_map(lambda a: a.detach().requires_grad_(True), stages)
+        loss = run(leaves)
+        return loss.detach(), torch.autograd.grad(
+            loss, list(tree_leaves(leaves)))
+
+    def piped(leaves):
+        return pipeline_loss(stage_fn, loss_fn, leaves, x, c, mesh, "pod")
+
+    def sequential(leaves):
+        outs = []
+        for i in range(PIPE_MICRO):
+            h = x[i]
+            for s in range(PIPE_STAGES):
+                h = stage_fn(tree_map(lambda a: a[s], leaves), h)
+            outs.append(h)
+        return loss_fn(torch.stack(outs), c)
+
+    with torch.no_grad():
+        y_pipe = pipeline_apply(stage_fn, stages, x, mesh, "pod")
+        y_seq = torch.stack([
+            functools.reduce(lambda h, s: stage_fn(
+                tree_map(lambda a: a[s], stages), h),
+                range(PIPE_STAGES), x[i]) for i in range(PIPE_MICRO)])
+    out_equal = torch.equal(y_pipe, y_seq)
+    out_gap = float((y_pipe.float() - y_seq.float()).abs().max())
+    assert out_equal or bool(((y_pipe.float() - y_seq.float()).abs()
+                              <= BF16_ULP * y_seq.float().abs()).all()), \
+        out_gap
+    del y_pipe, y_seq
+    att.reset_launches()            # the pipeline's path starts here
+    compat.reset_counts()
+    loss_p, g_pipe = grads(piped)
+    launches = dict(att.LAUNCHES)   # read right after it
+    counts = compat.read_counts()
+    loss_s, g_seq = grads(sequential)
+    secs = {"pipeline": [], "sequential": []}
+    for name in ("sequential", "pipeline", "pipeline", "sequential"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads(piped if name == "pipeline" else sequential)
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t1)
+    each = PIPE_MICRO * PIPE_STAGES * PIPE_LAYERS
+    assert launches == {"flash_fwd": each, "flash_bwd_dq": each,
+                        "flash_bwd_dkv": each}, launches
+    assert counts["ppermute"]["calls"] == PIPE_MICRO + PIPE_STAGES - 1
+    assert counts["psum"]["calls"] == 1
+    assert float(loss_p) == float(loss_s) or abs(float(loss_p - loss_s)) \
+        <= 1e-6 * abs(float(loss_s)), (float(loss_p), float(loss_s))
+    gaps = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(g_pipe, g_seq)]
+    assert max(gaps) <= PIPE_GRAD_TOL, gaps
+    emit("mesh_pipeline", gpu=smi, arch=cfg.name, stages=PIPE_STAGES,
+         layers_per_stage=PIPE_LAYERS, micro=PIPE_MICRO,
+         micro_shape=[1, TRAIN_SEQ, cfg.d_model], output_bit_equal=out_equal,
+         output_max_gap=out_gap, loss=float(loss_p),
+         loss_sequential=float(loss_s), grad_max_rel_gap=max(gaps),
+         grad_tol=PIPE_GRAD_TOL, launches=launches, collectives=counts,
+         bubble_fraction=bubble_fraction(PIPE_STAGES, PIPE_MICRO),
+         fwd_bwd_s_in_turns=secs,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         seconds=time.perf_counter() - t0)
+    del params, stages, g_pipe, g_seq
+    free_memory()
+    return launches
+
+
+COMP_DEVICES, COMP_LAYERS = 4, 2
+
+
+def phase_mesh_compression(smi):
+    """Phase 34: ``optim.compression.compressed_psum`` on a (4, 1) mesh
+    over the gradient tree of tinyllama-1.1b at full width and 2 layers
+    (fp32; each of the 4 data devices its own 1 x 2048 batch of
+    ``SyntheticLM``): per leaf, the mean within the reference's bound
+    (tests/test_substrate.py: 0.05 of the true mean's largest + 0.05),
+    the error-feedback residual below |g|max / 100; the wire bytes counted
+    (int8 all_to_all and all_gather, the scale's pmax) beside the f32 ring
+    all-reduce's 2 (n-1)/n x 4 bytes an element a device."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              n_layers=COMP_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(34)
+    params = init_params(model_template(cfg), gen, device=DEV)
+    trees = []
+    for d in range(COMP_DEVICES):
+        batch = _family_batch(cfg, 1, TRAIN_SEQ, 34, d)
+        (_, _), g = value_and_grad(lambda p, b: lm_loss(cfg, p, b))(
+            params, batch)
+        trees.append(g)
+    stacked = tree_map(lambda *gs: torch.stack(gs), *trees)
+    del trees
+    mesh = make_mesh(COMP_DEVICES, 1)
+
+    def device_fn(g, r):
+        return compressed_psum(g, r, mesh, ("data",))
+
+    spec = tree_map(lambda _: PS("data"), stacked)
+    compat.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mean, resid = compat.shard_map(
+        device_fn, mesh=mesh, in_specs=(spec, spec),
+        out_specs=(tree_map(lambda _: PS(None), stacked), spec))(
+            stacked, init_residuals(stacked))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    counts = compat.read_counts()
+    worst = {"mean_err_over_bound": 0.0, "residual_over_bound": 0.0}
+    n_elems = 0
+    for g, mg, r in zip(tree_leaves(stacked), tree_leaves(mean),
+                        tree_leaves(resid)):
+        true = g.mean(dim=0)
+        err = float((mg[0] - true).abs().max())
+        bound = 0.05 * float(true.abs().max()) + 0.05
+        worst["mean_err_over_bound"] = max(worst["mean_err_over_bound"],
+                                           err / bound)
+        worst["residual_over_bound"] = max(
+            worst["residual_over_bound"],
+            float(r.abs().max()) / (float(g.abs().max()) / 100))
+        n_elems += true.numel()
+    assert worst["mean_err_over_bound"] < 1, worst
+    assert worst["residual_over_bound"] < 1, worst
+    wire = sum(v["bytes"] for k, v in counts.items() if k != "shard_map")
+    ring_f32 = 2 * (COMP_DEVICES - 1) / COMP_DEVICES * 4 * n_elems \
+        * COMP_DEVICES
+    n_leaves = len(list(tree_leaves(stacked)))
+    assert counts["all_to_all"]["calls"] == n_leaves, counts
+    assert counts["all_gather"]["calls"] == 2 * n_leaves, counts
+    emit("mesh_compression", gpu=smi, arch=cfg.name, n_layers=COMP_LAYERS,
+         mesh=[COMP_DEVICES, 1], leaves=n_leaves, elements=n_elems,
+         worst=worst, collectives=counts, wire_bytes=wire,
+         f32_ring_bytes=ring_f32, ring_over_wire=ring_f32 / wire, ms=ms,
+         seconds=time.perf_counter() - t0)
+    del params, stacked, mean, resid
+    free_memory()
+
+
+MESH_TRAIN = dict(data=2, model=4, batch=8, layers=16, steps=3)
+EP_LAYER_TOKENS, EP_LAYER_CF = 2048, 16.0
+
+
+def phase_mesh_train(smi):
+    """Phase 35: granite-moe-3b-a800m at full width, 16 of 32 layers (PR
+    22's cut; the state of all 32 leaves no room), through
+    ``Trainer(mesh=make_mesh(2, 4))`` — the path ``launch/train.py --data 2
+    --model 4`` takes — 3 AdamW steps at 8 x 2048 = 16,384 tokens, the
+    least that takes the expert-parallel route (48 padded experts over 4
+    lanes, 2048 tokens a device in one chunk): finite losses, the
+    attention kernels' launches exactly ``train_launches`` a step, and the
+    EP route witnessed by exactly 3 all_to_all a chunk a MoE layer a pass
+    (full remat: two passes a step). Then 3 steps of the one-device step
+    at PR 22's 4 x 2048 on the same state, for tokens/s and peak memory
+    beside it. Before them, one MoE layer at full width: ``moe_ep_shard_map``
+    on (2, 4) at 2048 tokens and capacity factor 16 (float32) against
+    ``moe_dense_dispatch``, within the reference's own bound
+    (tests/test_moe.py: 1e-3 of the largest + 1e-4; aux within 0.3).
+    Returns the training path's launches."""
+    t0 = time.perf_counter()
+    full = get_config(MOE_ARCH)
+    lay = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=EP_LAYER_CF))
+    gen = torch.Generator(device=DEV).manual_seed(35)
+    p = init_params(moe_template(lay), gen, device=DEV)
+    x = torch.randn((EP_LAYER_TOKENS, lay.d_model), generator=gen,
+                    device=DEV)
+    ctx = MeshCtx(mesh=make_mesh(MESH_TRAIN["data"], MESH_TRAIN["model"]))
+    compat.reset_counts()
+    y_ep, aux_ep = moe_ep_shard_map(lay, p, x, ctx)
+    layer_counts = compat.read_counts()
+    y_d, aux_d = moe_dense_dispatch(lay, p, x)
+    scale = float(y_d.abs().max())
+    layer_err = float((y_ep - y_d).abs().max())
+    assert layer_err < 1e-3 * scale + 1e-4, (layer_err, scale)
+    assert abs(float(aux_ep) - float(aux_d)) < 0.3, (aux_ep, aux_d)
+    assert layer_counts["all_to_all"]["calls"] == 3, layer_counts
+    del p, x, y_ep, y_d
+    free_memory()
+
+    cfg = dataclasses.replace(full, n_layers=MESH_TRAIN["layers"])
+    opt = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=60)
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=MESH_TRAIN["batch"],
+                      vocab_size=cfg.vocab_size)
+    trainer = Trainer(cfg, opt, data,
+                      TrainerConfig(steps=MESH_TRAIN["steps"], log_every=1),
+                      mesh=ctx.mesh, device=DEV)
+    stamps, rows = [], []
+
+    def on_step(m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        rows.append(m)
+
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launches()            # the mesh training path starts here
+    compat.reset_counts()
+    stamps.append(time.perf_counter())
+    _, state = trainer.run(on_step=on_step)
+    launches = dict(att.LAUNCHES)   # read right after it
+    counts = compat.read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = MESH_TRAIN["steps"]
+    per_step = train_launches(cfg)
+    assert launches == {k: steps * v for k, v in per_step.items()}, \
+        (launches, per_step)
+    passes = 2 if cfg.remat == "full" else 1
+    tokens_dev = MESH_TRAIN["batch"] * TRAIN_SEQ // (
+        MESH_TRAIN["data"] * MESH_TRAIN["model"])
+    chunks = -(-tokens_dev // moe_mod.EP_CHUNK_TOKENS)
+    want_a2a = 3 * chunks * cfg.n_layers * passes * steps
+    assert counts["all_to_all"]["calls"] == want_a2a, (counts, want_a2a)
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in rows), rows
+    mesh_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+
+    # the one-device step at PR 22's shape, on the trained state
+    one = make_train_step(cfg, opt).step_fn
+    batches = [_family_batch(cfg, 4, TRAIN_SEQ, 35, i) for i in range(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    one_ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = one(state, b)
+        float(m["loss"])
+        one_ms.append(1e3 * (time.perf_counter() - t1))
+    one_peak = torch.cuda.max_memory_allocated()
+    mesh_steady = statistics.mean(mesh_ms[1:])
+    one_steady = statistics.mean(one_ms[1:])
+    emit("mesh_train", gpu=smi, arch=cfg.name, mesh=[MESH_TRAIN["data"],
+                                                      MESH_TRAIN["model"]],
+         reduced={"n_layers": cfg.n_layers}, d_model=cfg.d_model,
+         experts_padded=cfg.moe.n_experts_padded, batch=MESH_TRAIN["batch"],
+         seq_len=TRAIN_SEQ, tokens_per_device=tokens_dev,
+         ep_chunks_per_layer=chunks, steps=steps,
+         losses=[r["loss"] for r in rows],
+         grad_norms=[r["grad_norm"] for r in rows],
+         aux=[r["aux"] for r in rows], step_ms=mesh_ms,
+         steady_step_ms=mesh_steady,
+         tokens_per_s=MESH_TRAIN["batch"] * TRAIN_SEQ / (mesh_steady / 1e3),
+         max_memory_allocated=peak, launches=launches,
+         launches_per_step=per_step, collectives=counts,
+         one_device={"batch": 4, "step_ms": one_ms, "steady_step_ms":
+                     one_steady, "tokens_per_s": 4 * TRAIN_SEQ
+                     / (one_steady / 1e3), "max_memory_allocated": one_peak},
+         ep_layer={"tokens": EP_LAYER_TOKENS, "capacity_factor": EP_LAYER_CF,
+                   "max_err": layer_err, "scale": scale,
+                   "aux": [float(aux_ep), float(aux_d)],
+                   "collectives": layer_counts},
+         seconds=time.perf_counter() - t0)
+    del trainer, state, batches, one
+    free_memory()
+    return launches
+
+
+MESH_SERVE_LANES, MESH_SERVE_PROMPT, MESH_SERVE_STEPS = 4, 64, 4
+
+
+def phase_mesh_serve(smi, cfg):
+    """Phase 36: deepseek-v3-671b at PR 20's cut (1 dense + 1 MoE layer,
+    bf16: ``cfg``) on a (1, 4) mesh: ``make_prefill_step`` (MLA's
+    lane-local route: one shard_map a layer, 128 heads 32 a lane, no
+    collective) and 4 ``make_decode_step`` calls with the mesh against the
+    same steps without it on the same inputs, each logit gap within
+    bf16's own rounding (the bf16 forward's gap to float32 compute, the
+    witness, + 1e-3 of the largest logit), timed in turns (mesh, plain,
+    plain, mesh; ms per run); then ``ServingEngine(ctx=...)`` on 4
+    requests of 32-40 prompt tokens and 4 new tokens, 2 slots, greedy, at
+    the configured precision: every request done, one lane-local prefill
+    per request, and the tokens of the same engine without a mesh."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(model_template(cfg), gen,
+                         dtype=torch_dtype(cfg.param_dtype), device=DEV)
+    ctx = MeshCtx(mesh=make_mesh(1, MESH_SERVE_LANES))
+    toks = torch.randint(0, cfg.vocab_size, (2, MESH_SERVE_PROMPT),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    n_max = MESH_SERVE_PROMPT + MESH_SERVE_STEPS
+    with torch.no_grad():
+        full, _, _ = forward(cfg, params, toks)
+        full32, _, _ = forward(dataclasses.replace(
+            cfg, compute_dtype="float32"), params, toks)
+        witness = _logit_gap(full[:, -1], full32[:, -1])
+        del full, full32
+        runs, ms = {}, {}
+        # in turns: the first mesh run feeds its greedy tokens to the rest
+        for turn, name in enumerate(("mesh", "plain", "plain", "mesh")):
+            c = ctx if name == "mesh" else None
+            compat.reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, cache = make_prefill_step(cfg, c, n_max)(
+                params, {"tokens": toks})
+            torch.cuda.synchronize()
+            ms.setdefault(f"{name}_prefill", []).append(
+                1e3 * (time.perf_counter() - t1))
+            if c is not None:
+                assert compat.CALLS["shard_map"] == cfg.n_layers, \
+                    dict(compat.CALLS)
+                assert set(compat.CALLS) == {"shard_map"}, dict(compat.CALLS)
+            out = [lg]
+            dec = make_decode_step(cfg, c)
+            t1 = time.perf_counter()
+            for i in range(MESH_SERVE_STEPS):
+                nxt = torch.argmax(runs["mesh"][i] if turn else out[-1],
+                                   dim=-1).to(torch.int32)
+                lg, cache = dec(params, cache, {"tokens": nxt[:, None]})
+                out.append(lg)
+            torch.cuda.synchronize()
+            ms.setdefault(f"{name}_decode", []).append(
+                1e3 * (time.perf_counter() - t1) / MESH_SERVE_STEPS)
+            runs.setdefault(name, out)
+            del cache
+    gaps = [_logit_gap(a, b) for a, b in zip(runs["mesh"], runs["plain"])]
+    assert max(gaps) <= witness + 1e-3, (gaps, witness)
+    del runs
+
+    tokens = {}
+    for name, c in (("mesh", ctx), ("plain", None)):
+        eng = ServingEngine(cfg, params, slots=2, max_seq=64, ctx=c,
+                            degrade=None, device=DEV)
+        reqs = make_requests(cfg, np.random.RandomState(36), 4, 4)
+        for r in reqs:
+            r.prompt = r.prompt[:40]       # within max_seq with 4 new
+            assert eng.submit(r) is None
+        compat.reset_counts()
+        eng.run_to_completion()
+        assert all(r.state == State.DONE and len(r.out_tokens) == 4
+                   for r in reqs), [(r.uid, r.state.value) for r in reqs]
+        if c is not None:       # one lane-local prefill a request
+            assert compat.CALLS["shard_map"] == cfg.n_layers * len(reqs), \
+                dict(compat.CALLS)
+        tokens[name] = {r.uid: [int(t) for t in r.out_tokens] for r in reqs}
+        del eng
+    assert tokens["mesh"] == tokens["plain"], tokens
+    emit("mesh_serve", gpu=smi, arch=cfg.name, n_layers=cfg.n_layers,
+         mesh=[1, MESH_SERVE_LANES], compute_dtype=cfg.compute_dtype,
+         prompt=MESH_SERVE_PROMPT, steps=MESH_SERVE_STEPS, rel_gaps=gaps,
+         witness=witness, ms=ms, engine_tokens=tokens["mesh"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         seconds=time.perf_counter() - t0)
+    del params
+    free_memory()
+
+
+def run_mesh(smi):
+    """Phases 32-36. Returns the attention kernels' launches by path."""
+    phase_mesh_chaining(smi)
+    free_memory()
+    pipe = phase_mesh_pipeline(smi)
+    phase_mesh_compression(smi)
+    train = phase_mesh_train(smi)
+    phase_mesh_serve(smi, serving_cfgs()[MLA_ARCH])
+    return {"mesh_pipeline": pipe, "mesh_train": train}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
@@ -3849,8 +4353,9 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     kernel's non-causal mode; the restarted training's and the families'
     training's three attention kernels). ``surface`` holds phases 27-31's
     counts by path (the quickstart per arch, ``kernel_bench``,
-    ``multiprecision``, ``attention_long``'s rows and gates): every row
-    adds those that launched it."""
+    ``multiprecision``, ``attention_long``'s rows and gates) and phases 33
+    and 35's (``mesh_pipeline``, ``mesh_train``): every row adds those that
+    launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -4042,6 +4547,8 @@ def main():
     surface.update(phase_attention_long()[0])
     free_memory()
     phase_engine_throughput()
+    free_memory()
+    surface.update(run_mesh(smi))           # each sets its counts to 0 first
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,

@@ -182,12 +182,13 @@ def _to_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 def restore(directory: str, *, step: Optional[int] = None, device=None,
             verify: bool = True, shardings=None):
     """Load a checkpoint; each leaf becomes a tensor of its manifest dtype
-    on ``device`` (default: the card; raises without one). Returns (step,
-    tree) or (None, None) if nothing loadable."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore places leaves on one device; shardings wait for the "
-            "multi-device machinery (ROADMAP Queue A 13)")
+    on ``device`` (default: the card; raises without one). ``shardings``:
+    the reference's target shardings (a tree of
+    ``models.sharding.NamedSharding``, possibly of another mesh than the
+    one saved from — elastic restore); one card holds each leaf whole, so a
+    sharding places nothing, but a leaf whose sharded dimension it does
+    not divide raises the reference's ``ValueError``. Returns (step, tree)
+    or (None, None) if nothing loadable."""
     device = resolve_device(device)
     steps = latest_steps(directory)
     if not steps:
@@ -196,6 +197,8 @@ def restore(directory: str, *, step: Optional[int] = None, device=None,
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    sh_flat = dict(("/".join(p), s) for p, s in _flatten(shardings)) \
+        if shardings is not None else {}
     items = []
     for name, meta in manifest["leaves"].items():
         arr = np.load(os.path.join(d, meta["file"]))
@@ -204,6 +207,9 @@ def restore(directory: str, *, step: Optional[int] = None, device=None,
             if crc != meta["crc32"]:
                 raise IOError(f"checkpoint corruption in {name} "
                               f"(crc {crc} != {meta['crc32']})")
+        sh = sh_flat.get(name)
+        if sh is not None:
+            sh.shard_shape(arr.shape)
         items.append((tuple(name.split("/")),
                       _to_tensor(arr, meta["dtype"], device)))
     return step, _unflatten(items)

@@ -4,8 +4,8 @@ in decode.
 
 Only ``model_flops`` is ported here. The reference module's three-term
 roofline (``Roofline``, ``build``) reads compiled XLA HLO of a dry run over
-a device mesh; it waits for the multi-device machinery and the XLA
-readers (ROADMAP Queue A 13).
+a device mesh; its twin, a FLOP and byte count of a torch step with an
+H100 roofline, is the XLA readers' slice (ROADMAP Queue A13b).
 """
 from __future__ import annotations
 

@@ -13,8 +13,10 @@ to its source by ``tests/test_torch_checkpoint.py``:
   largest valid (data, model) mesh and the new global batch.
 
 ``recover`` restores the latest checkpoint onto one device (``device`` in
-place of the reference's target shardings; the mesh itself waits for the
-multi-device machinery, ROADMAP Queue A 13) or builds a fresh state.
+place of the reference's target shardings: a mesh, ``launch.mesh.
+elastic_mesh``'s included, is held as tensor dimensions on that one
+device, and ``checkpoint.ckpt.restore(shardings=)`` checks a tree against
+one) or builds a fresh state.
 """
 from __future__ import annotations
 

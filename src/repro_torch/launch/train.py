@@ -2,11 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
       --steps 50 [--reduced] [--ckpt-dir DIR --ckpt-every 25] \
-      [--fuse-steps 4] [--grad-accum 2] [--seq-len 2048 --batch 4] \
-      [--device cuda]
+      [--data 2 --model 4] [--fuse-steps 4] [--grad-accum 2] \
+      [--seq-len 2048 --batch 4] [--device cuda]
 
-The reference's flags, minus ``--data/--model`` (one device, no mesh),
-plus ``--device`` (default: the card; raises without one).
+The reference's flags, plus ``--device`` (default: the card; raises
+without one). With ``--data/--model`` the trainer takes a (data, model)
+mesh, held as tensor dimensions on the one device (``launch/mesh.py``):
+the mixture-of-experts configs then train on the expert-parallel route
+where the reference takes it.
 ``--reduced --device cpu`` runs the smoke-scale config on the CPU as a
 rehearsal. With ``--ckpt-dir`` the run saves every ``--ckpt-every`` steps
 and at its end, and resumes from the latest checkpoint found there.
@@ -28,6 +31,8 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--fuse-steps", type=int, default=1)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--data", type=int, default=0)
+    ap.add_argument("--model", type=int, default=0)
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--d-model", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -35,6 +40,7 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -48,6 +54,10 @@ def main(argv=None):
             over["head_dim"] = max(args.d_model // 4, 8)
         cfg = reduced(cfg, **over)
 
+    mesh = None
+    if args.data and args.model:
+        mesh = make_mesh(args.data, args.model)
+
     data_cfg = DataConfig(seq_len=args.seq_len, global_batch=args.batch,
                           vocab_size=cfg.vocab_size)
     opt_cfg = OptConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 10, 1),
@@ -56,7 +66,8 @@ def main(argv=None):
                          ckpt_every=args.ckpt_every, log_every=5,
                          fuse_steps=args.fuse_steps,
                          grad_accum=args.grad_accum)
-    trainer = Trainer(cfg, opt_cfg, data_cfg, tcfg, device=args.device)
+    trainer = Trainer(cfg, opt_cfg, data_cfg, tcfg, mesh=mesh,
+                      device=args.device)
 
     def log(m):
         print(f"step {m['step']:5d} loss {m['loss']:.4f} "

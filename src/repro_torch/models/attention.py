@@ -24,7 +24,9 @@ MLA keeps a compressed cache (``c_kv`` of the latent width and the rotary
 from it (``_mla_chunked``, an online softmax as above); a one-token decode
 takes the absorbed form, scoring and summing in the latent space. Its
 products are plain ``torch.einsum`` calls, as the reference's are plain
-einsums outside any Pallas kernel.
+einsums outside any Pallas kernel. Under a mesh context
+(:func:`set_mesh_ctx`) a prefill runs the chunked loop lane-local
+(:func:`mla_chunked`).
 
 Convention (shared with the reference and its kernel): rows with NO valid
 key output zeros.
@@ -43,12 +45,24 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import compat
+from repro_torch.core.compat import PartitionSpec as PS
 from repro_torch.models.layers import (P, apply_rope, repeat_kv, rms_norm,
                                        rotary_embedding, widen)
 
 NEG_INF = -1e30
 CHUNK_THRESHOLD = 2048  # use chunked attention when kv_len exceeds this
 KV_CHUNK = 1024
+
+# Mesh context set by transformer.forward: lets MLA's chunked loop run as
+# an explicit lane-local shard_map (see mla_chunked).
+_MESH_CTX = None
+
+
+def set_mesh_ctx(ctx):
+    global _MESH_CTX
+    _MESH_CTX = ctx
+
 
 def flash_route_enabled(mode: str = "auto", device=None) -> bool:
     """Should attention route through the blockwise-attention kernel?
@@ -136,6 +150,16 @@ def _flash_attention(q, k, v, kv_valid, causal: bool):
 # ---------------------------------------------------------------------------
 # Templates
 # ---------------------------------------------------------------------------
+
+
+def _lane_local_ok(batch: int, heads: int) -> bool:
+    """True when heads divide the lane axis and batch divides the batch
+    axes — the MLA chunked loop then runs as an explicit shard_map."""
+    ctx = _MESH_CTX
+    if ctx is None or ctx.mesh is None:
+        return False
+    b_div = math.prod(ctx.axis_sizes.get(a, 1) for a in ctx.batch_axes)
+    return heads % max(ctx.n_lanes, 1) == 0 and batch % max(b_div, 1) == 0
 
 
 def gqa_template(cfg: ArchConfig, cross: bool = False) -> dict:
@@ -454,13 +478,31 @@ def _mla_triangular(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos,
 
 def mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos, kv_valid,
                 chunk=KV_CHUNK, lane_local=False):
-    """The reference's dispatcher, which runs a lane-local ``shard_map``
-    under a device mesh. The port runs on one device, where the reference
-    too always takes :func:`_mla_chunked`; ``lane_local`` is accepted and
-    has no effect until the multi-device machinery is ported."""
-    del lane_local
-    return _mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos,
-                        kv_valid, chunk)
+    """Dispatcher: the lane-local ``shard_map`` when the mesh allows
+    (:func:`_lane_local_ok`: heads on the lanes, batch on the batch axes —
+    no collective inside the loop; the Ara lane principle applied to
+    attention), :func:`_mla_chunked` otherwise. The mesh is held as tensor
+    dimensions (``core/compat.py``), so the body is :func:`_mla_chunked`
+    run once on the stacks. Inference-only, as in the reference (its
+    callers pass ``lane_local=True`` only on the cache path)."""
+    ctx = _MESH_CTX
+    if not (lane_local and _lane_local_ok(q_nope.shape[0], q_nope.shape[2])):
+        return _mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos,
+                            kv_valid, chunk)
+    b_axes = tuple(ctx.batch_axes)
+    lanes = ctx.model_axis
+    fn = functools.partial(_mla_chunked, cfg, chunk=chunk)
+    return compat.shard_map(
+        fn, mesh=ctx.mesh,
+        in_specs=(PS(b_axes, None, lanes, None),   # q_nope
+                  PS(b_axes, None, lanes, None),   # q_rope
+                  PS(b_axes, None, None),          # c_kv
+                  PS(b_axes, None, None),          # k_rope
+                  PS(None, lanes, None),           # wkv_b
+                  PS(b_axes, None),                # q_pos
+                  PS(b_axes, None)),               # kv_valid
+        out_specs=PS(b_axes, None, lanes, None),
+    )(q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos, kv_valid)
 
 
 def _mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos, kv_valid,
@@ -470,37 +512,41 @@ def _mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos, kv_valid,
     K and V are expanded chunk by chunk from the compressed cache inside an
     online softmax over the chunks, and the rope term stays a separate
     head-free product. q_nope (B,S,H,nope); q_rope (B,S,H,rope); c_kv
-    (B,T,kv_lora); k_rope (B,T,rope), already rotary-encoded. Scores
+    (B,T,kv_lora); k_rope (B,T,rope), already rotary-encoded; every operand
+    may carry the same leading dimensions (a mesh's stacks: ``wkv_b``
+    (...,kv_lora,H,k), ``q_pos`` (...,B,S), ``kv_valid`` (...,B,T)). Scores
     accumulate in fp32 (float64 for float64 operands). The ragged last
     chunk is simply shorter: the reference pads it with invalid keys,
     which contribute nothing.
     """
     m = cfg.mla
     nope, rope, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
-    b, s_len, h, _ = q_nope.shape
-    t_len = c_kv.shape[1]
+    lead = q_nope.shape[:-4]
+    b, s_len, h, _ = q_nope.shape[-4:]
+    t_len = c_kv.shape[-2]
     dev = q_nope.device
     scale = 1.0 / math.sqrt(nope + rope)
     kv_pos = torch.arange(t_len, dtype=torch.int32, device=dev)
     chunk = min(chunk, t_len)
 
     wide = torch.promote_types(q_nope.dtype, torch.float32)
-    acc = torch.zeros((b, s_len, h, dv), dtype=wide, device=dev)
-    m_run = torch.full((b, h, s_len), NEG_INF, dtype=wide, device=dev)
-    l_run = torch.zeros((b, h, s_len), dtype=wide, device=dev)
+    acc = torch.zeros(lead + (b, s_len, h, dv), dtype=wide, device=dev)
+    m_run = torch.full(lead + (b, h, s_len), NEG_INF, dtype=wide,
+                       device=dev)
+    l_run = torch.zeros(lead + (b, h, s_len), dtype=wide, device=dev)
     qn, qr = widen(q_nope), widen(q_rope)
     for start in range(0, t_len, chunk):
-        ckv_b = c_kv[:, start:start + chunk]
-        validb = kv_valid[:, start:start + chunk]
+        ckv_b = c_kv[..., start:start + chunk, :]
+        validb = kv_valid[..., start:start + chunk]
         posb = kv_pos[start:start + chunk]
-        kv_b = torch.einsum("btr,rhk->bthk", ckv_b, wkv_b)
+        kv_b = torch.einsum("...btr,...rhk->...bthk", ckv_b, wkv_b)
         k_nope_b, v_b = kv_b[..., :nope], kv_b[..., nope:]
-        sc = torch.einsum("bshk,bthk->bhst", qn, widen(k_nope_b))
-        sc = sc + torch.einsum("bshk,btk->bhst", qr,
-                               widen(k_rope[:, start:start + chunk]))
+        sc = torch.einsum("...bshk,...bthk->...bhst", qn, widen(k_nope_b))
+        sc = sc + torch.einsum("...bshk,...btk->...bhst", qr,
+                               widen(k_rope[..., start:start + chunk, :]))
         sc = sc * scale
-        mask = (posb[None, None, None, :] <= q_pos[:, None, :, None]) \
-            & validb[:, None, None, :]
+        mask = (posb <= q_pos[..., :, None, :, None]) \
+            & validb[..., :, None, None, :]
         sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
         m_new = torch.maximum(m_run, sc.amax(dim=-1))
         alpha = torch.exp(m_run - m_new)
@@ -508,10 +554,10 @@ def _mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos, kv_valid,
                              torch.zeros_like(m_new))      # dead rows -> 0
         p = torch.exp(sc - m_safe[..., None])
         l_run = l_run * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhst,bthd->bshd", p.to(v_b.dtype), v_b)
-        acc = acc * alpha.transpose(1, 2)[..., None] + widen(pv)
+        pv = torch.einsum("...bhst,...bthd->...bshd", p.to(v_b.dtype), v_b)
+        acc = acc * alpha.transpose(-1, -2)[..., None] + widen(pv)
         m_run = m_new
-    out = acc / l_run.clamp_min(1e-30).transpose(1, 2)[..., None]
+    out = acc / l_run.clamp_min(1e-30).transpose(-1, -2)[..., None]
     return out.to(q_nope.dtype)
 
 

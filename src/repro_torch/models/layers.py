@@ -1,11 +1,14 @@
 """Param templates + common neural net ops.
 
 A model is described by a *template* tree (nested dicts of ``P`` leaves).
-From one template we derive the concrete init: a tree of tensors with the
-same keys — the parameter tree every model function takes. The logical
-axis names on ``P`` are kept (they describe the layout and will drive
-sharding when the multi-device machinery is ported); nothing here reads
-them.
+From one template we derive the concrete init (a tree of tensors with the
+same keys — the parameter tree every model function takes), shape-only
+stand-ins (``meta`` tensors; no memory) and PartitionSpecs (logical axes
+-> mesh axes, through :class:`Rules`), as in the reference.
+
+Sharding follows the Ara lane model: the "model" mesh axis is the lane
+axis. On one card a spec describes how a mesh of devices would hold a
+tensor (``core/compat.py`` holds such a mesh as tensor dimensions).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.compat import PartitionSpec
 from repro_torch.core.precision import torch_dtype
 from repro_torch.device import resolve_device
 
@@ -43,6 +47,12 @@ def _leaves(tree, path=()):
             yield from _leaves(tree[k], path + (k,))
     else:
         raise TypeError(f"bad template node at {path}: {type(tree)}")
+
+
+def _map_template(tree, fn):
+    if isinstance(tree, P):
+        return fn(tree)
+    return {k: _map_template(v, fn) for k, v in tree.items()}
 
 
 def init_params(template, generator: torch.Generator,
@@ -80,6 +90,55 @@ def init_params(template, generator: torch.Generator,
             node = node.setdefault(k, {})
         node[path[-1]] = init_one(p)
     return out
+
+
+def abstract_params(template, dtype=torch.float32):
+    """Shape-and-dtype stand-ins on the ``meta`` device: no memory is
+    allocated (the reference's ``ShapeDtypeStruct`` tree)."""
+    dtype = torch_dtype(dtype)
+    return _map_template(template, lambda p: torch.empty(p.shape, dtype=dtype,
+                                                         device="meta"))
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    """Logical-axis -> mesh-axis mapping (the lane-assignment policy)."""
+    mapping: tuple                    # tuple of (logical, mesh_axis_or_tuple)
+    mesh_shape: tuple                 # tuple of (mesh_axis, size)
+
+    def mesh_size(self, axis) -> int:
+        if isinstance(axis, (tuple, list)):
+            return math.prod(self.mesh_size(a) for a in axis)
+        return dict(self.mesh_shape).get(axis, 1)
+
+    def spec_for(self, p: P) -> PartitionSpec:
+        m = dict(self.mapping)
+        used = set()
+        out = []
+        for dim, ax in zip(p.shape, p.axes):
+            mesh_ax = m.get(ax)
+            if mesh_ax is None:
+                out.append(None)
+                continue
+            flat = tuple(mesh_ax) if isinstance(mesh_ax, (tuple, list)) \
+                else (mesh_ax,)
+            if any(a in used for a in flat):
+                out.append(None)  # a mesh axis may shard only one dim
+                continue
+            # shard only when the dim is at least the axis size (the
+            # reference accepts the padding an uneven split would need)
+            size = self.mesh_size(mesh_ax)
+            if dim >= size and size > 1:
+                used.update(flat)
+                out.append(mesh_ax if not isinstance(mesh_ax, list)
+                           else tuple(mesh_ax))
+            else:
+                out.append(None)
+        return PartitionSpec(*out)
+
+
+def param_specs(template, rules: Rules):
+    return _map_template(template, rules.spec_for)
 
 
 def tree_leaves(tree):
@@ -176,6 +235,14 @@ def apply_rope(x, cos, sin):
     c = cos[..., None, :]  # broadcast over heads axis
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def shard(x, *axes):
+    """The reference's ``with_sharding_constraint`` by raw PartitionSpec
+    entries: a layout hint to the partitioner. One card holds the whole
+    tensor, so it is the identity."""
+    del axes
+    return x
 
 
 def repeat_kv(k, n_rep: int):

@@ -1,30 +1,39 @@
-"""Mixture-of-Experts: GShard-style one-hot capacity dispatch.
+"""Mixture-of-Experts with the reference's two dispatch strategies.
 
-``moe_dense_dispatch`` routes every token to its top-k experts (softmax
-router, renormalised gates), gives each expert ``capacity`` slots per group
-of tokens, claimed slot-major (the first choice of every token before any
-second choice), drops what does not fit, and combines the experts' outputs
-with the gates. It returns a Switch-style load-balance aux loss beside the
-output. DeepSeek-V3's sigmoid+bias aux-free router is approximated by this
+1. ``moe_dense_dispatch`` routes every token to its top-k experts (softmax
+   router, renormalised gates), gives each expert ``capacity`` slots per
+   group of tokens, claimed slot-major (the first choice of every token
+   before any second choice), drops what does not fit, and combines the
+   experts' outputs with the gates. Used for small token counts, for
+   configs whose experts do not divide the lanes, and without a mesh.
+2. ``moe_ep_shard_map``: expert parallelism — experts sharded over the
+   mesh's ``model`` (lane) axis, tokens over every axis, moved to the lane
+   that owns their expert by ``all_to_all``, computed there and moved back,
+   strip-mined in chunks of ``EP_CHUNK_TOKENS``. The mesh is held as tensor
+   dimensions on one device (``core/compat.py``): three counted
+   ``all_to_all`` calls a chunk.
+
+Both return a Switch-style load-balance aux loss beside the output.
+DeepSeek-V3's sigmoid+bias aux-free router is approximated by this
 classic router, as in the reference.
-
-The reference also has an expert-parallel path (``moe_ep_shard_map``:
-experts sharded over a mesh's lane axis, tokens moved by ``all_to_all``).
-On one device the reference always takes the one-hot dispatch, and so does
-the port: the expert-parallel path waits for the multi-device machinery
-(ROADMAP Queue A 13), and :func:`moe_block` takes no mesh context.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import compat
+from repro_torch.core.compat import PartitionSpec as PS
 from repro_torch.models.layers import P, activation_fn
 from repro_torch.models.mlp import mlp
+from repro_torch.models.sharding import MeshCtx
 
-DENSE_PATH_MAX_TOKENS = 16384   # above this, tokens form groups of 64
+DENSE_PATH_MAX_TOKENS = 16384   # below this, one-hot dispatch is cheaper
+EP_CHUNK_TOKENS = 8192          # strip-mine unit for the EP a2a pipeline
 
 
 def moe_template(cfg: ArchConfig) -> dict:
@@ -56,7 +65,9 @@ def moe_template(cfg: ArchConfig) -> dict:
 
 
 def _route(x_tokens, router_w, top_k: int, n_experts: int):
-    """x (T,d) -> gates (T,k), ids (T,k) int32, aux loss scalar (fp32).
+    """x (...,T,d) -> gates (...,T,k), ids (...,T,k) int32, aux loss (...)
+    fp32; leading dimensions (the devices of a mesh's stacks) route
+    independently.
 
     The top k are taken by a stable descending sort, so that equal
     probabilities keep index order, as ``jax.lax.top_k`` does
@@ -66,14 +77,15 @@ def _route(x_tokens, router_w, top_k: int, n_experts: int):
     logits = x_tokens.to(wide) @ router_w.to(wide)
     probs = torch.softmax(logits, dim=-1)
     gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, ids = gates[:, :top_k], ids[:, :top_k]
+    gates, ids = gates[..., :top_k], ids[..., :top_k]
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     # Switch aux loss: E * sum_e f_e * P_e
-    f = torch.zeros((n_experts,), dtype=wide, device=x_tokens.device)
-    f = f.index_add(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1),
-                                                        dtype=wide))
-    f = f / f.sum().clamp_min(1.0)
-    aux = n_experts * torch.sum(f * probs.mean(dim=0))
+    lead = ids.shape[:-2]
+    flat = ids.reshape(lead + (-1,))
+    f = torch.zeros(lead + (n_experts,), dtype=wide, device=x_tokens.device)
+    f = f.scatter_add(-1, flat, torch.ones_like(flat, dtype=wide))
+    f = f / f.sum(dim=-1, keepdim=True).clamp_min(1.0)
+    aux = n_experts * torch.sum(f * probs.mean(dim=-2), dim=-1)
     return gates, ids.to(torch.int32), aux
 
 
@@ -146,18 +158,174 @@ def moe_dense_dispatch(cfg: ArchConfig, p: dict, x_tokens, *,
     return y.reshape(t_len, d), aux
 
 
-def moe_block(cfg: ArchConfig, p: dict, x, ctx=None):
-    """x (B,S,d) -> (B,S,d), aux_loss. The shared experts, where the config
-    has them, are one gated-SiLU MLP added to every token (SiLU whatever
-    ``cfg.activation`` is, as in the reference). ``ctx`` (the reference's
-    mesh context) must be None."""
-    if ctx is not None:
-        raise NotImplementedError(
-            "moe_block runs on one device; a mesh context (expert "
-            "parallelism) waits for the multi-device machinery (ROADMAP "
-            "Queue A 13)")
+# ---------------------------------------------------------------------------
+# Path 2: expert-parallel all_to_all (shard_map)
+# ---------------------------------------------------------------------------
+
+
+def _one_hot(idx, n: int):
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(
+        torch.int32)
+
+
+def _ep_device_fn(cfg: ArchConfig, n_lanes: int, model_axis: str,
+                  all_axes: tuple,
+                  x_loc, router_w, w_gate, w_up, w_down):
+    """The body, on the stacks (every device at once): x_loc (*mesh,
+    T_loc, d); router_w (*mesh, d, E), one copy; w_* (*mesh, E_loc, ...),
+    each lane its experts.
+
+    The reference's per-device body, with the devices flattened into a
+    leading dimension ``D`` for the routing, the scatters and the expert
+    products; the capacities are the reference's, truncation included
+    (they decide which tokens drop): ``cap_send`` slots per destination
+    lane, ``cap_local`` per local expert; overflow goes to a scratch row
+    that is then cut off. ``yc.at[pair_tok].add`` is ``index_add``, whose
+    float order on CUDA is not fixed.
+
+    One deliberate difference: an empty send slot carries "no expert"
+    (``e_loc``) and claims no capacity. The reference tags it local expert
+    0, so the empty slots a lane receives take expert 0's ``cap_local``
+    slots ahead of the real tokens of the lanes after it, which are then
+    dropped: wherever ``cap_local`` is less than the rows a lane receives
+    (``e_loc > 2``; granite-moe-3b-a800m's 48 experts over 4 lanes drop 40 %
+    of the tokens at capacity factor 16 that the one-hot dispatch keeps).
+    Where ``e_loc <= 2`` no row is dropped there and the two agree
+    exactly."""
+    m = cfg.moe
+    act = activation_fn(cfg.activation)
+    lead = compat.stack_shape()
+    n_dev = math.prod(lead)
+    t_loc, d = x_loc.shape[-2:]
+    e_loc = m.n_experts_padded // n_lanes   # dead padded experts own slots
+    k = m.top_k
+    dev = x_loc.device
+
+    xs = x_loc.reshape(n_dev, t_loc, d)
+    gates, ids, aux = _route(xs, router_w.reshape((n_dev,)
+                                                  + router_w.shape[-2:]),
+                             k, m.n_experts)
+    wg, wu, wd = (w.reshape((n_dev,) + w.shape[len(lead):])
+                  for w in (w_gate, w_up, w_down))
+
+    chunk = min(EP_CHUNK_TOKENS, t_loc)
+    n_chunks = -(-t_loc // chunk)
+    if n_chunks * chunk != t_loc:
+        raise ValueError(f"moe_ep_shard_map: {t_loc} tokens a device do "
+                         f"not form whole chunks of {chunk}")
+    cap_send = max(int(chunk * k * m.capacity_factor / n_lanes), k)
+    cap_local = max(int(n_lanes * cap_send * 2 / e_loc), 1)
+    pairs = chunk * k
+    pair_tok = torch.arange(chunk, device=dev).repeat_interleave(k)
+    row = torch.arange(n_dev, device=dev)[:, None]    # each device's row
+
+    ys = []
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc = xs[:, sl]                                # (D, chunk, d)
+        eid = ids[:, sl].reshape(n_dev, pairs).long()
+        gval = gates[:, sl].reshape(n_dev, pairs)
+        dest = eid // e_loc                           # destination lane
+        local_e = eid % e_loc
+
+        lane_oh = _one_hot(dest, n_lanes)
+        pos = torch.sum(lane_oh * (torch.cumsum(lane_oh, dim=1) - lane_oh),
+                        dim=-1)                       # slot in dest lane
+        keep = pos < cap_send
+        pos_c = torch.where(keep, pos, cap_send)      # overflow -> scratch
+
+        send = xs.new_zeros((n_dev, n_lanes, cap_send + 1, d))
+        send[row, dest, pos_c] = xc[:, pair_tok]
+        send_e = torch.full((n_dev, n_lanes, cap_send + 1), e_loc,
+                            dtype=torch.int64, device=dev)   # e_loc: empty
+        send_e[row, dest, pos_c] = local_e
+
+        recv = compat.all_to_all(
+            send[:, :, :cap_send].reshape(lead + (n_lanes, cap_send, d)),
+            model_axis, 0, 0, tiled=False)
+        recv_e = compat.all_to_all(
+            send_e[:, :, :cap_send].reshape(lead + (n_lanes, cap_send)),
+            model_axis, 0, 0, tiled=False)
+
+        pr = n_lanes * cap_send
+        xr = recv.reshape(n_dev, pr, d)
+        er = recv_e.reshape(n_dev, pr)
+        real = er < e_loc
+        e_oh = _one_hot(er, e_loc)            # an empty slot's row: zeros
+        pos2 = torch.sum(e_oh * (torch.cumsum(e_oh, dim=1) - e_oh), dim=-1)
+        keep2 = (pos2 < cap_local) & real
+        pos2_c = torch.where(keep2, pos2, cap_local)
+        er = torch.where(real, er, 0)         # empties -> a scratch row
+
+        buf = xs.new_zeros((n_dev, e_loc, cap_local + 1, d))
+        buf[row, er, pos2_c] = xr
+        buf = buf[:, :, :cap_local]
+
+        gh = torch.einsum("xecd,xedf->xecf", buf, wg.to(buf.dtype))
+        uh = torch.einsum("xecd,xedf->xecf", buf, wu.to(buf.dtype))
+        ob = torch.einsum("xecf,xefd->xecd", act(gh) * uh, wd.to(buf.dtype))
+
+        out_pairs = ob[row, er, pos2_c % cap_local] \
+            * keep2[..., None].to(ob.dtype)
+        back = out_pairs.reshape(lead + (n_lanes, cap_send, d))
+        got = compat.all_to_all(back, model_axis, 0, 0, tiled=False)
+        got = got.reshape(n_dev, n_lanes, cap_send, d)
+
+        mine = got[row, dest, pos_c % cap_send] * keep[..., None].to(got.dtype)
+        yc = xs.new_zeros((n_dev, chunk, d)).index_add(
+            1, pair_tok, mine * gval[..., None].to(mine.dtype))
+        ys.append(yc)
+    y = torch.cat(ys, dim=1).reshape(lead + (t_loc, d))
+    aux = compat.pmean(aux.reshape(lead), all_axes)
+    return y, aux
+
+
+def moe_ep_shard_map(cfg: ArchConfig, p: dict, x_tokens, ctx: MeshCtx):
+    """x_tokens (T, d) -> (T, d), aux. Experts sharded over the lane axis;
+    tokens over every mesh axis (lanes included) so routing work is not
+    duplicated. A token count or expert table that the mesh does not
+    divide raises ``ValueError`` (``moe_block``'s gate never sends one)."""
+    mesh = ctx.mesh
+    all_axes = tuple(mesh.axis_names)
+    fn = functools.partial(_ep_device_fn, cfg, ctx.n_lanes, ctx.model_axis,
+                           all_axes)
+    lane = PS(ctx.model_axis, None, None)
+    y, aux = compat.shard_map(
+        fn, mesh=mesh,
+        in_specs=(PS(all_axes, None), PS(None, None), lane, lane, lane),
+        out_specs=(PS(all_axes, None), PS()),
+    )(x_tokens, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# Public block
+# ---------------------------------------------------------------------------
+
+
+def moe_block(cfg: ArchConfig, p: dict, x, ctx: Optional[MeshCtx] = None):
+    """x (B,S,d) -> (B,S,d), aux_loss. The reference's gate: the
+    expert-parallel route under a mesh of more than one lane whose lanes
+    divide the (padded) experts, for at least ``DENSE_PATH_MAX_TOKENS``
+    tokens that the mesh divides; the one-hot dispatch otherwise. The
+    shared experts, where the config has them, are one gated-SiLU MLP added
+    to every token (SiLU whatever ``cfg.activation`` is, as in the
+    reference)."""
+    m = cfg.moe
     b, s, d = x.shape
-    y, aux = moe_dense_dispatch(cfg, p, x.reshape(b * s, d))
+    x_tokens = x.reshape(b * s, d)
+    n_dev = math.prod(ctx.axis_sizes.values()) if ctx and ctx.mesh else 1
+    ep_capable = m.expert_parallel or m.pad_experts_to > 0
+    use_ep = (
+        ctx is not None and ctx.mesh is not None and ep_capable
+        and m.n_experts_padded % max(ctx.n_lanes, 1) == 0 and ctx.n_lanes > 1
+        and b * s >= DENSE_PATH_MAX_TOKENS
+        and (b * s) % n_dev == 0 and (b * s) // n_dev >= 1
+    )
+    if use_ep:
+        y, aux = moe_ep_shard_map(cfg, p, x_tokens, ctx)
+    else:
+        y, aux = moe_dense_dispatch(cfg, p, x_tokens)
     y = y.reshape(b, s, d)
     if "shared" in p:
         y = y + mlp(p["shared"], x, "silu")

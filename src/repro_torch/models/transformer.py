@@ -29,8 +29,12 @@ Decode uses per-sequence KV caches (see attention.py) and recurrent states
 compressed rows), the new ``conv``/``ssm`` states and the encoder's
 ``memory`` **into the cache tensors it was given** and returns them.
 
-Multi-device execution (a mesh context, expert parallelism) waits for
-ROADMAP Queue A 13: every function here runs on one device.
+``forward`` takes the reference's mesh context (``models.sharding.
+MeshCtx``): the mixture-of-experts layers take their expert-parallel route
+with it (``moe.moe_block``) and MLA's prefill its lane-local one
+(``attention.set_mesh_ctx``), each on a mesh held as tensor dimensions on
+one device (``core/compat.py``); everything else is the same math with or
+without a mesh.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.precision import torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import (checkpointed, cross_attention,
                                           gqa_attention, gqa_template,
                                           mla_attention, mla_template)
@@ -202,7 +207,7 @@ def dense_block(cfg, p, x, positions, cache=None, causal=True, memory=None):
 
 def moe_layer(cfg, p, x, positions, ctx=None, cache=None):
     """Attention + mixture-of-experts FFN. Returns (x, aux, new cache
-    entries or None). ``ctx`` must be None (see ``moe.moe_block``)."""
+    entries or None). ``ctx``: the mesh context (see ``moe.moe_block``)."""
     a, _, new_cache = _attn_block(cfg, p, x, positions, cache)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -254,7 +259,7 @@ def _frontend(cfg: ArchConfig, frontend_emb, dtype):
     return frontend_emb.to(dtype)
 
 
-def forward(cfg: ArchConfig, params: dict, tokens, *,
+def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
             cache: Optional[dict] = None, frontend_emb=None, head_fn=None):
     """Shared forward. tokens (B,S) integer, on the parameters' device.
 
@@ -280,8 +285,12 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
                    (``kernels.ops.lm_head``).
 
     ``aux`` is the mixture-of-experts load-balance loss summed over the MoE
-    layers (zero for the other families).
+    layers (zero for the other families). ``ctx`` is the mesh context
+    (None: one device); as in the reference, it is also left set for MLA's
+    lane-local route until the next forward.
     """
+    mesh_ctx = ctx if ctx is not None and ctx.mesh is not None else None
+    attn_mod.set_mesh_ctx(mesh_ctx)
     b, s = tokens.shape
     dev = tokens.device
     compute_dtype = torch_dtype(cfg.compute_dtype)
@@ -325,8 +334,9 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
     def moe(p, x, c):
         """A MoE layer: (x, aux)."""
         if cache is None:
-            return run(lambda x: moe_layer(cfg, p, x, positions)[:2], x)
-        return moe_layer(cfg, p, x, positions, cache=c)[:2]
+            return run(lambda x: moe_layer(cfg, p, x, positions,
+                                           mesh_ctx)[:2], x)
+        return moe_layer(cfg, p, x, positions, mesh_ctx, cache=c)[:2]
 
     def cross_block(p, x, memory):
         return run(lambda x: _cross_block(cfg, p, x, memory)[0], x)
@@ -429,12 +439,13 @@ def forward(cfg: ArchConfig, params: dict, tokens, *,
 # ---------------------------------------------------------------------------
 
 
-def lm_loss(cfg: ArchConfig, params, batch):
+def lm_loss(cfg: ArchConfig, params, batch, ctx=None):
     """Next-token CE + 0.01 x the MoE aux loss (+ 0.3 x the MTP loss where
     the model has an MTP module). batch = {"tokens", "labels"} (B,S)
     integer tensors on the parameters' device, and ``frontend_emb`` for
-    the vlm and audio families. Returns (total, {"ce", "aux"[, "mtp"]})."""
-    logits, aux, extras = forward(cfg, params, batch["tokens"],
+    the vlm and audio families; ``ctx`` the mesh context (None: one
+    device). Returns (total, {"ce", "aux"[, "mtp"]})."""
+    logits, aux, extras = forward(cfg, params, batch["tokens"], ctx=ctx,
                                   frontend_emb=batch.get("frontend_emb"))
     loss = _ce(logits, batch["labels"])
     total = loss + 0.01 * aux

@@ -64,6 +64,17 @@ def init(cfg: OptConfig, params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def abstract_state(cfg: OptConfig, abstract_params) -> dict:
+    """The state :func:`init` would build, as ``meta`` tensors (no
+    memory): moments of ``moment_dtype`` shaped like each parameter, an
+    int32 scalar step."""
+    dt = torch_dtype(cfg.moment_dtype)
+    mk = lambda p: torch.empty(p.shape, dtype=dt, device="meta")
+    return {"m": tree_map(mk, abstract_params),
+            "v": tree_map(mk, abstract_params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
 def global_norm(tree):
     """sqrt of the sum of squares of every leaf, in fp32 (float64 for a
     float64 tree)."""

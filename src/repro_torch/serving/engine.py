@@ -68,6 +68,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import tree_leaves
+from repro_torch.models.sharding import MeshCtx
 from repro_torch.serving.scheduler import (Request, RejectReason, Scheduler,
                                            State)
 
@@ -111,30 +112,36 @@ def _int8_head(x, unembed):
 
 
 @torch.inference_mode()
-def prefill(cfg: ArchConfig, params, tokens, max_seq: int):
+def prefill(cfg: ArchConfig, params, tokens, max_seq: int,
+            ctx: Optional[MeshCtx] = None):
     """Batch-1 prefill on a fresh fp32 cache. Returns (next_tok (1,),
     single-sequence cache)."""
     cache = tf.init_cache(cfg, 1, max_seq, cache_dtype=torch.float32,
                           device=tokens.device)
-    logits, _, new_cache = tf.forward(cfg, params, tokens, cache=cache)
+    logits, _, new_cache = tf.forward(cfg, params, tokens, ctx=ctx,
+                                      cache=cache)
     next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     return next_tok, new_cache
 
 
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, mode: str, params, cache, tokens,
-                active_mask, temps, nan_mask, generator):
+                active_mask, temps, nan_mask, generator,
+                ctx: Optional[MeshCtx] = None):
     """One decode step (all slots). ``mode`` picks the degrade rung: fp32
     (the model's configured precision), bf16 compute, or bf16 compute with
     the int8 logits head. Every tensor of the cache but ``lengths`` (KV
     rows, MLA's compressed rows, recurrent states, by family) is written
     in place. Returns (next_tok (slots,), finite (slots,), new_cache).
     The mixture-of-experts families route every slot, inactive ones too,
-    so that they take expert capacity as in the reference."""
+    so that they take expert capacity as in the reference. With a mesh
+    context this is the reference's mesh decode (``_build_mesh_decode``),
+    which takes the rung's compute dtype but no int8 head."""
     mcfg = _mode_cfg(cfg, mode)
-    head_fn = _int8_head if mode == "int8" else None
-    logits, _, new_cache = tf.forward(mcfg, params, tokens, cache=cache,
-                                      head_fn=head_fn)
+    mesh = ctx is not None and ctx.mesh is not None
+    head_fn = _int8_head if mode == "int8" and not mesh else None
+    logits, _, new_cache = tf.forward(mcfg, params, tokens, ctx=ctx,
+                                      cache=cache, head_fn=head_fn)
     last = logits[:, -1].float()
     # fault-injection port (the mask is all-False in normal operation)
     last = torch.where(nan_mask[:, None],
@@ -161,10 +168,14 @@ class ServingEngine:
     ``timers`` accumulates host-clock ``[calls, seconds]`` per device step
     kind (``decode_<mode>``, ``prefill_<prompt length>``); each such step
     already ends in a device-to-host copy of its tokens, so the clock
-    covers the device work and adds no synchronisation."""
+    covers the device work and adds no synchronisation. ``ctx``: the
+    reference's mesh context (``models.sharding.MeshCtx``; the mesh held
+    as tensor dimensions on ``device``), passed to every prefill and
+    decode step."""
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
-                 max_seq: int = 512, greedy: bool = True,
+                 max_seq: int = 512, ctx: Optional[MeshCtx] = None,
+                 greedy: bool = True,
                  hardened: bool = True, max_queue: int = 256,
                  max_retries: int = 2, watchdog: int = 8,
                  degrade: Optional[DegradeLadder] = None,
@@ -179,6 +190,7 @@ class ServingEngine:
         self.params = params
         self.slots = slots
         self.max_seq = max_seq
+        self.ctx = ctx or MeshCtx(mesh=None)
         self.greedy = greedy
         self.hardened = hardened
         self.watchdog = watchdog
@@ -232,7 +244,7 @@ class ServingEngine:
         toks = torch.as_tensor(np.asarray(prompt, np.int32),
                                device=self.device)[None, :]
         next_tok, single = prefill(self.cfg, self._params_for(self.cfg),
-                                   toks, self.max_seq)
+                                   toks, self.max_seq, self.ctx)
         tok = int(next_tok[0])
         self._timed(f"prefill_{len(prompt)}", t0)
         return tok, single
@@ -386,7 +398,8 @@ class ServingEngine:
             self.cache, torch.as_tensor(tokens, device=dev),
             torch.as_tensor(mask, device=dev),
             torch.as_tensor(temps, device=dev),
-            torch.as_tensor(nan_mask, device=dev), self._generator)
+            torch.as_tensor(nan_mask, device=dev), self._generator,
+            self.ctx)
         next_tok = next_tok.cpu().numpy()
         finite = finite.cpu().numpy()
         self._timed(f"decode_{mode}", t0)

@@ -1,34 +1,122 @@
-"""The train step, and the serve steps.
+"""The train step, and the serve steps, with their sharding specs.
 
 ``make_train_step`` returns a bundle whose ``step_fn(state, batch) ->
-(state, metrics)`` is the reference's train step on one device: the loss
-and its gradients by autograd (strip-mined over ``grad_accum`` micro-batches
-when asked: core/stripmine.py), then AdamW. The metric keys are the
-reference's: ``loss``, ``ce``, ``aux``, ``lr``, ``grad_norm``.
+(state, metrics)`` is the reference's train step: the loss and its
+gradients by autograd (strip-mined over ``grad_accum`` micro-batches when
+asked: core/stripmine.py), then AdamW. The metric keys are the reference's:
+``loss``, ``ce``, ``aux``, ``lr``, ``grad_norm``.
 
-The reference's bundle also carries PartitionSpec trees (``state_specs``,
-``batch_specs``, ``abstract_state``: ``batch_pspecs``, ``cache_pspecs``,
-``named``, ``sanitize_specs``, ``train_state_specs``) for ``jax.jit``'s
-shardings. On one card they have no meaning; they wait for the
-multi-device machinery (ROADMAP Queue A 13), and this bundle omits them.
+With a mesh context (``models.sharding.MeshCtx``) the step is the
+reference's sharded step: the same global math, with the mixture-of-experts
+layers on their expert-parallel route where the reference takes it
+(``models.moe.moe_block``). The bundle carries the reference's spec trees
+(``state_specs``, ``batch_specs``) and ``abstract_state`` (``meta``
+tensors). The reference hands them to ``jax.jit`` as shardings; one card
+holds every leaf whole, so here they describe the layout
+(``named_for`` gives each leaf's shard shape) and place nothing.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
-steps on one device: the way the vision and encoder-decoder models serve,
-since they take the frontend's embeddings in the batch.
+steps: the way the vision and encoder-decoder models serve, since they take
+the frontend's embeddings in the batch. With a mesh, MLA's prefill runs
+its lane-local route (``models.attention.mla_chunked``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.compat import PartitionSpec as PS
+from repro_torch.core.precision import torch_dtype
 from repro_torch.core.stripmine import stripmined_grads
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import value_and_grad
+from repro_torch.models.layers import (P, abstract_params, param_specs,
+                                       tree_map, value_and_grad)
+from repro_torch.models.sharding import (MeshCtx, kv_cache_rules,
+                                         make_rules)
+from repro_torch.models.sharding import named_sharding_tree as named
 from repro_torch.optim import adamw
 
-_NO_MESH = ("runs on one device; a mesh context waits for the multi-device "
-            "machinery (ROADMAP Queue A 13)")
+
+# ---------------------------------------------------------------------------
+# Spec plumbing
+# ---------------------------------------------------------------------------
+
+
+def batch_pspecs(cfg: ArchConfig, shape_kind: str, ctx: MeshCtx) -> dict:
+    b_axes = tuple(ctx.batch_axes)
+    specs = {"tokens": PS(b_axes, None)}
+    if shape_kind == "train":
+        specs["labels"] = PS(b_axes, None)
+    if cfg.frontend_seq:
+        specs["frontend_emb"] = PS(b_axes, None, None)
+    return specs
+
+
+def cache_pspecs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
+    """PartitionSpecs matching init_cache's tree."""
+    rules = kv_cache_rules(cfg, ctx)
+    b = PS(tuple(ctx.batch_axes))
+
+    def spec(axes):
+        return rules.spec_for(P(tuple(1000 for _ in axes), tuple(axes)))
+
+    fam = cfg.family
+    c = {"lengths": b}
+    kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    if fam in ("dense", "vlm", "audio"):
+        c["k"] = spec(kv_axes)
+        c["v"] = spec(kv_axes)
+        if fam == "audio":
+            c["memory"] = spec(("batch", "seq", "embed"))
+    elif fam == "moe":
+        keys = ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
+        axes = {"c_kv": ("layers", "batch", "kv_seq", "kv_lora"),
+                "k_rope": ("layers", "batch", "kv_seq", "kv_lora"),
+                "k": kv_axes, "v": kv_axes}
+        for k in keys:
+            c[k] = spec(axes[k])
+            if cfg.moe.n_dense_layers:
+                c["dense_" + k] = spec(axes[k])
+    elif fam == "ssm":
+        c["conv"] = spec(("layers", "batch", "seq", "d_inner"))
+        c["ssm"] = spec(("layers", "batch", "heads", "ssm_state", "head_dim"))
+    elif fam == "hybrid":
+        c["conv"] = spec(("layers", "batch", "seq", "d_inner"))
+        c["ssm"] = spec(("layers", "batch", "heads", "ssm_state", "head_dim"))
+        c["attn_k"] = spec(("groups", "batch", "kv_seq", "kv_heads",
+                            "head_dim"))
+        c["attn_v"] = spec(("groups", "batch", "kv_seq", "kv_heads",
+                            "head_dim"))
+    return c
+
+
+def sanitize_specs(spec_tree, aval_tree, mesh):
+    """Drop mesh axes from dims they don't divide (e.g. batch=1 over
+    data=16, 24 heads over 16 lanes): the reference's ``jax.jit`` shardings
+    need even tiling, and replication is the conservative fallback."""
+    sizes = dict(mesh.shape)
+
+    def fix(spec, aval):
+        if spec is None or not isinstance(spec, PS):
+            return spec
+        new = []
+        for i, entry in enumerate(spec):
+            if entry is None or i >= len(aval.shape):
+                new.append(None)
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            prod = math.prod(sizes.get(a, 1) for a in axes)
+            new.append(entry if prod > 0 and aval.shape[i] % prod == 0
+                       else None)
+        return PS(*new)
+
+    return tree_map(fix, spec_tree, aval_tree)
+
+
+def named_for(spec_tree, aval_tree, mesh):
+    return named(sanitize_specs(spec_tree, aval_tree, mesh), mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,22 +155,38 @@ def apply_attn_overrides(cfg: ArchConfig,
 @dataclasses.dataclass(frozen=True)
 class TrainStepBundle:
     step_fn: object          # (state, batch) -> (state, metrics)
+    state_specs: dict        # PartitionSpec tree for state
+    batch_specs: dict
+    abstract_state: dict     # meta-tensor tree (shapes and dtypes)
     cfg: ArchConfig          # the config the step closes over
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig, ctx=None,
-                    grad_accum: int = 1,
+def make_train_state_abstract(cfg: ArchConfig, opt_cfg: adamw.OptConfig):
+    tmpl = tf.model_template(cfg)
+    aparams = abstract_params(tmpl, torch_dtype(cfg.param_dtype))
+    return {"params": aparams, "opt": adamw.abstract_state(opt_cfg, aparams)}
+
+
+def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
+    tmpl = tf.model_template(cfg)
+    rules = make_rules(cfg, ctx)
+    pspecs = param_specs(tmpl, rules)
+    return {"params": pspecs,
+            "opt": {"m": pspecs, "v": pspecs, "step": PS()}}
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
+                    ctx: Optional[MeshCtx] = None, grad_accum: int = 1,
                     attn: Optional[AttnOverrides] = None) -> TrainStepBundle:
     """state = {"params", "opt"} (trees of tensors on one device), batch =
     {"tokens", "labels"} (B,S) integer tensors on the same device. The
     state's tensors are updated in place (see ``optim.adamw.update``) and
-    returned. ``ctx`` (the reference's mesh context) must be None."""
-    if ctx is not None:
-        raise NotImplementedError(f"make_train_step {_NO_MESH}")
+    returned. ``ctx`` None is one device."""
+    ctx = ctx or MeshCtx(mesh=None)
     cfg = apply_attn_overrides(cfg, attn)
 
     def loss_fn(params, batch):
-        return tf.lm_loss(cfg, params, batch)
+        return tf.lm_loss(cfg, params, batch, ctx=ctx)
 
     def train_step(state, batch):
         params = state["params"]
@@ -96,7 +200,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig, ctx=None,
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return {"params": new_params, "opt": new_opt}, metrics
 
-    return TrainStepBundle(train_step, cfg)
+    return TrainStepBundle(train_step, train_state_specs(cfg, ctx),
+                           batch_pspecs(cfg, "train", ctx),
+                           make_train_state_abstract(cfg, opt_cfg), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -104,15 +210,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig, ctx=None,
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ArchConfig, ctx=None, max_seq: int = 0,
-                      cache_dtype=None):
+def make_prefill_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
+                      max_seq: int = 0, cache_dtype=None):
     """``prefill(params, batch) -> (logits_last, cache)``: a fresh cache of
     ``max_seq`` rows on the tokens' device (``cache_dtype``: the
     reference's bfloat16 by default), filled by one forward under the
     from-zero prefill hint. ``batch`` = {"tokens" (B,S)[, "frontend_emb"]}.
-    ``ctx`` must be None."""
-    if ctx is not None:
-        raise NotImplementedError(f"make_prefill_step {_NO_MESH}")
+    """
     if max_seq < 1:
         raise ValueError(f"make_prefill_step: max_seq must be positive, got "
                          f"{max_seq}")
@@ -125,7 +229,7 @@ def make_prefill_step(cfg: ArchConfig, ctx=None, max_seq: int = 0,
         tf.set_prefill_hint(True)
         try:
             logits, _, cache = tf.forward(
-                cfg, params, tokens, cache=cache,
+                cfg, params, tokens, ctx=ctx, cache=cache,
                 frontend_emb=batch.get("frontend_emb"))
         finally:
             tf.set_prefill_hint(False)
@@ -133,16 +237,12 @@ def make_prefill_step(cfg: ArchConfig, ctx=None, max_seq: int = 0,
     return prefill
 
 
-def make_decode_step(cfg: ArchConfig, ctx=None):
+def make_decode_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None):
     """``decode(params, cache, batch) -> (logits, new_cache)``, the cache's
-    tensors written in place (see ``models.transformer.forward``).
-    ``ctx`` must be None."""
-    if ctx is not None:
-        raise NotImplementedError(f"make_decode_step {_NO_MESH}")
-
+    tensors written in place (see ``models.transformer.forward``)."""
     def decode(params, cache, batch):
         logits, _, cache = tf.forward(
-            cfg, params, batch["tokens"], cache=cache,
+            cfg, params, batch["tokens"], ctx=ctx, cache=cache,
             frontend_emb=batch.get("frontend_emb"))
         return logits[:, -1], cache
     return decode

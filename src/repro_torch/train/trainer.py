@@ -1,13 +1,18 @@
-"""Training loop on one device: checkpoint/restart, straggler monitoring,
-multi-step fusion, gradient accumulation, logging.
+"""Training loop: checkpoint/restart, straggler monitoring, multi-step
+fusion, gradient accumulation, logging.
 
 Restart contract (the reference's): the loop always begins with
 restore-or-init; a SIGKILL at any point loses at most ``ckpt_every`` steps
 (checkpoints are atomic), and a restart resumes exactly — the state, the
 step and hence the batch and the learning rate are those of the run that
-was cut. The state is restored onto the trainer's device. A mesh raises
-(ROADMAP Queue A 13). ``fuse_steps`` = k runs k steps behind one call
-(core/stripmine.fuse_steps).
+was cut. The state is restored onto the trainer's device. ``fuse_steps`` =
+k runs k steps behind one call (core/stripmine.fuse_steps).
+
+With ``mesh=`` (``launch.mesh.make_mesh``) the step is the reference's
+sharded step (``train.step.make_train_step`` with a ``MeshCtx``), the mesh
+held as tensor dimensions on the one device; ``state_sharding`` is the
+reference's sanitized spec tree (each leaf's shard shape), which the
+restore checks.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.ft.elastic import StragglerMonitor
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_params
+from repro_torch.models.sharding import MeshCtx
 from repro_torch.optim import adamw
 from repro_torch.train import step as step_lib
 
@@ -43,17 +49,17 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ArchConfig, opt_cfg: adamw.OptConfig,
                  data_cfg: DataConfig, tcfg: TrainerConfig, mesh=None,
-                 device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer runs on one device; a mesh waits for the "
-                "multi-device machinery (ROADMAP Queue A 13)")
+                 batch_axes=("data",), device=None):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
-        self.bundle = step_lib.make_train_step(cfg, opt_cfg,
+        self.mesh = mesh
+        self.ctx = MeshCtx(mesh=mesh, batch_axes=batch_axes)
+        self.bundle = step_lib.make_train_step(cfg, opt_cfg, self.ctx,
                                                grad_accum=tcfg.grad_accum)
+        self.state_sharding = None if mesh is None else step_lib.named_for(
+            self.bundle.state_specs, self.bundle.abstract_state, mesh)
         self.step_fn = self.bundle.step_fn
         self.source = make_source(data_cfg)
         self.monitor = StragglerMonitor()
@@ -71,7 +77,8 @@ class Trainer:
 
     def restore_or_init(self):
         if self.tcfg.ckpt_dir:
-            step, state = ckpt.restore(self.tcfg.ckpt_dir, device=self.device)
+            step, state = ckpt.restore(self.tcfg.ckpt_dir, device=self.device,
+                                       shardings=self.state_sharding)
             if state is not None:
                 return step, state
         return 0, self.init_state()

@@ -337,7 +337,7 @@ def test_run_harness_fig6_and_the_a13_skip_line():
     out = res.stdout.splitlines()
     assert sum(ln.startswith("fig6_kernels,") for ln in out) == 12
     assert any(ln.startswith("# fig6_kernels done in") for ln in out)
-    assert any(ln.startswith("# dryrun_roofline skipped:") and "A 13" in ln
+    assert any(ln.startswith("# dryrun_roofline skipped:") and "A13b" in ln
                for ln in out)
 
 

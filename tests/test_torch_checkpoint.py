@@ -15,6 +15,7 @@ import pathlib
 import shutil
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +29,11 @@ from repro.ft import elastic as jelastic
 from repro.optim import adamw as jadamw
 from repro.train.trainer import (Trainer as JTrainer,
                                  TrainerConfig as JTrainerConfig)
+from jax.sharding import NamedSharding, PartitionSpec as JPS
 from repro_torch.checkpoint import ckpt
+from repro_torch.core.compat import PartitionSpec as PS
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import sharding
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import pipeline as tdata
 from repro_torch.ft import elastic
@@ -52,6 +57,14 @@ def _tree(seed=0):
     w, b = _arrays(seed)
     return {"params": {"w": torch.tensor(w), "b": torch.tensor(b)},
             "opt": {"step": torch.tensor(7, dtype=torch.int32)}}
+
+
+def _jax_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _jax_leaves(tree[k])
+    else:
+        yield tree
 
 
 def _mixed_trees(seed=0):
@@ -247,9 +260,27 @@ def test_a_failed_write_raises_from_join(tmp_path):
 
 
 def test_restore_contract_on_one_device(tmp_path, monkeypatch):
+    """``shardings=``: the reference's restore places each leaf by its
+    target sharding (here on its one-device mesh); the port's holds every
+    leaf whole on its device, the same values, and checks the sharding
+    against the leaf: a sharded dimension that its mesh axes do not divide
+    raises ``ValueError``. Without a card the default device raises."""
     ckpt.save(str(tmp_path), 1, _tree())
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        ckpt.restore(str(tmp_path), shardings={"w": None}, device="cpu")
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                              ("data", "model"))
+    jsh = {"params": {"w": NamedSharding(jmesh, JPS("data", "model"))}}
+    jstep_, jgot = jckpt.restore(str(tmp_path), shardings=jsh)
+    mesh = make_mesh(2, 2)
+    tsh_ = {"params": {"w": sharding.NamedSharding(mesh, PS("data",
+                                                            "model"))}}
+    step, got = ckpt.restore(str(tmp_path), shardings=tsh_, device="cpu")
+    assert step == jstep_ == 1
+    for a, b in zip(tree_leaves(got), _jax_leaves(jgot)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    ragged = {"params": {"b": sharding.NamedSharding(
+        make_mesh(1, 3), PS("model"))}}
+    with pytest.raises(ValueError, match="should be divisible by 3"):
+        ckpt.restore(str(tmp_path), shardings=ragged, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ckpt.restore(str(tmp_path))

@@ -10,6 +10,7 @@ absorbed decode sums in another order than the expanded form: it is held
 to the reference's absorbed decode at 1e-4, and to the port's own
 no-cache forward at 1e-3, the reference's tolerance for that check.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +18,14 @@ import torch
 
 from repro.models import attention as jattn
 from repro.models.sharding import MeshCtx
+from repro.serving.engine import Request as JRequest
+from repro.serving.engine import ServingEngine as JEngine
 from repro.train import step as jstep
+from repro_torch.core import compat
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import attention as tattn
+from repro_torch.models import sharding as tsh
+from repro_torch.serving import Request, ServingEngine
 from repro_torch.models import transformer as ttf
 from repro_torch.train import step as tstep
 
@@ -164,13 +171,76 @@ def test_prefill_step_matches_reference(hint, monkeypatch):
 
 
 def test_serve_steps_refuse_a_mesh():
-    cfg = fp.pair(ARCH)[1]
-    for make in (lambda: tstep.make_prefill_step(cfg, object(), 8),
-                 lambda: tstep.make_decode_step(cfg, object())):
-        with pytest.raises(NotImplementedError, match="Queue A 13"):
-            make()
+    """The serve steps under a mesh (they refused one before the mesh
+    machinery was ported): on a 1 x 2 mesh held as tensor dimensions the
+    port's prefill runs MLA's lane-local route, one ``shard_map`` a layer,
+    and its logits and two decode steps' equal the reference's serve steps
+    on its one-device mesh, where the same route runs on one lane.
+    ``max_seq < 1`` still raises."""
+    cj, ct, pj, pt = fp.pair(ARCH)
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                              ("data", "model"))
+    jctx = MeshCtx(mesh=jmesh)
+    tctx = tsh.MeshCtx(mesh=make_mesh(1, 2))
+    r = np.random.RandomState(13)
+    toks = r.randint(0, cj.vocab_size, size=(2, 6)).astype(np.int32)
+    try:
+        lj, cache_j = jstep.make_prefill_step(cj, jctx, fp.SMAX)(
+            pj, {"tokens": jnp.asarray(toks)})
+        compat.reset_counts()
+        with torch.no_grad():
+            lt, cache_t = tstep.make_prefill_step(ct, tctx, fp.SMAX)(
+                pt, {"tokens": fp.t(toks)})
+        assert compat.CALLS["shard_map"] == ct.n_layers
+        fp.close(lt, lj)
+        jdec, tdec = jstep.make_decode_step(cj, jctx), \
+            tstep.make_decode_step(ct, tctx)
+        for _ in range(2):
+            tok = r.randint(0, cj.vocab_size, size=(2, 1)).astype(np.int32)
+            lj, cache_j = jdec(pj, cache_j, {"tokens": jnp.asarray(tok)})
+            with torch.no_grad():
+                lt, cache_t = tdec(pt, cache_t, {"tokens": fp.t(tok)})
+            fp.close(lt, lj)
+    finally:
+        jattn.set_mesh_ctx(None)
+        tattn.set_mesh_ctx(None)
     with pytest.raises(ValueError, match="max_seq"):
-        tstep.make_prefill_step(cfg, None, 0)
+        tstep.make_prefill_step(ct, None, 0)
+
+
+def test_engine_with_a_mesh_equals_the_reference_engine_with_one():
+    """``ServingEngine(ctx=)``: the port's engine on a 1 x 2 mesh (each
+    prefill's MLA lane-local, one ``shard_map`` a layer) and the
+    reference's on its one-device mesh (its mesh prefill and decode)
+    give 4 requests through 2 slots the same greedy tokens and ticks."""
+    cj, ct, pj, pt = fp.pair(ARCH)
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                              ("data", "model"))
+    r = np.random.RandomState(29)
+    prompts = [r.randint(0, cj.vocab_size, size=4 + 2 * i).astype(np.int32)
+               for i in range(4)]
+    runs = []
+    try:
+        for make, req in (
+                (lambda: JEngine(cj, pj, slots=2, max_seq=32,
+                                 ctx=MeshCtx(mesh=jmesh)), JRequest),
+                (lambda: ServingEngine(ct, pt, slots=2, max_seq=32,
+                                       ctx=tsh.MeshCtx(mesh=make_mesh(1, 2)),
+                                       device="cpu"), Request)):
+            eng = make()
+            reqs = [req(uid=i, prompt=p, max_new_tokens=3 + i % 2)
+                    for i, p in enumerate(prompts)]
+            for q in reqs:
+                assert eng.submit(q) is None
+            compat.reset_counts()
+            eng.run_to_completion(100)
+            runs.append([(q.out_tokens, q.first_token_tick, q.finish_tick)
+                         for q in reqs])
+        assert compat.CALLS["shard_map"] == ct.n_layers * len(prompts)
+        assert runs[0] == runs[1]
+    finally:
+        jattn.set_mesh_ctx(None)
+        tattn.set_mesh_ctx(None)
 
 
 def test_forward_prefill_and_decode_match_reference():

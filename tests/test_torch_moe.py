@@ -10,14 +10,24 @@ Parity with the reference keeps the default capacity factor, drops
 included; only the port's cached-versus-full check raises it to 8.0, as
 the reference's own equivalence test does.
 """
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jget, reduced as jreduced
 from repro.models import moe as jmoe
+from repro.models.layers import init_params as jinit
 from repro.serving.engine import ServingEngine as JEngine
+from repro_torch import convert
+from repro_torch.configs import get_config as tget, reduced as treduced
+from repro_torch.core import compat
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import moe as tmoe
+from repro_torch.models import sharding as tsh
 from repro_torch.models import transformer as ttf
 from repro_torch.serving import Request, ServingEngine, State
 
@@ -118,12 +128,52 @@ def test_moe_dense_dispatch_matches_reference(group_size):
         tmoe.moe_dense_dispatch(ct, p_t, fp.t(x), group_size=5)
 
 
-def test_moe_block_refuses_a_mesh():
-    cj, ct, pj, pt = fp.pair(ARCH)
-    p_t = {k: v[0] for k, v in pt["layers"]["moe"].items()}
-    x = torch.zeros((1, 2, ct.d_model))
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        tmoe.moe_block(ct, p_t, x, ctx=object())
+def test_moe_block_refuses_a_mesh(monkeypatch):
+    """moe_block under a mesh (it refused one before the mesh machinery was
+    ported). tests/test_moe.py's EP config (8 experts, top 2, capacity
+    factor 16: no token drops on either route) with
+    ``DENSE_PATH_MAX_TOKENS`` lowered to its 64 tokens: on a 2 x 4 mesh
+    the port takes the expert-parallel route (three all_to_all, one chunk)
+    and its output equals the reference's ``moe_block`` on one device (the
+    one-hot dispatch) at 1e-5; its aux is the mean of the reference's
+    router loss over each device's tokens. A mesh whose lanes do not divide
+    granite's 48 padded experts (5 lanes) stays on the dense dispatch,
+    bit-equal to no mesh, and ``moe_ep_shard_map`` raises on it."""
+    cj = dataclasses.replace(jreduced(jget("deepseek-v3-671b"), mtp_depth=0),
+                             d_model=32)
+    cj = dataclasses.replace(cj, moe=dataclasses.replace(
+        cj.moe, n_experts=8, top_k=2, expert_d_ff=16, capacity_factor=16.0,
+        n_shared_experts=0, n_dense_layers=0))
+    ct = treduced(tget("deepseek-v3-671b"), mtp_depth=0)
+    ct = dataclasses.replace(ct, d_model=32, moe=dataclasses.replace(
+        ct.moe, **dataclasses.asdict(cj.moe)))
+    p_j = jinit(jmoe.moe_template(cj), jax.random.PRNGKey(0))
+    p_t = convert.params_from_numpy(
+        {k: np.asarray(v) for k, v in p_j.items()}, device="cpu")
+    x = _tokens(64, 32, 7).reshape(1, 64, 32)
+    yj, aj = jmoe.moe_block(cj, p_j, jnp.asarray(x))
+    monkeypatch.setattr(tmoe, "DENSE_PATH_MAX_TOKENS", 64)
+    compat.reset_counts()
+    yt, at = tmoe.moe_block(ct, p_t, fp.t(x),
+                            tsh.MeshCtx(mesh=make_mesh(2, 4)))
+    assert compat.CALLS["all_to_all"] == 3
+    fp.close(yt, yj, atol=1e-5)
+    # aux is the mean of each device's Switch loss over its 8 tokens
+    xs = jnp.asarray(x[0]).reshape(8, 8, 32)
+    want = np.mean([float(jmoe._route(xd, p_j["router"], 2, 8)[2])
+                    for xd in xs])
+    fp.close(at, want, atol=1e-5)
+    assert abs(float(at) - float(aj)) < 0.3      # tests/test_moe.py's bound
+
+    _, cg, _, pg = fp.pair(ARCH)
+    p_g = {k: v[0] for k, v in pg["layers"]["moe"].items()}
+    xg = fp.t(_tokens(60, cg.d_model, 8).reshape(1, 60, cg.d_model))
+    ragged = tsh.MeshCtx(mesh=make_mesh(1, 5))
+    y5, a5 = tmoe.moe_block(cg, p_g, xg, ragged)
+    y0, a0 = tmoe.moe_block(cg, p_g, xg)
+    assert torch.equal(y5, y0) and torch.equal(a5, a0)
+    with pytest.raises(ValueError, match="does not evenly divide 48"):
+        tmoe.moe_ep_shard_map(cg, p_g, xg[0], ragged)
 
 
 def test_forward_prefill_and_decode_match_reference():

@@ -11,6 +11,7 @@ cases stay at S <= 64 and 2 layers.
 import dataclasses
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -31,9 +32,11 @@ from repro_torch import convert
 from repro_torch.configs import get_config as tget, reduced as treduced
 from repro_torch.core import stripmine as tstrip
 from repro_torch.data import pipeline as tdata
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.ft.elastic import StragglerMonitor as TMonitor
 from repro_torch.models import transformer as ttf
 from repro_torch.models.layers import tree_leaves, value_and_grad
+from repro_torch.models.sharding import MeshCtx as MeshCtx_t
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import step as tstep
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -349,12 +352,37 @@ def test_attn_overrides_and_one_device_contract():
     assert tstep.apply_attn_overrides(cfg, None) is cfg
     bundle = tstep.make_train_step(cfg, tadamw.OptConfig(), attn=ov)
     assert bundle.cfg.attn_block_remat == "dots"
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        tstep.make_train_step(cfg, tadamw.OptConfig(), ctx=object())
+    # no mesh is one device: every spec replicated, as the reference's
+    jbundle = jstep.make_train_step(jreduced(jget(ARCH)), jadamw.OptConfig(),
+                                    MeshCtx(mesh=None))
+    assert _spec_tuples(bundle.state_specs) == _spec_tuples(
+        jbundle.state_specs)
+    assert _spec_tuples(bundle.batch_specs) == _spec_tuples(
+        jbundle.batch_specs)
+    # a mesh (held as tensor dimensions) gives the reference's specs, and
+    # the trainer its sanitized shardings
+    mesh = make_mesh(1, 2)
+    tb = tstep.make_train_step(cfg, tadamw.OptConfig(), MeshCtx_t(mesh=mesh))
+    jb = jstep.make_train_step(
+        jreduced(jget(ARCH)), jadamw.OptConfig(),
+        MeshCtx(mesh=SimpleNamespace(axis_names=("data", "model"),
+                                     devices=np.empty((1, 2)))))
+    assert _spec_tuples(tb.state_specs) == _spec_tuples(jb.state_specs)
     data = tdata.DataConfig(seq_len=8, global_batch=2, vocab_size=256)
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        Trainer(cfg, tadamw.OptConfig(), data, TrainerConfig(),
-                mesh=object(), device="cpu")
+    tr = Trainer(cfg, tadamw.OptConfig(), data, TrainerConfig(), mesh=mesh,
+                 device="cpu")
+    assert tr.ctx.mesh is mesh and tr.ctx.n_lanes == 2
+    emb = tr.state_sharding["params"]["embed"]
+    assert emb.shard_shape((cfg.vocab_size, cfg.d_model)) == (
+        cfg.vocab_size // 2, cfg.d_model)
+    assert Trainer(cfg, tadamw.OptConfig(), data, TrainerConfig(),
+                   device="cpu").state_sharding is None
+
+
+def _spec_tuples(tree):
+    if isinstance(tree, dict):
+        return {k: _spec_tuples(v) for k, v in tree.items()}
+    return tuple(tree)
 
 
 def test_trainer_fuse_steps_equal_single_steps():
