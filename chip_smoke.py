@@ -288,19 +288,28 @@ non-zero and prints no result. Phases, one JSON line each:
                stages of 2 layers, 8 microbatches of 1 x 2048, bf16,
                forward and backward, against the layers in sequence
                (output bit-equal or within a bf16 step, gradients within
-               ``PIPE_GRAD_TOL``); B3-B5 launches exact (M x S x 2 each);
-               ``bubble_fraction(4, 8)`` beside the times.
+               ``PIPE_GRAD_TOL``); B3-B5 launches exact (M x S x 2 each)
+               and held against their plain versions at the geometry
+               the pipeline launched them at, (1, 32, 2048, 64), bf16 and
+               float32; ``bubble_fraction(4, 8)`` beside the times.
 34. ``mesh_compression`` ``compressed_psum`` on a (4, 1) mesh over
                tinyllama-1.1b's gradient tree (full width, 2 layers): mean
                within the reference's bound, residual below |g|max / 100,
                int8 wire bytes beside the f32 ring's.
 35. ``mesh_train`` one full-width MoE layer through ``moe_ep_shard_map``
                on (2, 4) against ``moe_dense_dispatch`` (2048 tokens,
-               capacity factor 16); then granite-moe-3b-a800m (16 layers)
-               through ``Trainer(mesh=make_mesh(2, 4))``, 3 steps at 8 x
-               2048 on the expert-parallel route (3 all_to_all a chunk a
-               MoE layer a pass), B3-B5 launches exact, tokens/s and peak
-               memory beside the one-device step at 4 x 2048.
+               capacity factor 16); the mesh step's loss and gradients
+               against the one-device step's (1 MoE layer, float32, 8 x
+               2048 tokens, capacity factor 5: no drops), and a planted
+               misrouting that must fail that limit; then
+               granite-moe-3b-a800m (16 layers) through
+               ``Trainer(mesh=make_mesh(2, 4))``, 3 steps at 8 x 2048 on
+               the expert-parallel route (3 all_to_all a chunk a MoE layer
+               a pass), B3-B5 launches exact and held against their plain
+               versions at the geometry the step launched them at, (8, 32,
+               2048, 64), bf16 and float32; tokens/s and peak memory
+               beside the one-device step at 4 x 2048 (another batch: no
+               speed comparison).
 36. ``mesh_serve`` deepseek-v3-671b at phase 17's cut on a (1, 4) mesh:
                prefill (MLA lane-local) and 4 decode steps against the
                same steps without a mesh (within bf16's own rounding), and
@@ -323,6 +332,7 @@ over.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -3878,6 +3888,60 @@ def phase_engine_throughput():
 # ---------------------------------------------------------------------------
 
 
+_ATT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+@contextlib.contextmanager
+def att_geometries():
+    """Inside the block, each attention kernel's wrapper records the
+    geometry of its every call, ``(kernel, (G, Sq, Sk, D, dtype, causal,
+    bq, bk))``, into the set this yields, then runs as before (its launch
+    count is its own)."""
+    seen, orig = set(), {n: getattr(att, n) for n in _ATT_KERNELS}
+
+    def recorder(name):
+        def call(qf, kf, *args, causal, bq, bk):
+            g, sq, d = qf.shape
+            seen.add((name, (g, sq, kf.shape[1], d, qf.dtype, causal, bq,
+                             bk)))
+            return orig[name](qf, kf, *args, causal=causal, bq=bq, bk=bk)
+        return call
+    for n in _ATT_KERNELS:
+        setattr(att, n, recorder(n))
+    try:
+        yield seen
+    finally:
+        for n, fn in orig.items():
+            setattr(att, n, fn)
+
+
+def check_path_attention(tag, seen, b, h, seed, results):
+    """The forward, dQ and dK/dV kernels against their plain versions (as
+    :func:`check_attention`) at every geometry a path launched them at
+    (``seen``, from :func:`att_geometries`; each of the three must have run
+    there): in the path's dtype at ATT_TOL and, for a narrow path, in
+    float32 at ACC_TOL, every key live as on the path. ``b`` x ``h`` is the
+    path's (batch, heads), whose product must be the geometry's G; the
+    check's own padded, flattened operands and blocks must be the path's.
+    Returns the geometries checked."""
+    geos = sorted({g for _, g in seen}, key=str)
+    assert geos and {(n, g) for g in geos for n in _ATT_KERNELS} == seen, \
+        seen
+    for i, (g, sq, sk, d, dtype, causal, bq, bk) in enumerate(geos):
+        assert g == b * h, (g, b, h)
+        for dt in dict.fromkeys((dtype, torch.float32)):
+            f = check_attention(f"{tag} {(b, h, sq, sk, d)}", b, h, sq, sk,
+                                d, dt, causal, bq, bk, seed + i, results,
+                                p_valid=1.0)
+            got = (*f["qf"].shape[:2], f["kf"].shape[1], f["qf"].shape[2],
+                   f["geom"]["causal"], f["geom"]["bq"], f["geom"]["bk"])
+            assert got == (g, sq, sk, d, causal, bq, bk), (got, geos[i])
+            del f
+            free_memory()
+    return [[g, sq, sk, d, str(dt)[6:], causal, bq, bk]
+            for g, sq, sk, d, dt, causal, bq, bk in geos]
+
+
 MESH_GROUPS = (1, 2, 4, 8)
 MESH_TIMING = dict(warmup=1, reps=3, inner=1)   # one call is 8 GEMMs' work
 
@@ -3951,8 +4015,10 @@ def phase_mesh_pipeline(smi):
     forward and backward's seconds, the two timed in turns (sequential,
     pipeline, pipeline, sequential) after a first, untimed call of each:
     one card runs the stages one after another, so the bubble costs
-    nothing here and the times read the schedule's overhead only. Returns
-    the launches."""
+    nothing here and the times read the schedule's overhead only. Then the
+    three kernels against their plain versions at the geometry the
+    pipeline launched them at, (1, 32, 2048, 64) causal, in bfloat16 and
+    float32 (:func:`check_path_attention`). Returns the launches."""
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
                               n_layers=PIPE_STAGES * PIPE_LAYERS)
@@ -4007,7 +4073,8 @@ def phase_mesh_pipeline(smi):
     del y_pipe, y_seq
     att.reset_launches()            # the pipeline's path starts here
     compat.reset_counts()
-    loss_p, g_pipe = grads(piped)
+    with att_geometries() as seen:
+        loss_p, g_pipe = grads(piped)
     launches = dict(att.LAUNCHES)   # read right after it
     counts = compat.read_counts()
     loss_s, g_seq = grads(sequential)
@@ -4028,6 +4095,11 @@ def phase_mesh_pipeline(smi):
     gaps = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
             for a, b in zip(g_pipe, g_seq)]
     assert max(gaps) <= PIPE_GRAD_TOL, gaps
+    del params, stages, g_pipe, g_seq, x, c
+    free_memory()
+    att_checks = []
+    geos = check_path_attention("mesh_pipeline", seen, 1, cfg.n_heads, 330,
+                                att_checks)
     emit("mesh_pipeline", gpu=smi, arch=cfg.name, stages=PIPE_STAGES,
          layers_per_stage=PIPE_LAYERS, micro=PIPE_MICRO,
          micro_shape=[1, TRAIN_SEQ, cfg.d_model], output_bit_equal=out_equal,
@@ -4037,9 +4109,8 @@ def phase_mesh_pipeline(smi):
          bubble_fraction=bubble_fraction(PIPE_STAGES, PIPE_MICRO),
          fwd_bwd_s_in_turns=secs,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
+         attention_geometries=geos, attention_checks=att_checks,
          seconds=time.perf_counter() - t0)
-    del params, stages, g_pipe, g_seq
-    free_memory()
     return launches
 
 
@@ -4116,6 +4187,112 @@ def phase_mesh_compression(smi):
 
 MESH_TRAIN = dict(data=2, model=4, batch=8, layers=16, steps=3)
 EP_LAYER_TOKENS, EP_LAYER_CF = 2048, 16.0
+# the mesh step's gradients against the one-device step's: one MoE layer
+# (a deeper stack's roundings tip near-ties of the next router's top-k, a
+# discrete step that is not the dispatch's: phase 22-26's finding), float32,
+# at a capacity factor where neither route can drop a token
+EP_GRAD_LAYERS, EP_GRAD_CF = 1, 5.0
+
+
+def _ce_and_grads(cfg, params, batch, ctx=None):
+    """The cross-entropy and its gradients. The aux term is left out: the
+    mesh takes it per device and averages (as the reference does), the one
+    device over every token, so the two differ by design."""
+    (ce, metrics), grads = value_and_grad(
+        lambda p, b: (lambda _, m: (m["ce"], m))(
+            *lm_loss(cfg, p, b, ctx=ctx)))(params, batch)
+    torch.cuda.synchronize()
+    return float(ce), float(metrics["aux"]), grads
+
+
+def _grad_gap(got, want):
+    """The largest gap of a leaf as a share of that leaf's largest entry."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+@contextlib.contextmanager
+def misrouted_replies():
+    """A planted fault: every third ``all_to_all`` (a chunk's third, the
+    experts' replies) hands each device the replies meant for the device
+    on the neighbouring lane."""
+    orig, calls = compat.all_to_all, [0]
+
+    def call(x, axis, split_axis, concat_axis, tiled=False):
+        y = orig(x, axis, split_axis, concat_axis, tiled=tiled)
+        calls[0] += 1
+        return torch.roll(y, 1, dims=y.dim() - 3) if calls[0] % 3 == 0 \
+            else y
+    compat.all_to_all = call
+    try:
+        yield
+    finally:
+        compat.all_to_all = orig
+
+
+def ep_grad_check(full, ctx):
+    """The mesh train step's loss and gradients (``lm_loss`` with ``ctx``:
+    the expert-parallel route, forward and backward) against the
+    one-device step's (the one-hot dispatch, in groups of 64 tokens with
+    ``DENSE_PATH_MAX_TOKENS`` lowered) on the same parameters and batch:
+    ``full`` cut to EP_GRAD_LAYERS, float32, capacity factor EP_GRAD_CF, 8
+    x 2048 tokens. At that factor neither route drops a token (asserted
+    from the capacities), so both compute the same function and differ by
+    summation order only: the cross-entropy within FP32_LOSS_TOL and every
+    leaf's gradient within FP32_GRAD_TOL of its largest entry. The same
+    mesh step with its replies misrouted (:func:`misrouted_replies`) must
+    exceed that limit."""
+    cfg = dataclasses.replace(
+        full, n_layers=EP_GRAD_LAYERS, compute_dtype="float32",
+        moe=dataclasses.replace(full.moe, capacity_factor=EP_GRAD_CF))
+    m, lanes = cfg.moe, ctx.n_lanes
+    tokens = MESH_TRAIN["batch"] * TRAIN_SEQ
+    chunk = min(moe_mod.EP_CHUNK_TOKENS,
+                tokens // (MESH_TRAIN["data"] * lanes))
+    cap_send = max(int(chunk * m.top_k * m.capacity_factor / lanes), m.top_k)
+    cap_local = max(int(lanes * cap_send * 2
+                        / (m.n_experts_padded // lanes)), 1)
+    cap_group = max(int(64 * m.top_k * m.capacity_factor / m.n_experts),
+                    m.top_k)
+    # a device sends a lane at most chunk x top_k rows; an expert takes at
+    # most one row a token of each lane's chunk; a group of 64 at most 64
+    assert cap_send >= chunk * m.top_k and cap_local >= lanes * chunk \
+        and cap_group >= 64, (cap_send, cap_local, cap_group)
+    gen = torch.Generator(device=DEV).manual_seed(351)
+    params = init_params(model_template(cfg), gen, device=DEV)
+    batch = _family_batch(cfg, MESH_TRAIN["batch"], TRAIN_SEQ, 351)
+    torch.cuda.reset_peak_memory_stats()
+    compat.reset_counts()
+    ce_mesh, aux_mesh, g_mesh = _ce_and_grads(cfg, params, batch, ctx)
+    a2a = compat.read_counts()["all_to_all"]["calls"]
+    passes = 2 if cfg.remat == "full" else 1
+    assert a2a == 3 * cfg.n_layers * passes, a2a
+    peak = torch.cuda.max_memory_allocated()
+    with misrouted_replies():
+        ce_bad, _, g_bad = _ce_and_grads(cfg, params, batch, ctx)
+    lowered = moe_mod.DENSE_PATH_MAX_TOKENS
+    moe_mod.DENSE_PATH_MAX_TOKENS = tokens // 2     # groups of 64
+    try:
+        ce_one, aux_one, g_one = _ce_and_grads(cfg, params, batch)
+    finally:
+        moe_mod.DENSE_PATH_MAX_TOKENS = lowered
+    fault = {"ce_gap": abs(ce_bad - ce_one),
+             "grad_gap_of_max": _grad_gap(g_bad, g_one)}
+    out = {"n_layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+           "tokens": tokens, "capacity_factor": EP_GRAD_CF,
+           "cap_send": cap_send, "cap_local": cap_local,
+           "cap_group_of_64": cap_group, "ce": ce_one,
+           "ce_gap": abs(ce_mesh - ce_one),
+           "grad_gap_of_max": _grad_gap(g_mesh, g_one),
+           "aux_mesh": aux_mesh, "aux_one_device": aux_one,
+           "loss_tol": FP32_LOSS_TOL, "grad_tol": FP32_GRAD_TOL,
+           "misrouted": fault, "max_memory_allocated": peak}
+    assert out["ce_gap"] <= FP32_LOSS_TOL, out
+    assert out["grad_gap_of_max"] <= FP32_GRAD_TOL, out
+    assert fault["grad_gap_of_max"] > FP32_GRAD_TOL, out
+    del params, g_mesh, g_bad, g_one
+    free_memory()
+    return out
 
 
 def phase_mesh_train(smi):
@@ -4132,8 +4309,13 @@ def phase_mesh_train(smi):
     beside it. Before them, one MoE layer at full width: ``moe_ep_shard_map``
     on (2, 4) at 2048 tokens and capacity factor 16 (float32) against
     ``moe_dense_dispatch``, within the reference's own bound
-    (tests/test_moe.py: 1e-3 of the largest + 1e-4; aux within 0.3).
-    Returns the training path's launches."""
+    (tests/test_moe.py: 1e-3 of the largest + 1e-4; aux within 0.3), and
+    the mesh step's loss and gradients against the one-device step's
+    (:func:`ep_grad_check`). Last, the three attention kernels against
+    their plain versions at the geometry the mesh step launched them at,
+    (8, 32 padded heads, 2048, 64) causal, in bfloat16 and float32
+    (:func:`check_path_attention`). Returns the training path's
+    launches."""
     t0 = time.perf_counter()
     full = get_config(MOE_ARCH)
     lay = dataclasses.replace(full, moe=dataclasses.replace(
@@ -4154,6 +4336,7 @@ def phase_mesh_train(smi):
     assert layer_counts["all_to_all"]["calls"] == 3, layer_counts
     del p, x, y_ep, y_d
     free_memory()
+    ep_grad = ep_grad_check(full, ctx)
 
     cfg = dataclasses.replace(full, n_layers=MESH_TRAIN["layers"])
     opt = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=60)
@@ -4173,7 +4356,8 @@ def phase_mesh_train(smi):
     att.reset_launches()            # the mesh training path starts here
     compat.reset_counts()
     stamps.append(time.perf_counter())
-    _, state = trainer.run(on_step=on_step)
+    with att_geometries() as seen:
+        _, state = trainer.run(on_step=on_step)
     launches = dict(att.LAUNCHES)   # read right after it
     counts = compat.read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -4205,6 +4389,11 @@ def phase_mesh_train(smi):
     one_peak = torch.cuda.max_memory_allocated()
     mesh_steady = statistics.mean(mesh_ms[1:])
     one_steady = statistics.mean(one_ms[1:])
+    del trainer, state, batches, one
+    free_memory()
+    att_checks = []
+    geos = check_path_attention("mesh_train", seen, MESH_TRAIN["batch"],
+                                cfg.n_heads_padded, 350, att_checks)
     emit("mesh_train", gpu=smi, arch=cfg.name, mesh=[MESH_TRAIN["data"],
                                                       MESH_TRAIN["model"]],
          reduced={"n_layers": cfg.n_layers}, d_model=cfg.d_model,
@@ -4220,14 +4409,15 @@ def phase_mesh_train(smi):
          launches_per_step=per_step, collectives=counts,
          one_device={"batch": 4, "step_ms": one_ms, "steady_step_ms":
                      one_steady, "tokens_per_s": 4 * TRAIN_SEQ
-                     / (one_steady / 1e3), "max_memory_allocated": one_peak},
+                     / (one_steady / 1e3), "max_memory_allocated": one_peak,
+                     "note": "another batch than the mesh step's (4 x 2048 "
+                             "against 8 x 2048): not a speed comparison"},
          ep_layer={"tokens": EP_LAYER_TOKENS, "capacity_factor": EP_LAYER_CF,
                    "max_err": layer_err, "scale": scale,
                    "aux": [float(aux_ep), float(aux_d)],
                    "collectives": layer_counts},
-         seconds=time.perf_counter() - t0)
-    del trainer, state, batches, one
-    free_memory()
+         ep_grad=ep_grad, attention_geometries=geos,
+         attention_checks=att_checks, seconds=time.perf_counter() - t0)
     return launches
 
 

@@ -191,8 +191,6 @@ for name, arch, dense_max in (("dense", "tinyllama-1.1b", None),
     batch = {"tokens": toks, "labels": jnp.roll(toks, -1, 1)}
     opt = adamw.OptConfig()
     state = {"params": params, "opt": adamw.init(opt, params)}
-    b0 = step_lib.make_train_step(cfg, opt, MeshCtx(mesh=None))
-    _, m0 = jax.jit(b0.step_fn)(state, batch)
     ctx1 = MeshCtx(mesh=mesh22, batch_axes=("data",))
     b1 = step_lib.make_train_step(cfg, opt, ctx1)
     st_sh = step_lib.named_for(b1.state_specs, b1.abstract_state, mesh22)
@@ -204,7 +202,6 @@ for name, arch, dense_max in (("dense", "tinyllama-1.1b", None),
     put(f"step_{name}/params", params)
     out[f"step_{name}/tokens"] = np.asarray(toks)
     for key in ("loss", "ce", "aux", "grad_norm"):
-        out[f"step_{name}/m0_{key}"] = np.asarray(m0[key])
         out[f"step_{name}/m1_{key}"] = np.asarray(m1[key])
 moe_mod.DENSE_PATH_MAX_TOKENS = 16384
 

@@ -59,11 +59,11 @@ def stage_fn(p, h):
 put("toy/params", params)
 out["toy/x"], out["toy/target"] = np.asarray(x), np.asarray(yt)
 out["toy/y"] = np.asarray(pipeline_apply(stage_fn, params, x, mesh, "pod"))
-put("toy/grad", jax.grad(lambda p: jnp.sum(
-    pipeline_apply(stage_fn, p, x, mesh, "pod") ** 2))(params))
+put("toy/grad", jax.jit(jax.grad(lambda p: jnp.sum(
+    pipeline_apply(stage_fn, p, x, mesh, "pod") ** 2)))(params))
 mse = lambda o, t: jnp.mean((o - t) ** 2)
-loss, g = jax.value_and_grad(lambda p: pipeline_loss(
-    stage_fn, mse, p, x, yt, mesh, "pod"))(params)
+loss, g = jax.jit(jax.value_and_grad(lambda p: pipeline_loss(
+    stage_fn, mse, p, x, yt, mesh, "pod")))(params)
 out["toy/loss"] = np.asarray(loss)
 put("toy/loss_grad", g)
 
