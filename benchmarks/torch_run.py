@@ -8,10 +8,10 @@ Prints ``table,key=value,...`` CSV-ish lines; exits 1 if a module failed.
 
 ``--device`` (default: the card; raises without one) is where
 ``kernel_bench`` and ``multiprecision`` run their kernels; the figure and
-table twins are host code. The reference's dry-run roofline summary reads
-the XLA dry-run farm's reports (``launch/report.py``), whose twin waits
-for the XLA readers' slice (ROADMAP Queue A13b), so that section prints its
-skip line.
+table twins are host code. Then the dry-run roofline summary: one
+``dryrun_roofline`` row per report of the port's dry run
+(``repro_torch.launch.dryrun``, read by ``launch/report.py``'s
+``load_all`` from ``--dryrun-dir``, default ``experiments/dryrun_torch``).
 """
 import argparse
 import sys
@@ -27,6 +27,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dryrun-dir", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 
     from benchmarks import (torch_fig5_matmul, torch_fig6_kernels,
@@ -53,10 +54,25 @@ def main(argv=None) -> None:
             failures += 1
             print(f"# {name} FAILED: {e}", flush=True)
 
-    print("# dryrun_roofline skipped: the dry-run farm's reports "
-          "(launch/report.py) read compiled XLA HLO over a device mesh; "
-          "their twin, a FLOP/byte count of a torch step, waits for ROADMAP "
-          "Queue A13b (the XLA readers)", flush=True)
+    # dry-run roofline summary (if the dry run has written its reports)
+    try:
+        from repro_torch.launch.report import load_all
+        rows = load_all(args.dryrun_dir)
+        for r in rows:
+            rl = r["roofline"]
+            _emit("dryrun_roofline", {
+                "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+                "compute_s": round(rl["compute_s"], 5),
+                "memory_s": round(rl["memory_s"], 5),
+                "collective_s": round(rl["collective_s"], 5),
+                "bottleneck": rl["bottleneck"],
+                "mfu_bound": round(rl["mfu_bound"], 4),
+                "useful_ratio": round(rl["useful_ratio"], 3),
+            })
+        if rows:
+            print("# dryrun_roofline done", flush=True)
+    except Exception as e:  # noqa: BLE001
+        print(f"# dryrun_roofline skipped: {e}", flush=True)
 
     sys.exit(1 if failures else 0)
 

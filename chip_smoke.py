@@ -20,7 +20,9 @@ kernel bench, the multi-precision sweep, long-context attention to
 multi-device machinery with the mesh held as tensor dimensions on the
 card (ring matmuls, the GPipe pipeline, the int8 compressed all-reduce,
 granite-moe-3b-a800m trained on a (2, 4) mesh through the expert-parallel
-route, deepseek-v3-671b served on a (1, 4) mesh). Without
+route, deepseek-v3-671b served on a (1, 4) mesh), and the dry run: the
+count of a step's FLOPs, bytes and collectives and its roofline, held
+against the measured step. Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
 
@@ -315,6 +317,18 @@ non-zero and prints no result. Phases, one JSON line each:
                same steps without a mesh (within bf16's own rounding), and
                ``ServingEngine(ctx=...)``'s greedy tokens equal to the
                engine's without a mesh.
+37. ``dryrun`` the dry run (``launch/dryrun.py``, counted on ``meta``
+               tensors for the card's routes): llama3-8b and
+               granite-moe-3b-a800m ``train_4k``, deepseek-v3-671b
+               ``prefill_32k`` at 4 of its 61 layers and tinyllama-1.1b
+               ``decode_32k`` on the (16, 16) production mesh, each
+               roofline row with its ``trace_s``, and the report twin's
+               table over them; phase 7's tinyllama-1.1b train step
+               counted on ``meta`` and on the card: FLOPs and bytes equal,
+               B3-B5's counted calls equal to their launches; the step's
+               measured ms above ``compute_s`` and ``memory_s``, beside
+               ``achievable_step_s`` and ``mfu_bound``; the measured peak
+               memory beside the estimate.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -324,8 +338,9 @@ and phase 18's serve steps for the forward attention kernel, of phases 7,
 scan, and of phases 27-30 for the kernels they launch: each path's count
 in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
-1`` / ``2`` / ``4``, and phases 33 and 35's ``mesh_pipeline`` and
-``mesh_train``; error, times and bound per kernel), one line with the
+1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
+``mesh_train``, and phase 37's counted step, ``dryrun``; error, times and
+bound per kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises: nothing is caught and passed
 over.
@@ -336,6 +351,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import os
 import re
@@ -455,10 +471,11 @@ def bound_ms(m: int, k: int, n: int, in_bytes: int, out_bytes: int,
              peak_ops: float):
     """Least time the card could take: each input read once and the output
     written once over the memory rate, or the 2*m*k*n operations over the
-    peak rate for the operand type — whichever is larger."""
-    t_bytes = ((m * k + k * n) * in_bytes + m * n * out_bytes) \
-        / PEAK_BYTES_PER_S
-    t_ops = 2.0 * m * k * n / peak_ops
+    peak rate for the operand type — whichever is larger (the kernel's own
+    count, ``kernels.matmul.work``)."""
+    flops, nbytes = mm.work(m, k, n, in_bytes, out_bytes)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1018,25 +1035,15 @@ def att_bound(op: str, b, h, s, d, elt: int, dtype: str = "bfloat16",
     """Least time for one call at (b, h, s queries, ``sk`` keys (default
     s), d): the bytes of its inputs and outputs once over the memory rate,
     or its products over the peak rate for ``dtype`` (bf16: the tensor
-    cores; float32: the CUDA cores, TF32 being off) — the products of the
+    cores; float32: the CUDA cores, TF32 being off). The products and
+    bytes are the kernel's own count (``kernels.attention.work``: the
     (query, key) pairs this input needs, the causal triangle's S(S+1)/2 a
-    head or, without the causal term, the whole Sq x Sk rectangle: forward
-    q.k and p.v, dQ q.k, dO.v and ds.k, dK/dV those two plus p.dO and
-    ds.q, each 2*D operations a pair."""
-    sk = s if sk is None else sk
-    g = b * h
-    pairs = s * (s + 1) / 2 if causal else s * sk
-    q_mat, k_mat = g * s * d * elt, g * sk * d * elt  # one (G,S,D) operand
-    q_vec, k_vec = g * s * 4, g * sk * 4               # one fp32 row vector
-    t_bytes, n_prod = {
-        # q k v | out | kvm, lse, probe
-        "flash_fwd": (2 * q_mat + 2 * k_mat + k_vec + 2 * q_vec, 2),
-        # q k v dO | dq | kvm lse delta
-        "flash_bwd_dq": (3 * q_mat + 2 * k_mat + k_vec + 2 * q_vec, 3),
-        # q k v dO | dk dv | kvm lse delta
-        "flash_bwd_dkv": (2 * q_mat + 4 * k_mat + k_vec + 2 * q_vec, 4)}[op]
-    t_bytes /= PEAK_BYTES_PER_S
-    t_ops = n_prod * 2 * d * g * pairs / PEAKS_FLOPS[dtype]
+    head or, without the causal term, the whole Sq x Sk rectangle), which
+    the dry run (phase 37) counts too."""
+    flops, nbytes = att.work(op, b * h, s, s if sk is None else sk, d, elt,
+                             causal)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAKS_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1805,17 +1812,13 @@ def paper_bound(kind, shape, elt):
     """Least time for one call: the bytes of inputs and outputs once over
     the memory rate, or the operations over the float32 CUDA-core rate
     (these kernels multiply on the CUDA cores in fp32 or fp64; fp64 is
-    taken at the fp32 rate, which flatters it)."""
-    if kind == "axpy":
-        (n,) = shape
-        t_bytes, t_ops = 3 * n * elt / PEAK_BYTES_PER_S, \
-            2 * n / PEAKS_FLOPS["float32"]
-    else:
-        c, h, w, oc, kh, kw = shape
-        ho, wo = h - kh + 1, w - kw + 1
-        t_bytes = (c * h * w + oc * c * kh * kw + oc * ho * wo) * elt \
-            / PEAK_BYTES_PER_S
-        t_ops = 2 * oc * c * kh * kw * ho * wo / PEAKS_FLOPS["float32"]
+    taken at the fp32 rate, which flatters it). The operations and bytes
+    are the kernel's own count (``kernels.axpy.work``,
+    ``kernels.conv.work``)."""
+    flops, nbytes = ax.work(shape[0], elt) if kind == "axpy" \
+        else cv.work(*shape, elt, elt)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAKS_FLOPS["float32"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -2045,12 +2048,11 @@ def ssm_bound(bh, s, n, p, chunk, elt):
     rate, or the products the causal chunked form needs over the float32
     CUDA-core rate (the reference does every product in fp32): per (bh,
     chunk of c) q.k^T and w.v over the c(c+1)/2 causal pairs, q.state and
-    the state update over c x N x P, 2 operations a multiply-add."""
-    pairs = chunk * (chunk + 1) / 2
-    per_chunk = 2 * pairs * (n + p) + 4 * chunk * n * p
-    t_ops = bh * (s // chunk) * per_chunk / PEAKS_FLOPS["float32"]
-    t_bytes = (bh * s * (2 * n + 2 * p) * elt + 2 * bh * s * 4) \
-        / PEAK_BYTES_PER_S
+    the state update over c x N x P, 2 operations a multiply-add: the
+    kernel's own count, ``kernels.ssm_scan.work``."""
+    flops, nbytes = ss.work(bh, s, n, p, chunk, elt)
+    t_ops = flops / PEAKS_FLOPS["float32"]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -4523,6 +4525,130 @@ def run_mesh(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 37: the dry run (the count of a step, its roofline)
+# ---------------------------------------------------------------------------
+
+
+# (arch, shape, overrides) on the (16, 16) production mesh, counted on meta
+# tensors: deepseek-v3-671b's prefill at 4 of its 61 layers (its 3 dense
+# layers and one MoE layer): the 32k prompt's lane-local MLA loop, a few
+# hundred chunk bodies a layer, dominates the count's host time
+DRYRUN_CELLS = (("llama3-8b", "train_4k", None),
+                ("granite-moe-3b-a800m", "train_4k", None),
+                ("deepseek-v3-671b", "prefill_32k", {"n_layers": 4}),
+                ("tinyllama-1.1b", "decode_32k", None))
+DRYRUN_STEPS = 3
+
+
+def phase_dryrun(smi):
+    """Phase 37. (a) ``launch.dryrun.run_cell`` for DRYRUN_CELLS on
+    ``pod16x16`` (meta tensors, the card's routes), each roofline row and
+    its ``trace_s``, then ``launch/report.py``'s table over them. (b)
+    tinyllama-1.1b's train step as phase 7 runs it (4 x 2048, bf16
+    compute, full remat, one device) counted on ``meta`` for the card
+    (``target="cuda"``) and on the card itself: FLOPs and bytes equal, and
+    each attention kernel's counted calls equal to its launches in that
+    step. (c) The step timed without the count (host clock to a
+    synchronise, mean of steps 2-3) beside the roofline's terms, which
+    must lie below it; the measured peak memory beside the estimate.
+    Returns the attention kernels' launches of the counted step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import roofline
+    from repro_torch.core.step_analysis import analyze
+    from repro_torch.launch import dryrun, report
+    from repro_torch.models.transformer import input_specs
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
+    try:
+        for arch, shape, over in DRYRUN_CELLS:
+            r = dryrun.run_cell(arch, shape, False, out_dir, overrides=over)
+            rl = r["roofline"]
+            emit("dryrun_cell", arch=arch, shape=shape, mesh=r["mesh"],
+                 reduced=over, trace_s=r["trace_s"],
+                 **{k: rl[k] for k in ("compute_s", "memory_s",
+                                       "collective_s", "bottleneck",
+                                       "achievable_step_s", "mfu_bound",
+                                       "useful_ratio", "hlo_flops_per_dev",
+                                       "hlo_bytes_per_dev",
+                                       "coll_bytes_per_dev")},
+                 kernels=rl["detail"]["kernels"],
+                 memory_analysis=r["memory_analysis"],
+                 fits_h100_80g=r["fits_h100_80g"],
+                 collective_fsdp_undercounted=r[
+                     "collective_fsdp_undercounted"])
+            assert rl["compute_s"] > 0 and rl["memory_s"] > 0, r
+        with contextlib.redirect_stdout(io.StringIO()) as table:
+            report.main(["--dir", out_dir])
+        print(table.getvalue(), end="", flush=True)
+        rows = report.load_all(out_dir)
+        assert len(rows) == len(DRYRUN_CELLS), rows
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cells_s = time.perf_counter() - t0
+
+    cfg, opt = _train_cfgs()
+    shape = ShapeConfig("train_4x2048", TRAIN_SEQ, TRAIN_BATCH, "train")
+    bundle = make_train_step(cfg, opt)
+    meta = analyze(bundle.step_fn, bundle.abstract_state,
+                   input_specs(cfg, shape), target="cuda",
+                   params=bundle.abstract_state["params"])
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(model_template(cfg), gen, dtype=cfg.param_dtype,
+                         device=DEV)
+    state = {"params": params, "opt": adamw.init(opt, params)}
+    source = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    batches = [to_device(source.batch(i), DEV) for i in range(DRYRUN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for batch in batches:
+        t1 = time.perf_counter()
+        state, _ = bundle.step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    peak = torch.cuda.max_memory_allocated()
+    att.reset_launches()               # the counted step starts here
+    card = analyze(bundle.step_fn, state, batches[0],
+                   params=state["params"])
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)      # read right after it
+    del state, params
+    free_memory()
+
+    calls = {k: v["calls"] for k, v in card.kernels.items()}
+    assert (card.flops, card.bytes_accessed) == (meta.flops,
+                                                 meta.bytes_accessed), \
+        (card.flops, meta.flops, card.bytes_accessed, meta.bytes_accessed)
+    assert card.kernels == meta.kernels, (card.kernels, meta.kernels)
+    assert calls == launches and launches == train_launches(cfg), \
+        (calls, launches)
+    rl = roofline.build(cfg, shape, "1x1", 1, meta)
+    measured = statistics.mean(step_ms[1:])     # the first is the warm-up
+    assert rl.compute_s * 1e3 < measured and rl.memory_s * 1e3 < measured, \
+        (rl, measured)
+    emit("dryrun", card=smi, cells=len(DRYRUN_CELLS), cells_s=cells_s,
+         arch=cfg.name, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+         compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+         flops=meta.flops, bytes=meta.bytes_accessed,
+         card_flops=card.flops, card_bytes=card.bytes_accessed,
+         counted_ops=meta.ops, kernels=meta.kernels, launches=launches,
+         step_ms=step_ms, measured_step_ms=measured,
+         compute_ms=rl.compute_s * 1e3, memory_ms=rl.memory_s * 1e3,
+         achievable_step_ms=rl.achievable_step_s * 1e3,
+         bottleneck=rl.bottleneck, mfu_bound=rl.mfu_bound,
+         useful_ratio=rl.useful_ratio,
+         mfu_measured=rl.model_flops_total / (
+             PEAKS_FLOPS[cfg.compute_dtype] * measured / 1e3),
+         peak_gb=peak / 1e9, peak_gb_est=meta.peak_bytes_est / 1e9,
+         argument_gb=meta.argument_bytes / 1e9,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
@@ -4543,8 +4669,9 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     kernel's non-causal mode; the restarted training's and the families'
     training's three attention kernels). ``surface`` holds phases 27-31's
     counts by path (the quickstart per arch, ``kernel_bench``,
-    ``multiprecision``, ``attention_long``'s rows and gates) and phases 33
-    and 35's (``mesh_pipeline``, ``mesh_train``): every row adds those that
+    ``multiprecision``, ``attention_long``'s rows and gates), phases 33
+    and 35's (``mesh_pipeline``, ``mesh_train``) and phase 37's counted
+    step (``dryrun``): every row adds those that
     launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
@@ -4739,6 +4866,8 @@ def main():
     phase_engine_throughput()
     free_memory()
     surface.update(run_mesh(smi))           # each sets its counts to 0 first
+    free_memory()
+    surface["dryrun"] = phase_dryrun(smi)   # sets its counts to 0 first
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,

@@ -26,10 +26,25 @@ sees, in the mesh's axis order: for a mesh ``("data", "model")`` of sizes
   bytes that a real mesh would move over its links for that call, summed
   over the devices (a ring all-reduce for the three reductions: each device
   sends ``2 (n-1)/n`` of its buffer; an all-to-all ``(n-1)/n``; an
-  all-gather ``n-1`` buffers; a ring permutation one buffer). The
-  counts are of the calls the forward makes: autograd's backward of a
-  collective moves as much again and is not counted. ``CALLS["shard_map"]``
-  counts the bodies run.
+  all-gather ``n-1`` buffers; a ring permutation one buffer).
+  ``CALLS["shard_map"]`` counts the bodies run.
+- Each collective is a ``torch.autograd.Function`` whose backward is the
+  collective that a real mesh runs for it, counted under the forward's
+  kind in ``CALLS_BWD`` / ``BYTES_BWD``: ``all_gather``'s is a
+  reduce-scatter (as many bytes), ``all_to_all``'s the inverse
+  ``all_to_all`` and ``ppermute``'s the inverse permutation (as many
+  bytes each); the three reductions' is a broadcast of a cotangent that
+  every device of the axis holds (a call, no bytes; ``pmax``'s keeps its
+  input and output to split the cotangent among ties). The backward's
+  arithmetic is the one autograd took through the stacked operations
+  before, bit for bit.
+- A count of the step (``core.step_analysis.analyze``) receives each
+  collective, forward and backward, from :func:`_count` and the backward
+  (``step_analysis.collective``). A collective's own operations on the
+  stacks run under ``step_analysis.uncounted``, so it is taken as a
+  collective, not as memory traffic, and a body runs under
+  ``step_analysis.explicit``: its collectives are explicit, and the count
+  derives none of its own there.
 
 A body written per device cannot be ``torch.func.vmap``-ed: the attention
 kernels are called through ``ctypes``. So a body that launches a kernel
@@ -45,45 +60,23 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import step_analysis
+from repro_torch.core.partition import PartitionSpec, entry_axes
+
 CALLS: collections.Counter = collections.Counter()
 BYTES: collections.Counter = collections.Counter()
-
-
-class PartitionSpec(tuple):
-    """The port's copy of ``jax.sharding.PartitionSpec``: a tuple, one
-    entry per dimension (``None``, a mesh axis name, or a tuple of names;
-    a one-name tuple is that name, as the reference's normalizes it);
-    dimensions past its length are replicated."""
-
-    def __new__(cls, *parts):
-        parts = tuple(tuple(p) if isinstance(p, (tuple, list)) else p
-                      for p in parts)
-        return super().__new__(cls, tuple(
-            p[0] if isinstance(p, tuple) and len(p) == 1 else p
-            for p in parts))
-
-    def __getnewargs__(self):
-        return tuple(self)
-
-    def __repr__(self):
-        return f"PartitionSpec{tuple.__repr__(self)}"
+CALLS_BWD: collections.Counter = collections.Counter()
+BYTES_BWD: collections.Counter = collections.Counter()
 
 
 def reset_counts():
-    CALLS.clear()
-    BYTES.clear()
+    for counter in (CALLS, BYTES, CALLS_BWD, BYTES_BWD):
+        counter.clear()
 
 
 def read_counts() -> dict:
     """``{kind: {"calls": n, "bytes": b}}`` of the collectives so far."""
     return {k: {"calls": CALLS[k], "bytes": BYTES[k]} for k in sorted(CALLS)}
-
-
-def entry_axes(entry) -> tuple:
-    """The mesh axes of one spec entry (None, a name or a tuple)."""
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +124,32 @@ def stack_shape() -> tuple:
 def _count(kind: str, nbytes: float):
     CALLS[kind] += 1
     BYTES[kind] += int(round(nbytes))
+    step_analysis.collective(kind, nbytes)
+
+
+class _Collective(torch.autograd.Function):
+    """One collective on the stacks: ``fwd(x)`` forward, ``bwd(g)``
+    backward (``bwd(g, x, y)`` with ``save``: the input and the output),
+    each counted, the backward under the forward's kind."""
+
+    @staticmethod
+    def forward(ctx, x, kind, nbytes, nbytes_bwd, fwd, bwd, save):
+        _count(kind, nbytes)
+        ctx.kind, ctx.nbytes_bwd, ctx.bwd = kind, nbytes_bwd, bwd
+        with step_analysis.uncounted():
+            y = fwd(x)
+        if save:
+            ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        CALLS_BWD[ctx.kind] += 1
+        BYTES_BWD[ctx.kind] += int(round(ctx.nbytes_bwd))
+        step_analysis.collective(ctx.kind, ctx.nbytes_bwd, backward=True)
+        with step_analysis.uncounted():
+            dx = ctx.bwd(g, *ctx.saved_tensors)
+        return dx, None, None, None, None, None, None
 
 
 def axis_index(axis: str) -> torch.Tensor:
@@ -157,32 +176,56 @@ def ppermute(x, axis: str, perm):
         raise ValueError(f"ppermute over '{axis}': {perm} is not a ring "
                          f"of its {n} devices")
     shift = shifts.pop()
-    _count("ppermute", ax.local_bytes(x) * ax.n_dev * (shift != 0))
-    return torch.roll(x, shifts=shift, dims=d)
+    nbytes = ax.local_bytes(x) * ax.n_dev * (shift != 0)
+    return _Collective.apply(x, "ppermute", nbytes, nbytes,
+                             lambda x: torch.roll(x, shifts=shift, dims=d),
+                             lambda g: torch.roll(g, shifts=-shift, dims=d),
+                             False)
 
 
-def _reduce(kind: str, x, axes, op):
+def _reduce(kind: str, x, axes, op, grad):
     ax = _axes()
     dims = ax.dims(axes)
     n = math.prod(ax.sizes[d] for d in dims)
-    _count(kind, 2 * (n - 1) / n * ax.local_bytes(x) * ax.n_dev)
-    return op(x, dims).expand(x.shape)
+    nbytes = 2 * (n - 1) / n * ax.local_bytes(x) * ax.n_dev
+    shape = x.shape
+    return _Collective.apply(x, kind, nbytes, 0,
+                             lambda x: op(x, dims).expand(shape),
+                             lambda g, *xy: grad(g, dims, n, shape, *xy),
+                             kind == "pmax")
+
+
+def _sum_back(g, dims):
+    # the backward of ``.expand`` that autograd takes: a sum over the
+    # expanded dimensions
+    return g.sum(dim=dims, keepdim=True)
 
 
 def psum(x, axes):
     """The sum over ``axes`` (a name or a tuple), on every device."""
     return _reduce("psum", x, axes,
-                   lambda x, dims: x.sum(dim=dims, keepdim=True))
+                   lambda x, dims: x.sum(dim=dims, keepdim=True),
+                   lambda g, dims, n, shape: _sum_back(g, dims).expand(shape))
 
 
 def pmean(x, axes):
     return _reduce("pmean", x, axes,
-                   lambda x, dims: x.mean(dim=dims, keepdim=True))
+                   lambda x, dims: x.mean(dim=dims, keepdim=True),
+                   lambda g, dims, n, shape:
+                   _sum_back(g, dims).expand(shape) / n)
 
 
 def pmax(x, axes):
     return _reduce("pmax", x, axes,
-                   lambda x, dims: x.amax(dim=dims, keepdim=True))
+                   lambda x, dims: x.amax(dim=dims, keepdim=True),
+                   lambda g, dims, n, shape, x, y: _max_back(g, dims, x, y))
+
+
+def _max_back(g, dims, x, y):
+    # autograd's backward of ``.expand`` after ``amax``: the cotangent
+    # summed over the expanded dimensions, split evenly among the ties
+    mask = x == y
+    return _sum_back(g, dims) / mask.sum(dim=dims, keepdim=True) * mask
 
 
 def all_to_all(x, axis: str, split_axis: int, concat_axis: int,
@@ -201,8 +244,10 @@ def all_to_all(x, axis: str, split_axis: int, concat_axis: int,
     if x.shape[lead] != n:
         raise ValueError(f"all_to_all over '{axis}' (size {n}) splits a "
                          f"local dimension of {x.shape[lead]}")
-    _count("all_to_all", ax.local_bytes(x) * (n - 1) / n * ax.n_dev)
-    return x.transpose(d, lead)
+    nbytes = ax.local_bytes(x) * (n - 1) / n * ax.n_dev
+    return _Collective.apply(x, "all_to_all", nbytes, nbytes,
+                             lambda x: x.transpose(d, lead),
+                             lambda g: g.transpose(d, lead), False)
 
 
 def all_gather(x, axis: str):
@@ -211,9 +256,12 @@ def all_gather(x, axis: str):
     ax = _axes()
     (d,) = ax.dims(axis)
     n, lead = ax.sizes[d], len(ax.sizes)
-    _count("all_gather", ax.local_bytes(x) * (n - 1) * ax.n_dev)
-    return x.movedim(d, lead - 1).unsqueeze(d).expand(
-        x.shape[:lead] + (n,) + x.shape[lead:])
+    nbytes = ax.local_bytes(x) * (n - 1) * ax.n_dev
+    return _Collective.apply(
+        x, "all_gather", nbytes, nbytes,
+        lambda x: x.movedim(d, lead - 1).unsqueeze(d).expand(
+            x.shape[:lead] + (n,) + x.shape[lead:]),
+        lambda g: _sum_back(g, (d,)).squeeze(d).movedim(lead - 1, d), False)
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +389,8 @@ def shard_map(f, *, mesh, in_specs, out_specs):
         CALLS["shard_map"] += 1
         _ACTIVE.append(_Axes(mesh, _first_device(args)))
         try:
-            out = f(*stacks)
+            with step_analysis.explicit():
+                out = f(*stacks)
         finally:
             _ACTIVE.pop()
         return _map(lambda s, v: merge(v, s, mesh), out_specs, out)

@@ -1,0 +1,596 @@
+"""FLOP, byte and collective count of a torch step: the twin of the
+reference's ``core/hlo_analysis.py`` (the dry-run profiler).
+
+The reference parses the HLO that XLA compiled for a mesh and counts it.
+The port has no HLO. :func:`analyze` runs the step itself, usually on
+``meta`` tensors (shapes and dtypes, no memory, no card), under one
+``TorchDispatchMode`` that sees every aten operation of the forward, the
+backward and the optimizer, and counts:
+
+- **FLOPs**: the matrix-product family (``mm``, ``addmm``, ``bmm``,
+  ``baddbmm``) by ``torch.utils.flop_counter``'s formulas, 2 per
+  multiply-add, the reference's dot count; ``convolution`` as the
+  reference counts it, 2 * prod(result). Elementwise FLOPs are not
+  counted, as in the reference. A hand-written kernel adds its own count
+  (each wrapper's ``work``, recorded by :func:`kernel`); the aten
+  operations inside a wrapper (its plain version on the CPU, its output
+  allocations everywhere) are not counted, so a kernel counts once on
+  every device.
+- **Bytes**: operands plus results of each aten operation, except views
+  and the reference's ``_BOOKKEEPING`` / ``_FUSABLE_MOVEMENT`` classes
+  mapped to aten names (:data:`NOT_COUNTED`). This is an eager count: XLA
+  fuses elementwise chains, so the reference reads fewer bytes.
+- **Collectives** per device, with the reference's ring formulas
+  (:func:`ring_bytes`), from three sources:
+
+  1. the explicit ``shard_map`` collectives of ``core/compat.py``, forward
+     and backward, each reported as it runs (:func:`collective`);
+  2. the parameters' own, from each leaf's spec: under FSDP (a leaf
+     sharded over a batch axis) an all-gather over those axes in the
+     forward that reads it and one more in the backward that reads it
+     (the gradient products, and the recompute under remat, share it),
+     and a reduce-scatter of its gradient; a gradient all-reduce over the
+     mesh axes that replicate the leaf;
+  3. tensor parallelism's activation all-reduce: a product whose
+     contracting dimension is sharded over the ``model`` axis
+     (:data:`MODEL_AXIS`) ends in an all-reduce of its result, forward and
+     backward. Which dimensions are sharded is carried from each
+     parameter's spec through the views and copies made of it. The port
+     has no partitioner, so this stands in for the collectives that the
+     reference's GSPMD inserts; inside a ``shard_map`` body the
+     collectives are explicit and nothing is derived.
+
+Every count of the global step (FLOPs, bytes, the live bytes) is divided by
+``n_devices``; a parameter's or an optimizer state's reads and writes
+count as its shard's bytes (its spec), and so do the inputs'
+(``argument_bytes``, exact). ``peak_bytes_est`` is an estimate: the
+inputs' shard bytes plus the largest bytes the mode saw live at once,
+divided by ``n_devices``.
+
+Under ``analyze(target="cuda")`` a ``meta`` tensor takes the routes a CUDA
+tensor takes (``models.attention.flash_route_enabled`` reads
+:func:`target`), so the count is that of the step the card runs; with
+``target="cpu"`` it takes the CPU's, as the reference's dry run on host
+devices does.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from collections import defaultdict
+from typing import Optional
+
+import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.core.partition import PartitionSpec, entry_axes
+
+MODEL_AXIS = "model"          # the tensor-parallel (lane) axis; the others
+                              # of a mesh are batch axes (models/sharding.py)
+
+aten = torch.ops.aten
+_PRODUCTS = {aten.mm, aten.addmm, aten.bmm, aten.baddbmm}
+_CONVOLUTIONS = {aten.convolution, aten._convolution}
+
+# The reference's _BOOKKEEPING (parameter, constant, iota, tuple,
+# bitcast, ...) and _FUSABLE_MOVEMENT (copy, convert, transpose, reshape,
+# broadcast, slice, reverse, pad) classes by aten name; a view is
+# bookkeeping whatever its name (``OpOverload.is_view``).
+NOT_COUNTED = frozenset({
+    # bookkeeping: allocations, iota, scalars, dtype queries
+    "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+    "arange", "scalar_tensor", "_local_scalar_dense", "promote_types",
+    "result_type",
+    # copy, convert, reshape
+    "_to_copy", "copy", "copy_", "clone", "_unsafe_view",
+    # broadcast (of a constant or an operand)
+    "zeros", "ones", "full", "zeros_like", "ones_like", "full_like",
+    "new_zeros", "new_ones", "new_full", "fill", "fill_", "zero_", "repeat",
+    # slice (the slicing ops' backward pads), reverse, pad
+    "slice_backward", "select_backward", "flip", "roll", "constant_pad_nd",
+})
+
+# compat's collectives on the real mesh: forward kind -> the reference's
+# kind, and what each one's backward is there
+_KIND = {"psum": "all-reduce", "pmean": "all-reduce", "pmax": "all-reduce",
+         "all_gather": "all-gather", "all_to_all": "all-to-all",
+         "ppermute": "collective-permute"}
+_KIND_BWD = {"psum": "broadcast", "pmean": "broadcast", "pmax": "broadcast",
+             "all_gather": "reduce-scatter", "all_to_all": "all-to-all",
+             "ppermute": "collective-permute"}
+
+
+def ring_bytes(kind: str, result_bytes: float, g: int) -> float:
+    """Bytes a device moves for one collective of ``result_bytes`` (its
+    result on that device) over a group of ``g`` (the reference's
+    ``hlo_analysis`` ring model)."""
+    if kind == "all-reduce":
+        return 2.0 * result_bytes * (g - 1) / max(g, 1)
+    if kind in ("all-gather", "all-to-all"):
+        return result_bytes * (g - 1) / max(g, 1)
+    if kind == "reduce-scatter":
+        return float(result_bytes) * (g - 1)
+    if kind == "collective-permute":
+        return float(result_bytes)
+    if kind == "broadcast":       # of a cotangent every device holds
+        return 0.0
+    raise ValueError(f"unknown collective kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# the analysis context that kernel wrappers, compat and the attention route
+# read
+# ---------------------------------------------------------------------------
+
+
+_RUNS: list = []              # the running analyses, innermost last
+
+
+def target() -> Optional[str]:
+    """The device whose routes a ``meta`` tensor takes in the running
+    analysis ("cuda" or "cpu"), or None outside :func:`analyze`."""
+    return _RUNS[-1].target if _RUNS else None
+
+
+_NOT_COUNTING = contextlib.nullcontext()
+
+
+class _Scope:
+    """Within it the running analysis counts no aten operation; entering
+    it first records ``on_enter`` (a kernel's call and work)."""
+
+    def __init__(self, run, on_enter=None):
+        self.run, self.on_enter = run, on_enter
+
+    def __enter__(self):
+        if self.on_enter is not None:
+            self.run.record_kernel(*self.on_enter)
+        self.run.uncounted += 1
+
+    def __exit__(self, *exc):
+        self.run.uncounted -= 1
+
+
+def kernel(name: str, work, *args):
+    """Around a kernel wrapper's body: records one call of ``name`` with
+    its ``work(*args)`` (FLOPs, bytes) in the running analysis, and stops
+    the aten operations inside (the plain version, the output allocations)
+    from being counted. Outside :func:`analyze` it is a shared no-op
+    context and ``work`` is not called."""
+    if not _RUNS:
+        return _NOT_COUNTING
+    return _Scope(_RUNS[-1], (name, *work(*args)))
+
+
+def uncounted():
+    """The aten operations inside are not counted (a collective's own
+    operations on the stacks: they are counted as the collective)."""
+    return _Scope(_RUNS[-1]) if _RUNS else _NOT_COUNTING
+
+
+@contextlib.contextmanager
+def explicit():
+    """Around a ``shard_map`` body: its collectives are explicit (each
+    reaches :func:`collective`), so no tensor-parallel collective is
+    derived from the products inside."""
+    if not _RUNS:
+        yield
+        return
+    run = _RUNS[-1]
+    run.explicit += 1
+    try:
+        yield
+    finally:
+        run.explicit -= 1
+
+
+def collective(name: str, nbytes: float, backward: bool = False):
+    """One of ``core/compat.py``'s collectives (``name``: its function)
+    moving ``nbytes`` summed over the devices, in the forward or, with
+    ``backward``, the collective a real mesh runs for its backward."""
+    if _RUNS:
+        _RUNS[-1].record_collective(name, nbytes, backward)
+
+
+def check_launch(what: str):
+    """Called where a CUDA kernel is launched: under :func:`analyze` a
+    launch outside :func:`kernel` would go uncounted, so it raises."""
+    if _RUNS and not _RUNS[-1].uncounted:
+        raise RuntimeError(f"{what}: a kernel launched under step_analysis."
+                           f"analyze without a work count (wrap the "
+                           f"wrapper's body in step_analysis.kernel)")
+
+
+# ---------------------------------------------------------------------------
+# results
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StepStats:
+    flops: float = 0.0
+    bytes_accessed: float = 0.0
+    collective_bytes: float = 0.0
+    collective_by_kind: dict = dataclasses.field(
+        default_factory=lambda: defaultdict(float))
+    collective_count: int = 0
+    top_collectives: list = dataclasses.field(default_factory=list)
+    dot_flops_by_shape: dict = dataclasses.field(
+        default_factory=lambda: defaultdict(float))
+    # per kernel: {"calls", "flops", "bytes"} (calls global, the rest per
+    # device)
+    kernels: dict = dataclasses.field(default_factory=dict)
+    argument_bytes: float = 0.0     # the inputs' shard bytes (exact)
+    peak_live_bytes: float = 0.0    # largest live bytes seen, per device
+    ops: int = 0                    # aten operations dispatched
+
+    @property
+    def peak_bytes_est(self) -> float:
+        """Per-device peak estimate: the inputs' shard bytes plus the
+        largest live bytes (divided by n_devices)."""
+        return self.argument_bytes + self.peak_live_bytes
+
+    def add_collective(self, kind: str, result_bytes: float, g: int,
+                       label: str, times: int = 1):
+        moved = ring_bytes(kind, result_bytes, g) * times
+        self.collective_bytes += moved
+        self.collective_by_kind[kind] += moved
+        self.collective_count += times
+        self.top_collectives.append((f"{kind} {label} g={g}", moved))
+
+    def as_dict(self) -> dict:
+        tops = defaultdict(float)
+        for k, v in self.top_collectives:
+            tops[k] += v
+        return {
+            "flops": self.flops,
+            "bytes_accessed": self.bytes_accessed,
+            "collective_bytes": self.collective_bytes,
+            "collective_by_kind": dict(self.collective_by_kind),
+            "collective_count": self.collective_count,
+            "top_collectives": sorted(tops.items(), key=lambda t: -t[1])[:12],
+            "top_dots": sorted(self.dot_flops_by_shape.items(),
+                               key=lambda t: -t[1])[:12],
+            "kernels": {k: dict(v) for k, v in sorted(self.kernels.items())},
+            "argument_bytes": self.argument_bytes,
+            "peak_bytes_est": self.peak_bytes_est,
+        }
+
+
+# ---------------------------------------------------------------------------
+# the mode
+# ---------------------------------------------------------------------------
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _type(t) -> str:
+    return f"{str(t.dtype).replace('torch.', '')}{list(t.shape)}"
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensors(tree[k])
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _pairs(spec_tree, tree):
+    """(tensor, spec) of every leaf; a spec at a node applies below it."""
+    if spec_tree is None or isinstance(spec_tree, PartitionSpec):
+        for t in _tensors(tree):
+            yield t, spec_tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _pairs(spec_tree.get(k) if isinstance(spec_tree, dict)
+                              else spec_tree, tree[k])
+    else:
+        for s, v in zip(spec_tree, tree):
+            yield from _pairs(s, v)
+
+
+def _key(t) -> int:
+    """The identity of ``t``'s storage (shared by its views)."""
+    return t.untyped_storage()._cdata
+
+
+def _flat(args, kwargs=None) -> list:
+    """The tensors among an operation's arguments (and in its lists)."""
+    out = []
+    for a in (args if kwargs is None else (*args, *kwargs.values())):
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        elif isinstance(a, (tuple, list)):
+            out.extend(x for x in a if isinstance(x, torch.Tensor))
+    return out
+
+
+def _reshape_tags(tags, src, dst):
+    """Sharded-axis tags of a reshape from ``src`` to ``dst``: dimensions
+    are grouped where their products meet; a group's tags go to its first
+    output dimension of size > 1 (a block sharding splits the major
+    dimension first)."""
+    out = [frozenset()] * len(dst)
+    i = j = 0
+    while i < len(src) or j < len(dst):
+        gi, gj = [i], [j]
+        pi = src[i] if i < len(src) else 1
+        pj = dst[j] if j < len(dst) else 1
+        i, j = i + 1, j + 1
+        while pi != pj:
+            if pi < pj and i < len(src):
+                pi *= src[i]
+                gi.append(i)
+                i += 1
+            elif j < len(dst):
+                pj *= dst[j]
+                gj.append(j)
+                j += 1
+            else:
+                break
+        axes = frozenset().union(*(tags[a] for a in gi if a < len(src)))
+        if axes:
+            first = next((b for b in gj if b < len(dst) and dst[b] > 1),
+                         gj[0] if gj[0] < len(dst) else None)
+            if first is not None:
+                out[first] = out[first] | axes
+    return tuple(out)
+
+
+class _Run(TorchDispatchMode):
+    def __init__(self, n_devices, sizes, target, state, params):
+        super().__init__()
+        self.n = max(int(n_devices), 1)
+        self.sizes = sizes          # mesh axis -> size
+        self.target = target
+        self.stats = StepStats()
+        self.uncounted = 0
+        self.state = state          # storage key -> bytes divisor
+        self.params = params        # storage key -> (tensor, spec)
+        self.read_fwd, self.read_bwd = set(), set()
+        self.backward_ran = False
+        self.explicit = 0           # inside shard_map bodies
+        self.tags = WeakIdKeyDictionary()
+        self.live = {}              # storage key -> (weakref, bytes)
+        self.live_bytes = 0
+
+    # -- kernels ------------------------------------------------------------
+
+    def record_kernel(self, name, flops, nbytes):
+        k = self.stats.kernels.setdefault(
+            name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
+        k["calls"] += 1
+        k["flops"] += flops / self.n
+        k["bytes"] += nbytes / self.n
+        self.stats.flops += flops / self.n
+        self.stats.bytes_accessed += nbytes / self.n
+
+    def record_collective(self, name, nbytes, backward):
+        kind = (_KIND_BWD if backward else _KIND)[name]
+        moved = nbytes / self.n     # compat's bytes sum over the devices
+        st = self.stats
+        st.collective_bytes += moved
+        st.collective_by_kind[kind] += moved
+        st.collective_count += 1
+        st.top_collectives.append((f"{kind} compat.{name}", moved))
+
+    # -- dispatch -----------------------------------------------------------
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self.uncounted:
+            return out
+        self.stats.ops += 1
+        ins = _flat(args, kwargs)
+        outs = _flat((out,))
+        in_keys = [_key(t) for t in ins]
+        in_backward = torch._C._current_autograd_node() is not None
+        if in_backward:
+            self.backward_ran = True
+        reads = self.read_bwd if in_backward else self.read_fwd
+        for k in in_keys:
+            if k in self.params:
+                reads.add(k)
+        packet = func.overloadpacket
+        if packet in _PRODUCTS:
+            f = flop_registry[packet](*args, **kwargs, out_val=out) / self.n
+            self.stats.flops += f
+            self.stats.dot_flops_by_shape[_type(out)] += f
+        elif packet in _CONVOLUTIONS:
+            self.stats.flops += 2.0 * out.numel() / self.n
+        name = packet.__name__
+        out_keys = [_key(t) for t in outs]
+        if not (func.is_view or name in NOT_COUNTED):
+            state, n = self.state, self.n
+            self.stats.bytes_accessed += sum(
+                _nbytes(t) / state.get(k, n)
+                for t, k in zip(ins + outs, in_keys + out_keys))
+        if self.tags and not self.explicit:
+            self._propagate(func, name, args, out, ins, outs)
+        self._track_live(outs, out_keys)
+        return out
+
+    def _track_live(self, outs, keys):
+        for t, k in zip(outs, keys):
+            if k in self.live or k in self.state:
+                continue
+            s = t.untyped_storage()
+            self.live[k] = (StorageWeakRef(s), s.nbytes())
+            self.live_bytes += s.nbytes()
+        if self.stats.ops % 32 == 0:
+            self._prune()
+
+    def _prune(self):
+        dead = [k for k, (ref, _) in self.live.items() if ref.expired()]
+        for k in dead:
+            self.live_bytes -= self.live.pop(k)[1]
+        self.stats.peak_live_bytes = max(self.stats.peak_live_bytes,
+                                         self.live_bytes / self.n)
+
+    # -- tensor parallelism: which dimensions are sharded over MODEL_AXIS --
+
+    def _propagate(self, func, name, args, out, ins, outs):
+        tagged = [t for t in ins if t in self.tags]
+        if not tagged or not outs:
+            return
+        x = args[0] if args and isinstance(args[0], torch.Tensor) else None
+        xt = self.tags.get(x) if x is not None else None
+        new = None
+        if name in _PRODUCT_NAMES:
+            a, b = (args[1], args[2]) if name in ("addmm", "baddbmm") \
+                else (args[0], args[1])
+            ta = self.tags.get(a, (frozenset(),) * a.dim())
+            tb = self.tags.get(b, (frozenset(),) * b.dim())
+            contracted = ta[-1] | tb[-2]
+            if contracted:
+                g = math.prod(self.sizes[ax] for ax in contracted)
+                self.stats.add_collective(
+                    "all-reduce", _nbytes(out) * g / self.n, g, _type(out))
+                return
+            new = ta[:-1] + (tb[-1],) if a.dim() == 2 else \
+                (ta[0] | tb[0], ta[1], tb[2])
+        elif xt is None:
+            new = None
+        elif name in ("detach", "alias", "_to_copy", "clone", "slice",
+                      "narrow", "split", "split_with_sizes"):
+            new = xt
+        elif name in ("view", "_unsafe_view", "_reshape_alias"):
+            new = _reshape_tags(xt, tuple(x.shape), tuple(out.shape))
+        elif name == "permute":
+            new = tuple(xt[d % x.dim()] for d in args[1])
+        elif name in ("transpose", "t"):
+            d0, d1 = (args[1] % x.dim(), args[2] % x.dim()) \
+                if name == "transpose" else (0, x.dim() - 1)
+            lst = list(xt)
+            lst[d0], lst[d1] = lst[d1], lst[d0]
+            new = tuple(lst)
+        elif name in ("expand", "repeat"):
+            new = (frozenset(),) * (out.dim() - x.dim()) + xt
+        elif name == "unsqueeze":
+            d = args[1] % out.dim()
+            new = xt[:d] + (frozenset(),) + xt[d:]
+        elif name in ("select", "unbind"):
+            d = (args[1] if len(args) > 1 else 0) % x.dim()
+            new = xt[:d] + xt[d + 1:]
+        elif name == "squeeze":
+            dims = range(x.dim()) if len(args) < 2 else \
+                ([args[1]] if isinstance(args[1], int) else args[1])
+            drop = {d % x.dim() for d in dims if x.shape[d] == 1}
+            new = tuple(t for d, t in enumerate(xt) if d not in drop)
+        if new is None or not any(new):
+            return
+        for t in outs:
+            if t.dim() == len(new):
+                self.tags[t] = new
+
+
+_PRODUCT_NAMES = {"mm", "addmm", "bmm", "baddbmm"}
+
+
+# ---------------------------------------------------------------------------
+# analyze
+# ---------------------------------------------------------------------------
+
+
+def _sanitize(spec, t, sizes):
+    """The spec with the axes dropped that do not divide their dimension
+    (``train.step.sanitize_specs``' rule), as a tuple of axis tuples."""
+    out = []
+    for i in range(t.dim()):
+        entry = spec[i] if spec is not None and i < len(spec) else None
+        axes = tuple(a for a in entry_axes(entry) if a in sizes)
+        g = math.prod(sizes[a] for a in axes)
+        out.append(axes if g > 0 and t.shape[i] % g == 0 else ())
+    return out
+
+
+def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
+            params=None, target: str = "cuda") -> StepStats:
+    """Run ``fn(*args)`` under the counting mode and return its
+    :class:`StepStats`, per device of a mesh of ``n_devices``.
+
+    ``mesh`` (a ``core.staging.Mesh``) names the axes and sizes the
+    ``specs`` refer to: ``specs`` is a tuple of spec trees, one per
+    argument (``None``: replicated); ``params`` is the tree of parameter
+    tensors among the arguments, whose gradient reductions and FSDP
+    gathers are derived from their specs (for a train step,
+    ``state["params"]``). ``target`` is "cuda" or "cpu": the device whose
+    routes ``meta`` tensors take. The arguments are usually ``meta``
+    tensors; on real tensors the step runs for real (and updates a train
+    state in place), and the count is the same."""
+    if target not in ("cuda", "cpu"):
+        raise ValueError(f"analyze: target must be 'cuda' or 'cpu', got "
+                         f"{target!r}")
+    sizes = dict(zip(mesh.axis_names, (int(s) for s in mesh.sizes))) \
+        if mesh is not None else {}
+    n = max(int(n_devices), 1)
+    if sizes and math.prod(sizes.values()) != n:
+        raise ValueError(f"analyze: the mesh {sizes} has "
+                         f"{math.prod(sizes.values())} devices, not "
+                         f"n_devices={n}")
+    specs = tuple(specs) if specs is not None else (None,) * len(args)
+    if len(specs) != len(args):
+        raise ValueError(f"analyze: {len(specs)} spec trees for "
+                         f"{len(args)} arguments")
+    state, leaves, arg_bytes = {}, {}, 0.0
+    for spec_tree, arg in zip(specs, args):
+        for t, spec in _pairs(spec_tree, arg):
+            axes = _sanitize(spec, t, sizes)
+            shards = math.prod(sizes[a] for e in axes for a in e)
+            k = _key(t)
+            if k not in state:
+                arg_bytes += _nbytes(t) / shards
+            state[k] = shards
+            leaves[k] = (t, axes)
+    param_keys = {_key(t) for t in _tensors(params)} if params is not None \
+        else set()
+    missing = param_keys - set(leaves)
+    if missing:
+        raise ValueError("analyze: params must be tensors among the "
+                         "arguments")
+    run = _Run(n, sizes, target, state, {k: leaves[k] for k in param_keys})
+    run.stats.argument_bytes = arg_bytes
+    for k, (t, axes) in run.params.items():
+        tp = tuple(frozenset(a for a in e if a == MODEL_AXIS) for e in axes)
+        if any(tp):
+            run.tags[t] = tp
+    _RUNS.append(run)
+    try:
+        with run:
+            fn(*args)
+    finally:
+        _RUNS.pop()
+    run._prune()
+    st = run.stats
+    # 1. compat's explicit collectives were recorded as they ran
+    # 2. the parameters' gathers and gradient reductions
+    batch_axes = [a for a in sizes if a != MODEL_AXIS]
+    for k, (t, axes) in run.params.items():
+        used = [a for e in axes for a in e]
+        shard = _nbytes(t) / math.prod(sizes[a] for a in used)
+        fsdp = [a for a in used if a in batch_axes]
+        g_f = math.prod(sizes[a] for a in fsdp)
+        label = _type(t)
+        if g_f > 1:
+            gathers = (k in run.read_fwd) + (k in run.read_bwd)
+            if gathers:
+                st.add_collective("all-gather", shard * g_f, g_f, label,
+                                  times=gathers)
+            if run.backward_ran:
+                st.add_collective("reduce-scatter", shard, g_f, label)
+        repl = [a for a in sizes if a not in used and sizes[a] > 1]
+        g_r = math.prod(sizes[a] for a in repl)
+        if run.backward_ran and g_r > 1:
+            st.add_collective("all-reduce", shard, g_r, label)
+    return st

@@ -18,7 +18,10 @@ contract (``flash_fwd_plain``, ``flash_bwd_dq_plain``,
 ``flash_bwd_dkv_plain``). A wrapper takes the plain version **only for CPU
 tensors**; for CUDA tensors it launches the kernel on the current stream or
 raises — no library attention stands in for it. Each wrapper counts its
-launches in :data:`LAUNCHES`.
+launches in :data:`LAUNCHES`. On ``meta`` tensors a wrapper returns
+outputs of the right shape and dtype and launches nothing; on every device
+it records its launch's :func:`work` in a running
+``core.step_analysis.analyze`` (and nothing inside it is counted again).
 
 ``_FlashCore`` (a ``torch.autograd.Function``) takes the place of the
 reference's ``jax.custom_vjp``: its forward saves ``(qf, kf, vf, kvm, out,
@@ -38,6 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import step_analysis
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -84,6 +88,35 @@ def _probe(g: int, sq: int, sk: int, bq: int, bk: int, causal: bool, device):
     trips = torch.clamp((qb * bq + bq - 1) // bk + 1, max=n_k) if causal \
         else torch.full_like(qb, n_k)
     return trips.to(torch.int32)[None, :].expand(g, n_q).contiguous()
+
+
+# products a (query, key) pair costs in each kernel: forward q.k and p.v;
+# dQ q.k, dO.v and ds.k; dK/dV those two plus p.dO and ds.q
+_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+
+
+def work(op: str, g: int, sq: int, sk: int, d: int, elt: int,
+         causal: bool = True):
+    """(FLOPs, bytes) of one launch of ``op`` ("flash_fwd", "flash_bwd_dq"
+    or "flash_bwd_dkv") on G groups of Sq queries and Sk keys of head_dim
+    D, operands of ``elt`` bytes: the products of the (query, key) pairs
+    the input needs, the causal triangle's Sq(Sq+1)/2 a group or, without
+    the causal term, the whole Sq x Sk rectangle, each 2*D operations a
+    pair; and the bytes of its inputs and outputs once (q, k, v, dO, out,
+    dq, dk, dv in the operands' type; kvm, lse, delta, probe as a 4-byte
+    row vector each, 8 for float64)."""
+    pairs = sq * (sq + 1) / 2 if causal else sq * sk
+    vec = 8 if elt == 8 else 4
+    q_mat, k_mat = g * sq * d * elt, g * sk * d * elt  # one (G,S,D) operand
+    q_vec, k_vec = g * sq * vec, g * sk * vec          # one row vector
+    nbytes = {
+        # q k v | out | kvm, lse, probe
+        "flash_fwd": 2 * q_mat + 2 * k_mat + k_vec + 2 * q_vec,
+        # q k v dO | dq | kvm lse delta
+        "flash_bwd_dq": 3 * q_mat + 2 * k_mat + k_vec + 2 * q_vec,
+        # q k v dO | dk dv | kvm lse delta
+        "flash_bwd_dkv": 2 * q_mat + 4 * k_mat + k_vec + 2 * q_vec}[op]
+    return _PRODUCTS[op] * 2 * d * g * pairs, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -206,79 +239,96 @@ def _check_launchable(what: str, *tensors):
                              f"{tuple(t.shape)}, strides {t.stride()})")
 
 
-def _device_kind(what: str, t) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {t.device}")
-    return t.device.type
-
-
 def _geometry(qf, kf, bq: int, bk: int):
     g, sq, d = qf.shape
     sk = kf.shape[1]
     return g, sq, sk, d, sq // bq, sk // bk
 
 
+def _work_scope(op, qf, kf, causal):
+    g, sq, d = qf.shape
+    return step_analysis.kernel(op, work, op, g, sq, kf.shape[1], d,
+                                qf.element_size(), causal)
+
+
 def flash_fwd(qf, kf, vf, kvm, *, causal: bool, bq: int, bk: int):
     """Forward kernel on flat padded operands: qf (G,Sq,D), kf/vf (G,Sk,D),
     kvm (G,Sk) int32, Sq % bq == Sk % bk == 0. Returns ``(out, lse,
     probe)`` as :func:`flash_fwd_plain` does."""
-    if _device_kind("flash_fwd", qf) == "cpu":
-        return flash_fwd_plain(qf, kf, vf, kvm, causal=causal, bq=bq, bk=bk)
-    _check_launchable("flash_fwd", qf, kf, vf, kvm)
-    g, sq, sk, d, n_q, _ = _geometry(qf, kf, bq, bk)
-    lib = build.load("attention")
-    out = torch.empty_like(qf)
-    lse = torch.empty((g, sq), dtype=_acc_dtype(qf.dtype), device=qf.device)
-    probe = torch.empty((g, n_q), dtype=torch.int32, device=qf.device)
-    err = build.launch(lib.repro_flash_fwd, qf.device, qf.data_ptr(),
-                  kf.data_ptr(), vf.data_ptr(), kvm.data_ptr(),
-                  out.data_ptr(), lse.data_ptr(), probe.data_ptr(), g, sq, sk,
-                  d, bq, bk, int(causal), _DTYPE_CODES[qf.dtype])
-    build.raise_on_launch_error(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
-    return out, lse, probe
+    kind = build.device_kind("flash_fwd", qf)
+    with _work_scope("flash_fwd", qf, kf, causal):
+        if kind == "cpu":
+            return flash_fwd_plain(qf, kf, vf, kvm, causal=causal, bq=bq,
+                                   bk=bk)
+        _check_launchable("flash_fwd", qf, kf, vf, kvm)
+        g, sq, sk, d, n_q, _ = _geometry(qf, kf, bq, bk)
+        out = torch.empty_like(qf)
+        lse = torch.empty((g, sq), dtype=_acc_dtype(qf.dtype),
+                          device=qf.device)
+        probe = torch.empty((g, n_q), dtype=torch.int32, device=qf.device)
+        if kind == "meta":
+            return out, lse, probe
+        lib = build.load("attention")
+        err = build.launch(lib.repro_flash_fwd, qf.device, qf.data_ptr(),
+                           kf.data_ptr(), vf.data_ptr(), kvm.data_ptr(),
+                           out.data_ptr(), lse.data_ptr(), probe.data_ptr(),
+                           g, sq, sk, d, bq, bk, int(causal),
+                           _DTYPE_CODES[qf.dtype])
+        build.raise_on_launch_error(err, "flash_fwd")
+        LAUNCHES["flash_fwd"] += 1
+        return out, lse, probe
 
 
 def flash_bwd_dq(qf, kf, vf, kvm, dout, lse, delta, *, causal: bool,
                  bq: int, bk: int):
     """dQ kernel on flat padded operands; ``dout`` in the operands' dtype,
     ``lse`` and ``delta`` (G,Sq) in the accumulator type."""
-    if _device_kind("flash_bwd_dq", qf) == "cpu":
-        return flash_bwd_dq_plain(qf, kf, vf, kvm, dout, lse, delta,
-                                  causal=causal, bq=bq, bk=bk)
-    _check_launchable("flash_bwd_dq", qf, kf, vf, kvm, dout, lse, delta)
-    g, sq, sk, d, _, _ = _geometry(qf, kf, bq, bk)
-    lib = build.load("attention")
-    dq = torch.empty_like(qf)
-    err = build.launch(lib.repro_flash_bwd_dq, qf.device, qf.data_ptr(),
-                  kf.data_ptr(), vf.data_ptr(), kvm.data_ptr(),
-                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dq.data_ptr(), g, sq, sk, d, bq, bk, int(causal),
-                  _DTYPE_CODES[qf.dtype])
-    build.raise_on_launch_error(err, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    kind = build.device_kind("flash_bwd_dq", qf)
+    with _work_scope("flash_bwd_dq", qf, kf, causal):
+        if kind == "cpu":
+            return flash_bwd_dq_plain(qf, kf, vf, kvm, dout, lse, delta,
+                                      causal=causal, bq=bq, bk=bk)
+        _check_launchable("flash_bwd_dq", qf, kf, vf, kvm, dout, lse, delta)
+        g, sq, sk, d, _, _ = _geometry(qf, kf, bq, bk)
+        dq = torch.empty_like(qf)
+        if kind == "meta":
+            return dq
+        lib = build.load("attention")
+        err = build.launch(lib.repro_flash_bwd_dq, qf.device, qf.data_ptr(),
+                           kf.data_ptr(), vf.data_ptr(), kvm.data_ptr(),
+                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dq.data_ptr(), g, sq, sk, d, bq, bk, int(causal),
+                           _DTYPE_CODES[qf.dtype])
+        build.raise_on_launch_error(err, "flash_bwd_dq")
+        LAUNCHES["flash_bwd_dq"] += 1
+        return dq
 
 
 def flash_bwd_dkv(qf, kf, vf, kvm, dout, lse, delta, *, causal: bool,
                   bq: int, bk: int):
     """dK/dV kernel on flat padded operands; returns ``(dk, dv)``."""
-    if _device_kind("flash_bwd_dkv", qf) == "cpu":
-        return flash_bwd_dkv_plain(qf, kf, vf, kvm, dout, lse, delta,
-                                   causal=causal, bq=bq, bk=bk)
-    _check_launchable("flash_bwd_dkv", qf, kf, vf, kvm, dout, lse, delta)
-    g, sq, sk, d, _, _ = _geometry(qf, kf, bq, bk)
-    lib = build.load("attention")
-    dk = torch.empty_like(kf)
-    dv = torch.empty_like(vf)
-    err = build.launch(lib.repro_flash_bwd_dkv, qf.device, qf.data_ptr(),
-                  kf.data_ptr(), vf.data_ptr(), kvm.data_ptr(),
-                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), g, sq, sk, d, bq, bk,
-                  int(causal), _DTYPE_CODES[qf.dtype])
-    build.raise_on_launch_error(err, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    kind = build.device_kind("flash_bwd_dkv", qf)
+    with _work_scope("flash_bwd_dkv", qf, kf, causal):
+        if kind == "cpu":
+            return flash_bwd_dkv_plain(qf, kf, vf, kvm, dout, lse, delta,
+                                       causal=causal, bq=bq, bk=bk)
+        _check_launchable("flash_bwd_dkv", qf, kf, vf, kvm, dout, lse,
+                          delta)
+        g, sq, sk, d, _, _ = _geometry(qf, kf, bq, bk)
+        dk = torch.empty_like(kf)
+        dv = torch.empty_like(vf)
+        if kind == "meta":
+            return dk, dv
+        lib = build.load("attention")
+        err = build.launch(lib.repro_flash_bwd_dkv, qf.device,
+                           qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                           kvm.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                           delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), g,
+                           sq, sk, d, bq, bk, int(causal),
+                           _DTYPE_CODES[qf.dtype])
+        build.raise_on_launch_error(err, "flash_bwd_dkv")
+        LAUNCHES["flash_bwd_dkv"] += 1
+        return dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -18,12 +18,16 @@ their dtype and shape.
 
 The wrapper takes the plain version (:func:`axpy_plain`) **only for CPU
 tensors**; for CUDA tensors it launches the kernel on the current stream or
-raises. It counts its launches in :data:`LAUNCHES`.
+raises. It counts its launches in :data:`LAUNCHES`. On ``meta`` tensors it
+returns an output of the right shape and dtype and launches nothing; on
+every device it records its launch's :func:`work` in a running
+``core.step_analysis.analyze``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import step_analysis
 from repro_torch.core.stripmine import lmul_tile
 from repro_torch.kernels import build
 
@@ -44,6 +48,12 @@ def _alpha_in(alpha, dtype) -> torch.Tensor:
     if isinstance(alpha, torch.Tensor):
         return alpha.detach().to("cpu", dtype).reshape(())
     return torch.tensor(alpha, dtype=dtype)
+
+
+def work(n: int, elt: int):
+    """(FLOPs, bytes) of one launch on n elements of ``elt`` bytes: a
+    multiply and an add each; x and y read once, the output written once."""
+    return 2.0 * n, 3 * n * elt
 
 
 def axpy_plain(alpha, x, y):
@@ -80,18 +90,21 @@ def axpy(alpha, x, y, *, block: int = 64 * 1024, lmul=1):
         raise ValueError(f"axpy: n={n} is not a multiple of its block "
                          f"{block}")
     block = lmul_tile(n, block, lmul)
-    if x.device.type == "cpu":
-        return axpy_plain(alpha, x, y)
-    if x.device.type != "cuda":
-        raise ValueError(f"axpy: unsupported device {x.device}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError(f"axpy: operands must be contiguous (strides "
-                         f"{x.stride()}, {y.stride()})")
-    a = float(_alpha_in(alpha, x.dtype))       # exact in a double
-    lib = build.load("axpy")
-    out = torch.empty_like(x)
-    err = build.launch(lib.repro_axpy, x.device, a, x.data_ptr(),
-                       y.data_ptr(), out.data_ptr(), n, _DTYPE_CODES[x.dtype])
-    build.raise_on_launch_error(err, "axpy")
-    LAUNCHES["axpy"] += 1
-    return out
+    kind = build.device_kind("axpy", x)
+    with step_analysis.kernel("axpy", work, n, x.element_size()):
+        if kind == "cpu":
+            return axpy_plain(alpha, x, y)
+        if not (x.is_contiguous() and y.is_contiguous()):
+            raise ValueError(f"axpy: operands must be contiguous (strides "
+                             f"{x.stride()}, {y.stride()})")
+        if kind == "meta":
+            return torch.empty_like(x)
+        a = float(_alpha_in(alpha, x.dtype))       # exact in a double
+        lib = build.load("axpy")
+        out = torch.empty_like(x)
+        err = build.launch(lib.repro_axpy, x.device, a, x.data_ptr(),
+                           y.data_ptr(), out.data_ptr(), n,
+                           _DTYPE_CODES[x.dtype])
+        build.raise_on_launch_error(err, "axpy")
+        LAUNCHES["axpy"] += 1
+        return out

@@ -26,6 +26,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from repro_torch.core import step_analysis
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -172,9 +174,22 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def device_kind(what: str, t) -> str:
+    """The device type of ``t`` if a wrapper takes it: "cpu" (the plain
+    version), "cuda" (the kernel) or "meta" (outputs, no launch); any
+    other raises ValueError."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return kind
+
+
 def launch(fn, device, *args) -> int:
     """Call a C launcher on ``device``'s current stream; returns its
-    cudaError. The device is switched only when it is not the current one."""
+    cudaError. The device is switched only when it is not the current one.
+    Under ``core.step_analysis.analyze`` a launch outside a wrapper's work
+    count raises."""
+    step_analysis.check_launch(getattr(fn, "__name__", str(fn)))
     if device.index is not None \
             and device.index != torch.cuda.current_device():
         with torch.cuda.device(device):

@@ -21,12 +21,16 @@ result is rounded once, to ``out_dtype`` (default: x's dtype).
 The wrapper takes the plain version (:func:`conv2d_plain`, the same
 shifted-tap sum written as tensor slices — not ``F.conv2d``) **only for CPU
 tensors**; for CUDA tensors it launches the kernel on the current stream or
-raises. It counts its launches in :data:`LAUNCHES`.
+raises. It counts its launches in :data:`LAUNCHES`. On ``meta`` tensors it
+returns an output of the right shape and dtype and launches nothing; on
+every device it records its launch's :func:`work` in a running
+``core.step_analysis.analyze``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import step_analysis
 from repro_torch.core.precision import torch_dtype
 from repro_torch.kernels import build
 
@@ -44,6 +48,16 @@ def reset_launches() -> None:
 
 def _acc_dtype(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def work(c: int, h: int, w: int, oc: int, kh: int, kw: int, elt: int,
+         out_elt: int):
+    """(FLOPs, bytes) of one launch, x (C,H,W) and w (OC,C,KH,KW) of
+    ``elt`` bytes, VALID: 2*OC*C*KH*KW*H_out*W_out operations; x and w
+    read once, the output (``out_elt``) written once."""
+    ho, wo = h - kh + 1, w - kw + 1
+    return (2.0 * oc * c * kh * kw * ho * wo,
+            (c * h * w + oc * c * kh * kw) * elt + oc * ho * wo * out_elt)
 
 
 def conv2d_plain(x, w, *, out_dtype=None):
@@ -112,10 +126,17 @@ def conv2d_direct(x, w, *, out_dtype=None):
     if x.device != w.device:
         raise ValueError(f"conv2d_direct: operands on different devices "
                          f"({x.device}, {w.device})")
-    if x.device.type == "cpu":
-        return conv2d_plain(x, w, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv2d_direct: unsupported device {x.device}")
+    kind = build.device_kind("conv2d_direct", x)
+    with step_analysis.kernel("conv2d_direct", work, c, h, wid, oc, kh, kw,
+                              x.element_size(), out_dtype.itemsize):
+        if kind == "cpu":
+            return conv2d_plain(x, w, out_dtype=out_dtype)
+        return _launch(x, w, out_dtype)
+
+
+def _launch(x, w, out_dtype):
+    c, h, wid = x.shape
+    oc, _, kh, kw = w.shape
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"conv2d_direct: operands must be contiguous "
                          f"(strides {x.stride()}, {w.stride()})")
@@ -123,6 +144,9 @@ def conv2d_direct(x, w, *, out_dtype=None):
     if oc > 65535:
         raise ValueError(f"conv2d_direct: {oc} output channels exceed the "
                          f"kernel's grid (65535)")
+    if x.device.type == "meta":
+        return torch.empty((oc, h_out, w_out), dtype=out_dtype,
+                           device=x.device)
     lib = build.load("conv")
     # the source's own rule decides how many rows fit a block
     if lib.repro_conv2d_rows(c, h, wid, kh, kw, _DTYPE_CODES[x.dtype]) < 1:

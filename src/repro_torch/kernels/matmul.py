@@ -25,12 +25,16 @@ Each wrapper:
   current stream, without synchronising, or raises; no library routine
   stands in for it;
 - counts its launches in :data:`LAUNCHES` (one per kernel launch, nowhere
-  else), so a run can show that its path went through the kernel.
+  else), so a run can show that its path went through the kernel;
+- on ``meta`` tensors returns an output of the right shape and dtype and
+  launches nothing; on every device records its launch's :func:`work` in a
+  running ``core.step_analysis.analyze``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import step_analysis
 from repro_torch.core.precision import torch_dtype
 from repro_torch.core.stripmine import lmul_tile
 from repro_torch.kernels import build
@@ -48,6 +52,13 @@ ROUTES_INT8 = ("skinny_imma", "tiled_imma")
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def work(m: int, k: int, n: int, elt: int, out_elt: int):
+    """(FLOPs, bytes) of one (m,k) @ (k,n) launch: 2*m*k*n operations;
+    both operands (``elt`` bytes an element) read once and the output
+    (``out_elt``) written once."""
+    return 2.0 * m * k * n, (m * k + k * n) * elt + m * n * out_elt
 
 
 def _check_blocks(m: int, k: int, n: int, bm: int, bn: int, bk: int, lmul):
@@ -153,19 +164,22 @@ def matmul(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
     m, k = a.shape
     n = b.shape[1]
     _check_blocks(m, k, n, bm, bn, bk, lmul)
-    if a.device.type == "cpu":
-        return matmul_plain(a, b, out_dtype=out_dtype)
-    if a.device.type != "cuda":
-        raise ValueError(f"matmul: unsupported device {a.device}")
-    lib = build.load("matmul")
-    _check_launchable(lib, a, b, _FLOAT_CODES[a.dtype], "matmul")
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    err = build.launch(lib.repro_matmul, a.device, a.data_ptr(), b.data_ptr(),
-                  out.data_ptr(), m, k, n, _FLOAT_CODES[a.dtype],
-                  _FLOAT_CODES[out_dtype])
-    build.raise_on_launch_error(err, "matmul")
-    LAUNCHES["matmul"] += 1
-    return out
+    kind = build.device_kind("matmul", a)
+    with step_analysis.kernel("matmul", work, m, k, n, a.element_size(),
+                              out_dtype.itemsize):
+        if kind == "cpu":
+            return matmul_plain(a, b, out_dtype=out_dtype)
+        if kind == "meta":
+            return torch.empty((m, n), dtype=out_dtype, device=a.device)
+        lib = build.load("matmul")
+        _check_launchable(lib, a, b, _FLOAT_CODES[a.dtype], "matmul")
+        out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+        err = build.launch(lib.repro_matmul, a.device, a.data_ptr(),
+                           b.data_ptr(), out.data_ptr(), m, k, n,
+                           _FLOAT_CODES[a.dtype], _FLOAT_CODES[out_dtype])
+        build.raise_on_launch_error(err, "matmul")
+        LAUNCHES["matmul"] += 1
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -225,16 +239,19 @@ def matmul_int8(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
     m, k = a.shape
     n = b.shape[1]
     _check_blocks(m, k, n, bm, bn, bk, lmul)
-    if a.device.type == "cpu":
-        return matmul_int8_plain(a, b, out_dtype=out_dtype, shift=shift)
-    if a.device.type != "cuda":
-        raise ValueError(f"matmul_int8: unsupported device {a.device}")
-    lib = build.load("matmul")
-    _check_launchable(lib, a, b, _INT8_CODE, "matmul_int8")
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    err = build.launch(lib.repro_matmul_int8, a.device, a.data_ptr(),
-                  b.data_ptr(), out.data_ptr(), m, k, n, shift,
-                  int(out_dtype == torch.int8))
-    build.raise_on_launch_error(err, "matmul_int8")
-    LAUNCHES["matmul_int8"] += 1
-    return out
+    kind = build.device_kind("matmul_int8", a)
+    with step_analysis.kernel("matmul_int8", work, m, k, n, 1,
+                              out_dtype.itemsize):
+        if kind == "cpu":
+            return matmul_int8_plain(a, b, out_dtype=out_dtype, shift=shift)
+        if kind == "meta":
+            return torch.empty((m, n), dtype=out_dtype, device=a.device)
+        lib = build.load("matmul")
+        _check_launchable(lib, a, b, _INT8_CODE, "matmul_int8")
+        out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+        err = build.launch(lib.repro_matmul_int8, a.device, a.data_ptr(),
+                           b.data_ptr(), out.data_ptr(), m, k, n, shift,
+                           int(out_dtype == torch.int8))
+        build.raise_on_launch_error(err, "matmul_int8")
+        LAUNCHES["matmul_int8"] += 1
+        return out

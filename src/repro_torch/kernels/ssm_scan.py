@@ -27,12 +27,16 @@ type. Forward only: the reference has no backward for this kernel.
 The wrapper takes the plain version (:func:`ssm_scan_plain`, the same
 chunked form with the chunks in order) **only for CPU tensors**; for CUDA
 tensors it launches the kernel on the current stream or raises. It counts
-its launches in :data:`LAUNCHES`.
+its launches in :data:`LAUNCHES`. On ``meta`` tensors it returns an output
+of the right shape and dtype and launches nothing; on every device it
+records its launch's :func:`work` in a running
+``core.step_analysis.analyze``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import step_analysis
 from repro_torch.kernels import build
 
 # launches of the kernel since import (or since reset_launches())
@@ -50,6 +54,18 @@ def reset_launches() -> None:
 
 def _acc_dtype(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def work(bh: int, s: int, n: int, p: int, chunk: int, elt: int):
+    """(FLOPs, bytes) of one launch: the products the causal chunked form
+    needs, per (bh, chunk of c) q.k^T and w.v over the c(c+1)/2 causal
+    pairs and q.state and the state update over c x N x P, 2 operations a
+    multiply-add; q, k, v and y (``elt`` bytes) and log_decay and scale
+    (float32) read or written once."""
+    pairs = chunk * (chunk + 1) / 2
+    per_chunk = 2 * pairs * (n + p) + 4 * chunk * n * p
+    return (bh * (s // chunk) * per_chunk,
+            bh * s * (2 * n + 2 * p) * elt + 2 * bh * s * 4)
 
 
 def _contract(q, k, v, log_decay, scale, chunk):
@@ -158,10 +174,16 @@ def ssm_scan(q, k, v, log_decay, scale, *, chunk: int = 128):
     y (BH, S, P) in v's dtype. float32 state; matches
     models/ssm.chunked_linear_attention (with no initial state)."""
     chunk = _contract(q, k, v, log_decay, scale, chunk)
-    if q.device.type == "cpu":
-        return ssm_scan_plain(q, k, v, log_decay, scale, chunk=chunk)
-    if q.device.type != "cuda":
-        raise ValueError(f"ssm_scan: unsupported device {q.device}")
+    kind = build.device_kind("ssm_scan", q)
+    bh, s, n = q.shape
+    with step_analysis.kernel("ssm_scan", work, bh, s, n, v.shape[-1],
+                              chunk, v.element_size()):
+        if kind == "cpu":
+            return ssm_scan_plain(q, k, v, log_decay, scale, chunk=chunk)
+        return _launch(q, k, v, log_decay, scale, chunk)
+
+
+def _launch(q, k, v, log_decay, scale, chunk):
     acc_t = _acc_dtype(v.dtype)
     ld = log_decay.to(acc_t).contiguous()
     sc = scale.to(acc_t).contiguous()
@@ -178,6 +200,8 @@ def ssm_scan(q, k, v, log_decay, scale, *, chunk: int = 128):
     if bh > _MAX_BH:
         raise ValueError(f"ssm_scan: BH={bh} exceeds the kernel's grid "
                          f"({_MAX_BH})")
+    if q.device.type == "meta":
+        return torch.empty_like(v)
     lib = build.load("ssm_scan")
     # the source's own layout decides what fits a block (the chunk sets it)
     need = lib.repro_ssm_scan_smem_bytes(n, p_dim, chunk,

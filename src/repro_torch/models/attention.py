@@ -45,7 +45,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import compat
+from repro_torch.core import compat, step_analysis
 from repro_torch.core.compat import PartitionSpec as PS
 from repro_torch.models.layers import (P, apply_rope, repeat_kv, rms_norm,
                                        rotary_embedding, widen)
@@ -71,7 +71,10 @@ def flash_route_enabled(mode: str = "auto", device=None) -> bool:
     ``REPRO_FLASH_ATTENTION`` env var (1/0) overrides. "auto" means kernel
     on the accelerator: True when ``device`` (where the operands lie) is a
     CUDA device, False on the CPU, where the kernel's plain version would
-    only repeat the blockwise branches' arithmetic."""
+    only repeat the blockwise branches' arithmetic. A ``meta`` device takes
+    the route of the device that a running ``core.step_analysis.analyze``
+    counts for (its ``target``), so a count on ``meta`` is the count of
+    that device's step."""
     env = os.environ.get("REPRO_FLASH_ATTENTION", "").strip().lower()
     if env in ("1", "on", "true"):
         return True
@@ -81,7 +84,12 @@ def flash_route_enabled(mode: str = "auto", device=None) -> bool:
         return True
     if mode == "off":
         return False
-    return device is not None and torch.device(device).type == "cuda"
+    if device is None:
+        return False
+    kind = torch.device(device).type
+    if kind == "meta":
+        kind = step_analysis.target()
+    return kind == "cuda"
 
 
 # the reference's jax.checkpoint policies, by the matrix products whose

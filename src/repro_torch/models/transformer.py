@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 from torch.utils import checkpoint as _ckpt
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.precision import torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
@@ -554,3 +554,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         for key in ("attn_k", "attn_v"):
             c[key] = zeros((n_groups, batch) + kv_shape)
     return c
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, device="meta") -> dict:
+    """Stand-ins for every model input of this cell (int32 tokens, float32
+    frontend embeddings; for decode, one new token against a cache of the
+    cell's length), on ``meta`` by default: the reference's
+    ``ShapeDtypeStruct`` tree."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok(*sh):
+        return torch.zeros(sh, dtype=torch.int32, device=device)
+    front = {}
+    if cfg.frontend_seq:
+        front["frontend_emb"] = torch.zeros(
+            (b, cfg.frontend_seq, cfg.frontend_dim or cfg.d_model),
+            dtype=torch.float32, device=device)
+    if shape.kind == "train":
+        return {"tokens": tok(b, s), "labels": tok(b, s), **front}
+    if shape.kind == "prefill":
+        return {"tokens": tok(b, s), **front}
+    return {"tokens": tok(b, 1),
+            "cache": init_cache(cfg, b, s, device=device), **front}

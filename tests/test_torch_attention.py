@@ -387,15 +387,26 @@ def test_bad_shapes_raise_valueerror_naming_shapes():
                                                            dtype=torch.bool))
 
 
-def test_kernel_wrappers_refuse_what_the_kernel_cannot_take():
+def test_kernel_wrappers_refuse_what_the_kernel_cannot_take(monkeypatch):
     """What the CUDA kernel does not take raises ValueError before any
-    launch (checked here on meta tensors: no card is needed to refuse)."""
+    launch (checked here on meta tensors: no card is needed to refuse); on
+    meta what it takes returns outputs of their shapes and dtypes, without
+    loading the library or launching (a device that is neither the CPU,
+    CUDA nor meta: tests/test_torch_kernels.py)."""
+    def no_load(name):
+        raise AssertionError("the library was loaded")
+    monkeypatch.setattr(tka.build, "load", no_load)
+    tka.reset_launches()
     meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
                                                     device="meta")
     kvm = meta(2, 16, dt=torch.int32)
-    with pytest.raises(ValueError, match="unsupported device"):
-        tka.flash_fwd(meta(2, 16, 8), meta(2, 16, 8), meta(2, 16, 8), kvm,
-                      causal=True, bq=8, bk=8)
+    out, lse, probe = tka.flash_fwd(meta(2, 16, 8), meta(2, 16, 8),
+                                    meta(2, 16, 8), kvm, causal=True, bq=8,
+                                    bk=8)
+    assert [(t.device.type, tuple(t.shape), t.dtype) for t in
+            (out, lse, probe)] == [("meta", (2, 16, 8), torch.float32),
+                                   ("meta", (2, 16), torch.float32),
+                                   ("meta", (2, 2), torch.int32)]
     bad = [(meta(2, 16, 8, dt=torch.int32),) * 3 + (kvm,),
            (meta(2, 16, 8), meta(2, 16, 8, dt=torch.float16),
             meta(2, 16, 8), kvm),
@@ -404,7 +415,11 @@ def test_kernel_wrappers_refuse_what_the_kernel_cannot_take():
     for args in bad:
         with pytest.raises(ValueError):
             tka._check_launchable("flash_fwd", *args)
+        with pytest.raises(ValueError):
+            tka.flash_fwd(*args, causal=True, bq=8, bk=8)
     tka._check_launchable("flash_fwd", *(meta(2, 16, 128),) * 3, kvm)
+    assert tka.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}
 
 
 def test_policy_block_knobs_flow_through():

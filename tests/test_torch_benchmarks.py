@@ -330,15 +330,25 @@ def test_kernel_bench_operands_are_the_reference_draws():
         assert torch.equal(t, want)
 
 
-def test_run_harness_fig6_and_the_a13_skip_line():
+def test_run_harness_fig6_and_the_a13_skip_line(tmp_path):
+    """The harness's figure rows, then one ``dryrun_roofline`` row per
+    report of the port's dry run, as the reference prints its dry-run
+    farm's."""
+    assert _run("-m", "repro_torch.launch.dryrun", "--arch",
+                "tinyllama-1.1b", "--shape", "decode_32k", "--out",
+                tmp_path).returncode == 0
     res = _run("-m", "benchmarks.torch_run", "--only", "fig6_kernels",
-               "--device", "cpu")
+               "--device", "cpu", "--dryrun-dir", tmp_path)
     assert res.returncode == 0, res.stderr[-2000:]
     out = res.stdout.splitlines()
     assert sum(ln.startswith("fig6_kernels,") for ln in out) == 12
     assert any(ln.startswith("# fig6_kernels done in") for ln in out)
-    assert any(ln.startswith("# dryrun_roofline skipped:") and "A13b" in ln
-               for ln in out)
+    rows = [ln for ln in out if ln.startswith("dryrun_roofline,")]
+    assert len(rows) == 1 and rows[0].startswith(
+        "dryrun_roofline,arch=tinyllama-1.1b,shape=decode_32k,"
+        "mesh=pod16x16,compute_s=")
+    assert "bottleneck=memory" in rows[0]
+    assert out[-1] == "# dryrun_roofline done"
 
 
 def test_run_harness_exits_1_when_a_module_fails():

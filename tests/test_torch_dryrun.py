@@ -1,0 +1,645 @@
+"""PyTorch port, the dry-run roofline against the reference's, on the CPU:
+
+- ``repro_torch.core.step_analysis.analyze`` of a torch step (on ``meta``
+  tensors, ``target="cpu"``: the CPU's routes, as the reference's host
+  devices take) against ``repro.core.hlo_analysis.analyze`` of the compiled
+  step: FLOPs within 1 % on one device for reduced tinyllama-1.1b,
+  granite-moe-3b-a800m, zamba2-7b and deepseek-v3-671b (train, prefill,
+  decode) and per device on the meshes (4,1), (1,4), (2,2); the collective
+  bytes of (4,1) within 1 %, (1,4) and (2,2) within 10 %, and FSDP at (4,1)
+  pinned at its measured ratio (ROADMAP Queue C); the inputs' shard bytes
+  against the compiled programs' ``argument_size_in_bytes``. The reference's
+  side runs in one subprocess on 4 host devices.
+- twins of the reference's own analyzer and roofline tests, the kernels'
+  work counts (counted once on the CPU, the routes' difference exactly the
+  kernels' work less the blockwise products), ``meta`` launches, the
+  collectives' backward counts, ``launch/dryrun.py``, ``launch/report.py``
+  and ``experiments/torch_hillclimb.py``.
+"""
+import dataclasses
+import importlib.util
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import run_devices
+from repro.launch import report as jreport
+from repro_torch.configs import SHAPES, get_config, reduced
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import compat, roofline, step_analysis
+from repro_torch.core.compat import PartitionSpec as PS
+from repro_torch.core.precision import torch_dtype
+from repro_torch.core.step_analysis import analyze
+from repro_torch.kernels import attention as att
+from repro_torch.kernels import axpy as ax
+from repro_torch.kernels import build
+from repro_torch.kernels import conv as cv
+from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import ssm_scan as ss
+from repro_torch.launch import dryrun, report
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (abstract_params, init_params,
+                                       tree_leaves)
+from repro_torch.optim import adamw
+from repro_torch.train import step as step_lib
+
+pytestmark = pytest.mark.torch
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m", "zamba2-7b",
+         "deepseek-v3-671b")
+KINDS = ("train", "prefill", "decode")
+MESHES = {"4x1": (4, 1, False), "1x4": (1, 4, False), "2x2": (2, 2, False),
+          "4x1 fsdp": (4, 1, True)}
+FLOPS_TOL = 0.01
+COLL_TOL = {"4x1": 0.01, "1x4": 0.10, "2x2": 0.10}
+# the port's FSDP collectives (a gather of each sharded parameter in the
+# forward and in the backward that reads it, a reduce-scatter of its
+# gradient: 640,896 + 345,024 bytes) against the reference's partitioner,
+# which gathers parameters for 295,872 and reduces 150,606 but moves
+# 6,336,384 bytes of activations (all-gathers, all-reduces, all-to-alls):
+# 985,920 / 6,782,862 bytes (ROADMAP Queue C)
+FSDP_RATIO = 0.14535
+
+REFERENCE = r'''
+import dataclasses, json
+import jax, jax.numpy as jnp
+from repro.configs import get_config, reduced
+from repro.configs.base import ShapeConfig
+from repro.core.hlo_analysis import analyze
+from repro.launch.mesh import make_mesh
+from repro.models import transformer as tf
+from repro.models.layers import abstract_params
+from repro.models.sharding import MeshCtx
+from repro.optim import adamw
+from repro.train import step as step_lib
+
+
+def compile_cell(cfg, shape, mesh):
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    specs_in = tf.input_specs(cfg, shape)
+    with mesh:
+        if shape.kind == "train":
+            b = step_lib.make_train_step(
+                cfg, adamw.OptConfig(moment_dtype=cfg.opt_state_dtype), ctx)
+            st = step_lib.named_for(b.state_specs, b.abstract_state, mesh)
+            bt = step_lib.named_for(b.batch_specs, specs_in, mesh)
+            low = jax.jit(b.step_fn, in_shardings=(st, bt),
+                          out_shardings=(st, None)).lower(b.abstract_state,
+                                                          specs_in)
+        else:
+            ap = abstract_params(tf.model_template(cfg),
+                                 jnp.dtype(cfg.param_dtype))
+            ps = step_lib.named_for(
+                step_lib.train_state_specs(cfg, ctx)["params"], ap, mesh)
+            if shape.kind == "prefill":
+                fn = step_lib.make_prefill_step(cfg, ctx, shape.seq_len)
+                bs = step_lib.named_for(step_lib.batch_pspecs(
+                    cfg, "prefill", ctx), specs_in, mesh)
+                low = jax.jit(fn, in_shardings=(ps, bs)).lower(ap, specs_in)
+            else:
+                fn = step_lib.make_decode_step(cfg, ctx)
+                cache = specs_in["cache"]
+                batch = {k: v for k, v in specs_in.items() if k != "cache"}
+                cs = step_lib.named_for(step_lib.cache_pspecs(cfg, ctx),
+                                        cache, mesh)
+                bs = step_lib.named_for(step_lib.batch_pspecs(
+                    cfg, "decode", ctx), batch, mesh)
+                low = jax.jit(fn, in_shardings=(ps, cs, bs)).lower(
+                    ap, cache, batch)
+    comp = low.compile()
+    st = analyze(comp.as_text(), n_devices=mesh.devices.size)
+    return {"flops": st.flops, "collective_bytes": st.collective_bytes,
+            "collective_by_kind": dict(st.collective_by_kind),
+            "bytes": st.bytes_accessed,
+            "argument_bytes": comp.memory_analysis().argument_size_in_bytes}
+
+
+out = {}
+for a in %(archs)r:
+    cfg = reduced(get_config(a))
+    for kind in %(kinds)r:
+        out[f"{a} {kind}"] = compile_cell(cfg, ShapeConfig(kind, 64, 2, kind),
+                                          make_mesh(1, 1))
+cfg = reduced(get_config("tinyllama-1.1b"))
+for key, (d, m, fsdp) in %(meshes)r.items():
+    out[key] = compile_cell(dataclasses.replace(cfg, fsdp=fsdp),
+                            ShapeConfig("train", 64, 8, "train"),
+                            make_mesh(d, m))
+print("REF", json.dumps(out))
+''' % {"archs": ARCHS, "kinds": KINDS, "meshes": MESHES}
+
+
+@pytest.fixture(scope="module")
+def ref():
+    out = run_devices(REFERENCE, n_devices=4)
+    line = next(ln for ln in out.splitlines() if ln.startswith("REF "))
+    return json.loads(line[4:])
+
+
+def _cell(key):
+    if key in MESHES:
+        d, m, fsdp = MESHES[key]
+        cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")),
+                                  fsdp=fsdp)
+        return cfg, ShapeConfig("train", 64, 8, "train"), make_mesh(d, m)
+    arch, kind = key.split()
+    return reduced(get_config(arch)), ShapeConfig(kind, 64, 2, kind), \
+        make_mesh(1, 1)
+
+
+def _count(key, target="cpu"):
+    """The port's count of the reference's cell ``key``: the dry run's own
+    ``count_step``, with the host's routes."""
+    cfg, shape, mesh = _cell(key)
+    return dryrun.count_step(cfg, shape, mesh, target=target)
+
+
+ONE = [f"{a} {k}" for a in ARCHS for k in KINDS]
+
+
+# ---------------------------------------------------------------------------
+# the count against the reference's hlo_analysis
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("key", ONE + list(MESHES))
+def test_flops_per_device_match_the_reference(ref, key):
+    got, want = _count(key).flops, ref[key]["flops"]
+    assert abs(got / want - 1) <= FLOPS_TOL, (key, got, want)
+
+
+@pytest.mark.parametrize("key", list(MESHES))
+def test_collective_bytes_match_the_reference(ref, key):
+    st = _count(key)
+    want = ref[key]["collective_bytes"]
+    ratio = st.collective_bytes / want
+    if key in COLL_TOL:
+        assert abs(ratio - 1) <= COLL_TOL[key], (key, st.collective_bytes,
+                                                 want)
+    else:
+        assert abs(ratio - FSDP_RATIO) < 5e-5, (key, st.collective_bytes,
+                                                want, ratio)
+        assert set(st.collective_by_kind) == {"all-gather",
+                                              "reduce-scatter"}
+        assert set(ref[key]["collective_by_kind"]) == {
+            "all-gather", "all-reduce", "all-to-all"}
+
+
+def test_an_fsdp_parameter_is_gathered_again_for_the_backward():
+    """A parameter sharded over a batch axis is gathered in the forward
+    and again in the backward that reads it (dX = dY W^T), whether or not
+    the backward recomputes the forward; its gradient is reduce-scattered
+    once."""
+    w = torch.empty((64, 32), device="meta", requires_grad=True)
+    x = torch.empty((16, 64), device="meta", requires_grad=True)
+
+    def step(w, x):
+        (x @ w).sum().backward()
+    st = analyze(step, w, x, n_devices=4, mesh=make_mesh(4, 1),
+                 specs=(PS("data", None), PS("data", None)), params=w)
+    full = 64 * 32 * 4
+    assert st.collective_count == 3
+    assert dict(st.collective_by_kind) == {
+        "all-gather": 2 * full * 3 / 4, "reduce-scatter": full / 4 * 3}
+    # the forward alone gathers once and reduces nothing
+    st = analyze(lambda w, x: x @ w, w, x, n_devices=4, mesh=make_mesh(4, 1),
+                 specs=(PS("data", None), PS("data", None)), params=w)
+    assert dict(st.collective_by_kind) == {"all-gather": full * 3 / 4}
+
+
+# the port's eager bytes over the reference's fused count, by kind: the
+# train steps' elementwise chains run unfused here; the reference's decode
+# returns a copy of its whole (undonated) cache (measured on these cells:
+# train 1.015-1.831, prefill 0.888-1.145, decode 0.181-0.494)
+BYTES_RATIO = {"train": (1.0, 2.0), "prefill": (0.85, 1.2),
+               "decode": (0.15, 0.55)}
+
+
+@pytest.mark.parametrize("key", ONE)
+def test_bytes_differ_from_the_references_as_stated(ref, key):
+    lo, hi = BYTES_RATIO[key.split()[1]]
+    ratio = _count(key).bytes_accessed / ref[key]["bytes"]
+    assert lo <= ratio <= hi, (key, ratio)
+
+
+@pytest.mark.parametrize("key", ONE + list(MESHES))
+def test_argument_bytes_match_the_reference(ref, key):
+    """Equal, except where the reference's ``jax.jit`` drops arguments the
+    step never reads (``keep_unused=False``): deepseek-v3-671b's
+    multi-token-prediction module in prefill and decode. The port counts
+    every input it is given."""
+    got, want = _count(key).argument_bytes, ref[key]["argument_bytes"]
+    cfg, shape, _ = _cell(key)
+    if cfg.mtp_depth and shape.kind != "train":
+        tmpl = tf.model_template(cfg)["mtp"]
+        unread = sum(p.numel() * p.element_size() for p in
+                     tree_leaves(abstract_params(
+                         tmpl, torch_dtype(cfg.param_dtype))))
+        assert got - want == unread, (key, got, want, unread)
+    else:
+        assert got == want, (key, got, want)
+
+
+# ---------------------------------------------------------------------------
+# twins of the reference's tests/test_distribution.py analyzer tests
+# ---------------------------------------------------------------------------
+
+
+def test_analyzer_counts_every_trip_of_a_loop():
+    """Twin of ``test_hlo_analyzer_counts_while_trip``: 8 products of
+    64^3 in a loop count 8 * 2 * 64^3 (the port sees every trip)."""
+    def scanned(x, w):
+        for i in range(w.shape[0]):
+            x = x @ w[i]
+        return x
+    st = analyze(scanned, torch.empty((64, 64), device="meta"),
+                 torch.empty((8, 64, 64), device="meta"))
+    assert st.flops == 8 * 2 * 64 ** 3
+    assert dict(st.dot_flops_by_shape) == {"float32[64, 64]": st.flops}
+
+
+def test_analyzer_counts_the_collective_of_a_sharded_product():
+    """Twin of ``test_hlo_analyzer_collectives``: on a (1, 4) mesh, a
+    product over a dimension sharded on ``model`` ends in an all-reduce of
+    its result (the ring model's 2 R (g-1)/g, R the result a device)."""
+    a = torch.empty((64, 64), device="meta")
+    st = analyze(lambda a: a @ a.t(), a, n_devices=4, mesh=make_mesh(1, 4),
+                 specs=(PS(None, "model"),), params=a)
+    r = 64 * 64 * 4                       # one device's (replicated) result
+    assert st.collective_bytes == 2 * r * 3 / 4 > 0
+    assert dict(st.collective_by_kind) == {"all-reduce": st.collective_bytes}
+    assert st.collective_count == 1
+    # rows sharded instead: the product is local, nothing moves
+    st = analyze(lambda a: a @ a.t(), a, n_devices=4, mesh=make_mesh(1, 4),
+                 specs=(PS("model", None),), params=a)
+    assert st.collective_bytes == 0 and st.flops == 2 * 64 ** 3 / 4
+
+
+def test_roofline_terms_math():
+    """Twin of the reference's ``test_roofline_terms_math``, on the H100's
+    rates."""
+    cfg = get_config("tinyllama-1.1b")
+    mf = roofline.model_flops(cfg, SHAPES["train_4k"])
+    assert mf == 6.0 * cfg.active_param_count() * 256 * 4096
+    rl = roofline.build(cfg, SHAPES["train_4k"], "test", 256,
+                        step_analysis.StepStats())
+    assert rl.compute_s == 0 and rl.bottleneck in ("compute", "memory",
+                                                   "collective")
+    st = step_analysis.StepStats(flops=989e12, bytes_accessed=3.35e12,
+                                 collective_bytes=450e9)
+    rl = roofline.build(cfg, SHAPES["train_4k"], "test", 256, st)
+    assert (rl.compute_s, rl.memory_s, rl.collective_s) == (1.0, 1.0, 1.0)
+    assert rl.achievable_step_s == 1.0 and rl.useful_ratio == mf / (
+        989e12 * 256) and rl.mfu_bound == mf / (256 * 989e12)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    assert roofline.build(f32, SHAPES["train_4k"], "t", 1,
+                          st).compute_s == 989e12 / 67e12
+
+
+# ---------------------------------------------------------------------------
+# the kernels' work counts
+# ---------------------------------------------------------------------------
+
+
+def _tiny_train(**upd):
+    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")), **upd)
+    opt = adamw.OptConfig(moment_dtype=cfg.opt_state_dtype)
+    return cfg, step_lib.make_train_step(cfg, opt), opt
+
+
+def test_a_kernel_counts_once_on_the_cpu(monkeypatch):
+    """On CPU tensors with the route on, each wrapper's plain version runs
+    and none of its aten operations is counted: the step's count equals
+    the ``meta`` count for the card's route (``target="cuda"``), and each
+    kernel's calls equal its plain version's runs."""
+    cfg, bundle, opt = _tiny_train(attn_flash="on")
+    params = init_params(tf.model_template(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init(opt, params)}
+    rng = np.random.RandomState(0)
+    batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 64))
+                                 .astype(np.int32)) for k in ("tokens",
+                                                              "labels")}
+    runs = {k: 0 for k in att.LAUNCHES}
+    for name in runs:
+        plain = getattr(att, f"{name}_plain")
+
+        def counted(*a, _name=name, _plain=plain, **kw):
+            runs[_name] += 1
+            return _plain(*a, **kw)
+        monkeypatch.setattr(att, f"{name}_plain", counted)
+    on_cpu = analyze(bundle.step_fn, state, batch, params=state["params"])
+    _, meta_bundle, _ = _tiny_train()
+    on_meta = analyze(meta_bundle.step_fn, meta_bundle.abstract_state,
+                      tf.input_specs(cfg, ShapeConfig("t", 64, 2, "train")),
+                      params=meta_bundle.abstract_state["params"],
+                      target="cuda")
+    assert runs == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert {k: v["calls"] for k, v in on_cpu.kernels.items()} == runs
+    assert on_cpu.kernels == on_meta.kernels
+    assert (on_cpu.flops, on_cpu.bytes_accessed) == (on_meta.flops,
+                                                     on_meta.bytes_accessed)
+
+
+def test_the_routes_differ_by_the_kernels_work_less_the_blockwise_products():
+    """target="cuda" takes the kernels where target="cpu" takes the
+    blockwise branches: at S 64 the quadratic one, q.k and p.v forward and
+    their four gradient products, 12 * B * H * S^2 * D a layer."""
+    cfg, bundle, _ = _tiny_train()
+    args = (bundle.abstract_state,
+            tf.input_specs(cfg, ShapeConfig("t", 64, 2, "train")))
+    kw = dict(params=bundle.abstract_state["params"])
+    card = analyze(bundle.step_fn, *args, target="cuda", **kw)
+    host = analyze(bundle.step_fn, *args, target="cpu", **kw)
+    work = sum(k["flops"] for k in card.kernels.values())
+    h, d = cfg.n_heads_padded, cfg.resolved_head_dim
+    blockwise = 12 * 2 * h * 64 ** 2 * d * cfg.n_layers
+    assert host.kernels == {}
+    assert card.flops - host.flops == work - blockwise
+    elt = torch_dtype(cfg.compute_dtype).itemsize
+    assert work == sum(att.work(op, 2 * h, 64, 64, d, elt)[0] * n
+                       for op, n in (("flash_fwd", 2), ("flash_bwd_dq", 2),
+                                     ("flash_bwd_dkv", 2)))
+
+
+def test_attention_work_is_the_bound_formula():
+    """At the train shape (4, 32, 2048, 64) bf16 causal the three kernels
+    do the causal triangle's 6.9e10 / 1.0e11 / 1.4e11 FLOP (PERF.md)."""
+    g, s, d = 4 * 32, 2048, 64
+    pairs = s * (s + 1) / 2
+    for op, n in (("flash_fwd", 2), ("flash_bwd_dq", 3),
+                  ("flash_bwd_dkv", 4)):
+        flops, nbytes = att.work(op, g, s, s, d, 2)
+        assert flops == n * 2 * d * g * pairs
+    assert [f"{att.work(op, g, s, s, d, 2)[0]:.1e}" for op in
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] == [
+                "6.9e+10", "1.0e+11", "1.4e+11"]
+    assert att.work("flash_fwd", 2, 128, 1600, 128, 2, causal=False)[0] \
+        == 2 * 2 * 128 * 2 * 128 * 1600
+
+
+def test_the_wrappers_on_meta_return_shapes_and_record_their_work():
+    meta = dict(device="meta")
+    bf = torch.bfloat16
+    calls = [
+        ("matmul", lambda: mm.matmul(torch.empty((8, 256), dtype=bf, **meta),
+                                     torch.empty((256, 512), dtype=bf, **meta),
+                                     out_dtype=torch.float32),
+         (8, 512), torch.float32, mm.work(8, 256, 512, 2, 4)),
+        ("matmul_int8", lambda: mm.matmul_int8(
+            torch.empty((32, 128), dtype=torch.int8, **meta),
+            torch.empty((128, 256), dtype=torch.int8, **meta)),
+         (32, 256), torch.int32, mm.work(32, 128, 256, 1, 4)),
+        ("axpy", lambda: ax.axpy(2.0, torch.empty(1024, **meta),
+                                 torch.empty(1024, **meta)),
+         (1024,), torch.float32, ax.work(1024, 4)),
+        ("conv2d_direct", lambda: cv.conv2d_direct(
+            torch.empty((3, 118, 118), **meta),
+            torch.empty((64, 3, 7, 7), **meta)),
+         (64, 112, 112), torch.float32, cv.work(3, 118, 118, 64, 7, 7, 4, 4)),
+        ("ssm_scan", lambda: ss.ssm_scan(
+            torch.empty((8, 256, 64), **meta), torch.empty((8, 256, 64),
+                                                           **meta),
+            torch.empty((8, 256, 32), **meta), torch.empty((8, 256), **meta),
+            torch.empty((8, 256), **meta), chunk=128),
+         (8, 256, 32), torch.float32, ss.work(8, 256, 64, 32, 128, 4)),
+    ]
+    for name, call, shape, dtype, (flops, nbytes) in calls:
+        out = call()
+        assert (out.device.type, tuple(out.shape), out.dtype) == (
+            "meta", shape, dtype), name
+        st = analyze(call)
+        assert st.kernels == {name: {"calls": 1, "flops": flops,
+                                     "bytes": nbytes}}, name
+        assert (st.flops, st.bytes_accessed) == (flops, nbytes), name
+    q = torch.empty((1, 2, 128, 64), dtype=bf, **meta)
+    out = att.flash_attention(q, q, q)
+    assert (tuple(out.shape), out.dtype) == ((1, 2, 128, 64), bf)
+
+
+def test_a_launch_outside_a_work_count_raises_under_analyze():
+    def rogue():
+        build.launch(lambda *a: 0, torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="without a work count"):
+        analyze(rogue)
+
+
+def test_the_attention_route_on_meta_follows_the_target():
+    seen = []
+
+    def probe():
+        seen.append(attn_mod.flash_route_enabled("auto", "meta"))
+    assert attn_mod.flash_route_enabled("auto", "meta") is False
+    analyze(probe, target="cuda")
+    analyze(probe, target="cpu")
+    assert seen == [True, False]
+    assert attn_mod.flash_route_enabled("auto", "cpu") is False
+
+
+# ---------------------------------------------------------------------------
+# compat's collectives: their backward counts
+# ---------------------------------------------------------------------------
+
+
+def _plain(kind, x, d, lead, n):
+    """The stacked operation as compat wrote it before it was counted."""
+    if kind == "psum":
+        return x.sum(dim=(d,), keepdim=True).expand(x.shape)
+    if kind == "pmean":
+        return x.mean(dim=(d,), keepdim=True).expand(x.shape)
+    if kind == "pmax":
+        return x.amax(dim=(d,), keepdim=True).expand(x.shape)
+    if kind == "all_gather":
+        return x.movedim(d, lead - 1).unsqueeze(d).expand(
+            x.shape[:lead] + (n,) + x.shape[lead:])
+    if kind == "all_to_all":
+        return x.transpose(d, lead)
+    return torch.roll(x, shifts=1, dims=d)
+
+
+@pytest.mark.parametrize("kind", ("psum", "pmean", "pmax", "all_gather",
+                                  "all_to_all", "ppermute"))
+def test_each_collective_counts_its_backward(kind):
+    """The backward is the real mesh's collective for it, counted under
+    the forward's kind (the reductions' broadcast moves no bytes; the
+    others as many as their forward), and its gradient is the one autograd
+    took through the plain stacked operation, bit for bit."""
+    mesh = make_mesh(2, 4)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(32, 6)).float()     # (4, 6) a device
+    w = torch.from_numpy(rng.randn(*((2, 4, 4, 4, 6) if kind == "all_gather"
+                                     else (2, 4, 4, 6)))).float()
+    call = {"psum": lambda s: compat.psum(s, "model"),
+            "pmean": lambda s: compat.pmean(s, "model"),
+            "pmax": lambda s: compat.pmax(s, "model"),
+            "all_gather": lambda s: compat.all_gather(s, "model"),
+            "all_to_all": lambda s: compat.all_to_all(s, "model", 0, 0),
+            "ppermute": lambda s: compat.ppermute(
+                s, "model", [(i, (i + 1) % 4) for i in range(4)])}[kind]
+    grads = []
+    for plain in (False, True):
+        xs = x.clone().requires_grad_(True)
+
+        def body(s):
+            y = _plain(kind, s, 1, 2, 4) if plain else call(s)
+            return (y * w).sum(dim=tuple(range(2, y.dim())), keepdim=True)
+        compat.reset_counts()
+        out = compat.shard_map(body, mesh=mesh, in_specs=(PS(("data",
+                                                                "model")),),
+                               out_specs=PS(("data", "model")))(xs)
+        out.sum().backward()
+        grads.append(xs.grad)
+        if not plain:
+            fwd = dict(compat.CALLS), dict(compat.BYTES)
+            bwd = dict(compat.CALLS_BWD), dict(compat.BYTES_BWD)
+    assert torch.equal(grads[0], grads[1])
+    assert fwd[0][kind] == 1 and bwd[0] == {kind: 1}
+    want = 0 if kind in ("psum", "pmean", "pmax") else fwd[1][kind]
+    assert bwd[1].get(kind, 0) == want and fwd[1][kind] > 0
+
+
+# ---------------------------------------------------------------------------
+# launch/dryrun.py, launch/report.py, experiments/torch_hillclimb.py
+# ---------------------------------------------------------------------------
+
+
+KEYS = {"arch", "shape", "mesh", "tag", "n_devices", "kind", "trace_s",
+        "memory_analysis", "per_device_state_bytes",
+        "per_device_peak_bytes_est", "fits_h100_80g",
+        "collective_fsdp_undercounted", "roofline",
+        "params_total", "params_active"}
+ROOFLINE_KEYS = {"arch", "shape", "mesh", "n_devices", "compute_s",
+                 "memory_s", "collective_s", "hlo_flops_per_dev",
+                 "hlo_bytes_per_dev", "coll_bytes_per_dev",
+                 "model_flops_total", "useful_ratio", "bottleneck",
+                 "achievable_step_s", "mfu_bound", "detail"}
+
+
+def test_run_cell_counts_a_production_cell_on_meta(tmp_path):
+    r = dryrun.run_cell("tinyllama-1.1b", "decode_32k", False, str(tmp_path))
+    assert set(r) == KEYS and set(r["roofline"]) == ROOFLINE_KEYS
+    assert set(r["memory_analysis"]) == {"argument_size_in_bytes",
+                                         "temp_size_in_bytes"}
+    assert (r["n_devices"], r["mesh"], r["kind"]) == (256, "pod16x16",
+                                                      "decode")
+    assert r["collective_fsdp_undercounted"] is False
+    rl = r["roofline"]
+    assert rl["bottleneck"] == "memory" and rl["compute_s"] > 0
+    assert rl["detail"]["kernels"] == {}        # decode takes no kernel
+    saved = json.loads((tmp_path /
+                        "tinyllama-1.1b_decode_32k_pod16x16.json").read_text())
+    assert saved["roofline"]["hlo_flops_per_dev"] == rl["hlo_flops_per_dev"]
+
+
+def test_cell_config_takes_the_prefill_profile_then_the_overrides():
+    """As the reference's run_cell: FSDP off for prefill (stationary
+    weights at serve time), kept for decode and train; overrides last."""
+    ds = get_config("deepseek-v3-671b")
+    assert ds.fsdp
+    assert dryrun.cell_config(ds, SHAPES["prefill_32k"]).fsdp is False
+    assert dryrun.cell_config(ds, SHAPES["decode_32k"]).fsdp is True
+    assert dryrun.cell_config(ds, SHAPES["train_4k"]).fsdp is True
+    assert dryrun.cell_config(ds, SHAPES["prefill_32k"],
+                              {"fsdp": True}).fsdp is True
+
+
+def test_dryrun_cli_needs_no_card(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "tinyllama-1.1b", "--shape", "train_4k", "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=600, cwd=REPO)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("OK   tinyllama-1.1b")
+    r = json.loads((tmp_path /
+                    "tinyllama-1.1b_train_4k_pod16x16.json").read_text())
+    cfg = get_config("tinyllama-1.1b")
+    kernels = r["roofline"]["detail"]["kernels"]
+    # the card's route: full remat runs the forward kernel twice a layer
+    assert {k: v["calls"] for k, v in kernels.items()} == {
+        "flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+        "flash_bwd_dkv": cfg.n_layers}
+    assert r["fits_h100_80g"] is True
+
+
+def _rows():
+    def row(arch, shape, mesh, kind, c, m, x, mfu, fits):
+        step = max(c, m, x)
+        bot = ("compute", "memory", "collective")[[c, m, x].index(step)]
+        return {"arch": arch, "shape": shape, "mesh": mesh, "kind": kind,
+                "memory_analysis": {"argument_size_in_bytes": 9.05e9,
+                                    "temp_size_in_bytes": 5.4e9},
+                "fits_h100_80g": fits, "roofline": {
+                    "compute_s": c, "memory_s": m, "collective_s": x,
+                    "bottleneck": bot, "useful_ratio": 0.79,
+                    "mfu_bound": mfu, "achievable_step_s": step}}
+    return [row("llama3-8b", "train_4k", "pod16x16", "train", 0.25, 0.14,
+                0.44, 0.449, True),
+            row("granite-moe-3b-a800m", "train_4k", "pod16x16", "train",
+                0.07, 0.18, 0.14, 0.119, True),
+            row("deepseek-v3-671b", "prefill_32k", "pod16x16", "prefill",
+                1.04, 11.98, 0.62, 0.028, False),
+            row("llama3-8b", "train_4k", "pod2x16x16", "train", 0.13, 0.07,
+                0.9, 0.2, True)]
+
+
+def test_report_twin_prints_the_reference_table():
+    rows = _rows()
+    as_ref = [dict(r, fits_v5e_16g=r["fits_h100_80g"]) for r in rows]
+    assert report.HEADER == jreport.HEADER
+    assert [report.fmt_row(r) for r in rows] == \
+        [jreport.fmt_row(r) for r in as_ref]
+    got, want = report.pick_hillclimb(rows), jreport.pick_hillclimb(as_ref)
+    assert {k: (r["arch"], r["shape"]) for k, r in got.items()} == \
+        {k: (r["arch"], r["shape"]) for k, r in want.items()}
+
+
+def test_report_cli_reads_the_dry_runs_reports(tmp_path, capsys):
+    for r in _rows():
+        (tmp_path / f"{r['arch']}_{r['shape']}_{r['mesh']}.json").write_text(
+            json.dumps(r))
+    report.main(["--dir", str(tmp_path)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == report.HEADER.splitlines()[0] and len(out) == 2 + 4 + 4
+    assert out[-1].startswith("hillclimb[paper_representative]: llama3-8b")
+
+
+def test_report_names_the_cells_whose_collectives_are_counted_short(
+        tmp_path, capsys):
+    rows = _rows()
+    rows[0]["collective_fsdp_undercounted"] = True
+    for r in rows:
+        (tmp_path / f"{r['arch']}_{r['shape']}_{r['mesh']}.json").write_text(
+            json.dumps(r))
+    report.main(["--dir", str(tmp_path)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[2 + 4] == ("collective_s counted short (FSDP; ROADMAP Queue "
+                          "C): llama3-8b train_4k pod16x16")
+    assert out[-1].startswith("hillclimb[paper_representative]: llama3-8b")
+    assert out[-1].endswith(" (collective_s short: FSDP)")
+
+
+def test_hillclimb_iteration_2_shows_the_chunk_knob_moves_nothing(
+        tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(attn_mod, "KV_CHUNK", attn_mod.KV_CHUNK)
+    spec = importlib.util.spec_from_file_location(
+        "_torch_hillclimb", REPO / "experiments" / "torch_hillclimb.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(["--iter", "2", "--cell", "llama3", "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[hc2] llama3-8b train_4k:" in out
+    assert out.rstrip().endswith("no change")
+    assert attn_mod.KV_CHUNK == 2048
+    assert (tmp_path / "llama3-8b_train_4k_pod16x16_hc2.json").exists()

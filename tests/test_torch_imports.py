@@ -14,8 +14,9 @@ torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
-# the port's scripts beside the reference's: benchmarks, tools, examples
-SCRIPTS = sorted(p for d in ("benchmarks", "tools", "examples")
+# the port's scripts beside the reference's: benchmarks, tools, examples,
+# experiments
+SCRIPTS = sorted(p for d in ("benchmarks", "tools", "examples", "experiments")
                  for p in (REPO / d).glob("torch_*.py"))
 FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
@@ -93,7 +94,12 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/launch/mesh.py",
                  "src/repro_torch/models/sharding.py",
                  "src/repro_torch/optim/compression.py",
-                 "src/repro_torch/train/pipeline.py"):
+                 "src/repro_torch/train/pipeline.py",
+                 "src/repro_torch/core/step_analysis.py",
+                 "src/repro_torch/core/partition.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/report.py",
+                 "experiments/torch_hillclimb.py"):
         assert must in names
 
 

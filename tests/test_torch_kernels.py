@@ -17,6 +17,8 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.core import precision as tprecision
 from repro_torch.core import stripmine as tstrip
+from repro_torch.kernels import attention as tka, axpy as tax, \
+    conv as tconv, ssm_scan as tssm
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops as tops
 
@@ -308,29 +310,80 @@ def _meta(*shape, dtype=torch.int8):
     return torch.zeros(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("a,b,kw", [
-    (_meta(8, 16, dtype=torch.float32), _meta(16, 8), {}),
-    (_meta(8, 16), _meta(16, 8, dtype=torch.uint8), {}),
-    (_meta(8, 16), _meta(16, 8), {"out_dtype": torch.float32}),
-    (_meta(8, 16), _meta(16, 8), {"out_dtype": torch.int16}),
-    (_meta(8, 16), _meta(16, 8), {"shift": 32}),
-    (_meta(8, 16), _meta(16, 8), {"shift": -1}),
-    (_meta(8, 16), _meta(12, 8), {}),
-    (_meta(2, 8, 16), _meta(16, 8), {}),
-    (_meta(8, 16), _meta(16, 24), {"bn": 16}),
-    (_meta(8, 16), _meta(16, 8), {}),       # valid, but not a CUDA device
+@pytest.mark.parametrize("a,b,kw,outcome", [
+    (_meta(8, 16, dtype=torch.float32), _meta(16, 8), {}, "raises"),
+    (_meta(8, 16), _meta(16, 8, dtype=torch.uint8), {}, "raises"),
+    (_meta(8, 16), _meta(16, 8), {"out_dtype": torch.float32}, "raises"),
+    (_meta(8, 16), _meta(16, 8), {"out_dtype": torch.int16}, "raises"),
+    (_meta(8, 16), _meta(16, 8), {"shift": 32}, "raises"),
+    (_meta(8, 16), _meta(16, 8), {"shift": -1}, "raises"),
+    (_meta(8, 16), _meta(12, 8), {}, "raises"),
+    (_meta(2, 8, 16), _meta(16, 8), {}, "raises"),
+    (_meta(8, 16), _meta(16, 24), {"bn": 16}, "raises"),
+    (_meta(8, 16), _meta(16, 8), {}, "meta output"),
 ])
-def test_matmul_int8_contract_raises_before_any_launch(monkeypatch, a, b, kw):
+def test_matmul_int8_contract_raises_before_any_launch(monkeypatch, a, b, kw,
+                                                       outcome):
     """Wrong dtypes, shapes and shifts raise ValueError before the library
-    is loaded, and so before any launch; so does a device that is neither
-    the CPU nor CUDA."""
+    is loaded, and so before any launch; on ``meta`` a call that meets the
+    contract returns an output of its shape and dtype, again without
+    loading the library or launching."""
     def no_load(name):
         raise AssertionError("the library was loaded")
     monkeypatch.setattr(tmm.build, "load", no_load)
     tmm.reset_launches()
-    with pytest.raises(ValueError):
-        tmm.matmul_int8(a, b, **kw)
+    if outcome == "meta output":
+        out = tmm.matmul_int8(a, b, **kw)
+        assert (out.device.type, tuple(out.shape), out.dtype) == (
+            "meta", (8, 8), torch.int32)
+    else:
+        with pytest.raises(ValueError):
+            tmm.matmul_int8(a, b, **kw)
     assert tmm.LAUNCHES["matmul_int8"] == 0
+
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device no wrapper takes."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype).as_subclass(_Elsewhere)
+
+
+_F = _elsewhere
+_ATT = (_F(2, 16, 8), _F(2, 16, 8), _F(2, 16, 8),
+        _F(2, 16, dtype=torch.int32))
+_ATT_BWD = _ATT + (_F(2, 16, 8), _F(2, 16), _F(2, 16))
+
+
+@pytest.mark.parametrize("module,name,args,kw", [
+    (tmm, "matmul", (_F(8, 16), _F(16, 8)), {}),
+    (tmm, "matmul_int8", (_F(8, 16, dtype=torch.int8),
+                          _F(16, 8, dtype=torch.int8)), {}),
+    (tax, "axpy", (1.0, _F(64), _F(64)), {"block": 64}),
+    (tconv, "conv2d_direct", (_F(3, 8, 8), _F(4, 3, 3, 3)), {}),
+    (tssm, "ssm_scan", (_F(2, 128, 16), _F(2, 128, 16), _F(2, 128, 8),
+                        _F(2, 128), _F(2, 128)), {"chunk": 128}),
+    (tka, "flash_fwd", _ATT, {"causal": True, "bq": 8, "bk": 8}),
+    (tka, "flash_bwd_dq", _ATT_BWD, {"causal": True, "bq": 8, "bk": 8}),
+    (tka, "flash_bwd_dkv", _ATT_BWD, {"causal": True, "bq": 8, "bk": 8}),
+])
+def test_each_wrapper_refuses_an_unsupported_device(monkeypatch, module,
+                                                    name, args, kw):
+    """A device that is neither the CPU, CUDA nor meta raises ValueError
+    through the wrapper itself, before the library is loaded, and nothing
+    is launched."""
+    def no_load(lib):
+        raise AssertionError("the library was loaded")
+    monkeypatch.setattr(module.build, "load", no_load)
+    module.reset_launches()
+    with pytest.raises(ValueError, match=f"{name}: unsupported device xpu"):
+        getattr(module, name)(*args, **kw)
+    assert not any(module.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("m,k,n,bm,bn,bk", [

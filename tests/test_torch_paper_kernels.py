@@ -142,24 +142,35 @@ def test_axpy_contract_raises_value_error(x, y, block, match):
         tax.axpy(1.0, x, y, block=block)
 
 
-@pytest.mark.parametrize("x,y,block", [
-    (torch.zeros(100, device="meta"), torch.zeros(100, device="meta"), 64),
-    (torch.zeros(64, device="meta"), torch.zeros(32, device="meta"), 64),
+@pytest.mark.parametrize("x,y,block,outcome", [
+    (torch.zeros(100, device="meta"), torch.zeros(100, device="meta"), 64,
+     "raises"),
+    (torch.zeros(64, device="meta"), torch.zeros(32, device="meta"), 64,
+     "raises"),
     (torch.zeros(64, device="meta"),
-     torch.zeros(64, dtype=torch.float64, device="meta"), 64),
+     torch.zeros(64, dtype=torch.float64, device="meta"), 64, "raises"),
     (torch.zeros(64, dtype=torch.int8, device="meta"),
-     torch.zeros(64, dtype=torch.int8, device="meta"), 64),
-    (torch.zeros(64, device="meta"), torch.zeros(64, device="meta"), 64),
+     torch.zeros(64, dtype=torch.int8, device="meta"), 64, "raises"),
+    (torch.zeros(64, device="meta"), torch.zeros(64, device="meta"), 64,
+     "meta output"),
 ])
-def test_axpy_contract_raises_before_any_launch(monkeypatch, x, y, block):
-    """Off the CPU, the contract (and a device that is not CUDA) raises
-    ValueError before the library is loaded, and so before any launch."""
+def test_axpy_contract_raises_before_any_launch(monkeypatch, x, y, block,
+                                                outcome):
+    """Off the CPU, the contract raises ValueError before the library is
+    loaded, and so before any launch; on ``meta`` a call that meets it (the
+    last case) returns an output of its shape and dtype, again without
+    loading the library or launching."""
     def no_load(name):
         raise AssertionError("the library was loaded")
     monkeypatch.setattr(tax.build, "load", no_load)
     tax.reset_launches()
-    with pytest.raises(ValueError):
-        tax.axpy(1.0, x, y, block=block)
+    if outcome == "meta output":
+        out = tax.axpy(1.0, x, y, block=block)
+        assert (out.device.type, out.shape, out.dtype) == (
+            "meta", x.shape, x.dtype)
+    else:
+        with pytest.raises(ValueError):
+            tax.axpy(1.0, x, y, block=block)
     assert tax.LAUNCHES["axpy"] == 0
 
 
