@@ -322,10 +322,13 @@ non-zero and prints no result. Phases, one JSON line each:
                granite-moe-3b-a800m ``train_4k``, deepseek-v3-671b
                ``prefill_32k`` at 4 of its 61 layers and tinyllama-1.1b
                ``decode_32k`` on the (16, 16) production mesh, each
-               roofline row with its ``trace_s``, and the report twin's
-               table over them; phase 7's tinyllama-1.1b train step
-               counted on ``meta`` and on the card: FLOPs and bytes equal,
-               B3-B5's counted calls equal to their launches; the step's
+               roofline row with its ``trace_s``, ``count_short`` and
+               collective bytes by kind, one all-reduce derived per lookup
+               into a vocab-sharded table, and the report twin's table
+               over them; phase 7's tinyllama-1.1b train step counted on
+               ``meta`` and on the card: FLOPs and bytes equal, and equal
+               to ``DRYRUN_TRAIN_COUNT``, B3-B5's counted calls equal to their
+               launches; the step's
                measured ms above ``compute_s`` and ``memory_s``, beside
                ``achievable_step_s`` and ``mfu_bound``; the measured peak
                memory beside the estimate.
@@ -4538,19 +4541,44 @@ DRYRUN_CELLS = (("llama3-8b", "train_4k", None),
                 ("deepseek-v3-671b", "prefill_32k", {"n_layers": 4}),
                 ("tinyllama-1.1b", "decode_32k", None))
 DRYRUN_STEPS = 3
+# the one-device train step's count (FLOPs, bytes), unmoved since it was
+# first counted: one device has no collective, so no rule of the mesh
+# count may touch it
+DRYRUN_TRAIN_COUNT = ("7.0880e+13", "4.8344e+11")
+
+
+def dryrun_lookups(arch, shape, over):
+    """The all-reduces a cell's step derives for its lookups into the
+    embedding table: one per lookup in the forward (the tokens, and in a
+    train step with MTP the labels) where the production mesh's ``model``
+    axis shards the table's vocab rows, none where it does not divide
+    them."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg = dryrun.cell_config(get_config(arch), SHAPES[shape], over)
+    mesh = make_production_mesh()
+    if cfg.vocab_size % dict(zip(mesh.axis_names, mesh.sizes))["model"]:
+        return 0
+    return 1 + int(bool(cfg.mtp_depth) and SHAPES[shape].kind == "train")
 
 
 def phase_dryrun(smi):
     """Phase 37. (a) ``launch.dryrun.run_cell`` for DRYRUN_CELLS on
-    ``pod16x16`` (meta tensors, the card's routes), each roofline row and
-    its ``trace_s``, then ``launch/report.py``'s table over them. (b)
+    ``pod16x16`` (meta tensors, the card's routes), each roofline row, its
+    ``trace_s``, ``count_short`` and collective bytes by kind, and the
+    lookups' all-reduces, exactly :func:`dryrun_lookups` (one per lookup
+    into the vocab-sharded table in the tensor-parallel cells); then
+    ``launch/report.py``'s table over them. (b)
     tinyllama-1.1b's train step as phase 7 runs it (4 x 2048, bf16
     compute, full remat, one device) counted on ``meta`` for the card
-    (``target="cuda"``) and on the card itself: FLOPs and bytes equal, and
-    each attention kernel's counted calls equal to its launches in that
-    step. (c) The step timed without the count (host clock to a
-    synchronise, mean of steps 2-3) beside the roofline's terms, which
-    must lie below it; the measured peak memory beside the estimate.
+    (``target="cuda"``) and on the card itself: FLOPs and bytes equal,
+    and equal to DRYRUN_TRAIN_COUNT, and each attention kernel's counted
+    calls equal to its launches in that step. (c) The step timed without
+    the count (host clock to a synchronise, mean of steps 2-3) beside the
+    roofline's terms, which must lie below it; the measured peak memory
+    beside the estimate.
     Returns the attention kernels' launches of the counted step."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import roofline
@@ -4564,6 +4592,8 @@ def phase_dryrun(smi):
         for arch, shape, over in DRYRUN_CELLS:
             r = dryrun.run_cell(arch, shape, False, out_dir, overrides=over)
             rl = r["roofline"]
+            detail = rl["detail"]
+            lookups = dryrun_lookups(arch, shape, over)
             emit("dryrun_cell", arch=arch, shape=shape, mesh=r["mesh"],
                  reduced=over, trace_s=r["trace_s"],
                  **{k: rl[k] for k in ("compute_s", "memory_s",
@@ -4572,12 +4602,18 @@ def phase_dryrun(smi):
                                        "useful_ratio", "hlo_flops_per_dev",
                                        "hlo_bytes_per_dev",
                                        "coll_bytes_per_dev")},
-                 kernels=rl["detail"]["kernels"],
+                 collective_by_kind=detail["collective_by_kind"],
+                 lookup_all_reduces=detail["lookups"],
+                 lookups_expected=lookups,
+                 count_short=r["count_short"],
+                 kernels=detail["kernels"],
                  memory_analysis=r["memory_analysis"],
-                 fits_h100_80g=r["fits_h100_80g"],
-                 collective_fsdp_undercounted=r[
-                     "collective_fsdp_undercounted"])
+                 fits_h100_80g=r["fits_h100_80g"])
             assert rl["compute_s"] > 0 and rl["memory_s"] > 0, r
+            assert detail["lookups"] == lookups, (arch, shape, detail)
+            if (arch, shape) in (("tinyllama-1.1b", "decode_32k"),
+                                 ("deepseek-v3-671b", "prefill_32k")):
+                assert lookups == 1, (arch, shape)  # tensor-parallel cells
         with contextlib.redirect_stdout(io.StringIO()) as table:
             report.main(["--dir", out_dir])
         print(table.getvalue(), end="", flush=True)
@@ -4622,6 +4658,8 @@ def phase_dryrun(smi):
     assert (card.flops, card.bytes_accessed) == (meta.flops,
                                                  meta.bytes_accessed), \
         (card.flops, meta.flops, card.bytes_accessed, meta.bytes_accessed)
+    assert (f"{meta.flops:.4e}", f"{meta.bytes_accessed:.4e}") == \
+        DRYRUN_TRAIN_COUNT, (meta.flops, meta.bytes_accessed)
     assert card.kernels == meta.kernels, (card.kernels, meta.kernels)
     assert calls == launches and launches == train_launches(cfg), \
         (calls, launches)

@@ -30,15 +30,30 @@ backward and the optimizer, and counts:
      forward that reads it and one more in the backward that reads it
      (the gradient products, and the recompute under remat, share it),
      and a reduce-scatter of its gradient; a gradient all-reduce over the
-     mesh axes that replicate the leaf;
-  3. tensor parallelism's activation all-reduce: a product whose
+     mesh axes that replicate the leaf. Each covers the extent of the leaf
+     that the forward and backward read (the hull of their views of it):
+     the one-hot MoE dispatch reads the live experts of a padded table,
+     and the gradients of the other slots are identically zero;
+  3. tensor parallelism's activation all-reduces: a product whose
      contracting dimension is sharded over the ``model`` axis
      (:data:`MODEL_AXIS`) ends in an all-reduce of its result, forward and
-     backward. Which dimensions are sharded is carried from each
-     parameter's spec through the views and copies made of it. The port
-     has no partitioner, so this stands in for the collectives that the
-     reference's GSPMD inserts; inside a ``shard_map`` body the
-     collectives are explicit and nothing is derived.
+     backward; a lookup (``index``, ``embedding``, ``index_select``) whose
+     indexed dimension is sharded over it ends in one all-reduce of its
+     result in the forward (its cotangent is replicated and its scatter
+     lands in the local shard). Which dimensions are sharded is carried
+     from each parameter's spec through the views and copies made of it,
+     down to the sub-dimension of a merged one, so that a batch or token
+     dimension never carries ``model``. The port has no partitioner, so
+     this stands in for the collectives that the reference's GSPMD
+     inserts; inside a ``shard_map`` body the collectives are explicit and
+     nothing is derived.
+
+Where a partitioner reshards what the port cannot derive, the count is
+known short, and where it splits products unevenly, the port's FLOPs a
+device are a perfect-division bound. :func:`short` records such a term
+from the code that runs (FSDP, the one-hot MoE dispatch on a mesh, MLA
+and its absorbed decode and the SSM blocks under ``model``);
+``StepStats.count_short`` lists them.
 
 Every count of the global step (FLOPs, bytes, the live bytes) is divided by
 ``n_devices``; a parameter's or an optimizer state's reads and writes
@@ -196,6 +211,17 @@ def collective(name: str, nbytes: float, backward: bool = False):
         _RUNS[-1].record_collective(name, nbytes, backward)
 
 
+def short(term: str, axis: Optional[str] = None):
+    """Records ``term`` ("collective: ..." or "flops: ...") as known short
+    of, or split more evenly than, a partitioner's count in the running
+    analysis, where its mesh has more than one device (on ``axis``, when
+    given)."""
+    if _RUNS:
+        run = _RUNS[-1]
+        if (run.sizes.get(axis, 1) if axis else run.n) > 1:
+            run.stats.count_short.add(term)
+
+
 def check_launch(what: str):
     """Called where a CUDA kernel is launched: under :func:`analyze` a
     launch outside :func:`kernel` would go uncounted, so it raises."""
@@ -224,6 +250,9 @@ class StepStats:
     # per kernel: {"calls", "flops", "bytes"} (calls global, the rest per
     # device)
     kernels: dict = dataclasses.field(default_factory=dict)
+    # the terms known short of a partitioner's (see :func:`short`)
+    count_short: set = dataclasses.field(default_factory=set)
+    lookups: int = 0                # lookups that ended in an all-reduce
     argument_bytes: float = 0.0     # the inputs' shard bytes (exact)
     peak_live_bytes: float = 0.0    # largest live bytes seen, per device
     ops: int = 0                    # aten operations dispatched
@@ -256,6 +285,8 @@ class StepStats:
             "top_dots": sorted(self.dot_flops_by_shape.items(),
                                key=lambda t: -t[1])[:12],
             "kernels": {k: dict(v) for k, v in sorted(self.kernels.items())},
+            "count_short": sorted(self.count_short),
+            "lookups": self.lookups,
             "argument_bytes": self.argument_bytes,
             "peak_bytes_est": self.peak_bytes_est,
         }
@@ -316,10 +347,13 @@ def _flat(args, kwargs=None) -> list:
 
 
 def _reshape_tags(tags, src, dst):
-    """Sharded-axis tags of a reshape from ``src`` to ``dst``: dimensions
-    are grouped where their products meet; a group's tags go to its first
-    output dimension of size > 1 (a block sharding splits the major
-    dimension first)."""
+    """Sharded-axis tags of a reshape from ``src`` to ``dst``. A tag is
+    ``(axis, outer)``: the dimension, read row-major as ``outer`` blocks
+    of what follows, is sharded from the sub-dimension that starts there
+    (``outer`` 1: the whole dimension, block-sharded). Dimensions are
+    grouped where their products meet; in its group a tag goes to the
+    output dimension that holds its sub-dimension's start, so a merge of
+    (batch, heads) and its split back keep ``model`` on the heads."""
     out = [frozenset()] * len(dst)
     i = j = 0
     while i < len(src) or j < len(dst):
@@ -338,13 +372,56 @@ def _reshape_tags(tags, src, dst):
                 j += 1
             else:
                 break
-        axes = frozenset().union(*(tags[a] for a in gi if a < len(src)))
-        if axes:
-            first = next((b for b in gj if b < len(dst) and dst[b] > 1),
-                         gj[0] if gj[0] < len(dst) else None)
-            if first is not None:
-                out[first] = out[first] | axes
+        above = 1                   # the group's extent above src dim a
+        for a in gi:
+            if a >= len(src):
+                break
+            for axis, outer in tags[a]:
+                pos, q = above * outer, 1
+                for b in gj:
+                    if b < len(dst) and pos < q * dst[b]:
+                        out[b] = out[b] | {(axis, pos // q)}
+                        break
+                    q *= dst[b] if b < len(dst) else 1
+            above *= src[a]
     return tuple(out)
+
+
+def _axes(*tags) -> frozenset:
+    """The mesh axes among dimension tags."""
+    return frozenset(axis for tag in tags for axis, _ in tag)
+
+
+def _box(t, p):
+    """The index box of the leaf ``p`` that ``t``, a view of it, covers:
+    one ``(lo, hi)`` per dimension of ``p``. Each dimension of ``t`` steps
+    within one of ``p``'s (the one whose extent holds its stride), so
+    their steps add up there; a walk past that dimension's end covers it
+    and those it crosses whole."""
+    shape, strides = p.shape, p.stride()
+    order = sorted((d for d in range(p.dim()) if shape[d] > 1),
+                   key=lambda d: -strides[d])
+    off = t.storage_offset() - p.storage_offset()
+    lo = [0] * p.dim()
+    for d in order:
+        lo[d], off = divmod(off, strides[d])
+    span = [0] * p.dim()
+    whole = set()
+    for n, st in zip(t.shape, t.stride()):
+        if n <= 1 or st == 0:
+            continue
+        for d in order:
+            if strides[d] <= st < strides[d] * shape[d]:
+                span[d] += st // strides[d] * (n - 1)
+            elif st < strides[d] <= st * (n - 1):
+                whole.add(d)
+    return [(0, shape[d]) if d in whole or lo[d] + span[d] >= shape[d]
+            else (lo[d], lo[d] + span[d] + 1) for d in range(p.dim())]
+
+
+def _hull(a, b):
+    return b if a is None else [(min(x0, y0), max(x1, y1))
+                                for (x0, x1), (y0, y1) in zip(a, b)]
 
 
 class _Run(TorchDispatchMode):
@@ -358,6 +435,7 @@ class _Run(TorchDispatchMode):
         self.state = state          # storage key -> bytes divisor
         self.params = params        # storage key -> (tensor, spec)
         self.read_fwd, self.read_bwd = set(), set()
+        self.extent = {}            # leaf key -> hull of the boxes read
         self.backward_ran = False
         self.explicit = 0           # inside shard_map bodies
         self.tags = WeakIdKeyDictionary()
@@ -399,9 +477,15 @@ class _Run(TorchDispatchMode):
         if in_backward:
             self.backward_ran = True
         reads = self.read_bwd if in_backward else self.read_fwd
-        for k in in_keys:
+        # the step's reads: the optimizer after the backward reads every
+        # leaf whole and is not one of them
+        step_read = in_backward or not self.backward_ran
+        for t, k in zip(ins, in_keys):
             if k in self.params:
                 reads.add(k)
+                if step_read and not func.is_view:
+                    self.extent[k] = _hull(self.extent.get(k),
+                                           _box(t, self.params[k][0]))
         packet = func.overloadpacket
         if packet in _PRODUCTS:
             f = flop_registry[packet](*args, **kwargs, out_val=out) / self.n
@@ -417,7 +501,7 @@ class _Run(TorchDispatchMode):
                 _nbytes(t) / state.get(k, n)
                 for t, k in zip(ins + outs, in_keys + out_keys))
         if self.tags and not self.explicit:
-            self._propagate(func, name, args, out, ins, outs)
+            self._propagate(func, name, args, out, ins, outs, in_backward)
         self._track_live(outs, out_keys)
         return out
 
@@ -440,7 +524,14 @@ class _Run(TorchDispatchMode):
 
     # -- tensor parallelism: which dimensions are sharded over MODEL_AXIS --
 
-    def _propagate(self, func, name, args, out, ins, outs):
+    def _all_reduce(self, axes, out):
+        """The all-reduce over ``axes`` that ends an operation whose
+        result ``out`` is the sum of the devices' partial results."""
+        g = math.prod(self.sizes[ax] for ax in axes)
+        self.stats.add_collective("all-reduce", _nbytes(out) * g / self.n, g,
+                                  _type(out))
+
+    def _propagate(self, func, name, args, out, ins, outs, in_backward):
         tagged = [t for t in ins if t in self.tags]
         if not tagged or not outs:
             return
@@ -452,14 +543,25 @@ class _Run(TorchDispatchMode):
                 else (args[0], args[1])
             ta = self.tags.get(a, (frozenset(),) * a.dim())
             tb = self.tags.get(b, (frozenset(),) * b.dim())
-            contracted = ta[-1] | tb[-2]
+            contracted = _axes(ta[-1], tb[-2])
             if contracted:
-                g = math.prod(self.sizes[ax] for ax in contracted)
-                self.stats.add_collective(
-                    "all-reduce", _nbytes(out) * g / self.n, g, _type(out))
+                self._all_reduce(contracted, out)
                 return
             new = ta[:-1] + (tb[-1],) if a.dim() == 2 else \
                 (ta[0] | tb[0], ta[1], tb[2])
+        elif name in _LOOKUP_NAMES:
+            # the table is args[0]; the result, the sum of the shards'
+            # rows, is replicated
+            if xt is None or in_backward:
+                return
+            dims = [args[1] % x.dim()] if name == "index_select" else \
+                [0] if name == "embedding" else \
+                [d for d, ix in enumerate(args[1]) if ix is not None]
+            looked_up = _axes(*(xt[d] for d in dims))
+            if looked_up:
+                self._all_reduce(looked_up, out)
+                self.stats.lookups += 1
+            return
         elif xt is None:
             new = None
         elif name in ("detach", "alias", "_to_copy", "clone", "slice",
@@ -496,6 +598,7 @@ class _Run(TorchDispatchMode):
 
 
 _PRODUCT_NAMES = {"mm", "addmm", "bmm", "baddbmm"}
+_LOOKUP_NAMES = {"index", "embedding", "index_select"}
 
 
 # ---------------------------------------------------------------------------
@@ -562,7 +665,9 @@ def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
     run = _Run(n, sizes, target, state, {k: leaves[k] for k in param_keys})
     run.stats.argument_bytes = arg_bytes
     for k, (t, axes) in run.params.items():
-        tp = tuple(frozenset(a for a in e if a == MODEL_AXIS) for e in axes)
+        # model's sub-dimension starts below the axes before it in its entry
+        tp = tuple(frozenset((a, math.prod(sizes[b] for b in e[:e.index(a)]))
+                             for a in e if a == MODEL_AXIS) for e in axes)
         if any(tp):
             run.tags[t] = tp
     _RUNS.append(run)
@@ -578,11 +683,15 @@ def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
     batch_axes = [a for a in sizes if a != MODEL_AXIS]
     for k, (t, axes) in run.params.items():
         used = [a for e in axes for a in e]
-        shard = _nbytes(t) / math.prod(sizes[a] for a in used)
+        box = run.extent.get(k)
+        read = math.prod(hi - lo for lo, hi in box) / t.numel() \
+            if box is not None and t.numel() else 1.0
+        shard = _nbytes(t) * read / math.prod(sizes[a] for a in used)
         fsdp = [a for a in used if a in batch_axes]
         g_f = math.prod(sizes[a] for a in fsdp)
-        label = _type(t)
+        label = _type(t) if read == 1.0 else f"{_type(t)} read {read:.4g}"
         if g_f > 1:
+            st.count_short.add("collective: fsdp")
             gathers = (k in run.read_fwd) + (k in run.read_bwd)
             if gathers:
                 st.add_collective("all-gather", shard * g_f, g_f, label,

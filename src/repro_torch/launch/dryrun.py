@@ -12,7 +12,12 @@ except: ``fits_h100_80g`` in place of ``fits_v5e_16g``; ``trace_s`` (the
 seconds the count took) in place of ``lower_s`` / ``compile_s``;
 ``memory_analysis`` holds ``argument_size_in_bytes`` (the inputs' exact
 shard bytes a device) and ``temp_size_in_bytes`` (an estimate: the largest
-bytes live at once in the counted step, divided by the devices).
+bytes live at once in the counted step, divided by the devices); and
+``count_short``, the terms of the count known short of, or split more
+evenly than, a partitioner's (``core.step_analysis.short``: FSDP, the
+one-hot MoE dispatch on a mesh, MLA and the SSM blocks under ``model``),
+each "collective: <cause>" or "flops: <cause>"; empty where the count
+stands.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
@@ -116,9 +121,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         "per_device_state_bytes": mem_d["argument_size_in_bytes"],
         "per_device_peak_bytes_est": per_dev_bytes,
         "fits_h100_80g": per_dev_bytes < 80e9,
-        # the FSDP collectives are known short of the reference's
-        # partitioner's, which reshards activations (ROADMAP Queue C)
-        "collective_fsdp_undercounted": bool(cfg.fsdp),
+        # the terms known short of a partitioner's (ROADMAP Queue C)
+        "count_short": sorted(stats.count_short),
         "roofline": rl.row(),
         "params_total": cfg.param_count(),
         "params_active": cfg.active_param_count(),

@@ -1,8 +1,8 @@
 """Aggregate the dry run's JSONs into the roofline table: the twin of the
 reference's ``launch/report.py``, reading ``launch/dryrun.py``'s reports
-(the ``fits`` column reads ``fits_h100_80g``; cells whose report carries
-``collective_fsdp_undercounted`` are named under the table and beside a
-hillclimb pick).
+(the ``fits`` column reads ``fits_h100_80g``; every cell whose report
+lists terms in ``count_short`` is named with them under the table, and
+they stand beside a hillclimb pick).
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.report
            [--dir experiments/dryrun_torch]
@@ -76,17 +76,16 @@ def main(argv=None):
     print(HEADER)
     for r in rows:
         print(fmt_row(r))
-    short = [f"{r['arch']} {r['shape']} {r['mesh']}" for r in rows
-             if r.get("collective_fsdp_undercounted")]
-    if short:
-        print(f"collective_s counted short (FSDP; ROADMAP Queue C): "
-              f"{', '.join(short)}")
+    for r in rows:
+        if r.get("count_short"):
+            print(f"count short (ROADMAP Queue C): {r['arch']} {r['shape']} "
+                  f"{r['mesh']}: {'; '.join(r['count_short'])}")
     print()
     hc = pick_hillclimb(rows)
     for k, r in hc.items():
         rl = r["roofline"]
-        mark = " (collective_s short: FSDP)" \
-            if r.get("collective_fsdp_undercounted") else ""
+        mark = f" (count short: {'; '.join(r['count_short'])})" \
+            if r.get("count_short") else ""
         print(f"hillclimb[{k}]: {r['arch']} {r['shape']} {r['mesh']} "
               f"bottleneck={rl['bottleneck']} step={rl['achievable_step_s']:.4g}s "
               f"mfu={rl['mfu_bound']:.3f}{mark}")

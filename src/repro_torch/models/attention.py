@@ -581,6 +581,10 @@ def mla_attention(cfg: ArchConfig, p: dict, x, positions, *,
     """
     m = cfg.mla
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    # the latent down-projections are replicated over model: a partitioner
+    # runs them whole on every device, the dry run divides them evenly
+    step_analysis.short("flops: even split of mla's latent projections",
+                        step_analysis.MODEL_AXIS)
 
     q_lat = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(x.dtype)),
                      p["q_norm"], cfg.norm_eps)
@@ -621,7 +625,10 @@ def mla_attention(cfg: ArchConfig, p: dict, x, positions, *,
                 out = mla_chunked(cfg, q_nope, q_rope, ckv_x, ckr_x, wkv_b,
                                   positions, kv_valid, lane_local=True)
         else:
-            # absorbed single-token decode: O(kv_lora) per cached token
+            # absorbed single-token decode: O(kv_lora) per cached token;
+            # a partitioner gathers and reduces its scores over model
+            step_analysis.short("collective: mla decode gathers",
+                                step_analysis.MODEL_AXIS)
             q_c = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)  # absorb W_UK
             s = torch.einsum("bshr,btr->bhst", widen(q_c), widen(ckv_x))
             s = s + torch.einsum("bshk,btk->bhst", widen(q_rope),

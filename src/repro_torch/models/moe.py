@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import compat
+from repro_torch.core import compat, step_analysis
 from repro_torch.core.compat import PartitionSpec as PS
 from repro_torch.models.layers import P, activation_fn
 from repro_torch.models.mlp import mlp
@@ -127,6 +127,10 @@ def moe_dense_dispatch(cfg: ArchConfig, p: dict, x_tokens, *,
     m = cfg.moe
     t_len, d = x_tokens.shape
     act = activation_fn(cfg.activation)
+    # on a mesh, a partitioner reshards the one group's dispatched buffers
+    # and splits its products unevenly; the dry run's count cannot
+    step_analysis.short("collective: moe one-hot dispatch resharded")
+    step_analysis.short("flops: even split of the moe dispatch")
     gates, ids, aux = _route(x_tokens, p["router"], m.top_k, m.n_experts)
 
     sg = group_size or min(t_len,

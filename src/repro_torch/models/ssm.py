@@ -27,9 +27,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import step_analysis
 from repro_torch.models.layers import P, rms_norm, widen
 
 SSD_CHUNK = 64
+
+
+# under tensor parallelism a partitioner reshards the blocks' split
+# projections (permutes, gathers) where the dry run derives none
+_RESHARDED = "collective: ssm resharding under model"
 
 
 def _state_dtype(dtype):
@@ -171,6 +177,7 @@ def mamba2_block(cfg: ArchConfig, p: dict, x, state: Optional[dict] = None):
     Returns (y, new_state or None)."""
     s = cfg.ssm
     b, seq, _ = x.shape
+    step_analysis.short(_RESHARDED, step_analysis.MODEL_AXIS)
     z, xbc, dt_pre, di, n, nh = _mamba2_split(cfg, p, x)
     hd = s.head_dim
 
@@ -257,6 +264,7 @@ def mlstm_block(cfg: ArchConfig, p: dict, x, state: Optional[dict] = None):
     """x (B,S,d). state = {"conv", "ssm" (B,H,Nqk,Pv+1)} or None."""
     s = cfg.ssm
     b, seq, d = x.shape
+    step_analysis.short(_RESHARDED, step_analysis.MODEL_AXIS)
     di = s.expansion * d
     nh = cfg.n_heads
     up = x @ p["up_proj"].to(x.dtype)

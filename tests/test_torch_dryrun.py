@@ -6,10 +6,17 @@
   step: FLOPs within 1 % on one device for reduced tinyllama-1.1b,
   granite-moe-3b-a800m, zamba2-7b and deepseek-v3-671b (train, prefill,
   decode) and per device on the meshes (4,1), (1,4), (2,2); the collective
-  bytes of (4,1) within 1 %, (1,4) and (2,2) within 10 %, and FSDP at (4,1)
-  pinned at its measured ratio (ROADMAP Queue C); the inputs' shard bytes
-  against the compiled programs' ``argument_size_in_bytes``. The reference's
-  side runs in one subprocess on 4 host devices.
+  bytes of the train step within 1 % on (4,1) and (1,4) and 0.2 % on
+  (2,2), and FSDP at (4,1) pinned at its measured ratio (ROADMAP Queue C);
+  every kind of step that the dry run counts on a mesh (``CELLS``: prefill,
+  decode, the MoE, MLA and hybrid train steps), each within 1 % or pinned
+  at its measured ratio with its cause, and flagged where its count is
+  known short (``count_short``); the inputs' shard bytes against the
+  compiled programs' ``argument_size_in_bytes``. The reference's side runs
+  in one subprocess on 4 host devices.
+- the count's rules on tiny synthetic steps: a lookup into a
+  ``model``-sharded table, products that contract tokens after views and a
+  backward, parameters read through a slice.
 - twins of the reference's own analyzer and roofline tests, the kernels'
   work counts (counted once on the CPU, the routes' difference exactly the
   kernels' work less the blockwise products), ``meta`` launches, the
@@ -19,6 +26,7 @@
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -45,9 +53,10 @@ from repro_torch.kernels import ssm_scan as ss
 from repro_torch.launch import dryrun, report
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (abstract_params, init_params,
-                                       tree_leaves)
+from repro_torch.models.layers import abstract_params, init_params
+from repro_torch.models.sharding import MeshCtx
 from repro_torch.optim import adamw
 from repro_torch.train import step as step_lib
 
@@ -60,8 +69,99 @@ ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m", "zamba2-7b",
 KINDS = ("train", "prefill", "decode")
 MESHES = {"4x1": (4, 1, False), "1x4": (1, 4, False), "2x2": (2, 2, False),
           "4x1 fsdp": (4, 1, True)}
+# every other kind of step on a mesh, reduced, at 8 x 64: (arch, kind,
+# data, model)
+CELLS = {
+    "tinyllama-1.1b prefill 1x4": ("tinyllama-1.1b", "prefill", 1, 4),
+    "tinyllama-1.1b decode 1x4": ("tinyllama-1.1b", "decode", 1, 4),
+    "tinyllama-1.1b decode 4x1": ("tinyllama-1.1b", "decode", 4, 1),
+    "deepseek-v3-671b prefill 1x4": ("deepseek-v3-671b", "prefill", 1, 4),
+    "deepseek-v3-671b decode 1x4": ("deepseek-v3-671b", "decode", 1, 4),
+    "deepseek-v3-671b train 2x2": ("deepseek-v3-671b", "train", 2, 2),
+    "granite-moe-3b-a800m train 4x1": ("granite-moe-3b-a800m", "train", 4, 1),
+    "granite-moe-3b-a800m train 1x4": ("granite-moe-3b-a800m", "train", 1, 4),
+    "granite-moe-3b-a800m train 2x2": ("granite-moe-3b-a800m", "train", 2, 2),
+    "zamba2-7b train 4x1": ("zamba2-7b", "train", 4, 1),
+    "zamba2-7b train 1x4": ("zamba2-7b", "train", 1, 4),
+}
 FLOPS_TOL = 0.01
-COLL_TOL = {"4x1": 0.01, "1x4": 0.10, "2x2": 0.10}
+COLL_TOL = {"4x1": 0.01, "1x4": 0.01, "2x2": 0.002,
+            "tinyllama-1.1b prefill 1x4": 0.01,
+            "tinyllama-1.1b decode 1x4": 0.01,
+            "zamba2-7b train 4x1": 0.01}
+# FLOPs a device, port / reference, where the reference's partitioner does
+# not split the products evenly and the port's even split is a
+# perfect-division bound (ROADMAP Queue C, the dry run's deliberate
+# differences): the one-hot MoE dispatch's products (granite-moe-3b-a800m:
+# 625 M, 1,114 M and 741 M a device where the port counts 488 M on each
+# mesh), and deepseek-v3-671b's router and
+# MLA latent down-projections (``wq_a``, ``wkv_a``, replicated over model),
+# which the reference runs whole on every device
+FLOPS_PINNED = {
+    "deepseek-v3-671b prefill 1x4": 0.94579,
+    "deepseek-v3-671b decode 1x4": 0.85695,
+    "deepseek-v3-671b train 2x2": 0.98457,
+    "granite-moe-3b-a800m train 4x1": 0.77992,
+    "granite-moe-3b-a800m train 1x4": 0.43776,
+    "granite-moe-3b-a800m train 2x2": 0.65812,
+}
+# collective bytes a device, port / reference, pinned at the measured
+# ratio: (all kinds, all-reduce alone, cause). The reference's kinds that
+# the port derives none of are partitioner choices (ROADMAP Queue C).
+COLL_PINNED = {
+    "deepseek-v3-671b prefill 1x4": (
+        0.91192, 0.91192,
+        "the reference all-reduces the lookup after its cast to the f32 "
+        "compute dtype (196,608 bytes, the port's bf16 result 98,304) and "
+        "a f32[1,1024] tuple member (6,144)"),
+    "deepseek-v3-671b decode 1x4": (
+        0.56230, 0.66415,
+        "the lookup after its cast to f32 (1,536 more); MLA's absorbed "
+        "decode: all-reduces of (8,16,4,1) scores and (8,4,1) and "
+        "all-gathers of (8,1,4,16) and (8,1,4,8), 11,616 bytes"),
+    "deepseek-v3-671b train 2x2": (
+        0.17852, 0.34679,
+        "FSDP (open fault 2): the partitioner moves activations where the "
+        "port gathers weights, plus an all-to-all of 1,146,880 and "
+        "collective-permutes of 401,408"),
+    "granite-moe-3b-a800m train 4x1": (
+        0.51074, 0.51690,
+        "the reference all-reduces the one-hot dispatch's buffers over "
+        "data, f32[1,4,320,64] and f32[1,64,4,320], 1,474,560 bytes (its "
+        "one group cannot split over data), and all-gathers 36,864; the "
+        "gradient reductions agree (test below)"),
+    "granite-moe-3b-a800m train 1x4": (
+        0.99913, 0.99913,
+        "the expert buffers' all-reduces over the model-sharded experts "
+        "match (2,949,120 each side); the reference's vocab-sharded "
+        "cross-entropy reductions (9,222) against the port's norm-gradient "
+        "reductions (4,992)"),
+    "granite-moe-3b-a800m train 2x2": (
+        0.50135, 0.50422,
+        "the reference all-reduces the dispatch's buffers over data as "
+        "well as model (2,949,120 where the port derives 983,040 over "
+        "model), and all-gathers 24,576"),
+    "zamba2-7b train 1x4": (
+        0.55900, 0.95253,
+        "the reference reshards the Mamba2 blocks' split projections under "
+        "model: collective-permutes of 1,228,800 and all-gathers of "
+        "516,528"),
+}
+# the terms each cell's count is known short of (``count_short``)
+_MOE = ["collective: moe one-hot dispatch resharded",
+        "flops: even split of the moe dispatch"]
+_MLA = ["flops: even split of mla's latent projections"]
+SHORT = {
+    "deepseek-v3-671b prefill 1x4": _MOE + _MLA,
+    "deepseek-v3-671b decode 1x4": ["collective: mla decode gathers"] + _MOE
+    + _MLA,
+    "deepseek-v3-671b train 2x2": ["collective: fsdp"] + _MOE + _MLA,
+    "granite-moe-3b-a800m train 4x1": _MOE,
+    "granite-moe-3b-a800m train 1x4": _MOE,
+    "granite-moe-3b-a800m train 2x2": _MOE,
+    "zamba2-7b train 1x4": ["collective: ssm resharding under model"],
+    "4x1 fsdp": ["collective: fsdp"],
+}
 # the port's FSDP collectives (a gather of each sharded parameter in the
 # forward and in the backward that reads it, a reduce-scatter of its
 # gradient: 640,896 + 345,024 bytes) against the reference's partitioner,
@@ -120,6 +220,8 @@ def compile_cell(cfg, shape, mesh):
     st = analyze(comp.as_text(), n_devices=mesh.devices.size)
     return {"flops": st.flops, "collective_bytes": st.collective_bytes,
             "collective_by_kind": dict(st.collective_by_kind),
+            "tuple_all_reduce": sum(v for k, v in st.top_collectives
+                                    if k.startswith("all-reduce (")),
             "bytes": st.bytes_accessed,
             "argument_bytes": comp.memory_analysis().argument_size_in_bytes}
 
@@ -135,8 +237,11 @@ for key, (d, m, fsdp) in %(meshes)r.items():
     out[key] = compile_cell(dataclasses.replace(cfg, fsdp=fsdp),
                             ShapeConfig("train", 64, 8, "train"),
                             make_mesh(d, m))
+for key, (a, kind, d, m) in %(cells)r.items():
+    out[key] = compile_cell(reduced(get_config(a)),
+                            ShapeConfig(kind, 64, 8, kind), make_mesh(d, m))
 print("REF", json.dumps(out))
-''' % {"archs": ARCHS, "kinds": KINDS, "meshes": MESHES}
+''' % {"archs": ARCHS, "kinds": KINDS, "meshes": MESHES, "cells": CELLS}
 
 
 @pytest.fixture(scope="module")
@@ -152,6 +257,10 @@ def _cell(key):
         cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")),
                                   fsdp=fsdp)
         return cfg, ShapeConfig("train", 64, 8, "train"), make_mesh(d, m)
+    if key in CELLS:
+        arch, kind, d, m = CELLS[key]
+        return reduced(get_config(arch)), ShapeConfig(kind, 64, 8, kind), \
+            make_mesh(d, m)
     arch, kind = key.split()
     return reduced(get_config(arch)), ShapeConfig(kind, 64, 2, kind), \
         make_mesh(1, 1)
@@ -172,20 +281,35 @@ ONE = [f"{a} {k}" for a in ARCHS for k in KINDS]
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("key", ONE + list(MESHES))
+@pytest.mark.parametrize("key", ONE + list(MESHES) + list(CELLS))
 def test_flops_per_device_match_the_reference(ref, key):
     got, want = _count(key).flops, ref[key]["flops"]
-    assert abs(got / want - 1) <= FLOPS_TOL, (key, got, want)
+    if key in FLOPS_PINNED:
+        assert abs(got / want - FLOPS_PINNED[key]) < 5e-5, (key, got, want)
+    else:
+        assert abs(got / want - 1) <= FLOPS_TOL, (key, got, want)
 
 
-@pytest.mark.parametrize("key", list(MESHES))
+@pytest.mark.parametrize("key", list(MESHES) + list(CELLS))
 def test_collective_bytes_match_the_reference(ref, key):
     st = _count(key)
     want = ref[key]["collective_bytes"]
+    assert sorted(st.count_short) == sorted(SHORT.get(key, [])), key
+    if want == 0:           # tinyllama-1.1b's decode, data-parallel
+        assert st.collective_bytes == 0 and st.collective_count == 0, key
+        return
     ratio = st.collective_bytes / want
     if key in COLL_TOL:
         assert abs(ratio - 1) <= COLL_TOL[key], (key, st.collective_bytes,
                                                  want)
+    elif key in COLL_PINNED:
+        total, all_reduce, _cause = COLL_PINNED[key]
+        assert abs(ratio - total) < 5e-5, (key, st.collective_bytes, want,
+                                           ratio)
+        got_ar = st.collective_by_kind["all-reduce"]
+        want_ar = ref[key]["collective_by_kind"]["all-reduce"]
+        assert abs(got_ar / want_ar - all_reduce) < 5e-5, (key, got_ar,
+                                                           want_ar)
     else:
         assert abs(ratio - FSDP_RATIO) < 5e-5, (key, st.collective_bytes,
                                                 want, ratio)
@@ -193,6 +317,148 @@ def test_collective_bytes_match_the_reference(ref, key):
                                               "reduce-scatter"}
         assert set(ref[key]["collective_by_kind"]) == {
             "all-gather", "all-reduce", "all-to-all"}
+
+
+def test_padded_experts_reduce_the_live_slice_as_the_reference(ref):
+    """granite-moe-3b-a800m on (4, 1): the one-hot dispatch reads 4 of the
+    48 padded expert slots, so its gradient all-reduces cover those (the
+    others' gradients are identically zero); every collective the port
+    counts there is a gradient reduction, and they agree with the
+    reference's gradient tuples within 1 %."""
+    key = "granite-moe-3b-a800m train 4x1"
+    st = _count(key)
+    want = ref[key]["tuple_all_reduce"]
+    assert abs(st.collective_bytes / want - 1) <= 0.01, (
+        st.collective_bytes, want)
+    cfg = _cell(key)[0]
+    live = cfg.moe.n_experts / cfg.moe.n_experts_padded
+    tables = [k for k, _ in st.top_collectives if k.startswith(
+        f"all-reduce float32[{cfg.n_layers}, {cfg.moe.n_experts_padded},")]
+    assert len(tables) == 3 and all(f" read {live:.4g} " in k
+                                    for k in tables), tables
+
+
+def test_the_ep_route_reads_every_expert_and_reduces_it_whole(monkeypatch):
+    """The expert-parallel route (which every production MoE cell takes)
+    reads every padded slot, so its tables' gradient reductions stay
+    whole; the one-hot dispatch on the same mesh reduces the live slice."""
+    cfg = reduced(get_config("granite-moe-3b-a800m"))
+    shape, mesh = ShapeConfig("train", 64, 8, "train"), make_mesh(2, 2)
+    prefix = f"all-reduce float32[{cfg.n_layers}, {cfg.moe.n_experts_padded},"
+
+    def tables(st):
+        return sorted(k for k, _ in st.top_collectives
+                      if k.startswith(prefix))
+    dense = tables(dryrun.count_step(cfg, shape, mesh, target="cpu"))
+    monkeypatch.setattr(moe, "DENSE_PATH_MAX_TOKENS", 64)
+    ep = dryrun.count_step(cfg, shape, mesh, target="cpu")
+    assert "collective: moe one-hot dispatch resharded" not in ep.count_short
+    assert ep.collective_by_kind["all-to-all"] > 0
+    assert len(tables(ep)) == 3 and not any(" read " in k
+                                            for k in tables(ep))
+    assert len(dense) == 3 and all(" read " in k for k in dense)
+
+
+@pytest.mark.parametrize("op", ("index", "embedding", "index_select"))
+def test_a_lookup_into_a_model_sharded_table_all_reduces_once(op):
+    """A lookup into a table whose rows are sharded over ``model`` sums
+    the shards' rows: one all-reduce of its result in the forward; its
+    backward (a scatter of the replicated cotangent into the local shard)
+    moves nothing. Rows replicated: nothing moves at all."""
+    table = torch.empty((64, 16), device="meta", requires_grad=True)
+    ids = torch.empty((8, 5), dtype=torch.long, device="meta")
+    look = {"index": lambda t, i: t[i],
+            "embedding": lambda t, i: torch.nn.functional.embedding(i, t),
+            "index_select": lambda t, i: torch.index_select(
+                t, 0, i.reshape(-1))}[op]
+    mesh = make_mesh(1, 4)
+    for backward in (False, True):
+        def step(t, i):
+            y = look(t, i)
+            if backward:
+                y.sum().backward()
+        st = analyze(step, table, ids, n_devices=4, mesh=mesh,
+                     specs=(PS("model", None), None), params=table)
+        r = 8 * 5 * 16 * 4                  # the result, replicated
+        assert dict(st.collective_by_kind) == {"all-reduce": 2 * r * 3 / 4}
+        assert st.collective_count == 1 and st.lookups == 1
+    st = analyze(step, table, ids, n_devices=4, mesh=mesh,
+                 specs=(PS(None, "model"), None), params=table)
+    assert st.collective_count == 0 and st.lookups == 0
+
+
+def test_a_product_over_tokens_derives_no_collective():
+    """Tensor parallelism over heads: the heads' tag survives the merge
+    of (batch, heads) for the score products and the split back, so the
+    backward's weight-gradient products, which contract tokens, derive
+    nothing. What moves: the output projection's all-reduce forward and
+    the input's gradient all-reduce backward."""
+    b, s, d, h, hd = 2, 16, 32, 4, 8
+    x = torch.empty((b, s, d), device="meta", requires_grad=True)
+    wq = torch.empty((d, h * hd), device="meta", requires_grad=True)
+    wo = torch.empty((h * hd, d), device="meta", requires_grad=True)
+
+    def step(x, wq, wo):
+        q = (x @ wq).view(b, s, h, hd).permute(0, 2, 1, 3)
+        q = q.reshape(b * h, s, hd)                 # (batch, heads) merged
+        p = torch.softmax(q @ q.transpose(1, 2), dim=-1)
+        o = (p @ q).view(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
+        (o @ wo).sum().backward()
+    st = analyze(step, x, wq, wo, n_devices=4, mesh=make_mesh(1, 4),
+                 specs=(None, PS(None, "model"), PS("model", None)),
+                 params=(wq, wo))
+    moved = 2 * (b * s * d * 4) * 3 / 4            # one (b, s, d) result
+    assert st.collective_count == 2, st.top_collectives
+    assert dict(st.collective_by_kind) == {"all-reduce": 2 * moved}
+    assert {k for k, _ in st.top_collectives} == {
+        f"all-reduce float32[{b * s}, {d}] g=4"}
+    # the tags themselves: (batch, heads) -> merged -> split back
+    tag = frozenset({("model", 1)})
+    merged = step_analysis._reshape_tags(
+        (frozenset(), tag, frozenset(), frozenset()), (b, h, s, hd),
+        (b * h, s, hd))
+    assert merged == (frozenset({("model", b)}), frozenset(), frozenset())
+    assert step_analysis._reshape_tags(merged, (b * h, s, hd),
+                                       (b, h, s, 1, hd))[:2] == (
+        frozenset(), tag)
+
+
+@pytest.mark.parametrize("stacked", (False, True))
+def test_a_parameter_read_through_a_slice_moves_that_extent(stacked):
+    """A table of 12 padded slots read only through ``[:3]`` (per layer,
+    when stacked): its gradient all-reduce (replicated over data) and,
+    under FSDP, its gathers and reduce-scatter cover 3/12 of it; read
+    whole as well, it moves whole."""
+    shape = (2, 12, 8, 8) if stacked else (12, 8, 8)
+    w = torch.empty(shape, device="meta", requires_grad=True)
+    x = torch.empty((16, 3, 8), device="meta", requires_grad=True)
+    full = w.numel() * 4
+
+    def step(w, x, whole=False):
+        ws = w.unbind(0) if stacked else [w]
+        y = x
+        for wl in ws:
+            y = torch.bmm(y.transpose(0, 1), wl[:3]).transpose(0, 1)
+        if whole:
+            y = y + w.sum()
+        y.sum().backward()
+    lead = (None,) if stacked else ()
+    # (spec, shards, collectives by kind: how many)
+    for spec, shards, calls in (
+            (PS(*lead, None, None, None), 1, {"all-reduce": 1}),
+            (PS(*lead, None, "data", None), 4,
+             {"all-gather": 2, "reduce-scatter": 1})):
+        for whole, part in ((False, 3 / 12), (True, 1.0)):
+            st = analyze(lambda w, x: step(w, x, whole), w, x, n_devices=4,
+                         mesh=make_mesh(4, 1), specs=(spec, PS("data")),
+                         params=w)
+            shard = full * part / shards
+            want = {"all-reduce": 2 * shard * 3 / 4,
+                    "all-gather": 2 * shard * 4 * 3 / 4,
+                    "reduce-scatter": shard * 3}
+            assert dict(st.collective_by_kind) == {
+                k: want[k] for k in calls}, (spec, whole)
+            assert st.collective_count == sum(calls.values())
 
 
 def test_an_fsdp_parameter_is_gathered_again_for_the_backward():
@@ -232,19 +498,21 @@ def test_bytes_differ_from_the_references_as_stated(ref, key):
     assert lo <= ratio <= hi, (key, ratio)
 
 
-@pytest.mark.parametrize("key", ONE + list(MESHES))
+@pytest.mark.parametrize("key", ONE + list(MESHES) + list(CELLS))
 def test_argument_bytes_match_the_reference(ref, key):
     """Equal, except where the reference's ``jax.jit`` drops arguments the
     step never reads (``keep_unused=False``): deepseek-v3-671b's
-    multi-token-prediction module in prefill and decode. The port counts
-    every input it is given."""
+    multi-token-prediction module in prefill and decode (its shard bytes
+    on a mesh). The port counts every input it is given."""
     got, want = _count(key).argument_bytes, ref[key]["argument_bytes"]
-    cfg, shape, _ = _cell(key)
+    cfg, shape, mesh = _cell(key)
     if cfg.mtp_depth and shape.kind != "train":
-        tmpl = tf.model_template(cfg)["mtp"]
-        unread = sum(p.numel() * p.element_size() for p in
-                     tree_leaves(abstract_params(
-                         tmpl, torch_dtype(cfg.param_dtype))))
+        mtp = abstract_params(tf.model_template(cfg)["mtp"],
+                              torch_dtype(cfg.param_dtype))
+        specs = step_lib.train_state_specs(
+            cfg, MeshCtx(mesh=mesh, batch_axes=("data",)))["params"]["mtp"]
+        unread = analyze(lambda p: None, mtp, n_devices=math.prod(mesh.sizes),
+                         mesh=mesh, specs=(specs,)).argument_bytes
         assert got - want == unread, (key, got, want, unread)
     else:
         assert got == want, (key, got, want)
@@ -516,7 +784,7 @@ def test_each_collective_counts_its_backward(kind):
 KEYS = {"arch", "shape", "mesh", "tag", "n_devices", "kind", "trace_s",
         "memory_analysis", "per_device_state_bytes",
         "per_device_peak_bytes_est", "fits_h100_80g",
-        "collective_fsdp_undercounted", "roofline",
+        "count_short", "roofline",
         "params_total", "params_active"}
 ROOFLINE_KEYS = {"arch", "shape", "mesh", "n_devices", "compute_s",
                  "memory_s", "collective_s", "hlo_flops_per_dev",
@@ -532,8 +800,10 @@ def test_run_cell_counts_a_production_cell_on_meta(tmp_path):
                                          "temp_size_in_bytes"}
     assert (r["n_devices"], r["mesh"], r["kind"]) == (256, "pod16x16",
                                                       "decode")
-    assert r["collective_fsdp_undercounted"] is False
+    assert r["count_short"] == []
     rl = r["roofline"]
+    # one lookup into the vocab-sharded table, one all-reduce of its result
+    assert rl["detail"]["lookups"] == 1
     assert rl["bottleneck"] == "memory" and rl["compute_s"] > 0
     assert rl["detail"]["kernels"] == {}        # decode takes no kernel
     saved = json.loads((tmp_path /
@@ -618,16 +888,22 @@ def test_report_cli_reads_the_dry_runs_reports(tmp_path, capsys):
 def test_report_names_the_cells_whose_collectives_are_counted_short(
         tmp_path, capsys):
     rows = _rows()
-    rows[0]["collective_fsdp_undercounted"] = True
+    rows[0]["count_short"] = ["collective: fsdp"]
+    rows[1]["count_short"] = ["collective: moe one-hot dispatch resharded",
+                              "flops: even split of the moe dispatch"]
     for r in rows:
         (tmp_path / f"{r['arch']}_{r['shape']}_{r['mesh']}.json").write_text(
             json.dumps(r))
     report.main(["--dir", str(tmp_path)])
     out = capsys.readouterr().out.splitlines()
-    assert out[2 + 4] == ("collective_s counted short (FSDP; ROADMAP Queue "
-                          "C): llama3-8b train_4k pod16x16")
+    assert out[2 + 4:2 + 4 + 2] == [
+        "count short (ROADMAP Queue C): granite-moe-3b-a800m train_4k "
+        "pod16x16: collective: moe one-hot dispatch resharded; flops: even "
+        "split of the moe dispatch",
+        "count short (ROADMAP Queue C): llama3-8b train_4k pod16x16: "
+        "collective: fsdp"]
     assert out[-1].startswith("hillclimb[paper_representative]: llama3-8b")
-    assert out[-1].endswith(" (collective_s short: FSDP)")
+    assert out[-1].endswith(" (count short: collective: fsdp)")
 
 
 def test_hillclimb_iteration_2_shows_the_chunk_knob_moves_nothing(
