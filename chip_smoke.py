@@ -22,7 +22,9 @@ card (ring matmuls, the GPipe pipeline, the int8 compressed all-reduce,
 granite-moe-3b-a800m trained on a (2, 4) mesh through the expert-parallel
 route, deepseek-v3-671b served on a (1, 4) mesh), and the dry run: the
 count of a step's FLOPs, bytes and collectives and its roofline, held
-against the measured step. Without
+against the measured step, and the mesh over processes (tinyllama-1.1b
+trained data-parallel on NCCL at the machine's card count, the process
+route's cases on 4 gloo ranks of its CPU). Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
 
@@ -332,6 +334,19 @@ non-zero and prints no result. Phases, one JSON line each:
                measured ms above ``compute_s`` and ``memory_s``, beside
                ``achievable_step_s`` and ``mfu_bound``; the measured peak
                memory beside the estimate.
+38. ``mesh_processes`` the mesh over processes, spawned after
+               ``free_memory()``: tinyllama-1.1b as phase 7 trains it, 3
+               steps through ``Trainer(mesh=make_process_mesh(n, 1,
+               device="cuda"))`` at n = ``torch.cuda.device_count()``
+               NCCL ranks (each rank its block of the 4 x 2048 batch, one
+               gradient pmean a leaf): at one rank losses and parameters
+               bit-equal to phase 7's one-device step, B3-B5 44 / 22 / 22
+               a step on every rank, ms a step, tokens/s and peak memory
+               beside phase 7's, the collectives, the NCCL version and
+               backend, NCCL's events in ``torch.profiler``; then every
+               case of ``tests/torch_process_cases.py`` on 4 gloo ranks of
+               the CPU (``mesh_processes_gloo``). Only this process
+               prints; a rank that fails fails the phase.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -342,7 +357,8 @@ scan, and of phases 27-30 for the kernels they launch: each path's count
 in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
-``mesh_train``, and phase 37's counted step, ``dryrun``; error, times and
+``mesh_train``, phase 37's counted step, ``dryrun``, and phase 38's
+NCCL step summed over its ranks, ``mesh_processes``; error, times and
 bound per kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises: nothing is caught and passed
@@ -432,6 +448,7 @@ ATT_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 MOE_ARCH, MLA_ARCH = "granite-moe-3b-a800m", "deepseek-v3-671b"
 VISION_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "seamless-m4t-medium"
 DEV = "cuda"                       # every tensor of this script lives here
+RECORD: dict = {}                  # phase 7's numbers, for phase 38
 
 
 def free_memory():
@@ -1591,6 +1608,10 @@ def phase_train(att_timed):
     steady = [r["ms"] for r in rows[1:]]    # the first step is the warm-up
     step_ms = statistics.mean(steady)
     kernel_ms = sum(want[k] * att_timed[k]["ms"] for k in want)
+    RECORD["train"] = {"losses": [r["loss"] for r in rows],
+                       "steady_step_ms": step_ms,
+                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+                       / (step_ms / 1e3), "peak_gb": peak / 1e9}
     emit("train", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
          batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
@@ -4687,6 +4708,211 @@ def phase_dryrun(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 38: the mesh over processes
+# ---------------------------------------------------------------------------
+
+
+PROC_STEPS = 3
+PROC_LOSS_REL = 1e-3      # at two ranks or more: another summation order
+PROC_TIMEOUT_S = 600      # a rank still running then fails the phase
+
+
+def _process_cases():
+    """``tests/torch_process_cases.py``: the CPU cases, and ``run_ranks``,
+    which spawns the ranks of both halves of phase 38."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_process_cases
+    return torch_process_cases
+
+
+def _nccl_profile(step_fn, state, batch):
+    """One more step of ``step_fn`` under ``torch.profiler``: the events
+    whose name says NCCL, with their calls and device microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    return {e.key: {"calls": e.count, "device_us": getattr(
+        e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)}
+        for e in prof.key_averages() if "nccl" in e.key.lower()}
+
+
+def _dp_rank(rank, world, store, out_path):
+    """A rank of phase 38's NCCL data-parallel step (module level: it is
+    pickled by ``spawn``); rank 0 writes the results to ``out_path``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_process_mesh
+    mesh = make_process_mesh(world, 1, device="cuda",
+                             init_method=f"file://{store}", rank=rank,
+                             world_size=world, timeout_s=PROC_TIMEOUT_S)
+    cfg, opt = _train_cfgs()
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    trainer = Trainer(cfg, opt, data,
+                      TrainerConfig(steps=PROC_STEPS, log_every=1),
+                      mesh=mesh, device=DEV)
+    stamps, rows, peaks = [], [], []
+
+    def on_step(m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        rows.append(m)
+        if len(rows) == 1:      # the first step's, with the state's init
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launches()            # the data-parallel path starts here
+    compat.reset_counts()
+    stamps.append(time.perf_counter())
+    _, state = trainer.run(on_step=on_step)
+    launches = dict(att.LAUNCHES)   # read right after it
+    counts = compat.read_counts(reduce=True)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    every = [None] * world
+    dist.all_gather_object(every, (launches, peak, peaks[0]))
+    params = [t.cpu() for t in tree_leaves(state["params"])] \
+        if rank == 0 else None
+    batch = to_device(trainer.batch(PROC_STEPS), DEV)
+    prof = _nccl_profile(trainer.step_fn, state, batch)
+    del state, trainer, batch
+    free_memory()
+    if rank == 0:
+        # phase 7's one-device step on the same state and batches
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        p = init_params(model_template(cfg), gen, dtype=cfg.param_dtype,
+                        device=DEV)
+        one = {"params": p, "opt": adamw.init(opt, p)}
+        step_fn = make_train_step(cfg, opt).step_fn
+        source = SyntheticLM(data)
+        torch.cuda.reset_peak_memory_stats()
+        one_losses, one_ms = [], []
+        for i in range(PROC_STEPS):
+            b = to_device(source.batch(i), DEV)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            one, m = step_fn(one, b)
+            one_losses.append(float(m["loss"]))
+            one_ms.append(1e3 * (time.perf_counter() - t1))
+        one_peak = torch.cuda.max_memory_allocated()
+        same = [torch.equal(a, b.cpu()) for a, b in
+                zip(params, tree_leaves(one["params"]))]
+        gap = max(float((a.double() - b.cpu().double()).abs().max())
+                  for a, b in zip(params, tree_leaves(one["params"])))
+        out = {"world": world, "backend": dist.get_backend(),
+               "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+               "losses": [r["loss"] for r in rows],
+               "grad_norms": [r["grad_norm"] for r in rows],
+               "one_device_losses": one_losses, "step_ms": step_ms,
+               "steady_step_ms": statistics.mean(step_ms[1:]),
+               "one_device_step_ms": one_ms,
+               "one_device_steady_step_ms": statistics.mean(one_ms[1:]),
+               "one_device_peak_gb": one_peak / 1e9,
+               "launches_by_rank": [e[0] for e in every],
+               "peak_gb_by_rank": [e[1] / 1e9 for e in every],
+               "first_step_peak_gb_by_rank": [e[2] / 1e9 for e in every],
+               "collectives": counts, "params_bit_equal": all(same),
+               "leaves_bit_equal": sum(same), "leaves": len(same),
+               "params_max_gap": gap, "profile": prof}
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    dist.barrier(device_ids=[mesh.device.index])
+    dist.destroy_process_group()
+
+
+def phase_mesh_processes(smi):
+    """Phase 38: the mesh over processes (``launch/mesh.py::
+    make_process_mesh``, ``core/compat.py``'s process route). (a) NCCL at
+    ``torch.cuda.device_count()`` ranks, spawned: tinyllama-1.1b as phase 7
+    trains it (full width and depth, 4 x 2048 global, bf16 compute, full
+    remat) for 3 steps through ``Trainer(mesh=make_process_mesh(n, 1,
+    device="cuda"))``, the path ``torchrun ... -m repro_torch.launch.train
+    --data n --model 1`` takes: each rank its block of the batch, one
+    gradient pmean a leaf. At one rank the losses and the final parameters
+    are bit-equal to phase 7's one-device step on the same state and
+    batches (run on rank 0 after it), at more the losses within
+    PROC_LOSS_REL; B3-B5 launch exactly ``train_launches`` a step on every
+    rank (the returned count sums the ranks); ms a step, tokens/s and peak
+    memory beside phase 7's; the collectives by kind (bytes summed over
+    the ranks); the NCCL version and the backend the group reports; what
+    ``torch.profiler`` shows of NCCL in one more step; the peak memory
+    of steps 2-3 and, apart, of the first (with the state's init). (b)
+    gloo on the CPU at 4 ranks: every case of
+    ``tests/torch_process_cases.py`` (the collectives, each body against
+    the stacked route, the data-parallel step on reduced tinyllama-1.1b
+    against the one-device step), held by its ``check``. Returns the NCCL
+    path's attention launches, summed over the ranks."""
+    t0 = time.perf_counter()
+    free_memory()
+    pc = _process_cases()
+    world = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp(prefix="mesh_processes_")
+    try:
+        out_path = os.path.join(tmp, "dp.json")
+        pc.run_ranks(_dp_rank, world, (world, os.path.join(tmp, "store"),
+                                       out_path), PROC_TIMEOUT_S)
+        with open(out_path) as f:
+            dp = json.load(f)
+        nccl_s = time.perf_counter() - t0
+        cfg, _ = _train_cfgs()
+        per_step = train_launches(cfg)
+        # every rank runs the whole model on its block of the batch
+        for r in dp["launches_by_rank"]:
+            assert r == {k: PROC_STEPS * v for k, v in per_step.items()}, \
+                (dp["launches_by_rank"], per_step)
+        launches = {k: sum(r[k] for r in dp["launches_by_rank"])
+                    for k in per_step}
+        assert all(np.isfinite(x) for x in dp["losses"]), dp
+        phase7 = RECORD.get("train", {})
+        if world == 1:
+            assert dp["losses"] == dp["one_device_losses"], dp
+            assert dp["params_bit_equal"], dp
+            if phase7:
+                assert dp["one_device_losses"] == \
+                    phase7["losses"][:PROC_STEPS], (dp, phase7)
+        else:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(
+                dp["losses"], dp["one_device_losses"]))
+            assert rel < PROC_LOSS_REL, dp
+        pmean = dp["collectives"]["pmean"]      # a leaf and the metrics
+        assert pmean["calls"] == PROC_STEPS * (dp["leaves"] + 1), dp
+        emit("mesh_processes", gpu=smi, arch=cfg.name, ranks=world,
+             backend=dp["backend"], nccl_version=dp["nccl_version"],
+             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=PROC_STEPS,
+             losses=dp["losses"], grad_norms=dp["grad_norms"],
+             one_device_losses=dp["one_device_losses"],
+             params_bit_equal=dp["params_bit_equal"],
+             params_max_gap=dp["params_max_gap"],
+             step_ms=dp["step_ms"], steady_step_ms=dp["steady_step_ms"],
+             tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+             / (dp["steady_step_ms"] / 1e3),
+             peak_gb_by_rank=dp["peak_gb_by_rank"],
+             first_step_peak_gb_by_rank=dp["first_step_peak_gb_by_rank"],
+             one_device_steady_step_ms=dp["one_device_steady_step_ms"],
+             one_device_peak_gb=dp["one_device_peak_gb"], phase7=phase7,
+             launches=launches, launches_per_step=per_step,
+             collectives=dp["collectives"], profile=dp["profile"],
+             seconds=nccl_s)
+
+        t1 = time.perf_counter()
+        gloo_dir = os.path.join(tmp, "gloo")
+        os.makedirs(gloo_dir)
+        res = pc.spawn(gloo_dir, timeout_s=PROC_TIMEOUT_S)
+        errs = {name: pc.check(name, res[name]) for name in pc.CASES}
+        emit("mesh_processes_gloo", ranks=pc.WORLD, backend="gloo",
+             torch=torch.__version__, cases=list(pc.CASES), max_err=errs,
+             tolerances=pc.TOL, seconds=time.perf_counter() - t1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
@@ -4708,9 +4934,9 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     training's three attention kernels). ``surface`` holds phases 27-31's
     counts by path (the quickstart per arch, ``kernel_bench``,
     ``multiprecision``, ``attention_long``'s rows and gates), phases 33
-    and 35's (``mesh_pipeline``, ``mesh_train``) and phase 37's counted
-    step (``dryrun``): every row adds those that
-    launched it."""
+    and 35's (``mesh_pipeline``, ``mesh_train``), phase 37's counted
+    step (``dryrun``) and phase 38's NCCL step, summed over its ranks
+    (``mesh_processes``): every row adds those that launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -4906,6 +5132,8 @@ def main():
     surface.update(run_mesh(smi))           # each sets its counts to 0 first
     free_memory()
     surface["dryrun"] = phase_dryrun(smi)   # sets its counts to 0 first
+    free_memory()
+    surface["mesh_processes"] = phase_mesh_processes(smi)  # fresh processes
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,

@@ -30,10 +30,15 @@ backward and the optimizer, and counts:
      forward that reads it and one more in the backward that reads it
      (the gradient products, and the recompute under remat, share it),
      and a reduce-scatter of its gradient; a gradient all-reduce over the
-     mesh axes that replicate the leaf. Each covers the extent of the leaf
-     that the forward and backward read (the hull of their views of it):
-     the one-hot MoE dispatch reads the live experts of a padded table,
-     and the gradients of the other slots are identically zero;
+     batch axes that replicate the leaf, and over ``model`` too where it
+     replicates a leaf that the forward applies to an activation split
+     over ``model`` (a per-head bias: each device holds a partial or
+     sliced gradient), not where the leaf meets replicated activations
+     only (a norm's weight: every device computes its gradient whole).
+     Each covers the extent of the leaf that the forward and backward
+     read (the hull of their views of it): the one-hot MoE dispatch reads
+     the live experts of a padded table, and the gradients of the other
+     slots are identically zero;
   3. tensor parallelism's activation all-reduces: a product whose
      contracting dimension is sharded over the ``model`` axis
      (:data:`MODEL_AXIS`) ends in an all-reduce of its result, forward and
@@ -110,13 +115,12 @@ NOT_COUNTED = frozenset({
 })
 
 # compat's collectives on the real mesh: forward kind -> the reference's
-# kind, and what each one's backward is there
+# kind, and what each one's backward is there (a reduction's, an
+# all-reduce of the cotangent: the reference's transpose of psum is psum)
 _KIND = {"psum": "all-reduce", "pmean": "all-reduce", "pmax": "all-reduce",
          "all_gather": "all-gather", "all_to_all": "all-to-all",
          "ppermute": "collective-permute"}
-_KIND_BWD = {"psum": "broadcast", "pmean": "broadcast", "pmax": "broadcast",
-             "all_gather": "reduce-scatter", "all_to_all": "all-to-all",
-             "ppermute": "collective-permute"}
+_KIND_BWD = {**_KIND, "all_gather": "reduce-scatter"}
 
 
 def ring_bytes(kind: str, result_bytes: float, g: int) -> float:
@@ -131,8 +135,6 @@ def ring_bytes(kind: str, result_bytes: float, g: int) -> float:
         return float(result_bytes) * (g - 1)
     if kind == "collective-permute":
         return float(result_bytes)
-    if kind == "broadcast":       # of a cotangent every device holds
-        return 0.0
     raise ValueError(f"unknown collective kind {kind!r}")
 
 
@@ -439,6 +441,15 @@ class _Run(TorchDispatchMode):
         self.backward_ran = False
         self.explicit = 0           # inside shard_map bodies
         self.tags = WeakIdKeyDictionary()
+        # the leaves replicated over MODEL_AXIS; the forward's tensors made
+        # from them alone (-> their keys) and its activations split over
+        # MODEL_AXIS; the leaves it applies to such activations
+        self.repl = {k for k, (_, axes) in params.items()
+                     if sizes.get(MODEL_AXIS, 1) > 1
+                     and MODEL_AXIS not in (a for e in axes for a in e)}
+        self.derived = WeakIdKeyDictionary()
+        self.sharded = WeakIdKeyDictionary()
+        self.model_partial = set()
         self.live = {}              # storage key -> (weakref, bytes)
         self.live_bytes = 0
 
@@ -500,8 +511,13 @@ class _Run(TorchDispatchMode):
             self.stats.bytes_accessed += sum(
                 _nbytes(t) / state.get(k, n)
                 for t, k in zip(ins + outs, in_keys + out_keys))
+        reduced = False
         if self.tags and not self.explicit:
-            self._propagate(func, name, args, out, ins, outs, in_backward)
+            reduced = self._propagate(func, name, args, out, ins, outs,
+                                      in_backward)
+        if self.repl and not (in_backward or self.backward_ran
+                              or self.explicit):
+            self._mark(ins, in_keys, outs, reduced)
         self._track_live(outs, out_keys)
         return out
 
@@ -531,7 +547,34 @@ class _Run(TorchDispatchMode):
         self.stats.add_collective("all-reduce", _nbytes(out) * g / self.n, g,
                                   _type(out))
 
+    def _mark(self, ins, keys, outs, reduced):
+        """Follow the forward's split activations (an operation on one is
+        split too, unless its result was all-reduced) and its tensors made
+        from replicated leaves alone; a leaf that meets a split activation
+        has a gradient that is partial or sliced on each device."""
+        leaves, split, other = set(), False, False
+        for t, k in zip(ins, keys):
+            if k in self.repl:
+                leaves.add(k)
+            elif t in self.derived:
+                leaves |= self.derived[t]
+            elif t in self.tags or t in self.sharded:
+                split = True
+            else:
+                other = True
+        if split and leaves:
+            self.model_partial |= leaves
+        if split and not reduced:
+            for t in outs:
+                self.sharded[t] = True
+        elif leaves and not (split or other):
+            for t in outs:
+                self.derived[t] = frozenset(leaves)
+
     def _propagate(self, func, name, args, out, ins, outs, in_backward):
+        """Carry the ``model`` tags from ``ins`` to ``outs``, deriving the
+        all-reduce that ends an operation on sharded operands; True where
+        one did (the result is replicated)."""
         tagged = [t for t in ins if t in self.tags]
         if not tagged or not outs:
             return
@@ -546,9 +589,22 @@ class _Run(TorchDispatchMode):
             contracted = _axes(ta[-1], tb[-2])
             if contracted:
                 self._all_reduce(contracted, out)
-                return
+                return True
             new = ta[:-1] + (tb[-1],) if a.dim() == 2 else \
                 (ta[0] | tb[0], ta[1], tb[2])
+        elif name in _VOCAB_REDUCTIONS:
+            # the cross-entropy's reductions over a model-sharded dimension
+            # (the logits' vocab): each device reduces its shard, and the
+            # partial results are all-reduced, in the forward only (the
+            # backward of each is elementwise, or a scatter into the local
+            # shard)
+            if xt is None or in_backward:
+                return
+            dims = args[1] if name == "logsumexp" else [args[1]]
+            reduced = _axes(*(xt[d % x.dim()] for d in dims))
+            for _ in range(_VOCAB_REDUCTIONS[name] if reduced else 0):
+                self._all_reduce(reduced, out)
+            return bool(reduced)
         elif name in _LOOKUP_NAMES:
             # the table is args[0]; the result, the sum of the shards'
             # rows, is replicated
@@ -561,7 +617,7 @@ class _Run(TorchDispatchMode):
             if looked_up:
                 self._all_reduce(looked_up, out)
                 self.stats.lookups += 1
-            return
+            return bool(looked_up)
         elif xt is None:
             new = None
         elif name in ("detach", "alias", "_to_copy", "clone", "slice",
@@ -599,6 +655,9 @@ class _Run(TorchDispatchMode):
 
 _PRODUCT_NAMES = {"mm", "addmm", "bmm", "baddbmm"}
 _LOOKUP_NAMES = {"index", "embedding", "index_select"}
+# all-reduces of the result: logsumexp's running max and its sum of
+# exponentials, gather's (the gold logit) one
+_VOCAB_REDUCTIONS = {"logsumexp": 2, "gather": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -698,7 +757,14 @@ def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
                                   times=gathers)
             if run.backward_ran:
                 st.add_collective("reduce-scatter", shard, g_f, label)
-        repl = [a for a in sizes if a not in used and sizes[a] > 1]
+        # over the batch axes that replicate the leaf, and over model for a
+        # leaf replicated there that the forward applied to an activation
+        # split over it (its gradient is partial or sliced on each device);
+        # one applied to replicated activations alone (a norm's weight)
+        # has its gradient whole on every device
+        repl = [a for a in batch_axes if a not in used and sizes[a] > 1]
+        if k in run.model_partial:
+            repl.append(MODEL_AXIS)
         g_r = math.prod(sizes[a] for a in repl)
         if run.backward_ran and g_r > 1:
             st.add_collective("all-reduce", shard, g_r, label)

@@ -10,6 +10,16 @@ without one). With ``--data/--model`` the trainer takes a (data, model)
 mesh, held as tensor dimensions on the one device (``launch/mesh.py``):
 the mixture-of-experts configs then train on the expert-parallel route
 where the reference takes it.
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) ``--data N --model
+1`` takes a mesh of processes instead (``launch.mesh.make_process_mesh``:
+NCCL on the cards, gloo with ``--device cpu``) and trains data-parallel,
+each rank on its block of the batch; the kernels are built by each
+machine's local rank 0 while the others wait, and only rank 0 prints and
+writes checkpoints:
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --reduced --device cpu --data 4 --model 1 --steps 3
+
 ``--reduced --device cpu`` runs the smoke-scale config on the CPU as a
 rehearsal. With ``--ckpt-dir`` the run saves every ``--ckpt-every`` steps
 and at its end, and resumes from the latest checkpoint found there.
@@ -17,6 +27,7 @@ and at its end, and resumes from the latest checkpoint found there.
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None):
@@ -40,7 +51,7 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import make_mesh, make_process_mesh
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -54,8 +65,13 @@ def main(argv=None):
             over["head_dim"] = max(args.d_model // 4, 8)
         cfg = reduced(cfg, **over)
 
-    mesh = None
-    if args.data and args.model:
+    mesh, rank0 = None, True
+    if args.data and args.model and "WORLD_SIZE" in os.environ:
+        mesh = make_process_mesh(args.data, args.model, device=args.device)
+        rank0 = mesh.rank == 0
+        if mesh.device.type == "cuda":
+            build_on_local_rank0(mesh)
+    elif args.data and args.model:
         mesh = make_mesh(args.data, args.model)
 
     data_cfg = DataConfig(seq_len=args.seq_len, global_batch=args.batch,
@@ -70,13 +86,28 @@ def main(argv=None):
                       device=args.device)
 
     def log(m):
+        if not rank0:
+            return
         print(f"step {m['step']:5d} loss {m['loss']:.4f} "
               f"ce {m['ce']:.4f} lr {m['lr']:.2e} gnorm {m['grad_norm']:.2f}"
               + (" [STRAGGLER]" if m.get("straggler") else ""), flush=True)
 
     step, _ = trainer.run(on_step=log)
-    print(f"done at step {step}; median step time "
-          f"{trainer.monitor.median*1000:.1f} ms")
+    if rank0:
+        print(f"done at step {step}; median step time "
+              f"{trainer.monitor.median*1000:.1f} ms")
+    if trainer.process:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def build_on_local_rank0(mesh):
+    """Each machine's local rank 0 builds the kernels while its other ranks
+    wait, so that they never race to write the same libraries."""
+    from repro_torch.kernels import build
+    if int(os.environ.get("LOCAL_RANK", mesh.rank)) == 0:
+        build.build()
+    mesh.barrier()
 
 
 if __name__ == "__main__":

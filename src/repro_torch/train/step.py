@@ -15,6 +15,19 @@ tensors). The reference hands them to ``jax.jit`` as shardings; one card
 holds every leaf whole, so here they describe the layout
 (``named_for`` gives each leaf's shard shape) and place nothing.
 
+On a mesh of processes (``launch.mesh.make_process_mesh``) the step is
+the reference's data-parallel step (``Trainer(mesh=make_mesh(n, 1))``
+with ``fsdp=False``: the batch sharded over the batch axes, the
+parameters replicated): each rank holds its block of the batch (the
+batch axes are declared local, ``core.compat.ProcessMesh.with_local``),
+runs the same forward and backward on it, and averages every gradient
+leaf over the batch axes in place (``core.compat.pmean_in_place``, one
+call a leaf, counted as ``pmean``), and the loss metrics in one more;
+AdamW then updates the same parameters on every rank. A ``model`` axis
+above 1, FSDP or a mixture-of-experts model there raises
+``NotImplementedError``: the MoE layers' routing statistics and
+dispatch groups span the global batch, which a rank's block does not.
+
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
 the frontend's embeddings in the batch. With a mesh, MLA's prefill runs
@@ -23,16 +36,21 @@ its lane-local route (``models.attention.mla_chunked``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import compat
 from repro_torch.core.compat import PartitionSpec as PS
 from repro_torch.core.precision import torch_dtype
 from repro_torch.core.stripmine import stripmined_grads
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (P, abstract_params, param_specs,
-                                       tree_map, value_and_grad)
+                                       tree_leaves, tree_map,
+                                       value_and_grad)
 from repro_torch.models.sharding import (MeshCtx, kv_cache_rules,
                                          make_rules)
 from repro_torch.models.sharding import named_sharding_tree as named
@@ -175,15 +193,57 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
             "opt": {"m": pspecs, "v": pspecs, "step": PS()}}
 
 
+def _check_data_parallel(cfg: ArchConfig, ctx: MeshCtx):
+    """The process route trains data-parallel only, for now."""
+    if ctx.n_lanes > 1:
+        raise NotImplementedError(
+            f"a process mesh with {ctx.model_axis}={ctx.n_lanes}: tensor "
+            f"parallelism over processes (ROADMAP Queue A, A13c, the "
+            f"model axis) is not ported; the step takes a model axis of 1")
+    if cfg.fsdp:
+        raise NotImplementedError(
+            "fsdp=True on a process mesh: FSDP over processes (ROADMAP "
+            "Queue A, A13c) is not ported")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} on a process mesh: its MoE layers route and "
+            f"group the global batch's tokens (the Switch aux loss, the "
+            f"dispatch capacity), which a rank's block does not hold; the "
+            f"MoE train step over processes (ROADMAP Queue A, A13c, the EP "
+            f"and MLA steps) is not ported")
+
+
+def mean_over_batch(grads, metrics: dict, mesh, batch_axes) -> tuple:
+    """Each rank's gradients and loss metrics of its block of the batch ->
+    the global batch's, on every rank, in place: one
+    ``compat.pmean_in_place`` a gradient leaf and one for the metrics
+    (stacked in their widest dtype, each cast back)."""
+    keys = sorted(metrics)
+    wide = functools.reduce(torch.promote_types,
+                            (metrics[k].dtype for k in keys))
+    stacked = torch.stack([metrics[k].to(wide) for k in keys])
+    compat.pmean_in_place(list(tree_leaves(grads)) + [stacked], mesh,
+                          batch_axes)
+    return grads, {k: stacked[i].to(metrics[k].dtype)
+                   for i, k in enumerate(keys)}
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
                     ctx: Optional[MeshCtx] = None, grad_accum: int = 1,
                     attn: Optional[AttnOverrides] = None) -> TrainStepBundle:
     """state = {"params", "opt"} (trees of tensors on one device), batch =
     {"tokens", "labels"} (B,S) integer tensors on the same device. The
     state's tensors are updated in place (see ``optim.adamw.update``) and
-    returned. ``ctx`` None is one device."""
+    returned. ``ctx`` None is one device. On a process mesh the batch is
+    the rank's block and the step is data-parallel (see the module's
+    docstring)."""
     ctx = ctx or MeshCtx(mesh=None)
     cfg = apply_attn_overrides(cfg, attn)
+    process = compat.is_process_mesh(ctx.mesh)
+    if process:
+        _check_data_parallel(cfg, ctx)
+        ctx = dataclasses.replace(
+            ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
 
     def loss_fn(params, batch):
         return tf.lm_loss(cfg, params, batch, ctx=ctx)
@@ -195,6 +255,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
                 loss_fn, params, batch, grad_accum)
         else:
             (loss, metrics), grads = value_and_grad(loss_fn)(params, batch)
+        if process:
+            with torch.no_grad():
+                grads, metrics = mean_over_batch(
+                    grads, dict(metrics, loss=loss), ctx.mesh,
+                    ctx.batch_axes)
+            loss = metrics.pop("loss")
         new_params, new_opt, opt_metrics = adamw.update(
             opt_cfg, grads, state["opt"], params)
         metrics = dict(metrics, loss=loss, **opt_metrics)

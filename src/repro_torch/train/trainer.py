@@ -12,11 +12,17 @@ With ``mesh=`` (``launch.mesh.make_mesh``) the step is the reference's
 sharded step (``train.step.make_train_step`` with a ``MeshCtx``), the mesh
 held as tensor dimensions on the one device; ``state_sharding`` is the
 reference's sanitized spec tree (each leaf's shard shape), which the
-restore checks.
+restore checks. With a mesh of processes (``launch.mesh.
+make_process_mesh``; the rank's device is the mesh's) the step is
+data-parallel: each rank takes its block of every global batch from the
+same source (the rows of its coordinate along the batch axes), only rank
+0 writes checkpoints, with a barrier before the next step, and every rank
+restores.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import compat
 from repro_torch.core.stripmine import fuse_steps as _fuse
 from repro_torch.data.pipeline import DataConfig, make_source, to_device
 from repro_torch.device import resolve_device
@@ -53,7 +60,23 @@ class Trainer:
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.process = compat.is_process_mesh(mesh)
+        if self.process:
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"Trainer: device {device!r} on a process "
+                                 f"mesh of {mesh.device}")
+            self.device = mesh.device
+            n = math.prod(mesh.shape[a] for a in batch_axes)
+            if data_cfg.global_batch % n:
+                raise ValueError(f"Trainer: a global batch of "
+                                 f"{data_cfg.global_batch} does not split "
+                                 f"over {n} ranks")
+            rows, block = data_cfg.global_batch // n, mesh.block(batch_axes)
+            self.rows = slice(block * rows, (block + 1) * rows)
+        else:
+            self.device = resolve_device(device)
+            self.rows = slice(None)
         self.mesh = mesh
         self.ctx = MeshCtx(mesh=mesh, batch_axes=batch_axes)
         self.bundle = step_lib.make_train_step(cfg, opt_cfg, self.ctx,
@@ -83,6 +106,11 @@ class Trainer:
                 return step, state
         return 0, self.init_state()
 
+    def batch(self, step: int) -> dict:
+        """The global batch of ``step``, or on a process mesh the rank's
+        block of it (numpy)."""
+        return {k: v[self.rows] for k, v in self.source.batch(step).items()}
+
     # -- loop ---------------------------------------------------------------
 
     def run(self, on_step: Optional[Callable] = None):
@@ -95,14 +123,14 @@ class Trainer:
             self.monitor.start_step()
             if fused is not None:
                 k = min(t.fuse_steps, t.steps - step)
-                batches = [self.source.batch(step + i) for i in range(k)]
+                batches = [self.batch(step + i) for i in range(k)]
                 stacked = {key: np.stack([b[key] for b in batches])
                            for key in batches[0]}
                 state, metrics = fused(state, to_device(stacked, self.device))
                 metrics = {key: v[-1] for key, v in metrics.items()}
                 step += k
             else:
-                batch = to_device(self.source.batch(step), self.device)
+                batch = to_device(self.batch(step), self.device)
                 state, metrics = self.step_fn(state, batch)
                 step += 1
             # float() waits for the step's device work
@@ -119,8 +147,13 @@ class Trainer:
                     pending_save.join()
                 # the state is on the host when save returns: the next
                 # step's in-place update cannot reach the checkpoint
-                pending_save = ckpt.save(t.ckpt_dir, step, state,
-                                         blocking=False)
+                if not self.process or self.mesh.rank == 0:
+                    pending_save = ckpt.save(t.ckpt_dir, step, state,
+                                             blocking=False)
+                if self.process:
+                    self.mesh.barrier()
         if pending_save is not None:
             pending_save.join()
+        if self.process and t.ckpt_dir:
+            self.mesh.barrier()     # the last checkpoint is whole
         return step, state

@@ -6,8 +6,8 @@
   step: FLOPs within 1 % on one device for reduced tinyllama-1.1b,
   granite-moe-3b-a800m, zamba2-7b and deepseek-v3-671b (train, prefill,
   decode) and per device on the meshes (4,1), (1,4), (2,2); the collective
-  bytes of the train step within 1 % on (4,1) and (1,4) and 0.2 % on
-  (2,2), and FSDP at (4,1) pinned at its measured ratio (ROADMAP Queue C);
+  bytes of the train step within 1e-4 on (4,1), (1,4) and (2,2), and FSDP
+  at (4,1) pinned at its measured ratio (ROADMAP Queue C);
   every kind of step that the dry run counts on a mesh (``CELLS``: prefill,
   decode, the MoE, MLA and hybrid train steps), each within 1 % or pinned
   at its measured ratio with its cause, and flagged where its count is
@@ -85,7 +85,13 @@ CELLS = {
     "zamba2-7b train 1x4": ("zamba2-7b", "train", 1, 4),
 }
 FLOPS_TOL = 0.01
-COLL_TOL = {"4x1": 0.01, "1x4": 0.01, "2x2": 0.002,
+# tinyllama-1.1b's train step and granite-moe-3b-a800m's on (1,4) within
+# 1e-4: the count derives the cross-entropy's reductions over the
+# vocab-sharded logits and no model all-reduce for a gradient every device
+# computes whole (ROADMAP Queue C, open fault 1); the reference's 6 bytes
+# left on (1,4) are a f32[] member of its gold logits' tuple all-reduce
+COLL_TOL = {"4x1": 1e-4, "1x4": 1e-4, "2x2": 1e-4,
+            "granite-moe-3b-a800m train 1x4": 1e-4,
             "tinyllama-1.1b prefill 1x4": 0.01,
             "tinyllama-1.1b decode 1x4": 0.01,
             "zamba2-7b train 4x1": 0.01}
@@ -120,32 +126,35 @@ COLL_PINNED = {
         "decode: all-reduces of (8,16,4,1) scores and (8,4,1) and "
         "all-gathers of (8,1,4,16) and (8,1,4,8), 11,616 bytes"),
     "deepseek-v3-671b train 2x2": (
-        0.17852, 0.34679,
+        0.17737, 0.34420,
         "FSDP (open fault 2): the partitioner moves activations where the "
         "port gathers weights, plus an all-to-all of 1,146,880 and "
-        "collective-permutes of 401,408"),
+        "collective-permutes of 401,408 (0.17852 / 0.34679 while the "
+        "replicated leaves' gradients were all-reduced over model and the "
+        "cross-entropy's vocab reductions were not derived)"),
     "granite-moe-3b-a800m train 4x1": (
         0.51074, 0.51690,
         "the reference all-reduces the one-hot dispatch's buffers over "
         "data, f32[1,4,320,64] and f32[1,64,4,320], 1,474,560 bytes (its "
         "one group cannot split over data), and all-gathers 36,864; the "
         "gradient reductions agree (test below)"),
-    "granite-moe-3b-a800m train 1x4": (
-        0.99913, 0.99913,
-        "the expert buffers' all-reduces over the model-sharded experts "
-        "match (2,949,120 each side); the reference's vocab-sharded "
-        "cross-entropy reductions (9,222) against the port's norm-gradient "
-        "reductions (4,992)"),
     "granite-moe-3b-a800m train 2x2": (
-        0.50135, 0.50422,
+        0.50168, 0.50454,
         "the reference all-reduces the dispatch's buffers over data as "
         "well as model (2,949,120 where the port derives 983,040 over "
-        "model), and all-gathers 24,576"),
+        "model), and all-gathers 24,576 (0.50135 / 0.50422 while the "
+        "replicated leaves' gradients were all-reduced over model and the "
+        "cross-entropy's vocab reductions were not derived)"),
     "zamba2-7b train 1x4": (
-        0.55900, 0.95253,
+        0.56073, 0.95547,
         "the reference reshards the Mamba2 blocks' split projections under "
         "model: collective-permutes of 1,228,800 and all-gathers of "
-        "516,528"),
+        "516,528; the port all-reduces over model the gradients of "
+        "a_log, d_skip and dt_bias, replicated leaves applied to the "
+        "per-head activations (0.55900 / 0.95253 while the norms' "
+        "gradients were all-reduced over model too and the "
+        "cross-entropy's vocab reductions were not derived; 0.56066 / "
+        "0.95535 while no replicated leaf's gradient was)"),
 }
 # the terms each cell's count is known short of (``count_short``)
 _MOE = ["collective: moe one-hot dispatch resharded",
@@ -240,6 +249,20 @@ for key, (d, m, fsdp) in %(meshes)r.items():
 for key, (a, kind, d, m) in %(cells)r.items():
     out[key] = compile_cell(reduced(get_config(a)),
                             ShapeConfig(kind, 64, 8, kind), make_mesh(d, m))
+# the backward of a shard_map's psum / pmean: the gradient program alone
+from jax.sharding import PartitionSpec as P
+from repro.core.compat import shard_map
+mesh14 = make_mesh(1, 4)
+for kind in ("psum", "pmean"):
+    def loss(x, w, op=getattr(jax.lax, kind)):
+        y = shard_map(lambda s: op(s, "model"), mesh=mesh14,
+                      in_specs=(P("model"),), out_specs=P("model"),
+                      check_vma=False)(x)
+        return jnp.sum(y * w)
+    comp = jax.jit(jax.grad(loss)).lower(jnp.ones((32, 6)),
+                                         jnp.ones((32, 6))).compile()
+    out[kind + " backward"] = dict(
+        analyze(comp.as_text(), n_devices=4).collective_by_kind)
 print("REF", json.dumps(out))
 ''' % {"archs": ARCHS, "kinds": KINDS, "meshes": MESHES, "cells": CELLS}
 
@@ -385,6 +408,116 @@ def test_a_lookup_into_a_model_sharded_table_all_reduces_once(op):
     st = analyze(step, table, ids, n_devices=4, mesh=mesh,
                  specs=(PS(None, "model"), None), params=table)
     assert st.collective_count == 0 and st.lookups == 0
+
+
+@pytest.mark.parametrize("sharded", (True, False))
+def test_the_cross_entropys_vocab_reductions_all_reduce(sharded):
+    """Logits whose vocab is sharded over ``model`` (an unembedding
+    sharded on its output dimension): the cross-entropy's logsumexp
+    all-reduces its result twice (the running max and the sum of
+    exponentials) and the gold logit's gather once, in the forward; their
+    backward moves nothing (nor does the unembedding's gradient, which
+    contracts tokens; the input takes none here). With the vocab
+    replicated nothing moves."""
+    b, s, d, v = 8, 5, 16, 64
+    x = torch.empty((b, s, d), device="meta")
+    w = torch.empty((d, v), device="meta", requires_grad=True)
+    labels = torch.empty((b, s), dtype=torch.long, device="meta")
+
+    def step(x, w, labels):
+        tf._ce(x @ w, labels).backward()
+    st = analyze(step, x, w, labels, n_devices=4, mesh=make_mesh(1, 4),
+                 specs=(None, PS(None, "model" if sharded else None), None),
+                 params=w)
+    if not sharded:
+        assert st.collective_count == 0
+        return
+    moved = 2 * (b * s * 4) * 3 / 4                 # one f32 (b, s) result
+    assert dict(st.collective_by_kind) == {"all-reduce": 3 * moved}
+    assert sorted(k for k, _ in st.top_collectives) == [
+        f"all-reduce float32[{b}, {s}, 1] g=4"] + [
+        f"all-reduce float32[{b}, {s}] g=4"] * 2
+
+
+@pytest.mark.parametrize("mesh", ((1, 4), (4, 1), (2, 2)))
+def test_a_norm_weights_gradient_is_all_reduced_over_the_batch_axes(mesh):
+    """A norm weight scales replicated activations: every device computes
+    its gradient whole from them, so it is all-reduced over the batch axes
+    that split the tokens and never over ``model``."""
+    d = 16
+    x = torch.empty((8, 5, d), device="meta", requires_grad=True)
+    g = torch.empty((d,), device="meta", requires_grad=True)
+
+    def step(x, g):
+        (x * g).square().sum().backward()
+    data, model = mesh
+    st = analyze(step, x, g, n_devices=data * model,
+                 mesh=make_mesh(data, model), specs=(PS("data"), None),
+                 params=g)
+    if data == 1:
+        assert st.collective_count == 0
+        return
+    assert dict(st.collective_by_kind) == {
+        "all-reduce": 2 * d * 4 * (data - 1) / data}
+    assert [k for k, _ in st.top_collectives] == [
+        f"all-reduce float32[{d}] g={data}"]
+
+
+@pytest.mark.parametrize("mesh", ((1, 4), (2, 2)))
+def test_a_replicated_bias_on_a_split_activation_is_all_reduced_over_model(
+        mesh):
+    """A leaf replicated over ``model`` that the forward adds to an
+    activation split over it (a bias on a column-sharded product's
+    result, as Mamba2's ``dt_bias`` on the per-head ``dt``): each device
+    holds only its slice of the bias's gradient, so it is all-reduced
+    over ``model`` as well as the batch axes; the norm weight beside it,
+    applied to the replicated input, over the batch axes only."""
+    d, h = 16, 32
+    x = torch.empty((8, 5, d), device="meta")
+    p = {"g": torch.empty((d,), device="meta", requires_grad=True),
+         "w1": torch.empty((d, h), device="meta", requires_grad=True),
+         "b": torch.empty((h,), device="meta", requires_grad=True),
+         "w2": torch.empty((h, d), device="meta", requires_grad=True)}
+
+    def step(x, p):
+        y = torch.tanh((x * p["g"]) @ p["w1"] + p["b"]) @ p["w2"]
+        y.sum().backward()
+    data, model = mesh
+    st = analyze(step, x, p, n_devices=data * model,
+                 mesh=make_mesh(data, model),
+                 specs=(PS("data"), {"g": None, "w1": PS(None, "model"),
+                                     "b": None, "w2": PS("model", None)}),
+                 params=p)
+    labels = [k for k, _ in st.top_collectives]
+    assert [k for k in labels if k.startswith("all-reduce float32[32] ")] \
+        == [f"all-reduce float32[{h}] g={data * model}"]
+    assert [k for k in labels if k.startswith("all-reduce float32[16] ")] \
+        == ([f"all-reduce float32[{d}] g={data}"] if data > 1 else [])
+
+
+@pytest.mark.parametrize("kind", ("psum", "pmean"))
+def test_a_reductions_backward_moves_what_the_references_does(ref, kind):
+    """The backward of a ``shard_map``'s psum / pmean on (1,4) is an
+    all-reduce of the cotangent: the port's count of it (forward and
+    backward less forward) equals the reference's gradient program's."""
+    mesh = make_mesh(1, 4)
+
+    def run(backward):
+        x = torch.ones((32, 6), requires_grad=True)
+        w = torch.ones((32, 6))
+
+        def step(x):
+            op = getattr(compat, kind)
+            y = compat.shard_map(lambda s: op(s, "model"), mesh=mesh,
+                                 in_specs=(PS("model"),),
+                                 out_specs=PS("model"))(x)
+            if backward:
+                (y * w).sum().backward()
+        return analyze(step, x, n_devices=4, mesh=mesh, target="cpu")
+    both, fwd = run(True), run(False)
+    got = both.collective_by_kind["all-reduce"] \
+        - fwd.collective_by_kind["all-reduce"]
+    assert got == ref[kind + " backward"]["all-reduce"] == 288.0
 
 
 def test_a_product_over_tokens_derives_no_collective():
@@ -739,9 +872,10 @@ def _plain(kind, x, d, lead, n):
                                   "all_to_all", "ppermute"))
 def test_each_collective_counts_its_backward(kind):
     """The backward is the real mesh's collective for it, counted under
-    the forward's kind (the reductions' broadcast moves no bytes; the
-    others as many as their forward), and its gradient is the one autograd
-    took through the plain stacked operation, bit for bit."""
+    the forward's kind (as many bytes as the forward: the reductions' an
+    all-reduce of the cotangent, pmax's with its tie mask, twice as many),
+    and its gradient is the one autograd took through the plain stacked
+    operation, bit for bit."""
     mesh = make_mesh(2, 4)
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(32, 6)).float()     # (4, 6) a device
@@ -772,7 +906,7 @@ def test_each_collective_counts_its_backward(kind):
             bwd = dict(compat.CALLS_BWD), dict(compat.BYTES_BWD)
     assert torch.equal(grads[0], grads[1])
     assert fwd[0][kind] == 1 and bwd[0] == {kind: 1}
-    want = 0 if kind in ("psum", "pmean", "pmax") else fwd[1][kind]
+    want = fwd[1][kind] * (2 if kind == "pmax" else 1)
     assert bwd[1].get(kind, 0) == want and fwd[1][kind] > 0
 
 

@@ -18,7 +18,9 @@ PKG = REPO / "src" / "repro_torch"
 # experiments
 SCRIPTS = sorted(p for d in ("benchmarks", "tools", "examples", "experiments")
                  for p in (REPO / d).glob("torch_*.py"))
-FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
+# the process route's cases, which chip_smoke.py runs on the chip machine
+FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS \
+    + [REPO / "tests" / "torch_process_cases.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
 
 
@@ -99,7 +101,8 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/core/partition.py",
                  "src/repro_torch/launch/dryrun.py",
                  "src/repro_torch/launch/report.py",
-                 "experiments/torch_hillclimb.py"):
+                 "experiments/torch_hillclimb.py",
+                 "tests/torch_process_cases.py"):
         assert must in names
 
 

@@ -1,0 +1,196 @@
+"""PyTorch port, the mesh over processes: ``core/compat.py``'s process
+route (``launch/mesh.py::make_process_mesh``, gloo on the CPU), every body
+that the stacked route runs, unchanged, and the data-parallel train step.
+
+One module fixture spawns 4 gloo ranks once and runs every case of
+``tests/torch_process_cases.py`` there; each case also runs on rank 0 on
+the stacked route (or the one-device step) on the same inputs. Held:
+each collective and its backward on (2,2) and (4,1) (float32 to 1e-6,
+integers exact), the ring matmuls to 1e-5, the compressed all-reduce's
+``q`` bit-equal and its mean and residual to 1e-6, the pipeline's loss and
+gradients over 4 stages to 1e-6, the expert-parallel MoE on (2,2) to 1e-5,
+lane-local MLA's prefill and decode on (1,4) to 1e-4, and in every case
+the collectives' calls a rank and bytes summed over the ranks equal to
+the stacked route's, forward and backward; the local-axes rule; the
+data-parallel step on (4,1) against the one-device step (float32 loss and
+grad norm to 1e-5 relative, float64 parameters to 1e-10) and its
+gradient all-reduce's bytes against the dry run's count; and what the
+route refuses. The reference is not run here: the stacked route and the
+one-device step are held against it in ``tests/test_torch_mesh.py``,
+``tests/test_torch_pipeline.py`` and ``tests/test_torch_train.py``.
+"""
+import pytest
+import torch
+
+import torch_process_cases as pc
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import compat
+from repro_torch.core.compat import ProcessMesh
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh, make_process_mesh
+
+pytestmark = pytest.mark.torch
+torch.set_num_threads(1)
+
+
+def _collective_tags():
+    tags = []
+    for shape, axes_list in pc.COLLECTIVE_AXES.items():
+        for axes in axes_list:
+            for kind in pc.KINDS:
+                if kind in ("all_gather", "all_to_all", "ppermute") \
+                        and isinstance(axes, tuple):
+                    continue
+                tags.append(f"{shape} {axes} {kind}")
+                if kind in pc.INT_KINDS:
+                    tags.append(f"{shape} {axes} {kind} int")
+    return tags
+
+
+@pytest.fixture(scope="module")
+def res(tmp_path_factory):
+    return pc.spawn(str(tmp_path_factory.mktemp("processes")))
+
+
+def _case(res, name):
+    got = res[name]
+    if "error" in got:
+        raise AssertionError(f"case {name} raised on rank 0:\n{got['error']}")
+    return got
+
+
+@pytest.mark.parametrize("tag", _collective_tags())
+def test_each_collective_and_its_backward_match_the_stacked_route(res, tag):
+    """The body ``collective(x) * w`` (``w`` differs on every device), its
+    output and the gradient of its sum; calls a rank and bytes summed over
+    the ranks equal to the stacked route's, forward and backward."""
+    pc.check_pair("collectives", tag, _case(res, "collectives")[tag])
+
+
+@pytest.mark.parametrize("tag", ["ag g1", "ag g2", "ag g4", "rs"])
+def test_ring_matmuls_run_unchanged_on_processes(res, tag):
+    """``core/chaining.py`` on (1,4): ``_dot``'s replicated operand and
+    ``idx.numel()`` read the rank's stacks of extent 1."""
+    pc.check_pair("chaining", tag, _case(res, "chaining")[tag])
+
+
+@pytest.mark.parametrize("tag", ["comp0", "comp1"])
+def test_compressed_psum_runs_unchanged_on_processes(res, tag):
+    """``q`` (int8, at the all_to_all) bit-equal; mean and residual to
+    1e-6."""
+    pc.check_pair("compression", tag, _case(res, "compression")[tag])
+
+
+def test_pipeline_loss_over_four_stages_on_processes(res):
+    pc.check_pair("pipeline", "pipe", _case(res, "pipeline")["pipe"])
+
+
+def test_moe_ep_on_a_two_by_two_process_mesh(res):
+    """Output, aux and the gradients of the tokens and of the gate table;
+    three all_to_all a chunk a rank."""
+    pair = _case(res, "moe_ep")["ep"]
+    pc.check_pair("moe_ep", "ep", pair)
+    fwd, _ = pair["proc"][1]
+    assert fwd["all_to_all"]["calls"] == 3 * (64 // 4 // 4)
+
+
+def test_lane_local_mla_prefill_and_decode_on_processes(res):
+    pair = _case(res, "mla")["mla"]
+    pc.check_pair("mla", "mla", pair)
+    assert pair["proc"][1][0]["shard_map"]["calls"] == 2    # one a layer
+
+
+def test_local_axes_leave_a_ranks_own_block_alone(res):
+    """With ``data`` local, a rank's own rows in give its own rows of the
+    global output out, and the gradient of its rows; with no local axis
+    the body takes and gives global tensors."""
+    errs = pc.check("local_axes", _case(res, "local_axes"))
+    assert set(errs) == {"local y", "local grad", "global"}
+
+
+def test_data_parallel_step_matches_the_one_device_step(res):
+    pc.check("dp_train", _case(res, "dp_train"))
+
+
+def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
+    """The step's pmean bytes, summed over the ranks, less the loss
+    metrics' one call, equal the dry run's gradient all-reduces on (4,1)
+    for the same cell, times its 4 devices."""
+    dp = _case(res, "dp_train")
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    shape = ShapeConfig("train", pc.DP["seq_len"], pc.DP["global_batch"],
+                        "train")
+    st = dryrun.count_step(cfg, shape, make_mesh(4, 1), target="cpu")
+    assert set(st.collective_by_kind) == {"all-reduce"}
+    steps, n = pc.DP["steps"], pc.WORLD
+    got = dp["f32"]["counts"][0]["pmean"]["bytes"] / steps \
+        - pc.metric_bytes(3, 4, n)            # loss, ce, aux in float32
+    assert got == pytest.approx(n * st.collective_by_kind["all-reduce"],
+                                rel=0, abs=n), (got, st.collective_by_kind)
+
+
+def test_what_the_process_route_refuses(res):
+    """A wrong world size, a model axis, FSDP or a MoE model in the DP
+    step, a collective outside a body, and device "cuda" on the gloo
+    group, each with its own text."""
+    got = _case(res, "refusals")
+    assert got["outside"] == "a collective runs only inside shard_map's body"
+    assert "granite-moe-3b-a800m on a process mesh" in got["moe"]
+    pc.check("refusals", got)
+
+
+def test_the_process_mesh_answers_as_a_mesh():
+    """Row-major coordinates, the shape the spec helpers read, and the
+    local axes; no process group is needed to ask."""
+    mesh = ProcessMesh(("data", "model"), (2, 3), 4, torch.device("cpu"), {})
+    assert mesh.shape == {"data": 2, "model": 3}
+    assert mesh.coords_of(4) == (1, 1) and mesh.coord("model") == 1
+    assert [mesh.coords_of(r) for r in range(6)] == [
+        (d, m) for d in range(2) for m in range(3)]
+    assert mesh.with_local(("data",)).local == ("data",)
+    with pytest.raises(ValueError, match="not in the mesh"):
+        mesh.with_local(("pod",))
+    assert compat.is_process_mesh(mesh)
+    assert not compat.is_process_mesh(make_mesh(2, 3))
+
+
+def test_make_process_mesh_refuses_before_joining(monkeypatch):
+    """Outside torchrun and without an init method it raises; so does a
+    world of the wrong size, before any group is joined."""
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="not under torchrun"):
+        make_process_mesh(2, 1, device="cpu")
+    with pytest.raises(ValueError, match="needs 2 processes, the world has 3"):
+        make_process_mesh(2, 1, device="cpu", init_method="file:///nowhere",
+                          rank=0, world_size=3)
+    with pytest.raises(ValueError, match="no process route"):
+        make_process_mesh(1, 1, device="meta")
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_each_rank_trains_on_its_block_of_the_global_batch():
+    """On a (4,1) process mesh the Trainer takes the rows of its ``data``
+    coordinate from the same source: the four blocks are the one-device
+    batch. No process group is needed to build it."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    data = DataConfig(seq_len=8, global_batch=8, vocab_size=cfg.vocab_size)
+
+    def trainer(mesh):
+        return Trainer(cfg, adamw.OptConfig(), data, TrainerConfig(steps=1),
+                       mesh=mesh, device="cpu")
+    whole = trainer(None).batch(3)
+    blocks = [trainer(ProcessMesh(("data", "model"), (4, 1), r,
+                                  torch.device("cpu"), {})).batch(3)
+              for r in range(4)]
+    for key in ("tokens", "labels"):
+        assert (torch.as_tensor(whole[key]) == torch.cat(
+            [torch.as_tensor(b[key]) for b in blocks])).all()
+    with pytest.raises(ValueError, match="does not split over 3 ranks"):
+        trainer(ProcessMesh(("data", "model"), (3, 1), 0,
+                            torch.device("cpu"), {}))
