@@ -347,6 +347,21 @@ non-zero and prints no result. Phases, one JSON line each:
                case of ``tests/torch_process_cases.py`` on 4 gloo ranks of
                the CPU (``mesh_processes_gloo``). Only this process
                prints; a rank that fails fails the phase.
+39. ``mesh_tensor_parallel`` tensor parallelism over processes, spawned
+               after ``free_memory()``: at m = 2 and 4, m ranks on the
+               one card in a gloo group (``make_process_mesh(1, m,
+               backend="gloo")``; NCCL refuses two ranks on one card)
+               train tinyllama-1.1b as phase 7 does, 2 steps through
+               ``Trainer``, each rank its blocks of every leaf: the
+               first loss against the one-device step's (run first,
+               phase 7's), and on conditioned parameters one step's loss
+               and grad norm, each rank's blocks against the same slices
+               of its result, B3-B5 44 / 22 / 22
+               a step on every rank at 32 / m heads a launch (held
+               against their plain versions there), the all-reduce bytes
+               summed over the ranks equal to ``count_step``'s, a float32
+               witness of 2 conditioned layers step by step; ms a step
+               and peak GB a rank, the group's backend.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -357,9 +372,10 @@ scan, and of phases 27-30 for the kernels they launch: each path's count
 in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
-``mesh_train``, phase 37's counted step, ``dryrun``, and phase 38's
-NCCL step summed over its ranks, ``mesh_processes``; error, times and
-bound per kernel), one line with the
+``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
+NCCL step summed over its ranks, ``mesh_processes``, and phase 39's
+tensor-parallel steps summed over their ranks, ``mesh_tensor_parallel
+(1, m)``; error, times and bound per kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises: nothing is caught and passed
 over.
@@ -410,7 +426,8 @@ from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import (moe_dense_dispatch,  # noqa: E402
                                     moe_ep_shard_map, moe_template)
-from repro_torch.models.sharding import MeshCtx  # noqa: E402
+from repro_torch.models.sharding import (MeshCtx,  # noqa: E402
+                                         gather_params, shard_params)
 from repro_torch.models.layers import (init_params, tree_leaves,  # noqa: E402
                                        tree_map, tree_size_bytes,
                                        value_and_grad)
@@ -4913,6 +4930,319 @@ def phase_mesh_processes(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 39: tensor parallelism over processes
+# ---------------------------------------------------------------------------
+
+
+TP_MODELS = (2, 4)        # the model axis: (1, m) ranks sharing the one card
+TP_STEPS = 2
+TP_LOSS_REL = 2e-3        # bf16 compute: the partial sums' own rounding
+# ... and the grad norm's, held where the gradients are resolvable: at the
+# configured init the stack is chaotic (phase 8: two summation orders of
+# the float64 step at 22 layers read gradients 1.33 of their max apart),
+# so it is held on the conditioned parameters (``_conditioned``)
+TP_GRAD_REL = 2e-2
+TP_FP32_LAYERS = 2        # the float32 witness, full width
+TP_FP32_REL = 1e-5
+TP_TIMEOUT_S = 600
+
+
+def _tp_one_device(cfg, opt, data):
+    """The one-device trainer's steps (phase 7's state and batches):
+    (metrics log, final state)."""
+    one = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS, log_every=1),
+                  device=DEV)
+    _, state = one.run()
+    return one.metrics_log, state
+
+
+def _conditioned_blocks(cfg, tr, mesh):
+    """The seeded init of ``cfg`` (phase 7's), ``_conditioned``, and the
+    rank's blocks of it: (global parameters, blocks)."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    whole = _conditioned(init_params(model_template(cfg), gen,
+                                     dtype=cfg.param_dtype, device=DEV), cfg)
+    return whole, shard_params(whole, tr.state_specs["params"], mesh)
+
+
+def _tp_fp32_witness(mesh, opt):
+    """``TP_FP32_LAYERS`` layers of tinyllama-1.1b at full width in float32
+    compute (TF32 off) from ``_conditioned`` parameters (at the configured
+    init, two summation orders of this step read gradients 3e-3 of their
+    largest apart: the 4-rank split's partial sums do), ``TP_STEPS``
+    tensor-parallel steps, each held against the one-device step from the
+    same state (gathered; rank 0 runs it): per step both steps' loss and
+    grad norm."""
+    cfg, _ = _train_cfgs()
+    cfg = dataclasses.replace(cfg, n_layers=TP_FP32_LAYERS,
+                              compute_dtype="float32")
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS), mesh=mesh,
+                 device=DEV)
+    one = make_train_step(cfg, opt).step_fn
+    whole, blocks = _conditioned_blocks(cfg, tr, mesh)
+    del whole
+    state, rows = {"params": blocks, "opt": adamw.init(opt, blocks)}, []
+    for i in range(TP_STEPS):
+        whole = gather_params(state, tr.state_specs, mesh)
+        state, m = tr.step_fn(state, to_device(tr.batch(i), DEV))
+        row = {"tp": {k: float(m[k]) for k in ("loss", "grad_norm")}}
+        if mesh.rank == 0:
+            _, m1 = one(whole, to_device(tr.source.batch(i), DEV))
+            row["one"] = {k: float(m1[k]) for k in ("loss", "grad_norm")}
+        del whole
+        free_memory()
+        rows.append(row)
+    return rows
+
+
+def _tp_conditioned(mesh, opt):
+    """One tensor-parallel step of tinyllama-1.1b as phase 7 trains it
+    (bf16 compute, full depth, batch 0) from ``_conditioned`` parameters,
+    where the gradients are resolvable, and the one-device step from the
+    same state (rank 0, before it): both steps' loss and grad norm."""
+    cfg, _ = _train_cfgs()
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=1), mesh=mesh,
+                 device=DEV)
+    whole, blocks = _conditioned_blocks(cfg, tr, mesh)
+    out = {}
+    if mesh.rank == 0:
+        _, m1 = make_train_step(cfg, opt).step_fn(
+            {"params": whole, "opt": adamw.init(opt, whole)},
+            to_device(tr.source.batch(0), DEV))
+        out["one"] = {k: float(m1[k]) for k in ("loss", "grad_norm")}
+    del whole
+    free_memory()
+    mesh.barrier()
+    _, m = tr.step_fn({"params": blocks, "opt": adamw.init(opt, blocks)},
+                      to_device(tr.batch(0), DEV))
+    out["tp"] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    del blocks, tr
+    free_memory()
+    return out
+
+
+def _tp_rank(rank, world, store, out_path, one_path):
+    """A rank of phase 39 (module level: ``spawn`` pickles it):
+    tinyllama-1.1b as phase 7 trains it through
+    ``Trainer(mesh=make_process_mesh(1, world, backend="gloo"))`` on the
+    card the ranks share, its blocks then held against the same slices of
+    the one-device result (``one_path``, memory-mapped); then the
+    float32 and conditioned witnesses. Rank 0 writes the results to
+    ``out_path``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_process_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_process_mesh(1, world, device="cuda:0", backend="gloo",
+                             init_method=f"file://{store}", rank=rank,
+                             world_size=world, timeout_s=TP_TIMEOUT_S)
+    cfg, opt = _train_cfgs()
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS, log_every=1),
+                 mesh=mesh, device=DEV)
+    stamps = []
+
+    def on_step(m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launches()            # the tensor-parallel path starts here
+    compat.reset_counts()
+    with att_geometries() as seen:
+        stamps.append(time.perf_counter())
+        _, state = tr.run(on_step=on_step)
+    launches = dict(att.LAUNCHES)   # read right after it
+    counts = (compat.read_counts(reduce=True),
+              compat.read_counts(reduce=True, backward=True))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    tp_log = tr.metrics_log
+    mine = shard_params(torch.load(one_path, mmap=True, weights_only=True),
+                        tr.state_specs["params"], mesh)
+    gaps = []
+    for got, want in zip(tree_leaves(state["params"]),
+                         tree_leaves(mine)):
+        d = (got.cpu().double() - want.double()).abs()
+        gaps.append((float(d.max()), float(d.mean()),
+                     float(want.abs().max())))
+    shapes = [list(t.shape) for t in tree_leaves(state["params"])]
+    del state, tr, mine
+    free_memory()
+    fp32 = _tp_fp32_witness(mesh, opt)
+    conditioned = _tp_conditioned(mesh, opt)
+    geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
+                  for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
+    every = [None] * world
+    dist.all_gather_object(every, (launches, peak, gaps, geos, step_ms))
+    if rank == 0:
+        out = {"world": world, "backend": dist.get_backend(),
+               "log": tp_log, "fp32": fp32,
+               "conditioned": conditioned,
+               "launches_by_rank": [e[0] for e in every],
+               "peak_gb_by_rank": [e[1] / 1e9 for e in every],
+               "gaps_by_rank": [e[2] for e in every],
+               "geometries_by_rank": [e[3] for e in every],
+               "step_ms_by_rank": [e[4] for e in every],
+               "weight_decay": opt.weight_decay, "shapes": shapes,
+               "collectives": counts}
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    mesh.barrier()
+    dist.destroy_process_group()
+
+
+def _param_bound(lrs, wd, pmax) -> float:
+    """The most two AdamW runs from one state can differ in a parameter
+    after steps at learning rates ``lrs``: each step moves it by at most
+    ``lr (|m_hat| / sqrt(v_hat) + wd |p|)``, and ``|m_hat| / sqrt(v_hat)``
+    is at most 1.0004 over the first two steps (b1 0.9, b2 0.95, by
+    Cauchy-Schwarz), so a wrong block (another slice of the init) is far
+    above it."""
+    return 2 * sum(lrs) * (1.001 + wd * pmax)
+
+
+def phase_mesh_tensor_parallel(smi):
+    """Phase 39: tensor parallelism over processes (``train/step.py``'s
+    tensor-parallel step: each rank its blocks of every leaf by the
+    reference's specs, Megatron's ``copy_to`` / ``reduce_from`` around the
+    column- and row-split products, the vocab-split lookup and
+    cross-entropy). At each m of ``TP_MODELS``, m ranks spawned on the one
+    card in a gloo group (NCCL refuses two ranks on one card;
+    ``tools/torch_gloo_cuda_probe.py`` shows what gloo takes on CUDA
+    tensors): tinyllama-1.1b as phase 7 trains it (full width and depth, 4
+    x 2048, bf16 compute, full remat) on (1, m) for ``TP_STEPS`` steps
+    through ``Trainer(mesh=make_process_mesh(1, m, backend="gloo"))``,
+    from phase 7's state and batches. Held: the first step's loss within
+    ``TP_LOSS_REL`` of the one-device step's (run here first, equal to
+    phase 7's, its parameters saved to the host for the ranks to
+    memory-map; the grad norms are recorded: at this
+    init two summation orders of the same step disagree, phase 8), and on
+    ``_conditioned`` parameters one step's loss and grad norm within
+    ``TP_LOSS_REL`` and ``TP_GRAD_REL``;
+    each rank's blocks within ``_param_bound`` of the same slices of the
+    one-device result; B3-B5 ``train_launches`` a step on every rank, at
+    ``32 / m`` heads a launch, each held against its plain version at the
+    geometry the path launched it at; the collectives' bytes by kind,
+    summed over the ranks, equal to ``count_step``'s for the cell on (1,
+    m) times m (less the grad norm's scalar all-reduce); a float32 witness
+    (2 layers, full width, TF32 off, conditioned) step by step within
+    ``TP_FP32_REL``.
+    Recorded: ms a step and peak GB on each rank (the ranks share one card
+    and its host: no scaling figure), the backend the group reports.
+    Returns the launches by path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    free_memory()
+    pc = _process_cases()
+    cfg, opt = _train_cfgs()
+    per_step = train_launches(cfg)
+    phase7 = RECORD.get("train", {})
+    by_path, results = {}, []
+    tmp = tempfile.mkdtemp(prefix="mesh_tensor_parallel_")
+    try:
+        t0 = time.perf_counter()
+        data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          vocab_size=cfg.vocab_size, seed=0)
+        one, state = _tp_one_device(cfg, opt, data)
+        one_path = os.path.join(tmp, "one_device_params.pt")
+        torch.save(tree_map(lambda t: t.cpu(), state["params"]), one_path)
+        del state
+        free_memory()
+        if phase7:
+            assert [x["loss"] for x in one] == \
+                phase7["losses"][:TP_STEPS], (one, phase7)
+        one_s = time.perf_counter() - t0
+        for m in TP_MODELS:
+            t0 = time.perf_counter()
+            out_path = os.path.join(tmp, f"tp{m}.json")
+            pc.run_ranks(_tp_rank, m, (m, os.path.join(tmp, f"store{m}"),
+                                       out_path, one_path), TP_TIMEOUT_S)
+            with open(out_path) as f:
+                r = json.load(f)
+            spawn_s = time.perf_counter() - t0
+            assert r["backend"] == "gloo", r["backend"]
+            want = {k: TP_STEPS * v for k, v in per_step.items()}
+            assert all(x == want for x in r["launches_by_rank"]), r
+            launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                        for k in per_step}
+            heads = cfg.n_heads_padded // m
+            seen = {(n, (g, sq, sk, d, getattr(torch, dt), c, bq, bk))
+                    for rank_geos in r["geometries_by_rank"]
+                    for n, g, sq, sk, d, dt, c, bq, bk in rank_geos}
+            geometries = check_path_attention(
+                f"tensor_parallel (1, {m})", seen, TRAIN_BATCH, heads,
+                390 + m, results)
+            tp = r["log"]
+            loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                        for a, b in zip(tp, one)]
+            grad_rel = [abs(a["grad_norm"] - b["grad_norm"])
+                        / abs(b["grad_norm"]) for a, b in zip(tp, one)]
+            assert loss_rel[0] <= TP_LOSS_REL, (loss_rel, tp, one)
+            cond = r["conditioned"]
+            cond_rel = {k: abs(cond["tp"][k] - cond["one"][k])
+                        / abs(cond["one"][k]) for k in ("loss", "grad_norm")}
+            assert cond_rel["loss"] <= TP_LOSS_REL, cond
+            assert cond_rel["grad_norm"] <= TP_GRAD_REL, cond
+            lrs = [x["lr"] for x in one]
+            worst = 0.0
+            for gaps in r["gaps_by_rank"]:
+                for mx, _, pmax in gaps:
+                    bound = _param_bound(lrs, r["weight_decay"], pmax)
+                    assert mx <= bound, (mx, bound, gaps)
+                    worst = max(worst, mx / bound)
+            fp32_rel = [max(abs(row["tp"][k] - row["one"][k])
+                            / abs(row["one"][k])
+                            for k in ("loss", "grad_norm"))
+                        for row in r["fp32"]]
+            assert max(fp32_rel) <= TP_FP32_REL, r["fp32"]
+            st = dryrun.count_step(
+                cfg, ShapeConfig("train_4x2048", TRAIN_SEQ, TRAIN_BATCH,
+                                 "train"), make_mesh(1, m), target="cuda")
+            got = pc.by_kind(r["collectives"])
+            assert set(got) == {"all-reduce"} == set(
+                st.collective_by_kind), (got, st.collective_by_kind)
+            step_bytes = got["all-reduce"] / TP_STEPS - pc.norm_bytes(1, m)
+            want_bytes = m * st.collective_by_kind["all-reduce"]
+            assert abs(step_bytes - want_bytes) <= m, (step_bytes,
+                                                       want_bytes)
+            steady = [statistics.mean(x[1:]) for x in r["step_ms_by_rank"]]
+            emit("mesh_tensor_parallel", gpu=smi, arch=cfg.name,
+                 mesh=[1, m], ranks=m, backend=r["backend"],
+                 batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TP_STEPS,
+                 losses=[x["loss"] for x in tp],
+                 one_device_losses=[x["loss"] for x in one],
+                 grad_norms=[x["grad_norm"] for x in tp],
+                 one_device_grad_norms=[x["grad_norm"] for x in one],
+                 loss_rel=loss_rel, grad_norm_rel=grad_rel,
+                 conditioned=cond, conditioned_rel=cond_rel,
+                 params_worst_over_bound=worst, fp32_witness=r["fp32"],
+                 fp32_rel=fp32_rel, launches=launches,
+                 launches_per_rank_step=per_step, geometries=geometries,
+                 heads_per_launch=heads,
+                 collectives=r["collectives"],
+                 all_reduce_bytes_per_step=step_bytes,
+                 count_step_all_reduce_bytes=want_bytes,
+                 step_ms_by_rank=r["step_ms_by_rank"],
+                 steady_step_ms_by_rank=steady,
+                 peak_gb_by_rank=r["peak_gb_by_rank"],
+                 one_device_steady_step_ms=phase7.get("steady_step_ms"),
+                 one_device_peak_gb=phase7.get("peak_gb"),
+                 block_shapes=r["shapes"], one_device_seconds=one_s,
+                 seconds=spawn_s)
+            by_path[f"mesh_tensor_parallel (1, {m})"] = launches
+            free_memory()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
@@ -5134,6 +5464,8 @@ def main():
     surface["dryrun"] = phase_dryrun(smi)   # sets its counts to 0 first
     free_memory()
     surface["mesh_processes"] = phase_mesh_processes(smi)  # fresh processes
+    free_memory()
+    surface.update(phase_mesh_tensor_parallel(smi))        # fresh processes
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,

@@ -30,8 +30,9 @@ trees have the reference's keys: ``convert.py``). What the port adds:
   (the bits viewed as ``torch.bfloat16``); the reference's own restore
   returns the ``|V2`` array, which JAX rejects.
 - :func:`restore` places each leaf on ``device`` (default: the card;
-  raises without one) in place of the reference's ``shardings``, which
-  wait for the multi-device machinery.
+  raises without one). The reference's ``shardings`` place nothing on one
+  card; on a mesh of processes (``core.compat.ProcessMesh``) each leaf
+  becomes the rank's block of it.
 - A writer that fails raises its error from the returned thread's
   ``join()`` (and from a blocking save); the reference's thread drops it.
 """
@@ -47,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.compat import is_process_mesh
 from repro_torch.device import resolve_device
 
 _BF16 = "bfloat16"
@@ -186,9 +188,11 @@ def restore(directory: str, *, step: Optional[int] = None, device=None,
     the reference's target shardings (a tree of
     ``models.sharding.NamedSharding``, possibly of another mesh than the
     one saved from — elastic restore); one card holds each leaf whole, so a
-    sharding places nothing, but a leaf whose sharded dimension it does
-    not divide raises the reference's ``ValueError``. Returns (step, tree)
-    or (None, None) if nothing loadable."""
+    sharding of a mesh held as tensor dimensions places nothing, one of a
+    mesh of processes keeps the rank's block of the leaf, and a leaf whose
+    sharded dimension it does not divide raises the reference's
+    ``ValueError``. Returns (step, tree) or (None, None) if nothing
+    loadable."""
     device = resolve_device(device)
     steps = latest_steps(directory)
     if not steps:
@@ -210,6 +214,8 @@ def restore(directory: str, *, step: Optional[int] = None, device=None,
         sh = sh_flat.get(name)
         if sh is not None:
             sh.shard_shape(arr.shape)
+            if is_process_mesh(sh.mesh):
+                arr = np.ascontiguousarray(arr[sh.block_index(arr.shape)])
         items.append((tuple(name.split("/")),
                       _to_tensor(arr, meta["dtype"], device)))
     return step, _unflatten(items)

@@ -50,7 +50,14 @@ those tensors whole. **Local axes.** A mesh may declare axes local
 a body a tensor on a rank is already its own block along them, so
 :func:`shard_map` neither cuts nor gathers along them, forward or
 backward. Outside a body, :func:`pmean_in_place` averages tensors over
-axes in place (the data-parallel step's gradient mean).
+axes in place (the data-parallel step's gradient mean), and Megatron's
+two operators split a product over the ``model`` axis (the
+tensor-parallel step): :func:`copy_to` (identity forward, the cotangent
+all-reduced backward) at the input of a product split by columns,
+:func:`reduce_from` (all-reduce forward, identity backward) after one
+split by rows; :func:`reduce_over` and :func:`gather_over` all-reduce and
+all-gather a tensor outside autograd (the vocab-parallel cross-entropy's
+terms, the serve steps' logits).
 
 **Counts.** Each collective adds one to ``CALLS[kind]`` and, to
 ``BYTES[kind]``, the bytes that a real mesh moves over its links for that
@@ -183,8 +190,8 @@ class ProcessMesh:
         return self.groups[frozenset(entry_axes(axes))]
 
     def barrier(self):
-        """Wait for every rank (on the card, the rank's own)."""
-        if self.device.type == "cuda":
+        """Wait for every rank (on NCCL, the rank's own card)."""
+        if self.device.type == "cuda" and dist.get_backend() == "nccl":
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
@@ -502,6 +509,90 @@ def pmean_in_place(tensors, mesh: ProcessMesh, axes):
             buf.div_(n)
             if buf is not t:
                 t.copy_(buf)
+
+
+# -- Megatron's operators and the reductions around them, outside a body ----
+
+
+def _ring(mesh, axes):
+    """(group, size) of the rank's group over ``axes``."""
+    group, ranks = mesh.group(axes)
+    return group, len(ranks)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the cotangent all-reduced (SUM) backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.ring = _ring(mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n = ctx.ring
+        _count_backward("psum", 2 * (n - 1) / n * g.numel()
+                        * g.element_size())
+        return _all_reduce(g, group, "SUM"), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce (SUM) forward; the cotangent as it is backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return reduce_over(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x, mesh: ProcessMesh, axis: str = "model"):
+    """Outside a body, on a process mesh: Megatron's ``f`` at the input of
+    a product split by columns over ``axis``. The identity forward; its
+    backward all-reduces the cotangent (each rank's holds the part of its
+    own columns), counted as :func:`psum`'s backward counts. A group of one
+    is the identity both ways and counts nothing."""
+    if _ring(mesh, axis)[1] == 1:
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x, mesh: ProcessMesh, axis: str = "model"):
+    """Outside a body, on a process mesh: Megatron's ``g`` after a product
+    split by rows over ``axis`` (each rank holds a partial sum). The
+    all-reduce forward, counted as :func:`psum` counts a call on a process;
+    the identity backward (the cotangent is replicated). A group of one is
+    the identity both ways and counts nothing."""
+    if _ring(mesh, axis)[1] == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def reduce_over(x, mesh: ProcessMesh, axes, op: str = "SUM"):
+    """Outside a body, on a process mesh: a new tensor, ``x`` all-reduced
+    over ``axes`` (``op`` SUM or MAX), counted as :func:`psum` or
+    :func:`pmax` counts a call on a process. Not differentiable. A group
+    of one returns ``x`` and counts nothing."""
+    group, n = _ring(mesh, axes)
+    if n == 1:
+        return x
+    _count("psum" if op == "SUM" else "pmax",
+           2 * (n - 1) / n * x.numel() * x.element_size())
+    return _all_reduce(x, group, op)
+
+
+def gather_over(x, mesh: ProcessMesh, axis: str, dim: int = -1):
+    """Outside a body, on a process mesh: the group's blocks of ``x``
+    concatenated along ``dim`` in their coordinate order along ``axis``,
+    counted as :func:`all_gather` counts a call on a process. Not
+    differentiable. A group of one returns ``x`` and counts nothing."""
+    group, n = _ring(mesh, axis)
+    if n == 1:
+        return x
+    _count("all_gather", (n - 1) * x.numel() * x.element_size())
+    return torch.cat(list(_all_gather(x, group, n)), dim=dim)
 
 
 def _max_back(g, dims, x, y):

@@ -20,6 +20,11 @@ from repro_torch.core.compat import ProcessMesh
 from repro_torch.core.staging import Mesh
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# the backends a caller may name for each device kind: gloo takes CUDA
+# tensors for all_reduce, broadcast and all_gather (tools/
+# torch_gloo_cuda_probe.py), which lets ranks share one card, where NCCL
+# refuses two ranks on one device
+NAMED_BACKENDS = {"cuda": ("nccl", "gloo"), "cpu": ("gloo",)}
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -39,7 +44,8 @@ def make_process_mesh(data: int, model: int, *, device: str = "cuda",
                       init_method: Optional[str] = None,
                       rank: Optional[int] = None,
                       world_size: Optional[int] = None,
-                      timeout_s: float = 600.0) -> ProcessMesh:
+                      timeout_s: float = 600.0,
+                      backend: Optional[str] = None) -> ProcessMesh:
     """The ``("data", "model")`` mesh of ``data * model`` processes, this one
     at its rank's row-major coordinates, as ``make_mesh`` lays out devices.
 
@@ -47,9 +53,13 @@ def make_process_mesh(data: int, model: int, *, device: str = "cuda",
     from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``), or from ``init_method`` with ``rank`` and
     ``world_size``. The backend follows ``device``: NCCL for "cuda" (the
-    rank's card is ``LOCAL_RANK``, else its rank), gloo for "cpu"; a
-    missing backend raises, nothing falls back to another. A world of
-    another size than ``data * model`` raises ``ValueError``. Every rank
+    rank's card is the device's index if it names one, else
+    ``LOCAL_RANK``, else its rank), gloo for "cpu"; a missing backend
+    raises, nothing falls back to another. ``backend`` names one instead:
+    only "gloo" with a "cuda" device differs from the rule (ranks that
+    share a card; a collective gloo lacks on CUDA tensors raises where it
+    is called). A world of another size than ``data * model`` raises
+    ``ValueError``. Every rank
     builds the same groups, in the same order: one over each axis and one
     over each pair of axes (the world itself for the pair of all)."""
     import torch.distributed as dist
@@ -58,7 +68,12 @@ def make_process_mesh(data: int, model: int, *, device: str = "cuda",
     if kind not in BACKENDS:
         raise ValueError(f"make_process_mesh: no process route for device "
                          f"{device!r} (cuda or cpu)")
-    backend = BACKENDS[kind]
+    if backend is None:
+        backend = BACKENDS[kind]
+    elif backend not in NAMED_BACKENDS[kind]:
+        raise ValueError(f"make_process_mesh: backend {backend!r} for "
+                         f"device {device!r}: one of "
+                         f"{NAMED_BACKENDS[kind]}")
     if not dist.is_available() or not getattr(
             dist, f"is_{backend}_available")():
         raise RuntimeError(f"make_process_mesh: device {device!r} needs the "
@@ -85,7 +100,9 @@ def make_process_mesh(data: int, model: int, *, device: str = "cuda",
                          f"needs {data * model} processes, the world has "
                          f"{world}")
     if kind == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", me))
+        local = torch.device(device).index
+        if local is None:
+            local = int(os.environ.get("LOCAL_RANK", me))
         torch.cuda.set_device(local)
         dev = torch.device("cuda", local)
     else:

@@ -10,15 +10,17 @@ without one). With ``--data/--model`` the trainer takes a (data, model)
 mesh, held as tensor dimensions on the one device (``launch/mesh.py``):
 the mixture-of-experts configs then train on the expert-parallel route
 where the reference takes it.
-Under ``torchrun`` (``WORLD_SIZE`` in the environment) ``--data N --model
-1`` takes a mesh of processes instead (``launch.mesh.make_process_mesh``:
-NCCL on the cards, gloo with ``--device cpu``) and trains data-parallel,
-each rank on its block of the batch; the kernels are built by each
-machine's local rank 0 while the others wait, and only rank 0 prints and
-writes checkpoints:
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) ``--data D --model
+M`` takes a mesh of processes instead (``launch.mesh.make_process_mesh``:
+NCCL on the cards, gloo with ``--device cpu``) and trains data-parallel
+over ``data``, each rank on its block of the batch, and, for the dense
+family at M > 1, tensor-parallel over ``model``, each rank on its blocks
+of the parameters; the kernels are built by each machine's local rank 0
+while the others wait, and only rank 0 prints and writes checkpoints (the
+whole state, gathered):
 
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
-      --reduced --device cpu --data 4 --model 1 --steps 3
+      --reduced --device cpu --data 2 --model 2 --steps 3
 
 ``--reduced --device cpu`` runs the smoke-scale config on the CPU as a
 rehearsal. With ``--ckpt-dir`` the run saves every ``--ckpt-every`` steps

@@ -359,16 +359,33 @@ def update_cache(cache_k, cache_v, k_new, v_new, lengths):
 
 
 def gqa_attention(cfg: ArchConfig, p: dict, x, positions, *,
-                  cache: Optional[dict] = None, kv_valid=None, causal=True):
+                  cache: Optional[dict] = None, kv_valid=None, causal=True,
+                  tp=None):
     """x (B,S,d); positions (B,S) absolute. cache = {"k","v","lengths"} or None.
 
     Returns (out (B,S,d), new_cache_entries or None). With a cache, its
     ``k``/``v`` tensors are updated in place and returned.
+
+    ``tp`` (``models.sharding.TensorParallel``): ``p`` holds the rank's
+    block of the heads (``wq``, ``wo``) and of the kv heads (``wk``,
+    ``wv``, and a cache's ``k``/``v``), or all the kv heads where the
+    model axis does not divide them; the rank attends with its own heads
+    (each with the kv group it reads in the whole model), Megatron's
+    ``copy_to`` at each projection's input (at ``k``'s and ``v``'s output
+    where the kv heads are whole) and ``reduce_from`` after ``wo``.
     """
     h, hkv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    into = (lambda t: t) if tp is None else tp.copy
+    q = torch.einsum("bsd,dhk->bshk", into(x), p["wq"].to(x.dtype))
+    if tp is not None and p["wk"].shape[1] == hkv:
+        # every kv head on each rank: its k and v are whole, their
+        # cotangents partial (its own heads' groups), so those are
+        # all-reduced, and wk / wv and x take whole gradients from them
+        k = tp.copy(torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype)))
+        v = tp.copy(torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype)))
+    else:
+        k = torch.einsum("bsd,dhk->bshk", into(x), p["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", into(x), p["wv"].to(x.dtype))
 
     cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
@@ -392,8 +409,16 @@ def gqa_attention(cfg: ArchConfig, p: dict, x, positions, *,
             kv_valid = torch.ones(k.shape[:2], dtype=torch.bool,
                                   device=x.device)
 
-    k_full = repeat_kv(k_full, h // hkv)
-    v_full = repeat_kv(v_full, h // hkv)
+    heads = _local_heads(q.shape[2], tp)
+    if k_full.shape[2] == hkv and heads is not None:
+        # the kv heads whole on each rank: each local q head takes the kv
+        # group that global head reads
+        group = torch.arange(heads.start, heads.stop,
+                             device=x.device) // (h // hkv)
+        k_full, v_full = k_full[:, :, group], v_full[:, :, group]
+    else:
+        k_full = repeat_kv(k_full, h // hkv)
+        v_full = repeat_kv(v_full, h // hkv)
     mask_pos = positions if causal else torch.full_like(positions, 2**29)
     # triangular only for the no-cache path, as in the reference
     out = chunked_attention(q, k_full, v_full, mask_pos, kv_valid,
@@ -404,24 +429,35 @@ def gqa_attention(cfg: ArchConfig, p: dict, x, positions, *,
                             use_flash=getattr(cfg, "attn_flash", "auto"),
                             block_remat=getattr(cfg, "attn_block_remat",
                                                 "none"))
-    out = _mask_pad_heads(cfg, out)
+    out = _mask_pad_heads(cfg, out, heads)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return out, new_cache
+    return (out if tp is None else tp.reduce(out)), new_cache
 
 
-def _mask_pad_heads(cfg: ArchConfig, out):
+def _local_heads(n_local: int, tp) -> Optional[range]:
+    """The global indices of a tensor-parallel rank's ``n_local`` heads
+    (None without ``tp``)."""
+    if tp is None:
+        return None
+    return range(tp.start(n_local), tp.start(n_local) + n_local)
+
+
+def _mask_pad_heads(cfg: ArchConfig, out, heads: Optional[range] = None):
     """Zero the padded heads' outputs so padding stays model-equivalent.
 
     GQA grouping: repeat_kv assigns q head h to kv group h // (Hp/hkv), so
     the live heads are the first H/hkv slots of each group — the q<->kv
-    pairing of the unpadded model is preserved."""
+    pairing of the unpadded model is preserved. ``heads``: the global
+    indices of ``out``'s heads (a tensor-parallel rank's block), all of
+    them by default."""
     hp, h, hkv = cfg.n_heads_padded, cfg.n_heads, cfg.n_kv_heads
     if hp == h:
         return out
     per_group_pad = hp // hkv
     per_group_live = h // hkv
-    head_live = (torch.arange(hp, device=out.device) % per_group_pad) \
-        < per_group_live
+    heads = range(hp) if heads is None else heads
+    head_live = (torch.arange(heads.start, heads.stop, device=out.device)
+                 % per_group_pad) < per_group_live
     return out * head_live.to(out.dtype)[None, None, :, None]
 
 

@@ -14,13 +14,18 @@ def mlp_template(d_model: int, d_ff: int, activation: str) -> dict:
     return t
 
 
-def mlp(p: dict, x, activation: str):
+def mlp(p: dict, x, activation: str, tp=None):
     """x (B,S,d). Weights are cast to x's dtype at use (no copy when they
-    already have it)."""
+    already have it). ``tp`` (``models.sharding.TensorParallel``): ``p``
+    holds the rank's ffn columns of ``w_up``/``w_gate`` and rows of
+    ``w_down``; Megatron's ``copy_to`` at each column-split product's
+    input, ``reduce_from`` after ``w_down``."""
     act = activation_fn(activation)
-    up = x @ p["w_up"].to(x.dtype)
+    into = (lambda t: t) if tp is None else tp.copy
+    up = into(x) @ p["w_up"].to(x.dtype)
     if "w_gate" in p:
-        h = act(x @ p["w_gate"].to(x.dtype)) * up
+        h = act(into(x) @ p["w_gate"].to(x.dtype)) * up
     else:
         h = act(up)
-    return h @ p["w_down"].to(x.dtype)
+    out = h @ p["w_down"].to(x.dtype)
+    return out if tp is None else tp.reduce(out)

@@ -5,7 +5,10 @@ The ``model`` axis is Ara's lane axis. Rules keep chained ops lane-local
 (expert parallelism), and optionally FSDP-shard the non-lane dim of params
 over ``data``. The rules are the reference's; the mesh is the port's
 ``core.staging.Mesh`` (named axes and sizes, held as tensor dimensions on
-one device by ``core/compat.py``).
+one device by ``core/compat.py``) or a mesh of processes
+(``core.compat.ProcessMesh``), where each rank holds its block of every
+leaf (:func:`shard_params`, :func:`gather_params`) and its forward runs on
+those blocks (:class:`TensorParallel`).
 """
 from __future__ import annotations
 
@@ -13,7 +16,11 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
+import torch
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import compat
 from repro_torch.core.compat import PartitionSpec, entry_axes
 from repro_torch.models.layers import Rules, tree_map
 
@@ -121,6 +128,169 @@ class NamedSharding:
             out[dim] = global_shape[dim] // n
         return tuple(out)
 
+    def block_index(self, global_shape, rank=None) -> tuple:
+        """The slices of a process mesh's rank (its own by default) in a
+        leaf of ``global_shape``: the block that rank holds."""
+        shape = self.shard_shape(global_shape)
+        cut = [entry_axes(e) for e in self.spec] \
+            + [()] * (len(shape) - len(self.spec))
+        return compat._slices(self.mesh, self.mesh.rank if rank is None
+                              else rank, cut, shape)
+
 
 def named_sharding_tree(spec_tree, mesh):
     return tree_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def sanitize_specs(spec_tree, aval_tree, mesh):
+    """Drop mesh axes from dims they don't divide (e.g. batch=1 over
+    data=16, 24 heads over 16 lanes): the reference's ``jax.jit`` shardings
+    need even tiling, and replication is the conservative fallback."""
+    sizes = dict(mesh.shape)
+
+    def fix(spec, aval):
+        if spec is None or not isinstance(spec, PartitionSpec):
+            return spec
+        new = []
+        for i, entry in enumerate(spec):
+            if entry is None or i >= len(aval.shape):
+                new.append(None)
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            prod = math.prod(sizes.get(a, 1) for a in axes)
+            new.append(entry if prod > 0 and aval.shape[i] % prod == 0
+                       else None)
+        return PartitionSpec(*new)
+
+    return tree_map(fix, spec_tree, aval_tree)
+
+
+# ---------------------------------------------------------------------------
+# a rank's blocks on a mesh of processes
+# ---------------------------------------------------------------------------
+
+
+def shard_params(tree, specs, mesh):
+    """The rank's block of every leaf of ``tree`` (global leaves: numpy
+    arrays or tensors) on the process mesh ``mesh``, by ``specs`` after
+    :func:`sanitize_specs` against the global shapes; each block a copy
+    (a tensor stays on its device), so the global tree can be freed."""
+    def block(spec, x):
+        b = x[NamedSharding(mesh, spec).block_index(x.shape)]
+        return b.clone() if isinstance(x, torch.Tensor) \
+            else np.ascontiguousarray(b)
+    return tree_map(block, sanitize_specs(specs, tree, mesh), tree)
+
+
+def gather_params(tree, specs, mesh):
+    """The inverse of :func:`shard_params`: every rank's blocks of each
+    leaf, all-gathered over the axes that cut it (not counted: the
+    checkpoint and the tests read the global tree), on every rank; each
+    leaf a new tensor, a replicated one a copy of the rank's own.
+    ``specs`` are the sanitized specs of the global tree
+    (``sanitize_specs(specs, global tree, mesh)``, which
+    :func:`shard_params` cut by)."""
+    def whole(spec, x):
+        cut = [tuple(entry_axes(e)) for e in spec] \
+            + [()] * (x.dim() - len(spec))
+        axes = tuple(a for a in mesh.axis_names if any(a in c for c in cut))
+        return compat._assemble(x, mesh, cut, axes) if axes else x.clone()
+    return tree_map(whole, specs, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The ``model`` axis of a process mesh, as a rank's forward sees it:
+    the rank holds its block of every leaf that the axis splits (heads,
+    kv heads, ffn, vocab), and Megatron's operators join the blocks'
+    products (``core.compat.copy_to`` at the input of a product split by
+    columns, ``reduce_from`` after one split by rows)."""
+    mesh: object
+    axis: str = "model"
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    @property
+    def index(self) -> int:
+        return self.mesh.coord(self.axis)
+
+    def copy(self, x):
+        return compat.copy_to(x, self.mesh, self.axis)
+
+    def reduce(self, x):
+        return compat.reduce_from(x, self.mesh, self.axis)
+
+    def all_reduce(self, x, op: str = "SUM"):
+        return compat.reduce_over(x, self.mesh, self.axis, op)
+
+    def gather(self, x, dim: int = -1):
+        return compat.gather_over(x, self.mesh, self.axis, dim)
+
+    def start(self, local: int) -> int:
+        """The global index of the rank's first row of a dimension whose
+        block of ``local`` rows it holds."""
+        return self.index * local
+
+
+def tensor_parallel(cfg: ArchConfig,
+                    ctx: Optional[MeshCtx]) -> Optional[TensorParallel]:
+    """The rank's :class:`TensorParallel` where ``ctx`` holds a process mesh
+    whose model axis is above 1 and ``cfg`` is of the dense family; None
+    otherwise (one device, the stacked route, a data-parallel mesh of
+    processes, or another family, whose forward on a process mesh keeps
+    the global parameters and runs its ``shard_map`` bodies over the
+    processes: MLA's lane-local prefill)."""
+    if ctx is None or not compat.is_process_mesh(ctx.mesh) \
+            or ctx.n_lanes == 1 or cfg.family != "dense":
+        return None
+    return TensorParallel(ctx.mesh, ctx.model_axis)
+
+
+# which queue item ports each other family's tensor-parallel train step
+TP_QUEUE = {
+    "moe": "the EP and MLA steps over processes (ROADMAP Queue A, A13c "
+           "item 2.3)",
+    "ssm": "the SSM and hybrid blocks under model over processes (ROADMAP "
+           "Queue A, A13c item 2.6)",
+    "vlm": "the cross layers under model over processes (ROADMAP Queue A, "
+           "A13c item 2.6)",
+}
+TP_QUEUE.update(hybrid=TP_QUEUE["ssm"], audio=TP_QUEUE["vlm"])
+
+
+def check_tensor_parallel(cfg: ArchConfig, ctx: Optional[MeshCtx],
+                          cache: bool = False, train: bool = False):
+    """Raises ``NotImplementedError``, naming its queue item, for a layout
+    that the tensor-parallel route over processes does not take: with
+    ``train`` any family but dense (``TP_QUEUE``); a leaf split over model
+    that the axis does not divide (other than the kv heads, which a rank
+    then reads whole); with ``cache`` a KV cache split over ``kv_seq``.
+    Nothing off a process mesh with a model axis above 1."""
+    if ctx is None or not compat.is_process_mesh(ctx.mesh) \
+            or ctx.n_lanes == 1:
+        return
+    m = ctx.n_lanes
+    head = f"{cfg.name} with {ctx.model_axis}={m} on a process mesh"
+    if cfg.family != "dense":
+        if not train:
+            return
+        what = "MLA's latent attention and the MoE layers" if cfg.use_mla \
+            else f"the {cfg.family} family"
+        raise NotImplementedError(f"{head}: {what} under the model axis; "
+                                  f"{TP_QUEUE[cfg.family]} is not ported")
+    split = {"heads": cfg.n_heads_padded, "ffn": cfg.d_ff,
+             "vocab": cfg.vocab_size}
+    odd = [f"{k} {n}" for k, n in split.items() if n % m]
+    if odd:
+        raise NotImplementedError(
+            f"{head}: {', '.join(odd)} do not split over {m} ranks; a rank "
+            f"holding a leaf that the model axis should split whole "
+            f"(ROADMAP Queue A, A13c item 2.6) is not ported")
+    if cache and cfg.n_kv_heads % m:
+        raise NotImplementedError(
+            f"{head}: {cfg.n_kv_heads} kv heads do not split over {m} "
+            f"ranks, so the reference splits the KV cache over kv_seq "
+            f"(kv_cache_rules); a sequence-split cache over processes "
+            f"(ROADMAP Queue A, A13c item 2.6) is not ported")

@@ -34,7 +34,13 @@ MeshCtx``): the mixture-of-experts layers take their expert-parallel route
 with it (``moe.moe_block``) and MLA's prefill its lane-local one
 (``attention.set_mesh_ctx``), each on a mesh held as tensor dimensions on
 one device (``core/compat.py``); everything else is the same math with or
-without a mesh.
+without a mesh. On a mesh of processes whose ``model`` axis is above 1
+(``models.sharding.tensor_parallel``) the dense family runs
+tensor-parallel on the rank's blocks of the parameters: the lookup into
+its vocab block of the embedding, masked and all-reduced; the attention
+heads, the FFN columns and the head's vocab columns of its own, between
+Megatron's ``copy_to`` / ``reduce_from``; the logits its vocab block of
+them, and the cross-entropy vocab-parallel (:func:`_ce`).
 """
 from __future__ import annotations
 
@@ -56,6 +62,8 @@ from repro_torch.models.layers import (P, rms_norm, tree_leaves, tree_map,
                                        widen)
 from repro_torch.models.mlp import mlp, mlp_template
 from repro_torch.models.moe import moe_block, moe_template
+from repro_torch.models.sharding import (check_tensor_parallel,
+                                         tensor_parallel)
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +184,7 @@ def set_prefill_hint(value: bool):
     _PREFILL_FROM_ZERO = bool(value)
 
 
-def _attn_block(cfg, p, x, positions, cache=None, causal=True):
+def _attn_block(cfg, p, x, positions, cache=None, causal=True, tp=None):
     """Pre-norm attention (MLA or GQA). Returns (attention output, the
     normed input, the layer's new cache entries or None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -186,22 +194,24 @@ def _attn_block(cfg, p, x, positions, cache=None, causal=True):
                                      prefill_from_zero=_PREFILL_FROM_ZERO)
     else:
         a, new_cache = gqa_attention(cfg, p["attn"], h, positions,
-                                     cache=cache, causal=causal)
+                                     cache=cache, causal=causal, tp=tp)
     return a, h, new_cache
 
 
-def dense_block(cfg, p, x, positions, cache=None, causal=True, memory=None):
+def dense_block(cfg, p, x, positions, cache=None, causal=True, memory=None,
+                tp=None):
     """Attention + FFN; an encoder-decoder layer (``xattn`` in ``p``) adds
-    cross-attention to ``memory`` between the two."""
-    a, h, new_cache = _attn_block(cfg, p, x, positions, cache, causal)
+    cross-attention to ``memory`` between the two. ``tp``: the rank's
+    ``models.sharding.TensorParallel`` (its blocks of ``p``), or None."""
+    a, h, new_cache = _attn_block(cfg, p, x, positions, cache, causal, tp)
     if cfg.parallel_block:
-        return x + a + mlp(p["mlp"], h, cfg.activation), new_cache
+        return x + a + mlp(p["mlp"], h, cfg.activation, tp), new_cache
     x = x + a
     if memory is not None and "xattn" in p:
         hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
         x = x + cross_attention(cfg, p["xattn"], hx, memory)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp(p["mlp"], h2, cfg.activation)
+    x = x + mlp(p["mlp"], h2, cfg.activation, tp)
     return x, new_cache
 
 
@@ -284,6 +294,10 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
                    head through the CUDA kernels here
                    (``kernels.ops.lm_head``).
 
+    Tensor-parallel over processes (see the module's docstring), the
+    logits are the rank's vocab block of them (:func:`last_logits`
+    gathers a serve step's).
+
     ``aux`` is the mixture-of-experts load-balance loss summed over the MoE
     layers (zero for the other families). ``ctx`` is the mesh context
     (None: one device); as in the reference, it is also left set for MLA's
@@ -291,10 +305,12 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
     """
     mesh_ctx = ctx if ctx is not None and ctx.mesh is not None else None
     attn_mod.set_mesh_ctx(mesh_ctx)
+    check_tensor_parallel(cfg, mesh_ctx, cache=cache is not None)
+    tp = tensor_parallel(cfg, mesh_ctx)
     b, s = tokens.shape
     dev = tokens.device
     compute_dtype = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(compute_dtype)
+    x = embed_lookup(params["embed"], tokens, tp).to(compute_dtype)
 
     steps = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     if cache is not None:
@@ -328,8 +344,9 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         """A dense block; ``c`` = its cache views, or None."""
         if cache is None:
             return run(lambda x: dense_block(cfg, p, x, positions,
-                                             memory=memory)[0], x)
-        return dense_block(cfg, p, x, positions, cache=c, memory=memory)[0]
+                                             memory=memory, tp=tp)[0], x)
+        return dense_block(cfg, p, x, positions, cache=c, memory=memory,
+                           tp=tp)[0]
 
     def moe(p, x, c):
         """A MoE layer: (x, aux)."""
@@ -420,7 +437,7 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
     if head_fn is not None:
         logits = head_fn(x, unembed)
     else:
-        logits = x @ unembed
+        logits = (x if tp is None else tp.copy(x)) @ unembed
 
     if cache is not None:
         new_cache = {k: v for k, v in cache.items() if k != "lengths"}
@@ -447,7 +464,7 @@ def lm_loss(cfg: ArchConfig, params, batch, ctx=None):
     device). Returns (total, {"ce", "aux"[, "mtp"]})."""
     logits, aux, extras = forward(cfg, params, batch["tokens"], ctx=ctx,
                                   frontend_emb=batch.get("frontend_emb"))
-    loss = _ce(logits, batch["labels"])
+    loss = _ce(logits, batch["labels"], tensor_parallel(cfg, ctx))
     total = loss + 0.01 * aux
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
@@ -457,12 +474,81 @@ def lm_loss(cfg: ArchConfig, params, batch, ctx=None):
     return total, metrics
 
 
-def _ce(logits, labels):
-    """Mean cross-entropy in fp32 (float64 for float64 logits)."""
+def _ce(logits, labels, tp=None):
+    """Mean cross-entropy in fp32 (float64 for float64 logits). With
+    ``tp`` the logits are the rank's vocab block and the loss is the
+    global one, on every rank (:class:`_VocabParallelCE`)."""
     logits = widen(logits)
+    if tp is not None:
+        return _VocabParallelCE.apply(logits, labels, tp)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The mean cross-entropy of logits split over the vocab: the running
+    max all-reduced (MAX), the sum of exponentials and the gold logit
+    (a masked local gather) all-reduced (SUM), the three terms the dry run
+    derives on the vocab-sharded logits. The backward is local, ``softmax
+    - onehot`` over the rank's block: autograd through the collectives
+    would add backward all-reduces that the reference does not run."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        n_tok = labels.numel()
+        v_loc = logits.shape[-1]
+        gmax = tp.all_reduce(logits.amax(dim=-1), "MAX")
+        e = torch.exp(logits - gmax[..., None])
+        total = tp.all_reduce(e.sum(dim=-1))
+        ids, inside = _local_ids(labels, tp.start(v_loc), v_loc)
+        gold = torch.gather(logits, -1, ids[..., None])[..., 0]
+        gold = tp.all_reduce(torch.where(inside, gold,
+                                         torch.zeros_like(gold)))
+        ctx.save_for_backward(e, total, ids, inside)
+        ctx.n_tok = n_tok
+        return torch.mean(torch.log(total) + gmax - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, ids, inside = ctx.saved_tensors
+        grad = e / total[..., None]
+        grad.scatter_add_(-1, ids[..., None],
+                          -inside[..., None].to(grad.dtype))
+        return grad * (g / ctx.n_tok), None, None
+
+
+def _local_ids(ids, start: int, n: int):
+    """(``ids`` less ``start``, clamped into ``[0, n)``; the mask of those
+    that were inside): a rank's view of global ids into its block of
+    ``n`` rows from ``start``."""
+    local = ids.long() - start
+    inside = (local >= 0) & (local < n)
+    return local.clamp(0, n - 1), inside
+
+
+def embed_lookup(table, tokens, tp=None):
+    """``table[tokens]``; with ``tp`` the table is the rank's vocab block:
+    the rows of the ids inside it, zeros for the others, all-reduced over
+    the model axis (``reduce_from``: its backward scatters into the local
+    block only)."""
+    if tp is None:
+        return table[tokens.long()]
+    ids, inside = _local_ids(tokens, tp.start(table.shape[0]),
+                             table.shape[0])
+    rows = torch.where(inside[..., None], table[ids],
+                       torch.zeros((), dtype=table.dtype,
+                                   device=table.device))
+    return tp.reduce(rows)
+
+
+def last_logits(cfg: ArchConfig, logits, ctx=None):
+    """A serve step's logits at the last position, ``(B, vocab)``: on a
+    tensor-parallel rank its vocab block of them all-gathered over the
+    model axis (one counted all-gather), so every rank holds them whole."""
+    tp = tensor_parallel(cfg, ctx)
+    last = logits[:, -1]
+    return last if tp is None else tp.gather(last, dim=-1)
 
 
 def _mtp_loss(cfg, params, batch, hidden):
@@ -492,7 +578,7 @@ def _mtp_loss(cfg, params, batch, hidden):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               cache_dtype=torch.bfloat16, device=None):
+               cache_dtype=torch.bfloat16, device=None, ctx=None):
     """Decode cache tree of zeros on ``device`` (default: the card; raises
     without one), with int32 ``lengths`` (batch,) and, by family:
 
@@ -511,7 +597,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
       head_dim).
 
     ``ssm`` and ``memory`` are float32 whatever ``cache_dtype`` is, as in
-    the reference — float64 for a float64 cache, the port's convention."""
+    the reference — float64 for a float64 cache, the port's convention.
+    ``ctx``: on a tensor-parallel rank (``models.sharding.
+    tensor_parallel``) ``k``/``v`` hold its block of the kv heads."""
+    check_tensor_parallel(cfg, ctx, cache=True)
+    tp = tensor_parallel(cfg, ctx)
     device = resolve_device(device)
     dt = torch_dtype(cache_dtype)
     wide = torch.promote_types(dt, torch.float32)
@@ -520,7 +610,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    kv_shape = (max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    kv_heads = cfg.n_kv_heads // (1 if tp is None else tp.size)
+    kv_shape = (max_seq, kv_heads, cfg.resolved_head_dim)
     fam = cfg.family
     if fam in ("dense", "vlm", "audio"):
         for key in ("k", "v"):

@@ -75,21 +75,33 @@ def abstract_state(cfg: OptConfig, abstract_params) -> dict:
             "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
-def global_norm(tree):
+def global_norm(tree, split=None, reduce=None):
     """sqrt of the sum of squares of every leaf, in fp32 (float64 for a
-    float64 tree)."""
-    return torch.sqrt(sum(torch.sum(torch.square(widen(x)))
-                          for x in tree_leaves(tree)))
+    float64 tree). On a tensor-parallel rank, ``split`` is a tree of bools
+    over ``tree``, True where the leaf is the rank's block of a leaf split
+    over the model axis: those blocks' squares are summed, the sum is
+    all-reduced once by ``reduce``, and the replicated leaves add their
+    squares once, as on one device."""
+    def sq(x):
+        return torch.sum(torch.square(widen(x)))
+    if split is None:
+        return torch.sqrt(sum(sq(x) for x in tree_leaves(tree)))
+    pairs = list(zip(tree_leaves(tree), tree_leaves(split)))
+    blocks = sum(sq(x) for x, s in pairs if s)
+    whole = sum(sq(x) for x, s in pairs if not s)
+    return torch.sqrt(reduce(blocks) + whole)
 
 
 @torch.no_grad()
-def update(cfg: OptConfig, grads, opt_state, params):
+def update(cfg: OptConfig, grads, opt_state, params, norm=None):
     """Returns (new_params, new_opt_state, metrics). The parameter and
     moment tensors are updated in place and are the ones returned; the
-    step counter is a new tensor."""
+    step counter is a new tensor. ``norm``: the gradients' global norm
+    function (default :func:`global_norm`; a tensor-parallel step passes
+    its own)."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step).to(step.device)
-    gnorm = global_norm(grads)
+    gnorm = (norm or global_norm)(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step_f = step.to(torch.float32)
     bc1 = 1 - cfg.b1 ** step_f

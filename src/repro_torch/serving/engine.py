@@ -117,10 +117,11 @@ def prefill(cfg: ArchConfig, params, tokens, max_seq: int,
     """Batch-1 prefill on a fresh fp32 cache. Returns (next_tok (1,),
     single-sequence cache)."""
     cache = tf.init_cache(cfg, 1, max_seq, cache_dtype=torch.float32,
-                          device=tokens.device)
+                          device=tokens.device, ctx=ctx)
     logits, _, new_cache = tf.forward(cfg, params, tokens, ctx=ctx,
                                       cache=cache)
-    next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    next_tok = torch.argmax(tf.last_logits(cfg, logits, ctx), dim=-1).to(
+        torch.int32)
     return next_tok, new_cache
 
 
@@ -136,13 +137,16 @@ def decode_step(cfg: ArchConfig, mode: str, params, cache, tokens,
     The mixture-of-experts families route every slot, inactive ones too,
     so that they take expert capacity as in the reference. With a mesh
     context this is the reference's mesh decode (``_build_mesh_decode``),
-    which takes the rung's compute dtype but no int8 head."""
+    which takes the rung's compute dtype but no int8 head; on a
+    tensor-parallel mesh of processes each rank decodes with its blocks of
+    the weights and of the cache's kv heads, and samples from the logits
+    gathered whole (``models.transformer.last_logits``)."""
     mcfg = _mode_cfg(cfg, mode)
     mesh = ctx is not None and ctx.mesh is not None
     head_fn = _int8_head if mode == "int8" and not mesh else None
     logits, _, new_cache = tf.forward(mcfg, params, tokens, ctx=ctx,
                                       cache=cache, head_fn=head_fn)
-    last = logits[:, -1].float()
+    last = tf.last_logits(cfg, logits, ctx).float()
     # fault-injection port (the mask is all-False in normal operation)
     last = torch.where(nan_mask[:, None],
                        torch.full_like(last, float("nan")), last)
@@ -170,8 +174,12 @@ class ServingEngine:
     already ends in a device-to-host copy of its tokens, so the clock
     covers the device work and adds no synchronisation. ``ctx``: the
     reference's mesh context (``models.sharding.MeshCtx``; the mesh held
-    as tensor dimensions on ``device``), passed to every prefill and
-    decode step."""
+    as tensor dimensions on ``device``, or a mesh of processes), passed to
+    every prefill and decode step. On a process mesh whose model axis is
+    above 1, ``params`` are the rank's blocks (``models.sharding.
+    shard_params``), the KV pool holds its kv heads, and every rank runs
+    the same scheduler on the same requests: each emits the same tokens
+    (the same generator seed draws the same noise)."""
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  max_seq: int = 512, ctx: Optional[MeshCtx] = None,
@@ -197,7 +205,7 @@ class ServingEngine:
         self.degrade = degrade
         self.cache = tf.init_cache(cfg, slots, max_seq,
                                    cache_dtype=torch.float32,
-                                   device=self.device)
+                                   device=self.device, ctx=self.ctx)
         self.active: Dict[int, Request] = {}     # slot -> request
         self.sched = scheduler or Scheduler(
             slots=slots, max_seq=max_seq, max_queue=max_queue,

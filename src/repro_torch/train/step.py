@@ -23,21 +23,32 @@ batch axes are declared local, ``core.compat.ProcessMesh.with_local``),
 runs the same forward and backward on it, and averages every gradient
 leaf over the batch axes in place (``core.compat.pmean_in_place``, one
 call a leaf, counted as ``pmean``), and the loss metrics in one more;
-AdamW then updates the same parameters on every rank. A ``model`` axis
-above 1, FSDP or a mixture-of-experts model there raises
-``NotImplementedError``: the MoE layers' routing statistics and
-dispatch groups span the global batch, which a rank's block does not.
+AdamW then updates the same parameters on every rank. With a ``model``
+axis above 1 the dense family's step is also tensor-parallel, as the
+reference's partitioner runs it from the same specs: each rank holds its
+blocks of every leaf (the specs after :func:`sanitize_specs`; the
+bundle's ``abstract_state`` gives their shapes), runs the forward and
+backward on its heads, FFN columns and vocab block
+(``models.transformer.forward``), and the grad norm sums the split
+leaves' squares over ``model`` once (``optim.adamw.global_norm``). FSDP,
+a mixture-of-experts model (its routing statistics and dispatch groups
+span the global batch, which a rank's block does not) and the other
+families at ``model > 1`` raise ``NotImplementedError`` naming their
+queue item.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
 the frontend's embeddings in the batch. With a mesh, MLA's prefill runs
-its lane-local route (``models.attention.mla_chunked``).
+its lane-local route (``models.attention.mla_chunked``). On a
+tensor-parallel mesh of processes a dense model serves with the rank's
+blocks and a cache of its kv heads (a cache the reference splits over
+``kv_seq`` raises), and the returned logits are gathered whole
+(``models.transformer.last_logits``).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Optional
 
 import torch
@@ -45,14 +56,17 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import compat
 from repro_torch.core.compat import PartitionSpec as PS
+from repro_torch.core.compat import entry_axes
 from repro_torch.core.precision import torch_dtype
 from repro_torch.core.stripmine import stripmined_grads
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (P, abstract_params, param_specs,
                                        tree_leaves, tree_map,
                                        value_and_grad)
-from repro_torch.models.sharding import (MeshCtx, kv_cache_rules,
-                                         make_rules)
+from repro_torch.models.sharding import (MeshCtx, NamedSharding,
+                                         check_tensor_parallel,
+                                         kv_cache_rules, make_rules,
+                                         sanitize_specs, tensor_parallel)
 from repro_torch.models.sharding import named_sharding_tree as named
 from repro_torch.optim import adamw
 
@@ -108,29 +122,6 @@ def cache_pspecs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
         c["attn_v"] = spec(("groups", "batch", "kv_seq", "kv_heads",
                             "head_dim"))
     return c
-
-
-def sanitize_specs(spec_tree, aval_tree, mesh):
-    """Drop mesh axes from dims they don't divide (e.g. batch=1 over
-    data=16, 24 heads over 16 lanes): the reference's ``jax.jit`` shardings
-    need even tiling, and replication is the conservative fallback."""
-    sizes = dict(mesh.shape)
-
-    def fix(spec, aval):
-        if spec is None or not isinstance(spec, PS):
-            return spec
-        new = []
-        for i, entry in enumerate(spec):
-            if entry is None or i >= len(aval.shape):
-                new.append(None)
-                continue
-            axes = entry if isinstance(entry, tuple) else (entry,)
-            prod = math.prod(sizes.get(a, 1) for a in axes)
-            new.append(entry if prod > 0 and aval.shape[i] % prod == 0
-                       else None)
-        return PS(*new)
-
-    return tree_map(fix, spec_tree, aval_tree)
 
 
 def named_for(spec_tree, aval_tree, mesh):
@@ -193,24 +184,29 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
             "opt": {"m": pspecs, "v": pspecs, "step": PS()}}
 
 
-def _check_data_parallel(cfg: ArchConfig, ctx: MeshCtx):
-    """The process route trains data-parallel only, for now."""
-    if ctx.n_lanes > 1:
-        raise NotImplementedError(
-            f"a process mesh with {ctx.model_axis}={ctx.n_lanes}: tensor "
-            f"parallelism over processes (ROADMAP Queue A, A13c, the "
-            f"model axis) is not ported; the step takes a model axis of 1")
+def _check_process_route(cfg: ArchConfig, ctx: MeshCtx):
+    """What the process route trains: the data-parallel step of every
+    family but MoE, and at ``model > 1`` the dense family's
+    tensor-parallel step. Anything else raises ``NotImplementedError``
+    naming its queue item."""
     if cfg.fsdp:
         raise NotImplementedError(
             "fsdp=True on a process mesh: FSDP over processes (ROADMAP "
-            "Queue A, A13c) is not ported")
+            "Queue A, A13c item 2.2) is not ported")
+    check_tensor_parallel(cfg, ctx, train=True)
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name} on a process mesh: its MoE layers route and "
             f"group the global batch's tokens (the Switch aux loss, the "
             f"dispatch capacity), which a rank's block does not hold; the "
-            f"MoE train step over processes (ROADMAP Queue A, A13c, the EP "
-            f"and MLA steps) is not ported")
+            f"MoE train step over processes (ROADMAP Queue A, A13c item "
+            f"2.3, the EP and MLA steps) is not ported")
+
+
+def model_split(specs, axis: str = "model") -> dict:
+    """A tree of bools: True where a sanitized spec splits the leaf over
+    the model axis (the rank holds a block of it)."""
+    return tree_map(lambda s: any(axis in entry_axes(e) for e in s), specs)
 
 
 def mean_over_batch(grads, metrics: dict, mesh, batch_axes) -> tuple:
@@ -228,6 +224,14 @@ def mean_over_batch(grads, metrics: dict, mesh, batch_axes) -> tuple:
                    for i, k in enumerate(keys)}
 
 
+def local_abstract(abstract, specs, mesh):
+    """The ``meta`` tree of a rank's blocks of the global ``abstract`` tree
+    on a process mesh (``specs`` sanitized against it)."""
+    return tree_map(lambda s, t: torch.empty(
+        NamedSharding(mesh, s).shard_shape(t.shape), dtype=t.dtype,
+        device="meta"), specs, abstract)
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
                     ctx: Optional[MeshCtx] = None, grad_accum: int = 1,
                     attn: Optional[AttnOverrides] = None) -> TrainStepBundle:
@@ -235,15 +239,27 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
     {"tokens", "labels"} (B,S) integer tensors on the same device. The
     state's tensors are updated in place (see ``optim.adamw.update``) and
     returned. ``ctx`` None is one device. On a process mesh the batch is
-    the rank's block and the step is data-parallel (see the module's
-    docstring)."""
+    the rank's block, the step is data-parallel and, at ``model > 1``,
+    tensor-parallel: the state is the rank's blocks, whose shapes the
+    bundle's ``abstract_state`` gives (see the module's docstring)."""
     ctx = ctx or MeshCtx(mesh=None)
     cfg = apply_attn_overrides(cfg, attn)
     process = compat.is_process_mesh(ctx.mesh)
+    specs = train_state_specs(cfg, ctx)
+    abstract = make_train_state_abstract(cfg, opt_cfg)
+    norm = None
     if process:
-        _check_data_parallel(cfg, ctx)
+        _check_process_route(cfg, ctx)
         ctx = dataclasses.replace(
             ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
+    tp = tensor_parallel(cfg, ctx)
+    if tp is not None:
+        sane = sanitize_specs(specs, abstract, ctx.mesh)
+        split = model_split(sane["params"], tp.axis)
+        abstract = local_abstract(abstract, sane, ctx.mesh)
+
+        def norm(grads):
+            return adamw.global_norm(grads, split, tp.all_reduce)
 
     def loss_fn(params, batch):
         return tf.lm_loss(cfg, params, batch, ctx=ctx)
@@ -262,13 +278,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
                     ctx.batch_axes)
             loss = metrics.pop("loss")
         new_params, new_opt, opt_metrics = adamw.update(
-            opt_cfg, grads, state["opt"], params)
+            opt_cfg, grads, state["opt"], params, norm=norm)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return {"params": new_params, "opt": new_opt}, metrics
 
-    return TrainStepBundle(train_step, train_state_specs(cfg, ctx),
-                           batch_pspecs(cfg, "train", ctx),
-                           make_train_state_abstract(cfg, opt_cfg), cfg)
+    return TrainStepBundle(train_step, specs, batch_pspecs(cfg, "train", ctx),
+                           abstract, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -286,12 +301,13 @@ def make_prefill_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
     if max_seq < 1:
         raise ValueError(f"make_prefill_step: max_seq must be positive, got "
                          f"{max_seq}")
+    check_tensor_parallel(cfg, ctx, cache=True)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         kw = {} if cache_dtype is None else {"cache_dtype": cache_dtype}
         cache = tf.init_cache(cfg, tokens.shape[0], max_seq,
-                              device=tokens.device, **kw)
+                              device=tokens.device, ctx=ctx, **kw)
         tf.set_prefill_hint(True)
         try:
             logits, _, cache = tf.forward(
@@ -299,16 +315,18 @@ def make_prefill_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
                 frontend_emb=batch.get("frontend_emb"))
         finally:
             tf.set_prefill_hint(False)
-        return logits[:, -1], cache
+        return tf.last_logits(cfg, logits, ctx), cache
     return prefill
 
 
 def make_decode_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None):
     """``decode(params, cache, batch) -> (logits, new_cache)``, the cache's
     tensors written in place (see ``models.transformer.forward``)."""
+    check_tensor_parallel(cfg, ctx, cache=True)
+
     def decode(params, cache, batch):
         logits, _, cache = tf.forward(
             cfg, params, batch["tokens"], ctx=ctx, cache=cache,
             frontend_emb=batch.get("frontend_emb"))
-        return logits[:, -1], cache
+        return tf.last_logits(cfg, logits, ctx), cache
     return decode

@@ -17,7 +17,12 @@ make_process_mesh``; the rank's device is the mesh's) the step is
 data-parallel: each rank takes its block of every global batch from the
 same source (the rows of its coordinate along the batch axes), only rank
 0 writes checkpoints, with a barrier before the next step, and every rank
-restores.
+restores. With a ``model`` axis above 1 it is tensor-parallel too: the
+state is the rank's blocks of the global one (``models.sharding.
+shard_params`` of the same seeded init, so each block is bit-equal to
+the one-device init's), the checkpoint is the global state gathered to
+rank 0 (the one-device trainer's files), and a restore keeps each rank's
+block of it.
 """
 from __future__ import annotations
 
@@ -37,7 +42,9 @@ from repro_torch.device import resolve_device
 from repro_torch.ft.elastic import StragglerMonitor
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_params
-from repro_torch.models.sharding import MeshCtx
+from repro_torch.models.sharding import (MeshCtx, gather_params,
+                                         sanitize_specs, shard_params,
+                                         tensor_parallel)
 from repro_torch.optim import adamw
 from repro_torch.train import step as step_lib
 
@@ -79,10 +86,15 @@ class Trainer:
             self.rows = slice(None)
         self.mesh = mesh
         self.ctx = MeshCtx(mesh=mesh, batch_axes=batch_axes)
+        self.tp = tensor_parallel(cfg, self.ctx)
         self.bundle = step_lib.make_train_step(cfg, opt_cfg, self.ctx,
                                                grad_accum=tcfg.grad_accum)
+        # by the global shapes (the bundle's are a tensor-parallel rank's)
+        whole = step_lib.make_train_state_abstract(cfg, opt_cfg)
+        self.state_specs = None if mesh is None else sanitize_specs(
+            self.bundle.state_specs, whole, mesh)
         self.state_sharding = None if mesh is None else step_lib.named_for(
-            self.bundle.state_specs, self.bundle.abstract_state, mesh)
+            self.bundle.state_specs, whole, mesh)
         self.step_fn = self.bundle.step_fn
         self.source = make_source(data_cfg)
         self.monitor = StragglerMonitor()
@@ -92,10 +104,14 @@ class Trainer:
 
     def init_state(self):
         """Parameters from the port's ``init_params`` with a
-        ``torch.Generator`` seeded from ``tcfg.seed``, zero moments."""
+        ``torch.Generator`` seeded from ``tcfg.seed``, zero moments; on a
+        tensor-parallel rank its blocks of those parameters."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = init_params(tf.model_template(self.cfg), gen,
                              dtype=self.cfg.param_dtype, device=self.device)
+        if self.tp is not None:
+            params = shard_params(params, self.state_specs["params"],
+                                  self.mesh)
         return {"params": params, "opt": adamw.init(self.opt_cfg, params)}
 
     def restore_or_init(self):
@@ -147,9 +163,12 @@ class Trainer:
                     pending_save.join()
                 # the state is on the host when save returns: the next
                 # step's in-place update cannot reach the checkpoint
+                whole = state if self.tp is None else gather_params(
+                    state, self.state_specs, self.mesh)
                 if not self.process or self.mesh.rank == 0:
-                    pending_save = ckpt.save(t.ckpt_dir, step, state,
+                    pending_save = ckpt.save(t.ckpt_dir, step, whole,
                                              blocking=False)
+                del whole
                 if self.process:
                     self.mesh.barrier()
         if pending_save is not None:

@@ -102,7 +102,8 @@ def test_the_walk_sees_the_whole_port():
                  "src/repro_torch/launch/dryrun.py",
                  "src/repro_torch/launch/report.py",
                  "experiments/torch_hillclimb.py",
-                 "tests/torch_process_cases.py"):
+                 "tests/torch_process_cases.py",
+                 "tools/torch_gloo_cuda_probe.py"):
         assert must in names
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_shared_run
 from conftest import run_devices
 from repro.configs import get_config as jget
 from repro.models import sharding as jsh
@@ -229,13 +230,20 @@ print("JAX_MESH_OK")
 '''
 
 
+def reference_npz(tmp_path_factory) -> dict:
+    """The reference subprocess's outputs: run once a test session
+    (``tests/test_torch_processes.py`` reads its sharded train step too)."""
+    def make(path):
+        code = REFERENCE % {"path": path, "shapes": SHAPES,
+                            "groups": GROUPS, "ep": EP_CASES}
+        assert "JAX_MESH_OK" in run_devices(code, n_devices=8)
+    path = torch_shared_run.once(tmp_path_factory, "jax_mesh.npz", make)
+    return dict(np.load(path))
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("jax_mesh") / "mesh.npz")
-    code = REFERENCE % {"path": path, "shapes": SHAPES, "groups": GROUPS,
-                        "ep": EP_CASES}
-    assert "JAX_MESH_OK" in run_devices(code, n_devices=8)
-    return dict(np.load(path))
+    return reference_npz(tmp_path_factory)
 
 
 def _tree(npz, prefix):

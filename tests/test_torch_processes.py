@@ -1,6 +1,7 @@
 """PyTorch port, the mesh over processes: ``core/compat.py``'s process
 route (``launch/mesh.py::make_process_mesh``, gloo on the CPU), every body
-that the stacked route runs, unchanged, and the data-parallel train step.
+that the stacked route runs, unchanged, the data-parallel train step, and
+the dense family's tensor-parallel train and serve steps.
 
 One module fixture spawns 4 gloo ranks once and runs every case of
 ``tests/torch_process_cases.py`` there; each case also runs on rank 0 on
@@ -14,15 +15,25 @@ the collectives' calls a rank and bytes summed over the ranks equal to
 the stacked route's, forward and backward; the local-axes rule; the
 data-parallel step on (4,1) against the one-device step (float32 loss and
 grad norm to 1e-5 relative, float64 parameters to 1e-10) and its
-gradient all-reduce's bytes against the dry run's count; and what the
-route refuses. The reference is not run here: the stacked route and the
-one-device step are held against it in ``tests/test_torch_mesh.py``,
-``tests/test_torch_pipeline.py`` and ``tests/test_torch_train.py``.
+gradient all-reduce's bytes against the dry run's count; the
+tensor-parallel step of reduced tinyllama-1.1b on (1,4) and (2,2) (float32
+step by step to 1e-5 relative, float64 through the Trainer to 1e-10, the
+bytes against the dry run's count, 2 kv heads on (1,4), checkpoints both
+ways) and its serve steps and engine on (1,4); and what the route refuses.
+The reference runs once a session, in ``tests/test_torch_mesh.py``'s
+subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
+against the tensor-parallel step on the same parameters and tokens. The
+stacked route and the one-device step are held against it in
+``tests/test_torch_mesh.py``, ``tests/test_torch_pipeline.py`` and
+``tests/test_torch_train.py``.
 """
+import os
+
 import pytest
 import torch
 
 import torch_process_cases as pc
+from test_torch_mesh import _tree, reference_npz
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import compat
@@ -50,7 +61,14 @@ def _collective_tags():
 
 @pytest.fixture(scope="module")
 def res(tmp_path_factory):
-    return pc.spawn(str(tmp_path_factory.mktemp("processes")))
+    out = str(tmp_path_factory.mktemp("processes"))
+    ref = reference_npz(tmp_path_factory)
+    torch.save({"params": _tree(ref, "step_dense/params"),
+                "tokens": ref["step_dense/tokens"],
+                "metrics": {k: float(ref[f"step_dense/m1_{k}"])
+                            for k in ("loss", "ce", "grad_norm")}},
+               os.path.join(out, pc.REFERENCE_STEP))
+    return pc.spawn(out)
 
 
 def _case(res, name):
@@ -131,13 +149,119 @@ def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
 
 
 def test_what_the_process_route_refuses(res):
-    """A wrong world size, a model axis, FSDP or a MoE model in the DP
-    step, a collective outside a body, and device "cuda" on the gloo
-    group, each with its own text."""
+    """A wrong world size, MoE, MLA and SSM configs at model > 1, a KV
+    cache split over kv_seq, FSDP or a MoE model in the DP step, a
+    collective outside a body, and device "cuda" on the gloo group, each
+    with its own text."""
     got = _case(res, "refusals")
     assert got["outside"] == "a collective runs only inside shard_map's body"
     assert "granite-moe-3b-a800m on a process mesh" in got["moe"]
     pc.check("refusals", got)
+
+
+@pytest.mark.parametrize("shape", pc.TP_MESHES, ids=str)
+def test_tensor_parallel_step_matches_the_one_device_step(res, shape):
+    """Reduced tinyllama-1.1b: float32 step by step, each from the same
+    state, to 1e-5 relative; float64 through the Trainer to 1e-10; each
+    rank's blocks of the reference's shard shapes; the replicated leaves
+    equal on every rank."""
+    pc.check_tp_mesh(_case(res, "tp_train"), shape)
+
+
+@pytest.mark.parametrize("shape", pc.TP_MESHES, ids=str)
+def test_tensor_parallel_bytes_equal_the_dry_runs_count(res, shape):
+    """The all-reduces that the ranks run (Megatron's pairs, the
+    vocab-split lookup and cross-entropy, the data-parallel gradient mean)
+    move, summed over the ranks, the dry run's count of the same cell
+    times the ranks, less the grad norm's scalar and the loss metrics."""
+    pc.check_tp_bytes(_case(res, "tp_train"), shape)
+
+
+def test_tensor_parallel_step_where_the_model_axis_does_not_divide_kv(res):
+    """2 kv heads on (1,4): each rank reads them whole and takes the groups
+    its heads read; the cotangents of k and v are all-reduced."""
+    pc.check_tp_config(_case(res, "tp_train"), "kv2")
+
+
+@pytest.mark.parametrize("arch", pc.TP_ARCHS)
+def test_tensor_parallel_step_of_each_dense_config(res, arch):
+    """llama3-8b, stablelm-1.6b (parallel block) and starcoder2-3b (tied
+    head, GELU, 4 heads padded to 32 with 2 kv heads) reduced, float64
+    through the Trainer on (1,4) against the one-device trainer."""
+    pc.check_tp_config(_case(res, "tp_train"), arch)
+
+
+def test_tensor_parallel_step_matches_the_references_sharded_step(res):
+    """The reference's float32 step on a (2,2) mesh (its parameters and
+    tokens): loss, ce and grad norm to 1e-5 relative."""
+    got = _case(res, "tp_train")
+    assert got["reference"] is not None
+    pc.check_tp_reference(got)
+
+
+def test_tensor_parallel_checkpoints_move_to_one_device_and_back(res):
+    pc.check_tp_ckpt(_case(res, "tp_train"))
+
+
+def test_tensor_parallel_serve_steps_match_the_one_device_steps(res):
+    """Prefill of 8 x 64 and 2 decode steps on (1,4): logits to 1e-5, the
+    cache's k/v of the rank's kv heads."""
+    pc.check_tp_serve_logits(_case(res, "tp_serve"))
+
+
+def test_tensor_parallel_serve_bytes_equal_the_dry_runs_count(res):
+    pc.check_tp_serve_bytes(_case(res, "tp_serve"))
+
+
+def test_tensor_parallel_engine_emits_the_same_tokens_on_every_rank(res):
+    pc.check_tp_engine(_case(res, "tp_serve"))
+
+
+@pytest.mark.parametrize("key", ["tp_moe", "tp_mla", "tp_ssm", "tp_kv_seq"])
+def test_tensor_parallel_refusals_name_their_queue_item(res, key):
+    """On model > 1: MoE, MLA and SSM configs, and a KV cache that the
+    reference splits over kv_seq, each a NotImplementedError naming its
+    queue item."""
+    got = _case(res, "refusals")[key]
+    assert got is not None and pc.refusal_texts()[key] in got, got
+    assert "A13c item 2." in got, got
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3-8b",
+                                  "stablelm-1.6b", "starcoder2-3b"])
+@pytest.mark.parametrize("m", [2, 4, 8])
+def test_each_block_has_the_references_shard_shape(arch, m):
+    """``shard_params`` at full width on ``meta``: on every rank of (1,m)
+    each leaf's block has ``named_for``'s shard shape, and the ranks'
+    blocks tile the leaf (the kv heads whole where m does not divide
+    them). No process group is needed."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import abstract_params, tree_leaves
+    from repro_torch.models.sharding import (MeshCtx, NamedSharding,
+                                             shard_params)
+    from repro_torch.train import step as tstep
+    cfg = get_config(arch)
+    tree = abstract_params(tf.model_template(cfg))
+    for r in range(m):
+        mesh = ProcessMesh(("data", "model"), (1, m), r,
+                           torch.device("cpu"), {})
+        specs = tstep.train_state_specs(cfg, MeshCtx(mesh=mesh))["params"]
+        named = tstep.named_for(specs, tree, mesh)
+        blocks = shard_params(tree, specs, mesh)
+        for b, sh, t in zip(tree_leaves(blocks), tree_leaves(named),
+                            tree_leaves(tree)):
+            assert tuple(b.shape) == sh.shard_shape(t.shape)
+            assert isinstance(sh, NamedSharding)
+            index = sh.block_index(t.shape)
+            assert all(i.stop - i.start == n for i, n in zip(index, b.shape))
+
+
+def test_make_process_mesh_takes_only_the_named_backends():
+    """gloo on the card only when named; nccl never on the CPU."""
+    with pytest.raises(ValueError, match="backend 'nccl' for device 'cpu'"):
+        make_process_mesh(1, 1, device="cpu", backend="nccl")
+    with pytest.raises(ValueError, match="backend 'mpi'"):
+        make_process_mesh(1, 1, device="cuda", backend="mpi")
 
 
 def test_the_process_mesh_answers_as_a_mesh():

@@ -14,11 +14,14 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import zlib
 
 import numpy as np
 import torch
 import torch.multiprocessing as mp
 
+from repro_torch import convert
+from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import chaining, compat
 from repro_torch.core.compat import PartitionSpec as PS
@@ -28,9 +31,11 @@ from repro_torch.launch.mesh import make_process_mesh
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 from repro_torch.models.layers import init_params, tree_leaves, tree_map
-from repro_torch.models.sharding import MeshCtx
+from repro_torch.models.sharding import (MeshCtx, NamedSharding,
+                                         gather_params, shard_params)
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import compressed_psum
+from repro_torch.serving import Request, ServingEngine
 from repro_torch.train import pipeline
 from repro_torch.train import step as tstep
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -47,9 +52,26 @@ CHAIN_SHAPE = (8, 16, 12)
 DP = dict(seq_len=32, global_batch=8, steps=3)
 TOL = {"collectives": 1e-6, "chaining": 1e-5, "compression": 1e-6,
        "pipeline": 1e-6, "moe_ep": 1e-5, "mla": 1e-4, "local_axes": 1e-6,
-       "dp_f32": 1e-5, "dp_f64": 1e-10}
+       "dp_f32": 1e-5, "dp_f64": 1e-10, "tp_f32": 1e-5, "tp_f64": 1e-10,
+       "tp_serve": 1e-5, "tp_reference": 1e-5}
+# the tensor-parallel cases: the meshes of the train step, and the serve
+# cell of tests/test_torch_dryrun.py ("tinyllama-1.1b prefill 1x4" and
+# "decode 1x4": 8 prompts of 64 tokens), then 2 decode steps
+TP_MESHES = ((1, 4), (2, 2))
+# the other dense configs on (1,4): llama3-8b's GQA, stablelm-1.6b's
+# parallel block, starcoder2-3b's tied head, GELU and heads padded to 32
+# (their masks read each rank's global head indices; 2 kv heads, whole
+# on every rank)
+TP_ARCHS = ("llama3-8b", "stablelm-1.6b", "starcoder2-3b")
+TP_SERVE = dict(batch=8, prompt=64, steps=2)
+ENGINE = dict(requests=4, slots=2, max_seq=24, max_new=5)
+# the reference's sharded train step (tests/test_torch_mesh.py's
+# ``step_dense``), written into the spawn's directory by a caller that ran
+# the reference; without it the case skips that comparison
+REFERENCE_STEP = "reference_step_dense.pt"
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
-         "mla", "local_axes", "dp_train", "refusals")
+         "mla", "local_axes", "dp_train", "tp_train", "tp_serve",
+         "refusals")
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +424,214 @@ def case_dp_train(rank, meshes, out_dir):
     return out
 
 
+def _all_ranks(value):
+    """``value`` of every rank, in rank order."""
+    import torch.distributed as dist
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, value)
+    return every
+
+
+def _crc(t) -> int:
+    return zlib.crc32(t.detach().contiguous().view(torch.uint8).numpy()
+                      .tobytes())
+
+
+def _tp_step_by_step(cfg, mesh):
+    """Three tensor-parallel steps through the Trainer's state, batches and
+    step, each held against the one-device step from the same state (the
+    state gathered before the step, on rank 0): per step both metrics,
+    and the collectives of the three tensor-parallel steps."""
+    data = DataConfig(seq_len=DP["seq_len"], global_batch=DP["global_batch"],
+                      vocab_size=cfg.vocab_size)
+    opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1,
+                          decay_steps=DP["steps"])
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=DP["steps"]),
+                 mesh=mesh, device="cpu")
+    one = tstep.make_train_step(cfg, opt).step_fn
+    state = tr.init_state()
+    fresh = ttf.model_template(cfg)
+    shapes_ok = all(
+        tuple(t.shape) == NamedSharding(mesh, s).shard_shape(p.shape)
+        for t, s, p in zip(tree_leaves(state["params"]),
+                           tree_leaves(tr.state_specs["params"]),
+                           tree_leaves(fresh)))
+    rows = []
+    compat.reset_counts()
+    for i in range(DP["steps"]):
+        whole = gather_params(state, tr.state_specs, mesh)
+        mine = {k: torch.as_tensor(v) for k, v in tr.batch(i).items()}
+        state, m = tr.step_fn(state, mine)
+        row = {"tp": {k: float(v) for k, v in m.items()}}
+        if mesh.rank == 0:
+            glob = {k: torch.as_tensor(v)
+                    for k, v in tr.source.batch(i).items()}
+            _, m1 = one(whole, glob)
+            row["one"] = {k: float(v) for k, v in m1.items()}
+        rows.append(row)
+    counts = _counts(mesh)
+    # which leaves the model axis splits: the others are the same on every
+    # rank, and every leaf on the ranks of one model coordinate
+    split = tstep.model_split(tr.state_specs["params"])
+    crcs = [_crc(t) for t in tree_leaves(state["params"])]
+    every = _all_ranks((mesh.coord("model"), crcs))
+    repl = all(e[1][j] == every[0][1][j] for e in every
+               for j, s in enumerate(tree_leaves(split)) if not s)
+    same_block = all(e[1] == f[1] for e in every for f in every
+                     if e[0] == f[0])
+    return {"rows": rows, "counts": counts, "replicated_equal": repl,
+            "blocks_equal_over_data": same_block, "shapes_ok": shapes_ok,
+            "n_split": sum(tree_leaves(split)),
+            "leaves": len(crcs)}
+
+
+def _tp_trajectory(cfg, mesh, ckpt_dir=None):
+    """Three steps through ``Trainer.run`` on ``mesh`` (None: one device):
+    the metrics log and the global parameters at the end."""
+    tr, state = _dp_run(cfg, mesh, ckpt_dir, ckpt_every=DP["steps"])
+    params = state["params"] if mesh is None else gather_params(
+        state["params"], tr.state_specs["params"], mesh)
+    return {"log": tr.metrics_log, "params": _detach(params)}
+
+
+def _reference_step(mesh, out_dir):
+    """The reference's sharded float32 step of reduced tinyllama-1.1b on
+    (2,2) (``tests/test_torch_mesh.py``'s ``step_dense``), here on the
+    ranks: its parameters and tokens, the default ``OptConfig``, each data
+    rank its rows of the batch. None without the reference's file."""
+    path = os.path.join(out_dir, REFERENCE_STEP)
+    if not os.path.exists(path):
+        return None
+    ref = torch.load(path, weights_only=False)
+    cfg = reduced(get_config("tinyllama-1.1b"), compute_dtype="float32")
+    params = convert.params_from_numpy(ref["params"], device="cpu")
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    opt = adamw.OptConfig()
+    bundle = tstep.make_train_step(cfg, opt, ctx)
+    specs = tstep.train_state_specs(cfg, ctx)["params"]
+    blocks = shard_params(params, specs, mesh)
+    toks = torch.as_tensor(ref["tokens"]).long()
+    rows = toks.shape[0] // mesh.shape["data"]
+    mine = slice(mesh.coord("data") * rows, (mesh.coord("data") + 1) * rows)
+    batch = {"tokens": toks[mine], "labels": torch.roll(toks, -1, 1)[mine]}
+    _, m = bundle.step_fn({"params": blocks, "opt": adamw.init(opt, blocks)},
+                          batch)
+    return {"got": {k: float(m[k]) for k in ("loss", "ce", "grad_norm")},
+            "want": ref["metrics"]}
+
+
+def case_tp_train(rank, meshes, out_dir):
+    """The dense family's tensor-parallel train step, reduced
+    tinyllama-1.1b: on (1,4) and (2,2), float32 step by step against the
+    one-device step and float64 through ``Trainer.run`` against the
+    one-device trainer; with 2 kv heads on (1,4) (the model axis does not
+    divide them), and the other dense configs there; the reference's own
+    step on (2,2); and checkpoints between the one-device trainer and the
+    (1,4) one, both ways."""
+    import torch.distributed as dist
+    base = reduced(get_config("tinyllama-1.1b"))
+    f64 = dataclasses.replace(base, param_dtype="float64",
+                              compute_dtype="float64")
+    out = {}
+    for shape in TP_MESHES:
+        mesh = meshes[shape]
+        r = {"f32": _tp_step_by_step(base, mesh),
+             "f64": _tp_trajectory(f64, mesh)}
+        if rank == 0:
+            r["f64_one"] = _tp_trajectory(f64, None)
+        out[shape] = r
+    kv2 = dataclasses.replace(f64, n_kv_heads=2)
+    for name, cfg in [("kv2", kv2)] + [
+            (arch, reduced(get_config(arch), param_dtype="float64",
+                           compute_dtype="float64")) for arch in TP_ARCHS]:
+        out[name] = {"f64": _tp_trajectory(cfg, meshes[1, 4])}
+        if rank == 0:
+            out[name]["f64_one"] = _tp_trajectory(cfg, None)
+    out["reference"] = _reference_step(meshes[2, 2], out_dir)
+
+    # a (1,4) checkpoint restored by the one-device trainer, and a
+    # one-device checkpoint restored on (1,4): byte for byte
+    tp_dir = os.path.join(out_dir, "tp_ckpt")
+    one_dir = os.path.join(out_dir, "one_ckpt")
+    mesh = meshes[1, 4]
+    tp = _tp_trajectory(base, mesh, tp_dir)
+    if rank == 0:
+        tr, state = _dp_run(base, None, tp_dir)
+        out["ckpt_to_one"] = {
+            "no_step": tr.metrics_log == [],
+            "equal": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(state["params"]), tree_leaves(tp["params"])))}
+        _dp_run(base, None, one_dir)
+    dist.barrier()
+    tr, state = _dp_run(base, mesh, one_dir)
+    _, whole = tckpt.restore(one_dir, device="cpu")
+    mine = shard_params(whole["params"], tr.state_specs["params"], mesh)
+    flags = _all_ranks((tr.metrics_log == [], all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(state["params"]),
+                                          tree_leaves(mine)))))
+    out["ckpt_to_tp"] = {"every_rank": flags,
+                         "written": sorted(os.listdir(tp_dir))}
+    return out
+
+
+def case_tp_serve(rank, meshes, out_dir):
+    """Reduced tinyllama-1.1b served tensor-parallel on (1,4): the prefill
+    of 8 prompts of 64 tokens and 2 decode steps against the one-device
+    steps, with their collectives; then one ``ServingEngine`` of 4
+    requests, its tokens on every rank against the one-device engine's."""
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    mesh = meshes[1, 4]
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    params = init_params(ttf.model_template(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)["params"],
+                          mesh)
+    r = np.random.RandomState(5)
+    b, s, n = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["steps"]
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, s)))
+    steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, 1)))
+             for _ in range(n)]
+
+    def serve(p, c):
+        outs, counts = [], []
+        with torch.no_grad():
+            compat.reset_counts()
+            # a float32 cache: in the reference's bfloat16 one, the
+            # projections' last-bit differences (another GEMM shape on a
+            # rank) flip a rounding now and then
+            logits, cache = tstep.make_prefill_step(
+                cfg, c, s + n, cache_dtype=torch.float32)(
+                p, {"tokens": toks})
+            outs.append(logits)
+            counts.append(_counts(mesh) if c else None)
+            dec = tstep.make_decode_step(cfg, c)
+            for tok in steps:
+                compat.reset_counts()
+                logits, cache = dec(p, cache, {"tokens": tok})
+                outs.append(logits)
+                counts.append(_counts(mesh) if c else None)
+        return outs, counts, [tuple(cache[k].shape) for k in ("k", "v")]
+
+    out = {"tp": serve(blocks, ctx)}
+    if rank == 0:
+        out["one"] = serve(params, None)
+
+    def engine(p, c):
+        eng = ServingEngine(cfg, p, slots=ENGINE["slots"],
+                            max_seq=ENGINE["max_seq"], ctx=c, device="cpu")
+        rr = np.random.RandomState(6)
+        for uid in range(ENGINE["requests"]):
+            eng.submit(Request(uid=uid, prompt=rr.randint(
+                0, cfg.vocab_size, size=4 + uid).astype(np.int32),
+                max_new_tokens=ENGINE["max_new"]))
+        done = eng.run_to_completion()
+        return {q.uid: list(q.out_tokens) for q in done}
+    out["engine"] = _all_ranks(engine(blocks, ctx))
+    if rank == 0:
+        out["engine_one"] = engine(params, None)
+    return out
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -415,8 +645,17 @@ def case_refusals(rank, meshes, out_dir):
             out[name] = None
     text("world", ValueError, lambda: make_process_mesh(3, 1, device="cpu"))
     cfg = reduced(get_config("tinyllama-1.1b"))
-    text("model", NotImplementedError, lambda: tstep.make_train_step(
-        cfg, adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2])))
+    for name, arch in (("tp_moe", "granite-moe-3b-a800m"),
+                       ("tp_mla", "deepseek-v3-671b"),
+                       ("tp_ssm", "zamba2-7b")):
+        # without FSDP (deepseek-v3-671b's default), which raises first
+        text(name, NotImplementedError,
+             lambda arch=arch: tstep.make_train_step(
+                 dataclasses.replace(reduced(get_config(arch)), fsdp=False),
+                 adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2])))
+    text("tp_kv_seq", NotImplementedError, lambda: tstep.make_prefill_step(
+        dataclasses.replace(cfg, n_kv_heads=2),
+        MeshCtx(mesh=meshes[1, 4]), 16))
     text("fsdp", NotImplementedError, lambda: tstep.make_train_step(
         dataclasses.replace(cfg, fsdp=True), adamw.OptConfig(),
         MeshCtx(mesh=meshes[4, 1])))
@@ -441,7 +680,14 @@ def refusal_texts() -> dict:
     import torch.distributed as dist
     return {
         "world": "a (3, 1) mesh needs 3 processes, the world has 4",
-        "model": "tensor parallelism over processes",
+        "tp_moe": "the EP and MLA steps over processes (ROADMAP Queue A, "
+                  "A13c item 2.3)",
+        "tp_mla": "MLA's latent attention and the MoE layers under the "
+                  "model axis",
+        "tp_ssm": "the SSM and hybrid blocks under model over processes "
+                  "(ROADMAP Queue A, A13c item 2.6)",
+        "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
+                     "A, A13c item 2.6)",
         "fsdp": "FSDP over processes",
         "moe": "the MoE train step over processes",
         "outside": "a collective runs only inside shard_map's body",
@@ -494,6 +740,10 @@ def check(name, res) -> dict:
         return {}
     if name == "dp_train":
         return check_dp(res)
+    if name == "tp_train":
+        return check_tp_train(res)
+    if name == "tp_serve":
+        return check_tp_serve(res)
     if name == "local_axes":
         (y, g), counts = res["local"]
         (yg, gg), gcounts = res["global"]["stacked"]
@@ -536,6 +786,190 @@ def check_dp(res) -> dict:
                                          "step_00000003"], res["restore"]
     assert all(s and no_step for s, no_step in res["restore"]["every_rank"]), \
         res["restore"]
+    return errs
+
+
+def _rel(got: dict, want: dict, keys) -> float:
+    return max(abs(got[k] - want[k]) / abs(want[k]) for k in keys)
+
+
+def check_trajectory(tag, got, want, errs):
+    """Per-step metrics (relative, ``tp_f32``) and the final parameters
+    (``tp_f64``) of two ``Trainer.run`` logs."""
+    steps = [[m["step"] for m in r["log"]] for r in (got, want)]
+    assert steps[0] == steps[1] == list(range(1, DP["steps"] + 1)), (
+        tag, got["log"], want["log"])
+    errs[f"{tag} metrics"] = max(_rel(a, b, ("loss", "ce", "grad_norm", "lr"))
+                                 for a, b in zip(got["log"], want["log"]))
+    errs[f"{tag} params"] = max(_err(a, b) for a, b in zip(
+        tree_leaves(got["params"]), tree_leaves(want["params"])))
+    assert errs[f"{tag} metrics"] <= TOL["tp_f32"], (tag, errs)
+    assert errs[f"{tag} params"] <= TOL["tp_f64"], (tag, errs)
+
+
+def by_kind(counts) -> dict:
+    """Bytes by the dry run's kind (``core.step_analysis``'s names) of a
+    ``_counts`` pair, forward and backward summed."""
+    from repro_torch.core import step_analysis as sa
+    out = {}
+    for names, c in zip((sa._KIND, sa._KIND_BWD), counts):
+        for k, v in c.items():
+            if k in names:
+                out[names[k]] = out.get(names[k], 0) + v["bytes"]
+    return out
+
+
+def norm_bytes(d: int, m: int, itemsize: int = 4) -> int:
+    """The bytes summed over the ranks of the tensor-parallel grad norm's
+    one all-reduce over model (a scalar, which the dry run does not
+    count: it derives no reduction of a sum over a sharded leaf)."""
+    return d * m * int(round(2 * (m - 1) / m * itemsize))
+
+
+def tp_train_shape():
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig("train", DP["seq_len"], DP["global_batch"], "train")
+
+
+def _dry_count(cfg, shape, mesh):
+    from repro_torch.launch import dryrun
+    return dryrun.count_step(cfg, shape, mesh, target="cpu")
+
+
+def check_tp_mesh(res, shape) -> dict:
+    """On ``shape``: float32 step by step (each from the same state) within
+    ``tp_f32`` of the one-device step, float64 through ``Trainer.run``
+    within ``tp_f32`` (metrics) and ``tp_f64`` (parameters) of the
+    one-device trainer; the blocks of the reference's shard shapes; the
+    replicated leaves equal on every rank, the blocks on the ranks of one
+    model coordinate."""
+    r = res[shape]
+    f32 = r["f32"]
+    assert f32["shapes_ok"] and f32["replicated_equal"] \
+        and f32["blocks_equal_over_data"], (shape, f32)
+    errs = {f"{shape} f32": max(
+        _rel(row["tp"], row["one"], ("loss", "ce", "grad_norm", "lr"))
+        for row in f32["rows"])}
+    assert errs[f"{shape} f32"] <= TOL["tp_f32"], (shape, f32["rows"])
+    check_trajectory(f"{shape} f64", r["f64"], r["f64_one"], errs)
+    return errs
+
+
+def check_tp_bytes(res, shape, count=_dry_count) -> float:
+    """The float32 steps' collectives on ``shape``: one pmean a gradient
+    leaf and one for the metrics (over data), and the bytes the ranks
+    move, summed, equal to the dry run's all-reduces (``count(cfg, shape,
+    mesh)``) times the ranks, less the grad norm's all-reduce and the loss
+    metrics' mean. Returns the relative difference."""
+    from repro_torch.launch.mesh import make_mesh
+    d, m = shape
+    f32 = res[shape]["f32"]
+    fwd, _ = f32["counts"]
+    assert fwd["pmean"]["calls"] == DP["steps"] * (f32["leaves"] + 1), fwd
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    st = count(cfg, tp_train_shape(), make_mesh(d, m))
+    got = by_kind(f32["counts"])
+    assert set(got) == {"all-reduce"} == set(st.collective_by_kind), (
+        got, st.collective_by_kind)
+    # the loss metrics' mean over data: loss, ce and aux in float32
+    extra = norm_bytes(d, m) + d * m * int(round(2 * (d - 1) / d * 12))
+    per_step = got["all-reduce"] / DP["steps"] - extra
+    want = d * m * st.collective_by_kind["all-reduce"]
+    assert abs(per_step - want) <= d * m, (shape, per_step, want)
+    return per_step / want - 1
+
+
+def check_tp_config(res, name) -> dict:
+    """On (1,4), float64 through ``Trainer.run`` against the one-device
+    trainer: ``name`` "kv2" (reduced tinyllama-1.1b with 2 kv heads, which
+    the model axis does not divide) or one of ``TP_ARCHS``."""
+    errs = {}
+    check_trajectory(f"{name} f64", res[name]["f64"], res[name]["f64_one"],
+                     errs)
+    return errs
+
+
+def check_tp_reference(res) -> float:
+    """The reference's own sharded step on (2,2): loss, ce and grad norm
+    within ``tp_reference`` relative."""
+    ref = res["reference"]
+    err = _rel(ref["got"], ref["want"], ("loss", "ce", "grad_norm"))
+    assert err <= TOL["tp_reference"], ref
+    return err
+
+
+def check_tp_ckpt(res):
+    """A (1,4) checkpoint (the global state, gathered) restored by the
+    one-device trainer, and a one-device checkpoint restored on (1,4)
+    (each rank its blocks), byte for byte, with no step run after."""
+    one = res["ckpt_to_one"]
+    assert one["no_step"] and one["equal"], one
+    tp = res["ckpt_to_tp"]
+    assert tp["written"] == [f"step_{DP['steps']:08d}"], tp
+    assert all(no_step and equal for no_step, equal in tp["every_rank"]), tp
+
+
+def check_tp_train(res, count=_dry_count) -> dict:
+    """Every check of the tensor-parallel train case (the reference's step
+    where it ran)."""
+    errs = {}
+    for shape in TP_MESHES:
+        errs.update(check_tp_mesh(res, shape))
+        errs[f"{shape} bytes"] = check_tp_bytes(res, shape, count)
+    for name in ("kv2",) + TP_ARCHS:
+        errs.update(check_tp_config(res, name))
+    if res["reference"] is not None:
+        errs["reference"] = check_tp_reference(res)
+    check_tp_ckpt(res)
+    return errs
+
+
+def check_tp_serve_logits(res) -> dict:
+    """The prefill's and 2 decode steps' logits within ``tp_serve`` of the
+    one-device steps; the cache's k/v of the rank's kv heads."""
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    outs, _, kv = res["tp"]
+    want_outs, _, want_kv = res["one"]
+    errs = {"logits": max(_err(a, b) for a, b in zip(outs, want_outs)),
+            "max_logit": max(float(b.abs().max()) for b in want_outs)}
+    assert errs["logits"] <= TOL["tp_serve"], errs
+    assert [s[3] for s in kv] == [cfg.n_kv_heads // 4] * 2 \
+        and [s[3] for s in want_kv] == [cfg.n_kv_heads] * 2, (kv, want_kv)
+    return errs
+
+
+def check_tp_serve_bytes(res, count=_dry_count):
+    """Per step the all-reduce bytes summed over the ranks equal to the dry
+    run's (``tests/test_torch_dryrun.py``'s cells "tinyllama-1.1b prefill
+    1x4" and "decode 1x4") times the ranks, and one all-gather of the last
+    position's logits (the step returns them whole on every rank, where
+    the dry run's count leaves them split over vocab)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    m, b, s = 4, TP_SERVE["batch"], TP_SERVE["prompt"]
+    gathered = m * (m - 1) * b * (cfg.vocab_size // m) * 4
+    for i, c in enumerate(res["tp"][1]):
+        kind = "prefill" if i == 0 else "decode"
+        st = count(cfg, ShapeConfig(kind, s, b, kind), make_mesh(1, m))
+        got = by_kind(c)
+        assert got == {"all-reduce": m * st.collective_by_kind["all-reduce"],
+                       "all-gather": gathered}, (i, got,
+                                                 st.collective_by_kind)
+
+
+def check_tp_engine(res):
+    """The engine's tokens equal on every rank and to the one-device
+    engine's, every request finished."""
+    eng = res["engine"]
+    assert all(e == eng[0] for e in eng) and eng[0] == res["engine_one"] \
+        and len(eng[0]) == ENGINE["requests"], (eng, res["engine_one"])
+
+
+def check_tp_serve(res, count=_dry_count) -> dict:
+    errs = check_tp_serve_logits(res)
+    check_tp_serve_bytes(res, count)
+    check_tp_engine(res)
     return errs
 
 
