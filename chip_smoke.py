@@ -4965,7 +4965,7 @@ def _conditioned_blocks(cfg, tr, mesh):
     return whole, shard_params(whole, tr.state_specs["params"], mesh)
 
 
-def _tp_fp32_witness(mesh, opt):
+def _tp_fp32_witness(mesh, opt, fsdp=False):
     """``TP_FP32_LAYERS`` layers of tinyllama-1.1b at full width in float32
     compute (TF32 off) from ``_conditioned`` parameters (at the configured
     init, two summation orders of this step read gradients 3e-3 of their
@@ -4975,7 +4975,7 @@ def _tp_fp32_witness(mesh, opt):
     grad norm."""
     cfg, _ = _train_cfgs()
     cfg = dataclasses.replace(cfg, n_layers=TP_FP32_LAYERS,
-                              compute_dtype="float32")
+                              compute_dtype="float32", fsdp=fsdp)
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
     tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS), mesh=mesh,
@@ -4997,12 +4997,14 @@ def _tp_fp32_witness(mesh, opt):
     return rows
 
 
-def _tp_conditioned(mesh, opt):
-    """One tensor-parallel step of tinyllama-1.1b as phase 7 trains it
-    (bf16 compute, full depth, batch 0) from ``_conditioned`` parameters,
-    where the gradients are resolvable, and the one-device step from the
-    same state (rank 0, before it): both steps' loss and grad norm."""
+def _tp_conditioned(mesh, opt, fsdp=False):
+    """One tensor-parallel (with ``fsdp``, FSDP) step of tinyllama-1.1b as
+    phase 7 trains it (bf16 compute, full depth, batch 0) from
+    ``_conditioned`` parameters, where the gradients are resolvable, and
+    the one-device step from the same state (rank 0, before it): both
+    steps' loss and grad norm."""
     cfg, _ = _train_cfgs()
+    cfg = dataclasses.replace(cfg, fsdp=fsdp)
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
     tr = Trainer(cfg, opt, data, TrainerConfig(steps=1), mesh=mesh,
@@ -5025,22 +5027,25 @@ def _tp_conditioned(mesh, opt):
     return out
 
 
-def _tp_rank(rank, world, store, out_path, one_path):
-    """A rank of phase 39 (module level: ``spawn`` pickles it):
-    tinyllama-1.1b as phase 7 trains it through
-    ``Trainer(mesh=make_process_mesh(1, world, backend="gloo"))`` on the
-    card the ranks share, its blocks then held against the same slices of
-    the one-device result (``one_path``, memory-mapped); then the
-    float32 and conditioned witnesses. Rank 0 writes the results to
-    ``out_path``."""
+def _tp_rank(rank, world, store, out_path, one_path, shape=None,
+             fsdp=False):
+    """A rank of phase 39 (module level: ``spawn`` pickles it), or with
+    ``fsdp`` of phase 40: tinyllama-1.1b as phase 7 trains it (with
+    ``fsdp=True``) through ``Trainer(mesh=make_process_mesh(*shape,
+    backend="gloo"))`` (``shape`` by default (1, world)) on the card the
+    ranks share, its blocks then held against the same slices of the
+    one-device result (``one_path``, memory-mapped); then the float32 and
+    conditioned witnesses. Rank 0 writes the results to ``out_path``."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_process_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh = make_process_mesh(1, world, device="cuda:0", backend="gloo",
+    d, m = shape or (1, world)
+    mesh = make_process_mesh(d, m, device="cuda:0", backend="gloo",
                              init_method=f"file://{store}", rank=rank,
                              world_size=world, timeout_s=TP_TIMEOUT_S)
     cfg, opt = _train_cfgs()
+    cfg = dataclasses.replace(cfg, fsdp=fsdp)
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
     tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS, log_every=1),
@@ -5074,8 +5079,8 @@ def _tp_rank(rank, world, store, out_path, one_path):
     shapes = [list(t.shape) for t in tree_leaves(state["params"])]
     del state, tr, mine
     free_memory()
-    fp32 = _tp_fp32_witness(mesh, opt)
-    conditioned = _tp_conditioned(mesh, opt)
+    fp32 = _tp_fp32_witness(mesh, opt, fsdp)
+    conditioned = _tp_conditioned(mesh, opt, fsdp)
     geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
                   for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
     every = [None] * world
@@ -5107,7 +5112,28 @@ def _param_bound(lrs, wd, pmax) -> float:
     return 2 * sum(lrs) * (1.001 + wd * pmax)
 
 
-def phase_mesh_tensor_parallel(smi):
+def one_device_record(tmp):
+    """Phase 7's one-device steps (``TP_STEPS`` from its state and
+    batches), which phases 39 and 40 hold their ranks against: (metrics
+    log, the path of its parameters on the host under ``tmp``, seconds);
+    its first losses asserted equal to phase 7's where phase 7 ran."""
+    t0 = time.perf_counter()
+    cfg, opt = _train_cfgs()
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    one, state = _tp_one_device(cfg, opt, data)
+    one_path = os.path.join(tmp, "one_device_params.pt")
+    torch.save(tree_map(lambda t: t.cpu(), state["params"]), one_path)
+    del state
+    free_memory()
+    phase7 = RECORD.get("train", {})
+    if phase7:
+        assert [x["loss"] for x in one] == \
+            phase7["losses"][:TP_STEPS], (one, phase7)
+    return one, one_path, time.perf_counter() - t0
+
+
+def phase_mesh_tensor_parallel(smi, one_device=None):
     """Phase 39: tensor parallelism over processes (``train/step.py``'s
     tensor-parallel step: each rank its blocks of every leaf by the
     reference's specs, Megatron's ``copy_to`` / ``reduce_from`` around the
@@ -5135,7 +5161,8 @@ def phase_mesh_tensor_parallel(smi):
     ``TP_FP32_REL``.
     Recorded: ms a step and peak GB on each rank (the ranks share one card
     and its host: no scaling figure), the backend the group reports.
-    Returns the launches by path, summed over the ranks."""
+    ``one_device``: :func:`one_device_record`'s result (made here where
+    None). Returns the launches by path, summed over the ranks."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     free_memory()
@@ -5146,18 +5173,7 @@ def phase_mesh_tensor_parallel(smi):
     by_path, results = {}, []
     tmp = tempfile.mkdtemp(prefix="mesh_tensor_parallel_")
     try:
-        t0 = time.perf_counter()
-        data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                          vocab_size=cfg.vocab_size, seed=0)
-        one, state = _tp_one_device(cfg, opt, data)
-        one_path = os.path.join(tmp, "one_device_params.pt")
-        torch.save(tree_map(lambda t: t.cpu(), state["params"]), one_path)
-        del state
-        free_memory()
-        if phase7:
-            assert [x["loss"] for x in one] == \
-                phase7["losses"][:TP_STEPS], (one, phase7)
-        one_s = time.perf_counter() - t0
+        one, one_path, one_s = one_device or one_device_record(tmp)
         for m in TP_MODELS:
             t0 = time.perf_counter()
             out_path = os.path.join(tmp, f"tp{m}.json")
@@ -5236,6 +5252,136 @@ def phase_mesh_tensor_parallel(smi):
                  block_shapes=r["shapes"], one_device_seconds=one_s,
                  seconds=spawn_s)
             by_path[f"mesh_tensor_parallel (1, {m})"] = launches
+            free_memory()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 40: FSDP over processes
+# ---------------------------------------------------------------------------
+
+
+FSDP_CARD_MESHES = ((4, 1), (2, 2))   # (data, model): ranks on the one card
+FSDP_GRAD_REL = 5e-3      # the conditioned grad norm (phase 39's 5.8e-4)
+FSDP_FP32_REL = 1e-6      # the float32 witness, each step from one state
+
+
+def phase_mesh_fsdp(smi, one_device=None):
+    """Phase 40: FSDP over processes (``train/step.py``'s FSDP step: each
+    rank its block of every leaf by the reference's specs with
+    ``fsdp=True``, every embed dimension over data; each leaf gathered at
+    its use inside a layer, again by the checkpoint's recompute for the
+    backward, its gradient reduce-scattered, ``core.compat.gather_from``).
+    On each mesh of ``FSDP_CARD_MESHES`` its ranks spawned on the one card
+    in a gloo group, as phase 39's: tinyllama-1.1b as phase 7 trains it
+    (full width and depth, 4 x 2048, bf16 compute, full remat) with
+    ``fsdp=True``, ``TP_STEPS`` steps from phase 7's state and batches.
+    Held: the first step's loss within ``TP_LOSS_REL`` of the one-device
+    step's; on ``_conditioned`` parameters one step's loss and grad norm
+    within ``TP_LOSS_REL`` and ``FSDP_GRAD_REL``; each rank's blocks within
+    ``_param_bound`` of the same slices of the one-device result; B3-B5
+    ``train_launches`` a step on every rank, at the rank's rows and heads,
+    each held against its plain version at the geometry the path launched
+    it at; the bytes by kind, summed over the ranks, equal to
+    ``count_step``'s for the cell on the mesh times the ranks (the
+    all-reduces less the loss metrics' mean and the grad norm's scalar);
+    a float32 witness (2 layers, full width, TF32 off, conditioned) step
+    by step within ``FSDP_FP32_REL``. Recorded: ms a step (gloo's host
+    staging and the shared host: no speed figure) and peak GB on each
+    rank. ``one_device``: :func:`one_device_record`'s result (made here
+    where None). Returns the launches by path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    free_memory()
+    pc = _process_cases()
+    cfg, opt = _train_cfgs()
+    cfg = dataclasses.replace(cfg, fsdp=True)
+    per_step = train_launches(cfg)
+    phase7 = RECORD.get("train", {})
+    by_path, results = {}, []
+    tmp = tempfile.mkdtemp(prefix="mesh_fsdp_")
+    try:
+        one, one_path, one_s = one_device or one_device_record(tmp)
+        for d, m in FSDP_CARD_MESHES:
+            t0 = time.perf_counter()
+            n = d * m
+            out_path = os.path.join(tmp, f"fsdp{d}x{m}.json")
+            pc.run_ranks(_tp_rank, n, (n, os.path.join(tmp, f"store{d}x{m}"),
+                                       out_path, one_path, (d, m), True),
+                         TP_TIMEOUT_S)
+            with open(out_path) as f:
+                r = json.load(f)
+            spawn_s = time.perf_counter() - t0
+            assert r["backend"] == "gloo", r["backend"]
+            want = {k: TP_STEPS * v for k, v in per_step.items()}
+            assert all(x == want for x in r["launches_by_rank"]), r
+            launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                        for k in per_step}
+            rows, heads = TRAIN_BATCH // d, cfg.n_heads_padded // m
+            seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
+                    for rank_geos in r["geometries_by_rank"]
+                    for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
+            geometries = check_path_attention(
+                f"fsdp ({d}, {m})", seen, rows, heads, 400 + n, results)
+            got_log = r["log"]
+            loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                        for a, b in zip(got_log, one)]
+            grad_rel = [abs(a["grad_norm"] - b["grad_norm"])
+                        / abs(b["grad_norm"]) for a, b in zip(got_log, one)]
+            assert loss_rel[0] <= TP_LOSS_REL, (loss_rel, got_log, one)
+            cond = r["conditioned"]
+            cond_rel = {k: abs(cond["tp"][k] - cond["one"][k])
+                        / abs(cond["one"][k]) for k in ("loss", "grad_norm")}
+            assert cond_rel["loss"] <= TP_LOSS_REL, cond
+            assert cond_rel["grad_norm"] <= FSDP_GRAD_REL, cond
+            lrs = [x["lr"] for x in one]
+            worst = 0.0
+            for gaps in r["gaps_by_rank"]:
+                for mx, _, pmax in gaps:
+                    bound = _param_bound(lrs, r["weight_decay"], pmax)
+                    assert mx <= bound, (mx, bound, gaps)
+                    worst = max(worst, mx / bound)
+            fp32_rel = [max(abs(row["tp"][k] - row["one"][k])
+                            / abs(row["one"][k])
+                            for k in ("loss", "grad_norm"))
+                        for row in r["fp32"]]
+            assert max(fp32_rel) <= FSDP_FP32_REL, r["fp32"]
+            st = dryrun.count_step(
+                cfg, ShapeConfig("train_4x2048", TRAIN_SEQ, TRAIN_BATCH,
+                                 "train"), make_mesh(d, m), target="cuda")
+            got = {k: v / TP_STEPS for k, v in pc.by_kind(
+                r["collectives"]).items()}
+            got["all-reduce"] -= pc.fsdp_extra(d, m)
+            want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
+            want_bytes.setdefault("all-reduce", 0)
+            assert set(got) == set(want_bytes) and all(
+                abs(got[k] - want_bytes[k]) <= n for k in got), (
+                    got, want_bytes)
+            steady = [statistics.mean(x[1:]) for x in r["step_ms_by_rank"]]
+            emit("mesh_fsdp", gpu=smi, arch=cfg.name, mesh=[d, m], ranks=n,
+                 backend=r["backend"], batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                 steps=TP_STEPS, losses=[x["loss"] for x in got_log],
+                 one_device_losses=[x["loss"] for x in one],
+                 grad_norms=[x["grad_norm"] for x in got_log],
+                 one_device_grad_norms=[x["grad_norm"] for x in one],
+                 loss_rel=loss_rel, grad_norm_rel=grad_rel,
+                 conditioned=cond, conditioned_rel=cond_rel,
+                 params_worst_over_bound=worst, fp32_witness=r["fp32"],
+                 fp32_rel=fp32_rel, launches=launches,
+                 launches_per_rank_step=per_step, geometries=geometries,
+                 rows_per_launch=rows, heads_per_launch=heads,
+                 collectives=r["collectives"], bytes_per_step=got,
+                 count_step_bytes=want_bytes,
+                 step_ms_by_rank=r["step_ms_by_rank"],
+                 steady_step_ms_by_rank=steady,
+                 peak_gb_by_rank=r["peak_gb_by_rank"],
+                 one_device_steady_step_ms=phase7.get("steady_step_ms"),
+                 one_device_peak_gb=phase7.get("peak_gb"),
+                 block_shapes=r["shapes"], one_device_seconds=one_s,
+                 seconds=spawn_s)
+            by_path[f"mesh_fsdp ({d}, {m})"] = launches
             free_memory()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5465,7 +5611,14 @@ def main():
     free_memory()
     surface["mesh_processes"] = phase_mesh_processes(smi)  # fresh processes
     free_memory()
-    surface.update(phase_mesh_tensor_parallel(smi))        # fresh processes
+    tmp = tempfile.mkdtemp(prefix="one_device_")
+    try:
+        one = one_device_record(tmp)       # phases 39 and 40 hold to it
+        surface.update(phase_mesh_tensor_parallel(smi, one))  # fresh
+        free_memory()                                         # processes
+        surface.update(phase_mesh_fsdp(smi, one))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps(kernels_line(results, timed, launches, serve_flash,
                                   att_results, att_timed, att_launches, paper,

@@ -215,7 +215,8 @@ def restore(directory: str, *, step: Optional[int] = None, device=None,
         if sh is not None:
             sh.shard_shape(arr.shape)
             if is_process_mesh(sh.mesh):
-                arr = np.ascontiguousarray(arr[sh.block_index(arr.shape)])
+                # a copy of the block (a scalar stays 0-d)
+                arr = np.array(arr[sh.block_index(arr.shape)], order="C")
         items.append((tuple(name.split("/")),
                       _to_tensor(arr, meta["dtype"], device)))
     return step, _unflatten(items)

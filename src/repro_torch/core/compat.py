@@ -57,7 +57,9 @@ all-reduced backward) at the input of a product split by columns,
 :func:`reduce_from` (all-reduce forward, identity backward) after one
 split by rows; :func:`reduce_over` and :func:`gather_over` all-reduce and
 all-gather a tensor outside autograd (the vocab-parallel cross-entropy's
-terms, the serve steps' logits).
+terms, the serve steps' logits), and :func:`gather_from` is FSDP's
+gather of a parameter's blocks (an all-gather forward, a reduce-scatter
+of the cotangent backward).
 
 **Counts.** Each collective adds one to ``CALLS[kind]`` and, to
 ``BYTES[kind]``, the bytes that a real mesh moves over its links for that
@@ -374,10 +376,22 @@ def _all_gather(x, group, n: int):
     """The group's buffers stacked along a new dimension 0."""
     if group is None:
         return x.unsqueeze(0).clone()
+    return torch.stack(_gather_parts(x, group, n))
+
+
+def _gather_parts(x, group, n: int) -> list:
+    """The group's buffers, in its rank order."""
     src = x.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    return torch.stack(parts)
+    return parts
+
+
+def _reduce_scatter(g, group, n: int):
+    """Chunk ``j`` of ``g``'s dimension 0 (of size ``n``) to the group's
+    rank ``j``, the chunks received summed in rank order: a reduce-scatter
+    by the all-to-all."""
+    return _all_to_all(g, group, n).sum(dim=0)
 
 
 def _exchange(x, to: int, frm: int, group):
@@ -592,7 +606,42 @@ def gather_over(x, mesh: ProcessMesh, axis: str, dim: int = -1):
     if n == 1:
         return x
     _count("all_gather", (n - 1) * x.numel() * x.element_size())
-    return torch.cat(list(_all_gather(x, group, n)), dim=dim)
+    return torch.cat(_gather_parts(x, group, n), dim=dim)
+
+
+class _GatherFrom(torch.autograd.Function):
+    """:func:`gather_over` forward; the cotangent reduce-scattered back to
+    the rank's block backward, counted as :func:`all_gather`'s backward
+    counts on a process."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.ring, ctx.dim = _ring(mesh, axes), dim
+        return gather_over(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        (group, n), dim = ctx.ring, ctx.dim
+        blocks = g.movedim(dim, 0)
+        blocks = blocks.reshape((n, blocks.shape[0] // n) + blocks.shape[1:])
+        _count_backward("all_gather", (n - 1) * blocks[0].numel()
+                        * blocks.element_size())
+        return _reduce_scatter(blocks, group, n).movedim(
+            0, dim).contiguous(), None, None, None
+
+
+def gather_from(x, mesh: ProcessMesh, axes, dim: int):
+    """Outside a body, on a process mesh: FSDP's gather of a parameter.
+    Forward, the group's blocks of ``x`` over ``axes`` (a name or a tuple,
+    the first the major one) concatenated along ``dim`` in their
+    coordinate order (:func:`gather_over`: one counted all-gather);
+    backward, the cotangent's block of each rank summed over the group
+    and left on that rank (a reduce-scatter: the all-to-all and sum of
+    :func:`all_gather`'s backward, counted as that backward counts). A
+    group of one is the identity both ways and counts nothing."""
+    if _ring(mesh, axes)[1] == 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axes, dim)
 
 
 def _max_back(g, dims, x, y):
@@ -652,10 +701,8 @@ def all_gather(x, axis: str):
                 stack + (n,) + x.shape[lead:])
 
         def scatter(g):
-            # a reduce-scatter: chunk j to rank j, the chunks received
-            # summed in rank order
-            got = _all_to_all(g.reshape(g.shape[lead:]), group, n)
-            return got.sum(dim=0).reshape(stack + g.shape[lead + 1:])
+            return _reduce_scatter(g.reshape(g.shape[lead:]), group,
+                                   n).reshape(stack + g.shape[lead + 1:])
         return _apply(ax, x, "all_gather", nbytes, nbytes, gather, scatter)
     return _apply(
         ax, x, "all_gather", nbytes, nbytes,

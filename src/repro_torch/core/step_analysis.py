@@ -27,8 +27,9 @@ backward and the optimizer, and counts:
      and backward, each reported as it runs (:func:`collective`);
   2. the parameters' own, from each leaf's spec: under FSDP (a leaf
      sharded over a batch axis) an all-gather over those axes in the
-     forward that reads it and one more in the backward that reads it
-     (the gradient products, and the recompute under remat, share it),
+     forward that reads it and one more in the backward that reads it,
+     or reads its cast to the compute dtype (the gradient products, and
+     the recompute under remat, share it),
      and a reduce-scatter of its gradient; a gradient all-reduce over the
      batch axes that replicate the leaf, and over ``model`` too where it
      replicates a leaf that the forward applies to an activation split
@@ -438,6 +439,11 @@ class _Run(TorchDispatchMode):
         self.params = params        # storage key -> (tensor, spec)
         self.read_fwd, self.read_bwd = set(), set()
         self.extent = {}            # leaf key -> hull of the boxes read
+        # the forward's casts of a leaf (their storage key -> (a weak
+        # reference to it, the leaf's key)): the backward that reads a
+        # cast (the gradient product of a weight used in the compute
+        # dtype) reads the leaf
+        self.casts = {}
         self.backward_ran = False
         self.explicit = 0           # inside shard_map bodies
         self.tags = WeakIdKeyDictionary()
@@ -497,6 +503,8 @@ class _Run(TorchDispatchMode):
                 if step_read and not func.is_view:
                     self.extent[k] = _hull(self.extent.get(k),
                                            _box(t, self.params[k][0]))
+            elif self._cast_of(k) is not None:
+                reads.add(self._cast_of(k))
         packet = func.overloadpacket
         if packet in _PRODUCTS:
             f = flop_registry[packet](*args, **kwargs, out_val=out) / self.n
@@ -506,6 +514,13 @@ class _Run(TorchDispatchMode):
             self.stats.flops += 2.0 * out.numel() / self.n
         name = packet.__name__
         out_keys = [_key(t) for t in outs]
+        if name == "_to_copy" and not in_backward and in_keys:
+            leaf = in_keys[0] if in_keys[0] in self.params \
+                else self._cast_of(in_keys[0])
+            if leaf is not None:
+                for t, k in zip(outs, out_keys):
+                    self.casts[k] = (StorageWeakRef(t.untyped_storage()),
+                                     leaf)
         if not (func.is_view or name in NOT_COUNTED):
             state, n = self.state, self.n
             self.stats.bytes_accessed += sum(
@@ -520,6 +535,12 @@ class _Run(TorchDispatchMode):
             self._mark(ins, in_keys, outs, reduced)
         self._track_live(outs, out_keys)
         return out
+
+    def _cast_of(self, key):
+        """The key of the leaf whose live cast has storage ``key``, or
+        None."""
+        got = self.casts.get(key)
+        return got[1] if got is not None and not got[0].expired() else None
 
     def _track_live(self, outs, keys):
         for t, k in zip(outs, keys):

@@ -8,12 +8,14 @@ over ``data``. The rules are the reference's; the mesh is the port's
 one device by ``core/compat.py``) or a mesh of processes
 (``core.compat.ProcessMesh``), where each rank holds its block of every
 leaf (:func:`shard_params`, :func:`gather_params`) and its forward runs on
-those blocks (:class:`TensorParallel`).
+those blocks (:class:`TensorParallel` over ``model``, :class:`Fsdp` over
+the batch axes).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -22,7 +24,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import compat
 from repro_torch.core.compat import PartitionSpec, entry_axes
-from repro_torch.models.layers import Rules, tree_map
+from repro_torch.models.layers import (Rules, abstract_params, param_specs,
+                                       tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,3 +297,193 @@ def check_tensor_parallel(cfg: ArchConfig, ctx: Optional[MeshCtx],
             f"ranks, so the reference splits the KV cache over kv_seq "
             f"(kv_cache_rules); a sequence-split cache over processes "
             f"(ROADMAP Queue A, A13c item 2.6) is not ported")
+
+
+# ---------------------------------------------------------------------------
+# FSDP over the batch axes of a mesh of processes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Recipe:
+    """How to gather a leaf's blocks again: the rank's block (a detached
+    view of the parameter), the mesh, the axes and the dimension."""
+    block: torch.Tensor
+    mesh: object
+    axes: tuple
+    dim: int
+
+    def gathered(self, dtype):
+        return compat.gather_over(self.block, self.mesh, self.axes,
+                                  self.dim).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Packed:
+    """A saved tensor that views a gathered leaf (or its cast): its recipe
+    and where it lies in the gathered tensor."""
+    recipe: _Recipe
+    dtype: torch.dtype
+    size: tuple
+    stride: tuple
+    offset: int
+
+
+_SCOPES: list = []
+
+
+class _Regather:
+    """A block's forward under autograd's saved-tensor hooks: a tensor that
+    a product saves for its backward and that views a leaf gathered in the
+    block (or the leaf's cast to the compute dtype) is packed as a handle
+    to the rank's block, and gathered again when the backward unpacks it
+    (one more counted all-gather); every other saved tensor is kept as it
+    is. So the gathered leaf is freed after the block's forward, as FSDP
+    frees it, with or without a checkpoint of the block."""
+
+    def __init__(self):
+        self.held = []          # (weak reference to a gathered tensor, recipe)
+        self.hooks = torch.autograd.graph.saved_tensors_hooks(self.pack,
+                                                              self.unpack)
+
+    def hold(self, t, recipe):
+        self.held.append((weakref.ref(t), recipe))
+
+    def pack(self, t):
+        ptr = t.untyped_storage().data_ptr()
+        for ref, recipe in self.held:
+            g = ref()
+            if g is not None and ptr and g.device == t.device \
+                    and g.untyped_storage().data_ptr() == ptr:
+                return _Packed(recipe, g.dtype, tuple(t.size()),
+                               tuple(t.stride()), t.storage_offset())
+        return t
+
+    @staticmethod
+    def unpack(saved):
+        if not isinstance(saved, _Packed):
+            return saved
+        return saved.recipe.gathered(saved.dtype).as_strided(
+            saved.size, saved.stride, saved.offset)
+
+    def __enter__(self):
+        _SCOPES.append(self)
+        self.hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.hooks.__exit__(*exc)
+        _SCOPES.pop()
+
+
+@dataclasses.dataclass(frozen=True)
+class Fsdp:
+    """FSDP (ZeRO-3) over the batch axes of a process mesh, as a rank's
+    forward sees it: the rank holds its block of every leaf whose
+    sanitized spec cuts a dimension over those axes (``embed``,
+    ``embed2``, ``q_lora``, ``kv_lora``), and :meth:`gather` all-gathers a
+    tree's blocks at their use into the rank's ``model`` block of each
+    leaf (``core.compat.gather_from``: its backward reduce-scatters the
+    gradient back to the block). Within :meth:`regather`, the gathered
+    leaves that the backward reads are gathered again there, not kept.
+    ``specs``: the sanitized spec tree of the parameters."""
+    mesh: object
+    axes: tuple
+    specs: dict
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.axes)
+
+    def dim(self, spec) -> Optional[int]:
+        """The dimension that ``spec`` cuts over the batch axes, or None."""
+        return next((i for i, e in enumerate(spec)
+                     if any(a in self.axes for a in entry_axes(e))), None)
+
+    def gather_leaf(self, x, spec, dtype=None, lead: int = 0,
+                    gathered=None):
+        """The rank's block ``x`` of a leaf of sanitized spec ``spec``
+        gathered over the batch axes that cut it (``x`` as it is where
+        none does), then cast to ``dtype`` (None: the stored dtype: the
+        gather moves the leaf as it is stored). ``lead``: leading
+        dimensions of the spec that ``x`` lacks (1 for a layer of a
+        stacked leaf); ``gathered``: ``x`` already gathered (the tied head
+        reads the table that the lookup gathered), to cast and hold."""
+        dim = self.dim(spec)
+        if dim is None:
+            return x
+        axes = tuple(a for a in entry_axes(spec[dim]) if a in self.axes)
+        full = gathered if gathered is not None else compat.gather_from(
+            x, self.mesh, axes, dim - lead)
+        low = full if dtype is None else full.to(dtype)
+        if _SCOPES:
+            recipe = _Recipe(x.detach(), self.mesh, axes, dim - lead)
+            _SCOPES[-1].hold(full, recipe)
+            _SCOPES[-1].hold(low, recipe)
+        return low
+
+    def gather(self, tree, specs, dtype=None, lead: int = 0):
+        """:meth:`gather_leaf` over a tree of blocks and its specs."""
+        return tree_map(lambda x, s: self.gather_leaf(x, s, dtype, lead),
+                        tree, specs)
+
+    def regather(self):
+        """A scope (:class:`_Regather`) for a block's forward whose
+        backward reads its gathered leaves."""
+        return _Regather()
+
+
+def _fsdp_axes(cfg: ArchConfig, ctx: Optional[MeshCtx]) -> tuple:
+    """The batch axes that FSDP splits over on ``ctx``'s mesh of processes
+    (those of extent above 1 in all), or () where it does not apply."""
+    if ctx is None or not cfg.fsdp or not compat.is_process_mesh(ctx.mesh):
+        return ()
+    axes = tuple(a for a in ctx.batch_axes if a in ctx.axis_sizes)
+    return axes if math.prod(ctx.axis_sizes[a] for a in axes) > 1 else ()
+
+
+def fsdp_split(cfg: ArchConfig, ctx: Optional[MeshCtx]) -> Optional[Fsdp]:
+    """The rank's :class:`Fsdp` where ``ctx`` holds a process mesh whose
+    batch axes' extent is above 1 and ``cfg.fsdp`` is set; None otherwise
+    (one device, the stacked route, or FSDP off)."""
+    axes = _fsdp_axes(cfg, ctx)
+    if not axes:
+        return None
+    from repro_torch.models import transformer as tf
+    tmpl = tf.model_template(cfg)
+    specs = sanitize_specs(param_specs(tmpl, make_rules(cfg, ctx)),
+                           abstract_params(tmpl), ctx.mesh)
+    return Fsdp(ctx.mesh, axes, specs)
+
+
+# which queue item ports FSDP over processes of each other family
+FSDP_QUEUE = {
+    "moe": TP_QUEUE["moe"],
+    "other": "FSDP of the SSM, hybrid, vision and encoder-decoder families "
+             "and of the serving engine over processes (ROADMAP Queue A, "
+             "A13c item 2.2b)",
+}
+
+
+def check_fsdp(cfg: ArchConfig, ctx: Optional[MeshCtx],
+               engine: bool = False):
+    """Raises ``NotImplementedError``, naming its queue item, for FSDP over
+    processes that the port does not run: any family but dense
+    (``FSDP_QUEUE``), and with ``engine`` the serving engine. Nothing
+    where FSDP does not apply (:func:`fsdp_split`)."""
+    axes = _fsdp_axes(cfg, ctx)
+    if not axes:
+        return
+    head = f"{cfg.name} with fsdp=True over {'x'.join(axes)} on a process " \
+        f"mesh"
+    if cfg.family != "dense":
+        what = f"the {cfg.family} family"
+        if cfg.is_moe:
+            what = "MLA's latent attention and the MoE layers" \
+                if cfg.use_mla else "the MoE layers"
+        queue = FSDP_QUEUE["moe" if cfg.is_moe else "other"]
+        raise NotImplementedError(f"{head}: {what} under FSDP; {queue} is "
+                                  f"not ported")
+    if engine:
+        raise NotImplementedError(f"{head}: the ServingEngine under FSDP; "
+                                  f"{FSDP_QUEUE['other']} is not ported")

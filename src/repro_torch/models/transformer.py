@@ -40,10 +40,19 @@ tensor-parallel on the rank's blocks of the parameters: the lookup into
 its vocab block of the embedding, masked and all-reduced; the attention
 heads, the FFN columns and the head's vocab columns of its own, between
 Megatron's ``copy_to`` / ``reduce_from``; the logits its vocab block of
-them, and the cross-entropy vocab-parallel (:func:`_ce`).
+them, and the cross-entropy vocab-parallel (:func:`_ce`). Under FSDP
+(``models.sharding.fsdp_split``: ``cfg.fsdp`` on such a mesh with batch
+axes above 1) the dense family's parameters are the rank's blocks over
+the batch axes as well: each layer gathers its leaves inside the function
+that its checkpoint wraps (so the recompute gathers them again) and casts
+them to the compute dtype after the gather; without a checkpoint the
+layer runs under ``Fsdp.regather``, so that the backward gathers them
+again instead of keeping them; the table is gathered for the lookup, the
+final norm and the head where the head uses them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -51,6 +60,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core import compat
 from repro_torch.core.precision import torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
@@ -62,8 +72,8 @@ from repro_torch.models.layers import (P, rms_norm, tree_leaves, tree_map,
                                        widen)
 from repro_torch.models.mlp import mlp, mlp_template
 from repro_torch.models.moe import moe_block, moe_template
-from repro_torch.models.sharding import (check_tensor_parallel,
-                                         tensor_parallel)
+from repro_torch.models.sharding import (check_fsdp, check_tensor_parallel,
+                                         fsdp_split, tensor_parallel)
 
 
 # ---------------------------------------------------------------------------
@@ -306,11 +316,19 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
     mesh_ctx = ctx if ctx is not None and ctx.mesh is not None else None
     attn_mod.set_mesh_ctx(mesh_ctx)
     check_tensor_parallel(cfg, mesh_ctx, cache=cache is not None)
+    check_fsdp(cfg, mesh_ctx)
     tp = tensor_parallel(cfg, mesh_ctx)
+    fs = fsdp_split(cfg, mesh_ctx)
     b, s = tokens.shape
     dev = tokens.device
     compute_dtype = torch_dtype(cfg.compute_dtype)
-    x = embed_lookup(params["embed"], tokens, tp).to(compute_dtype)
+    # FSDP: a leaf's blocks are gathered where it is used (inside a block's
+    # function, so that a checkpoint's recompute gathers them again)
+    table = params["embed"] if fs is None else fs.gather_leaf(
+        params["embed"], fs.specs["embed"])
+    x = embed_lookup(table, tokens, tp).to(compute_dtype)
+    if not cfg.tie_embeddings:
+        del table
 
     steps = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     if cache is not None:
@@ -325,8 +343,19 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
 
     def run(fn, x):
         """One block of the no-cache forward: under ``cfg.remat`` when
-        autograd records it."""
-        return _maybe_remat(fn, cfg)(x) if remat else fn(x)
+        autograd records it; under FSDP without a checkpoint, its gathered
+        leaves gathered again for the backward (``Fsdp.regather``)."""
+        if not remat:
+            return fn(x)
+        if fs is not None and cfg.remat == "none":
+            with fs.regather():
+                return fn(x)
+        return _maybe_remat(fn, cfg)(x)
+
+    def gathered(p, specs):
+        """A layer's parameters: under FSDP its blocks gathered and cast to
+        the compute dtype (``specs``: the stacked leaves' specs)."""
+        return p if fs is None else fs.gather(p, specs, compute_dtype, lead=1)
 
     # each block below is a function of its own parameters: a checkpoint
     # recomputes it in the backward pass, after the layer loop has moved on
@@ -340,13 +369,15 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         c["lengths"] = lengths
         return c
 
-    def attn_block(p, x, c, memory=None):
-        """A dense block; ``c`` = its cache views, or None."""
+    def attn_block(p, x, c, memory=None, specs=None):
+        """A dense block; ``c`` = its cache views, or None; ``specs``: its
+        stacked leaves' specs under FSDP."""
         if cache is None:
-            return run(lambda x: dense_block(cfg, p, x, positions,
-                                             memory=memory, tp=tp)[0], x)
-        return dense_block(cfg, p, x, positions, cache=c, memory=memory,
-                           tp=tp)[0]
+            return run(lambda x: dense_block(
+                cfg, gathered(p, specs), x, positions, memory=memory,
+                tp=tp)[0], x)
+        return dense_block(cfg, gathered(p, specs), x, positions, cache=c,
+                           memory=memory, tp=tp)[0]
 
     def moe(p, x, c):
         """A MoE layer: (x, aux)."""
@@ -402,9 +433,10 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
 
     if fam in ("dense", "vlm", "audio"):
         cross = unstack(params["cross_layers"]) if fam == "vlm" else None
+        specs = None if fs is None else fs.specs["layers"]
         for i, p_i in enumerate(unstack(params["layers"])):
             x = attn_block(p_i, x, layer_cache(i, ("k", "v")),
-                           memory if fam == "audio" else None)
+                           memory if fam == "audio" else None, specs)
             # vlm: a cross block closes each group of cross_attn_every
             if fam == "vlm" and (i + 1) % cfg.cross_attn_every == 0:
                 x = cross_block(cross[i // cfg.cross_attn_every], x, memory)
@@ -431,13 +463,24 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
     else:
         raise ValueError(fam)
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    unembed = unembed.to(compute_dtype)
-    if head_fn is not None:
-        logits = head_fn(x, unembed)
-    else:
-        logits = (x if tp is None else tp.copy(x)) @ unembed
+    with contextlib.nullcontext() if fs is None else fs.regather():
+        head = "embed" if cfg.tie_embeddings else "unembed"
+        norm, unembed = params["final_norm"], params[head]
+        if fs is not None:
+            norm = fs.gather_leaf(norm, fs.specs["final_norm"],
+                                  compute_dtype)
+            unembed = fs.gather_leaf(
+                unembed, fs.specs[head], compute_dtype,
+                gathered=table if cfg.tie_embeddings else None)
+        x = rms_norm(x, norm, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            unembed = unembed.T
+        unembed = unembed.to(compute_dtype)
+        if head_fn is not None:
+            logits = head_fn(x, unembed)
+        else:
+            logits = (x if tp is None else tp.copy(x)) @ unembed
+        del norm, unembed
 
     if cache is not None:
         new_cache = {k: v for k, v in cache.items() if k != "lengths"}
@@ -545,10 +588,17 @@ def embed_lookup(table, tokens, tp=None):
 def last_logits(cfg: ArchConfig, logits, ctx=None):
     """A serve step's logits at the last position, ``(B, vocab)``: on a
     tensor-parallel rank its vocab block of them all-gathered over the
-    model axis (one counted all-gather), so every rank holds them whole."""
+    model axis (one counted all-gather), so every rank holds them whole;
+    under FSDP, where each rank serves its rows of the batch, then its
+    rows all-gathered over the batch axes (one more), so every rank holds
+    the global batch's, as the reference's step returns them."""
     tp = tensor_parallel(cfg, ctx)
     last = logits[:, -1]
-    return last if tp is None else tp.gather(last, dim=-1)
+    if tp is not None:
+        last = tp.gather(last, dim=-1)
+    fs = fsdp_split(cfg, ctx)
+    return last if fs is None else compat.gather_over(last, fs.mesh, fs.axes,
+                                                      dim=0)
 
 
 def _mtp_loss(cfg, params, batch, hidden):

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from repro_torch.core import compat
 from repro_torch.core.precision import torch_dtype
 from repro_torch.models.layers import tree_leaves, tree_map, widen
 
@@ -75,21 +76,31 @@ def abstract_state(cfg: OptConfig, abstract_params) -> dict:
             "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
-def global_norm(tree, split=None, reduce=None):
+def global_norm(tree, cut=None, mesh=None):
     """sqrt of the sum of squares of every leaf, in fp32 (float64 for a
-    float64 tree). On a tensor-parallel rank, ``split`` is a tree of bools
-    over ``tree``, True where the leaf is the rank's block of a leaf split
-    over the model axis: those blocks' squares are summed, the sum is
-    all-reduced once by ``reduce``, and the replicated leaves add their
-    squares once, as on one device."""
+    float64 tree). On a rank that holds blocks of some leaves (a process
+    mesh's tensor-parallel or FSDP step), ``cut`` is a tree over ``tree``
+    of the axes of ``mesh`` that cut each leaf (empty where the rank holds
+    it whole): the blocks' squares are summed, each block once over the
+    ranks (on those whose coordinate is 0 along every axis that cuts some
+    leaf but not this one), the sum is all-reduced once over the axes
+    that cut any leaf, and the whole leaves add their squares once, as on
+    one device."""
     def sq(x):
         return torch.sum(torch.square(widen(x)))
-    if split is None:
+    if cut is None:
         return torch.sqrt(sum(sq(x) for x in tree_leaves(tree)))
-    pairs = list(zip(tree_leaves(tree), tree_leaves(split)))
-    blocks = sum(sq(x) for x, s in pairs if s)
-    whole = sum(sq(x) for x, s in pairs if not s)
-    return torch.sqrt(reduce(blocks) + whole)
+    pairs = list(zip(tree_leaves(tree), tree_leaves(cut)))
+    axes = tuple(a for a in mesh.axis_names
+                 if any(a in c for _, c in pairs))
+    first = pairs[0][0]
+    blocks = sum((sq(x) for x, c in pairs if c and all(
+        mesh.coord(a) == 0 for a in axes if a not in c)),
+        torch.zeros((), dtype=torch.promote_types(first.dtype,
+                                                  torch.float32),
+                    device=first.device))
+    whole = sum(sq(x) for x, c in pairs if not c)
+    return torch.sqrt(compat.reduce_over(blocks, mesh, axes) + whole)
 
 
 @torch.no_grad()
@@ -97,8 +108,8 @@ def update(cfg: OptConfig, grads, opt_state, params, norm=None):
     """Returns (new_params, new_opt_state, metrics). The parameter and
     moment tensors are updated in place and are the ones returned; the
     step counter is a new tensor. ``norm``: the gradients' global norm
-    function (default :func:`global_norm`; a tensor-parallel step passes
-    its own)."""
+    function (default :func:`global_norm`; a step on ranks that hold
+    blocks passes its own)."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step).to(step.device)
     gnorm = (norm or global_norm)(grads)

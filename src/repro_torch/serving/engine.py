@@ -68,7 +68,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import tree_leaves
-from repro_torch.models.sharding import MeshCtx
+from repro_torch.models.sharding import MeshCtx, check_fsdp
 from repro_torch.serving.scheduler import (Request, RejectReason, Scheduler,
                                            State)
 
@@ -179,7 +179,9 @@ class ServingEngine:
     above 1, ``params`` are the rank's blocks (``models.sharding.
     shard_params``), the KV pool holds its kv heads, and every rank runs
     the same scheduler on the same requests: each emits the same tokens
-    (the same generator seed draws the same noise)."""
+    (the same generator seed draws the same noise). FSDP over a process
+    mesh (``cfg.fsdp`` with batch axes above 1) raises
+    ``NotImplementedError``, naming its queue item."""
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  max_seq: int = 512, ctx: Optional[MeshCtx] = None,
@@ -189,6 +191,7 @@ class ServingEngine:
                  degrade: Optional[DegradeLadder] = None,
                  scheduler: Optional[Scheduler] = None,
                  device=None, seed: int = 0):
+        check_fsdp(cfg, ctx, engine=True)
         self.device = resolve_device(device)
         leaf = next(tree_leaves(params))
         if leaf.device.type != self.device.type:

@@ -30,11 +30,17 @@ blocks of every leaf (the specs after :func:`sanitize_specs`; the
 bundle's ``abstract_state`` gives their shapes), runs the forward and
 backward on its heads, FFN columns and vocab block
 (``models.transformer.forward``), and the grad norm sums the split
-leaves' squares over ``model`` once (``optim.adamw.global_norm``). FSDP,
-a mixture-of-experts model (its routing statistics and dispatch groups
-span the global batch, which a rank's block does not) and the other
-families at ``model > 1`` raise ``NotImplementedError`` naming their
-queue item.
+leaves' squares once (``optim.adamw.global_norm``). With ``cfg.fsdp``
+and batch axes above 1 the dense family's step is also FSDP, as the
+reference's partitioner runs it from the same specs: every ``embed``
+dimension is split over the batch axes too, each leaf is gathered where
+a layer uses it and again for the backward (``models.sharding.Fsdp``),
+its gradient reduce-scattered back to the rank's block, which is divided
+by the batch axes' extent once and kept out of the gradient mean; AdamW
+updates the rank's blocks. A mixture-of-experts model (its routing
+statistics and dispatch groups span the global batch, which a rank's
+block does not), FSDP of the other families, and the other families at
+``model > 1`` raise ``NotImplementedError`` naming their queue item.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
@@ -43,12 +49,16 @@ its lane-local route (``models.attention.mla_chunked``). On a
 tensor-parallel mesh of processes a dense model serves with the rank's
 blocks and a cache of its kv heads (a cache the reference splits over
 ``kv_seq`` raises), and the returned logits are gathered whole
-(``models.transformer.last_logits``).
+(``models.transformer.last_logits``). Under FSDP each rank serves its
+rows of the batch (the batch axes are its own, as in training) with a
+cache of those rows, its weights gathered a layer at a time, and the
+returned logits are the global batch's.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -63,8 +73,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (P, abstract_params, param_specs,
                                        tree_leaves, tree_map,
                                        value_and_grad)
-from repro_torch.models.sharding import (MeshCtx, NamedSharding,
-                                         check_tensor_parallel,
+from repro_torch.models.sharding import (MeshCtx, NamedSharding, check_fsdp,
+                                         check_tensor_parallel, fsdp_split,
                                          kv_cache_rules, make_rules,
                                          sanitize_specs, tensor_parallel)
 from repro_torch.models.sharding import named_sharding_tree as named
@@ -186,13 +196,10 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
 
 def _check_process_route(cfg: ArchConfig, ctx: MeshCtx):
     """What the process route trains: the data-parallel step of every
-    family but MoE, and at ``model > 1`` the dense family's
-    tensor-parallel step. Anything else raises ``NotImplementedError``
-    naming its queue item."""
-    if cfg.fsdp:
-        raise NotImplementedError(
-            "fsdp=True on a process mesh: FSDP over processes (ROADMAP "
-            "Queue A, A13c item 2.2) is not ported")
+    family but MoE, and the dense family's tensor-parallel (``model >
+    1``) and FSDP (``fsdp=True``) steps. Anything else raises
+    ``NotImplementedError`` naming its queue item."""
+    check_fsdp(cfg, ctx)
     check_tensor_parallel(cfg, ctx, train=True)
     if cfg.is_moe:
         raise NotImplementedError(
@@ -203,23 +210,35 @@ def _check_process_route(cfg: ArchConfig, ctx: MeshCtx):
             f"2.3, the EP and MLA steps) is not ported")
 
 
-def model_split(specs, axis: str = "model") -> dict:
-    """A tree of bools: True where a sanitized spec splits the leaf over
-    the model axis (the rank holds a block of it)."""
-    return tree_map(lambda s: any(axis in entry_axes(e) for e in s), specs)
+def cut_axes(specs, mesh) -> dict:
+    """A tree of the axes of ``mesh`` (in its order) that each sanitized
+    spec cuts the leaf over: () where the rank holds it whole."""
+    return tree_map(lambda s: tuple(a for a in mesh.axis_names if any(
+        a in entry_axes(e) for e in s) and mesh.shape[a] > 1), specs)
 
 
-def mean_over_batch(grads, metrics: dict, mesh, batch_axes) -> tuple:
+def mean_over_batch(grads, metrics: dict, mesh, batch_axes,
+                    scattered=None) -> tuple:
     """Each rank's gradients and loss metrics of its block of the batch ->
     the global batch's, on every rank, in place: one
     ``compat.pmean_in_place`` a gradient leaf and one for the metrics
-    (stacked in their widest dtype, each cast back)."""
+    (stacked in their widest dtype, each cast back). ``scattered``: a tree
+    of bools over ``grads``, True where FSDP's reduce-scatter has already
+    summed the leaf's gradient over the batch axes (it is divided by their
+    extent, once, and not averaged again)."""
     keys = sorted(metrics)
     wide = functools.reduce(torch.promote_types,
                             (metrics[k].dtype for k in keys))
     stacked = torch.stack([metrics[k].to(wide) for k in keys])
-    compat.pmean_in_place(list(tree_leaves(grads)) + [stacked], mesh,
-                          batch_axes)
+    leaves = list(tree_leaves(grads))
+    done = [False] * len(leaves) if scattered is None \
+        else list(tree_leaves(scattered))
+    n = math.prod(mesh.shape[a] for a in entry_axes(tuple(batch_axes)))
+    for g, d in zip(leaves, done):
+        if d:
+            g.div_(n)
+    compat.pmean_in_place([g for g, d in zip(leaves, done) if not d]
+                          + [stacked], mesh, batch_axes)
     return grads, {k: stacked[i].to(metrics[k].dtype)
                    for i, k in enumerate(keys)}
 
@@ -240,8 +259,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
     state's tensors are updated in place (see ``optim.adamw.update``) and
     returned. ``ctx`` None is one device. On a process mesh the batch is
     the rank's block, the step is data-parallel and, at ``model > 1``,
-    tensor-parallel: the state is the rank's blocks, whose shapes the
-    bundle's ``abstract_state`` gives (see the module's docstring)."""
+    tensor-parallel, with ``cfg.fsdp`` FSDP: the state is then the rank's
+    blocks, whose shapes the bundle's ``abstract_state`` gives (see the
+    module's docstring)."""
     ctx = ctx or MeshCtx(mesh=None)
     cfg = apply_attn_overrides(cfg, attn)
     process = compat.is_process_mesh(ctx.mesh)
@@ -252,14 +272,18 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
         _check_process_route(cfg, ctx)
         ctx = dataclasses.replace(
             ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
-    tp = tensor_parallel(cfg, ctx)
-    if tp is not None:
+    fs = fsdp_split(cfg, ctx)
+    scattered = None
+    if tensor_parallel(cfg, ctx) is not None or fs is not None:
         sane = sanitize_specs(specs, abstract, ctx.mesh)
-        split = model_split(sane["params"], tp.axis)
+        cut = cut_axes(sane["params"], ctx.mesh)
         abstract = local_abstract(abstract, sane, ctx.mesh)
+        if fs is not None:
+            scattered = tree_map(lambda s: fs.dim(s) is not None,
+                                 sane["params"])
 
         def norm(grads):
-            return adamw.global_norm(grads, split, tp.all_reduce)
+            return adamw.global_norm(grads, cut, ctx.mesh)
 
     def loss_fn(params, batch):
         return tf.lm_loss(cfg, params, batch, ctx=ctx)
@@ -275,7 +299,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
             with torch.no_grad():
                 grads, metrics = mean_over_batch(
                     grads, dict(metrics, loss=loss), ctx.mesh,
-                    ctx.batch_axes)
+                    ctx.batch_axes, scattered)
             loss = metrics.pop("loss")
         new_params, new_opt, opt_metrics = adamw.update(
             opt_cfg, grads, state["opt"], params, norm=norm)
@@ -302,6 +326,7 @@ def make_prefill_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
         raise ValueError(f"make_prefill_step: max_seq must be positive, got "
                          f"{max_seq}")
     check_tensor_parallel(cfg, ctx, cache=True)
+    check_fsdp(cfg, ctx)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -323,6 +348,7 @@ def make_decode_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None):
     """``decode(params, cache, batch) -> (logits, new_cache)``, the cache's
     tensors written in place (see ``models.transformer.forward``)."""
     check_tensor_parallel(cfg, ctx, cache=True)
+    check_fsdp(cfg, ctx)
 
     def decode(params, cache, batch):
         logits, _, cache = tf.forward(

@@ -17,12 +17,12 @@ make_process_mesh``; the rank's device is the mesh's) the step is
 data-parallel: each rank takes its block of every global batch from the
 same source (the rows of its coordinate along the batch axes), only rank
 0 writes checkpoints, with a barrier before the next step, and every rank
-restores. With a ``model`` axis above 1 it is tensor-parallel too: the
-state is the rank's blocks of the global one (``models.sharding.
-shard_params`` of the same seeded init, so each block is bit-equal to
-the one-device init's), the checkpoint is the global state gathered to
-rank 0 (the one-device trainer's files), and a restore keeps each rank's
-block of it.
+restores. With a ``model`` axis above 1 it is tensor-parallel too, and
+with ``cfg.fsdp`` FSDP over the batch axes: the state is the rank's
+blocks of the global one (``models.sharding.shard_params`` of the same
+seeded init, so each block is bit-equal to the one-device init's), the
+checkpoint is the global state gathered to rank 0 (the one-device
+trainer's files), and a restore keeps each rank's block of it.
 """
 from __future__ import annotations
 
@@ -42,9 +42,9 @@ from repro_torch.device import resolve_device
 from repro_torch.ft.elastic import StragglerMonitor
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_params
-from repro_torch.models.sharding import (MeshCtx, gather_params,
-                                         sanitize_specs, shard_params,
-                                         tensor_parallel)
+from repro_torch.models.sharding import (MeshCtx, fsdp_split,
+                                         gather_params, sanitize_specs,
+                                         shard_params, tensor_parallel)
 from repro_torch.optim import adamw
 from repro_torch.train import step as step_lib
 
@@ -86,10 +86,12 @@ class Trainer:
             self.rows = slice(None)
         self.mesh = mesh
         self.ctx = MeshCtx(mesh=mesh, batch_axes=batch_axes)
-        self.tp = tensor_parallel(cfg, self.ctx)
+        # the rank holds blocks of the state: tensor-parallel or FSDP
+        self.split = tensor_parallel(cfg, self.ctx) is not None \
+            or fsdp_split(cfg, self.ctx) is not None
         self.bundle = step_lib.make_train_step(cfg, opt_cfg, self.ctx,
                                                grad_accum=tcfg.grad_accum)
-        # by the global shapes (the bundle's are a tensor-parallel rank's)
+        # by the global shapes (the bundle's are a rank's blocks')
         whole = step_lib.make_train_state_abstract(cfg, opt_cfg)
         self.state_specs = None if mesh is None else sanitize_specs(
             self.bundle.state_specs, whole, mesh)
@@ -105,11 +107,12 @@ class Trainer:
     def init_state(self):
         """Parameters from the port's ``init_params`` with a
         ``torch.Generator`` seeded from ``tcfg.seed``, zero moments; on a
-        tensor-parallel rank its blocks of those parameters."""
+        tensor-parallel or FSDP rank its blocks of those parameters (the
+        global ones freed before the moments are made)."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = init_params(tf.model_template(self.cfg), gen,
                              dtype=self.cfg.param_dtype, device=self.device)
-        if self.tp is not None:
+        if self.split:
             params = shard_params(params, self.state_specs["params"],
                                   self.mesh)
         return {"params": params, "opt": adamw.init(self.opt_cfg, params)}
@@ -163,8 +166,8 @@ class Trainer:
                     pending_save.join()
                 # the state is on the host when save returns: the next
                 # step's in-place update cannot reach the checkpoint
-                whole = state if self.tp is None else gather_params(
-                    state, self.state_specs, self.mesh)
+                whole = gather_params(state, self.state_specs, self.mesh) \
+                    if self.split else state
                 if not self.process or self.mesh.rank == 0:
                     pending_save = ckpt.save(t.ckpt_dir, step, whole,
                                              blocking=False)

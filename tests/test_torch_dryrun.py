@@ -7,7 +7,7 @@
   granite-moe-3b-a800m, zamba2-7b and deepseek-v3-671b (train, prefill,
   decode) and per device on the meshes (4,1), (1,4), (2,2); the collective
   bytes of the train step within 1e-4 on (4,1), (1,4) and (2,2), and FSDP
-  at (4,1) pinned at its measured ratio (ROADMAP Queue C);
+  at (4,1) and (2,2) pinned at its measured ratio (ROADMAP Queue C);
   every kind of step that the dry run counts on a mesh (``CELLS``: prefill,
   decode, the MoE, MLA and hybrid train steps), each within 1 % or pinned
   at its measured ratio with its cause, and flagged where its count is
@@ -68,7 +68,7 @@ ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m", "zamba2-7b",
          "deepseek-v3-671b")
 KINDS = ("train", "prefill", "decode")
 MESHES = {"4x1": (4, 1, False), "1x4": (1, 4, False), "2x2": (2, 2, False),
-          "4x1 fsdp": (4, 1, True)}
+          "4x1 fsdp": (4, 1, True), "2x2 fsdp": (2, 2, True)}
 # every other kind of step on a mesh, reduced, at 8 x 64: (arch, kind,
 # data, model)
 CELLS = {
@@ -126,12 +126,16 @@ COLL_PINNED = {
         "decode: all-reduces of (8,16,4,1) scores and (8,4,1) and "
         "all-gathers of (8,1,4,16) and (8,1,4,8), 11,616 bytes"),
     "deepseek-v3-671b train 2x2": (
-        0.17737, 0.34420,
+        0.18842, 0.34420,
         "FSDP (open fault 2): the partitioner moves activations where the "
         "port gathers weights, plus an all-to-all of 1,146,880 and "
         "collective-permutes of 401,408 (0.17852 / 0.34679 while the "
         "replicated leaves' gradients were all-reduced over model and the "
-        "cross-entropy's vocab reductions were not derived)"),
+        "cross-entropy's vocab reductions were not derived; 0.17737 while "
+        "a backward that reads a leaf's cast was not counted as reading "
+        "the leaf: the bf16 parameters, cast to the f32 compute dtype, are "
+        "gathered again for the backward, all-gathers 105,376 -> 202,560, "
+        "as the FSDP ranks gather them)"),
     "granite-moe-3b-a800m train 4x1": (
         0.51074, 0.51690,
         "the reference all-reduces the one-hot dispatch's buffers over "
@@ -145,6 +149,15 @@ COLL_PINNED = {
         "model), and all-gathers 24,576 (0.50135 / 0.50422 while the "
         "replicated leaves' gradients were all-reduced over model and the "
         "cross-entropy's vocab reductions were not derived)"),
+    "2x2 fsdp": (
+        0.36775, 0.45062,
+        "FSDP on (2,2) (open fault 2 on a second mesh): the port's ranks "
+        "move exactly the count (tests/test_torch_processes.py), the "
+        "weights' gathers (214,272) and reduce-scatter (115,328) beside "
+        "the tensor-parallel all-reduces (1,051,648); the reference's "
+        "partitioner all-gathers 896,896, all-reduces 2,333,784, moves "
+        "524,288 by all-to-all and 1,024 by collective-permute, and "
+        "reduce-scatters nothing: 1,381,248 / 3,755,992 bytes a device"),
     "zamba2-7b train 1x4": (
         0.56073, 0.95547,
         "the reference reshards the Mamba2 blocks' split projections under "
@@ -170,13 +183,15 @@ SHORT = {
     "granite-moe-3b-a800m train 2x2": _MOE,
     "zamba2-7b train 1x4": ["collective: ssm resharding under model"],
     "4x1 fsdp": ["collective: fsdp"],
+    "2x2 fsdp": ["collective: fsdp"],
 }
 # the port's FSDP collectives (a gather of each sharded parameter in the
 # forward and in the backward that reads it, a reduce-scatter of its
 # gradient: 640,896 + 345,024 bytes) against the reference's partitioner,
 # which gathers parameters for 295,872 and reduces 150,606 but moves
 # 6,336,384 bytes of activations (all-gathers, all-reduces, all-to-alls):
-# 985,920 / 6,782,862 bytes (ROADMAP Queue C)
+# 985,920 / 6,782,862 bytes (ROADMAP Queue C); the port's FSDP ranks move
+# exactly the count (tests/test_torch_processes.py)
 FSDP_RATIO = 0.14535
 
 REFERENCE = r'''
@@ -614,6 +629,29 @@ def test_an_fsdp_parameter_is_gathered_again_for_the_backward():
     st = analyze(lambda w, x: x @ w, w, x, n_devices=4, mesh=make_mesh(4, 1),
                  specs=(PS("data", None), PS("data", None)), params=w)
     assert dict(st.collective_by_kind) == {"all-gather": full * 3 / 4}
+
+
+def test_a_backward_that_reads_a_cast_of_an_fsdp_parameter_gathers_it():
+    """A parameter used in the compute dtype (its cast, as every model's
+    products use a float32 weight in bfloat16) is read by the backward
+    through the cast that the product saved: it is gathered again there,
+    as when the product saves the parameter itself; a cast whose
+    backward does not read it (a lookup's table) is gathered once."""
+    w = torch.empty((64, 32), device="meta", requires_grad=True)
+    x = torch.empty((16, 64), device="meta", dtype=torch.bfloat16,
+                    requires_grad=True)
+    full = 64 * 32 * 4
+    for use, gathers in ((lambda w, x: x @ w.to(torch.bfloat16), 2),
+                         (lambda w, x: w.to(torch.bfloat16)[
+                             torch.zeros((3,), dtype=torch.long,
+                                         device="meta")], 1)):
+        def step(w, x, use=use):
+            use(w, x).float().sum().backward()
+        st = analyze(step, w, x, n_devices=4, mesh=make_mesh(4, 1),
+                     specs=(PS("data", None), PS("data", None)), params=w)
+        assert dict(st.collective_by_kind) == {
+            "all-gather": gathers * full * 3 / 4,
+            "reduce-scatter": full / 4 * 3}, gathers
 
 
 # the port's eager bytes over the reference's fused count, by kind: the

@@ -204,6 +204,18 @@ for name, arch, dense_max in (("dense", "tinyllama-1.1b", None),
     out[f"step_{name}/tokens"] = np.asarray(toks)
     for key in ("loss", "ce", "aux", "grad_norm"):
         out[f"step_{name}/m1_{key}"] = np.asarray(m1[key])
+    if name == "dense":
+        # the same step with FSDP: every embed dimension sharded over data
+        cfg = dataclasses.replace(cfg, fsdp=True)
+        b1 = step_lib.make_train_step(cfg, opt, ctx1)
+        st_sh = step_lib.named_for(b1.state_specs, b1.abstract_state, mesh22)
+        with mesh22:
+            fn = jax.jit(b1.step_fn, in_shardings=(st_sh, bt_sh),
+                         out_shardings=(st_sh, None))
+            _, m1 = fn(jax.device_put(state, st_sh),
+                       jax.device_put(batch, bt_sh))
+        for key in ("loss", "ce", "aux", "grad_norm"):
+            out[f"step_dense_fsdp/m1_{key}"] = np.asarray(m1[key])
 moe_mod.DENSE_PATH_MAX_TOKENS = 16384
 
 # -- lane-local MLA: prefill and decode on a 1 x 4 mesh --------------------
@@ -679,6 +691,34 @@ def test_sharded_train_step_matches_reference(ref, name, arch, dense_max,
     assert compat.CALLS["shard_map"] == n_moe
     _check_shards(tstep.named_for(bundle.state_specs, bundle.abstract_state,
                                   ctx.mesh), bundle.abstract_state)
+
+
+def test_sharded_fsdp_train_step_matches_reference(ref):
+    """The same dense step with ``fsdp=True`` on the 2 x 2 mesh held as
+    tensor dimensions (every embed dimension sharded over data in the
+    specs; the stacked step computes the global math) against the
+    reference's FSDP step on the same parameters and tokens: loss within
+    5e-4, grad norm within 1e-3, as the step without FSDP."""
+    cfg = dataclasses.replace(reduced(tget("tinyllama-1.1b"),
+                                      compute_dtype="float32"), fsdp=True)
+    params = _params(ref, "step_dense/params")
+    toks = _t(ref["step_dense/tokens"])
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    opt = adamw.OptConfig()
+    ctx = tsh.MeshCtx(mesh=tmesh.make_mesh(2, 2), batch_axes=("data",))
+    bundle = tstep.make_train_step(cfg, opt, ctx)
+    _, m1 = bundle.step_fn({"params": params, "opt": adamw.init(opt, params)},
+                           batch)
+    for key in ("loss", "ce", "aux"):
+        assert abs(float(m1[key]) - float(ref[f"step_dense_fsdp/m1_{key}"])) \
+            < 5e-4, key
+    assert abs(float(m1["grad_norm"])
+               - float(ref["step_dense_fsdp/m1_grad_norm"])) < 1e-3
+    named = tstep.named_for(bundle.state_specs, bundle.abstract_state,
+                            ctx.mesh)
+    assert any("data" in compat.entry_axes(e) for sh in tree_leaves(named)
+               for e in sh.spec)
+    _check_shards(named, bundle.abstract_state)
 
 
 def test_lane_local_mla_prefill_and_decode_match_reference(ref):

@@ -1,7 +1,7 @@
 """PyTorch port, the mesh over processes: ``core/compat.py``'s process
 route (``launch/mesh.py::make_process_mesh``, gloo on the CPU), every body
 that the stacked route runs, unchanged, the data-parallel train step, and
-the dense family's tensor-parallel train and serve steps.
+the dense family's tensor-parallel and FSDP train and serve steps.
 
 One module fixture spawns 4 gloo ranks once and runs every case of
 ``tests/torch_process_cases.py`` there; each case also runs on rank 0 on
@@ -19,10 +19,16 @@ gradient all-reduce's bytes against the dry run's count; the
 tensor-parallel step of reduced tinyllama-1.1b on (1,4) and (2,2) (float32
 step by step to 1e-5 relative, float64 through the Trainer to 1e-10, the
 bytes against the dry run's count, 2 kv heads on (1,4), checkpoints both
-ways) and its serve steps and engine on (1,4); and what the route refuses.
+ways) and its serve steps and engine on (1,4); its FSDP step with fsdp=True
+on (4,1) and (2,2) (float32 step by step at remat "none" and "full",
+float64 through the Trainer, the gathers and reduce-scatters against the
+dry run's count, grad_accum=2, the gathered leaves freed after the
+forward, the other dense configs, checkpoints both ways) and serve steps
+on (2,2); and what the route refuses.
 The reference runs once a session, in ``tests/test_torch_mesh.py``'s
 subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
-against the tensor-parallel step on the same parameters and tokens. The
+against the tensor-parallel step on the same parameters and tokens, and
+its FSDP step against the port's FSDP step. The
 stacked route and the one-device step are held against it in
 ``tests/test_torch_mesh.py``, ``tests/test_torch_pipeline.py`` and
 ``tests/test_torch_train.py``.
@@ -66,7 +72,9 @@ def res(tmp_path_factory):
     torch.save({"params": _tree(ref, "step_dense/params"),
                 "tokens": ref["step_dense/tokens"],
                 "metrics": {k: float(ref[f"step_dense/m1_{k}"])
-                            for k in ("loss", "ce", "grad_norm")}},
+                            for k in ("loss", "ce", "grad_norm")},
+                "metrics_fsdp": {k: float(ref[f"step_dense_fsdp/m1_{k}"])
+                                 for k in ("loss", "ce", "grad_norm")}},
                os.path.join(out, pc.REFERENCE_STEP))
     return pc.spawn(out)
 
@@ -150,9 +158,10 @@ def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
 
 def test_what_the_process_route_refuses(res):
     """A wrong world size, MoE, MLA and SSM configs at model > 1, a KV
-    cache split over kv_seq, FSDP or a MoE model in the DP step, a
-    collective outside a body, and device "cuda" on the gloo group, each
-    with its own text."""
+    cache split over kv_seq, a MoE model in the DP step, FSDP of the
+    hybrid and vision families and of the serving engine, a collective
+    outside a body, and device "cuda" on the gloo group, each with its
+    own text."""
     got = _case(res, "refusals")
     assert got["outside"] == "a collective runs only inside shard_map's body"
     assert "granite-moe-3b-a800m on a process mesh" in got["moe"]
@@ -225,6 +234,135 @@ def test_tensor_parallel_refusals_name_their_queue_item(res, key):
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2." in got, got
+
+
+@pytest.mark.parametrize("shape", pc.FSDP_MESHES, ids=str)
+def test_fsdp_step_matches_the_one_device_step(res, shape):
+    """Reduced tinyllama-1.1b with ``fsdp=True``: float32 step by step,
+    each from the same state, to 1e-5 relative at ``remat="none"`` and
+    ``"full"``; float64 through the Trainer to 1e-10; each rank's blocks
+    of the reference's FSDP shard shapes, equal on the ranks whose
+    coordinates agree along the axes that cut them."""
+    pc.check_fsdp_mesh(_case(res, "fsdp_train"), shape)
+
+
+@pytest.mark.parametrize("shape", pc.FSDP_MESHES, ids=str)
+def test_fsdp_bytes_equal_the_dry_runs_count(res, shape):
+    """Every leaf gathered in the forward and again for the backward that
+    reads it (the embedding's lookup does not), one reduce-scatter of
+    its gradient and no pmean of it: the bytes by kind, summed over the
+    ranks, equal to the dry run's count of the same cell (on (4,1):
+    640,896 + 345,024 a device), at ``remat="none"`` and ``"full"``."""
+    got = pc.check_fsdp_bytes(_case(res, "fsdp_train"), shape)
+    if shape == (4, 1):
+        assert got["none"]["all-gather"] == 4 * 640_896
+        assert got["none"]["reduce-scatter"] == 4 * 345_024
+
+
+def test_fsdp_step_with_grad_accum_gathers_once_a_micro_batch(res):
+    pc.check_fsdp_accum(_case(res, "fsdp_train"))
+
+
+def test_fsdp_gathered_leaves_are_freed_after_the_forward(res):
+    """No product keeps a gathered leaf: each saves a handle to the rank's
+    block, and the backward gathers the leaf again."""
+    pc.check_fsdp_freed(_case(res, "fsdp_train"))
+
+
+@pytest.mark.parametrize("arch", pc.TP_ARCHS)
+def test_fsdp_step_of_each_dense_config(res, arch):
+    """llama3-8b, stablelm-1.6b (parallel block) and starcoder2-3b (tied
+    head: the table the lookup gathered is the head's) reduced with
+    ``fsdp=True``, float64 through the Trainer on (2,2) against the
+    one-device trainer."""
+    pc.check_tp_config(_case(res, "fsdp_train"), arch)
+
+
+def test_fsdp_step_matches_the_references_fsdp_step(res):
+    """The reference's float32 FSDP step on a (2,2) mesh (its parameters
+    and tokens): loss, ce and grad norm to 1e-5 relative."""
+    got = _case(res, "fsdp_train")
+    assert got["reference"] is not None
+    pc.check_tp_reference(got)
+
+
+def test_fsdp_checkpoints_move_to_one_device_and_back(res):
+    """A (4,1) FSDP checkpoint (the global state, gathered to rank 0)
+    restored by the one-device trainer, and a one-device checkpoint
+    restored on (4,1) (each rank its blocks of the parameters and
+    moments), byte for byte."""
+    pc.check_tp_ckpt(_case(res, "fsdp_train"))
+
+
+def test_fsdp_serve_steps_match_the_one_device_steps(res):
+    """Prefill of 8 x 64 and 2 decode steps on (2,2), each data rank its 4
+    prompts: logits, whole on every rank, to 1e-5; the cache of the
+    rank's rows and kv heads."""
+    pc.check_fsdp_serve_logits(_case(res, "fsdp_serve"))
+
+
+def test_fsdp_serve_bytes_equal_the_dry_runs_count(res):
+    pc.check_fsdp_serve_bytes(_case(res, "fsdp_serve"))
+
+
+@pytest.mark.parametrize("key", ["fsdp_hybrid", "fsdp_vision",
+                                 "fsdp_engine"])
+def test_fsdp_refusals_name_their_queue_item(res, key):
+    """FSDP over processes of zamba2-7b, of the vision family and under
+    the serving engine: a NotImplementedError naming item 2.2b."""
+    got = _case(res, "refusals")[key]
+    assert got is not None and pc.refusal_texts()[key] in got, got
+    assert "A13c item 2.2b" in got, got
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3-8b",
+                                  "stablelm-1.6b", "starcoder2-3b"])
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1), (2, 2), (4, 2)], ids=str)
+def test_each_fsdp_block_has_the_references_shard_shape(arch, shape):
+    """``shard_params`` at full width with ``fsdp=True`` on ``meta``: on
+    every rank of ``shape`` each leaf's block has ``named_for``'s FSDP
+    shard shape (every embed dimension over data), the ranks' blocks
+    tile the leaf, and the Trainer's ``abstract_state`` is the rank's.
+    No process group is needed."""
+    import dataclasses
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import abstract_params, tree_leaves
+    from repro_torch.models.sharding import MeshCtx, shard_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    cfg = dataclasses.replace(get_config(arch), fsdp=True)
+    tree = abstract_params(tf.model_template(cfg))
+    d, m = shape
+    for r in range(d * m):
+        mesh = ProcessMesh(("data", "model"), (d, m), r,
+                           torch.device("cpu"), {})
+        ctx = MeshCtx(mesh=mesh)
+        specs = tstep.train_state_specs(cfg, ctx)["params"]
+        named = tstep.named_for(specs, tree, mesh)
+        blocks = shard_params(tree, specs, mesh)
+        tiles = 0
+        for b, sh, t in zip(tree_leaves(blocks), tree_leaves(named),
+                            tree_leaves(tree)):
+            assert tuple(b.shape) == sh.shard_shape(t.shape)
+            index = sh.block_index(t.shape)
+            assert all(i.stop - i.start == n for i, n in zip(index, b.shape))
+            tiles += any("data" in compat.entry_axes(e) for e in sh.spec)
+        assert tiles == len(list(tree_leaves(tree)))  # every leaf over data
+        local = tstep.make_train_step(cfg, adamw.OptConfig(),
+                                      ctx).abstract_state["params"]
+        assert [tuple(t.shape) for t in tree_leaves(local)] == [
+            tuple(b.shape) for b in tree_leaves(blocks)]
+
+
+def test_gather_from_a_group_of_one_moves_nothing():
+    """FSDP's gather over an axis of one rank is the identity and counts
+    nothing (no process group is needed)."""
+    mesh = ProcessMesh(("data", "model"), (1, 1), 0, torch.device("cpu"),
+                       {frozenset({"data"}): (None, (0,))})
+    x = torch.randn(4, 3, requires_grad=True)
+    compat.reset_counts()
+    assert compat.gather_from(x, mesh, "data", 0) is x
+    assert compat.read_counts() == {}
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3-8b",

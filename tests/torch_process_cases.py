@@ -54,6 +54,7 @@ TOL = {"collectives": 1e-6, "chaining": 1e-5, "compression": 1e-6,
        "pipeline": 1e-6, "moe_ep": 1e-5, "mla": 1e-4, "local_axes": 1e-6,
        "dp_f32": 1e-5, "dp_f64": 1e-10, "tp_f32": 1e-5, "tp_f64": 1e-10,
        "tp_serve": 1e-5, "tp_reference": 1e-5}
+# the FSDP cases are held to the tensor-parallel cases' tolerances
 # the tensor-parallel cases: the meshes of the train step, and the serve
 # cell of tests/test_torch_dryrun.py ("tinyllama-1.1b prefill 1x4" and
 # "decode 1x4": 8 prompts of 64 tokens), then 2 decode steps
@@ -69,9 +70,16 @@ ENGINE = dict(requests=4, slots=2, max_seq=24, max_new=5)
 # ``step_dense``), written into the spawn's directory by a caller that ran
 # the reference; without it the case skips that comparison
 REFERENCE_STEP = "reference_step_dense.pt"
+# the FSDP cases: reduced tinyllama-1.1b with fsdp=True, trained on these
+# meshes (the dry run's "4x1 fsdp" and "2x2 fsdp" cells of
+# tests/test_torch_dryrun.py, at the tensor-parallel cases' 8 x 32), and
+# served on (2,2) as the tensor-parallel serve case (each data rank its 4
+# of the 8 prompts); the other dense configs on (2,2)
+FSDP_MESHES = ((4, 1), (2, 2))
+FSDP_SERVE_MESH = (2, 2)
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "dp_train", "tp_train", "tp_serve",
-         "refusals")
+         "fsdp_train", "fsdp_serve", "refusals")
 
 
 # ---------------------------------------------------------------------------
@@ -437,16 +445,17 @@ def _crc(t) -> int:
                       .tobytes())
 
 
-def _tp_step_by_step(cfg, mesh):
-    """Three tensor-parallel steps through the Trainer's state, batches and
-    step, each held against the one-device step from the same state (the
-    state gathered before the step, on rank 0): per step both metrics,
-    and the collectives of the three tensor-parallel steps."""
+def _tp_step_by_step(cfg, mesh, steps=DP["steps"], grad_accum=1):
+    """``steps`` tensor-parallel (or FSDP) steps through the Trainer's
+    state, batches and step, each held against the one-device step from
+    the same state (the state gathered before the step, on rank 0): per
+    step both metrics, and the collectives of the steps on the ranks."""
     data = DataConfig(seq_len=DP["seq_len"], global_batch=DP["global_batch"],
                       vocab_size=cfg.vocab_size)
     opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1,
                           decay_steps=DP["steps"])
-    tr = Trainer(cfg, opt, data, TrainerConfig(steps=DP["steps"]),
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps,
+                                               grad_accum=grad_accum),
                  mesh=mesh, device="cpu")
     one = tstep.make_train_step(cfg, opt).step_fn
     state = tr.init_state()
@@ -458,7 +467,7 @@ def _tp_step_by_step(cfg, mesh):
                            tree_leaves(fresh)))
     rows = []
     compat.reset_counts()
-    for i in range(DP["steps"]):
+    for i in range(steps):
         whole = gather_params(state, tr.state_specs, mesh)
         mine = {k: torch.as_tensor(v) for k, v in tr.batch(i).items()}
         state, m = tr.step_fn(state, mine)
@@ -470,18 +479,18 @@ def _tp_step_by_step(cfg, mesh):
             row["one"] = {k: float(v) for k, v in m1.items()}
         rows.append(row)
     counts = _counts(mesh)
-    # which leaves the model axis splits: the others are the same on every
-    # rank, and every leaf on the ranks of one model coordinate
-    split = tstep.model_split(tr.state_specs["params"])
+    # every leaf equal on the ranks whose coordinates agree along the axes
+    # that cut it: a leaf that none cuts on every rank
+    cut = list(tree_leaves(tstep.cut_axes(tr.state_specs["params"], mesh)))
     crcs = [_crc(t) for t in tree_leaves(state["params"])]
-    every = _all_ranks((mesh.coord("model"), crcs))
-    repl = all(e[1][j] == every[0][1][j] for e in every
-               for j, s in enumerate(tree_leaves(split)) if not s)
-    same_block = all(e[1] == f[1] for e in every for f in every
-                     if e[0] == f[0])
-    return {"rows": rows, "counts": counts, "replicated_equal": repl,
-            "blocks_equal_over_data": same_block, "shapes_ok": shapes_ok,
-            "n_split": sum(tree_leaves(split)),
+    every = _all_ranks((mesh.coords_of(mesh.rank), crcs))
+    agree = all(e[1][j] == f[1][j] for e in every for f in every
+                for j, axes in enumerate(cut)
+                if all(e[0][mesh.axis_names.index(a)]
+                       == f[0][mesh.axis_names.index(a)] for a in axes))
+    return {"rows": rows, "counts": counts, "shapes_ok": shapes_ok,
+            "blocks_agree": agree,
+            "n_data_cut": sum("data" in c for c in cut),
             "leaves": len(crcs)}
 
 
@@ -494,16 +503,18 @@ def _tp_trajectory(cfg, mesh, ckpt_dir=None):
     return {"log": tr.metrics_log, "params": _detach(params)}
 
 
-def _reference_step(mesh, out_dir):
+def _reference_step(mesh, out_dir, fsdp=False):
     """The reference's sharded float32 step of reduced tinyllama-1.1b on
-    (2,2) (``tests/test_torch_mesh.py``'s ``step_dense``), here on the
-    ranks: its parameters and tokens, the default ``OptConfig``, each data
-    rank its rows of the batch. None without the reference's file."""
+    (2,2) (``tests/test_torch_mesh.py``'s ``step_dense``, with ``fsdp``
+    its FSDP twin), here on the ranks: its parameters and tokens, the
+    default ``OptConfig``, each data rank its rows of the batch. None
+    without the reference's file."""
     path = os.path.join(out_dir, REFERENCE_STEP)
     if not os.path.exists(path):
         return None
     ref = torch.load(path, weights_only=False)
-    cfg = reduced(get_config("tinyllama-1.1b"), compute_dtype="float32")
+    cfg = reduced(get_config("tinyllama-1.1b"), compute_dtype="float32",
+                  fsdp=fsdp)
     params = convert.params_from_numpy(ref["params"], device="cpu")
     ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
     opt = adamw.OptConfig()
@@ -517,7 +528,7 @@ def _reference_step(mesh, out_dir):
     _, m = bundle.step_fn({"params": blocks, "opt": adamw.init(opt, blocks)},
                           batch)
     return {"got": {k: float(m[k]) for k in ("loss", "ce", "grad_norm")},
-            "want": ref["metrics"]}
+            "want": ref["metrics_fsdp" if fsdp else "metrics"]}
 
 
 def case_tp_train(rank, meshes, out_dir):
@@ -548,29 +559,35 @@ def case_tp_train(rank, meshes, out_dir):
         if rank == 0:
             out[name]["f64_one"] = _tp_trajectory(cfg, None)
     out["reference"] = _reference_step(meshes[2, 2], out_dir)
+    out.update(_ckpt_both_ways(rank, base, meshes[1, 4], out_dir, "tp"))
+    return out
 
-    # a (1,4) checkpoint restored by the one-device trainer, and a
-    # one-device checkpoint restored on (1,4): byte for byte
-    tp_dir = os.path.join(out_dir, "tp_ckpt")
-    one_dir = os.path.join(out_dir, "one_ckpt")
-    mesh = meshes[1, 4]
-    tp = _tp_trajectory(base, mesh, tp_dir)
+
+def _ckpt_both_ways(rank, cfg, mesh, out_dir, tag):
+    """A checkpoint of ``mesh``'s trainer (the global state, gathered)
+    restored by the one-device trainer, and a one-device checkpoint
+    restored on ``mesh`` (each rank its blocks): byte for byte."""
+    import torch.distributed as dist
+    out = {}
+    mesh_dir = os.path.join(out_dir, f"{tag}_ckpt")
+    one_dir = os.path.join(out_dir, f"{tag}_one_ckpt")
+    got = _tp_trajectory(cfg, mesh, mesh_dir)
     if rank == 0:
-        tr, state = _dp_run(base, None, tp_dir)
+        tr, state = _dp_run(cfg, None, mesh_dir)
         out["ckpt_to_one"] = {
             "no_step": tr.metrics_log == [],
             "equal": all(torch.equal(a, b) for a, b in zip(
-                tree_leaves(state["params"]), tree_leaves(tp["params"])))}
-        _dp_run(base, None, one_dir)
+                tree_leaves(state["params"]), tree_leaves(got["params"])))}
+        _dp_run(cfg, None, one_dir)
     dist.barrier()
-    tr, state = _dp_run(base, mesh, one_dir)
+    tr, state = _dp_run(cfg, mesh, one_dir)
     _, whole = tckpt.restore(one_dir, device="cpu")
-    mine = shard_params(whole["params"], tr.state_specs["params"], mesh)
+    mine = shard_params(whole, tr.state_specs, mesh)
     flags = _all_ranks((tr.metrics_log == [], all(
-        torch.equal(a, b) for a, b in zip(tree_leaves(state["params"]),
+        torch.equal(a, b) for a, b in zip(tree_leaves(state),
                                           tree_leaves(mine)))))
     out["ckpt_to_tp"] = {"every_rank": flags,
-                         "written": sorted(os.listdir(tp_dir))}
+                         "written": sorted(os.listdir(mesh_dir))}
     return out
 
 
@@ -632,6 +649,126 @@ def case_tp_serve(rank, meshes, out_dir):
     return out
 
 
+def _fsdp_cfg(**kw):
+    return dataclasses.replace(reduced(get_config("tinyllama-1.1b")),
+                               fsdp=True, **kw)
+
+
+def _freed_after_forward(cfg, mesh):
+    """One FSDP forward of the loss on the rank's blocks (``remat="none"``:
+    every layer under ``Fsdp.regather``), then its backward: how many
+    gathered tensors each scope held, and how many of them were still
+    alive after the forward (none: the products saved handles), with the
+    collectives of the forward and of the backward."""
+    from repro_torch.models import sharding as tsh
+    ctx = MeshCtx(mesh=mesh.with_local(("data",)), batch_axes=("data",))
+    whole = init_params(ttf.model_template(cfg),
+                        torch.Generator().manual_seed(0), device="cpu")
+    blocks = tree_map(lambda t: t.requires_grad_(True), shard_params(
+        whole, tstep.train_state_specs(cfg, ctx)["params"], mesh))
+    toks = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, size=(2, DP["seq_len"])))
+    scopes, enter = [], tsh._Regather.__enter__
+
+    def spy(self):
+        scopes.append(self)
+        return enter(self)
+    tsh._Regather.__enter__ = spy
+    try:
+        compat.reset_counts()
+        loss, _ = ttf.lm_loss(cfg, blocks, {"tokens": toks,
+                                            "labels": toks.roll(-1, 1)},
+                              ctx=ctx)
+        forward = _counts(mesh)
+        alive = sum(ref() is not None for sc in scopes for ref, _ in sc.held)
+        loss.backward()
+    finally:
+        tsh._Regather.__enter__ = enter
+    return {"scopes": len(scopes),
+            "held": sum(len(sc.held) for sc in scopes), "alive": alive,
+            "forward": forward, "after": _counts(mesh)}
+
+
+def case_fsdp_train(rank, meshes, out_dir):
+    """The dense family's FSDP train step, reduced tinyllama-1.1b with
+    ``fsdp=True``: on (4,1) and (2,2), float32 step by step against the
+    one-device step at ``remat="none"`` (3 steps) and ``"full"`` (1 step),
+    and float64 through ``Trainer.run`` against the one-device trainer;
+    one step at ``grad_accum=2`` on (4,1); the gathered leaves freed after
+    the forward; the other dense configs on (2,2); the reference's own
+    FSDP step on (2,2); checkpoints between the one-device trainer and
+    the (4,1) one, both ways."""
+    base = _fsdp_cfg()
+    f64 = dataclasses.replace(base, param_dtype="float64",
+                              compute_dtype="float64")
+    out = {}
+    for shape in FSDP_MESHES:
+        mesh = meshes[shape]
+        r = {"f32": _tp_step_by_step(base, mesh),
+             "full": _tp_step_by_step(dataclasses.replace(base, remat="full"),
+                                      mesh, steps=1),
+             "f64": _tp_trajectory(f64, mesh)}
+        if rank == 0:
+            r["f64_one"] = _tp_trajectory(f64, None)
+        out[shape] = r
+    out["accum"] = _tp_step_by_step(base, meshes[4, 1], steps=1,
+                                    grad_accum=2)
+    out["freed"] = _freed_after_forward(base, meshes[4, 1])
+    for arch in TP_ARCHS:
+        cfg = reduced(get_config(arch), param_dtype="float64",
+                      compute_dtype="float64", fsdp=True)
+        out[arch] = {"f64": _tp_trajectory(cfg, meshes[2, 2])}
+        if rank == 0:
+            out[arch]["f64_one"] = _tp_trajectory(cfg, None)
+    out["reference"] = _reference_step(meshes[2, 2], out_dir, fsdp=True)
+    out.update(_ckpt_both_ways(rank, base, meshes[4, 1], out_dir, "fsdp"))
+    return out
+
+
+def case_fsdp_serve(rank, meshes, out_dir):
+    """Reduced tinyllama-1.1b with ``fsdp=True`` served on (2,2): each
+    data rank prefills its 4 of the 8 prompts of 64 tokens (the
+    tensor-parallel serve case's) and decodes them 2 steps, the weights
+    gathered a layer at a time; the logits, gathered whole on every rank,
+    against the one-device steps', with the collectives of each step."""
+    cfg = _fsdp_cfg()
+    mesh = meshes[FSDP_SERVE_MESH]
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    params = init_params(ttf.model_template(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)["params"],
+                          mesh)
+    r = np.random.RandomState(5)
+    b, s, n = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["steps"]
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, s)))
+    steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, 1)))
+             for _ in range(n)]
+    rows = b // mesh.shape["data"]
+    mine = slice(mesh.coord("data") * rows, (mesh.coord("data") + 1) * rows)
+
+    def serve(p, c, rows):
+        outs, counts = [], []
+        with torch.no_grad():
+            compat.reset_counts()
+            logits, cache = tstep.make_prefill_step(
+                cfg, c, s + n, cache_dtype=torch.float32)(
+                p, {"tokens": toks[rows]})
+            outs.append(logits)
+            counts.append(_counts(mesh) if c else None)
+            dec = tstep.make_decode_step(cfg, c)
+            for tok in steps:
+                compat.reset_counts()
+                logits, cache = dec(p, cache, {"tokens": tok[rows]})
+                outs.append(logits)
+                counts.append(_counts(mesh) if c else None)
+        return outs, counts, [tuple(cache[k].shape) for k in ("k", "v")]
+
+    out = {"fsdp": serve(blocks, ctx, mine)}
+    if rank == 0:
+        out["one"] = serve(params, None, slice(None))
+    return out
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -656,9 +793,18 @@ def case_refusals(rank, meshes, out_dir):
     text("tp_kv_seq", NotImplementedError, lambda: tstep.make_prefill_step(
         dataclasses.replace(cfg, n_kv_heads=2),
         MeshCtx(mesh=meshes[1, 4]), 16))
-    text("fsdp", NotImplementedError, lambda: tstep.make_train_step(
-        dataclasses.replace(cfg, fsdp=True), adamw.OptConfig(),
-        MeshCtx(mesh=meshes[4, 1])))
+    # FSDP of the families and of the engine that item 2.2b ports
+    for name, arch in (("fsdp_hybrid", "zamba2-7b"),
+                       ("fsdp_vision", "llama-3.2-vision-11b")):
+        text(name, NotImplementedError,
+             lambda arch=arch: tstep.make_train_step(
+                 reduced(get_config(arch), fsdp=True), adamw.OptConfig(),
+                 MeshCtx(mesh=meshes[4, 1])))
+    fcfg = dataclasses.replace(cfg, fsdp=True)
+    text("fsdp_engine", NotImplementedError, lambda: ServingEngine(
+        fcfg, init_params(ttf.model_template(fcfg),
+                          torch.Generator().manual_seed(0), device="cpu"),
+        ctx=MeshCtx(mesh=meshes[4, 1]), device="cpu"))
     text("moe", NotImplementedError, lambda: tstep.make_train_step(
         reduced(get_config("granite-moe-3b-a800m")), adamw.OptConfig(),
         MeshCtx(mesh=meshes[4, 1])))
@@ -688,7 +834,16 @@ def refusal_texts() -> dict:
                   "(ROADMAP Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
                      "A, A13c item 2.6)",
-        "fsdp": "FSDP over processes",
+        "fsdp_hybrid": "the hybrid family under FSDP; FSDP of the SSM, "
+                       "hybrid, vision and encoder-decoder families and of "
+                       "the serving engine over processes (ROADMAP Queue "
+                       "A, A13c item 2.2b)",
+        "fsdp_vision": "the vlm family under FSDP; FSDP of the SSM, hybrid, "
+                       "vision and encoder-decoder families",
+        "fsdp_engine": "the ServingEngine under FSDP; FSDP of the SSM, "
+                       "hybrid, vision and encoder-decoder families and of "
+                       "the serving engine over processes (ROADMAP Queue "
+                       "A, A13c item 2.2b)",
         "moe": "the MoE train step over processes",
         "outside": "a collective runs only inside shard_map's body",
         "backend": "the process group runs gloo, device 'cuda' needs nccl"
@@ -744,6 +899,10 @@ def check(name, res) -> dict:
         return check_tp_train(res)
     if name == "tp_serve":
         return check_tp_serve(res)
+    if name == "fsdp_train":
+        return check_fsdp_train(res)
+    if name == "fsdp_serve":
+        return check_fsdp_serve(res)
     if name == "local_axes":
         (y, g), counts = res["local"]
         (yg, gg), gcounts = res["global"]["stacked"]
@@ -819,11 +978,13 @@ def by_kind(counts) -> dict:
     return out
 
 
-def norm_bytes(d: int, m: int, itemsize: int = 4) -> int:
-    """The bytes summed over the ranks of the tensor-parallel grad norm's
-    one all-reduce over model (a scalar, which the dry run does not
-    count: it derives no reduction of a sum over a sharded leaf)."""
-    return d * m * int(round(2 * (m - 1) / m * itemsize))
+def norm_bytes(d: int, m: int, itemsize: int = 4, group=None) -> int:
+    """The bytes summed over the ranks of the grad norm's one all-reduce
+    of a scalar over the axes that cut a leaf (of ``group`` ranks: by
+    default the model axis's; which the dry run does not count: it
+    derives no reduction of a sum over a sharded leaf)."""
+    g = m if group is None else group
+    return d * m * int(round(2 * (g - 1) / g * itemsize))
 
 
 def tp_train_shape():
@@ -845,8 +1006,7 @@ def check_tp_mesh(res, shape) -> dict:
     model coordinate."""
     r = res[shape]
     f32 = r["f32"]
-    assert f32["shapes_ok"] and f32["replicated_equal"] \
-        and f32["blocks_equal_over_data"], (shape, f32)
+    assert f32["shapes_ok"] and f32["blocks_agree"], (shape, f32)
     errs = {f"{shape} f32": max(
         _rel(row["tp"], row["one"], ("loss", "ce", "grad_norm", "lr"))
         for row in f32["rows"])}
@@ -890,8 +1050,8 @@ def check_tp_config(res, name) -> dict:
 
 
 def check_tp_reference(res) -> float:
-    """The reference's own sharded step on (2,2): loss, ce and grad norm
-    within ``tp_reference`` relative."""
+    """The reference's own sharded step on (2,2) (its FSDP step in the FSDP
+    case): loss, ce and grad norm within ``tp_reference`` relative."""
     ref = res["reference"]
     err = _rel(ref["got"], ref["want"], ("loss", "ce", "grad_norm"))
     assert err <= TOL["tp_reference"], ref
@@ -977,3 +1137,179 @@ def metric_bytes(n_metrics: int, itemsize: int, n: int) -> int:
     """The bytes summed over ``n`` ranks of one pmean of the stacked loss
     metrics (a ring all-reduce a rank)."""
     return n * int(round(2 * (n - 1) / n * n_metrics * itemsize))
+
+
+# -- FSDP ---------------------------------------------------------------------
+
+
+def check_fsdp_mesh(res, shape) -> dict:
+    """On ``shape``: float32 step by step (each from the same state) within
+    ``tp_f32`` of the one-device step at ``remat="none"`` and ``"full"``,
+    float64 through ``Trainer.run`` within ``tp_f32`` (metrics) and
+    ``tp_f64`` (parameters) of the one-device trainer; the blocks of the
+    reference's FSDP shard shapes, equal on the ranks whose coordinates
+    agree along the axes that cut them."""
+    r = res[shape]
+    errs = {}
+    for tag in ("f32", "full"):
+        got = r[tag]
+        assert got["shapes_ok"] and got["blocks_agree"], (shape, tag, got)
+        errs[f"{shape} {tag}"] = max(
+            _rel(row["tp"], row["one"], ("loss", "ce", "grad_norm", "lr"))
+            for row in got["rows"])
+        assert errs[f"{shape} {tag}"] <= TOL["tp_f32"], (shape, got["rows"])
+    check_trajectory(f"{shape} f64", r["f64"], r["f64_one"], errs)
+    return errs
+
+
+def fsdp_extra(d: int, m: int) -> int:
+    """The all-reduce bytes a step of the FSDP ranks moves beyond the dry
+    run's count, summed over the ranks: the loss metrics' mean over data
+    (loss, ce, aux in float32) and the grad norm's scalar over every rank
+    (each leaf is cut over data, and at m > 1 some over model too)."""
+    return norm_bytes(d, m, group=d * m) \
+        + d * m * int(round(2 * (d - 1) / d * 12))
+
+
+def check_fsdp_bytes(res, shape, count=_dry_count) -> dict:
+    """The steps' collectives on ``shape``: no pmean of a leaf that FSDP
+    cuts over data (one a step for the metrics and one for each leaf
+    left whole over data); the bytes by kind the ranks move, summed,
+    equal to ``count``'s for the same cell times the ranks (the gathers
+    of every leaf in the forward and again for the backward that reads
+    it, a reduce-scatter of its gradient), the all-reduces less
+    :func:`fsdp_extra`; the same gathers and reduce-scatters a step at
+    ``remat="full"``, whose all-reduces are its own count's (the
+    checkpoint's recompute runs the tensor-parallel all-reduces again).
+    Returns the bytes a step by kind."""
+    from repro_torch.launch.mesh import make_mesh
+    d, m = shape
+    steps = DP["steps"]
+    r = res[shape]
+    f32 = r["f32"]
+    fwd, _ = f32["counts"]
+    assert fwd["pmean"]["calls"] == steps * (
+        f32["leaves"] - f32["n_data_cut"] + 1), (fwd, f32["n_data_cut"])
+    assert f32["n_data_cut"] == f32["leaves"], f32
+    per_step = {}
+    for tag, cfg, n in (("none", _fsdp_cfg(), steps),
+                        ("full", _fsdp_cfg(remat="full"), 1)):
+        st = count(cfg, tp_train_shape(), make_mesh(d, m))
+        got = by_kind(r["f32" if tag == "none" else "full"]["counts"])
+        want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+        want["all-reduce"] = want.get("all-reduce", 0) + fsdp_extra(d, m)
+        assert set(got) == set(want), (tag, got, want)
+        for k in got:
+            assert abs(got[k] / n - want[k]) <= d * m, (tag, k, got, want)
+        per_step[tag] = {k: v / n for k, v in got.items()}
+    for k in ("all-gather", "reduce-scatter"):
+        assert per_step["none"][k] == per_step["full"][k], per_step
+    return per_step
+
+
+def check_fsdp_accum(res, count=_dry_count):
+    """One step at ``grad_accum=2`` on (4,1) within ``tp_f32`` of the
+    one-device step; its gathers and reduce-scatters twice the dry run's
+    count: each micro-batch's forward and backward gathers every leaf and
+    reduce-scatters its gradient, where the count reads the step's
+    parameters once (a set of reads, whatever the micro-batches)."""
+    from repro_torch.launch.mesh import make_mesh
+    r = res["accum"]
+    err = max(_rel(row["tp"], row["one"], ("loss", "ce", "grad_norm", "lr"))
+              for row in r["rows"])
+    assert err <= TOL["tp_f32"], r["rows"]
+    st = count(_fsdp_cfg(), tp_train_shape(), make_mesh(4, 1))
+    got = by_kind(r["counts"])
+    for k in ("all-gather", "reduce-scatter"):
+        assert got[k] == 2 * 4 * st.collective_by_kind[k], (k, got, st)
+    return err
+
+
+def check_fsdp_freed(res):
+    """The gathered leaves (and their casts) that the layers' and the
+    head's scopes held are all freed when the forward returns; the
+    backward gathers each again but the embedding (whose lookup's
+    backward does not read the table), so its all-gather bytes are the
+    forward's twice less the table's."""
+    cfg = _fsdp_cfg()
+    r = res["freed"]
+    assert r["scopes"] == cfg.n_layers + 1 and r["held"] > 0 \
+        and r["alive"] == 0, r
+    before = r["forward"][0]["all_gather"]["bytes"]
+    after = r["after"][0]["all_gather"]["bytes"]
+    table = WORLD * 3 * cfg.vocab_size * cfg.d_model // 4 * 4
+    assert after == 2 * before - table, (before, after, table)
+    assert r["after"][1]["all_gather"]["bytes"] == before, r
+
+
+def check_fsdp_train(res, count=_dry_count) -> dict:
+    """Every check of the FSDP train case (the reference's step where it
+    ran)."""
+    errs = {}
+    for shape in FSDP_MESHES:
+        errs.update(check_fsdp_mesh(res, shape))
+        check_fsdp_bytes(res, shape, count)
+    errs["accum"] = check_fsdp_accum(res, count)
+    check_fsdp_freed(res)
+    for arch in TP_ARCHS:
+        errs.update(check_tp_config(res, arch))
+    if res["reference"] is not None:
+        errs["reference"] = check_tp_reference(res)
+    check_tp_ckpt(res)
+    return errs
+
+
+def check_fsdp_serve_logits(res) -> dict:
+    """The prefill's and 2 decode steps' logits, whole on every rank,
+    within ``tp_serve`` of the one-device steps; the cache of the rank's
+    rows and kv heads."""
+    cfg = _fsdp_cfg()
+    d, m = FSDP_SERVE_MESH
+    outs, _, kv = res["fsdp"]
+    want_outs, _, want_kv = res["one"]
+    errs = {"logits": max(_err(a, b) for a, b in zip(outs, want_outs))}
+    assert errs["logits"] <= TOL["tp_serve"], errs
+    b = TP_SERVE["batch"]
+    assert [(s[1], s[3]) for s in kv] == [(b // d, cfg.n_kv_heads // m)] * 2 \
+        and [(s[1], s[3]) for s in want_kv] == [(b, cfg.n_kv_heads)] * 2, (
+            kv, want_kv)
+    return errs
+
+
+def fsdp_logit_bytes(cfg) -> int:
+    """The serve step's two all-gathers of the last position's logits,
+    summed over the ranks: the vocab blocks over model, then each data
+    rank's rows over data (the step returns them whole on every rank, as
+    the reference's returns a global array; the dry run's count leaves
+    them split)."""
+    d, m = FSDP_SERVE_MESH
+    rows = TP_SERVE["batch"] // d
+    return d * m * 4 * rows * cfg.vocab_size * ((m - 1) / m + (d - 1))
+
+
+def check_fsdp_serve_bytes(res, count=_dry_count):
+    """Each decode step's bytes summed over the ranks: the dry run's count
+    of "tinyllama-1.1b decode 2x2" with FSDP (each leaf gathered once, the
+    tensor-parallel all-reduces) times the ranks, and
+    :func:`fsdp_logit_bytes`. The prefill is held on its logits only: the
+    dry run counts the prefill without FSDP (``dryrun.cell_config``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    cfg = _fsdp_cfg()
+    d, m = FSDP_SERVE_MESH
+    b, s = TP_SERVE["batch"], TP_SERVE["prompt"]
+    st = count(cfg, ShapeConfig("decode", s, b, "decode"), make_mesh(d, m))
+    assert set(st.collective_by_kind) == {"all-gather", "all-reduce"}, st
+    for c in res["fsdp"][1][1:]:
+        got = by_kind(c)
+        want = {"all-reduce": d * m * st.collective_by_kind["all-reduce"],
+                "all-gather": d * m * st.collective_by_kind["all-gather"]
+                + fsdp_logit_bytes(cfg)}
+        assert set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= d * m for k in got), (got, want)
+
+
+def check_fsdp_serve(res, count=_dry_count) -> dict:
+    errs = check_fsdp_serve_logits(res)
+    check_fsdp_serve_bytes(res, count)
+    return errs

@@ -52,8 +52,7 @@ def _rank(rank, world, store, out, args, variant):
     from repro_torch.models.layers import (init_params, tree_leaves,
                                            value_and_grad)
     from repro_torch.models.sharding import (MeshCtx, gather_params,
-                                             sanitize_specs, shard_params,
-                                             tensor_parallel)
+                                             sanitize_specs, shard_params)
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -78,9 +77,8 @@ def _rank(rank, world, store, out, args, variant):
         seed=0)).batch(0), "cuda")
     (loss, _), grads = value_and_grad(
         lambda p, b: tf.lm_loss(cfg, p, b, ctx=ctx))(blocks, batch)
-    tp = tensor_parallel(cfg, ctx)
-    norm = float(adamw.global_norm(grads, step_lib.model_split(sane),
-                                   tp.all_reduce))
+    norm = float(adamw.global_norm(grads, step_lib.cut_axes(sane, mesh),
+                                   mesh))
     whole = gather_params(grads, sane, mesh)
     if rank == 0:
         (loss1, _), grads1 = value_and_grad(
