@@ -24,7 +24,9 @@ route, deepseek-v3-671b served on a (1, 4) mesh), and the dry run: the
 count of a step's FLOPs, bytes and collectives and its roofline, held
 against the measured step, and the mesh over processes (tinyllama-1.1b
 trained data-parallel on NCCL at the machine's card count, the process
-route's cases on 4 gloo ranks of its CPU). Without
+route's cases on 4 gloo ranks of its CPU, tinyllama-1.1b tensor-parallel
+and FSDP and granite-moe-3b-a800m data- and expert-tensor-parallel on
+ranks sharing the card through gloo). Without
 a CUDA device, or in a directory that lacks the package, it exits
 non-zero and prints no result. Phases, one JSON line each:
 
@@ -345,23 +347,47 @@ non-zero and prints no result. Phases, one JSON line each:
                beside phase 7's, the collectives, the NCCL version and
                backend, NCCL's events in ``torch.profiler``; then every
                case of ``tests/torch_process_cases.py`` on 4 gloo ranks of
-               the CPU (``mesh_processes_gloo``). Only this process
+               the CPU but ``moe_train``, which phase 41 runs on the card
+               (``mesh_processes_gloo``). Only this process
                prints; a rank that fails fails the phase.
 39. ``mesh_tensor_parallel`` tensor parallelism over processes, spawned
                after ``free_memory()``: at m = 2 and 4, m ranks on the
                one card in a gloo group (``make_process_mesh(1, m,
                backend="gloo")``; NCCL refuses two ranks on one card)
-               train tinyllama-1.1b as phase 7 does, 2 steps through
-               ``Trainer``, each rank its blocks of every leaf: the
-               first loss against the one-device step's (run first,
-               phase 7's), and on conditioned parameters one step's loss
+               train tinyllama-1.1b as phase 7 does but cut to 4 of its
+               22 layers (``MESH_LAYERS``), 2 steps through ``Trainer``,
+               each rank its blocks of every leaf: the first loss
+               against the one-device step's (run first, at the same
+               depth), and on conditioned parameters one step's loss
                and grad norm, each rank's blocks against the same slices
-               of its result, B3-B5 44 / 22 / 22
+               of its result, B3-B5 8 / 4 / 4
                a step on every rank at 32 / m heads a launch (held
                against their plain versions there), the all-reduce bytes
                summed over the ranks equal to ``count_step``'s, a float32
                witness of 2 conditioned layers step by step; ms a step
                and peak GB a rank, the group's backend.
+40. ``mesh_fsdp`` the same with ``fsdp=True`` on (4, 1) and (2, 2) ranks
+               sharing the card: FSDP over ``data`` (and tensor
+               parallelism over ``model``), held as phase 39 and against
+               the same one-device steps, the gathers and
+               reduce-scatters against ``count_step``'s.
+41. ``mesh_moe`` granite-moe-3b-a800m (full width, 4 of 32 layers, as
+               phase 7 trains: 4 x 2048, one dispatch group of 8192
+               tokens) on (4, 1) and (2, 2) ranks sharing the card
+               through gloo, 2 steps through ``Trainer``: the one-hot
+               dispatch and the Switch aux loss over the global batch
+               (the ranks gather each other's per-expert counts), the
+               experts' FFN split over ``model``; the first loss, ce and
+               aux and a conditioned grad norm against the one-device
+               step's (run first), a float32 witness of 2 layers step by
+               step, B3-B5 8 / 4 / 4 a rank-step at 1 x 32 and 2 x 16
+               rows x heads (held against their plain versions there),
+               the dropped pairs against the one-device step's, the bytes
+               by kind against ``count_step``'s; ms a step and peak GB a
+               rank. Phases 39-41 share their spawns
+               (``run_card_ranks``): the (1, 2) ranks, then one world of
+               4 ranks that runs (1, 4), both FSDP meshes and both MoE
+               meshes in turn.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -373,9 +399,10 @@ in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
 ``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
-NCCL step summed over its ranks, ``mesh_processes``, and phase 39's
-tensor-parallel steps summed over their ranks, ``mesh_tensor_parallel
-(1, m)``; error, times and bound per kernel), one line with the
+NCCL step summed over its ranks, ``mesh_processes``, and phases 39-41's
+steps summed over their ranks, ``mesh_tensor_parallel (1, m)``,
+``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``; error, times and bound per
+kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises: nothing is caught and passed
 over.
@@ -388,6 +415,7 @@ import functools
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -476,8 +504,14 @@ def free_memory():
     torch.cuda.empty_cache()
 
 
+_T0: list = []                    # main()'s start on the host clock
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; in a run of :func:`main`, with ``t_s``, the seconds
+    since it started (where the run's time goes)."""
+    t = {"t_s": time.perf_counter() - _T0[0]} if _T0 else {}
+    print(json.dumps({"phase": phase, **fields, **t}), flush=True)
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 10) -> float:
@@ -4732,6 +4766,10 @@ def phase_dryrun(smi):
 PROC_STEPS = 3
 PROC_LOSS_REL = 1e-3      # at two ranks or more: another summation order
 PROC_TIMEOUT_S = 600      # a rank still running then fails the phase
+# the CPU cases that phase 38 leaves to the card: phase 41 runs the MoE
+# step over processes on this machine at full width (the case's ~35 s on
+# its CPU would push the run toward its limit)
+CARD_CASES = ("moe_train",)
 
 
 def _process_cases():
@@ -4860,10 +4898,11 @@ def phase_mesh_processes(smi):
     ``torch.profiler`` shows of NCCL in one more step; the peak memory
     of steps 2-3 and, apart, of the first (with the state's init). (b)
     gloo on the CPU at 4 ranks: every case of
-    ``tests/torch_process_cases.py`` (the collectives, each body against
-    the stacked route, the data-parallel step on reduced tinyllama-1.1b
-    against the one-device step), held by its ``check``. Returns the NCCL
-    path's attention launches, summed over the ranks."""
+    ``tests/torch_process_cases.py`` but ``CARD_CASES`` (the collectives,
+    each body against the stacked route, the data-parallel step on
+    reduced tinyllama-1.1b against the one-device step), held by its
+    ``check``. Returns the NCCL path's attention launches, summed over
+    the ranks."""
     t0 = time.perf_counter()
     free_memory()
     pc = _process_cases()
@@ -4919,10 +4958,11 @@ def phase_mesh_processes(smi):
         t1 = time.perf_counter()
         gloo_dir = os.path.join(tmp, "gloo")
         os.makedirs(gloo_dir)
-        res = pc.spawn(gloo_dir, timeout_s=PROC_TIMEOUT_S)
-        errs = {name: pc.check(name, res[name]) for name in pc.CASES}
+        cases = [c for c in pc.CASES if c not in CARD_CASES]
+        res = pc.spawn(gloo_dir, cases=cases, timeout_s=PROC_TIMEOUT_S)
+        errs = {name: pc.check(name, res[name]) for name in cases}
         emit("mesh_processes_gloo", ranks=pc.WORLD, backend="gloo",
-             torch=torch.__version__, cases=list(pc.CASES), max_err=errs,
+             torch=torch.__version__, cases=cases, max_err=errs,
              tolerances=pc.TOL, seconds=time.perf_counter() - t1)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4947,6 +4987,17 @@ TP_FP32_REL = 1e-5
 TP_TIMEOUT_S = 600
 
 
+MESH_LAYERS = 4           # phases 39-40: the depth their checks need
+
+
+def _mesh_cfgs():
+    """Phase 7's model and optimizer (:func:`_train_cfgs`) cut to
+    ``MESH_LAYERS`` of tinyllama-1.1b's 22 layers: what phases 39 and 40
+    train (their checks do not depend on depth; the run's time does)."""
+    cfg, opt = _train_cfgs()
+    return dataclasses.replace(cfg, n_layers=MESH_LAYERS), opt
+
+
 def _tp_one_device(cfg, opt, data):
     """The one-device trainer's steps (phase 7's state and batches):
     (metrics log, final state)."""
@@ -4965,15 +5016,15 @@ def _conditioned_blocks(cfg, tr, mesh):
     return whole, shard_params(whole, tr.state_specs["params"], mesh)
 
 
-def _tp_fp32_witness(mesh, opt, fsdp=False):
-    """``TP_FP32_LAYERS`` layers of tinyllama-1.1b at full width in float32
-    compute (TF32 off) from ``_conditioned`` parameters (at the configured
-    init, two summation orders of this step read gradients 3e-3 of their
-    largest apart: the 4-rank split's partial sums do), ``TP_STEPS``
-    tensor-parallel steps, each held against the one-device step from the
-    same state (gathered; rank 0 runs it): per step both steps' loss and
-    grad norm."""
-    cfg, _ = _train_cfgs()
+def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None):
+    """``TP_FP32_LAYERS`` layers of tinyllama-1.1b (or of ``cfg``) at full
+    width in float32 compute (TF32 off) from ``_conditioned`` parameters
+    (at the configured init, two summation orders of this step read
+    gradients 3e-3 of their largest apart: the 4-rank split's partial sums
+    do), ``TP_STEPS`` tensor-parallel steps, each held against the
+    one-device step from the same state (gathered; rank 0 runs it): per
+    step both steps' loss and grad norm."""
+    cfg = cfg or _mesh_cfgs()[0]
     cfg = dataclasses.replace(cfg, n_layers=TP_FP32_LAYERS,
                               compute_dtype="float32", fsdp=fsdp)
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
@@ -4997,14 +5048,13 @@ def _tp_fp32_witness(mesh, opt, fsdp=False):
     return rows
 
 
-def _tp_conditioned(mesh, opt, fsdp=False):
+def _tp_conditioned(mesh, opt, fsdp=False, cfg=None):
     """One tensor-parallel (with ``fsdp``, FSDP) step of tinyllama-1.1b as
-    phase 7 trains it (bf16 compute, full depth, batch 0) from
-    ``_conditioned`` parameters, where the gradients are resolvable, and
-    the one-device step from the same state (rank 0, before it): both
-    steps' loss and grad norm."""
-    cfg, _ = _train_cfgs()
-    cfg = dataclasses.replace(cfg, fsdp=fsdp)
+    phases 39-40 train it (bf16 compute, ``MESH_LAYERS``, batch 0), or of
+    ``cfg``, from ``_conditioned`` parameters, where the gradients are
+    resolvable, and the one-device step from the same state (rank 0,
+    before it): both steps' loss and grad norm."""
+    cfg = dataclasses.replace(cfg or _mesh_cfgs()[0], fsdp=fsdp)
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
     tr = Trainer(cfg, opt, data, TrainerConfig(steps=1), mesh=mesh,
@@ -5027,24 +5077,15 @@ def _tp_conditioned(mesh, opt, fsdp=False):
     return out
 
 
-def _tp_rank(rank, world, store, out_path, one_path, shape=None,
-             fsdp=False):
-    """A rank of phase 39 (module level: ``spawn`` pickles it), or with
-    ``fsdp`` of phase 40: tinyllama-1.1b as phase 7 trains it (with
-    ``fsdp=True``) through ``Trainer(mesh=make_process_mesh(*shape,
-    backend="gloo"))`` (``shape`` by default (1, world)) on the card the
-    ranks share, its blocks then held against the same slices of the
-    one-device result (``one_path``, memory-mapped); then the float32 and
-    conditioned witnesses. Rank 0 writes the results to ``out_path``."""
+def _tp_job(mesh, one_path, fsdp=False):
+    """Phase 39's (or with ``fsdp``, phase 40's) work on one mesh, on every
+    rank: tinyllama-1.1b as phases 39-40 train it (:func:`_mesh_cfgs`,
+    with ``fsdp=True``) through ``Trainer(mesh=mesh)``, its blocks then
+    held against the same slices of the one-device result (``one_path``,
+    memory-mapped); then the float32 and conditioned witnesses. Returns
+    the results on rank 0, None on the others."""
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_process_mesh
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    d, m = shape or (1, world)
-    mesh = make_process_mesh(d, m, device="cuda:0", backend="gloo",
-                             init_method=f"file://{store}", rank=rank,
-                             world_size=world, timeout_s=TP_TIMEOUT_S)
-    cfg, opt = _train_cfgs()
+    cfg, opt = _mesh_cfgs()
     cfg = dataclasses.replace(cfg, fsdp=fsdp)
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
@@ -5073,33 +5114,82 @@ def _tp_rank(rank, world, store, out_path, one_path, shape=None,
     gaps = []
     for got, want in zip(tree_leaves(state["params"]),
                          tree_leaves(mine)):
-        d = (got.cpu().double() - want.double()).abs()
-        gaps.append((float(d.max()), float(d.mean()),
+        gap = (got.cpu().double() - want.double()).abs()
+        gaps.append((float(gap.max()), float(gap.mean()),
                      float(want.abs().max())))
     shapes = [list(t.shape) for t in tree_leaves(state["params"])]
     del state, tr, mine
     free_memory()
     fp32 = _tp_fp32_witness(mesh, opt, fsdp)
     conditioned = _tp_conditioned(mesh, opt, fsdp)
-    geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
-                  for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
-    every = [None] * world
+    geos = sorted([n, g, sq, sk, dd, str(dt)[6:], c, bq, bk]
+                  for n, (g, sq, sk, dd, dt, c, bq, bk) in seen)
+    every = [None] * dist.get_world_size()
     dist.all_gather_object(every, (launches, peak, gaps, geos, step_ms))
-    if rank == 0:
-        out = {"world": world, "backend": dist.get_backend(),
-               "log": tp_log, "fp32": fp32,
-               "conditioned": conditioned,
-               "launches_by_rank": [e[0] for e in every],
-               "peak_gb_by_rank": [e[1] / 1e9 for e in every],
-               "gaps_by_rank": [e[2] for e in every],
-               "geometries_by_rank": [e[3] for e in every],
-               "step_ms_by_rank": [e[4] for e in every],
-               "weight_decay": opt.weight_decay, "shapes": shapes,
-               "collectives": counts}
-        with open(out_path, "w") as f:
-            json.dump(out, f)
-    mesh.barrier()
+    if mesh.rank != 0:
+        return None
+    return {"backend": dist.get_backend(), "log": tp_log, "fp32": fp32,
+            "conditioned": conditioned,
+            "launches_by_rank": [e[0] for e in every],
+            "peak_gb_by_rank": [e[1] / 1e9 for e in every],
+            "gaps_by_rank": [e[2] for e in every],
+            "geometries_by_rank": [e[3] for e in every],
+            "step_ms_by_rank": [e[4] for e in every],
+            "weight_decay": opt.weight_decay, "shapes": shapes,
+            "collectives": counts}
+
+
+def _card_rank(rank, world, store, jobs, one_path):
+    """A rank of phases 39-41 (module level: ``spawn`` pickles it): for
+    each ``(kind, shape, out_path)`` of ``jobs`` in turn, in one process
+    group, a ``make_process_mesh(*shape, backend="gloo")`` on the card the
+    ranks share and its job: "tp" and "fsdp" phases 39-40's
+    (:func:`_tp_job`), "moe" phase 41's (:func:`_moe_job`). Rank 0 writes
+    each job's results, with the seconds it took, to its ``out_path``. One
+    process runs every job of its world: its warm-up (10-14 s in its first
+    step on the card) is paid once."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_process_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for kind, shape, out_path in jobs:
+        t0 = time.perf_counter()
+        mesh = make_process_mesh(*shape, device="cuda:0", backend="gloo",
+                                 init_method=f"file://{store}", rank=rank,
+                                 world_size=world, timeout_s=TP_TIMEOUT_S)
+        out = _moe_job(mesh) if kind == "moe" else \
+            _tp_job(mesh, one_path, fsdp=kind == "fsdp")
+        if rank == 0:
+            out.update(world=world, seconds=time.perf_counter() - t0)
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+        mesh.barrier()
+        free_memory()
     dist.destroy_process_group()
+
+
+# the jobs of phases 39-41 by world size: each world's ranks are spawned
+# once and run its jobs in this order
+CARD_JOBS = ((2, (("tp", (1, 2)),)),
+             (4, (("tp", (1, 4)), ("fsdp", (4, 1)), ("fsdp", (2, 2)),
+                  ("moe", (4, 1)), ("moe", (2, 2)))))
+
+
+def run_card_ranks(tmp, one_path, card_jobs=CARD_JOBS) -> dict:
+    """Spawns each world of ``card_jobs`` once (:func:`_card_rank`) with
+    ``one_path`` (:func:`one_device_record`'s parameters) under ``tmp``:
+    ``{(kind, shape): rank 0's results}``."""
+    pc = _process_cases()
+    out = {}
+    for i, (world, jobs) in enumerate(card_jobs):
+        paths = [(kind, shape, os.path.join(
+            tmp, f"{kind}{shape[0]}x{shape[1]}.json")) for kind, shape in jobs]
+        pc.run_ranks(_card_rank, world, (world, os.path.join(
+            tmp, f"store{i}"), paths, one_path), TP_TIMEOUT_S * len(jobs))
+        for kind, shape, path in paths:
+            with open(path) as f:
+                out[kind, shape] = json.load(f)
+    return out
 
 
 def _param_bound(lrs, wd, pmax) -> float:
@@ -5113,12 +5203,12 @@ def _param_bound(lrs, wd, pmax) -> float:
 
 
 def one_device_record(tmp):
-    """Phase 7's one-device steps (``TP_STEPS`` from its state and
-    batches), which phases 39 and 40 hold their ranks against: (metrics
-    log, the path of its parameters on the host under ``tmp``, seconds);
-    its first losses asserted equal to phase 7's where phase 7 ran."""
+    """The one-device steps that phases 39 and 40 hold their ranks
+    against: ``TP_STEPS`` of phase 7's model cut to ``MESH_LAYERS``
+    (:func:`_mesh_cfgs`) from phase 7's seed and batches: (metrics log,
+    the path of its parameters on the host under ``tmp``, seconds)."""
     t0 = time.perf_counter()
-    cfg, opt = _train_cfgs()
+    cfg, opt = _mesh_cfgs()
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
     one, state = _tp_one_device(cfg, opt, data)
@@ -5126,14 +5216,10 @@ def one_device_record(tmp):
     torch.save(tree_map(lambda t: t.cpu(), state["params"]), one_path)
     del state
     free_memory()
-    phase7 = RECORD.get("train", {})
-    if phase7:
-        assert [x["loss"] for x in one] == \
-            phase7["losses"][:TP_STEPS], (one, phase7)
     return one, one_path, time.perf_counter() - t0
 
 
-def phase_mesh_tensor_parallel(smi, one_device=None):
+def phase_mesh_tensor_parallel(smi, one_device=None, spawned=None):
     """Phase 39: tensor parallelism over processes (``train/step.py``'s
     tensor-parallel step: each rank its blocks of every leaf by the
     reference's specs, Megatron's ``copy_to`` / ``reduce_from`` around the
@@ -5141,12 +5227,12 @@ def phase_mesh_tensor_parallel(smi, one_device=None):
     cross-entropy). At each m of ``TP_MODELS``, m ranks spawned on the one
     card in a gloo group (NCCL refuses two ranks on one card;
     ``tools/torch_gloo_cuda_probe.py`` shows what gloo takes on CUDA
-    tensors): tinyllama-1.1b as phase 7 trains it (full width and depth, 4
-    x 2048, bf16 compute, full remat) on (1, m) for ``TP_STEPS`` steps
-    through ``Trainer(mesh=make_process_mesh(1, m, backend="gloo"))``,
-    from phase 7's state and batches. Held: the first step's loss within
-    ``TP_LOSS_REL`` of the one-device step's (run here first, equal to
-    phase 7's, its parameters saved to the host for the ranks to
+    tensors): tinyllama-1.1b as phase 7 trains it (full width, 4 x 2048,
+    bf16 compute, full remat), cut to ``MESH_LAYERS`` layers, on (1, m)
+    for ``TP_STEPS`` steps through ``Trainer(mesh=make_process_mesh(1, m,
+    backend="gloo"))``, from phase 7's seed and batches. Held: the first
+    step's loss within ``TP_LOSS_REL`` of the one-device step's (run here
+    first, its parameters saved to the host for the ranks to
     memory-map; the grad norms are recorded: at this
     init two summation orders of the same step disagree, phase 8), and on
     ``_conditioned`` parameters one step's loss and grad norm within
@@ -5162,26 +5248,24 @@ def phase_mesh_tensor_parallel(smi, one_device=None):
     Recorded: ms a step and peak GB on each rank (the ranks share one card
     and its host: no scaling figure), the backend the group reports.
     ``one_device``: :func:`one_device_record`'s result (made here where
-    None). Returns the launches by path, summed over the ranks."""
+    None); ``spawned``: :func:`run_card_ranks`'s results (its own spawns
+    here where None). Returns the launches by path, summed over the
+    ranks."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     free_memory()
     pc = _process_cases()
-    cfg, opt = _train_cfgs()
+    cfg, opt = _mesh_cfgs()
     per_step = train_launches(cfg)
-    phase7 = RECORD.get("train", {})
     by_path, results = {}, []
     tmp = tempfile.mkdtemp(prefix="mesh_tensor_parallel_")
     try:
         one, one_path, one_s = one_device or one_device_record(tmp)
+        spawned = spawned or run_card_ranks(
+            tmp, one_path, [(m, (("tp", (1, m)),)) for m in TP_MODELS])
         for m in TP_MODELS:
-            t0 = time.perf_counter()
-            out_path = os.path.join(tmp, f"tp{m}.json")
-            pc.run_ranks(_tp_rank, m, (m, os.path.join(tmp, f"store{m}"),
-                                       out_path, one_path), TP_TIMEOUT_S)
-            with open(out_path) as f:
-                r = json.load(f)
-            spawn_s = time.perf_counter() - t0
+            r = spawned["tp", (1, m)]
+            spawn_s = r["seconds"]
             assert r["backend"] == "gloo", r["backend"]
             want = {k: TP_STEPS * v for k, v in per_step.items()}
             assert all(x == want for x in r["launches_by_rank"]), r
@@ -5247,8 +5331,7 @@ def phase_mesh_tensor_parallel(smi, one_device=None):
                  step_ms_by_rank=r["step_ms_by_rank"],
                  steady_step_ms_by_rank=steady,
                  peak_gb_by_rank=r["peak_gb_by_rank"],
-                 one_device_steady_step_ms=phase7.get("steady_step_ms"),
-                 one_device_peak_gb=phase7.get("peak_gb"),
+                 n_layers=cfg.n_layers,
                  block_shapes=r["shapes"], one_device_seconds=one_s,
                  seconds=spawn_s)
             by_path[f"mesh_tensor_parallel (1, {m})"] = launches
@@ -5268,7 +5351,7 @@ FSDP_GRAD_REL = 5e-3      # the conditioned grad norm (phase 39's 5.8e-4)
 FSDP_FP32_REL = 1e-6      # the float32 witness, each step from one state
 
 
-def phase_mesh_fsdp(smi, one_device=None):
+def phase_mesh_fsdp(smi, one_device=None, spawned=None):
     """Phase 40: FSDP over processes (``train/step.py``'s FSDP step: each
     rank its block of every leaf by the reference's specs with
     ``fsdp=True``, every embed dimension over data; each leaf gathered at
@@ -5276,7 +5359,8 @@ def phase_mesh_fsdp(smi, one_device=None):
     backward, its gradient reduce-scattered, ``core.compat.gather_from``).
     On each mesh of ``FSDP_CARD_MESHES`` its ranks spawned on the one card
     in a gloo group, as phase 39's: tinyllama-1.1b as phase 7 trains it
-    (full width and depth, 4 x 2048, bf16 compute, full remat) with
+    (full width, ``MESH_LAYERS`` layers, 4 x 2048, bf16 compute, full
+    remat) with
     ``fsdp=True``, ``TP_STEPS`` steps from phase 7's state and batches.
     Held: the first step's loss within ``TP_LOSS_REL`` of the one-device
     step's; on ``_conditioned`` parameters one step's loss and grad norm
@@ -5291,29 +5375,26 @@ def phase_mesh_fsdp(smi, one_device=None):
     by step within ``FSDP_FP32_REL``. Recorded: ms a step (gloo's host
     staging and the shared host: no speed figure) and peak GB on each
     rank. ``one_device``: :func:`one_device_record`'s result (made here
-    where None). Returns the launches by path, summed over the ranks."""
+    where None); ``spawned``: :func:`run_card_ranks`'s results (one spawn
+    of its own here where None). Returns the launches by path, summed
+    over the ranks."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     free_memory()
     pc = _process_cases()
-    cfg, opt = _train_cfgs()
+    cfg, opt = _mesh_cfgs()
     cfg = dataclasses.replace(cfg, fsdp=True)
     per_step = train_launches(cfg)
-    phase7 = RECORD.get("train", {})
     by_path, results = {}, []
     tmp = tempfile.mkdtemp(prefix="mesh_fsdp_")
     try:
         one, one_path, one_s = one_device or one_device_record(tmp)
+        n = math.prod(FSDP_CARD_MESHES[0])
+        spawned = spawned or run_card_ranks(tmp, one_path, [
+            (n, tuple(("fsdp", x) for x in FSDP_CARD_MESHES))])
         for d, m in FSDP_CARD_MESHES:
-            t0 = time.perf_counter()
-            n = d * m
-            out_path = os.path.join(tmp, f"fsdp{d}x{m}.json")
-            pc.run_ranks(_tp_rank, n, (n, os.path.join(tmp, f"store{d}x{m}"),
-                                       out_path, one_path, (d, m), True),
-                         TP_TIMEOUT_S)
-            with open(out_path) as f:
-                r = json.load(f)
-            spawn_s = time.perf_counter() - t0
+            r = spawned["fsdp", (d, m)]
+            spawn_s = r["seconds"]
             assert r["backend"] == "gloo", r["backend"]
             want = {k: TP_STEPS * v for k, v in per_step.items()}
             assert all(x == want for x in r["launches_by_rank"]), r
@@ -5377,14 +5458,236 @@ def phase_mesh_fsdp(smi, one_device=None):
                  step_ms_by_rank=r["step_ms_by_rank"],
                  steady_step_ms_by_rank=steady,
                  peak_gb_by_rank=r["peak_gb_by_rank"],
-                 one_device_steady_step_ms=phase7.get("steady_step_ms"),
-                 one_device_peak_gb=phase7.get("peak_gb"),
+                 n_layers=cfg.n_layers,
                  block_shapes=r["shapes"], one_device_seconds=one_s,
                  seconds=spawn_s)
             by_path[f"mesh_fsdp ({d}, {m})"] = launches
             free_memory()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 41: the MoE train step over processes
+# ---------------------------------------------------------------------------
+
+
+MOE_MESH_LAYERS = 4       # of granite-moe-3b-a800m's 32
+MOE_CARD_MESHES = ((4, 1), (2, 2))    # (data, model): ranks on the one card
+# the first step's loss, ce and aux against the one-device step's: on (4,1)
+# each rank runs the one-device step's products on its rows (another GEMM
+# height), on (2,2) the model axis splits the partial sums (bf16)
+MOE_LOSS_REL = {(4, 1): 1e-4, (2, 2): TP_LOSS_REL}
+
+
+def _moe_mesh_cfgs():
+    """granite-moe-3b-a800m as configured (fp32 parameters, bf16 compute,
+    full remat, the attention kernels on the card) cut to
+    ``MOE_MESH_LAYERS`` layers, and phase 7's optimizer."""
+    cfg = get_config(MOE_ARCH)
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat, cfg.attn_flash,
+            cfg.moe.expert_parallel) == ("float32", "bfloat16", "full",
+                                         "auto", False), cfg
+    _, opt = _train_cfgs()
+    return dataclasses.replace(cfg, n_layers=MOE_MESH_LAYERS), opt
+
+
+def _moe_run(tr):
+    """``tr.run`` with the attention kernels' launches and geometries, the
+    collectives and the peak memory counted from 0, and the pairs each
+    step's dispatches dropped: (metrics log, launches, geometries seen,
+    collectives (forward, backward), peak bytes, ms a step, drops a
+    step)."""
+    stamps, drops, log = [], [], []
+
+    def on_step(m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        drops.append(moe_mod.dropped_pairs(log))
+        log.clear()
+
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launches()            # the path starts here
+    compat.reset_counts()
+    moe_mod.DISPATCH_LOG = log
+    try:
+        with att_geometries() as seen:
+            stamps.append(time.perf_counter())
+            _, state = tr.run(on_step=on_step)
+    finally:
+        moe_mod.DISPATCH_LOG = None
+    launches = dict(att.LAUNCHES)   # read right after it
+    process = compat.is_process_mesh(tr.mesh)
+    counts = (compat.read_counts(reduce=process),
+              compat.read_counts(reduce=process, backward=True))
+    del state
+    return (tr.metrics_log, launches, seen, counts,
+            torch.cuda.max_memory_allocated(),
+            [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])], drops)
+
+
+def _moe_job(mesh):
+    """Phase 41's work on one mesh, on every rank: granite-moe-3b-a800m as
+    :func:`_moe_mesh_cfgs` gives it through ``Trainer(mesh=mesh)``
+    (:func:`_moe_run`), then the float32 witness and the conditioned
+    step. Returns the results on rank 0, None on the others."""
+    import torch.distributed as dist
+    cfg, opt = _moe_mesh_cfgs()
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS, log_every=1),
+                 mesh=mesh, device=DEV)
+    log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr)
+    del tr
+    free_memory()
+    fp32 = _tp_fp32_witness(mesh, opt, cfg=cfg)
+    conditioned = _tp_conditioned(mesh, opt, cfg=cfg)
+    geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
+                  for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (launches, peak, geos, step_ms, drops))
+    if mesh.rank != 0:
+        return None
+    return {"backend": dist.get_backend(), "log": log, "fp32": fp32,
+            "conditioned": conditioned,
+            "launches_by_rank": [e[0] for e in every],
+            "peak_gb_by_rank": [e[1] / 1e9 for e in every],
+            "geometries_by_rank": [e[2] for e in every],
+            "step_ms_by_rank": [e[3] for e in every],
+            "drops_by_rank": [e[4] for e in every],
+            "collectives": counts}
+
+
+def phase_mesh_moe(smi, spawned=None):
+    """Phase 41: the MoE family's train step over processes
+    (``models/moe.py``'s one-hot dispatch with its group and Switch aux
+    loss over the global batch: each rank gathers the others' per-expert
+    counts and claims its slots after theirs; at ``model > 1`` each
+    expert's FFN split over the ranks between Megatron's ``copy_to`` /
+    ``reduce_from``). granite-moe-3b-a800m at full width (d_model 1536, 32
+    padded heads of 64, 8 kv heads, 40 experts padded to 48, top 8,
+    expert FFN 512, vocab 49155, so the table whole on every rank), 4 of
+    its 32 layers, as phase 7 trains (fp32 parameters, bf16 compute, full
+    remat, AdamW, 4 x 2048: one dispatch group of 8192 tokens, capacity
+    2048): the one-device trainer first (``TP_STEPS`` steps), then on each
+    mesh of ``MOE_CARD_MESHES`` its ranks spawned on the one card in a
+    gloo group, as phase 39's, ``TP_STEPS`` steps through
+    ``Trainer(mesh=make_process_mesh(d, m, backend="gloo"))``. Held: the
+    first step's loss, ce and aux within ``MOE_LOSS_REL``; on
+    ``_conditioned`` parameters one step's loss within ``TP_LOSS_REL`` and
+    grad norm within ``TP_GRAD_REL``; a float32 witness
+    (``TP_FP32_LAYERS`` layers, TF32 off, conditioned) step by step
+    within ``TP_FP32_REL``; B3-B5 ``train_launches`` a step on every rank
+    at 1 x 32 (4,1) and 2 x 16 (2,2) rows x heads a launch, each held
+    against its plain version at the geometry the path launched it at;
+    the pairs each step's dispatches dropped, summed over the data ranks
+    (the ranks of a data coordinate route the same tokens), equal to the
+    one-device step's, and recorded by rank; the bytes by kind summed over
+    the ranks equal to ``count_step``'s for the cell times the ranks (the
+    all-reduces less the loss metrics' mean and the grad norm's scalar).
+    Recorded: ms a step and peak GB a rank (the ranks share one card and
+    its host: no scaling figure), beside the card's name and power limit.
+    ``spawned``: :func:`run_card_ranks`'s results (one spawn of its own
+    here, before the one-device trainer, where None). Returns the launches
+    by path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    free_memory()
+    pc = _process_cases()
+    cfg, opt = _moe_mesh_cfgs()
+    per_step = train_launches(cfg)
+    assert per_step == {"flash_fwd": 8, "flash_bwd_dq": 4,
+                        "flash_bwd_dkv": 4}, per_step
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    by_path, results = {}, []
+    tmp = tempfile.mkdtemp(prefix="mesh_moe_")
+    try:
+        n = math.prod(MOE_CARD_MESHES[0])
+        spawned = spawned or run_card_ranks(tmp, None, [
+            (n, tuple(("moe", x) for x in MOE_CARD_MESHES))])
+        free_memory()
+        t0 = time.perf_counter()
+        one, one_launches, _, _, one_peak, one_ms, one_drops = _moe_run(
+            Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS,
+                                                  log_every=1), device=DEV))
+        assert one_launches == {k: TP_STEPS * v
+                                for k, v in per_step.items()}, one_launches
+        emit("mesh_moe_one_device", gpu=smi, arch=cfg.name,
+             n_layers=cfg.n_layers, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+             log=one, drops=one_drops, step_ms=one_ms,
+             peak_gb=one_peak / 1e9, seconds=time.perf_counter() - t0)
+        free_memory()
+        for d, m in MOE_CARD_MESHES:
+            r = spawned["moe", (d, m)]
+            spawn_s = r["seconds"]
+            assert r["backend"] == "gloo", r["backend"]
+            want = {k: TP_STEPS * v for k, v in per_step.items()}
+            assert all(x == want for x in r["launches_by_rank"]), r
+            launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                        for k in per_step}
+            rows, heads = TRAIN_BATCH // d, cfg.n_heads_padded // m
+            seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
+                    for rank_geos in r["geometries_by_rank"]
+                    for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
+            geometries = check_path_attention(
+                f"mesh_moe ({d}, {m})", seen, rows, heads, 410 + n, results)
+            got_log = r["log"]
+            rel = {k: abs(got_log[0][k] - one[0][k]) / abs(one[0][k])
+                   for k in ("loss", "ce", "aux")}
+            assert max(rel.values()) <= MOE_LOSS_REL[d, m], (rel, got_log,
+                                                             one)
+            cond = r["conditioned"]
+            cond_rel = {k: abs(cond["tp"][k] - cond["one"][k])
+                        / abs(cond["one"][k]) for k in ("loss", "grad_norm")}
+            assert cond_rel["loss"] <= TP_LOSS_REL, cond
+            assert cond_rel["grad_norm"] <= TP_GRAD_REL, cond
+            fp32_rel = [max(abs(row["tp"][k] - row["one"][k])
+                            / abs(row["one"][k])
+                            for k in ("loss", "grad_norm"))
+                        for row in r["fp32"]]
+            assert max(fp32_rel) <= TP_FP32_REL, r["fp32"]
+            # the ranks of one data coordinate route the same tokens
+            by_data = [r["drops_by_rank"][i:i + m] for i in range(0, n, m)]
+            assert all(b == b[:1] * m for b in by_data), r["drops_by_rank"]
+            drops = [sum(b[0][i] for b in by_data) for i in range(TP_STEPS)]
+            assert drops == one_drops, (drops, one_drops, r["drops_by_rank"])
+            st = dryrun.count_step(
+                cfg, ShapeConfig("train_4x2048", TRAIN_SEQ, TRAIN_BATCH,
+                                 "train"), make_mesh(d, m), target="cuda")
+            got = {k: v / TP_STEPS for k, v in pc.by_kind(
+                r["collectives"]).items()}
+            got["all-reduce"] -= pc.norm_bytes(d, m) \
+                + pc.metric_bytes(3, 4, d) * m
+            want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
+            assert set(got) == set(want_bytes) and all(
+                abs(got[k] - want_bytes[k]) <= n for k in got), (
+                    got, want_bytes)
+            steady = [statistics.mean(x[1:]) for x in r["step_ms_by_rank"]]
+            emit("mesh_moe", gpu=smi, arch=cfg.name, mesh=[d, m], ranks=n,
+                 backend=r["backend"], n_layers=cfg.n_layers,
+                 batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TP_STEPS,
+                 log=got_log, one_device_log=one, first_step_rel=rel,
+                 conditioned=cond, conditioned_rel=cond_rel,
+                 fp32_witness=r["fp32"], fp32_rel=fp32_rel,
+                 drops_by_rank=r["drops_by_rank"], drops=drops,
+                 one_device_drops=one_drops, launches=launches,
+                 launches_per_rank_step=per_step, geometries=geometries,
+                 rows_per_launch=rows, heads_per_launch=heads,
+                 collectives=r["collectives"], bytes_per_step=got,
+                 count_step_bytes=want_bytes,
+                 step_ms_by_rank=r["step_ms_by_rank"],
+                 steady_step_ms_by_rank=steady,
+                 peak_gb_by_rank=r["peak_gb_by_rank"],
+                 one_device_step_ms=one_ms,
+                 one_device_peak_gb=one_peak / 1e9, seconds=spawn_s)
+            by_path[f"mesh_moe ({d}, {m})"] = launches
+            free_memory()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("mesh_moe_done", seconds=time.perf_counter() - t_phase)
     return by_path
 
 
@@ -5411,8 +5714,9 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     counts by path (the quickstart per arch, ``kernel_bench``,
     ``multiprecision``, ``attention_long``'s rows and gates), phases 33
     and 35's (``mesh_pipeline``, ``mesh_train``), phase 37's counted
-    step (``dryrun``) and phase 38's NCCL step, summed over its ranks
-    (``mesh_processes``): every row adds those that launched it."""
+    step (``dryrun``), phase 38's NCCL step, summed over its ranks
+    (``mesh_processes``), and phases 39-41's steps, summed over their
+    ranks: every row adds those that launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -5561,6 +5865,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    _T0.append(t_start)
     smi = phase_env()
     phase_build()
     results, timed = phase_kernels()
@@ -5614,9 +5919,13 @@ def main():
     tmp = tempfile.mkdtemp(prefix="one_device_")
     try:
         one = one_device_record(tmp)       # phases 39 and 40 hold to it
-        surface.update(phase_mesh_tensor_parallel(smi, one))  # fresh
-        free_memory()                                         # processes
-        surface.update(phase_mesh_fsdp(smi, one))
+        free_memory()
+        spawned = run_card_ranks(tmp, one[1])   # phases 39-41's ranks
+        surface.update(phase_mesh_tensor_parallel(smi, one, spawned))
+        free_memory()
+        surface.update(phase_mesh_fsdp(smi, one, spawned))
+        free_memory()
+        surface.update(phase_mesh_moe(smi, spawned))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -57,9 +57,13 @@ all-reduced backward) at the input of a product split by columns,
 :func:`reduce_from` (all-reduce forward, identity backward) after one
 split by rows; :func:`reduce_over` and :func:`gather_over` all-reduce and
 all-gather a tensor outside autograd (the vocab-parallel cross-entropy's
-terms, the serve steps' logits), and :func:`gather_from` is FSDP's
+terms, the serve steps' logits), :func:`gather_from` is FSDP's
 gather of a parameter's blocks (an all-gather forward, a reduce-scatter
-of the cotangent backward).
+of the cotangent backward), and :func:`gather_blocks` gathers each
+rank's rows of a small tensor (the MoE dispatch's per-expert counts).
+On the stacked route, whose one device holds what every rank holds,
+:func:`copy_to`, :func:`reduce_from` and :func:`gather_blocks` move
+nothing and count what the ranks would move.
 
 **Counts.** Each collective adds one to ``CALLS[kind]`` and, to
 ``BYTES[kind]``, the bytes that a real mesh moves over its links for that
@@ -562,23 +566,64 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
-def copy_to(x, mesh: ProcessMesh, axis: str = "model"):
+class _Counted(torch.autograd.Function):
+    """The stacked route's :func:`copy_to` / :func:`reduce_from`: the
+    identity both ways (one device holds the sum of the ranks' partial
+    products whole), the all-reduce counted in the forward or, with
+    ``backward``, in the backward, as a process mesh's ranks run it."""
+
+    @staticmethod
+    def forward(ctx, x, nbytes, backward):
+        if not backward:
+            _count("psum", nbytes)
+        ctx.nbytes = nbytes if backward else 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.nbytes:
+            _count_backward("psum", ctx.nbytes)
+        return g, None, None
+
+
+def _counted(x, mesh, axis, share, backward):
+    """:class:`_Counted` on a stacked mesh: every device moves a ring
+    all-reduce of ``share`` of ``x`` over ``axis`` (summed over the
+    devices); nothing for an axis of one."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    nbytes = math.prod(mesh.sizes) * 2 * (n - 1) / n * share * x.numel() \
+        * x.element_size()
+    return _Counted.apply(x, nbytes, backward)
+
+
+def copy_to(x, mesh, axis: str = "model", share: float = 1.0):
     """Outside a body, on a process mesh: Megatron's ``f`` at the input of
     a product split by columns over ``axis``. The identity forward; its
     backward all-reduces the cotangent (each rank's holds the part of its
     own columns), counted as :func:`psum`'s backward counts. A group of one
-    is the identity both ways and counts nothing."""
+    is the identity both ways and counts nothing. On a stacked mesh (a
+    step whose count, ``core.step_analysis``, stands for the ranks'): the
+    identity both ways, the backward's all-reduce counted as the ranks run
+    it, each rank holding ``share`` of ``x``."""
+    if not is_process_mesh(mesh):
+        return _counted(x, mesh, axis, share, backward=True)
     if _ring(mesh, axis)[1] == 1:
         return x
     return _CopyTo.apply(x, mesh, axis)
 
 
-def reduce_from(x, mesh: ProcessMesh, axis: str = "model"):
+def reduce_from(x, mesh, axis: str = "model", share: float = 1.0):
     """Outside a body, on a process mesh: Megatron's ``g`` after a product
     split by rows over ``axis`` (each rank holds a partial sum). The
     all-reduce forward, counted as :func:`psum` counts a call on a process;
     the identity backward (the cotangent is replicated). A group of one is
-    the identity both ways and counts nothing."""
+    the identity both ways and counts nothing. On a stacked mesh: the
+    identity both ways, the forward's all-reduce counted as the ranks run
+    it, each rank holding ``share`` of ``x``."""
+    if not is_process_mesh(mesh):
+        return _counted(x, mesh, axis, share, backward=False)
     if _ring(mesh, axis)[1] == 1:
         return x
     return _ReduceFrom.apply(x, mesh, axis)
@@ -607,6 +652,25 @@ def gather_over(x, mesh: ProcessMesh, axis: str, dim: int = -1):
         return x
     _count("all_gather", (n - 1) * x.numel() * x.element_size())
     return torch.cat(_gather_parts(x, group, n), dim=dim)
+
+
+def gather_blocks(x, mesh, axes):
+    """Outside a body: every block's rows of ``x`` over ``axes`` (a tuple
+    of the mesh's axes, the first the major one), concatenated along
+    dimension 0 in block order, on every rank; not differentiable. On a
+    process mesh ``x`` holds the rank's own rows (:func:`gather_over`: one
+    counted all-gather; a group of one moves and counts nothing). On a
+    stacked mesh the caller holds every block, so ``x`` already holds
+    every block's rows: it is returned as it is, and the all-gather that
+    the ranks of a process mesh run for it is counted, summed over the
+    devices (each device moves ``n - 1`` of the blocks)."""
+    if is_process_mesh(mesh):
+        return gather_over(x, mesh, axes, dim=0)
+    n = math.prod(mesh.shape[a] for a in axes)
+    if n > 1:
+        _count("all_gather", math.prod(mesh.sizes) * (n - 1) * x.numel()
+               // n * x.element_size())
+    return x
 
 
 class _GatherFrom(torch.autograd.Function):

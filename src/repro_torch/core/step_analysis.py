@@ -52,7 +52,10 @@ backward and the optimizer, and counts:
      dimension never carries ``model``. The port has no partitioner, so
      this stands in for the collectives that the reference's GSPMD
      inserts; inside a ``shard_map`` body the collectives are explicit and
-     nothing is derived.
+     nothing is derived, and so inside an :func:`explicit` scope (the
+     one-hot MoE dispatch's expert products, whose ``model`` all-reduces
+     of a buffer that each data rank holds whole ``core/compat.py``'s
+     ``copy_to`` / ``reduce_from`` count on the stacked route).
 
 Where a partitioner reshards what the port cannot derive, the count is
 known short, and where it splits products unevenly, the port's FLOPs a

@@ -14,8 +14,8 @@ Under ``torchrun`` (``WORLD_SIZE`` in the environment) ``--data D --model
 M`` takes a mesh of processes instead (``launch.mesh.make_process_mesh``:
 NCCL on the cards, gloo with ``--device cpu``) and trains data-parallel
 over ``data``, each rank on its block of the batch, and, for the dense
-family at M > 1, tensor-parallel over ``model``, each rank on its blocks
-of the parameters; the kernels are built by each machine's local rank 0
+family and the MoE family without MLA at M > 1, tensor-parallel over
+``model``, each rank on its blocks of the parameters; the kernels are built by each machine's local rank 0
 while the others wait, and only rank 0 prints and writes checkpoints (the
 whole state, gathered):
 

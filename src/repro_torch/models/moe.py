@@ -2,10 +2,15 @@
 
 1. ``moe_dense_dispatch`` routes every token to its top-k experts (softmax
    router, renormalised gates), gives each expert ``capacity`` slots per
-   group of tokens, claimed slot-major (the first choice of every token
-   before any second choice), drops what does not fit, and combines the
-   experts' outputs with the gates. Used for small token counts, for
-   configs whose experts do not divide the lanes, and without a mesh.
+   group of tokens, claimed in token order, drops what does not fit, and
+   combines the experts' outputs with the gates. Used for small token
+   counts, for configs whose experts do not divide the lanes, and without
+   a mesh. On a mesh of processes whose ranks each hold a block of the
+   batch's rows (the train step's), the group and the aux loss are still
+   the global batch's: the ranks gather each other's per-expert counts,
+   and each claims its slots after the ranks before it; with ``model >
+   1`` each rank runs its ``experts_ffn`` block of every expert
+   (Megatron's pairing, as the dense FFN).
 2. ``moe_ep_shard_map``: expert parallelism — experts sharded over the
    mesh's ``model`` (lane) axis, tokens over every axis, moved to the lane
    that owns their expert by ``all_to_all``, computed there and moved back,
@@ -19,6 +24,7 @@ classic router, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
@@ -34,6 +40,17 @@ from repro_torch.models.sharding import MeshCtx
 
 DENSE_PATH_MAX_TOKENS = 16384   # below this, one-hot dispatch is cheaper
 EP_CHUNK_TOKENS = 8192          # strip-mine unit for the EP a2a pipeline
+# a list to which each one-hot dispatch appends (pairs, kept) of the
+# tokens it holds: the int count of token-choice pairs and a 0-d device
+# tensor of those that found a slot (the rest are dropped); a checkpoint's
+# recompute appends nothing. None: nothing is recorded.
+DISPATCH_LOG: Optional[list] = None
+
+
+def dropped_pairs(log) -> int:
+    """The pairs that the dispatches of a ``DISPATCH_LOG`` list dropped
+    (it reads each kept count: a wait for the device)."""
+    return int(sum(n - float(kept) for n, kept in log))
 
 
 def moe_template(cfg: ArchConfig) -> dict:
@@ -64,9 +81,9 @@ def moe_template(cfg: ArchConfig) -> dict:
     return t
 
 
-def _route(x_tokens, router_w, top_k: int, n_experts: int):
-    """x (...,T,d) -> gates (...,T,k), ids (...,T,k) int32, aux loss (...)
-    fp32; leading dimensions (the devices of a mesh's stacks) route
+def _topk(x_tokens, router_w, top_k: int):
+    """x (...,T,d) -> probs (...,T,E), gates (...,T,k), ids (...,T,k)
+    int64; leading dimensions (the devices of a mesh's stacks) route
     independently.
 
     The top k are taken by a stable descending sort, so that equal
@@ -79,23 +96,47 @@ def _route(x_tokens, router_w, top_k: int, n_experts: int):
     gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, ids = gates[..., :top_k], ids[..., :top_k]
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-    # Switch aux loss: E * sum_e f_e * P_e
-    lead = ids.shape[:-2]
-    flat = ids.reshape(lead + (-1,))
-    f = torch.zeros(lead + (n_experts,), dtype=wide, device=x_tokens.device)
-    f = f.scatter_add(-1, flat, torch.ones_like(flat, dtype=wide))
+    return probs, gates, ids
+
+
+def _expert_counts(ids, n_experts: int):
+    """ids (...,T,k) -> the pairs each expert was chosen for (...,E),
+    int32."""
+    flat = ids.reshape(ids.shape[:-2] + (-1,)).long()
+    counts = torch.zeros(flat.shape[:-1] + (n_experts,), dtype=torch.int32,
+                         device=ids.device)
+    return counts.scatter_add(-1, flat, torch.ones_like(flat,
+                                                        dtype=torch.int32))
+
+
+def _switch_aux(counts, probs, n_experts: int):
+    """The Switch aux loss ``E * sum_e f_e * P_e``: ``f`` the share of the
+    pairs ``counts`` (...,E) gives each expert, ``P`` the router's mean
+    probability over the tokens of ``probs`` (...,T,E)."""
+    f = counts.to(probs.dtype)
     f = f / f.sum(dim=-1, keepdim=True).clamp_min(1.0)
-    aux = n_experts * torch.sum(f * probs.mean(dim=-2), dim=-1)
+    return n_experts * torch.sum(f * probs.mean(dim=-2), dim=-1)
+
+
+def _route(x_tokens, router_w, top_k: int, n_experts: int):
+    """x (...,T,d) -> gates (...,T,k), ids (...,T,k) int32, aux loss (...)
+    fp32 (:func:`_topk`, then :func:`_switch_aux` over these tokens)."""
+    probs, gates, ids = _topk(x_tokens, router_w, top_k)
+    aux = _switch_aux(_expert_counts(ids, n_experts), probs, n_experts)
     return gates, ids.to(torch.int32), aux
 
 
-def _dispatch_combine(ids, gates, group_len, top_k, n_experts, capacity):
+def _dispatch_combine(ids, gates, group_len, top_k, n_experts, capacity,
+                      offset=None):
     """Build the (Sg, E, C) dispatch (0/1) and combine (gated) tensors of
     one group from its ids and gates (Sg, k); leading dimensions before
     them are groups, computed at once. Token-choice pairs claim an expert's
-    slots in slot-major order (all first choices, then all second choices,
-    ...); a pair whose slot index reaches ``capacity`` is dropped: its slot
-    one-hot is all zeros.
+    slots in token order (a token's own choices are of distinct experts);
+    a pair whose slot index reaches ``capacity`` is dropped: its slot
+    one-hot is all zeros. ``offset`` (E,): the slots of each expert that
+    the group's earlier tokens, held elsewhere, have claimed (a group
+    spanning the ranks of a process mesh); the pairs here claim the slots
+    after them.
 
     The reference forms the (Sg, k, E, C) product of the two one-hots and
     sums over k; here one product over k does both (``einsum``). A token
@@ -105,8 +146,10 @@ def _dispatch_combine(ids, gates, group_len, top_k, n_experts, capacity):
     dev, lead = ids.device, ids.shape[:-2]
     sel = (ids.long()[..., None]
            == torch.arange(n_experts, device=dev)).to(gates.dtype)  # (Sg,k,E)
-    flat = sel.reshape(lead + (group_len * top_k, n_experts))      # slot-major
+    flat = sel.reshape(lead + (group_len * top_k, n_experts))    # token-major
     pos = torch.cumsum(flat, dim=-2) - flat                         # (P,E)
+    if offset is not None:
+        pos = pos + offset.to(pos.dtype)
     pos_sel = torch.sum(flat * pos, dim=-1).to(torch.int64)         # (P,)
     slot_oh = (pos_sel[..., None] == torch.arange(capacity, device=dev)
                ).to(gates.dtype).reshape(lead + (group_len, top_k,
@@ -117,13 +160,58 @@ def _dispatch_combine(ids, gates, group_len, top_k, n_experts, capacity):
     return dispatch, combine
 
 
+NO_BLOCKS = (None, (), 1, 1)
+
+
+def row_blocks(ctx: Optional[MeshCtx], rows: int) -> tuple:
+    """(mesh, axes, n, held) of ``rows`` batch rows on ``ctx``: the batch
+    axes that split them into ``n`` blocks (those of the mesh that divide
+    the global rows, as the reference's sanitized batch spec keeps them;
+    on a process mesh those declared local, along which each rank holds
+    its own block, as the train step declares them), and how many blocks
+    the caller holds: 1 on a process mesh, all ``n`` on the stacked route
+    (the global batch). :data:`NO_BLOCKS` on one device."""
+    if ctx is None or ctx.mesh is None:
+        return NO_BLOCKS
+    mesh = ctx.mesh
+    if compat.is_process_mesh(mesh):
+        axes = tuple(a for a in ctx.batch_axes if a in mesh.local)
+        held = 1
+    else:
+        axes = tuple(a for a in ctx.batch_axes if a in ctx.axis_sizes)
+        held = math.prod(ctx.axis_sizes[a] for a in axes)
+        if rows % held:
+            return NO_BLOCKS
+    n = math.prod(ctx.axis_sizes[a] for a in axes)
+    return (mesh, axes, n, held) if n > 1 else NO_BLOCKS
+
+
 def moe_dense_dispatch(cfg: ArchConfig, p: dict, x_tokens, *,
-                       group_size: Optional[int] = None):
+                       group_size: Optional[int] = None,
+                       ctx: Optional[MeshCtx] = None, rows: int = 1,
+                       tp=None):
     """x_tokens (T, d) -> (T, d), aux. Grouped one-hot dispatch: tokens form
-    groups of ``group_size`` (default: one group, or groups of 64 above
-    DENSE_PATH_MAX_TOKENS tokens), each with ``max(int(sg*k*cf/E), k)``
-    slots per expert. Only the first ``n_experts`` rows of the (padded)
-    expert tables are used."""
+    groups of ``group_size`` (default: one group of the global batch, or
+    groups of 64 above DENSE_PATH_MAX_TOKENS global tokens), each with
+    ``max(int(sg*k*cf/E), k)`` slots per expert. Only the first
+    ``n_experts`` rows of the (padded) expert tables are used.
+
+    ``ctx``: the mesh context; ``rows``: the batch rows the tokens came
+    from. Where the rows are split over batch axes (:func:`row_blocks`),
+    every block's per-expert pair counts are gathered (``compat.gather_blocks``:
+    an all-gather of an (E,) int32 vector on a process mesh, counted on
+    the stacked route as the ranks would move it): the aux loss's ``f``
+    is the global batch's, ``P`` the mean over these tokens (the mean of
+    the ranks' aux is then the global one, value and gradient, the blocks
+    being equal). On a process mesh a group that spans the ranks (the one
+    group) keeps a pair where its slot, after the slots that the blocks
+    before the rank's claimed, is below the group's capacity: the
+    reference's one group exactly, each rank computing its own tokens;
+    groups of 64 must lie inside the rank's rows. ``tp``
+    (``models.sharding.TensorParallel``): ``p`` holds the rank's
+    ``experts_ffn`` columns of ``w_gate`` / ``w_up`` and rows of
+    ``w_down``; Megatron's ``copy_to`` at each column-split product's
+    input, ``reduce_from`` on the (G,E,C,d) buffer after ``w_down``."""
     m = cfg.moe
     t_len, d = x_tokens.shape
     act = activation_fn(cfg.activation)
@@ -131,35 +219,92 @@ def moe_dense_dispatch(cfg: ArchConfig, p: dict, x_tokens, *,
     # and splits its products unevenly; the dry run's count cannot
     step_analysis.short("collective: moe one-hot dispatch resharded")
     step_analysis.short("flops: even split of the moe dispatch")
-    gates, ids, aux = _route(x_tokens, p["router"], m.top_k, m.n_experts)
+    probs, gates, ids = _topk(x_tokens, p["router"], m.top_k)
+    mesh, axes, n_blocks, held = row_blocks(ctx, rows)
+    if n_blocks > 1:
+        # the pairs of each block held here, then of every block
+        every = compat.gather_blocks(_expert_counts(
+            ids.reshape(held, t_len // held, m.top_k), m.n_experts), mesh,
+            axes)
+        counts = every.sum(dim=0)
+    else:
+        every, counts = None, _expert_counts(ids, m.n_experts)
+    aux = _switch_aux(counts, probs, m.n_experts)
 
-    sg = group_size or min(t_len,
-                           64 if t_len > DENSE_PATH_MAX_TOKENS else t_len)
+    n_tokens = t_len * n_blocks // held              # the global batch's
+    sg = group_size or min(n_tokens, 64 if n_tokens > DENSE_PATH_MAX_TOKENS
+                           else n_tokens)
+    capacity = max(int(sg * m.top_k * m.capacity_factor / m.n_experts),
+                   m.top_k)
+    # a group wider than a block spans the blocks: each rank holds the
+    # whole of its buffer (else its share of the groups)
+    spans = n_blocks > 1 and sg > t_len // held
+    offset = None
+    if spans and held == 1:
+        if sg != n_tokens:
+            raise ValueError(f"moe_dense_dispatch: groups of {sg} tokens "
+                             f"do not lie in a rank's {t_len}")
+        # one group over the ranks: the slots that the blocks before this
+        # one claimed (``every`` is in the group's rank order)
+        mine = mesh.block(axes)
+        before = torch.tensor([mesh.block(axes, r) < mine
+                               for r in mesh.group(axes)[1]],
+                              device=every.device)
+        offset = every[before].sum(dim=0)
+        sg = t_len
     n_groups = -(-t_len // sg)
     if n_groups * sg != t_len:
         raise ValueError(f"moe_dense_dispatch: {t_len} tokens do not form "
                          f"whole groups of {sg}")
-    capacity = max(int(sg * m.top_k * m.capacity_factor / m.n_experts),
-                   m.top_k)
 
     xg = x_tokens.reshape(n_groups, sg, d)
     idsg = ids.reshape(n_groups, sg, m.top_k)
     gatesg = gates.reshape(n_groups, sg, m.top_k)
     dispatch, combine = _dispatch_combine(idsg, gatesg, sg, m.top_k,
-                                          m.n_experts, capacity)
+                                          m.n_experts, capacity, offset)
+    if DISPATCH_LOG is not None \
+            and torch._C._current_autograd_node() is None:
+        DISPATCH_LOG.append((t_len * m.top_k, dispatch.detach().sum()))
     dispatch = dispatch.to(x_tokens.dtype)
     combine = combine.to(x_tokens.dtype)
 
-    w_gate = p["w_gate"][:m.n_experts]
-    w_up = p["w_up"][:m.n_experts]
-    w_down = p["w_down"][:m.n_experts]
     buf = torch.einsum("gsec,gsd->gecd", dispatch, xg)           # (G,E,C,d)
-    gate_h = torch.einsum("gecd,edf->gecf", buf, w_gate.to(buf.dtype))
-    up_h = torch.einsum("gecd,edf->gecf", buf, w_up.to(buf.dtype))
-    hidden = act(gate_h) * up_h
-    out_buf = torch.einsum("gecf,efd->gecd", hidden, w_down.to(buf.dtype))
+    into, out, scope = _around_experts(cfg, ctx, tp,
+                                       1.0 if spans else 1 / n_blocks)
+    with scope:
+        w_gate = p["w_gate"][:m.n_experts]
+        w_up = p["w_up"][:m.n_experts]
+        w_down = p["w_down"][:m.n_experts]
+        gate_h = torch.einsum("gecd,edf->gecf", into(buf),
+                              w_gate.to(buf.dtype))
+        up_h = torch.einsum("gecd,edf->gecf", into(buf), w_up.to(buf.dtype))
+        hidden = act(gate_h) * up_h
+        out_buf = out(torch.einsum("gecf,efd->gecd", hidden,
+                                   w_down.to(buf.dtype)))
     y = torch.einsum("gsec,gecd->gsd", combine, out_buf)
     return y.reshape(t_len, d), aux
+
+
+def _around_experts(cfg: ArchConfig, ctx: Optional[MeshCtx], tp,
+                    share: float) -> tuple:
+    """(into, out, scope) around the one-hot dispatch's expert products:
+    Megatron's ``copy_to`` / ``reduce_from`` on a tensor-parallel rank
+    (``tp``); on the stacked route with the experts' FFN split over a
+    model axis above 1, ``core.compat``'s counted identities (each rank
+    holding ``share`` of the buffer) inside ``step_analysis.explicit``, so
+    that a count of the step takes the ranks' all-reduces of the whole
+    buffer in place of the ones it would derive for a buffer split over
+    the batch axes; identities elsewhere."""
+    if tp is not None:
+        return tp.copy, tp.reduce, contextlib.nullcontext()
+    if ctx is not None and ctx.mesh is not None and ctx.n_lanes > 1 \
+            and not cfg.moe.expert_parallel \
+            and not compat.is_process_mesh(ctx.mesh):
+        mesh, axis = ctx.mesh, ctx.model_axis
+        return (lambda t: compat.copy_to(t, mesh, axis, share),
+                lambda t: compat.reduce_from(t, mesh, axis, share),
+                step_analysis.explicit())
+    return (lambda t: t), (lambda t: t), contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -307,30 +452,47 @@ def moe_ep_shard_map(cfg: ArchConfig, p: dict, x_tokens, ctx: MeshCtx):
 # ---------------------------------------------------------------------------
 
 
-def moe_block(cfg: ArchConfig, p: dict, x, ctx: Optional[MeshCtx] = None):
+def moe_block(cfg: ArchConfig, p: dict, x, ctx: Optional[MeshCtx] = None,
+              tp=None):
     """x (B,S,d) -> (B,S,d), aux_loss. The reference's gate: the
     expert-parallel route under a mesh of more than one lane whose lanes
     divide the (padded) experts, for at least ``DENSE_PATH_MAX_TOKENS``
-    tokens that the mesh divides; the one-hot dispatch otherwise. The
-    shared experts, where the config has them, are one gated-SiLU MLP added
-    to every token (SiLU whatever ``cfg.activation`` is, as in the
-    reference)."""
+    tokens of the global batch that the mesh divides; the one-hot dispatch
+    otherwise (on a process mesh whose batch axes are local, the rank's
+    rows of the global batch: see :func:`moe_dense_dispatch`). The shared
+    experts, where the config has them, are one gated-SiLU MLP added to
+    every token (SiLU whatever ``cfg.activation`` is, as in the
+    reference). ``tp``: the rank's ``models.sharding.TensorParallel`` (its
+    blocks of ``p``), or None. On a process mesh the expert-parallel route
+    raises ``NotImplementedError`` where the rank holds blocks of the
+    expert tables or of the batch."""
     m = cfg.moe
     b, s, d = x.shape
     x_tokens = x.reshape(b * s, d)
+    blocks = row_blocks(ctx, b)
+    n_tokens = b * s * blocks[2] // blocks[3]       # the global batch's
     n_dev = math.prod(ctx.axis_sizes.values()) if ctx and ctx.mesh else 1
     ep_capable = m.expert_parallel or m.pad_experts_to > 0
     use_ep = (
         ctx is not None and ctx.mesh is not None and ep_capable
         and m.n_experts_padded % max(ctx.n_lanes, 1) == 0 and ctx.n_lanes > 1
-        and b * s >= DENSE_PATH_MAX_TOKENS
-        and (b * s) % n_dev == 0 and (b * s) // n_dev >= 1
+        and n_tokens >= DENSE_PATH_MAX_TOKENS
+        and n_tokens % n_dev == 0 and n_tokens // n_dev >= 1
     )
+    if use_ep and compat.is_process_mesh(ctx.mesh) \
+            and (tp is not None or blocks[2] > 1):
+        raise NotImplementedError(
+            f"{cfg.name} on a process mesh: {n_tokens} tokens at "
+            f"{ctx.model_axis}={ctx.n_lanes} take the expert-parallel route, "
+            f"which needs each rank's experts_ffn blocks re-laid as experts "
+            f"blocks; the EP route in training over processes (ROADMAP "
+            f"Queue A, A13c item 2.3b) is not ported")
     if use_ep:
         y, aux = moe_ep_shard_map(cfg, p, x_tokens, ctx)
     else:
-        y, aux = moe_dense_dispatch(cfg, p, x_tokens)
+        y, aux = moe_dense_dispatch(cfg, p, x_tokens, ctx=ctx, rows=b,
+                                    tp=tp)
     y = y.reshape(b, s, d)
     if "shared" in p:
-        y = y + mlp(p["shared"], x, "silu")
+        y = y + mlp(p["shared"], x, "silu", tp)
     return y, aux

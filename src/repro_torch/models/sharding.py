@@ -205,11 +205,16 @@ def gather_params(tree, specs, mesh):
 class TensorParallel:
     """The ``model`` axis of a process mesh, as a rank's forward sees it:
     the rank holds its block of every leaf that the axis splits (heads,
-    kv heads, ffn, vocab), and Megatron's operators join the blocks'
-    products (``core.compat.copy_to`` at the input of a product split by
-    columns, ``reduce_from`` after one split by rows)."""
+    kv heads, ffn, the experts' ffn, vocab), and Megatron's operators join
+    the blocks' products (``core.compat.copy_to`` at the input of a
+    product split by columns, ``reduce_from`` after one split by rows).
+    ``vocab``: whether the axis splits the vocab; where it does not divide
+    it, the rank holds the table (and the head) whole, as the reference's
+    sanitized spec replicates it, and the lookup, the head and the
+    cross-entropy are unsplit."""
     mesh: object
     axis: str = "model"
+    vocab: bool = True
 
     @property
     def size(self) -> int:
@@ -237,24 +242,41 @@ class TensorParallel:
         return self.index * local
 
 
+def vocab_split(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
+    """``tp`` where it splits the vocab, else None (one device, or the
+    table whole on every rank)."""
+    return tp if tp is not None and tp.vocab else None
+
+
+def _tp_family(cfg: ArchConfig) -> bool:
+    """Whether the tensor-parallel route over processes runs ``cfg``: the
+    dense family, and the MoE family without MLA whose experts' FFN the
+    model axis splits (``expert_parallel=False``: the one-hot dispatch,
+    each expert's FFN split as the dense FFN)."""
+    return cfg.family == "dense" or (cfg.is_moe and not cfg.use_mla
+                                     and not cfg.moe.expert_parallel)
+
+
 def tensor_parallel(cfg: ArchConfig,
                     ctx: Optional[MeshCtx]) -> Optional[TensorParallel]:
     """The rank's :class:`TensorParallel` where ``ctx`` holds a process mesh
-    whose model axis is above 1 and ``cfg`` is of the dense family; None
+    whose model axis is above 1 and ``cfg`` is of the dense family or a
+    MoE model without MLA whose experts' FFN the axis splits; None
     otherwise (one device, the stacked route, a data-parallel mesh of
     processes, or another family, whose forward on a process mesh keeps
     the global parameters and runs its ``shard_map`` bodies over the
     processes: MLA's lane-local prefill)."""
     if ctx is None or not compat.is_process_mesh(ctx.mesh) \
-            or ctx.n_lanes == 1 or cfg.family != "dense":
+            or ctx.n_lanes == 1 or not _tp_family(cfg):
         return None
-    return TensorParallel(ctx.mesh, ctx.model_axis)
+    return TensorParallel(ctx.mesh, ctx.model_axis,
+                          vocab=cfg.vocab_size % ctx.n_lanes == 0)
 
 
 # which queue item ports each other family's tensor-parallel train step
 TP_QUEUE = {
-    "moe": "the EP and MLA steps over processes (ROADMAP Queue A, A13c "
-           "item 2.3)",
+    "moe": "MLA under model, FSDP of the MoE family and the EP route over "
+           "processes (ROADMAP Queue A, A13c item 2.3b)",
     "ssm": "the SSM and hybrid blocks under model over processes (ROADMAP "
            "Queue A, A13c item 2.6)",
     "vlm": "the cross layers under model over processes (ROADMAP Queue A, "
@@ -263,29 +285,47 @@ TP_QUEUE = {
 TP_QUEUE.update(hybrid=TP_QUEUE["ssm"], audio=TP_QUEUE["vlm"])
 
 
+def _split_widths(cfg: ArchConfig) -> dict:
+    """The widths of ``cfg``'s leaves that the model axis splits (the kv
+    heads and the vocab aside): heads, the dense FFN's columns where the
+    model has dense FFNs, and the experts' and shared experts'."""
+    out = {"heads": cfg.n_heads_padded}
+    if not cfg.is_moe:
+        out["ffn"] = cfg.d_ff
+        return out
+    m = cfg.moe
+    if m.n_dense_layers or cfg.mtp_depth:
+        out["ffn"] = m.dense_d_ff or cfg.d_ff
+    out["experts_ffn"] = m.expert_d_ff
+    if m.n_shared_experts:
+        out["shared ffn"] = m.expert_d_ff * m.n_shared_experts
+    return out
+
+
 def check_tensor_parallel(cfg: ArchConfig, ctx: Optional[MeshCtx],
                           cache: bool = False, train: bool = False):
     """Raises ``NotImplementedError``, naming its queue item, for a layout
     that the tensor-parallel route over processes does not take: with
-    ``train`` any family but dense (``TP_QUEUE``); a leaf split over model
-    that the axis does not divide (other than the kv heads, which a rank
-    then reads whole); with ``cache`` a KV cache split over ``kv_seq``.
+    ``train`` any family but dense and MoE without MLA whose experts'
+    FFN the axis splits (``TP_QUEUE``); a leaf split over model that the
+    axis does not divide (other than the kv heads, which a rank then reads
+    whole, and the vocab, which it then holds whole); with ``cache`` a KV
+    cache split over ``kv_seq``.
     Nothing off a process mesh with a model axis above 1."""
     if ctx is None or not compat.is_process_mesh(ctx.mesh) \
             or ctx.n_lanes == 1:
         return
     m = ctx.n_lanes
     head = f"{cfg.name} with {ctx.model_axis}={m} on a process mesh"
-    if cfg.family != "dense":
+    if not _tp_family(cfg):
         if not train:
             return
-        what = "MLA's latent attention and the MoE layers" if cfg.use_mla \
-            else f"the {cfg.family} family"
+        what = "MLA's latent attention" if cfg.use_mla else \
+            "the experts split over it" if cfg.is_moe else \
+            f"the {cfg.family} family"
         raise NotImplementedError(f"{head}: {what} under the model axis; "
                                   f"{TP_QUEUE[cfg.family]} is not ported")
-    split = {"heads": cfg.n_heads_padded, "ffn": cfg.d_ff,
-             "vocab": cfg.vocab_size}
-    odd = [f"{k} {n}" for k, n in split.items() if n % m]
+    odd = [f"{k} {n}" for k, n in _split_widths(cfg).items() if n % m]
     if odd:
         raise NotImplementedError(
             f"{head}: {', '.join(odd)} do not split over {m} ranks; a rank "

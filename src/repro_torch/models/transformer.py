@@ -35,12 +35,15 @@ with it (``moe.moe_block``) and MLA's prefill its lane-local one
 (``attention.set_mesh_ctx``), each on a mesh held as tensor dimensions on
 one device (``core/compat.py``); everything else is the same math with or
 without a mesh. On a mesh of processes whose ``model`` axis is above 1
-(``models.sharding.tensor_parallel``) the dense family runs
-tensor-parallel on the rank's blocks of the parameters: the lookup into
-its vocab block of the embedding, masked and all-reduced; the attention
-heads, the FFN columns and the head's vocab columns of its own, between
-Megatron's ``copy_to`` / ``reduce_from``; the logits its vocab block of
-them, and the cross-entropy vocab-parallel (:func:`_ce`). Under FSDP
+(``models.sharding.tensor_parallel``) the dense family and the MoE family
+without MLA run tensor-parallel on the rank's blocks of the parameters:
+the lookup into its vocab block of the embedding, masked and
+all-reduced; the attention heads, the FFN columns (each expert's, in
+``moe.moe_dense_dispatch``) and the head's vocab columns of its own,
+between Megatron's ``copy_to`` / ``reduce_from``; the logits its vocab
+block of them, and the cross-entropy vocab-parallel (:func:`_ce`). Where
+the axis does not divide the vocab, the rank holds the table whole and
+the lookup, the head and the cross-entropy are unsplit. Under FSDP
 (``models.sharding.fsdp_split``: ``cfg.fsdp`` on such a mesh with batch
 axes above 1) the dense family's parameters are the rank's blocks over
 the batch axes as well: each layer gathers its leaves inside the function
@@ -73,7 +76,8 @@ from repro_torch.models.layers import (P, rms_norm, tree_leaves, tree_map,
 from repro_torch.models.mlp import mlp, mlp_template
 from repro_torch.models.moe import moe_block, moe_template
 from repro_torch.models.sharding import (check_fsdp, check_tensor_parallel,
-                                         fsdp_split, tensor_parallel)
+                                         fsdp_split, tensor_parallel,
+                                         vocab_split)
 
 
 # ---------------------------------------------------------------------------
@@ -225,13 +229,14 @@ def dense_block(cfg, p, x, positions, cache=None, causal=True, memory=None,
     return x, new_cache
 
 
-def moe_layer(cfg, p, x, positions, ctx=None, cache=None):
+def moe_layer(cfg, p, x, positions, ctx=None, cache=None, tp=None):
     """Attention + mixture-of-experts FFN. Returns (x, aux, new cache
-    entries or None). ``ctx``: the mesh context (see ``moe.moe_block``)."""
-    a, _, new_cache = _attn_block(cfg, p, x, positions, cache)
+    entries or None). ``ctx``: the mesh context (see ``moe.moe_block``);
+    ``tp``: the rank's ``models.sharding.TensorParallel``, or None."""
+    a, _, new_cache = _attn_block(cfg, p, x, positions, cache, tp=tp)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, aux = moe_block(cfg, p["moe"], h2, ctx)
+    y, aux = moe_block(cfg, p["moe"], h2, ctx, tp)
     return x + y, aux, new_cache
 
 
@@ -326,7 +331,7 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
     # function, so that a checkpoint's recompute gathers them again)
     table = params["embed"] if fs is None else fs.gather_leaf(
         params["embed"], fs.specs["embed"])
-    x = embed_lookup(table, tokens, tp).to(compute_dtype)
+    x = embed_lookup(table, tokens, vocab_split(tp)).to(compute_dtype)
     if not cfg.tie_embeddings:
         del table
 
@@ -382,9 +387,10 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
     def moe(p, x, c):
         """A MoE layer: (x, aux)."""
         if cache is None:
-            return run(lambda x: moe_layer(cfg, p, x, positions,
-                                           mesh_ctx)[:2], x)
-        return moe_layer(cfg, p, x, positions, mesh_ctx, cache=c)[:2]
+            return run(lambda x: moe_layer(cfg, p, x, positions, mesh_ctx,
+                                           tp=tp)[:2], x)
+        return moe_layer(cfg, p, x, positions, mesh_ctx, cache=c,
+                         tp=tp)[:2]
 
     def cross_block(p, x, memory):
         return run(lambda x: _cross_block(cfg, p, x, memory)[0], x)
@@ -479,7 +485,8 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         if head_fn is not None:
             logits = head_fn(x, unembed)
         else:
-            logits = (x if tp is None else tp.copy(x)) @ unembed
+            tv = vocab_split(tp)
+            logits = (x if tv is None else tv.copy(x)) @ unembed
         del norm, unembed
 
     if cache is not None:
@@ -507,7 +514,8 @@ def lm_loss(cfg: ArchConfig, params, batch, ctx=None):
     device). Returns (total, {"ce", "aux"[, "mtp"]})."""
     logits, aux, extras = forward(cfg, params, batch["tokens"], ctx=ctx,
                                   frontend_emb=batch.get("frontend_emb"))
-    loss = _ce(logits, batch["labels"], tensor_parallel(cfg, ctx))
+    loss = _ce(logits, batch["labels"], vocab_split(tensor_parallel(cfg,
+                                                                   ctx)))
     total = loss + 0.01 * aux
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
@@ -592,7 +600,7 @@ def last_logits(cfg: ArchConfig, logits, ctx=None):
     under FSDP, where each rank serves its rows of the batch, then its
     rows all-gathered over the batch axes (one more), so every rank holds
     the global batch's, as the reference's step returns them."""
-    tp = tensor_parallel(cfg, ctx)
+    tp = vocab_split(tensor_parallel(cfg, ctx))
     last = logits[:, -1]
     if tp is not None:
         last = tp.gather(last, dim=-1)

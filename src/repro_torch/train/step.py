@@ -37,10 +37,15 @@ dimension is split over the batch axes too, each leaf is gathered where
 a layer uses it and again for the backward (``models.sharding.Fsdp``),
 its gradient reduce-scattered back to the rank's block, which is divided
 by the batch axes' extent once and kept out of the gradient mean; AdamW
-updates the rank's blocks. A mixture-of-experts model (its routing
-statistics and dispatch groups span the global batch, which a rank's
-block does not), FSDP of the other families, and the other families at
-``model > 1`` raise ``NotImplementedError`` naming their queue item.
+updates the rank's blocks. A mixture-of-experts model without MLA
+trains on (d,1), (1,m) and (d,m): its one-hot dispatch groups and its
+aux loss are the global batch's (``models.moe.moe_dense_dispatch``
+gathers the ranks' per-expert counts), its experts' FFN split over
+``model``, and the mean moves the live experts of a padded table alone
+(:func:`live_slices`). FSDP of the other families, the other families
+at ``model > 1`` (MLA among them), a MoE step in micro-batches over data
+and MoE's expert-parallel route raise ``NotImplementedError`` naming
+their queue item.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
@@ -194,20 +199,42 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
             "opt": {"m": pspecs, "v": pspecs, "step": PS()}}
 
 
-def _check_process_route(cfg: ArchConfig, ctx: MeshCtx):
+def _check_process_route(cfg: ArchConfig, ctx: MeshCtx, grad_accum: int):
     """What the process route trains: the data-parallel step of every
-    family but MoE, and the dense family's tensor-parallel (``model >
-    1``) and FSDP (``fsdp=True``) steps. Anything else raises
-    ``NotImplementedError`` naming its queue item."""
+    family, the dense family's and the MoE family's without MLA
+    tensor-parallel step (``model > 1``), and the dense family's FSDP step
+    (``fsdp=True``). Anything else raises ``NotImplementedError`` naming
+    its queue item, as does a MoE model's step in micro-batches over
+    batch axes above 1: a rank's micro-batch holds other global rows than
+    the one-device step's, and the dispatch group and the aux loss couple
+    them."""
     check_fsdp(cfg, ctx)
     check_tensor_parallel(cfg, ctx, train=True)
-    if cfg.is_moe:
+    n = math.prod(ctx.axis_sizes[a] for a in ctx.batch_axes
+                  if a in ctx.axis_sizes)
+    if cfg.is_moe and grad_accum > 1 and n > 1:
         raise NotImplementedError(
-            f"{cfg.name} on a process mesh: its MoE layers route and "
-            f"group the global batch's tokens (the Switch aux loss, the "
-            f"dispatch capacity), which a rank's block does not hold; the "
-            f"MoE train step over processes (ROADMAP Queue A, A13c item "
-            f"2.3, the EP and MLA steps) is not ported")
+            f"{cfg.name} on a process mesh: grad_accum={grad_accum} over "
+            f"{n} data ranks would route and group each rank's "
+            f"micro-batch, which holds other rows of the global batch than "
+            f"the one-device micro-batch; the MoE step in micro-batches "
+            f"over processes (ROADMAP Queue A, A13c item 2.3b) is not "
+            f"ported")
+
+
+def live_slices(cfg: ArchConfig, tree) -> dict:
+    """A tree over ``tree`` (the parameters or their gradients): the index
+    of each leaf's extent that the step reads, or None where it reads the
+    leaf whole. The one-hot dispatch reads the live experts of a padded
+    table (``models.moe``); the other slots' gradients are identically
+    zero, so the data-parallel mean moves the live ones alone, as the dry
+    run's count and the reference's partitioner reduce them."""
+    live = tree_map(lambda _: None, tree)
+    m = cfg.moe
+    if cfg.is_moe and m.n_experts_padded > m.n_experts:
+        for k in ("w_gate", "w_up", "w_down"):
+            live["layers"]["moe"][k] = (slice(None), slice(0, m.n_experts))
+    return live
 
 
 def cut_axes(specs, mesh) -> dict:
@@ -218,19 +245,24 @@ def cut_axes(specs, mesh) -> dict:
 
 
 def mean_over_batch(grads, metrics: dict, mesh, batch_axes,
-                    scattered=None) -> tuple:
+                    scattered=None, live=None) -> tuple:
     """Each rank's gradients and loss metrics of its block of the batch ->
     the global batch's, on every rank, in place: one
     ``compat.pmean_in_place`` a gradient leaf and one for the metrics
     (stacked in their widest dtype, each cast back). ``scattered``: a tree
     of bools over ``grads``, True where FSDP's reduce-scatter has already
     summed the leaf's gradient over the batch axes (it is divided by their
-    extent, once, and not averaged again)."""
+    extent, once, and not averaged again). ``live``: a tree of indices
+    over ``grads`` (:func:`live_slices`): the extent of each leaf that is
+    averaged (None: the whole leaf)."""
     keys = sorted(metrics)
     wide = functools.reduce(torch.promote_types,
                             (metrics[k].dtype for k in keys))
     stacked = torch.stack([metrics[k].to(wide) for k in keys])
     leaves = list(tree_leaves(grads))
+    if live is not None:
+        leaves = [g if ix is None else g[ix]
+                  for g, ix in zip(leaves, tree_leaves(live))]
     done = [False] * len(leaves) if scattered is None \
         else list(tree_leaves(scattered))
     n = math.prod(mesh.shape[a] for a in entry_axes(tuple(batch_axes)))
@@ -267,9 +299,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
     process = compat.is_process_mesh(ctx.mesh)
     specs = train_state_specs(cfg, ctx)
     abstract = make_train_state_abstract(cfg, opt_cfg)
-    norm = None
+    norm = live = None
     if process:
-        _check_process_route(cfg, ctx)
+        _check_process_route(cfg, ctx, grad_accum)
+        live = live_slices(cfg, abstract["params"])
         ctx = dataclasses.replace(
             ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
     fs = fsdp_split(cfg, ctx)
@@ -299,7 +332,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
             with torch.no_grad():
                 grads, metrics = mean_over_batch(
                     grads, dict(metrics, loss=loss), ctx.mesh,
-                    ctx.batch_axes, scattered)
+                    ctx.batch_axes, scattered, live)
             loss = metrics.pop("loss")
         new_params, new_opt, opt_metrics = adamw.update(
             opt_cfg, grads, state["opt"], params, norm=norm)

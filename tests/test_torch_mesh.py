@@ -217,6 +217,30 @@ for name, arch, dense_max in (("dense", "tinyllama-1.1b", None),
         for key in ("loss", "ce", "aux", "grad_norm"):
             out[f"step_dense_fsdp/m1_{key}"] = np.asarray(m1[key])
 moe_mod.DENSE_PATH_MAX_TOKENS = 16384
+# the MoE family's one-hot step (granite-moe-3b-a800m: 4 experts padded to
+# 48, one dispatch group of the global batch's 64 tokens) on (2,2) and
+# (4,1)
+cfg = reduced(get_config("granite-moe-3b-a800m"), compute_dtype="float32")
+params = init_params(tf.model_template(cfg), jax.random.PRNGKey(0))
+toks = jax.random.randint(jax.random.PRNGKey(1), (4, 16), 0, cfg.vocab_size)
+batch = {"tokens": toks, "labels": jnp.roll(toks, -1, 1)}
+opt = adamw.OptConfig()
+put("step_moe/params", params)
+out["step_moe/tokens"] = np.asarray(toks)
+for tag, mesh_s in (("2x2", mesh22),
+                    ("4x1", make_mesh(4, 1, devices=jax.devices()[:4]))):
+    ctx1 = MeshCtx(mesh=mesh_s, batch_axes=("data",))
+    b1 = step_lib.make_train_step(cfg, opt, ctx1)
+    st_sh = step_lib.named_for(b1.state_specs, b1.abstract_state, mesh_s)
+    bt_sh = step_lib.named_for(b1.batch_specs, batch, mesh_s)
+    with mesh_s:
+        fn = jax.jit(b1.step_fn, in_shardings=(st_sh, bt_sh),
+                     out_shardings=(st_sh, None))
+        _, m1 = fn(jax.device_put({"params": params,
+                                   "opt": adamw.init(opt, params)}, st_sh),
+                   jax.device_put(batch, bt_sh))
+    for key in ("loss", "ce", "aux", "grad_norm"):
+        out[f"step_moe_{tag}/m1_{key}"] = np.asarray(m1[key])
 
 # -- lane-local MLA: prefill and decode on a 1 x 4 mesh --------------------
 mesh14 = make_mesh(1, 4)
@@ -689,6 +713,32 @@ def test_sharded_train_step_matches_reference(ref, name, arch, dense_max,
     n_moe = params["layers"]["moe"]["router"].shape[0] if dense_max else 0
     assert compat.CALLS["all_to_all"] == 3 * n_moe
     assert compat.CALLS["shard_map"] == n_moe
+    _check_shards(tstep.named_for(bundle.state_specs, bundle.abstract_state,
+                                  ctx.mesh), bundle.abstract_state)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)], ids=str)
+def test_sharded_moe_train_step_matches_reference(ref, shape):
+    """granite-moe-3b-a800m reduced (4 experts padded to 48) on a (2,2) and
+    a (4,1) mesh held as tensor dimensions: its one-hot dispatch (one
+    group of the global batch) inside the step, loss, ce and aux within
+    5e-4 and grad norm within 1e-3 of the reference's sharded step, as the
+    dense step."""
+    cfg = reduced(tget("granite-moe-3b-a800m"), compute_dtype="float32")
+    params = _params(ref, "step_moe/params")
+    toks = _t(ref["step_moe/tokens"])
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    opt = adamw.OptConfig()
+    ctx = tsh.MeshCtx(mesh=tmesh.make_mesh(*shape), batch_axes=("data",))
+    bundle = tstep.make_train_step(cfg, opt, ctx)
+    _, m1 = bundle.step_fn({"params": params, "opt": adamw.init(opt, params)},
+                           batch)
+    tag = "x".join(map(str, shape))
+    for key in ("loss", "ce", "aux"):
+        assert abs(float(m1[key]) - float(ref[f"step_moe_{tag}/m1_{key}"])) \
+            < 5e-4, key
+    assert abs(float(m1["grad_norm"])
+               - float(ref[f"step_moe_{tag}/m1_grad_norm"])) < 1e-3
     _check_shards(tstep.named_for(bundle.state_specs, bundle.abstract_state,
                                   ctx.mesh), bundle.abstract_state)
 

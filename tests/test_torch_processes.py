@@ -24,11 +24,18 @@ on (4,1) and (2,2) (float32 step by step at remat "none" and "full",
 float64 through the Trainer, the gathers and reduce-scatters against the
 dry run's count, grad_accum=2, the gathered leaves freed after the
 forward, the other dense configs, checkpoints both ways) and serve steps
-on (2,2); and what the route refuses.
+on (2,2); the MoE family's train step, reduced granite-moe-3b-a800m on
+(4,1), (2,2) and (1,4) (one dispatch group and the Switch aux loss over
+the global batch, the experts' FFN split over model; float32 metrics to
+1e-6 and float64 to 1e-10 step by step, the dropped pairs, the bytes
+against the dry run's count), at capacity factor 0.5, with groups of 64
+by the global count, a vocab of 257 on (1,4) and reduced
+deepseek-v3-671b data-parallel; and what the route refuses.
 The reference runs once a session, in ``tests/test_torch_mesh.py``'s
 subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
 against the tensor-parallel step on the same parameters and tokens, and
-its FSDP step against the port's FSDP step. The
+its FSDP step against the port's FSDP step, and its MoE step on (4,1)
+and (2,2) against the port's MoE step. The
 stacked route and the one-device step are held against it in
 ``tests/test_torch_mesh.py``, ``tests/test_torch_pipeline.py`` and
 ``tests/test_torch_train.py``.
@@ -74,7 +81,13 @@ def res(tmp_path_factory):
                 "metrics": {k: float(ref[f"step_dense/m1_{k}"])
                             for k in ("loss", "ce", "grad_norm")},
                 "metrics_fsdp": {k: float(ref[f"step_dense_fsdp/m1_{k}"])
-                                 for k in ("loss", "ce", "grad_norm")}},
+                                 for k in ("loss", "ce", "grad_norm")},
+                "moe_params": _tree(ref, "step_moe/params"),
+                "moe_tokens": ref["step_moe/tokens"],
+                "moe_metrics": {(d, m): {k: float(ref[
+                    f"step_moe_{d}x{m}/m1_{k}"]) for k in (
+                        "loss", "ce", "aux", "grad_norm")}
+                    for d, m in pc.REFERENCE_MOE}},
                os.path.join(out, pc.REFERENCE_STEP))
     return pc.spawn(out)
 
@@ -157,14 +170,16 @@ def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
 
 
 def test_what_the_process_route_refuses(res):
-    """A wrong world size, MoE, MLA and SSM configs at model > 1, a KV
-    cache split over kv_seq, a MoE model in the DP step, FSDP of the
-    hybrid and vision families and of the serving engine, a collective
-    outside a body, and device "cuda" on the gloo group, each with its
-    own text."""
+    """A wrong world size, MoE's expert-parallel route in training, MLA and
+    SSM configs at model > 1, a KV cache split over kv_seq, a MoE model
+    under FSDP and in micro-batches over data ranks, FSDP of the hybrid
+    and vision families and of the serving engine, a collective outside a
+    body, and device "cuda" on the gloo group, each with its own text."""
     got = _case(res, "refusals")
     assert got["outside"] == "a collective runs only inside shard_map's body"
-    assert "granite-moe-3b-a800m on a process mesh" in got["moe"]
+    assert "deepseek-v3-671b with fsdp=True over data on a process mesh" \
+        in got["moe"]
+    assert "granite-moe-3b-a800m on a process mesh" in got["tp_moe"]
     pc.check("refusals", got)
 
 
@@ -315,6 +330,89 @@ def test_fsdp_refusals_name_their_queue_item(res, key):
     assert "A13c item 2.2b" in got, got
 
 
+@pytest.mark.parametrize("shape", pc.MOE_MESHES, ids=str)
+def test_moe_step_matches_the_one_device_step(res, shape):
+    """Reduced granite-moe-3b-a800m (4 experts padded to 48, top 2, one
+    dispatch group of the global batch's 256 tokens): 3 steps, each from
+    the same state as the one-device step, the loss, ce, aux, grad norm
+    and lr within 1e-6 relative in float32 and 1e-10 in float64, the
+    parameters after each within 1e-10 in float64 (float32: ``MOE_TOL``);
+    no pair dropped there, as on one device."""
+    pc.check_moe_mesh(_case(res, "moe_train"), shape)
+
+
+@pytest.mark.parametrize("shape", pc.MOE_MESHES, ids=str)
+def test_moe_bytes_equal_the_dry_runs_count(res, shape):
+    """The ranks' collectives by kind, summed, equal to the dry run's count
+    of the same cell times the ranks: the counts' all-gather over data a
+    MoE layer (none on (1,4)), the buffer's all-reduces over model (the
+    whole buffer on every data rank), the gradient means of the live
+    experts of the padded tables; beside them the grad norm's scalar and
+    the loss metrics' mean."""
+    got = pc.check_moe_bytes(_case(res, "moe_train"), shape)
+    cfg = pc._moe_cfg()
+    d, m = shape
+    if d > 1:       # one (4,) int32 vector a layer, from each of d ranks
+        assert got["all-gather"] == d * m * cfg.n_layers * (d - 1) * 4 \
+            * cfg.moe.n_experts
+    else:
+        assert "all-gather" not in got
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=str)
+def test_moe_step_where_capacity_drops_pairs(res, shape):
+    """Capacity factor 0.5 (64 slots an expert for 512 pairs): the one
+    group drops pairs every step, the ranks after the first most of them
+    (their slots come after the first ranks' counts); float64 within 1e-10
+    of the one-device step, and the drops, summed over the data ranks,
+    equal to its drops."""
+    pc.check_moe_drops(_case(res, "moe_train"), shape)
+
+
+def test_moe_group_size_reads_the_global_count(res):
+    """``DENSE_PATH_MAX_TOKENS`` lowered to 256 and 8 x 64 tokens on
+    (4,1): the global 512 tokens take groups of 64, where a rank's 128
+    would take one group of 128; float64 within 1e-10 of the one-device
+    step, drops equal."""
+    pc.check_moe_steps("groups", _case(res, "moe_train")["groups"],
+                       pc.MOE_TOL["f64"])
+
+
+def test_moe_step_with_a_vocab_the_model_axis_does_not_divide(res):
+    """A vocab of 257 on (1,4): every rank holds the tied table whole, the
+    lookup, head and cross-entropy unsplit; float64 within 1e-10."""
+    pc.check_moe_steps("vocab257", _case(res, "moe_train")["vocab257"],
+                       pc.MOE_TOL["f64"], model=4)
+
+
+def test_deepseek_moe_step_data_parallel(res):
+    """Reduced deepseek-v3-671b with ``fsdp=False`` on (4,1): MLA, a dense
+    first layer, shared experts and the MTP module beside the MoE layer,
+    data-parallel; float64 within 1e-10 of the one-device step."""
+    pc.check_moe_steps("deepseek", _case(res, "moe_train")["deepseek"],
+                       pc.MOE_TOL["f64"])
+
+
+def test_moe_step_matches_the_references_sharded_step(res):
+    """The reference's float32 step of reduced granite-moe-3b-a800m on
+    (4,1) and (2,2) (its parameters and tokens): loss, ce, aux and grad
+    norm within 1e-5 relative."""
+    got = _case(res, "moe_train")
+    assert got["reference"] is not None
+    assert set(got["reference"]) == set(pc.REFERENCE_MOE)
+    pc.check_moe_reference(got)
+
+
+@pytest.mark.parametrize("key", ["moe", "tp_moe", "tp_mla", "moe_accum"])
+def test_moe_refusals_name_item_2_3b(res, key):
+    """A MoE model under FSDP, granite-moe-3b-a800m's expert-parallel route
+    in training, MLA at model > 1 and a MoE step in micro-batches over
+    data ranks: each a NotImplementedError naming item 2.3b."""
+    got = _case(res, "refusals")[key]
+    assert got is not None and pc.refusal_texts()[key] in got, got
+    assert "A13c item 2.3b" in got, got
+
+
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3-8b",
                                   "stablelm-1.6b", "starcoder2-3b"])
 @pytest.mark.parametrize("shape", [(2, 1), (4, 1), (2, 2), (4, 2)], ids=str)
@@ -366,7 +464,8 @@ def test_gather_from_a_group_of_one_moves_nothing():
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3-8b",
-                                  "stablelm-1.6b", "starcoder2-3b"])
+                                  "stablelm-1.6b", "starcoder2-3b",
+                                  "granite-moe-3b-a800m"])
 @pytest.mark.parametrize("m", [2, 4, 8])
 def test_each_block_has_the_references_shard_shape(arch, m):
     """``shard_params`` at full width on ``meta``: on every rank of (1,m)

@@ -77,9 +77,28 @@ REFERENCE_STEP = "reference_step_dense.pt"
 # of the 8 prompts); the other dense configs on (2,2)
 FSDP_MESHES = ((4, 1), (2, 2))
 FSDP_SERVE_MESH = (2, 2)
+# the MoE family's train step: reduced granite-moe-3b-a800m (4 experts
+# padded to 48, top 2) on every mesh, step by step against the one-device
+# step; the cases beside it: capacity factor 0.5 (the one group drops
+# pairs, more on the ranks after the first), the group-size rule
+# (``DENSE_PATH_MAX_TOKENS`` lowered so that the global count takes groups
+# of 64 where a rank's count would take one group: 4 x 64 tokens a rank),
+# a vocab of 257 on (1,4), and reduced deepseek-v3-671b data-parallel
+MOE_MESHES = ((4, 1), (2, 2), (1, 4))
+MOE_GROUPS = dict(seq_len=64, dense_max=256)
+MOE_SIDE_STEPS = 2        # the cases beside the three meshes' 3 steps
+# per step, relative, the loss, ce, aux, grad norm and lr, and the
+# parameters after it; float32's parameters apart: AdamW's first update is
+# lr g / (|g| + eps) element by element, so where a gradient element is at
+# its own rounding noise (the ranks sum it in another order) the update
+# moves by up to lr: held at a tenth of the cases' lr 1e-2 (measured on
+# the CPU: 2.7e-5 on (4,1), in wo, 3.6e-5 on (2,2), 6.9e-5 on (1,4), all
+# in the first step; 1.2e-7 after it)
+MOE_TOL = {"f32": 1e-6, "f64": 1e-10, "f32 params": 1e-3}
+REFERENCE_MOE = ((4, 1), (2, 2))
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "dp_train", "tp_train", "tp_serve",
-         "fsdp_train", "fsdp_serve", "refusals")
+         "fsdp_train", "fsdp_serve", "moe_train", "refusals")
 
 
 # ---------------------------------------------------------------------------
@@ -769,6 +788,130 @@ def case_fsdp_serve(rank, meshes, out_dir):
     return out
 
 
+def _moe_cfg(arch="granite-moe-3b-a800m", dtype="float32", **kw):
+    return reduced(get_config(arch), param_dtype=dtype, compute_dtype=dtype,
+                   **kw)
+
+
+def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"]):
+    """``steps`` train steps through the Trainer's state, batches and step
+    on ``mesh``, each held against the one-device step from the same state
+    (the state gathered before the step; on rank 0): per step both
+    metrics, the largest gap between the parameters after it, and the
+    pairs that each rank's dispatches dropped beside the one-device
+    step's; the collectives of the steps on the ranks."""
+    data = DataConfig(seq_len=seq_len, global_batch=DP["global_batch"],
+                      vocab_size=cfg.vocab_size)
+    opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1,
+                          decay_steps=DP["steps"])
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps), mesh=mesh,
+                 device="cpu")
+    one = tstep.make_train_step(cfg, opt).step_fn
+    state = tr.init_state()
+
+    def whole(st):
+        return gather_params(st, tr.state_specs, mesh) if tr.split \
+            else _detach(st)
+    rows = []
+    compat.reset_counts()
+    for i in range(steps):
+        before = whole(state)
+        log = tmoe.DISPATCH_LOG = []
+        mine = {k: torch.as_tensor(v) for k, v in tr.batch(i).items()}
+        try:
+            state, m = tr.step_fn(state, mine)
+        finally:
+            tmoe.DISPATCH_LOG = None
+        row = {"tp": {k: float(v) for k, v in m.items()},
+               "drops": _all_ranks(tmoe.dropped_pairs(log))}
+        after = whole(state)["params"]
+        if mesh.rank == 0:
+            glob = {k: torch.as_tensor(v)
+                    for k, v in tr.source.batch(i).items()}
+            log = tmoe.DISPATCH_LOG = []
+            try:
+                _, m1 = one(before, glob)
+            finally:
+                tmoe.DISPATCH_LOG = None
+            row["one"] = {k: float(v) for k, v in m1.items()}
+            row["drops_one"] = tmoe.dropped_pairs(log)
+            row["params"] = max(_err(a, b) for a, b in zip(
+                tree_leaves(after), tree_leaves(before["params"])))
+        rows.append(row)
+    return {"rows": rows, "counts": _counts(mesh),
+            "leaves": len(list(tree_leaves(state["params"])))}
+
+
+def _reference_moe(meshes, out_dir):
+    """The reference's sharded float32 step of reduced granite-moe-3b-a800m
+    (``tests/test_torch_mesh.py``'s ``step_moe``) on (4,1) and (2,2), here
+    on the ranks: its parameters and tokens, the default ``OptConfig``,
+    each data rank its rows of the batch. None without the reference's
+    file."""
+    path = os.path.join(out_dir, REFERENCE_STEP)
+    if not os.path.exists(path):
+        return None
+    ref = torch.load(path, weights_only=False)
+    cfg = _moe_cfg()
+    params = convert.params_from_numpy(ref["moe_params"], device="cpu")
+    toks = torch.as_tensor(ref["moe_tokens"]).long()
+    out = {}
+    for shape in REFERENCE_MOE:
+        mesh = meshes[shape]
+        ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+        opt = adamw.OptConfig()
+        bundle = tstep.make_train_step(cfg, opt, ctx)
+        blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)[
+            "params"], mesh)
+        rows = toks.shape[0] // mesh.shape["data"]
+        mine = slice(mesh.coord("data") * rows,
+                     (mesh.coord("data") + 1) * rows)
+        batch = {"tokens": toks[mine], "labels": torch.roll(toks, -1, 1)[mine]}
+        _, m = bundle.step_fn({"params": blocks,
+                               "opt": adamw.init(opt, blocks)}, batch)
+        out[shape] = {"got": {k: float(m[k]) for k in
+                              ("loss", "ce", "aux", "grad_norm")},
+                      "want": ref["moe_metrics"][shape]}
+    return out
+
+
+def case_moe_train(rank, meshes, out_dir):
+    """The MoE family's train step over processes, reduced
+    granite-moe-3b-a800m: on (4,1), (2,2) and (1,4), 3 steps in float32
+    and in float64, each from the same state as the one-device step; in
+    float64, ``MOE_SIDE_STEPS`` steps each: at capacity factor 0.5 on
+    (4,1) and (2,2) (pairs dropped); with
+    ``DENSE_PATH_MAX_TOKENS`` lowered on (4,1) (groups of 64 by the global
+    count); a vocab of 257 on (1,4); reduced deepseek-v3-671b with
+    ``fsdp=False`` on (4,1) (MTP, shared experts, a dense first layer);
+    and the reference's own step on (4,1) and (2,2)."""
+    out = {}
+    for shape in MOE_MESHES:
+        out[shape] = {tag: _moe_steps(_moe_cfg(dtype=dt), meshes[shape])
+                      for tag, dt in (("f32", "float32"),
+                                      ("f64", "float64"))}
+    # the cases beside them, 2 steps each
+    n = MOE_SIDE_STEPS
+    for shape in ((4, 1), (2, 2)):
+        cfg = _moe_cfg(dtype="float64")
+        out[f"drops {shape}"] = _moe_steps(dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5)),
+            meshes[shape], steps=n)
+    saved = tmoe.DENSE_PATH_MAX_TOKENS
+    tmoe.DENSE_PATH_MAX_TOKENS = MOE_GROUPS["dense_max"]
+    try:
+        out["groups"] = _moe_steps(_moe_cfg(dtype="float64"), meshes[4, 1],
+                                   steps=n, seq_len=MOE_GROUPS["seq_len"])
+    finally:
+        tmoe.DENSE_PATH_MAX_TOKENS = saved
+    out["vocab257"] = _moe_steps(_moe_cfg(dtype="float64", vocab_size=257),
+                                 meshes[1, 4], steps=n)
+    out["deepseek"] = _moe_steps(_moe_cfg("deepseek-v3-671b", "float64",
+                                          fsdp=False), meshes[4, 1], steps=n)
+    out["reference"] = _reference_moe(meshes, out_dir)
+    return out
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -782,14 +925,23 @@ def case_refusals(rank, meshes, out_dir):
             out[name] = None
     text("world", ValueError, lambda: make_process_mesh(3, 1, device="cpu"))
     cfg = reduced(get_config("tinyllama-1.1b"))
-    for name, arch in (("tp_moe", "granite-moe-3b-a800m"),
-                       ("tp_mla", "deepseek-v3-671b"),
+    for name, arch in (("tp_mla", "deepseek-v3-671b"),
                        ("tp_ssm", "zamba2-7b")):
         # without FSDP (deepseek-v3-671b's default), which raises first
         text(name, NotImplementedError,
              lambda arch=arch: tstep.make_train_step(
                  dataclasses.replace(reduced(get_config(arch)), fsdp=False),
                  adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2])))
+    # granite-moe-3b-a800m's expert-parallel route in training: 256 tokens
+    # at or above a lowered DENSE_PATH_MAX_TOKENS on (1,4), raised in the
+    # first MoE layer of the first step, on every rank
+    saved = tmoe.DENSE_PATH_MAX_TOKENS
+    tmoe.DENSE_PATH_MAX_TOKENS = DP["seq_len"] * DP["global_batch"]
+    try:
+        text("tp_moe", NotImplementedError,
+             lambda: _moe_steps(_moe_cfg(), meshes[1, 4], steps=1))
+    finally:
+        tmoe.DENSE_PATH_MAX_TOKENS = saved
     text("tp_kv_seq", NotImplementedError, lambda: tstep.make_prefill_step(
         dataclasses.replace(cfg, n_kv_heads=2),
         MeshCtx(mesh=meshes[1, 4]), 16))
@@ -805,9 +957,14 @@ def case_refusals(rank, meshes, out_dir):
         fcfg, init_params(ttf.model_template(fcfg),
                           torch.Generator().manual_seed(0), device="cpu"),
         ctx=MeshCtx(mesh=meshes[4, 1]), device="cpu"))
+    # a MoE model under FSDP (deepseek-v3-671b's default), and a MoE step
+    # in micro-batches over data ranks
     text("moe", NotImplementedError, lambda: tstep.make_train_step(
-        reduced(get_config("granite-moe-3b-a800m")), adamw.OptConfig(),
+        reduced(get_config("deepseek-v3-671b")), adamw.OptConfig(),
         MeshCtx(mesh=meshes[4, 1])))
+    text("moe_accum", NotImplementedError, lambda: tstep.make_train_step(
+        _moe_cfg(), adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2]),
+        grad_accum=2))
     text("outside", RuntimeError, lambda: compat.psum(torch.ones(2), "data"))
     text("backend", RuntimeError,
          lambda: make_process_mesh(4, 1, device="cuda"))
@@ -826,10 +983,14 @@ def refusal_texts() -> dict:
     import torch.distributed as dist
     return {
         "world": "a (3, 1) mesh needs 3 processes, the world has 4",
-        "tp_moe": "the EP and MLA steps over processes (ROADMAP Queue A, "
-                  "A13c item 2.3)",
-        "tp_mla": "MLA's latent attention and the MoE layers under the "
-                  "model axis",
+        "tp_moe": "granite-moe-3b-a800m on a process mesh: 256 tokens at "
+                  "model=4 take the expert-parallel route, which needs each "
+                  "rank's experts_ffn blocks re-laid as experts blocks; the "
+                  "EP route in training over processes (ROADMAP Queue A, "
+                  "A13c item 2.3b)",
+        "tp_mla": "MLA's latent attention under the model axis; MLA under "
+                  "model, FSDP of the MoE family and the EP route over "
+                  "processes (ROADMAP Queue A, A13c item 2.3b)",
         "tp_ssm": "the SSM and hybrid blocks under model over processes "
                   "(ROADMAP Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
@@ -844,7 +1005,12 @@ def refusal_texts() -> dict:
                        "hybrid, vision and encoder-decoder families and of "
                        "the serving engine over processes (ROADMAP Queue "
                        "A, A13c item 2.2b)",
-        "moe": "the MoE train step over processes",
+        "moe": "deepseek-v3-671b with fsdp=True over data on a process "
+               "mesh: MLA's latent attention and the MoE layers under "
+               "FSDP; MLA under model, FSDP of the MoE family and the EP "
+               "route over processes (ROADMAP Queue A, A13c item 2.3b)",
+        "moe_accum": "the MoE step in micro-batches over processes "
+                     "(ROADMAP Queue A, A13c item 2.3b)",
         "outside": "a collective runs only inside shard_map's body",
         "backend": "the process group runs gloo, device 'cuda' needs nccl"
         if dist.is_nccl_available() else "needs the nccl backend"}
@@ -903,6 +1069,8 @@ def check(name, res) -> dict:
         return check_fsdp_train(res)
     if name == "fsdp_serve":
         return check_fsdp_serve(res)
+    if name == "moe_train":
+        return check_moe_train(res)
     if name == "local_axes":
         (y, g), counts = res["local"]
         (yg, gg), gcounts = res["global"]["stacked"]
@@ -1312,4 +1480,107 @@ def check_fsdp_serve_bytes(res, count=_dry_count):
 def check_fsdp_serve(res, count=_dry_count) -> dict:
     errs = check_fsdp_serve_logits(res)
     check_fsdp_serve_bytes(res, count)
+    return errs
+
+
+# -- the MoE family -------------------------------------------------------------
+
+
+def check_moe_steps(tag, got, tol, params_tol=None, model=1) -> dict:
+    """``_moe_steps``' rows: per step the loss, ce, aux, grad norm and lr
+    within ``tol`` relative of the one-device step's, the parameters after
+    it within ``params_tol`` (default ``tol``), and the pairs the ranks'
+    dispatches dropped (each rank's, in rank order) equal on the ranks of
+    a data coordinate (``model`` of them: they route the same tokens), and
+    summed over the data coordinates, equal to the one-device step's.
+    Returns the largest gaps and the drops."""
+    rows = got["rows"]
+    errs = {f"{tag} metrics": max(
+        _rel(r["tp"], r["one"], ("loss", "ce", "aux", "grad_norm", "lr"))
+        for r in rows), f"{tag} params": max(r["params"] for r in rows)}
+    assert errs[f"{tag} metrics"] <= tol and \
+        errs[f"{tag} params"] <= (params_tol or tol), (tag, errs, rows)
+    for r in rows:
+        by_data = [r["drops"][i:i + model]
+                   for i in range(0, len(r["drops"]), model)]
+        assert all(len(set(b)) == 1 for b in by_data), (tag, r)
+        assert sum(b[0] for b in by_data) == r["drops_one"], (tag, r)
+    errs[f"{tag} drops"] = [r["drops"] for r in rows]
+    return errs
+
+
+def check_moe_mesh(res, shape) -> dict:
+    """On ``shape``: float32 and float64, 3 steps each from the same state
+    as the one-device step, within ``MOE_TOL``."""
+    errs = {}
+    for tag in ("f32", "f64"):
+        errs.update(check_moe_steps(f"{shape} {tag}", res[shape][tag],
+                                    MOE_TOL[tag],
+                                    MOE_TOL.get(f"{tag} params"), shape[1]))
+    return errs
+
+
+def check_moe_drops(res, shape) -> dict:
+    """Capacity factor 0.5 on ``shape`` (float64): as the one-device step,
+    which drops pairs every step, and so does a rank whose data coordinate
+    is above 0 (its slots come after those of the ranks before it)."""
+    got = res[f"drops {shape}"]
+    d, m = shape
+    errs = check_moe_steps(f"drops {shape}", got, MOE_TOL["f64"], model=m)
+    for r in got["rows"]:
+        assert r["drops_one"] > 0 and any(r["drops"][i] > 0
+                                          for i in range(m, d * m)), r
+    return errs
+
+
+def check_moe_bytes(res, shape, count=_dry_count) -> dict:
+    """The float32 steps' collectives on ``shape``: one pmean a gradient
+    leaf and one for the metrics (over data), and the bytes by kind the
+    ranks move, summed, equal to the dry run's count of the same cell
+    (``count(cfg, shape, mesh)``) times the ranks: the counts' all-gather
+    of each MoE layer over data, and the all-reduces less the grad norm's
+    scalar and the loss metrics' mean. Returns the bytes a step by
+    kind."""
+    from repro_torch.launch.mesh import make_mesh
+    d, m = shape
+    f32 = res[shape]["f32"]
+    steps = len(f32["rows"])
+    fwd, _ = f32["counts"]
+    assert fwd["pmean"]["calls"] == steps * (f32["leaves"] + 1), fwd
+    st = count(_moe_cfg(), tp_train_shape(), make_mesh(d, m))
+    got = {k: v / steps for k, v in by_kind(f32["counts"]).items()}
+    want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+    want["all-reduce"] = want.get("all-reduce", 0) + norm_bytes(d, m) \
+        + d * m * int(round(2 * (d - 1) / d * 12))
+    assert set(got) == set(want), (shape, got, want)
+    for k in got:
+        assert abs(got[k] - want[k]) <= d * m, (shape, k, got, want)
+    return got
+
+
+def check_moe_reference(res) -> dict:
+    """The reference's own sharded float32 step on (4,1) and (2,2): loss,
+    ce, aux and grad norm within ``tp_reference`` relative."""
+    errs = {}
+    for shape, r in res["reference"].items():
+        errs[f"reference {shape}"] = _rel(r["got"], r["want"],
+                                          ("loss", "ce", "aux", "grad_norm"))
+        assert errs[f"reference {shape}"] <= TOL["tp_reference"], (shape, r)
+    return errs
+
+
+def check_moe_train(res, count=_dry_count) -> dict:
+    """Every check of the MoE train case (the reference's step where it
+    ran)."""
+    errs = {}
+    for shape in MOE_MESHES:
+        errs.update(check_moe_mesh(res, shape))
+        errs[f"{shape} bytes"] = check_moe_bytes(res, shape, count)
+    for shape in ((4, 1), (2, 2)):
+        errs.update(check_moe_drops(res, shape))
+    for name, m in (("groups", 1), ("vocab257", 4), ("deepseek", 1)):
+        errs.update(check_moe_steps(name, res[name], MOE_TOL["f64"],
+                                    model=m))
+    if res["reference"] is not None:
+        errs.update(check_moe_reference(res))
     return errs
