@@ -347,9 +347,10 @@ non-zero and prints no result. Phases, one JSON line each:
                beside phase 7's, the collectives, the NCCL version and
                backend, NCCL's events in ``torch.profiler``; then every
                case of ``tests/torch_process_cases.py`` on 4 gloo ranks of
-               the CPU but ``moe_train``, which phase 41 runs on the card
-               (``mesh_processes_gloo``). Only this process
-               prints; a rank that fails fails the phase.
+               the CPU but ``moe_train`` and ``mla_train``, which phases
+               41 and 42 run on the card (``mesh_processes_gloo``).
+               Only this process prints; a rank that fails fails the
+               phase.
 39. ``mesh_tensor_parallel`` tensor parallelism over processes, spawned
                after ``free_memory()``: at m = 2 and 4, m ranks on the
                one card in a gloo group (``make_process_mesh(1, m,
@@ -380,14 +381,29 @@ non-zero and prints no result. Phases, one JSON line each:
                experts' FFN split over ``model``; the first loss, ce and
                aux and a conditioned grad norm against the one-device
                step's (run first), a float32 witness of 2 layers step by
-               step, B3-B5 8 / 4 / 4 a rank-step at 1 x 32 and 2 x 16
+               step (where each rank's routes agree with the one-device
+               step's; a step with a flipped route held on the flipped
+               share and a gap of 3e-5) with
+               a step at capacity factor 0.5 whose drops are each rank's
+               block's, B3-B5 8 / 4 / 4 a rank-step at 1 x 32 and 2 x 16
                rows x heads (held against their plain versions there),
                the dropped pairs against the one-device step's, the bytes
                by kind against ``count_step``'s; ms a step and peak GB a
-               rank. Phases 39-41 share their spawns
-               (``run_card_ranks``): the (1, 2) ranks, then one world of
-               4 ranks that runs (1, 4), both FSDP meshes and both MoE
-               meshes in turn.
+               rank.
+42. ``mesh_mla`` deepseek-v3-671b with ``fsdp=False`` (full width, 1
+               dense + 1 MoE layer of 8 routed experts, MTP, bf16
+               parameters and moments, 2 x 2048) on (1, 4) ranks sharing
+               the card: MLA's heads, the routed experts and the vocab
+               split over ``model``, 2 steps through ``Trainer``; held as
+               phase 41 (the mtp loss too, the witness at vocab 32000
+               without MTP), B3-B5 1 / 1 / 1 a rank-step (the MTP
+               module's GQA layer at 2 x 32 rows x heads), and a float32
+               prefill and two absorbed decode steps on the rank's blocks
+               against the one-device steps and ``count_step``'s bytes;
+               the one-device steps run here after the spawn. Phases 39-42
+               share their spawns (``run_card_ranks``): the (1, 2) ranks,
+               then one world of 4 ranks that runs (1, 4), both FSDP
+               meshes, both MoE meshes and the MLA mesh in turn.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -399,9 +415,10 @@ in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
 ``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
-NCCL step summed over its ranks, ``mesh_processes``, and phases 39-41's
+NCCL step summed over its ranks, ``mesh_processes``, and phases 39-42's
 steps summed over their ranks, ``mesh_tensor_parallel (1, m)``,
-``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``; error, times and bound per
+``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_mla (1, 4)``; error,
+times and bound per
 kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises: nothing is caught and passed
@@ -467,7 +484,8 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.compression import (compressed_psum,  # noqa: E402
                                            init_residuals)
 from repro_torch.train.step import (make_decode_step,  # noqa: E402
-                                    make_prefill_step, make_train_step)
+                                    make_prefill_step, make_train_step,
+                                    train_state_specs)
 from repro_torch.core.cluster import ClusterEngine  # noqa: E402
 from repro_torch.core.vector_engine import (LaneEngine,  # noqa: E402
                                             ReferenceEngine, make_lane_mesh,
@@ -4504,8 +4522,10 @@ MESH_SERVE_LANES, MESH_SERVE_PROMPT, MESH_SERVE_STEPS = 4, 64, 4
 def phase_mesh_serve(smi, cfg):
     """Phase 36: deepseek-v3-671b at PR 20's cut (1 dense + 1 MoE layer,
     bf16: ``cfg``) on a (1, 4) mesh: ``make_prefill_step`` (MLA's
-    lane-local route: one shard_map a layer, 128 heads 32 a lane, no
-    collective) and 4 ``make_decode_step`` calls with the mesh against the
+    lane-local route: one shard_map a layer, 128 heads 32 a lane; the
+    all-reduces of the split outputs after ``wo`` and the experts counted,
+    as a process mesh's ranks run them) and 4 ``make_decode_step`` calls
+    with the mesh against the
     same steps without it on the same inputs, each logit gap within
     bf16's own rounding (the bf16 forward's gap to float32 compute, the
     witness, + 1e-3 of the largest logit), timed in turns (mesh, plain,
@@ -4540,9 +4560,13 @@ def phase_mesh_serve(smi, cfg):
             ms.setdefault(f"{name}_prefill", []).append(
                 1e3 * (time.perf_counter() - t1))
             if c is not None:
-                assert compat.CALLS["shard_map"] == cfg.n_layers, \
-                    dict(compat.CALLS)
-                assert set(compat.CALLS) == {"shard_map"}, dict(compat.CALLS)
+                # beside the lane-local shard_maps, the all-reduces of the
+                # heads' and the experts' split outputs, counted as a
+                # process mesh's ranks run them
+                n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+                assert dict(compat.CALLS) == {
+                    "shard_map": cfg.n_layers,
+                    "psum": cfg.n_layers + n_moe}, dict(compat.CALLS)
             out = [lg]
             dec = make_decode_step(cfg, c)
             t1 = time.perf_counter()
@@ -4766,10 +4790,11 @@ def phase_dryrun(smi):
 PROC_STEPS = 3
 PROC_LOSS_REL = 1e-3      # at two ranks or more: another summation order
 PROC_TIMEOUT_S = 600      # a rank still running then fails the phase
-# the CPU cases that phase 38 leaves to the card: phase 41 runs the MoE
-# step over processes on this machine at full width (the case's ~35 s on
-# its CPU would push the run toward its limit)
-CARD_CASES = ("moe_train",)
+# the CPU cases that phase 38 leaves to the card: phases 41 and 42 run
+# the MoE and the MLA steps over processes on this machine at full width
+# (the cases' ~35 s and ~20 s on its CPU would push the run toward its
+# limit)
+CARD_CASES = ("moe_train", "mla_train")
 
 
 def _process_cases():
@@ -5016,36 +5041,153 @@ def _conditioned_blocks(cfg, tr, mesh):
     return whole, shard_params(whole, tr.state_specs["params"], mesh)
 
 
-def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None):
+def _logged_step(step_fn, state, batch):
+    """``step_fn(state, batch)`` with its one-hot dispatches recorded:
+    (state, metrics, the ``moe.DISPATCH_LOG`` list)."""
+    log = moe_mod.DISPATCH_LOG = []
+    try:
+        state, m = step_fn(state, batch)
+    finally:
+        moe_mod.DISPATCH_LOG = None
+    return state, m, log
+
+
+def _on_rank0(tree, specs, mesh):
+    """``tree``'s blocks gathered leaf by leaf (every rank takes part), the
+    whole tree kept on rank 0 alone (None on the others), so that no other
+    rank holds a whole copy beside its blocks."""
+    def leaf(x, spec):
+        got = gather_params(x, spec, mesh)
+        return got if mesh.rank == 0 else None
+    return tree_map(leaf, tree, specs)
+
+
+def _routes(mesh, log, one_log):
+    """A MoE witness step's routes and drops, on rank 0 (None elsewhere;
+    every rank takes part): each rank's dropped pairs, the (token, expert)
+    pairs of its routes that the one-device step (``one_log``, rank 0's)
+    did not choose for the same tokens, the one-device step's drops, its
+    drops by data block and its pairs (over its MoE layers)."""
+    import torch.distributed as dist
+    pc = _process_cases()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (moe_mod.dropped_pairs(log),
+                                   mesh.block(("data",)),
+                                   [d.ids.cpu() for d in log]))
+    if mesh.rank != 0:
+        return None
+    n = mesh.shape["data"]
+    return {"drops_by_rank": [e[0] for e in every],
+            "flips_by_rank": [sum(pc.route_flips(ids, d.ids.reshape(
+                n, -1, d.ids.shape[-1])[block]) for ids, d in zip(
+                    mine, one_log)) for _, block, mine in every],
+            "drops_one": moe_mod.dropped_pairs(one_log),
+            "pairs_one": sum(d.pairs for d in one_log),
+            "drops_one_by_block": pc.drops_by_block(one_log, n)}
+
+
+def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None, batch=None,
+                     seq=None, drop_capacity=None):
     """``TP_FP32_LAYERS`` layers of tinyllama-1.1b (or of ``cfg``) at full
     width in float32 compute (TF32 off) from ``_conditioned`` parameters
     (at the configured init, two summation orders of this step read
     gradients 3e-3 of their largest apart: the 4-rank split's partial sums
-    do), ``TP_STEPS`` tensor-parallel steps, each held against the
-    one-device step from the same state (gathered; rank 0 runs it): per
-    step both steps' loss and grad norm."""
+    do), ``TP_STEPS`` tensor-parallel steps of ``batch`` x ``seq``
+    (default ``TRAIN_BATCH`` x ``TRAIN_SEQ``), each held against the
+    one-device step from the same state (gathered to rank 0, which runs
+    it; at the initial state rank 0 keeps the init the blocks were cut
+    from): per step both steps' loss and grad norm. For
+    a MoE model, per step also each rank's routes and drops against the
+    one-device step's (:func:`_routes`); with ``drop_capacity``, first one
+    more step from the same initial state at that capacity factor, whose
+    one group drops pairs (its row first, ``capacity_factor`` set)."""
     cfg = cfg or _mesh_cfgs()[0]
     cfg = dataclasses.replace(cfg, n_layers=TP_FP32_LAYERS,
                               compute_dtype="float32", fsdp=fsdp)
-    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+    data = DataConfig(seq_len=seq or TRAIN_SEQ,
+                      global_batch=batch or TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
     tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS), mesh=mesh,
                  device=DEV)
-    one = make_train_step(cfg, opt).step_fn
-    whole, blocks = _conditioned_blocks(cfg, tr, mesh)
-    del whole
-    state, rows = {"params": blocks, "opt": adamw.init(opt, blocks)}, []
-    for i in range(TP_STEPS):
-        whole = gather_params(state, tr.state_specs, mesh)
-        state, m = tr.step_fn(state, to_device(tr.batch(i), DEV))
+
+    def initial():
+        """The initial state's blocks, and on rank 0 the whole state (the
+        init the blocks were cut from: no gather)."""
+        whole, blocks = _conditioned_blocks(cfg, tr, mesh)
+        whole = None if mesh.rank else {"params": whole,
+                                         "opt": adamw.init(opt, whole)}
+        free_memory()
+        return {"params": blocks, "opt": adamw.init(opt, blocks)}, whole
+    steps = [(cfg, i, tr.step_fn) for i in range(TP_STEPS)]
+    if drop_capacity is not None:
+        drop = with_capacity(cfg, drop_capacity)
+        steps.insert(0, (drop, 0, Trainer(drop, opt, data, TrainerConfig(
+            steps=1), mesh=mesh, device=DEV).step_fn))
+    rows, state = [], None
+    for c, i, step_fn in steps:
+        if i == 0:          # the drop step too starts from the initial state
+            state = None
+            state, whole = initial()
+        else:
+            whole = _on_rank0(state, tr.state_specs, mesh)
+        state, m, log = _logged_step(step_fn, state,
+                                     to_device(tr.batch(i), DEV))
+        free_memory()
         row = {"tp": {k: float(m[k]) for k in ("loss", "grad_norm")}}
+        one_log = []
         if mesh.rank == 0:
-            _, m1 = one(whole, to_device(tr.source.batch(i), DEV))
+            # the step returns the whole state it updated: not kept
+            m1, one_log = _logged_step(make_train_step(c, opt).step_fn,
+                                       whole,
+                                       to_device(tr.source.batch(i), DEV))[1:]
             row["one"] = {k: float(m1[k]) for k in ("loss", "grad_norm")}
-        del whole
+        if cfg.is_moe:
+            routes = _routes(mesh, log, one_log)
+            if routes is not None:
+                row.update(routes, capacity_factor=c.moe.capacity_factor)
+        del whole, log, one_log
         free_memory()
         rows.append(row)
+    del state
+    free_memory()
     return rows
+
+
+def _conditioned_tp_step(mesh, opt, cfg, batch=None):
+    """One tensor-parallel step of ``cfg`` from ``_conditioned`` parameters
+    (the seeded init of :func:`_conditioned_blocks`), on every rank: its
+    loss and grad norm. The one-device step from the same parameters is
+    :func:`_conditioned_one_step`'s (``batch`` rows, ``TRAIN_BATCH`` by
+    default)."""
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=batch or TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=1), mesh=mesh,
+                 device=DEV)
+    whole, blocks = _conditioned_blocks(cfg, tr, mesh)
+    del whole
+    free_memory()
+    _, m = tr.step_fn({"params": blocks, "opt": adamw.init(opt, blocks)},
+                      to_device(tr.batch(0), DEV))
+    del blocks, tr
+    free_memory()
+    return {k: float(m[k]) for k in ("loss", "grad_norm")}
+
+
+def _conditioned_one_step(cfg, opt, batch=None):
+    """The one-device step of ``cfg`` from the same ``_conditioned``
+    parameters and batch as :func:`_conditioned_tp_step`'s: its loss and
+    grad norm."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    whole = _conditioned(init_params(model_template(cfg), gen,
+                                     dtype=cfg.param_dtype, device=DEV), cfg)
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=batch or TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    _, m1 = make_train_step(cfg, opt).step_fn(
+        {"params": whole, "opt": adamw.init(opt, whole)},
+        to_device(SyntheticLM(data).batch(0), DEV))
+    del whole
+    free_memory()
+    return {k: float(m1[k]) for k in ("loss", "grad_norm")}
 
 
 def _tp_conditioned(mesh, opt, fsdp=False, cfg=None):
@@ -5055,25 +5197,11 @@ def _tp_conditioned(mesh, opt, fsdp=False, cfg=None):
     resolvable, and the one-device step from the same state (rank 0,
     before it): both steps' loss and grad norm."""
     cfg = dataclasses.replace(cfg or _mesh_cfgs()[0], fsdp=fsdp)
-    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                      vocab_size=cfg.vocab_size, seed=0)
-    tr = Trainer(cfg, opt, data, TrainerConfig(steps=1), mesh=mesh,
-                 device=DEV)
-    whole, blocks = _conditioned_blocks(cfg, tr, mesh)
     out = {}
     if mesh.rank == 0:
-        _, m1 = make_train_step(cfg, opt).step_fn(
-            {"params": whole, "opt": adamw.init(opt, whole)},
-            to_device(tr.source.batch(0), DEV))
-        out["one"] = {k: float(m1[k]) for k in ("loss", "grad_norm")}
-    del whole
-    free_memory()
+        out["one"] = _conditioned_one_step(cfg, opt)
     mesh.barrier()
-    _, m = tr.step_fn({"params": blocks, "opt": adamw.init(opt, blocks)},
-                      to_device(tr.batch(0), DEV))
-    out["tp"] = {k: float(m[k]) for k in ("loss", "grad_norm")}
-    del blocks, tr
-    free_memory()
+    out["tp"] = _conditioned_tp_step(mesh, opt, cfg)
     return out
 
 
@@ -5140,11 +5268,12 @@ def _tp_job(mesh, one_path, fsdp=False):
 
 
 def _card_rank(rank, world, store, jobs, one_path):
-    """A rank of phases 39-41 (module level: ``spawn`` pickles it): for
+    """A rank of phases 39-42 (module level: ``spawn`` pickles it): for
     each ``(kind, shape, out_path)`` of ``jobs`` in turn, in one process
     group, a ``make_process_mesh(*shape, backend="gloo")`` on the card the
     ranks share and its job: "tp" and "fsdp" phases 39-40's
-    (:func:`_tp_job`), "moe" phase 41's (:func:`_moe_job`). Rank 0 writes
+    (:func:`_tp_job`), "moe" phase 41's (:func:`_moe_job`), "mla" phase
+    42's (:func:`_mla_job`). Rank 0 writes
     each job's results, with the seconds it took, to its ``out_path``. One
     process runs every job of its world: its warm-up (10-14 s in its first
     step on the card) is paid once."""
@@ -5157,8 +5286,12 @@ def _card_rank(rank, world, store, jobs, one_path):
         mesh = make_process_mesh(*shape, device="cuda:0", backend="gloo",
                                  init_method=f"file://{store}", rank=rank,
                                  world_size=world, timeout_s=TP_TIMEOUT_S)
-        out = _moe_job(mesh) if kind == "moe" else \
-            _tp_job(mesh, one_path, fsdp=kind == "fsdp")
+        if kind == "moe":
+            out = _moe_job(mesh)
+        elif kind == "mla":
+            out = _mla_job(mesh, out_path)
+        else:
+            out = _tp_job(mesh, one_path, fsdp=kind == "fsdp")
         if rank == 0:
             out.update(world=world, seconds=time.perf_counter() - t0)
             with open(out_path, "w") as f:
@@ -5168,11 +5301,11 @@ def _card_rank(rank, world, store, jobs, one_path):
     dist.destroy_process_group()
 
 
-# the jobs of phases 39-41 by world size: each world's ranks are spawned
+# the jobs of phases 39-42 by world size: each world's ranks are spawned
 # once and run its jobs in this order
 CARD_JOBS = ((2, (("tp", (1, 2)),)),
              (4, (("tp", (1, 4)), ("fsdp", (4, 1)), ("fsdp", (2, 2)),
-                  ("moe", (4, 1)), ("moe", (2, 2)))))
+                  ("moe", (4, 1)), ("moe", (2, 2)), ("mla", (1, 4)))))
 
 
 def run_card_ranks(tmp, one_path, card_jobs=CARD_JOBS) -> dict:
@@ -5479,6 +5612,52 @@ MOE_CARD_MESHES = ((4, 1), (2, 2))    # (data, model): ranks on the one card
 # each rank runs the one-device step's products on its rows (another GEMM
 # height), on (2,2) the model axis splits the partial sums (bf16)
 MOE_LOSS_REL = {(4, 1): 1e-4, (2, 2): TP_LOSS_REL}
+# the float32 witness's step at a capacity factor whose one group drops
+# pairs (from the initial state, where the routes agree); the share of a
+# step's (token, expert) pairs whose route may flip between a rank's
+# router product and the one-device step's (a near-tie rounded another
+# way), and the loss and grad-norm gap of a step with such a flip, in
+# place of TP_FP32_REL. Read: granite (4,1)'s third step flips 1 pair of
+# its 131,072 (7.6e-6) at a gap of 9.8e-6; the CPU case on (4,1) with the
+# ranks' router input rounded to bfloat16 (a fault) flips 1 pair of its
+# 1,024 (9.8e-4) at a gap of 6.8e-4
+DROP_CAPACITY = 0.5
+FLIP_SHARE = 2.5e-5
+FLIP_REL = 3e-5
+
+
+def check_witness(rows, d, m):
+    """A MoE float32 witness (:func:`_tp_fp32_witness` with a drop step)
+    on (d, m): each step whose ranks' routes all agree with the one-device
+    step's is held within ``TP_FP32_REL`` (loss and grad norm), each
+    rank's drops equal to the
+    one-device step's drops of its data block (the ranks of a data
+    coordinate route the same tokens) and their sum to its drops; a step
+    with flipped routes is held to at most ``FLIP_SHARE`` of its pairs
+    flipped and within ``FLIP_REL``; the drop step's routes agree and it
+    drops pairs (above 0); some regular step's routes agree. Returns the
+    gaps and the flipped pairs a step."""
+    rel, flips = [], []
+    for row in rows:
+        gap = max(abs(row["tp"][k] - row["one"][k]) / abs(row["one"][k])
+                  for k in ("loss", "grad_norm"))
+        n = sum(row["flips_by_rank"])
+        rel.append(gap)
+        flips.append(n)
+        if n:
+            assert n <= FLIP_SHARE * row["pairs_one"] \
+                and gap <= FLIP_REL, row
+            continue
+        assert gap <= TP_FP32_REL, row
+        by_data = [row["drops_by_rank"][i:i + m] for i in range(0, d * m, m)]
+        assert [b[0] for b in by_data] == row["drops_one_by_block"] \
+            and all(b == b[:1] * m for b in by_data), row
+        assert sum(row["drops_one_by_block"]) == row["drops_one"], row
+    drop = rows[0]
+    assert drop["capacity_factor"] == DROP_CAPACITY and flips[0] == 0 \
+        and drop["drops_one"] > 0, drop
+    assert 0 in flips[1:], flips
+    return rel, flips
 
 
 def _moe_mesh_cfgs():
@@ -5541,7 +5720,8 @@ def _moe_job(mesh):
     log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr)
     del tr
     free_memory()
-    fp32 = _tp_fp32_witness(mesh, opt, cfg=cfg)
+    fp32 = _tp_fp32_witness(mesh, opt, cfg=cfg,
+                            drop_capacity=DROP_CAPACITY)
     conditioned = _tp_conditioned(mesh, opt, cfg=cfg)
     geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
                   for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
@@ -5578,7 +5758,12 @@ def phase_mesh_moe(smi, spawned=None):
     ``_conditioned`` parameters one step's loss within ``TP_LOSS_REL`` and
     grad norm within ``TP_GRAD_REL``; a float32 witness
     (``TP_FP32_LAYERS`` layers, TF32 off, conditioned) step by step
-    within ``TP_FP32_REL``; B3-B5 ``train_launches`` a step on every rank
+    (:func:`check_witness`: within ``TP_FP32_REL`` where every rank's
+    routes agree with the one-device step's, else within ``FLIP_SHARE``
+    flipped pairs and ``FLIP_REL``, and a step at ``DROP_CAPACITY`` from the
+    initial state whose
+    drops are above 0 and each rank's block's); B3-B5 ``train_launches`` a
+    step on every rank
     at 1 x 32 (4,1) and 2 x 16 (2,2) rows x heads a launch, each held
     against its plain version at the geometry the path launched it at;
     the pairs each step's dispatches dropped, summed over the data ranks
@@ -5644,11 +5829,7 @@ def phase_mesh_moe(smi, spawned=None):
                         / abs(cond["one"][k]) for k in ("loss", "grad_norm")}
             assert cond_rel["loss"] <= TP_LOSS_REL, cond
             assert cond_rel["grad_norm"] <= TP_GRAD_REL, cond
-            fp32_rel = [max(abs(row["tp"][k] - row["one"][k])
-                            / abs(row["one"][k])
-                            for k in ("loss", "grad_norm"))
-                        for row in r["fp32"]]
-            assert max(fp32_rel) <= TP_FP32_REL, r["fp32"]
+            fp32_rel, flips = check_witness(r["fp32"], d, m)
             # the ranks of one data coordinate route the same tokens
             by_data = [r["drops_by_rank"][i:i + m] for i in range(0, n, m)]
             assert all(b == b[:1] * m for b in by_data), r["drops_by_rank"]
@@ -5672,6 +5853,8 @@ def phase_mesh_moe(smi, spawned=None):
                  log=got_log, one_device_log=one, first_step_rel=rel,
                  conditioned=cond, conditioned_rel=cond_rel,
                  fp32_witness=r["fp32"], fp32_rel=fp32_rel,
+                 fp32_flips=flips, fp32_limit=TP_FP32_REL,
+                 flip_share_limit=FLIP_SHARE, flip_rel_limit=FLIP_REL,
                  drops_by_rank=r["drops_by_rank"], drops=drops,
                  one_device_drops=one_drops, launches=launches,
                  launches_per_rank_step=per_step, geometries=geometries,
@@ -5688,6 +5871,302 @@ def phase_mesh_moe(smi, spawned=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("mesh_moe_done", seconds=time.perf_counter() - t_phase)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 42: MLA under the model axis over processes
+# ---------------------------------------------------------------------------
+
+
+MLA_MESH = (1, 4)         # (data, model): ranks on the one card
+# deepseek-v3-671b at full width cut as phase 22's exactness cut: 1 dense +
+# 1 MoE layer of 61, 8 of 256 routed experts (one MoE layer's 256 are 11.3
+# G parameters), the MTP module kept; FSDP off (the config's is on)
+MLA_CUT = (("n_layers", 2), ("moe.n_dense_layers", 1), ("moe.n_experts", 8),
+           ("fsdp", False))
+MLA_BATCH = 2             # x TRAIN_SEQ, as phase 22 trains deepseek-v3
+# the float32 witness's further cut, so that its one-device step (rank 0:
+# fp32 parameters, gradients and two moments, 16 bytes a parameter) fits
+# beside the four ranks' blocks: vocab 32000 of 129280, no MTP module,
+# sequences of 1024
+MLA_WITNESS_CUT = (("vocab_size", 32000), ("mtp_depth", 0),
+                   ("param_dtype", "float32"))
+MLA_WITNESS_SEQ = 1024
+MLA_SERVE = dict(prompt=64, steps=2)   # two prompts, float32 compute
+
+
+def _mla_mesh_cfgs():
+    """deepseek-v3-671b as configured (bf16 parameters and moments, bf16
+    compute, full remat, the attention kernels on the card, experts on the
+    model axis) cut by ``MLA_CUT``, and phase 22's optimizer with the
+    config's moment dtype."""
+    cfg = _replace(get_config(MLA_ARCH), MLA_CUT)
+    assert (cfg.param_dtype, cfg.opt_state_dtype, cfg.compute_dtype,
+            cfg.remat, cfg.attn_flash, cfg.moe.expert_parallel) == (
+        "bfloat16", "bfloat16", "bfloat16", "full", "auto", True), cfg
+    opt = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=60,
+                          moment_dtype=cfg.opt_state_dtype)
+    return cfg, opt
+
+
+def _mla_serve(cfg, mesh=None):
+    """A prefill of two prompts of ``MLA_SERVE["prompt"]`` tokens (from a
+    seed) and ``MLA_SERVE["steps"]`` absorbed decode steps of ``cfg`` in
+    float32 compute with a float32 cache, from the seeded init:
+    on ``mesh`` with the rank's blocks (every rank takes part), else on one
+    device. Returns (the last logits of each step, on the host; each
+    step's collectives, summed over the ranks, or None)."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",)) if mesh else None
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(model_template(cfg), gen, dtype=cfg.param_dtype,
+                         device=DEV)
+    if mesh is not None:
+        params = shard_params(params, train_state_specs(cfg, ctx)["params"],
+                              mesh)
+        free_memory()
+    r = np.random.RandomState(42)
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(
+        2, MLA_SERVE["prompt"]))).to(DEV)
+    steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(2, 1)))
+             .to(DEV) for _ in range(MLA_SERVE["steps"])]
+
+    def counts():
+        return (compat.read_counts(reduce=True),
+                compat.read_counts(reduce=True, backward=True)) \
+            if mesh else None
+    outs, coll = [], []
+    with torch.no_grad():
+        compat.reset_counts()
+        logits, cache = make_prefill_step(
+            cfg, ctx, MLA_SERVE["prompt"] + MLA_SERVE["steps"],
+            cache_dtype=torch.float32)(params, {"tokens": toks})
+        outs.append(logits.cpu())
+        coll.append(counts())
+        dec = make_decode_step(cfg, ctx)
+        for tok in steps:
+            compat.reset_counts()
+            logits, cache = dec(params, cache, {"tokens": tok})
+            outs.append(logits.cpu())
+            coll.append(counts())
+    del params, cache
+    free_memory()
+    return outs, coll
+
+
+def _mla_job(mesh, out_path):
+    """Phase 42's work on (1,4), on every rank: deepseek-v3-671b as
+    :func:`_mla_mesh_cfgs` gives it through ``Trainer(mesh=mesh)``
+    (:func:`_moe_run`), then the float32 witness at ``MLA_WITNESS_CUT``
+    with its drop step, one step from ``_conditioned`` parameters and the
+    serve steps (:func:`_mla_serve`). The one-device steps run in the
+    parent afterwards (:func:`phase_mesh_mla`). Returns the results on
+    rank 0 (the serve logits saved beside ``out_path``), None on the
+    others."""
+    import torch.distributed as dist
+    cfg, opt = _mla_mesh_cfgs()
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=MLA_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS, log_every=1),
+                 mesh=mesh, device=DEV)
+    local = tr.bundle.abstract_state
+    n_params = sum(t.numel() for t in tree_leaves(local["params"]))
+    state_bytes = tree_size_bytes(local["params"]) \
+        + tree_size_bytes(local["opt"])
+    log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr)
+    del tr
+    free_memory()
+    wcfg = _replace(cfg, MLA_WITNESS_CUT)
+    torch.cuda.reset_peak_memory_stats()
+    fp32 = _tp_fp32_witness(mesh, dataclasses.replace(
+        opt, moment_dtype="float32"), cfg=wcfg, batch=MLA_BATCH,
+        seq=MLA_WITNESS_SEQ, drop_capacity=DROP_CAPACITY)
+    witness_peak = torch.cuda.max_memory_allocated()
+    conditioned = _conditioned_tp_step(mesh, opt, cfg, MLA_BATCH)
+    serve, serve_counts = _mla_serve(cfg, mesh)
+    geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
+                  for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (launches, peak, geos, step_ms, drops,
+                                   n_params, state_bytes, witness_peak))
+    if mesh.rank != 0:
+        return None
+    torch.save(serve, out_path + ".serve.pt")
+    return {"backend": dist.get_backend(), "log": log, "fp32": fp32,
+            "conditioned": conditioned, "serve_collectives": serve_counts,
+            "serve_path": out_path + ".serve.pt",
+            "launches_by_rank": [e[0] for e in every],
+            "peak_gb_by_rank": [e[1] / 1e9 for e in every],
+            "geometries_by_rank": [e[2] for e in every],
+            "step_ms_by_rank": [e[3] for e in every],
+            "drops_by_rank": [e[4] for e in every],
+            "params_by_rank": [e[5] for e in every],
+            "state_gb_by_rank": [e[6] / 1e9 for e in every],
+            "witness_peak_gb_by_rank": [e[7] / 1e9 for e in every],
+            "collectives": counts}
+
+
+def phase_mesh_mla(smi, spawned=None):
+    """Phase 42: MLA under the model axis over processes
+    (``models/attention.py::mla_attention(tp=)``: each rank its heads of
+    ``wq_b`` / ``wkv_b`` / ``wo``, the latent projections whole, Megatron's
+    ``copy_to`` on ``q_lat``, ``c_kv``, ``k_rope`` and ``reduce_from``
+    after ``wo``; the routed experts split over model in the one-hot
+    dispatch, between ``copy_to`` on the tokens and their gates and
+    ``reduce_from`` on the combined output; the vocab-split lookup and
+    cross-entropy, the MTP module's too). deepseek-v3-671b at full width
+    (d_model 7168, 128 heads, MLA 1536/512/128/64/128, vocab 129280 split
+    4 ways, dense d_ff 18432, expert d_ff 2048, top 8, a shared expert)
+    cut by ``MLA_CUT`` (1 dense + 1 MoE layer, 8 routed experts, MTP 1,
+    FSDP off), bf16 parameters and moments, bf16 compute, full remat,
+    2 x 2048: its 4 ranks spawned on the one card in a gloo group with
+    phases 39-41's, ``TP_STEPS`` steps through ``Trainer(mesh=
+    make_process_mesh(1, 4, backend="gloo"))``; then here the one-device
+    trainer. Held: the first step's loss, ce, aux and mtp within
+    ``TP_LOSS_REL``; on ``_conditioned`` parameters one step's loss within
+    ``TP_LOSS_REL`` and grad norm within ``TP_GRAD_REL``; a float32 witness
+    at ``MLA_WITNESS_CUT`` step by step (:func:`check_witness`: within
+    ``TP_FP32_REL`` where the routes agree, a step at ``DROP_CAPACITY``
+    whose drops are above 0 and each rank's those of its block); B3-B5
+    (the MTP module's GQA layer) ``train_launches`` a step on every rank at
+    2 x 32 rows x heads a launch, each held against its plain version at
+    the geometry the path launched it at; the drops summed over the data
+    ranks equal to the one-device step's; the train step's bytes by kind
+    summed over the ranks equal to ``count_step``'s for the cell times the
+    ranks (the all-reduces less the grad norm's scalar); a prefill of 2 x
+    64 and two absorbed decode steps in float32 compute on the rank's
+    blocks within ``TP_FP32_REL`` of the one-device steps' largest logit,
+    their bytes equal to ``count_step``'s for prefill and decode (beside
+    the last logits' all-gather). Recorded: ms a step, peak GB, parameters
+    and state GB a rank (the ranks share one card and its host: no scaling
+    figure), beside the card's name and power limit. ``spawned``:
+    :func:`run_card_ranks`'s results (one spawn of its own here where
+    None). Returns the launches by path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    free_memory()
+    pc = _process_cases()
+    cfg, opt = _mla_mesh_cfgs()
+    d, m = MLA_MESH
+    n = d * m
+    per_step = train_launches(cfg)
+    assert per_step == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                        "flash_bwd_dkv": 1}, per_step
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=MLA_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    by_path, results = {}, []
+    tmp = tempfile.mkdtemp(prefix="mesh_mla_")
+    try:
+        spawned = spawned or run_card_ranks(tmp, None, [
+            (n, (("mla", MLA_MESH),))])
+        r = spawned["mla", MLA_MESH]
+        serve = torch.load(r["serve_path"], weights_only=True)
+        free_memory()
+        t0 = time.perf_counter()
+        one_tr = Trainer(cfg, opt, data, TrainerConfig(
+            steps=TP_STEPS, log_every=1), device=DEV)
+        one_params = sum(t.numel() for t in tree_leaves(
+            one_tr.bundle.abstract_state["params"]))
+        one, one_launches, _, _, one_peak, one_ms, one_drops = _moe_run(
+            one_tr)
+        del one_tr
+        free_memory()
+        assert one_launches == {k: TP_STEPS * v
+                                for k, v in per_step.items()}, one_launches
+        cond = {"tp": r["conditioned"],
+                "one": _conditioned_one_step(cfg, opt, MLA_BATCH)}
+        one_serve, _ = _mla_serve(cfg)
+        emit("mesh_mla_one_device", gpu=smi, arch=cfg.name,
+             n_layers=cfg.n_layers, batch=MLA_BATCH, seq_len=TRAIN_SEQ,
+             params=one_params, log=one, drops=one_drops, step_ms=one_ms,
+             peak_gb=one_peak / 1e9, seconds=time.perf_counter() - t0)
+        assert r["backend"] == "gloo", r["backend"]
+        want = {k: TP_STEPS * v for k, v in per_step.items()}
+        assert all(x == want for x in r["launches_by_rank"]), r
+        launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                    for k in per_step}
+        heads = cfg.n_heads_padded // m
+        seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
+                for rank_geos in r["geometries_by_rank"]
+                for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
+        geometries = check_path_attention(
+            f"mesh_mla {MLA_MESH}", seen, MLA_BATCH, heads, 420, results)
+        got_log = r["log"]
+        rel = {k: abs(got_log[0][k] - one[0][k]) / abs(one[0][k])
+               for k in ("loss", "ce", "aux", "mtp")}
+        assert max(rel.values()) <= TP_LOSS_REL, (rel, got_log, one)
+        cond_rel = {k: abs(cond["tp"][k] - cond["one"][k])
+                    / abs(cond["one"][k]) for k in ("loss", "grad_norm")}
+        assert cond_rel["loss"] <= TP_LOSS_REL, cond
+        assert cond_rel["grad_norm"] <= TP_GRAD_REL, cond
+        fp32_rel, flips = check_witness(r["fp32"], d, m)
+        by_data = [r["drops_by_rank"][i:i + m] for i in range(0, n, m)]
+        assert all(b == b[:1] * m for b in by_data), r["drops_by_rank"]
+        drops = [sum(b[0][i] for b in by_data) for i in range(TP_STEPS)]
+        assert drops == one_drops, (drops, one_drops, r["drops_by_rank"])
+        st = dryrun.count_step(
+            cfg, ShapeConfig("train_2x2048", TRAIN_SEQ, MLA_BATCH, "train"),
+            make_mesh(d, m), target="cuda")
+        got = {k: v / TP_STEPS for k, v in pc.by_kind(
+            r["collectives"]).items()}
+        got["all-reduce"] -= pc.norm_bytes(d, m) \
+            + pc.metric_bytes(4, 4, d) * m
+        want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
+        assert set(got) == set(want_bytes) and all(
+            abs(got[k] - want_bytes[k]) <= n for k in got), (
+                got, want_bytes)
+        # the serve steps: logits against the one-device steps', bytes
+        # against the count of the same steps
+        scfg = dataclasses.replace(cfg, compute_dtype="float32")
+        serve_rel = [float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(serve, one_serve)]
+        assert max(serve_rel) <= TP_FP32_REL, serve_rel
+        gathered = m * (m - 1) * 2 * (cfg.vocab_size // m) * 4
+        serve_bytes = []
+        for i, c in enumerate(r["serve_collectives"]):
+            kind = "prefill" if i == 0 else "decode"
+            sst = dryrun.count_step(scfg, ShapeConfig(
+                kind, MLA_SERVE["prompt"], 2, kind), make_mesh(d, m),
+                target="cuda")
+            sgot = pc.by_kind(c)
+            swant = {"all-reduce": n * sst.collective_by_kind["all-reduce"],
+                     "all-gather": gathered}
+            assert set(sgot) == set(swant) and all(
+                abs(sgot[k] - swant[k]) <= n for k in sgot), (i, sgot, swant)
+            serve_bytes.append(sgot)
+        steady = [statistics.mean(x[1:]) for x in r["step_ms_by_rank"]]
+        emit("mesh_mla", gpu=smi, arch=cfg.name, mesh=list(MLA_MESH),
+             ranks=n, backend=r["backend"],
+             reduced={k: v for k, v in MLA_CUT}, n_layers=cfg.n_layers,
+             batch=MLA_BATCH, seq_len=TRAIN_SEQ, steps=TP_STEPS,
+             log=got_log, one_device_log=one, first_step_rel=rel,
+             conditioned=cond, conditioned_rel=cond_rel,
+             fp32_witness=r["fp32"], fp32_rel=fp32_rel, fp32_flips=flips,
+             fp32_limit=TP_FP32_REL,
+             witness_cut={**dict(MLA_WITNESS_CUT),
+                          "seq_len": MLA_WITNESS_SEQ},
+             witness_peak_gb_by_rank=r["witness_peak_gb_by_rank"],
+             drops_by_rank=r["drops_by_rank"], drops=drops,
+             one_device_drops=one_drops, launches=launches,
+             launches_per_rank_step=per_step, geometries=geometries,
+             rows_per_launch=MLA_BATCH, heads_per_launch=heads,
+             collectives=r["collectives"], bytes_per_step=got,
+             count_step_bytes=want_bytes, serve_rel=serve_rel,
+             serve_bytes=serve_bytes, serve=MLA_SERVE,
+             step_ms_by_rank=r["step_ms_by_rank"],
+             steady_step_ms_by_rank=steady,
+             peak_gb_by_rank=r["peak_gb_by_rank"],
+             params_by_rank=r["params_by_rank"],
+             state_gb_by_rank=r["state_gb_by_rank"],
+             one_device_params=one_params, one_device_step_ms=one_ms,
+             one_device_peak_gb=one_peak / 1e9, seconds=r["seconds"])
+        by_path[f"mesh_mla {MLA_MESH}"] = launches
+        free_memory()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("mesh_mla_done", seconds=time.perf_counter() - t_phase)
     return by_path
 
 
@@ -5715,7 +6194,7 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     ``multiprecision``, ``attention_long``'s rows and gates), phases 33
     and 35's (``mesh_pipeline``, ``mesh_train``), phase 37's counted
     step (``dryrun``), phase 38's NCCL step, summed over its ranks
-    (``mesh_processes``), and phases 39-41's steps, summed over their
+    (``mesh_processes``), and phases 39-42's steps, summed over their
     ranks: every row adds those that launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
@@ -5920,12 +6399,14 @@ def main():
     try:
         one = one_device_record(tmp)       # phases 39 and 40 hold to it
         free_memory()
-        spawned = run_card_ranks(tmp, one[1])   # phases 39-41's ranks
+        spawned = run_card_ranks(tmp, one[1])   # phases 39-42's ranks
         surface.update(phase_mesh_tensor_parallel(smi, one, spawned))
         free_memory()
         surface.update(phase_mesh_fsdp(smi, one, spawned))
         free_memory()
         surface.update(phase_mesh_moe(smi, spawned))
+        free_memory()
+        surface.update(phase_mesh_mla(smi, spawned))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -26,7 +26,8 @@ takes the absorbed form, scoring and summing in the latent space. Its
 products are plain ``torch.einsum`` calls, as the reference's are plain
 einsums outside any Pallas kernel. Under a mesh context
 (:func:`set_mesh_ctx`) a prefill runs the chunked loop lane-local
-(:func:`mla_chunked`).
+(:func:`mla_chunked`); a tensor-parallel rank runs its own heads
+(:func:`mla_attention`'s ``tp``).
 
 Convention (shared with the reference and its kernel): rows with NO valid
 key output zeros.
@@ -49,6 +50,7 @@ from repro_torch.core import compat, step_analysis
 from repro_torch.core.compat import PartitionSpec as PS
 from repro_torch.models.layers import (P, apply_rope, repeat_kv, rms_norm,
                                        rotary_embedding, widen)
+from repro_torch.models.sharding import around_split
 
 NEG_INF = -1e30
 CHUNK_THRESHOLD = 2048  # use chunked attention when kv_len exceeds this
@@ -606,7 +608,8 @@ def _mla_chunked(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, q_pos, kv_valid,
 
 
 def mla_attention(cfg: ArchConfig, p: dict, x, positions, *,
-                  cache: Optional[dict] = None, prefill_from_zero=False):
+                  cache: Optional[dict] = None, prefill_from_zero=False,
+                  tp=None):
     """Multi-head Latent Attention.
 
     No cache and prefill: the expanded form. Decode (a cache and one new
@@ -614,6 +617,18 @@ def mla_attention(cfg: ArchConfig, p: dict, x, positions, *,
     compressed kv_lora space, so the cache is ``c_kv`` (B, Smax, kv_lora)
     and ``k_rope`` (B, Smax, rope) whatever the head count. The cache's two
     tensors are written in place (:func:`write_rows`) and returned.
+
+    ``tp`` (``models.sharding.TensorParallel``): ``p`` holds the rank's
+    heads of ``wq_b``, ``wkv_b`` and ``wo`` and the latent projections and
+    norms whole (the reference's rules put ``q_lora`` / ``kv_lora`` on the
+    FSDP axis, None without FSDP); the rank attends with its heads over
+    the whole latent cache, Megatron's ``copy_to`` on the head-split
+    work's three inputs (``q_lat``, ``c_kv``, ``k_rope``: their cotangents
+    all-reduced, ``q_lora + kv_lora + rope`` values a token) and
+    ``reduce_from`` after ``wo``. Its chunked loop is never the lane-local
+    ``shard_map``: the rank already holds its heads. On a stacked mesh
+    whose model axis splits the heads, the same pair is counted
+    (``models.sharding.around_split``), as the ranks run it.
     """
     m = cfg.mla
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
@@ -624,57 +639,77 @@ def mla_attention(cfg: ArchConfig, p: dict, x, positions, *,
 
     q_lat = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(x.dtype)),
                      p["q_norm"], cfg.norm_eps)
-    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"].to(x.dtype))
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-
     kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"].to(x.dtype))
     c_kv = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     k_rope = kv_a[..., m.kv_lora_rank:]
-
     cos, sin = rotary_embedding(positions, rope, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
-    wkv_b = p["wkv_b"].to(x.dtype)
 
-    if cache is None:
-        out = _mla_triangular(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b,
-                              positions)
-        new_cache = None
-    else:
-        w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
-        ckv = write_rows(cache["c_kv"], c_kv, cache["lengths"])
-        ckr = write_rows(cache["k_rope"], k_rope, cache["lengths"])
-        new_cache = {"c_kv": ckv, "k_rope": ckr}
-        t_len = ckv.shape[1]
-        kv_valid = torch.arange(t_len, dtype=torch.int32,
-                                device=x.device)[None, :] \
-            <= positions[:, -1:]
-        ckv_x, ckr_x = ckv.to(x.dtype), ckr.to(x.dtype)
-
-        if x.shape[1] > 1:
-            # prefill: chunked attention over the updated compressed cache;
-            # a from-zero prefill that fills the cache walks the triangle
-            if prefill_from_zero and x.shape[1] == t_len:
-                out = _mla_triangular(cfg, q_nope, q_rope, ckv_x, ckr_x,
-                                      wkv_b, positions, lane_local=True)
-            else:
-                out = mla_chunked(cfg, q_nope, q_rope, ckv_x, ckr_x, wkv_b,
-                                  positions, kv_valid, lane_local=True)
-        else:
-            # absorbed single-token decode: O(kv_lora) per cached token;
-            # a partitioner gathers and reduces its scores over model
-            step_analysis.short("collective: mla decode gathers",
-                                step_analysis.MODEL_AXIS)
-            q_c = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)  # absorb W_UK
-            s = torch.einsum("bshr,btr->bhst", widen(q_c), widen(ckv_x))
-            s = s + torch.einsum("bshk,btk->bhst", widen(q_rope),
-                                 widen(ckr_x))
-            s = s * (1.0 / math.sqrt(nope + rope))
-            s = torch.where(kv_valid[:, None, None, :], s,
-                            torch.full_like(s, NEG_INF))
-            pr = torch.softmax(s, dim=-1).to(x.dtype)
-            o_c = torch.einsum("bhst,btr->bshr", pr, ckv_x)
-            out = torch.einsum("bshr,rhk->bshk", o_c, w_uv)
-
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    ctx, share = _MESH_CTX, 1.0
+    if tp is None and ctx is not None and ctx.mesh is not None:
+        # each rank of a stacked mesh holds its rows of the batch; where
+        # the model axis does not divide the heads, the reference
+        # replicates them and nothing is split
+        share = ctx.n_lanes / math.prod(ctx.axis_sizes.values())
+        ctx = ctx if cfg.n_heads % ctx.n_lanes == 0 else None
+    into, out_of, scope = around_split(ctx, tp, share)
+    with scope:
+        q = torch.einsum("bsr,rhk->bshk", into(q_lat),
+                         p["wq_b"].to(x.dtype))
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+        q_rope = apply_rope(q_rope, cos, sin)
+        c_kv, k_rope = into(c_kv), into(k_rope)
+        wkv_b = p["wkv_b"].to(x.dtype)
+        out, new_cache = _mla_heads(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b,
+                                    positions, cache, prefill_from_zero,
+                                    lane_local=tp is None)
+        out = out_of(torch.einsum("bshk,hkd->bsd", out,
+                                  p["wo"].to(x.dtype)))
     return out, new_cache
+
+
+def _mla_heads(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b, positions, cache,
+               prefill_from_zero, lane_local):
+    """MLA's attention over the heads of ``q_nope`` / ``q_rope`` and
+    ``wkv_b`` (all of them, or a tensor-parallel rank's): (out (B,S,H,v),
+    the cache's two tensors written in place, or None without a cache).
+    ``lane_local``: a prefill may take :func:`mla_chunked`'s lane-local
+    route."""
+    m = cfg.mla
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    if cache is None:
+        return _mla_triangular(cfg, q_nope, q_rope, c_kv, k_rope, wkv_b,
+                               positions), None
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    ckv = write_rows(cache["c_kv"], c_kv, cache["lengths"])
+    ckr = write_rows(cache["k_rope"], k_rope, cache["lengths"])
+    new_cache = {"c_kv": ckv, "k_rope": ckr}
+    t_len = ckv.shape[1]
+    kv_valid = torch.arange(t_len, dtype=torch.int32,
+                            device=q_nope.device)[None, :] \
+        <= positions[:, -1:]
+    ckv_x, ckr_x = ckv.to(q_nope.dtype), ckr.to(q_nope.dtype)
+
+    if q_nope.shape[1] > 1:
+        # prefill: chunked attention over the updated compressed cache; a
+        # from-zero prefill that fills the cache walks the triangle
+        if prefill_from_zero and q_nope.shape[1] == t_len:
+            return _mla_triangular(cfg, q_nope, q_rope, ckv_x, ckr_x, wkv_b,
+                                   positions, lane_local=lane_local), \
+                new_cache
+        return mla_chunked(cfg, q_nope, q_rope, ckv_x, ckr_x, wkv_b,
+                           positions, kv_valid,
+                           lane_local=lane_local), new_cache
+    # absorbed single-token decode: O(kv_lora) per cached token; a
+    # partitioner gathers and reduces its scores over model
+    step_analysis.short("collective: mla decode gathers",
+                        step_analysis.MODEL_AXIS)
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)      # absorb W_UK
+    s = torch.einsum("bshr,btr->bhst", widen(q_c), widen(ckv_x))
+    s = s + torch.einsum("bshk,btk->bhst", widen(q_rope), widen(ckr_x))
+    s = s * (1.0 / math.sqrt(nope + rope))
+    s = torch.where(kv_valid[:, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    pr = torch.softmax(s, dim=-1).to(q_nope.dtype)
+    o_c = torch.einsum("bhst,btr->bshr", pr, ckv_x)
+    return torch.einsum("bshr,rhk->bshk", o_c, w_uv), new_cache

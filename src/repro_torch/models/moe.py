@@ -10,7 +10,9 @@
    the global batch's: the ranks gather each other's per-expert counts,
    and each claims its slots after the ranks before it; with ``model >
    1`` each rank runs its ``experts_ffn`` block of every expert
-   (Megatron's pairing, as the dense FFN).
+   (Megatron's pairing, as the dense FFN), or, where the config splits
+   the experts over ``model`` (``expert_parallel``), its block of the
+   experts whole.
 2. ``moe_ep_shard_map``: expert parallelism — experts sharded over the
    mesh's ``model`` (lane) axis, tokens over every axis, moved to the lane
    that owns their expert by ``all_to_all``, computed there and moved back,
@@ -27,7 +29,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,21 +38,32 @@ from repro_torch.core import compat, step_analysis
 from repro_torch.core.compat import PartitionSpec as PS
 from repro_torch.models.layers import P, activation_fn
 from repro_torch.models.mlp import mlp
-from repro_torch.models.sharding import MeshCtx
+from repro_torch.models.sharding import MeshCtx, around_split, held_experts
 
 DENSE_PATH_MAX_TOKENS = 16384   # below this, one-hot dispatch is cheaper
 EP_CHUNK_TOKENS = 8192          # strip-mine unit for the EP a2a pipeline
-# a list to which each one-hot dispatch appends (pairs, kept) of the
-# tokens it holds: the int count of token-choice pairs and a 0-d device
-# tensor of those that found a slot (the rest are dropped); a checkpoint's
-# recompute appends nothing. None: nothing is recorded.
+# a list to which each one-hot dispatch appends a :class:`Dispatch` of the
+# tokens it holds; a checkpoint's recompute appends nothing. None: nothing
+# is recorded.
 DISPATCH_LOG: Optional[list] = None
+
+
+class Dispatch(NamedTuple):
+    """One one-hot dispatch of :data:`DISPATCH_LOG`: the int count of
+    token-choice pairs of the tokens it held, a 0-d device tensor of
+    those that found a slot (the rest are dropped), the (T, k) expert ids
+    those tokens chose (in token order) and the group's slots an
+    expert."""
+    pairs: int
+    kept: torch.Tensor
+    ids: torch.Tensor
+    capacity: int
 
 
 def dropped_pairs(log) -> int:
     """The pairs that the dispatches of a ``DISPATCH_LOG`` list dropped
     (it reads each kept count: a wait for the device)."""
-    return int(sum(n - float(kept) for n, kept in log))
+    return int(sum(d.pairs - float(d.kept) for d in log))
 
 
 def moe_template(cfg: ArchConfig) -> dict:
@@ -127,16 +140,18 @@ def _route(x_tokens, router_w, top_k: int, n_experts: int):
 
 
 def _dispatch_combine(ids, gates, group_len, top_k, n_experts, capacity,
-                      offset=None):
+                      offset=None, experts=None):
     """Build the (Sg, E, C) dispatch (0/1) and combine (gated) tensors of
     one group from its ids and gates (Sg, k); leading dimensions before
-    them are groups, computed at once. Token-choice pairs claim an expert's
-    slots in token order (a token's own choices are of distinct experts);
-    a pair whose slot index reaches ``capacity`` is dropped: its slot
-    one-hot is all zeros. ``offset`` (E,): the slots of each expert that
-    the group's earlier tokens, held elsewhere, have claimed (a group
-    spanning the ranks of a process mesh); the pairs here claim the slots
-    after them.
+    them are groups, computed at once. ``experts``: the global indices of
+    the E experts whose columns are built (a range, by default all
+    ``n_experts``; each expert's slots depend on its own column alone).
+    Token-choice pairs claim an expert's slots in token order (a token's
+    own choices are of distinct experts); a pair whose slot index reaches
+    ``capacity`` is dropped: its slot one-hot is all zeros. ``offset``
+    (E,): the slots of each of those experts that the group's earlier
+    tokens, held elsewhere, have claimed (a group spanning the ranks of a
+    process mesh); the pairs here claim the slots after them.
 
     The reference forms the (Sg, k, E, C) product of the two one-hots and
     sums over k; here one product over k does both (``einsum``). A token
@@ -144,9 +159,10 @@ def _dispatch_combine(ids, gates, group_len, top_k, n_experts, capacity,
     way and the two agree exactly, without the k-fold intermediate (8.6 GB
     for 2048 tokens of deepseek-v3-671b at capacity factor 8)."""
     dev, lead = ids.device, ids.shape[:-2]
-    sel = (ids.long()[..., None]
-           == torch.arange(n_experts, device=dev)).to(gates.dtype)  # (Sg,k,E)
-    flat = sel.reshape(lead + (group_len * top_k, n_experts))    # token-major
+    experts = range(n_experts) if experts is None else experts
+    sel = (ids.long()[..., None] == torch.arange(
+        experts.start, experts.stop, device=dev)).to(gates.dtype)  # (Sg,k,E)
+    flat = sel.reshape(lead + (group_len * top_k, len(experts)))  # token-major
     pos = torch.cumsum(flat, dim=-2) - flat                         # (P,E)
     if offset is not None:
         pos = pos + offset.to(pos.dtype)
@@ -208,10 +224,17 @@ def moe_dense_dispatch(cfg: ArchConfig, p: dict, x_tokens, *,
     before the rank's claimed, is below the group's capacity: the
     reference's one group exactly, each rank computing its own tokens;
     groups of 64 must lie inside the rank's rows. ``tp``
-    (``models.sharding.TensorParallel``): ``p`` holds the rank's
-    ``experts_ffn`` columns of ``w_gate`` / ``w_up`` and rows of
-    ``w_down``; Megatron's ``copy_to`` at each column-split product's
-    input, ``reduce_from`` on the (G,E,C,d) buffer after ``w_down``."""
+    (``models.sharding.TensorParallel``), where the model axis splits each
+    expert's FFN: ``p`` holds the rank's ``experts_ffn`` columns of
+    ``w_gate`` / ``w_up`` and rows of ``w_down``; Megatron's ``copy_to``
+    at each column-split product's input, ``reduce_from`` on the (G,E,C,d)
+    buffer after ``w_down``. Where it splits the experts
+    (``expert_parallel``): ``p`` holds the rank's block of experts; the
+    routing, the aux loss and the per-expert counts stay whole on every
+    rank, the rank builds its experts' columns of the dispatch and
+    combine and runs its experts' products, between ``copy_to`` on the
+    tokens and their gates and ``reduce_from`` on the combined (T, d)
+    output."""
     m = cfg.moe
     t_len, d = x_tokens.shape
     act = activation_fn(cfg.activation)
@@ -257,54 +280,54 @@ def moe_dense_dispatch(cfg: ArchConfig, p: dict, x_tokens, *,
         raise ValueError(f"moe_dense_dispatch: {t_len} tokens do not form "
                          f"whole groups of {sg}")
 
-    xg = x_tokens.reshape(n_groups, sg, d)
     idsg = ids.reshape(n_groups, sg, m.top_k)
-    gatesg = gates.reshape(n_groups, sg, m.top_k)
-    dispatch, combine = _dispatch_combine(idsg, gatesg, sg, m.top_k,
-                                          m.n_experts, capacity, offset)
     if DISPATCH_LOG is not None \
             and torch._C._current_autograd_node() is None:
-        DISPATCH_LOG.append((t_len * m.top_k, dispatch.detach().sum()))
-    dispatch = dispatch.to(x_tokens.dtype)
-    combine = combine.to(x_tokens.dtype)
+        # each expert of each group keeps the pairs that find a slot
+        room = torch.tensor(capacity, device=ids.device) if offset is None \
+            else (capacity - offset).clamp_min(0)
+        DISPATCH_LOG.append(Dispatch(t_len * m.top_k, torch.minimum(
+            _expert_counts(idsg, m.n_experts), room).sum(), ids.detach(),
+            capacity))
+    experts = held_experts(cfg, tp, p["w_gate"].shape[0])
+    if offset is not None:
+        offset = offset[experts.start:experts.stop]
+    # where the model axis splits the experts, Megatron's pair joins the
+    # ranks' experts around the tokens (their gates too: a pair's gate
+    # meets its expert's output on one rank); where it splits each
+    # expert's FFN, around the buffer's expert products
+    identity = (lambda t: t), (lambda t: t), contextlib.nullcontext()
+    if m.expert_parallel:
+        tok_in, tok_out, tok_scope = around_split(ctx, tp, 1 / n_blocks)
+        buf_in, buf_out, buf_scope = identity
+    else:
+        tok_in, tok_out, tok_scope = identity
+        buf_in, buf_out, buf_scope = around_split(
+            ctx, tp, 1.0 if spans else 1 / n_blocks)
+    with tok_scope:
+        xg = tok_in(x_tokens).reshape(n_groups, sg, d)
+        gatesg = tok_in(gates).reshape(n_groups, sg, m.top_k)
+        dispatch, combine = _dispatch_combine(idsg, gatesg, sg, m.top_k,
+                                              m.n_experts, capacity, offset,
+                                              experts)
+        dispatch = dispatch.to(x_tokens.dtype)
+        combine = combine.to(x_tokens.dtype)
 
-    buf = torch.einsum("gsec,gsd->gecd", dispatch, xg)           # (G,E,C,d)
-    into, out, scope = _around_experts(cfg, ctx, tp,
-                                       1.0 if spans else 1 / n_blocks)
-    with scope:
-        w_gate = p["w_gate"][:m.n_experts]
-        w_up = p["w_up"][:m.n_experts]
-        w_down = p["w_down"][:m.n_experts]
-        gate_h = torch.einsum("gecd,edf->gecf", into(buf),
-                              w_gate.to(buf.dtype))
-        up_h = torch.einsum("gecd,edf->gecf", into(buf), w_up.to(buf.dtype))
-        hidden = act(gate_h) * up_h
-        out_buf = out(torch.einsum("gecf,efd->gecd", hidden,
-                                   w_down.to(buf.dtype)))
-    y = torch.einsum("gsec,gecd->gsd", combine, out_buf)
-    return y.reshape(t_len, d), aux
-
-
-def _around_experts(cfg: ArchConfig, ctx: Optional[MeshCtx], tp,
-                    share: float) -> tuple:
-    """(into, out, scope) around the one-hot dispatch's expert products:
-    Megatron's ``copy_to`` / ``reduce_from`` on a tensor-parallel rank
-    (``tp``); on the stacked route with the experts' FFN split over a
-    model axis above 1, ``core.compat``'s counted identities (each rank
-    holding ``share`` of the buffer) inside ``step_analysis.explicit``, so
-    that a count of the step takes the ranks' all-reduces of the whole
-    buffer in place of the ones it would derive for a buffer split over
-    the batch axes; identities elsewhere."""
-    if tp is not None:
-        return tp.copy, tp.reduce, contextlib.nullcontext()
-    if ctx is not None and ctx.mesh is not None and ctx.n_lanes > 1 \
-            and not cfg.moe.expert_parallel \
-            and not compat.is_process_mesh(ctx.mesh):
-        mesh, axis = ctx.mesh, ctx.model_axis
-        return (lambda t: compat.copy_to(t, mesh, axis, share),
-                lambda t: compat.reduce_from(t, mesh, axis, share),
-                step_analysis.explicit())
-    return (lambda t: t), (lambda t: t), contextlib.nullcontext()
+        buf = torch.einsum("gsec,gsd->gecd", dispatch, xg)       # (G,E,C,d)
+        with buf_scope:
+            w_gate = p["w_gate"][:len(experts)]
+            w_up = p["w_up"][:len(experts)]
+            w_down = p["w_down"][:len(experts)]
+            gate_h = torch.einsum("gecd,edf->gecf", buf_in(buf),
+                                  w_gate.to(buf.dtype))
+            up_h = torch.einsum("gecd,edf->gecf", buf_in(buf),
+                                w_up.to(buf.dtype))
+            hidden = act(gate_h) * up_h
+            out_buf = buf_out(torch.einsum("gecf,efd->gecd", hidden,
+                                           w_down.to(buf.dtype)))
+        y = torch.einsum("gsec,gecd->gsd", combine, out_buf)
+        y = tok_out(y.reshape(t_len, d))
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -429,16 +452,19 @@ def _ep_device_fn(cfg: ArchConfig, n_lanes: int, model_axis: str,
     return y, aux
 
 
-def moe_ep_shard_map(cfg: ArchConfig, p: dict, x_tokens, ctx: MeshCtx):
+def moe_ep_shard_map(cfg: ArchConfig, p: dict, x_tokens, ctx: MeshCtx,
+                     held: bool = False):
     """x_tokens (T, d) -> (T, d), aux. Experts sharded over the lane axis;
     tokens over every mesh axis (lanes included) so routing work is not
     duplicated. A token count or expert table that the mesh does not
-    divide raises ``ValueError`` (``moe_block``'s gate never sends one)."""
+    divide raises ``ValueError`` (``moe_block``'s gate never sends one).
+    ``held``: ``p``'s expert tables are already the rank's lane block (a
+    tensor-parallel rank of a process mesh), taken as they are."""
     mesh = ctx.mesh
     all_axes = tuple(mesh.axis_names)
     fn = functools.partial(_ep_device_fn, cfg, ctx.n_lanes, ctx.model_axis,
                            all_axes)
-    lane = PS(ctx.model_axis, None, None)
+    lane = PS(None if held else ctx.model_axis, None, None)
     y, aux = compat.shard_map(
         fn, mesh=mesh,
         in_specs=(PS(all_axes, None), PS(None, None), lane, lane, lane),
@@ -464,8 +490,11 @@ def moe_block(cfg: ArchConfig, p: dict, x, ctx: Optional[MeshCtx] = None,
     every token (SiLU whatever ``cfg.activation`` is, as in the
     reference). ``tp``: the rank's ``models.sharding.TensorParallel`` (its
     blocks of ``p``), or None. On a process mesh the expert-parallel route
-    raises ``NotImplementedError`` where the rank holds blocks of the
-    expert tables or of the batch."""
+    serves with the rank's block of the experts where the model axis
+    splits them (``expert_parallel``) and the rank holds the whole batch;
+    it raises ``NotImplementedError`` in training where the rank holds
+    blocks of the expert tables or of the batch, and in serving where it
+    holds blocks of the experts' FFN or of the batch."""
     m = cfg.moe
     b, s, d = x.shape
     x_tokens = x.reshape(b * s, d)
@@ -479,16 +508,26 @@ def moe_block(cfg: ArchConfig, p: dict, x, ctx: Optional[MeshCtx] = None,
         and n_tokens >= DENSE_PATH_MAX_TOKENS
         and n_tokens % n_dev == 0 and n_tokens // n_dev >= 1
     )
+    held = use_ep and tp is not None and m.expert_parallel
     if use_ep and compat.is_process_mesh(ctx.mesh) \
             and (tp is not None or blocks[2] > 1):
-        raise NotImplementedError(
-            f"{cfg.name} on a process mesh: {n_tokens} tokens at "
-            f"{ctx.model_axis}={ctx.n_lanes} take the expert-parallel route, "
-            f"which needs each rank's experts_ffn blocks re-laid as experts "
-            f"blocks; the EP route in training over processes (ROADMAP "
-            f"Queue A, A13c item 2.3b) is not ported")
+        train = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, p["router"], p["w_gate"]))
+        if train or not held or blocks[2] > 1:
+            why = ""
+            if not m.expert_parallel:
+                why = ", which needs each rank's experts_ffn blocks " \
+                      "re-laid as experts blocks"
+            elif blocks[2] > 1 and not train:
+                why = ", which needs the data ranks' rows gathered"
+            raise NotImplementedError(
+                f"{cfg.name} on a process mesh: {n_tokens} tokens at "
+                f"{ctx.model_axis}={ctx.n_lanes} take the expert-parallel "
+                f"route{why}; the EP route in "
+                f"{'training' if train else 'serving'} over processes "
+                f"(ROADMAP Queue A, A13c item 2.3b) is not ported")
     if use_ep:
-        y, aux = moe_ep_shard_map(cfg, p, x_tokens, ctx)
+        y, aux = moe_ep_shard_map(cfg, p, x_tokens, ctx, held)
     else:
         y, aux = moe_dense_dispatch(cfg, p, x_tokens, ctx=ctx, rows=b,
                                     tp=tp)

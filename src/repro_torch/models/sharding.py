@@ -13,6 +13,7 @@ the batch axes).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import weakref
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import compat
+from repro_torch.core import compat, step_analysis
 from repro_torch.core.compat import PartitionSpec, entry_axes
 from repro_torch.models.layers import (Rules, abstract_params, param_specs,
                                        tree_map)
@@ -205,9 +206,10 @@ def gather_params(tree, specs, mesh):
 class TensorParallel:
     """The ``model`` axis of a process mesh, as a rank's forward sees it:
     the rank holds its block of every leaf that the axis splits (heads,
-    kv heads, ffn, the experts' ffn, vocab), and Megatron's operators join
-    the blocks' products (``core.compat.copy_to`` at the input of a
-    product split by columns, ``reduce_from`` after one split by rows).
+    kv heads, ffn, the experts or their ffn, vocab), and Megatron's
+    operators join the blocks' products (``core.compat.copy_to`` at the
+    input of a product split by columns, ``reduce_from`` after one split
+    by rows).
     ``vocab``: whether the axis splits the vocab; where it does not divide
     it, the rank holds the table (and the head) whole, as the reference's
     sanitized spec replicates it, and the lookup, the head and the
@@ -242,6 +244,38 @@ class TensorParallel:
         return self.index * local
 
 
+def around_split(ctx: Optional[MeshCtx], tp: Optional[TensorParallel],
+                 share: float = 1.0) -> tuple:
+    """(into, out, scope) around work that the model axis splits by its
+    tables' blocks: Megatron's ``copy_to`` / ``reduce_from`` on a
+    tensor-parallel rank (``tp``); on a stacked mesh (tensor dimensions on
+    one device, ``core.staging.Mesh``) whose model axis is above 1,
+    ``core.compat``'s counted identities (each rank holding ``share`` of
+    the tensor) inside ``step_analysis.explicit``, so that a count of the
+    step takes the ranks' all-reduces in place of the ones it would derive
+    from the split tables; identities elsewhere."""
+    if tp is not None:
+        return tp.copy, tp.reduce, contextlib.nullcontext()
+    if ctx is not None and ctx.mesh is not None and ctx.n_lanes > 1 \
+            and not compat.is_process_mesh(ctx.mesh):
+        mesh, axis = ctx.mesh, ctx.model_axis
+        return (lambda t: compat.copy_to(t, mesh, axis, share),
+                lambda t: compat.reduce_from(t, mesh, axis, share),
+                step_analysis.explicit())
+    return (lambda t: t), (lambda t: t), contextlib.nullcontext()
+
+
+def held_experts(cfg: ArchConfig, tp: Optional[TensorParallel],
+                 n_local: int) -> range:
+    """The global indices of the live experts among the ``n_local`` rows of
+    a rank's expert tables: the first ``n_experts`` of the (padded)
+    tables, or, on a rank whose model axis splits the experts
+    (``expert_parallel`` under ``tp``), the live ones of its block."""
+    start = tp.start(n_local) if tp is not None \
+        and cfg.moe.expert_parallel else 0
+    return range(start, max(start, min(start + n_local, cfg.moe.n_experts)))
+
+
 def vocab_split(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
     """``tp`` where it splits the vocab, else None (one device, or the
     table whole on every rank)."""
@@ -250,22 +284,21 @@ def vocab_split(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
 
 def _tp_family(cfg: ArchConfig) -> bool:
     """Whether the tensor-parallel route over processes runs ``cfg``: the
-    dense family, and the MoE family without MLA whose experts' FFN the
-    model axis splits (``expert_parallel=False``: the one-hot dispatch,
-    each expert's FFN split as the dense FFN)."""
-    return cfg.family == "dense" or (cfg.is_moe and not cfg.use_mla
-                                     and not cfg.moe.expert_parallel)
+    dense family, and the MoE family, with GQA or MLA, whether the model
+    axis splits its experts' FFN (``expert_parallel=False``: each expert's
+    FFN split as the dense FFN) or its experts (``expert_parallel=True``:
+    each rank the block of experts the reference's rules give it), on the
+    one-hot dispatch (``models.moe.moe_block`` refuses the EP route)."""
+    return cfg.family in ("dense", "moe")
 
 
 def tensor_parallel(cfg: ArchConfig,
                     ctx: Optional[MeshCtx]) -> Optional[TensorParallel]:
     """The rank's :class:`TensorParallel` where ``ctx`` holds a process mesh
-    whose model axis is above 1 and ``cfg`` is of the dense family or a
-    MoE model without MLA whose experts' FFN the axis splits; None
-    otherwise (one device, the stacked route, a data-parallel mesh of
-    processes, or another family, whose forward on a process mesh keeps
-    the global parameters and runs its ``shard_map`` bodies over the
-    processes: MLA's lane-local prefill)."""
+    whose model axis is above 1 and ``cfg`` is of the dense or the MoE
+    family; None otherwise (one device, the stacked route, a data-parallel
+    mesh of processes, or another family, whose forward on a process mesh
+    keeps the global parameters)."""
     if ctx is None or not compat.is_process_mesh(ctx.mesh) \
             or ctx.n_lanes == 1 or not _tp_family(cfg):
         return None
@@ -275,8 +308,6 @@ def tensor_parallel(cfg: ArchConfig,
 
 # which queue item ports each other family's tensor-parallel train step
 TP_QUEUE = {
-    "moe": "MLA under model, FSDP of the MoE family and the EP route over "
-           "processes (ROADMAP Queue A, A13c item 2.3b)",
     "ssm": "the SSM and hybrid blocks under model over processes (ROADMAP "
            "Queue A, A13c item 2.6)",
     "vlm": "the cross layers under model over processes (ROADMAP Queue A, "
@@ -288,7 +319,9 @@ TP_QUEUE.update(hybrid=TP_QUEUE["ssm"], audio=TP_QUEUE["vlm"])
 def _split_widths(cfg: ArchConfig) -> dict:
     """The widths of ``cfg``'s leaves that the model axis splits (the kv
     heads and the vocab aside): heads, the dense FFN's columns where the
-    model has dense FFNs, and the experts' and shared experts'."""
+    model has dense FFNs, the experts (``expert_parallel``) or the
+    experts' FFN (else), as the reference's rules put them on ``model``,
+    and the shared experts' FFN."""
     out = {"heads": cfg.n_heads_padded}
     if not cfg.is_moe:
         out["ffn"] = cfg.d_ff
@@ -296,7 +329,10 @@ def _split_widths(cfg: ArchConfig) -> dict:
     m = cfg.moe
     if m.n_dense_layers or cfg.mtp_depth:
         out["ffn"] = m.dense_d_ff or cfg.d_ff
-    out["experts_ffn"] = m.expert_d_ff
+    if m.expert_parallel:
+        out["experts"] = m.n_experts_padded
+    else:
+        out["experts_ffn"] = m.expert_d_ff
     if m.n_shared_experts:
         out["shared ffn"] = m.expert_d_ff * m.n_shared_experts
     return out
@@ -306,11 +342,11 @@ def check_tensor_parallel(cfg: ArchConfig, ctx: Optional[MeshCtx],
                           cache: bool = False, train: bool = False):
     """Raises ``NotImplementedError``, naming its queue item, for a layout
     that the tensor-parallel route over processes does not take: with
-    ``train`` any family but dense and MoE without MLA whose experts'
-    FFN the axis splits (``TP_QUEUE``); a leaf split over model that the
-    axis does not divide (other than the kv heads, which a rank then reads
-    whole, and the vocab, which it then holds whole); with ``cache`` a KV
-    cache split over ``kv_seq``.
+    ``train`` any family but dense and MoE (``TP_QUEUE``); a leaf split
+    over model that the axis does not divide (other than the kv heads,
+    which a rank then reads whole, and the vocab, which it then holds
+    whole); with ``cache`` a KV cache split over ``kv_seq`` (MLA's latent
+    cache has no head axis: every rank holds it whole).
     Nothing off a process mesh with a model axis above 1."""
     if ctx is None or not compat.is_process_mesh(ctx.mesh) \
             or ctx.n_lanes == 1:
@@ -320,18 +356,16 @@ def check_tensor_parallel(cfg: ArchConfig, ctx: Optional[MeshCtx],
     if not _tp_family(cfg):
         if not train:
             return
-        what = "MLA's latent attention" if cfg.use_mla else \
-            "the experts split over it" if cfg.is_moe else \
-            f"the {cfg.family} family"
-        raise NotImplementedError(f"{head}: {what} under the model axis; "
-                                  f"{TP_QUEUE[cfg.family]} is not ported")
+        raise NotImplementedError(f"{head}: the {cfg.family} family under "
+                                  f"the model axis; {TP_QUEUE[cfg.family]} "
+                                  f"is not ported")
     odd = [f"{k} {n}" for k, n in _split_widths(cfg).items() if n % m]
     if odd:
         raise NotImplementedError(
             f"{head}: {', '.join(odd)} do not split over {m} ranks; a rank "
             f"holding a leaf that the model axis should split whole "
             f"(ROADMAP Queue A, A13c item 2.6) is not ported")
-    if cache and cfg.n_kv_heads % m:
+    if cache and not cfg.use_mla and cfg.n_kv_heads % m:
         raise NotImplementedError(
             f"{head}: {cfg.n_kv_heads} kv heads do not split over {m} "
             f"ranks, so the reference splits the KV cache over kv_seq "
@@ -498,7 +532,8 @@ def fsdp_split(cfg: ArchConfig, ctx: Optional[MeshCtx]) -> Optional[Fsdp]:
 
 # which queue item ports FSDP over processes of each other family
 FSDP_QUEUE = {
-    "moe": TP_QUEUE["moe"],
+    "moe": "FSDP of the MoE family, the EP route in training and MoE "
+           "micro-batches over data ranks (ROADMAP Queue A, A13c item 2.3b)",
     "other": "FSDP of the SSM, hybrid, vision and encoder-decoder families "
              "and of the serving engine over processes (ROADMAP Queue A, "
              "A13c item 2.2b)",

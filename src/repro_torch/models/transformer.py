@@ -35,13 +35,14 @@ with it (``moe.moe_block``) and MLA's prefill its lane-local one
 (``attention.set_mesh_ctx``), each on a mesh held as tensor dimensions on
 one device (``core/compat.py``); everything else is the same math with or
 without a mesh. On a mesh of processes whose ``model`` axis is above 1
-(``models.sharding.tensor_parallel``) the dense family and the MoE family
-without MLA run tensor-parallel on the rank's blocks of the parameters:
-the lookup into its vocab block of the embedding, masked and
-all-reduced; the attention heads, the FFN columns (each expert's, in
-``moe.moe_dense_dispatch``) and the head's vocab columns of its own,
-between Megatron's ``copy_to`` / ``reduce_from``; the logits its vocab
-block of them, and the cross-entropy vocab-parallel (:func:`_ce`). Where
+(``models.sharding.tensor_parallel``) the dense and the MoE families run
+tensor-parallel on the rank's blocks of the parameters: the lookup into
+its vocab block of the embedding, masked and all-reduced; the attention
+heads (GQA's, or MLA's over the whole latent cache), the FFN columns, the
+experts or each expert's FFN columns (``moe.moe_dense_dispatch``) and the
+head's vocab columns of its own, between Megatron's ``copy_to`` /
+``reduce_from``; the logits its vocab block of them, and the
+cross-entropy vocab-parallel (:func:`_ce`), the MTP module's too. Where
 the axis does not divide the vocab, the rank holds the table whole and
 the lookup, the head and the cross-entropy are unsplit. Under FSDP
 (``models.sharding.fsdp_split``: ``cfg.fsdp`` on such a mesh with batch
@@ -205,7 +206,8 @@ def _attn_block(cfg, p, x, positions, cache=None, causal=True, tp=None):
     if cfg.use_mla:
         a, new_cache = mla_attention(cfg, p["attn"], h, positions,
                                      cache=cache,
-                                     prefill_from_zero=_PREFILL_FROM_ZERO)
+                                     prefill_from_zero=_PREFILL_FROM_ZERO,
+                                     tp=tp)
     else:
         a, new_cache = gqa_attention(cfg, p["attn"], h, positions,
                                      cache=cache, causal=causal, tp=tp)
@@ -514,12 +516,12 @@ def lm_loss(cfg: ArchConfig, params, batch, ctx=None):
     device). Returns (total, {"ce", "aux"[, "mtp"]})."""
     logits, aux, extras = forward(cfg, params, batch["tokens"], ctx=ctx,
                                   frontend_emb=batch.get("frontend_emb"))
-    loss = _ce(logits, batch["labels"], vocab_split(tensor_parallel(cfg,
-                                                                   ctx)))
+    tp = tensor_parallel(cfg, ctx)
+    loss = _ce(logits, batch["labels"], vocab_split(tp))
     total = loss + 0.01 * aux
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
-        mtp_loss = _mtp_loss(cfg, params, batch, extras["final_hidden"])
+        mtp_loss = _mtp_loss(cfg, params, batch, extras["final_hidden"], tp)
         total = total + 0.3 * mtp_loss
         metrics["mtp"] = mtp_loss
     return total, metrics
@@ -609,12 +611,16 @@ def last_logits(cfg: ArchConfig, logits, ctx=None):
                                                       dim=0)
 
 
-def _mtp_loss(cfg, params, batch, hidden):
-    """DeepSeek MTP (depth 1): predict t+2 from [h_t ; emb(label_t)]."""
+def _mtp_loss(cfg, params, batch, hidden, tp=None):
+    """DeepSeek MTP (depth 1): predict t+2 from [h_t ; emb(label_t)].
+    ``tp``: the rank's ``models.sharding.TensorParallel``, or None: the
+    lookup, the GQA layer and the head run on the rank's blocks as the
+    main stack's do, and the cross-entropy is vocab-parallel."""
     p = params["mtp"]
     compute_dtype = torch_dtype(cfg.compute_dtype)
     labels = batch["labels"]
-    emb = params["embed"][labels.long()].to(compute_dtype)
+    tv = vocab_split(tp)
+    emb = embed_lookup(params["embed"], labels, tv).to(compute_dtype)
     h = torch.cat([rms_norm(hidden, p["norm_h"], cfg.norm_eps),
                    rms_norm(emb, p["norm_e"], cfg.norm_eps)], dim=-1)
     h = h @ p["proj"].to(compute_dtype)
@@ -622,12 +628,12 @@ def _mtp_loss(cfg, params, batch, hidden):
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device)[None, :].expand(b, s)
     h, _ = dense_block(_dense_ffn_cfg(cfg, use_mla=False), p["layer"], h,
-                       positions)
+                       positions, tp=tp)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = h @ unembed.to(compute_dtype)
+    logits = (h if tv is None else tv.copy(h)) @ unembed.to(compute_dtype)
     # labels shifted one more step: predict labels[t+1] at position t
     mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
-    return _ce(logits, mtp_labels)
+    return _ce(logits, mtp_labels, tv)
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,8 @@ runs the same forward and backward on it, and averages every gradient
 leaf over the batch axes in place (``core.compat.pmean_in_place``, one
 call a leaf, counted as ``pmean``), and the loss metrics in one more;
 AdamW then updates the same parameters on every rank. With a ``model``
-axis above 1 the dense family's step is also tensor-parallel, as the
-reference's partitioner runs it from the same specs: each rank holds its
+axis above 1 the dense and MoE families' step is also tensor-parallel, as
+the reference's partitioner runs it from the same specs: each rank holds its
 blocks of every leaf (the specs after :func:`sanitize_specs`; the
 bundle's ``abstract_state`` gives their shapes), runs the forward and
 backward on its heads, FFN columns and vocab block
@@ -37,23 +37,25 @@ dimension is split over the batch axes too, each leaf is gathered where
 a layer uses it and again for the backward (``models.sharding.Fsdp``),
 its gradient reduce-scattered back to the rank's block, which is divided
 by the batch axes' extent once and kept out of the gradient mean; AdamW
-updates the rank's blocks. A mixture-of-experts model without MLA
-trains on (d,1), (1,m) and (d,m): its one-hot dispatch groups and its
-aux loss are the global batch's (``models.moe.moe_dense_dispatch``
-gathers the ranks' per-expert counts), its experts' FFN split over
-``model``, and the mean moves the live experts of a padded table alone
-(:func:`live_slices`). FSDP of the other families, the other families
-at ``model > 1`` (MLA among them), a MoE step in micro-batches over data
-and MoE's expert-parallel route raise ``NotImplementedError`` naming
-their queue item.
+updates the rank's blocks. A mixture-of-experts model trains on (d,1),
+(1,m) and (d,m): its one-hot dispatch groups and its aux loss are the
+global batch's (``models.moe.moe_dense_dispatch`` gathers the ranks'
+per-expert counts), its experts' FFN (granite-moe-3b-a800m) or its
+experts (deepseek-v3-671b, ``expert_parallel``) split over ``model``,
+MLA's heads too, and the mean moves the live experts of a padded table
+alone (:func:`live_slices`). FSDP of the other families, the SSM,
+hybrid, vision and encoder-decoder families at ``model > 1``, a MoE
+step in micro-batches over data and MoE's expert-parallel route raise
+``NotImplementedError`` naming their queue item.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
-the frontend's embeddings in the batch. With a mesh, MLA's prefill runs
-its lane-local route (``models.attention.mla_chunked``). On a
-tensor-parallel mesh of processes a dense model serves with the rank's
-blocks and a cache of its kv heads (a cache the reference splits over
-``kv_seq`` raises), and the returned logits are gathered whole
+the frontend's embeddings in the batch. With a stacked mesh, MLA's
+prefill runs its lane-local route (``models.attention.mla_chunked``). On
+a tensor-parallel mesh of processes a dense or MoE model serves with the
+rank's blocks and a cache of its kv heads (MLA: the latent cache whole;
+a GQA cache the reference splits over ``kv_seq`` raises), and the
+returned logits are gathered whole
 (``models.transformer.last_logits``). Under FSDP each rank serves its
 rows of the batch (the batch axes are its own, as in training) with a
 cache of those rows, its weights gathered a layer at a time, and the
@@ -80,8 +82,9 @@ from repro_torch.models.layers import (P, abstract_params, param_specs,
                                        value_and_grad)
 from repro_torch.models.sharding import (MeshCtx, NamedSharding, check_fsdp,
                                          check_tensor_parallel, fsdp_split,
-                                         kv_cache_rules, make_rules,
-                                         sanitize_specs, tensor_parallel)
+                                         held_experts, kv_cache_rules,
+                                         make_rules, sanitize_specs,
+                                         tensor_parallel)
 from repro_torch.models.sharding import named_sharding_tree as named
 from repro_torch.optim import adamw
 
@@ -201,13 +204,14 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
 
 def _check_process_route(cfg: ArchConfig, ctx: MeshCtx, grad_accum: int):
     """What the process route trains: the data-parallel step of every
-    family, the dense family's and the MoE family's without MLA
-    tensor-parallel step (``model > 1``), and the dense family's FSDP step
-    (``fsdp=True``). Anything else raises ``NotImplementedError`` naming
-    its queue item, as does a MoE model's step in micro-batches over
-    batch axes above 1: a rank's micro-batch holds other global rows than
-    the one-device step's, and the dispatch group and the aux loss couple
-    them."""
+    family, the dense and the MoE families' tensor-parallel step (``model
+    > 1``; MLA's heads, the experts or their FFN split over it), and the
+    dense family's FSDP step (``fsdp=True``). Anything else raises
+    ``NotImplementedError`` naming its queue item (the MoE family under
+    FSDP; its EP route in training raises in ``models.moe.moe_block``), as
+    does a MoE model's step in micro-batches over batch axes above 1: a
+    rank's micro-batch holds other global rows than the one-device
+    step's, and the dispatch group and the aux loss couple them."""
     check_fsdp(cfg, ctx)
     check_tensor_parallel(cfg, ctx, train=True)
     n = math.prod(ctx.axis_sizes[a] for a in ctx.batch_axes
@@ -222,18 +226,23 @@ def _check_process_route(cfg: ArchConfig, ctx: MeshCtx, grad_accum: int):
             f"ported")
 
 
-def live_slices(cfg: ArchConfig, tree) -> dict:
-    """A tree over ``tree`` (the parameters or their gradients): the index
-    of each leaf's extent that the step reads, or None where it reads the
-    leaf whole. The one-hot dispatch reads the live experts of a padded
-    table (``models.moe``); the other slots' gradients are identically
-    zero, so the data-parallel mean moves the live ones alone, as the dry
-    run's count and the reference's partitioner reduce them."""
+def live_slices(cfg: ArchConfig, tree, tp=None) -> dict:
+    """A tree over ``tree`` (the parameters or their gradients, global or,
+    with ``tp``, a tensor-parallel rank's blocks): the index of each
+    leaf's extent that the step reads, or None where it reads the leaf
+    whole. The one-hot dispatch reads the live experts of a padded table
+    (``models.moe``; where the model axis splits the experts, those of the
+    rank's block); the other slots' gradients are identically zero, so the
+    data-parallel mean moves the live ones alone, as the dry run's count
+    and the reference's partitioner reduce them."""
     live = tree_map(lambda _: None, tree)
     m = cfg.moe
     if cfg.is_moe and m.n_experts_padded > m.n_experts:
+        split = tp is not None and m.expert_parallel
+        n = m.n_experts_padded // (tp.size if split else 1)
+        held = slice(0, len(held_experts(cfg, tp, n)))
         for k in ("w_gate", "w_up", "w_down"):
-            live["layers"]["moe"][k] = (slice(None), slice(0, m.n_experts))
+            live["layers"]["moe"][k] = (slice(None), held)
     return live
 
 
@@ -302,7 +311,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
     norm = live = None
     if process:
         _check_process_route(cfg, ctx, grad_accum)
-        live = live_slices(cfg, abstract["params"])
+        live = live_slices(cfg, abstract["params"], tensor_parallel(cfg, ctx))
         ctx = dataclasses.replace(
             ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
     fs = fsdp_split(cfg, ctx)

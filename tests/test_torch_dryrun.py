@@ -70,7 +70,7 @@ KINDS = ("train", "prefill", "decode")
 MESHES = {"4x1": (4, 1, False), "1x4": (1, 4, False), "2x2": (2, 2, False),
           "4x1 fsdp": (4, 1, True), "2x2 fsdp": (2, 2, True)}
 # every other kind of step on a mesh, reduced, at 8 x 64: (arch, kind,
-# data, model)
+# data, model[, the config's overrides])
 CELLS = {
     "tinyllama-1.1b prefill 1x4": ("tinyllama-1.1b", "prefill", 1, 4),
     "tinyllama-1.1b decode 1x4": ("tinyllama-1.1b", "decode", 1, 4),
@@ -78,6 +78,12 @@ CELLS = {
     "deepseek-v3-671b prefill 1x4": ("deepseek-v3-671b", "prefill", 1, 4),
     "deepseek-v3-671b decode 1x4": ("deepseek-v3-671b", "decode", 1, 4),
     "deepseek-v3-671b train 2x2": ("deepseek-v3-671b", "train", 2, 2),
+    # MLA, the experts and the vocab under model without FSDP: the cells
+    # whose ranks tests/test_torch_processes.py runs
+    "deepseek-v3-671b train 1x4 tp": ("deepseek-v3-671b", "train", 1, 4,
+                                      {"fsdp": False}),
+    "deepseek-v3-671b train 2x2 tp": ("deepseek-v3-671b", "train", 2, 2,
+                                      {"fsdp": False}),
     "granite-moe-3b-a800m train 4x1": ("granite-moe-3b-a800m", "train", 4, 1),
     "granite-moe-3b-a800m train 1x4": ("granite-moe-3b-a800m", "train", 1, 4),
     "granite-moe-3b-a800m train 2x2": ("granite-moe-3b-a800m", "train", 2, 2),
@@ -107,6 +113,8 @@ FLOPS_PINNED = {
     "deepseek-v3-671b prefill 1x4": 0.94579,
     "deepseek-v3-671b decode 1x4": 0.85695,
     "deepseek-v3-671b train 2x2": 0.98457,
+    "deepseek-v3-671b train 1x4 tp": 0.88568,
+    "deepseek-v3-671b train 2x2 tp": 0.88685,
     "granite-moe-3b-a800m train 4x1": 0.77992,
     "granite-moe-3b-a800m train 1x4": 0.43776,
     "granite-moe-3b-a800m train 2x2": 0.65812,
@@ -126,16 +134,38 @@ COLL_PINNED = {
         "decode: all-reduces of (8,16,4,1) scores and (8,4,1) and "
         "all-gathers of (8,1,4,16) and (8,1,4,8), 11,616 bytes"),
     "deepseek-v3-671b train 2x2": (
-        0.18842, 0.34420,
+        0.19796, 0.36561,
         "FSDP (open fault 2): the partitioner moves activations where the "
         "port gathers weights, plus an all-to-all of 1,146,880 and "
-        "collective-permutes of 401,408 (0.17852 / 0.34679 while the "
+        "collective-permutes of 401,408 (0.18842 / 0.34420 while the "
+        "count derived MLA's and the experts' all-reduces from the split "
+        "tables: it missed k_rope's cotangent, 16,384, and the experts' "
+        "forward or backward all-reduce and their gates', 67,584, which "
+        "the tensor-parallel ranks move; 0.17852 / 0.34679 while the "
         "replicated leaves' gradients were all-reduced over model and the "
         "cross-entropy's vocab reductions were not derived; 0.17737 while "
         "a backward that reads a leaf's cast was not counted as reading "
         "the leaf: the bf16 parameters, cast to the f32 compute dtype, are "
         "gathered again for the backward, all-gathers 105,376 -> 202,560, "
         "as the FSDP ranks gather them)"),
+    "deepseek-v3-671b train 1x4 tp": (
+        0.95495, 0.95495,
+        "the reference all-reduces both lookups (the stack's and the MTP "
+        "module's) after their cast to the f32 compute dtype (393,216 "
+        "bytes, the port's bf16 results 196,608), a f32[1,1024] tuple "
+        "member (6,144) and scalar tuple members (144); MLA's latent "
+        "cotangents, the experts' tokens, gates and output and the "
+        "cross-entropies move the same bytes on both sides"),
+    "deepseek-v3-671b train 2x2 tp": (
+        0.73873, 0.74146,
+        "as on (1,4), the lookups in f32 (131,072 where the port's bf16 "
+        "move 65,536); the reference reduces the gradients over data in "
+        "f32 before their cast to the bf16 parameters' dtype, where the "
+        "port's data-parallel mean moves the bf16 gradients (210,752), "
+        "all-reduces the one-hot dispatch's buffer over data "
+        "(f32[1,2,320,64], 163,840) and all-gathers routing tensors "
+        "(8,192), where the port's ranks all-gather each other's "
+        "per-expert counts (16)"),
     "granite-moe-3b-a800m train 4x1": (
         0.51077, 0.51690,
         "the reference all-reduces the one-hot dispatch's buffers over "
@@ -184,6 +214,8 @@ SHORT = {
     "deepseek-v3-671b decode 1x4": ["collective: mla decode gathers"] + _MOE
     + _MLA,
     "deepseek-v3-671b train 2x2": ["collective: fsdp"] + _MOE + _MLA,
+    "deepseek-v3-671b train 1x4 tp": _MOE + _MLA,
+    "deepseek-v3-671b train 2x2 tp": _MOE + _MLA,
     "granite-moe-3b-a800m train 4x1": _MOE,
     "granite-moe-3b-a800m train 1x4": _MOE,
     "granite-moe-3b-a800m train 2x2": _MOE,
@@ -267,8 +299,8 @@ for key, (d, m, fsdp) in %(meshes)r.items():
     out[key] = compile_cell(dataclasses.replace(cfg, fsdp=fsdp),
                             ShapeConfig("train", 64, 8, "train"),
                             make_mesh(d, m))
-for key, (a, kind, d, m) in %(cells)r.items():
-    out[key] = compile_cell(reduced(get_config(a)),
+for key, (a, kind, d, m, *over) in %(cells)r.items():
+    out[key] = compile_cell(reduced(get_config(a), **(over or [{}])[0]),
                             ShapeConfig(kind, 64, 8, kind), make_mesh(d, m))
 # the backward of a shard_map's psum / pmean: the gradient program alone
 from jax.sharding import PartitionSpec as P
@@ -302,9 +334,9 @@ def _cell(key):
                                   fsdp=fsdp)
         return cfg, ShapeConfig("train", 64, 8, "train"), make_mesh(d, m)
     if key in CELLS:
-        arch, kind, d, m = CELLS[key]
-        return reduced(get_config(arch)), ShapeConfig(kind, 64, 8, kind), \
-            make_mesh(d, m)
+        arch, kind, d, m, *over = CELLS[key]
+        return reduced(get_config(arch), **(over or [{}])[0]), \
+            ShapeConfig(kind, 64, 8, kind), make_mesh(d, m)
     arch, kind = key.split()
     return reduced(get_config(arch)), ShapeConfig(kind, 64, 2, kind), \
         make_mesh(1, 1)

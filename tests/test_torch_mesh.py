@@ -241,6 +241,29 @@ for tag, mesh_s in (("2x2", mesh22),
                    jax.device_put(batch, bt_sh))
     for key in ("loss", "ce", "aux", "grad_norm"):
         out[f"step_moe_{tag}/m1_{key}"] = np.asarray(m1[key])
+# MLA under model: deepseek-v3-671b with fsdp=False (its heads, experts and
+# vocab split over model; the one-hot dispatch) on (1,4) and (2,2)
+cfg = reduced(get_config("deepseek-v3-671b"), compute_dtype="float32",
+              fsdp=False)
+params = init_params(tf.model_template(cfg), jax.random.PRNGKey(0))
+toks = jax.random.randint(jax.random.PRNGKey(1), (4, 16), 0, cfg.vocab_size)
+batch = {"tokens": toks, "labels": jnp.roll(toks, -1, 1)}
+put("step_mla/params", params)
+out["step_mla/tokens"] = np.asarray(toks)
+for tag, mesh_s in (("1x4", make_mesh(1, 4, devices=jax.devices()[:4])),
+                    ("2x2", mesh22)):
+    ctx1 = MeshCtx(mesh=mesh_s, batch_axes=("data",))
+    b1 = step_lib.make_train_step(cfg, opt, ctx1)
+    st_sh = step_lib.named_for(b1.state_specs, b1.abstract_state, mesh_s)
+    bt_sh = step_lib.named_for(b1.batch_specs, batch, mesh_s)
+    with mesh_s:
+        fn = jax.jit(b1.step_fn, in_shardings=(st_sh, bt_sh),
+                     out_shardings=(st_sh, None))
+        _, m1 = fn(jax.device_put({"params": params,
+                                   "opt": adamw.init(opt, params)}, st_sh),
+                   jax.device_put(batch, bt_sh))
+    for key in ("loss", "ce", "aux", "grad_norm"):
+        out[f"step_mla_{tag}/m1_{key}"] = np.asarray(m1[key])
 
 # -- lane-local MLA: prefill and decode on a 1 x 4 mesh --------------------
 mesh14 = make_mesh(1, 4)
@@ -790,7 +813,12 @@ def test_lane_local_mla_prefill_and_decode_match_reference(ref):
             logits, cache = dec(params, cache,
                                 {"tokens": _t(ref[f"mla/tok{i}"])})
             _close(logits, ref[f"mla/decode{i}"], 1e-4)
-    # the absorbed decode runs no shard_map; nothing crosses a lane
-    assert compat.CALLS["shard_map"] == cfg.n_layers
-    assert set(compat.CALLS) == {"shard_map"}
+    # the absorbed decode runs no shard_map; what crosses the lanes is the
+    # all-reduce of each split product's output, counted as the ranks of
+    # a process mesh run it (``models.sharding.around_split``): MLA's after
+    # ``wo`` in every layer, the experts' combined output in each MoE
+    # layer, in each of the three forwards
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+    assert compat.CALLS == {"shard_map": cfg.n_layers,
+                            "psum": 3 * (cfg.n_layers + n_moe)}
     ttf.forward(cfg, params, _t(ref["mla/tokens"]))   # resets the context

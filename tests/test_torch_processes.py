@@ -10,9 +10,9 @@ each collective and its backward on (2,2) and (4,1) (float32 to 1e-6,
 integers exact), the ring matmuls to 1e-5, the compressed all-reduce's
 ``q`` bit-equal and its mean and residual to 1e-6, the pipeline's loss and
 gradients over 4 stages to 1e-6, the expert-parallel MoE on (2,2) to 1e-5,
-lane-local MLA's prefill and decode on (1,4) to 1e-4, and in every case
-the collectives' calls a rank and bytes summed over the ranks equal to
-the stacked route's, forward and backward; the local-axes rule; the
+and in every case the collectives' calls a rank and bytes summed over the
+ranks equal to the stacked route's, forward and backward; the local-axes
+rule; the
 data-parallel step on (4,1) against the one-device step (float32 loss and
 grad norm to 1e-5 relative, float64 parameters to 1e-10) and its
 gradient all-reduce's bytes against the dry run's count; the
@@ -30,12 +30,19 @@ the global batch, the experts' FFN split over model; float32 metrics to
 1e-6 and float64 to 1e-10 step by step, the dropped pairs, the bytes
 against the dry run's count), at capacity factor 0.5, with groups of 64
 by the global count, a vocab of 257 on (1,4) and reduced
-deepseek-v3-671b data-parallel; and what the route refuses.
+deepseek-v3-671b data-parallel, with every rank's routes held against the
+one-device step's (no flipped pair); MLA under the model axis, reduced
+deepseek-v3-671b with fsdp=False on (1,4) and (2,2) (its heads, routed
+experts and vocab split over the ranks: the train step against the
+one-device step, at capacity factor 0.5, against the reference's sharded
+step, the bytes against the dry run's count, checkpoints both ways) and
+its serve steps on (1,4); and what the route refuses.
 The reference runs once a session, in ``tests/test_torch_mesh.py``'s
 subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
 against the tensor-parallel step on the same parameters and tokens, and
-its FSDP step against the port's FSDP step, and its MoE step on (4,1)
-and (2,2) against the port's MoE step. The
+its FSDP step against the port's FSDP step, its MoE step on (4,1)
+and (2,2) against the port's MoE step, and its deepseek-v3-671b step on
+(1,4) and (2,2) against the port's MLA step. The
 stacked route and the one-device step are held against it in
 ``tests/test_torch_mesh.py``, ``tests/test_torch_pipeline.py`` and
 ``tests/test_torch_train.py``.
@@ -87,7 +94,13 @@ def res(tmp_path_factory):
                 "moe_metrics": {(d, m): {k: float(ref[
                     f"step_moe_{d}x{m}/m1_{k}"]) for k in (
                         "loss", "ce", "aux", "grad_norm")}
-                    for d, m in pc.REFERENCE_MOE}},
+                    for d, m in pc.REFERENCE_MOE},
+                "mla_params": _tree(ref, "step_mla/params"),
+                "mla_tokens": ref["step_mla/tokens"],
+                "mla_metrics": {(d, m): {k: float(ref[
+                    f"step_mla_{d}x{m}/m1_{k}"]) for k in (
+                        "loss", "ce", "aux", "grad_norm")}
+                    for d, m in pc.MLA_MESHES}},
                os.path.join(out, pc.REFERENCE_STEP))
     return pc.spawn(out)
 
@@ -135,9 +148,28 @@ def test_moe_ep_on_a_two_by_two_process_mesh(res):
 
 
 def test_lane_local_mla_prefill_and_decode_on_processes(res):
-    pair = _case(res, "mla")["mla"]
-    pc.check_pair("mla", "mla", pair)
-    assert pair["proc"][1][0]["shard_map"]["calls"] == 2    # one a layer
+    """Reduced deepseek-v3-671b's prefill and two absorbed decode steps on
+    (1,4), each rank on its blocks (heads, experts, vocab; the latent
+    cache whole): logits to 1e-4 of the one-device steps and of the
+    stacked route's lane-local prefill (one ``shard_map`` a layer, none on
+    the ranks)."""
+    pc.check_mla_serve_logits(_case(res, "mla"))
+
+
+def test_mla_serves_the_expert_parallel_route_on_the_ranks_blocks(res):
+    """Reduced deepseek-v3-671b's prefill at or above a lowered
+    ``DENSE_PATH_MAX_TOKENS`` on (1,4): each rank runs the expert-parallel
+    route on its block of the experts, logits to 1e-4 of the stacked
+    route's on the global tables."""
+    pc.check_mla_ep_serve(_case(res, "mla"))
+
+
+def test_mla_serve_bytes_equal_the_dry_runs_count(res):
+    """Per step the all-reduces of the ranks (MLA's after ``wo``, the
+    experts' and the FFNs' outputs, the lookup) summed over them equal the
+    dry run's count times the ranks, beside one all-gather of the last
+    logits."""
+    pc.check_mla_serve_bytes(_case(res, "mla"))
 
 
 def test_local_axes_leave_a_ranks_own_block_alone(res):
@@ -170,11 +202,12 @@ def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
 
 
 def test_what_the_process_route_refuses(res):
-    """A wrong world size, MoE's expert-parallel route in training, MLA and
-    SSM configs at model > 1, a KV cache split over kv_seq, a MoE model
-    under FSDP and in micro-batches over data ranks, FSDP of the hybrid
-    and vision families and of the serving engine, a collective outside a
-    body, and device "cuda" on the gloo group, each with its own text."""
+    """A wrong world size, MoE's expert-parallel route in training, SSM
+    configs at model > 1, a KV cache split over kv_seq, a MoE model under
+    FSDP (MLA with it at model > 1) and in micro-batches over data ranks,
+    FSDP of the hybrid and vision families and of the serving engine, a
+    collective outside a body, and device "cuda" on the gloo group, each
+    with its own text."""
     got = _case(res, "refusals")
     assert got["outside"] == "a collective runs only inside shard_map's body"
     assert "deepseek-v3-671b with fsdp=True over data on a process mesh" \
@@ -241,11 +274,13 @@ def test_tensor_parallel_engine_emits_the_same_tokens_on_every_rank(res):
     pc.check_tp_engine(_case(res, "tp_serve"))
 
 
-@pytest.mark.parametrize("key", ["tp_moe", "tp_mla", "tp_ssm", "tp_kv_seq"])
+@pytest.mark.parametrize("key", ["tp_moe", "tp_moe_serve", "tp_mla",
+                                 "tp_ssm", "tp_kv_seq"])
 def test_tensor_parallel_refusals_name_their_queue_item(res, key):
-    """On model > 1: MoE, MLA and SSM configs, and a KV cache that the
-    reference splits over kv_seq, each a NotImplementedError naming its
-    queue item."""
+    """On model > 1: MoE's EP route in training, and in serving where the
+    ranks hold blocks of the experts' FFN, MLA under FSDP, SSM configs,
+    and a KV cache that the reference splits over kv_seq, each a
+    NotImplementedError naming its queue item."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2." in got, got
@@ -373,9 +408,10 @@ def test_moe_group_size_reads_the_global_count(res):
     """``DENSE_PATH_MAX_TOKENS`` lowered to 256 and 8 x 64 tokens on
     (4,1): the global 512 tokens take groups of 64, where a rank's 128
     would take one group of 128; float64 within 1e-10 of the one-device
-    step, drops equal."""
+    step, drops equal (by rank: each rank's groups are its own, not blocks
+    of one group)."""
     pc.check_moe_steps("groups", _case(res, "moe_train")["groups"],
-                       pc.MOE_TOL["f64"])
+                       pc.MOE_TOL["f64"], blocks=False)
 
 
 def test_moe_step_with_a_vocab_the_model_axis_does_not_divide(res):
@@ -403,11 +439,63 @@ def test_moe_step_matches_the_references_sharded_step(res):
     pc.check_moe_reference(got)
 
 
-@pytest.mark.parametrize("key", ["moe", "tp_moe", "tp_mla", "moe_accum"])
+@pytest.mark.parametrize("shape", pc.MLA_MESHES, ids=str)
+def test_mla_step_matches_the_one_device_step(res, shape):
+    """Reduced deepseek-v3-671b with ``fsdp=False`` (MLA's heads, the
+    routed experts, the shared expert's and the dense FFNs' columns and
+    the vocab split over model; the MTP module's GQA layer, lookup and
+    cross-entropy too): 3 steps, each from the same state as the
+    one-device step, the loss, ce, aux, mtp, grad norm and lr within 1e-6
+    relative in float32 (or twice what float32 resolves there) and 1e-10
+    in float64, the parameters after each within 1e-10 in float64; no
+    route flipped, the drops equal."""
+    pc.check_mla_mesh(_case(res, "mla_train"), shape)
+
+
+@pytest.mark.parametrize("shape", pc.MLA_MESHES, ids=str)
+def test_mla_bytes_equal_the_dry_runs_count(res, shape):
+    """The ranks' collectives by kind, summed, equal to the dry run's count
+    of the same cell times the ranks (beside the grad norm's scalar and
+    the loss metrics' mean): MLA's all-reduce after ``wo`` and of its
+    latent cotangents, the experts' of the tokens, their gates and the
+    combined output, the counts' all-gather over data on (2,2)."""
+    got = pc.check_mla_bytes(_case(res, "mla_train"), shape)
+    assert ("all-gather" in got) == (shape[0] > 1), got
+
+
+def test_mla_step_where_capacity_drops_pairs(res):
+    """Capacity factor 0.5 on (2,2), float64: each rank of a data
+    coordinate drops that block's pairs of the one-device step's one
+    group, the second block most of them."""
+    pc.check_mla_drops(_case(res, "mla_train"))
+
+
+def test_mla_step_matches_the_references_sharded_step(res):
+    """The reference's float32 step of reduced deepseek-v3-671b with
+    ``fsdp=False`` on (1,4) and (2,2) (its parameters and tokens): loss,
+    ce, aux and grad norm within 1e-5 relative."""
+    got = _case(res, "mla_train")
+    assert got["reference"] is not None
+    assert set(got["reference"]) == set(pc.MLA_MESHES)
+    pc.check_moe_reference(got)
+
+
+def test_mla_checkpoints_move_to_one_device_and_back(res):
+    """A (1,4) checkpoint of reduced deepseek-v3-671b (the global state,
+    gathered to rank 0) restored by the one-device trainer, and a
+    one-device checkpoint restored on (1,4) (each rank its blocks), byte
+    for byte."""
+    pc.check_tp_ckpt(_case(res, "mla_train"))
+
+
+@pytest.mark.parametrize("key", ["moe", "tp_moe", "tp_moe_serve", "tp_mla",
+                                 "moe_accum"])
 def test_moe_refusals_name_item_2_3b(res, key):
-    """A MoE model under FSDP, granite-moe-3b-a800m's expert-parallel route
-    in training, MLA at model > 1 and a MoE step in micro-batches over
-    data ranks: each a NotImplementedError naming item 2.3b."""
+    """A MoE model under FSDP on (4,1) and on (2,2) (deepseek-v3-671b's
+    default, MLA with it), granite-moe-3b-a800m's expert-parallel route in
+    training and in serving (its ranks hold blocks of the experts' FFN)
+    and a MoE step in micro-batches over data ranks: each a
+    NotImplementedError naming item 2.3b."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2.3b" in got, got
@@ -465,7 +553,7 @@ def test_gather_from_a_group_of_one_moves_nothing():
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3-8b",
                                   "stablelm-1.6b", "starcoder2-3b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "deepseek-v3-671b"])
 @pytest.mark.parametrize("m", [2, 4, 8])
 def test_each_block_has_the_references_shard_shape(arch, m):
     """``shard_params`` at full width on ``meta``: on every rank of (1,m)

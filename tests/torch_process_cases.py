@@ -96,9 +96,16 @@ MOE_SIDE_STEPS = 2        # the cases beside the three meshes' 3 steps
 # in the first step; 1.2e-7 after it)
 MOE_TOL = {"f32": 1e-6, "f64": 1e-10, "f32 params": 1e-3}
 REFERENCE_MOE = ((4, 1), (2, 2))
+# MLA under the model axis: reduced deepseek-v3-671b with fsdp=False (1
+# dense + 1 MoE layer of 4 experts, top 2, a shared expert, MTP 1, vocab
+# 256), its heads, experts and vocab split over model, trained on these
+# meshes step by step against the one-device step (held to ``MOE_TOL``),
+# at capacity factor 0.5 on (2,2), and against the reference's sharded
+# step on both; its serve steps are ``case_mla``'s
+MLA_MESHES = ((1, 4), (2, 2))
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "dp_train", "tp_train", "tp_serve",
-         "fsdp_train", "fsdp_serve", "moe_train", "refusals")
+         "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "refusals")
 
 
 # ---------------------------------------------------------------------------
@@ -345,8 +352,11 @@ def case_moe_ep(rank, meshes, out_dir):
 
 
 def case_mla(rank, meshes, out_dir):
-    """Reduced deepseek-v3-671b's serve steps on (1,4): the prefill's
-    lane-local MLA route and two absorbed decode steps."""
+    """Reduced deepseek-v3-671b's serve steps on (1,4): the prefill and two
+    absorbed decode steps, on the process route with the rank's blocks
+    (its heads, experts and vocab block; the latent cache whole), on the
+    stacked route (the prefill's lane-local MLA route) and on one device,
+    with each step's collectives."""
     cfg = reduced(get_config("deepseek-v3-671b"))
     params = init_params(ttf.model_template(cfg),
                          torch.Generator().manual_seed(0), device="cpu")
@@ -354,20 +364,57 @@ def case_mla(rank, meshes, out_dir):
     toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(2, 6)))
     steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(2, 1)))
              for _ in range(2)]
+    pmesh = meshes[1, 4]
 
-    def run(mesh):
+    def serve(mesh):
         ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+        p = params if mesh is None or not compat.is_process_mesh(mesh) \
+            else shard_params(params, tstep.train_state_specs(cfg, ctx)[
+                "params"], mesh)
+        outs, counts = [], []
         with torch.no_grad():
+            compat.reset_counts()
             logits, cache = tstep.make_prefill_step(cfg, ctx, 16)(
-                params, {"tokens": toks})
-            outs = [logits]
+                p, {"tokens": toks})
+            outs.append(logits)
+            counts.append(_counts(mesh) if mesh else None)
             dec = tstep.make_decode_step(cfg, ctx)
             for tok in steps:
-                logits, cache = dec(params, cache, {"tokens": tok})
+                compat.reset_counts()
+                logits, cache = dec(p, cache, {"tokens": tok})
                 outs.append(logits)
+                counts.append(_counts(mesh) if mesh else None)
         ttf.forward(cfg, params, toks[:, :1])     # resets the mesh context
-        return tuple(outs)
-    return {"mla": _both(rank, meshes[1, 4], run)}
+        return tuple(outs), counts, [tuple(cache[k].shape)
+                                     for k in ("c_kv", "k_rope")]
+    out = {"tp": serve(pmesh)}
+    if rank == 0:
+        out["stacked"] = serve(Mesh(pmesh.axis_names, pmesh.sizes))
+        out["one"] = serve(None)
+    # the prefill's 12 tokens at or above a lowered DENSE_PATH_MAX_TOKENS:
+    # the expert-parallel route, the ranks on their blocks of the experts
+    # and the stacked route on the global tables
+    saved = tmoe.DENSE_PATH_MAX_TOKENS
+    tmoe.DENSE_PATH_MAX_TOKENS = toks.numel()
+    try:
+        out["ep"] = _both(rank, pmesh, lambda mesh: _prefill(
+            cfg, params, mesh, toks))
+    finally:
+        tmoe.DENSE_PATH_MAX_TOKENS = saved
+    return out
+
+
+def _prefill(cfg, params, mesh, toks):
+    """``cfg``'s prefill of ``toks`` on ``mesh`` (a process mesh: on the
+    rank's blocks of ``params``), without autograd: the last logits."""
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    p = shard_params(params, tstep.train_state_specs(cfg, ctx)["params"],
+                     mesh) if compat.is_process_mesh(mesh) else params
+    with torch.no_grad():
+        logits, _ = tstep.make_prefill_step(cfg, ctx, toks.shape[1])(
+            p, {"tokens": toks})
+    ttf.forward(cfg, params, toks[:, :1])     # resets the mesh context
+    return logits
 
 
 def case_local_axes(rank, meshes, out_dir):
@@ -788,18 +835,51 @@ def case_fsdp_serve(rank, meshes, out_dir):
     return out
 
 
+def drops_by_block(log, n_blocks: int) -> list:
+    """The pairs that each of ``n_blocks`` equal blocks of the tokens of a
+    ``models.moe.DISPATCH_LOG`` list dropped, summed over its dispatches,
+    where each dispatch is one group over all of its tokens: block ``b``'s
+    pairs claim each expert's slots after blocks ``0 .. b-1`` (a process
+    mesh's data ranks split the one-device step's group so)."""
+    out = [0] * n_blocks
+    for d in log:
+        ids = d.ids.long().reshape(n_blocks, -1)
+        n = int(ids.max()) + 1
+        counts = torch.stack([torch.bincount(r, minlength=n) for r in ids])
+        before = counts.cumsum(0) - counts
+        kept = torch.minimum(counts, (d.capacity - before).clamp_min(0))
+        for b, k in enumerate((counts - kept).sum(dim=1).tolist()):
+            out[b] += k
+    return out
+
+
+def route_flips(ids, one_ids) -> int:
+    """The (token, expert) pairs among ``ids`` (T, k) that ``one_ids`` (the
+    same tokens' choices in another step) does not choose: how many of a
+    rank's routes a rounding flipped against the one-device step's."""
+    ids, one_ids = ids.long().cpu(), one_ids.long().cpu()
+    found = (ids[:, :, None] == one_ids[:, None, :]).any(dim=-1)
+    return int((~found).sum())
+
+
 def _moe_cfg(arch="granite-moe-3b-a800m", dtype="float32", **kw):
     return reduced(get_config(arch), param_dtype=dtype, compute_dtype=dtype,
                    **kw)
 
 
-def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"]):
+def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"],
+               resolve=False):
     """``steps`` train steps through the Trainer's state, batches and step
     on ``mesh``, each held against the one-device step from the same state
     (the state gathered before the step; on rank 0): per step both
-    metrics, the largest gap between the parameters after it, and the
-    pairs that each rank's dispatches dropped beside the one-device
-    step's; the collectives of the steps on the ranks."""
+    metrics, the largest gap between the parameters after it, the pairs
+    that each rank's dispatches dropped beside the one-device step's (and
+    its drops by data block, where each dispatch is one group), and the
+    (token, expert) pairs of each rank's routes that the one-device step
+    did not choose for the same tokens; the collectives of the steps on
+    the ranks. ``resolve``: also the one-device step in float64 from the
+    same state, whose gap from the float32 one-device step is what float32
+    resolves there."""
     data = DataConfig(seq_len=seq_len, global_batch=DP["global_batch"],
                       vocab_size=cfg.vocab_size)
     opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1,
@@ -807,7 +887,10 @@ def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"]):
     tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps), mesh=mesh,
                  device="cpu")
     one = tstep.make_train_step(cfg, opt).step_fn
+    one64 = tstep.make_train_step(dataclasses.replace(
+        cfg, param_dtype="float64", compute_dtype="float64"), opt).step_fn
     state = tr.init_state()
+    n_data = mesh.shape["data"]
 
     def whole(st):
         return gather_params(st, tr.state_specs, mesh) if tr.split \
@@ -822,12 +905,19 @@ def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"]):
             state, m = tr.step_fn(state, mine)
         finally:
             tmoe.DISPATCH_LOG = None
+        every = _all_ranks((tmoe.dropped_pairs(log), mesh.block(("data",)),
+                            [d.ids for d in log]))
         row = {"tp": {k: float(v) for k, v in m.items()},
-               "drops": _all_ranks(tmoe.dropped_pairs(log))}
+               "drops": [e[0] for e in every]}
         after = whole(state)["params"]
         if mesh.rank == 0:
             glob = {k: torch.as_tensor(v)
                     for k, v in tr.source.batch(i).items()}
+            if resolve:
+                _, m64 = one64(tree_map(lambda t: t.double() if isinstance(
+                    t, torch.Tensor) and t.is_floating_point() else t,
+                    _detach(before)), glob)
+                row["one64"] = {k: float(v) for k, v in m64.items()}
             log = tmoe.DISPATCH_LOG = []
             try:
                 _, m1 = one(before, glob)
@@ -835,6 +925,10 @@ def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"]):
                 tmoe.DISPATCH_LOG = None
             row["one"] = {k: float(v) for k, v in m1.items()}
             row["drops_one"] = tmoe.dropped_pairs(log)
+            row["drops_by_block"] = drops_by_block(log, n_data)
+            row["flips"] = [sum(route_flips(ids, d.ids.reshape(
+                n_data, -1, d.ids.shape[-1])[block]) for ids, d in zip(
+                    mine_ids, log)) for _, block, mine_ids in every]
             row["params"] = max(_err(a, b) for a, b in zip(
                 tree_leaves(after), tree_leaves(before["params"])))
         rows.append(row)
@@ -912,6 +1006,68 @@ def case_moe_train(rank, meshes, out_dir):
     return out
 
 
+def _mla_cfg(dtype="float32", **kw):
+    return _moe_cfg("deepseek-v3-671b", dtype, fsdp=False, **kw)
+
+
+def _reference_mla(meshes, out_dir):
+    """The reference's sharded float32 step of reduced deepseek-v3-671b
+    with ``fsdp=False`` (``tests/test_torch_mesh.py``'s ``step_mla``) on
+    (1,4) and (2,2), here on the ranks: its parameters and tokens, the
+    default ``OptConfig``, each data rank its rows of the batch. None
+    without the reference's file."""
+    path = os.path.join(out_dir, REFERENCE_STEP)
+    if not os.path.exists(path):
+        return None
+    ref = torch.load(path, weights_only=False)
+    cfg = reduced(get_config("deepseek-v3-671b"), compute_dtype="float32",
+                  fsdp=False)
+    params = convert.params_from_numpy(ref["mla_params"], device="cpu")
+    toks = torch.as_tensor(ref["mla_tokens"]).long()
+    out = {}
+    for shape in MLA_MESHES:
+        mesh = meshes[shape]
+        ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+        opt = adamw.OptConfig()
+        bundle = tstep.make_train_step(cfg, opt, ctx)
+        blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)[
+            "params"], mesh)
+        rows = toks.shape[0] // mesh.shape["data"]
+        mine = slice(mesh.coord("data") * rows,
+                     (mesh.coord("data") + 1) * rows)
+        batch = {"tokens": toks[mine], "labels": torch.roll(toks, -1, 1)[mine]}
+        _, m = bundle.step_fn({"params": blocks,
+                               "opt": adamw.init(opt, blocks)}, batch)
+        out[shape] = {"got": {k: float(m[k]) for k in
+                              ("loss", "ce", "aux", "grad_norm")},
+                      "want": ref["mla_metrics"][shape]}
+    return out
+
+
+def case_mla_train(rank, meshes, out_dir):
+    """MLA under the model axis: reduced deepseek-v3-671b with
+    ``fsdp=False`` (its heads, experts and vocab split over model) on
+    (1,4) and (2,2), 3 steps in float32 and in float64, each from the same
+    state as the one-device step; in float64, ``MOE_SIDE_STEPS`` steps at
+    capacity factor 0.5 on (2,2) (pairs dropped); the reference's own step
+    on (1,4) and (2,2); checkpoints between the one-device trainer and the
+    (1,4) one, both ways."""
+    out = {}
+    for shape in MLA_MESHES:
+        out[shape] = {tag: _moe_steps(_mla_cfg(dt), meshes[shape],
+                                      resolve=tag == "f32")
+                      for tag, dt in (("f32", "float32"),
+                                      ("f64", "float64"))}
+    cfg = _mla_cfg("float64")
+    out["drops"] = _moe_steps(dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5)),
+        meshes[2, 2], steps=MOE_SIDE_STEPS)
+    out["reference"] = _reference_mla(meshes, out_dir)
+    out.update(_ckpt_both_ways(rank, _mla_cfg(), meshes[1, 4], out_dir,
+                               "mla"))
+    return out
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -925,13 +1081,14 @@ def case_refusals(rank, meshes, out_dir):
             out[name] = None
     text("world", ValueError, lambda: make_process_mesh(3, 1, device="cpu"))
     cfg = reduced(get_config("tinyllama-1.1b"))
-    for name, arch in (("tp_mla", "deepseek-v3-671b"),
-                       ("tp_ssm", "zamba2-7b")):
-        # without FSDP (deepseek-v3-671b's default), which raises first
-        text(name, NotImplementedError,
-             lambda arch=arch: tstep.make_train_step(
-                 dataclasses.replace(reduced(get_config(arch)), fsdp=False),
-                 adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2])))
+    text("tp_ssm", NotImplementedError, lambda: tstep.make_train_step(
+        reduced(get_config("zamba2-7b"), fsdp=False), adamw.OptConfig(),
+        MeshCtx(mesh=meshes[2, 2])))
+    # MLA under model with FSDP (deepseek-v3-671b's default): the MoE
+    # family under FSDP, which item 2.3b's second slice ports
+    text("tp_mla", NotImplementedError, lambda: tstep.make_train_step(
+        reduced(get_config("deepseek-v3-671b")), adamw.OptConfig(),
+        MeshCtx(mesh=meshes[2, 2])))
     # granite-moe-3b-a800m's expert-parallel route in training: 256 tokens
     # at or above a lowered DENSE_PATH_MAX_TOKENS on (1,4), raised in the
     # first MoE layer of the first step, on every rank
@@ -940,6 +1097,18 @@ def case_refusals(rank, meshes, out_dir):
     try:
         text("tp_moe", NotImplementedError,
              lambda: _moe_steps(_moe_cfg(), meshes[1, 4], steps=1))
+    finally:
+        tmoe.DENSE_PATH_MAX_TOKENS = saved
+    # and in serving, where the ranks hold blocks of the experts' FFN
+    saved = tmoe.DENSE_PATH_MAX_TOKENS
+    tmoe.DENSE_PATH_MAX_TOKENS = 4 * DP["seq_len"]
+    try:
+        gcfg = _moe_cfg()
+        text("tp_moe_serve", NotImplementedError, lambda: _prefill(
+            gcfg, init_params(ttf.model_template(gcfg),
+                              torch.Generator().manual_seed(0),
+                              device="cpu"),
+            meshes[1, 4], torch.zeros(4, DP["seq_len"], dtype=torch.long)))
     finally:
         tmoe.DENSE_PATH_MAX_TOKENS = saved
     text("tp_kv_seq", NotImplementedError, lambda: tstep.make_prefill_step(
@@ -988,9 +1157,16 @@ def refusal_texts() -> dict:
                   "rank's experts_ffn blocks re-laid as experts blocks; the "
                   "EP route in training over processes (ROADMAP Queue A, "
                   "A13c item 2.3b)",
-        "tp_mla": "MLA's latent attention under the model axis; MLA under "
-                  "model, FSDP of the MoE family and the EP route over "
-                  "processes (ROADMAP Queue A, A13c item 2.3b)",
+        "tp_moe_serve": "granite-moe-3b-a800m on a process mesh: 128 "
+                        "tokens at model=4 take the expert-parallel route, "
+                        "which needs each rank's experts_ffn blocks re-laid "
+                        "as experts blocks; the EP route in serving over "
+                        "processes (ROADMAP Queue A, A13c item 2.3b)",
+        "tp_mla": "deepseek-v3-671b with fsdp=True over data on a process "
+                  "mesh: MLA's latent attention and the MoE layers under "
+                  "FSDP; FSDP of the MoE family, the EP route in training "
+                  "and MoE micro-batches over data ranks (ROADMAP Queue A, "
+                  "A13c item 2.3b)",
         "tp_ssm": "the SSM and hybrid blocks under model over processes "
                   "(ROADMAP Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
@@ -1007,8 +1183,9 @@ def refusal_texts() -> dict:
                        "A, A13c item 2.2b)",
         "moe": "deepseek-v3-671b with fsdp=True over data on a process "
                "mesh: MLA's latent attention and the MoE layers under "
-               "FSDP; MLA under model, FSDP of the MoE family and the EP "
-               "route over processes (ROADMAP Queue A, A13c item 2.3b)",
+               "FSDP; FSDP of the MoE family, the EP route in training and "
+               "MoE micro-batches over data ranks (ROADMAP Queue A, A13c "
+               "item 2.3b)",
         "moe_accum": "the MoE step in micro-batches over processes "
                      "(ROADMAP Queue A, A13c item 2.3b)",
         "outside": "a collective runs only inside shard_map's body",
@@ -1071,6 +1248,10 @@ def check(name, res) -> dict:
         return check_fsdp_serve(res)
     if name == "moe_train":
         return check_moe_train(res)
+    if name == "mla_train":
+        return check_mla_train(res)
+    if name == "mla":
+        return check_mla_serve(res)
     if name == "local_axes":
         (y, g), counts = res["local"]
         (yg, gg), gcounts = res["global"]["stacked"]
@@ -1486,26 +1667,46 @@ def check_fsdp_serve(res, count=_dry_count) -> dict:
 # -- the MoE family -------------------------------------------------------------
 
 
-def check_moe_steps(tag, got, tol, params_tol=None, model=1) -> dict:
-    """``_moe_steps``' rows: per step the loss, ce, aux, grad norm and lr
-    within ``tol`` relative of the one-device step's, the parameters after
-    it within ``params_tol`` (default ``tol``), and the pairs the ranks'
-    dispatches dropped (each rank's, in rank order) equal on the ranks of
-    a data coordinate (``model`` of them: they route the same tokens), and
-    summed over the data coordinates, equal to the one-device step's.
-    Returns the largest gaps and the drops."""
+def check_moe_steps(tag, got, tol, params_tol=None, model=1,
+                    blocks=True, hold_params=True) -> dict:
+    """``_moe_steps``' rows: per step the loss, ce, aux (mtp where the
+    model has it), grad norm and lr within ``tol`` relative of the
+    one-device step's (where the rows resolve float32, ``one64``: within
+    twice the float32 one-device step's own gap from float64 where that
+    is wider), the parameters after it within ``params_tol``
+    (default ``tol``; with ``hold_params`` False the gap is returned, not
+    held); no route of a rank that the one-device step did not
+    choose for the same tokens; and the pairs the ranks' dispatches
+    dropped (each rank's, in rank order) equal on the ranks of a data
+    coordinate (``model`` of them: they route the same tokens), each equal
+    to the one-device step's drops of that coordinate's block of rows
+    (with ``blocks``: each dispatch one group), and summed over the data
+    coordinates, equal to the one-device step's. Returns the largest gaps,
+    the drops and the flipped routes."""
     rows = got["rows"]
-    errs = {f"{tag} metrics": max(
-        _rel(r["tp"], r["one"], ("loss", "ce", "aux", "grad_norm", "lr"))
-        for r in rows), f"{tag} params": max(r["params"] for r in rows)}
-    assert errs[f"{tag} metrics"] <= tol and \
-        errs[f"{tag} params"] <= (params_tol or tol), (tag, errs, rows)
+    keys = ("loss", "ce", "aux", "grad_norm", "lr") \
+        + (("mtp",) if "mtp" in rows[0]["one"] else ())
+    errs = {f"{tag} metrics": max(_rel(r["tp"], r["one"], keys)
+                                  for r in rows),
+            f"{tag} params": max(r["params"] for r in rows)}
+    for r in rows:
+        for k in keys:
+            limit = tol if "one64" not in r else max(
+                tol, 2 * _rel(r["one"], r["one64"], (k,)))
+            assert _rel(r["tp"], r["one"], (k,)) <= limit, (tag, k, limit,
+                                                           rows)
+    assert not hold_params or errs[f"{tag} params"] <= (params_tol or tol), (
+        tag, errs, rows)
     for r in rows:
         by_data = [r["drops"][i:i + model]
                    for i in range(0, len(r["drops"]), model)]
         assert all(len(set(b)) == 1 for b in by_data), (tag, r)
         assert sum(b[0] for b in by_data) == r["drops_one"], (tag, r)
+        if blocks:
+            assert [b[0] for b in by_data] == r["drops_by_block"], (tag, r)
+        assert not any(r["flips"]), (tag, r["flips"])
     errs[f"{tag} drops"] = [r["drops"] for r in rows]
+    errs[f"{tag} flips"] = [r["flips"] for r in rows]
     return errs
 
 
@@ -1533,25 +1734,27 @@ def check_moe_drops(res, shape) -> dict:
     return errs
 
 
-def check_moe_bytes(res, shape, count=_dry_count) -> dict:
+def check_moe_bytes(res, shape, count=_dry_count, cfg=None) -> dict:
     """The float32 steps' collectives on ``shape``: one pmean a gradient
     leaf and one for the metrics (over data), and the bytes by kind the
     ranks move, summed, equal to the dry run's count of the same cell
-    (``count(cfg, shape, mesh)``) times the ranks: the counts' all-gather
-    of each MoE layer over data, and the all-reduces less the grad norm's
-    scalar and the loss metrics' mean. Returns the bytes a step by
-    kind."""
+    (``count(cfg, shape, mesh)``; ``cfg`` reduced granite-moe-3b-a800m by
+    default) times the ranks: the counts' all-gather of each MoE layer
+    over data, and the all-reduces less the grad norm's scalar and the
+    loss metrics' mean. Returns the bytes a step by kind."""
     from repro_torch.launch.mesh import make_mesh
     d, m = shape
+    cfg = cfg or _moe_cfg()
     f32 = res[shape]["f32"]
     steps = len(f32["rows"])
     fwd, _ = f32["counts"]
     assert fwd["pmean"]["calls"] == steps * (f32["leaves"] + 1), fwd
-    st = count(_moe_cfg(), tp_train_shape(), make_mesh(d, m))
+    st = count(cfg, tp_train_shape(), make_mesh(d, m))
     got = {k: v / steps for k, v in by_kind(f32["counts"]).items()}
     want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+    # the loss metrics: loss, ce, aux (and mtp) in float32
     want["all-reduce"] = want.get("all-reduce", 0) + norm_bytes(d, m) \
-        + d * m * int(round(2 * (d - 1) / d * 12))
+        + metric_bytes(len(f32["rows"][0]["tp"]) - 2, 4, d) * m
     assert set(got) == set(want), (shape, got, want)
     for k in got:
         assert abs(got[k] - want[k]) <= d * m, (shape, k, got, want)
@@ -1580,7 +1783,127 @@ def check_moe_train(res, count=_dry_count) -> dict:
         errs.update(check_moe_drops(res, shape))
     for name, m in (("groups", 1), ("vocab257", 4), ("deepseek", 1)):
         errs.update(check_moe_steps(name, res[name], MOE_TOL["f64"],
-                                    model=m))
+                                    model=m, blocks=name != "groups"))
     if res["reference"] is not None:
         errs.update(check_moe_reference(res))
+    return errs
+
+
+# -- MLA under the model axis -------------------------------------------------
+
+
+def check_mla_mesh(res, shape) -> dict:
+    """On ``shape``: float32 and float64, 3 steps each from the same state
+    as the one-device step, the metrics (the mtp loss too) within
+    ``MOE_TOL``, the parameters after each step within ``MOE_TOL["f64"]``
+    in float64. Two float32 gaps are read against what float32 resolves:
+    after AdamW's first step the one-device float32 step's own grad norm
+    is 3.4e-6 from float64's from the same state (measured on the CPU;
+    granite-moe-3b-a800m's 2.6e-8), so each float32 metric is held within
+    twice that where it is wider than ``MOE_TOL["f32"]`` (the ranks'
+    grad norm there: 2.4e-6 on (1,4)); and float32's parameter gap is
+    returned, not held: AdamW's first update, lr g / (|g| + eps) element
+    by element, turns the rounding of gradient elements near eps (1e-8 of
+    a table whose largest gradient is 3e-3) into gaps of a tenth of lr
+    (1.48e-3 on (1,4), 8.4e-4 on (2,2), in the first step; 6.7e-6 and
+    1.2e-7 in the next two), which float64 holds at 1e-10."""
+    errs = {}
+    for tag in ("f32", "f64"):
+        errs.update(check_moe_steps(f"mla {shape} {tag}", res[shape][tag],
+                                    MOE_TOL[tag], model=shape[1],
+                                    hold_params=tag == "f64"))
+    return errs
+
+
+def check_mla_bytes(res, shape, count=_dry_count) -> dict:
+    """The float32 steps' bytes by kind, summed over the ranks, equal to
+    the dry run's count of reduced deepseek-v3-671b's train cell with
+    ``fsdp=False`` on ``shape`` times the ranks (:func:`check_moe_bytes`):
+    MLA's all-reduce after ``wo`` and of its three latent cotangents, the
+    experts' of the tokens, their gates and the combined output, the
+    vocab-split lookups and cross-entropies (the MTP module's too)."""
+    return check_moe_bytes(res, shape, count, _mla_cfg())
+
+
+def check_mla_drops(res) -> dict:
+    """Capacity factor 0.5 on (2,2) (float64): as the one-device step,
+    which drops pairs every step, each rank's drops those of its data
+    coordinate's block of rows."""
+    got = res["drops"]
+    errs = check_moe_steps("mla drops", got, MOE_TOL["f64"], model=2)
+    for r in got["rows"]:
+        assert r["drops_one"] > 0 and r["drops"][2] > 0, r
+    return errs
+
+
+def check_mla_train(res, count=_dry_count) -> dict:
+    """Every check of the MLA train case (the reference's step where it
+    ran)."""
+    errs = {}
+    for shape in MLA_MESHES:
+        errs.update(check_mla_mesh(res, shape))
+        errs[f"mla {shape} bytes"] = check_mla_bytes(res, shape, count)
+    errs.update(check_mla_drops(res))
+    if res["reference"] is not None:
+        errs.update(check_moe_reference(res))
+    check_tp_ckpt(res)
+    return errs
+
+
+def check_mla_serve_logits(res) -> dict:
+    """The process route's prefill and 2 decode steps on (1,4), on the
+    rank's blocks, within ``TOL["mla"]`` of the one-device steps and of
+    the stacked route's (its lane-local prefill, one ``shard_map`` a
+    layer; none on the ranks); every rank holds the latent cache whole."""
+    cfg = reduced(get_config("deepseek-v3-671b"))
+    outs, counts, cache = res["tp"]
+    errs = {route: max(_err(a, b) for a, b in zip(outs, res[route][0]))
+            for route in ("one", "stacked")}
+    assert max(errs.values()) <= TOL["mla"], errs
+    assert cache == res["one"][2], (cache, res["one"][2])
+    assert all("shard_map" not in c[0] for c in counts), counts
+    assert res["stacked"][1][0][0]["shard_map"]["calls"] == cfg.n_layers
+    return errs
+
+
+def check_mla_serve_bytes(res, count=_dry_count):
+    """Per serve step of the process route the bytes summed over the ranks
+    equal to the dry run's count ("deepseek-v3-671b prefill 1x4" and
+    "decode 1x4" of ``tests/test_torch_dryrun.py``, at the case's 2 x 6
+    and float32 parameters) times the ranks, and one all-gather of the
+    last position's logits."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    # the case's parameters are float32 (the config's are bfloat16): the
+    # lookup's all-reduce moves the table's dtype
+    cfg = reduced(get_config("deepseek-v3-671b"), param_dtype="float32")
+    outs, counts, _ = res["tp"]
+    m, b, s = 4, outs[0].shape[0], 6
+    gathered = m * (m - 1) * b * (cfg.vocab_size // m) * 4
+    for i, c in enumerate(counts):
+        kind = "prefill" if i == 0 else "decode"
+        st = count(cfg, ShapeConfig(kind, s, b, kind), make_mesh(1, m))
+        got = by_kind(c)
+        assert got == {"all-reduce": m * st.collective_by_kind["all-reduce"],
+                       "all-gather": gathered}, (i, got,
+                                                 st.collective_by_kind)
+
+
+def check_mla_ep_serve(res) -> dict:
+    """The prefill at or above a lowered ``DENSE_PATH_MAX_TOKENS`` on
+    (1,4): each rank runs the expert-parallel route on its block of the
+    experts (its ``all_to_all``s counted), within ``TOL["mla"]`` of the
+    stacked route's on the global tables."""
+    pair = res["ep"]
+    err = _err(pair["proc"][0], pair["stacked"][0])
+    assert err <= TOL["mla"], err
+    for route in ("proc", "stacked"):
+        assert pair[route][1][0]["all_to_all"]["calls"] > 0, pair[route][1]
+    return {"ep": err}
+
+
+def check_mla_serve(res, count=_dry_count) -> dict:
+    errs = check_mla_serve_logits(res)
+    check_mla_serve_bytes(res, count)
+    errs.update(check_mla_ep_serve(res))
     return errs
