@@ -155,11 +155,12 @@ non-zero and prints no result. Phases, one JSON line each:
                grid, 5 programs a cell, in float32, float64 and int32, each
                bit-equal to the card's ReferenceEngine on the same batch and
                to the same engine on the CPU (programs/s beside the
-               ReferenceEngine's); Listing-1 at n = 256 on 16 lanes in
-               float64 through a flat 16-lane LaneEngine and a 4 x 4
-               ClusterEngine, bit-equal to phase 13's ReferenceEngine
-               result (wall s, rows/s, encode s, cross-lane folds by unit);
-               the scoreboard at 1 and 4 clusters beside the closed form;
+               ReferenceEngine's); Listing-1 at n = 128
+               (``LANE_LISTING_N``) on 16 lanes in float64 through a flat
+               16-lane LaneEngine and a 4 x 4 ClusterEngine, bit-equal to
+               the card's ReferenceEngine result at that size (wall s,
+               rows/s, cross-lane folds by unit); the scoreboard of phase
+               13's n = 256 at 1 and 4 clusters beside the closed form;
                ``benchmarks/torch_scaleout.py``'s ``--verify`` at 2x2 and
                4x2 on the card.
 15. ``serve_moe`` granite-moe-3b-a800m unreduced (32 layers of 40 routed
@@ -212,7 +213,7 @@ non-zero and prints no result. Phases, one JSON line each:
                undetected escapes, both rungs in the faulted phase, one
                ``matmul_int8`` launch per int8 decode step; goodput and
                P50/P99 latency in ticks and seconds, every counter.
-21. ``train_restart`` the trainer on tinyllama-1.1b at full width, 2 layers,
+21. ``train_restart`` the trainer on tinyllama-1.1b at full width, 1 layer,
                batch 4 x 2048 (fp32 parameters, bf16 compute, full remat):
                6 steps straight saving every 3, and 3 + 3 through a
                checkpoint, the resumed state equal to the straight one bit
@@ -308,7 +309,7 @@ non-zero and prints no result. Phases, one JSON line each:
                against the one-device step's (1 MoE layer, float32, 8 x
                2048 tokens, capacity factor 5: no drops), and a planted
                misrouting that must fail that limit; then
-               granite-moe-3b-a800m (16 layers) through
+               granite-moe-3b-a800m (8 layers) through
                ``Trainer(mesh=make_mesh(2, 4))``, 3 steps at 8 x 2048 on
                the expert-parallel route (3 all_to_all a chunk a MoE layer
                a pass), B3-B5 launches exact and held against their plain
@@ -347,21 +348,23 @@ non-zero and prints no result. Phases, one JSON line each:
                beside phase 7's, the collectives, the NCCL version and
                backend, NCCL's events in ``torch.profiler``; then every
                case of ``tests/torch_process_cases.py`` on 4 gloo ranks of
-               the CPU but ``moe_train`` and ``mla_train``, which phases
-               41 and 42 run on the card (``mesh_processes_gloo``).
+               the CPU but ``CARD_CASES`` (``tp_train``, ``fsdp_train``,
+               ``moe_train``, ``mla_train``, ``mla_fsdp``,
+               ``mla_fsdp_serve``), whose routes phases 39-43 run on the
+               card (``mesh_processes_gloo``).
                Only this process prints; a rank that fails fails the
                phase.
 39. ``mesh_tensor_parallel`` tensor parallelism over processes, spawned
                after ``free_memory()``: at m = 2 and 4, m ranks on the
                one card in a gloo group (``make_process_mesh(1, m,
                backend="gloo")``; NCCL refuses two ranks on one card)
-               train tinyllama-1.1b as phase 7 does but cut to 4 of its
+               train tinyllama-1.1b as phase 7 does but cut to 2 of its
                22 layers (``MESH_LAYERS``), 2 steps through ``Trainer``,
                each rank its blocks of every leaf: the first loss
                against the one-device step's (run first, at the same
                depth), and on conditioned parameters one step's loss
                and grad norm, each rank's blocks against the same slices
-               of its result, B3-B5 8 / 4 / 4
+               of its result, B3-B5 4 / 2 / 2
                a step on every rank at 32 / m heads a launch (held
                against their plain versions there), the all-reduce bytes
                summed over the ranks equal to ``count_step``'s, a float32
@@ -372,7 +375,7 @@ non-zero and prints no result. Phases, one JSON line each:
                parallelism over ``model``), held as phase 39 and against
                the same one-device steps, the gathers and
                reduce-scatters against ``count_step``'s.
-41. ``mesh_moe`` granite-moe-3b-a800m (full width, 4 of 32 layers, as
+41. ``mesh_moe`` granite-moe-3b-a800m (full width, 2 of 32 layers, as
                phase 7 trains: 4 x 2048, one dispatch group of 8192
                tokens) on (4, 1) and (2, 2) ranks sharing the card
                through gloo, 2 steps through ``Trainer``: the one-hot
@@ -385,7 +388,7 @@ non-zero and prints no result. Phases, one JSON line each:
                step's; a step with a flipped route held on the flipped
                share and a gap of 3e-5) with
                a step at capacity factor 0.5 whose drops are each rank's
-               block's, B3-B5 8 / 4 / 4 a rank-step at 1 x 32 and 2 x 16
+               block's, B3-B5 4 / 2 / 2 a rank-step at 1 x 32 and 2 x 16
                rows x heads (held against their plain versions there),
                the dropped pairs against the one-device step's, the bytes
                by kind against ``count_step``'s; ms a step and peak GB a
@@ -400,10 +403,19 @@ non-zero and prints no result. Phases, one JSON line each:
                module's GQA layer at 2 x 32 rows x heads), and a float32
                prefill and two absorbed decode steps on the rank's blocks
                against the one-device steps and ``count_step``'s bytes;
-               the one-device steps run here after the spawn. Phases 39-42
-               share their spawns (``run_card_ranks``): the (1, 2) ranks,
-               then one world of 4 ranks that runs (1, 4), both FSDP
-               meshes, both MoE meshes and the MLA mesh in turn.
+               the one-device steps run here after the spawn.
+43. ``mesh_mla_fsdp`` deepseek-v3-671b as configured (``fsdp=True``; phase
+               42's width and cut) on (2, 2) ranks sharing the card:
+               every embed dimension over data, each MoE layer, the dense
+               layer and the MTP module gathering their leaves (of the
+               expert tables the rank's experts) where they run, the
+               experts, heads and vocab over ``model``; held as phase 42,
+               to phase 42's one-device record, the bytes against
+               ``count_step``'s with FSDP, B3-B5 1 / 1 / 1 a rank-step at
+               1 x 64 rows x heads. Phases 39-43 share their spawns
+               (``run_card_ranks``): the (1, 2) ranks, then one world of 4
+               ranks that runs (1, 4), both FSDP meshes, both MoE meshes,
+               the MLA mesh and the MoE FSDP mesh in turn.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -415,9 +427,10 @@ in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
 ``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
-NCCL step summed over its ranks, ``mesh_processes``, and phases 39-42's
+NCCL step summed over its ranks, ``mesh_processes``, and phases 39-43's
 steps summed over their ranks, ``mesh_tensor_parallel (1, m)``,
-``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_mla (1, 4)``; error,
+``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_mla (1, 4)``,
+``mesh_mla_fsdp (2, 2)``; error,
 times and bound per
 kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -472,7 +485,7 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import (moe_dense_dispatch,  # noqa: E402
                                     moe_ep_shard_map, moe_template)
 from repro_torch.models.sharding import (MeshCtx,  # noqa: E402
-                                         gather_params, shard_params)
+                                         NamedSharding, shard_params)
 from repro_torch.models.layers import (init_params, tree_leaves,  # noqa: E402
                                        tree_map, tree_size_bytes,
                                        value_and_grad)
@@ -2814,7 +2827,8 @@ def phase_vector_engine(smi, device=DEV):
     VLMAX against numpy, timed, with its scoreboard cycles; a batch mixing
     Listing-1 and grid programs bit-equal to the CPU run; the demo's
     masked argmax. Wall seconds on the host clock (each call ends in the
-    one copy of its results to the host)."""
+    one copy of its results to the host). Returns (results, timed, the
+    n = 256 program and its scoreboard cycles, for phase 14)."""
     results, timed = [], {}
     for dtype in (torch.float32, torch.float64, torch.int32):
         timed[f"grid_{str(dtype).replace('torch.', '')}"] = _engine_grid(
@@ -2905,7 +2919,7 @@ def phase_vector_engine(smi, device=DEV):
     results.append({"name": f"masked argmax vl={vl}", "argmax": int(s[0])})
     emit("vector_engine", gpu=smi, n_checks=len(results), checks=results,
          timed=timed)
-    return results, timed, (prog, mem, out)
+    return results, timed, (prog, tr.cycles)
 
 
 # ---------------------------------------------------------------------------
@@ -2916,6 +2930,10 @@ LANE_GRID_N = 5             # programs per SEW x LMUL cell: 105 a dtype
 LANE_TOPOLOGIES = (("lane", 2), ("cluster", 2, 2), ("cluster", 2, 4),
                    ("cluster", 4, 2))
 LISTING_TOPOLOGIES = (("lane", 16), ("cluster", 4, 4))
+# phase 14's Listing-1 size on those topologies (phase 13 runs the paper's
+# n = 256 on the ReferenceEngine: 213,505 rows, ~18 s an engine; 128 is a
+# quarter of the rows, the same program shape at 16 lanes' VLMAX)
+LANE_LISTING_N = 128
 
 
 def _topology_name(t):
@@ -2997,21 +3015,23 @@ def _load_script(rel):
 
 def phase_vector_engine_lanes(smi, listing, device=DEV):
     """Phase 14: the LaneEngine and ClusterEngine on the card. ``listing``
-    is phase 13's (program, memory, ReferenceEngine result) of Listing-1
-    at n = 256 on 16 lanes' VLMAX, float64."""
+    is phase 13's Listing-1 program at n = 256 on 16 lanes' VLMAX and its
+    scoreboard cycles at one cluster (beside which the scoreboard times it
+    at 4); the engines run Listing-1 at ``LANE_LISTING_N``, bit-equal to
+    the ReferenceEngine's result there, float64."""
     results, timed = [], {}
     for dtype in (torch.float32, torch.float64, torch.int32):
         timed[f"grid_{str(dtype).replace('torch.', '')}"] = _lanes_grid(
             dtype, device, results)
 
-    cfg, n = AraConfig(lanes=ENGINE_LANES), ENGINE_N
-    prog, mem, want = listing
+    cfg, n = AraConfig(lanes=ENGINE_LANES), LANE_LISTING_N
+    prog, mem, _ = _listing1(n, cfg, 0)
+    want, _ = ReferenceEngine(cfg, device=device).run(prog, mem)
+    # the host's encode of a program at this VLMAX is phase 13's
+    # ``encode_s`` (the same work): not timed here
     for topology in LISTING_TOPOLOGIES:
         eng = _lane_engine(topology, cfg, torch.float64, device,
                            cache=staging.TraceCache())
-        t0 = time.perf_counter()
-        staging.pack_tables([staging.encode_program(prog, eng.vlmax64)])
-        encode_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         out, _ = eng.run(prog, mem)
         wall = time.perf_counter() - t0
@@ -3022,16 +3042,17 @@ def phase_vector_engine_lanes(smi, listing, device=DEV):
         st = eng.cache.stats
         results.append({"name": f"listing1 n={n} {name}",
                         "bit_equal_to_reference": True})
-        timed[f"listing1_256_{name}"] = {
+        timed[f"listing1_{n}_{name}"] = {
             "n": n, "lanes": eng.lanes, "vlmax": eng.vlmax, "rows": len(prog),
             "wall_s": wall, "rows_per_s": len(prog) / wall,
-            "encode_s": encode_s, "folds": dict(st.folds),
+            "folds": dict(st.folds),
             "fold_stages": dict(st.fold_stages)}
 
+    prog256, cycles = listing
     timed["cycles_listing1_256"] = {
-        f"clusters_{c}": {"scoreboard": simulate_timing(
-            prog, cfg, clusters=c).cycles,
-            "closed_form": pm.matmul_cycles(cfg, n, clusters=c)}
+        f"clusters_{c}": {"scoreboard": cycles if c == 1 else simulate_timing(
+            prog256, cfg, clusters=c).cycles,
+            "closed_form": pm.matmul_cycles(cfg, ENGINE_N, clusters=c)}
         for c in (1, 4)}
 
     scaleout = _load_script("benchmarks/torch_scaleout.py")
@@ -3169,7 +3190,7 @@ def phase_serving_load(cfg, params):
 # ---------------------------------------------------------------------------
 
 
-RESTART_LAYERS = 2
+RESTART_LAYERS = 1        # its checks do not read depth (2 until PR 32)
 RESTART_STEPS, RESTART_AT = 6, 3
 
 
@@ -4280,7 +4301,7 @@ def phase_mesh_compression(smi):
     free_memory()
 
 
-MESH_TRAIN = dict(data=2, model=4, batch=8, layers=16, steps=3)
+MESH_TRAIN = dict(data=2, model=4, batch=8, layers=8, steps=3)
 EP_LAYER_TOKENS, EP_LAYER_CF = 2048, 16.0
 # the mesh step's gradients against the one-device step's: one MoE layer
 # (a deeper stack's roundings tip near-ties of the next router's top-k, a
@@ -4391,8 +4412,9 @@ def ep_grad_check(full, ctx):
 
 
 def phase_mesh_train(smi):
-    """Phase 35: granite-moe-3b-a800m at full width, 16 of 32 layers (PR
-    22's cut; the state of all 32 leaves no room), through
+    """Phase 35: granite-moe-3b-a800m at full width, ``MESH_TRAIN``'s 8 of
+    32 layers (PR 22's cut was 16: the state of all 32 leaves no room; PR
+    32 halved it for the run's time: the checks do not read depth), through
     ``Trainer(mesh=make_mesh(2, 4))`` — the path ``launch/train.py --data 2
     --model 4`` takes — 3 AdamW steps at 8 x 2048 = 16,384 tokens, the
     least that takes the expert-parallel route (48 padded experts over 4
@@ -4791,10 +4813,13 @@ PROC_STEPS = 3
 PROC_LOSS_REL = 1e-3      # at two ranks or more: another summation order
 PROC_TIMEOUT_S = 600      # a rank still running then fails the phase
 # the CPU cases that phase 38 leaves to the card: phases 41 and 42 run
-# the MoE and the MLA steps over processes on this machine at full width
-# (the cases' ~35 s and ~20 s on its CPU would push the run toward its
-# limit)
-CARD_CASES = ("moe_train", "mla_train")
+# the CPU cases whose routes phases 39-43 run on this machine at full
+# width: the dense family's tensor-parallel and FSDP steps, the MoE and
+# MLA steps over processes, the MoE family under FSDP (on this machine's
+# CPU they took ~36 s, ~35 s, ~20 s and ~25 s, which the run's time
+# cannot hold; the CPU tests hold them at every commit)
+CARD_CASES = ("tp_train", "fsdp_train", "moe_train", "mla_train",
+              "mla_fsdp", "mla_fsdp_serve")
 
 
 def _process_cases():
@@ -5008,11 +5033,14 @@ TP_LOSS_REL = 2e-3        # bf16 compute: the partial sums' own rounding
 # so it is held on the conditioned parameters (``_conditioned``)
 TP_GRAD_REL = 2e-2
 TP_FP32_LAYERS = 2        # the float32 witness, full width
+# ... its sequences (x TRAIN_BATCH rows, or MLA_BATCH): half of
+# TRAIN_SEQ, since PR 32 for every witness (deepseek-v3's since PR 31)
+WITNESS_SEQ = 1024
 TP_FP32_REL = 1e-5
 TP_TIMEOUT_S = 600
 
 
-MESH_LAYERS = 4           # phases 39-40: the depth their checks need
+MESH_LAYERS = 2           # phases 39-40: the depth their checks need
 
 
 def _mesh_cfgs():
@@ -5053,12 +5081,35 @@ def _logged_step(step_fn, state, batch):
 
 
 def _on_rank0(tree, specs, mesh):
-    """``tree``'s blocks gathered leaf by leaf (every rank takes part), the
-    whole tree kept on rank 0 alone (None on the others), so that no other
-    rank holds a whole copy beside its blocks."""
+    """``tree``'s blocks (``specs``: the sanitized global specs) gathered
+    leaf by leaf to rank 0 (every rank takes part): the whole tree on rank
+    0, None on the others. A leaf that no axis cuts is rank 0's own block;
+    the blocks of the others go through the host to rank 0 alone (gloo's
+    ``gather`` over the ranks that tile the leaf with it), where an
+    all-gather (``gather_params``) moves every block to every rank."""
+    import torch.distributed as dist
+
     def leaf(x, spec):
-        got = gather_params(x, spec, mesh)
-        return got if mesh.rank == 0 else None
+        entries = tuple(spec) + (None,) * (x.dim() - len(spec))
+        axes = tuple(a for a in mesh.axis_names if mesh.shape[a] > 1 and any(
+            a in compat.entry_axes(e) for e in entries))
+        if not axes:
+            return x.clone() if mesh.rank == 0 else None
+        group, ranks = mesh.group(axes)
+        if 0 not in ranks:
+            return None
+        block = x.detach().cpu().contiguous()
+        parts = [torch.empty_like(block) for _ in ranks] \
+            if mesh.rank == 0 else None
+        dist.gather(block, parts, dst=0, group=group)
+        if mesh.rank != 0:
+            return None
+        shape = [k * math.prod(mesh.shape[a] for a in compat.entry_axes(e))
+                 for k, e in zip(block.shape, entries)]
+        out = block.new_empty(shape)
+        for r, part in zip(ranks, parts):
+            out[NamedSharding(mesh, spec).block_index(shape, r)] = part
+        return out.to(x.device)
     return tree_map(leaf, tree, specs)
 
 
@@ -5086,25 +5137,47 @@ def _routes(mesh, log, one_log):
             "drops_one_by_block": pc.drops_by_block(one_log, n)}
 
 
+class _Clock:
+    """The host seconds of each part of a run, each ending in a
+    synchronise: ``took(name)`` closes the part begun at the last call (or
+    at construction)."""
+
+    def __init__(self):
+        self.seconds, self.t0 = {}, time.perf_counter()
+
+    def took(self, part):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        self.seconds[part], self.t0 = t1 - self.t0, t1
+
+
+# rank 0's one-device witness steps from the initial state, by their
+# inputs (the config but its fsdp, which one device ignores, and the
+# batch): a later job of the same spawn on the same inputs is held to them
+_WITNESS_ONE: dict = {}
+
+
 def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None, batch=None,
-                     seq=None, drop_capacity=None):
+                     drop_capacity=None, steps=None):
     """``TP_FP32_LAYERS`` layers of tinyllama-1.1b (or of ``cfg``) at full
     width in float32 compute (TF32 off) from ``_conditioned`` parameters
     (at the configured init, two summation orders of this step read
     gradients 3e-3 of their largest apart: the 4-rank split's partial sums
-    do), ``TP_STEPS`` tensor-parallel steps of ``batch`` x ``seq``
-    (default ``TRAIN_BATCH`` x ``TRAIN_SEQ``), each held against the
-    one-device step from the same state (gathered to rank 0, which runs
-    it; at the initial state rank 0 keeps the init the blocks were cut
-    from): per step both steps' loss and grad norm. For
-    a MoE model, per step also each rank's routes and drops against the
+    do), ``steps`` (default ``TP_STEPS``) tensor-parallel steps of
+    ``batch`` (default ``TRAIN_BATCH``) x ``WITNESS_SEQ``, each
+    held against the one-device step from the same parameters (gathered to
+    rank 0, which runs it; at the initial state rank 0 keeps the init the
+    blocks were cut from, and takes the one-device step from
+    ``_WITNESS_ONE`` where an earlier job ran it): per step both steps'
+    loss and grad norm, and the seconds of each part.
+    For a MoE model, per step also each rank's routes and drops against the
     one-device step's (:func:`_routes`); with ``drop_capacity``, first one
     more step from the same initial state at that capacity factor, whose
     one group drops pairs (its row first, ``capacity_factor`` set)."""
     cfg = cfg or _mesh_cfgs()[0]
     cfg = dataclasses.replace(cfg, n_layers=TP_FP32_LAYERS,
                               compute_dtype="float32", fsdp=fsdp)
-    data = DataConfig(seq_len=seq or TRAIN_SEQ,
+    data = DataConfig(seq_len=WITNESS_SEQ,
                       global_batch=batch or TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
     tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS), mesh=mesh,
@@ -5118,36 +5191,55 @@ def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None, batch=None,
                                          "opt": adamw.init(opt, whole)}
         free_memory()
         return {"params": blocks, "opt": adamw.init(opt, blocks)}, whole
-    steps = [(cfg, i, tr.step_fn) for i in range(TP_STEPS)]
+    runs = [(cfg, i, tr.step_fn) for i in range(steps or TP_STEPS)]
     if drop_capacity is not None:
         drop = with_capacity(cfg, drop_capacity)
-        steps.insert(0, (drop, 0, Trainer(drop, opt, data, TrainerConfig(
+        runs.insert(0, (drop, 0, Trainer(drop, opt, data, TrainerConfig(
             steps=1), mesh=mesh, device=DEV).step_fn))
     rows, state = [], None
-    for c, i, step_fn in steps:
+    for c, i, step_fn in runs:
+        clock = _Clock()
         if i == 0:          # the drop step too starts from the initial state
             state = None
             state, whole = initial()
         else:
-            whole = _on_rank0(state, tr.state_specs, mesh)
+            # the one-device step's loss, grad norm and routes read its
+            # parameters alone (the update, which would read the moments,
+            # is not kept): the ranks' parameters beside fresh moments
+            whole = _on_rank0(state["params"], tr.state_specs["params"],
+                              mesh)
+            whole = None if mesh.rank else {"params": whole,
+                                             "opt": adamw.init(opt, whole)}
+        clock.took("state")
         state, m, log = _logged_step(step_fn, state,
                                      to_device(tr.batch(i), DEV))
         free_memory()
         row = {"tp": {k: float(m[k]) for k in ("loss", "grad_norm")}}
+        clock.took("step")
         one_log = []
         if mesh.rank == 0:
-            # the step returns the whole state it updated: not kept
-            m1, one_log = _logged_step(make_train_step(c, opt).step_fn,
-                                       whole,
-                                       to_device(tr.source.batch(i), DEV))[1:]
-            row["one"] = {k: float(m1[k]) for k in ("loss", "grad_norm")}
+            key = repr((dataclasses.replace(c, fsdp=False), opt,
+                        data)) if i == 0 else None
+            if key not in _WITNESS_ONE:
+                # the step returns the whole state it updated: not kept
+                m1, one_log = _logged_step(
+                    make_train_step(c, opt).step_fn, whole,
+                    to_device(tr.source.batch(i), DEV))[1:]
+                m1 = {k: float(m1[k]) for k in ("loss", "grad_norm")}
+                if key is not None:
+                    _WITNESS_ONE[key] = m1, one_log
+            else:
+                m1, one_log = _WITNESS_ONE[key]
+            row["one"] = m1
+        clock.took("one_device")
         if cfg.is_moe:
             routes = _routes(mesh, log, one_log)
             if routes is not None:
                 row.update(routes, capacity_factor=c.moe.capacity_factor)
         del whole, log, one_log
         free_memory()
-        rows.append(row)
+        clock.took("routes")
+        rows.append(dict(row, seconds=clock.seconds))
     del state
     free_memory()
     return rows
@@ -5156,7 +5248,8 @@ def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None, batch=None,
 def _conditioned_tp_step(mesh, opt, cfg, batch=None):
     """One tensor-parallel step of ``cfg`` from ``_conditioned`` parameters
     (the seeded init of :func:`_conditioned_blocks`), on every rank: its
-    loss and grad norm. The one-device step from the same parameters is
+    loss, grad norm and ms (host clock, the init not counted). The
+    one-device step from the same parameters is
     :func:`_conditioned_one_step`'s (``batch`` rows, ``TRAIN_BATCH`` by
     default)."""
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=batch or TRAIN_BATCH,
@@ -5166,11 +5259,16 @@ def _conditioned_tp_step(mesh, opt, cfg, batch=None):
     whole, blocks = _conditioned_blocks(cfg, tr, mesh)
     del whole
     free_memory()
-    _, m = tr.step_fn({"params": blocks, "opt": adamw.init(opt, blocks)},
-                      to_device(tr.batch(0), DEV))
-    del blocks, tr
+    state = {"params": blocks, "opt": adamw.init(opt, blocks)}
+    batch = to_device(tr.batch(0), DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = tr.step_fn(state, batch)
+    out = {k: float(m[k]) for k in ("loss", "grad_norm")}   # waits for it
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    del blocks, state, tr
     free_memory()
-    return {k: float(m[k]) for k in ("loss", "grad_norm")}
+    return out
 
 
 def _conditioned_one_step(cfg, opt, batch=None):
@@ -5272,8 +5370,8 @@ def _card_rank(rank, world, store, jobs, one_path):
     each ``(kind, shape, out_path)`` of ``jobs`` in turn, in one process
     group, a ``make_process_mesh(*shape, backend="gloo")`` on the card the
     ranks share and its job: "tp" and "fsdp" phases 39-40's
-    (:func:`_tp_job`), "moe" phase 41's (:func:`_moe_job`), "mla" phase
-    42's (:func:`_mla_job`). Rank 0 writes
+    (:func:`_tp_job`), "moe" phase 41's (:func:`_moe_job`), "mla" and
+    "mla_fsdp" phases 42-43's (:func:`_mla_job`). Rank 0 writes
     each job's results, with the seconds it took, to its ``out_path``. One
     process runs every job of its world: its warm-up (10-14 s in its first
     step on the card) is paid once."""
@@ -5288,8 +5386,8 @@ def _card_rank(rank, world, store, jobs, one_path):
                                  world_size=world, timeout_s=TP_TIMEOUT_S)
         if kind == "moe":
             out = _moe_job(mesh)
-        elif kind == "mla":
-            out = _mla_job(mesh, out_path)
+        elif kind in ("mla", "mla_fsdp"):
+            out = _mla_job(mesh, out_path, fsdp=kind == "mla_fsdp")
         else:
             out = _tp_job(mesh, one_path, fsdp=kind == "fsdp")
         if rank == 0:
@@ -5301,11 +5399,12 @@ def _card_rank(rank, world, store, jobs, one_path):
     dist.destroy_process_group()
 
 
-# the jobs of phases 39-42 by world size: each world's ranks are spawned
+# the jobs of phases 39-43 by world size: each world's ranks are spawned
 # once and run its jobs in this order
 CARD_JOBS = ((2, (("tp", (1, 2)),)),
              (4, (("tp", (1, 4)), ("fsdp", (4, 1)), ("fsdp", (2, 2)),
-                  ("moe", (4, 1)), ("moe", (2, 2)), ("mla", (1, 4)))))
+                  ("moe", (4, 1)), ("moe", (2, 2)), ("mla", (1, 4)),
+                  ("mla_fsdp", (2, 2)))))
 
 
 def run_card_ranks(tmp, one_path, card_jobs=CARD_JOBS) -> dict:
@@ -5606,7 +5705,7 @@ def phase_mesh_fsdp(smi, one_device=None, spawned=None):
 # ---------------------------------------------------------------------------
 
 
-MOE_MESH_LAYERS = 4       # of granite-moe-3b-a800m's 32
+MOE_MESH_LAYERS = 2       # of granite-moe-3b-a800m's 32
 MOE_CARD_MESHES = ((4, 1), (2, 2))    # (data, model): ranks on the one card
 # the first step's loss, ce and aux against the one-device step's: on (4,1)
 # each rank runs the one-device step's products on its rows (another GEMM
@@ -5712,6 +5811,7 @@ def _moe_job(mesh):
     (:func:`_moe_run`), then the float32 witness and the conditioned
     step. Returns the results on rank 0, None on the others."""
     import torch.distributed as dist
+    clock = _Clock()
     cfg, opt = _moe_mesh_cfgs()
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
@@ -5720,9 +5820,12 @@ def _moe_job(mesh):
     log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr)
     del tr
     free_memory()
+    clock.took("train")
     fp32 = _tp_fp32_witness(mesh, opt, cfg=cfg,
                             drop_capacity=DROP_CAPACITY)
+    clock.took("witness")
     conditioned = _tp_conditioned(mesh, opt, cfg=cfg)
+    clock.took("conditioned")
     geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
                   for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
     every = [None] * dist.get_world_size()
@@ -5736,7 +5839,7 @@ def _moe_job(mesh):
             "geometries_by_rank": [e[2] for e in every],
             "step_ms_by_rank": [e[3] for e in every],
             "drops_by_rank": [e[4] for e in every],
-            "collectives": counts}
+            "collectives": counts, "part_s": clock.seconds}
 
 
 def phase_mesh_moe(smi, spawned=None):
@@ -5747,10 +5850,10 @@ def phase_mesh_moe(smi, spawned=None):
     expert's FFN split over the ranks between Megatron's ``copy_to`` /
     ``reduce_from``). granite-moe-3b-a800m at full width (d_model 1536, 32
     padded heads of 64, 8 kv heads, 40 experts padded to 48, top 8,
-    expert FFN 512, vocab 49155, so the table whole on every rank), 4 of
-    its 32 layers, as phase 7 trains (fp32 parameters, bf16 compute, full
-    remat, AdamW, 4 x 2048: one dispatch group of 8192 tokens, capacity
-    2048): the one-device trainer first (``TP_STEPS`` steps), then on each
+    expert FFN 512, vocab 49155, so the table whole on every rank),
+    ``MOE_MESH_LAYERS`` of its 32 layers, as phase 7 trains (fp32
+    parameters, bf16 compute, full remat, AdamW, 4 x 2048: one dispatch
+    group of 8192 tokens, capacity 2048): the one-device trainer first (``TP_STEPS`` steps), then on each
     mesh of ``MOE_CARD_MESHES`` its ranks spawned on the one card in a
     gloo group, as phase 39's, ``TP_STEPS`` steps through
     ``Trainer(mesh=make_process_mesh(d, m, backend="gloo"))``. Held: the
@@ -5783,8 +5886,9 @@ def phase_mesh_moe(smi, spawned=None):
     pc = _process_cases()
     cfg, opt = _moe_mesh_cfgs()
     per_step = train_launches(cfg)
-    assert per_step == {"flash_fwd": 8, "flash_bwd_dq": 4,
-                        "flash_bwd_dkv": 4}, per_step
+    assert per_step == {"flash_fwd": 2 * MOE_MESH_LAYERS,
+                        "flash_bwd_dq": MOE_MESH_LAYERS,
+                        "flash_bwd_dkv": MOE_MESH_LAYERS}, per_step
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
     by_path, results = {}, []
@@ -5865,7 +5969,8 @@ def phase_mesh_moe(smi, spawned=None):
                  steady_step_ms_by_rank=steady,
                  peak_gb_by_rank=r["peak_gb_by_rank"],
                  one_device_step_ms=one_ms,
-                 one_device_peak_gb=one_peak / 1e9, seconds=spawn_s)
+                 one_device_peak_gb=one_peak / 1e9, part_seconds=r["part_s"],
+                 seconds=spawn_s)
             by_path[f"mesh_moe ({d}, {m})"] = launches
             free_memory()
     finally:
@@ -5880,31 +5985,46 @@ def phase_mesh_moe(smi, spawned=None):
 
 
 MLA_MESH = (1, 4)         # (data, model): ranks on the one card
+MLA_FSDP_MESH = (2, 2)    # phase 43's: FSDP over data, the model axis too
 # deepseek-v3-671b at full width cut as phase 22's exactness cut: 1 dense +
 # 1 MoE layer of 61, 8 of 256 routed experts (one MoE layer's 256 are 11.3
-# G parameters), the MTP module kept; FSDP off (the config's is on)
+# G parameters), the MTP module kept; FSDP off (the config's is on; phase
+# 43 keeps it)
 MLA_CUT = (("n_layers", 2), ("moe.n_dense_layers", 1), ("moe.n_experts", 8),
            ("fsdp", False))
 MLA_BATCH = 2             # x TRAIN_SEQ, as phase 22 trains deepseek-v3
 # the float32 witness's further cut, so that its one-device step (rank 0:
 # fp32 parameters, gradients and two moments, 16 bytes a parameter) fits
-# beside the four ranks' blocks: vocab 32000 of 129280, no MTP module,
-# sequences of 1024
+# beside the four ranks' blocks: vocab 32000 of 129280, no MTP module
+# (sequences of ``WITNESS_SEQ``, as every witness)
 MLA_WITNESS_CUT = (("vocab_size", 32000), ("mtp_depth", 0),
                    ("param_dtype", "float32"))
-MLA_WITNESS_SEQ = 1024
+# phase 43's train steps: the first step's loss, drops and launches are
+# held (a second step at capacity 1.25 holds nothing more: no pair drops);
+# the conditioned step, the same FSDP step after the first, gives the
+# steady ms a step
+MLA_FSDP_STEPS = 1
+# phase 43's witness: its drop step and one step from the initial state
+# (the step after it, from the gathered state, is phase 42's second
+# witness step's check; FSDP's update of the blocks is held in float64 on
+# the CPU): a float32 step under FSDP moves ~6 GB through gloo
+MLA_FSDP_WITNESS_STEPS = 1
 MLA_SERVE = dict(prompt=64, steps=2)   # two prompts, float32 compute
 
 
-def _mla_mesh_cfgs():
+def _mla_mesh_cfgs(fsdp=False):
     """deepseek-v3-671b as configured (bf16 parameters and moments, bf16
     compute, full remat, the attention kernels on the card, experts on the
-    model axis) cut by ``MLA_CUT``, and phase 22's optimizer with the
-    config's moment dtype."""
+    model axis) cut by ``MLA_CUT`` (with ``fsdp``, but its FSDP off: the
+    config's own FSDP on), and phase 22's optimizer with the config's
+    moment dtype."""
     cfg = _replace(get_config(MLA_ARCH), MLA_CUT)
     assert (cfg.param_dtype, cfg.opt_state_dtype, cfg.compute_dtype,
             cfg.remat, cfg.attn_flash, cfg.moe.expert_parallel) == (
         "bfloat16", "bfloat16", "bfloat16", "full", "auto", True), cfg
+    if fsdp:
+        assert get_config(MLA_ARCH).fsdp
+        cfg = dataclasses.replace(cfg, fsdp=True)
     opt = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=60,
                           moment_dtype=cfg.opt_state_dtype)
     return cfg, opt
@@ -5914,11 +6034,16 @@ def _mla_serve(cfg, mesh=None):
     """A prefill of two prompts of ``MLA_SERVE["prompt"]`` tokens (from a
     seed) and ``MLA_SERVE["steps"]`` absorbed decode steps of ``cfg`` in
     float32 compute with a float32 cache, from the seeded init:
-    on ``mesh`` with the rank's blocks (every rank takes part), else on one
-    device. Returns (the last logits of each step, on the host; each
-    step's collectives, summed over the ranks, or None)."""
+    on ``mesh`` with the rank's blocks (every rank takes part; each data
+    rank its rows of the prompts: one under FSDP on (2,2)), else on one
+    device. Returns (the last logits of each step, whole, on the host;
+    each step's collectives, summed over the ranks, or None)."""
     cfg = dataclasses.replace(cfg, compute_dtype="float32")
     ctx = MeshCtx(mesh=mesh, batch_axes=("data",)) if mesh else None
+    rows = slice(None)
+    if mesh is not None:
+        n = 2 // mesh.shape["data"]
+        rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = init_params(model_template(cfg), gen, dtype=cfg.param_dtype,
                          device=DEV)
@@ -5928,9 +6053,10 @@ def _mla_serve(cfg, mesh=None):
         free_memory()
     r = np.random.RandomState(42)
     toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(
-        2, MLA_SERVE["prompt"]))).to(DEV)
-    steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(2, 1)))
-             .to(DEV) for _ in range(MLA_SERVE["steps"])]
+        2, MLA_SERVE["prompt"]))[rows]).to(DEV)
+    steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(2, 1))
+                              [rows]).to(DEV)
+             for _ in range(MLA_SERVE["steps"])]
 
     def counts():
         return (compat.read_counts(reduce=True),
@@ -5955,21 +6081,24 @@ def _mla_serve(cfg, mesh=None):
     return outs, coll
 
 
-def _mla_job(mesh, out_path):
-    """Phase 42's work on (1,4), on every rank: deepseek-v3-671b as
-    :func:`_mla_mesh_cfgs` gives it through ``Trainer(mesh=mesh)``
-    (:func:`_moe_run`), then the float32 witness at ``MLA_WITNESS_CUT``
-    with its drop step, one step from ``_conditioned`` parameters and the
-    serve steps (:func:`_mla_serve`). The one-device steps run in the
-    parent afterwards (:func:`phase_mesh_mla`). Returns the results on
-    rank 0 (the serve logits saved beside ``out_path``), None on the
-    others."""
+def _mla_job(mesh, out_path, fsdp=False):
+    """Phase 42's work on (1,4) (with ``fsdp``, phase 43's on (2,2)), on
+    every rank: deepseek-v3-671b as :func:`_mla_mesh_cfgs` gives it
+    through ``Trainer(mesh=mesh)`` (:func:`_moe_run`), then the float32
+    witness at ``MLA_WITNESS_CUT`` with its drop step, one step from
+    ``_conditioned`` parameters and the serve steps (:func:`_mla_serve`).
+    The one-device steps run in the parent afterwards
+    (:func:`mla_one_device_record`). Returns the results on rank 0 (the
+    serve logits saved beside ``out_path``, the seconds of each part),
+    None on the others."""
     import torch.distributed as dist
-    cfg, opt = _mla_mesh_cfgs()
+    clock = _Clock()
+    cfg, opt = _mla_mesh_cfgs(fsdp)
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=MLA_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
-    tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS, log_every=1),
-                 mesh=mesh, device=DEV)
+    tr = Trainer(cfg, opt, data, TrainerConfig(
+        steps=MLA_FSDP_STEPS if fsdp else TP_STEPS, log_every=1), mesh=mesh,
+        device=DEV)
     local = tr.bundle.abstract_state
     n_params = sum(t.numel() for t in tree_leaves(local["params"]))
     state_bytes = tree_size_bytes(local["params"]) \
@@ -5977,14 +6106,19 @@ def _mla_job(mesh, out_path):
     log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr)
     del tr
     free_memory()
+    clock.took("train")
     wcfg = _replace(cfg, MLA_WITNESS_CUT)
     torch.cuda.reset_peak_memory_stats()
     fp32 = _tp_fp32_witness(mesh, dataclasses.replace(
-        opt, moment_dtype="float32"), cfg=wcfg, batch=MLA_BATCH,
-        seq=MLA_WITNESS_SEQ, drop_capacity=DROP_CAPACITY)
+        opt, moment_dtype="float32"), fsdp, cfg=wcfg, batch=MLA_BATCH,
+        drop_capacity=DROP_CAPACITY,
+        steps=MLA_FSDP_WITNESS_STEPS if fsdp else TP_STEPS)
     witness_peak = torch.cuda.max_memory_allocated()
+    clock.took("witness")
     conditioned = _conditioned_tp_step(mesh, opt, cfg, MLA_BATCH)
+    clock.took("conditioned")
     serve, serve_counts = _mla_serve(cfg, mesh)
+    clock.took("serve")
     geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
                   for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
     every = [None] * dist.get_world_size()
@@ -6004,10 +6138,171 @@ def _mla_job(mesh, out_path):
             "params_by_rank": [e[5] for e in every],
             "state_gb_by_rank": [e[6] / 1e9 for e in every],
             "witness_peak_gb_by_rank": [e[7] / 1e9 for e in every],
-            "collectives": counts}
+            "collectives": counts, "part_s": clock.seconds}
 
 
-def phase_mesh_mla(smi, spawned=None):
+def mla_one_device_record(smi):
+    """The one-device side of phases 42 and 43 (one device ignores
+    ``fsdp``, so the two phases' configs, seeds and batches give the same
+    steps): the trainer's ``TP_STEPS`` steps of :func:`_mla_mesh_cfgs`'s
+    model (their attention launches, drops, ms a step and peak), the
+    step from ``_conditioned`` parameters and the serve steps
+    (:func:`_mla_serve`)."""
+    cfg, opt = _mla_mesh_cfgs()
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=MLA_BATCH,
+                      vocab_size=cfg.vocab_size, seed=0)
+    free_memory()
+    t0 = time.perf_counter()
+    one_tr = Trainer(cfg, opt, data, TrainerConfig(
+        steps=TP_STEPS, log_every=1), device=DEV)
+    params = sum(t.numel() for t in tree_leaves(
+        one_tr.bundle.abstract_state["params"]))
+    log, launches, _, _, peak, step_ms, drops = _moe_run(one_tr)
+    del one_tr
+    free_memory()
+    out = {"log": log, "launches": launches, "peak_gb": peak / 1e9,
+           "step_ms": step_ms, "drops": drops, "params": params,
+           "conditioned": _conditioned_one_step(cfg, opt, MLA_BATCH),
+           "serve": _mla_serve(cfg)[0]}
+    emit("mesh_mla_one_device", gpu=smi, arch=cfg.name,
+         n_layers=cfg.n_layers, batch=MLA_BATCH, seq_len=TRAIN_SEQ,
+         params=params, log=log, drops=drops, step_ms=step_ms,
+         peak_gb=peak / 1e9, seconds=time.perf_counter() - t0)
+    return out
+
+
+def _hold_mla_job(smi, phase, mesh_shape, r, one, fsdp):
+    """Phase 42's (with ``fsdp``, phase 43's) checks of its job's results
+    ``r`` (rank 0's, :func:`_mla_job`) against the one-device record
+    ``one`` (:func:`mla_one_device_record`), and its line. Returns the
+    launches by path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    pc = _process_cases()
+    cfg, _ = _mla_mesh_cfgs(fsdp)
+    d, m = mesh_shape
+    n = d * m
+    steps = MLA_FSDP_STEPS if fsdp else TP_STEPS
+    per_step = train_launches(cfg)
+    assert per_step == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                        "flash_bwd_dkv": 1}, per_step
+    assert one["launches"] == {k: TP_STEPS * v
+                               for k, v in per_step.items()}, one
+    serve = torch.load(r["serve_path"], weights_only=True)
+    assert r["backend"] == "gloo", r["backend"]
+    want = {k: steps * v for k, v in per_step.items()}
+    assert all(x == want for x in r["launches_by_rank"]), r
+    launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                for k in per_step}
+    rows, heads = MLA_BATCH // d, cfg.n_heads_padded // m
+    seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
+            for rank_geos in r["geometries_by_rank"]
+            for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
+    results = []
+    geometries = check_path_attention(f"{phase} {mesh_shape}", seen, rows,
+                                      heads, 430 if fsdp else 420, results)
+    got_log, one_log = r["log"], one["log"]
+    rel = {k: abs(got_log[0][k] - one_log[0][k]) / abs(one_log[0][k])
+           for k in ("loss", "ce", "aux", "mtp")}
+    assert max(rel.values()) <= TP_LOSS_REL, (rel, got_log, one_log)
+    cond = {"tp": r["conditioned"], "one": one["conditioned"]}
+    cond_rel = {k: abs(cond["tp"][k] - cond["one"][k])
+                / abs(cond["one"][k]) for k in ("loss", "grad_norm")}
+    assert cond_rel["loss"] <= TP_LOSS_REL, cond
+    assert cond_rel["grad_norm"] <= TP_GRAD_REL, cond
+    fp32_rel, flips = check_witness(r["fp32"], d, m)
+    by_data = [r["drops_by_rank"][i:i + m] for i in range(0, n, m)]
+    assert all(b == b[:1] * m for b in by_data), r["drops_by_rank"]
+    drops = [sum(b[0][i] for b in by_data) for i in range(steps)]
+    assert drops == one["drops"][:steps], (drops, one["drops"],
+                                           r["drops_by_rank"])
+    # the train step's bytes by kind against the count of the same cell,
+    # less the grad norm's scalar (over every rank that holds a block)
+    # and the loss metrics' mean
+    st = dryrun.count_step(
+        cfg, ShapeConfig("train_2x2048", TRAIN_SEQ, MLA_BATCH, "train"),
+        make_mesh(d, m), target="cuda")
+    got = {k: v / steps for k, v in pc.by_kind(
+        r["collectives"]).items()}
+    got["all-reduce"] -= pc.fsdp_extra(d, m, 4) if fsdp \
+        else pc.norm_bytes(d, m) + pc.metric_bytes(4, 4, d) * m
+    want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
+    assert set(got) == set(want_bytes) and all(
+        abs(got[k] - want_bytes[k]) <= n for k in got), (got, want_bytes)
+    # the serve steps: logits against the one-device steps', bytes
+    # against the count of the same steps, beside the last logits'
+    # all-gathers
+    scfg = dataclasses.replace(cfg, compute_dtype="float32")
+    serve_rel = [float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(serve, one["serve"])]
+    assert max(serve_rel) <= TP_FP32_REL, serve_rel
+    gathered = pc.fsdp_logit_bytes(scfg, mesh_shape, 2)
+    serve_bytes = []
+    for i, c in enumerate(r["serve_collectives"]):
+        kind = "prefill" if i == 0 else "decode"
+        sst = dryrun.count_step(scfg, ShapeConfig(
+            kind, MLA_SERVE["prompt"], 2, kind), make_mesh(d, m),
+            target="cuda")
+        sgot = pc.by_kind(c)
+        swant = {k: n * v for k, v in sst.collective_by_kind.items()}
+        swant["all-gather"] = swant.get("all-gather", 0) + gathered
+        assert set(sgot) == set(swant) and all(
+            abs(sgot[k] - swant[k]) <= n for k in sgot), (i, sgot, swant)
+        serve_bytes.append(sgot)
+    # a step after the first: the train's own, or the conditioned step
+    steady = [statistics.mean(x[1:]) for x in r["step_ms_by_rank"]] \
+        if steps > 1 else [cond["tp"]["step_ms"]]
+    emit(phase, gpu=smi, arch=cfg.name, mesh=list(mesh_shape), ranks=n,
+         backend=r["backend"], fsdp=cfg.fsdp,
+         reduced={k: v for k, v in MLA_CUT if k != "fsdp" or not fsdp},
+         n_layers=cfg.n_layers, batch=MLA_BATCH, seq_len=TRAIN_SEQ,
+         steps=steps, log=got_log, one_device_log=one_log,
+         first_step_rel=rel, conditioned=cond, conditioned_rel=cond_rel,
+         fp32_witness=r["fp32"], fp32_rel=fp32_rel, fp32_flips=flips,
+         fp32_limit=TP_FP32_REL,
+         witness_cut={**dict(MLA_WITNESS_CUT), "seq_len": WITNESS_SEQ},
+         witness_peak_gb_by_rank=r["witness_peak_gb_by_rank"],
+         drops_by_rank=r["drops_by_rank"], drops=drops,
+         one_device_drops=one["drops"], launches=launches,
+         launches_per_rank_step=per_step, geometries=geometries,
+         rows_per_launch=rows, heads_per_launch=heads,
+         collectives=r["collectives"], bytes_per_step=got,
+         count_step_bytes=want_bytes, serve_rel=serve_rel,
+         serve_bytes=serve_bytes, serve=MLA_SERVE,
+         step_ms_by_rank=r["step_ms_by_rank"],
+         steady_step_ms_by_rank=steady,
+         peak_gb_by_rank=r["peak_gb_by_rank"],
+         params_by_rank=r["params_by_rank"],
+         state_gb_by_rank=r["state_gb_by_rank"],
+         one_device_params=one["params"],
+         one_device_step_ms=one["step_ms"],
+         one_device_peak_gb=one["peak_gb"], part_seconds=r["part_s"],
+         seconds=r["seconds"])
+    return {f"{phase} {mesh_shape}": launches}
+
+
+def _mla_phase(smi, phase, mesh_shape, spawned, one, fsdp):
+    """Phases 42-43: the job's ranks (spawned here where ``spawned`` is
+    None), the one-device record (made here where ``one`` is None), then
+    :func:`_hold_mla_job`."""
+    t_phase = time.perf_counter()
+    free_memory()
+    kind = "mla_fsdp" if fsdp else "mla"
+    tmp = tempfile.mkdtemp(prefix=f"mesh_{kind}_")
+    try:
+        spawned = spawned or run_card_ranks(tmp, None, [
+            (math.prod(mesh_shape), ((kind, mesh_shape),))])
+        one = one or mla_one_device_record(smi)
+        by_path = _hold_mla_job(smi, phase, mesh_shape,
+                                spawned[kind, mesh_shape], one, fsdp)
+        free_memory()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(f"{phase}_done", seconds=time.perf_counter() - t_phase)
+    return by_path
+
+
+def phase_mesh_mla(smi, spawned=None, one=None):
     """Phase 42: MLA under the model axis over processes
     (``models/attention.py::mla_attention(tp=)``: each rank its heads of
     ``wq_b`` / ``wkv_b`` / ``wo``, the latent projections whole, Megatron's
@@ -6023,7 +6318,8 @@ def phase_mesh_mla(smi, spawned=None):
     2 x 2048: its 4 ranks spawned on the one card in a gloo group with
     phases 39-41's, ``TP_STEPS`` steps through ``Trainer(mesh=
     make_process_mesh(1, 4, backend="gloo"))``; then here the one-device
-    trainer. Held: the first step's loss, ce, aux and mtp within
+    trainer (``one``: :func:`mla_one_device_record`, made here where
+    None). Held: the first step's loss, ce, aux and mtp within
     ``TP_LOSS_REL``; on ``_conditioned`` parameters one step's loss within
     ``TP_LOSS_REL`` and grad norm within ``TP_GRAD_REL``; a float32 witness
     at ``MLA_WITNESS_CUT`` step by step (:func:`check_witness`: within
@@ -6043,131 +6339,36 @@ def phase_mesh_mla(smi, spawned=None):
     figure), beside the card's name and power limit. ``spawned``:
     :func:`run_card_ranks`'s results (one spawn of its own here where
     None). Returns the launches by path, summed over the ranks."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import dryrun
-    t_phase = time.perf_counter()
-    free_memory()
-    pc = _process_cases()
-    cfg, opt = _mla_mesh_cfgs()
-    d, m = MLA_MESH
-    n = d * m
-    per_step = train_launches(cfg)
-    assert per_step == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                        "flash_bwd_dkv": 1}, per_step
-    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=MLA_BATCH,
-                      vocab_size=cfg.vocab_size, seed=0)
-    by_path, results = {}, []
-    tmp = tempfile.mkdtemp(prefix="mesh_mla_")
-    try:
-        spawned = spawned or run_card_ranks(tmp, None, [
-            (n, (("mla", MLA_MESH),))])
-        r = spawned["mla", MLA_MESH]
-        serve = torch.load(r["serve_path"], weights_only=True)
-        free_memory()
-        t0 = time.perf_counter()
-        one_tr = Trainer(cfg, opt, data, TrainerConfig(
-            steps=TP_STEPS, log_every=1), device=DEV)
-        one_params = sum(t.numel() for t in tree_leaves(
-            one_tr.bundle.abstract_state["params"]))
-        one, one_launches, _, _, one_peak, one_ms, one_drops = _moe_run(
-            one_tr)
-        del one_tr
-        free_memory()
-        assert one_launches == {k: TP_STEPS * v
-                                for k, v in per_step.items()}, one_launches
-        cond = {"tp": r["conditioned"],
-                "one": _conditioned_one_step(cfg, opt, MLA_BATCH)}
-        one_serve, _ = _mla_serve(cfg)
-        emit("mesh_mla_one_device", gpu=smi, arch=cfg.name,
-             n_layers=cfg.n_layers, batch=MLA_BATCH, seq_len=TRAIN_SEQ,
-             params=one_params, log=one, drops=one_drops, step_ms=one_ms,
-             peak_gb=one_peak / 1e9, seconds=time.perf_counter() - t0)
-        assert r["backend"] == "gloo", r["backend"]
-        want = {k: TP_STEPS * v for k, v in per_step.items()}
-        assert all(x == want for x in r["launches_by_rank"]), r
-        launches = {k: sum(x[k] for x in r["launches_by_rank"])
-                    for k in per_step}
-        heads = cfg.n_heads_padded // m
-        seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
-                for rank_geos in r["geometries_by_rank"]
-                for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
-        geometries = check_path_attention(
-            f"mesh_mla {MLA_MESH}", seen, MLA_BATCH, heads, 420, results)
-        got_log = r["log"]
-        rel = {k: abs(got_log[0][k] - one[0][k]) / abs(one[0][k])
-               for k in ("loss", "ce", "aux", "mtp")}
-        assert max(rel.values()) <= TP_LOSS_REL, (rel, got_log, one)
-        cond_rel = {k: abs(cond["tp"][k] - cond["one"][k])
-                    / abs(cond["one"][k]) for k in ("loss", "grad_norm")}
-        assert cond_rel["loss"] <= TP_LOSS_REL, cond
-        assert cond_rel["grad_norm"] <= TP_GRAD_REL, cond
-        fp32_rel, flips = check_witness(r["fp32"], d, m)
-        by_data = [r["drops_by_rank"][i:i + m] for i in range(0, n, m)]
-        assert all(b == b[:1] * m for b in by_data), r["drops_by_rank"]
-        drops = [sum(b[0][i] for b in by_data) for i in range(TP_STEPS)]
-        assert drops == one_drops, (drops, one_drops, r["drops_by_rank"])
-        st = dryrun.count_step(
-            cfg, ShapeConfig("train_2x2048", TRAIN_SEQ, MLA_BATCH, "train"),
-            make_mesh(d, m), target="cuda")
-        got = {k: v / TP_STEPS for k, v in pc.by_kind(
-            r["collectives"]).items()}
-        got["all-reduce"] -= pc.norm_bytes(d, m) \
-            + pc.metric_bytes(4, 4, d) * m
-        want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
-        assert set(got) == set(want_bytes) and all(
-            abs(got[k] - want_bytes[k]) <= n for k in got), (
-                got, want_bytes)
-        # the serve steps: logits against the one-device steps', bytes
-        # against the count of the same steps
-        scfg = dataclasses.replace(cfg, compute_dtype="float32")
-        serve_rel = [float((a - b).abs().max() / b.abs().max())
-                     for a, b in zip(serve, one_serve)]
-        assert max(serve_rel) <= TP_FP32_REL, serve_rel
-        gathered = m * (m - 1) * 2 * (cfg.vocab_size // m) * 4
-        serve_bytes = []
-        for i, c in enumerate(r["serve_collectives"]):
-            kind = "prefill" if i == 0 else "decode"
-            sst = dryrun.count_step(scfg, ShapeConfig(
-                kind, MLA_SERVE["prompt"], 2, kind), make_mesh(d, m),
-                target="cuda")
-            sgot = pc.by_kind(c)
-            swant = {"all-reduce": n * sst.collective_by_kind["all-reduce"],
-                     "all-gather": gathered}
-            assert set(sgot) == set(swant) and all(
-                abs(sgot[k] - swant[k]) <= n for k in sgot), (i, sgot, swant)
-            serve_bytes.append(sgot)
-        steady = [statistics.mean(x[1:]) for x in r["step_ms_by_rank"]]
-        emit("mesh_mla", gpu=smi, arch=cfg.name, mesh=list(MLA_MESH),
-             ranks=n, backend=r["backend"],
-             reduced={k: v for k, v in MLA_CUT}, n_layers=cfg.n_layers,
-             batch=MLA_BATCH, seq_len=TRAIN_SEQ, steps=TP_STEPS,
-             log=got_log, one_device_log=one, first_step_rel=rel,
-             conditioned=cond, conditioned_rel=cond_rel,
-             fp32_witness=r["fp32"], fp32_rel=fp32_rel, fp32_flips=flips,
-             fp32_limit=TP_FP32_REL,
-             witness_cut={**dict(MLA_WITNESS_CUT),
-                          "seq_len": MLA_WITNESS_SEQ},
-             witness_peak_gb_by_rank=r["witness_peak_gb_by_rank"],
-             drops_by_rank=r["drops_by_rank"], drops=drops,
-             one_device_drops=one_drops, launches=launches,
-             launches_per_rank_step=per_step, geometries=geometries,
-             rows_per_launch=MLA_BATCH, heads_per_launch=heads,
-             collectives=r["collectives"], bytes_per_step=got,
-             count_step_bytes=want_bytes, serve_rel=serve_rel,
-             serve_bytes=serve_bytes, serve=MLA_SERVE,
-             step_ms_by_rank=r["step_ms_by_rank"],
-             steady_step_ms_by_rank=steady,
-             peak_gb_by_rank=r["peak_gb_by_rank"],
-             params_by_rank=r["params_by_rank"],
-             state_gb_by_rank=r["state_gb_by_rank"],
-             one_device_params=one_params, one_device_step_ms=one_ms,
-             one_device_peak_gb=one_peak / 1e9, seconds=r["seconds"])
-        by_path[f"mesh_mla {MLA_MESH}"] = launches
-        free_memory()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    emit("mesh_mla_done", seconds=time.perf_counter() - t_phase)
-    return by_path
+    return _mla_phase(smi, "mesh_mla", MLA_MESH, spawned, one, fsdp=False)
+
+
+def phase_mesh_mla_fsdp(smi, spawned=None, one=None):
+    """Phase 43: the MoE family under FSDP over processes
+    (``models/transformer.py::forward`` gathering each MoE layer's leaves,
+    the live rows of its expert tables, inside the function its checkpoint
+    wraps, the MTP module its own under ``Fsdp.regather``, the lookup's
+    table and the head's leaf shared with it). deepseek-v3-671b as
+    configured (``fsdp=True``) at phase 42's full width and cut
+    (``MLA_CUT`` but its FSDP), bf16 parameters and moments, bf16 compute,
+    full remat, 2 x 2048, on ``MLA_FSDP_MESH`` (2,2): every embed
+    dimension (and q_lora / kv_lora where embed leaves them) over data,
+    the experts, MLA's heads, the FFN columns and the vocab over model;
+    its 4 ranks in the one world of 4, after phase 42's. Held to phase
+    42's one-device record (``one``: the same steps, one device ignoring
+    ``fsdp``), as phase 42 holds its job: the first step's loss, ce, aux
+    and mtp; the conditioned step's loss and grad norm; the float32
+    witness (FSDP on) with its drop step; B3-B5 a rank-step at 1 x 64
+    rows x heads against their plain versions; the drops; the train
+    step's and the serve steps' bytes by kind against ``count_step``'s
+    with ``fsdp=True`` (the gathers, the recompute's gathers and the
+    reduce-scatters; the all-reduces less the grad norm's scalar over
+    every rank and the loss metrics' mean; the serve steps' two logits
+    all-gathers); the prefill and two absorbed decode steps (each data
+    rank its prompt) against the one-device logits. Recorded: ms a step,
+    peak and state GB a rank, beside the card's name and power limit.
+    Returns the launches by path, summed over the ranks."""
+    return _mla_phase(smi, "mesh_mla_fsdp", MLA_FSDP_MESH, spawned, one,
+                      fsdp=True)
 
 
 # ---------------------------------------------------------------------------
@@ -6406,7 +6607,10 @@ def main():
         free_memory()
         surface.update(phase_mesh_moe(smi, spawned))
         free_memory()
-        surface.update(phase_mesh_mla(smi, spawned))
+        mla_one = mla_one_device_record(smi)    # phases 42 and 43 hold to it
+        surface.update(phase_mesh_mla(smi, spawned, mla_one))
+        free_memory()
+        surface.update(phase_mesh_mla_fsdp(smi, spawned, mla_one))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -41,6 +41,7 @@ from repro_torch.models.mlp import mlp
 from repro_torch.models.sharding import MeshCtx, around_split, held_experts
 
 DENSE_PATH_MAX_TOKENS = 16384   # below this, one-hot dispatch is cheaper
+EXPERT_TABLES = ("w_gate", "w_up", "w_down")   # a row per (padded) expert
 EP_CHUNK_TOKENS = 8192          # strip-mine unit for the EP a2a pipeline
 # a list to which each one-hot dispatch appends a :class:`Dispatch` of the
 # tokens it holds; a checkpoint's recompute appends nothing. None: nothing
@@ -289,7 +290,7 @@ def moe_dense_dispatch(cfg: ArchConfig, p: dict, x_tokens, *,
         DISPATCH_LOG.append(Dispatch(t_len * m.top_k, torch.minimum(
             _expert_counts(idsg, m.n_experts), room).sum(), ids.detach(),
             capacity))
-    experts = held_experts(cfg, tp, p["w_gate"].shape[0])
+    experts = held_experts(cfg, tp)
     if offset is not None:
         offset = offset[experts.start:experts.stop]
     # where the model axis splits the experts, Megatron's pair joins the
@@ -494,7 +495,10 @@ def moe_block(cfg: ArchConfig, p: dict, x, ctx: Optional[MeshCtx] = None,
     splits them (``expert_parallel``) and the rank holds the whole batch;
     it raises ``NotImplementedError`` in training where the rank holds
     blocks of the expert tables or of the batch, and in serving where it
-    holds blocks of the experts' FFN or of the batch."""
+    holds blocks of the experts' FFN or of the batch. Under FSDP ``p``
+    holds what the forward gathered (``models.transformer.forward``): the
+    rank's ``model`` block of each leaf, of the expert tables the live
+    experts' rows."""
     m = cfg.moe
     b, s, d = x.shape
     x_tokens = x.reshape(b * s, d)

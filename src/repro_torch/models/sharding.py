@@ -265,15 +265,17 @@ def around_split(ctx: Optional[MeshCtx], tp: Optional[TensorParallel],
     return (lambda t: t), (lambda t: t), contextlib.nullcontext()
 
 
-def held_experts(cfg: ArchConfig, tp: Optional[TensorParallel],
-                 n_local: int) -> range:
-    """The global indices of the live experts among the ``n_local`` rows of
-    a rank's expert tables: the first ``n_experts`` of the (padded)
-    tables, or, on a rank whose model axis splits the experts
-    (``expert_parallel`` under ``tp``), the live ones of its block."""
-    start = tp.start(n_local) if tp is not None \
-        and cfg.moe.expert_parallel else 0
-    return range(start, max(start, min(start + n_local, cfg.moe.n_experts)))
+def held_experts(cfg: ArchConfig, tp: Optional[TensorParallel]) -> range:
+    """The global indices of the live experts among the rows of a rank's
+    expert tables: the first ``n_experts`` of the (padded) tables, or, on
+    a rank whose model axis splits the experts (``expert_parallel`` under
+    ``tp``), the live ones of its block."""
+    m = cfg.moe
+    n_local, start = m.n_experts_padded, 0
+    if tp is not None and m.expert_parallel:
+        n_local = m.n_experts_padded // tp.size
+        start = tp.start(n_local)
+    return range(start, max(start, min(start + n_local, m.n_experts)))
 
 
 def vocab_split(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
@@ -391,16 +393,40 @@ class _Recipe:
         return compat.gather_over(self.block, self.mesh, self.axes,
                                   self.dim).to(dtype)
 
+    def key(self, dtype) -> tuple:
+        """What two recipes of one block, gathered to ``dtype``, share."""
+        b = self.block
+        return (b.device, b.untyped_storage().data_ptr(), b.storage_offset(),
+                tuple(b.shape), tuple(b.stride()), self.axes, self.dim, dtype)
+
+
+class _Slot:
+    """A leaf gathered again for the backward, shared by every saved
+    tensor that views it (:attr:`pending` of them not unpacked yet): the
+    first unpack gathers it, the last frees it."""
+
+    __slots__ = ("pending", "tensor", "__weakref__")
+
+    def __init__(self):
+        self.pending, self.tensor = 0, None
+
+
+# the slots of the packed tensors still alive, by their recipe's key
+_SLOTS: "weakref.WeakValueDictionary[tuple, _Slot]" = \
+    weakref.WeakValueDictionary()
+
 
 @dataclasses.dataclass(frozen=True)
 class _Packed:
-    """A saved tensor that views a gathered leaf (or its cast): its recipe
-    and where it lies in the gathered tensor."""
+    """A saved tensor that views a gathered leaf (or its cast): its recipe,
+    where it lies in the gathered tensor, and the slot it shares with the
+    other saved views of the same leaf."""
     recipe: _Recipe
     dtype: torch.dtype
     size: tuple
     stride: tuple
     offset: int
+    slot: _Slot
 
 
 _SCOPES: list = []
@@ -410,10 +436,13 @@ class _Regather:
     """A block's forward under autograd's saved-tensor hooks: a tensor that
     a product saves for its backward and that views a leaf gathered in the
     block (or the leaf's cast to the compute dtype) is packed as a handle
-    to the rank's block, and gathered again when the backward unpacks it
-    (one more counted all-gather); every other saved tensor is kept as it
-    is. So the gathered leaf is freed after the block's forward, as FSDP
-    frees it, with or without a checkpoint of the block."""
+    to the rank's block, and gathered again when the backward unpacks it;
+    the saved views of one leaf share one such gather (one more counted
+    all-gather a leaf, however many products read it, in this scope or
+    another: the MTP head reads the main head's). Every other saved
+    tensor is kept as it is. So the gathered leaf is freed after the
+    block's forward, as FSDP frees it, with or without a checkpoint of the
+    block."""
 
     def __init__(self):
         self.held = []          # (weak reference to a gathered tensor, recipe)
@@ -429,16 +458,27 @@ class _Regather:
             g = ref()
             if g is not None and ptr and g.device == t.device \
                     and g.untyped_storage().data_ptr() == ptr:
+                key = recipe.key(g.dtype)
+                slot = _SLOTS.get(key)
+                if slot is None:
+                    slot = _SLOTS[key] = _Slot()
+                slot.pending += 1
                 return _Packed(recipe, g.dtype, tuple(t.size()),
-                               tuple(t.stride()), t.storage_offset())
+                               tuple(t.stride()), t.storage_offset(), slot)
         return t
 
     @staticmethod
     def unpack(saved):
         if not isinstance(saved, _Packed):
             return saved
-        return saved.recipe.gathered(saved.dtype).as_strided(
-            saved.size, saved.stride, saved.offset)
+        slot = saved.slot
+        full = slot.tensor
+        if full is None:
+            full = slot.tensor = saved.recipe.gathered(saved.dtype)
+        slot.pending -= 1
+        if slot.pending <= 0:
+            slot.tensor = None
+        return full.as_strided(saved.size, saved.stride, saved.offset)
 
     def __enter__(self):
         _SCOPES.append(self)
@@ -530,35 +570,28 @@ def fsdp_split(cfg: ArchConfig, ctx: Optional[MeshCtx]) -> Optional[Fsdp]:
     return Fsdp(ctx.mesh, axes, specs)
 
 
-# which queue item ports FSDP over processes of each other family
-FSDP_QUEUE = {
-    "moe": "FSDP of the MoE family, the EP route in training and MoE "
-           "micro-batches over data ranks (ROADMAP Queue A, A13c item 2.3b)",
-    "other": "FSDP of the SSM, hybrid, vision and encoder-decoder families "
-             "and of the serving engine over processes (ROADMAP Queue A, "
-             "A13c item 2.2b)",
-}
+# the queue item that ports FSDP over processes of the other families and
+# of the serving engine
+FSDP_QUEUE = ("FSDP of the SSM, hybrid, vision and encoder-decoder families "
+              "and of the serving engine over processes (ROADMAP Queue A, "
+              "A13c item 2.2b)")
 
 
 def check_fsdp(cfg: ArchConfig, ctx: Optional[MeshCtx],
                engine: bool = False):
-    """Raises ``NotImplementedError``, naming its queue item, for FSDP over
-    processes that the port does not run: any family but dense
-    (``FSDP_QUEUE``), and with ``engine`` the serving engine. Nothing
-    where FSDP does not apply (:func:`fsdp_split`)."""
+    """Raises ``NotImplementedError``, naming its queue item
+    (``FSDP_QUEUE``), for FSDP over processes that the port does not run:
+    any family but the dense and the MoE families (GQA or MLA, the experts
+    or their FFN on the model axis), and with ``engine`` the serving
+    engine. Nothing where FSDP does not apply (:func:`fsdp_split`)."""
     axes = _fsdp_axes(cfg, ctx)
     if not axes:
         return
     head = f"{cfg.name} with fsdp=True over {'x'.join(axes)} on a process " \
         f"mesh"
-    if cfg.family != "dense":
-        what = f"the {cfg.family} family"
-        if cfg.is_moe:
-            what = "MLA's latent attention and the MoE layers" \
-                if cfg.use_mla else "the MoE layers"
-        queue = FSDP_QUEUE["moe" if cfg.is_moe else "other"]
-        raise NotImplementedError(f"{head}: {what} under FSDP; {queue} is "
-                                  f"not ported")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{head}: the {cfg.family} family under "
+                                  f"FSDP; {FSDP_QUEUE} is not ported")
     if engine:
         raise NotImplementedError(f"{head}: the ServingEngine under FSDP; "
-                                  f"{FSDP_QUEUE['other']} is not ported")
+                                  f"{FSDP_QUEUE} is not ported")

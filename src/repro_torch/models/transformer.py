@@ -46,13 +46,17 @@ cross-entropy vocab-parallel (:func:`_ce`), the MTP module's too. Where
 the axis does not divide the vocab, the rank holds the table whole and
 the lookup, the head and the cross-entropy are unsplit. Under FSDP
 (``models.sharding.fsdp_split``: ``cfg.fsdp`` on such a mesh with batch
-axes above 1) the dense family's parameters are the rank's blocks over
-the batch axes as well: each layer gathers its leaves inside the function
-that its checkpoint wraps (so the recompute gathers them again) and casts
-them to the compute dtype after the gather; without a checkpoint the
-layer runs under ``Fsdp.regather``, so that the backward gathers them
-again instead of keeping them; the table is gathered for the lookup, the
-final norm and the head where the head uses them.
+axes above 1) the dense and the MoE families' parameters are the rank's
+blocks over the batch axes as well: each layer (a MoE layer's attention,
+norms, router, the live rows of its expert tables and its shared expert
+too) gathers its leaves inside the function that its checkpoint wraps
+(so the recompute gathers them again) and casts them to the compute
+dtype after the gather (the router keeps its stored dtype: it routes in
+fp32); without a checkpoint the layer runs under ``Fsdp.regather``, so
+that the backward gathers them again instead of keeping them; the table
+is gathered for the lookup, the final norm and the head where the head
+uses them, and the MTP module (:func:`lm_loss`) gathers its own leaves
+and reads the table and the head's leaf that the forward gathered.
 """
 from __future__ import annotations
 
@@ -75,10 +79,10 @@ from repro_torch.models.attention import (checkpointed, cross_attention,
 from repro_torch.models.layers import (P, rms_norm, tree_leaves, tree_map,
                                        widen)
 from repro_torch.models.mlp import mlp, mlp_template
-from repro_torch.models.moe import moe_block, moe_template
+from repro_torch.models.moe import EXPERT_TABLES, moe_block, moe_template
 from repro_torch.models.sharding import (check_fsdp, check_tensor_parallel,
-                                         fsdp_split, tensor_parallel,
-                                         vocab_split)
+                                         fsdp_split, held_experts,
+                                         tensor_parallel, vocab_split)
 
 
 # ---------------------------------------------------------------------------
@@ -329,12 +333,14 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
     b, s = tokens.shape
     dev = tokens.device
     compute_dtype = torch_dtype(cfg.compute_dtype)
+    # the MTP module (lm_loss) reads the table and the head this gathers
+    mtp = cache is None and bool(cfg.mtp_depth) and "mtp" in params
     # FSDP: a leaf's blocks are gathered where it is used (inside a block's
     # function, so that a checkpoint's recompute gathers them again)
     table = params["embed"] if fs is None else fs.gather_leaf(
         params["embed"], fs.specs["embed"])
     x = embed_lookup(table, tokens, vocab_split(tp)).to(compute_dtype)
-    if not cfg.tie_embeddings:
+    if not (cfg.tie_embeddings or mtp):
         del table
 
     steps = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
@@ -386,13 +392,29 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         return dense_block(cfg, gathered(p, specs), x, positions, cache=c,
                            memory=memory, tp=tp)[0]
 
+    def moe_params(p):
+        """A MoE layer's parameters: under FSDP its blocks gathered, of the
+        expert tables the live experts' rows alone (the dispatch reads no
+        other row of a padded table), cast to the compute dtype but the
+        router, which routes in fp32 whatever that is (``moe._topk``)."""
+        if fs is None:
+            return p
+        specs = fs.specs["layers"]
+        live = len(held_experts(cfg, tp))
+        rest = {k: v[:live] if k in EXPERT_TABLES else v
+                for k, v in p["moe"].items() if k != "router"}
+        out = gathered(dict(p, moe=rest), specs)
+        out["moe"]["router"] = fs.gather_leaf(
+            p["moe"]["router"], specs["moe"]["router"], lead=1)
+        return out
+
     def moe(p, x, c):
         """A MoE layer: (x, aux)."""
         if cache is None:
-            return run(lambda x: moe_layer(cfg, p, x, positions, mesh_ctx,
-                                           tp=tp)[:2], x)
-        return moe_layer(cfg, p, x, positions, mesh_ctx, cache=c,
-                         tp=tp)[:2]
+            return run(lambda x: moe_layer(cfg, moe_params(p), x, positions,
+                                           mesh_ctx, tp=tp)[:2], x)
+        return moe_layer(cfg, moe_params(p), x, positions, mesh_ctx,
+                         cache=c, tp=tp)[:2]
 
     def cross_block(p, x, memory):
         return run(lambda x: _cross_block(cfg, p, x, memory)[0], x)
@@ -451,8 +473,10 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
     elif fam == "moe":
         kv_keys = ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
         if cfg.moe.n_dense_layers:
+            specs = None if fs is None else fs.specs["dense_layers"]
             for i, p_i in enumerate(unstack(params["dense_layers"])):
-                x = attn_block(p_i, x, layer_cache(i, kv_keys, "dense_"))
+                x = attn_block(p_i, x, layer_cache(i, kv_keys, "dense_"),
+                               specs=specs)
         for i, p_i in enumerate(unstack(params["layers"])):
             x, a = moe(p_i, x, layer_cache(i, kv_keys))
             aux = aux + a
@@ -480,6 +504,7 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
             unembed = fs.gather_leaf(
                 unembed, fs.specs[head], compute_dtype,
                 gathered=table if cfg.tie_embeddings else None)
+        head_leaf = unembed if mtp else None
         x = rms_norm(x, norm, cfg.norm_eps)
         if cfg.tie_embeddings:
             unembed = unembed.T
@@ -500,7 +525,10 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
                 new_cache["memory"] = memory
         new_cache["lengths"] = lengths + s
         return logits, aux, new_cache
-    return logits, aux, {"final_hidden": x}
+    extras = {"final_hidden": x}
+    if mtp:
+        extras.update(table=table, head=head_leaf)
+    return logits, aux, extras
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +549,8 @@ def lm_loss(cfg: ArchConfig, params, batch, ctx=None):
     total = loss + 0.01 * aux
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
-        mtp_loss = _mtp_loss(cfg, params, batch, extras["final_hidden"], tp)
+        mtp_loss = _mtp_loss(cfg, params, batch, extras, tp,
+                             fsdp_split(cfg, ctx))
         total = total + 0.3 * mtp_loss
         metrics["mtp"] = mtp_loss
     return total, metrics
@@ -611,29 +640,43 @@ def last_logits(cfg: ArchConfig, logits, ctx=None):
                                                       dim=0)
 
 
-def _mtp_loss(cfg, params, batch, hidden, tp=None):
+def _mtp_loss(cfg, params, batch, extras, tp=None, fs=None):
     """DeepSeek MTP (depth 1): predict t+2 from [h_t ; emb(label_t)].
-    ``tp``: the rank's ``models.sharding.TensorParallel``, or None: the
-    lookup, the GQA layer and the head run on the rank's blocks as the
-    main stack's do, and the cross-entropy is vocab-parallel."""
+    ``extras``: the forward's (its final hidden state, the table its lookup
+    read and its head's leaf). ``tp``: the rank's
+    ``models.sharding.TensorParallel``, or None: the lookup, the GQA layer
+    and the head run on the rank's blocks as the main stack's do, and the
+    cross-entropy is vocab-parallel. ``fs``: the rank's
+    ``models.sharding.Fsdp``, or None: the module's leaves are gathered
+    under ``Fsdp.regather``; the lookup reads the table that the forward
+    gathered, and the head the leaf that the main head gathered, whose
+    gather for the backward the two heads share."""
     p = params["mtp"]
     compute_dtype = torch_dtype(cfg.compute_dtype)
     labels = batch["labels"]
     tv = vocab_split(tp)
-    emb = embed_lookup(params["embed"], labels, tv).to(compute_dtype)
-    h = torch.cat([rms_norm(hidden, p["norm_h"], cfg.norm_eps),
-                   rms_norm(emb, p["norm_e"], cfg.norm_eps)], dim=-1)
-    h = h @ p["proj"].to(compute_dtype)
-    b, s = batch["tokens"].shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=h.device)[None, :].expand(b, s)
-    h, _ = dense_block(_dense_ffn_cfg(cfg, use_mla=False), p["layer"], h,
-                       positions, tp=tp)
-    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = (h if tv is None else tv.copy(h)) @ unembed.to(compute_dtype)
-    # labels shifted one more step: predict labels[t+1] at position t
-    mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
-    return _ce(logits, mtp_labels, tv)
+    with contextlib.nullcontext() if fs is None else fs.regather():
+        w = extras["head"]
+        if fs is not None:
+            head = "embed" if cfg.tie_embeddings else "unembed"
+            p = fs.gather(p, fs.specs["mtp"], compute_dtype)
+            w = fs.gather_leaf(params[head], fs.specs[head], compute_dtype,
+                               gathered=w)
+        emb = embed_lookup(extras["table"], labels, tv).to(compute_dtype)
+        h = torch.cat([rms_norm(extras["final_hidden"], p["norm_h"],
+                                cfg.norm_eps),
+                       rms_norm(emb, p["norm_e"], cfg.norm_eps)], dim=-1)
+        h = h @ p["proj"].to(compute_dtype)
+        b, s = batch["tokens"].shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=h.device)[None, :].expand(b, s)
+        h, _ = dense_block(_dense_ffn_cfg(cfg, use_mla=False), p["layer"], h,
+                           positions, tp=tp)
+        unembed = w.T if cfg.tie_embeddings else w
+        logits = (h if tv is None else tv.copy(h)) @ unembed.to(compute_dtype)
+        # labels shifted one more step: predict labels[t+1] at position t
+        mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        return _ce(logits, mtp_labels, tv)
 
 
 # ---------------------------------------------------------------------------

@@ -31,10 +31,11 @@ bundle's ``abstract_state`` gives their shapes), runs the forward and
 backward on its heads, FFN columns and vocab block
 (``models.transformer.forward``), and the grad norm sums the split
 leaves' squares once (``optim.adamw.global_norm``). With ``cfg.fsdp``
-and batch axes above 1 the dense family's step is also FSDP, as the
-reference's partitioner runs it from the same specs: every ``embed``
-dimension is split over the batch axes too, each leaf is gathered where
-a layer uses it and again for the backward (``models.sharding.Fsdp``),
+and batch axes above 1 the dense and MoE families' step is also FSDP,
+as the reference's partitioner runs it from the same specs: every
+``embed`` dimension is split over the batch axes too, each leaf is
+gathered where a layer uses it and again for the backward
+(``models.sharding.Fsdp``),
 its gradient reduce-scattered back to the rank's block, which is divided
 by the batch axes' extent once and kept out of the gradient mean; AdamW
 updates the rank's blocks. A mixture-of-experts model trains on (d,1),
@@ -43,10 +44,14 @@ global batch's (``models.moe.moe_dense_dispatch`` gathers the ranks'
 per-expert counts), its experts' FFN (granite-moe-3b-a800m) or its
 experts (deepseek-v3-671b, ``expert_parallel``) split over ``model``,
 MLA's heads too, and the mean moves the live experts of a padded table
-alone (:func:`live_slices`). FSDP of the other families, the SSM,
-hybrid, vision and encoder-decoder families at ``model > 1``, a MoE
-step in micro-batches over data and MoE's expert-parallel route raise
-``NotImplementedError`` naming their queue item.
+alone (:func:`live_slices`); with ``cfg.fsdp`` (deepseek-v3-671b as
+configured) its steps are FSDP as the dense family's, each MoE layer
+gathering the rank's ``model`` block of its leaves (of a padded expert
+table, the live experts' rows alone), the MTP module its own. FSDP of
+the other families, the SSM, hybrid, vision and encoder-decoder families
+at ``model > 1``, a MoE step in micro-batches over data and MoE's
+expert-parallel route raise ``NotImplementedError`` naming their queue
+item.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
@@ -57,9 +62,10 @@ rank's blocks and a cache of its kv heads (MLA: the latent cache whole;
 a GQA cache the reference splits over ``kv_seq`` raises), and the
 returned logits are gathered whole
 (``models.transformer.last_logits``). Under FSDP each rank serves its
-rows of the batch (the batch axes are its own, as in training) with a
-cache of those rows, its weights gathered a layer at a time, and the
-returned logits are the global batch's.
+rows of the batch (the batch axes are its own, as in training: a MoE
+model's one dispatch group spans the ranks) with a cache of those rows,
+its weights gathered a layer at a time, and the returned logits are the
+global batch's.
 """
 from __future__ import annotations
 
@@ -77,6 +83,7 @@ from repro_torch.core.compat import entry_axes
 from repro_torch.core.precision import torch_dtype
 from repro_torch.core.stripmine import stripmined_grads
 from repro_torch.models import transformer as tf
+from repro_torch.models.moe import EXPERT_TABLES
 from repro_torch.models.layers import (P, abstract_params, param_specs,
                                        tree_leaves, tree_map,
                                        value_and_grad)
@@ -204,14 +211,16 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
 
 def _check_process_route(cfg: ArchConfig, ctx: MeshCtx, grad_accum: int):
     """What the process route trains: the data-parallel step of every
-    family, the dense and the MoE families' tensor-parallel step (``model
-    > 1``; MLA's heads, the experts or their FFN split over it), and the
-    dense family's FSDP step (``fsdp=True``). Anything else raises
-    ``NotImplementedError`` naming its queue item (the MoE family under
-    FSDP; its EP route in training raises in ``models.moe.moe_block``), as
-    does a MoE model's step in micro-batches over batch axes above 1: a
-    rank's micro-batch holds other global rows than the one-device
-    step's, and the dispatch group and the aux loss couple them."""
+    family, and the dense and the MoE families' tensor-parallel step
+    (``model > 1``; MLA's heads, the experts or their FFN split over it)
+    and FSDP step (``fsdp=True``; every embed, q_lora and kv_lora
+    dimension over the batch axes too). Anything else raises
+    ``NotImplementedError`` naming its queue item (FSDP of the other
+    families; MoE's EP route in training raises in
+    ``models.moe.moe_block``), as does a MoE model's step in micro-batches
+    over batch axes above 1: a rank's micro-batch holds other global rows
+    than the one-device step's, and the dispatch group and the aux loss
+    couple them."""
     check_fsdp(cfg, ctx)
     check_tensor_parallel(cfg, ctx, train=True)
     n = math.prod(ctx.axis_sizes[a] for a in ctx.batch_axes
@@ -238,10 +247,8 @@ def live_slices(cfg: ArchConfig, tree, tp=None) -> dict:
     live = tree_map(lambda _: None, tree)
     m = cfg.moe
     if cfg.is_moe and m.n_experts_padded > m.n_experts:
-        split = tp is not None and m.expert_parallel
-        n = m.n_experts_padded // (tp.size if split else 1)
-        held = slice(0, len(held_experts(cfg, tp, n)))
-        for k in ("w_gate", "w_up", "w_down"):
+        held = slice(0, len(held_experts(cfg, tp)))
+        for k in EXPERT_TABLES:
             live["layers"]["moe"][k] = (slice(None), held)
     return live
 
@@ -357,6 +364,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
 # ---------------------------------------------------------------------------
 
 
+def _serve_ctx(cfg: ArchConfig, ctx: Optional[MeshCtx]):
+    """``ctx`` as a serve step runs it: under FSDP each rank serves its own
+    rows of the batch, so the batch axes are declared local, as the train
+    step declares them (a MoE model's dispatch group then spans the
+    ranks' rows, as on one device)."""
+    if fsdp_split(cfg, ctx) is None:
+        return ctx
+    return dataclasses.replace(ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
+
+
 def make_prefill_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
                       max_seq: int = 0, cache_dtype=None):
     """``prefill(params, batch) -> (logits_last, cache)``: a fresh cache of
@@ -369,6 +386,7 @@ def make_prefill_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
                          f"{max_seq}")
     check_tensor_parallel(cfg, ctx, cache=True)
     check_fsdp(cfg, ctx)
+    ctx = _serve_ctx(cfg, ctx)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -391,6 +409,7 @@ def make_decode_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None):
     tensors written in place (see ``models.transformer.forward``)."""
     check_tensor_parallel(cfg, ctx, cache=True)
     check_fsdp(cfg, ctx)
+    ctx = _serve_ctx(cfg, ctx)
 
     def decode(params, cache, batch):
         logits, _, cache = tf.forward(

@@ -264,6 +264,24 @@ for tag, mesh_s in (("1x4", make_mesh(1, 4, devices=jax.devices()[:4])),
                    jax.device_put(batch, bt_sh))
     for key in ("loss", "ce", "aux", "grad_norm"):
         out[f"step_mla_{tag}/m1_{key}"] = np.asarray(m1[key])
+# the MoE family under FSDP: the same model and tokens with fsdp=True
+# (every embed dimension over data, q_lora / kv_lora where embed leaves
+# them) on (4,1) and (2,2)
+cfg = dataclasses.replace(cfg, fsdp=True)
+for tag, mesh_s in (("4x1", make_mesh(4, 1, devices=jax.devices()[:4])),
+                    ("2x2", mesh22)):
+    ctx1 = MeshCtx(mesh=mesh_s, batch_axes=("data",))
+    b1 = step_lib.make_train_step(cfg, opt, ctx1)
+    st_sh = step_lib.named_for(b1.state_specs, b1.abstract_state, mesh_s)
+    bt_sh = step_lib.named_for(b1.batch_specs, batch, mesh_s)
+    with mesh_s:
+        fn = jax.jit(b1.step_fn, in_shardings=(st_sh, bt_sh),
+                     out_shardings=(st_sh, None))
+        _, m1 = fn(jax.device_put({"params": params,
+                                   "opt": adamw.init(opt, params)}, st_sh),
+                   jax.device_put(batch, bt_sh))
+    for key in ("loss", "ce", "aux", "grad_norm"):
+        out[f"step_mla_fsdp_{tag}/m1_{key}"] = np.asarray(m1[key])
 
 # -- lane-local MLA: prefill and decode on a 1 x 4 mesh --------------------
 mesh14 = make_mesh(1, 4)

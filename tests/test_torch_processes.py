@@ -36,13 +36,18 @@ deepseek-v3-671b with fsdp=False on (1,4) and (2,2) (its heads, routed
 experts and vocab split over the ranks: the train step against the
 one-device step, at capacity factor 0.5, against the reference's sharded
 step, the bytes against the dry run's count, checkpoints both ways) and
-its serve steps on (1,4); and what the route refuses.
+its serve steps on (1,4); the MoE family under FSDP, reduced
+deepseek-v3-671b as configured on (4,1) and (2,2) (the same checks, and
+remat "none", the gathered leaves freed, the reference's FSDP step) and
+served on (2,2), and granite-moe-3b-a800m's padded tables under FSDP;
+and what the route refuses.
 The reference runs once a session, in ``tests/test_torch_mesh.py``'s
 subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
 against the tensor-parallel step on the same parameters and tokens, and
 its FSDP step against the port's FSDP step, its MoE step on (4,1)
 and (2,2) against the port's MoE step, and its deepseek-v3-671b step on
-(1,4) and (2,2) against the port's MLA step. The
+(1,4) and (2,2) against the port's MLA step, and with fsdp=True on (4,1)
+and (2,2) against the port's FSDP step. The
 stacked route and the one-device step are held against it in
 ``tests/test_torch_mesh.py``, ``tests/test_torch_pipeline.py`` and
 ``tests/test_torch_train.py``.
@@ -100,7 +105,11 @@ def res(tmp_path_factory):
                 "mla_metrics": {(d, m): {k: float(ref[
                     f"step_mla_{d}x{m}/m1_{k}"]) for k in (
                         "loss", "ce", "aux", "grad_norm")}
-                    for d, m in pc.MLA_MESHES}},
+                    for d, m in pc.MLA_MESHES},
+                "mla_fsdp_metrics": {(d, m): {k: float(ref[
+                    f"step_mla_fsdp_{d}x{m}/m1_{k}"]) for k in (
+                        "loss", "ce", "aux", "grad_norm")}
+                    for d, m in pc.MLA_FSDP_MESHES}},
                os.path.join(out, pc.REFERENCE_STEP))
     return pc.spawn(out)
 
@@ -202,16 +211,15 @@ def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
 
 
 def test_what_the_process_route_refuses(res):
-    """A wrong world size, MoE's expert-parallel route in training, SSM
-    configs at model > 1, a KV cache split over kv_seq, a MoE model under
-    FSDP (MLA with it at model > 1) and in micro-batches over data ranks,
-    FSDP of the hybrid and vision families and of the serving engine, a
-    collective outside a body, and device "cuda" on the gloo group, each
-    with its own text."""
+    """A wrong world size, MoE's expert-parallel route in training (also
+    under FSDP), SSM configs at model > 1, a KV cache split over kv_seq, a
+    MoE step in micro-batches over data ranks (also under FSDP), FSDP of
+    the hybrid and vision families and of the serving engine (also of a
+    MoE model), a collective outside a body, and device "cuda" on the
+    gloo group, each with its own text."""
     got = _case(res, "refusals")
     assert got["outside"] == "a collective runs only inside shard_map's body"
-    assert "deepseek-v3-671b with fsdp=True over data on a process mesh" \
-        in got["moe"]
+    assert "deepseek-v3-671b on a process mesh: grad_accum=2" in got["moe"]
     assert "granite-moe-3b-a800m on a process mesh" in got["tp_moe"]
     pc.check("refusals", got)
 
@@ -277,9 +285,10 @@ def test_tensor_parallel_engine_emits_the_same_tokens_on_every_rank(res):
 @pytest.mark.parametrize("key", ["tp_moe", "tp_moe_serve", "tp_mla",
                                  "tp_ssm", "tp_kv_seq"])
 def test_tensor_parallel_refusals_name_their_queue_item(res, key):
-    """On model > 1: MoE's EP route in training, and in serving where the
-    ranks hold blocks of the experts' FFN, MLA under FSDP, SSM configs,
-    and a KV cache that the reference splits over kv_seq, each a
+    """On model > 1: MoE's EP route in training (granite-moe-3b-a800m's,
+    and deepseek-v3-671b's as configured, under FSDP), and in serving
+    where the ranks hold blocks of the experts' FFN, SSM configs, and a
+    KV cache that the reference splits over kv_seq, each a
     NotImplementedError naming its queue item."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
@@ -356,10 +365,11 @@ def test_fsdp_serve_bytes_equal_the_dry_runs_count(res):
 
 
 @pytest.mark.parametrize("key", ["fsdp_hybrid", "fsdp_vision",
-                                 "fsdp_engine"])
+                                 "fsdp_engine", "fsdp_moe_engine"])
 def test_fsdp_refusals_name_their_queue_item(res, key):
     """FSDP over processes of zamba2-7b, of the vision family and under
-    the serving engine: a NotImplementedError naming item 2.2b."""
+    the serving engine (a dense model's, and deepseek-v3-671b's as
+    configured): a NotImplementedError naming item 2.2b."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2.2b" in got, got
@@ -488,32 +498,131 @@ def test_mla_checkpoints_move_to_one_device_and_back(res):
     pc.check_tp_ckpt(_case(res, "mla_train"))
 
 
+@pytest.mark.parametrize("shape", pc.MLA_FSDP_MESHES, ids=str)
+def test_moe_fsdp_step_matches_the_one_device_step(res, shape):
+    """Reduced deepseek-v3-671b as configured (fsdp=True, remat "full"):
+    every leaf's block over data (embed, and q_lora / kv_lora where embed
+    leaves them), the experts, MLA's heads and the vocab over model on
+    (2,2); each MoE layer, the dense layer and the MTP module gathering
+    their leaves. 3 steps, each from the same state as the one-device
+    step, the loss, ce, aux, mtp, grad norm and lr within 1e-6 relative
+    in float32 (or twice what float32 resolves there) and 1e-10 in
+    float64, the parameters after each within 1e-10 in float64; no route
+    flipped, the drops equal."""
+    pc.check_mla_fsdp_mesh(_case(res, "mla_fsdp"), shape)
+
+
+@pytest.mark.parametrize("shape", pc.MLA_FSDP_MESHES, ids=str)
+def test_moe_fsdp_bytes_equal_the_dry_runs_count(res, shape):
+    """The ranks' collectives by kind, summed, equal to the dry run's count
+    of the same cell with fsdp=True times the ranks: each leaf gathered
+    in the forward and in the checkpoint's recompute, its gradient
+    reduce-scattered, no pmean of it; the counts' all-gather over data;
+    on (2,2) the model axis's all-reduces; beside them the grad norm's
+    scalar and the loss metrics' mean."""
+    got = pc.check_mla_fsdp_bytes(_case(res, "mla_fsdp"), shape)
+    assert got["all-gather"] > 0 and got["reduce-scatter"] > 0, got
+
+
+def test_moe_fsdp_step_where_capacity_drops_pairs(res):
+    """Capacity factor 0.5 on (2,2) under FSDP, float64: each rank of a
+    data coordinate drops that block's pairs of the one-device step's one
+    group."""
+    pc.check_mla_fsdp_drops(_case(res, "mla_fsdp"))
+
+
+def test_moe_fsdp_step_without_a_checkpoint_regathers_for_the_backward(res):
+    """One float32 step at remat "none" on (2,2): each layer under
+    ``Fsdp.regather``, the products' saved views of a gathered leaf
+    sharing one gather in the backward; within 1e-6 of the one-device
+    step (or twice what float32 resolves), the bytes its own count's and
+    the gathers and reduce-scatters those of "full"."""
+    pc.check_mla_fsdp_none(_case(res, "mla_fsdp"))
+
+
+def test_moe_fsdp_gathered_leaves_are_freed_after_the_forward(res):
+    """On (4,1) at remat "none": no gathered leaf of the layers, the head
+    or the MTP module is alive after the loss's forward; the backward
+    gathers each again once (the two heads share the head's) but the
+    table."""
+    pc.check_fsdp_freed(_case(res, "mla_fsdp"),
+                        pc._mla_fsdp_cfg(remat="none"))
+
+
+def test_padded_moe_fsdp_moves_the_live_experts_alone(res):
+    """Reduced granite-moe-3b-a800m with fsdp=True on (2,2), float64, 3
+    steps within 1e-10 of the one-device step; its 48-row expert tables
+    (4 live) gathered and reduce-scattered on the live rows, so that the
+    bytes equal the dry run's count."""
+    pc.check_granite_fsdp(_case(res, "mla_fsdp"))
+
+
+def test_moe_fsdp_step_matches_the_references_fsdp_step(res):
+    """The reference's float32 FSDP step of reduced deepseek-v3-671b on
+    (4,1) and (2,2) (its parameters and tokens): loss, ce, aux and grad
+    norm within 1e-5 relative."""
+    got = _case(res, "mla_fsdp")
+    assert got["reference"] is not None
+    assert set(got["reference"]) == set(pc.MLA_FSDP_MESHES)
+    pc.check_moe_reference(got)
+
+
+def test_moe_fsdp_checkpoints_move_to_one_device_and_back(res):
+    """A (4,1) FSDP checkpoint of reduced deepseek-v3-671b (the global
+    state, gathered to rank 0) restored by the one-device trainer, and a
+    one-device checkpoint restored on (4,1) (each rank its blocks), byte
+    for byte."""
+    pc.check_tp_ckpt(_case(res, "mla_fsdp"))
+
+
+def test_moe_fsdp_serve_steps_match_the_one_device_steps(res):
+    """Prefill of 4 x 6 and 2 absorbed decode steps on (2,2) under FSDP,
+    each data rank its 2 prompts in one dispatch group over the ranks:
+    logits, whole on every rank, to 1e-5; the latent cache of the rank's
+    rows."""
+    pc.check_mla_fsdp_serve_logits(_case(res, "mla_fsdp_serve"))
+
+
+def test_moe_fsdp_serve_bytes_equal_the_dry_runs_count(res):
+    """The prefill's and each decode step's bytes by kind equal to the dry
+    run's count of the same step with fsdp=True times the ranks, beside
+    the last logits' two all-gathers."""
+    pc.check_mla_fsdp_serve_bytes(_case(res, "mla_fsdp_serve"))
+
+
 @pytest.mark.parametrize("key", ["moe", "tp_moe", "tp_moe_serve", "tp_mla",
                                  "moe_accum"])
 def test_moe_refusals_name_item_2_3b(res, key):
-    """A MoE model under FSDP on (4,1) and on (2,2) (deepseek-v3-671b's
-    default, MLA with it), granite-moe-3b-a800m's expert-parallel route in
-    training and in serving (its ranks hold blocks of the experts' FFN)
-    and a MoE step in micro-batches over data ranks: each a
-    NotImplementedError naming item 2.3b."""
+    """What item 2.3b still refuses: deepseek-v3-671b as configured (FSDP)
+    in micro-batches over the data ranks of (4,1) and on its
+    expert-parallel route in training on (2,2), granite-moe-3b-a800m's
+    expert-parallel route in training and in serving (its ranks hold
+    blocks of the experts' FFN) and its step in micro-batches over data
+    ranks: each a NotImplementedError naming item 2.3b."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2.3b" in got, got
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3-8b",
-                                  "stablelm-1.6b", "starcoder2-3b"])
+                                  "stablelm-1.6b", "starcoder2-3b",
+                                  "granite-moe-3b-a800m", "deepseek-v3-671b"])
 @pytest.mark.parametrize("shape", [(2, 1), (4, 1), (2, 2), (4, 2)], ids=str)
 def test_each_fsdp_block_has_the_references_shard_shape(arch, shape):
     """``shard_params`` at full width with ``fsdp=True`` on ``meta``: on
     every rank of ``shape`` each leaf's block has ``named_for``'s FSDP
-    shard shape (every embed dimension over data), the ranks' blocks
-    tile the leaf, and the Trainer's ``abstract_state`` is the rank's.
-    No process group is needed."""
+    shard shape, the ranks' blocks tile the leaf, and the Trainer's
+    ``abstract_state`` is the rank's. The blocks cut over data are those
+    of the leaves whose sanitized spec names data: every leaf of a dense
+    model (every embed dimension); of a MoE model those that
+    ``named_for`` puts there (embed takes data first, so q_lora and
+    kv_lora stay whole beside it), each cut at the dimension that
+    ``Fsdp.dim`` gathers. No process group is needed."""
     import dataclasses
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import abstract_params, tree_leaves
-    from repro_torch.models.sharding import MeshCtx, shard_params
+    from repro_torch.models.sharding import (MeshCtx, fsdp_split,
+                                             shard_params)
     from repro_torch.optim import adamw
     from repro_torch.train import step as tstep
     cfg = dataclasses.replace(get_config(arch), fsdp=True)
@@ -526,14 +635,36 @@ def test_each_fsdp_block_has_the_references_shard_shape(arch, shape):
         specs = tstep.train_state_specs(cfg, ctx)["params"]
         named = tstep.named_for(specs, tree, mesh)
         blocks = shard_params(tree, specs, mesh)
-        tiles = 0
-        for b, sh, t in zip(tree_leaves(blocks), tree_leaves(named),
-                            tree_leaves(tree)):
+        fs = fsdp_split(cfg, ctx)
+        tiles = over_data = 0
+        for b, sh, t, spec in zip(tree_leaves(blocks), tree_leaves(named),
+                                  tree_leaves(tree), tree_leaves(fs.specs)):
             assert tuple(b.shape) == sh.shard_shape(t.shape)
             index = sh.block_index(t.shape)
             assert all(i.stop - i.start == n for i, n in zip(index, b.shape))
-            tiles += any("data" in compat.entry_axes(e) for e in sh.spec)
-        assert tiles == len(list(tree_leaves(tree)))  # every leaf over data
+            data = [i for i, e in enumerate(sh.spec)
+                    if "data" in compat.entry_axes(e)]
+            over_data += bool(data)
+            assert fs.dim(spec) == (data[0] if data else None)
+            # the block is the leaf's d-th part along that dimension
+            tiles += bool(data) and b.shape[data[0]] * d * (
+                m if "model" in compat.entry_axes(sh.spec[data[0]])
+                else 1) == t.shape[data[0]]
+        leaves = len(list(tree_leaves(tree)))
+        assert tiles == over_data
+        if cfg.is_moe:
+            assert 0 < over_data <= leaves
+            # (layers, embed, ...): embed over data, the rest as the rules
+            # leave it (q_lora / kv_lora whole beside it)
+            lay = named["layers"]
+            cuts = [compat.entry_axes(e) for e in lay["moe"]["router"].spec]
+            assert cuts[:2] == [(), ("data",)], cuts
+            if cfg.use_mla:
+                for k in ("wq_a", "wkv_a"):
+                    cuts = [compat.entry_axes(e) for e in lay["attn"][k].spec]
+                    assert cuts == [(), ("data",), ()], (k, cuts)
+        else:
+            assert over_data == leaves      # every leaf over data
         local = tstep.make_train_step(cfg, adamw.OptConfig(),
                                       ctx).abstract_state["params"]
         assert [tuple(t.shape) for t in tree_leaves(local)] == [

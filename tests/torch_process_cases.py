@@ -103,9 +103,21 @@ REFERENCE_MOE = ((4, 1), (2, 2))
 # at capacity factor 0.5 on (2,2), and against the reference's sharded
 # step on both; its serve steps are ``case_mla``'s
 MLA_MESHES = ((1, 4), (2, 2))
+# the MoE family under FSDP: reduced deepseek-v3-671b as configured
+# (fsdp=True, remat "full"; experts, MLA's heads and the vocab on model,
+# every embed dimension and the latent ranks q_lora / kv_lora where embed
+# leaves them on data) trained on these meshes step by step against the
+# one-device step (``MOE_TOL``), at capacity factor 0.5 and at remat
+# "none" on (2,2), against the reference's FSDP step on both; reduced
+# granite-moe-3b-a800m with fsdp=True on (2,2) (its padded expert tables
+# gathered and reduce-scattered on their live rows); the serve steps on
+# ``MLA_FSDP_SERVE``'s mesh, each data rank its prompts
+MLA_FSDP_MESHES = ((4, 1), (2, 2))
+MLA_FSDP_SERVE = dict(mesh=(2, 2), batch=4, prompt=6, steps=2)
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "dp_train", "tp_train", "tp_serve",
-         "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "refusals")
+         "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "mla_fsdp",
+         "mla_fsdp_serve", "refusals")
 
 
 # ---------------------------------------------------------------------------
@@ -932,8 +944,10 @@ def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"],
             row["params"] = max(_err(a, b) for a, b in zip(
                 tree_leaves(after), tree_leaves(before["params"])))
         rows.append(row)
+    cut = tree_leaves(tstep.cut_axes(tr.state_specs["params"], mesh))
     return {"rows": rows, "counts": _counts(mesh),
-            "leaves": len(list(tree_leaves(state["params"])))}
+            "leaves": len(list(tree_leaves(state["params"]))),
+            "n_data_cut": sum("data" in c for c in cut)}
 
 
 def _reference_moe(meshes, out_dir):
@@ -1010,10 +1024,11 @@ def _mla_cfg(dtype="float32", **kw):
     return _moe_cfg("deepseek-v3-671b", dtype, fsdp=False, **kw)
 
 
-def _reference_mla(meshes, out_dir):
+def _reference_mla(meshes, out_dir, fsdp=False):
     """The reference's sharded float32 step of reduced deepseek-v3-671b
     with ``fsdp=False`` (``tests/test_torch_mesh.py``'s ``step_mla``) on
-    (1,4) and (2,2), here on the ranks: its parameters and tokens, the
+    (1,4) and (2,2), or with ``fsdp`` its FSDP step (``step_mla_fsdp``)
+    on (4,1) and (2,2), here on the ranks: its parameters and tokens, the
     default ``OptConfig``, each data rank its rows of the batch. None
     without the reference's file."""
     path = os.path.join(out_dir, REFERENCE_STEP)
@@ -1021,11 +1036,12 @@ def _reference_mla(meshes, out_dir):
         return None
     ref = torch.load(path, weights_only=False)
     cfg = reduced(get_config("deepseek-v3-671b"), compute_dtype="float32",
-                  fsdp=False)
+                  fsdp=fsdp)
     params = convert.params_from_numpy(ref["mla_params"], device="cpu")
     toks = torch.as_tensor(ref["mla_tokens"]).long()
+    want = ref["mla_fsdp_metrics" if fsdp else "mla_metrics"]
     out = {}
-    for shape in MLA_MESHES:
+    for shape in MLA_FSDP_MESHES if fsdp else MLA_MESHES:
         mesh = meshes[shape]
         ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
         opt = adamw.OptConfig()
@@ -1040,7 +1056,7 @@ def _reference_mla(meshes, out_dir):
                                "opt": adamw.init(opt, blocks)}, batch)
         out[shape] = {"got": {k: float(m[k]) for k in
                               ("loss", "ce", "aux", "grad_norm")},
-                      "want": ref["mla_metrics"][shape]}
+                      "want": want[shape]}
     return out
 
 
@@ -1068,6 +1084,90 @@ def case_mla_train(rank, meshes, out_dir):
     return out
 
 
+def _mla_fsdp_cfg(dtype="float32", **kw):
+    """Reduced deepseek-v3-671b as configured: FSDP on, remat "full"."""
+    return _moe_cfg("deepseek-v3-671b", dtype, **{
+        "fsdp": True, "remat": get_config("deepseek-v3-671b").remat, **kw})
+
+
+def case_mla_fsdp(rank, meshes, out_dir):
+    """The MoE family under FSDP: reduced deepseek-v3-671b as configured
+    on (4,1) and (2,2), 3 steps in float32 and in float64, each from the
+    same state as the one-device step; in float64, ``MOE_SIDE_STEPS``
+    steps at capacity factor 0.5 on (2,2); one float32 step at
+    ``remat="none"`` on (2,2) (each layer under ``Fsdp.regather``); the
+    gathered leaves freed after the forward on (4,1); reduced
+    granite-moe-3b-a800m with ``fsdp=True`` on (2,2), float64, 3 steps;
+    the reference's own FSDP step on (4,1) and (2,2); checkpoints between
+    the one-device trainer and the (4,1) one, both ways."""
+    out = {}
+    for shape in MLA_FSDP_MESHES:
+        out[shape] = {tag: _moe_steps(_mla_fsdp_cfg(dt), meshes[shape],
+                                      resolve=tag == "f32")
+                      for tag, dt in (("f32", "float32"),
+                                      ("f64", "float64"))}
+    cfg = _mla_fsdp_cfg("float64")
+    out["drops"] = _moe_steps(dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5)),
+        meshes[2, 2], steps=MOE_SIDE_STEPS)
+    none = _mla_fsdp_cfg(remat="none")
+    out["none"] = _moe_steps(none, meshes[2, 2], steps=1, resolve=True)
+    out["freed"] = _freed_after_forward(none, meshes[4, 1])
+    out["granite"] = _moe_steps(_moe_cfg(dtype="float64", fsdp=True),
+                                meshes[2, 2])
+    out["reference"] = _reference_mla(meshes, out_dir, fsdp=True)
+    out.update(_ckpt_both_ways(rank, _mla_fsdp_cfg(), meshes[4, 1], out_dir,
+                               "mla_fsdp"))
+    return out
+
+
+def case_mla_fsdp_serve(rank, meshes, out_dir):
+    """Reduced deepseek-v3-671b as configured served on (2,2) under FSDP:
+    each data rank prefills its 2 of the 4 prompts and decodes them 2
+    absorbed steps, the weights gathered a layer at a time, its one-hot
+    dispatch one group over the ranks' rows; the logits, gathered whole
+    on every rank, against the one-device steps', with the collectives of
+    each step."""
+    cfg = _mla_fsdp_cfg()
+    sv = MLA_FSDP_SERVE
+    mesh = meshes[sv["mesh"]]
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    params = init_params(ttf.model_template(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)["params"],
+                          mesh)
+    r = np.random.RandomState(7)
+    b, s, n = sv["batch"], sv["prompt"], sv["steps"]
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, s)))
+    steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, 1)))
+             for _ in range(n)]
+    rows = b // mesh.shape["data"]
+    mine = slice(mesh.coord("data") * rows, (mesh.coord("data") + 1) * rows)
+
+    def serve(p, c, rows):
+        outs, counts = [], []
+        with torch.no_grad():
+            compat.reset_counts()
+            logits, cache = tstep.make_prefill_step(
+                cfg, c, s + n, cache_dtype=torch.float32)(
+                p, {"tokens": toks[rows]})
+            outs.append(logits)
+            counts.append(_counts(mesh) if c else None)
+            dec = tstep.make_decode_step(cfg, c)
+            for tok in steps:
+                compat.reset_counts()
+                logits, cache = dec(p, cache, {"tokens": tok[rows]})
+                outs.append(logits)
+                counts.append(_counts(mesh) if c else None)
+        return outs, counts, [tuple(cache[k].shape)
+                              for k in ("c_kv", "k_rope")]
+
+    out = {"fsdp": serve(blocks, ctx, mine)}
+    if rank == 0:
+        out["one"] = serve(params, None, slice(None))
+    return out
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -1084,11 +1184,16 @@ def case_refusals(rank, meshes, out_dir):
     text("tp_ssm", NotImplementedError, lambda: tstep.make_train_step(
         reduced(get_config("zamba2-7b"), fsdp=False), adamw.OptConfig(),
         MeshCtx(mesh=meshes[2, 2])))
-    # MLA under model with FSDP (deepseek-v3-671b's default): the MoE
-    # family under FSDP, which item 2.3b's second slice ports
-    text("tp_mla", NotImplementedError, lambda: tstep.make_train_step(
-        reduced(get_config("deepseek-v3-671b")), adamw.OptConfig(),
-        MeshCtx(mesh=meshes[2, 2])))
+    # deepseek-v3-671b as configured (FSDP) on (2,2): its expert-parallel
+    # route in training, 256 tokens at or above a lowered
+    # DENSE_PATH_MAX_TOKENS, raised in the MoE layer of the first step
+    saved = tmoe.DENSE_PATH_MAX_TOKENS
+    tmoe.DENSE_PATH_MAX_TOKENS = DP["seq_len"] * DP["global_batch"]
+    try:
+        text("tp_mla", NotImplementedError,
+             lambda: _moe_steps(_mla_fsdp_cfg(), meshes[2, 2], steps=1))
+    finally:
+        tmoe.DENSE_PATH_MAX_TOKENS = saved
     # granite-moe-3b-a800m's expert-parallel route in training: 256 tokens
     # at or above a lowered DENSE_PATH_MAX_TOKENS on (1,4), raised in the
     # first MoE layer of the first step, on every rank
@@ -1121,16 +1226,18 @@ def case_refusals(rank, meshes, out_dir):
              lambda arch=arch: tstep.make_train_step(
                  reduced(get_config(arch), fsdp=True), adamw.OptConfig(),
                  MeshCtx(mesh=meshes[4, 1])))
-    fcfg = dataclasses.replace(cfg, fsdp=True)
-    text("fsdp_engine", NotImplementedError, lambda: ServingEngine(
-        fcfg, init_params(ttf.model_template(fcfg),
-                          torch.Generator().manual_seed(0), device="cpu"),
-        ctx=MeshCtx(mesh=meshes[4, 1]), device="cpu"))
-    # a MoE model under FSDP (deepseek-v3-671b's default), and a MoE step
-    # in micro-batches over data ranks
+    for name, fcfg in (("fsdp_engine", dataclasses.replace(cfg, fsdp=True)),
+                       ("fsdp_moe_engine", _mla_fsdp_cfg())):
+        text(name, NotImplementedError, lambda fcfg=fcfg: ServingEngine(
+            fcfg, init_params(ttf.model_template(fcfg),
+                              torch.Generator().manual_seed(0),
+                              device="cpu"),
+            ctx=MeshCtx(mesh=meshes[4, 1]), device="cpu"))
+    # a MoE step in micro-batches over data ranks: deepseek-v3-671b as
+    # configured (FSDP) on (4,1), and granite-moe-3b-a800m on (2,2)
     text("moe", NotImplementedError, lambda: tstep.make_train_step(
-        reduced(get_config("deepseek-v3-671b")), adamw.OptConfig(),
-        MeshCtx(mesh=meshes[4, 1])))
+        _mla_fsdp_cfg(), adamw.OptConfig(), MeshCtx(mesh=meshes[4, 1]),
+        grad_accum=2))
     text("moe_accum", NotImplementedError, lambda: tstep.make_train_step(
         _moe_cfg(), adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2]),
         grad_accum=2))
@@ -1162,11 +1269,10 @@ def refusal_texts() -> dict:
                         "which needs each rank's experts_ffn blocks re-laid "
                         "as experts blocks; the EP route in serving over "
                         "processes (ROADMAP Queue A, A13c item 2.3b)",
-        "tp_mla": "deepseek-v3-671b with fsdp=True over data on a process "
-                  "mesh: MLA's latent attention and the MoE layers under "
-                  "FSDP; FSDP of the MoE family, the EP route in training "
-                  "and MoE micro-batches over data ranks (ROADMAP Queue A, "
-                  "A13c item 2.3b)",
+        "tp_mla": "deepseek-v3-671b on a process mesh: 256 tokens at "
+                  "model=2 take the expert-parallel route; the EP route in "
+                  "training over processes (ROADMAP Queue A, A13c item "
+                  "2.3b)",
         "tp_ssm": "the SSM and hybrid blocks under model over processes "
                   "(ROADMAP Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
@@ -1181,11 +1287,16 @@ def refusal_texts() -> dict:
                        "hybrid, vision and encoder-decoder families and of "
                        "the serving engine over processes (ROADMAP Queue "
                        "A, A13c item 2.2b)",
-        "moe": "deepseek-v3-671b with fsdp=True over data on a process "
-               "mesh: MLA's latent attention and the MoE layers under "
-               "FSDP; FSDP of the MoE family, the EP route in training and "
-               "MoE micro-batches over data ranks (ROADMAP Queue A, A13c "
-               "item 2.3b)",
+        "fsdp_moe_engine": "deepseek-v3-671b with fsdp=True over data on a "
+                           "process mesh: the ServingEngine under FSDP; FSDP "
+                           "of the SSM, hybrid, vision and encoder-decoder "
+                           "families and of the serving engine over "
+                           "processes (ROADMAP Queue A, A13c item 2.2b)",
+        "moe": "deepseek-v3-671b on a process mesh: grad_accum=2 over 4 "
+               "data ranks would route and group each rank's micro-batch, "
+               "which holds other rows of the global batch than the "
+               "one-device micro-batch; the MoE step in micro-batches over "
+               "processes (ROADMAP Queue A, A13c item 2.3b)",
         "moe_accum": "the MoE step in micro-batches over processes "
                      "(ROADMAP Queue A, A13c item 2.3b)",
         "outside": "a collective runs only inside shard_map's body",
@@ -1252,6 +1363,10 @@ def check(name, res) -> dict:
         return check_mla_train(res)
     if name == "mla":
         return check_mla_serve(res)
+    if name == "mla_fsdp":
+        return check_mla_fsdp(res)
+    if name == "mla_fsdp_serve":
+        return check_mla_fsdp_serve(res)
     if name == "local_axes":
         (y, g), counts = res["local"]
         (yg, gg), gcounts = res["global"]["stacked"]
@@ -1511,46 +1626,62 @@ def check_fsdp_mesh(res, shape) -> dict:
     return errs
 
 
-def fsdp_extra(d: int, m: int) -> int:
+def fsdp_extra(d: int, m: int, n_metrics: int = 3, itemsize: int = 4) -> int:
     """The all-reduce bytes a step of the FSDP ranks moves beyond the dry
     run's count, summed over the ranks: the loss metrics' mean over data
-    (loss, ce, aux in float32) and the grad norm's scalar over every rank
-    (each leaf is cut over data, and at m > 1 some over model too)."""
-    return norm_bytes(d, m, group=d * m) \
-        + d * m * int(round(2 * (d - 1) / d * 12))
+    (``n_metrics`` of them, by default loss, ce and aux, of ``itemsize``
+    bytes) and the grad norm's scalar over every rank (each leaf is cut
+    over data, and at m > 1 some over model too)."""
+    return norm_bytes(d, m, itemsize, group=d * m) \
+        + metric_bytes(n_metrics, itemsize, d) * m
+
+
+def check_fsdp_step_bytes(got, cfg, shape, count=_dry_count) -> dict:
+    """FSDP steps' collectives on ``shape`` (``_tp_step_by_step``'s or
+    ``_moe_steps``' results ``got``): one pmean a step for the loss
+    metrics and one for each leaf that FSDP leaves whole over data, none
+    of a leaf it cuts; the bytes by kind, summed over the
+    ranks, equal to ``count``'s for the same cell (``cfg``) times the
+    ranks: every leaf gathered in the forward and again for the backward
+    that reads it (in a checkpoint's recompute, or from its saved
+    handles), of a padded expert table the live experts' rows alone, its
+    gradient reduce-scattered on those rows; the per-expert counts'
+    all-gather over data; the tensor-parallel all-reduces; the
+    all-reduces less :func:`fsdp_extra`. Returns the bytes a step by
+    kind."""
+    from repro_torch.launch.mesh import make_mesh
+    d, m = shape
+    steps = len(got["rows"])
+    fwd, _ = got["counts"]
+    assert fwd["pmean"]["calls"] == steps * (
+        got["leaves"] - got["n_data_cut"] + 1), (fwd, got["n_data_cut"])
+    st = count(cfg, tp_train_shape(), make_mesh(d, m))
+    per_step = {k: v / steps for k, v in by_kind(got["counts"]).items()}
+    want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+    itemsize = 8 if cfg.param_dtype == "float64" else 4
+    want["all-reduce"] = want.get("all-reduce", 0) + fsdp_extra(
+        d, m, len(got["rows"][0]["tp"]) - 2, itemsize)
+    assert set(per_step) == set(want), (shape, per_step, want)
+    for k in per_step:
+        assert abs(per_step[k] - want[k]) <= d * m, (shape, k, per_step,
+                                                     want)
+    return per_step
 
 
 def check_fsdp_bytes(res, shape, count=_dry_count) -> dict:
-    """The steps' collectives on ``shape``: no pmean of a leaf that FSDP
-    cuts over data (one a step for the metrics and one for each leaf
-    left whole over data); the bytes by kind the ranks move, summed,
-    equal to ``count``'s for the same cell times the ranks (the gathers
-    of every leaf in the forward and again for the backward that reads
-    it, a reduce-scatter of its gradient), the all-reduces less
-    :func:`fsdp_extra`; the same gathers and reduce-scatters a step at
-    ``remat="full"``, whose all-reduces are its own count's (the
-    checkpoint's recompute runs the tensor-parallel all-reduces again).
-    Returns the bytes a step by kind."""
-    from repro_torch.launch.mesh import make_mesh
-    d, m = shape
-    steps = DP["steps"]
+    """The steps' collectives on ``shape`` (:func:`check_fsdp_step_bytes`:
+    every leaf gathered in the forward and again for the backward that
+    reads it, a reduce-scatter of its gradient, no pmean of it; every leaf
+    of the dense family is cut over data) at ``remat="none"`` and
+    ``"full"``, whose all-reduces are its own count's (the checkpoint's
+    recompute runs the tensor-parallel all-reduces again), its gathers
+    and reduce-scatters the same. Returns the bytes a step by kind."""
     r = res[shape]
-    f32 = r["f32"]
-    fwd, _ = f32["counts"]
-    assert fwd["pmean"]["calls"] == steps * (
-        f32["leaves"] - f32["n_data_cut"] + 1), (fwd, f32["n_data_cut"])
-    assert f32["n_data_cut"] == f32["leaves"], f32
-    per_step = {}
-    for tag, cfg, n in (("none", _fsdp_cfg(), steps),
-                        ("full", _fsdp_cfg(remat="full"), 1)):
-        st = count(cfg, tp_train_shape(), make_mesh(d, m))
-        got = by_kind(r["f32" if tag == "none" else "full"]["counts"])
-        want = {k: d * m * v for k, v in st.collective_by_kind.items()}
-        want["all-reduce"] = want.get("all-reduce", 0) + fsdp_extra(d, m)
-        assert set(got) == set(want), (tag, got, want)
-        for k in got:
-            assert abs(got[k] / n - want[k]) <= d * m, (tag, k, got, want)
-        per_step[tag] = {k: v / n for k, v in got.items()}
+    assert r["f32"]["n_data_cut"] == r["f32"]["leaves"], r["f32"]
+    per_step = {tag: check_fsdp_step_bytes(r[key], cfg, shape, count)
+                for tag, key, cfg in (("none", "f32", _fsdp_cfg()),
+                                      ("full", "full",
+                                       _fsdp_cfg(remat="full")))}
     for k in ("all-gather", "reduce-scatter"):
         assert per_step["none"][k] == per_step["full"][k], per_step
     return per_step
@@ -1574,21 +1705,31 @@ def check_fsdp_accum(res, count=_dry_count):
     return err
 
 
-def check_fsdp_freed(res):
+def check_fsdp_freed(res, cfg=None):
     """The gathered leaves (and their casts) that the layers' and the
-    head's scopes held are all freed when the forward returns; the
-    backward gathers each again but the embedding (whose lookup's
-    backward does not read the table), so its all-gather bytes are the
-    forward's twice less the table's."""
-    cfg = _fsdp_cfg()
+    head's scopes (and the MTP module's) held are all freed when the
+    forward returns; the backward gathers each again but the embedding
+    (whose lookups' backward does not read the table), once however many
+    products read it (the MTP head reads the main head's), so its
+    all-gather bytes are the forward's twice less the table's (and less
+    the MoE layers' gathers of their per-expert counts, which are not
+    parameters); one reduce-scatter a gathered leaf. ``cfg``: the case's
+    config, on (4,1) (reduced tinyllama-1.1b with ``fsdp=True`` by
+    default)."""
+    cfg = cfg or _fsdp_cfg()
     r = res["freed"]
-    assert r["scopes"] == cfg.n_layers + 1 and r["held"] > 0 \
-        and r["alive"] == 0, r
+    assert r["scopes"] == cfg.n_layers + 1 + bool(cfg.mtp_depth) \
+        and r["held"] > 0 and r["alive"] == 0, r
     before = r["forward"][0]["all_gather"]["bytes"]
     after = r["after"][0]["all_gather"]["bytes"]
     table = WORLD * 3 * cfg.vocab_size * cfg.d_model // 4 * 4
-    assert after == 2 * before - table, (before, after, table)
-    assert r["after"][1]["all_gather"]["bytes"] == before, r
+    counts = 0
+    if cfg.is_moe:
+        n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+        counts = WORLD * 3 * cfg.moe.n_experts * 4 * n_moe
+    assert after == 2 * before - table - counts, (before, after, table,
+                                                  counts)
+    assert r["after"][1]["all_gather"]["bytes"] == before - counts, r
 
 
 def check_fsdp_train(res, count=_dry_count) -> dict:
@@ -1625,14 +1766,16 @@ def check_fsdp_serve_logits(res) -> dict:
     return errs
 
 
-def fsdp_logit_bytes(cfg) -> int:
+def fsdp_logit_bytes(cfg, mesh=FSDP_SERVE_MESH,
+                     batch=TP_SERVE["batch"]) -> int:
     """The serve step's two all-gathers of the last position's logits,
-    summed over the ranks: the vocab blocks over model, then each data
-    rank's rows over data (the step returns them whole on every rank, as
-    the reference's returns a global array; the dry run's count leaves
-    them split)."""
-    d, m = FSDP_SERVE_MESH
-    rows = TP_SERVE["batch"] // d
+    summed over the ranks of ``mesh`` (a (data, model) shape) serving
+    ``batch`` prompts: the vocab blocks over model, then each data rank's
+    rows over data (the step returns them whole on every rank, as the
+    reference's returns a global array; the dry run's count leaves them
+    split)."""
+    d, m = mesh
+    rows = batch // d
     return d * m * 4 * rows * cfg.vocab_size * ((m - 1) / m + (d - 1))
 
 
@@ -1790,6 +1933,7 @@ def check_moe_train(res, count=_dry_count) -> dict:
 
 
 # -- MLA under the model axis -------------------------------------------------
+# (and, after it, the MoE family under FSDP)
 
 
 def check_mla_mesh(res, shape) -> dict:
@@ -1907,3 +2051,143 @@ def check_mla_serve(res, count=_dry_count) -> dict:
     check_mla_serve_bytes(res, count)
     errs.update(check_mla_ep_serve(res))
     return errs
+
+
+# -- the MoE family under FSDP --------------------------------------------------
+
+
+def check_mla_fsdp_mesh(res, shape) -> dict:
+    """On ``shape``: reduced deepseek-v3-671b as configured under FSDP,
+    float32 and float64, 3 steps each from the same state as the
+    one-device step, held as :func:`check_mla_mesh` holds the model axis's
+    steps: the metrics within ``MOE_TOL`` (float32: or twice what it
+    resolves there), the parameters within ``MOE_TOL["f64"]`` in
+    float64; no route flipped, the drops equal."""
+    errs = {}
+    for tag in ("f32", "f64"):
+        errs.update(check_moe_steps(f"mla fsdp {shape} {tag}",
+                                    res[shape][tag], MOE_TOL[tag],
+                                    model=shape[1],
+                                    hold_params=tag == "f64"))
+    return errs
+
+
+def check_mla_fsdp_bytes(res, shape, count=_dry_count) -> dict:
+    """The float32 steps' bytes on ``shape`` against the dry run's count of
+    reduced deepseek-v3-671b's train cell with ``fsdp=True``
+    (:func:`check_fsdp_step_bytes`)."""
+    return check_fsdp_step_bytes(res[shape]["f32"], _mla_fsdp_cfg(), shape,
+                                count)
+
+
+def check_mla_fsdp_drops(res) -> dict:
+    """Capacity factor 0.5 on (2,2) under FSDP (float64): as the one-device
+    step, which drops pairs every step, each rank's drops those of its
+    data coordinate's block of rows."""
+    got = res["drops"]
+    errs = check_moe_steps("mla fsdp drops", got, MOE_TOL["f64"], model=2)
+    for r in got["rows"]:
+        assert r["drops_one"] > 0 and r["drops"][2] > 0, r
+    return errs
+
+
+def check_mla_fsdp_none(res, count=_dry_count) -> dict:
+    """One float32 step at ``remat="none"`` on (2,2): every layer under
+    ``Fsdp.regather`` (the backward gathers each leaf again from the
+    handles the products saved), within ``MOE_TOL["f32"]`` (or twice what
+    float32 resolves) of the one-device step; its bytes the count's at
+    "none", its reduce-scatters those of the config's "full" and its
+    gathers too (the recompute's), but the per-expert counts' all-gather,
+    which "full" runs again in the recompute."""
+    got = res["none"]
+    errs = check_moe_steps("mla fsdp none", got, MOE_TOL["f32"], model=2,
+                           hold_params=False)
+    cfg = _mla_fsdp_cfg(remat="none")
+    per_step = check_fsdp_step_bytes(got, cfg, (2, 2), count)
+    full = by_kind(res[2, 2]["f32"]["counts"])
+    steps = len(res[2, 2]["f32"]["rows"])
+    counts = WORLD * (2 - 1) * cfg.moe.n_experts * 4 * (
+        cfg.n_layers - cfg.moe.n_dense_layers)
+    assert per_step["reduce-scatter"] == full["reduce-scatter"] / steps \
+        and per_step["all-gather"] == full["all-gather"] / steps - counts, (
+            per_step, full, counts)
+    errs["mla fsdp none bytes"] = per_step
+    return errs
+
+
+def check_granite_fsdp(res, count=_dry_count) -> dict:
+    """Reduced granite-moe-3b-a800m with ``fsdp=True`` on (2,2) (4 experts
+    padded to 48, the experts' FFN on model, the tied table), float64, 3
+    steps within ``MOE_TOL["f64"]`` of the one-device step; its bytes the
+    dry run's count's: the padded tables gathered and reduce-scattered on
+    their 4 live rows, as the count reads them."""
+    got = res["granite"]
+    errs = check_moe_steps("granite fsdp", got, MOE_TOL["f64"], model=2)
+    errs["granite fsdp bytes"] = check_fsdp_step_bytes(
+        got, _moe_cfg(dtype="float64", fsdp=True), (2, 2), count)
+    return errs
+
+
+def check_mla_fsdp(res, count=_dry_count) -> dict:
+    """Every check of the MoE-under-FSDP train case (the reference's FSDP
+    step where it ran)."""
+    errs = {}
+    for shape in MLA_FSDP_MESHES:
+        errs.update(check_mla_fsdp_mesh(res, shape))
+        errs[f"mla fsdp {shape} bytes"] = check_mla_fsdp_bytes(res, shape,
+                                                               count)
+    errs.update(check_mla_fsdp_drops(res))
+    errs.update(check_mla_fsdp_none(res, count))
+    check_fsdp_freed(res, _mla_fsdp_cfg(remat="none"))
+    errs.update(check_granite_fsdp(res, count))
+    if res["reference"] is not None:
+        errs.update(check_moe_reference(res))
+    check_tp_ckpt(res)
+    return errs
+
+
+def check_mla_fsdp_serve_logits(res) -> dict:
+    """The prefill's and 2 absorbed decode steps' logits under FSDP, whole
+    on every rank, within ``tp_serve`` of the one-device steps; the
+    latent cache of the rank's rows."""
+    sv = MLA_FSDP_SERVE
+    d = sv["mesh"][0]
+    outs, _, cache = res["fsdp"]
+    want_outs, _, want_cache = res["one"]
+    errs = {"logits": max(_err(a, b) for a, b in zip(outs, want_outs))}
+    assert errs["logits"] <= TOL["tp_serve"], errs
+    assert [c[1] for c in cache] == [sv["batch"] // d] * 2 and [
+        c[1] for c in want_cache] == [sv["batch"]] * 2 and [
+            c[2:] for c in cache] == [c[2:] for c in want_cache], (
+                cache, want_cache)
+    return errs
+
+
+def check_mla_fsdp_serve_bytes(res, count=_dry_count):
+    """Each serve step's bytes by kind summed over the ranks, the prefill's
+    and each decode step's: the dry run's count of the same step with
+    ``fsdp=True`` (each leaf gathered once, the per-expert counts'
+    all-gather, the tensor-parallel all-reduces) times the ranks, and the
+    last logits' two all-gathers (:func:`fsdp_logit_bytes`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    cfg = _mla_fsdp_cfg()
+    sv = MLA_FSDP_SERVE
+    d, m = sv["mesh"]
+    b, s = sv["batch"], sv["prompt"]
+    for i, c in enumerate(res["fsdp"][1]):
+        kind = "prefill" if i == 0 else "decode"
+        st = count(cfg, ShapeConfig(kind, s, b, kind), make_mesh(d, m))
+        got = by_kind(c)
+        want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+        want["all-gather"] = want.get("all-gather", 0) + fsdp_logit_bytes(
+            cfg, sv["mesh"], b)
+        assert set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= d * m for k in got), (i, got, want)
+
+
+def check_mla_fsdp_serve(res, count=_dry_count) -> dict:
+    errs = check_mla_fsdp_serve_logits(res)
+    check_mla_fsdp_serve_bytes(res, count)
+    return errs
+
