@@ -309,8 +309,8 @@ non-zero and prints no result. Phases, one JSON line each:
                against the one-device step's (1 MoE layer, float32, 8 x
                2048 tokens, capacity factor 5: no drops), and a planted
                misrouting that must fail that limit; then
-               granite-moe-3b-a800m (8 layers) through
-               ``Trainer(mesh=make_mesh(2, 4))``, 3 steps at 8 x 2048 on
+               granite-moe-3b-a800m (4 layers) through
+               ``Trainer(mesh=make_mesh(2, 4))``, 2 steps at 8 x 2048 on
                the expert-parallel route (3 all_to_all a chunk a MoE layer
                a pass), B3-B5 launches exact and held against their plain
                versions at the geometry the step launched them at, (8, 32,
@@ -350,8 +350,9 @@ non-zero and prints no result. Phases, one JSON line each:
                case of ``tests/torch_process_cases.py`` on 4 gloo ranks of
                the CPU but ``CARD_CASES`` (``tp_train``, ``fsdp_train``,
                ``moe_train``, ``mla_train``, ``mla_fsdp``,
-               ``mla_fsdp_serve``), whose routes phases 39-43 run on the
-               card (``mesh_processes_gloo``).
+               ``mla_fsdp_serve``, ``ep_train``, ``ep_serve``), whose
+               routes phases 39-43 run on the card
+               (``mesh_processes_gloo``).
                Only this process prints; a rank that fails fails the
                phase.
 39. ``mesh_tensor_parallel`` tensor parallelism over processes, spawned
@@ -392,7 +393,17 @@ non-zero and prints no result. Phases, one JSON line each:
                rows x heads (held against their plain versions there),
                the dropped pairs against the one-device step's, the bytes
                by kind against ``count_step``'s; ms a step and peak GB a
-               rank.
+               rank. On (2, 2) the witness takes the
+               expert-parallel route (the gate lowered to its 4 x 1024
+               tokens) against the stacked route's step, each rank's
+               drops its device's, and one step at 8 x 2048 takes the
+               route at the reference's own gate (``mesh_moe_ep``): each
+               rank's FFN blocks of the 48 padded experts re-laid as
+               blocks of the experts by an all-to-all, 3 all_to_all a
+               MoE layer a pass and the re-lay's 3, the bytes against
+               ``count_step``'s, B3-B5 4 / 2 / 2 a rank-step at 4 x 16
+               rows x heads (held against their plain versions there),
+               the payloads the counts leave out, peak GB a rank.
 42. ``mesh_mla`` deepseek-v3-671b with ``fsdp=False`` (full width, 1
                dense + 1 MoE layer of 8 routed experts, MTP, bf16
                parameters and moments, 2 x 2048) on (1, 4) ranks sharing
@@ -412,7 +423,12 @@ non-zero and prints no result. Phases, one JSON line each:
                experts, heads and vocab over ``model``; held as phase 42,
                to phase 42's one-device record, the bytes against
                ``count_step``'s with FSDP, B3-B5 1 / 1 / 1 a rank-step at
-               1 x 64 rows x heads. Phases 39-43 share their spawns
+               1 x 64 rows x heads; its witness on the
+               expert-parallel route against the stacked route's step,
+               and one step on the route at 2 x 2048, the gate lowered to
+               4096 (``mesh_mla_fsdp_ep``): each rank's held experts the
+               block the reference's spec gives it, the bytes against
+               ``count_step``'s. Phases 39-43 share their spawns
                (``run_card_ranks``): the (1, 2) ranks, then one world of 4
                ranks that runs (1, 4), both FSDP meshes, both MoE meshes,
                the MLA mesh and the MoE FSDP mesh in turn.
@@ -429,8 +445,9 @@ in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
 NCCL step summed over its ranks, ``mesh_processes``, and phases 39-43's
 steps summed over their ranks, ``mesh_tensor_parallel (1, m)``,
-``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_mla (1, 4)``,
-``mesh_mla_fsdp (2, 2)``; error,
+``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_moe_ep (2, 2)``,
+``mesh_mla (1, 4)``, ``mesh_mla_fsdp (2, 2)``, ``mesh_mla_fsdp_ep (2,
+2)``; error,
 times and bound per
 kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -485,7 +502,8 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import (moe_dense_dispatch,  # noqa: E402
                                     moe_ep_shard_map, moe_template)
 from repro_torch.models.sharding import (MeshCtx,  # noqa: E402
-                                         NamedSharding, shard_params)
+                                         NamedSharding, held_experts,
+                                         shard_params, tensor_parallel)
 from repro_torch.models.layers import (init_params, tree_leaves,  # noqa: E402
                                        tree_map, tree_size_bytes,
                                        value_and_grad)
@@ -4301,7 +4319,9 @@ def phase_mesh_compression(smi):
     free_memory()
 
 
-MESH_TRAIN = dict(data=2, model=4, batch=8, layers=8, steps=3)
+# 4 of 32 layers and 2 steps (8 and 3 before phases 41 and 43 took the
+# expert-parallel route): its checks read neither depth nor a third step
+MESH_TRAIN = dict(data=2, model=4, batch=8, layers=4, steps=2)
 EP_LAYER_TOKENS, EP_LAYER_CF = 2048, 16.0
 # the mesh step's gradients against the one-device step's: one MoE layer
 # (a deeper stack's roundings tip near-ties of the next router's top-k, a
@@ -4412,16 +4432,17 @@ def ep_grad_check(full, ctx):
 
 
 def phase_mesh_train(smi):
-    """Phase 35: granite-moe-3b-a800m at full width, ``MESH_TRAIN``'s 8 of
-    32 layers (PR 22's cut was 16: the state of all 32 leaves no room; PR
-    32 halved it for the run's time: the checks do not read depth), through
-    ``Trainer(mesh=make_mesh(2, 4))`` — the path ``launch/train.py --data 2
-    --model 4`` takes — 3 AdamW steps at 8 x 2048 = 16,384 tokens, the
+    """Phase 35: granite-moe-3b-a800m at full width, ``MESH_TRAIN``'s 4 of
+    32 layers (once 16: the state of all 32 leaves no room; halved twice
+    since for the run's time: the checks do not read depth),
+    through ``Trainer(mesh=make_mesh(2, 4))`` — the path ``launch/train.py
+    --data 2 --model 4`` takes — 2 AdamW steps at 8 x 2048 = 16,384 tokens,
+    the
     least that takes the expert-parallel route (48 padded experts over 4
     lanes, 2048 tokens a device in one chunk): finite losses, the
     attention kernels' launches exactly ``train_launches`` a step, and the
     EP route witnessed by exactly 3 all_to_all a chunk a MoE layer a pass
-    (full remat: two passes a step). Then 3 steps of the one-device step
+    (full remat: two passes a step). Then 2 steps of the one-device step
     at PR 22's 4 x 2048 on the same state, for tokens/s and peak memory
     beside it. Before them, one MoE layer at full width: ``moe_ep_shard_map``
     on (2, 4) at 2048 tokens and capacity factor 16 (float32) against
@@ -4815,11 +4836,12 @@ PROC_TIMEOUT_S = 600      # a rank still running then fails the phase
 # the CPU cases that phase 38 leaves to the card: phases 41 and 42 run
 # the CPU cases whose routes phases 39-43 run on this machine at full
 # width: the dense family's tensor-parallel and FSDP steps, the MoE and
-# MLA steps over processes, the MoE family under FSDP (on this machine's
-# CPU they took ~36 s, ~35 s, ~20 s and ~25 s, which the run's time
-# cannot hold; the CPU tests hold them at every commit)
+# MLA steps over processes, the MoE family under FSDP, the
+# expert-parallel route's steps (phases 41 and 43; on this
+# machine's CPU they took ~36 s, ~35 s, ~20 s, ~25 s and ~20 s, which the
+# run's time cannot hold; the CPU tests hold them at every commit)
 CARD_CASES = ("tp_train", "fsdp_train", "moe_train", "mla_train",
-              "mla_fsdp", "mla_fsdp_serve")
+              "mla_fsdp", "mla_fsdp_serve", "ep_train", "ep_serve")
 
 
 def _process_cases():
@@ -5137,6 +5159,32 @@ def _routes(mesh, log, one_log):
             "drops_one_by_block": pc.drops_by_block(one_log, n)}
 
 
+def _ep_routes(mesh, log, stacked_log):
+    """A MoE witness step's routes and drops on the expert-parallel route,
+    on rank 0 (None elsewhere; every rank takes part): each rank's dropped
+    pairs (its own pairs without a send slot and the rows it received
+    without an expert slot), those of its device on the stacked route
+    (``stacked_log``, rank 0's), the (token, expert) pairs of each rank's
+    routes that its device there did not choose for the same tokens, and
+    the stacked step's drops and pairs."""
+    import torch.distributed as dist
+    pc = _process_cases()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (moe_mod.dropped_pairs(log),
+                                   mesh.block(mesh.axis_names),
+                                   [d.ids.cpu() for d in log]))
+    if mesh.rank != 0:
+        return None
+    by_device = pc.ep_drops(stacked_log)
+    return {"drops_by_rank": [e[0] for e in every],
+            "drops_by_device": [by_device.get(dev, 0) for _, dev, _ in every],
+            "flips_by_rank": [sum(pc.route_flips(ids, d.ids) for ids, d in zip(
+                mine, [d for d in stacked_log if d.device == dev]))
+                for _, dev, mine in every],
+            "drops_one": moe_mod.dropped_pairs(stacked_log),
+            "pairs_one": sum(d.pairs for d in stacked_log)}
+
+
 class _Clock:
     """The host seconds of each part of a run, each ending in a
     synchronise: ``took(name)`` closes the part begun at the last call (or
@@ -5158,7 +5206,7 @@ _WITNESS_ONE: dict = {}
 
 
 def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None, batch=None,
-                     drop_capacity=None, steps=None):
+                     drop_capacity=None, steps=None, stacked=False):
     """``TP_FP32_LAYERS`` layers of tinyllama-1.1b (or of ``cfg``) at full
     width in float32 compute (TF32 off) from ``_conditioned`` parameters
     (at the configured init, two summation orders of this step read
@@ -5173,7 +5221,13 @@ def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None, batch=None,
     For a MoE model, per step also each rank's routes and drops against the
     one-device step's (:func:`_routes`); with ``drop_capacity``, first one
     more step from the same initial state at that capacity factor, whose
-    one group drops pairs (its row first, ``capacity_factor`` set)."""
+    one group drops pairs (its row first, ``capacity_factor`` set). With
+    ``stacked`` (a MoE model on (d, m), m > 1) the witness
+    takes the expert-parallel route (``DENSE_PATH_MAX_TOKENS`` lowered to
+    its tokens) and rank 0 runs the stacked route's step on a mesh of the
+    same shape in place of the one-device step, whose per-lane capacities
+    and per-device aux loss are the route's (the routes and drops by
+    device: :func:`_ep_routes`)."""
     cfg = cfg or _mesh_cfgs()[0]
     cfg = dataclasses.replace(cfg, n_layers=TP_FP32_LAYERS,
                               compute_dtype="float32", fsdp=fsdp)
@@ -5197,49 +5251,55 @@ def _tp_fp32_witness(mesh, opt, fsdp=False, cfg=None, batch=None,
         runs.insert(0, (drop, 0, Trainer(drop, opt, data, TrainerConfig(
             steps=1), mesh=mesh, device=DEV).step_fn))
     rows, state = [], None
-    for c, i, step_fn in runs:
-        clock = _Clock()
-        if i == 0:          # the drop step too starts from the initial state
-            state = None
-            state, whole = initial()
-        else:
-            # the one-device step's loss, grad norm and routes read its
-            # parameters alone (the update, which would read the moments,
-            # is not kept): the ranks' parameters beside fresh moments
-            whole = _on_rank0(state["params"], tr.state_specs["params"],
-                              mesh)
-            whole = None if mesh.rank else {"params": whole,
-                                             "opt": adamw.init(opt, whole)}
-        clock.took("state")
-        state, m, log = _logged_step(step_fn, state,
-                                     to_device(tr.batch(i), DEV))
-        free_memory()
-        row = {"tp": {k: float(m[k]) for k in ("loss", "grad_norm")}}
-        clock.took("step")
-        one_log = []
-        if mesh.rank == 0:
-            key = repr((dataclasses.replace(c, fsdp=False), opt,
-                        data)) if i == 0 else None
-            if key not in _WITNESS_ONE:
-                # the step returns the whole state it updated: not kept
-                m1, one_log = _logged_step(
-                    make_train_step(c, opt).step_fn, whole,
-                    to_device(tr.source.batch(i), DEV))[1:]
-                m1 = {k: float(m1[k]) for k in ("loss", "grad_norm")}
-                if key is not None:
-                    _WITNESS_ONE[key] = m1, one_log
+    gate = _process_cases().ep_gate(data.global_batch * WITNESS_SEQ) \
+        if stacked else contextlib.nullcontext()
+    ref_ctx = MeshCtx(mesh=make_mesh(*mesh.sizes), batch_axes=("data",)) \
+        if stacked else None
+    with gate:
+        for c, i, step_fn in runs:
+            clock = _Clock()
+            if i == 0:      # the drop step too starts from the initial state
+                state = None
+                state, whole = initial()
             else:
-                m1, one_log = _WITNESS_ONE[key]
-            row["one"] = m1
-        clock.took("one_device")
-        if cfg.is_moe:
-            routes = _routes(mesh, log, one_log)
-            if routes is not None:
-                row.update(routes, capacity_factor=c.moe.capacity_factor)
-        del whole, log, one_log
-        free_memory()
-        clock.took("routes")
-        rows.append(dict(row, seconds=clock.seconds))
+                # the one-device step's loss, grad norm and routes read its
+                # parameters alone (the update, which would read the moments,
+                # is not kept): the ranks' parameters beside fresh moments
+                whole = _on_rank0(state["params"], tr.state_specs["params"],
+                                  mesh)
+                whole = None if mesh.rank else {"params": whole,
+                                                 "opt": adamw.init(opt, whole)}
+            clock.took("state")
+            state, m, log = _logged_step(step_fn, state,
+                                         to_device(tr.batch(i), DEV))
+            free_memory()
+            row = {"tp": {k: float(m[k]) for k in ("loss", "grad_norm")}}
+            clock.took("step")
+            one_log = []
+            if mesh.rank == 0:
+                key = repr((dataclasses.replace(c, fsdp=False), opt,
+                            data)) if i == 0 and not stacked else None
+                if key not in _WITNESS_ONE:
+                    # the step returns the whole state it updated: not kept
+                    m1, one_log = _logged_step(
+                        make_train_step(c, opt, ref_ctx).step_fn, whole,
+                        to_device(tr.source.batch(i), DEV))[1:]
+                    m1 = {k: float(m1[k]) for k in ("loss", "grad_norm")}
+                    if key is not None:
+                        _WITNESS_ONE[key] = m1, one_log
+                else:
+                    m1, one_log = _WITNESS_ONE[key]
+                row["one"] = m1
+            clock.took("one_device")
+            if cfg.is_moe:
+                routes = (_ep_routes if stacked else _routes)(mesh, log,
+                                                              one_log)
+                if routes is not None:
+                    row.update(routes, capacity_factor=c.moe.capacity_factor)
+            del whole, log, one_log
+            free_memory()
+            clock.took("routes")
+            rows.append(dict(row, seconds=clock.seconds))
     del state
     free_memory()
     return rows
@@ -5731,7 +5791,9 @@ def check_witness(rows, d, m):
     step's is held within ``TP_FP32_REL`` (loss and grad norm), each
     rank's drops equal to the
     one-device step's drops of its data block (the ranks of a data
-    coordinate route the same tokens) and their sum to its drops; a step
+    coordinate route the same tokens) and their sum to its drops (on the
+    expert-parallel route, each rank's drops those of its device on the
+    stacked route); a step
     with flipped routes is held to at most ``FLIP_SHARE`` of its pairs
     flipped and within ``FLIP_REL``; the drop step's routes agree and it
     drops pairs (above 0); some regular step's routes agree. Returns the
@@ -5748,6 +5810,10 @@ def check_witness(rows, d, m):
                 and gap <= FLIP_REL, row
             continue
         assert gap <= TP_FP32_REL, row
+        if "drops_by_device" in row:    # the expert-parallel route's
+            assert row["drops_by_rank"] == row["drops_by_device"] \
+                and sum(row["drops_by_rank"]) == row["drops_one"], row
+            continue
         by_data = [row["drops_by_rank"][i:i + m] for i in range(0, d * m, m)]
         assert [b[0] for b in by_data] == row["drops_one_by_block"] \
             and all(b == b[:1] * m for b in by_data), row
@@ -5757,6 +5823,148 @@ def check_witness(rows, d, m):
         and drop["drops_one"] > 0, drop
     assert 0 in flips[1:], flips
     return rel, flips
+
+
+# phase 41's expert-parallel step: 8 x TRAIN_SEQ = 16,384 global tokens,
+# the reference's own gate (nothing lowered): 48 padded experts over 2
+# lanes on (2,2), 4096 tokens a rank in one chunk
+EP_BATCH = 8
+
+
+def _ep_step(mesh, cfg, opt, rows, gate=None):
+    """One train step of ``cfg`` through ``Trainer(mesh=mesh)`` at ``rows``
+    x ``TRAIN_SEQ`` global tokens on the expert-parallel route (``gate``:
+    ``DENSE_PATH_MAX_TOKENS`` lowered to it; None: the reference's own),
+    counted by :func:`_moe_run`, with the payloads that ``compat``'s
+    counts leave out recorded (the process cases' ``uncounted_recorder``).
+    On rank 0: its metrics, and by rank the attention kernels' launches
+    and geometries, peak bytes, ms, drops, those payloads, and the rank's
+    experts (``held_experts``) beside the block of the experts that the
+    reference's spec gives it (where the model axis splits the experts);
+    the collectives (forward, backward) summed over the ranks. None on the
+    others."""
+    import torch.distributed as dist
+    from repro_torch.train.step import make_train_state_abstract
+    pc = _process_cases()
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=rows,
+                      vocab_size=cfg.vocab_size, seed=0)
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=1, log_every=1),
+                 mesh=mesh, device=DEV)
+    experts = None
+    if cfg.moe.expert_parallel:
+        table = make_train_state_abstract(cfg, opt)["params"]["layers"][
+            "moe"]["w_gate"].shape
+        spec = tr.state_specs["params"]["layers"]["moe"]["w_gate"]
+        block = NamedSharding(mesh, spec).block_index(table)[1]
+        held = held_experts(cfg, tensor_parallel(cfg, tr.ctx))
+        experts = [[held.start, held.stop], [block.start, block.stop]]
+    with pc.ep_gate(gate or moe_mod.DENSE_PATH_MAX_TOKENS), \
+            pc.uncounted_recorder() as uncounted:
+        assert moe_mod.ep_route(cfg, tr.ctx, rows * TRAIN_SEQ), (cfg, rows)
+        log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr)
+    del tr
+    free_memory()
+    geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
+                  for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (launches, peak, geos, step_ms, drops,
+                                   dict(uncounted), experts))
+    if mesh.rank != 0:
+        return None
+    return {"log": log, "collectives": counts,
+            "launches_by_rank": [e[0] for e in every],
+            "peak_gb_by_rank": [e[1] / 1e9 for e in every],
+            "geometries_by_rank": [e[2] for e in every],
+            "step_ms_by_rank": [e[3] for e in every],
+            "drops_by_rank": [e[4] for e in every],
+            "uncounted_by_rank": [e[5] for e in every],
+            "experts_by_rank": [e[6] for e in every]}
+
+
+def _hold_ep(smi, phase, r, cfg, shape, rows, gate, seed, results,
+             kernels=True):
+    """The checks of an expert-parallel step (:func:`_ep_step`'s rank-0
+    results ``r``) of ``cfg`` on ``shape`` at ``rows`` x ``TRAIN_SEQ``
+    (``gate``: as there), and its line: a finite loss; B3-B5
+    ``train_launches`` on every rank, at the geometry of the rank's rows
+    and heads (with ``kernels``, each held against its plain version
+    there); 3 ``all_to_all`` a chunk a MoE layer a pass, and the re-lay's
+    3 a MoE layer a pass where the model axis splits the experts' FFN
+    (their backward: 2 a chunk and 3 a layer); the bytes by kind summed
+    over the ranks equal to ``count_step``'s for the cell at the same gate
+    times the ranks (the all-reduces less the grad norm's scalar and the
+    loss metrics' mean); each rank's experts the block the reference's
+    spec gives it; the payloads the counts leave out, the same calls on
+    every rank (the EP body's output gathered over model in the forward
+    and again in a checkpoint's recompute where the recompute runs past
+    it, which it ends once its saved tensors are back: granite's does
+    not, deepseek's shared expert does; its tokens' gradient gathered
+    once; the router's gradient summed over model once). Returns the
+    launches by path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    pc = _process_cases()
+    d, m = shape
+    n = d * m
+    per_step = train_launches(cfg)
+    assert all(x == per_step for x in r["launches_by_rank"]), r
+    launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                for k in per_step}
+    assert all(np.isfinite(x["loss"]) for x in r["log"]), r["log"]
+    seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
+            for rank_geos in r["geometries_by_rank"]
+            for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
+    rows_rank, heads = rows // d, cfg.n_heads_padded // m
+    if kernels:
+        geometries = check_path_attention(f"{phase} {shape}", seen,
+                                          rows_rank, heads, seed, results)
+    else:
+        geometries = sorted({g for _, g in seen}, key=str)
+        assert all(g[0] == rows_rank * heads for g in geometries), seen
+        geometries = [[*g[:4], str(g[4])[6:], *g[5:]] for g in geometries]
+    passes = 2 if cfg.remat == "full" else 1
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+    chunks = -(-(rows * TRAIN_SEQ // n) // moe_mod.EP_CHUNK_TOKENS)
+    relay = 0 if cfg.moe.expert_parallel else 3
+    fwd, bwd = r["collectives"]
+    assert fwd["all_to_all"]["calls"] == (3 * chunks + relay) * n_moe \
+        * passes and bwd["all_to_all"]["calls"] == (2 * chunks + relay) \
+        * n_moe, (fwd, bwd)
+    with pc.ep_gate(gate or moe_mod.DENSE_PATH_MAX_TOKENS):
+        st = dryrun.count_step(cfg, ShapeConfig("train", TRAIN_SEQ, rows,
+                                                "train"),
+                               make_mesh(d, m), target="cuda")
+    got = pc.by_kind(r["collectives"])
+    metrics = 4 if cfg.mtp_depth else 3
+    got["all-reduce"] -= pc.fsdp_extra(d, m, metrics) if cfg.fsdp \
+        else pc.norm_bytes(d, m) + pc.metric_bytes(metrics, 4, d) * m
+    want = {k: n * v for k, v in st.collective_by_kind.items()}
+    assert set(got) == set(want) and all(
+        abs(got[k] - want[k]) <= n for k in got), (got, want)
+    if cfg.moe.expert_parallel:
+        # (held experts, the spec's block) by rank, the blocks tiling them
+        assert all(held == block for held, block in r["experts_by_rank"]) \
+            and sorted(e[0] for e in r["experts_by_rank"])[::d] == [
+                [i * cfg.moe.n_experts // m, (i + 1) * cfg.moe.n_experts
+                 // m] for i in range(m)], r["experts_by_rank"]
+    unc = r["uncounted_by_rank"]
+    calls = [{k: v[0] for k, v in u.items()} for u in unc]
+    assert all(c == calls[0] for c in calls) and calls[0]["all_reduce"] \
+        == n_moe and 2 * n_moe <= calls[0]["all_gather"] \
+        <= (passes + 1) * n_moe, unc
+    emit(phase, gpu=smi, arch=cfg.name, mesh=list(shape), ranks=n,
+         n_layers=cfg.n_layers, batch=rows, seq_len=TRAIN_SEQ,
+         tokens=rows * TRAIN_SEQ, tokens_per_rank=rows * TRAIN_SEQ // n,
+         reduced={"DENSE_PATH_MAX_TOKENS": gate} if gate else {},
+         log=r["log"], drops_by_rank=r["drops_by_rank"],
+         experts_by_rank=r["experts_by_rank"], launches=launches,
+         launches_per_rank_step=per_step, geometries=geometries,
+         rows_per_launch=rows_rank, heads_per_launch=heads,
+         collectives=r["collectives"], bytes_per_step=got,
+         count_step_bytes=want, uncounted_by_rank=unc,
+         step_ms_by_rank=r["step_ms_by_rank"],
+         peak_gb_by_rank=r["peak_gb_by_rank"])
+    return {f"{phase} {shape}": launches}
 
 
 def _moe_mesh_cfgs():
@@ -5808,8 +6016,12 @@ def _moe_run(tr):
 def _moe_job(mesh):
     """Phase 41's work on one mesh, on every rank: granite-moe-3b-a800m as
     :func:`_moe_mesh_cfgs` gives it through ``Trainer(mesh=mesh)``
-    (:func:`_moe_run`), then the float32 witness and the conditioned
-    step. Returns the results on rank 0, None on the others."""
+    (:func:`_moe_run`), then the float32 witness (at ``model > 1`` on the
+    expert-parallel route, against the stacked route's step), the
+    conditioned step and, at ``model > 1``, one step on the
+    expert-parallel route at ``EP_BATCH`` x ``TRAIN_SEQ`` tokens
+    (:func:`_ep_step`). Returns the results on rank 0, None on the
+    others."""
     import torch.distributed as dist
     clock = _Clock()
     cfg, opt = _moe_mesh_cfgs()
@@ -5821,11 +6033,14 @@ def _moe_job(mesh):
     del tr
     free_memory()
     clock.took("train")
+    ep = mesh.shape["model"] > 1
     fp32 = _tp_fp32_witness(mesh, opt, cfg=cfg,
-                            drop_capacity=DROP_CAPACITY)
+                            drop_capacity=DROP_CAPACITY, stacked=ep)
     clock.took("witness")
     conditioned = _tp_conditioned(mesh, opt, cfg=cfg)
     clock.took("conditioned")
+    ep = _ep_step(mesh, cfg, opt, EP_BATCH) if ep else None
+    clock.took("ep")
     geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
                   for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
     every = [None] * dist.get_world_size()
@@ -5833,7 +6048,7 @@ def _moe_job(mesh):
     if mesh.rank != 0:
         return None
     return {"backend": dist.get_backend(), "log": log, "fp32": fp32,
-            "conditioned": conditioned,
+            "conditioned": conditioned, "ep": ep,
             "launches_by_rank": [e[0] for e in every],
             "peak_gb_by_rank": [e[1] / 1e9 for e in every],
             "geometries_by_rank": [e[2] for e in every],
@@ -5874,6 +6089,9 @@ def phase_mesh_moe(smi, spawned=None):
     one-device step's, and recorded by rank; the bytes by kind summed over
     the ranks equal to ``count_step``'s for the cell times the ranks (the
     all-reduces less the loss metrics' mean and the grad norm's scalar).
+    On (2, 2) the witness runs on the expert-parallel route against the
+    stacked route's step, and one step at ``EP_BATCH`` x ``TRAIN_SEQ``
+    takes the route at the reference's own gate (:func:`_hold_ep`).
     Recorded: ms a step and peak GB a rank (the ranks share one card and
     its host: no scaling figure), beside the card's name and power limit.
     ``spawned``: :func:`run_card_ranks`'s results (one spawn of its own
@@ -5959,6 +6177,8 @@ def phase_mesh_moe(smi, spawned=None):
                  fp32_witness=r["fp32"], fp32_rel=fp32_rel,
                  fp32_flips=flips, fp32_limit=TP_FP32_REL,
                  flip_share_limit=FLIP_SHARE, flip_rel_limit=FLIP_REL,
+                 witness_reduced={"DENSE_PATH_MAX_TOKENS": TRAIN_BATCH
+                                  * WITNESS_SEQ} if m > 1 else {},
                  drops_by_rank=r["drops_by_rank"], drops=drops,
                  one_device_drops=one_drops, launches=launches,
                  launches_per_rank_step=per_step, geometries=geometries,
@@ -5972,6 +6192,9 @@ def phase_mesh_moe(smi, spawned=None):
                  one_device_peak_gb=one_peak / 1e9, part_seconds=r["part_s"],
                  seconds=spawn_s)
             by_path[f"mesh_moe ({d}, {m})"] = launches
+            if r["ep"] is not None:
+                by_path.update(_hold_ep(smi, "mesh_moe_ep", r["ep"], cfg,
+                                        (d, m), EP_BATCH, None, 415, results))
             free_memory()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6085,8 +6308,12 @@ def _mla_job(mesh, out_path, fsdp=False):
     """Phase 42's work on (1,4) (with ``fsdp``, phase 43's on (2,2)), on
     every rank: deepseek-v3-671b as :func:`_mla_mesh_cfgs` gives it
     through ``Trainer(mesh=mesh)`` (:func:`_moe_run`), then the float32
-    witness at ``MLA_WITNESS_CUT`` with its drop step, one step from
-    ``_conditioned`` parameters and the serve steps (:func:`_mla_serve`).
+    witness at ``MLA_WITNESS_CUT`` with its drop step (with ``fsdp`` on
+    the expert-parallel route, against the stacked route's step), one
+    step from ``_conditioned`` parameters, the serve steps
+    (:func:`_mla_serve`) and, with ``fsdp``, one step on the
+    expert-parallel route at ``MLA_BATCH`` x ``TRAIN_SEQ`` tokens, the
+    gate lowered to them (:func:`_ep_step`).
     The one-device steps run in the parent afterwards
     (:func:`mla_one_device_record`). Returns the results on rank 0 (the
     serve logits saved beside ``out_path``, the seconds of each part),
@@ -6112,13 +6339,16 @@ def _mla_job(mesh, out_path, fsdp=False):
     fp32 = _tp_fp32_witness(mesh, dataclasses.replace(
         opt, moment_dtype="float32"), fsdp, cfg=wcfg, batch=MLA_BATCH,
         drop_capacity=DROP_CAPACITY,
-        steps=MLA_FSDP_WITNESS_STEPS if fsdp else TP_STEPS)
+        steps=MLA_FSDP_WITNESS_STEPS if fsdp else TP_STEPS, stacked=fsdp)
     witness_peak = torch.cuda.max_memory_allocated()
     clock.took("witness")
     conditioned = _conditioned_tp_step(mesh, opt, cfg, MLA_BATCH)
     clock.took("conditioned")
     serve, serve_counts = _mla_serve(cfg, mesh)
     clock.took("serve")
+    ep = _ep_step(mesh, cfg, opt, MLA_BATCH, MLA_BATCH * TRAIN_SEQ) \
+        if fsdp else None
+    clock.took("ep")
     geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
                   for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
     every = [None] * dist.get_world_size()
@@ -6128,7 +6358,8 @@ def _mla_job(mesh, out_path, fsdp=False):
         return None
     torch.save(serve, out_path + ".serve.pt")
     return {"backend": dist.get_backend(), "log": log, "fp32": fp32,
-            "conditioned": conditioned, "serve_collectives": serve_counts,
+            "conditioned": conditioned, "ep": ep,
+            "serve_collectives": serve_counts,
             "serve_path": out_path + ".serve.pt",
             "launches_by_rank": [e[0] for e in every],
             "peak_gb_by_rank": [e[1] / 1e9 for e in every],
@@ -6249,6 +6480,13 @@ def _hold_mla_job(smi, phase, mesh_shape, r, one, fsdp):
         assert set(sgot) == set(swant) and all(
             abs(sgot[k] - swant[k]) <= n for k in sgot), (i, sgot, swant)
         serve_bytes.append(sgot)
+    by_path = {f"{phase} {mesh_shape}": launches}
+    if r["ep"] is not None:
+        # the train step's geometry, whose kernels are held above
+        assert r["ep"]["geometries_by_rank"] == r["geometries_by_rank"], r
+        by_path.update(_hold_ep(smi, f"{phase}_ep", r["ep"], cfg, mesh_shape,
+                                MLA_BATCH, MLA_BATCH * TRAIN_SEQ, 435,
+                                results, kernels=False))
     # a step after the first: the train's own, or the conditioned step
     steady = [statistics.mean(x[1:]) for x in r["step_ms_by_rank"]] \
         if steps > 1 else [cond["tp"]["step_ms"]]
@@ -6260,7 +6498,9 @@ def _hold_mla_job(smi, phase, mesh_shape, r, one, fsdp):
          first_step_rel=rel, conditioned=cond, conditioned_rel=cond_rel,
          fp32_witness=r["fp32"], fp32_rel=fp32_rel, fp32_flips=flips,
          fp32_limit=TP_FP32_REL,
-         witness_cut={**dict(MLA_WITNESS_CUT), "seq_len": WITNESS_SEQ},
+         witness_cut={**dict(MLA_WITNESS_CUT), "seq_len": WITNESS_SEQ,
+                      **({"DENSE_PATH_MAX_TOKENS": MLA_BATCH * WITNESS_SEQ}
+                         if fsdp else {})},
          witness_peak_gb_by_rank=r["witness_peak_gb_by_rank"],
          drops_by_rank=r["drops_by_rank"], drops=drops,
          one_device_drops=one["drops"], launches=launches,
@@ -6278,7 +6518,7 @@ def _hold_mla_job(smi, phase, mesh_shape, r, one, fsdp):
          one_device_step_ms=one["step_ms"],
          one_device_peak_gb=one["peak_gb"], part_seconds=r["part_s"],
          seconds=r["seconds"])
-    return {f"{phase} {mesh_shape}": launches}
+    return by_path
 
 
 def _mla_phase(smi, phase, mesh_shape, spawned, one, fsdp):

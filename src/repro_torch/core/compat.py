@@ -49,7 +49,15 @@ those tensors whole. **Local axes.** A mesh may declare axes local
 (``ProcessMesh.with_local``; the trainer declares its batch axes): outside
 a body a tensor on a rank is already its own block along them, so
 :func:`shard_map` neither cuts nor gathers along them, forward or
-backward. Outside a body, :func:`pmean_in_place` averages tensors over
+backward. **Held inputs.** An in_spec of the class :class:`Held` says
+the same for one input along the axes it names: on a process mesh the
+rank passes its own block along them (a tensor-parallel rank's block of
+an expert table), which is neither cut nor gathered there, and whose
+gradient is the block's own (not summed over those axes, as a replicated
+input's would be); on the stacked route the caller passes the whole
+tensor and the spec cuts it as a :class:`PartitionSpec` would, so both
+routes compute the same thing. Outside a body, :func:`pmean_in_place`
+averages tensors over
 axes in place (the data-parallel step's gradient mean), and Megatron's
 two operators split a product over the ``model`` axis (the
 tensor-parallel step): :func:`copy_to` (identity forward, the cotangent
@@ -59,11 +67,17 @@ split by rows; :func:`reduce_over` and :func:`gather_over` all-reduce and
 all-gather a tensor outside autograd (the vocab-parallel cross-entropy's
 terms, the serve steps' logits), :func:`gather_from` is FSDP's
 gather of a parameter's blocks (an all-gather forward, a reduce-scatter
-of the cotangent backward), and :func:`gather_blocks` gathers each
-rank's rows of a small tensor (the MoE dispatch's per-expert counts).
+of the cotangent backward), :func:`gather_blocks` gathers each
+rank's rows of a small tensor (the MoE dispatch's per-expert counts), and
+:func:`all_to_all_over` re-lays a tensor's blocks from one dimension to
+another (an expert table's FFN block as its block of experts).
 On the stacked route, whose one device holds what every rank holds,
 :func:`copy_to`, :func:`reduce_from` and :func:`gather_blocks` move
-nothing and count what the ranks would move.
+nothing and count what the ranks would move; under a count of the step
+(``core.step_analysis``), an input that a body's in_spec splits over
+``model`` along another dimension than the parameter's own spec splits
+it is re-laid by a counted all-to-all, forward and backward, as a
+partitioner reshards it (``step_analysis.relaid_bytes``).
 
 **Counts.** Each collective adds one to ``CALLS[kind]`` and, to
 ``BYTES[kind]``, the bytes that a real mesh moves over its links for that
@@ -261,6 +275,17 @@ def stack_shape() -> tuple:
     """The leading dimensions of every stack in the running body: the mesh
     axes' sizes, in mesh order (each 1 on a process)."""
     return _axes().stack
+
+
+def stack_devices() -> list:
+    """The row-major indices over the mesh's axes of the devices whose
+    stacks the running body holds: every device on the stacked route (in
+    the order of the stacks' leading dimensions, flattened), the rank's
+    own on a process."""
+    ax = _axes()
+    if ax.proc:
+        return [ax.proc.block(ax.names)]
+    return list(range(ax.n_dev))
 
 
 def _count(kind: str, nbytes: float):
@@ -708,6 +733,67 @@ def gather_from(x, mesh: ProcessMesh, axes, dim: int):
     return _GatherFrom.apply(x, mesh, axes, dim)
 
 
+def _blocks_over(x, n: int, split_dim: int, concat_dim: int, group):
+    """``x`` cut into ``n`` blocks along ``split_dim``, block ``j`` sent
+    to the group's rank ``j``, the blocks received concatenated along
+    ``concat_dim`` in the group's rank order."""
+    parts = torch.stack(x.chunk(n, dim=split_dim))
+    return torch.cat(_all_to_all(parts, group, n).unbind(0), dim=concat_dim)
+
+
+class _AllToAllOver(torch.autograd.Function):
+    """:func:`all_to_all_over` forward; the inverse re-lay of the cotangent
+    backward, counted as :func:`all_to_all`'s backward counts."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        group, n = _ring(mesh, axis)
+        ctx.plan = group, n, split_dim, concat_dim
+        nbytes = (n - 1) / n * x.numel() * x.element_size()
+        ctx.nbytes = nbytes
+        _count("all_to_all", nbytes)
+        return _blocks_over(x, n, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split_dim, concat_dim = ctx.plan
+        _count_backward("all_to_all", ctx.nbytes)
+        return _blocks_over(g, n, concat_dim, split_dim, group), None, \
+            None, None, None
+
+
+def all_to_all_over(x, mesh: ProcessMesh, axis: str, split_dim: int,
+                    concat_dim: int):
+    """Outside a body, on a process mesh: the group over ``axis`` re-lays
+    ``x`` (each rank's block of a tensor cut along ``concat_dim``) as each
+    rank's block of the same tensor cut along ``split_dim``: ``x`` cut into
+    n blocks along ``split_dim``, block ``j`` to the group's rank ``j``,
+    the blocks received concatenated along ``concat_dim`` in rank order
+    (one ``all_to_all_single``). Its backward re-lays the cotangent back.
+    Counted as :func:`all_to_all` counts a call on a process, forward and
+    backward (each rank sends ``(n-1)/n`` of its block). A group of one
+    is the identity both ways and counts nothing."""
+    if _ring(mesh, axis)[1] == 1:
+        return x
+    return _AllToAllOver.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+class _Relaid(torch.autograd.Function):
+    """The stacked route's re-lay of a body's input under a count: the
+    identity both ways, an all-to-all counted forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, nbytes):
+        _count("all_to_all", nbytes)
+        ctx.nbytes = nbytes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count_backward("all_to_all", ctx.nbytes)
+        return g, None
+
+
 def _max_back(g, dims, x, y):
     # autograd's backward of ``.expand`` after ``amax``: the cotangent
     # summed over the expanded dimensions, split evenly among the ties
@@ -780,6 +866,17 @@ def all_gather(x, axis: str):
 # ---------------------------------------------------------------------------
 
 
+class Held(PartitionSpec):
+    """An in_spec of :func:`shard_map` whose input a process mesh's rank
+    holds already as its block along the axes the spec names (see the
+    module's docstring): there the input is taken as it is along them,
+    and its gradient is the block's own; on the stacked route it is a
+    :class:`PartitionSpec`, cutting the whole tensor the caller passes."""
+
+    def __repr__(self):
+        return f"Held{tuple.__repr__(self)}"
+
+
 def _spec_of(spec, ndim: int, what: str) -> tuple:
     spec = tuple(spec) if spec is not None else ()
     if len(spec) > ndim:
@@ -836,6 +933,17 @@ def split(x, spec, mesh, fname: str = "f", i: int = 0):
     perm = [missing.index(a) if a in missing else at[a] + off for a in names]
     v = v.permute(perm + [p + off for p in local])
     return v.expand(sizes + tuple(v.shape[len(names):]))
+
+
+def _split_stacked(x, spec, mesh, fname, i):
+    """:func:`split` of a body's input on the stacked route; under a count
+    of the step, re-laid by a counted all-to-all where the spec splits it
+    over ``model`` along another dimension than its parameter's spec
+    (``step_analysis.relaid_bytes``)."""
+    v = split(x, spec, mesh, fname, i)
+    nbytes = step_analysis.relaid_bytes(
+        x, _spec_of(spec, x.dim(), f"in_specs[{i}]"))
+    return _Relaid.apply(v, nbytes) if nbytes else v
 
 
 def merge(v, spec, mesh):
@@ -983,6 +1091,9 @@ def _split_process(x, spec, mesh, fname, i, chain):
     """The rank's block of a global tensor, shaped ``(1,) * len(axes) +
     local shape``, threaded on ``chain``."""
     entries = _spec_of(spec, x.dim(), f"in_specs[{i}]")
+    if isinstance(spec, Held):
+        mesh = mesh.with_local(tuple(dict.fromkeys(
+            mesh.local + tuple(a for e in entries for a in entry_axes(e)))))
     cut, cut_axes, repl = _layout(entries, mesh, f"in_specs[{i}]")
     block_shape = []
     for dim, axes in enumerate(cut):
@@ -1059,7 +1170,7 @@ def shard_map(f, *, mesh, in_specs, out_specs):
             cut = functools.partial(_split_process, chain=ax.chain)
             glue = functools.partial(_merge_process, chain=ax.chain)
         else:
-            cut, glue = split, merge
+            cut, glue = _split_stacked, merge
         stacks = tuple(
             _map(lambda s, x, i=i: cut(x, s, mesh, fname, i), spec, a)
             for i, (spec, a) in enumerate(zip(in_specs, args)))

@@ -228,6 +228,36 @@ def short(term: str, axis: Optional[str] = None):
             run.stats.count_short.add(term)
 
 
+def relaid_bytes(t, entries) -> float:
+    """A body's input ``t`` that the stacked route's ``shard_map`` splits by
+    ``entries`` (one tuple of axes a dimension): where ``t`` is a
+    parameter (a view or a cast of one) whose spec splits it over
+    ``model`` along one dimension and ``entries`` along another, the
+    bytes, summed over the devices, of the all-to-all by which a
+    partitioner re-lays each device's block (an expert table's FFN block
+    as its block of experts): 0 where the layouts agree, outside
+    :func:`analyze`, and for any other reshard, which is recorded as
+    known short (:func:`short`)."""
+    if not _RUNS:
+        return 0.0
+    run = _RUNS[-1]
+    k = _key(t)
+    tags = run.tags.get(t)
+    if tags is None or (k not in run.params and run._cast_of(k) is None):
+        return 0.0
+    have = [d for d, tag in enumerate(tags) if MODEL_AXIS in _axes(tag)]
+    want = [d for d, e in enumerate(entries) if MODEL_AXIS in entry_axes(e)]
+    m = run.sizes.get(MODEL_AXIS, 1)
+    if have == want or m == 1:
+        return 0.0
+    if len(have) == len(want) == 1 and tags[have[0]] == {(MODEL_AXIS, 1)} \
+            and t.shape[want[0]] % m == 0:
+        return run.n * _nbytes(t) / m * (m - 1) / m
+    short(f"collective: a body's input resharded from model on dimensions "
+          f"{have} to {want}", MODEL_AXIS)
+    return 0.0
+
+
 def check_launch(what: str):
     """Called where a CUDA kernel is launched: under :func:`analyze` a
     launch outside :func:`kernel` would go uncounted, so it raises."""

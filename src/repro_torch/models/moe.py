@@ -16,9 +16,15 @@
 2. ``moe_ep_shard_map``: expert parallelism — experts sharded over the
    mesh's ``model`` (lane) axis, tokens over every axis, moved to the lane
    that owns their expert by ``all_to_all``, computed there and moved back,
-   strip-mined in chunks of ``EP_CHUNK_TOKENS``. The mesh is held as tensor
-   dimensions on one device (``core/compat.py``): three counted
-   ``all_to_all`` calls a chunk.
+   strip-mined in chunks of ``EP_CHUNK_TOKENS``: three counted
+   ``all_to_all`` calls a chunk. The mesh is held as tensor dimensions on
+   one device, or is a mesh of processes (``core/compat.py``), on which
+   each rank passes its own block of the experts (``compat.Held``):
+   deepseek-v3-671b's ``experts`` block (under FSDP, gathered over data),
+   or granite-moe-3b-a800m's ``experts_ffn`` blocks re-laid as ``experts``
+   blocks by an all-to-all (``models.sharding.relay_experts``), as the
+   reference's partitioner reshards them; the tokens are the rank's rows
+   where the batch axes are local (the train step), cut over ``model``.
 
 Both return a Switch-style load-balance aux loss beside the output.
 DeepSeek-V3's sigmoid+bias aux-free router is approximated by this
@@ -38,7 +44,8 @@ from repro_torch.core import compat, step_analysis
 from repro_torch.core.compat import PartitionSpec as PS
 from repro_torch.models.layers import P, activation_fn
 from repro_torch.models.mlp import mlp
-from repro_torch.models.sharding import MeshCtx, around_split, held_experts
+from repro_torch.models.sharding import (MeshCtx, around_split, held_experts,
+                                         relay_experts)
 
 DENSE_PATH_MAX_TOKENS = 16384   # below this, one-hot dispatch is cheaper
 EXPERT_TABLES = ("w_gate", "w_up", "w_down")   # a row per (padded) expert
@@ -50,15 +57,20 @@ DISPATCH_LOG: Optional[list] = None
 
 
 class Dispatch(NamedTuple):
-    """One one-hot dispatch of :data:`DISPATCH_LOG`: the int count of
-    token-choice pairs of the tokens it held, a 0-d device tensor of
-    those that found a slot (the rest are dropped), the (T, k) expert ids
-    those tokens chose (in token order) and the group's slots an
-    expert."""
+    """One dispatch of :data:`DISPATCH_LOG`: the int count of token-choice
+    pairs of the tokens it held, a 0-d device tensor of those that found a
+    slot (the rest are dropped), the (T, k) expert ids those tokens chose
+    (in token order) and the group's slots an expert. ``device``: None
+    for a one-hot dispatch; on the expert-parallel route, one dispatch a
+    device a chunk, the device's row-major index on the mesh: its pairs
+    less those it dropped, both its own pairs that found no slot to their
+    lane (``keep``, of ``cap_send`` slots, the capacity) and the rows it
+    received that found no slot of their expert (``keep2``)."""
     pairs: int
     kept: torch.Tensor
     ids: torch.Tensor
     capacity: int
+    device: Optional[int] = None
 
 
 def dropped_pairs(log) -> int:
@@ -409,9 +421,10 @@ def _ep_device_fn(cfg: ArchConfig, n_lanes: int, model_axis: str,
 
         send = xs.new_zeros((n_dev, n_lanes, cap_send + 1, d))
         send[row, dest, pos_c] = xc[:, pair_tok]
+        # int32 expert tags, as the reference's; e_loc: an empty slot
         send_e = torch.full((n_dev, n_lanes, cap_send + 1), e_loc,
-                            dtype=torch.int64, device=dev)   # e_loc: empty
-        send_e[row, dest, pos_c] = local_e
+                            dtype=torch.int32, device=dev)
+        send_e[row, dest, pos_c] = local_e.to(torch.int32)
 
         recv = compat.all_to_all(
             send[:, :, :cap_send].reshape(lead + (n_lanes, cap_send, d)),
@@ -422,11 +435,18 @@ def _ep_device_fn(cfg: ArchConfig, n_lanes: int, model_axis: str,
 
         pr = n_lanes * cap_send
         xr = recv.reshape(n_dev, pr, d)
-        er = recv_e.reshape(n_dev, pr)
+        er = recv_e.reshape(n_dev, pr).long()
         real = er < e_loc
         e_oh = _one_hot(er, e_loc)            # an empty slot's row: zeros
         pos2 = torch.sum(e_oh * (torch.cumsum(e_oh, dim=1) - e_oh), dim=-1)
         keep2 = (pos2 < cap_local) & real
+        if DISPATCH_LOG is not None \
+                and torch._C._current_autograd_node() is None:
+            kept = keep.sum(-1) - real.sum(-1) + keep2.sum(-1)
+            for i, device in enumerate(compat.stack_devices()):
+                DISPATCH_LOG.append(Dispatch(pairs, kept[i],
+                                             ids[i, sl].detach(), cap_send,
+                                             device))
         pos2_c = torch.where(keep2, pos2, cap_local)
         er = torch.where(real, er, 0)         # empties -> a scratch row
 
@@ -454,18 +474,27 @@ def _ep_device_fn(cfg: ArchConfig, n_lanes: int, model_axis: str,
 
 
 def moe_ep_shard_map(cfg: ArchConfig, p: dict, x_tokens, ctx: MeshCtx,
-                     held: bool = False):
+                     tp=None):
     """x_tokens (T, d) -> (T, d), aux. Experts sharded over the lane axis;
     tokens over every mesh axis (lanes included) so routing work is not
     duplicated. A token count or expert table that the mesh does not
     divide raises ``ValueError`` (``moe_block``'s gate never sends one).
-    ``held``: ``p``'s expert tables are already the rank's lane block (a
-    tensor-parallel rank of a process mesh), taken as they are."""
+    ``tp``: the rank's ``models.sharding.TensorParallel`` on a process
+    mesh, where ``p`` holds the rank's blocks: its block of the experts
+    (``expert_parallel``), or of each expert's FFN, which is first re-laid
+    as its block of the experts (``models.sharding.relay_experts``); the
+    body takes either as it is (``compat.Held``). None: ``p``'s tables are
+    whole, cut by the in_spec (the stacked route: under a count of the
+    step, an FFN split of the tables is re-laid there by a counted
+    all-to-all, as the ranks re-lay it). The router is whole on every
+    rank."""
     mesh = ctx.mesh
     all_axes = tuple(mesh.axis_names)
     fn = functools.partial(_ep_device_fn, cfg, ctx.n_lanes, ctx.model_axis,
                            all_axes)
-    lane = PS(None if held else ctx.model_axis, None, None)
+    if tp is not None and not cfg.moe.expert_parallel:
+        p = relay_experts(p, tp)
+    lane = (PS if tp is None else compat.Held)(ctx.model_axis, None, None)
     y, aux = compat.shard_map(
         fn, mesh=mesh,
         in_specs=(PS(all_axes, None), PS(None, None), lane, lane, lane),
@@ -479,59 +508,50 @@ def moe_ep_shard_map(cfg: ArchConfig, p: dict, x_tokens, ctx: MeshCtx,
 # ---------------------------------------------------------------------------
 
 
+def global_tokens(ctx: Optional[MeshCtx], rows: int, seq: int) -> int:
+    """The global batch's tokens of ``rows`` x ``seq`` tokens held here
+    (:func:`row_blocks`: on a process mesh whose batch axes are local, the
+    rank's rows of it)."""
+    _, _, n, held = row_blocks(ctx, rows)
+    return rows * seq * n // held
+
+
+def ep_route(cfg: ArchConfig, ctx: Optional[MeshCtx], n_tokens: int) -> bool:
+    """The reference's gate: whether ``n_tokens`` tokens of the global
+    batch take the expert-parallel route on ``ctx`` (a mesh of more than
+    one lane whose lanes divide the (padded) experts, at least
+    ``DENSE_PATH_MAX_TOKENS`` tokens, and a token count that the mesh
+    divides)."""
+    if ctx is None or ctx.mesh is None or ctx.n_lanes <= 1:
+        return False
+    m = cfg.moe
+    n_dev = math.prod(ctx.axis_sizes.values())
+    return (m.expert_parallel or m.pad_experts_to > 0) \
+        and m.n_experts_padded % ctx.n_lanes == 0 \
+        and n_tokens >= DENSE_PATH_MAX_TOKENS and n_tokens % n_dev == 0
+
+
 def moe_block(cfg: ArchConfig, p: dict, x, ctx: Optional[MeshCtx] = None,
               tp=None):
-    """x (B,S,d) -> (B,S,d), aux_loss. The reference's gate: the
-    expert-parallel route under a mesh of more than one lane whose lanes
-    divide the (padded) experts, for at least ``DENSE_PATH_MAX_TOKENS``
-    tokens of the global batch that the mesh divides; the one-hot dispatch
-    otherwise (on a process mesh whose batch axes are local, the rank's
-    rows of the global batch: see :func:`moe_dense_dispatch`). The shared
-    experts, where the config has them, are one gated-SiLU MLP added to
-    every token (SiLU whatever ``cfg.activation`` is, as in the
-    reference). ``tp``: the rank's ``models.sharding.TensorParallel`` (its
-    blocks of ``p``), or None. On a process mesh the expert-parallel route
-    serves with the rank's block of the experts where the model axis
-    splits them (``expert_parallel``) and the rank holds the whole batch;
-    it raises ``NotImplementedError`` in training where the rank holds
-    blocks of the expert tables or of the batch, and in serving where it
-    holds blocks of the experts' FFN or of the batch. Under FSDP ``p``
-    holds what the forward gathered (``models.transformer.forward``): the
-    rank's ``model`` block of each leaf, of the expert tables the live
-    experts' rows."""
-    m = cfg.moe
+    """x (B,S,d) -> (B,S,d), aux_loss. The expert-parallel route where
+    :func:`ep_route` takes it for the global batch's tokens; the one-hot
+    dispatch otherwise (on a process mesh whose batch axes are local, the
+    rank's rows of the global batch: see :func:`moe_dense_dispatch`). The
+    shared experts, where the config has them, are one gated-SiLU MLP
+    added to every token (SiLU whatever ``cfg.activation`` is, as in the
+    reference). ``tp``: the rank's ``models.sharding.TensorParallel``
+    (its blocks of ``p``), or None. On a process mesh the expert-parallel
+    route runs, in training and in serving, on the rank's tokens (its
+    rows of the batch where the batch axes are local, else the global
+    batch's) and its block of the experts (:func:`moe_ep_shard_map`).
+    Under FSDP ``p`` holds what the forward gathered
+    (``models.transformer.forward``): the rank's ``model`` block of each
+    leaf, of the expert tables the live experts' rows on the one-hot
+    dispatch and every row on the expert-parallel route."""
     b, s, d = x.shape
     x_tokens = x.reshape(b * s, d)
-    blocks = row_blocks(ctx, b)
-    n_tokens = b * s * blocks[2] // blocks[3]       # the global batch's
-    n_dev = math.prod(ctx.axis_sizes.values()) if ctx and ctx.mesh else 1
-    ep_capable = m.expert_parallel or m.pad_experts_to > 0
-    use_ep = (
-        ctx is not None and ctx.mesh is not None and ep_capable
-        and m.n_experts_padded % max(ctx.n_lanes, 1) == 0 and ctx.n_lanes > 1
-        and n_tokens >= DENSE_PATH_MAX_TOKENS
-        and n_tokens % n_dev == 0 and n_tokens // n_dev >= 1
-    )
-    held = use_ep and tp is not None and m.expert_parallel
-    if use_ep and compat.is_process_mesh(ctx.mesh) \
-            and (tp is not None or blocks[2] > 1):
-        train = torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, p["router"], p["w_gate"]))
-        if train or not held or blocks[2] > 1:
-            why = ""
-            if not m.expert_parallel:
-                why = ", which needs each rank's experts_ffn blocks " \
-                      "re-laid as experts blocks"
-            elif blocks[2] > 1 and not train:
-                why = ", which needs the data ranks' rows gathered"
-            raise NotImplementedError(
-                f"{cfg.name} on a process mesh: {n_tokens} tokens at "
-                f"{ctx.model_axis}={ctx.n_lanes} take the expert-parallel "
-                f"route{why}; the EP route in "
-                f"{'training' if train else 'serving'} over processes "
-                f"(ROADMAP Queue A, A13c item 2.3b) is not ported")
-    if use_ep:
-        y, aux = moe_ep_shard_map(cfg, p, x_tokens, ctx, held)
+    if ep_route(cfg, ctx, global_tokens(ctx, b, s)):
+        y, aux = moe_ep_shard_map(cfg, p, x_tokens, ctx, tp)
     else:
         y, aux = moe_dense_dispatch(cfg, p, x_tokens, ctx=ctx, rows=b,
                                     tp=tp)

@@ -269,13 +269,34 @@ def held_experts(cfg: ArchConfig, tp: Optional[TensorParallel]) -> range:
     """The global indices of the live experts among the rows of a rank's
     expert tables: the first ``n_experts`` of the (padded) tables, or, on
     a rank whose model axis splits the experts (``expert_parallel`` under
-    ``tp``), the live ones of its block."""
+    ``tp``), the live ones of its block. The one-hot dispatch reads these
+    rows alone; the expert-parallel route reads every row of a rank's
+    block of the experts (held, or re-laid by :func:`relay_experts`)."""
     m = cfg.moe
     n_local, start = m.n_experts_padded, 0
     if tp is not None and m.expert_parallel:
         n_local = m.n_experts_padded // tp.size
         start = tp.start(n_local)
     return range(start, max(start, min(start + n_local, m.n_experts)))
+
+
+# the dimension of each expert table that ``experts_ffn`` names
+# (``models.moe.moe_template``)
+EXPERT_FFN_DIMS = {"w_gate": 2, "w_up": 2, "w_down": 1}
+
+
+def relay_experts(p: dict, tp: TensorParallel) -> dict:
+    """``p`` (a MoE layer's parameters on a tensor-parallel rank whose
+    model axis splits each expert's FFN: ``(E_pad, d, f/m)`` of ``w_gate``
+    and ``w_up``, ``(E_pad, f/m, d)`` of ``w_down``) with those tables
+    re-laid as the rank's block of the experts, whole: ``(E_pad/m, d,
+    f)`` and ``(E_pad/m, f, d)``, the layout the expert-parallel body
+    takes (``models.moe.moe_ep_shard_map``), as the reference's
+    partitioner reshards them for its in_spec. One all-to-all a table
+    over ``model`` (``core.compat.all_to_all_over``), counted; its
+    backward re-lays the gradient back to the rank's FFN block."""
+    return dict(p, **{k: compat.all_to_all_over(p[k], tp.mesh, tp.axis, 0, d)
+                      for k, d in EXPERT_FFN_DIMS.items()})
 
 
 def vocab_split(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
@@ -290,7 +311,9 @@ def _tp_family(cfg: ArchConfig) -> bool:
     axis splits its experts' FFN (``expert_parallel=False``: each expert's
     FFN split as the dense FFN) or its experts (``expert_parallel=True``:
     each rank the block of experts the reference's rules give it), on the
-    one-hot dispatch (``models.moe.moe_block`` refuses the EP route)."""
+    one-hot dispatch or the expert-parallel route (``models.moe.
+    moe_block``: there each rank runs its block of the experts, held or
+    re-laid by :func:`relay_experts`)."""
     return cfg.family in ("dense", "moe")
 
 

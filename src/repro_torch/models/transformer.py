@@ -41,15 +41,18 @@ its vocab block of the embedding, masked and all-reduced; the attention
 heads (GQA's, or MLA's over the whole latent cache), the FFN columns, the
 experts or each expert's FFN columns (``moe.moe_dense_dispatch``) and the
 head's vocab columns of its own, between Megatron's ``copy_to`` /
-``reduce_from``; the logits its vocab block of them, and the
-cross-entropy vocab-parallel (:func:`_ce`), the MTP module's too. Where
+``reduce_from`` (on the expert-parallel route the rank's block of the
+experts, held or re-laid: ``moe.moe_ep_shard_map``); the logits its
+vocab block of them, and the cross-entropy vocab-parallel (:func:`_ce`),
+the MTP module's too. Where
 the axis does not divide the vocab, the rank holds the table whole and
 the lookup, the head and the cross-entropy are unsplit. Under FSDP
 (``models.sharding.fsdp_split``: ``cfg.fsdp`` on such a mesh with batch
 axes above 1) the dense and the MoE families' parameters are the rank's
 blocks over the batch axes as well: each layer (a MoE layer's attention,
-norms, router, the live rows of its expert tables and its shared expert
-too) gathers its leaves inside the function that its checkpoint wraps
+norms, router, the live rows of its expert tables, or every row on the
+expert-parallel route, and its shared expert too) gathers its leaves
+inside the function that its checkpoint wraps
 (so the recompute gathers them again) and casts them to the compute
 dtype after the gather (the router keeps its stored dtype: it routes in
 fp32); without a checkpoint the layer runs under ``Fsdp.regather``, so
@@ -79,7 +82,8 @@ from repro_torch.models.attention import (checkpointed, cross_attention,
 from repro_torch.models.layers import (P, rms_norm, tree_leaves, tree_map,
                                        widen)
 from repro_torch.models.mlp import mlp, mlp_template
-from repro_torch.models.moe import EXPERT_TABLES, moe_block, moe_template
+from repro_torch.models.moe import (EXPERT_TABLES, ep_route, global_tokens,
+                                    moe_block, moe_template)
 from repro_torch.models.sharding import (check_fsdp, check_tensor_parallel,
                                          fsdp_split, held_experts,
                                          tensor_parallel, vocab_split)
@@ -392,15 +396,20 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         return dense_block(cfg, gathered(p, specs), x, positions, cache=c,
                            memory=memory, tp=tp)[0]
 
+    # the MoE layers' route (moe.moe_block's gate, on the global batch)
+    ep = cfg.is_moe and ep_route(cfg, mesh_ctx,
+                                 global_tokens(mesh_ctx, b, s))
+
     def moe_params(p):
         """A MoE layer's parameters: under FSDP its blocks gathered, of the
-        expert tables the live experts' rows alone (the dispatch reads no
-        other row of a padded table), cast to the compute dtype but the
-        router, which routes in fp32 whatever that is (``moe._topk``)."""
+        expert tables on the one-hot dispatch the live experts' rows alone
+        (it reads no other row of a padded table; the expert-parallel
+        route reads every row), cast to the compute dtype but the router,
+        which routes in fp32 whatever that is (``moe._topk``)."""
         if fs is None:
             return p
         specs = fs.specs["layers"]
-        live = len(held_experts(cfg, tp))
+        live = None if ep else len(held_experts(cfg, tp))
         rest = {k: v[:live] if k in EXPERT_TABLES else v
                 for k, v in p["moe"].items() if k != "router"}
         out = gathered(dict(p, moe=rest), specs)

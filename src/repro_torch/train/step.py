@@ -44,14 +44,18 @@ global batch's (``models.moe.moe_dense_dispatch`` gathers the ranks'
 per-expert counts), its experts' FFN (granite-moe-3b-a800m) or its
 experts (deepseek-v3-671b, ``expert_parallel``) split over ``model``,
 MLA's heads too, and the mean moves the live experts of a padded table
-alone (:func:`live_slices`); with ``cfg.fsdp`` (deepseek-v3-671b as
-configured) its steps are FSDP as the dense family's, each MoE layer
-gathering the rank's ``model`` block of its leaves (of a padded expert
-table, the live experts' rows alone), the MTP module its own. FSDP of
-the other families, the SSM, hybrid, vision and encoder-decoder families
-at ``model > 1``, a MoE step in micro-batches over data and MoE's
-expert-parallel route raise ``NotImplementedError`` naming their queue
-item.
+alone (:func:`live_slices`); at or above the reference's gate its MoE
+layers take the expert-parallel route, as the reference's do
+(``models.moe.moe_block``: tokens over every axis, each rank on its
+block of the experts, held or re-laid from its block of their FFN), and
+the mean moves every padded slot (:func:`takes_ep`); with ``cfg.fsdp``
+(deepseek-v3-671b as configured) its steps are FSDP as the dense
+family's, each MoE layer gathering the rank's ``model`` block of its
+leaves (of a padded expert table, on the one-hot dispatch, the live
+experts' rows alone), the MTP module its own. FSDP of the other
+families, the SSM, hybrid, vision and encoder-decoder families at
+``model > 1`` and a MoE step in micro-batches over data raise
+``NotImplementedError`` naming their queue item.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
@@ -59,8 +63,9 @@ the frontend's embeddings in the batch. With a stacked mesh, MLA's
 prefill runs its lane-local route (``models.attention.mla_chunked``). On
 a tensor-parallel mesh of processes a dense or MoE model serves with the
 rank's blocks and a cache of its kv heads (MLA: the latent cache whole;
-a GQA cache the reference splits over ``kv_seq`` raises), and the
-returned logits are gathered whole
+a GQA cache the reference splits over ``kv_seq`` raises; a MoE
+model's layers on the expert-parallel route at or above the gate), and
+the returned logits are gathered whole
 (``models.transformer.last_logits``). Under FSDP each rank serves its
 rows of the batch (the batch axes are its own, as in training: a MoE
 model's one dispatch group spans the ranks) with a cache of those rows,
@@ -83,7 +88,7 @@ from repro_torch.core.compat import entry_axes
 from repro_torch.core.precision import torch_dtype
 from repro_torch.core.stripmine import stripmined_grads
 from repro_torch.models import transformer as tf
-from repro_torch.models.moe import EXPERT_TABLES
+from repro_torch.models.moe import EXPERT_TABLES, ep_route, global_tokens
 from repro_torch.models.layers import (P, abstract_params, param_specs,
                                        tree_leaves, tree_map,
                                        value_and_grad)
@@ -212,15 +217,15 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
 def _check_process_route(cfg: ArchConfig, ctx: MeshCtx, grad_accum: int):
     """What the process route trains: the data-parallel step of every
     family, and the dense and the MoE families' tensor-parallel step
-    (``model > 1``; MLA's heads, the experts or their FFN split over it)
-    and FSDP step (``fsdp=True``; every embed, q_lora and kv_lora
-    dimension over the batch axes too). Anything else raises
-    ``NotImplementedError`` naming its queue item (FSDP of the other
-    families; MoE's EP route in training raises in
-    ``models.moe.moe_block``), as does a MoE model's step in micro-batches
-    over batch axes above 1: a rank's micro-batch holds other global rows
-    than the one-device step's, and the dispatch group and the aux loss
-    couple them."""
+    (``model > 1``; MLA's heads, the experts or their FFN split over it,
+    on the one-hot dispatch or the expert-parallel route) and FSDP step
+    (``fsdp=True``; every embed, q_lora and kv_lora dimension over the
+    batch axes too). Anything else raises ``NotImplementedError`` naming
+    its queue item (FSDP of the other families), as does a MoE model's
+    step in micro-batches over batch axes above 1, on either route: a
+    rank's micro-batch holds other global rows than the one-device
+    step's, and the dispatch group (or the expert-parallel route's lanes)
+    and the aux loss couple them."""
     check_fsdp(cfg, ctx)
     check_tensor_parallel(cfg, ctx, train=True)
     n = math.prod(ctx.axis_sizes[a] for a in ctx.batch_axes
@@ -235,7 +240,7 @@ def _check_process_route(cfg: ArchConfig, ctx: MeshCtx, grad_accum: int):
             f"ported")
 
 
-def live_slices(cfg: ArchConfig, tree, tp=None) -> dict:
+def live_slices(cfg: ArchConfig, tree, tp=None, ep: bool = False) -> dict:
     """A tree over ``tree`` (the parameters or their gradients, global or,
     with ``tp``, a tensor-parallel rank's blocks): the index of each
     leaf's extent that the step reads, or None where it reads the leaf
@@ -243,14 +248,27 @@ def live_slices(cfg: ArchConfig, tree, tp=None) -> dict:
     (``models.moe``; where the model axis splits the experts, those of the
     rank's block); the other slots' gradients are identically zero, so the
     data-parallel mean moves the live ones alone, as the dry run's count
-    and the reference's partitioner reduce them."""
+    and the reference's partitioner reduce them. With ``ep`` (the step's
+    MoE layers take the expert-parallel route, :func:`takes_ep`), which
+    reads every padded slot: every leaf whole."""
     live = tree_map(lambda _: None, tree)
     m = cfg.moe
-    if cfg.is_moe and m.n_experts_padded > m.n_experts:
+    if cfg.is_moe and m.n_experts_padded > m.n_experts and not ep:
         held = slice(0, len(held_experts(cfg, tp)))
         for k in EXPERT_TABLES:
             live["layers"]["moe"][k] = (slice(None), held)
     return live
+
+
+def takes_ep(cfg: ArchConfig, ctx: MeshCtx, tokens,
+             grad_accum: int = 1) -> bool:
+    """Whether a step of ``cfg`` on ``tokens`` (the batch's, a process
+    mesh's rank's rows where its batch axes are local) in ``grad_accum``
+    micro-batches takes the expert-parallel route in its MoE layers
+    (``models.moe.ep_route`` on the global micro-batch)."""
+    rows, seq = tokens.shape
+    return cfg.is_moe and ep_route(cfg, ctx, global_tokens(
+        ctx, rows // grad_accum, seq))
 
 
 def cut_axes(specs, mesh) -> dict:
@@ -315,10 +333,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
     process = compat.is_process_mesh(ctx.mesh)
     specs = train_state_specs(cfg, ctx)
     abstract = make_train_state_abstract(cfg, opt_cfg)
-    norm = live = None
+    norm = None
     if process:
         _check_process_route(cfg, ctx, grad_accum)
-        live = live_slices(cfg, abstract["params"], tensor_parallel(cfg, ctx))
         ctx = dataclasses.replace(
             ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
     fs = fsdp_split(cfg, ctx)
@@ -345,6 +362,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
         else:
             (loss, metrics), grads = value_and_grad(loss_fn)(params, batch)
         if process:
+            live = live_slices(cfg, grads, tensor_parallel(cfg, ctx),
+                               takes_ep(cfg, ctx, batch["tokens"],
+                                        grad_accum))
             with torch.no_grad():
                 grads, metrics = mean_over_batch(
                     grads, dict(metrics, loss=loss), ctx.mesh,

@@ -9,7 +9,9 @@
   bytes of the train step within 1e-4 on (4,1), (1,4) and (2,2), and FSDP
   at (4,1) and (2,2) pinned at its measured ratio (ROADMAP Queue C);
   every kind of step that the dry run counts on a mesh (``CELLS``: prefill,
-  decode, the MoE, MLA and hybrid train steps), each within 1 % or pinned
+  decode, the MoE, MLA and hybrid train steps, and the expert-parallel
+  route at a gate lowered in both packages, ``GATES``, whose all-to-alls
+  agree exactly), each within 1 % or pinned
   at its measured ratio with its cause, and flagged where its count is
   known short (``count_short``); the inputs' shard bytes against the
   compiled programs' ``argument_size_in_bytes``. The reference's side runs
@@ -24,6 +26,7 @@
   and ``experiments/torch_hillclimb.py``.
 """
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -89,7 +92,14 @@ CELLS = {
     "granite-moe-3b-a800m train 2x2": ("granite-moe-3b-a800m", "train", 2, 2),
     "zamba2-7b train 4x1": ("zamba2-7b", "train", 4, 1),
     "zamba2-7b train 1x4": ("zamba2-7b", "train", 1, 4),
+    # the expert-parallel route, its gate lowered in both packages to the
+    # cell's 512 tokens (GATES): the body's all-to-alls and the re-lay of
+    # the experts' FFN blocks as blocks of the experts
+    "granite-moe-3b-a800m train 2x2 ep": ("granite-moe-3b-a800m", "train",
+                                          2, 2),
 }
+# DENSE_PATH_MAX_TOKENS of a cell where it is not the packages' 16384
+GATES = {"granite-moe-3b-a800m train 2x2 ep": 8 * 64}
 FLOPS_TOL = 0.01
 # tinyllama-1.1b's train step and granite-moe-3b-a800m's on (1,4) within
 # 1e-4: the count derives the cross-entropy's reductions over the
@@ -185,6 +195,17 @@ COLL_PINNED = {
         "(0.50135 / 0.50422 while the replicated leaves' gradients were "
         "all-reduced over model and the cross-entropy's vocab reductions "
         "were not derived)"),
+    "granite-moe-3b-a800m train 2x2 ep": (
+        0.92957, 0.97187,
+        "the expert-parallel route's all-to-alls agree exactly (2,688,256 "
+        "bytes a device: the body's three a MoE layer and its backward's "
+        "two, and the re-lay of the experts' FFN blocks as blocks of the "
+        "experts, forward and backward; test below); the reference's "
+        "partitioner all-gathers the attention's and the embedding's "
+        "weights (360,448), which the port keeps whole, and reduces "
+        "tuples of gradients and activations (3,445,688) where the port "
+        "derives the tensor-parallel activation all-reduces and every "
+        "padded slot's gradient mean (3,348,760)"),
     "2x2 fsdp": (
         0.36775, 0.45062,
         "FSDP on (2,2) (open fault 2 on a second mesh): the port's ranks "
@@ -299,9 +320,12 @@ for key, (d, m, fsdp) in %(meshes)r.items():
     out[key] = compile_cell(dataclasses.replace(cfg, fsdp=fsdp),
                             ShapeConfig("train", 64, 8, "train"),
                             make_mesh(d, m))
+from repro.models import moe as moe_mod
 for key, (a, kind, d, m, *over) in %(cells)r.items():
+    moe_mod.DENSE_PATH_MAX_TOKENS = %(gates)r.get(key, 16384)
     out[key] = compile_cell(reduced(get_config(a), **(over or [{}])[0]),
                             ShapeConfig(kind, 64, 8, kind), make_mesh(d, m))
+moe_mod.DENSE_PATH_MAX_TOKENS = 16384
 # the backward of a shard_map's psum / pmean: the gradient program alone
 from jax.sharding import PartitionSpec as P
 from repro.core.compat import shard_map
@@ -317,7 +341,8 @@ for kind in ("psum", "pmean"):
     out[kind + " backward"] = dict(
         analyze(comp.as_text(), n_devices=4).collective_by_kind)
 print("REF", json.dumps(out))
-''' % {"archs": ARCHS, "kinds": KINDS, "meshes": MESHES, "cells": CELLS}
+''' % {"archs": ARCHS, "kinds": KINDS, "meshes": MESHES, "cells": CELLS,
+       "gates": GATES}
 
 
 @pytest.fixture(scope="module")
@@ -342,11 +367,18 @@ def _cell(key):
         make_mesh(1, 1)
 
 
+@functools.lru_cache(maxsize=None)
 def _count(key, target="cpu"):
     """The port's count of the reference's cell ``key``: the dry run's own
-    ``count_step``, with the host's routes."""
+    ``count_step``, with the host's routes (and the cell's gate); each
+    cell counted once a process (the tests read it)."""
     cfg, shape, mesh = _cell(key)
-    return dryrun.count_step(cfg, shape, mesh, target=target)
+    saved = moe.DENSE_PATH_MAX_TOKENS
+    moe.DENSE_PATH_MAX_TOKENS = GATES.get(key, saved)
+    try:
+        return dryrun.count_step(cfg, shape, mesh, target=target)
+    finally:
+        moe.DENSE_PATH_MAX_TOKENS = saved
 
 
 ONE = [f"{a} {k}" for a in ARCHS for k in KINDS]
@@ -393,6 +425,34 @@ def test_collective_bytes_match_the_reference(ref, key):
                                               "reduce-scatter"}
         assert set(ref[key]["collective_by_kind"]) == {
             "all-gather", "all-reduce", "all-to-all"}
+
+
+@pytest.mark.parametrize("key", list(GATES))
+def test_the_ep_routes_all_to_alls_match_the_reference(ref, key):
+    """At a gate lowered to the cell's tokens in both packages, the
+    expert-parallel route's all-to-all bytes a device equal the
+    reference's exactly, and are the sum of: the body's exchanges a MoE
+    layer (the tokens and their int32 expert ids to their lanes, the
+    outputs back; the backward's inverse of the two float ones) and the
+    re-lay of granite-moe-3b-a800m's three padded tables from their FFN
+    blocks over model to blocks of the experts, forward and backward,
+    which the port derives from the body's in_spec against the tables'
+    specs and the reference's partitioner inserts."""
+    st = _count(key)
+    want = ref[key]["collective_by_kind"]["all-to-all"]
+    assert st.collective_by_kind["all-to-all"] == want, (
+        st.collective_by_kind, ref[key]["collective_by_kind"])
+    cfg, shape, mesh = _cell(key)
+    m, n = mesh.shape["model"], math.prod(mesh.sizes)
+    moved = (m - 1) / m
+    chunk = shape.global_batch * shape.seq_len // n
+    cap_send = max(int(chunk * cfg.moe.top_k * cfg.moe.capacity_factor / m),
+                   cfg.moe.top_k)
+    body = (4 * m * cap_send * cfg.d_model * 4 + m * cap_send * 4) * moved
+    table = cfg.moe.n_experts_padded * cfg.d_model * cfg.moe.expert_d_ff \
+        * 4 / m
+    relay = 2 * 3 * table * moved
+    assert want == cfg.n_layers * (body + relay), (want, body, relay)
 
 
 def test_padded_experts_reduce_the_live_slice_as_the_reference(ref):

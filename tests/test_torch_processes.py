@@ -40,6 +40,12 @@ its serve steps on (1,4); the MoE family under FSDP, reduced
 deepseek-v3-671b as configured on (4,1) and (2,2) (the same checks, and
 remat "none", the gathered leaves freed, the reference's FSDP step) and
 served on (2,2), and granite-moe-3b-a800m's padded tables under FSDP;
+a ``compat.Held`` input's block and its gradient; the expert-parallel
+route over processes (deepseek-v3-671b's experts blocks held on (1,2)
+and, as configured, on (2,2); granite-moe-3b-a800m's FFN blocks re-laid
+on (1,4) and (2,2)) trained against the stacked route's step and served
+against its serve steps, the bytes against the dry run's count, drops,
+a planted fault, what the counts leave out and checkpoints;
 and what the route refuses.
 The reference runs once a session, in ``tests/test_torch_mesh.py``'s
 subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
@@ -47,7 +53,8 @@ against the tensor-parallel step on the same parameters and tokens, and
 its FSDP step against the port's FSDP step, its MoE step on (4,1)
 and (2,2) against the port's MoE step, and its deepseek-v3-671b step on
 (1,4) and (2,2) against the port's MLA step, and with fsdp=True on (4,1)
-and (2,2) against the port's FSDP step. The
+and (2,2) against the port's FSDP step, and on its expert-parallel route
+on (2,2) against the port's. The
 stacked route and the one-device step are held against it in
 ``tests/test_torch_mesh.py``, ``tests/test_torch_pipeline.py`` and
 ``tests/test_torch_train.py``.
@@ -109,7 +116,12 @@ def res(tmp_path_factory):
                 "mla_fsdp_metrics": {(d, m): {k: float(ref[
                     f"step_mla_fsdp_{d}x{m}/m1_{k}"]) for k in (
                         "loss", "ce", "aux", "grad_norm")}
-                    for d, m in pc.MLA_FSDP_MESHES}},
+                    for d, m in pc.MLA_FSDP_MESHES},
+                "moe_ep_params": _tree(ref, "step_moe_ep/params"),
+                "moe_ep_tokens": ref["step_moe_ep/tokens"],
+                "moe_ep_metrics": {k: float(ref[f"step_moe_ep/m1_{k}"])
+                                   for k in ("loss", "ce", "aux",
+                                             "grad_norm")}},
                os.path.join(out, pc.REFERENCE_STEP))
     return pc.spawn(out)
 
@@ -211,9 +223,9 @@ def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
 
 
 def test_what_the_process_route_refuses(res):
-    """A wrong world size, MoE's expert-parallel route in training (also
-    under FSDP), SSM configs at model > 1, a KV cache split over kv_seq, a
-    MoE step in micro-batches over data ranks (also under FSDP), FSDP of
+    """A wrong world size, SSM configs at model > 1, a KV cache split over
+    kv_seq, a MoE step in micro-batches over data ranks (also under FSDP,
+    and on the expert-parallel route), FSDP of
     the hybrid and vision families and of the serving engine (also of a
     MoE model), a collective outside a body, and device "cuda" on the
     gloo group, each with its own text."""
@@ -285,11 +297,11 @@ def test_tensor_parallel_engine_emits_the_same_tokens_on_every_rank(res):
 @pytest.mark.parametrize("key", ["tp_moe", "tp_moe_serve", "tp_mla",
                                  "tp_ssm", "tp_kv_seq"])
 def test_tensor_parallel_refusals_name_their_queue_item(res, key):
-    """On model > 1: MoE's EP route in training (granite-moe-3b-a800m's,
-    and deepseek-v3-671b's as configured, under FSDP), and in serving
-    where the ranks hold blocks of the experts' FFN, SSM configs, and a
-    KV cache that the reference splits over kv_seq, each a
-    NotImplementedError naming its queue item."""
+    """On model > 1: the MoE step on the expert-parallel route in
+    micro-batches over the data ranks of (2,2) (granite-moe-3b-a800m with
+    fsdp=True, deepseek-v3-671b as configured and with fsdp=False), SSM
+    configs, and a KV cache that the reference splits over kv_seq, each
+    a NotImplementedError naming its queue item."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2." in got, got
@@ -593,15 +605,128 @@ def test_moe_fsdp_serve_bytes_equal_the_dry_runs_count(res):
 @pytest.mark.parametrize("key", ["moe", "tp_moe", "tp_moe_serve", "tp_mla",
                                  "moe_accum"])
 def test_moe_refusals_name_item_2_3b(res, key):
-    """What item 2.3b still refuses: deepseek-v3-671b as configured (FSDP)
-    in micro-batches over the data ranks of (4,1) and on its
-    expert-parallel route in training on (2,2), granite-moe-3b-a800m's
-    expert-parallel route in training and in serving (its ranks hold
-    blocks of the experts' FFN) and its step in micro-batches over data
-    ranks: each a NotImplementedError naming item 2.3b."""
+    """What item 2.3b still refuses (slice 4): a MoE step in micro-batches
+    over data ranks, on the one-hot dispatch or the expert-parallel
+    route: deepseek-v3-671b as configured (FSDP) on (4,1) and on (2,2),
+    with fsdp=False on (2,2), granite-moe-3b-a800m on (2,2) and with
+    fsdp=True on (2,2), at a gate that the micro-batch reaches: each a
+    NotImplementedError naming item 2.3b."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2.3b" in got, got
+
+
+@pytest.mark.parametrize("tag", ["(1, 2)", "(2, 2)"])
+def test_a_held_input_keeps_the_ranks_block_and_its_gradient(res, tag):
+    """``compat.Held``: each rank passes its block of rows along model,
+    neither cut nor gathered there; its gradient is the block's own (the
+    stacked route's gradient of the whole tensor, sliced: no sum over
+    model), summed over data where data replicates it."""
+    pc.check_held(_case(res, "held"), tag)
+
+
+@pytest.mark.parametrize("key", list(pc.ep_cases()))
+def test_ep_step_matches_the_stacked_step(res, key):
+    """The expert-parallel route over processes, ``DENSE_PATH_MAX_TOKENS``
+    lowered to the 256 global tokens: reduced deepseek-v3-671b on (1,2)
+    without FSDP (two such meshes side by side) and on (2,2) as
+    configured, each rank on its block of the experts (held, under FSDP
+    gathered over data); reduced granite-moe-3b-a800m on (1,4) and (2,2),
+    each rank's FFN blocks of the padded tables re-laid as blocks of the
+    experts by an all-to-all. 3 steps, each from the same state as the
+    stacked route's step on a mesh of the same shape (per-lane
+    capacities, the aux loss averaged over the devices): float64 within
+    1e-10 (metrics and parameters), float32 within 1e-6 or twice what it
+    resolves there; each rank's dropped pairs its device's there, no
+    route flipped."""
+    pc.check_ep_mesh(_case(res, "ep_train"), key)
+
+
+@pytest.mark.parametrize("key", list(pc.ep_cases()))
+def test_ep_bytes_equal_the_dry_runs_count(res, key):
+    """The ranks' bytes by kind, summed, equal to the dry run's count of
+    the same cell at the same gate times the ranks: the body's three
+    all-to-alls a MoE layer and granite's re-lay of its three tables,
+    forward, backward and in the recompute; the tensor-parallel
+    all-reduces; every padded slot's gradient mean (FSDP's gathers and
+    reduce-scatters); beside them the grad norm's scalar and the loss
+    metrics' mean."""
+    cfg, shape, worlds = pc.ep_cases()[key]
+    got = pc.check_ep_bytes(pc._ep_rows(_case(res, "ep_train"), key), cfg,
+                            shape, worlds)
+    assert got["all-to-all"] > 0, got
+
+
+def test_ep_step_where_no_pair_drops_keeps_the_one_device_ce(res):
+    """Capacity factor 16 on (2,2), granite-moe-3b-a800m: neither the
+    route nor the one-device one-hot step drops a pair (asserted from the
+    capacities), so the cross-entropy is the one-device step's within
+    1e-10 in float64."""
+    pc.check_ep_no_drops(_case(res, "ep_train"))
+
+
+def test_ep_step_where_capacity_drops_pairs(res):
+    """Capacity factor 0.5 on (2,2), deepseek-v3-671b as configured,
+    float64: every rank drops pairs (at its lane's send slots and at its
+    experts' slots), each exactly those of its device on the stacked
+    route, within 1e-10."""
+    pc.check_ep_drops(_case(res, "ep_train"))
+
+
+def test_ep_held_tables_passed_as_replicated_are_caught(res):
+    """The check is not vacuous: with the held tables passed as
+    replicated, each block's gradient sums the other lane's experts', and
+    the step misses the stacked route's by more than 1e-10."""
+    pc.check_ep_replicated(_case(res, "ep_train"))
+
+
+def test_ep_step_matches_the_references_ep_step(res):
+    """The reference's float32 step of reduced deepseek-v3-671b as
+    configured on its expert-parallel route on (2,2) (its parameters and
+    tokens, the gate lowered to 32 in both packages): loss, ce and aux
+    within 5e-4 and grad norm within 1e-3, three all-to-alls."""
+    got = _case(res, "ep_train")
+    assert got["reference"] is not None
+    pc.check_ep_reference(got)
+
+
+def test_ep_uncounted_payloads_are_the_bodys_global_tensors(res):
+    """What the counts leave out, measured on the ranks by
+    ``torch.distributed``'s payloads: two all-gathers a MoE layer over
+    model (the EP body's output and its tokens' gradient) and one
+    all-reduce (the router's gradient), the same on every rank."""
+    pc.check_ep_uncounted(_case(res, "ep_train"))
+
+
+def test_ep_checkpoints_move_to_one_device_and_back(res):
+    """A (2,2) checkpoint of reduced granite-moe-3b-a800m trained on the
+    expert-parallel route (the global state, gathered to rank 0) restored
+    by the one-device trainer, and a one-device checkpoint restored on
+    (2,2) (each rank its blocks), byte for byte."""
+    pc.check_tp_ckpt(_case(res, "ep_train"))
+
+
+EP_SERVE_KEYS = [(name, shape) for shape in pc.EP_GRANITE_MESHES
+                 for name in ("granite", "mla")]
+
+
+@pytest.mark.parametrize("name,shape", EP_SERVE_KEYS)
+def test_ep_serve_steps_match_the_stacked_route(res, name, shape):
+    """The prefill of 4 x 8 at a gate lowered to its 32 tokens (the
+    expert-parallel route: granite-moe-3b-a800m re-laid, deepseek-v3-671b
+    as configured held, each data rank its rows under FSDP on (2,2)),
+    then 2 decode steps: logits, whole on every rank, within 1e-5 of the
+    stacked route's."""
+    pc.check_ep_serve_logits(_case(res, "ep_serve"), f"{name} {shape}")
+
+
+@pytest.mark.parametrize("name,shape", EP_SERVE_KEYS)
+def test_ep_serve_bytes_equal_the_dry_runs_count(res, name, shape):
+    """The prefill's bytes by kind (its all-to-alls and re-lay among them)
+    and each decode step's where the ranks' rows are the count's: the dry
+    run's count of the same step times the ranks, beside the last
+    logits' all-gathers."""
+    pc.check_ep_serve_bytes(_case(res, "ep_serve"), name, shape)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3-8b",

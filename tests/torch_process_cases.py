@@ -11,7 +11,9 @@ module level; nothing here imports ``jax``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
 import time
 import zlib
@@ -114,10 +116,26 @@ MLA_MESHES = ((1, 4), (2, 2))
 # ``MLA_FSDP_SERVE``'s mesh, each data rank its prompts
 MLA_FSDP_MESHES = ((4, 1), (2, 2))
 MLA_FSDP_SERVE = dict(mesh=(2, 2), batch=4, prompt=6, steps=2)
+# the expert-parallel route over processes, ``DENSE_PATH_MAX_TOKENS``
+# lowered to the cases' 256 global tokens: reduced deepseek-v3-671b (4
+# experts, top 2: 2 a lane at model 2, where the reference's empty-slot
+# rule agrees with the port's) on (1,2) without FSDP and on (2,2) as
+# configured, each rank on its block of the experts (held); reduced
+# granite-moe-3b-a800m (4 experts padded to 48) on (1,4) and (2,2), each
+# rank's blocks of the experts' FFN re-laid as blocks of the experts;
+# each step held against the stacked route's step on a mesh of the same
+# shape
+EP_GATE = DP["seq_len"] * DP["global_batch"]
+EP_GRANITE_MESHES = ((1, 4), (2, 2))
+# the reference's gate in its ``step_moe_ep`` (tests/test_torch_mesh.py)
+EP_REFERENCE_GATE = 32
+# the serve steps: 4 prompts of 8 tokens (the prefill's 32 at the gate),
+# then 2 decode steps (4 tokens: the one-hot dispatch)
+EP_SERVE = dict(batch=4, prompt=8, steps=2)
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
-         "mla", "local_axes", "dp_train", "tp_train", "tp_serve",
+         "mla", "local_axes", "held", "dp_train", "tp_train", "tp_serve",
          "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "mla_fsdp",
-         "mla_fsdp_serve", "refusals")
+         "mla_fsdp_serve", "ep_train", "ep_serve", "refusals")
 
 
 # ---------------------------------------------------------------------------
@@ -1168,6 +1186,405 @@ def case_mla_fsdp_serve(rank, meshes, out_dir):
     return out
 
 
+# -- the expert-parallel route over processes --------------------------------
+
+
+def pair_mesh(mesh):
+    """The (1,2) mesh of the (2,2) process mesh ``mesh``'s model group that
+    holds this rank: each data coordinate's two ranks run their own (1,2)
+    mesh beside the other's (their counts, summed over the world, are the
+    two meshes')."""
+    group, ranks = mesh.group("model")
+    me = ranks.index(mesh.rank)
+    groups = {frozenset({"data"}): (None, [me]),
+              frozenset({"model"}): (group, [0, 1]),
+              frozenset({"data", "model"}): (group, [0, 1])}
+    return compat.ProcessMesh(("data", "model"), (1, 2), me, mesh.device,
+                              groups)
+
+
+@contextlib.contextmanager
+def _counts_kept():
+    """Collectives counted inside are forgotten after (a rank's comparison
+    on the stacked route, beside the process route's counts)."""
+    saved = [c.copy() for c in (compat.CALLS, compat.BYTES, compat.CALLS_BWD,
+                                compat.BYTES_BWD)]
+    try:
+        yield
+    finally:
+        for c, old in zip((compat.CALLS, compat.BYTES, compat.CALLS_BWD,
+                           compat.BYTES_BWD), saved):
+            c.clear()
+            c.update(old)
+
+
+@contextlib.contextmanager
+def ep_gate(tokens: int):
+    """``DENSE_PATH_MAX_TOKENS`` lowered to ``tokens`` inside."""
+    saved = tmoe.DENSE_PATH_MAX_TOKENS
+    tmoe.DENSE_PATH_MAX_TOKENS = tokens
+    try:
+        yield
+    finally:
+        tmoe.DENSE_PATH_MAX_TOKENS = saved
+
+
+@contextlib.contextmanager
+def held_as_replicated():
+    """A planted fault: each ``compat.Held`` in_spec passed as a replicated
+    one, so that a held block's gradient is summed over the model axis
+    (the other lanes' experts added to it), as the expert-parallel route
+    served before it trained."""
+    orig = compat.shard_map
+
+    def shard_map(f, *, mesh, in_specs, out_specs):
+        specs = tuple(PS(*(None,) * len(s)) if isinstance(s, compat.Held)
+                      else s for s in in_specs)
+        return orig(f, mesh=mesh, in_specs=specs, out_specs=out_specs)
+    compat.shard_map = shard_map
+    try:
+        yield
+    finally:
+        compat.shard_map = orig
+
+
+def ep_drops(log) -> dict:
+    """The pairs that each device dropped on the expert-parallel route, by
+    the device's row-major index (``models.moe.Dispatch.device``)."""
+    out = {}
+    for d in log:
+        if d.device is not None:
+            out[d.device] = out.get(d.device, 0) + d.pairs - int(d.kept)
+    return out
+
+
+def _ep_steps(cfg, mesh, steps=DP["steps"], resolve=False, cf=None,
+              against="stacked"):
+    """``_moe_steps`` on the expert-parallel route (``EP_GATE``): ``steps``
+    train steps through the Trainer's state, batches and step on the
+    process mesh ``mesh``, each held against the stacked route's step on
+    a mesh of the same shape from the same state (on rank 0; with
+    ``resolve`` also its float64 twin, ``one64``), on the global batch:
+    per step both metrics, the largest gap between the parameters after
+    it, each rank's dropped pairs beside the stacked route's drops of its
+    device, and each rank's routes that the stacked route did not choose
+    for the same tokens; the collectives of the steps on the ranks.
+    ``cf``: the capacity factor (default the config's). ``against="one"``:
+    held against the one-device step (the one-hot dispatch) instead, its
+    drops in ``drops_one``, each rank's routes against its block of the
+    one-device step's tokens."""
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    data = DataConfig(seq_len=DP["seq_len"], global_batch=DP["global_batch"],
+                      vocab_size=cfg.vocab_size)
+    opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1,
+                          decay_steps=DP["steps"])
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps), mesh=mesh,
+                 device="cpu")
+    ctx = MeshCtx(mesh=Mesh(mesh.axis_names, mesh.sizes),
+                  batch_axes=("data",))
+    if against == "one":
+        ctx = None
+    stacked = tstep.make_train_step(cfg, opt, ctx).step_fn
+    stacked64 = tstep.make_train_step(dataclasses.replace(
+        cfg, param_dtype="float64", compute_dtype="float64"), opt,
+        ctx).step_fn
+    state = tr.init_state()
+    n = mesh.sizes[0] * mesh.sizes[1]
+    rows = []
+    compat.reset_counts()
+    for i in range(steps):
+        before = gather_params(state, tr.state_specs, mesh)
+        log = tmoe.DISPATCH_LOG = []
+        mine = {k: torch.as_tensor(v) for k, v in tr.batch(i).items()}
+        try:
+            state, m = tr.step_fn(state, mine)
+        finally:
+            tmoe.DISPATCH_LOG = None
+        every = _all_ranks((tmoe.dropped_pairs(log), ep_drops(log),
+                            [d.ids for d in log]))[:n]
+        row = {"tp": {k: float(v) for k, v in m.items()},
+               "drops": [e[0] for e in every],
+               "devices": [sorted(e[1]) for e in every]}
+        after = gather_params(state, tr.state_specs, mesh)["params"]
+        if mesh.rank == 0:
+            glob = {k: torch.as_tensor(v)
+                    for k, v in tr.source.batch(i).items()}
+            with _counts_kept(), ep_gate(EP_GATE):
+                if resolve:
+                    _, m64 = stacked64(tree_map(
+                        lambda t: t.double() if isinstance(t, torch.Tensor)
+                        and t.is_floating_point() else t, _detach(before)),
+                        glob)
+                    row["one64"] = {k: float(v) for k, v in m64.items()}
+                log = tmoe.DISPATCH_LOG = []
+                try:
+                    _, m1 = stacked(before, glob)
+                finally:
+                    tmoe.DISPATCH_LOG = None
+            row["one"] = {k: float(v) for k, v in m1.items()}
+            row["drops_one"] = tmoe.dropped_pairs(log)
+            row["drops_by_device"] = [ep_drops(log).get(r, 0)
+                                      for r in range(n)]
+            row["flips"] = [sum(route_flips(ids, d.ids if d.device == r
+                                            else d.ids.reshape(
+                                                n, -1, d.ids.shape[-1])[r])
+                                for ids, d in zip(mine_ids, [
+                                    d for d in log if d.device in (r, None)]))
+                            for r, (_, _, mine_ids) in enumerate(every)]
+            row["params"] = max(_err(a, b) for a, b in zip(
+                tree_leaves(after), tree_leaves(before["params"])))
+        rows.append(row)
+    cut = tree_leaves(tstep.cut_axes(tr.state_specs["params"], mesh))
+    return {"rows": rows, "counts": _counts(mesh),
+            "leaves": len(list(tree_leaves(state["params"]))),
+            "n_data_cut": sum("data" in c for c in cut)}
+
+
+@contextlib.contextmanager
+def uncounted_recorder():
+    """Inside, on a rank of a process mesh, the ``torch.distributed`` calls
+    that ``compat``'s counts leave out are recorded: the all-gathers that
+    assemble a body's global output and a global input's gradient
+    (``compat._assemble``: the EP body's output and its tokens' gradient,
+    over model) and the all-reduce of a replicated input's gradient (the
+    router's, over model). Yields ``{kind: [calls, payload bytes (the
+    tensors the rank passes), bytes by the counts' ring formulas]}``."""
+    import torch.distributed as dist
+    seen, inside = {}, [0]
+    gather, reduce = dist.all_gather, dist.all_reduce
+    assemble, split_back = compat._assemble, compat._Split.__dict__[
+        "backward"]
+
+    def record(kind, t, group, ring):
+        if inside[0]:
+            n = dist.get_world_size(group)
+            b = t.numel() * t.element_size()
+            got = seen.setdefault(kind, [0, 0, 0.0])
+            got[0] += 1
+            got[1] += b
+            got[2] += ring(b, n)
+
+    def all_gather(parts, t, group=None, **kw):
+        record("all_gather", t, group, lambda b, n: (n - 1) * b)
+        return gather(parts, t, group=group, **kw)
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, **kw):
+        record("all_reduce", t, group, lambda b, n: 2 * (n - 1) / n * b)
+        return reduce(t, op=op, group=group, **kw)
+
+    def scoped(fn):
+        def call(*a, **kw):
+            inside[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[0] -= 1
+        return call
+
+    dist.all_gather, dist.all_reduce = all_gather, all_reduce
+    compat._assemble = scoped(assemble)
+    compat._Split.backward = staticmethod(scoped(split_back.__func__))
+    try:
+        yield seen
+    finally:
+        dist.all_gather, dist.all_reduce = gather, reduce
+        compat._assemble, compat._Split.backward = assemble, split_back
+
+
+def uncounted_payloads(cfg, mesh):
+    """One train step of ``cfg`` on the expert-parallel route on the
+    process mesh ``mesh`` (the trainer's first batch) under
+    :func:`uncounted_recorder`: every rank's record, in rank order."""
+    data = DataConfig(seq_len=DP["seq_len"], global_batch=DP["global_batch"],
+                      vocab_size=cfg.vocab_size)
+    tr = Trainer(cfg, adamw.OptConfig(), data, TrainerConfig(steps=1),
+                 mesh=mesh, device=mesh.device)
+    state = tr.init_state()
+    batch = {k: torch.as_tensor(v) for k, v in tr.batch(0).items()}
+    with uncounted_recorder() as seen:
+        tr.step_fn(state, batch)
+    return _all_ranks(seen)
+
+
+def _reference_ep(mesh, out_dir):
+    """The reference's sharded float32 step of reduced deepseek-v3-671b as
+    configured on its expert-parallel route (``tests/test_torch_mesh.py``'s
+    ``step_moe_ep``: ``DENSE_PATH_MAX_TOKENS`` lowered to 32 below its
+    4 x 16 tokens) on (2,2), here on the ranks: its parameters and tokens,
+    the default ``OptConfig``, each data rank its rows of the batch, the
+    gate lowered as there. None without the reference's file."""
+    path = os.path.join(out_dir, REFERENCE_STEP)
+    if not os.path.exists(path):
+        return None
+    ref = torch.load(path, weights_only=False)
+    if "moe_ep_params" not in ref:
+        return None
+    cfg = reduced(get_config("deepseek-v3-671b"), compute_dtype="float32")
+    params = convert.params_from_numpy(ref["moe_ep_params"], device="cpu")
+    toks = torch.as_tensor(ref["moe_ep_tokens"]).long()
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    opt = adamw.OptConfig()
+    bundle = tstep.make_train_step(cfg, opt, ctx)
+    blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)["params"],
+                          mesh)
+    rows = toks.shape[0] // mesh.shape["data"]
+    mine = slice(mesh.coord("data") * rows, (mesh.coord("data") + 1) * rows)
+    batch = {"tokens": toks[mine], "labels": torch.roll(toks, -1, 1)[mine]}
+    compat.reset_counts()
+    with ep_gate(EP_REFERENCE_GATE):
+        _, m = bundle.step_fn({"params": blocks,
+                               "opt": adamw.init(opt, blocks)}, batch)
+    return {"got": {k: float(m[k]) for k in ("loss", "ce", "aux",
+                                             "grad_norm")},
+            "want": ref["moe_ep_metrics"],
+            "all_to_all": _counts(mesh)[0]["all_to_all"]["calls"]}
+
+
+def _ep_granite_cfg(shape):
+    """Reduced granite-moe-3b-a800m in float64; on (2,2) at its configured
+    remat "full", so that the recompute re-lays the tables again."""
+    return _moe_cfg(dtype="float64", **({"remat": "full"}
+                                        if shape == (2, 2) else {}))
+
+
+def case_ep_train(rank, meshes, out_dir):
+    """The expert-parallel route in training over processes, the gate
+    lowered to ``EP_GATE``: reduced deepseek-v3-671b on (1,2) without
+    FSDP and on (2,2) as configured (each rank's experts block held), 3
+    steps in float64 and in float32, each from the same state as the
+    stacked route's step on a mesh of the same shape; reduced
+    granite-moe-3b-a800m (its FFN blocks re-laid) on (1,4) and, at remat
+    "full", on (2,2), 3 float64 steps; one float64 step each: granite at
+    capacity factor 16 on (2,2) against the one-device one-hot step
+    (neither drops a pair),
+    deepseek as configured at capacity factor 0.5 on (2,2) (pairs
+    dropped), and deepseek on (1,2) with its held tables passed as
+    replicated (a planted fault); the reference's own step on (2,2); the
+    collectives of one granite (2,2) step that the counts leave out
+    (:func:`uncounted_payloads`); checkpoints between the one-device
+    trainer and a (2,2) trainer on the route, both ways."""
+    out = {}
+    pair = pair_mesh(meshes[2, 2])
+    with ep_gate(EP_GATE):
+        for shape, mesh in (((1, 2), pair), ((2, 2), meshes[2, 2])):
+            make = _mla_cfg if shape == (1, 2) else _mla_fsdp_cfg
+            out[f"mla {shape}"] = {
+                tag: _ep_steps(make(dt), mesh, resolve=tag == "f32")
+                for tag, dt in (("f32", "float32"), ("f64", "float64"))}
+        for shape in EP_GRANITE_MESHES:
+            out[f"granite {shape}"] = _ep_steps(_ep_granite_cfg(shape),
+                                                meshes[shape])
+        n = 1
+        out["no drops"] = _ep_steps(_moe_cfg(dtype="float64"), meshes[2, 2],
+                                    steps=n, cf=16.0, against="one")
+        out["drops"] = _ep_steps(_mla_fsdp_cfg("float64"), meshes[2, 2],
+                                 steps=n, cf=0.5)
+        with held_as_replicated():
+            out["replicated"] = _ep_steps(_mla_cfg("float64"), pair, steps=n)
+        out["uncounted"] = uncounted_payloads(_moe_cfg(), meshes[2, 2])
+        out.update(_ckpt_both_ways(rank, _moe_cfg(), meshes[2, 2], out_dir,
+                                   "ep"))
+    out["reference"] = _reference_ep(meshes[2, 2], out_dir)
+    return out
+
+
+def _ep_serve(cfg, mesh, toks, steps):
+    """``cfg``'s prefill of ``toks`` and ``steps`` decode steps on ``mesh``
+    (a process mesh: on the rank's blocks of the parameters, each data
+    rank its rows under FSDP; else the stacked route's), a float32 cache,
+    without autograd: the logits of each, with each step's collectives."""
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    params = init_params(ttf.model_template(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    rows = slice(None)
+    if compat.is_process_mesh(mesh):
+        params = shard_params(params, tstep.train_state_specs(cfg, ctx)[
+            "params"], mesh)
+        if cfg.fsdp and mesh.shape["data"] > 1:
+            n = toks.shape[0] // mesh.shape["data"]
+            rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+    outs, counts = [], []
+    with torch.no_grad():
+        compat.reset_counts()
+        logits, cache = tstep.make_prefill_step(
+            cfg, ctx, toks.shape[1] + len(steps),
+            cache_dtype=torch.float32)(params, {"tokens": toks[rows]})
+        outs.append(logits)
+        counts.append(_counts(mesh))
+        dec = tstep.make_decode_step(cfg, ctx)
+        for tok in steps:
+            compat.reset_counts()
+            logits, cache = dec(params, cache, {"tokens": tok[rows]})
+            outs.append(logits)
+            counts.append(_counts(mesh))
+    ttf.forward(cfg, init_params(ttf.model_template(cfg),
+                                 torch.Generator().manual_seed(0),
+                                 device="cpu"), toks[:1, :1])
+    return outs, counts
+
+
+def case_ep_serve(rank, meshes, out_dir):
+    """The expert-parallel route in serving over processes, the gate
+    lowered to the prefill's tokens: reduced granite-moe-3b-a800m (its
+    FFN blocks re-laid) and deepseek-v3-671b as configured (its experts
+    blocks held; on (2,2) under FSDP, each data rank its rows) on (1,4)
+    and (2,2): the prefill and ``EP_SERVE["steps"]`` decode steps (the
+    one-hot dispatch, below the gate), against the stacked route's."""
+    sv = EP_SERVE
+    r = np.random.RandomState(11)
+    toks = torch.from_numpy(r.randint(0, 256, size=(sv["batch"],
+                                                    sv["prompt"])))
+    steps = [torch.from_numpy(r.randint(0, 256, size=(sv["batch"], 1)))
+             for _ in range(sv["steps"])]
+    out = {}
+    with ep_gate(toks.numel()):
+        for shape in EP_GRANITE_MESHES:
+            for name, cfg in (("granite", _moe_cfg()),
+                              ("mla", _mla_fsdp_cfg())):
+                pmesh = meshes[shape]
+                got = {"proc": _ep_serve(cfg, pmesh, toks, steps)}
+                if rank == 0:
+                    with _counts_kept():
+                        got["stacked"] = _ep_serve(
+                            cfg, Mesh(pmesh.axis_names, pmesh.sizes), toks,
+                            steps)
+                out[f"{name} {shape}"] = got
+    return out
+
+
+def case_held(rank, meshes, out_dir):
+    """A ``compat.Held`` input on (1,2) and (2,2): on the process route
+    each rank passes its own block along model (a block of rows of a
+    global (4, 6) tensor), which the body scales by a factor of its device
+    and sums over data; the output, and every rank's gradient of its
+    block, against the stacked route's on the whole tensor, cut by the
+    same spec (the gradient's slice of that block: no sum over model)."""
+    x = _randn(21, 4, 6)
+    c = _randn(22, 8, 6)
+
+    def body(s):
+        i = compat.axis_index("model") + 2 * compat.axis_index("data")
+        return compat.psum(s * (1.0 + i.reshape(i.shape + (1, 1))), "data")
+
+    def run(mesh):
+        rows = slice(None)
+        if compat.is_process_mesh(mesh):
+            m = mesh.coord("model")
+            rows = slice(2 * m, 2 * m + 2)
+        xs = x[rows].clone().requires_grad_(True)
+        y = compat.shard_map(body, mesh=mesh,
+                             in_specs=(compat.Held("model", None),),
+                             out_specs=PS(("data", "model"), None))(xs)
+        (y * c[:y.shape[0]]).sum().backward()
+        if compat.is_process_mesh(mesh):
+            return y.detach(), _all_ranks((mesh.coord("model"), xs.grad))
+        return y.detach(), xs.grad
+    return {"(1, 2)": _both(rank, pair_mesh(meshes[2, 2]), run),
+            "(2, 2)": _both(rank, meshes[2, 2], run)}
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -1184,38 +1601,19 @@ def case_refusals(rank, meshes, out_dir):
     text("tp_ssm", NotImplementedError, lambda: tstep.make_train_step(
         reduced(get_config("zamba2-7b"), fsdp=False), adamw.OptConfig(),
         MeshCtx(mesh=meshes[2, 2])))
-    # deepseek-v3-671b as configured (FSDP) on (2,2): its expert-parallel
-    # route in training, 256 tokens at or above a lowered
-    # DENSE_PATH_MAX_TOKENS, raised in the MoE layer of the first step
-    saved = tmoe.DENSE_PATH_MAX_TOKENS
-    tmoe.DENSE_PATH_MAX_TOKENS = DP["seq_len"] * DP["global_batch"]
-    try:
-        text("tp_mla", NotImplementedError,
-             lambda: _moe_steps(_mla_fsdp_cfg(), meshes[2, 2], steps=1))
-    finally:
-        tmoe.DENSE_PATH_MAX_TOKENS = saved
-    # granite-moe-3b-a800m's expert-parallel route in training: 256 tokens
-    # at or above a lowered DENSE_PATH_MAX_TOKENS on (1,4), raised in the
-    # first MoE layer of the first step, on every rank
-    saved = tmoe.DENSE_PATH_MAX_TOKENS
-    tmoe.DENSE_PATH_MAX_TOKENS = DP["seq_len"] * DP["global_batch"]
-    try:
-        text("tp_moe", NotImplementedError,
-             lambda: _moe_steps(_moe_cfg(), meshes[1, 4], steps=1))
-    finally:
-        tmoe.DENSE_PATH_MAX_TOKENS = saved
-    # and in serving, where the ranks hold blocks of the experts' FFN
-    saved = tmoe.DENSE_PATH_MAX_TOKENS
-    tmoe.DENSE_PATH_MAX_TOKENS = 4 * DP["seq_len"]
-    try:
-        gcfg = _moe_cfg()
-        text("tp_moe_serve", NotImplementedError, lambda: _prefill(
-            gcfg, init_params(ttf.model_template(gcfg),
-                              torch.Generator().manual_seed(0),
-                              device="cpu"),
-            meshes[1, 4], torch.zeros(4, DP["seq_len"], dtype=torch.long)))
-    finally:
-        tmoe.DENSE_PATH_MAX_TOKENS = saved
+    # the expert-parallel route in micro-batches over data ranks (item
+    # 2.3b, slice 4), at a gate that the micro-batch's 128 global tokens
+    # reach: deepseek-v3-671b as configured (FSDP) on (2,2),
+    # granite-moe-3b-a800m with fsdp=True on (2,2) and deepseek-v3-671b
+    # with fsdp=False on (2,2), raised where the step is made
+    with ep_gate(EP_GATE // 2):
+        for name, acfg in (("tp_mla", _mla_fsdp_cfg()),
+                           ("tp_moe", _moe_cfg(fsdp=True)),
+                           ("tp_moe_serve", _mla_cfg())):
+            text(name, NotImplementedError,
+                 lambda acfg=acfg: tstep.make_train_step(
+                     acfg, adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2]),
+                     grad_accum=2))
     text("tp_kv_seq", NotImplementedError, lambda: tstep.make_prefill_step(
         dataclasses.replace(cfg, n_kv_heads=2),
         MeshCtx(mesh=meshes[1, 4]), 16))
@@ -1259,20 +1657,21 @@ def refusal_texts() -> dict:
     import torch.distributed as dist
     return {
         "world": "a (3, 1) mesh needs 3 processes, the world has 4",
-        "tp_moe": "granite-moe-3b-a800m on a process mesh: 256 tokens at "
-                  "model=4 take the expert-parallel route, which needs each "
-                  "rank's experts_ffn blocks re-laid as experts blocks; the "
-                  "EP route in training over processes (ROADMAP Queue A, "
-                  "A13c item 2.3b)",
-        "tp_moe_serve": "granite-moe-3b-a800m on a process mesh: 128 "
-                        "tokens at model=4 take the expert-parallel route, "
-                        "which needs each rank's experts_ffn blocks re-laid "
-                        "as experts blocks; the EP route in serving over "
-                        "processes (ROADMAP Queue A, A13c item 2.3b)",
-        "tp_mla": "deepseek-v3-671b on a process mesh: 256 tokens at "
-                  "model=2 take the expert-parallel route; the EP route in "
-                  "training over processes (ROADMAP Queue A, A13c item "
-                  "2.3b)",
+        "tp_moe": "granite-moe-3b-a800m on a process mesh: grad_accum=2 "
+                  "over 2 data ranks would route and group each rank's "
+                  "micro-batch, which holds other rows of the global batch "
+                  "than the one-device micro-batch; the MoE step in "
+                  "micro-batches over processes (ROADMAP Queue A, A13c "
+                  "item 2.3b)",
+        "tp_moe_serve": "deepseek-v3-671b on a process mesh: grad_accum=2 "
+                        "over 2 data ranks would route and group each "
+                        "rank's micro-batch",
+        "tp_mla": "deepseek-v3-671b on a process mesh: grad_accum=2 over 2 "
+                  "data ranks would route and group each rank's "
+                  "micro-batch, which holds other rows of the global batch "
+                  "than the one-device micro-batch; the MoE step in "
+                  "micro-batches over processes (ROADMAP Queue A, A13c "
+                  "item 2.3b)",
         "tp_ssm": "the SSM and hybrid blocks under model over processes "
                   "(ROADMAP Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
@@ -1367,6 +1766,12 @@ def check(name, res) -> dict:
         return check_mla_fsdp(res)
     if name == "mla_fsdp_serve":
         return check_mla_fsdp_serve(res)
+    if name == "ep_train":
+        return check_ep_train(res)
+    if name == "ep_serve":
+        return check_ep_serve(res)
+    if name == "held":
+        return {tag: check_held(res, tag) for tag in res}
     if name == "local_axes":
         (y, g), counts = res["local"]
         (yg, gg), gcounts = res["global"]["stacked"]
@@ -2191,3 +2596,278 @@ def check_mla_fsdp_serve(res, count=_dry_count) -> dict:
     check_mla_fsdp_serve_bytes(res, count)
     return errs
 
+
+
+# -- the expert-parallel route over processes --------------------------------
+
+
+def check_held(res, tag) -> float:
+    """The held input's output and every rank's gradient of its block
+    within ``TOL["local_axes"]`` of the stacked route's (its gradient's
+    rows of that block); the counts equal."""
+    (y, grads), counts = res[tag]["proc"]
+    (y_s, g_s), counts_s = res[tag]["stacked"]
+    errs = [_err(y, y_s)] + [_err(g, g_s[2 * m:2 * m + 2]) for m, g in grads]
+    assert max(errs) <= TOL["local_axes"], (tag, errs)
+    assert counts == counts_s, (tag, counts, counts_s)
+    return max(errs)
+
+
+def check_ep_steps(tag, got, tol, hold_params=True) -> dict:
+    """``_ep_steps``' rows against the stacked route's step (or, where the
+    rows hold ``drops_by_device`` none, the one-device step's): per step
+    the loss, ce, aux (mtp where the model has it), grad norm and lr
+    within ``tol`` relative (where the rows resolve float32, within twice
+    the stacked float32 step's own gap from float64 where that is wider),
+    the parameters after it within ``tol`` (with ``hold_params``); no
+    route of a rank that the other step did not choose for the same
+    tokens; each rank's dropped pairs those of its device there (against
+    the one-device step, summed over the ranks, its drops). Returns the
+    largest gaps and the drops."""
+    rows = got["rows"]
+    keys = ("loss", "ce", "aux", "grad_norm", "lr") \
+        + (("mtp",) if "mtp" in rows[0]["one"] else ())
+    errs = {f"{tag} metrics": max(_rel(r["tp"], r["one"], keys)
+                                  for r in rows),
+            f"{tag} params": max(r["params"] for r in rows)}
+    for r in rows:
+        for k in keys:
+            limit = tol if "one64" not in r else max(
+                tol, 2 * _rel(r["one"], r["one64"], (k,)))
+            assert _rel(r["tp"], r["one"], (k,)) <= limit, (tag, k, limit,
+                                                           rows)
+        if "drops_by_device" in r:
+            assert r["drops"] == r["drops_by_device"], (tag, r)
+        assert not any(r["flips"]), (tag, r["flips"])
+    assert not hold_params or errs[f"{tag} params"] <= tol, (tag, errs)
+    errs[f"{tag} drops"] = [r["drops"] for r in rows]
+    return errs
+
+
+@functools.lru_cache(maxsize=None)
+def ep_count(cfg, shape, kind="train", seq=None, batch=None, gate=None):
+    """The dry run's count of ``cfg``'s ``kind`` step on a stacked mesh of
+    ``shape`` at the gate the cases lower (``EP_GATE``, or ``gate``); each
+    cell counted once a process."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    seq, batch = seq or DP["seq_len"], batch or DP["global_batch"]
+    with ep_gate(gate or EP_GATE):
+        return _dry_count(cfg, ShapeConfig(kind, seq, batch, kind),
+                          make_mesh(*shape))
+
+
+def check_ep_bytes(got, cfg, shape, worlds=1) -> dict:
+    """The steps' bytes by kind, summed over the ranks of ``worlds``
+    meshes side by side (``pair_mesh``'s two), equal to the dry run's
+    count of the same cell times the ranks (:func:`ep_count`): the
+    body's all-to-alls and each re-lay's, forward and backward (and in a
+    checkpoint's recompute); the tensor-parallel all-reduces; the
+    gradient means of every padded slot (or FSDP's gathers and
+    reduce-scatters); beside them the grad norm's scalar and the loss
+    metrics' mean. Returns the bytes a step by kind."""
+    d, m = shape
+    rows = got["rows"]
+    steps = len(rows)
+    st = ep_count(cfg, shape)
+    per_step = {k: v / steps / worlds
+                for k, v in by_kind(got["counts"]).items()}
+    want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+    itemsize = 8 if cfg.param_dtype == "float64" else 4
+    n_metrics = len(rows[0]["tp"]) - 2
+    extra = fsdp_extra(d, m, n_metrics, itemsize) if cfg.fsdp and d > 1 \
+        else norm_bytes(d, m, itemsize) + metric_bytes(n_metrics, itemsize,
+                                                       d) * m
+    want["all-reduce"] = want.get("all-reduce", 0) + extra
+    assert set(per_step) == set(want), (shape, per_step, want)
+    for k in per_step:
+        assert abs(per_step[k] - want[k]) <= d * m, (shape, k, per_step,
+                                                     want)
+    assert "collective: moe one-hot dispatch resharded" \
+        not in st.count_short, st.count_short
+    return per_step
+
+
+def ep_cases() -> dict:
+    """(config, mesh shape, how many meshes side by side) of each
+    ``case_ep_train`` cell."""
+    out = {}
+    for dt in ("float32", "float64"):
+        tag = "f32" if dt == "float32" else "f64"
+        out[f"mla (1, 2) {tag}"] = (_mla_cfg(dt), (1, 2), 2)
+        out[f"mla (2, 2) {tag}"] = (_mla_fsdp_cfg(dt), (2, 2), 1)
+    for shape in EP_GRANITE_MESHES:
+        out[f"granite {shape}"] = (_ep_granite_cfg(shape), shape, 1)
+    return out
+
+
+def _ep_rows(res, key):
+    name, _, tag = key.rpartition(" ")
+    return res[name][tag] if name.startswith("mla") else res[key]
+
+
+def check_ep_mesh(res, key) -> dict:
+    """``ep_cases()``'s cell ``key``: 3 steps against the stacked route's
+    step on a mesh of the same shape, float64 within ``MOE_TOL["f64"]``
+    (metrics and parameters), float32 by :func:`check_mla_mesh`'s rules
+    (metrics within ``MOE_TOL["f32"]`` or twice what float32 resolves;
+    parameters not held)."""
+    tag = "f32" if key.endswith("f32") else "f64"
+    return check_ep_steps(key, _ep_rows(res, key), MOE_TOL[tag],
+                          hold_params=tag == "f64")
+
+
+def check_ep_no_drops(res) -> dict:
+    """Capacity factor 16 on (2,2): no pair dropped by either route (the
+    capacities asserted: a device sends a lane at most its chunk's pairs,
+    an expert receives at most a row a token of each lane's chunk, the
+    one group at most a slot a token), so the route's cross-entropy is
+    the one-device one-hot step's within ``MOE_TOL["f64"]`` (the aux
+    loss, the Switch loss of each device's tokens averaged over the
+    devices, is another function of them: not held)."""
+    got = res["no drops"]
+    cfg = _moe_cfg()
+    m, lanes, n = cfg.moe, 2, WORLD
+    tokens = DP["seq_len"] * DP["global_batch"]
+    chunk = min(tmoe.EP_CHUNK_TOKENS, tokens // n)
+    cap_send = max(int(chunk * m.top_k * 16.0 / lanes), m.top_k)
+    cap_local = max(int(lanes * cap_send * 2
+                        / (m.n_experts_padded // lanes)), 1)
+    cap_group = max(int(tokens * m.top_k * 16.0 / m.n_experts), m.top_k)
+    assert cap_send >= chunk * m.top_k and cap_local >= lanes * chunk \
+        and cap_group >= tokens, (cap_send, cap_local, cap_group)
+    errs = {}
+    for r in got["rows"]:
+        assert r["drops"] == [0] * n and r["drops_one"] == 0, r
+        assert not any(r["flips"]), r
+        errs["no drops ce"] = _rel(r["tp"], r["one"], ("ce",))
+    assert errs["no drops ce"] <= MOE_TOL["f64"], (errs, got["rows"])
+    return errs
+
+
+def check_ep_drops(res) -> dict:
+    """Capacity factor 0.5 on (2,2), deepseek-v3-671b as configured,
+    float64: every rank drops pairs, each those the stacked route's
+    device dropped, within ``MOE_TOL["f64"]``."""
+    got = res["drops"]
+    errs = check_ep_steps("drops", got, MOE_TOL["f64"])
+    for r in got["rows"]:
+        assert all(x > 0 for x in r["drops"]), r
+    return errs
+
+
+def check_ep_replicated(res) -> dict:
+    """The planted fault (held tables passed as replicated: the other
+    lane's experts' gradients summed into each block) is caught: the
+    step's gap from the stacked route's exceeds ``MOE_TOL["f64"]``."""
+    r = res["replicated"]["rows"][0]
+    gap = max(_rel(r["tp"], r["one"], ("grad_norm",)), r["params"])
+    assert gap > MOE_TOL["f64"], r
+    return {"replicated gap": gap}
+
+
+def check_ep_reference(res) -> dict:
+    """The reference's own sharded float32 step of reduced deepseek-v3-671b
+    as configured on its expert-parallel route on (2,2): loss, ce and aux
+    within 5e-4 and grad norm within 1e-3 (the reference's own bounds,
+    tests/test_torch_mesh.py), three all-to-alls a MoE layer."""
+    ref = res["reference"]
+    errs = {k: abs(ref["got"][k] - ref["want"][k])
+            for k in ("loss", "ce", "aux", "grad_norm")}
+    assert max(errs[k] for k in ("loss", "ce", "aux")) < 5e-4, ref
+    assert errs["grad_norm"] < 1e-3, ref
+    assert ref["all_to_all"] == 3, ref
+    return errs
+
+
+def check_ep_uncounted(res) -> list:
+    """The payloads that the counts leave out of one granite (2,2) step,
+    on every rank the same: the all-gathers of the EP body's output and
+    of its tokens' gradient over model (two a MoE layer) and the
+    all-reduce of the router's gradient over model (one a MoE layer)."""
+    every = res["uncounted"]
+    cfg = _moe_cfg()
+    assert all(e == every[0] for e in every), every
+    assert every[0]["all_gather"][0] == 2 * cfg.n_layers, every[0]
+    assert every[0]["all_reduce"][0] == cfg.n_layers, every[0]
+    return every
+
+
+def check_ep_train(res, count=None) -> dict:
+    """Every check of the expert-parallel train case (the reference's step
+    where it ran)."""
+    errs = {}
+    for key, (cfg, shape, worlds) in ep_cases().items():
+        errs.update(check_ep_mesh(res, key))
+        errs[f"{key} bytes"] = check_ep_bytes(_ep_rows(res, key), cfg, shape,
+                                              worlds)
+    errs.update(check_ep_no_drops(res))
+    errs.update(check_ep_drops(res))
+    errs.update(check_ep_replicated(res))
+    check_ep_uncounted(res)
+    check_tp_ckpt(res)
+    if res["reference"] is not None:
+        errs.update(check_ep_reference(res))
+    return errs
+
+
+def ep_serve_cfgs() -> dict:
+    return {"granite": _moe_cfg(), "mla": _mla_fsdp_cfg()}
+
+
+def check_ep_serve_logits(res, key) -> float:
+    """The process route's prefill (on the expert-parallel route) and
+    decode steps' logits, whole on every rank, within ``TOL["tp_serve"]``
+    of the stacked route's."""
+    outs, _ = res[key]["proc"]
+    want, _ = res[key]["stacked"]
+    err = max(_err(a, b) for a, b in zip(outs, want))
+    assert err <= TOL["tp_serve"], (key, err)
+    return err
+
+
+def check_ep_serve_bytes(res, name, shape):
+    """Each serve step's bytes by kind summed over the ranks: the dry
+    run's count of the same step at the lowered gate times the ranks (the
+    prefill's all-to-alls and re-lay, its tensor-parallel all-reduces and,
+    under FSDP, its gathers), beside the last logits' all-gathers. Where
+    FSDP is off and ``data > 1`` every rank serves the whole batch (the
+    serve steps' batch is global there), so its tensor-parallel
+    all-reduces move ``data`` times the count's, which splits the batch
+    over data; the expert-parallel body cuts its tokens over every axis,
+    so its all-to-alls and its aux loss's mean are the count's. The
+    decode steps (the one-hot dispatch, whose group the count splits over
+    data too) are held where the ranks' rows are the count's: under FSDP
+    or at ``data`` 1."""
+    key, (d, m) = f"{name} {shape}", shape
+    cfg = ep_serve_cfgs()[name]
+    sv = EP_SERVE
+    b, s = sv["batch"], sv["prompt"]
+    fsdp = cfg.fsdp and d > 1
+    logits = fsdp_logit_bytes(cfg, (d, m), b) if fsdp \
+        else d * m * 4 * b * cfg.vocab_size * (m - 1) / m
+    counts = res[key]["proc"][1]
+    for i, c in enumerate(counts if fsdp or d == 1 else counts[:1]):
+        kind = "prefill" if i == 0 else "decode"
+        st = ep_count(cfg, (d, m), kind, s, b, gate=b * s)
+        got = by_kind(c)
+        want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+        want["all-gather"] = want.get("all-gather", 0) + logits
+        if not fsdp and "all-reduce" in want:
+            body = d * m * sum(v for k, v in st.top_collectives
+                               if k.startswith("all-reduce compat.pmean"))
+            want["all-reduce"] = d * (want["all-reduce"] - body) + body
+        assert set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= d * m for k in got), (key, i, got, want)
+        if i == 0:
+            assert got["all-to-all"] > 0, (key, got)
+
+
+def check_ep_serve(res, count=None) -> dict:
+    errs = {}
+    for shape in EP_GRANITE_MESHES:
+        for name in ep_serve_cfgs():
+            errs[f"{name} {shape}"] = check_ep_serve_logits(
+                res, f"{name} {shape}")
+            check_ep_serve_bytes(res, name, shape)
+    return errs
