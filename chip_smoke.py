@@ -350,8 +350,8 @@ non-zero and prints no result. Phases, one JSON line each:
                case of ``tests/torch_process_cases.py`` on 4 gloo ranks of
                the CPU but ``CARD_CASES`` (``tp_train``, ``fsdp_train``,
                ``moe_train``, ``mla_train``, ``mla_fsdp``,
-               ``mla_fsdp_serve``, ``ep_train``, ``ep_serve``), whose
-               routes phases 39-43 run on the card
+               ``mla_fsdp_serve``, ``ep_train``, ``ep_serve``,
+               ``moe_micro``), whose routes phases 39-43 run on the card
                (``mesh_processes_gloo``).
                Only this process prints; a rank that fails fails the
                phase.
@@ -384,26 +384,31 @@ non-zero and prints no result. Phases, one JSON line each:
                (the ranks gather each other's per-expert counts), the
                experts' FFN split over ``model``; the first loss, ce and
                aux and a conditioned grad norm against the one-device
-               step's (run first), a float32 witness of 2 layers step by
-               step (where each rank's routes agree with the one-device
-               step's; a step with a flipped route held on the flipped
-               share and a gap of 3e-5) with
-               a step at capacity factor 0.5 whose drops are each rank's
-               block's, B3-B5 4 / 2 / 2 a rank-step at 1 x 32 and 2 x 16
-               rows x heads (held against their plain versions there),
-               the dropped pairs against the one-device step's, the bytes
-               by kind against ``count_step``'s; ms a step and peak GB a
-               rank. On (2, 2) the witness takes the
+               step's (run first), a float32 witness of 2 layers (a step
+               at capacity factor 0.5 whose drops are each rank's
+               block's, then one step; where each rank's routes agree
+               with the one-device step's; a step with a flipped route
+               held on the flipped share and a gap of 3e-5), B3-B5 4 / 2
+               / 2 a rank-step at 1 x 32 rows x heads (held against
+               their plain versions there), the dropped pairs against
+               the one-device step's, the bytes by kind against
+               ``count_step``'s; ms a step and peak GB a rank. On (2, 2)
+               the Trainer runs in 2 micro-batches (each rank's its
+               block of the global one), against a one-device trainer
+               in 2 (drops by micro-batch and data block, the bytes
+               against ``count_step(grad_accum=2)``'s, B3-B5 8 / 4 / 4 a
+               rank-step at 1 x 16), the witness takes the
                expert-parallel route (the gate lowered to its 4 x 1024
                tokens) against the stacked route's step, each rank's
-               drops its device's, and one step at 8 x 2048 takes the
-               route at the reference's own gate (``mesh_moe_ep``): each
-               rank's FFN blocks of the 48 padded experts re-laid as
-               blocks of the experts by an all-to-all, 3 all_to_all a
-               MoE layer a pass and the re-lay's 3, the bytes against
-               ``count_step``'s, B3-B5 4 / 2 / 2 a rank-step at 4 x 16
-               rows x heads (held against their plain versions there),
-               the payloads the counts leave out, peak GB a rank.
+               drops its device's, and one step at 16 x 2048 in 2
+               micro-batches takes the route at the reference's own gate
+               in each (``mesh_moe_ep``): each rank's FFN blocks of the
+               48 padded experts re-laid as blocks of the experts by an
+               all-to-all, 3 all_to_all a MoE layer a pass a micro-batch
+               and the re-lay's 3, the bytes against ``count_step``'s,
+               B3-B5 8 / 4 / 4 a rank-step at 4 x 16 rows x heads (held
+               against their plain versions there), the payloads the
+               counts leave out, peak GB a rank.
 42. ``mesh_mla`` deepseek-v3-671b with ``fsdp=False`` (full width, 1
                dense + 1 MoE layer of 8 routed experts, MTP, bf16
                parameters and moments, 2 x 2048) on (1, 4) ranks sharing
@@ -425,10 +430,14 @@ non-zero and prints no result. Phases, one JSON line each:
                ``count_step``'s with FSDP, B3-B5 1 / 1 / 1 a rank-step at
                1 x 64 rows x heads; its witness on the
                expert-parallel route against the stacked route's step,
-               and one step on the route at 2 x 2048, the gate lowered to
-               4096 (``mesh_mla_fsdp_ep``): each rank's held experts the
+               and one step on the route at 4 x 1024 in 2 micro-batches,
+               the gate lowered to a micro-batch's 2048 tokens
+               (``mesh_mla_fsdp_ep``): each rank's held experts the
                block the reference's spec gives it, the bytes against
-               ``count_step``'s. Phases 39-43 share their spawns
+               ``count_step``'s (FSDP's gathers once a micro-batch),
+               B3-B5 2 / 2 / 2 a rank-step at 1 x 64 rows x heads and
+               1024 tokens, held against their plain versions there.
+               Phases 39-43 share their spawns
                (``run_card_ranks``): the (1, 2) ranks, then one world of 4
                ranks that runs (1, 4), both FSDP meshes, both MoE meshes,
                the MLA mesh and the MoE FSDP mesh in turn.
@@ -4839,9 +4848,11 @@ PROC_TIMEOUT_S = 600      # a rank still running then fails the phase
 # MLA steps over processes, the MoE family under FSDP, the
 # expert-parallel route's steps (phases 41 and 43; on this
 # machine's CPU they took ~36 s, ~35 s, ~20 s, ~25 s and ~20 s, which the
-# run's time cannot hold; the CPU tests hold them at every commit)
+# run's time cannot hold; the CPU tests hold them at every commit), and
+# the MoE step in micro-batches (phases 41 and 43's (2,2) steps; ~25 s)
 CARD_CASES = ("tp_train", "fsdp_train", "moe_train", "mla_train",
-              "mla_fsdp", "mla_fsdp_serve", "ep_train", "ep_serve")
+              "mla_fsdp", "mla_fsdp_serve", "ep_train", "ep_serve",
+              "moe_micro")
 
 
 def _process_cases():
@@ -5771,6 +5782,10 @@ MOE_CARD_MESHES = ((4, 1), (2, 2))    # (data, model): ranks on the one card
 # each rank runs the one-device step's products on its rows (another GEMM
 # height), on (2,2) the model axis splits the partial sums (bf16)
 MOE_LOSS_REL = {(4, 1): 1e-4, (2, 2): TP_LOSS_REL}
+# the micro-batches of each mesh's Trainer run: on (2,2) two of 2 x 2048,
+# one row a rank, each micro-batch one dispatch group of 4096 tokens (the
+# ranks' strips their blocks of it, ``train.step.micro_major``)
+MOE_ACCUM = {(4, 1): 1, (2, 2): 2}
 # the float32 witness's step at a capacity factor whose one group drops
 # pairs (from the initial state, where the routes agree); the share of a
 # step's (token, expert) pairs whose route may flip between a rank's
@@ -5781,6 +5796,11 @@ MOE_LOSS_REL = {(4, 1): 1e-4, (2, 2): TP_LOSS_REL}
 # ranks' router input rounded to bfloat16 (a fault) flips 1 pair of its
 # 1,024 (9.8e-4) at a gap of 6.8e-4
 DROP_CAPACITY = 0.5
+# phase 41's witnesses: the drop step and one step from the initial state
+# (the step after it, from the gathered state, is phase 42's second
+# witness step's check, and the CPU cases' in float64): paid for the
+# micro-batch steps of phases 41 and 43
+MOE_WITNESS_STEPS = 1
 FLIP_SHARE = 2.5e-5
 FLIP_REL = 3e-5
 
@@ -5825,15 +5845,18 @@ def check_witness(rows, d, m):
     return rel, flips
 
 
-# phase 41's expert-parallel step: 8 x TRAIN_SEQ = 16,384 global tokens,
-# the reference's own gate (nothing lowered): 48 padded experts over 2
-# lanes on (2,2), 4096 tokens a rank in one chunk
-EP_BATCH = 8
+# phase 41's expert-parallel step: 16 x TRAIN_SEQ in EP_ACCUM micro-batches
+# of 16,384 global tokens, the reference's own gate (nothing lowered): 48
+# padded experts over 2 lanes on (2,2), 4096 tokens a rank a micro-batch
+# in one chunk
+EP_BATCH = 16
+EP_ACCUM = 2
 
 
-def _ep_step(mesh, cfg, opt, rows, gate=None):
+def _ep_step(mesh, cfg, opt, rows, gate=None, grad_accum=1, seq=None):
     """One train step of ``cfg`` through ``Trainer(mesh=mesh)`` at ``rows``
-    x ``TRAIN_SEQ`` global tokens on the expert-parallel route (``gate``:
+    x ``seq`` (default ``TRAIN_SEQ``) global tokens in ``grad_accum``
+    micro-batches, each on the expert-parallel route (``gate``:
     ``DENSE_PATH_MAX_TOKENS`` lowered to it; None: the reference's own),
     counted by :func:`_moe_run`, with the payloads that ``compat``'s
     counts leave out recorded (the process cases' ``uncounted_recorder``).
@@ -5846,9 +5869,11 @@ def _ep_step(mesh, cfg, opt, rows, gate=None):
     import torch.distributed as dist
     from repro_torch.train.step import make_train_state_abstract
     pc = _process_cases()
-    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=rows,
+    seq = seq or TRAIN_SEQ
+    data = DataConfig(seq_len=seq, global_batch=rows,
                       vocab_size=cfg.vocab_size, seed=0)
-    tr = Trainer(cfg, opt, data, TrainerConfig(steps=1, log_every=1),
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=1, log_every=1,
+                                               grad_accum=grad_accum),
                  mesh=mesh, device=DEV)
     experts = None
     if cfg.moe.expert_parallel:
@@ -5860,7 +5885,8 @@ def _ep_step(mesh, cfg, opt, rows, gate=None):
         experts = [[held.start, held.stop], [block.start, block.stop]]
     with pc.ep_gate(gate or moe_mod.DENSE_PATH_MAX_TOKENS), \
             pc.uncounted_recorder() as uncounted:
-        assert moe_mod.ep_route(cfg, tr.ctx, rows * TRAIN_SEQ), (cfg, rows)
+        assert moe_mod.ep_route(cfg, tr.ctx, rows * seq // grad_accum), (
+            cfg, rows, seq, grad_accum)
         log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr)
     del tr
     free_memory()
@@ -5882,31 +5908,36 @@ def _ep_step(mesh, cfg, opt, rows, gate=None):
 
 
 def _hold_ep(smi, phase, r, cfg, shape, rows, gate, seed, results,
-             kernels=True):
+             grad_accum=1, seq=None):
     """The checks of an expert-parallel step (:func:`_ep_step`'s rank-0
-    results ``r``) of ``cfg`` on ``shape`` at ``rows`` x ``TRAIN_SEQ``
-    (``gate``: as there), and its line: a finite loss; B3-B5
-    ``train_launches`` on every rank, at the geometry of the rank's rows
-    and heads (with ``kernels``, each held against its plain version
-    there); 3 ``all_to_all`` a chunk a MoE layer a pass, and the re-lay's
-    3 a MoE layer a pass where the model axis splits the experts' FFN
-    (their backward: 2 a chunk and 3 a layer); the bytes by kind summed
-    over the ranks equal to ``count_step``'s for the cell at the same gate
-    times the ranks (the all-reduces less the grad norm's scalar and the
-    loss metrics' mean); each rank's experts the block the reference's
-    spec gives it; the payloads the counts leave out, the same calls on
-    every rank (the EP body's output gathered over model in the forward
-    and again in a checkpoint's recompute where the recompute runs past
-    it, which it ends once its saved tensors are back: granite's does
-    not, deepseek's shared expert does; its tokens' gradient gathered
-    once; the router's gradient summed over model once). Returns the
-    launches by path, summed over the ranks."""
+    results ``r``) of ``cfg`` on ``shape`` at ``rows`` x ``seq`` (default
+    ``TRAIN_SEQ``) in ``grad_accum`` micro-batches (``gate``: as there),
+    and its line: a finite loss; B3-B5 ``train_launches`` a micro-batch
+    on every rank, at the geometry of the rank's rows of a micro-batch
+    and its heads, each held against its plain version there; 3
+    ``all_to_all`` a chunk a MoE layer a pass a micro-batch, and the
+    re-lay's 3 a MoE layer a pass a micro-batch where the model axis
+    splits the experts' FFN (their backward: 2 a chunk and 3 a layer);
+    the bytes by kind summed over the ranks equal to
+    ``count_step``'s for the cell at the same gate in as many
+    micro-batches times the ranks (the all-reduces less the grad norm's
+    scalar and the loss metrics' mean; in micro-batches the batch's
+    micro-major all-gathers among them); each rank's experts the block
+    the reference's spec gives it; the payloads the counts leave out,
+    the same calls on every rank, a micro-batch (the EP body's output
+    gathered over model in the forward and again in a checkpoint's
+    recompute where the recompute runs past it, which it ends once its
+    saved tensors are back: granite's does not, deepseek's shared expert
+    does; its tokens' gradient gathered once; the router's gradient
+    summed over model once). Returns the launches by path, summed over
+    the ranks."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     pc = _process_cases()
+    seq = seq or TRAIN_SEQ
     d, m = shape
     n = d * m
-    per_step = train_launches(cfg)
+    per_step = {k: grad_accum * v for k, v in train_launches(cfg).items()}
     assert all(x == per_step for x in r["launches_by_rank"]), r
     launches = {k: sum(x[k] for x in r["launches_by_rank"])
                 for k in per_step}
@@ -5914,26 +5945,21 @@ def _hold_ep(smi, phase, r, cfg, shape, rows, gate, seed, results,
     seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
             for rank_geos in r["geometries_by_rank"]
             for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
-    rows_rank, heads = rows // d, cfg.n_heads_padded // m
-    if kernels:
-        geometries = check_path_attention(f"{phase} {shape}", seen,
-                                          rows_rank, heads, seed, results)
-    else:
-        geometries = sorted({g for _, g in seen}, key=str)
-        assert all(g[0] == rows_rank * heads for g in geometries), seen
-        geometries = [[*g[:4], str(g[4])[6:], *g[5:]] for g in geometries]
+    rows_rank, heads = rows // d // grad_accum, cfg.n_heads_padded // m
+    geometries = check_path_attention(f"{phase} {shape}", seen, rows_rank,
+                                      heads, seed, results)
     passes = 2 if cfg.remat == "full" else 1
-    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
-    chunks = -(-(rows * TRAIN_SEQ // n) // moe_mod.EP_CHUNK_TOKENS)
+    n_moe = (cfg.n_layers - cfg.moe.n_dense_layers) * grad_accum
+    chunks = -(-(rows * seq // grad_accum // n) // moe_mod.EP_CHUNK_TOKENS)
     relay = 0 if cfg.moe.expert_parallel else 3
     fwd, bwd = r["collectives"]
     assert fwd["all_to_all"]["calls"] == (3 * chunks + relay) * n_moe \
         * passes and bwd["all_to_all"]["calls"] == (2 * chunks + relay) \
         * n_moe, (fwd, bwd)
     with pc.ep_gate(gate or moe_mod.DENSE_PATH_MAX_TOKENS):
-        st = dryrun.count_step(cfg, ShapeConfig("train", TRAIN_SEQ, rows,
-                                                "train"),
-                               make_mesh(d, m), target="cuda")
+        st = dryrun.count_step(cfg, ShapeConfig("train", seq, rows, "train"),
+                               make_mesh(d, m), target="cuda",
+                               grad_accum=grad_accum)
     got = pc.by_kind(r["collectives"])
     metrics = 4 if cfg.mtp_depth else 3
     got["all-reduce"] -= pc.fsdp_extra(d, m, metrics) if cfg.fsdp \
@@ -5953,9 +5979,12 @@ def _hold_ep(smi, phase, r, cfg, shape, rows, gate, seed, results,
         == n_moe and 2 * n_moe <= calls[0]["all_gather"] \
         <= (passes + 1) * n_moe, unc
     emit(phase, gpu=smi, arch=cfg.name, mesh=list(shape), ranks=n,
-         n_layers=cfg.n_layers, batch=rows, seq_len=TRAIN_SEQ,
-         tokens=rows * TRAIN_SEQ, tokens_per_rank=rows * TRAIN_SEQ // n,
-         reduced={"DENSE_PATH_MAX_TOKENS": gate} if gate else {},
+         n_layers=cfg.n_layers, batch=rows, seq_len=seq,
+         grad_accum=grad_accum, tokens=rows * seq,
+         micro_batch_tokens=rows * seq // grad_accum,
+         tokens_per_rank=rows * seq // n,
+         reduced={**({"DENSE_PATH_MAX_TOKENS": gate} if gate else {}),
+                  **({"seq_len": seq} if seq != TRAIN_SEQ else {})},
          log=r["log"], drops_by_rank=r["drops_by_rank"],
          experts_by_rank=r["experts_by_rank"], launches=launches,
          launches_per_rank_step=per_step, geometries=geometries,
@@ -5979,18 +6008,27 @@ def _moe_mesh_cfgs():
     return dataclasses.replace(cfg, n_layers=MOE_MESH_LAYERS), opt
 
 
-def _moe_run(tr):
+def _moe_run(tr, micro=None, blocks=0):
     """``tr.run`` with the attention kernels' launches and geometries, the
     collectives and the peak memory counted from 0, and the pairs each
     step's dispatches dropped: (metrics log, launches, geometries seen,
     collectives (forward, backward), peak bytes, ms a step, drops a
-    step)."""
+    step). ``micro``: a list to which each step appends its drops by
+    micro-batch (``tr``'s ``grad_accum`` of them; with ``blocks``, each
+    micro-batch's by data block, ``drops_by_block``, where each dispatch
+    is one group)."""
+    pc = _process_cases()
     stamps, drops, log = [], [], []
+    n = tr.tcfg.grad_accum
 
     def on_step(m):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         drops.append(moe_mod.dropped_pairs(log))
+        if micro is not None:
+            micro.append([pc.drops_by_block(part, blocks) if blocks
+                          else moe_mod.dropped_pairs(part)
+                          for part in pc.micro_strips(log, n)])
         log.clear()
 
     torch.cuda.reset_peak_memory_stats()
@@ -6015,45 +6053,51 @@ def _moe_run(tr):
 
 def _moe_job(mesh):
     """Phase 41's work on one mesh, on every rank: granite-moe-3b-a800m as
-    :func:`_moe_mesh_cfgs` gives it through ``Trainer(mesh=mesh)``
-    (:func:`_moe_run`), then the float32 witness (at ``model > 1`` on the
-    expert-parallel route, against the stacked route's step), the
-    conditioned step and, at ``model > 1``, one step on the
-    expert-parallel route at ``EP_BATCH`` x ``TRAIN_SEQ`` tokens
-    (:func:`_ep_step`). Returns the results on rank 0, None on the
-    others."""
+    :func:`_moe_mesh_cfgs` gives it through ``Trainer(mesh=mesh)`` in
+    ``MOE_ACCUM`` micro-batches (:func:`_moe_run`), then the float32
+    witness (at ``model > 1`` on the expert-parallel route, against the
+    stacked route's step), the conditioned step and, at ``model > 1``,
+    one step on the expert-parallel route at ``EP_BATCH`` x ``TRAIN_SEQ``
+    tokens in ``EP_ACCUM`` micro-batches (:func:`_ep_step`). Returns the
+    results on rank 0, None on the others."""
     import torch.distributed as dist
     clock = _Clock()
     cfg, opt = _moe_mesh_cfgs()
     data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                       vocab_size=cfg.vocab_size, seed=0)
-    tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS, log_every=1),
+    accum = MOE_ACCUM[mesh.sizes]
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=TP_STEPS, log_every=1,
+                                               grad_accum=accum),
                  mesh=mesh, device=DEV)
-    log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr)
+    micro = []
+    log, launches, seen, counts, peak, step_ms, drops = _moe_run(tr, micro)
     del tr
     free_memory()
     clock.took("train")
     ep = mesh.shape["model"] > 1
-    fp32 = _tp_fp32_witness(mesh, opt, cfg=cfg,
-                            drop_capacity=DROP_CAPACITY, stacked=ep)
+    fp32 = _tp_fp32_witness(mesh, opt, cfg=cfg, drop_capacity=DROP_CAPACITY,
+                            steps=MOE_WITNESS_STEPS, stacked=ep)
     clock.took("witness")
     conditioned = _tp_conditioned(mesh, opt, cfg=cfg)
     clock.took("conditioned")
-    ep = _ep_step(mesh, cfg, opt, EP_BATCH) if ep else None
+    ep = _ep_step(mesh, cfg, opt, EP_BATCH, grad_accum=EP_ACCUM) if ep \
+        else None
     clock.took("ep")
     geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
                   for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
     every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, (launches, peak, geos, step_ms, drops))
+    dist.all_gather_object(every, (launches, peak, geos, step_ms, drops,
+                                   micro))
     if mesh.rank != 0:
         return None
     return {"backend": dist.get_backend(), "log": log, "fp32": fp32,
-            "conditioned": conditioned, "ep": ep,
+            "conditioned": conditioned, "ep": ep, "grad_accum": accum,
             "launches_by_rank": [e[0] for e in every],
             "peak_gb_by_rank": [e[1] / 1e9 for e in every],
             "geometries_by_rank": [e[2] for e in every],
             "step_ms_by_rank": [e[3] for e in every],
             "drops_by_rank": [e[4] for e in every],
+            "micro_drops_by_rank": [e[5] for e in every],
             "collectives": counts, "part_s": clock.seconds}
 
 
@@ -6082,16 +6126,23 @@ def phase_mesh_moe(smi, spawned=None):
     initial state whose
     drops are above 0 and each rank's block's); B3-B5 ``train_launches`` a
     step on every rank
-    at 1 x 32 (4,1) and 2 x 16 (2,2) rows x heads a launch, each held
+    at 1 x 32 (4,1) and 1 x 16 (2,2, a micro-batch) rows x heads a
+    launch, each held
     against its plain version at the geometry the path launched it at;
     the pairs each step's dispatches dropped, summed over the data ranks
     (the ranks of a data coordinate route the same tokens), equal to the
     one-device step's, and recorded by rank; the bytes by kind summed over
     the ranks equal to ``count_step``'s for the cell times the ranks (the
     all-reduces less the loss metrics' mean and the grad norm's scalar).
-    On (2, 2) the witness runs on the expert-parallel route against the
-    stacked route's step, and one step at ``EP_BATCH`` x ``TRAIN_SEQ``
-    takes the route at the reference's own gate (:func:`_hold_ep`).
+    On (2, 2) the Trainer runs in ``MOE_ACCUM`` micro-batches (each
+    rank's its block of the global micro-batch), held against the
+    one-device trainer in as many (the first step's loss, ce and aux;
+    each rank's drops in each micro-batch those of its data block; the
+    bytes against ``count_step(grad_accum=)``'s; B3-B5 at a micro-batch's
+    rows), the witness runs on the expert-parallel route against the
+    stacked route's step, and one step at ``EP_BATCH`` x ``TRAIN_SEQ`` in
+    ``EP_ACCUM`` micro-batches takes the route at the reference's own
+    gate in each (:func:`_hold_ep`).
     Recorded: ms a step and peak GB a rank (the ranks share one card and
     its host: no scaling figure), beside the card's name and power limit.
     ``spawned``: :func:`run_card_ranks`'s results (one spawn of its own
@@ -6127,25 +6178,50 @@ def phase_mesh_moe(smi, spawned=None):
              log=one, drops=one_drops, step_ms=one_ms,
              peak_gb=one_peak / 1e9, seconds=time.perf_counter() - t0)
         free_memory()
+        # the one-device trainer in the micro-batches of a mesh's run, the
+        # drops of each micro-batch by the mesh's data blocks
+        accum_runs = {}
+        for d, m in MOE_CARD_MESHES:
+            accum = MOE_ACCUM[d, m]
+            if accum == 1:
+                continue
+            t0, micro = time.perf_counter(), []
+            got = _moe_run(Trainer(cfg, opt, data, TrainerConfig(
+                steps=TP_STEPS, log_every=1, grad_accum=accum),
+                device=DEV), micro, blocks=d)
+            assert got[1] == {k: accum * TP_STEPS * v
+                              for k, v in per_step.items()}, got[1]
+            accum_runs[d, m] = {"log": got[0], "micro": micro,
+                                "step_ms": got[5], "peak_gb": got[4] / 1e9}
+            emit("mesh_moe_one_device_accum", gpu=smi, arch=cfg.name,
+                 n_layers=cfg.n_layers, batch=TRAIN_BATCH,
+                 seq_len=TRAIN_SEQ, grad_accum=accum, log=got[0],
+                 drops=got[6], drops_by_micro_and_block=micro,
+                 step_ms=got[5], peak_gb=got[4] / 1e9,
+                 seconds=time.perf_counter() - t0)
+            free_memory()
         for d, m in MOE_CARD_MESHES:
             r = spawned["moe", (d, m)]
             spawn_s = r["seconds"]
-            assert r["backend"] == "gloo", r["backend"]
-            want = {k: TP_STEPS * v for k, v in per_step.items()}
+            accum = MOE_ACCUM[d, m]
+            assert r["backend"] == "gloo" and r["grad_accum"] == accum, r
+            want = {k: TP_STEPS * accum * v for k, v in per_step.items()}
             assert all(x == want for x in r["launches_by_rank"]), r
             launches = {k: sum(x[k] for x in r["launches_by_rank"])
                         for k in per_step}
-            rows, heads = TRAIN_BATCH // d, cfg.n_heads_padded // m
+            rows, heads = TRAIN_BATCH // d // accum, cfg.n_heads_padded // m
             seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
                     for rank_geos in r["geometries_by_rank"]
                     for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
             geometries = check_path_attention(
                 f"mesh_moe ({d}, {m})", seen, rows, heads, 410 + n, results)
             got_log = r["log"]
-            rel = {k: abs(got_log[0][k] - one[0][k]) / abs(one[0][k])
+            ref_run = accum_runs[d, m] if accum > 1 else None
+            ref_log = ref_run["log"] if ref_run else one
+            rel = {k: abs(got_log[0][k] - ref_log[0][k]) / abs(ref_log[0][k])
                    for k in ("loss", "ce", "aux")}
             assert max(rel.values()) <= MOE_LOSS_REL[d, m], (rel, got_log,
-                                                             one)
+                                                             ref_log)
             cond = r["conditioned"]
             cond_rel = {k: abs(cond["tp"][k] - cond["one"][k])
                         / abs(cond["one"][k]) for k in ("loss", "grad_norm")}
@@ -6156,10 +6232,22 @@ def phase_mesh_moe(smi, spawned=None):
             by_data = [r["drops_by_rank"][i:i + m] for i in range(0, n, m)]
             assert all(b == b[:1] * m for b in by_data), r["drops_by_rank"]
             drops = [sum(b[0][i] for b in by_data) for i in range(TP_STEPS)]
-            assert drops == one_drops, (drops, one_drops, r["drops_by_rank"])
+            if ref_run:
+                # each rank's drops of each micro-batch: the one-device
+                # step's of its data block of that micro-batch
+                micro = r["micro_drops_by_rank"]
+                assert all(micro[rank][i] == [b[rank // m] for b in blocks]
+                           for rank in range(n)
+                           for i, blocks in enumerate(ref_run["micro"])), (
+                    micro, ref_run["micro"])
+                assert drops == [sum(map(sum, x)) for x in ref_run["micro"]]
+            else:
+                assert drops == one_drops, (drops, one_drops,
+                                            r["drops_by_rank"])
             st = dryrun.count_step(
                 cfg, ShapeConfig("train_4x2048", TRAIN_SEQ, TRAIN_BATCH,
-                                 "train"), make_mesh(d, m), target="cuda")
+                                 "train"), make_mesh(d, m), target="cuda",
+                grad_accum=accum)
             got = {k: v / TP_STEPS for k, v in pc.by_kind(
                 r["collectives"]).items()}
             got["all-reduce"] -= pc.norm_bytes(d, m) \
@@ -6172,29 +6260,36 @@ def phase_mesh_moe(smi, spawned=None):
             emit("mesh_moe", gpu=smi, arch=cfg.name, mesh=[d, m], ranks=n,
                  backend=r["backend"], n_layers=cfg.n_layers,
                  batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TP_STEPS,
-                 log=got_log, one_device_log=one, first_step_rel=rel,
+                 grad_accum=accum, log=got_log, one_device_log=ref_log,
+                 first_step_rel=rel,
+                 micro_drops_by_rank=r["micro_drops_by_rank"],
                  conditioned=cond, conditioned_rel=cond_rel,
                  fp32_witness=r["fp32"], fp32_rel=fp32_rel,
                  fp32_flips=flips, fp32_limit=TP_FP32_REL,
                  flip_share_limit=FLIP_SHARE, flip_rel_limit=FLIP_REL,
-                 witness_reduced={"DENSE_PATH_MAX_TOKENS": TRAIN_BATCH
-                                  * WITNESS_SEQ} if m > 1 else {},
+                 witness_reduced={"steps": MOE_WITNESS_STEPS, **(
+                     {"DENSE_PATH_MAX_TOKENS": TRAIN_BATCH * WITNESS_SEQ}
+                     if m > 1 else {})},
                  drops_by_rank=r["drops_by_rank"], drops=drops,
                  one_device_drops=one_drops, launches=launches,
-                 launches_per_rank_step=per_step, geometries=geometries,
+                 launches_per_rank_step={k: accum * v
+                                         for k, v in per_step.items()},
+                 geometries=geometries,
                  rows_per_launch=rows, heads_per_launch=heads,
                  collectives=r["collectives"], bytes_per_step=got,
                  count_step_bytes=want_bytes,
                  step_ms_by_rank=r["step_ms_by_rank"],
                  steady_step_ms_by_rank=steady,
                  peak_gb_by_rank=r["peak_gb_by_rank"],
-                 one_device_step_ms=one_ms,
-                 one_device_peak_gb=one_peak / 1e9, part_seconds=r["part_s"],
+                 one_device_step_ms=ref_run["step_ms"] if ref_run
+                 else one_ms, one_device_peak_gb=ref_run["peak_gb"]
+                 if ref_run else one_peak / 1e9, part_seconds=r["part_s"],
                  seconds=spawn_s)
             by_path[f"mesh_moe ({d}, {m})"] = launches
             if r["ep"] is not None:
                 by_path.update(_hold_ep(smi, "mesh_moe_ep", r["ep"], cfg,
-                                        (d, m), EP_BATCH, None, 415, results))
+                                        (d, m), EP_BATCH, None, 415, results,
+                                        grad_accum=EP_ACCUM))
             free_memory()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6233,6 +6328,10 @@ MLA_FSDP_STEPS = 1
 # the CPU): a float32 step under FSDP moves ~6 GB through gloo
 MLA_FSDP_WITNESS_STEPS = 1
 MLA_SERVE = dict(prompt=64, steps=2)   # two prompts, float32 compute
+# phase 43's expert-parallel step: 4 x 1024 in 2 micro-batches of 2048
+# tokens (one row a rank), the gate lowered to a micro-batch's tokens
+MLA_EP = dict(batch=4, seq=1024, grad_accum=2)
+MLA_EP_GATE = MLA_EP["batch"] * MLA_EP["seq"] // MLA_EP["grad_accum"]
 
 
 def _mla_mesh_cfgs(fsdp=False):
@@ -6312,8 +6411,8 @@ def _mla_job(mesh, out_path, fsdp=False):
     the expert-parallel route, against the stacked route's step), one
     step from ``_conditioned`` parameters, the serve steps
     (:func:`_mla_serve`) and, with ``fsdp``, one step on the
-    expert-parallel route at ``MLA_BATCH`` x ``TRAIN_SEQ`` tokens, the
-    gate lowered to them (:func:`_ep_step`).
+    expert-parallel route at ``MLA_EP``'s tokens in its micro-batches,
+    the gate lowered to a micro-batch's (:func:`_ep_step`).
     The one-device steps run in the parent afterwards
     (:func:`mla_one_device_record`). Returns the results on rank 0 (the
     serve logits saved beside ``out_path``, the seconds of each part),
@@ -6346,8 +6445,8 @@ def _mla_job(mesh, out_path, fsdp=False):
     clock.took("conditioned")
     serve, serve_counts = _mla_serve(cfg, mesh)
     clock.took("serve")
-    ep = _ep_step(mesh, cfg, opt, MLA_BATCH, MLA_BATCH * TRAIN_SEQ) \
-        if fsdp else None
+    ep = _ep_step(mesh, cfg, opt, MLA_EP["batch"], MLA_EP_GATE,
+                  MLA_EP["grad_accum"], MLA_EP["seq"]) if fsdp else None
     clock.took("ep")
     geos = sorted([n, g, sq, sk, d, str(dt)[6:], c, bq, bk]
                   for n, (g, sq, sk, d, dt, c, bq, bk) in seen)
@@ -6482,11 +6581,10 @@ def _hold_mla_job(smi, phase, mesh_shape, r, one, fsdp):
         serve_bytes.append(sgot)
     by_path = {f"{phase} {mesh_shape}": launches}
     if r["ep"] is not None:
-        # the train step's geometry, whose kernels are held above
-        assert r["ep"]["geometries_by_rank"] == r["geometries_by_rank"], r
         by_path.update(_hold_ep(smi, f"{phase}_ep", r["ep"], cfg, mesh_shape,
-                                MLA_BATCH, MLA_BATCH * TRAIN_SEQ, 435,
-                                results, kernels=False))
+                                MLA_EP["batch"], MLA_EP_GATE, 435, results,
+                                grad_accum=MLA_EP["grad_accum"],
+                                seq=MLA_EP["seq"]))
     # a step after the first: the train's own, or the conditioned step
     steady = [statistics.mean(x[1:]) for x in r["step_ms_by_rank"]] \
         if steps > 1 else [cond["tp"]["step_ms"]]
@@ -6604,7 +6702,10 @@ def phase_mesh_mla_fsdp(smi, spawned=None, one=None):
     reduce-scatters; the all-reduces less the grad norm's scalar over
     every rank and the loss metrics' mean; the serve steps' two logits
     all-gathers); the prefill and two absorbed decode steps (each data
-    rank its prompt) against the one-device logits. Recorded: ms a step,
+    rank its prompt) against the one-device logits; one step on the
+    expert-parallel route at ``MLA_EP`` (4 x 1024 in two micro-batches,
+    the gate lowered to a micro-batch's 2048 tokens, FSDP's gathers once
+    a micro-batch), B3-B5 held at its geometry. Recorded: ms a step,
     peak and state GB a rank, beside the card's name and power limit.
     Returns the launches by path, summed over the ranks."""
     return _mla_phase(smi, "mesh_mla_fsdp", MLA_FSDP_MESH, spawned, one,

@@ -732,7 +732,7 @@ def _sanitize(spec, t, sizes):
 
 
 def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
-            params=None, target: str = "cuda") -> StepStats:
+            params=None, target: str = "cuda", strips: int = 1) -> StepStats:
     """Run ``fn(*args)`` under the counting mode and return its
     :class:`StepStats`, per device of a mesh of ``n_devices``.
 
@@ -744,7 +744,12 @@ def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
     ``state["params"]``). ``target`` is "cuda" or "cpu": the device whose
     routes ``meta`` tensors take. The arguments are usually ``meta``
     tensors; on real tensors the step runs for real (and updates a train
-    state in place), and the count is the same."""
+    state in place), and the count is the same. ``strips``: the
+    micro-batches a train step runs its forward and backward in
+    (``grad_accum``): FSDP's gathers and reduce-scatters are counted once
+    a strip, as the ranks run them, the gradient reductions once a step
+    (what ``fn`` runs itself, compat's collectives and the derived
+    all-reduces of the products, is counted as it runs)."""
     if target not in ("cuda", "cpu"):
         raise ValueError(f"analyze: target must be 'cuda' or 'cpu', got "
                          f"{target!r}")
@@ -808,9 +813,10 @@ def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
             gathers = (k in run.read_fwd) + (k in run.read_bwd)
             if gathers:
                 st.add_collective("all-gather", shard * g_f, g_f, label,
-                                  times=gathers)
+                                  times=gathers * strips)
             if run.backward_ran:
-                st.add_collective("reduce-scatter", shard, g_f, label)
+                st.add_collective("reduce-scatter", shard, g_f, label,
+                                  times=strips)
         # over the batch axes that replicate the leaf, and over model for a
         # leaf replicated there that the forward applied to an activation
         # split over it (its gradient is partial or sliced on each device);

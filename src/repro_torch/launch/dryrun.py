@@ -47,12 +47,17 @@ def cell_config(cfg, shape, overrides: dict | None = None):
     return cfg
 
 
-def count_step(cfg, shape, mesh, batch_axes=("data",), target="cuda"):
+def count_step(cfg, shape, mesh, batch_axes=("data",), target="cuda",
+               grad_accum=1):
     """The :class:`core.step_analysis.StepStats` of ``cfg``'s step for
     ``shape`` (train, prefill or decode) per device of ``mesh``, built from
     the same specs as the reference's dry run, on ``meta`` tensors, with
     the routes of ``target`` ("cuda": the card's; "cpu": the host's, which
-    the reference's host devices take)."""
+    the reference's host devices take). ``grad_accum``: a train step in
+    that many micro-batches, as the ranks run it (each strip's FSDP
+    gathers and reduce-scatters, dispatch gathers and all-to-alls; a MoE
+    model's batch re-laid micro-major once, ``train.step.micro_major``;
+    the gradient mean once)."""
     from repro_torch.core.precision import torch_dtype
     from repro_torch.core.step_analysis import analyze
     from repro_torch.models import transformer as tf
@@ -66,11 +71,12 @@ def count_step(cfg, shape, mesh, batch_axes=("data",), target="cuda"):
     count = dict(n_devices=math.prod(mesh.sizes), mesh=mesh, target=target)
     if shape.kind == "train":
         opt_cfg = adamw.OptConfig(moment_dtype=cfg.opt_state_dtype)
-        bundle = step_lib.make_train_step(cfg, opt_cfg, ctx)
+        bundle = step_lib.make_train_step(cfg, opt_cfg, ctx,
+                                          grad_accum=grad_accum)
         state = bundle.abstract_state
         return analyze(bundle.step_fn, state, specs_in,
                        specs=(bundle.state_specs, bundle.batch_specs),
-                       params=state["params"], **count)
+                       params=state["params"], strips=grad_accum, **count)
     aparams = abstract_params(tf.model_template(cfg),
                               torch_dtype(cfg.param_dtype))
     pspecs = step_lib.train_state_specs(cfg, ctx)["params"]

@@ -14,13 +14,18 @@ Under ``torchrun`` (``WORLD_SIZE`` in the environment) ``--data D --model
 M`` takes a mesh of processes instead (``launch.mesh.make_process_mesh``:
 NCCL on the cards, gloo with ``--device cpu``) and trains data-parallel
 over ``data``, each rank on its block of the batch, and, for the dense
-family and the MoE family without MLA at M > 1, tensor-parallel over
-``model``, each rank on its blocks of the parameters; the kernels are built by each machine's local rank 0
-while the others wait, and only rank 0 prints and writes checkpoints (the
-whole state, gathered):
+and MoE families at M > 1, tensor-parallel over ``model``, each rank on
+its blocks of the parameters (with ``--grad-accum`` a MoE model's rows
+re-laid so that each micro-batch is the global one's,
+``train.step.micro_major``); the kernels are built by each machine's
+local rank 0 while the others wait, and only rank 0 prints and writes
+checkpoints (the whole state, gathered):
 
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
       --reduced --device cpu --data 2 --model 2 --steps 3
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --reduced --arch granite-moe-3b-a800m --device cpu --data 2 \
+      --model 2 --grad-accum 2 --steps 3
 
 ``--reduced --device cpu`` runs the smoke-scale config on the CPU as a
 rehearsal. With ``--ckpt-dir`` the run saves every ``--ckpt-every`` steps

@@ -52,9 +52,15 @@ the mean moves every padded slot (:func:`takes_ep`); with ``cfg.fsdp``
 (deepseek-v3-671b as configured) its steps are FSDP as the dense
 family's, each MoE layer gathering the rank's ``model`` block of its
 leaves (of a padded expert table, on the one-hot dispatch, the live
-experts' rows alone), the MTP module its own. FSDP of the other
-families, the SSM, hybrid, vision and encoder-decoder families at
-``model > 1`` and a MoE step in micro-batches over data raise
+experts' rows alone), the MTP module its own. In micro-batches
+(``grad_accum``) a MoE model's step first re-lays the rank's rows
+micro-major (:func:`micro_major`: the token and label ids gathered over
+the batch axes, each rank keeping its block of every global
+micro-batch), so that each strip's dispatch group, capacities,
+expert-parallel lanes and aux loss are the one-device micro-batch's; a
+micro-batch whose rows the batch axes do not split raises
+``ValueError``. FSDP of the other families and the SSM, hybrid, vision
+and encoder-decoder families at ``model > 1`` raise
 ``NotImplementedError`` naming their queue item.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
@@ -88,7 +94,8 @@ from repro_torch.core.compat import entry_axes
 from repro_torch.core.precision import torch_dtype
 from repro_torch.core.stripmine import stripmined_grads
 from repro_torch.models import transformer as tf
-from repro_torch.models.moe import EXPERT_TABLES, ep_route, global_tokens
+from repro_torch.models.moe import (EXPERT_TABLES, ep_route, global_tokens,
+                                    row_blocks)
 from repro_torch.models.layers import (P, abstract_params, param_specs,
                                        tree_leaves, tree_map,
                                        value_and_grad)
@@ -214,30 +221,63 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
             "opt": {"m": pspecs, "v": pspecs, "step": PS()}}
 
 
-def _check_process_route(cfg: ArchConfig, ctx: MeshCtx, grad_accum: int):
+def _check_process_route(cfg: ArchConfig, ctx: MeshCtx):
     """What the process route trains: the data-parallel step of every
     family, and the dense and the MoE families' tensor-parallel step
     (``model > 1``; MLA's heads, the experts or their FFN split over it,
     on the one-hot dispatch or the expert-parallel route) and FSDP step
     (``fsdp=True``; every embed, q_lora and kv_lora dimension over the
-    batch axes too). Anything else raises ``NotImplementedError`` naming
-    its queue item (FSDP of the other families), as does a MoE model's
-    step in micro-batches over batch axes above 1, on either route: a
-    rank's micro-batch holds other global rows than the one-device
-    step's, and the dispatch group (or the expert-parallel route's lanes)
-    and the aux loss couple them."""
+    batch axes too), each in micro-batches too (a MoE model's re-laid
+    micro-major, :func:`micro_major`, which raises ``ValueError`` where
+    the batch axes do not split a micro-batch's rows). Anything else
+    raises ``NotImplementedError`` naming its queue item (FSDP of the
+    other families)."""
     check_fsdp(cfg, ctx)
     check_tensor_parallel(cfg, ctx, train=True)
-    n = math.prod(ctx.axis_sizes[a] for a in ctx.batch_axes
-                  if a in ctx.axis_sizes)
-    if cfg.is_moe and grad_accum > 1 and n > 1:
-        raise NotImplementedError(
-            f"{cfg.name} on a process mesh: grad_accum={grad_accum} over "
-            f"{n} data ranks would route and group each rank's "
-            f"micro-batch, which holds other rows of the global batch than "
-            f"the one-device micro-batch; the MoE step in micro-batches "
-            f"over processes (ROADMAP Queue A, A13c item 2.3b) is not "
-            f"ported")
+
+
+def micro_major(cfg: ArchConfig, ctx: MeshCtx, batch: dict,
+                grad_accum: int) -> dict:
+    """``batch`` (on a process mesh whose batch axes are local, the rank's
+    block of rows) laid so that its contiguous strip ``i`` of
+    ``grad_accum`` is the rank's block of the global micro-batch ``i``, as
+    the reference's ``stripmined_grads`` cuts the global batch: global
+    rows ``[i mb + r mb/d, i mb + (r+1) mb/d)`` for ``mb = B / grad_accum``
+    and the rank's block ``r`` of ``d`` along the batch axes. A MoE
+    model's micro-batch couples its rows (the one-hot dispatch's group and
+    capacities, the expert-parallel route's gate and lanes, the aux loss's
+    ``f``), so its step needs them; a dense model's rows are independent
+    and keep the rank's contiguous strips. On a process mesh each leaf is
+    gathered over the batch axes (``compat.gather_blocks``: one counted
+    all-gather a leaf) and the rank keeps its rows; a micro-batch of rows
+    that the batch axes do not split raises ``ValueError`` (the reference
+    runs it through its partitioner). On the stacked route the batch is
+    global, its strips already the global micro-batches: returned as it
+    is, the ranks' gathers counted."""
+    if not cfg.is_moe or grad_accum == 1:
+        return batch
+    rows = batch["tokens"].shape[0]
+    mesh, axes, d, held = row_blocks(ctx, rows)
+    if d == 1:
+        return batch
+    if held == d:
+        for v in batch.values():
+            compat.gather_blocks(v, mesh, axes)
+        return batch
+    if rows % grad_accum:
+        raise ValueError(
+            f"{cfg.name} on a process mesh: grad_accum={grad_accum} cuts the "
+            f"global batch's {rows * d} rows into micro-batches of "
+            f"{rows * d / grad_accum:g} rows, which {d} data ranks do not "
+            f"split evenly (ROADMAP Queue C)")
+    r = mesh.block(axes)
+
+    def relay(v):
+        whole = compat.gather_blocks(v, mesh, axes)
+        lead = (grad_accum, d, rows // grad_accum)
+        return whole.reshape(lead + whole.shape[1:])[:, r].reshape(
+            (rows,) + whole.shape[1:])
+    return {k: relay(v) for k, v in batch.items()}
 
 
 def live_slices(cfg: ArchConfig, tree, tp=None, ep: bool = False) -> dict:
@@ -335,7 +375,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
     abstract = make_train_state_abstract(cfg, opt_cfg)
     norm = None
     if process:
-        _check_process_route(cfg, ctx, grad_accum)
+        _check_process_route(cfg, ctx)
         ctx = dataclasses.replace(
             ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
     fs = fsdp_split(cfg, ctx)
@@ -358,7 +398,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
         params = state["params"]
         if grad_accum > 1:
             (loss, metrics), grads = stripmined_grads(
-                loss_fn, params, batch, grad_accum)
+                loss_fn, params, micro_major(cfg, ctx, batch, grad_accum),
+                grad_accum)
         else:
             (loss, metrics), grads = value_and_grad(loss_fn)(params, batch)
         if process:

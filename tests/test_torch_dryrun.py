@@ -97,9 +97,15 @@ CELLS = {
     # the experts' FFN blocks as blocks of the experts
     "granite-moe-3b-a800m train 2x2 ep": ("granite-moe-3b-a800m", "train",
                                           2, 2),
+    # the step in 2 micro-batches (ACCUM): the port's ranks re-lay the
+    # batch micro-major and run each strip's dispatch gathers
+    "granite-moe-3b-a800m train 2x2 accum2": ("granite-moe-3b-a800m",
+                                              "train", 2, 2),
 }
 # DENSE_PATH_MAX_TOKENS of a cell where it is not the packages' 16384
 GATES = {"granite-moe-3b-a800m train 2x2 ep": 8 * 64}
+# grad_accum of a cell where it is not 1
+ACCUM = {"granite-moe-3b-a800m train 2x2 accum2": 2}
 FLOPS_TOL = 0.01
 # tinyllama-1.1b's train step and granite-moe-3b-a800m's on (1,4) within
 # 1e-4: the count derives the cross-entropy's reductions over the
@@ -128,6 +134,10 @@ FLOPS_PINNED = {
     "granite-moe-3b-a800m train 4x1": 0.77992,
     "granite-moe-3b-a800m train 1x4": 0.43776,
     "granite-moe-3b-a800m train 2x2": 0.65812,
+    # in 2 micro-batches a group holds half the tokens at half the
+    # capacity: the port's even split counts 381 M a device (488 M in one
+    # batch), the reference's scan runs 968 M (741 M in one batch)
+    "granite-moe-3b-a800m train 2x2 accum2": 0.39334,
 }
 # collective bytes a device, port / reference, pinned at the measured
 # ratio: (all kinds, all-reduce alone, cause). The reference's kinds that
@@ -206,6 +216,20 @@ COLL_PINNED = {
         "tuples of gradients and activations (3,445,688) where the port "
         "derives the tensor-parallel activation all-reduces and every "
         "padded slot's gradient mean (3,348,760)"),
+    "granite-moe-3b-a800m train 2x2 accum2": (
+        0.95899, 0.95895,
+        "the micro-major batch: the reference's partitioner lays the "
+        "reshaped (2, 4, 64) token and label ids out over data by "
+        "collective-permutes (2,048 bytes a device: each data rank swaps "
+        "the half of its rows that belongs to the other rank's block of "
+        "each micro-batch), where the port's ranks all-gather the ids "
+        "(2,048 bytes a device, counted all-gather) and keep their rows; "
+        "beside them the port all-gathers the per-expert counts once a "
+        "strip (64), and the reference all-reduces 3,287,072 (its "
+        "dispatch buffers over data in each strip, gradient tuples "
+        "2,172,960) where the port moves 3,152,128, each strip's "
+        "tensor-parallel all-reduces and the gradient mean once, the same "
+        "bytes as in one batch"),
     "2x2 fsdp": (
         0.36775, 0.45062,
         "FSDP on (2,2) (open fault 2 on a second mesh): the port's ranks "
@@ -240,6 +264,7 @@ SHORT = {
     "granite-moe-3b-a800m train 4x1": _MOE,
     "granite-moe-3b-a800m train 1x4": _MOE,
     "granite-moe-3b-a800m train 2x2": _MOE,
+    "granite-moe-3b-a800m train 2x2 accum2": _MOE,
     "zamba2-7b train 1x4": ["collective: ssm resharding under model"],
     "4x1 fsdp": ["collective: fsdp"],
     "2x2 fsdp": ["collective: fsdp"],
@@ -267,13 +292,14 @@ from repro.optim import adamw
 from repro.train import step as step_lib
 
 
-def compile_cell(cfg, shape, mesh):
+def compile_cell(cfg, shape, mesh, grad_accum=1):
     ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
     specs_in = tf.input_specs(cfg, shape)
     with mesh:
         if shape.kind == "train":
             b = step_lib.make_train_step(
-                cfg, adamw.OptConfig(moment_dtype=cfg.opt_state_dtype), ctx)
+                cfg, adamw.OptConfig(moment_dtype=cfg.opt_state_dtype), ctx,
+                grad_accum=grad_accum)
             st = step_lib.named_for(b.state_specs, b.abstract_state, mesh)
             bt = step_lib.named_for(b.batch_specs, specs_in, mesh)
             low = jax.jit(b.step_fn, in_shardings=(st, bt),
@@ -324,7 +350,8 @@ from repro.models import moe as moe_mod
 for key, (a, kind, d, m, *over) in %(cells)r.items():
     moe_mod.DENSE_PATH_MAX_TOKENS = %(gates)r.get(key, 16384)
     out[key] = compile_cell(reduced(get_config(a), **(over or [{}])[0]),
-                            ShapeConfig(kind, 64, 8, kind), make_mesh(d, m))
+                            ShapeConfig(kind, 64, 8, kind), make_mesh(d, m),
+                            %(accum)r.get(key, 1))
 moe_mod.DENSE_PATH_MAX_TOKENS = 16384
 # the backward of a shard_map's psum / pmean: the gradient program alone
 from jax.sharding import PartitionSpec as P
@@ -342,7 +369,7 @@ for kind in ("psum", "pmean"):
         analyze(comp.as_text(), n_devices=4).collective_by_kind)
 print("REF", json.dumps(out))
 ''' % {"archs": ARCHS, "kinds": KINDS, "meshes": MESHES, "cells": CELLS,
-       "gates": GATES}
+       "gates": GATES, "accum": ACCUM}
 
 
 @pytest.fixture(scope="module")
@@ -370,13 +397,15 @@ def _cell(key):
 @functools.lru_cache(maxsize=None)
 def _count(key, target="cpu"):
     """The port's count of the reference's cell ``key``: the dry run's own
-    ``count_step``, with the host's routes (and the cell's gate); each
-    cell counted once a process (the tests read it)."""
+    ``count_step``, with the host's routes (and the cell's gate and
+    micro-batches); each cell counted once a process (the tests read
+    it)."""
     cfg, shape, mesh = _cell(key)
     saved = moe.DENSE_PATH_MAX_TOKENS
     moe.DENSE_PATH_MAX_TOKENS = GATES.get(key, saved)
     try:
-        return dryrun.count_step(cfg, shape, mesh, target=target)
+        return dryrun.count_step(cfg, shape, mesh, target=target,
+                                 grad_accum=ACCUM.get(key, 1))
     finally:
         moe.DENSE_PATH_MAX_TOKENS = saved
 

@@ -46,6 +46,11 @@ and, as configured, on (2,2); granite-moe-3b-a800m's FFN blocks re-laid
 on (1,4) and (2,2)) trained against the stacked route's step and served
 against its serve steps, the bytes against the dry run's count, drops,
 a planted fault, what the counts leave out and checkpoints;
+the MoE step in micro-batches (each rank's strip its data block of the
+global micro-batch) on the one-hot dispatch and the expert-parallel
+route, with and without FSDP, against the one-device or the stacked
+step in as many micro-batches, the bytes against the dry run's count in
+micro-batches, drops by micro-batch, a planted fault and checkpoints;
 and what the route refuses.
 The reference runs once a session, in ``tests/test_torch_mesh.py``'s
 subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
@@ -223,16 +228,16 @@ def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
 
 
 def test_what_the_process_route_refuses(res):
-    """A wrong world size, SSM configs at model > 1, a KV cache split over
-    kv_seq, a MoE step in micro-batches over data ranks (also under FSDP,
-    and on the expert-parallel route), FSDP of
+    """A wrong world size, the SSM and cross families and heads the model
+    axis does not divide at model > 1, a KV cache split over kv_seq, a MoE
+    step in micro-batches whose rows the data ranks do not split, FSDP of
     the hybrid and vision families and of the serving engine (also of a
     MoE model), a collective outside a body, and device "cuda" on the
     gloo group, each with its own text."""
     got = _case(res, "refusals")
     assert got["outside"] == "a collective runs only inside shard_map's body"
-    assert "deepseek-v3-671b on a process mesh: grad_accum=2" in got["moe"]
-    assert "granite-moe-3b-a800m on a process mesh" in got["tp_moe"]
+    assert "grad_accum=4 cuts the global batch's 8 rows into micro-batches " \
+        "of 2 rows, which 4 data ranks" in got["accum_rows"]
     pc.check("refusals", got)
 
 
@@ -294,14 +299,13 @@ def test_tensor_parallel_engine_emits_the_same_tokens_on_every_rank(res):
     pc.check_tp_engine(_case(res, "tp_serve"))
 
 
-@pytest.mark.parametrize("key", ["tp_moe", "tp_moe_serve", "tp_mla",
+@pytest.mark.parametrize("key", ["tp_vlm", "tp_audio", "tp_odd",
                                  "tp_ssm", "tp_kv_seq"])
 def test_tensor_parallel_refusals_name_their_queue_item(res, key):
-    """On model > 1: the MoE step on the expert-parallel route in
-    micro-batches over the data ranks of (2,2) (granite-moe-3b-a800m with
-    fsdp=True, deepseek-v3-671b as configured and with fsdp=False), SSM
-    configs, and a KV cache that the reference splits over kv_seq, each
-    a NotImplementedError naming its queue item."""
+    """On model > 1: llama-3.2-vision-11b's and seamless-m4t-medium's
+    cross layers on (1,4), a dense config whose 6 heads 4 ranks do not
+    divide, SSM configs, and a KV cache that the reference splits over
+    kv_seq, each a NotImplementedError naming its queue item (2.6)."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2." in got, got
@@ -602,18 +606,58 @@ def test_moe_fsdp_serve_bytes_equal_the_dry_runs_count(res):
     pc.check_mla_fsdp_serve_bytes(_case(res, "mla_fsdp_serve"))
 
 
-@pytest.mark.parametrize("key", ["moe", "tp_moe", "tp_moe_serve", "tp_mla",
-                                 "moe_accum"])
-def test_moe_refusals_name_item_2_3b(res, key):
-    """What item 2.3b still refuses (slice 4): a MoE step in micro-batches
-    over data ranks, on the one-hot dispatch or the expert-parallel
-    route: deepseek-v3-671b as configured (FSDP) on (4,1) and on (2,2),
-    with fsdp=False on (2,2), granite-moe-3b-a800m on (2,2) and with
-    fsdp=True on (2,2), at a gate that the micro-batch reaches: each a
-    NotImplementedError naming item 2.3b."""
-    got = _case(res, "refusals")[key]
-    assert got is not None and pc.refusal_texts()[key] in got, got
-    assert "A13c item 2.3b" in got, got
+@pytest.mark.parametrize("key", list(pc.micro_cells()))
+def test_moe_step_in_micro_batches_matches_the_one_device_step(res, key):
+    """The MoE step in 2 micro-batches over processes, each rank's strip
+    its data block of the global micro-batch (the re-lay of
+    ``train.step.micro_major``): deepseek-v3-671b as configured (FSDP) on
+    (4,1) and granite-moe-3b-a800m on (2,2) on the one-hot dispatch,
+    against the one-device step in 2 micro-batches; deepseek-v3-671b as
+    configured, granite-moe-3b-a800m with fsdp=True (its FFN blocks
+    re-laid) and deepseek-v3-671b with fsdp=False on (2,2) on the
+    expert-parallel route (the gate lowered to a micro-batch's 128
+    tokens), against the stacked route's step in 2 micro-batches. 3
+    steps each from the same state: float64 within 1e-10 (metrics and
+    parameters), float32 metrics within 1e-6 or twice what float32
+    resolves of float64; no route flipped; each rank's drops its
+    device's (expert-parallel) or, in each micro-batch, its data
+    block's (one-hot)."""
+    pc.check_micro_cell(_case(res, "moe_micro"), key)
+
+
+@pytest.mark.parametrize("key", list(pc.micro_cells()))
+def test_moe_micro_bytes_equal_the_dry_runs_count(res, key):
+    """The ranks' bytes by kind, summed, equal to the dry run's count of
+    the same cell in 2 micro-batches times the ranks: each strip's FSDP
+    gathers and reduce-scatters, dispatch gathers, all-to-alls and
+    re-lays of the experts, the batch's micro-major all-gathers once, the
+    gradient mean once; beside them the grad norm's scalar and the loss
+    metrics' mean."""
+    got = pc.check_micro_bytes(_case(res, "moe_micro"), key)
+    assert got["all-gather"] > 0, got
+
+
+def test_moe_micro_step_where_capacity_drops_pairs(res):
+    """Capacity factor 0.5, granite-moe-3b-a800m on (2,2), one float64
+    step in 2 micro-batches: each rank's drops in each micro-batch are
+    the one-device step's drops of its data block of that micro-batch,
+    and every micro-batch drops pairs."""
+    pc.check_micro_dropping(_case(res, "moe_micro"))
+
+
+def test_moe_micro_step_without_the_relay_is_caught(res):
+    """The check is not vacuous: the same (2,2) granite step on each
+    rank's contiguous strips (no re-lay) misses the one-device step's
+    aux or parameters by more than 1e-10."""
+    pc.check_micro_fault(_case(res, "moe_micro"))
+
+
+def test_moe_micro_checkpoints_move_to_one_device_and_back(res):
+    """A (2,2) granite-moe-3b-a800m trainer in 2 micro-batches takes 2
+    steps; its checkpoint (the global state, gathered to rank 0) is
+    restored by the one-device trainer, and a one-device checkpoint on
+    (2,2) (each rank its blocks), byte for byte."""
+    pc.check_tp_ckpt(_case(res, "moe_micro"), pc.MICRO_CKPT_STEPS)
 
 
 @pytest.mark.parametrize("tag", ["(1, 2)", "(2, 2)"])

@@ -132,10 +132,17 @@ EP_REFERENCE_GATE = 32
 # the serve steps: 4 prompts of 8 tokens (the prefill's 32 at the gate),
 # then 2 decode steps (4 tokens: the one-hot dispatch)
 EP_SERVE = dict(batch=4, prompt=8, steps=2)
+# the MoE step in micro-batches over processes: grad_accum=2 on the cases'
+# 8 x 32 (a micro-batch of 4 x 32), each rank's strip its data block of the
+# global micro-batch (``train.step.micro_major``); on the expert-parallel
+# route the gate lowered to a micro-batch's 128 tokens (``micro_cells``)
+MICRO = 2
+MICRO_GATE = EP_GATE // MICRO
+MICRO_CKPT_STEPS = 2
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "held", "dp_train", "tp_train", "tp_serve",
          "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "mla_fsdp",
-         "mla_fsdp_serve", "ep_train", "ep_serve", "refusals")
+         "mla_fsdp_serve", "ep_train", "ep_serve", "moe_micro", "refusals")
 
 
 # ---------------------------------------------------------------------------
@@ -477,12 +484,12 @@ def case_local_axes(rank, meshes, out_dir):
     return {"global": _both(rank, pmesh, run), "data": d, "local": local}
 
 
-def _dp_run(cfg, mesh, tmp, ckpt_every=0, steps=DP["steps"]):
+def _dp_run(cfg, mesh, tmp, ckpt_every=0, steps=DP["steps"], grad_accum=1):
     data = DataConfig(seq_len=DP["seq_len"], global_batch=DP["global_batch"],
                       vocab_size=cfg.vocab_size)
     opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1, decay_steps=steps)
     tcfg = TrainerConfig(steps=steps, log_every=1, ckpt_dir=tmp,
-                         ckpt_every=ckpt_every or 50)
+                         ckpt_every=ckpt_every or 50, grad_accum=grad_accum)
     trainer = Trainer(cfg, opt, data, tcfg, mesh=mesh, device="cpu")
     compat.reset_counts()
     _, state = trainer.run()
@@ -590,10 +597,13 @@ def _tp_step_by_step(cfg, mesh, steps=DP["steps"], grad_accum=1):
             "leaves": len(crcs)}
 
 
-def _tp_trajectory(cfg, mesh, ckpt_dir=None):
-    """Three steps through ``Trainer.run`` on ``mesh`` (None: one device):
-    the metrics log and the global parameters at the end."""
-    tr, state = _dp_run(cfg, mesh, ckpt_dir, ckpt_every=DP["steps"])
+def _tp_trajectory(cfg, mesh, ckpt_dir=None, steps=DP["steps"],
+                   grad_accum=1):
+    """``steps`` steps (in ``grad_accum`` micro-batches) through
+    ``Trainer.run`` on ``mesh`` (None: one device): the metrics log and
+    the global parameters at the end."""
+    tr, state = _dp_run(cfg, mesh, ckpt_dir, ckpt_every=steps, steps=steps,
+                        grad_accum=grad_accum)
     params = state["params"] if mesh is None else gather_params(
         state["params"], tr.state_specs["params"], mesh)
     return {"log": tr.metrics_log, "params": _detach(params)}
@@ -659,24 +669,27 @@ def case_tp_train(rank, meshes, out_dir):
     return out
 
 
-def _ckpt_both_ways(rank, cfg, mesh, out_dir, tag):
-    """A checkpoint of ``mesh``'s trainer (the global state, gathered)
-    restored by the one-device trainer, and a one-device checkpoint
-    restored on ``mesh`` (each rank its blocks): byte for byte."""
+def _ckpt_both_ways(rank, cfg, mesh, out_dir, tag, steps=DP["steps"],
+                    grad_accum=1):
+    """A checkpoint of ``mesh``'s trainer (the global state, gathered,
+    after ``steps`` steps in ``grad_accum`` micro-batches) restored by the
+    one-device trainer, and a one-device checkpoint restored on ``mesh``
+    (each rank its blocks): byte for byte."""
     import torch.distributed as dist
     out = {}
     mesh_dir = os.path.join(out_dir, f"{tag}_ckpt")
     one_dir = os.path.join(out_dir, f"{tag}_one_ckpt")
-    got = _tp_trajectory(cfg, mesh, mesh_dir)
+    run = functools.partial(_dp_run, steps=steps, grad_accum=grad_accum)
+    got = _tp_trajectory(cfg, mesh, mesh_dir, steps, grad_accum)
     if rank == 0:
-        tr, state = _dp_run(cfg, None, mesh_dir)
+        tr, state = run(cfg, None, mesh_dir)
         out["ckpt_to_one"] = {
             "no_step": tr.metrics_log == [],
             "equal": all(torch.equal(a, b) for a, b in zip(
                 tree_leaves(state["params"]), tree_leaves(got["params"])))}
-        _dp_run(cfg, None, one_dir)
+        run(cfg, None, one_dir)
     dist.barrier()
-    tr, state = _dp_run(cfg, mesh, one_dir)
+    tr, state = run(cfg, mesh, one_dir)
     _, whole = tckpt.restore(one_dir, device="cpu")
     mine = shard_params(whole, tr.state_specs, mesh)
     flags = _all_ranks((tr.metrics_log == [], all(
@@ -897,28 +910,47 @@ def _moe_cfg(arch="granite-moe-3b-a800m", dtype="float32", **kw):
                    **kw)
 
 
+def micro_strips(log, n: int) -> list:
+    """A ``DISPATCH_LOG`` list of a step in ``n`` micro-batches, cut into
+    each micro-batch's dispatches (they run strip by strip)."""
+    assert len(log) % n == 0, (len(log), n)
+    k = len(log) // n
+    return [log[i * k:(i + 1) * k] for i in range(n)]
+
+
+def _with_cf(cfg, cf):
+    """``cfg`` at capacity factor ``cf`` (None: as it is)."""
+    return cfg if cf is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
 def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"],
-               resolve=False):
+               resolve=False, grad_accum=1, cf=None):
     """``steps`` train steps through the Trainer's state, batches and step
     on ``mesh``, each held against the one-device step from the same state
     (the state gathered before the step; on rank 0): per step both
     metrics, the largest gap between the parameters after it, the pairs
     that each rank's dispatches dropped beside the one-device step's (and
-    its drops by data block, where each dispatch is one group), and the
+    its drops by data block, where each dispatch is one group; both also
+    by micro-batch, ``drops_micro`` and ``drops_by_block_micro``), and the
     (token, expert) pairs of each rank's routes that the one-device step
     did not choose for the same tokens; the collectives of the steps on
     the ranks. ``resolve``: also the one-device step in float64 from the
     same state, whose gap from the float32 one-device step is what float32
-    resolves there."""
+    resolves there. ``grad_accum``: both steps in that many micro-batches;
+    ``cf``: the capacity factor (default the config's)."""
+    cfg = _with_cf(cfg, cf)
     data = DataConfig(seq_len=seq_len, global_batch=DP["global_batch"],
                       vocab_size=cfg.vocab_size)
     opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1,
                           decay_steps=DP["steps"])
-    tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps), mesh=mesh,
-                 device="cpu")
-    one = tstep.make_train_step(cfg, opt).step_fn
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps,
+                                               grad_accum=grad_accum),
+                 mesh=mesh, device="cpu")
+    one = tstep.make_train_step(cfg, opt, grad_accum=grad_accum).step_fn
     one64 = tstep.make_train_step(dataclasses.replace(
-        cfg, param_dtype="float64", compute_dtype="float64"), opt).step_fn
+        cfg, param_dtype="float64", compute_dtype="float64"), opt,
+        grad_accum=grad_accum).step_fn
     state = tr.init_state()
     n_data = mesh.shape["data"]
 
@@ -936,9 +968,12 @@ def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"],
         finally:
             tmoe.DISPATCH_LOG = None
         every = _all_ranks((tmoe.dropped_pairs(log), mesh.block(("data",)),
-                            [d.ids for d in log]))
+                            [d.ids for d in log], [
+                                tmoe.dropped_pairs(part)
+                                for part in micro_strips(log, grad_accum)]))
         row = {"tp": {k: float(v) for k, v in m.items()},
-               "drops": [e[0] for e in every]}
+               "drops": [e[0] for e in every],
+               "drops_micro": [e[3] for e in every]}
         after = whole(state)["params"]
         if mesh.rank == 0:
             glob = {k: torch.as_tensor(v)
@@ -956,9 +991,12 @@ def _moe_steps(cfg, mesh, steps=DP["steps"], seq_len=DP["seq_len"],
             row["one"] = {k: float(v) for k, v in m1.items()}
             row["drops_one"] = tmoe.dropped_pairs(log)
             row["drops_by_block"] = drops_by_block(log, n_data)
+            row["drops_by_block_micro"] = [
+                drops_by_block(part, n_data)
+                for part in micro_strips(log, grad_accum)]
             row["flips"] = [sum(route_flips(ids, d.ids.reshape(
                 n_data, -1, d.ids.shape[-1])[block]) for ids, d in zip(
-                    mine_ids, log)) for _, block, mine_ids in every]
+                    mine_ids, log)) for _, block, mine_ids, _ in every]
             row["params"] = max(_err(a, b) for a, b in zip(
                 tree_leaves(after), tree_leaves(before["params"])))
         rows.append(row)
@@ -1019,10 +1057,8 @@ def case_moe_train(rank, meshes, out_dir):
     # the cases beside them, 2 steps each
     n = MOE_SIDE_STEPS
     for shape in ((4, 1), (2, 2)):
-        cfg = _moe_cfg(dtype="float64")
-        out[f"drops {shape}"] = _moe_steps(dataclasses.replace(
-            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5)),
-            meshes[shape], steps=n)
+        out[f"drops {shape}"] = _moe_steps(_moe_cfg(dtype="float64"),
+                                           meshes[shape], steps=n, cf=0.5)
     saved = tmoe.DENSE_PATH_MAX_TOKENS
     tmoe.DENSE_PATH_MAX_TOKENS = MOE_GROUPS["dense_max"]
     try:
@@ -1092,10 +1128,8 @@ def case_mla_train(rank, meshes, out_dir):
                                       resolve=tag == "f32")
                       for tag, dt in (("f32", "float32"),
                                       ("f64", "float64"))}
-    cfg = _mla_cfg("float64")
-    out["drops"] = _moe_steps(dataclasses.replace(
-        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5)),
-        meshes[2, 2], steps=MOE_SIDE_STEPS)
+    out["drops"] = _moe_steps(_mla_cfg("float64"), meshes[2, 2],
+                              steps=MOE_SIDE_STEPS, cf=0.5)
     out["reference"] = _reference_mla(meshes, out_dir)
     out.update(_ckpt_both_ways(rank, _mla_cfg(), meshes[1, 4], out_dir,
                                "mla"))
@@ -1124,10 +1158,8 @@ def case_mla_fsdp(rank, meshes, out_dir):
                                       resolve=tag == "f32")
                       for tag, dt in (("f32", "float32"),
                                       ("f64", "float64"))}
-    cfg = _mla_fsdp_cfg("float64")
-    out["drops"] = _moe_steps(dataclasses.replace(
-        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5)),
-        meshes[2, 2], steps=MOE_SIDE_STEPS)
+    out["drops"] = _moe_steps(_mla_fsdp_cfg("float64"), meshes[2, 2],
+                              steps=MOE_SIDE_STEPS, cf=0.5)
     none = _mla_fsdp_cfg(remat="none")
     out["none"] = _moe_steps(none, meshes[2, 2], steps=1, resolve=True)
     out["freed"] = _freed_after_forward(none, meshes[4, 1])
@@ -1259,7 +1291,7 @@ def ep_drops(log) -> dict:
 
 
 def _ep_steps(cfg, mesh, steps=DP["steps"], resolve=False, cf=None,
-              against="stacked"):
+              against="stacked", grad_accum=1, gate=EP_GATE):
     """``_moe_steps`` on the expert-parallel route (``EP_GATE``): ``steps``
     train steps through the Trainer's state, batches and step on the
     process mesh ``mesh``, each held against the stacked route's step on
@@ -1272,24 +1304,26 @@ def _ep_steps(cfg, mesh, steps=DP["steps"], resolve=False, cf=None,
     ``cf``: the capacity factor (default the config's). ``against="one"``:
     held against the one-device step (the one-hot dispatch) instead, its
     drops in ``drops_one``, each rank's routes against its block of the
-    one-device step's tokens."""
-    if cf is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=cf))
+    one-device step's tokens. ``grad_accum``: both steps in that many
+    micro-batches; ``gate``: the gate the other step runs at (the
+    caller's own, set around the call)."""
+    cfg = _with_cf(cfg, cf)
     data = DataConfig(seq_len=DP["seq_len"], global_batch=DP["global_batch"],
                       vocab_size=cfg.vocab_size)
     opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1,
                           decay_steps=DP["steps"])
-    tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps), mesh=mesh,
-                 device="cpu")
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps,
+                                               grad_accum=grad_accum),
+                 mesh=mesh, device="cpu")
     ctx = MeshCtx(mesh=Mesh(mesh.axis_names, mesh.sizes),
                   batch_axes=("data",))
     if against == "one":
         ctx = None
-    stacked = tstep.make_train_step(cfg, opt, ctx).step_fn
+    stacked = tstep.make_train_step(cfg, opt, ctx,
+                                    grad_accum=grad_accum).step_fn
     stacked64 = tstep.make_train_step(dataclasses.replace(
         cfg, param_dtype="float64", compute_dtype="float64"), opt,
-        ctx).step_fn
+        ctx, grad_accum=grad_accum).step_fn
     state = tr.init_state()
     n = mesh.sizes[0] * mesh.sizes[1]
     rows = []
@@ -1311,7 +1345,7 @@ def _ep_steps(cfg, mesh, steps=DP["steps"], resolve=False, cf=None,
         if mesh.rank == 0:
             glob = {k: torch.as_tensor(v)
                     for k, v in tr.source.batch(i).items()}
-            with _counts_kept(), ep_gate(EP_GATE):
+            with _counts_kept(), ep_gate(gate):
                 if resolve:
                     _, m64 = stacked64(tree_map(
                         lambda t: t.double() if isinstance(t, torch.Tensor)
@@ -1585,6 +1619,70 @@ def case_held(rank, meshes, out_dir):
             "(2, 2)": _both(rank, meshes[2, 2], run)}
 
 
+def micro_cells() -> dict:
+    """(config of a dtype, mesh shape, on the expert-parallel route) of
+    each ``case_moe_micro`` cell: deepseek-v3-671b as configured (FSDP) on
+    (4,1) and granite-moe-3b-a800m on (2,2) on the one-hot dispatch;
+    deepseek-v3-671b as configured, granite-moe-3b-a800m with fsdp=True
+    (its FFN blocks re-laid as blocks of the experts) and deepseek-v3-671b
+    with fsdp=False on (2,2) on the expert-parallel route."""
+    return {"moe": (_mla_fsdp_cfg, (4, 1), False),
+            "moe_accum": (lambda dt: _moe_cfg(dtype=dt), (2, 2), False),
+            "tp_mla": (_mla_fsdp_cfg, (2, 2), True),
+            "tp_moe": (lambda dt: _moe_cfg(dtype=dt, fsdp=True), (2, 2),
+                       True),
+            "tp_moe_serve": (_mla_cfg, (2, 2), True)}
+
+
+@contextlib.contextmanager
+def no_relay():
+    """A planted fault: the step in micro-batches without the micro-major
+    re-lay, each rank's strips the contiguous ones of its block of rows
+    (other rows of the global batch than the one-device micro-batch's)."""
+    orig = tstep.micro_major
+    tstep.micro_major = lambda cfg, ctx, batch, grad_accum: batch
+    try:
+        yield
+    finally:
+        tstep.micro_major = orig
+
+
+def case_moe_micro(rank, meshes, out_dir):
+    """The MoE train step in micro-batches over processes, ``MICRO`` of
+    them: each cell of :func:`micro_cells`, 3 steps in float64 and in
+    float32, each from the same state as the one-device step (one-hot)
+    or the stacked route's step on a mesh of the same shape (the
+    expert-parallel route, the gate at ``MICRO_GATE``; deepseek-v3-671b's
+    float32 steps there with the stacked step in float64 beside them) in
+    as many micro-batches; one float64 step of granite-moe-3b-a800m on
+    (2,2) at capacity factor 0.5 (pairs dropped in each micro-batch) and
+    one without the re-lay (a planted fault); a (2,2) granite trainer in
+    micro-batches, its checkpoints both ways."""
+    out = {}
+    for key, (make, shape, ep) in micro_cells().items():
+        out[key] = {}
+        for tag, dt in (("f32", "float32"), ("f64", "float64")):
+            cfg = make(dt)
+            if ep:
+                with ep_gate(MICRO_GATE):
+                    got = _ep_steps(cfg, meshes[shape], grad_accum=MICRO,
+                                    resolve=tag == "f32" and cfg.use_mla,
+                                    gate=MICRO_GATE)
+            else:
+                got = _moe_steps(cfg, meshes[shape], grad_accum=MICRO)
+            out[key][tag] = got
+    granite = _moe_cfg(dtype="float64")
+    out["drops"] = _moe_steps(granite, meshes[2, 2], steps=1,
+                              grad_accum=MICRO, cf=0.5)
+    with no_relay():
+        out["no relay"] = _moe_steps(granite, meshes[2, 2], steps=1,
+                                     grad_accum=MICRO)
+    out.update(_ckpt_both_ways(rank, _moe_cfg(), meshes[2, 2], out_dir,
+                               "micro", steps=MICRO_CKPT_STEPS,
+                               grad_accum=MICRO))
+    return out
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -1601,19 +1699,15 @@ def case_refusals(rank, meshes, out_dir):
     text("tp_ssm", NotImplementedError, lambda: tstep.make_train_step(
         reduced(get_config("zamba2-7b"), fsdp=False), adamw.OptConfig(),
         MeshCtx(mesh=meshes[2, 2])))
-    # the expert-parallel route in micro-batches over data ranks (item
-    # 2.3b, slice 4), at a gate that the micro-batch's 128 global tokens
-    # reach: deepseek-v3-671b as configured (FSDP) on (2,2),
-    # granite-moe-3b-a800m with fsdp=True on (2,2) and deepseek-v3-671b
-    # with fsdp=False on (2,2), raised where the step is made
-    with ep_gate(EP_GATE // 2):
-        for name, acfg in (("tp_mla", _mla_fsdp_cfg()),
-                           ("tp_moe", _moe_cfg(fsdp=True)),
-                           ("tp_moe_serve", _mla_cfg())):
-            text(name, NotImplementedError,
-                 lambda acfg=acfg: tstep.make_train_step(
-                     acfg, adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2]),
-                     grad_accum=2))
+    # the cross families under model (item 2.6), and a dense config
+    # whose heads the model axis does not divide
+    for name, acfg in (("tp_vlm", reduced(get_config(
+            "llama-3.2-vision-11b"))), ("tp_audio", reduced(get_config(
+                "seamless-m4t-medium"))), ("tp_odd", dataclasses.replace(
+                    cfg, n_heads=6, n_kv_heads=2))):
+        text(name, NotImplementedError,
+             lambda acfg=acfg: tstep.make_train_step(
+                 acfg, adamw.OptConfig(), MeshCtx(mesh=meshes[1, 4])))
     text("tp_kv_seq", NotImplementedError, lambda: tstep.make_prefill_step(
         dataclasses.replace(cfg, n_kv_heads=2),
         MeshCtx(mesh=meshes[1, 4]), 16))
@@ -1631,14 +1725,16 @@ def case_refusals(rank, meshes, out_dir):
                               torch.Generator().manual_seed(0),
                               device="cpu"),
             ctx=MeshCtx(mesh=meshes[4, 1]), device="cpu"))
-    # a MoE step in micro-batches over data ranks: deepseek-v3-671b as
-    # configured (FSDP) on (4,1), and granite-moe-3b-a800m on (2,2)
-    text("moe", NotImplementedError, lambda: tstep.make_train_step(
-        _mla_fsdp_cfg(), adamw.OptConfig(), MeshCtx(mesh=meshes[4, 1]),
-        grad_accum=2))
-    text("moe_accum", NotImplementedError, lambda: tstep.make_train_step(
-        _moe_cfg(), adamw.OptConfig(), MeshCtx(mesh=meshes[2, 2]),
-        grad_accum=2))
+    # a MoE step in micro-batches whose rows the data ranks do not split:
+    # 4 micro-batches of 2 rows over the 4 data ranks of (4,1), raised by
+    # the step on the rank's 2 rows, before any collective
+    mcfg = _moe_cfg()
+    micro = tstep.make_train_step(mcfg, adamw.OptConfig(),
+                                  MeshCtx(mesh=meshes[4, 1]), grad_accum=4)
+    toks = torch.zeros(DP["global_batch"] // 4, DP["seq_len"],
+                       dtype=torch.long)
+    text("accum_rows", ValueError, lambda: micro.step_fn(
+        {"params": {}, "opt": {}}, {"tokens": toks, "labels": toks}))
     text("outside", RuntimeError, lambda: compat.psum(torch.ones(2), "data"))
     text("backend", RuntimeError,
          lambda: make_process_mesh(4, 1, device="cuda"))
@@ -1657,21 +1753,18 @@ def refusal_texts() -> dict:
     import torch.distributed as dist
     return {
         "world": "a (3, 1) mesh needs 3 processes, the world has 4",
-        "tp_moe": "granite-moe-3b-a800m on a process mesh: grad_accum=2 "
-                  "over 2 data ranks would route and group each rank's "
-                  "micro-batch, which holds other rows of the global batch "
-                  "than the one-device micro-batch; the MoE step in "
-                  "micro-batches over processes (ROADMAP Queue A, A13c "
-                  "item 2.3b)",
-        "tp_moe_serve": "deepseek-v3-671b on a process mesh: grad_accum=2 "
-                        "over 2 data ranks would route and group each "
-                        "rank's micro-batch",
-        "tp_mla": "deepseek-v3-671b on a process mesh: grad_accum=2 over 2 "
-                  "data ranks would route and group each rank's "
-                  "micro-batch, which holds other rows of the global batch "
-                  "than the one-device micro-batch; the MoE step in "
-                  "micro-batches over processes (ROADMAP Queue A, A13c "
-                  "item 2.3b)",
+        "tp_vlm": "llama-3.2-vision-11b with model=4 on a process mesh: "
+                  "the vlm family under the model axis; the cross layers "
+                  "under model over processes (ROADMAP Queue A, A13c item "
+                  "2.6)",
+        "tp_audio": "seamless-m4t-medium with model=4 on a process mesh: "
+                    "the audio family under the model axis; the cross "
+                    "layers under model over processes (ROADMAP Queue A, "
+                    "A13c item 2.6)",
+        "tp_odd": "tinyllama-1.1b with model=4 on a process mesh: heads 6 "
+                  "do not split over 4 ranks; a rank holding a leaf that "
+                  "the model axis should split whole (ROADMAP Queue A, "
+                  "A13c item 2.6)",
         "tp_ssm": "the SSM and hybrid blocks under model over processes "
                   "(ROADMAP Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
@@ -1691,13 +1784,10 @@ def refusal_texts() -> dict:
                            "of the SSM, hybrid, vision and encoder-decoder "
                            "families and of the serving engine over "
                            "processes (ROADMAP Queue A, A13c item 2.2b)",
-        "moe": "deepseek-v3-671b on a process mesh: grad_accum=2 over 4 "
-               "data ranks would route and group each rank's micro-batch, "
-               "which holds other rows of the global batch than the "
-               "one-device micro-batch; the MoE step in micro-batches over "
-               "processes (ROADMAP Queue A, A13c item 2.3b)",
-        "moe_accum": "the MoE step in micro-batches over processes "
-                     "(ROADMAP Queue A, A13c item 2.3b)",
+        "accum_rows": "granite-moe-3b-a800m on a process mesh: "
+                      "grad_accum=4 cuts the global batch's 8 rows into "
+                      "micro-batches of 2 rows, which 4 data ranks do not "
+                      "split evenly (ROADMAP Queue C)",
         "outside": "a collective runs only inside shard_map's body",
         "backend": "the process group runs gloo, device 'cuda' needs nccl"
         if dist.is_nccl_available() else "needs the nccl backend"}
@@ -1770,6 +1860,8 @@ def check(name, res) -> dict:
         return check_ep_train(res)
     if name == "ep_serve":
         return check_ep_serve(res)
+    if name == "moe_micro":
+        return check_moe_micro(res)
     if name == "held":
         return {tag: check_held(res, tag) for tag in res}
     if name == "local_axes":
@@ -1861,9 +1953,10 @@ def tp_train_shape():
     return ShapeConfig("train", DP["seq_len"], DP["global_batch"], "train")
 
 
-def _dry_count(cfg, shape, mesh):
+def _dry_count(cfg, shape, mesh, grad_accum=1):
     from repro_torch.launch import dryrun
-    return dryrun.count_step(cfg, shape, mesh, target="cpu")
+    return dryrun.count_step(cfg, shape, mesh, target="cpu",
+                             grad_accum=grad_accum)
 
 
 def check_tp_mesh(res, shape) -> dict:
@@ -1927,14 +2020,15 @@ def check_tp_reference(res) -> float:
     return err
 
 
-def check_tp_ckpt(res):
-    """A (1,4) checkpoint (the global state, gathered) restored by the
-    one-device trainer, and a one-device checkpoint restored on (1,4)
-    (each rank its blocks), byte for byte, with no step run after."""
+def check_tp_ckpt(res, steps=DP["steps"]):
+    """A (1,4) checkpoint (the global state, gathered, after ``steps``
+    steps) restored by the one-device trainer, and a one-device checkpoint
+    restored on (1,4) (each rank its blocks), byte for byte, with no step
+    run after."""
     one = res["ckpt_to_one"]
     assert one["no_step"] and one["equal"], one
     tp = res["ckpt_to_tp"]
-    assert tp["written"] == [f"step_{DP['steps']:08d}"], tp
+    assert tp["written"] == [f"step_{steps:08d}"], tp
     assert all(no_step and equal for no_step, equal in tp["every_rank"]), tp
 
 
@@ -2094,19 +2188,19 @@ def check_fsdp_bytes(res, shape, count=_dry_count) -> dict:
 
 def check_fsdp_accum(res, count=_dry_count):
     """One step at ``grad_accum=2`` on (4,1) within ``tp_f32`` of the
-    one-device step; its gathers and reduce-scatters twice the dry run's
-    count: each micro-batch's forward and backward gathers every leaf and
-    reduce-scatters its gradient, where the count reads the step's
-    parameters once (a set of reads, whatever the micro-batches)."""
+    one-device step; its gathers and reduce-scatters equal to the dry
+    run's count of the step in 2 micro-batches (each micro-batch's forward
+    and backward gathers every leaf and reduce-scatters its gradient;
+    the dense family's rows keep their contiguous strips: no re-lay)."""
     from repro_torch.launch.mesh import make_mesh
     r = res["accum"]
     err = max(_rel(row["tp"], row["one"], ("loss", "ce", "grad_norm", "lr"))
               for row in r["rows"])
     assert err <= TOL["tp_f32"], r["rows"]
-    st = count(_fsdp_cfg(), tp_train_shape(), make_mesh(4, 1))
+    st = count(_fsdp_cfg(), tp_train_shape(), make_mesh(4, 1), grad_accum=2)
     got = by_kind(r["counts"])
     for k in ("all-gather", "reduce-scatter"):
-        assert got[k] == 2 * 4 * st.collective_by_kind[k], (k, got, st)
+        assert got[k] == 4 * st.collective_by_kind[k], (k, got, st)
     return err
 
 
@@ -2215,8 +2309,24 @@ def check_fsdp_serve(res, count=_dry_count) -> dict:
 # -- the MoE family -------------------------------------------------------------
 
 
+def _hold_metrics(tag, rows, keys, tol, against64=False):
+    """Each row's metrics ``keys`` (the ranks', ``tp``) within ``tol``
+    relative of the other step's (``one``); where the rows resolve float32
+    (``one64``, the other step in float64 from the same state), within
+    twice the float32 step's own gap from float64 where that is wider.
+    ``against64``: held against the float64 step instead (the ranks'
+    float32 metric at most twice as far from float64 as the other
+    float32 step, or ``tol``)."""
+    for r in rows:
+        for k in keys:
+            limit = tol if "one64" not in r else max(
+                tol, 2 * _rel(r["one"], r["one64"], (k,)))
+            want = r["one64"] if against64 and "one64" in r else r["one"]
+            assert _rel(r["tp"], want, (k,)) <= limit, (tag, k, limit, rows)
+
+
 def check_moe_steps(tag, got, tol, params_tol=None, model=1,
-                    blocks=True, hold_params=True) -> dict:
+                    blocks=True, hold_params=True, against64=False) -> dict:
     """``_moe_steps``' rows: per step the loss, ce, aux (mtp where the
     model has it), grad norm and lr within ``tol`` relative of the
     one-device step's (where the rows resolve float32, ``one64``: within
@@ -2229,20 +2339,16 @@ def check_moe_steps(tag, got, tol, params_tol=None, model=1,
     coordinate (``model`` of them: they route the same tokens), each equal
     to the one-device step's drops of that coordinate's block of rows
     (with ``blocks``: each dispatch one group), and summed over the data
-    coordinates, equal to the one-device step's. Returns the largest gaps,
-    the drops and the flipped routes."""
+    coordinates, equal to the one-device step's. ``against64``: as
+    :func:`_hold_metrics`. Returns the largest gaps, the drops and the
+    flipped routes."""
     rows = got["rows"]
     keys = ("loss", "ce", "aux", "grad_norm", "lr") \
         + (("mtp",) if "mtp" in rows[0]["one"] else ())
     errs = {f"{tag} metrics": max(_rel(r["tp"], r["one"], keys)
                                   for r in rows),
             f"{tag} params": max(r["params"] for r in rows)}
-    for r in rows:
-        for k in keys:
-            limit = tol if "one64" not in r else max(
-                tol, 2 * _rel(r["one"], r["one64"], (k,)))
-            assert _rel(r["tp"], r["one"], (k,)) <= limit, (tag, k, limit,
-                                                           rows)
+    _hold_metrics(tag, rows, keys, tol, against64)
     assert not hold_params or errs[f"{tag} params"] <= (params_tol or tol), (
         tag, errs, rows)
     for r in rows:
@@ -2613,7 +2719,7 @@ def check_held(res, tag) -> float:
     return max(errs)
 
 
-def check_ep_steps(tag, got, tol, hold_params=True) -> dict:
+def check_ep_steps(tag, got, tol, hold_params=True, against64=False) -> dict:
     """``_ep_steps``' rows against the stacked route's step (or, where the
     rows hold ``drops_by_device`` none, the one-device step's): per step
     the loss, ce, aux (mtp where the model has it), grad norm and lr
@@ -2622,20 +2728,16 @@ def check_ep_steps(tag, got, tol, hold_params=True) -> dict:
     the parameters after it within ``tol`` (with ``hold_params``); no
     route of a rank that the other step did not choose for the same
     tokens; each rank's dropped pairs those of its device there (against
-    the one-device step, summed over the ranks, its drops). Returns the
-    largest gaps and the drops."""
+    the one-device step, summed over the ranks, its drops). ``against64``:
+    as :func:`_hold_metrics`. Returns the largest gaps and the drops."""
     rows = got["rows"]
     keys = ("loss", "ce", "aux", "grad_norm", "lr") \
         + (("mtp",) if "mtp" in rows[0]["one"] else ())
     errs = {f"{tag} metrics": max(_rel(r["tp"], r["one"], keys)
                                   for r in rows),
             f"{tag} params": max(r["params"] for r in rows)}
+    _hold_metrics(tag, rows, keys, tol, against64)
     for r in rows:
-        for k in keys:
-            limit = tol if "one64" not in r else max(
-                tol, 2 * _rel(r["one"], r["one64"], (k,)))
-            assert _rel(r["tp"], r["one"], (k,)) <= limit, (tag, k, limit,
-                                                           rows)
         if "drops_by_device" in r:
             assert r["drops"] == r["drops_by_device"], (tag, r)
         assert not any(r["flips"]), (tag, r["flips"])
@@ -2645,31 +2747,36 @@ def check_ep_steps(tag, got, tol, hold_params=True) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def ep_count(cfg, shape, kind="train", seq=None, batch=None, gate=None):
-    """The dry run's count of ``cfg``'s ``kind`` step on a stacked mesh of
-    ``shape`` at the gate the cases lower (``EP_GATE``, or ``gate``); each
-    cell counted once a process."""
+def ep_count(cfg, shape, kind="train", seq=None, batch=None, gate=None,
+             grad_accum=1):
+    """The dry run's count of ``cfg``'s ``kind`` step (in ``grad_accum``
+    micro-batches) on a stacked mesh of ``shape`` at the gate the cases
+    lower (``EP_GATE``, or ``gate``); each cell counted once a
+    process."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_mesh
     seq, batch = seq or DP["seq_len"], batch or DP["global_batch"]
     with ep_gate(gate or EP_GATE):
         return _dry_count(cfg, ShapeConfig(kind, seq, batch, kind),
-                          make_mesh(*shape))
+                          make_mesh(*shape), grad_accum)
 
 
-def check_ep_bytes(got, cfg, shape, worlds=1) -> dict:
+def check_ep_bytes(got, cfg, shape, worlds=1, gate=None, grad_accum=1,
+                   ep=True) -> dict:
     """The steps' bytes by kind, summed over the ranks of ``worlds``
     meshes side by side (``pair_mesh``'s two), equal to the dry run's
-    count of the same cell times the ranks (:func:`ep_count`): the
-    body's all-to-alls and each re-lay's, forward and backward (and in a
-    checkpoint's recompute); the tensor-parallel all-reduces; the
-    gradient means of every padded slot (or FSDP's gathers and
-    reduce-scatters); beside them the grad norm's scalar and the loss
-    metrics' mean. Returns the bytes a step by kind."""
+    count of the same cell times the ranks (:func:`ep_count`, at ``gate``
+    and in ``grad_accum`` micro-batches): the body's all-to-alls and each
+    re-lay's, forward and backward (and in a checkpoint's recompute); the
+    tensor-parallel all-reduces; the gradient means of every padded slot
+    (or FSDP's gathers and reduce-scatters); in micro-batches, the batch's
+    micro-major all-gathers; beside them the grad norm's scalar and the
+    loss metrics' mean. ``ep`` False: a one-hot step's (the count then
+    knows its dispatch short). Returns the bytes a step by kind."""
     d, m = shape
     rows = got["rows"]
     steps = len(rows)
-    st = ep_count(cfg, shape)
+    st = ep_count(cfg, shape, gate=gate, grad_accum=grad_accum)
     per_step = {k: v / steps / worlds
                 for k, v in by_kind(got["counts"]).items()}
     want = {k: d * m * v for k, v in st.collective_by_kind.items()}
@@ -2683,8 +2790,8 @@ def check_ep_bytes(got, cfg, shape, worlds=1) -> dict:
     for k in per_step:
         assert abs(per_step[k] - want[k]) <= d * m, (shape, k, per_step,
                                                      want)
-    assert "collective: moe one-hot dispatch resharded" \
-        not in st.count_short, st.count_short
+    assert ("collective: moe one-hot dispatch resharded"
+            not in st.count_short) == ep, st.count_short
     return per_step
 
 
@@ -2808,6 +2915,101 @@ def check_ep_train(res, count=None) -> dict:
     check_tp_ckpt(res)
     if res["reference"] is not None:
         errs.update(check_ep_reference(res))
+    return errs
+
+
+# -- the MoE step in micro-batches over processes -----------------------------
+
+
+def check_micro_drops(rows, model) -> list:
+    """Each rank's dropped pairs in each micro-batch equal to the
+    one-device step's drops of its data block of that micro-batch (the
+    ranks of a data coordinate route the same tokens). Returns the
+    one-device step's drops by micro-batch and block."""
+    for r in rows:
+        for rank, micro in enumerate(r["drops_micro"]):
+            assert micro == [b[rank // model] for b in
+                             r["drops_by_block_micro"]], (rank, r)
+    return [r["drops_by_block_micro"] for r in rows]
+
+
+def check_micro_cell(res, key) -> dict:
+    """``micro_cells()``'s cell ``key``: 3 steps in ``MICRO``
+    micro-batches against the one-device step (one-hot: granite's
+    float32 parameters by :func:`check_moe_mesh`'s rule, deepseek's by
+    :func:`check_mla_mesh`'s, and the drops of each micro-batch its data
+    block's) or the stacked route's step (expert-parallel:
+    :func:`check_ep_mesh`'s rules); float64 within ``MOE_TOL["f64"]``. A
+    float32 metric is held against the float64 step from the same state
+    (``against64``): two micro-batches' sums round more than one step's,
+    and the ranks' grad norm of deepseek-v3-671b on the expert-parallel
+    route is 8.1e-7 from float64's where the stacked route's is 4.2e-7
+    (measured on the CPU), a gap of 1.2e-6 between the two."""
+    make, shape, ep = micro_cells()[key]
+    mla = make("float32").use_mla
+    errs = {}
+    for tag in ("f32", "f64"):
+        got, tol = res[key][tag], MOE_TOL[tag]
+        if ep:
+            errs.update(check_ep_steps(f"{key} {tag}", got, tol,
+                                       hold_params=tag == "f64",
+                                       against64=True))
+            continue
+        errs.update(check_moe_steps(
+            f"{key} {tag}", got, tol, MOE_TOL.get(f"{tag} params"),
+            model=shape[1],
+            hold_params=tag == "f64" or not mla,
+            against64=True))
+        errs[f"{key} {tag} micro drops"] = check_micro_drops(got["rows"],
+                                                             shape[1])
+    return errs
+
+
+def check_micro_bytes(res, key) -> dict:
+    """The float32 steps' bytes by kind of ``micro_cells()``'s cell
+    ``key``, summed over the ranks, equal to the dry run's count of the
+    same cell in ``MICRO`` micro-batches times the ranks
+    (:func:`check_ep_bytes`: each strip's gathers, reduce-scatters,
+    dispatch gathers and all-to-alls, the re-lay's all-gathers once, the
+    gradient mean once). Returns the bytes a step by kind."""
+    make, shape, ep = micro_cells()[key]
+    return check_ep_bytes(res[key]["f32"], make("float32"), shape,
+                          gate=MICRO_GATE if ep
+                          else tmoe.DENSE_PATH_MAX_TOKENS,
+                          grad_accum=MICRO, ep=ep)
+
+
+def check_micro_dropping(res) -> list:
+    """Capacity factor 0.5, granite-moe-3b-a800m on (2,2), one float64
+    step: within ``MOE_TOL["f64"]`` of the one-device step; each rank's
+    drops in each micro-batch those of its data block there, each
+    micro-batch dropping pairs."""
+    got = res["drops"]
+    check_moe_steps("micro drops", got, MOE_TOL["f64"], model=2)
+    drops = check_micro_drops(got["rows"], 2)
+    assert all(sum(b) > 0 for r in drops for b in r), drops
+    return drops
+
+
+def check_micro_fault(res) -> float:
+    """The planted fault (no re-lay: each rank's contiguous strips) is
+    caught: its aux or its parameters after the step miss the one-device
+    step's by more than ``MOE_TOL["f64"]``."""
+    r = res["no relay"]["rows"][0]
+    gap = max(_rel(r["tp"], r["one"], ("aux",)), r["params"])
+    assert gap > MOE_TOL["f64"], r
+    return gap
+
+
+def check_moe_micro(res, count=None) -> dict:
+    """Every check of the micro-batch case."""
+    errs = {}
+    for key in micro_cells():
+        errs.update(check_micro_cell(res, key))
+        errs[f"{key} bytes"] = check_micro_bytes(res, key)
+    errs["drops"] = check_micro_dropping(res)
+    errs["no relay"] = check_micro_fault(res)
+    check_tp_ckpt(res, MICRO_CKPT_STEPS)
     return errs
 
 
