@@ -351,12 +351,14 @@ non-zero and prints no result. Phases, one JSON line each:
                the CPU but ``CARD_CASES`` (``tp_train``, ``fsdp_train``,
                ``moe_train``, ``mla_train``, ``mla_fsdp``,
                ``mla_fsdp_serve``, ``ep_train``, ``ep_serve``,
-               ``moe_micro``), whose routes phases 39-43 run on the card
+               ``moe_micro``, ``families_fsdp``), whose routes phases
+               39-44 run on the card
                (``mesh_processes_gloo``).
                Only this process prints; a rank that fails fails the
                phase.
 39. ``mesh_tensor_parallel`` tensor parallelism over processes, spawned
-               after ``free_memory()``: at m = 2 and 4, m ranks on the
+               after ``free_memory()``: at m = 4 (m = 2 cut since phase
+               44, ``reduced``), m ranks on the
                one card in a gloo group (``make_process_mesh(1, m,
                backend="gloo")``; NCCL refuses two ranks on one card)
                train tinyllama-1.1b as phase 7 does but cut to 2 of its
@@ -437,10 +439,24 @@ non-zero and prints no result. Phases, one JSON line each:
                ``count_step``'s (FSDP's gathers once a micro-batch),
                B3-B5 2 / 2 / 2 a rank-step at 1 x 64 rows x heads and
                1024 tokens, held against their plain versions there.
-               Phases 39-43 share their spawns
-               (``run_card_ranks``): the (1, 2) ranks, then one world of 4
-               ranks that runs (1, 4), both FSDP meshes, both MoE meshes,
-               the MLA mesh and the MoE FSDP mesh in turn.
+               Phases 39-44 share their spawn
+               (``run_card_ranks``): one world of 4 ranks that runs (1,
+               4), both FSDP meshes, both MoE meshes, the MLA mesh, the
+               MoE FSDP mesh and phase 44's (4, 1) in turn.
+44. ``mesh_families_fsdp`` the SSM, hybrid, vision and encoder-decoder
+               families under FSDP on (4, 1) ranks sharing the card:
+               xlstm-1.3b (1 layer), zamba2-7b (2 layers, the shared block
+               after each, read twice and gathered once a forward),
+               llama-3.2-vision-11b (1 self + 1 cross layer) and
+               seamless-m4t-medium (1 encoder + 1 decoder layer), full
+               width, ``fsdp=True``, one step at 4 x 2048 (one row a
+               rank): loss and ce against the one-device step (run in the
+               parent before the spawn), the bytes against
+               ``count_step``'s, B3-B5 at the path's geometries against
+               their plain versions, zamba2-7b's blocks against the
+               one-device result and its prefill (4 x 64) and one decode
+               step against the one-device logits; seconds of the step
+               and peak GB a rank.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -452,11 +468,11 @@ in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
 ``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
-NCCL step summed over its ranks, ``mesh_processes``, and phases 39-43's
+NCCL step summed over its ranks, ``mesh_processes``, and phases 39-44's
 steps summed over their ranks, ``mesh_tensor_parallel (1, m)``,
 ``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_moe_ep (2, 2)``,
 ``mesh_mla (1, 4)``, ``mesh_mla_fsdp (2, 2)``, ``mesh_mla_fsdp_ep (2,
-2)``; error,
+2)``, and phase 44's ``mesh_families_fsdp <arch>``; error,
 times and bound per
 kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -513,7 +529,8 @@ from repro_torch.models.moe import (moe_dense_dispatch,  # noqa: E402
 from repro_torch.models.sharding import (MeshCtx,  # noqa: E402
                                          NamedSharding, held_experts,
                                          shard_params, tensor_parallel)
-from repro_torch.models.layers import (init_params, tree_leaves,  # noqa: E402
+from repro_torch.models.layers import (abstract_params,  # noqa: E402
+                                       init_params, tree_leaves,
                                        tree_map, tree_size_bytes,
                                        value_and_grad)
 from repro_torch.models.ssm import chunked_linear_attention  # noqa: E402
@@ -4843,16 +4860,17 @@ PROC_STEPS = 3
 PROC_LOSS_REL = 1e-3      # at two ranks or more: another summation order
 PROC_TIMEOUT_S = 600      # a rank still running then fails the phase
 # the CPU cases that phase 38 leaves to the card: phases 41 and 42 run
-# the CPU cases whose routes phases 39-43 run on this machine at full
+# the CPU cases whose routes phases 39-44 run on this machine at full
 # width: the dense family's tensor-parallel and FSDP steps, the MoE and
 # MLA steps over processes, the MoE family under FSDP, the
 # expert-parallel route's steps (phases 41 and 43; on this
 # machine's CPU they took ~36 s, ~35 s, ~20 s, ~25 s and ~20 s, which the
-# run's time cannot hold; the CPU tests hold them at every commit), and
-# the MoE step in micro-batches (phases 41 and 43's (2,2) steps; ~25 s)
+# run's time cannot hold; the CPU tests hold them at every commit), the
+# MoE step in micro-batches (phases 41 and 43's (2,2) steps; ~25 s) and
+# the other families under FSDP (phase 44's (4,1) steps)
 CARD_CASES = ("tp_train", "fsdp_train", "moe_train", "mla_train",
               "mla_fsdp", "mla_fsdp_serve", "ep_train", "ep_serve",
-              "moe_micro")
+              "moe_micro", "families_fsdp")
 
 
 def _process_cases():
@@ -5057,7 +5075,10 @@ def phase_mesh_processes(smi):
 # ---------------------------------------------------------------------------
 
 
-TP_MODELS = (2, 4)        # the model axis: (1, m) ranks sharing the one card
+# the model axis: (1, m) ranks sharing the one card; (1, 2) is cut since
+# phase 44 (its time pays for phase 44's job; a model axis of 2 stays held
+# by the (2, 2) jobs of phases 40, 41 and 43)
+TP_MODELS = (4,)
 TP_STEPS = 2
 TP_LOSS_REL = 2e-3        # bf16 compute: the partial sums' own rounding
 # ... and the grad norm's, held where the gradients are resolvable: at the
@@ -5437,12 +5458,14 @@ def _tp_job(mesh, one_path, fsdp=False):
 
 
 def _card_rank(rank, world, store, jobs, one_path):
-    """A rank of phases 39-42 (module level: ``spawn`` pickles it): for
+    """A rank of phases 39-44 (module level: ``spawn`` pickles it): for
     each ``(kind, shape, out_path)`` of ``jobs`` in turn, in one process
     group, a ``make_process_mesh(*shape, backend="gloo")`` on the card the
     ranks share and its job: "tp" and "fsdp" phases 39-40's
     (:func:`_tp_job`), "moe" phase 41's (:func:`_moe_job`), "mla" and
-    "mla_fsdp" phases 42-43's (:func:`_mla_job`). Rank 0 writes
+    "mla_fsdp" phases 42-43's (:func:`_mla_job`), "fsdp_families" phase
+    44's (:func:`_families_job`, which reads the one-device record's
+    ``FAMILY_ONE_FILE`` beside ``out_path``). Rank 0 writes
     each job's results, with the seconds it took, to its ``out_path``. One
     process runs every job of its world: its warm-up (10-14 s in its first
     step on the card) is paid once."""
@@ -5455,7 +5478,9 @@ def _card_rank(rank, world, store, jobs, one_path):
         mesh = make_process_mesh(*shape, device="cuda:0", backend="gloo",
                                  init_method=f"file://{store}", rank=rank,
                                  world_size=world, timeout_s=TP_TIMEOUT_S)
-        if kind == "moe":
+        if kind == "fsdp_families":
+            out = _families_job(mesh, out_path)
+        elif kind == "moe":
             out = _moe_job(mesh)
         elif kind in ("mla", "mla_fsdp"):
             out = _mla_job(mesh, out_path, fsdp=kind == "mla_fsdp")
@@ -5470,12 +5495,12 @@ def _card_rank(rank, world, store, jobs, one_path):
     dist.destroy_process_group()
 
 
-# the jobs of phases 39-43 by world size: each world's ranks are spawned
-# once and run its jobs in this order
-CARD_JOBS = ((2, (("tp", (1, 2)),)),
-             (4, (("tp", (1, 4)), ("fsdp", (4, 1)), ("fsdp", (2, 2)),
+# the jobs of phases 39-44 by world size: each world's ranks are spawned
+# once and run its jobs in this order (one world of 4 since phase 44: the
+# (1, 2) job of phase 39 and its spawn are cut)
+CARD_JOBS = ((4, (("tp", (1, 4)), ("fsdp", (4, 1)), ("fsdp", (2, 2)),
                   ("moe", (4, 1)), ("moe", (2, 2)), ("mla", (1, 4)),
-                  ("mla_fsdp", (2, 2)))))
+                  ("mla_fsdp", (2, 2)), ("fsdp_families", (4, 1)))),)
 
 
 def run_card_ranks(tmp, one_path, card_jobs=CARD_JOBS) -> dict:
@@ -5635,6 +5660,7 @@ def phase_mesh_tensor_parallel(smi, one_device=None, spawned=None):
                  steady_step_ms_by_rank=steady,
                  peak_gb_by_rank=r["peak_gb_by_rank"],
                  n_layers=cfg.n_layers,
+                 reduced={"n_layers": cfg.n_layers, "meshes_cut": [[1, 2]]},
                  block_shapes=r["shapes"], one_device_seconds=one_s,
                  seconds=spawn_s)
             by_path[f"mesh_tensor_parallel (1, {m})"] = launches
@@ -6713,6 +6739,351 @@ def phase_mesh_mla_fsdp(smi, spawned=None, one=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 44: the SSM, hybrid, vision and encoder-decoder families under FSDP
+# ---------------------------------------------------------------------------
+
+
+FAMILY_FSDP_MESH = (4, 1)   # (data, model): ranks on the one card
+# each family at full width with fsdp=True, cut to the least depth that
+# runs each of its block kinds
+FAMILY_FSDP_CUTS = (
+    ("xlstm-1.3b", (("n_layers", 1),)),
+    # two Mamba2 layers, each closing a group: the shared block read twice
+    ("zamba2-7b", (("n_layers", 2), ("attn_every", 1))),
+    (VISION_ARCH, (("n_layers", 1), ("cross_attn_every", 1))),
+    (AUDIO_ARCH, (("n_layers", 1), ("n_encoder_layers", 1))),
+)
+FAMILY_FSDP_BATCH = 4      # x TRAIN_SEQ: one row a rank
+# zamba2-7b's serve steps: 4 prompts of 64 tokens (one a rank), one decode
+# step, float32 compute and cache, with float64 on one device as the
+# witness: the ranks' logits (another GEMM shape: one row a rank) may be no
+# further from float64's than WITNESS_FACTOR times the one-device float32
+# logits are, plus SERVE_SLACK of the largest logit
+FAMILY_FSDP_SERVE = dict(batch=4, prompt=64)
+SERVE_SLACK = 1e-6
+FAMILY_ONE_FILE = "families_one_device_zamba2.pt"
+
+
+def _families_fsdp_cfgs():
+    """Each family of ``FAMILY_FSDP_CUTS`` as configured (fp32 parameters
+    and moments, bf16 compute, full remat, the attention kernels on the
+    card) with ``fsdp=True``, and phase 22's optimizer."""
+    out = []
+    for arch, cut in FAMILY_FSDP_CUTS:
+        cfg = _replace(get_config(arch), cut + (("fsdp", True),))
+        assert (cfg.compute_dtype, cfg.remat, cfg.attn_flash) == (
+            "bfloat16", "full", "auto"), cfg
+        out.append((cfg, adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
+                                         decay_steps=60,
+                                         moment_dtype=cfg.opt_state_dtype)))
+    return out
+
+
+def _family_fsdp_serve(cfg, mesh=None, dtype="float32"):
+    """``cfg``'s prefill of ``FAMILY_FSDP_SERVE``'s prompts (from a seed)
+    and one decode step in ``dtype`` (compute, parameters and cache; the
+    seeded float32 init, cast), from the seeded init: on ``mesh`` under
+    FSDP (each data rank its prompt, the weights gathered a block at a
+    time, the shared block once a step), else on one device. Returns (the
+    last logits of each step, whole, on the host; each step's
+    collectives, summed over the ranks, or None)."""
+    params = _family_params(cfg, 0)
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, param_dtype=dtype)
+    params = tree_map(lambda t: t.to(torch_dtype(dtype)), params)
+    b, s = FAMILY_FSDP_SERVE["batch"], FAMILY_FSDP_SERVE["prompt"]
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",)) if mesh else None
+    rows = slice(None)
+    if mesh is not None:
+        n = b // mesh.shape["data"]
+        rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+        params = shard_params(params, train_state_specs(cfg, ctx)["params"],
+                              mesh)
+        free_memory()
+    r = np.random.RandomState(44)
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, s))[
+        rows]).to(DEV)
+    nxt = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, 1))[
+        rows]).to(DEV)
+
+    def counts():
+        return (compat.read_counts(reduce=True),
+                compat.read_counts(reduce=True, backward=True)) \
+            if mesh else None
+    outs, coll = [], []
+    with torch.no_grad():
+        compat.reset_counts()
+        logits, cache = make_prefill_step(cfg, ctx, s + 1,
+                                          cache_dtype=torch_dtype(dtype))(
+            params, {"tokens": toks})
+        outs.append(logits.cpu())
+        coll.append(counts())
+        compat.reset_counts()
+        logits, cache = make_decode_step(cfg, ctx)(params, cache,
+                                                   {"tokens": nxt})
+        outs.append(logits.cpu())
+        coll.append(counts())
+    del params, cache
+    free_memory()
+    return outs, coll
+
+
+def families_one_device_record(tmp):
+    """The one-device steps that phase 44 holds its ranks against, run
+    before the spawn: one step of each family of :func:`_families_fsdp_cfgs`
+    (FSDP ignored on one device) from the seeded init and batch (its
+    metrics), zamba2-7b's parameters after it saved under ``tmp``
+    (``FAMILY_ONE_FILE``, for the ranks to memory-map), and zamba2-7b's
+    serve steps (:func:`_family_fsdp_serve`) in float32 and, the witness,
+    float64. Each tree is freed before the next."""
+    t0 = time.perf_counter()
+    steps, serve = {}, None
+    for cfg, opt in _families_fsdp_cfgs():
+        t1 = time.perf_counter()
+        params = _family_params(cfg, 0)
+        state = {"params": params, "opt": adamw.init(opt, params)}
+        batch = _family_batch(cfg, FAMILY_FSDP_BATCH, TRAIN_SEQ, 0)
+        state, m = make_train_step(cfg, opt).step_fn(state, batch)
+        steps[cfg.name] = dict({k: float(v) for k, v in m.items()},
+                               seconds=time.perf_counter() - t1)
+        if cfg.family == "hybrid":
+            torch.save(tree_map(lambda t: t.cpu(), state["params"]),
+                       os.path.join(tmp, FAMILY_ONE_FILE))
+        del state, params, batch
+        free_memory()
+        if cfg.family == "hybrid":
+            serve = {dt: _family_fsdp_serve(cfg, dtype=dt)[0]
+                     for dt in ("float32", "float64")}
+    return {"steps": steps, "serve": serve,
+            "seconds": time.perf_counter() - t0}
+
+
+def _families_job(mesh, out_path):
+    """Phase 44's work on (4,1), on every rank: each family of
+    :func:`_families_fsdp_cfgs` in turn, the rank's blocks of the seeded
+    init (``shard_params``), one train step on its row of the seeded
+    batch with the attention kernels' geometries recorded; zamba2-7b's
+    blocks after it against the same slices of the one-device result
+    (``FAMILY_ONE_FILE`` beside ``out_path``, memory-mapped) and its serve
+    steps (:func:`_family_fsdp_serve`, the logits saved beside
+    ``out_path``). Returns the results on rank 0, None on the others."""
+    import torch.distributed as dist
+    one_path = os.path.join(os.path.dirname(out_path), FAMILY_ONE_FILE)
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    n = FAMILY_FSDP_BATCH // mesh.shape["data"]
+    mine = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+    out = {}
+    for cfg, opt in _families_fsdp_cfgs():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        specs = train_state_specs(cfg, ctx)["params"]
+        blocks = shard_params(_family_params(cfg, 0), specs, mesh)
+        free_memory()
+        state = {"params": blocks, "opt": adamw.init(opt, blocks)}
+        batch = {k: v[mine] for k, v in _family_batch(
+            cfg, FAMILY_FSDP_BATCH, TRAIN_SEQ, 0).items()}
+        step_fn = make_train_step(cfg, opt, ctx).step_fn
+        torch.cuda.synchronize()
+        att.reset_launches()        # this family's FSDP path starts here
+        compat.reset_counts()
+        with att_geometries() as seen:
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            metrics = {k: float(v) for k, v in m.items()}
+            step_s = time.perf_counter() - t1
+        launches = dict(att.LAUNCHES)   # read right after it
+        counts = (compat.read_counts(reduce=True),
+                  compat.read_counts(reduce=True, backward=True))
+        peak = torch.cuda.max_memory_allocated()
+        state_gb = (tree_size_bytes(state["params"])
+                    + tree_size_bytes(state["opt"])) / 1e9
+        gaps, serve = None, None
+        if cfg.family == "hybrid":
+            want = shard_params(torch.load(one_path, mmap=True,
+                                           weights_only=True), specs, mesh)
+            gaps = []
+            for got, w in zip(tree_leaves(state["params"]),
+                              tree_leaves(want)):
+                gap = (got.cpu().double() - w.double()).abs()
+                gaps.append((float(gap.max()), float(w.abs().max())))
+            del want
+        del state, blocks, batch, step_fn
+        free_memory()
+        if cfg.family == "hybrid":
+            serve = _family_fsdp_serve(cfg, mesh)
+        geos = sorted([k, g, sq, sk, dd, str(dt)[6:], c, bq, bk]
+                      for k, (g, sq, sk, dd, dt, c, bq, bk) in seen)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (launches, peak, geos, step_s, gaps,
+                                       state_gb))
+        if serve is not None and mesh.rank == 0:
+            torch.save(serve[0], out_path + ".serve.pt")
+            serve = {"path": out_path + ".serve.pt", "collectives": serve[1]}
+        out[cfg.name] = {
+            "metrics": metrics, "collectives": counts, "serve": serve,
+            "launches_by_rank": [e[0] for e in every],
+            "peak_gb_by_rank": [e[1] / 1e9 for e in every],
+            "geometries_by_rank": [e[2] for e in every],
+            "step_s_by_rank": [e[3] for e in every],
+            "gaps_by_rank": [e[4] for e in every],
+            "state_gb_by_rank": [e[5] for e in every],
+            "weight_decay": opt.weight_decay,
+            "seconds": time.perf_counter() - t0}
+    if mesh.rank != 0:
+        return None
+    return {"families": out, "backend": dist.get_backend()}
+
+
+def phase_mesh_families_fsdp(smi, spawned=None, one=None):
+    """Phase 44: the SSM, hybrid, vision and encoder-decoder families under
+    FSDP over processes (``models/transformer.py::forward`` gathering the
+    mix layers', the cross layers' and the encoder layers' leaves where
+    they run, the hybrid family's shared block once a forward for every
+    group that reads it, ``models.sharding.Reused``). Each family of
+    ``FAMILY_FSDP_CUTS`` at full width with ``fsdp=True`` (bf16 compute,
+    full remat), its depth cut to the least that runs each of its block
+    kinds, one step at ``FAMILY_FSDP_BATCH`` x ``TRAIN_SEQ`` on
+    ``FAMILY_FSDP_MESH`` (4,1): one row a rank, the last job of the one
+    world of 4. Held: the step's loss and ce within ``TP_LOSS_REL`` of
+    the one-device step on the same state and batch (``one``:
+    :func:`families_one_device_record`, made here where None); B3-B5
+    ``train_launches`` on every rank, each held against its plain version
+    at the geometry the path launched it at; the bytes by kind, summed
+    over the ranks, equal to ``count_step``'s for the cell times the
+    ranks (the all-reduces less the loss metrics' mean and the grad
+    norm's scalar); zamba2-7b's blocks within ``_param_bound`` of the
+    same slices of the one-device result, and its prefill of 4 x 64 and
+    one decode step in float32 no further from the one-device float64
+    logits than ``WITNESS_FACTOR`` times the one-device float32 logits
+    are (plus ``SERVE_SLACK``), their bytes the count's beside the
+    logits' gather over data. Each family's line is emitted before its
+    checks fail the phase. Recorded: the seconds of the step and the peak
+    GB on each rank.
+    ``spawned``: :func:`run_card_ranks`'s results (its own spawn here
+    where None). Returns the launches by path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    free_memory()
+    pc = _process_cases()
+    d, m = FAMILY_FSDP_MESH
+    n = d * m
+    tmp = tempfile.mkdtemp(prefix="mesh_families_fsdp_")
+    by_path, results = {}, []
+    try:
+        one = one or families_one_device_record(tmp)
+        spawned = spawned or run_card_ranks(tmp, None, [
+            (n, (("fsdp_families", FAMILY_FSDP_MESH),))])
+        job = spawned["fsdp_families", FAMILY_FSDP_MESH]
+        assert job["backend"] == "gloo", job["backend"]
+        failed = []
+        for i, (cfg, _) in enumerate(_families_fsdp_cfgs()):
+            r = job["families"][cfg.name]
+            want_m = one["steps"][cfg.name]
+            checks = {}     # what is held: True where it holds
+            rel = {k: abs(r["metrics"][k] - want_m[k]) / abs(want_m[k])
+                   for k in ("loss", "ce")}
+            checks["loss"] = max(rel.values()) <= TP_LOSS_REL
+            per_step = train_launches(cfg)
+            checks["launches"] = all(x == per_step
+                                     for x in r["launches_by_rank"])
+            launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                        for k in per_step}
+            geometries = []
+            if any(per_step.values()):
+                seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
+                        for rank_geos in r["geometries_by_rank"]
+                        for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
+                geometries = check_path_attention(
+                    f"families_fsdp {cfg.name}", seen, FAMILY_FSDP_BATCH // d,
+                    cfg.n_heads_padded // m, 440 + 10 * i, results)
+            st = dryrun.count_step(cfg, ShapeConfig(
+                "train", TRAIN_SEQ, FAMILY_FSDP_BATCH, "train"),
+                make_mesh(d, m), target="cuda")
+            got = pc.by_kind(r["collectives"])
+            got["all-reduce"] = got.get("all-reduce", 0) \
+                - pc.fsdp_extra(d, m)
+            want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
+            want_bytes.setdefault("all-reduce", 0)
+            checks["bytes"] = set(got) == set(want_bytes) and all(
+                abs(got[k] - want_bytes[k]) <= n for k in got)
+            extra = {}
+            if cfg.family == "hybrid":
+                lrs, worst = [want_m["lr"]], 0.0
+                for gaps in r["gaps_by_rank"]:
+                    for mx, pmax in gaps:
+                        worst = max(worst, mx / _param_bound(
+                            lrs, r["weight_decay"], pmax))
+                checks["params"] = worst <= 1.0
+                outs = torch.load(r["serve"]["path"], weights_only=True)
+                coll = r["serve"]["collectives"]
+                one32, one64 = one["serve"]["float32"], one["serve"]["float64"]
+
+                def rel_gap(a, b):
+                    return _gap(a, b) / float(b.abs().max())
+                serve_gaps = {
+                    "ranks_vs_one_f32": [rel_gap(a, b)
+                                         for a, b in zip(outs, one32)],
+                    "ranks_vs_f64": [rel_gap(a, b)
+                                     for a, b in zip(outs, one64)],
+                    "one_f32_vs_f64": [rel_gap(a, b)
+                                       for a, b in zip(one32, one64)]}
+                checks["serve"] = all(
+                    g <= WITNESS_FACTOR * w + SERVE_SLACK for g, w in zip(
+                        serve_gaps["ranks_vs_f64"],
+                        serve_gaps["one_f32_vs_f64"]))
+                f32 = dataclasses.replace(cfg, compute_dtype="float32")
+                sv = FAMILY_FSDP_SERVE
+                serve_bytes, serve_want = [], []
+                for kind, c in zip(("prefill", "decode"), coll):
+                    cs = dryrun.count_step(f32, ShapeConfig(
+                        kind, sv["prompt"], sv["batch"], kind),
+                        make_mesh(d, m), target="cuda")
+                    got_s = pc.by_kind(c)
+                    want_s = {k: n * v
+                              for k, v in cs.collective_by_kind.items()}
+                    want_s["all-gather"] = want_s.get("all-gather", 0) \
+                        + pc.fsdp_logit_bytes(f32, FAMILY_FSDP_MESH,
+                                              sv["batch"])
+                    serve_bytes.append(got_s)
+                    serve_want.append(want_s)
+                checks["serve bytes"] = all(
+                    set(a) == set(b) and all(abs(a[k] - b[k]) <= n
+                                             for k in a)
+                    for a, b in zip(serve_bytes, serve_want))
+                extra = dict(params_worst_over_bound=worst,
+                             serve_gaps=serve_gaps,
+                             witness_factor=WITNESS_FACTOR,
+                             serve_slack=SERVE_SLACK,
+                             serve_bytes=serve_bytes,
+                             serve_count_bytes=serve_want)
+            n_params = sum(math.prod(t.shape) for t in tree_leaves(
+                abstract_params(model_template(cfg))))
+            emit("mesh_families_fsdp", gpu=smi, arch=cfg.name,
+                 family=cfg.family, mesh=[d, m], ranks=n,
+                 reduced={k: v for k, v in FAMILY_FSDP_CUTS[i][1]},
+                 param_count=n_params, batch=FAMILY_FSDP_BATCH,
+                 seq_len=TRAIN_SEQ, compute_dtype=cfg.compute_dtype,
+                 remat=cfg.remat, checks=checks, metrics=r["metrics"],
+                 one_device_metrics=want_m, rel=rel, launches=launches,
+                 launches_per_rank_step=per_step, geometries=geometries,
+                 bytes_per_step=got, count_step_bytes=want_bytes,
+                 gb_per_step=sum(want_bytes.values()) / 1e9,
+                 step_s_by_rank=r["step_s_by_rank"],
+                 peak_gb_by_rank=r["peak_gb_by_rank"],
+                 state_gb_by_rank=r["state_gb_by_rank"],
+                 job_seconds=r["seconds"], **extra)
+            failed += [f"{cfg.name}: {k}" for k, ok in checks.items()
+                       if not ok]
+            by_path[f"mesh_families_fsdp {cfg.name}"] = launches
+            free_memory()
+        emit("mesh_families_fsdp_done", gpu=smi, failed=failed,
+             one_device_seconds=one["seconds"], seconds=job["seconds"])
+        assert not failed, failed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
@@ -6736,7 +7107,7 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     ``multiprecision``, ``attention_long``'s rows and gates), phases 33
     and 35's (``mesh_pipeline``, ``mesh_train``), phase 37's counted
     step (``dryrun``), phase 38's NCCL step, summed over its ranks
-    (``mesh_processes``), and phases 39-42's steps, summed over their
+    (``mesh_processes``), and phases 39-44's steps, summed over their
     ranks: every row adds those that launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
@@ -6941,7 +7312,9 @@ def main():
     try:
         one = one_device_record(tmp)       # phases 39 and 40 hold to it
         free_memory()
-        spawned = run_card_ranks(tmp, one[1])   # phases 39-42's ranks
+        fam_one = families_one_device_record(tmp)   # phase 44 holds to it
+        free_memory()
+        spawned = run_card_ranks(tmp, one[1])   # phases 39-44's ranks
         surface.update(phase_mesh_tensor_parallel(smi, one, spawned))
         free_memory()
         surface.update(phase_mesh_fsdp(smi, one, spawned))
@@ -6952,6 +7325,8 @@ def main():
         surface.update(phase_mesh_mla(smi, spawned, mla_one))
         free_memory()
         surface.update(phase_mesh_mla_fsdp(smi, spawned, mla_one))
+        free_memory()
+        surface.update(phase_mesh_families_fsdp(smi, spawned, fam_one))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

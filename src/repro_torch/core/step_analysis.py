@@ -29,8 +29,9 @@ backward and the optimizer, and counts:
      sharded over a batch axis) an all-gather over those axes in the
      forward that reads it and one more in the backward that reads it,
      or reads its cast to the compute dtype (the gradient products, and
-     the recompute under remat, share it),
-     and a reduce-scatter of its gradient; a gradient all-reduce over the
+     the recompute under remat, share it), and a reduce-scatter of its
+     gradient (neither a view nor the optimizer reads a leaf: one that
+     nothing else reads moves nothing); a gradient all-reduce over the
      batch axes that replicate the leaf, and over ``model`` too where it
      replicates a leaf that the forward applies to an activation split
      over ``model`` (a per-head bias: each device holds a partial or
@@ -472,6 +473,8 @@ class _Run(TorchDispatchMode):
         self.params = params        # storage key -> (tensor, spec)
         self.read_fwd, self.read_bwd = set(), set()
         self.extent = {}            # leaf key -> hull of the boxes read
+        self.extent_bwd = {}        # ... of those the backward read
+        self.stacked = set()        # leaves walked layer by layer (unbind)
         # the forward's casts of a leaf (their storage key -> (a weak
         # reference to it, the leaf's key)): the backward that reads a
         # cast (the gradient product of a weight used in the compute
@@ -530,14 +533,26 @@ class _Run(TorchDispatchMode):
         # the step's reads: the optimizer after the backward reads every
         # leaf whole and is not one of them
         step_read = in_backward or not self.backward_ran
+        if func.overloadpacket is aten.unbind and in_keys \
+                and in_keys[0] in self.params and not (args[1:] or (0,))[0]:
+            self.stacked.add(in_keys[0])
+        # a view reads nothing, nor does the optimizer (a leaf that only
+        # they touch, as the vision model's unread q_norm, moves nothing
+        # under FSDP)
         for t, k in zip(ins, in_keys):
+            if func.is_view or not step_read:
+                break
             if k in self.params:
                 reads.add(k)
-                if step_read and not func.is_view:
-                    self.extent[k] = _hull(self.extent.get(k),
-                                           _box(t, self.params[k][0]))
+                box = _box(t, self.params[k][0])
+                self.extent[k] = _hull(self.extent.get(k), box)
             elif self._cast_of(k) is not None:
-                reads.add(self._cast_of(k))
+                k, box = self._cast_of(k), self.casts[k][2]
+                reads.add(k)
+            else:
+                continue
+            if in_backward:
+                self.extent_bwd[k] = _hull(self.extent_bwd.get(k), box)
         packet = func.overloadpacket
         if packet in _PRODUCTS:
             f = flop_registry[packet](*args, **kwargs, out_val=out) / self.n
@@ -548,12 +563,15 @@ class _Run(TorchDispatchMode):
         name = packet.__name__
         out_keys = [_key(t) for t in outs]
         if name == "_to_copy" and not in_backward and in_keys:
-            leaf = in_keys[0] if in_keys[0] in self.params \
-                else self._cast_of(in_keys[0])
-            if leaf is not None:
+            leaf, box = in_keys[0], None
+            if leaf in self.params:
+                box = _box(ins[0], self.params[leaf][0])
+            elif self._cast_of(leaf) is not None:
+                leaf, box = self._cast_of(leaf), self.casts[leaf][2]
+            if box is not None:
                 for t, k in zip(outs, out_keys):
                     self.casts[k] = (StorageWeakRef(t.untyped_storage()),
-                                     leaf)
+                                     leaf, box)
         if not (func.is_view or name in NOT_COUNTED):
             state, n = self.state, self.n
             self.stats.bytes_accessed += sum(
@@ -571,7 +589,7 @@ class _Run(TorchDispatchMode):
 
     def _cast_of(self, key):
         """The key of the leaf whose live cast has storage ``key``, or
-        None."""
+        None (``casts[key][2]``: the box of the leaf that it casts)."""
         got = self.casts.get(key)
         return got[1] if got is not None and not got[0].expired() else None
 
@@ -799,11 +817,14 @@ def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
     # 1. compat's explicit collectives were recorded as they ran
     # 2. the parameters' gathers and gradient reductions
     batch_axes = [a for a in sizes if a != MODEL_AXIS]
+    def extent(box, t):
+        """The share of ``t`` that ``box`` covers (1 without a box)."""
+        return math.prod(hi - lo for lo, hi in box) / t.numel() \
+            if box is not None and t.numel() else 1.0
+
     for k, (t, axes) in run.params.items():
         used = [a for e in axes for a in e]
-        box = run.extent.get(k)
-        read = math.prod(hi - lo for lo, hi in box) / t.numel() \
-            if box is not None and t.numel() else 1.0
+        read = extent(run.extent.get(k), t)
         shard = _nbytes(t) * read / math.prod(sizes[a] for a in used)
         fsdp = [a for a in used if a in batch_axes]
         g_f = math.prod(sizes[a] for a in fsdp)
@@ -811,10 +832,21 @@ def analyze(fn, *args, n_devices: int = 1, mesh=None, specs=None,
         if g_f > 1:
             st.count_short.add("collective: fsdp")
             gathers = (k in run.read_fwd) + (k in run.read_bwd)
-            if gathers:
+            # a stacked leaf's layers are gathered one at a time: the
+            # backward gathers the layers it reads (the audio encoder's
+            # first layer reads no norm weight there: its input is the
+            # frontend's)
+            back = 1.0
+            if k in run.stacked and k in run.extent_bwd:
+                (lo, hi), (blo, bhi) = run.extent[k][0], run.extent_bwd[k][0]
+                back = (bhi - blo) / (hi - lo)
+            if k in run.read_fwd:
                 st.add_collective("all-gather", shard * g_f, g_f, label,
-                                  times=gathers * strips)
-            if run.backward_ran:
+                                  times=strips)
+            if k in run.read_bwd:
+                st.add_collective("all-gather", shard * back * g_f, g_f,
+                                  label, times=strips)
+            if run.backward_ran and gathers:
                 st.add_collective("reduce-scatter", shard, g_f, label,
                                   times=strips)
         # over the batch axes that replicate the leaf, and over model for a

@@ -513,6 +513,15 @@ class _Regather:
         _SCOPES.pop()
 
 
+def _hold(full, low, recipe):
+    """Within a :class:`_Regather` scope, the gathered leaf ``full`` and its
+    cast ``low`` are packed as handles to ``recipe`` when a product saves
+    them."""
+    if _SCOPES:
+        _SCOPES[-1].hold(full, recipe)
+        _SCOPES[-1].hold(low, recipe)
+
+
 @dataclasses.dataclass(frozen=True)
 class Fsdp:
     """FSDP (ZeRO-3) over the batch axes of a process mesh, as a rank's
@@ -538,14 +547,17 @@ class Fsdp:
                      if any(a in self.axes for a in entry_axes(e))), None)
 
     def gather_leaf(self, x, spec, dtype=None, lead: int = 0,
-                    gathered=None):
+                    gathered=None, held=None):
         """The rank's block ``x`` of a leaf of sanitized spec ``spec``
         gathered over the batch axes that cut it (``x`` as it is where
-        none does), then cast to ``dtype`` (None: the stored dtype: the
-        gather moves the leaf as it is stored). ``lead``: leading
-        dimensions of the spec that ``x`` lacks (1 for a layer of a
-        stacked leaf); ``gathered``: ``x`` already gathered (the tied head
-        reads the table that the lookup gathered), to cast and hold."""
+        none does: a leaf FSDP leaves whole keeps its stored dtype), then
+        cast to ``dtype`` (None: the stored dtype: the gather moves the
+        leaf as it is stored). ``lead``: leading dimensions of the spec
+        that ``x`` lacks (1 for a layer of a stacked leaf); ``gathered``:
+        ``x`` already gathered (the tied head reads the table that the
+        lookup gathered), to cast and hold; ``held``: a list that takes
+        ``(gathered, cast, recipe)`` of the leaf (:class:`Reused` holds
+        them in each later use's scope)."""
         dim = self.dim(spec)
         if dim is None:
             return x
@@ -553,21 +565,58 @@ class Fsdp:
         full = gathered if gathered is not None else compat.gather_from(
             x, self.mesh, axes, dim - lead)
         low = full if dtype is None else full.to(dtype)
-        if _SCOPES:
-            recipe = _Recipe(x.detach(), self.mesh, axes, dim - lead)
-            _SCOPES[-1].hold(full, recipe)
-            _SCOPES[-1].hold(low, recipe)
+        recipe = _Recipe(x.detach(), self.mesh, axes, dim - lead)
+        if held is not None:
+            held.append((full, low, recipe))
+        _hold(full, low, recipe)
         return low
 
-    def gather(self, tree, specs, dtype=None, lead: int = 0):
+    def gather(self, tree, specs, dtype=None, lead: int = 0, held=None):
         """:meth:`gather_leaf` over a tree of blocks and its specs."""
-        return tree_map(lambda x, s: self.gather_leaf(x, s, dtype, lead),
+        return tree_map(lambda x, s: self.gather_leaf(x, s, dtype, lead,
+                                                      held=held),
                         tree, specs)
 
     def regather(self):
         """A scope (:class:`_Regather`) for a block's forward whose
         backward reads its gathered leaves."""
         return _Regather()
+
+
+class Reused:
+    """Under FSDP, a block's leaves that ``uses`` blocks of one forward read
+    (the hybrid family's shared attention block, after each group of
+    ``attn_every`` layers): :meth:`get` gathers them at the first use
+    (into the compute dtype ``dtype``) and hands the same gathered copy to
+    each later use, which holds it in its own :class:`_Regather` scope,
+    and lets it go after the last. So each leaf moves one all-gather in
+    the forward however many groups read it. For the backward it is
+    gathered once more: a checkpoint's recompute makes the ``uses`` calls
+    again (the first gathers, the last lets it go), and without a
+    checkpoint the saved views of every use share one gather
+    (:class:`_Slot`). Its gradient, summed over the uses, is
+    reduce-scattered once."""
+
+    def __init__(self, fs: Fsdp, tree, specs, dtype, uses: int):
+        self.fs, self.tree, self.specs, self.dtype = fs, tree, specs, dtype
+        self.uses, self.left = max(int(uses), 1), 0
+        self.copy, self.held = None, []
+
+    def get(self):
+        """The gathered leaves, for one use."""
+        if self.left == 0:
+            self.held = []
+            self.copy = self.fs.gather(self.tree, self.specs, self.dtype,
+                                       held=self.held)
+            self.left = self.uses
+        else:
+            for full, low, recipe in self.held:
+                _hold(full, low, recipe)
+        out = self.copy
+        self.left -= 1
+        if self.left == 0:
+            self.copy, self.held = None, []
+        return out
 
 
 def _fsdp_axes(cfg: ArchConfig, ctx: Optional[MeshCtx]) -> tuple:
@@ -593,28 +642,33 @@ def fsdp_split(cfg: ArchConfig, ctx: Optional[MeshCtx]) -> Optional[Fsdp]:
     return Fsdp(ctx.mesh, axes, specs)
 
 
-# the queue item that ports FSDP over processes of the other families and
-# of the serving engine
-FSDP_QUEUE = ("FSDP of the SSM, hybrid, vision and encoder-decoder families "
-              "and of the serving engine over processes (ROADMAP Queue A, "
-              "A13c item 2.2b)")
+# the queue item that ports FSDP over processes of the serving engine
+FSDP_QUEUE = ("FSDP of the serving engine over processes (ROADMAP Queue A, "
+              "A13c item 2.2b, slice 2)")
 
 
 def check_fsdp(cfg: ArchConfig, ctx: Optional[MeshCtx],
                engine: bool = False):
-    """Raises ``NotImplementedError``, naming its queue item
-    (``FSDP_QUEUE``), for FSDP over processes that the port does not run:
-    any family but the dense and the MoE families (GQA or MLA, the experts
-    or their FFN on the model axis), and with ``engine`` the serving
-    engine. Nothing where FSDP does not apply (:func:`fsdp_split`)."""
+    """Raises ``NotImplementedError``, naming its queue item, for FSDP over
+    processes that the port does not run: with ``engine`` the serving
+    engine of any family (``FSDP_QUEUE``); a family outside the
+    tensor-parallel route's (:func:`_tp_family`: the SSM, hybrid, vision
+    and encoder-decoder families) on a mesh whose model axis is above 1
+    (``TP_QUEUE``: the reference's rules split their ``d_inner`` and the
+    cross layers' heads over ``model`` there). Every family's train,
+    prefill and decode steps run FSDP over the batch axes where the model
+    axis is 1, the dense and the MoE families' at any model axis. Nothing
+    where FSDP does not apply (:func:`fsdp_split`)."""
     axes = _fsdp_axes(cfg, ctx)
     if not axes:
         return
     head = f"{cfg.name} with fsdp=True over {'x'.join(axes)} on a process " \
         f"mesh"
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{head}: the {cfg.family} family under "
-                                  f"FSDP; {FSDP_QUEUE} is not ported")
     if engine:
         raise NotImplementedError(f"{head}: the ServingEngine under FSDP; "
                                   f"{FSDP_QUEUE} is not ported")
+    if not _tp_family(cfg) and ctx.n_lanes > 1:
+        raise NotImplementedError(
+            f"{head} with {ctx.model_axis}={ctx.n_lanes}: the {cfg.family} "
+            f"family under FSDP and the model axis; {TP_QUEUE[cfg.family]} "
+            f"is not ported")

@@ -47,19 +47,31 @@ vocab block of them, and the cross-entropy vocab-parallel (:func:`_ce`),
 the MTP module's too. Where
 the axis does not divide the vocab, the rank holds the table whole and
 the lookup, the head and the cross-entropy are unsplit. Under FSDP
-(``models.sharding.fsdp_split``: ``cfg.fsdp`` on such a mesh with batch
-axes above 1) the dense and the MoE families' parameters are the rank's
-blocks over the batch axes as well: each layer (a MoE layer's attention,
-norms, router, the live rows of its expert tables, or every row on the
-expert-parallel route, and its shared expert too) gathers its leaves
-inside the function that its checkpoint wraps
-(so the recompute gathers them again) and casts them to the compute
-dtype after the gather (the router keeps its stored dtype: it routes in
-fp32); without a checkpoint the layer runs under ``Fsdp.regather``, so
-that the backward gathers them again instead of keeping them; the table
-is gathered for the lookup, the final norm and the head where the head
-uses them, and the MTP module (:func:`lm_loss`) gathers its own leaves
-and reads the table and the head's leaf that the forward gathered.
+(``models.sharding.fsdp_split``: ``cfg.fsdp`` on a mesh of processes
+whose batch axes are above 1; a family outside the dense and MoE ones
+only where its model axis is 1) the parameters are the rank's blocks over
+the batch axes as well: each layer gathers its leaves inside the function
+that its checkpoint wraps (so the recompute gathers them again) and
+casts them to the compute dtype after the gather, while a leaf that FSDP
+leaves whole keeps its stored dtype (the router, which routes in fp32;
+the mix layers' leaves without an ``embed`` dimension, mLSTM's ``wq``,
+``wk``, ``wv`` and gates, the convolution, ``a_log``, ``dt_bias``,
+``d_skip`` and ``norm``, which the data mean reduces whole); without a
+checkpoint the layer runs under ``Fsdp.regather``, so that the backward
+gathers them again instead of keeping them. So gather a MoE layer (its
+attention, norms, router, the live rows of its expert tables, or every
+row on the expert-parallel route, and its shared expert), a dense or
+decoder layer (the audio model's ``xattn`` and ``ln_x`` among its
+leaves), a mix layer (``up_proj`` / ``in_proj``, ``out_proj`` and
+``ln1``; in the cache path too), the vision model's cross layers (but
+the ``q_norm`` that nothing reads) and the audio model's encoder layers;
+``enc_norm`` is gathered under ``Fsdp.regather``. The hybrid family's shared block is gathered
+once a forward, at its first use, and that copy is read by every group
+(``models.sharding.Reused``); the backward gathers it once more. The
+table is gathered for the lookup, the final norm and the head where the
+head uses them, and the MTP module (:func:`lm_loss`) gathers its own
+leaves and reads the table and the head's leaf that the forward
+gathered.
 """
 from __future__ import annotations
 
@@ -84,9 +96,10 @@ from repro_torch.models.layers import (P, rms_norm, tree_leaves, tree_map,
 from repro_torch.models.mlp import mlp, mlp_template
 from repro_torch.models.moe import (EXPERT_TABLES, ep_route, global_tokens,
                                     moe_block, moe_template)
-from repro_torch.models.sharding import (check_fsdp, check_tensor_parallel,
-                                         fsdp_split, held_experts,
-                                         tensor_parallel, vocab_split)
+from repro_torch.models.sharding import (Reused, check_fsdp,
+                                         check_tensor_parallel, fsdp_split,
+                                         held_experts, tensor_parallel,
+                                         vocab_split)
 
 
 # ---------------------------------------------------------------------------
@@ -369,10 +382,12 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
                 return fn(x)
         return _maybe_remat(fn, cfg)(x)
 
-    def gathered(p, specs):
+    def gathered(p, key):
         """A layer's parameters: under FSDP its blocks gathered and cast to
-        the compute dtype (``specs``: the stacked leaves' specs)."""
-        return p if fs is None else fs.gather(p, specs, compute_dtype, lead=1)
+        the compute dtype (``key``: its stack's key in the parameters);
+        a leaf that FSDP leaves whole keeps its stored dtype."""
+        return p if fs is None else fs.gather(p, fs.specs[key],
+                                              compute_dtype, lead=1)
 
     # each block below is a function of its own parameters: a checkpoint
     # recomputes it in the backward pass, after the layer loop has moved on
@@ -386,14 +401,14 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         c["lengths"] = lengths
         return c
 
-    def attn_block(p, x, c, memory=None, specs=None):
-        """A dense block; ``c`` = its cache views, or None; ``specs``: its
-        stacked leaves' specs under FSDP."""
+    def attn_block(load, x, c, memory=None):
+        """A dense block; ``load()`` gives its parameters (called inside
+        the function a checkpoint wraps, so that under FSDP the recompute
+        gathers them again); ``c`` = its cache views, or None."""
         if cache is None:
             return run(lambda x: dense_block(
-                cfg, gathered(p, specs), x, positions, memory=memory,
-                tp=tp)[0], x)
-        return dense_block(cfg, gathered(p, specs), x, positions, cache=c,
+                cfg, load(), x, positions, memory=memory, tp=tp)[0], x)
+        return dense_block(cfg, load(), x, positions, cache=c,
                            memory=memory, tp=tp)[0]
 
     # the MoE layers' route (moe.moe_block's gate, on the global batch)
@@ -408,13 +423,12 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         which routes in fp32 whatever that is (``moe._topk``)."""
         if fs is None:
             return p
-        specs = fs.specs["layers"]
         live = None if ep else len(held_experts(cfg, tp))
         rest = {k: v[:live] if k in EXPERT_TABLES else v
                 for k, v in p["moe"].items() if k != "router"}
-        out = gathered(dict(p, moe=rest), specs)
+        out = gathered(dict(p, moe=rest), "layers")
         out["moe"]["router"] = fs.gather_leaf(
-            p["moe"]["router"], specs["moe"]["router"], lead=1)
+            p["moe"]["router"], fs.specs["layers"]["moe"]["router"], lead=1)
         return out
 
     def moe(p, x, c):
@@ -425,20 +439,31 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         return moe_layer(cfg, moe_params(p), x, positions, mesh_ctx,
                          cache=c, tp=tp)[:2]
 
+    def cross_params(p):
+        """A cross layer's parameters (under FSDP gathered, but its
+        ``q_norm``, which the layer never reads, as in the reference)."""
+        if fs is None:
+            return p
+        attn = {k: v for k, v in p["attn"].items() if k != "q_norm"}
+        return gathered(dict(p, attn=attn), "cross_layers")
+
     def cross_block(p, x, memory):
-        return run(lambda x: _cross_block(cfg, p, x, memory)[0], x)
+        return run(lambda x: _cross_block(cfg, cross_params(p), x,
+                                          memory)[0], x)
 
     def encoder_block(p, x, enc_pos):
-        return run(lambda x: dense_block(cfg, p, x, enc_pos,
-                                         causal=False)[0], x)
+        return run(lambda x: dense_block(cfg, gathered(p, "enc_layers"), x,
+                                         enc_pos, causal=False)[0], x)
 
     def mix(p, x, i):
-        """Mixing layer ``i``; its recurrent state is read from and written
-        back into the cache in place."""
+        """Mixing layer ``i`` (under FSDP its blocks gathered, in the cache
+        path too); its recurrent state is read from and written back into
+        the cache in place."""
         if cache is None:
-            return run(lambda x: mix_layer(cfg, p, x)[0], x)
-        x, new = mix_layer(cfg, p, x, {"conv": cache["conv"][i],
-                                       "ssm": cache["ssm"][i]})
+            return run(lambda x: mix_layer(cfg, gathered(p, "layers"),
+                                           x)[0], x)
+        x, new = mix_layer(cfg, gathered(p, "layers"), x,
+                           {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
         cache["conv"][i].copy_(new["conv"])
         cache["ssm"][i].copy_(new["ssm"])
         return x
@@ -467,29 +492,39 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
                                        memory.shape[:2])
             for p_i in unstack(params["enc_layers"]):
                 memory = encoder_block(p_i, memory, enc_pos)
-            memory = rms_norm(memory, params["enc_norm"], cfg.norm_eps)
+            with contextlib.nullcontext() if fs is None else fs.regather():
+                norm = params["enc_norm"] if fs is None else \
+                    fs.gather_leaf(params["enc_norm"], fs.specs["enc_norm"],
+                                   compute_dtype)
+                memory = rms_norm(memory, norm, cfg.norm_eps)
+                del norm
             fresh_memory = True
 
     if fam in ("dense", "vlm", "audio"):
         cross = unstack(params["cross_layers"]) if fam == "vlm" else None
-        specs = None if fs is None else fs.specs["layers"]
         for i, p_i in enumerate(unstack(params["layers"])):
-            x = attn_block(p_i, x, layer_cache(i, ("k", "v")),
-                           memory if fam == "audio" else None, specs)
+            x = attn_block(lambda p=p_i: gathered(p, "layers"), x,
+                           layer_cache(i, ("k", "v")),
+                           memory if fam == "audio" else None)
             # vlm: a cross block closes each group of cross_attn_every
             if fam == "vlm" and (i + 1) % cfg.cross_attn_every == 0:
                 x = cross_block(cross[i // cfg.cross_attn_every], x, memory)
     elif fam == "moe":
         kv_keys = ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
         if cfg.moe.n_dense_layers:
-            specs = None if fs is None else fs.specs["dense_layers"]
             for i, p_i in enumerate(unstack(params["dense_layers"])):
-                x = attn_block(p_i, x, layer_cache(i, kv_keys, "dense_"),
-                               specs=specs)
+                x = attn_block(lambda p=p_i: gathered(p, "dense_layers"), x,
+                               layer_cache(i, kv_keys, "dense_"))
         for i, p_i in enumerate(unstack(params["layers"])):
             x, a = moe(p_i, x, layer_cache(i, kv_keys))
             aux = aux + a
     elif fam in ("ssm", "hybrid"):
+        if fam == "hybrid":
+            # under FSDP the shared block is gathered at its first use and
+            # that copy read by every group (``Reused``)
+            shared = (lambda: params["shared_attn"]) if fs is None else \
+                Reused(fs, params["shared_attn"], fs.specs["shared_attn"],
+                       compute_dtype, cfg.n_layers // cfg.attn_every).get
         for i, p_i in enumerate(unstack(params["layers"])):
             x = mix(p_i, x, i)
             # hybrid: the shared block closes each whole group of
@@ -500,7 +535,7 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
                 c = None if cache is None else {
                     "k": cache["attn_k"][g], "v": cache["attn_v"][g],
                     "lengths": lengths}
-                x = attn_block(params["shared_attn"], x, c)
+                x = attn_block(shared, x, c)
     else:
         raise ValueError(fam)
 

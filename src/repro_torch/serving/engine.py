@@ -181,7 +181,11 @@ class ServingEngine:
     the same scheduler on the same requests: each emits the same tokens
     (the same generator seed draws the same noise). FSDP over a process
     mesh (``cfg.fsdp`` with batch axes above 1) raises
-    ``NotImplementedError``, naming its queue item."""
+    ``NotImplementedError`` for every family, naming its queue item
+    (item 2.2b, slice 2: the engine prefills one prompt at a time and
+    every rank runs the same scheduler, while FSDP's gathers are
+    collectives that every rank must join); the train, prefill and decode
+    steps (``train.step``) run FSDP."""
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  max_seq: int = 512, ctx: Optional[MeshCtx] = None,

@@ -31,11 +31,14 @@ bundle's ``abstract_state`` gives their shapes), runs the forward and
 backward on its heads, FFN columns and vocab block
 (``models.transformer.forward``), and the grad norm sums the split
 leaves' squares once (``optim.adamw.global_norm``). With ``cfg.fsdp``
-and batch axes above 1 the dense and MoE families' step is also FSDP,
-as the reference's partitioner runs it from the same specs: every
-``embed`` dimension is split over the batch axes too, each leaf is
-gathered where a layer uses it and again for the backward
-(``models.sharding.Fsdp``),
+and batch axes above 1 the step is also FSDP, as the reference's
+partitioner runs it from the same specs (every family's on a model axis
+of 1, the dense and MoE families' on any): every ``embed`` dimension is
+split over the batch axes too, each leaf is gathered where a layer uses
+it and again for the backward (``models.sharding.Fsdp``; the hybrid
+family's shared block once a forward for all its groups,
+``models.sharding.Reused``; a leaf FSDP leaves whole, as the mix
+layers' without ``embed``, is averaged as in the data-parallel step),
 its gradient reduce-scattered back to the rank's block, which is divided
 by the batch axes' extent once and kept out of the gradient mean; AdamW
 updates the rank's blocks. A mixture-of-experts model trains on (d,1),
@@ -59,9 +62,9 @@ the batch axes, each rank keeping its block of every global
 micro-batch), so that each strip's dispatch group, capacities,
 expert-parallel lanes and aux loss are the one-device micro-batch's; a
 micro-batch whose rows the batch axes do not split raises
-``ValueError``. FSDP of the other families and the SSM, hybrid, vision
-and encoder-decoder families at ``model > 1`` raise
-``NotImplementedError`` naming their queue item.
+``ValueError``. The SSM, hybrid, vision and encoder-decoder families at
+``model > 1``, with or without FSDP, raise ``NotImplementedError``
+naming their queue item (2.6).
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
@@ -223,15 +226,16 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
 
 def _check_process_route(cfg: ArchConfig, ctx: MeshCtx):
     """What the process route trains: the data-parallel step of every
-    family, and the dense and the MoE families' tensor-parallel step
+    family; the dense and the MoE families' tensor-parallel step
     (``model > 1``; MLA's heads, the experts or their FFN split over it,
-    on the one-hot dispatch or the expert-parallel route) and FSDP step
-    (``fsdp=True``; every embed, q_lora and kv_lora dimension over the
-    batch axes too), each in micro-batches too (a MoE model's re-laid
-    micro-major, :func:`micro_major`, which raises ``ValueError`` where
-    the batch axes do not split a micro-batch's rows). Anything else
-    raises ``NotImplementedError`` naming its queue item (FSDP of the
-    other families)."""
+    on the one-hot dispatch or the expert-parallel route); every family's
+    FSDP step (``fsdp=True``; every embed, q_lora and kv_lora dimension
+    over the batch axes too), the SSM, hybrid, vision and encoder-decoder
+    families' on a model axis of 1; each in micro-batches too (a MoE
+    model's re-laid micro-major, :func:`micro_major`, which raises
+    ``ValueError`` where the batch axes do not split a micro-batch's
+    rows). Anything else raises ``NotImplementedError`` naming its queue
+    item (those four families at ``model > 1``: item 2.6)."""
     check_fsdp(cfg, ctx)
     check_tensor_parallel(cfg, ctx, train=True)
 

@@ -9,7 +9,8 @@
   bytes of the train step within 1e-4 on (4,1), (1,4) and (2,2), and FSDP
   at (4,1) and (2,2) pinned at its measured ratio (ROADMAP Queue C);
   every kind of step that the dry run counts on a mesh (``CELLS``: prefill,
-  decode, the MoE, MLA and hybrid train steps, and the expert-parallel
+  decode, the MoE, MLA and hybrid train steps, the hybrid family under
+  FSDP, and the expert-parallel
   route at a gate lowered in both packages, ``GATES``, whose all-to-alls
   agree exactly), each within 1 % or pinned
   at its measured ratio with its cause, and flagged where its count is
@@ -92,6 +93,10 @@ CELLS = {
     "granite-moe-3b-a800m train 2x2": ("granite-moe-3b-a800m", "train", 2, 2),
     "zamba2-7b train 4x1": ("zamba2-7b", "train", 4, 1),
     "zamba2-7b train 1x4": ("zamba2-7b", "train", 1, 4),
+    # the hybrid family under FSDP: the cell whose ranks
+    # tests/test_torch_processes.py runs (there at 4 layers)
+    "zamba2-7b train 4x1 fsdp": ("zamba2-7b", "train", 4, 1,
+                                 {"fsdp": True}),
     # the expert-parallel route, its gate lowered in both packages to the
     # cell's 512 tokens (GATES): the body's all-to-alls and the re-lay of
     # the experts' FFN blocks as blocks of the experts
@@ -239,6 +244,18 @@ COLL_PINNED = {
         "partitioner all-gathers 896,896, all-reduces 2,333,784, moves "
         "524,288 by all-to-all and 1,024 by collective-permute, and "
         "reduce-scatters nothing: 1,381,248 / 3,755,992 bytes a device"),
+    "zamba2-7b train 4x1 fsdp": (
+        0.14946, 0.00283,
+        "FSDP (open fault 2 on the hybrid family): the port's ranks move "
+        "exactly the count (tests/test_torch_processes.py), the weights' "
+        "gathers (659,328) and reduce-scatters (354,240) beside the "
+        "gradient means of the Mamba2 leaves FSDP leaves whole (10,464); "
+        "the reference's partitioner all-gathers 2,755,392 (activations "
+        "such as f32[8,64,280] and f32[8,64,128]), all-reduces 3,703,098 "
+        "and moves 393,216 by all-to-all: 1,024,032 / 6,851,706 bytes a "
+        "device. It gathers each of the shared block's weights once a "
+        "step, at 2 layers (one group) and at 4 (two) alike, where the "
+        "port gathers it once in the forward and once for the backward"),
     "zamba2-7b train 1x4": (
         0.56073, 0.95547,
         "the reference reshards the Mamba2 blocks' split projections under "
@@ -266,6 +283,7 @@ SHORT = {
     "granite-moe-3b-a800m train 2x2": _MOE,
     "granite-moe-3b-a800m train 2x2 accum2": _MOE,
     "zamba2-7b train 1x4": ["collective: ssm resharding under model"],
+    "zamba2-7b train 4x1 fsdp": ["collective: fsdp"],
     "4x1 fsdp": ["collective: fsdp"],
     "2x2 fsdp": ["collective: fsdp"],
 }

@@ -282,7 +282,6 @@ for tag, mesh_s in (("4x1", make_mesh(4, 1, devices=jax.devices()[:4])),
                    jax.device_put(batch, bt_sh))
     for key in ("loss", "ce", "aux", "grad_norm"):
         out[f"step_mla_fsdp_{tag}/m1_{key}"] = np.asarray(m1[key])
-
 # -- lane-local MLA: prefill and decode on a 1 x 4 mesh --------------------
 mesh14 = make_mesh(1, 4)
 cfg = reduced(get_config("deepseek-v3-671b"))
@@ -301,6 +300,51 @@ with mesh14:
         tok = r.randint(0, cfg.vocab_size, size=(2, 1)).astype(np.int32)
         logits, cache = dec(params, cache, {"tokens": jnp.asarray(tok)})
         out[f"mla/tok{i}"], out[f"mla/decode{i}"] = tok, np.asarray(logits)
+
+# the hybrid and encoder-decoder families under FSDP on (4,1), in float64
+# (x64 on from here to the end): zamba2-7b at 4 layers (its shared block
+# read by two groups) and seamless-m4t-medium with the stub frontend's
+# embeddings. In float32 their grad norms carry the stacks' rounding: the
+# reference's own one-device and FSDP float32 steps disagree there by more
+# than the 1e-5 the ranks are held to; each also on one device
+jax.config.update("jax_enable_x64", True)
+mesh_f = make_mesh(4, 1, devices=jax.devices()[:4])
+for arch, over in (("zamba2-7b", {"n_layers": 4}),
+                   ("seamless-m4t-medium", {})):
+    cfg = reduced(get_config(arch), param_dtype="float64",
+                  compute_dtype="float64", fsdp=True, **over)
+    params = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float64),
+        init_params(tf.model_template(cfg), jax.random.PRNGKey(0)))
+    toks = jax.random.randint(jax.random.PRNGKey(1), (4, 16), 0,
+                              cfg.vocab_size)
+    batch = {"tokens": toks, "labels": jnp.roll(toks, -1, 1)}
+    if cfg.frontend_seq:
+        batch["frontend_emb"] = jnp.asarray(np.random.RandomState(2).randn(
+            4, cfg.frontend_seq, cfg.frontend_dim))
+    ctx1 = MeshCtx(mesh=mesh_f, batch_axes=("data",))
+    b1 = step_lib.make_train_step(cfg, opt, ctx1)
+    st_sh = step_lib.named_for(b1.state_specs, b1.abstract_state, mesh_f)
+    bt_sh = step_lib.named_for(b1.batch_specs, batch, mesh_f)
+    with mesh_f:
+        fn = jax.jit(b1.step_fn, in_shardings=(st_sh, bt_sh),
+                     out_shardings=(st_sh, None))
+        _, m1 = fn(jax.device_put({"params": params,
+                                   "opt": adamw.init(opt, params)}, st_sh),
+                   jax.device_put(batch, bt_sh))
+    # the same step on one device: the witness of how far the two
+    # packages' float64 steps lie apart (the reference computes attention
+    # scores and the logits in float32 whatever its compute dtype)
+    b0 = step_lib.make_train_step(cfg, opt, MeshCtx(mesh=None))
+    _, m0 = jax.jit(b0.step_fn)({"params": params,
+                                 "opt": adamw.init(opt, params)}, batch)
+    put(f"step_fsdp_{arch}/params", params)
+    for key, val in batch.items():
+        if key != "labels":
+            out[f"step_fsdp_{arch}/{key}"] = np.asarray(val)
+    for key in ("loss", "ce", "grad_norm"):
+        out[f"step_fsdp_{arch}/m1_{key}"] = np.asarray(m1[key])
+        out[f"step_fsdp_{arch}/m0_{key}"] = np.asarray(m0[key])
 
 np.savez(%(path)r, **out)
 print("JAX_MESH_OK")

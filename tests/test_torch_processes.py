@@ -51,7 +51,15 @@ global micro-batch) on the one-hot dispatch and the expert-parallel
 route, with and without FSDP, against the one-device or the stacked
 step in as many micro-batches, the bytes against the dry run's count in
 micro-batches, drops by micro-batch, a planted fault and checkpoints;
-and what the route refuses.
+the SSM, hybrid, vision and encoder-decoder families under FSDP on (4,1)
+(xlstm-1.3b, zamba2-7b, llama-3.2-vision-11b, seamless-m4t-medium
+reduced: float32 step by step at remat "none" and "full" and float64
+against the one-device step, the bytes against the dry run's count, the
+serve steps and each rank's cache rows, the gathered leaves freed,
+zamba2-7b's shared block gathered once a forward and a planted fault
+gathering it at each use, a step in micro-batches, checkpoints); and
+what the route refuses (those four families at model > 1, and the
+serving engine, under FSDP).
 The reference runs once a session, in ``tests/test_torch_mesh.py``'s
 subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
 against the tensor-parallel step on the same parameters and tokens, and
@@ -59,7 +67,8 @@ its FSDP step against the port's FSDP step, its MoE step on (4,1)
 and (2,2) against the port's MoE step, and its deepseek-v3-671b step on
 (1,4) and (2,2) against the port's MLA step, and with fsdp=True on (4,1)
 and (2,2) against the port's FSDP step, and on its expert-parallel route
-on (2,2) against the port's. The
+on (2,2) against the port's, and its FSDP steps of zamba2-7b and
+seamless-m4t-medium on (4,1), in float64, against the port's. The
 stacked route and the one-device step are held against it in
 ``tests/test_torch_mesh.py``, ``tests/test_torch_pipeline.py`` and
 ``tests/test_torch_train.py``.
@@ -96,6 +105,21 @@ def _collective_tags():
     return tags
 
 
+def _family_step(ref, arch) -> dict:
+    """The reference's FSDP step of ``arch`` on (4,1) from its subprocess:
+    parameters, tokens (and frontend embeddings), metrics."""
+    tag = f"step_fsdp_{arch}"
+    out = {"params": _tree(ref, f"{tag}/params"),
+           "tokens": ref[f"{tag}/tokens"],
+           "metrics": {k: float(ref[f"{tag}/m1_{k}"])
+                       for k in ("loss", "ce", "grad_norm")},
+           "metrics_one": {k: float(ref[f"{tag}/m0_{k}"])
+                           for k in ("loss", "ce", "grad_norm")}}
+    if f"{tag}/frontend_emb" in ref:
+        out["frontend_emb"] = ref[f"{tag}/frontend_emb"]
+    return out
+
+
 @pytest.fixture(scope="module")
 def res(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("processes"))
@@ -126,7 +150,9 @@ def res(tmp_path_factory):
                 "moe_ep_tokens": ref["step_moe_ep/tokens"],
                 "moe_ep_metrics": {k: float(ref[f"step_moe_ep/m1_{k}"])
                                    for k in ("loss", "ce", "aux",
-                                             "grad_norm")}},
+                                             "grad_norm")},
+                "families": {arch: _family_step(ref, arch)
+                             for arch in pc.REFERENCE_FAMILIES}},
                os.path.join(out, pc.REFERENCE_STEP))
     return pc.spawn(out)
 
@@ -231,9 +257,9 @@ def test_what_the_process_route_refuses(res):
     """A wrong world size, the SSM and cross families and heads the model
     axis does not divide at model > 1, a KV cache split over kv_seq, a MoE
     step in micro-batches whose rows the data ranks do not split, FSDP of
-    the hybrid and vision families and of the serving engine (also of a
-    MoE model), a collective outside a body, and device "cuda" on the
-    gloo group, each with its own text."""
+    the hybrid and vision families at model > 1 and of the serving engine
+    (also of a MoE model), a collective outside a body, and device "cuda"
+    on the gloo group, each with its own text."""
     got = _case(res, "refusals")
     assert got["outside"] == "a collective runs only inside shard_map's body"
     assert "grad_accum=4 cuts the global batch's 8 rows into micro-batches " \
@@ -380,15 +406,21 @@ def test_fsdp_serve_bytes_equal_the_dry_runs_count(res):
     pc.check_fsdp_serve_bytes(_case(res, "fsdp_serve"))
 
 
-@pytest.mark.parametrize("key", ["fsdp_hybrid", "fsdp_vision",
-                                 "fsdp_engine", "fsdp_moe_engine"])
-def test_fsdp_refusals_name_their_queue_item(res, key):
-    """FSDP over processes of zamba2-7b, of the vision family and under
-    the serving engine (a dense model's, and deepseek-v3-671b's as
-    configured): a NotImplementedError naming item 2.2b."""
+@pytest.mark.parametrize("key,item", [
+    ("fsdp_hybrid_model", "A13c item 2.6)"),
+    ("fsdp_vision_model", "A13c item 2.6)"),
+    ("fsdp_engine", "A13c item 2.2b, slice 2)"),
+    ("fsdp_moe_engine", "A13c item 2.2b, slice 2)")])
+def test_fsdp_refusals_name_their_queue_item(res, key, item):
+    """FSDP over processes at model > 1 of zamba2-7b (its prefill step)
+    and of the vision family (its decode step) on (2,2): a
+    NotImplementedError naming item 2.6, whose rules split their d_inner
+    and cross heads over model; under the serving engine (a dense
+    model's, and deepseek-v3-671b's as configured) on (4,1): one naming
+    item 2.2b, slice 2."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
-    assert "A13c item 2.2b" in got, got
+    assert item in got, got
 
 
 @pytest.mark.parametrize("shape", pc.MOE_MESHES, ids=str)
@@ -604,6 +636,98 @@ def test_moe_fsdp_serve_bytes_equal_the_dry_runs_count(res):
     run's count of the same step with fsdp=True times the ranks, beside
     the last logits' two all-gathers."""
     pc.check_mla_fsdp_serve_bytes(_case(res, "mla_fsdp_serve"))
+
+
+@pytest.mark.parametrize("arch", pc.FAMILIES)
+def test_families_fsdp_step_matches_the_one_device_step(res, arch):
+    """The SSM, hybrid, vision and encoder-decoder families reduced with
+    ``fsdp=True`` on (4,1) (zamba2-7b at 4 layers, its shared block read
+    by two groups; the vision cross gate 0.5; the frontend's embeddings
+    cut by the tokens' rows): float32 step by step, each from the same
+    state, to 1e-5 relative at ``remat="none"`` (and zamba2-7b at
+    ``"full"``; xlstm-1.3b's grad norm at its 1e-3 rule); float64 along 3
+    steps to 1e-5 (metrics) and 1e-10 (parameters) of the one-device run;
+    each
+    rank's blocks of the reference's FSDP shard shapes, the mix layers'
+    leaves without embed whole on every rank."""
+    pc.check_family_mesh(_case(res, "families_fsdp"), arch)
+
+
+@pytest.mark.parametrize("arch", pc.FAMILIES)
+def test_families_fsdp_bytes_equal_the_dry_runs_count(res, arch):
+    """Every cut leaf gathered in the forward and again for the backward
+    that reads it (zamba2-7b's shared block once each way), one
+    reduce-scatter of its gradient, one pmean a step of each leaf FSDP
+    leaves whole: the bytes by kind, summed over the ranks, equal to the
+    dry run's count of the same cell, at ``remat="none"`` (and zamba2-7b
+    at ``"full"``, its shared block gathered again in the recompute's
+    first use)."""
+    got = pc.check_family_bytes(_case(res, "families_fsdp"), arch)
+    if "full" in got:
+        for k in ("all-gather", "reduce-scatter"):
+            assert got["f32"][k] == got["full"][k], got
+
+
+@pytest.mark.parametrize("arch", pc.FAMILIES)
+def test_families_fsdp_serve_steps_match_the_one_device_steps(res, arch):
+    """Prefill of 8 x 64 and 2 decode steps on (4,1), each data rank its 2
+    prompts: logits, whole on every rank, to 1e-5; the SSM state, the
+    shared block's KV and the encoder's memory rank 0's rows of the
+    one-device cache; each step's bytes the dry run's count beside the
+    last logits' gather over data."""
+    pc.check_family_serve(_case(res, "families_fsdp"), arch)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "seamless-m4t-medium"])
+def test_families_fsdp_gathered_leaves_are_freed_after_the_forward(res, arch):
+    """At ``remat="none"`` no gathered leaf of the mix, encoder, cross or
+    decoder layers, the shared block or the head is alive after the
+    loss's forward; the forward gathers each cut leaf once (the shared
+    block once for its two groups), the backward each again but the table
+    and the first encoder norm."""
+    got = pc.check_family_freed(_case(res, "families_fsdp"), arch)
+    assert got["gathers"] > 0
+
+
+def test_families_fsdp_shared_block_gathered_at_each_use_is_caught(res):
+    """The bytes check is not vacuous: zamba2-7b's step with its shared
+    block gathered at each group's use keeps the one-device metrics but
+    moves one more gather of the block than the count."""
+    got = pc.check_family_fault(_case(res, "families_fsdp"))
+    assert got["extra all-gather"] > 0
+
+
+def test_families_fsdp_step_with_grad_accum_gathers_once_a_micro_batch(res):
+    """xlstm-1.3b in 2 micro-batches on (4,1): within 1e-5 of the one-device
+    step (its grad norm at its rule), its gathers and reduce-scatters the
+    dry run's count in 2 micro-batches."""
+    assert pc.check_family_accum(_case(res, "families_fsdp")) <= pc.TOL[
+        "tp_f32"]
+
+
+@pytest.mark.parametrize("arch", pc.REFERENCE_FAMILIES)
+def test_families_fsdp_step_matches_the_references_fsdp_step(res, arch):
+    """The reference's FSDP step on a (4,1) mesh of reduced zamba2-7b (4
+    layers) and seamless-m4t-medium (with frontend embeddings), in
+    float64 (in float32 their grad norms carry the stacks' rounding: the
+    reference's own one-device and FSDP steps disagree by more than 1e-5
+    there), its parameters and batch: loss and ce to 1e-5 relative; the
+    grad norm to 1e-5, or where the two packages' one-device float64
+    steps lie further apart (the reference's attention scores and logits
+    stay float32), to twice their gap; the port's one-device step equal
+    to the ranks' to 1e-10."""
+    got = _case(res, "families_fsdp")
+    assert got["reference"] is not None
+    pc.check_family_reference(got, arch)
+
+
+def test_families_fsdp_checkpoints_move_to_one_device_and_back(res):
+    """A (4,1) FSDP checkpoint of reduced zamba2-7b (the global state,
+    gathered to rank 0) restored by the one-device trainer, and a
+    one-device checkpoint restored on (4,1) (each rank its blocks of the
+    mix layers' cut and whole leaves and of the shared block), byte for
+    byte."""
+    pc.check_tp_ckpt(_case(res, "families_fsdp"))
 
 
 @pytest.mark.parametrize("key", list(pc.micro_cells()))
@@ -834,6 +958,68 @@ def test_each_fsdp_block_has_the_references_shard_shape(arch, shape):
                     assert cuts == [(), ("data",), ()], (k, cuts)
         else:
             assert over_data == leaves      # every leaf over data
+        local = tstep.make_train_step(cfg, adamw.OptConfig(),
+                                      ctx).abstract_state["params"]
+        assert [tuple(t.shape) for t in tree_leaves(local)] == [
+            tuple(b.shape) for b in tree_leaves(blocks)]
+
+
+@pytest.mark.parametrize("arch", pc.FAMILIES)
+@pytest.mark.parametrize("d", [2, 4])
+def test_each_family_fsdp_block_has_the_references_shard_shape(arch, d):
+    """The SSM, hybrid, vision and encoder-decoder families at full width
+    with ``fsdp=True`` on (d,1), on ``meta``: on every rank each leaf's
+    block has ``named_for``'s FSDP shard shape and the ranks' blocks tile
+    it; the leaves cut over data are those with an ``embed`` dimension,
+    each at the dimension ``Fsdp.dim`` gathers, and the rest (the mix
+    layers' convolution, gates, ``a_log``, ``dt_bias``, ``d_skip``,
+    ``norm``, mLSTM's ``wq`` / ``wk`` / ``wv``; the cross gate) whole
+    (every leaf of the encoder-decoder model is cut); the Trainer's
+    ``abstract_state`` is the rank's. No process group is needed."""
+    import dataclasses
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import (P, abstract_params,
+                                           tree_leaves)
+    from repro_torch.models.sharding import (MeshCtx, fsdp_split,
+                                             shard_params)
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    cfg = dataclasses.replace(get_config(arch), fsdp=True)
+    tmpl = tf.model_template(cfg)
+    tree = abstract_params(tmpl)
+
+    def leaves(t):
+        if isinstance(t, P):
+            yield t
+        else:
+            for k in sorted(t):
+                yield from leaves(t[k])
+    embed = [any(a in ("embed", "embed2") for a in p.axes)
+             for p in leaves(tmpl)]
+    # every leaf of the encoder-decoder model has an embed dimension
+    assert sum(embed) > 0 and (sum(embed) < len(embed)) == (
+        cfg.family != "audio")
+    for r in range(d):
+        mesh = ProcessMesh(("data", "model"), (d, 1), r,
+                           torch.device("cpu"), {})
+        ctx = MeshCtx(mesh=mesh)
+        specs = tstep.train_state_specs(cfg, ctx)["params"]
+        named = tstep.named_for(specs, tree, mesh)
+        blocks = shard_params(tree, specs, mesh)
+        fs = fsdp_split(cfg, ctx)
+        cut = []
+        for b, sh, t, spec in zip(tree_leaves(blocks), tree_leaves(named),
+                                  tree_leaves(tree), tree_leaves(fs.specs)):
+            assert tuple(b.shape) == sh.shard_shape(t.shape)
+            index = sh.block_index(t.shape)
+            assert all(i.stop - i.start == n for i, n in zip(index, b.shape))
+            data = [i for i, e in enumerate(sh.spec)
+                    if "data" in compat.entry_axes(e)]
+            assert fs.dim(spec) == (data[0] if data else None)
+            if data:
+                assert b.shape[data[0]] * d == t.shape[data[0]]
+            cut.append(bool(data))
+        assert cut == embed, (arch, cut, embed)
         local = tstep.make_train_step(cfg, adamw.OptConfig(),
                                       ctx).abstract_state["params"]
         assert [tuple(t.shape) for t in tree_leaves(local)] == [

@@ -27,6 +27,7 @@ from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import chaining, compat
 from repro_torch.core.compat import PartitionSpec as PS
+from repro_torch.core.precision import torch_dtype
 from repro_torch.core.staging import Mesh
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch.mesh import make_process_mesh
@@ -139,10 +140,28 @@ EP_SERVE = dict(batch=4, prompt=8, steps=2)
 MICRO = 2
 MICRO_GATE = EP_GATE // MICRO
 MICRO_CKPT_STEPS = 2
+# the SSM, hybrid, vision and encoder-decoder families under FSDP on (4,1):
+# reduced, fsdp=True (zamba2-7b at 4 layers, so that two groups read its
+# shared block; the vision cross gate at ``CROSS_GATE``: zero at init, a
+# cross layer adds nothing), the stub frontend's embeddings made from a
+# seed and cut by the tokens' rows; float32 step by step and float64
+# against the one-device step, the serve steps at ``TP_SERVE``'s 8 x 64
+# (each data rank its 2 prompts)
+FAMILIES = ("xlstm-1.3b", "zamba2-7b", "llama-3.2-vision-11b",
+            "seamless-m4t-medium")
+FAMILY_MESH = (4, 1)
+CROSS_GATE = 0.5
+# xlstm-1.3b's float32 grad norm: its mLSTM normaliser's gradient rounding
+# (tests/test_torch_train_families.py::LOOSER)
+XLSTM_GNORM_RTOL = 1e-3
+# the reference's own FSDP steps on (4,1) (tests/test_torch_mesh.py's
+# ``step_family_fsdp_*``)
+REFERENCE_FAMILIES = ("zamba2-7b", "seamless-m4t-medium")
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "held", "dp_train", "tp_train", "tp_serve",
          "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "mla_fsdp",
-         "mla_fsdp_serve", "ep_train", "ep_serve", "moe_micro", "refusals")
+         "mla_fsdp_serve", "ep_train", "ep_serve", "moe_micro",
+         "families_fsdp", "refusals")
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +187,11 @@ def run_ranks(fn, nprocs: int, args: tuple, timeout_s: float):
 
 
 def spawn(out_dir: str, cases=CASES, world: int = WORLD,
-          timeout_s: float = 300.0) -> dict:
-    """Run ``cases`` in ``world`` spawned gloo ranks; rank 0's results."""
+          timeout_s: float = 600.0) -> dict:
+    """Run ``cases`` in ``world`` spawned gloo ranks; rank 0's results.
+    ``timeout_s`` bounds the whole spawn, a guard against a hang (each
+    collective has the group's own 120 s): beside the test suite's other
+    workers the spawn has run past 300 s."""
     run_ranks(_rank_main, world, (world, os.path.join(out_dir, "store"),
                                   out_dir, tuple(cases)), timeout_s)
     return torch.load(os.path.join(out_dir, "results.pt"), weights_only=False)
@@ -548,6 +570,35 @@ def _crc(t) -> int:
                       .tobytes())
 
 
+def _frontend(cfg, step: int, batch: int = DP["global_batch"]):
+    """The stub frontend's embeddings of global batch ``step`` (None for a
+    model without a frontend), from a seed, in the parameters' dtype."""
+    if not cfg.frontend_seq:
+        return None
+    r = np.random.RandomState(1000 + step)
+    return torch.from_numpy(r.randn(
+        batch, cfg.frontend_seq, cfg.frontend_dim or cfg.d_model)).to(
+            torch_dtype(cfg.param_dtype))
+
+
+def _with_frontend(cfg, batch: dict, step: int) -> dict:
+    """``batch`` (numpy, global) as tensors, with :func:`_frontend`'s
+    embeddings where ``cfg`` takes them."""
+    out = {k: torch.as_tensor(v) for k, v in batch.items()}
+    fe = _frontend(cfg, step, out["tokens"].shape[0])
+    if fe is not None:
+        out["frontend_emb"] = fe
+    return out
+
+
+def _opened(cfg, state):
+    """``state`` with the vision model's tanh cross gates (whole on every
+    rank) at ``CROSS_GATE``: at their zero init a cross layer adds nothing."""
+    if cfg.family == "vlm":
+        state["params"]["cross_layers"]["attn"]["gate"].fill_(CROSS_GATE)
+    return state
+
+
 def _tp_step_by_step(cfg, mesh, steps=DP["steps"], grad_accum=1):
     """``steps`` tensor-parallel (or FSDP) steps through the Trainer's
     state, batches and step, each held against the one-device step from
@@ -561,7 +612,7 @@ def _tp_step_by_step(cfg, mesh, steps=DP["steps"], grad_accum=1):
                                                grad_accum=grad_accum),
                  mesh=mesh, device="cpu")
     one = tstep.make_train_step(cfg, opt).step_fn
-    state = tr.init_state()
+    state = _opened(cfg, tr.init_state())
     fresh = ttf.model_template(cfg)
     shapes_ok = all(
         tuple(t.shape) == NamedSharding(mesh, s).shard_shape(p.shape)
@@ -572,12 +623,11 @@ def _tp_step_by_step(cfg, mesh, steps=DP["steps"], grad_accum=1):
     compat.reset_counts()
     for i in range(steps):
         whole = gather_params(state, tr.state_specs, mesh)
-        mine = {k: torch.as_tensor(v) for k, v in tr.batch(i).items()}
+        glob = _with_frontend(cfg, tr.source.batch(i), i)
+        mine = {k: v[tr.rows] for k, v in glob.items()}
         state, m = tr.step_fn(state, mine)
         row = {"tp": {k: float(v) for k, v in m.items()}}
         if mesh.rank == 0:
-            glob = {k: torch.as_tensor(v)
-                    for k, v in tr.source.batch(i).items()}
             _, m1 = one(whole, glob)
             row["one"] = {k: float(v) for k, v in m1.items()}
         rows.append(row)
@@ -777,6 +827,9 @@ def _freed_after_forward(cfg, mesh):
         whole, tstep.train_state_specs(cfg, ctx)["params"], mesh))
     toks = torch.from_numpy(np.random.RandomState(4).randint(
         0, cfg.vocab_size, size=(2, DP["seq_len"])))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    if cfg.frontend_seq:
+        batch["frontend_emb"] = _frontend(cfg, 0, 2)
     scopes, enter = [], tsh._Regather.__enter__
 
     def spy(self):
@@ -785,9 +838,7 @@ def _freed_after_forward(cfg, mesh):
     tsh._Regather.__enter__ = spy
     try:
         compat.reset_counts()
-        loss, _ = ttf.lm_loss(cfg, blocks, {"tokens": toks,
-                                            "labels": toks.roll(-1, 1)},
-                              ctx=ctx)
+        loss, _ = ttf.lm_loss(cfg, blocks, batch, ctx=ctx)
         forward = _counts(mesh)
         alive = sum(ref() is not None for sc in scopes for ref, _ in sc.held)
         loss.backward()
@@ -1683,6 +1734,180 @@ def case_moe_micro(rank, meshes, out_dir):
     return out
 
 
+# -- the SSM, hybrid, vision and encoder-decoder families under FSDP ---------
+
+
+def _family_cfg(arch, dtype="float32", **kw):
+    """Reduced ``arch`` with ``fsdp=True`` in ``dtype`` (zamba2-7b at 4
+    layers: two groups read its shared block)."""
+    if arch == "zamba2-7b":
+        kw = {"n_layers": 4, **kw}
+    return reduced(get_config(arch), fsdp=True, param_dtype=dtype,
+                   compute_dtype=dtype, **kw)
+
+
+def _family_trajectory(cfg, mesh, steps=DP["steps"]):
+    """``steps`` steps through the Trainer's state, batches and step
+    function on ``mesh`` (None: one device), the frontend's embeddings
+    beside the tokens (the Trainer's source makes tokens only): the
+    metrics of each step and the global parameters at the end, as
+    :func:`_tp_trajectory` gives them."""
+    data = DataConfig(seq_len=DP["seq_len"], global_batch=DP["global_batch"],
+                      vocab_size=cfg.vocab_size)
+    opt = adamw.OptConfig(peak_lr=1e-2, warmup_steps=1, decay_steps=steps)
+    tr = Trainer(cfg, opt, data, TrainerConfig(steps=steps), mesh=mesh,
+                 device="cpu")
+    state = _opened(cfg, tr.init_state())
+    log = []
+    for i in range(steps):
+        glob = _with_frontend(cfg, tr.source.batch(i), i)
+        state, m = tr.step_fn(state, {k: v[tr.rows] for k, v in glob.items()})
+        log.append(dict({k: float(v) for k, v in m.items()}, step=i + 1))
+    params = state["params"] if mesh is None else gather_params(
+        state["params"], tr.state_specs["params"], mesh)
+    return {"log": log, "params": _detach(params)}
+
+
+def _family_serve(cfg, mesh):
+    """``cfg`` served under FSDP on ``mesh``, each data rank prefilling its
+    rows of ``TP_SERVE``'s prompts (the frontend's embeddings of those
+    rows beside them) and decoding them 2 steps, the weights gathered a
+    block at a time; on rank 0 the same steps on one device: the logits,
+    the collectives of each step and the cache after the last."""
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    params = _opened(cfg, {"params": init_params(
+        ttf.model_template(cfg), torch.Generator().manual_seed(0),
+        device="cpu")})["params"]
+    blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)["params"],
+                          mesh)
+    r = np.random.RandomState(5)
+    b, s, n = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["steps"]
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, s)))
+    steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, 1)))
+             for _ in range(n)]
+    fe = _frontend(cfg, 0, b)
+    rows = b // mesh.shape["data"]
+    mine = slice(mesh.coord("data") * rows, (mesh.coord("data") + 1) * rows)
+
+    def serve(p, c, rows):
+        extra = {} if fe is None else {"frontend_emb": fe[rows]}
+        outs, counts = [], []
+        with torch.no_grad():
+            compat.reset_counts()
+            logits, cache = tstep.make_prefill_step(
+                cfg, c, s + n, cache_dtype=torch.float32)(
+                p, {"tokens": toks[rows], **extra})
+            outs.append(logits)
+            counts.append(_counts(mesh) if c else None)
+            dec = tstep.make_decode_step(cfg, c)
+            for tok in steps:
+                compat.reset_counts()
+                logits, cache = dec(p, cache, {"tokens": tok[rows], **extra})
+                outs.append(logits)
+                counts.append(_counts(mesh) if c else None)
+        return outs, counts, {k: v.clone() for k, v in cache.items()}
+
+    out = {"fsdp": serve(blocks, ctx, mine), "rows": (mine.start, mine.stop)}
+    if mesh.rank == 0:
+        out["one"] = serve(params, None, slice(None))
+    return out
+
+
+def _reference_family(mesh, out_dir):
+    """The reference's float64 FSDP steps on (4,1) of ``REFERENCE_FAMILIES``
+    (``tests/test_torch_mesh.py``'s ``step_fsdp_*``), here on the ranks:
+    its parameters, tokens and frontend embeddings, the default
+    ``OptConfig``, each data rank its rows of the batch. None without the
+    reference's file."""
+    path = os.path.join(out_dir, REFERENCE_STEP)
+    if not os.path.exists(path):
+        return None
+    ref = torch.load(path, weights_only=False)["families"]
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    opt = adamw.OptConfig()
+    out = {}
+    for arch in REFERENCE_FAMILIES:
+        got = ref[arch]
+        cfg = _family_cfg(arch, "float64")
+        params = convert.params_from_numpy(got["params"], device="cpu")
+        bundle = tstep.make_train_step(cfg, opt, ctx)
+        blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)[
+            "params"], mesh)
+        toks = torch.as_tensor(got["tokens"]).long()
+        rows = toks.shape[0] // mesh.shape["data"]
+        mine = slice(mesh.coord("data") * rows,
+                     (mesh.coord("data") + 1) * rows)
+        batch = {"tokens": toks[mine], "labels": torch.roll(toks, -1, 1)[mine]}
+        if "frontend_emb" in got:
+            batch["frontend_emb"] = torch.as_tensor(got["frontend_emb"])[mine]
+        _, m = bundle.step_fn({"params": blocks,
+                               "opt": adamw.init(opt, blocks)}, batch)
+        whole = {k: v for k, v in batch.items()}
+        whole.update(tokens=toks, labels=torch.roll(toks, -1, 1))
+        if "frontend_emb" in got:
+            whole["frontend_emb"] = torch.as_tensor(got["frontend_emb"])
+        keys = ("loss", "ce", "grad_norm")
+        out[arch] = {"got": {k: float(m[k]) for k in keys},
+                     "want": got["metrics"], "want_one": got["metrics_one"]}
+        if mesh.rank == 0:
+            _, m0 = tstep.make_train_step(cfg, opt).step_fn(
+                {"params": params, "opt": adamw.init(opt, params)}, whole)
+            out[arch]["one"] = {k: float(m0[k]) for k in keys}
+    return out
+
+
+@contextlib.contextmanager
+def gather_each_use():
+    """A planted fault: the hybrid family's shared block gathered at each of
+    its uses (``models.sharding.Reused`` of one use), so that a forward
+    gathers it once a group."""
+    orig = ttf.Reused
+    ttf.Reused = lambda fs, tree, specs, dtype, uses: orig(fs, tree, specs,
+                                                          dtype, 1)
+    try:
+        yield
+    finally:
+        ttf.Reused = orig
+
+
+def case_families_fsdp(rank, meshes, out_dir):
+    """The SSM, hybrid, vision and encoder-decoder families under FSDP on
+    (4,1), each of ``FAMILIES`` reduced with ``fsdp=True``: float32 step
+    by step against the one-device step at ``remat="none"`` (3 steps) and,
+    for zamba2-7b (its shared block's gathers under a checkpoint's
+    recompute), ``"full"`` (1 step); float64 along 3 steps against the
+    one-device run (xlstm-1.3b and zamba2-7b through ``Trainer.run``, the
+    two frontend models through the Trainer's step with the frontend's
+    embeddings); the serve steps; the gathered leaves freed after the
+    forward (zamba2-7b and seamless-m4t-medium); zamba2-7b's shared block gathered at each
+    use (a planted fault); xlstm-1.3b in 2 micro-batches; the reference's
+    own FSDP steps; zamba2-7b's checkpoints between the one-device trainer
+    and the (4,1) one, both ways."""
+    mesh = meshes[FAMILY_MESH]
+    out = {}
+    for arch in FAMILIES:
+        cfg, f64 = _family_cfg(arch), _family_cfg(arch, "float64")
+        run = _family_trajectory if cfg.frontend_seq else _tp_trajectory
+        r = {"f32": _tp_step_by_step(cfg, mesh),
+             "f64": run(f64, mesh), "serve": _family_serve(cfg, mesh)}
+        if cfg.family == "hybrid":
+            r["full"] = _tp_step_by_step(dataclasses.replace(
+                cfg, remat="full"), mesh, steps=1)
+        if rank == 0:
+            r["f64_one"] = run(f64, None)
+        out[arch] = r
+    out["freed"] = {arch: _freed_after_forward(_family_cfg(arch), mesh)
+                    for arch in ("zamba2-7b", "seamless-m4t-medium")}
+    zamba = _family_cfg("zamba2-7b")
+    with gather_each_use():
+        out["each use"] = _tp_step_by_step(zamba, mesh, steps=1)
+    out["accum"] = _tp_step_by_step(_family_cfg("xlstm-1.3b"), mesh, steps=1,
+                                    grad_accum=MICRO)
+    out["reference"] = _reference_family(mesh, out_dir)
+    out.update(_ckpt_both_ways(rank, zamba, mesh, out_dir, "families"))
+    return out
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -1711,13 +1936,16 @@ def case_refusals(rank, meshes, out_dir):
     text("tp_kv_seq", NotImplementedError, lambda: tstep.make_prefill_step(
         dataclasses.replace(cfg, n_kv_heads=2),
         MeshCtx(mesh=meshes[1, 4]), 16))
-    # FSDP of the families and of the engine that item 2.2b ports
-    for name, arch in (("fsdp_hybrid", "zamba2-7b"),
-                       ("fsdp_vision", "llama-3.2-vision-11b")):
-        text(name, NotImplementedError,
-             lambda arch=arch: tstep.make_train_step(
-                 reduced(get_config(arch), fsdp=True), adamw.OptConfig(),
-                 MeshCtx(mesh=meshes[4, 1])))
+    # FSDP of the families outside the tensor-parallel route at model > 1
+    # (item 2.6), and of the engine (item 2.2b, slice 2)
+    text("fsdp_hybrid_model", NotImplementedError,
+         lambda: tstep.make_prefill_step(
+             reduced(get_config("zamba2-7b"), fsdp=True),
+             MeshCtx(mesh=meshes[2, 2]), 16))
+    text("fsdp_vision_model", NotImplementedError,
+         lambda: tstep.make_decode_step(
+             reduced(get_config("llama-3.2-vision-11b"), fsdp=True),
+             MeshCtx(mesh=meshes[2, 2])))
     for name, fcfg in (("fsdp_engine", dataclasses.replace(cfg, fsdp=True)),
                        ("fsdp_moe_engine", _mla_fsdp_cfg())):
         text(name, NotImplementedError, lambda fcfg=fcfg: ServingEngine(
@@ -1769,21 +1997,23 @@ def refusal_texts() -> dict:
                   "(ROADMAP Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
                      "A, A13c item 2.6)",
-        "fsdp_hybrid": "the hybrid family under FSDP; FSDP of the SSM, "
-                       "hybrid, vision and encoder-decoder families and of "
-                       "the serving engine over processes (ROADMAP Queue "
-                       "A, A13c item 2.2b)",
-        "fsdp_vision": "the vlm family under FSDP; FSDP of the SSM, hybrid, "
-                       "vision and encoder-decoder families",
-        "fsdp_engine": "the ServingEngine under FSDP; FSDP of the SSM, "
-                       "hybrid, vision and encoder-decoder families and of "
-                       "the serving engine over processes (ROADMAP Queue "
-                       "A, A13c item 2.2b)",
+        "fsdp_hybrid_model": "zamba2-7b with fsdp=True over data on a "
+                             "process mesh with model=2: the hybrid family "
+                             "under FSDP and the model axis; the SSM and "
+                             "hybrid blocks under model over processes "
+                             "(ROADMAP Queue A, A13c item 2.6)",
+        "fsdp_vision_model": "llama-3.2-vision-11b with fsdp=True over data "
+                             "on a process mesh with model=2: the vlm "
+                             "family under FSDP and the model axis; the "
+                             "cross layers under model over processes "
+                             "(ROADMAP Queue A, A13c item 2.6)",
+        "fsdp_engine": "the ServingEngine under FSDP; FSDP of the serving "
+                       "engine over processes (ROADMAP Queue A, A13c item "
+                       "2.2b, slice 2)",
         "fsdp_moe_engine": "deepseek-v3-671b with fsdp=True over data on a "
                            "process mesh: the ServingEngine under FSDP; FSDP "
-                           "of the SSM, hybrid, vision and encoder-decoder "
-                           "families and of the serving engine over "
-                           "processes (ROADMAP Queue A, A13c item 2.2b)",
+                           "of the serving engine over processes (ROADMAP "
+                           "Queue A, A13c item 2.2b, slice 2)",
         "accum_rows": "granite-moe-3b-a800m on a process mesh: "
                       "grad_accum=4 cuts the global batch's 8 rows into "
                       "micro-batches of 2 rows, which 4 data ranks do not "
@@ -1862,6 +2092,8 @@ def check(name, res) -> dict:
         return check_ep_serve(res)
     if name == "moe_micro":
         return check_moe_micro(res)
+    if name == "families_fsdp":
+        return check_families_fsdp(res)
     if name == "held":
         return {tag: check_held(res, tag) for tag in res}
     if name == "local_axes":
@@ -2204,24 +2436,43 @@ def check_fsdp_accum(res, count=_dry_count):
     return err
 
 
+def regather_scopes(cfg) -> int:
+    """The ``Fsdp.regather`` scopes of one FSDP forward at ``remat="none"``:
+    one a block it runs (each layer, each use of the hybrid family's
+    shared block, each cross layer, each encoder layer), the audio
+    model's ``enc_norm``, the head, and the MTP module."""
+    n = cfg.n_layers + 1 + bool(cfg.mtp_depth)
+    if cfg.family == "hybrid":
+        n += cfg.n_layers // cfg.attn_every
+    elif cfg.family == "vlm":
+        n += cfg.n_layers // cfg.cross_attn_every
+    elif cfg.family == "audio":
+        n += cfg.n_encoder_layers + 1
+    return n
+
+
 def check_fsdp_freed(res, cfg=None):
-    """The gathered leaves (and their casts) that the layers' and the
-    head's scopes (and the MTP module's) held are all freed when the
-    forward returns; the backward gathers each again but the embedding
-    (whose lookups' backward does not read the table), once however many
-    products read it (the MTP head reads the main head's), so its
-    all-gather bytes are the forward's twice less the table's (and less
-    the MoE layers' gathers of their per-expert counts, which are not
-    parameters); one reduce-scatter a gathered leaf. ``cfg``: the case's
-    config, on (4,1) (reduced tinyllama-1.1b with ``fsdp=True`` by
-    default)."""
+    """The gathered leaves (and their casts) that the blocks' and the
+    head's scopes (:func:`regather_scopes`, the MTP module's too) held are
+    all freed when the forward returns; the backward gathers each again
+    but the embedding (whose lookups' backward does not read the table)
+    and the audio model's first encoder norm (its input is the frontend's,
+    so its gradient does not read it), once however many products read it
+    (the MTP head reads the main head's; the hybrid family's groups read
+    its shared block), so its all-gather bytes are the forward's twice
+    less those (and less the MoE layers' gathers of their per-expert
+    counts, which are not parameters); one reduce-scatter a gathered
+    leaf. ``cfg``: the case's config, on (4,1) (reduced tinyllama-1.1b
+    with ``fsdp=True`` by default)."""
     cfg = cfg or _fsdp_cfg()
     r = res["freed"]
-    assert r["scopes"] == cfg.n_layers + 1 + bool(cfg.mtp_depth) \
-        and r["held"] > 0 and r["alive"] == 0, r
+    assert r["scopes"] == regather_scopes(cfg) and r["held"] > 0 \
+        and r["alive"] == 0, r
     before = r["forward"][0]["all_gather"]["bytes"]
     after = r["after"][0]["all_gather"]["bytes"]
     table = WORLD * 3 * cfg.vocab_size * cfg.d_model // 4 * 4
+    if cfg.family == "audio":
+        table += WORLD * 3 * cfg.d_model // 4 * 4
     counts = 0
     if cfg.is_moe:
         n_moe = cfg.n_layers - cfg.moe.n_dense_layers
@@ -2303,6 +2554,245 @@ def check_fsdp_serve_bytes(res, count=_dry_count):
 def check_fsdp_serve(res, count=_dry_count) -> dict:
     errs = check_fsdp_serve_logits(res)
     check_fsdp_serve_bytes(res, count)
+    return errs
+
+
+# -- the SSM, hybrid, vision and encoder-decoder families under FSDP ---------
+
+
+def _family_rel(arch, got, want) -> float:
+    """The largest relative gap of the loss, ce, grad norm and lr, where
+    xlstm-1.3b's float32 grad norm counts as a share of
+    ``XLSTM_GNORM_RTOL`` (its rule) of ``tp_f32``."""
+    out = 0.0
+    for k in ("loss", "ce", "grad_norm", "lr"):
+        rel = abs(got[k] - want[k]) / abs(want[k])
+        if arch == "xlstm-1.3b" and k == "grad_norm":
+            rel *= TOL["tp_f32"] / XLSTM_GNORM_RTOL
+        out = max(out, rel)
+    return out
+
+
+def check_family_mesh(res, arch) -> dict:
+    """``arch`` under FSDP on (4,1): float32 step by step (each from the
+    same state) within ``tp_f32`` of the one-device step at
+    ``remat="none"`` and, for zamba2-7b, ``"full"`` (xlstm-1.3b's grad
+    norm at its rule);
+    float64 within ``tp_f32`` (metrics) and ``tp_f64`` (parameters) of the
+    one-device run; the blocks of the reference's FSDP shard shapes,
+    equal on every rank where no axis cuts them; some leaves of the
+    SSM and hybrid families' mix layers whole (no ``embed``)."""
+    r = res[arch]
+    errs = {}
+    for tag in ("f32", "full") if "full" in r else ("f32",):
+        got = r[tag]
+        assert got["shapes_ok"] and got["blocks_agree"], (arch, tag, got)
+        errs[f"{arch} {tag}"] = max(_family_rel(arch, row["tp"], row["one"])
+                                    for row in got["rows"])
+        assert errs[f"{arch} {tag}"] <= TOL["tp_f32"], (arch, got["rows"])
+    whole = r["f32"]["leaves"] - r["f32"]["n_data_cut"]
+    assert (whole > 0) == (_family_cfg(arch).family in ("ssm", "hybrid",
+                                                        "vlm")), (arch, whole)
+    check_trajectory(f"{arch} f64", r["f64"], r["f64_one"], errs)
+    return errs
+
+
+def check_family_bytes(res, arch, count=_dry_count) -> dict:
+    """The steps' bytes by kind at ``remat="none"`` and, for zamba2-7b,
+    ``"full"`` (:func:`check_fsdp_step_bytes`: every cut leaf gathered in
+    the forward and again for the backward that reads it, the shared block
+    once each way, a reduce-scatter of its gradient; one pmean a step of
+    each leaf FSDP leaves whole) equal to the dry run's count of the same
+    cell times the ranks. Returns the bytes a step by kind."""
+    cfg = _family_cfg(arch)
+    return {tag: check_fsdp_step_bytes(
+        res[arch][tag], dataclasses.replace(cfg, remat=remat), FAMILY_MESH,
+        count) for tag, remat in (("f32", "none"), ("full", "full"))
+        if tag in res[arch]}
+
+
+def _batch_dim(got, want) -> int:
+    """The one dimension where a rank's cache tensor (its rows) and the
+    one-device one differ."""
+    dims = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    assert len(dims) == 1, (got, want)
+    return dims[0]
+
+
+def check_family_serve(res, arch, count=_dry_count) -> dict:
+    """The prefill of ``TP_SERVE``'s 8 x 64 and 2 decode steps under FSDP,
+    each data rank its 2 prompts: the logits, whole on every rank, within
+    ``tp_serve`` of the one-device steps'; each cache tensor (the SSM
+    state, the shared block's KV, the encoder's ``memory``) rank 0's rows
+    of the one-device cache within ``tp_serve``; each step's bytes by kind
+    the dry run's count of the same step with ``fsdp=True`` times the
+    ranks (each leaf gathered once, the shared block once), and the last
+    logits' gather over data (:func:`fsdp_logit_bytes`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    cfg = _family_cfg(arch)
+    r = res[arch]["serve"]
+    (outs, counts, cache), (want_outs, _, want_cache) = r["fsdp"], r["one"]
+    errs = {"logits": max(_err(a, b) for a, b in zip(outs, want_outs))}
+    assert errs["logits"] <= TOL["tp_serve"], (arch, errs)
+    keys = {"lengths", "conv", "ssm", "attn_k", "attn_v", "k", "v", "memory"}
+    assert set(cache) == set(want_cache) and set(cache) <= keys, (
+        arch, set(cache))
+    lo, hi = r["rows"]
+    for k, t in cache.items():
+        dim = _batch_dim(t.shape, want_cache[k].shape)
+        assert t.shape[dim] == hi - lo, (arch, k, t.shape)
+        errs[f"cache {k}"] = _err(t, want_cache[k].narrow(dim, lo, hi - lo))
+        assert errs[f"cache {k}"] <= TOL["tp_serve"], (arch, k, errs)
+    d, m = FAMILY_MESH
+    b, s = TP_SERVE["batch"], TP_SERVE["prompt"]
+    for i, c in enumerate(counts):
+        kind = "prefill" if i == 0 else "decode"
+        st = count(cfg, ShapeConfig(kind, s, b, kind), make_mesh(d, m))
+        got = by_kind(c)
+        want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+        want["all-gather"] = want.get("all-gather", 0) + fsdp_logit_bytes(
+            cfg, FAMILY_MESH, b)
+        assert set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= d * m for k in got), (arch, i, got, want)
+    return errs
+
+
+def _cut_leaves(cfg) -> list:
+    """(stack key, leaf path, the global leaf on ``meta``, stack depth) of
+    each leaf that FSDP cuts over data on (4,1), as ``fsdp_split`` finds
+    them (no process group needed)."""
+    from repro_torch.core.compat import ProcessMesh
+    from repro_torch.models.layers import abstract_params
+    from repro_torch.models.sharding import fsdp_split
+    mesh = ProcessMesh(("data", "model"), FAMILY_MESH, 0, torch.device("cpu"),
+                       {})
+    fs = fsdp_split(cfg, MeshCtx(mesh=mesh))
+    tree = abstract_params(ttf.model_template(cfg))
+    out = []
+
+    def walk(path, spec, leaf):
+        if isinstance(spec, dict):
+            for k in spec:
+                walk(path + (k,), spec[k], leaf[k])
+        elif fs.dim(spec) is not None:
+            stacked = path[0] in ("layers", "dense_layers", "cross_layers",
+                                  "enc_layers")
+            out.append((path[0], path, leaf, leaf.shape[0] if stacked else 1))
+    walk((), fs.specs, tree)
+    return out
+
+
+def gathers_a_forward(cfg) -> int:
+    """The all-gathers of one FSDP forward of the loss on a rank: one a
+    layer of each cut leaf, one of each other cut leaf, the hybrid
+    family's shared block once whatever the number of its groups; the
+    cross layers' ``q_norm``, which nothing reads, none."""
+    return sum(n for _, path, _, n in _cut_leaves(cfg)
+               if path[-1] != "q_norm")
+
+
+def check_family_freed(res, arch) -> dict:
+    """:func:`check_fsdp_freed` of ``arch``'s forward and backward at
+    ``remat="none"`` on (4,1), and its forward's all-gathers a rank those
+    of :func:`gathers_a_forward` (the shared block's once)."""
+    cfg = _family_cfg(arch)
+    r = res["freed"][arch]
+    check_fsdp_freed({"freed": r}, cfg)
+    calls = r["forward"][0]["all_gather"]["calls"]
+    assert calls == gathers_a_forward(cfg), (arch, calls)
+    return {"scopes": r["scopes"], "gathers": calls}
+
+
+def check_family_fault(res, count=_dry_count) -> dict:
+    """The planted fault: zamba2-7b's step with its shared block gathered
+    at each of the 2 groups' uses keeps the one-device step's metrics
+    but moves one more forward gather of the block than the count (the
+    backward's saved views share one gather either way), so the bytes
+    check fails."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = _family_cfg("zamba2-7b")
+    got = res["each use"]
+    err = max(_family_rel("zamba2-7b", row["tp"], row["one"])
+              for row in got["rows"])
+    assert err <= TOL["tp_f32"], got["rows"]
+    try:
+        check_fsdp_step_bytes(got, cfg, FAMILY_MESH, count)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("a shared block gathered at each use passed "
+                             "the bytes check")
+    st = count(cfg, tp_train_shape(), make_mesh(*FAMILY_MESH))
+    # a rank receives (n - 1) / n of a leaf: (n - 1) leaves over the ranks
+    shared = sum((WORLD - 1) * leaf.numel() * leaf.element_size()
+                 for key, _, leaf, _ in _cut_leaves(cfg)
+                 if key == "shared_attn")
+    groups = cfg.n_layers // cfg.attn_every
+    extra = by_kind(got["counts"])["all-gather"] \
+        - WORLD * st.collective_by_kind["all-gather"]
+    assert extra == (groups - 1) * shared, (extra, groups, shared)
+    return {"extra all-gather": extra}
+
+
+def check_family_accum(res, count=_dry_count) -> float:
+    """One xlstm-1.3b step at ``grad_accum=2`` on (4,1) within ``tp_f32``
+    of the one-device step (its grad norm at its rule); its gathers and
+    reduce-scatters the dry run's count of the step in 2 micro-batches
+    (each micro-batch gathers every cut leaf and reduce-scatters its
+    gradient; the rows are independent: no re-lay)."""
+    from repro_torch.launch.mesh import make_mesh
+    r = res["accum"]
+    err = max(_family_rel("xlstm-1.3b", row["tp"], row["one"])
+              for row in r["rows"])
+    assert err <= TOL["tp_f32"], r["rows"]
+    st = count(_family_cfg("xlstm-1.3b"), tp_train_shape(),
+               make_mesh(*FAMILY_MESH), grad_accum=MICRO)
+    got = by_kind(r["counts"])
+    for k in ("all-gather", "reduce-scatter"):
+        assert got[k] == WORLD * st.collective_by_kind[k], (k, got, st)
+    return err
+
+
+def check_family_reference(res, arch) -> dict:
+    """The reference's own FSDP step of ``arch`` on (4,1), in float64 (in
+    float32 the grad norm carries the stack's rounding: the reference's
+    own one-device and FSDP steps disagree by more than ``tp_reference``
+    there): loss and ce within ``tp_reference`` relative; the grad norm
+    within ``tp_reference``, or within twice the gap of the two packages'
+    one-device float64 steps where that is wider (the reference keeps its
+    attention scores and logits in float32: that gap is its float32
+    rounding, FSDP aside); the port's one-device step the ranks' within
+    ``tp_f64``."""
+    ref = res["reference"][arch]
+    errs = {"metrics": _rel(ref["got"], ref["want"], ("loss", "ce")),
+            "grad_norm": _rel(ref["got"], ref["want"], ("grad_norm",)),
+            "one gap": _rel(ref["one"], ref["want_one"], ("grad_norm",)),
+            "ranks vs one": _rel(ref["got"], ref["one"],
+                                 ("loss", "ce", "grad_norm"))}
+    assert errs["metrics"] <= TOL["tp_reference"], (arch, ref)
+    assert errs["grad_norm"] <= max(TOL["tp_reference"],
+                                    2 * errs["one gap"]), (arch, errs, ref)
+    assert errs["ranks vs one"] <= TOL["tp_f64"], (arch, errs, ref)
+    return errs
+
+
+def check_families_fsdp(res, count=_dry_count) -> dict:
+    """Every check of the families' FSDP case (the reference's steps where
+    they ran)."""
+    errs = {}
+    for arch in FAMILIES:
+        errs.update(check_family_mesh(res, arch))
+        errs[f"{arch} bytes"] = check_family_bytes(res, arch, count)
+        errs[f"{arch} serve"] = check_family_serve(res, arch, count)
+    for arch in res["freed"]:
+        errs[f"{arch} freed"] = check_family_freed(res, arch)
+    errs.update(check_family_fault(res, count))
+    errs["accum"] = check_family_accum(res, count)
+    if res["reference"] is not None:
+        for arch in REFERENCE_FAMILIES:
+            errs[f"{arch} reference"] = check_family_reference(res, arch)
+    check_tp_ckpt(res)
     return errs
 
 
