@@ -352,7 +352,7 @@ non-zero and prints no result. Phases, one JSON line each:
                ``moe_train``, ``mla_train``, ``mla_fsdp``,
                ``mla_fsdp_serve``, ``ep_train``, ``ep_serve``,
                ``moe_micro``, ``families_fsdp``), whose routes phases
-               39-44 run on the card
+               39-45 run on the card
                (``mesh_processes_gloo``).
                Only this process prints; a rank that fails fails the
                phase.
@@ -439,7 +439,7 @@ non-zero and prints no result. Phases, one JSON line each:
                ``count_step``'s (FSDP's gathers once a micro-batch),
                B3-B5 2 / 2 / 2 a rank-step at 1 x 64 rows x heads and
                1024 tokens, held against their plain versions there.
-               Phases 39-44 share their spawn
+               Phases 39-45 share their spawn
                (``run_card_ranks``): one world of 4 ranks that runs (1,
                4), both FSDP meshes, both MoE meshes, the MLA mesh, the
                MoE FSDP mesh and phase 44's (4, 1) in turn.
@@ -457,6 +457,24 @@ non-zero and prints no result. Phases, one JSON line each:
                one-device result and its prefill (4 x 64) and one decode
                step against the one-device logits; seconds of the step
                and peak GB a rank.
+45. ``mesh_engine_fsdp`` the ``ServingEngine`` under FSDP over processes,
+               at the end of the jobs of the one world of 4 that hold its
+               models' blocks (no spawn or job of its own): one scheduler
+               on every rank, each data rank its block of the slot pool,
+               float32 compute, greedy: tinyllama-1.1b (phase 40's 2
+               layers, its one-device result) on (4, 1), 4 slots, 4
+               requests of 16-64 prompt tokens, 6 new tokens; zamba2-7b
+               (phase 44's cut) on (4, 1), 4 slots, 4 requests, 3 new
+               tokens; deepseek-v3-671b as configured (phase 43's cut,
+               bf16 parameters) on (2, 2), 2 slots, 2 requests of 64
+               tokens, 3 new tokens. Held: every rank's tokens
+               identical; against the one-device engines (run in the
+               parent before the spawn) the tokens equal, or where they
+               part the one-device top-two margin within twice the
+               step's float32 gap; each step's bytes by kind against
+               ``count_step``'s serve step of its shape; no gathered leaf
+               alive between steps. Recorded: peak GB a rank, ms a
+               prefill and a decode step (host clock).
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -468,11 +486,12 @@ in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
 ``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
-NCCL step summed over its ranks, ``mesh_processes``, and phases 39-44's
+NCCL step summed over its ranks, ``mesh_processes``, and phases 39-45's
 steps summed over their ranks, ``mesh_tensor_parallel (1, m)``,
 ``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_moe_ep (2, 2)``,
 ``mesh_mla (1, 4)``, ``mesh_mla_fsdp (2, 2)``, ``mesh_mla_fsdp_ep (2,
-2)``, and phase 44's ``mesh_families_fsdp <arch>``; error,
+2)``, phase 44's ``mesh_families_fsdp <arch>`` and phase 45's
+``mesh_engine_fsdp <arch>``; error,
 times and bound per
 kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -5458,14 +5477,16 @@ def _tp_job(mesh, one_path, fsdp=False):
 
 
 def _card_rank(rank, world, store, jobs, one_path):
-    """A rank of phases 39-44 (module level: ``spawn`` pickles it): for
+    """A rank of phases 39-45 (module level: ``spawn`` pickles it): for
     each ``(kind, shape, out_path)`` of ``jobs`` in turn, in one process
     group, a ``make_process_mesh(*shape, backend="gloo")`` on the card the
     ranks share and its job: "tp" and "fsdp" phases 39-40's
     (:func:`_tp_job`), "moe" phase 41's (:func:`_moe_job`), "mla" and
     "mla_fsdp" phases 42-43's (:func:`_mla_job`), "fsdp_families" phase
     44's (:func:`_families_job`, which reads the one-device record's
-    ``FAMILY_ONE_FILE`` beside ``out_path``). Rank 0 writes
+    ``FAMILY_ONE_FILE`` beside ``out_path``); after the job that holds a
+    model of ``ENGINE_FSDP_CARD``, phase 45's engine of it
+    (:func:`_engine_fsdp_job`, under ``"engine"``). Rank 0 writes
     each job's results, with the seconds it took, to its ``out_path``. One
     process runs every job of its world: its warm-up (10-14 s in its first
     step on the card) is paid once."""
@@ -5486,8 +5507,16 @@ def _card_rank(rank, world, store, jobs, one_path):
             out = _mla_job(mesh, out_path, fsdp=kind == "mla_fsdp")
         else:
             out = _tp_job(mesh, one_path, fsdp=kind == "fsdp")
+        seconds = time.perf_counter() - t0
+        # phase 45: the engine of the model whose blocks this job holds
+        arch = next((a for a, j, _ in ENGINE_FSDP_CARD
+                     if j == (kind, tuple(shape))), None)
+        engine = None if arch is None else _engine_fsdp_job(
+            arch, mesh, out_path, one_path)
         if rank == 0:
-            out.update(world=world, seconds=time.perf_counter() - t0)
+            out.update(world=world, seconds=seconds)
+            if engine is not None:
+                out["engine"] = engine
             with open(out_path, "w") as f:
                 json.dump(out, f)
         mesh.barrier()
@@ -5495,7 +5524,8 @@ def _card_rank(rank, world, store, jobs, one_path):
     dist.destroy_process_group()
 
 
-# the jobs of phases 39-44 by world size: each world's ranks are spawned
+# the jobs of phases 39-44 by world size (phase 45's engines run at the end
+# of three of them, ``ENGINE_FSDP_CARD``): each world's ranks are spawned
 # once and run its jobs in this order (one world of 4 since phase 44: the
 # (1, 2) job of phase 39 and its spawn are cut)
 CARD_JOBS = ((4, (("tp", (1, 4)), ("fsdp", (4, 1)), ("fsdp", (2, 2)),
@@ -7084,6 +7114,275 @@ def phase_mesh_families_fsdp(smi, spawned=None, one=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 45: the serving engine under FSDP over processes
+# ---------------------------------------------------------------------------
+
+# each engine runs at the end of the job of the one world of 4 that holds
+# its model's blocks (``CARD_JOBS``; no spawn or job of its own): (arch, its
+# job, the requests' settings: how many, the slots, the new tokens, the
+# prompts' lengths from a seed, low to high); float32 compute and cache:
+# at full width one device's own float32 logits sit ~5e-4 of the largest
+# from float64 (phase 44)
+ENGINE_FSDP_CARD = (
+    ("tinyllama-1.1b", ("fsdp", (4, 1)),
+     dict(requests=4, slots=4, max_new=6, prompt=(16, 64))),
+    ("zamba2-7b", ("fsdp_families", FAMILY_FSDP_MESH),
+     dict(requests=4, slots=4, max_new=3, prompt=(16, 64))),
+    (MLA_ARCH, ("mla_fsdp", MLA_FSDP_MESH),
+     dict(requests=2, slots=2, max_new=3, prompt=(64, 64))),
+)
+
+
+def _engine_card_cfg(arch):
+    """Phase 45's config of ``arch``, at float32 compute, with
+    ``fsdp=True``: tinyllama-1.1b as phase 40 trains it, zamba2-7b at
+    phase 44's cut, deepseek-v3-671b as configured at ``MLA_CUT`` (bf16
+    parameters)."""
+    if arch == "tinyllama-1.1b":
+        cfg = dataclasses.replace(_mesh_cfgs()[0], fsdp=True)
+    elif arch == MLA_ARCH:
+        cfg = _mla_mesh_cfgs(fsdp=True)[0]
+    else:
+        cfg = next(c for c, _ in _families_fsdp_cfgs() if c.name == arch)
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def _engine_card_model(arch, one_path=None):
+    """:func:`_engine_card_cfg` of ``arch`` and its whole parameters on the
+    card: tinyllama-1.1b's as phase 40's job holds them (the one-device
+    result at ``one_path``, float32), zamba2-7b's and deepseek-v3-671b's
+    the seeded inits of phases 44 and 43's serve steps."""
+    cfg = _engine_card_cfg(arch)
+    if arch == "tinyllama-1.1b":
+        params = tree_map(lambda t: t.to(DEV),
+                          torch.load(one_path, weights_only=True))
+    elif arch == MLA_ARCH:
+        params = init_params(model_template(cfg),
+                             torch.Generator(device=DEV).manual_seed(0),
+                             dtype=cfg.param_dtype, device=DEV)
+    else:
+        params = _family_params(cfg, 0)
+    return cfg, params
+
+
+def _engine_card_run(cfg, params, ctx, spec, refs=()):
+    """``spec``'s requests (prompts from a seed) through a recorded
+    ``ServingEngine`` of ``params`` on ``ctx`` (None: one device), greedy,
+    to completion (``tests/torch_process_cases.py::RecordedEngine``:
+    each step's collectives, the gathered leaves of ``refs`` alive before
+    it, its last logits). Returns (a JSON-able record: tokens by uid,
+    states, steps, timers, the gathered leaves alive at the end, the
+    shapes of each parameter tree the engine keeps; the logits)."""
+    pc = _process_cases()
+    lo, hi = spec["prompt"]
+    eng = pc.RecordedEngine(cfg, params, slots=spec["slots"],
+                            max_seq=hi + spec["max_new"], ctx=ctx,
+                            device=DEV, refs=refs, keep_logits=True)
+    r = np.random.RandomState(45)
+    for uid in range(spec["requests"]):
+        plen = int(r.randint(lo, hi + 1))
+        eng.submit(Request(uid=uid, prompt=r.randint(
+            0, cfg.vocab_size, size=plen).astype(np.int32),
+            max_new_tokens=spec["max_new"]))
+    t0 = time.perf_counter()
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"tokens": {str(q.uid): [int(t) for t in q.out_tokens]
+                       for q in done},
+            "states": {str(q.uid): q.state.value for q in done},
+            "prompts": [len(q.prompt) for q in done],
+            "record": eng.record, "timers": eng.timers, "seconds": seconds,
+            "alive_end": sum(ref() is not None for ref in refs),
+            "gathered": len(refs),
+            "trees": [[list(t.shape) for t in tree_leaves(tree)]
+                      for tree in eng._params_by_dtype.values()]}, eng.logits
+
+
+def engine_one_device_record(one_path):
+    """The one-device engines that phase 45 holds its ranks against, run in
+    the parent before the spawn: each of ``ENGINE_FSDP_CARD`` on its
+    whole parameters (:func:`_engine_card_model`): {arch: (record,
+    logits)}, each tree freed before the next."""
+    out = {}
+    for arch, _, spec in ENGINE_FSDP_CARD:
+        cfg, params = _engine_card_model(arch, one_path)
+        out[arch] = _engine_card_run(cfg, params, None, spec)
+        del params
+        free_memory()
+    return out
+
+
+def _engine_fsdp_job(arch, mesh, out_path, one_path=None):
+    """Phase 45's engine of ``arch`` on ``mesh``, on every rank, at the end
+    of the job that holds its blocks: the rank's blocks of
+    :func:`_engine_card_model`'s parameters (``shard_params``), every
+    rank given the same requests, the kernels' counts set to 0 just
+    before and read just after, the peak memory. Returns on rank 0 every
+    rank's record (rank 0's logits saved beside ``out_path``), None on the
+    others."""
+    import torch.distributed as dist
+    pc = _process_cases()
+    spec = next(s for a, _, s in ENGINE_FSDP_CARD if a == arch)
+    cfg, whole = _engine_card_model(arch, one_path)
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    blocks = shard_params(whole, train_state_specs(cfg, ctx)["params"], mesh)
+    del whole
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()            # the engine's path starts here
+    with pc.gathered_leaves() as refs:
+        rec, logits = _engine_card_run(cfg, blocks, ctx, spec, refs)
+    rec["launches"] = read_all_launches()   # read right after it
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["blocks"] = [list(t.shape) for t in tree_leaves(blocks)]
+    del blocks
+    free_memory()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rec)
+    if mesh.rank != 0:
+        return None
+    torch.save(logits, out_path + ".engine.pt")
+    return {"ranks": every, "logits_path": out_path + ".engine.pt"}
+
+
+def engine_parting(steps, got, want):
+    """The first device step at which the ranks' greedy choice (logits
+    ``got``, rank 0's) parts from the one-device engine's (``want``) in a
+    row the step reads (a prefill's one row, a decode's active slots),
+    with the one-device logits' top-two margin there and the largest gap
+    between the two logits of that step (None where they never part);
+    and the gap of every step, relative to its largest logit."""
+    gaps, part = [], None
+    for i, (s, a, b) in enumerate(zip(steps, got, want)):
+        gap = float((a - b).abs().max())
+        gaps.append(gap / float(b.abs().max()))
+        rows = [0] if s["kind"] == "prefill" else s["active"]
+        for row in rows:
+            if part is None and int(a[row].argmax()) != int(b[row].argmax()):
+                top = b[row].topk(2).values
+                part = {"step": i, "kind": s["kind"], "row": row,
+                        "margin": float(top[0] - top[1]), "gap": gap}
+        if part is not None:
+            break
+    return part, gaps
+
+
+def _mean_ms(timers, kind):
+    calls = sum(c for k, (c, _) in timers.items() if k.startswith(kind))
+    secs = sum(t for k, (_, t) in timers.items() if k.startswith(kind))
+    return 1e3 * secs / calls if calls else None
+
+
+def phase_mesh_engine_fsdp(smi, spawned=None, one=None):
+    """Phase 45: the ``ServingEngine`` under FSDP over processes
+    (``serving/engine.py``: one scheduler on every rank, each data rank
+    its block of ``slots / d`` rows of the KV pool; a decode step runs
+    each rank's rows, its weights gathered a layer at a time, and samples
+    every slot from the logits gathered whole; a prefill runs the one
+    prompt on every rank, whose owner keeps the cache row). Each engine of
+    ``ENGINE_FSDP_CARD`` ran at the end of the job of the one world of 4
+    that holds its model's blocks (``spawned``: :func:`run_card_ranks`'s
+    results), float32 compute, greedy. Held: every rank's tokens
+    identical and every request done; against the one-device engine's
+    (``one``: :func:`engine_one_device_record`) the tokens equal, or,
+    where they part, the one-device logits' top-two margin at that step
+    no more than twice the largest gap between the ranks' and the
+    one-device logits of that step (a margin moves by at most twice the
+    largest gap); each step's bytes by kind, summed over the ranks,
+    against ``count_step``'s serve step of the same shape
+    (``tests/torch_process_cases.py::engine_bytes_want``: the config
+    stored in float32, the compute dtype the engine casts its blocks to
+    before the gathers); between steps no gathered leaf alive and only
+    the rank's blocks held. Recorded: peak GB a rank, ms a prefill and a
+    decode step (host clock; gloo stages every collective through the
+    host). Each engine's line is emitted before its checks fail the
+    phase. ``spawned`` and ``one`` where None: the three jobs and their
+    one-device records run here. Returns the launches by path, summed
+    over the ranks."""
+    from repro_torch.launch import dryrun
+    pc = _process_cases()
+    by_path, failed = {}, []
+    tmp = None
+    try:
+        if spawned is None:
+            tmp = tempfile.mkdtemp(prefix="mesh_engine_fsdp_")
+            one_path = one_device_record(tmp)[1]
+            families_one_device_record(tmp)     # the families job reads it
+            one = one or engine_one_device_record(one_path)
+            spawned = run_card_ranks(tmp, one_path, [
+                (4, tuple(job for _, job, _ in ENGINE_FSDP_CARD))])
+        for arch, job, spec in ENGINE_FSDP_CARD:
+            r = spawned[job]["engine"]
+            d, m = job[1]
+            n = d * m
+            cfg = dataclasses.replace(_engine_card_cfg(arch),
+                                      param_dtype="float32")
+            ranks = r["ranks"]
+            want_rec, want_logits = one[arch]
+            checks = {}
+            toks = ranks[0]["tokens"]
+            checks["ranks agree"] = all(x["tokens"] == toks for x in ranks)
+            checks["done"] = len(toks) == spec["requests"] and all(
+                set(x["states"].values()) == {"done"} for x in ranks)
+            steps = [s for s in ranks[0]["record"] if s["kind"] != "audit"]
+            part, gaps = engine_parting(
+                steps, torch.load(r["logits_path"], weights_only=True),
+                want_logits)
+            checks["tokens"] = toks == want_rec["tokens"] or (
+                part is not None and part["margin"] <= 2 * part["gap"])
+            mesh = make_mesh(d, m)
+
+            @functools.lru_cache(maxsize=None)
+            def count(c, shape, mesh=mesh):
+                return dryrun.count_step(c, shape, mesh, target="cuda")
+            by_step, bytes_ok = {}, True
+            for kind, shape, mode, got in pc.engine_step_bytes(ranks):
+                want = pc.engine_bytes_want(cfg, (d, m), kind, shape, count)
+                ok = set(got) == set(want) and all(abs(got[k] - want[k]) <= n
+                                                   for k in got)
+                bytes_ok = bytes_ok and ok
+                by_step.setdefault(f"{kind} {list(shape)}",
+                                   {"bytes": got, "count_step_bytes": want})
+            checks["bytes"] = bytes_ok
+            checks["blocks only"] = all(
+                x["gathered"] > 0 and x["alive_end"] == 0
+                and not any(s["alive_before"] for s in x["record"])
+                and all(t == x["blocks"] for t in x["trees"]) for x in ranks)
+            launches = {}
+            for x in ranks:
+                for k, v in x["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            gathered_gb = {k: v["bytes"].get("all-gather", 0) / 1e9
+                           for k, v in by_step.items()}
+            emit("mesh_engine_fsdp", gpu=smi, arch=arch, mesh=[d, m], ranks=n,
+                 n_layers=cfg.n_layers, compute_dtype=cfg.compute_dtype,
+                 requests=spec["requests"], slots=spec["slots"],
+                 max_new=spec["max_new"], prompts=ranks[0]["prompts"],
+                 checks=checks, tokens_equal=toks == want_rec["tokens"],
+                 parting=part, rel_gap_by_step=gaps, bytes_by_step=by_step,
+                 all_gather_gb_by_step=gathered_gb,
+                 peak_gb_by_rank=[x["peak_gb"] for x in ranks],
+                 prefill_ms_by_rank=[_mean_ms(x["timers"], "prefill")
+                                     for x in ranks],
+                 decode_ms_by_rank=[_mean_ms(x["timers"], "decode")
+                                    for x in ranks],
+                 one_device_prefill_ms=_mean_ms(want_rec["timers"], "prefill"),
+                 one_device_decode_ms=_mean_ms(want_rec["timers"], "decode"),
+                 engine_s_by_rank=[x["seconds"] for x in ranks],
+                 ticks=len([s for s in steps if s["kind"] == "decode"]),
+                 launches=launches)
+            failed += [f"{arch}: {k}" for k, ok in checks.items() if not ok]
+            by_path[f"mesh_engine_fsdp {arch}"] = launches
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    emit("mesh_engine_fsdp_done", gpu=smi, failed=failed)
+    assert not failed, failed
+    return by_path
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(results, timed, launches, serve_flash, att_results,
@@ -7107,8 +7406,8 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     ``multiprecision``, ``attention_long``'s rows and gates), phases 33
     and 35's (``mesh_pipeline``, ``mesh_train``), phase 37's counted
     step (``dryrun``), phase 38's NCCL step, summed over its ranks
-    (``mesh_processes``), and phases 39-44's steps, summed over their
-    ranks: every row adds those that launched it."""
+    (``mesh_processes``), and phases 39-45's steps and engines, summed
+    over their ranks: every row adds those that launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
     tag = "x".join(map(str, PATH_SHAPE))
@@ -7314,7 +7613,9 @@ def main():
         free_memory()
         fam_one = families_one_device_record(tmp)   # phase 44 holds to it
         free_memory()
-        spawned = run_card_ranks(tmp, one[1])   # phases 39-44's ranks
+        eng_one = engine_one_device_record(one[1])  # phase 45 holds to it
+        free_memory()
+        spawned = run_card_ranks(tmp, one[1])   # phases 39-45's ranks
         surface.update(phase_mesh_tensor_parallel(smi, one, spawned))
         free_memory()
         surface.update(phase_mesh_fsdp(smi, one, spawned))
@@ -7327,6 +7628,8 @@ def main():
         surface.update(phase_mesh_mla_fsdp(smi, spawned, mla_one))
         free_memory()
         surface.update(phase_mesh_families_fsdp(smi, spawned, fam_one))
+        free_memory()
+        surface.update(phase_mesh_engine_fsdp(smi, spawned, eng_one))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -642,32 +642,34 @@ def fsdp_split(cfg: ArchConfig, ctx: Optional[MeshCtx]) -> Optional[Fsdp]:
     return Fsdp(ctx.mesh, axes, specs)
 
 
-# the queue item that ports FSDP over processes of the serving engine
-FSDP_QUEUE = ("FSDP of the serving engine over processes (ROADMAP Queue A, "
-              "A13c item 2.2b, slice 2)")
+def serve_ctx(cfg: ArchConfig, ctx: Optional[MeshCtx]):
+    """``ctx`` as a serve step over a batch split by rows runs it: under
+    FSDP (:func:`fsdp_split`) each rank serves its own rows of the batch,
+    so the batch axes are declared local, as the train step declares them
+    (a MoE model's dispatch group then spans the ranks' rows, as on one
+    device); ``ctx`` as it is elsewhere."""
+    if fsdp_split(cfg, ctx) is None:
+        return ctx
+    return dataclasses.replace(ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
 
 
-def check_fsdp(cfg: ArchConfig, ctx: Optional[MeshCtx],
-               engine: bool = False):
+def check_fsdp(cfg: ArchConfig, ctx: Optional[MeshCtx]):
     """Raises ``NotImplementedError``, naming its queue item, for FSDP over
-    processes that the port does not run: with ``engine`` the serving
-    engine of any family (``FSDP_QUEUE``); a family outside the
+    processes that the port does not run: a family outside the
     tensor-parallel route's (:func:`_tp_family`: the SSM, hybrid, vision
     and encoder-decoder families) on a mesh whose model axis is above 1
     (``TP_QUEUE``: the reference's rules split their ``d_inner`` and the
     cross layers' heads over ``model`` there). Every family's train,
-    prefill and decode steps run FSDP over the batch axes where the model
+    prefill and decode steps, and the serving engine of every family that
+    serves on one device, run FSDP over the batch axes where the model
     axis is 1, the dense and the MoE families' at any model axis. Nothing
     where FSDP does not apply (:func:`fsdp_split`)."""
     axes = _fsdp_axes(cfg, ctx)
     if not axes:
         return
-    head = f"{cfg.name} with fsdp=True over {'x'.join(axes)} on a process " \
-        f"mesh"
-    if engine:
-        raise NotImplementedError(f"{head}: the ServingEngine under FSDP; "
-                                  f"{FSDP_QUEUE} is not ported")
     if not _tp_family(cfg) and ctx.n_lanes > 1:
+        head = f"{cfg.name} with fsdp=True over {'x'.join(axes)} on a " \
+            f"process mesh"
         raise NotImplementedError(
             f"{head} with {ctx.model_axis}={ctx.n_lanes}: the {cfg.family} "
             f"family under FSDP and the model axis; {TP_QUEUE[cfg.family]} "

@@ -674,14 +674,17 @@ def last_logits(cfg: ArchConfig, logits, ctx=None):
     model axis (one counted all-gather), so every rank holds them whole;
     under FSDP, where each rank serves its rows of the batch, then its
     rows all-gathered over the batch axes (one more), so every rank holds
-    the global batch's, as the reference's step returns them."""
+    the global batch's, as the reference's step returns them. A batch
+    that every rank holds whole under FSDP (the batch axes not declared
+    local: the serving engine's prefill of one prompt) is not gathered."""
     tp = vocab_split(tensor_parallel(cfg, ctx))
     last = logits[:, -1]
     if tp is not None:
         last = tp.gather(last, dim=-1)
     fs = fsdp_split(cfg, ctx)
-    return last if fs is None else compat.gather_over(last, fs.mesh, fs.axes,
-                                                      dim=0)
+    axes = () if fs is None else tuple(a for a in fs.axes
+                                       if a in fs.mesh.local)
+    return compat.gather_over(last, fs.mesh, axes, dim=0) if axes else last
 
 
 def _mtp_loss(cfg, params, batch, extras, tp=None, fs=None):

@@ -63,12 +63,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import compat
 from repro_torch.core.precision import cast_tree, torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import tree_leaves
-from repro_torch.models.sharding import MeshCtx, check_fsdp
+from repro_torch.models.sharding import (MeshCtx, check_fsdp, fsdp_split,
+                                         serve_ctx)
 from repro_torch.serving.scheduler import (Request, RejectReason, Scheduler,
                                            State)
 
@@ -115,7 +117,10 @@ def _int8_head(x, unembed):
 def prefill(cfg: ArchConfig, params, tokens, max_seq: int,
             ctx: Optional[MeshCtx] = None):
     """Batch-1 prefill on a fresh fp32 cache. Returns (next_tok (1,),
-    single-sequence cache)."""
+    single-sequence cache). Under FSDP over processes the batch axes of
+    ``ctx`` are not local: every rank runs the same forward of the one
+    prompt, joining each gather, and a MoE model's dispatch group is the
+    prompt alone, as on one device."""
     cache = tf.init_cache(cfg, 1, max_seq, cache_dtype=torch.float32,
                           device=tokens.device, ctx=ctx)
     logits, _, new_cache = tf.forward(cfg, params, tokens, ctx=ctx,
@@ -128,7 +133,7 @@ def prefill(cfg: ArchConfig, params, tokens, max_seq: int,
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, mode: str, params, cache, tokens,
                 active_mask, temps, nan_mask, generator,
-                ctx: Optional[MeshCtx] = None):
+                ctx: Optional[MeshCtx] = None, rows: slice = slice(None)):
     """One decode step (all slots). ``mode`` picks the degrade rung: fp32
     (the model's configured precision), bf16 compute, or bf16 compute with
     the int8 logits head. Every tensor of the cache but ``lengths`` (KV
@@ -140,11 +145,16 @@ def decode_step(cfg: ArchConfig, mode: str, params, cache, tokens,
     which takes the rung's compute dtype but no int8 head; on a
     tensor-parallel mesh of processes each rank decodes with its blocks of
     the weights and of the cache's kv heads, and samples from the logits
-    gathered whole (``models.transformer.last_logits``)."""
+    gathered whole (``models.transformer.last_logits``). Under FSDP over
+    processes ``cache`` holds the rank's ``rows`` of the slots (``ctx``
+    with the batch axes local, ``models.sharding.serve_ctx``): the rank
+    decodes those rows, the logits of every slot are gathered to every
+    rank, which samples them all as one device does, and only its rows of
+    ``lengths`` are masked. ``tokens`` and the masks are every slot's."""
     mcfg = _mode_cfg(cfg, mode)
     mesh = ctx is not None and ctx.mesh is not None
     head_fn = _int8_head if mode == "int8" and not mesh else None
-    logits, _, new_cache = tf.forward(mcfg, params, tokens, ctx=ctx,
+    logits, _, new_cache = tf.forward(mcfg, params, tokens[rows], ctx=ctx,
                                       cache=cache, head_fn=head_fn)
     last = tf.last_logits(cfg, logits, ctx).float()
     # fault-injection port (the mask is all-False in normal operation)
@@ -160,8 +170,8 @@ def decode_step(cfg: ArchConfig, mode: str, params, cache, tokens,
     sampled = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
     next_tok = torch.where(temps > 0, sampled, greedy)
     # inactive slots must not advance their lengths
-    new_cache["lengths"] = torch.where(active_mask, new_cache["lengths"],
-                                       cache["lengths"])
+    new_cache["lengths"] = torch.where(active_mask[rows],
+                                       new_cache["lengths"], cache["lengths"])
     return next_tok, finite, new_cache
 
 
@@ -179,13 +189,19 @@ class ServingEngine:
     above 1, ``params`` are the rank's blocks (``models.sharding.
     shard_params``), the KV pool holds its kv heads, and every rank runs
     the same scheduler on the same requests: each emits the same tokens
-    (the same generator seed draws the same noise). FSDP over a process
-    mesh (``cfg.fsdp`` with batch axes above 1) raises
-    ``NotImplementedError`` for every family, naming its queue item
-    (item 2.2b, slice 2: the engine prefills one prompt at a time and
-    every rank runs the same scheduler, while FSDP's gathers are
-    collectives that every rank must join); the train, prefill and decode
-    steps (``train.step``) run FSDP."""
+    (the same generator seed draws the same noise). Under FSDP over a
+    process mesh (``cfg.fsdp`` with batch axes above 1; every family that
+    serves on one device, the SSM and hybrid families where the model
+    axis is 1, ``models.sharding.check_fsdp``) ``params`` are the rank's
+    blocks as well, and every rank is again given the same requests and
+    runs the same scheduler; each data rank holds its block of
+    ``slots / d`` rows of the KV pool (global slot ``s`` on data rank
+    ``s // (slots / d)``, :meth:`_home`), so ``slots`` must be a multiple
+    of the data extent ``d`` (``ValueError``). A decode step runs each
+    rank's rows, the weights gathered a layer at a time; a prefill runs
+    the one prompt on every rank (each joins every gather), and its owner
+    keeps the cache row. Nothing is gathered whole: between steps a rank
+    holds its blocks alone."""
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  max_seq: int = 512, ctx: Optional[MeshCtx] = None,
@@ -195,7 +211,7 @@ class ServingEngine:
                  degrade: Optional[DegradeLadder] = None,
                  scheduler: Optional[Scheduler] = None,
                  device=None, seed: int = 0):
-        check_fsdp(cfg, ctx, engine=True)
+        check_fsdp(cfg, ctx)
         self.device = resolve_device(device)
         leaf = next(tree_leaves(params))
         if leaf.device.type != self.device.type:
@@ -210,9 +226,26 @@ class ServingEngine:
         self.hardened = hardened
         self.watchdog = watchdog
         self.degrade = degrade
-        self.cache = tf.init_cache(cfg, slots, max_seq,
+        # FSDP over processes: each data rank's block of the pool, decoded
+        # with the batch axes local; the prefill's ctx keeps them global
+        self._fs = fsdp_split(cfg, self.ctx)
+        self._step_ctx = serve_ctx(cfg, self.ctx)
+        self._prefill_ctx = self.ctx
+        d = 1 if self._fs is None else self._fs.size
+        if slots % d:
+            raise ValueError(
+                f"{cfg.name} under FSDP over {d} data ranks: {slots} slots "
+                f"do not split; the slots must be a multiple of the data "
+                f"extent (each data rank holds slots / {d} rows of the "
+                f"pool)")
+        self._rows = slots // d
+        self._data_rank = 0 if self._fs is None else \
+            self._fs.mesh.block(self._fs.axes)
+        first = self._data_rank * self._rows
+        self._mine = slice(first, first + self._rows)
+        self.cache = tf.init_cache(cfg, self._rows, max_seq,
                                    cache_dtype=torch.float32,
-                                   device=self.device, ctx=self.ctx)
+                                   device=self.device, ctx=self._step_ctx)
         self.active: Dict[int, Request] = {}     # slot -> request
         self.sched = scheduler or Scheduler(
             slots=slots, max_seq=max_seq, max_queue=max_queue,
@@ -259,7 +292,7 @@ class ServingEngine:
         toks = torch.as_tensor(np.asarray(prompt, np.int32),
                                device=self.device)[None, :]
         next_tok, single = prefill(self.cfg, self._params_for(self.cfg),
-                                   toks, self.max_seq, self.ctx)
+                                   toks, self.max_seq, self._prefill_ctx)
         tok = int(next_tok[0])
         self._timed(f"prefill_{len(prompt)}", t0)
         return tok, single
@@ -268,15 +301,30 @@ class ServingEngine:
     def _batch_dim(key: str) -> int:
         return 0 if key in ("lengths", "memory") else 1
 
+    def _home(self, slot: int) -> tuple:
+        """(data rank, row) of global ``slot``: the data rank whose block of
+        the pool holds it, and its row there (0 and ``slot`` off FSDP)."""
+        return divmod(slot, self._rows)
+
+    def _row(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's block of the pool, or None where
+        another data rank holds it."""
+        owner, row = self._home(slot)
+        return row if owner == self._data_rank else None
+
     def _scatter_slot(self, pool: dict, single: dict, slot: int) -> dict:
         """Copy a single-sequence cache into ``slot`` of the pool, in
         place: the whole ``max_seq`` row range, so nothing of the slot's
-        previous occupant survives."""
+        previous occupant survives. Under FSDP only the slot's data rank
+        keeps it; the others drop theirs."""
+        row = self._row(slot)
+        if row is None:
+            return pool
         for k, v in pool.items():
             if self._batch_dim(k) == 0:
-                v[slot] = single[k][0].to(v.dtype)
+                v[row] = single[k][0].to(v.dtype)
             else:
-                v[:, slot] = single[k][:, 0].to(v.dtype)
+                v[:, row] = single[k][:, 0].to(v.dtype)
         return pool
 
     # -- bookkeeping helpers -------------------------------------------------
@@ -286,7 +334,20 @@ class ServingEngine:
         self.counters[code] += 1
 
     def _set_length(self, slot: int, value: int):
-        self.cache["lengths"][slot] = value
+        row = self._row(slot)
+        if row is not None:
+            self.cache["lengths"][row] = value
+
+    def _lengths(self) -> np.ndarray:
+        """Every slot's KV length on the host (under FSDP each data rank's
+        rows all-gathered: every rank audits every slot)."""
+        lengths = self.cache["lengths"]
+        if self._fs is not None:
+            lengths = compat.gather_over(lengths, self._fs.mesh,
+                                         self._fs.axes, dim=0)
+        # a snapshot, as the reference's: ``_free_slot`` writes the pool in
+        # place, and on a CPU tensor ``.numpy()`` would share its memory
+        return lengths.cpu().numpy().copy()
 
     def _free_slot(self, slot: int):
         self.active.pop(slot, None)
@@ -317,9 +378,7 @@ class ServingEngine:
         """Host-side slot/KV consistency: the I_SLOT_LEAK and I_KV_BOUNDS
         detectors. Runs before admission so reclaimed capacity is reusable
         in the same step."""
-        # a snapshot, as the reference's: ``_free_slot`` writes the pool in
-        # place, and on a CPU tensor ``.numpy()`` would share its memory
-        lengths = self.cache["lengths"].cpu().numpy().copy()
+        lengths = self._lengths()
         for slot in list(self.active):
             req = self.active[slot]
             if req is None or req.state.terminal():
@@ -414,7 +473,7 @@ class ServingEngine:
             torch.as_tensor(mask, device=dev),
             torch.as_tensor(temps, device=dev),
             torch.as_tensor(nan_mask, device=dev), self._generator,
-            self.ctx)
+            self._step_ctx, self._mine)
         next_tok = next_tok.cpu().numpy()
         finite = finite.cpu().numpy()
         self._timed(f"decode_{mode}", t0)

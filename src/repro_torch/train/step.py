@@ -106,7 +106,7 @@ from repro_torch.models.sharding import (MeshCtx, NamedSharding, check_fsdp,
                                          check_tensor_parallel, fsdp_split,
                                          held_experts, kv_cache_rules,
                                          make_rules, sanitize_specs,
-                                         tensor_parallel)
+                                         serve_ctx, tensor_parallel)
 from repro_torch.models.sharding import named_sharding_tree as named
 from repro_torch.optim import adamw
 
@@ -429,16 +429,6 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
 # ---------------------------------------------------------------------------
 
 
-def _serve_ctx(cfg: ArchConfig, ctx: Optional[MeshCtx]):
-    """``ctx`` as a serve step runs it: under FSDP each rank serves its own
-    rows of the batch, so the batch axes are declared local, as the train
-    step declares them (a MoE model's dispatch group then spans the
-    ranks' rows, as on one device)."""
-    if fsdp_split(cfg, ctx) is None:
-        return ctx
-    return dataclasses.replace(ctx, mesh=ctx.mesh.with_local(ctx.batch_axes))
-
-
 def make_prefill_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
                       max_seq: int = 0, cache_dtype=None):
     """``prefill(params, batch) -> (logits_last, cache)``: a fresh cache of
@@ -451,7 +441,7 @@ def make_prefill_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None,
                          f"{max_seq}")
     check_tensor_parallel(cfg, ctx, cache=True)
     check_fsdp(cfg, ctx)
-    ctx = _serve_ctx(cfg, ctx)
+    ctx = serve_ctx(cfg, ctx)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -474,7 +464,7 @@ def make_decode_step(cfg: ArchConfig, ctx: Optional[MeshCtx] = None):
     tensors written in place (see ``models.transformer.forward``)."""
     check_tensor_parallel(cfg, ctx, cache=True)
     check_fsdp(cfg, ctx)
-    ctx = _serve_ctx(cfg, ctx)
+    ctx = serve_ctx(cfg, ctx)
 
     def decode(params, cache, batch):
         logits, _, cache = tf.forward(

@@ -58,8 +58,8 @@ against the one-device step, the bytes against the dry run's count, the
 serve steps and each rank's cache rows, the gathered leaves freed,
 zamba2-7b's shared block gathered once a forward and a planted fault
 gathering it at each use, a step in micro-batches, checkpoints); and
-what the route refuses (those four families at model > 1, and the
-serving engine, under FSDP).
+what the route refuses (those four families at model > 1 under FSDP,
+and the serving engine's slots that the data ranks do not split).
 The reference runs once a session, in ``tests/test_torch_mesh.py``'s
 subprocess (``torch_shared_run``): its sharded train step on (2,2) is held
 against the tensor-parallel step on the same parameters and tokens, and
@@ -257,9 +257,10 @@ def test_what_the_process_route_refuses(res):
     """A wrong world size, the SSM and cross families and heads the model
     axis does not divide at model > 1, a KV cache split over kv_seq, a MoE
     step in micro-batches whose rows the data ranks do not split, FSDP of
-    the hybrid and vision families at model > 1 and of the serving engine
-    (also of a MoE model), a collective outside a body, and device "cuda"
-    on the gloo group, each with its own text."""
+    the hybrid and vision families at model > 1 (of zamba2-7b's serving
+    engine too), the serving engine's slots that FSDP's data ranks do not
+    split, a collective outside a body, and device "cuda" on the gloo
+    group, each with its own text."""
     got = _case(res, "refusals")
     assert got["outside"] == "a collective runs only inside shard_map's body"
     assert "grad_accum=4 cuts the global batch's 8 rows into micro-batches " \
@@ -409,15 +410,15 @@ def test_fsdp_serve_bytes_equal_the_dry_runs_count(res):
 @pytest.mark.parametrize("key,item", [
     ("fsdp_hybrid_model", "A13c item 2.6)"),
     ("fsdp_vision_model", "A13c item 2.6)"),
-    ("fsdp_engine", "A13c item 2.2b, slice 2)"),
-    ("fsdp_moe_engine", "A13c item 2.2b, slice 2)")])
+    ("fsdp_engine_slots", "a multiple of the data extent"),
+    ("fsdp_hybrid_engine", "A13c item 2.6)")])
 def test_fsdp_refusals_name_their_queue_item(res, key, item):
-    """FSDP over processes at model > 1 of zamba2-7b (its prefill step)
-    and of the vision family (its decode step) on (2,2): a
-    NotImplementedError naming item 2.6, whose rules split their d_inner
-    and cross heads over model; under the serving engine (a dense
-    model's, and deepseek-v3-671b's as configured) on (4,1): one naming
-    item 2.2b, slice 2."""
+    """FSDP over processes at model > 1 of zamba2-7b (its prefill step
+    and its serving engine) and of the vision family (its decode step) on
+    (2,2): a NotImplementedError naming item 2.6, whose rules split their
+    d_inner and cross heads over model; the serving engine under FSDP on
+    (4,1) with 6 slots, which its 4 data ranks do not split: a ValueError
+    naming the rule."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert item in got, got

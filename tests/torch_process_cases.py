@@ -16,6 +16,7 @@ import dataclasses
 import functools
 import os
 import time
+import weakref
 import zlib
 
 import numpy as np
@@ -38,7 +39,7 @@ from repro_torch.models.sharding import (MeshCtx, NamedSharding,
                                          gather_params, shard_params)
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import compressed_psum
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import DegradeLadder, Request, ServingEngine
 from repro_torch.train import pipeline
 from repro_torch.train import step as tstep
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -157,6 +158,28 @@ XLSTM_GNORM_RTOL = 1e-3
 # the reference's own FSDP steps on (4,1) (tests/test_torch_mesh.py's
 # ``step_family_fsdp_*``)
 REFERENCE_FAMILIES = ("zamba2-7b", "seamless-m4t-medium")
+# the serving engine under FSDP over processes (``case_engine_fsdp``, its
+# own spawn in tests/test_torch_engine_processes.py): 6 requests through
+# 4 slots (one or two a data rank, so that slots churn), prompts of 4 and
+# 6 tokens, 5 new tokens; each config and mesh greedy, and on (4,1) two
+# requests sampled at 0.8 with the degrade ladder's bf16 rung while the
+# pressure is at 1.25 or above (the first steps); granite-moe-3b-a800m
+# at capacity factor 0.5, where a prompt's own group drops pairs; one
+# slot's length corrupted, and its logits made NaN, at one tick
+ENGINE_FSDP = dict(requests=6, slots=4, max_seq=24, max_new=5, prompts=(4, 6))
+ENGINE_FSDP_RUNS = (("tinyllama-1.1b", (4, 1)), ("tinyllama-1.1b", (2, 2)),
+                    ("granite-moe-3b-a800m", (4, 1)),
+                    ("deepseek-v3-671b", (4, 1)),
+                    ("deepseek-v3-671b", (2, 2)),
+                    ("xlstm-1.3b", (4, 1)), ("zamba2-7b", (4, 1)))
+ENGINE_SAMPLED = dict(temperature=0.8, uids=(0, 1), bf16_at=1.25)
+ENGINE_DROP_CF = 0.5
+ENGINE_AUDIT = dict(slot=3, tick=3, by=3)
+# the reference's serving fixture's parameters (``repro.serving.faults.
+# fixture``, a numpy tree), written into the spawn's directory by a caller
+# that ran the reference
+REFERENCE_ENGINE = "reference_engine.pt"
+ENGINE_CASES = ("engine_fsdp",)
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "held", "dp_train", "tp_train", "tp_serve",
          "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "mla_fsdp",
@@ -1908,6 +1931,258 @@ def case_families_fsdp(rank, meshes, out_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving engine under FSDP over processes
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def gathered_leaves():
+    """Weak references to every leaf that FSDP gathers
+    (``core.compat.gather_from``, which ``models.sharding.Fsdp`` calls)
+    while the context is open: a list that grows as they are made."""
+    refs, orig = [], compat.gather_from
+
+    def spy(*args, **kw):
+        out = orig(*args, **kw)
+        refs.append(weakref.ref(out))
+        return out
+    compat.gather_from = spy
+    try:
+        yield refs
+    finally:
+        compat.gather_from = orig
+
+
+class RecordedEngine(ServingEngine):
+    """A ``ServingEngine`` that records each device step (``prefill``,
+    ``decode``) and each audit's gather of the lengths (``audit``): its
+    kind and shape, the rung, the slots active in a decode, the rank's own
+    collectives in it, the MoE dispatches it logged (``(pairs, kept)``,
+    where ``models.moe.DISPATCH_LOG`` is a list) and how many of ``refs``
+    (:func:`gathered_leaves`) were alive before it: the leaves gathered by
+    an earlier step and not freed. With ``keep_logits`` each device
+    step's last logits, whole, on the host, in ``logits``."""
+
+    def __init__(self, *args, refs=(), keep_logits=False, **kw):
+        super().__init__(*args, **kw)
+        self.refs, self.record, self.mode = refs, [], "fp32"
+        self.logits = [] if keep_logits else None
+
+    def _recorded(self, kind, shape, fn):
+        alive = sum(ref() is not None for ref in self.refs)
+        log = tmoe.DISPATCH_LOG
+        start = 0 if log is None else len(log)
+        active = sorted(self.active)
+        compat.reset_counts()
+        orig = ttf.last_logits
+        if self.logits is not None and kind != "audit":
+            def spy(*args, **kw):
+                out = orig(*args, **kw)
+                self.logits.append(out.float().cpu())
+                return out
+            ttf.last_logits = spy
+        try:
+            out = fn()
+        finally:
+            ttf.last_logits = orig
+        self.record.append({
+            "kind": kind, "shape": shape, "alive_before": alive,
+            "mode": self.mode if kind == "decode" else "fp32",
+            "active": active,
+            "counts": compat.read_counts(),
+            "dispatch": [] if log is None else [(d.pairs, int(d.kept))
+                                                for d in log[start:]]})
+        return out
+
+    def _prefill_one(self, prompt):
+        return self._recorded("prefill", (1, len(prompt)),
+                              lambda: super(RecordedEngine,
+                                            self)._prefill_one(prompt))
+
+    def _decode_step(self, finished):
+        return self._recorded("decode", (self.slots, 1),
+                              lambda: super(RecordedEngine,
+                                            self)._decode_step(finished))
+
+    def _lengths(self):
+        return self._recorded("audit", (self.slots,),
+                              lambda: super(RecordedEngine, self)._lengths())
+
+    def _pick_mode(self):
+        self.mode = super()._pick_mode()
+        return self.mode
+
+
+def engine_cfg(arch):
+    """The reduced config of ``arch`` with ``fsdp=True``, float32, whose
+    engine ``case_engine_fsdp`` runs."""
+    if arch == "tinyllama-1.1b":
+        return _fsdp_cfg()
+    if arch == "deepseek-v3-671b":
+        return _mla_fsdp_cfg()
+    if arch in FAMILIES:
+        return _family_cfg(arch)
+    return _moe_cfg(arch, fsdp=True)
+
+
+def engine_requests(cfg, sampled=False) -> list:
+    """``ENGINE_FSDP``'s requests of ``cfg`` from a seed: prompts of the
+    lengths ``ENGINE_FSDP["prompts"]`` in turn, greedy, or with
+    ``sampled`` ``ENGINE_SAMPLED``'s requests at its temperature."""
+    r = np.random.RandomState(7)
+    out = []
+    for uid in range(ENGINE_FSDP["requests"]):
+        n = ENGINE_FSDP["prompts"][uid % len(ENGINE_FSDP["prompts"])]
+        temp = ENGINE_SAMPLED["temperature"] \
+            if sampled and uid in ENGINE_SAMPLED["uids"] else 0.0
+        out.append(Request(uid=uid, prompt=r.randint(
+            0, cfg.vocab_size, size=n).astype(np.int32),
+            max_new_tokens=ENGINE_FSDP["max_new"], temperature=temp))
+    return out
+
+
+def corrupt_length(slot: int, tick: int, by: int):
+    """A fault hook: at ``tick`` the KV length of global ``slot`` grows by
+    ``by``, written by the rank whose block of the pool holds it."""
+    def hook(eng):
+        row = eng._row(slot)
+        if eng.tick == tick and row is not None:
+            eng.cache["lengths"][row] += by
+    return hook
+
+
+def inject_nan(slot: int, tick: int):
+    """A fault hook: at ``tick`` the logits of ``slot`` are made NaN (the
+    engine's ``_inject_nan_slots``, every slot's on every rank)."""
+    def hook(eng):
+        if eng.tick == tick:
+            eng._inject_nan_slots.add(slot)
+    return hook
+
+
+def _engine_run(cfg, params, ctx, sampled=False, degrade=None, hooks=(),
+                refs=(), rows_prefill=False) -> dict:
+    """``ENGINE_FSDP``'s requests through a :class:`RecordedEngine` of
+    ``params`` on ``ctx`` (None: one device) to completion: the tokens and
+    state of each request, the events, the record of each step, the
+    gathered leaves alive at the end, and the shapes of the parameter
+    tree of each compute dtype it holds. ``rows_prefill``: a planted
+    fault, each prompt prefilled as the rank's row of a batch split over
+    the data ranks (d copies in one MoE dispatch group)."""
+    e = ENGINE_FSDP
+    eng = RecordedEngine(cfg, params, slots=e["slots"],
+                         max_seq=e["max_seq"], ctx=ctx, degrade=degrade,
+                         device="cpu", refs=refs)
+    eng.fault_hooks.extend(hooks)
+    if rows_prefill:
+        eng._prefill_ctx = eng._step_ctx
+    for q in engine_requests(cfg, sampled):
+        eng.submit(q)
+    done = eng.run_to_completion()
+    return {"tokens": {q.uid: list(q.out_tokens) for q in done},
+            "states": {q.uid: q.state.value for q in done},
+            "events": list(eng.events), "tick": eng.tick,
+            "record": eng.record,
+            "alive_end": sum(ref() is not None for ref in refs),
+            "gathered": len(refs),
+            "trees": {str(dt)[6:]: [list(t.shape) for t in tree_leaves(tree)]
+                      for dt, tree in eng._params_by_dtype.items()}}
+
+
+def _engine_params(cfg, path=None):
+    """The whole parameters of ``cfg``: the reference's, converted from
+    the numpy tree at ``path`` where it exists, else the seeded init
+    (the families' opened as their serve case opens them)."""
+    if path is not None and os.path.exists(path):
+        return convert.params_from_numpy(torch.load(path, weights_only=False),
+                                         device="cpu")
+    params = init_params(ttf.model_template(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    return _opened(cfg, {"params": params})["params"]
+
+
+def _engine_both(cfg, params, mesh, **kw) -> dict:
+    """:func:`_engine_run` of the rank's blocks of ``params`` on ``mesh``
+    under FSDP (every rank's result) and, on rank 0, of ``params`` on one
+    device (``one``)."""
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    blocks = shard_params(params, tstep.train_state_specs(cfg, ctx)["params"],
+                          mesh)
+    with gathered_leaves() as refs:
+        got = _engine_run(cfg, blocks, ctx, refs=refs, **kw)
+    got["blocks"] = [list(t.shape) for t in tree_leaves(blocks)]
+    out = {"ranks": _all_ranks(got)}
+    if mesh.rank == 0:
+        out["one"] = _engine_run(cfg, params, None, **kw)
+    return out
+
+
+def case_engine_fsdp(rank, meshes, out_dir):
+    """The ``ServingEngine`` under FSDP over processes, every config and
+    mesh of ``ENGINE_FSDP_RUNS`` reduced with ``fsdp=True``: the rank's
+    blocks of one seeded init (tinyllama-1.1b's: the reference's serving
+    fixture, ``REFERENCE_ENGINE``, where the caller wrote it), the same
+    requests on every rank, against the one-device engine on the whole
+    parameters: greedy, and on (4,1) sampled through the degrade ladder's
+    ``bf16`` rung; granite-moe-3b-a800m at ``ENGINE_DROP_CF``, and so
+    with its prompt prefilled as each rank's row (a planted fault); a
+    corrupted length in one rank's row and a NaN slot. What the engine
+    refuses is ``case_refusals``' (:func:`engine_refusals`)."""
+    out = {}
+    for arch, shape in ENGINE_FSDP_RUNS:
+        cfg = engine_cfg(arch)
+        params = _engine_params(cfg, os.path.join(out_dir, REFERENCE_ENGINE)
+                                if arch == "tinyllama-1.1b" else None)
+        r = {"greedy": _engine_both(cfg, params, meshes[shape])}
+        if shape == (4, 1):
+            r["sampled"] = _engine_both(
+                cfg, params, meshes[shape], sampled=True,
+                degrade=DegradeLadder(bf16_at=ENGINE_SAMPLED["bf16_at"]))
+        out[arch, shape] = r
+    granite = _with_cf(engine_cfg("granite-moe-3b-a800m"), ENGINE_DROP_CF)
+    params = _engine_params(granite)
+    tmoe.DISPATCH_LOG = []
+    try:
+        out["drops"] = _engine_both(granite, params, meshes[4, 1])
+        out["drops fault"] = _engine_both(granite, params, meshes[4, 1],
+                                          rows_prefill=True)
+    finally:
+        tmoe.DISPATCH_LOG = None
+    cfg = engine_cfg("tinyllama-1.1b")
+    params = _engine_params(cfg)
+    a = ENGINE_AUDIT
+    out["corrupt"] = _engine_both(cfg, params, meshes[4, 1], hooks=(
+        corrupt_length(a["slot"], a["tick"], a["by"]),))
+    out["nan"] = _engine_both(cfg, params, meshes[4, 1], hooks=(
+        inject_nan(a["slot"], a["tick"]),))
+    return out
+
+
+def engine_refusals(meshes) -> dict:
+    """What the engine refuses under FSDP over processes, before any
+    collective: slots that the data ranks do not divide (``ValueError``),
+    and zamba2-7b on (2,2) (``NotImplementedError``, item 2.6). The text
+    of each."""
+    out = {}
+    zamba = engine_cfg("zamba2-7b")
+    for name, exc, cfg, shape, slots in (
+            ("fsdp_engine_slots", ValueError, engine_cfg("tinyllama-1.1b"),
+             (4, 1), 6),
+            ("fsdp_hybrid_engine", NotImplementedError, zamba, (2, 2), 4)):
+        try:
+            ServingEngine(cfg, init_params(ttf.model_template(cfg),
+                                           torch.Generator().manual_seed(0),
+                                           device="cpu"),
+                          slots=slots, ctx=MeshCtx(mesh=meshes[shape]),
+                          device="cpu")
+        except exc as e:
+            out[name] = str(e)
+        else:
+            out[name] = None
+    return out
+
+
 def case_refusals(rank, meshes, out_dir):
     """The texts of what the process route refuses."""
     out = {}
@@ -1937,7 +2212,7 @@ def case_refusals(rank, meshes, out_dir):
         dataclasses.replace(cfg, n_kv_heads=2),
         MeshCtx(mesh=meshes[1, 4]), 16))
     # FSDP of the families outside the tensor-parallel route at model > 1
-    # (item 2.6), and of the engine (item 2.2b, slice 2)
+    # (item 2.6), and what the engine refuses under FSDP
     text("fsdp_hybrid_model", NotImplementedError,
          lambda: tstep.make_prefill_step(
              reduced(get_config("zamba2-7b"), fsdp=True),
@@ -1946,13 +2221,7 @@ def case_refusals(rank, meshes, out_dir):
          lambda: tstep.make_decode_step(
              reduced(get_config("llama-3.2-vision-11b"), fsdp=True),
              MeshCtx(mesh=meshes[2, 2])))
-    for name, fcfg in (("fsdp_engine", dataclasses.replace(cfg, fsdp=True)),
-                       ("fsdp_moe_engine", _mla_fsdp_cfg())):
-        text(name, NotImplementedError, lambda fcfg=fcfg: ServingEngine(
-            fcfg, init_params(ttf.model_template(fcfg),
-                              torch.Generator().manual_seed(0),
-                              device="cpu"),
-            ctx=MeshCtx(mesh=meshes[4, 1]), device="cpu"))
+    out.update(engine_refusals(meshes))
     # a MoE step in micro-batches whose rows the data ranks do not split:
     # 4 micro-batches of 2 rows over the 4 data ranks of (4,1), raised by
     # the step on the rank's 2 rows, before any collective
@@ -2007,13 +2276,14 @@ def refusal_texts() -> dict:
                              "family under FSDP and the model axis; the "
                              "cross layers under model over processes "
                              "(ROADMAP Queue A, A13c item 2.6)",
-        "fsdp_engine": "the ServingEngine under FSDP; FSDP of the serving "
-                       "engine over processes (ROADMAP Queue A, A13c item "
-                       "2.2b, slice 2)",
-        "fsdp_moe_engine": "deepseek-v3-671b with fsdp=True over data on a "
-                           "process mesh: the ServingEngine under FSDP; FSDP "
-                           "of the serving engine over processes (ROADMAP "
-                           "Queue A, A13c item 2.2b, slice 2)",
+        "fsdp_engine_slots": "tinyllama-1.1b under FSDP over 4 data ranks: "
+                             "6 slots do not split; the slots must be a "
+                             "multiple of the data extent",
+        "fsdp_hybrid_engine": "zamba2-7b with fsdp=True over data on a "
+                              "process mesh with model=2: the hybrid family "
+                              "under FSDP and the model axis; the SSM and "
+                              "hybrid blocks under model over processes "
+                              "(ROADMAP Queue A, A13c item 2.6)",
         "accum_rows": "granite-moe-3b-a800m on a process mesh: "
                       "grad_accum=4 cuts the global batch's 8 rows into "
                       "micro-batches of 2 rows, which 4 data ranks do not "
@@ -3563,3 +3833,163 @@ def check_ep_serve(res, count=None) -> dict:
                 res, f"{name} {shape}")
             check_ep_serve_bytes(res, name, shape)
     return errs
+
+
+# -- the serving engine under FSDP -------------------------------------------
+
+
+def engine_runs() -> list:
+    """The keys of ``case_engine_fsdp``'s engine runs: (arch, mesh, tag)."""
+    return [(arch, shape, tag) for arch, shape in ENGINE_FSDP_RUNS
+            for tag in (("greedy", "sampled") if shape == (4, 1)
+                        else ("greedy",))]
+
+
+def engine_tokens(run) -> dict:
+    """``{uid: tokens}`` of a run on every rank, held equal, every request
+    done; their tokens against the one-device engine's on rank 0 (``one``,
+    None where there is none) are the caller's."""
+    ranks = run["ranks"]
+    toks = ranks[0]["tokens"]
+    assert all(r["tokens"] == toks for r in ranks), [r["tokens"]
+                                                     for r in ranks]
+    assert all(set(r["states"].values()) == {"done"} for r in ranks) \
+        and len(toks) == ENGINE_FSDP["requests"], [r["states"]
+                                                   for r in ranks]
+    return toks
+
+
+def engine_step_bytes(ranks) -> list:
+    """Each recorded step of an engine run: ``(kind, shape, mode, bytes by
+    kind summed over the ranks)``."""
+    out = []
+    for i, rec in enumerate(ranks[0]["record"]):
+        total = {}
+        for r in ranks:
+            assert r["record"][i]["kind"] == rec["kind"], i
+            for k, v in by_kind((r["record"][i]["counts"], {})).items():
+                total[k] = total.get(k, 0) + v
+        out.append((rec["kind"], tuple(rec["shape"]), rec["mode"], total))
+    return out
+
+
+def engine_bytes_want(cfg, mesh_shape, kind, shape, count) -> dict:
+    """The bytes by kind, summed over the ranks of ``mesh_shape``, that
+    an engine step of ``kind`` at ``shape`` moves, from ``count(cfg,
+    ShapeConfig)`` (``launch.dryrun.count_step`` on the stacked mesh of
+    that shape, a StepStats) of the serve step of the same shape times the
+    ranks, where the ranks' step differs from it (ROADMAP Queue C):
+
+    - ``decode`` at (slots, 1): the last logits' all-gathers over model
+      and over data (:func:`fsdp_logit_bytes`; the count leaves them
+      split);
+    - ``prefill`` at (1, prompt): the one prompt replicated over the data
+      ranks, so each rank reduces the whole prompt: its tensor-parallel
+      all-reduces are the count's at a batch of d prompts (one a data
+      rank; the count at batch 1 splits the replicated prompt's
+      reductions over the data ranks), and its logits' all-gather over
+      model (none over data: every rank holds the prompt's);
+    - ``audit`` at (slots,): the lengths' all-gather over data, which no
+      serve step has: each rank's ``slots / d`` int32.
+
+    ``cfg``'s stored dtype is the step's compute dtype (the engine's
+    gathers move the rung's dtype: its parameters are cast before them),
+    the logits' all-gathers in that dtype too."""
+    from repro_torch.configs.base import ShapeConfig
+    d, m = mesh_shape
+    n = d * m
+    item = torch_dtype(cfg.compute_dtype).itemsize
+    if kind == "audit":
+        return {"all-gather": n * (d - 1) * shape[0] // d * 4}
+    b, s = shape
+    if kind == "decode":
+        st = count(cfg, ShapeConfig(kind, ENGINE_FSDP["max_seq"], b, kind))
+        want = {k: n * v for k, v in st.collective_by_kind.items()}
+        want["all-gather"] = want.get("all-gather", 0) + fsdp_logit_bytes(
+            cfg, mesh_shape, b) * item / 4
+        return want
+    st = count(cfg, ShapeConfig(kind, s, b, kind))
+    want = {k: n * v for k, v in st.collective_by_kind.items()}
+    want["all-gather"] += n * item * cfg.vocab_size * (m - 1) / m
+    if "all-reduce" in want:
+        wide = count(cfg, ShapeConfig(kind, s, d, kind))
+        want["all-reduce"] = n * wide.collective_by_kind["all-reduce"]
+    return want
+
+
+def _engine_count(cfg, mesh_shape):
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*mesh_shape)
+
+    @functools.lru_cache(maxsize=None)
+    def count(c, shape):
+        return _dry_count(c, shape, mesh)
+    return count
+
+
+def check_engine_bytes(run, cfg, mesh_shape, count=None) -> dict:
+    """Every recorded step of a run, bytes by kind summed over the ranks,
+    equal to :func:`engine_bytes_want` (``count``: the dry run's on the
+    host by default); a ``bf16`` rung's decode steps against the count of
+    ``cfg`` stored in bfloat16. Returns the bytes of each kind of step
+    (the first of each)."""
+    count = count or _engine_count(cfg, mesh_shape)
+    n = mesh_shape[0] * mesh_shape[1]
+    seen = {}
+    for kind, shape, mode, got in engine_step_bytes(run["ranks"]):
+        c = cfg if mode == "fp32" else dataclasses.replace(
+            cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+        want = engine_bytes_want(c, mesh_shape, kind, shape, count)
+        assert set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= n for k in got), (kind, shape, mode,
+                                                        got, want)
+        seen.setdefault(f"{kind} {mode} {shape}", got)
+    return seen
+
+
+def check_engine_blocks(run) -> dict:
+    """Each rank holds only its blocks: every parameter tree the engine
+    keeps (one a compute dtype) of its blocks' shapes, no gathered leaf
+    alive before any step nor after the run, and leaves gathered."""
+    for r in run["ranks"]:
+        assert r["trees"] and all(t == r["blocks"]
+                                  for t in r["trees"].values()), r["trees"]
+        alive = [s["alive_before"] for s in r["record"]] + [r["alive_end"]]
+        assert r["gathered"] > 0 and not any(alive), (r["gathered"], alive)
+    return {"gathered": [r["gathered"] for r in run["ranks"]]}
+
+
+def engine_dispatch_faults(run) -> list:
+    """Where a MoE run's dispatches differ from the one-device engine's:
+    each prefill's (pairs, kept) on every rank against the one-device
+    prefill's (the prompt its own group), each decode's summed over the
+    ranks (one group over their rows) against the one-device decode's."""
+    one = [rec for rec in run["one"]["record"] if rec["kind"] != "audit"]
+    faults = []
+    for i, rec in enumerate(one):
+        steps = [[x for x in r["record"] if x["kind"] != "audit"][i]
+                 for r in run["ranks"]]
+        if rec["kind"] == "prefill":
+            bad = [s["dispatch"] for s in steps
+                   if s["dispatch"] != rec["dispatch"]]
+        else:
+            summed = [tuple(map(sum, zip(*pairs))) for pairs in zip(
+                *[s["dispatch"] for s in steps])]
+            bad = [] if summed == rec["dispatch"] else [summed]
+        faults += [(i, rec["kind"], rec["dispatch"], b) for b in bad]
+    return faults
+
+
+def engine_drops(run) -> int:
+    """The pairs that the one-device engine's prefills dropped."""
+    return sum(p - k for rec in run["one"]["record"]
+               if rec["kind"] == "prefill" for p, k in rec["dispatch"])
+
+
+def engine_events(run) -> list:
+    """The events of a run, ``(tick, code, slot)``, held equal on every
+    rank and to the one-device engine's."""
+    ev = [[(e["tick"], e["code"], e.get("slot")) for e in r["events"]]
+          for r in run["ranks"] + [run["one"]]]
+    assert all(e == ev[0] for e in ev), ev
+    return ev[0]
