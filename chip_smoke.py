@@ -439,10 +439,11 @@ non-zero and prints no result. Phases, one JSON line each:
                ``count_step``'s (FSDP's gathers once a micro-batch),
                B3-B5 2 / 2 / 2 a rank-step at 1 x 64 rows x heads and
                1024 tokens, held against their plain versions there.
-               Phases 39-45 share their spawn
+               Phases 39-46 share their spawn
                (``run_card_ranks``): one world of 4 ranks that runs (1,
                4), both FSDP meshes, both MoE meshes, the MLA mesh, the
-               MoE FSDP mesh and phase 44's (4, 1) in turn.
+               MoE FSDP mesh, phase 44's (4, 1) and phase 46's (1, 4) in
+               turn.
 44. ``mesh_families_fsdp`` the SSM, hybrid, vision and encoder-decoder
                families under FSDP on (4, 1) ranks sharing the card:
                xlstm-1.3b (1 layer), zamba2-7b (2 layers, the shared block
@@ -475,6 +476,24 @@ non-zero and prints no result. Phases, one JSON line each:
                ``count_step``'s serve step of its shape; no gathered leaf
                alive between steps. Recorded: peak GB a rank, ms a
                prefill and a decode step (host clock).
+46. ``mesh_ssm_tp`` the SSM and hybrid blocks under the model axis on
+               (1, 4) ranks sharing the card, the last job of the one
+               world of 4: xlstm-1.3b and zamba2-7b at phase 44's cut,
+               full width, ``fsdp=False``, one step at 4 x 2048, each
+               rank its blocks of every ``d_inner`` leaf as the
+               reference's rules lay them and its heads (the fused
+               projection and Mamba2's conv weights all-gathered over
+               model and sliced, the norm's sum of squares all-reduced,
+               mLSTM's q, k, v reduce-scattered by heads), zamba2-7b's
+               shared block on the dense tensor-parallel route: loss and
+               ce against phase 44's one-device steps, zamba2-7b's blocks
+               against the same slices of its one-device result, the
+               bytes by kind against ``count_step``'s, B3-B5 at the
+               rank's geometry (4 x 8 of 32 heads, 2048, 112) against
+               their plain versions there, and zamba2-7b's float32
+               prefill (4 x 64) and one decode step against the float64
+               witness and ``count_step``'s bytes; ms a step, a prefill
+               and a decode and peak GB a rank.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -486,12 +505,12 @@ in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
 ``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
-NCCL step summed over its ranks, ``mesh_processes``, and phases 39-45's
+NCCL step summed over its ranks, ``mesh_processes``, and phases 39-46's
 steps summed over their ranks, ``mesh_tensor_parallel (1, m)``,
 ``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_moe_ep (2, 2)``,
 ``mesh_mla (1, 4)``, ``mesh_mla_fsdp (2, 2)``, ``mesh_mla_fsdp_ep (2,
-2)``, phase 44's ``mesh_families_fsdp <arch>`` and phase 45's
-``mesh_engine_fsdp <arch>``; error,
+2)``, phase 44's ``mesh_families_fsdp <arch>``, phase 45's
+``mesh_engine_fsdp <arch>`` and phase 46's ``mesh_ssm_tp <arch>``; error,
 times and bound per
 kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -5477,14 +5496,15 @@ def _tp_job(mesh, one_path, fsdp=False):
 
 
 def _card_rank(rank, world, store, jobs, one_path):
-    """A rank of phases 39-45 (module level: ``spawn`` pickles it): for
+    """A rank of phases 39-46 (module level: ``spawn`` pickles it): for
     each ``(kind, shape, out_path)`` of ``jobs`` in turn, in one process
     group, a ``make_process_mesh(*shape, backend="gloo")`` on the card the
     ranks share and its job: "tp" and "fsdp" phases 39-40's
     (:func:`_tp_job`), "moe" phase 41's (:func:`_moe_job`), "mla" and
     "mla_fsdp" phases 42-43's (:func:`_mla_job`), "fsdp_families" phase
     44's (:func:`_families_job`, which reads the one-device record's
-    ``FAMILY_ONE_FILE`` beside ``out_path``); after the job that holds a
+    ``FAMILY_ONE_FILE`` beside ``out_path``), "ssm_tp" phase 46's
+    (:func:`_ssm_tp_job`, which reads it too); after the job that holds a
     model of ``ENGINE_FSDP_CARD``, phase 45's engine of it
     (:func:`_engine_fsdp_job`, under ``"engine"``). Rank 0 writes
     each job's results, with the seconds it took, to its ``out_path``. One
@@ -5501,6 +5521,8 @@ def _card_rank(rank, world, store, jobs, one_path):
                                  world_size=world, timeout_s=TP_TIMEOUT_S)
         if kind == "fsdp_families":
             out = _families_job(mesh, out_path)
+        elif kind == "ssm_tp":
+            out = _ssm_tp_job(mesh, out_path)
         elif kind == "moe":
             out = _moe_job(mesh)
         elif kind in ("mla", "mla_fsdp"):
@@ -5524,13 +5546,14 @@ def _card_rank(rank, world, store, jobs, one_path):
     dist.destroy_process_group()
 
 
-# the jobs of phases 39-44 by world size (phase 45's engines run at the end
-# of three of them, ``ENGINE_FSDP_CARD``): each world's ranks are spawned
-# once and run its jobs in this order (one world of 4 since phase 44: the
-# (1, 2) job of phase 39 and its spawn are cut)
+# the jobs of phases 39-44 and 46 by world size (phase 45's engines run at
+# the end of three of them, ``ENGINE_FSDP_CARD``): each world's ranks are
+# spawned once and run its jobs in this order (one world of 4 since phase
+# 44: the (1, 2) job of phase 39 and its spawn are cut)
 CARD_JOBS = ((4, (("tp", (1, 4)), ("fsdp", (4, 1)), ("fsdp", (2, 2)),
                   ("moe", (4, 1)), ("moe", (2, 2)), ("mla", (1, 4)),
-                  ("mla_fsdp", (2, 2)), ("fsdp_families", (4, 1)))),)
+                  ("mla_fsdp", (2, 2)), ("fsdp_families", (4, 1)),
+                  ("ssm_tp", (1, 4)))),)
 
 
 def run_card_ranks(tmp, one_path, card_jobs=CARD_JOBS) -> dict:
@@ -6809,14 +6832,15 @@ def _families_fsdp_cfgs():
     return out
 
 
-def _family_fsdp_serve(cfg, mesh=None, dtype="float32"):
+def _family_fsdp_serve(cfg, mesh=None, dtype="float32", times=None):
     """``cfg``'s prefill of ``FAMILY_FSDP_SERVE``'s prompts (from a seed)
     and one decode step in ``dtype`` (compute, parameters and cache; the
     seeded float32 init, cast), from the seeded init: on ``mesh`` under
     FSDP (each data rank its prompt, the weights gathered a block at a
-    time, the shared block once a step), else on one device. Returns (the
-    last logits of each step, whole, on the host; each step's
-    collectives, summed over the ranks, or None)."""
+    time, the shared block once a step) or, with ``fsdp=False``,
+    tensor-parallel, else on one device. Returns (the last logits of each
+    step, whole, on the host; each step's collectives, summed over the
+    ranks, or None); ``times``: a list that takes each step's ms."""
     params = _family_params(cfg, 0)
     cfg = dataclasses.replace(cfg, compute_dtype=dtype, param_dtype=dtype)
     params = tree_map(lambda t: t.to(torch_dtype(dtype)), params)
@@ -6840,16 +6864,25 @@ def _family_fsdp_serve(cfg, mesh=None, dtype="float32"):
                 compat.read_counts(reduce=True, backward=True)) \
             if mesh else None
     outs, coll = [], []
+    times = [] if times is None else times
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
     with torch.no_grad():
         compat.reset_counts()
-        logits, cache = make_prefill_step(cfg, ctx, s + 1,
-                                          cache_dtype=torch_dtype(dtype))(
-            params, {"tokens": toks})
+        logits, cache = timed(make_prefill_step(
+            cfg, ctx, s + 1, cache_dtype=torch_dtype(dtype)), params,
+            {"tokens": toks})
         outs.append(logits.cpu())
         coll.append(counts())
         compat.reset_counts()
-        logits, cache = make_decode_step(cfg, ctx)(params, cache,
-                                                   {"tokens": nxt})
+        logits, cache = timed(make_decode_step(cfg, ctx), params, cache,
+                              {"tokens": nxt})
         outs.append(logits.cpu())
         coll.append(counts())
     del params, cache
@@ -7385,6 +7418,303 @@ def phase_mesh_engine_fsdp(smi, spawned=None, one=None):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 46: the SSM and hybrid blocks under the model axis over processes
+# ---------------------------------------------------------------------------
+
+SSM_TP_MESH = (1, 4)      # (data, model): ranks on the one card
+# the float64 witness of each model's step (rows x tokens; the attention
+# kernels off: the path holds them in bf16): in bf16 the full-width
+# gradients are rounding-limited (the mLSTM normaliser's most: the ranks'
+# grad norm may part from one device's by a factor), in float64 the ranks'
+# step is one device's within SSM_TP_F64_REL
+SSM_TP_WITNESS = (2, 1024)
+SSM_TP_F64_REL = 1e-9
+
+
+def _ssm_witness(cfg, opt, ctx=None):
+    """``cfg``'s float64 step (attention kernels off) at ``SSM_TP_WITNESS``
+    from the seeded init on ``ctx``'s ranks (their blocks) or on one
+    device: the metrics."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float64",
+                              param_dtype="float64", attn_flash="off")
+    params = _family_params(cfg, 0)
+    if ctx is not None:
+        params = shard_params(params, train_state_specs(cfg, ctx)["params"],
+                              ctx.mesh)
+    free_memory()
+    state = {"params": params, "opt": adamw.init(opt, params)}
+    batch = _family_batch(cfg, *SSM_TP_WITNESS, 0)
+    _, m = make_train_step(cfg, opt, ctx).step_fn(state, batch)
+    out = {k: float(v) for k, v in m.items()}
+    del state, params
+    free_memory()
+    return out
+
+
+def _ssm_tp_cfgs():
+    """Phase 44's xlstm-1.3b and zamba2-7b (:func:`_families_fsdp_cfgs`:
+    full width, its depth cut, bf16 compute, full remat) with
+    ``fsdp=False``, and its optimizer: one device runs them as phase 44's
+    one-device record does."""
+    return [(dataclasses.replace(cfg, fsdp=False), opt)
+            for cfg, opt in _families_fsdp_cfgs()
+            if cfg.family in ("ssm", "hybrid")]
+
+
+def _ssm_tp_job(mesh, out_path):
+    """Phase 46's work on (1,4), on every rank: each config of
+    :func:`_ssm_tp_cfgs` in turn, the rank's blocks of the seeded init,
+    one train step on the seeded batch (phase 44's) with the attention
+    kernels' geometries recorded (and a second one, timed only), then
+    its float64 witness
+    (:func:`_ssm_witness`); zamba2-7b's blocks after it against the
+    same slices of the one-device result (``FAMILY_ONE_FILE`` beside
+    ``out_path``) and its serve steps (the logits saved beside
+    ``out_path``). Returns the results on rank 0, None on the others."""
+    import torch.distributed as dist
+    one_path = os.path.join(os.path.dirname(out_path), FAMILY_ONE_FILE)
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    n = FAMILY_FSDP_BATCH // mesh.shape["data"]
+    mine = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+    out = {}
+    for cfg, opt in _ssm_tp_cfgs():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        specs = train_state_specs(cfg, ctx)["params"]
+        blocks = shard_params(_family_params(cfg, 0), specs, mesh)
+        free_memory()
+        state = {"params": blocks, "opt": adamw.init(opt, blocks)}
+        batch = {k: v[mine] for k, v in _family_batch(
+            cfg, FAMILY_FSDP_BATCH, TRAIN_SEQ, 0).items()}
+        step_fn = make_train_step(cfg, opt, ctx).step_fn
+        torch.cuda.synchronize()
+        att.reset_launches()        # this family's path starts here
+        compat.reset_counts()
+        with att_geometries() as seen:
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            metrics = {k: float(v) for k, v in m.items()}
+            step_s = time.perf_counter() - t1
+        launches = dict(att.LAUNCHES)   # read right after it
+        counts = (compat.read_counts(reduce=True),
+                  compat.read_counts(reduce=True, backward=True))
+        peak = torch.cuda.max_memory_allocated()
+        gaps, serve, serve_ms = None, None, []
+        if cfg.family == "hybrid":
+            want = shard_params(torch.load(one_path, mmap=True,
+                                           weights_only=True), specs, mesh)
+            gaps = []
+            for got, w in zip(tree_leaves(state["params"]),
+                              tree_leaves(want)):
+                gap = (got.cpu().double() - w.double()).abs()
+                gaps.append((float(gap.max()), float(w.abs().max())))
+            del want
+        # a second step, timed only: the first pays the process's warm-up
+        # of this model's path
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        warm_s = time.perf_counter() - t1
+        del state, blocks, batch, step_fn, m
+        free_memory()
+        if cfg.family == "hybrid":
+            serve = _family_fsdp_serve(cfg, mesh, times=serve_ms)
+        witness = _ssm_witness(cfg, opt, ctx)
+        geos = sorted([k, g, sq, sk, dd, str(dt)[6:], c, bq, bk]
+                      for k, (g, sq, sk, dd, dt, c, bq, bk) in seen)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (launches, peak, geos, step_s, gaps,
+                                       serve_ms, warm_s))
+        if serve is not None and mesh.rank == 0:
+            torch.save(serve[0], out_path + ".serve.pt")
+            serve = {"path": out_path + ".serve.pt", "collectives": serve[1]}
+        out[cfg.name] = {
+            "metrics": metrics, "collectives": counts, "serve": serve,
+            "witness": witness,
+            "launches_by_rank": [e[0] for e in every],
+            "peak_gb_by_rank": [e[1] / 1e9 for e in every],
+            "geometries_by_rank": [e[2] for e in every],
+            "step_s_by_rank": [e[3] for e in every],
+            "warm_step_s_by_rank": [e[6] for e in every],
+            "gaps_by_rank": [e[4] for e in every],
+            "serve_ms_by_rank": [e[5] for e in every],
+            "weight_decay": opt.weight_decay,
+            "seconds": time.perf_counter() - t0}
+    if mesh.rank != 0:
+        return None
+    return {"families": out, "backend": dist.get_backend()}
+
+
+def phase_mesh_ssm_tp(smi, spawned=None, one=None):
+    """Phase 46: the SSM and hybrid blocks under the model axis over
+    processes (``models/ssm.py`` with ``models.sharding.InnerSplit``: each
+    rank its blocks of every ``d_inner`` leaf as the reference's rules lay
+    them and its heads, the fused projections re-laid onto them on the
+    activations; zamba2-7b's shared block on the dense tensor-parallel
+    route). xlstm-1.3b and zamba2-7b at phase 44's cut (:func:`_ssm_tp_cfgs`,
+    full width, ``fsdp=False``), one step at ``FAMILY_FSDP_BATCH`` x
+    ``TRAIN_SEQ`` on ``SSM_TP_MESH`` (1,4), the last job of the one world
+    of 4. Held: the step's loss and ce within ``TP_LOSS_REL`` of phase
+    44's one-device step on the same state and batch (``one``:
+    :func:`families_one_device_record`, made here where None), and its
+    float64 witness (:func:`_ssm_witness`) within ``SSM_TP_F64_REL`` of
+    one device's in loss, ce and grad norm; B3-B5
+    ``train_launches`` on every rank, each held against its plain version
+    at the geometry the path launched it at (4 rows x 8 of 32 heads); the
+    bytes by kind, summed over the ranks, equal to ``count_step``'s for
+    the cell times the ranks (the all-reduces less the grad norm's
+    scalar); zamba2-7b's blocks within ``_param_bound`` of the same slices
+    of the one-device result, and its float32 prefill of 4 x 64 and one
+    decode step no further from the one-device float64 logits than
+    ``WITNESS_FACTOR`` times the one-device float32 logits are (plus
+    ``SERVE_SLACK``), their bytes the count's beside the last logits'
+    gather over model. Each family's line is emitted before its checks
+    fail the phase. Recorded: ms of the step, of a second step (timed
+    only: the first pays the processes' warm-up of the model's path), of
+    the prefill and the decode, and peak GB, on each rank. ``spawned``:
+    :func:`run_card_ranks`'s results (its own spawn here where None).
+    Returns the launches by path, summed over the ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    free_memory()
+    pc = _process_cases()
+    d, m = SSM_TP_MESH
+    n = d * m
+    tmp = tempfile.mkdtemp(prefix="mesh_ssm_tp_")
+    by_path, results = {}, []
+    try:
+        one = one or families_one_device_record(tmp)
+        spawned = spawned or run_card_ranks(tmp, None, [
+            (n, (("ssm_tp", SSM_TP_MESH),))])
+        job = spawned["ssm_tp", SSM_TP_MESH]
+        assert job["backend"] == "gloo", job["backend"]
+        failed = []
+        for i, (cfg, opt) in enumerate(_ssm_tp_cfgs()):
+            r = job["families"][cfg.name]
+            want_m = one["steps"][cfg.name]
+            checks = {}     # what is held: True where it holds
+            rel = {k: abs(r["metrics"][k] - want_m[k]) / abs(want_m[k])
+                   for k in ("loss", "ce")}
+            checks["loss"] = max(rel.values()) <= TP_LOSS_REL
+            wit_one = _ssm_witness(cfg, opt)
+            rel64 = {k: abs(r["witness"][k] - wit_one[k]) / abs(wit_one[k])
+                     for k in ("loss", "ce", "grad_norm")}
+            checks["float64 witness"] = max(rel64.values()) <= SSM_TP_F64_REL
+            per_step = train_launches(cfg)
+            checks["launches"] = all(x == per_step
+                                     for x in r["launches_by_rank"])
+            launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                        for k in per_step}
+            geometries = []
+            if any(per_step.values()):
+                seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
+                        for rank_geos in r["geometries_by_rank"]
+                        for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
+                geometries = check_path_attention(
+                    f"ssm_tp {cfg.name}", seen, FAMILY_FSDP_BATCH // d,
+                    cfg.n_heads_padded // m, 460 + 10 * i, results)
+            st = dryrun.count_step(cfg, ShapeConfig(
+                "train", TRAIN_SEQ, FAMILY_FSDP_BATCH, "train"),
+                make_mesh(d, m), target="cuda")
+            got = pc.by_kind(r["collectives"])
+            got["all-reduce"] = got.get("all-reduce", 0) \
+                - pc.ssm_extra(d, m, itemsize=4)
+            want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
+            checks["bytes"] = set(got) == set(want_bytes) and all(
+                abs(got[k] - want_bytes[k]) <= n for k in got)
+            checks["count whole"] = not st.count_short
+            extra = {}
+            if cfg.family == "hybrid":
+                lrs, worst = [want_m["lr"]], 0.0
+                for gaps in r["gaps_by_rank"]:
+                    for mx, pmax in gaps:
+                        worst = max(worst, mx / _param_bound(
+                            lrs, r["weight_decay"], pmax))
+                checks["params"] = worst <= 1.0
+                outs = torch.load(r["serve"]["path"], weights_only=True)
+                coll = r["serve"]["collectives"]
+                one32, one64 = one["serve"]["float32"], one["serve"]["float64"]
+
+                def rel_gap(a, b):
+                    return _gap(a, b) / float(b.abs().max())
+                serve_gaps = {
+                    "ranks_vs_one_f32": [rel_gap(a, b)
+                                         for a, b in zip(outs, one32)],
+                    "ranks_vs_f64": [rel_gap(a, b)
+                                     for a, b in zip(outs, one64)],
+                    "one_f32_vs_f64": [rel_gap(a, b)
+                                       for a, b in zip(one32, one64)]}
+                checks["serve"] = all(
+                    g <= WITNESS_FACTOR * w + SERVE_SLACK for g, w in zip(
+                        serve_gaps["ranks_vs_f64"],
+                        serve_gaps["one_f32_vs_f64"]))
+                f32 = dataclasses.replace(cfg, compute_dtype="float32")
+                sv = FAMILY_FSDP_SERVE
+                # the last position's logits, vocab blocks over model
+                gathered = m * (m - 1) * sv["batch"] * (
+                    cfg.vocab_size // m) * 4
+                serve_bytes, serve_want = [], []
+                for kind, c in zip(("prefill", "decode"), coll):
+                    cs = dryrun.count_step(f32, ShapeConfig(
+                        kind, sv["prompt"], sv["batch"], kind),
+                        make_mesh(d, m), target="cuda")
+                    got_s = pc.by_kind(c)
+                    want_s = {k: n * v
+                              for k, v in cs.collective_by_kind.items()}
+                    want_s["all-gather"] = want_s.get("all-gather", 0) \
+                        + gathered
+                    serve_bytes.append(got_s)
+                    serve_want.append(want_s)
+                checks["serve bytes"] = all(
+                    set(a) == set(b) and all(abs(a[k] - b[k]) <= n
+                                             for k in a)
+                    for a, b in zip(serve_bytes, serve_want))
+                ms = r["serve_ms_by_rank"]
+                extra = dict(params_worst_over_bound=worst,
+                             serve_gaps=serve_gaps,
+                             witness_factor=WITNESS_FACTOR,
+                             serve_slack=SERVE_SLACK,
+                             serve_bytes=serve_bytes,
+                             serve_count_bytes=serve_want,
+                             prefill_ms_by_rank=[x[0] for x in ms],
+                             decode_ms_by_rank=[x[1] for x in ms],
+                             serve_shape=[sv["batch"], sv["prompt"]])
+            n_params = sum(math.prod(t.shape) for t in tree_leaves(
+                abstract_params(model_template(cfg))))
+            emit("mesh_ssm_tp", gpu=smi, arch=cfg.name, family=cfg.family,
+                 mesh=[d, m], ranks=n,
+                 reduced={k: v for k, v in dict(FAMILY_FSDP_CUTS)[
+                     cfg.name]},
+                 param_count=n_params, batch=FAMILY_FSDP_BATCH,
+                 seq_len=TRAIN_SEQ, compute_dtype=cfg.compute_dtype,
+                 remat=cfg.remat, checks=checks, metrics=r["metrics"],
+                 one_device_metrics=want_m, rel=rel,
+                 witness=dict(shape=list(SSM_TP_WITNESS),
+                              metrics=r["witness"], one_device=wit_one,
+                              rel=rel64),
+                 launches=launches,
+                 launches_per_rank_step=per_step, geometries=geometries,
+                 bytes_per_step=got, count_step_bytes=want_bytes,
+                 gb_per_step=sum(want_bytes.values()) / 1e9,
+                 step_ms_by_rank=[1e3 * x for x in r["step_s_by_rank"]],
+                 warm_step_ms_by_rank=[1e3 * x for x in
+                                       r["warm_step_s_by_rank"]],
+                 peak_gb_by_rank=r["peak_gb_by_rank"],
+                 job_seconds=r["seconds"], **extra)
+            failed += [f"{cfg.name}: {k}" for k, ok in checks.items()
+                       if not ok]
+            by_path[f"mesh_ssm_tp {cfg.name}"] = launches
+            free_memory()
+        emit("mesh_ssm_tp_done", gpu=smi, failed=failed,
+             seconds=job["seconds"])
+        assert not failed, failed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
+
+
 def kernels_line(results, timed, launches, serve_flash, att_results,
                  att_timed, att_launches, paper, ssm, ssm_serving,
                  moe_serving, mla_serving, cross_serving, faults_flash,
@@ -7406,7 +7736,7 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     ``multiprecision``, ``attention_long``'s rows and gates), phases 33
     and 35's (``mesh_pipeline``, ``mesh_train``), phase 37's counted
     step (``dryrun``), phase 38's NCCL step, summed over its ranks
-    (``mesh_processes``), and phases 39-45's steps and engines, summed
+    (``mesh_processes``), and phases 39-46's steps and engines, summed
     over their ranks: every row adds those that launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
@@ -7611,11 +7941,11 @@ def main():
     try:
         one = one_device_record(tmp)       # phases 39 and 40 hold to it
         free_memory()
-        fam_one = families_one_device_record(tmp)   # phase 44 holds to it
+        fam_one = families_one_device_record(tmp)   # phases 44, 46 hold
         free_memory()
         eng_one = engine_one_device_record(one[1])  # phase 45 holds to it
         free_memory()
-        spawned = run_card_ranks(tmp, one[1])   # phases 39-45's ranks
+        spawned = run_card_ranks(tmp, one[1])   # phases 39-46's ranks
         surface.update(phase_mesh_tensor_parallel(smi, one, spawned))
         free_memory()
         surface.update(phase_mesh_fsdp(smi, one, spawned))
@@ -7630,6 +7960,8 @@ def main():
         surface.update(phase_mesh_families_fsdp(smi, spawned, fam_one))
         free_memory()
         surface.update(phase_mesh_engine_fsdp(smi, spawned, eng_one))
+        free_memory()
+        surface.update(phase_mesh_ssm_tp(smi, spawned, fam_one))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

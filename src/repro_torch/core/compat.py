@@ -68,12 +68,15 @@ all-gather a tensor outside autograd (the vocab-parallel cross-entropy's
 terms, the serve steps' logits), :func:`gather_from` is FSDP's
 gather of a parameter's blocks (an all-gather forward, a reduce-scatter
 of the cotangent backward), :func:`gather_blocks` gathers each
-rank's rows of a small tensor (the MoE dispatch's per-expert counts), and
+rank's rows of a small tensor (the MoE dispatch's per-expert counts),
 :func:`all_to_all_over` re-lays a tensor's blocks from one dimension to
-another (an expert table's FFN block as its block of experts).
+another (an expert table's FFN block as its block of experts), and
+:func:`scatter_over` reduce-scatters the ranks' partial sums by blocks
+(an mLSTM block's q, k and v by heads; an all-gather backward).
 On the stacked route, whose one device holds what every rank holds,
-:func:`copy_to`, :func:`reduce_from` and :func:`gather_blocks` move
-nothing and count what the ranks would move; under a count of the step
+:func:`copy_to`, :func:`reduce_from`, :func:`gather_from` (one axis),
+:func:`scatter_over` and :func:`gather_blocks` move nothing and count
+what the ranks would move; under a count of the step
 (``core.step_analysis``), an input that a body's in_spec splits over
 ``model`` along another dimension than the parameter's own spec splits
 it is re-laid by a counted all-to-all, forward and backward, as a
@@ -592,35 +595,44 @@ class _ReduceFrom(torch.autograd.Function):
 
 
 class _Counted(torch.autograd.Function):
-    """The stacked route's :func:`copy_to` / :func:`reduce_from`: the
-    identity both ways (one device holds the sum of the ranks' partial
-    products whole), the all-reduce counted in the forward or, with
-    ``backward``, in the backward, as a process mesh's ranks run it."""
+    """The stacked route's Megatron operators and the re-lays of a block
+    split over ``model`` (:func:`copy_to`, :func:`reduce_from`,
+    :func:`gather_from`, :func:`scatter_over`): the identity both ways
+    (one device holds the whole tensor that the ranks hold blocks or
+    partial sums of), the collective of ``kind`` counted with ``nbytes``
+    in the forward and ``nbytes_bwd`` in the backward (0: none there), as
+    a process mesh's ranks run it."""
 
     @staticmethod
-    def forward(ctx, x, nbytes, backward):
-        if not backward:
-            _count("psum", nbytes)
-        ctx.nbytes = nbytes if backward else 0
+    def forward(ctx, x, kind, nbytes, nbytes_bwd):
+        if nbytes:
+            _count(kind, nbytes)
+        ctx.kind, ctx.nbytes = kind, nbytes_bwd
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.nbytes:
-            _count_backward("psum", ctx.nbytes)
-        return g, None, None
+            _count_backward(ctx.kind, ctx.nbytes)
+        return g, None, None, None
 
 
-def _counted(x, mesh, axis, share, backward):
-    """:class:`_Counted` on a stacked mesh: every device moves a ring
-    all-reduce of ``share`` of ``x`` over ``axis`` (summed over the
-    devices); nothing for an axis of one."""
+def _counted(x, mesh, axis, kind, per_rank, fwd=True, bwd=True):
+    """:class:`_Counted` on a stacked mesh: every device moves
+    ``per_rank(n)`` bytes over ``axis`` of size n (summed over the
+    devices), in the forward and (or) the backward; nothing for an axis of
+    one."""
     n = mesh.shape[axis]
     if n == 1:
         return x
-    nbytes = math.prod(mesh.sizes) * 2 * (n - 1) / n * share * x.numel() \
-        * x.element_size()
-    return _Counted.apply(x, nbytes, backward)
+    nbytes = math.prod(mesh.sizes) * per_rank(n)
+    return _Counted.apply(x, kind, nbytes if fwd else 0,
+                          nbytes if bwd else 0)
+
+
+def _ring_share(x, share):
+    """A ring all-reduce's bytes a rank, of ``share`` of ``x``."""
+    return lambda n: 2 * (n - 1) / n * share * x.numel() * x.element_size()
 
 
 def copy_to(x, mesh, axis: str = "model", share: float = 1.0):
@@ -633,7 +645,8 @@ def copy_to(x, mesh, axis: str = "model", share: float = 1.0):
     identity both ways, the backward's all-reduce counted as the ranks run
     it, each rank holding ``share`` of ``x``."""
     if not is_process_mesh(mesh):
-        return _counted(x, mesh, axis, share, backward=True)
+        return _counted(x, mesh, axis, "psum", _ring_share(x, share),
+                        fwd=False)
     if _ring(mesh, axis)[1] == 1:
         return x
     return _CopyTo.apply(x, mesh, axis)
@@ -648,7 +661,8 @@ def reduce_from(x, mesh, axis: str = "model", share: float = 1.0):
     identity both ways, the forward's all-reduce counted as the ranks run
     it, each rank holding ``share`` of ``x``."""
     if not is_process_mesh(mesh):
-        return _counted(x, mesh, axis, share, backward=False)
+        return _counted(x, mesh, axis, "psum", _ring_share(x, share),
+                        bwd=False)
     if _ring(mesh, axis)[1] == 1:
         return x
     return _ReduceFrom.apply(x, mesh, axis)
@@ -719,18 +733,68 @@ class _GatherFrom(torch.autograd.Function):
             0, dim).contiguous(), None, None, None
 
 
-def gather_from(x, mesh: ProcessMesh, axes, dim: int):
-    """Outside a body, on a process mesh: FSDP's gather of a parameter.
-    Forward, the group's blocks of ``x`` over ``axes`` (a name or a tuple,
-    the first the major one) concatenated along ``dim`` in their
-    coordinate order (:func:`gather_over`: one counted all-gather);
-    backward, the cotangent's block of each rank summed over the group
-    and left on that rank (a reduce-scatter: the all-to-all and sum of
-    :func:`all_gather`'s backward, counted as that backward counts). A
-    group of one is the identity both ways and counts nothing."""
+def gather_from(x, mesh, axes, dim: int, share: float = 1.0):
+    """Outside a body, on a process mesh: FSDP's gather of a parameter (and
+    the gather of a block's activation split over ``model``). Forward, the
+    group's blocks of ``x`` over ``axes`` (a name or a tuple, the first the
+    major one) concatenated along ``dim`` in their coordinate order
+    (:func:`gather_over`: one counted all-gather); backward, the
+    cotangent's block of each rank summed over the group and left on that
+    rank (a reduce-scatter: the all-to-all and sum of :func:`all_gather`'s
+    backward, counted as that backward counts). A group of one is the
+    identity both ways and counts nothing. On a stacked mesh (one axis):
+    ``x`` is already the gathered tensor, the identity both ways, the
+    ranks' all-gather and reduce-scatter counted, each rank holding
+    ``share`` of ``x``'s rows (its block of ``1 / n`` of them along
+    ``dim``)."""
+    if not is_process_mesh(mesh):
+        blk = share * x.numel() * x.element_size()
+        return _counted(x, mesh, axes, "all_gather",
+                        lambda n: (n - 1) * blk / n)
     if _ring(mesh, axes)[1] == 1:
         return x
     return _GatherFrom.apply(x, mesh, axes, dim)
+
+
+class _ScatterOver(torch.autograd.Function):
+    """The reduce-scatter of :func:`scatter_over` forward; the cotangent's
+    blocks all-gathered backward, counted under ``psum_scatter``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        group, n = _ring(mesh, axis)
+        ctx.ring, ctx.dim = (group, n), dim
+        blocks = x.movedim(dim, 0)
+        blocks = blocks.reshape((n, blocks.shape[0] // n) + blocks.shape[1:])
+        _count("psum_scatter", (n - 1) * blocks[0].numel()
+               * blocks.element_size())
+        return _reduce_scatter(blocks, group, n).movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        (group, n), dim = ctx.ring, ctx.dim
+        _count_backward("psum_scatter", (n - 1) * g.numel() * g.element_size())
+        return torch.cat(_gather_parts(g, group, n), dim=dim), None, None, \
+            None
+
+
+def scatter_over(x, mesh, axis: str = "model", dim: int = -1,
+                 share: float = 1.0):
+    """Outside a body: ``x`` (each rank's partial sum) summed over ``axis``
+    and cut into the group's blocks along ``dim``, the rank keeping its
+    own (a reduce-scatter, counted as ``psum_scatter``: each rank sends
+    ``(n-1)/n`` of ``x``); backward, the cotangent's blocks all-gathered
+    (as many bytes). A group of one is the identity both ways and counts
+    nothing. On a stacked mesh: the identity both ways (``x`` is the sum,
+    every block of it), the two counted as the ranks run them, each rank
+    holding ``share`` of ``x``'s rows."""
+    if not is_process_mesh(mesh):
+        blk = share * x.numel() * x.element_size()
+        return _counted(x, mesh, axis, "psum_scatter",
+                        lambda n: (n - 1) * blk / n)
+    if _ring(mesh, axis)[1] == 1:
+        return x
+    return _ScatterOver.apply(x, mesh, axis, dim % x.dim())
 
 
 def _blocks_over(x, n: int, split_dim: int, concat_dim: int, group):

@@ -124,8 +124,9 @@ NOT_COUNTED = frozenset({
 # all-reduce of the cotangent: the reference's transpose of psum is psum)
 _KIND = {"psum": "all-reduce", "pmean": "all-reduce", "pmax": "all-reduce",
          "all_gather": "all-gather", "all_to_all": "all-to-all",
-         "ppermute": "collective-permute"}
-_KIND_BWD = {**_KIND, "all_gather": "reduce-scatter"}
+         "ppermute": "collective-permute", "psum_scatter": "reduce-scatter"}
+_KIND_BWD = {**_KIND, "all_gather": "reduce-scatter",
+             "psum_scatter": "all-gather"}
 
 
 def ring_bytes(kind: str, result_bytes: float, g: int) -> float:
@@ -257,6 +258,18 @@ def relaid_bytes(t, entries) -> float:
     short(f"collective: a body's input resharded from model on dimensions "
           f"{have} to {want}", MODEL_AXIS)
     return 0.0
+
+
+def untagged(t):
+    """``t`` as a view that carries no ``model`` tag in the running
+    analysis, so that no product on it derives a collective, forward or
+    backward (a block that counts its own, inside :func:`explicit`); ``t``
+    outside :func:`analyze`."""
+    if not _RUNS:
+        return t
+    v = t.view_as(t)
+    _RUNS[-1].tags.pop(v, None)
+    return v
 
 
 def check_launch(what: str):

@@ -210,6 +210,16 @@ def rms_norm(x, gamma, eps=1e-5):
     return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma.to(dt)
 
 
+def rms_norm_split(x, gamma, eps, psum, width: int):
+    """:func:`rms_norm` over a last dimension of ``width`` split over ranks:
+    ``x`` and ``gamma`` hold the rank's block of it, and ``psum`` sums the
+    ranks' fp32 sums of squares ``(..., 1)`` (an all-reduce)."""
+    dt = x.dtype
+    x32 = widen(x)
+    var = psum(x32.square().sum(dim=-1, keepdim=True)) / width
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma.to(dt)
+
+
 def activation_fn(name: str):
     """``gelu`` is the tanh approximation, the reference's default."""
     return {"silu": F.silu,

@@ -26,7 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import compat, step_analysis
 from repro_torch.core.compat import PartitionSpec, entry_axes
 from repro_torch.models.layers import (Rules, abstract_params, param_specs,
-                                       tree_map)
+                                       rms_norm, rms_norm_split, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,6 +244,121 @@ class TensorParallel:
         return self.index * local
 
 
+@dataclasses.dataclass(frozen=True)
+class InnerSplit:
+    """The model axis over a Mamba2 or mLSTM block (``models.ssm``), whose
+    rules put every ``d_inner`` leaf on it. On a tensor-parallel rank
+    (``index`` its coordinate) the rank holds each such leaf's contiguous
+    block, as the reference's rules lay it, and runs the heads
+    :meth:`part` gives; the fused projections' blocks do not line up with
+    those heads, so the block re-lays its activations with the collectives
+    below. On a stacked mesh whose model axis is above 1 (``index`` None)
+    the one device runs every head and the same collectives are counted
+    identities, each rank holding ``share`` of a batch tensor's rows, and
+    the block runs inside :meth:`scope` (``step_analysis.explicit``), so
+    that a count of the step takes what the ranks move. ``mesh`` None:
+    one device, or a stacked mesh whose model axis does not divide the
+    block's widths; every method is then the identity."""
+    mesh: object = None
+    axis: str = "model"
+    size: int = 1
+    index: Optional[int] = None
+    share: float = 1.0
+
+    def part(self, n: int) -> slice:
+        """The rank's block of ``n`` (heads, or the channels of its heads):
+        all of them off a rank."""
+        if self.index is None:
+            return slice(0, n)
+        k = n // self.size
+        return slice(self.index * k, (self.index + 1) * k)
+
+    def copy(self, x):
+        """Megatron's ``copy_to`` at a column-split product's input."""
+        return x if self.mesh is None else compat.copy_to(
+            x, self.mesh, self.axis, self.share)
+
+    def reduce(self, x):
+        """Megatron's ``reduce_from`` after a row-split product."""
+        return x if self.mesh is None else compat.reduce_from(
+            x, self.mesh, self.axis, self.share)
+
+    def gather(self, x, weight: bool = False):
+        """The ranks' column blocks of ``x`` all-gathered along its last
+        dimension (its backward reduce-scatters the cotangent);
+        ``weight``: ``x`` is a parameter, which every rank holds whatever
+        its rows of the batch."""
+        return x if self.mesh is None else compat.gather_from(
+            x, self.mesh, self.axis, -1, 1.0 if weight else self.share)
+
+    def psum(self, x):
+        """The ranks' partial sums, all-reduced both ways: the sum, of
+        which each rank reads its own part (a gate of every head, the
+        norm's sum of squares), so the cotangent is all-reduced too."""
+        return self.copy(self.reduce(x))
+
+    def scatter(self, x):
+        """The ranks' partial sums reduce-scattered by blocks of the last
+        dimension (by heads); the backward all-gathers the cotangent."""
+        return x if self.mesh is None else compat.scatter_over(
+            x, self.mesh, self.axis, -1, self.share)
+
+    def replicated(self, leaf):
+        """A leaf that the rules replicate, read in the rank's heads only:
+        its gradient all-reduced over the axis (``copy_to``)."""
+        return leaf if self.mesh is None else compat.copy_to(
+            leaf, self.mesh, self.axis)
+
+    def weight(self, leaf, dtype=None):
+        """``leaf`` (cast to ``dtype`` where given); under a count, a view
+        that derives no collective of its own (the block counts its own)."""
+        leaf = leaf if dtype is None else leaf.to(dtype)
+        return leaf if self.mesh is None else step_analysis.untagged(leaf)
+
+    def norm(self, x, gamma, eps: float, width: int):
+        """RMSNorm over the whole of a dimension of ``width`` of which ``x``
+        holds the rank's block: the float32 sum of squares all-reduced."""
+        if self.mesh is None:
+            return rms_norm(x, gamma, eps)
+        return rms_norm_split(x, gamma, eps, self.psum, width)
+
+    def scope(self):
+        return contextlib.nullcontext() if self.index is not None \
+            or self.mesh is None else step_analysis.explicit()
+
+
+def inner_widths(cfg: ArchConfig) -> dict:
+    """The widths of a Mamba2 or mLSTM block that the model axis must
+    divide for :class:`InnerSplit`: its heads, ``d_inner``, and a Mamba2
+    block's fused projection (z | x | B | C | dt) and convolution
+    channels (x | B | C)."""
+    s = cfg.ssm
+    di = s.expansion * cfg.d_model
+    if s.kind != "mamba2":
+        return {"heads": cfg.n_heads, "d_inner": di}
+    nh = di // s.head_dim
+    return {"ssm heads": nh, "d_inner": di,
+            "in_proj": 2 * di + 2 * s.state_dim + nh,
+            "conv channels": di + 2 * s.state_dim}
+
+
+def inner_split(cfg: ArchConfig, ctx: Optional[MeshCtx],
+                tp: Optional[TensorParallel]) -> InnerSplit:
+    """The :class:`InnerSplit` of ``cfg``'s mix layers: a tensor-parallel
+    rank's (``tp``); on a stacked mesh whose model axis is above 1 and
+    divides :func:`inner_widths`, the counted one (each rank holding its
+    rows of the batch); else the identity."""
+    if tp is not None:
+        return InnerSplit(tp.mesh, tp.axis, tp.size, tp.index)
+    if ctx is None or ctx.mesh is None or ctx.n_lanes == 1 \
+            or compat.is_process_mesh(ctx.mesh) or cfg.family not in (
+                "ssm", "hybrid") \
+            or any(w % ctx.n_lanes for w in inner_widths(cfg).values()):
+        return InnerSplit()
+    return InnerSplit(ctx.mesh, ctx.model_axis, ctx.n_lanes, None,
+                      ctx.n_lanes / math.prod(ctx.axis_sizes.values()))
+
+
 def around_split(ctx: Optional[MeshCtx], tp: Optional[TensorParallel],
                  share: float = 1.0) -> tuple:
     """(into, out, scope) around work that the model axis splits by its
@@ -307,23 +422,26 @@ def vocab_split(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
 
 def _tp_family(cfg: ArchConfig) -> bool:
     """Whether the tensor-parallel route over processes runs ``cfg``: the
-    dense family, and the MoE family, with GQA or MLA, whether the model
+    dense family; the MoE family, with GQA or MLA, whether the model
     axis splits its experts' FFN (``expert_parallel=False``: each expert's
     FFN split as the dense FFN) or its experts (``expert_parallel=True``:
     each rank the block of experts the reference's rules give it), on the
     one-hot dispatch or the expert-parallel route (``models.moe.
     moe_block``: there each rank runs its block of the experts, held or
-    re-laid by :func:`relay_experts`)."""
-    return cfg.family in ("dense", "moe")
+    re-laid by :func:`relay_experts`); the SSM and hybrid families, each
+    mix layer on the rank's heads (:class:`InnerSplit`), the hybrid
+    family's shared block as a dense block."""
+    return cfg.family in ("dense", "moe", "ssm", "hybrid")
 
 
 def tensor_parallel(cfg: ArchConfig,
                     ctx: Optional[MeshCtx]) -> Optional[TensorParallel]:
     """The rank's :class:`TensorParallel` where ``ctx`` holds a process mesh
-    whose model axis is above 1 and ``cfg`` is of the dense or the MoE
-    family; None otherwise (one device, the stacked route, a data-parallel
-    mesh of processes, or another family, whose forward on a process mesh
-    keeps the global parameters)."""
+    whose model axis is above 1 and ``cfg`` is of a family of
+    :func:`_tp_family`; None otherwise (one device, the stacked route, a
+    data-parallel mesh of processes, or the vision or encoder-decoder
+    family, whose forward on a process mesh keeps the global
+    parameters)."""
     if ctx is None or not compat.is_process_mesh(ctx.mesh) \
             or ctx.n_lanes == 1 or not _tp_family(cfg):
         return None
@@ -333,21 +451,25 @@ def tensor_parallel(cfg: ArchConfig,
 
 # which queue item ports each other family's tensor-parallel train step
 TP_QUEUE = {
-    "ssm": "the SSM and hybrid blocks under model over processes (ROADMAP "
-           "Queue A, A13c item 2.6)",
     "vlm": "the cross layers under model over processes (ROADMAP Queue A, "
            "A13c item 2.6)",
 }
-TP_QUEUE.update(hybrid=TP_QUEUE["ssm"], audio=TP_QUEUE["vlm"])
+TP_QUEUE.update(audio=TP_QUEUE["vlm"])
+# ... and the SSM and hybrid families' FSDP step at model > 1
+FSDP_MODEL_QUEUE = "the SSM and hybrid families under FSDP with model > 1 " \
+    "(ROADMAP Queue A, A13c item 2.6)"
 
 
 def _split_widths(cfg: ArchConfig) -> dict:
     """The widths of ``cfg``'s leaves that the model axis splits (the kv
     heads and the vocab aside): heads, the dense FFN's columns where the
-    model has dense FFNs, the experts (``expert_parallel``) or the
-    experts' FFN (else), as the reference's rules put them on ``model``,
-    and the shared experts' FFN."""
+    model has dense FFNs, the mix layers' (:func:`inner_widths`), the
+    experts (``expert_parallel``) or the experts' FFN (else), as the
+    reference's rules put them on ``model``, and the shared experts'
+    FFN."""
     out = {"heads": cfg.n_heads_padded}
+    if cfg.family in ("ssm", "hybrid"):
+        out.update(inner_widths(cfg))
     if not cfg.is_moe:
         out["ffn"] = cfg.d_ff
         return out
@@ -367,11 +489,12 @@ def check_tensor_parallel(cfg: ArchConfig, ctx: Optional[MeshCtx],
                           cache: bool = False, train: bool = False):
     """Raises ``NotImplementedError``, naming its queue item, for a layout
     that the tensor-parallel route over processes does not take: with
-    ``train`` any family but dense and MoE (``TP_QUEUE``); a leaf split
-    over model that the axis does not divide (other than the kv heads,
-    which a rank then reads whole, and the vocab, which it then holds
-    whole); with ``cache`` a KV cache split over ``kv_seq`` (MLA's latent
-    cache has no head axis: every rank holds it whole).
+    ``train`` the vision and encoder-decoder families (``TP_QUEUE``); a
+    leaf split over model that the axis does not divide (other than the
+    kv heads, which a rank then reads whole, and the vocab, which it then
+    holds whole; a mix layer's heads and fused widths among them); with
+    ``cache`` a KV cache split over ``kv_seq`` (MLA's latent cache has no
+    head axis: every rank holds it whole).
     Nothing off a process mesh with a model axis above 1."""
     if ctx is None or not compat.is_process_mesh(ctx.mesh) \
             or ctx.n_lanes == 1:
@@ -655,22 +778,23 @@ def serve_ctx(cfg: ArchConfig, ctx: Optional[MeshCtx]):
 
 def check_fsdp(cfg: ArchConfig, ctx: Optional[MeshCtx]):
     """Raises ``NotImplementedError``, naming its queue item, for FSDP over
-    processes that the port does not run: a family outside the
-    tensor-parallel route's (:func:`_tp_family`: the SSM, hybrid, vision
-    and encoder-decoder families) on a mesh whose model axis is above 1
-    (``TP_QUEUE``: the reference's rules split their ``d_inner`` and the
-    cross layers' heads over ``model`` there). Every family's train,
-    prefill and decode steps, and the serving engine of every family that
-    serves on one device, run FSDP over the batch axes where the model
-    axis is 1, the dense and the MoE families' at any model axis. Nothing
-    where FSDP does not apply (:func:`fsdp_split`)."""
+    processes that the port does not run: the SSM, hybrid, vision and
+    encoder-decoder families on a mesh whose model axis is above 1 (the
+    first two's mix layers gathered by FSDP beside their re-lay over
+    ``model``, :data:`FSDP_MODEL_QUEUE`; the cross layers' heads under
+    ``model``, ``TP_QUEUE``). Every family's train, prefill and decode
+    steps, and the serving engine of every family that serves on one
+    device, run FSDP over the batch axes where the model axis is 1, the
+    dense and the MoE families' at any model axis. Nothing where FSDP
+    does not apply (:func:`fsdp_split`)."""
     axes = _fsdp_axes(cfg, ctx)
     if not axes:
         return
-    if not _tp_family(cfg) and ctx.n_lanes > 1:
+    if cfg.family not in ("dense", "moe") and ctx.n_lanes > 1:
         head = f"{cfg.name} with fsdp=True over {'x'.join(axes)} on a " \
             f"process mesh"
+        queue = f"{TP_QUEUE[cfg.family]} is" if cfg.family in TP_QUEUE \
+            else f"{FSDP_MODEL_QUEUE} are"
         raise NotImplementedError(
             f"{head} with {ctx.model_axis}={ctx.n_lanes}: the {cfg.family} "
-            f"family under FSDP and the model axis; {TP_QUEUE[cfg.family]} "
-            f"is not ported")
+            f"family under FSDP and the model axis; {queue} not ported")

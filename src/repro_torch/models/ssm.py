@@ -28,13 +28,16 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import step_analysis
-from repro_torch.models.layers import P, rms_norm, widen
+from repro_torch.models.layers import P, widen
+from repro_torch.models.sharding import InnerSplit
 
 SSD_CHUNK = 64
 
 
-# under tensor parallelism a partitioner reshards the blocks' split
-# projections (permutes, gathers) where the dry run derives none
+# where the model axis does not divide a block's heads and fused widths
+# (``models.sharding.inner_widths``: xlstm-1.3b's 4 heads on 16 lanes), a
+# partitioner reshards its split projections where the dry run derives
+# none; elsewhere the block re-lays them itself (``InnerSplit``), counted
 _RESHARDED = "collective: ssm resharding under model"
 
 
@@ -159,37 +162,71 @@ def mamba2_template(cfg: ArchConfig) -> dict:
     }
 
 
-def _mamba2_split(cfg, p, x):
+def _mamba2_split(cfg, p, x, split: InnerSplit):
+    """(z, xbc, dt_pre, the conv's weight and bias) of the heads the block
+    runs (``split.part``): every head on one device or a stacked mesh; on
+    a tensor-parallel rank its heads' z, x and dt, beside B and C whole.
+    The rank's column block of the fused projection (z | x | B | C | dt) is
+    all-gathered (its backward reduce-scatters the cotangent) and sliced,
+    and so are the conv's weight and bias (x | B | C) whole."""
     s = cfg.ssm
-    d = cfg.d_model
-    di = s.expansion * d
+    di = s.expansion * cfg.d_model
     n = s.state_dim
     nh = di // s.head_dim
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * n]
-    dt_pre = zxbcdt[..., -nh:]
-    return z, xbc, dt_pre, di, n, nh
+    zxbcdt = split.gather(split.copy(x) @ split.weight(p["in_proj"], x.dtype))
+    conv_w = split.gather(split.weight(p["conv_w"]), weight=True)
+    conv_b = split.gather(split.weight(p["conv_b"]), weight=True)
+    z, xbc, dt_pre = zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n], \
+        zxbcdt[..., -nh:]
+    if split.index is None:
+        return z, xbc, dt_pre, conv_w, conv_b
+    chans = split.part(di)
+
+    def mine(t):
+        """The rank's x channels, then B and C whole (x | B | C)."""
+        return torch.cat([t[..., :di][..., chans], t[..., di:]], dim=-1)
+    return z[..., chans], mine(xbc), dt_pre[..., split.part(nh)], \
+        mine(conv_w), mine(conv_b)
 
 
-def mamba2_block(cfg: ArchConfig, p: dict, x, state: Optional[dict] = None):
+def mamba2_block(cfg: ArchConfig, p: dict, x, state: Optional[dict] = None,
+                 split: Optional[InnerSplit] = None):
     """x (B,S,d). state = {"conv": (B,W-1,conv_dim), "ssm": (B,H,N,P)} or None.
-    Returns (y, new_state or None)."""
+    Returns (y, new_state or None).
+
+    ``split`` (``models.sharding.InnerSplit``, None: one device): on a
+    tensor-parallel rank ``p`` holds its contiguous blocks of every
+    ``d_inner`` leaf, the rank runs its heads (``_mamba2_split`` re-lays
+    the fused projection and the conv onto them; ``a_log``, ``d_skip`` and
+    ``dt_bias``, replicated, are sliced to them and their gradients
+    all-reduced), its ``y`` block meets its blocks of ``norm`` (the sum of
+    squares all-reduced) and of ``out_proj``'s rows (``reduce_from``); the
+    state holds its heads (``conv``: their x channels, then B and C)."""
     s = cfg.ssm
     b, seq, _ = x.shape
-    step_analysis.short(_RESHARDED, step_analysis.MODEL_AXIS)
-    z, xbc, dt_pre, di, n, nh = _mamba2_split(cfg, p, x)
+    split = split or InnerSplit()
+    if split.mesh is None:
+        step_analysis.short(_RESHARDED, step_analysis.MODEL_AXIS)
+    di = s.expansion * cfg.d_model
+    n = s.state_dim
+    nh_all = di // s.head_dim
+    heads = split.part(nh_all)
+    nh = heads.stop - heads.start
     hd = s.head_dim
+    dl = nh * hd
+    z, xbc, dt_pre, conv_w, conv_b = _mamba2_split(cfg, p, x, split)
 
     conv_state = state["conv"] if state is not None else None
-    xbc, new_conv = causal_conv1d(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc, new_conv = causal_conv1d(xbc, conv_w, conv_b, conv_state)
     xbc = F.silu(xbc)
-    xs = xbc[..., :di].reshape(b, seq, nh, hd)
-    bmat = xbc[..., di:di + n]
-    cmat = xbc[..., di + n:]
+    xs = xbc[..., :dl].reshape(b, seq, nh, hd)
+    bmat = xbc[..., dl:dl + n]
+    cmat = xbc[..., dl + n:]
 
-    dt = F.softplus(widen(dt_pre) + widen(p["dt_bias"]))
-    a = -torch.exp(widen(p["a_log"]))
+    def per_head(key):
+        return split.replicated(p[key])[heads]
+    dt = F.softplus(widen(dt_pre) + widen(per_head("dt_bias")))
+    a = -torch.exp(widen(per_head("a_log")))
     log_decay = dt * a                                # (B,S,H)
 
     kq_shape = (b, seq, nh, n)
@@ -212,23 +249,27 @@ def mamba2_block(cfg: ArchConfig, p: dict, x, state: Optional[dict] = None):
                                               chunk=s.chunk_size)
         new_state = {"conv": new_conv, "ssm": new_ssm}
 
-    y = y + xs * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(b, seq, di)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype), new_state
+    y = y + xs * per_head("d_skip").to(x.dtype)[None, None, :, None]
+    y = y.reshape(b, seq, dl)
+    y = split.norm(y * F.silu(z), split.weight(p["norm"]),
+                   cfg.norm_eps, di)
+    return split.reduce(y @ split.weight(p["out_proj"], x.dtype)), new_state
 
 
 def mamba2_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                      device=None) -> dict:
+                      device=None, ranks: int = 1) -> dict:
     """Zero state of one Mamba2 layer; ``ssm`` is float32 (float64 for a
-    float64 ``dtype``)."""
+    float64 ``dtype``). ``ranks``: on a tensor-parallel rank of that many,
+    the state of its heads (``conv``: their x channels, then B and C
+    whole)."""
     s = cfg.ssm
     di = s.expansion * cfg.d_model
     nh = di // s.head_dim
     return {
-        "conv": torch.zeros((batch, s.conv_width - 1, di + 2 * s.state_dim),
+        "conv": torch.zeros((batch, s.conv_width - 1,
+                             di // ranks + 2 * s.state_dim),
                             dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, nh, s.state_dim, s.head_dim),
+        "ssm": torch.zeros((batch, nh // ranks, s.state_dim, s.head_dim),
                            dtype=_state_dtype(dtype), device=device),
     }
 
@@ -260,31 +301,56 @@ def mlstm_template(cfg: ArchConfig) -> dict:
     }
 
 
-def mlstm_block(cfg: ArchConfig, p: dict, x, state: Optional[dict] = None):
-    """x (B,S,d). state = {"conv", "ssm" (B,H,Nqk,Pv+1)} or None."""
+def mlstm_block(cfg: ArchConfig, p: dict, x, state: Optional[dict] = None,
+                split: Optional[InnerSplit] = None):
+    """x (B,S,d). state = {"conv", "ssm" (B,H,Nqk,Pv+1)} or None.
+
+    ``split`` (``models.sharding.InnerSplit``, None: one device): on a
+    tensor-parallel rank ``p`` holds its contiguous blocks of every
+    ``d_inner`` leaf; the up projection's column block is all-gathered and
+    the rank's blocks of ``x_in`` and ``z`` sliced from it (its conv block
+    lines up with them); the products with its row blocks of ``wq``,
+    ``wk`` and ``wv`` are partial sums, reduce-scattered by heads, those
+    with the gates' all-reduced and sliced to its heads (the gates'
+    biases, replicated, with their gradients all-reduced); the rank's
+    recurrence, norm and ``out_proj`` rows run as Mamba2's; the state
+    holds its heads and its ``x_in`` channels."""
     s = cfg.ssm
     b, seq, d = x.shape
-    step_analysis.short(_RESHARDED, step_analysis.MODEL_AXIS)
+    split = split or InnerSplit()
+    if split.mesh is None:
+        step_analysis.short(_RESHARDED, step_analysis.MODEL_AXIS)
     di = s.expansion * d
-    nh = cfg.n_heads
-    up = x @ p["up_proj"].to(x.dtype)
-    x_in, z = up[..., :di], up[..., di:]
+    nh_all = cfg.n_heads
+    heads, chans = split.part(nh_all), split.part(di)
+    nh = heads.stop - heads.start
+    dl = chans.stop - chans.start
+
+    def w(key):
+        return split.weight(p[key], x.dtype)
+    up = split.gather(split.copy(x) @ w("up_proj"))
+    x_in, z = up[..., :di][..., chans], up[..., di:][..., chans]
 
     conv_state = state["conv"] if state is not None else None
-    x_c, new_conv = causal_conv1d(x_in, p["conv_w"], p["conv_b"], conv_state)
+    x_c, new_conv = causal_conv1d(
+        x_in, split.weight(p["conv_w"]), split.weight(p["conv_b"]),
+        conv_state)
     x_c = F.silu(x_c)
 
     dqk = p["wq"].shape[1]
-    hqk, hv = dqk // nh, di // nh
-    q = (x_c @ p["wq"].to(x.dtype)).reshape(b, seq, nh, hqk)
-    k = (x_c @ p["wk"].to(x.dtype)).reshape(b, seq, nh, hqk)
-    v = (x_in @ p["wv"].to(x.dtype)).reshape(b, seq, nh, hv)
+    hqk, hv = dqk // nh_all, di // nh_all
+    q = split.scatter(x_c @ w("wq")).reshape(b, seq, nh, hqk)
+    k = split.scatter(x_c @ w("wk")).reshape(b, seq, nh, hqk)
+    v = split.scatter(x_in @ w("wv")).reshape(b, seq, nh, hv)
     # sqrt in float32, then cast to x's dtype, as the reference does
     q = q / torch.sqrt(torch.tensor(float(hqk), dtype=torch.float32,
                                     device=x.device)).to(x.dtype)
 
-    ig = x_in @ p["w_igate"].to(x.dtype) + p["b_igate"].to(x.dtype)
-    fg = x_in @ p["w_fgate"].to(x.dtype) + p["b_fgate"].to(x.dtype)
+    def gate(wk, bk):
+        return (split.psum(x_in @ w(wk))
+                + split.replicated(p[bk]).to(x.dtype))[..., heads]
+    ig = gate("w_igate", "b_igate")
+    fg = gate("w_fgate", "b_fgate")
     log_f = F.logsigmoid(widen(fg))
     i_gate = torch.sigmoid(widen(ig))
 
@@ -302,30 +368,32 @@ def mlstm_block(cfg: ArchConfig, p: dict, x, state: Optional[dict] = None):
         y_aug = ya[:, None]
         new_state = {"conv": new_conv, "ssm": new_ssm}
     else:
-        y_aug, new_ssm = chunked_linear_attention(q, k, v_aug, log_f, i_gate,
-                                                  initial_state=state["ssm"],
-                                                  chunk=s.chunk_size)
+        y_aug, new_ssm = chunked_linear_attention(
+            q, k, v_aug, log_f, i_gate, initial_state=state["ssm"],
+            chunk=s.chunk_size)
         new_state = {"conv": new_conv, "ssm": new_ssm}
 
     num = widen(y_aug[..., :hv])
     den = widen(y_aug[..., hv:])
     y = (num / torch.clamp_min(den.abs(), 1e-6)).to(x.dtype)
-    y = y.reshape(b, seq, di)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype), new_state
+    y = y.reshape(b, seq, dl)
+    y = split.norm(y * F.silu(z), split.weight(p["norm"]),
+                   cfg.norm_eps, di)
+    return split.reduce(y @ w("out_proj")), new_state
 
 
 def mlstm_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                     device=None) -> dict:
+                     device=None, ranks: int = 1) -> dict:
     """Zero state of one mLSTM layer; ``ssm`` is float32 (float64 for a
-    float64 ``dtype``)."""
+    float64 ``dtype``). ``ranks``: on a tensor-parallel rank of that many,
+    the state of its heads and its ``x_in`` channels."""
     s = cfg.ssm
     di = s.expansion * cfg.d_model
     dqk = int(di * s.qk_dim_factor)
     nh = cfg.n_heads
     return {
-        "conv": torch.zeros((batch, s.conv_width - 1, di), dtype=dtype,
-                            device=device),
-        "ssm": torch.zeros((batch, nh, dqk // nh, di // nh + 1),
+        "conv": torch.zeros((batch, s.conv_width - 1, di // ranks),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, nh // ranks, dqk // nh, di // nh + 1),
                            dtype=_state_dtype(dtype), device=device),
     }

@@ -35,8 +35,11 @@ with it (``moe.moe_block``) and MLA's prefill its lane-local one
 (``attention.set_mesh_ctx``), each on a mesh held as tensor dimensions on
 one device (``core/compat.py``); everything else is the same math with or
 without a mesh. On a mesh of processes whose ``model`` axis is above 1
-(``models.sharding.tensor_parallel``) the dense and the MoE families run
-tensor-parallel on the rank's blocks of the parameters: the lookup into
+(``models.sharding.tensor_parallel``) the dense, MoE, SSM and hybrid
+families run tensor-parallel on the rank's blocks of the parameters (a
+mix layer on its heads, its fused projections re-laid onto them on the
+activations: ``models.sharding.InnerSplit``; on a stacked mesh the same
+collectives are counted): the lookup into
 its vocab block of the embedding, masked and all-reduced; the attention
 heads (GQA's, or MLA's over the whole latent cache), the FFN columns, the
 experts or each expert's FFN columns (``moe.moe_dense_dispatch``) and the
@@ -96,10 +99,10 @@ from repro_torch.models.layers import (P, rms_norm, tree_leaves, tree_map,
 from repro_torch.models.mlp import mlp, mlp_template
 from repro_torch.models.moe import (EXPERT_TABLES, ep_route, global_tokens,
                                     moe_block, moe_template)
-from repro_torch.models.sharding import (Reused, check_fsdp,
+from repro_torch.models.sharding import (InnerSplit, Reused, check_fsdp,
                                          check_tensor_parallel, fsdp_split,
-                                         held_experts, tensor_parallel,
-                                         vocab_split)
+                                         held_experts, inner_split,
+                                         tensor_parallel, vocab_split)
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +275,16 @@ def _cross_block(cfg, p, x, memory):
     return x, None
 
 
-def mix_layer(cfg, p, x, state=None):
-    """ssm/hybrid mixing layer (mamba2 or mlstm)."""
+def mix_layer(cfg, p, x, state=None, split=None):
+    """ssm/hybrid mixing layer (mamba2 or mlstm). ``split``: the model
+    axis over the block (``models.sharding.InnerSplit``), or None."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if cfg.ssm.kind == "mamba2":
-        y, new_state = ssm_mod.mamba2_block(cfg, p["mix"], h, state)
-    else:
-        y, new_state = ssm_mod.mlstm_block(cfg, p["mix"], h, state)
+    block = ssm_mod.mamba2_block if cfg.ssm.kind == "mamba2" \
+        else ssm_mod.mlstm_block
+    split = split or InnerSplit()
+    # on a stacked mesh the block counts its own collectives
+    with split.scope():
+        y, new_state = block(cfg, p["mix"], h, state, split)
     return x + y, new_state
 
 
@@ -460,10 +466,11 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
         path too); its recurrent state is read from and written back into
         the cache in place."""
         if cache is None:
-            return run(lambda x: mix_layer(cfg, gathered(p, "layers"),
-                                           x)[0], x)
+            return run(lambda x: mix_layer(cfg, gathered(p, "layers"), x,
+                                           split=split)[0], x)
         x, new = mix_layer(cfg, gathered(p, "layers"), x,
-                           {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+                           {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
+                           split)
         cache["conv"][i].copy_(new["conv"])
         cache["ssm"][i].copy_(new["ssm"])
         return x
@@ -519,6 +526,7 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
             x, a = moe(p_i, x, layer_cache(i, kv_keys))
             aux = aux + a
     elif fam in ("ssm", "hybrid"):
+        split = inner_split(cfg, mesh_ctx, tp)
         if fam == "hybrid":
             # under FSDP the shared block is gathered at its first use and
             # that copy read by every group (``Reused``)
@@ -753,7 +761,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     ``ssm`` and ``memory`` are float32 whatever ``cache_dtype`` is, as in
     the reference — float64 for a float64 cache, the port's convention.
     ``ctx``: on a tensor-parallel rank (``models.sharding.
-    tensor_parallel``) ``k``/``v`` hold its block of the kv heads."""
+    tensor_parallel``) ``k``/``v`` and ``attn_k``/``attn_v`` hold its
+    block of the kv heads, ``ssm`` its heads, and ``conv`` its block of
+    ``d_inner`` (ssm) or its heads' x channels beside B and C whole
+    (hybrid: the reference's spec cuts the contiguous ``d_inner + 2N``,
+    ROADMAP Queue C)."""
     check_tensor_parallel(cfg, ctx, cache=True)
     tp = tensor_parallel(cfg, ctx)
     device = resolve_device(device)
@@ -790,7 +802,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         raise ValueError(fam)
     init_state = ssm_mod.mlstm_init_state if fam == "ssm" \
         else ssm_mod.mamba2_init_state
-    one = init_state(cfg, batch, dtype=dt, device="meta")
+    one = init_state(cfg, batch, dtype=dt, device="meta",
+                     ranks=1 if tp is None else tp.size)
     for key in ("conv", "ssm"):
         c[key] = zeros((cfg.n_layers,) + tuple(one[key].shape),
                        one[key].dtype)

@@ -187,7 +187,8 @@ class ServingEngine:
     as tensor dimensions on ``device``, or a mesh of processes), passed to
     every prefill and decode step. On a process mesh whose model axis is
     above 1, ``params`` are the rank's blocks (``models.sharding.
-    shard_params``), the KV pool holds its kv heads, and every rank runs
+    shard_params``), the KV pool holds its kv heads (an SSM or hybrid
+    model's pool its heads' states), and every rank runs
     the same scheduler on the same requests: each emits the same tokens
     (the same generator seed draws the same noise). Under FSDP over a
     process mesh (``cfg.fsdp`` with batch axes above 1; every family that

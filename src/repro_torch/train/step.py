@@ -62,9 +62,14 @@ the batch axes, each rank keeping its block of every global
 micro-batch), so that each strip's dispatch group, capacities,
 expert-parallel lanes and aux loss are the one-device micro-batch's; a
 micro-batch whose rows the batch axes do not split raises
-``ValueError``. The SSM, hybrid, vision and encoder-decoder families at
-``model > 1``, with or without FSDP, raise ``NotImplementedError``
-naming their queue item (2.6).
+``ValueError``. The SSM and hybrid families (``fsdp=False``) train
+tensor-parallel at ``model > 1`` too, in micro-batches on the dense
+family's contiguous strips: each rank holds its blocks of every
+``d_inner`` leaf and runs its heads, re-laying the fused projections on
+the activations (``models.sharding.InnerSplit``). The vision and
+encoder-decoder families at ``model > 1``, and those four families under
+FSDP with ``model > 1``, raise ``NotImplementedError`` naming their queue
+item (2.6).
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
@@ -75,9 +80,11 @@ rank's blocks and a cache of its kv heads (MLA: the latent cache whole;
 a GQA cache the reference splits over ``kv_seq`` raises; a MoE
 model's layers on the expert-parallel route at or above the gate), and
 the returned logits are gathered whole
-(``models.transformer.last_logits``). Under FSDP each rank serves its
-rows of the batch (the batch axes are its own, as in training: a MoE
-model's one dispatch group spans the ranks) with a cache of those rows,
+(``models.transformer.last_logits``); an SSM or hybrid model's cache
+holds its heads' states (``models.transformer.init_cache``). Under FSDP
+each rank serves its rows of the batch (the batch axes are its own, as in
+training: a MoE model's one dispatch group spans the ranks) with a cache
+of those rows,
 its weights gathered a layer at a time, and the returned logits are the
 global batch's.
 """
@@ -127,7 +134,10 @@ def batch_pspecs(cfg: ArchConfig, shape_kind: str, ctx: MeshCtx) -> dict:
 
 
 def cache_pspecs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
-    """PartitionSpecs matching init_cache's tree."""
+    """PartitionSpecs matching init_cache's tree, the reference's. On a
+    tensor-parallel rank of the hybrid family the port's ``conv`` state
+    holds its heads' x channels, then B and C whole, not the contiguous
+    block this spec cuts (ROADMAP Queue C)."""
     rules = kv_cache_rules(cfg, ctx)
     b = PS(tuple(ctx.batch_axes))
 
@@ -226,16 +236,19 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
 
 def _check_process_route(cfg: ArchConfig, ctx: MeshCtx):
     """What the process route trains: the data-parallel step of every
-    family; the dense and the MoE families' tensor-parallel step
+    family; the dense, MoE, SSM and hybrid families' tensor-parallel step
     (``model > 1``; MLA's heads, the experts or their FFN split over it,
-    on the one-hot dispatch or the expert-parallel route); every family's
+    on the one-hot dispatch or the expert-parallel route; the mix layers'
+    ``d_inner`` and heads, ``models.sharding.InnerSplit``); every family's
     FSDP step (``fsdp=True``; every embed, q_lora and kv_lora dimension
     over the batch axes too), the SSM, hybrid, vision and encoder-decoder
     families' on a model axis of 1; each in micro-batches too (a MoE
     model's re-laid micro-major, :func:`micro_major`, which raises
     ``ValueError`` where the batch axes do not split a micro-batch's
     rows). Anything else raises ``NotImplementedError`` naming its queue
-    item (those four families at ``model > 1``: item 2.6)."""
+    item (item 2.6: the vision and encoder-decoder families at ``model >
+    1``, and those four families under FSDP there; a head count that the
+    model axis does not divide)."""
     check_fsdp(cfg, ctx)
     check_tensor_parallel(cfg, ctx, train=True)
 

@@ -9,7 +9,7 @@
   bytes of the train step within 1e-4 on (4,1), (1,4) and (2,2), and FSDP
   at (4,1) and (2,2) pinned at its measured ratio (ROADMAP Queue C);
   every kind of step that the dry run counts on a mesh (``CELLS``: prefill,
-  decode, the MoE, MLA and hybrid train steps, the hybrid family under
+  decode, the MoE, MLA, SSM and hybrid train steps, the hybrid family under
   FSDP, and the expert-parallel
   route at a gate lowered in both packages, ``GATES``, whose all-to-alls
   agree exactly), each within 1 % or pinned
@@ -93,6 +93,9 @@ CELLS = {
     "granite-moe-3b-a800m train 2x2": ("granite-moe-3b-a800m", "train", 2, 2),
     "zamba2-7b train 4x1": ("zamba2-7b", "train", 4, 1),
     "zamba2-7b train 1x4": ("zamba2-7b", "train", 1, 4),
+    # the mLSTM blocks under model: the cell whose ranks
+    # tests/test_torch_ssm_processes.py runs (there at 8 x 32)
+    "xlstm-1.3b train 1x4": ("xlstm-1.3b", "train", 1, 4),
     # the hybrid family under FSDP: the cell whose ranks
     # tests/test_torch_processes.py runs (there at 4 layers)
     "zamba2-7b train 4x1 fsdp": ("zamba2-7b", "train", 4, 1,
@@ -257,15 +260,30 @@ COLL_PINNED = {
         "step, at 2 layers (one group) and at 4 (two) alike, where the "
         "port gathers it once in the forward and once for the backward"),
     "zamba2-7b train 1x4": (
-        0.56073, 0.95547,
-        "the reference reshards the Mamba2 blocks' split projections under "
-        "model: collective-permutes of 1,228,800 and all-gathers of "
-        "516,528; the port all-reduces over model the gradients of "
-        "a_log, d_skip and dt_bias, replicated leaves applied to the "
-        "per-head activations (0.55900 / 0.95253 while the norms' "
-        "gradients were all-reduced over model too and the "
-        "cross-entropy's vocab reductions were not derived; 0.56066 / "
-        "0.95535 while no replicated leaf's gradient was)"),
+        0.97290, 0.96043,
+        "the port's ranks re-lay each Mamba2 block onto their heads "
+        "themselves: the fused projection (z | x | B | C | dt) and the "
+        "conv's weights all-gathered over model and their cotangents "
+        "reduce-scattered (864,480 bytes a device each way), the norm's "
+        "sum of squares all-reduced both ways, the replicated a_log, "
+        "d_skip and dt_bias sliced to the rank's heads and their "
+        "gradients all-reduced; the reference's partitioner moves "
+        "collective-permutes of 1,228,800 and all-gathers of 516,528 "
+        "instead, and all-reduces 98,112 more (0.56073 / 0.95547 while "
+        "the count derived Megatron's all-reduces from the split "
+        "projections and no re-lay, the term then known short)"),
+    "xlstm-1.3b train 1x4": (
+        0.80912, 0.46030,
+        "the port's ranks all-gather the up projection's column blocks "
+        "and reduce-scatter its cotangent, reduce-scatter the partial "
+        "products with wq, wk and wv by heads and all-gather their "
+        "cotangents (1,572,864 bytes a device of each kind), and "
+        "all-reduce the gates, the norm's sum of squares and the gate "
+        "biases' gradients (1,299,552 in all with the tensor-parallel "
+        "all-reduces); the reference's partitioner all-reduces 2,823,252 "
+        "(the q, k and v partial sums whole), collective-permutes "
+        "1,441,792, all-gathers 1,204,368 and moves 24,576 by "
+        "all-to-all"),
 }
 # the terms each cell's count is known short of (``count_short``)
 _MOE = ["collective: moe one-hot dispatch resharded",
@@ -282,7 +300,6 @@ SHORT = {
     "granite-moe-3b-a800m train 1x4": _MOE,
     "granite-moe-3b-a800m train 2x2": _MOE,
     "granite-moe-3b-a800m train 2x2 accum2": _MOE,
-    "zamba2-7b train 1x4": ["collective: ssm resharding under model"],
     "zamba2-7b train 4x1 fsdp": ["collective: fsdp"],
     "4x1 fsdp": ["collective: fsdp"],
     "2x2 fsdp": ["collective: fsdp"],

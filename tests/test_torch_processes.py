@@ -254,9 +254,10 @@ def test_gradient_all_reduce_bytes_equal_the_dry_runs_count(res):
 
 
 def test_what_the_process_route_refuses(res):
-    """A wrong world size, the SSM and cross families and heads the model
-    axis does not divide at model > 1, a KV cache split over kv_seq, a MoE
-    step in micro-batches whose rows the data ranks do not split, FSDP of
+    """A wrong world size, the cross families and heads the model axis
+    does not divide at model > 1 (a dense and an SSM config), a KV cache
+    split over kv_seq, a MoE step in micro-batches whose rows the data
+    ranks do not split, FSDP of
     the hybrid and vision families at model > 1 (of zamba2-7b's serving
     engine too), the serving engine's slots that FSDP's data ranks do not
     split, a collective outside a body, and device "cuda" on the gloo
@@ -327,12 +328,13 @@ def test_tensor_parallel_engine_emits_the_same_tokens_on_every_rank(res):
 
 
 @pytest.mark.parametrize("key", ["tp_vlm", "tp_audio", "tp_odd",
-                                 "tp_ssm", "tp_kv_seq"])
+                                 "tp_ssm_odd", "tp_kv_seq"])
 def test_tensor_parallel_refusals_name_their_queue_item(res, key):
     """On model > 1: llama-3.2-vision-11b's and seamless-m4t-medium's
     cross layers on (1,4), a dense config whose 6 heads 4 ranks do not
-    divide, SSM configs, and a KV cache that the reference splits over
-    kv_seq, each a NotImplementedError naming its queue item (2.6)."""
+    divide, a reduced xlstm-1.3b whose 2 mLSTM heads they do not divide,
+    and a KV cache that the reference splits over kv_seq, each a
+    NotImplementedError naming its queue item (2.6)."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2." in got, got

@@ -180,6 +180,18 @@ ENGINE_AUDIT = dict(slot=3, tick=3, by=3)
 # that ran the reference
 REFERENCE_ENGINE = "reference_engine.pt"
 ENGINE_CASES = ("engine_fsdp",)
+# the SSM and hybrid blocks under the model axis over processes
+# (``case_ssm_tp``, its own spawn in tests/test_torch_ssm_processes.py):
+# reduced xlstm-1.3b and zamba2-7b in float64 with fsdp=False, one train
+# step on each of these meshes and one in ``MICRO`` micro-batches, against
+# the one-device step; the serve steps (8 prompts of 16 tokens, 2 decode
+# steps) and the engine (``ENGINE``, in float32) on (1,4)
+SSM_TP = dict(archs=("xlstm-1.3b", "zamba2-7b"), meshes=((1, 4), (2, 2)),
+              accum=(2, 2), serve=(1, 4), prompt=16)
+SSM_TP_CASES = ("ssm_tp",)
+# the reference's init of each of ``SSM_TP["archs"]`` (numpy trees by
+# arch), written into the spawn's directory by the caller
+REFERENCE_SSM = "reference_ssm.pt"
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "held", "dp_train", "tp_train", "tp_serve",
          "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "mla_fsdp",
@@ -2196,15 +2208,15 @@ def case_refusals(rank, meshes, out_dir):
             out[name] = None
     text("world", ValueError, lambda: make_process_mesh(3, 1, device="cpu"))
     cfg = reduced(get_config("tinyllama-1.1b"))
-    text("tp_ssm", NotImplementedError, lambda: tstep.make_train_step(
-        reduced(get_config("zamba2-7b"), fsdp=False), adamw.OptConfig(),
-        MeshCtx(mesh=meshes[2, 2])))
-    # the cross families under model (item 2.6), and a dense config
-    # whose heads the model axis does not divide
+    # the cross families under model (item 2.6), a dense config whose
+    # heads the model axis does not divide, and an SSM config whose mLSTM
+    # heads it does not divide
     for name, acfg in (("tp_vlm", reduced(get_config(
             "llama-3.2-vision-11b"))), ("tp_audio", reduced(get_config(
                 "seamless-m4t-medium"))), ("tp_odd", dataclasses.replace(
-                    cfg, n_heads=6, n_kv_heads=2))):
+                    cfg, n_heads=6, n_kv_heads=2)), ("tp_ssm_odd", reduced(
+                        get_config("xlstm-1.3b"), n_heads=2,
+                        n_kv_heads=2))):
         text(name, NotImplementedError,
              lambda acfg=acfg: tstep.make_train_step(
                  acfg, adamw.OptConfig(), MeshCtx(mesh=meshes[1, 4])))
@@ -2239,6 +2251,233 @@ def case_refusals(rank, meshes, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# the SSM and hybrid blocks under the model axis over processes
+# ---------------------------------------------------------------------------
+
+
+def ssm_tp_cfg(arch, dtype="float64", **kw):
+    """Reduced ``arch`` (xlstm-1.3b or zamba2-7b, the latter at 4 layers:
+    two groups read its shared block) with ``fsdp=False`` in ``dtype``."""
+    if arch == "zamba2-7b":
+        kw = {"n_layers": 4, **kw}
+    return reduced(get_config(arch), fsdp=False, param_dtype=dtype,
+                   compute_dtype=dtype, **kw)
+
+
+def ssm_tp_batch(cfg, batch=DP["global_batch"]) -> dict:
+    """The global batch of the SSM cases, from a seed."""
+    r = np.random.RandomState(37)
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size,
+                                      size=(batch, DP["seq_len"])))
+    return {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+
+def ssm_tp_params(cfg, out_dir):
+    """The whole parameters of ``cfg``: the reference's init, converted
+    from the numpy tree the caller wrote (``REFERENCE_SSM``), else the
+    seeded init."""
+    path = os.path.join(out_dir, REFERENCE_SSM)
+    if os.path.exists(path):
+        tree = torch.load(path, weights_only=False)[cfg.name]
+        return tree_map(lambda t: t.to(torch_dtype(cfg.param_dtype)),
+                        convert.params_from_numpy(tree, device="cpu"))
+    return init_params(ttf.model_template(cfg),
+                       torch.Generator().manual_seed(0),
+                       dtype=torch_dtype(cfg.param_dtype), device="cpu")
+
+
+def ssm_tp_opt():
+    return adamw.OptConfig(peak_lr=1e-2, warmup_steps=1,
+                           decay_steps=DP["steps"])
+
+
+def _ssm_step(cfg, params, mesh, grad_accum=1):
+    """One train step of ``cfg`` from ``params`` on ``mesh`` (the rank's
+    blocks, its rows of :func:`ssm_tp_batch`), or on one device where
+    ``mesh`` is None: the metrics, the global parameters after it, and the
+    collectives (forward, backward) on the ranks."""
+    opt, batch = ssm_tp_opt(), ssm_tp_batch(cfg)
+    params = _detach(params)
+    if mesh is None:
+        step = tstep.make_train_step(cfg, opt, grad_accum=grad_accum)
+        state, m = step.step_fn({"params": params,
+                                 "opt": adamw.init(opt, params)}, batch)
+        return {"metrics": {k: float(v) for k, v in m.items()},
+                "params": state["params"]}
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    step = tstep.make_train_step(cfg, opt, ctx, grad_accum=grad_accum)
+    specs = tstep.sanitize_specs(tstep.train_state_specs(cfg, ctx)["params"],
+                                 params, mesh)
+    blocks = shard_params(params, specs, mesh)
+    rows = batch["tokens"].shape[0] // mesh.shape["data"]
+    mine = slice(mesh.coord("data") * rows, (mesh.coord("data") + 1) * rows)
+    compat.reset_counts()
+    state, m = step.step_fn({"params": blocks, "opt": adamw.init(opt, blocks)},
+                            {k: v[mine] for k, v in batch.items()})
+    counts = _counts(mesh)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "params": gather_params(state["params"], specs, mesh),
+            "counts": counts,
+            "blocks": [tuple(t.shape) for t in tree_leaves(blocks)]}
+
+
+def _ssm_serve(cfg, params, mesh):
+    """``cfg`` served on ``mesh`` (None: one device) from ``params``: the
+    prefill of ``TP_SERVE``'s prompts (16 tokens) and 2 decode steps, each
+    step's logits and collectives, and the cache after the last."""
+    ctx = None
+    if mesh is not None:
+        ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+        params = shard_params(params, tstep.train_state_specs(cfg, ctx)[
+            "params"], mesh)
+    r = np.random.RandomState(7)
+    b, s, n = TP_SERVE["batch"], SSM_TP["prompt"], TP_SERVE["steps"]
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, s)))
+    steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, 1)))
+             for _ in range(n)]
+    outs, counts = [], []
+    dt = torch_dtype(cfg.compute_dtype)
+    with torch.no_grad():
+        compat.reset_counts()
+        logits, cache = tstep.make_prefill_step(cfg, ctx, s + n,
+                                                cache_dtype=dt)(
+            params, {"tokens": toks})
+        outs.append(logits)
+        counts.append(_counts(mesh) if ctx else None)
+        dec = tstep.make_decode_step(cfg, ctx)
+        for tok in steps:
+            compat.reset_counts()
+            logits, cache = dec(params, cache, {"tokens": tok})
+            outs.append(logits)
+            counts.append(_counts(mesh) if ctx else None)
+    return outs, counts, {k: v.clone() for k, v in cache.items()}
+
+
+def ssm_state_slices(cfg, m: int, r: int) -> dict:
+    """Where rank ``r`` of ``m``'s cache lies in the one-device cache: per
+    key, the index of the one-device tensor that it holds (its heads of
+    ``ssm``, its kv heads of ``attn_k`` / ``attn_v``; of ``conv`` its block
+    of ``d_inner`` (ssm) or its heads' x channels, then B and C)."""
+    s = cfg.ssm
+    di = s.expansion * cfg.d_model
+    nh = cfg.n_heads if s.kind != "mamba2" else di // s.head_dim
+
+    def blk(n):
+        return slice(r * n // m, (r + 1) * n // m)
+    every = slice(None)
+    out = {"ssm": (every, every, blk(nh))}
+    if s.kind == "mamba2":
+        out["conv"] = (every, every, every, torch.cat([
+            torch.arange(di)[blk(di)],
+            torch.arange(di, di + 2 * s.state_dim)]))
+        out["attn_k"] = out["attn_v"] = (every, every, every,
+                                         blk(cfg.n_kv_heads))
+    else:
+        out["conv"] = (every, every, every, blk(di))
+    return out
+
+
+@contextlib.contextmanager
+def norm_without_all_reduce():
+    """A planted fault: the split norm over the rank's block of d_inner
+    alone (its sum of squares not all-reduced)."""
+    from repro_torch.models import layers, sharding
+    orig = sharding.InnerSplit.norm
+
+    def local(self, x, gamma, eps, width):
+        if self.mesh is None:
+            return orig(self, x, gamma, eps, width)
+        return layers.rms_norm(x, gamma, eps)
+    sharding.InnerSplit.norm = local
+    try:
+        yield
+    finally:
+        sharding.InnerSplit.norm = orig
+
+
+@contextlib.contextmanager
+def conv_from_the_contiguous_block():
+    """A planted fault: Mamba2's conv weights of the rank's x channels read
+    from its contiguous block of ``conv_w`` / ``conv_b`` (as if that block
+    lined up with its heads), not from the gathered weights."""
+    from repro_torch.models import ssm
+    orig = ssm._mamba2_split
+
+    def faulty(cfg, p, x, split):
+        z, xbc, dt_pre, conv_w, conv_b = orig(cfg, p, x, split)
+        dl = z.shape[-1]
+        conv_w = torch.cat([p["conv_w"][:, :dl], conv_w[:, dl:]], dim=-1)
+        conv_b = torch.cat([p["conv_b"][:dl], conv_b[dl:]], dim=-1)
+        return z, xbc, dt_pre, conv_w, conv_b
+    ssm._mamba2_split = faulty
+    try:
+        yield
+    finally:
+        ssm._mamba2_split = orig
+
+
+def case_ssm_tp(rank, meshes, out_dir):
+    """The SSM and hybrid blocks under the model axis, reduced xlstm-1.3b
+    and zamba2-7b in float64 with ``fsdp=False`` (the reference's init
+    where the caller wrote it): one train step on each mesh of
+    ``SSM_TP["meshes"]`` and one in ``MICRO`` micro-batches on
+    ``SSM_TP["accum"]`` (on rank 0 the one-device steps), the prefill and
+    decode steps on (1,4) (every rank against the one-device steps, its
+    cache against the one-device cache's slices of its heads), the
+    ``ServingEngine`` on (1,4), and the two planted faults' steps on
+    (1,4)."""
+    out = {}
+    for arch in SSM_TP["archs"]:
+        cfg = ssm_tp_cfg(arch)
+        params = ssm_tp_params(cfg, out_dir)
+        r = {}
+        for shape in SSM_TP["meshes"]:
+            r[shape] = _ssm_step(cfg, params, meshes[shape])
+        r["accum"] = _ssm_step(cfg, params, meshes[SSM_TP["accum"]],
+                               grad_accum=MICRO)
+        mesh = meshes[SSM_TP["serve"]]
+        outs, counts, cache = _ssm_serve(cfg, params, mesh)
+        one = _ssm_serve(cfg, params, None)
+        m, k = mesh.shape["model"], mesh.coord("model")
+        want = {key: one[2][key][ix] for key, ix in
+                ssm_state_slices(cfg, m, k).items()}
+        r["serve"] = {"logits": max(_err(a, b) for a, b in zip(outs, one[0])),
+                      "max_logit": max(float(b.abs().max()) for b in one[0]),
+                      "counts": counts,
+                      "states": _all_ranks({key: _err(cache[key], want[key])
+                                            for key in want})}
+        # in float32: the engine's cache is float32, and so is its state
+        eng_cfg = ssm_tp_cfg(arch, "float32")
+        eng_params = tree_map(lambda t: t.float(), params)
+
+        def engine(p, c):
+            eng = ServingEngine(eng_cfg, p, slots=ENGINE["slots"],
+                                max_seq=ENGINE["max_seq"], ctx=c,
+                                device="cpu")
+            rr = np.random.RandomState(8)
+            for uid in range(ENGINE["requests"]):
+                eng.submit(Request(uid=uid, prompt=rr.randint(
+                    0, cfg.vocab_size, size=4 + uid).astype(np.int32),
+                    max_new_tokens=ENGINE["max_new"]))
+            return {q.uid: list(q.out_tokens)
+                    for q in eng.run_to_completion()}
+        ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+        r["engine"] = _all_ranks(engine(shard_params(
+            eng_params, tstep.train_state_specs(eng_cfg, ctx)["params"],
+            mesh), ctx))
+        fault = norm_without_all_reduce() if arch == "xlstm-1.3b" \
+            else conv_from_the_contiguous_block()
+        with fault:
+            r["fault"] = _ssm_step(cfg, params, mesh)
+        if rank == 0:
+            r["one"] = _ssm_step(cfg, params, None)
+            r["one_accum"] = _ssm_step(cfg, params, None, grad_accum=MICRO)
+            r["engine_one"] = engine(eng_params, None)
+        out[arch] = r
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the checks
 # ---------------------------------------------------------------------------
 
@@ -2262,15 +2501,18 @@ def refusal_texts() -> dict:
                   "do not split over 4 ranks; a rank holding a leaf that "
                   "the model axis should split whole (ROADMAP Queue A, "
                   "A13c item 2.6)",
-        "tp_ssm": "the SSM and hybrid blocks under model over processes "
-                  "(ROADMAP Queue A, A13c item 2.6)",
+        "tp_ssm_odd": "xlstm-1.3b with model=4 on a process mesh: heads 2 "
+                      "do not split over 4 ranks; a rank holding a leaf "
+                      "that the model axis should split whole (ROADMAP "
+                      "Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
                      "A, A13c item 2.6)",
         "fsdp_hybrid_model": "zamba2-7b with fsdp=True over data on a "
                              "process mesh with model=2: the hybrid family "
                              "under FSDP and the model axis; the SSM and "
-                             "hybrid blocks under model over processes "
-                             "(ROADMAP Queue A, A13c item 2.6)",
+                             "hybrid families under FSDP with model > 1 "
+                             "(ROADMAP Queue A, A13c item 2.6) are not "
+                             "ported",
         "fsdp_vision_model": "llama-3.2-vision-11b with fsdp=True over data "
                              "on a process mesh with model=2: the vlm "
                              "family under FSDP and the model axis; the "
@@ -2282,8 +2524,9 @@ def refusal_texts() -> dict:
         "fsdp_hybrid_engine": "zamba2-7b with fsdp=True over data on a "
                               "process mesh with model=2: the hybrid family "
                               "under FSDP and the model axis; the SSM and "
-                              "hybrid blocks under model over processes "
-                              "(ROADMAP Queue A, A13c item 2.6)",
+                              "hybrid families under FSDP with model > 1 "
+                              "(ROADMAP Queue A, A13c item 2.6) are not "
+                              "ported",
         "accum_rows": "granite-moe-3b-a800m on a process mesh: "
                       "grad_accum=4 cuts the global batch's 8 rows into "
                       "micro-batches of 2 rows, which 4 data ranks do not "
@@ -2364,6 +2607,8 @@ def check(name, res) -> dict:
         return check_moe_micro(res)
     if name == "families_fsdp":
         return check_families_fsdp(res)
+    if name == "ssm_tp":
+        return check_ssm_tp(res)
     if name == "held":
         return {tag: check_held(res, tag) for tag in res}
     if name == "local_axes":
@@ -3044,6 +3289,135 @@ def check_family_reference(res, arch) -> dict:
     assert errs["grad_norm"] <= max(TOL["tp_reference"],
                                     2 * errs["one gap"]), (arch, errs, ref)
     assert errs["ranks vs one"] <= TOL["tp_f64"], (arch, errs, ref)
+    return errs
+
+
+def ssm_step_errs(got, want) -> dict:
+    """Relative gaps of a step's loss, ce and grad norm, and the largest
+    gap of its parameters, against ``want``'s."""
+    return {"metrics": _rel(got["metrics"], want["metrics"],
+                            ("loss", "ce", "grad_norm", "lr")),
+            "params": max(_err(a, b) for a, b in zip(
+                tree_leaves(got["params"]), tree_leaves(want["params"])))}
+
+
+def check_ssm_step(res, arch, tag) -> dict:
+    """``arch``'s step on mesh ``tag`` (a shape, or "accum") within
+    ``tp_f64`` of the one-device step (in as many micro-batches): the
+    metrics relative, the parameters after it absolute; the rank's blocks
+    of the reference's shard shapes."""
+    r = res[arch]
+    cfg = ssm_tp_cfg(arch)
+    got, want = r[tag], r["one_accum" if tag == "accum" else "one"]
+    errs = ssm_step_errs(got, want)
+    assert max(errs.values()) <= TOL["tp_f64"], (arch, tag, errs)
+    shape = SSM_TP["accum"] if tag == "accum" else tag
+    mesh = Mesh(("data", "model"), shape)
+    tmpl = ttf.model_template(cfg)
+    from repro_torch.models.layers import abstract_params, param_specs
+    from repro_torch.models.sharding import make_rules, sanitize_specs
+    aparams = abstract_params(tmpl)
+    specs = sanitize_specs(param_specs(tmpl, make_rules(
+        cfg, MeshCtx(mesh=mesh))), aparams, mesh)
+    want_shapes = [NamedSharding(mesh, sp).shard_shape(t.shape)
+                   for sp, t in zip(tree_leaves(specs),
+                                    tree_leaves(aparams))]
+    assert got["blocks"] == want_shapes, (arch, tag)
+    return errs
+
+
+def ssm_extra(d: int, m: int, itemsize: int = 8) -> int:
+    """The train step's all-reduce bytes, summed over the ranks, that the
+    dry run does not count: the grad norm's scalar over model and the
+    loss metrics' mean over data (loss, ce and aux)."""
+    return norm_bytes(d, m, itemsize) \
+        + d * m * int(round(2 * (d - 1) / d * 3 * itemsize))
+
+
+def check_ssm_bytes(res, arch, tag, count=_dry_count) -> dict:
+    """The bytes by kind of ``arch``'s step on ``tag``, summed over the
+    ranks, equal to the dry run's count of the cell times the ranks (the
+    all-reduces less :func:`ssm_extra`), kind by kind: the fused
+    activation's all-gather and its reduce-scatter, the conv gathers, the
+    norm's and the gates' all-reduces, mLSTM's reduce-scatters, the
+    replicated leaves' gradient all-reduces and the tensor-parallel and
+    data-parallel all-reduces."""
+    from repro_torch.launch.mesh import make_mesh
+    d, m = SSM_TP["accum"] if tag == "accum" else tag
+    cfg = ssm_tp_cfg(arch)
+    st = count(cfg, tp_train_shape(), make_mesh(d, m),
+               grad_accum=MICRO if tag == "accum" else 1)
+    got = by_kind(res[arch][tag]["counts"])
+    got["all-reduce"] -= ssm_extra(d, m)
+    want = {k: d * m * v for k, v in st.collective_by_kind.items()}
+    assert set(got) == set(want) and all(
+        abs(got[k] - want[k]) <= d * m for k in got), (arch, tag, got, want)
+    assert not st.count_short, st.count_short
+    return got
+
+
+def check_ssm_serve(res, arch, count=_dry_count) -> dict:
+    """The prefill's and 2 decode steps' logits, whole on every rank,
+    within ``tp_f64`` of the one-device steps' (absolute); every rank's
+    cache within it of the one-device cache's slices of its heads
+    (:func:`ssm_state_slices`); each step's bytes by kind, summed over the
+    ranks, the dry run's count of the serve step times the ranks and the
+    last logits' gather over model. The dry run counts the float32 twin
+    (its serve step's bfloat16 cache keeps a float32 state, which a
+    float64 step cannot read), twice over: every collective of the step
+    moves the compute dtype (or the parameters' and the norm's
+    statistics', which are that dtype here)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    r = res[arch]["serve"]
+    cfg = ssm_tp_cfg(arch)
+    errs = {"logits": r["logits"],
+            "states": max(max(e.values()) for e in r["states"])}
+    assert max(errs.values()) <= TOL["tp_f64"], (arch, errs, r["states"])
+    d, m = SSM_TP["serve"]
+    b, s = TP_SERVE["batch"], SSM_TP["prompt"]
+    gathered = m * (m - 1) * b * (cfg.vocab_size // m) * 8
+    for i, c in enumerate(r["counts"]):
+        kind = "prefill" if i == 0 else "decode"
+        st = count(ssm_tp_cfg(arch, "float32"), ShapeConfig(kind, s, b, kind),
+                   make_mesh(d, m))
+        want = {k: 2 * m * v for k, v in st.collective_by_kind.items()}
+        want["all-gather"] = want.get("all-gather", 0) + gathered
+        got = by_kind(c)
+        assert set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= m for k in got), (arch, i, got, want)
+    return errs
+
+
+def check_ssm_engine(res, arch):
+    """The engine's tokens equal on every rank and to the one-device
+    engine's, every request finished."""
+    r = res[arch]
+    assert all(e == r["engine"][0] for e in r["engine"]) \
+        and r["engine"][0] == r["engine_one"] \
+        and len(r["engine_one"]) == ENGINE["requests"], (
+            r["engine"], r["engine_one"])
+
+
+def check_ssm_fault(res, arch) -> dict:
+    """The planted fault's step (xlstm-1.3b's norm without its all-reduce,
+    zamba2-7b's conv weights from the contiguous block) on (1,4) fails the
+    parity that the step holds: its loss or parameters beyond ``tp_f64``
+    of the one-device step's."""
+    errs = ssm_step_errs(res[arch]["fault"], res[arch]["one"])
+    assert max(errs.values()) > 1e3 * TOL["tp_f64"], (arch, errs)
+    return errs
+
+
+def check_ssm_tp(res, count=_dry_count) -> dict:
+    errs = {}
+    for arch in SSM_TP["archs"]:
+        for tag in SSM_TP["meshes"] + ("accum",):
+            errs[f"{arch} {tag}"] = check_ssm_step(res, arch, tag)
+            check_ssm_bytes(res, arch, tag, count)
+        errs[f"{arch} serve"] = check_ssm_serve(res, arch, count)
+        check_ssm_engine(res, arch)
+        errs[f"{arch} fault"] = check_ssm_fault(res, arch)
     return errs
 
 
