@@ -439,11 +439,11 @@ non-zero and prints no result. Phases, one JSON line each:
                ``count_step``'s (FSDP's gathers once a micro-batch),
                B3-B5 2 / 2 / 2 a rank-step at 1 x 64 rows x heads and
                1024 tokens, held against their plain versions there.
-               Phases 39-46 share their spawn
+               Phases 39-47 share their spawn
                (``run_card_ranks``): one world of 4 ranks that runs (1,
                4), both FSDP meshes, both MoE meshes, the MLA mesh, the
-               MoE FSDP mesh, phase 44's (4, 1) and phase 46's (1, 4) in
-               turn.
+               MoE FSDP mesh, phase 44's (4, 1), phase 46's (1, 4) and
+               phase 47's (1, 4) and (2, 2) in turn.
 44. ``mesh_families_fsdp`` the SSM, hybrid, vision and encoder-decoder
                families under FSDP on (4, 1) ranks sharing the card:
                xlstm-1.3b (1 layer), zamba2-7b (2 layers, the shared block
@@ -477,8 +477,8 @@ non-zero and prints no result. Phases, one JSON line each:
                alive between steps. Recorded: peak GB a rank, ms a
                prefill and a decode step (host clock).
 46. ``mesh_ssm_tp`` the SSM and hybrid blocks under the model axis on
-               (1, 4) ranks sharing the card, the last job of the one
-               world of 4: xlstm-1.3b and zamba2-7b at phase 44's cut,
+               (1, 4) ranks sharing the card, a job of the one world of
+               4: xlstm-1.3b and zamba2-7b at phase 44's cut,
                full width, ``fsdp=False``, one step at 4 x 2048, each
                rank its blocks of every ``d_inner`` leaf as the
                reference's rules lay them and its heads (the fused
@@ -494,6 +494,26 @@ non-zero and prints no result. Phases, one JSON line each:
                prefill (4 x 64) and one decode step against the float64
                witness and ``count_step``'s bytes; ms a step, a prefill
                and a decode and peak GB a rank.
+47. ``mesh_cross_tp`` the vision and encoder-decoder cross layers under the
+               model axis, the last two jobs of the one world of 4:
+               llama-3.2-vision-11b (1 self + 1 cross layer) on (1, 4)
+               and seamless-m4t-medium (1 encoder + 1 decoder layer) on
+               (2, 2), whose vocab of 256,206 4 ranks do not divide,
+               full width, ``fsdp=False``, one step at 4 x 2048 and a
+               second timed only, each rank its heads, kv heads and FFN
+               columns of every layer (the cross layers' too, the tanh
+               gate after the all-reduce; the encoder's output whole on
+               every rank), as phase 46 holds its models: loss and ce
+               against phase 44's one-device steps, a float64 witness at
+               2 x 1024 against one device's, the bytes by kind against
+               ``count_step``'s, B3-B5 at the rank's geometries (the
+               vision model's 4 x 8 of 32 heads at (2048, 2048, 128)
+               causal and (2048, 1600, 128) non-causal; the audio model's
+               2 x 8 of 16 heads) against their plain versions there, and
+               a float32 prefill (4 x 64, the frontend's embeddings) and
+               one decode step against one device's float64 logits and
+               ``count_step``'s bytes; ms a step, a prefill and a decode
+               and peak GB a rank.
 
 Then one line ``{"kernels": [...]}`` (one row per TPU kernel: launch counts
 of the serving phases 5, 6, 11, 15, 17 and 20 for the matmul kernels, of
@@ -505,12 +525,13 @@ in ``launches_by_path``, keyed ``quickstart <arch>``, ``kernel_bench``,
 ``multiprecision``, ``attention_long rows`` and ``attention_long gate
 1`` / ``2`` / ``4``, phases 33 and 35's ``mesh_pipeline`` and
 ``mesh_train``, phase 37's counted step, ``dryrun``, phase 38's
-NCCL step summed over its ranks, ``mesh_processes``, and phases 39-46's
+NCCL step summed over its ranks, ``mesh_processes``, and phases 39-47's
 steps summed over their ranks, ``mesh_tensor_parallel (1, m)``,
 ``mesh_fsdp (d, m)``, ``mesh_moe (d, m)``, ``mesh_moe_ep (2, 2)``,
 ``mesh_mla (1, 4)``, ``mesh_mla_fsdp (2, 2)``, ``mesh_mla_fsdp_ep (2,
 2)``, phase 44's ``mesh_families_fsdp <arch>``, phase 45's
-``mesh_engine_fsdp <arch>`` and phase 46's ``mesh_ssm_tp <arch>``; error,
+``mesh_engine_fsdp <arch>``, phase 46's ``mesh_ssm_tp <arch>`` and phase
+47's ``mesh_cross_tp <arch>``; error,
 times and bound per
 kernel), one line with the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -5504,7 +5525,8 @@ def _card_rank(rank, world, store, jobs, one_path):
     "mla_fsdp" phases 42-43's (:func:`_mla_job`), "fsdp_families" phase
     44's (:func:`_families_job`, which reads the one-device record's
     ``FAMILY_ONE_FILE`` beside ``out_path``), "ssm_tp" phase 46's
-    (:func:`_ssm_tp_job`, which reads it too); after the job that holds a
+    (:func:`_ssm_tp_job`, which reads it too), "cross_tp" phase 47's
+    (:func:`_cross_tp_job`, the model of its mesh); after the job that holds a
     model of ``ENGINE_FSDP_CARD``, phase 45's engine of it
     (:func:`_engine_fsdp_job`, under ``"engine"``). Rank 0 writes
     each job's results, with the seconds it took, to its ``out_path``. One
@@ -5523,6 +5545,8 @@ def _card_rank(rank, world, store, jobs, one_path):
             out = _families_job(mesh, out_path)
         elif kind == "ssm_tp":
             out = _ssm_tp_job(mesh, out_path)
+        elif kind == "cross_tp":
+            out = _cross_tp_job(mesh, out_path)
         elif kind == "moe":
             out = _moe_job(mesh)
         elif kind in ("mla", "mla_fsdp"):
@@ -5546,14 +5570,15 @@ def _card_rank(rank, world, store, jobs, one_path):
     dist.destroy_process_group()
 
 
-# the jobs of phases 39-44 and 46 by world size (phase 45's engines run at
-# the end of three of them, ``ENGINE_FSDP_CARD``): each world's ranks are
-# spawned once and run its jobs in this order (one world of 4 since phase
-# 44: the (1, 2) job of phase 39 and its spawn are cut)
+# the jobs of phases 39-44, 46 and 47 by world size (phase 45's engines run
+# at the end of three of them, ``ENGINE_FSDP_CARD``): each world's ranks
+# are spawned once and run its jobs in this order (one world of 4 since
+# phase 44: the (1, 2) job of phase 39 and its spawn are cut)
 CARD_JOBS = ((4, (("tp", (1, 4)), ("fsdp", (4, 1)), ("fsdp", (2, 2)),
                   ("moe", (4, 1)), ("moe", (2, 2)), ("mla", (1, 4)),
                   ("mla_fsdp", (2, 2)), ("fsdp_families", (4, 1)),
-                  ("ssm_tp", (1, 4)))),)
+                  ("ssm_tp", (1, 4)), ("cross_tp", (1, 4)),
+                  ("cross_tp", (2, 2)))),)
 
 
 def run_card_ranks(tmp, one_path, card_jobs=CARD_JOBS) -> dict:
@@ -6833,14 +6858,16 @@ def _families_fsdp_cfgs():
 
 
 def _family_fsdp_serve(cfg, mesh=None, dtype="float32", times=None):
-    """``cfg``'s prefill of ``FAMILY_FSDP_SERVE``'s prompts (from a seed)
-    and one decode step in ``dtype`` (compute, parameters and cache; the
-    seeded float32 init, cast), from the seeded init: on ``mesh`` under
+    """``cfg``'s prefill of ``FAMILY_FSDP_SERVE``'s prompts (from a seed;
+    with the frontend's embeddings, from a seed, where the model takes
+    them) and one decode step in ``dtype`` (compute, parameters and cache;
+    the seeded float32 init, cast), from the seeded init: on ``mesh`` under
     FSDP (each data rank its prompt, the weights gathered a block at a
     time, the shared block once a step) or, with ``fsdp=False``,
-    tensor-parallel, else on one device. Returns (the last logits of each
-    step, whole, on the host; each step's collectives, summed over the
-    ranks, or None); ``times``: a list that takes each step's ms."""
+    tensor-parallel (every rank the whole batch), else on one device.
+    Returns (the last logits of each step, whole, on the host; each step's
+    collectives, summed over the ranks, or None); ``times``: a list that
+    takes each step's ms."""
     params = _family_params(cfg, 0)
     cfg = dataclasses.replace(cfg, compute_dtype=dtype, param_dtype=dtype)
     params = tree_map(lambda t: t.to(torch_dtype(dtype)), params)
@@ -6848,8 +6875,10 @@ def _family_fsdp_serve(cfg, mesh=None, dtype="float32", times=None):
     ctx = MeshCtx(mesh=mesh, batch_axes=("data",)) if mesh else None
     rows = slice(None)
     if mesh is not None:
-        n = b // mesh.shape["data"]
-        rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+        if cfg.fsdp:
+            n = b // mesh.shape["data"]
+            rows = slice(mesh.coord("data") * n,
+                         (mesh.coord("data") + 1) * n)
         params = shard_params(params, train_state_specs(cfg, ctx)["params"],
                               mesh)
         free_memory()
@@ -6858,6 +6887,12 @@ def _family_fsdp_serve(cfg, mesh=None, dtype="float32", times=None):
         rows]).to(DEV)
     nxt = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, 1))[
         rows]).to(DEV)
+    front = {}
+    if cfg.frontend_seq:
+        gen = torch.Generator(device=DEV).manual_seed(44)
+        front["frontend_emb"] = torch.randn(
+            (b, cfg.frontend_seq, cfg.frontend_dim or cfg.d_model),
+            generator=gen, device=DEV)[rows].to(torch_dtype(dtype))
 
     def counts():
         return (compat.read_counts(reduce=True),
@@ -6877,15 +6912,15 @@ def _family_fsdp_serve(cfg, mesh=None, dtype="float32", times=None):
         compat.reset_counts()
         logits, cache = timed(make_prefill_step(
             cfg, ctx, s + 1, cache_dtype=torch_dtype(dtype)), params,
-            {"tokens": toks})
+            {"tokens": toks, **front})
         outs.append(logits.cpu())
         coll.append(counts())
         compat.reset_counts()
         logits, cache = timed(make_decode_step(cfg, ctx), params, cache,
-                              {"tokens": nxt})
+                              {"tokens": nxt, **front})
         outs.append(logits.cpu())
         coll.append(counts())
-    del params, cache
+    del params, cache, front
     free_memory()
     return outs, coll
 
@@ -7427,27 +7462,32 @@ SSM_TP_MESH = (1, 4)      # (data, model): ranks on the one card
 # kernels off: the path holds them in bf16): in bf16 the full-width
 # gradients are rounding-limited (the mLSTM normaliser's most: the ranks'
 # grad norm may part from one device's by a factor), in float64 the ranks'
-# step is one device's within SSM_TP_F64_REL
+# step is one device's within SSM_TP_F64_REL. Phase 47's too: the vision
+# model's one-device float64 step holds 47.6 GB of parameters, gradients
+# and moments (1.49 G parameters) before its activations at these rows
 SSM_TP_WITNESS = (2, 1024)
 SSM_TP_F64_REL = 1e-9
 
 
-def _ssm_witness(cfg, opt, ctx=None):
+def _f64_witness(cfg, opt, ctx=None):
     """``cfg``'s float64 step (attention kernels off) at ``SSM_TP_WITNESS``
-    from the seeded init on ``ctx``'s ranks (their blocks) or on one
-    device: the metrics."""
+    from the seeded init on ``ctx``'s ranks (their blocks, each data rank
+    its rows of the batch) or on one device: the metrics."""
     cfg = dataclasses.replace(cfg, compute_dtype="float64",
                               param_dtype="float64", attn_flash="off")
     params = _family_params(cfg, 0)
+    batch = _family_batch(cfg, *SSM_TP_WITNESS, 0)
     if ctx is not None:
         params = shard_params(params, train_state_specs(cfg, ctx)["params"],
                               ctx.mesh)
+        n = SSM_TP_WITNESS[0] // ctx.mesh.shape["data"]
+        k = ctx.mesh.coord("data")
+        batch = {key: v[k * n:(k + 1) * n] for key, v in batch.items()}
     free_memory()
     state = {"params": params, "opt": adamw.init(opt, params)}
-    batch = _family_batch(cfg, *SSM_TP_WITNESS, 0)
     _, m = make_train_step(cfg, opt, ctx).step_fn(state, batch)
     out = {k: float(v) for k, v in m.items()}
-    del state, params
+    del state, params, batch
     free_memory()
     return out
 
@@ -7462,23 +7502,24 @@ def _ssm_tp_cfgs():
             if cfg.family in ("ssm", "hybrid")]
 
 
-def _ssm_tp_job(mesh, out_path):
-    """Phase 46's work on (1,4), on every rank: each config of
-    :func:`_ssm_tp_cfgs` in turn, the rank's blocks of the seeded init,
-    one train step on the seeded batch (phase 44's) with the attention
-    kernels' geometries recorded (and a second one, timed only), then
-    its float64 witness
-    (:func:`_ssm_witness`); zamba2-7b's blocks after it against the
-    same slices of the one-device result (``FAMILY_ONE_FILE`` beside
-    ``out_path``) and its serve steps (the logits saved beside
-    ``out_path``). Returns the results on rank 0, None on the others."""
+def _tp_family_job(mesh, out_path, cfgs):
+    """Phases 46-47's work on a tensor-parallel mesh, on every rank: each
+    config of ``cfgs`` in turn, the rank's blocks of the seeded init, one
+    train step on its data block of the seeded batch (phase 44's) with the
+    attention kernels' geometries recorded (and a second one, timed only),
+    then its float64 witness (:func:`_f64_witness`); zamba2-7b's blocks
+    after it against the same slices of the one-device result
+    (``FAMILY_ONE_FILE`` beside ``out_path``); the serve steps of every
+    model but xlstm-1.3b (:func:`_family_fsdp_serve`, every rank the whole
+    batch; the logits saved beside ``out_path``). Returns the results on
+    rank 0, None on the others."""
     import torch.distributed as dist
     one_path = os.path.join(os.path.dirname(out_path), FAMILY_ONE_FILE)
     ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
     n = FAMILY_FSDP_BATCH // mesh.shape["data"]
     mine = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
     out = {}
-    for cfg, opt in _ssm_tp_cfgs():
+    for cfg, opt in cfgs:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         specs = train_state_specs(cfg, ctx)["params"]
@@ -7500,6 +7541,8 @@ def _ssm_tp_job(mesh, out_path):
         counts = (compat.read_counts(reduce=True),
                   compat.read_counts(reduce=True, backward=True))
         peak = torch.cuda.max_memory_allocated()
+        state_gb = (tree_size_bytes(state["params"])
+                    + tree_size_bytes(state["opt"])) / 1e9
         gaps, serve, serve_ms = None, None, []
         if cfg.family == "hybrid":
             want = shard_params(torch.load(one_path, mmap=True,
@@ -7519,17 +7562,18 @@ def _ssm_tp_job(mesh, out_path):
         warm_s = time.perf_counter() - t1
         del state, blocks, batch, step_fn, m
         free_memory()
-        if cfg.family == "hybrid":
+        if cfg.family != "ssm":
             serve = _family_fsdp_serve(cfg, mesh, times=serve_ms)
-        witness = _ssm_witness(cfg, opt, ctx)
+        witness = _f64_witness(cfg, opt, ctx)
         geos = sorted([k, g, sq, sk, dd, str(dt)[6:], c, bq, bk]
                       for k, (g, sq, sk, dd, dt, c, bq, bk) in seen)
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, (launches, peak, geos, step_s, gaps,
-                                       serve_ms, warm_s))
+                                       serve_ms, warm_s, state_gb))
         if serve is not None and mesh.rank == 0:
-            torch.save(serve[0], out_path + ".serve.pt")
-            serve = {"path": out_path + ".serve.pt", "collectives": serve[1]}
+            path = f"{out_path}.{cfg.name}.serve.pt"
+            torch.save(serve[0], path)
+            serve = {"path": path, "collectives": serve[1]}
         out[cfg.name] = {
             "metrics": metrics, "collectives": counts, "serve": serve,
             "witness": witness,
@@ -7540,11 +7584,146 @@ def _ssm_tp_job(mesh, out_path):
             "warm_step_s_by_rank": [e[6] for e in every],
             "gaps_by_rank": [e[4] for e in every],
             "serve_ms_by_rank": [e[5] for e in every],
+            "state_gb_by_rank": [e[7] for e in every],
             "weight_decay": opt.weight_decay,
             "seconds": time.perf_counter() - t0}
     if mesh.rank != 0:
         return None
     return {"families": out, "backend": dist.get_backend()}
+
+
+def _ssm_tp_job(mesh, out_path):
+    """Phase 46's work on (1,4), on every rank: :func:`_tp_family_job` of
+    :func:`_ssm_tp_cfgs`."""
+    return _tp_family_job(mesh, out_path, _ssm_tp_cfgs())
+
+
+def _hold_tp_family(smi, phase, cfg, opt, r, want_m, one_serve, mesh_shape,
+                    cut, seed, results):
+    """Phases 46-47's checks of one model's job results ``r`` (rank 0's,
+    from :func:`_tp_family_job`) on ``mesh_shape``: loss and ce within
+    ``TP_LOSS_REL`` of the one-device step (``want_m``), the float64
+    witness within ``SSM_TP_F64_REL`` of one device's in loss, ce and grad
+    norm, B3-B5 ``train_launches`` on every rank, each held against its
+    plain version at the geometry the path launched it at (``seed`` its
+    draws), the bytes by kind, summed over the ranks, ``count_step``'s for
+    the cell times the ranks (the all-reduces less the grad norm's scalar
+    and, over data, the loss metrics' mean), zamba2-7b's blocks within
+    ``_param_bound`` of the one-device result, and the serve steps' float32
+    logits no further from the one-device float64 logits than
+    ``WITNESS_FACTOR`` times the one-device float32 logits are (plus
+    ``SERVE_SLACK``; ``one_serve``: those two by dtype), their bytes the
+    count's (times ``data``: every rank serves the whole batch, which the
+    count splits over data) beside the last logits' gather over model.
+    Emits the model's line (``phase``, with its ``checks``) and returns
+    (the names of the failed checks, the launches summed over the
+    ranks)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    pc = _process_cases()
+    d, m = mesh_shape
+    n = d * m
+    checks = {}     # what is held: True where it holds
+    rel = {k: abs(r["metrics"][k] - want_m[k]) / abs(want_m[k])
+           for k in ("loss", "ce")}
+    checks["loss"] = max(rel.values()) <= TP_LOSS_REL
+    wit_one = _f64_witness(cfg, opt)
+    rel64 = {k: abs(r["witness"][k] - wit_one[k]) / abs(wit_one[k])
+             for k in ("loss", "ce", "grad_norm")}
+    checks["float64 witness"] = max(rel64.values()) <= SSM_TP_F64_REL
+    per_step = train_launches(cfg)
+    checks["launches"] = all(x == per_step for x in r["launches_by_rank"])
+    launches = {k: sum(x[k] for x in r["launches_by_rank"])
+                for k in per_step}
+    geometries = []
+    if any(per_step.values()):
+        seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
+                for rank_geos in r["geometries_by_rank"]
+                for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
+        geometries = check_path_attention(
+            f"{phase} {cfg.name}", seen, FAMILY_FSDP_BATCH // d,
+            cfg.n_heads_padded // m, seed, results)
+    st = dryrun.count_step(cfg, ShapeConfig(
+        "train", TRAIN_SEQ, FAMILY_FSDP_BATCH, "train"),
+        make_mesh(d, m), target="cuda")
+    got = pc.by_kind(r["collectives"])
+    got["all-reduce"] = got.get("all-reduce", 0) \
+        - pc.ssm_extra(d, m, itemsize=4)
+    want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
+    checks["bytes"] = set(got) == set(want_bytes) and all(
+        abs(got[k] - want_bytes[k]) <= n for k in got)
+    checks["count whole"] = not st.count_short
+    extra = {}
+    if r["gaps_by_rank"][0] is not None:
+        lrs, worst = [want_m["lr"]], 0.0
+        for gaps in r["gaps_by_rank"]:
+            for mx, pmax in gaps:
+                worst = max(worst, mx / _param_bound(
+                    lrs, r["weight_decay"], pmax))
+        checks["params"] = worst <= 1.0
+        extra["params_worst_over_bound"] = worst
+    if r["serve"] is not None:
+        outs = torch.load(r["serve"]["path"], weights_only=True)
+        coll = r["serve"]["collectives"]
+        one32, one64 = one_serve["float32"], one_serve["float64"]
+
+        def rel_gap(a, b):
+            return _gap(a, b) / float(b.abs().max())
+        serve_gaps = {
+            "ranks_vs_one_f32": [rel_gap(a, b) for a, b in zip(outs, one32)],
+            "ranks_vs_f64": [rel_gap(a, b) for a, b in zip(outs, one64)],
+            "one_f32_vs_f64": [rel_gap(a, b) for a, b in zip(one32, one64)]}
+        checks["serve"] = all(
+            g <= WITNESS_FACTOR * w + SERVE_SLACK for g, w in zip(
+                serve_gaps["ranks_vs_f64"], serve_gaps["one_f32_vs_f64"]))
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        sv = FAMILY_FSDP_SERVE
+        # the last position's logits, vocab blocks over model (each rank
+        # the whole batch)
+        gathered = 0 if cfg.vocab_size % m else d * m * (m - 1) \
+            * sv["batch"] * (cfg.vocab_size // m) * 4
+        serve_bytes, serve_want = [], []
+        for kind, c in zip(("prefill", "decode"), coll):
+            cs = dryrun.count_step(f32, ShapeConfig(
+                kind, sv["prompt"], sv["batch"], kind),
+                make_mesh(d, m), target="cuda")
+            got_s = pc.by_kind(c)
+            want_s = {k: d * n * v for k, v in cs.collective_by_kind.items()}
+            if gathered:
+                want_s["all-gather"] = want_s.get("all-gather", 0) \
+                    + gathered
+            serve_bytes.append(got_s)
+            serve_want.append(want_s)
+        checks["serve bytes"] = all(
+            set(a) == set(b) and all(abs(a[k] - b[k]) <= n for k in a)
+            for a, b in zip(serve_bytes, serve_want))
+        ms = r["serve_ms_by_rank"]
+        extra.update(serve_gaps=serve_gaps, witness_factor=WITNESS_FACTOR,
+                     serve_slack=SERVE_SLACK, serve_bytes=serve_bytes,
+                     serve_count_bytes=serve_want,
+                     prefill_ms_by_rank=[x[0] for x in ms],
+                     decode_ms_by_rank=[x[1] for x in ms],
+                     serve_shape=[sv["batch"], sv["prompt"]])
+    n_params = sum(math.prod(t.shape) for t in tree_leaves(
+        abstract_params(model_template(cfg))))
+    emit(phase, gpu=smi, arch=cfg.name, family=cfg.family, mesh=[d, m],
+         ranks=n, reduced={k: v for k, v in cut}, param_count=n_params,
+         batch=FAMILY_FSDP_BATCH, seq_len=TRAIN_SEQ,
+         compute_dtype=cfg.compute_dtype, remat=cfg.remat, checks=checks,
+         metrics=r["metrics"], one_device_metrics=want_m, rel=rel,
+         witness=dict(shape=list(SSM_TP_WITNESS), metrics=r["witness"],
+                      one_device=wit_one, rel=rel64),
+         launches=launches, launches_per_rank_step=per_step,
+         geometries=geometries, bytes_per_step=got,
+         count_step_bytes=want_bytes,
+         gb_per_step=sum(want_bytes.values()) / 1e9,
+         step_ms_by_rank=[1e3 * x for x in r["step_s_by_rank"]],
+         warm_step_ms_by_rank=[1e3 * x for x in r["warm_step_s_by_rank"]],
+         peak_gb_by_rank=r["peak_gb_by_rank"],
+         state_gb_by_rank=r["state_gb_by_rank"],
+         job_seconds=r["seconds"], **extra)
+    return [f"{cfg.name}: {k}" for k, ok in checks.items() if not ok], \
+        launches
 
 
 def phase_mesh_ssm_tp(smi, spawned=None, one=None):
@@ -7555,160 +7734,122 @@ def phase_mesh_ssm_tp(smi, spawned=None, one=None):
     activations; zamba2-7b's shared block on the dense tensor-parallel
     route). xlstm-1.3b and zamba2-7b at phase 44's cut (:func:`_ssm_tp_cfgs`,
     full width, ``fsdp=False``), one step at ``FAMILY_FSDP_BATCH`` x
-    ``TRAIN_SEQ`` on ``SSM_TP_MESH`` (1,4), the last job of the one world
-    of 4. Held: the step's loss and ce within ``TP_LOSS_REL`` of phase
-    44's one-device step on the same state and batch (``one``:
-    :func:`families_one_device_record`, made here where None), and its
-    float64 witness (:func:`_ssm_witness`) within ``SSM_TP_F64_REL`` of
-    one device's in loss, ce and grad norm; B3-B5
-    ``train_launches`` on every rank, each held against its plain version
-    at the geometry the path launched it at (4 rows x 8 of 32 heads); the
-    bytes by kind, summed over the ranks, equal to ``count_step``'s for
-    the cell times the ranks (the all-reduces less the grad norm's
-    scalar); zamba2-7b's blocks within ``_param_bound`` of the same slices
-    of the one-device result, and its float32 prefill of 4 x 64 and one
-    decode step no further from the one-device float64 logits than
-    ``WITNESS_FACTOR`` times the one-device float32 logits are (plus
-    ``SERVE_SLACK``), their bytes the count's beside the last logits'
-    gather over model. Each family's line is emitted before its checks
-    fail the phase. Recorded: ms of the step, of a second step (timed
-    only: the first pays the processes' warm-up of the model's path), of
-    the prefill and the decode, and peak GB, on each rank. ``spawned``:
+    ``TRAIN_SEQ`` on ``SSM_TP_MESH`` (1,4), a job of the one world of 4,
+    held by :func:`_hold_tp_family` against phase 44's one-device step on
+    the same state and batch (``one``: :func:`families_one_device_record`,
+    made here where None; B3-B5 at 4 rows x 8 of 32 heads; zamba2-7b's
+    serve steps against its float32 and float64 serve records). Each
+    family's line is emitted before its checks fail the phase. Recorded:
+    ms of the step, of a second step (timed only: the first pays the
+    processes' warm-up of the model's path), of the prefill and the
+    decode, and peak GB, on each rank. ``spawned``:
     :func:`run_card_ranks`'s results (its own spawn here where None).
     Returns the launches by path, summed over the ranks."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import dryrun
     free_memory()
-    pc = _process_cases()
     d, m = SSM_TP_MESH
-    n = d * m
     tmp = tempfile.mkdtemp(prefix="mesh_ssm_tp_")
     by_path, results = {}, []
     try:
         one = one or families_one_device_record(tmp)
         spawned = spawned or run_card_ranks(tmp, None, [
-            (n, (("ssm_tp", SSM_TP_MESH),))])
+            (d * m, (("ssm_tp", SSM_TP_MESH),))])
         job = spawned["ssm_tp", SSM_TP_MESH]
         assert job["backend"] == "gloo", job["backend"]
         failed = []
         for i, (cfg, opt) in enumerate(_ssm_tp_cfgs()):
-            r = job["families"][cfg.name]
-            want_m = one["steps"][cfg.name]
-            checks = {}     # what is held: True where it holds
-            rel = {k: abs(r["metrics"][k] - want_m[k]) / abs(want_m[k])
-                   for k in ("loss", "ce")}
-            checks["loss"] = max(rel.values()) <= TP_LOSS_REL
-            wit_one = _ssm_witness(cfg, opt)
-            rel64 = {k: abs(r["witness"][k] - wit_one[k]) / abs(wit_one[k])
-                     for k in ("loss", "ce", "grad_norm")}
-            checks["float64 witness"] = max(rel64.values()) <= SSM_TP_F64_REL
-            per_step = train_launches(cfg)
-            checks["launches"] = all(x == per_step
-                                     for x in r["launches_by_rank"])
-            launches = {k: sum(x[k] for x in r["launches_by_rank"])
-                        for k in per_step}
-            geometries = []
-            if any(per_step.values()):
-                seen = {(k, (g, sq, sk, dd, getattr(torch, dt), c, bq, bk))
-                        for rank_geos in r["geometries_by_rank"]
-                        for k, g, sq, sk, dd, dt, c, bq, bk in rank_geos}
-                geometries = check_path_attention(
-                    f"ssm_tp {cfg.name}", seen, FAMILY_FSDP_BATCH // d,
-                    cfg.n_heads_padded // m, 460 + 10 * i, results)
-            st = dryrun.count_step(cfg, ShapeConfig(
-                "train", TRAIN_SEQ, FAMILY_FSDP_BATCH, "train"),
-                make_mesh(d, m), target="cuda")
-            got = pc.by_kind(r["collectives"])
-            got["all-reduce"] = got.get("all-reduce", 0) \
-                - pc.ssm_extra(d, m, itemsize=4)
-            want_bytes = {k: n * v for k, v in st.collective_by_kind.items()}
-            checks["bytes"] = set(got) == set(want_bytes) and all(
-                abs(got[k] - want_bytes[k]) <= n for k in got)
-            checks["count whole"] = not st.count_short
-            extra = {}
-            if cfg.family == "hybrid":
-                lrs, worst = [want_m["lr"]], 0.0
-                for gaps in r["gaps_by_rank"]:
-                    for mx, pmax in gaps:
-                        worst = max(worst, mx / _param_bound(
-                            lrs, r["weight_decay"], pmax))
-                checks["params"] = worst <= 1.0
-                outs = torch.load(r["serve"]["path"], weights_only=True)
-                coll = r["serve"]["collectives"]
-                one32, one64 = one["serve"]["float32"], one["serve"]["float64"]
-
-                def rel_gap(a, b):
-                    return _gap(a, b) / float(b.abs().max())
-                serve_gaps = {
-                    "ranks_vs_one_f32": [rel_gap(a, b)
-                                         for a, b in zip(outs, one32)],
-                    "ranks_vs_f64": [rel_gap(a, b)
-                                     for a, b in zip(outs, one64)],
-                    "one_f32_vs_f64": [rel_gap(a, b)
-                                       for a, b in zip(one32, one64)]}
-                checks["serve"] = all(
-                    g <= WITNESS_FACTOR * w + SERVE_SLACK for g, w in zip(
-                        serve_gaps["ranks_vs_f64"],
-                        serve_gaps["one_f32_vs_f64"]))
-                f32 = dataclasses.replace(cfg, compute_dtype="float32")
-                sv = FAMILY_FSDP_SERVE
-                # the last position's logits, vocab blocks over model
-                gathered = m * (m - 1) * sv["batch"] * (
-                    cfg.vocab_size // m) * 4
-                serve_bytes, serve_want = [], []
-                for kind, c in zip(("prefill", "decode"), coll):
-                    cs = dryrun.count_step(f32, ShapeConfig(
-                        kind, sv["prompt"], sv["batch"], kind),
-                        make_mesh(d, m), target="cuda")
-                    got_s = pc.by_kind(c)
-                    want_s = {k: n * v
-                              for k, v in cs.collective_by_kind.items()}
-                    want_s["all-gather"] = want_s.get("all-gather", 0) \
-                        + gathered
-                    serve_bytes.append(got_s)
-                    serve_want.append(want_s)
-                checks["serve bytes"] = all(
-                    set(a) == set(b) and all(abs(a[k] - b[k]) <= n
-                                             for k in a)
-                    for a, b in zip(serve_bytes, serve_want))
-                ms = r["serve_ms_by_rank"]
-                extra = dict(params_worst_over_bound=worst,
-                             serve_gaps=serve_gaps,
-                             witness_factor=WITNESS_FACTOR,
-                             serve_slack=SERVE_SLACK,
-                             serve_bytes=serve_bytes,
-                             serve_count_bytes=serve_want,
-                             prefill_ms_by_rank=[x[0] for x in ms],
-                             decode_ms_by_rank=[x[1] for x in ms],
-                             serve_shape=[sv["batch"], sv["prompt"]])
-            n_params = sum(math.prod(t.shape) for t in tree_leaves(
-                abstract_params(model_template(cfg))))
-            emit("mesh_ssm_tp", gpu=smi, arch=cfg.name, family=cfg.family,
-                 mesh=[d, m], ranks=n,
-                 reduced={k: v for k, v in dict(FAMILY_FSDP_CUTS)[
-                     cfg.name]},
-                 param_count=n_params, batch=FAMILY_FSDP_BATCH,
-                 seq_len=TRAIN_SEQ, compute_dtype=cfg.compute_dtype,
-                 remat=cfg.remat, checks=checks, metrics=r["metrics"],
-                 one_device_metrics=want_m, rel=rel,
-                 witness=dict(shape=list(SSM_TP_WITNESS),
-                              metrics=r["witness"], one_device=wit_one,
-                              rel=rel64),
-                 launches=launches,
-                 launches_per_rank_step=per_step, geometries=geometries,
-                 bytes_per_step=got, count_step_bytes=want_bytes,
-                 gb_per_step=sum(want_bytes.values()) / 1e9,
-                 step_ms_by_rank=[1e3 * x for x in r["step_s_by_rank"]],
-                 warm_step_ms_by_rank=[1e3 * x for x in
-                                       r["warm_step_s_by_rank"]],
-                 peak_gb_by_rank=r["peak_gb_by_rank"],
-                 job_seconds=r["seconds"], **extra)
-            failed += [f"{cfg.name}: {k}" for k, ok in checks.items()
-                       if not ok]
+            bad, launches = _hold_tp_family(
+                smi, "mesh_ssm_tp", cfg, opt, job["families"][cfg.name],
+                one["steps"][cfg.name], one["serve"], SSM_TP_MESH,
+                dict(FAMILY_FSDP_CUTS)[cfg.name], 460 + 10 * i, results)
+            failed += bad
             by_path[f"mesh_ssm_tp {cfg.name}"] = launches
             free_memory()
         emit("mesh_ssm_tp_done", gpu=smi, failed=failed,
              seconds=job["seconds"])
+        assert not failed, failed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 47: the vision and encoder-decoder cross layers under the model axis
+# over processes
+# ---------------------------------------------------------------------------
+
+# each model at phase 44's cut with fsdp=False on its mesh (data, model) of
+# ranks sharing the one card, a job each of the one world of 4: the vision
+# model on (1,4) (8 of its 32 heads and 8 kv heads a rank: 2 kv heads); the
+# audio model on (2,2), since 4 ranks do not divide its vocab of 256,206
+# (each rank would hold the table, the head and 4 x 2048 x 256,206 float32
+# logits whole, 8.4 GB a rank before the cross-entropy's copies), 2 do
+# (128,103 a rank, 2 rows a data rank)
+CROSS_TP_CARD = ((VISION_ARCH, (1, 4)), (AUDIO_ARCH, (2, 2)))
+
+
+def _cross_tp_cfgs(mesh_shape=None):
+    """Phase 44's llama-3.2-vision-11b and seamless-m4t-medium
+    (:func:`_families_fsdp_cfgs`) with ``fsdp=False``, and its optimizer,
+    in ``CROSS_TP_CARD``'s order: those of ``mesh_shape`` alone where
+    given."""
+    meshes = dict(CROSS_TP_CARD)
+    return [(dataclasses.replace(cfg, fsdp=False), opt)
+            for cfg, opt in _families_fsdp_cfgs()
+            if cfg.name in meshes and mesh_shape in (None, meshes[cfg.name])]
+
+
+def _cross_tp_job(mesh, out_path):
+    """Phase 47's work on ``mesh``, on every rank: :func:`_tp_family_job`
+    of the model of ``CROSS_TP_CARD`` that runs on that mesh's shape."""
+    return _tp_family_job(mesh, out_path, _cross_tp_cfgs(
+        (mesh.shape["data"], mesh.shape["model"])))
+
+
+def phase_mesh_cross_tp(smi, spawned=None, one=None):
+    """Phase 47: the vision and encoder-decoder cross layers under the
+    model axis over processes (``models.attention.cross_attention(tp=)``:
+    each rank its block of the heads and kv heads, ``copy_to`` at each
+    projection's input, the tanh gate after the all-reduce; the audio
+    encoder on the rank's heads and FFN columns, its output whole on every
+    rank). Each model of ``CROSS_TP_CARD`` at phase 44's cut (full width,
+    ``fsdp=False``, bf16 compute, full remat), one step at
+    ``FAMILY_FSDP_BATCH`` x ``TRAIN_SEQ`` on its mesh (the vision model's
+    (1,4), the audio model's (2,2)), jobs of the one world of 4, held by
+    :func:`_hold_tp_family` against phase 44's one-device step on the same
+    state and batch (``one``: :func:`families_one_device_record`, made
+    here where None): B3-B5 at the vision model's 4 rows x 8 of 32 heads
+    ((2048, 2048, 128) causal, (2048, 1600, 128) non-causal) and the audio
+    model's 2 rows x 8 of 16 heads; the float32 prefill of 4 x 64 with the
+    frontend's embeddings and one decode step against one device's
+    float32 and float64 serve steps, made here after the spawn. Each
+    model's line is emitted before its checks fail the phase. ``spawned``:
+    :func:`run_card_ranks`'s results (its own spawn here where None).
+    Returns the launches by path, summed over the ranks."""
+    free_memory()
+    tmp = tempfile.mkdtemp(prefix="mesh_cross_tp_")
+    by_path, results = {}, []
+    try:
+        one = one or families_one_device_record(tmp)
+        spawned = spawned or run_card_ranks(tmp, None, [
+            (4, tuple(("cross_tp", s) for _, s in CROSS_TP_CARD))])
+        failed, seconds = [], {}
+        for i, (cfg, opt) in enumerate(_cross_tp_cfgs()):
+            shape = dict(CROSS_TP_CARD)[cfg.name]
+            job = spawned["cross_tp", shape]
+            assert job["backend"] == "gloo", job["backend"]
+            one_serve = {dt: _family_fsdp_serve(cfg, dtype=dt)[0]
+                         for dt in ("float32", "float64")}
+            free_memory()
+            bad, launches = _hold_tp_family(
+                smi, "mesh_cross_tp", cfg, opt, job["families"][cfg.name],
+                one["steps"][cfg.name], one_serve, shape,
+                dict(FAMILY_FSDP_CUTS)[cfg.name], 470 + 10 * i, results)
+            failed += bad
+            seconds[cfg.name] = job["seconds"]
+            by_path[f"mesh_cross_tp {cfg.name}"] = launches
+            del one_serve
+            free_memory()
+        emit("mesh_cross_tp_done", gpu=smi, failed=failed, seconds=seconds)
         assert not failed, failed
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -7736,7 +7877,7 @@ def kernels_line(results, timed, launches, serve_flash, att_results,
     ``multiprecision``, ``attention_long``'s rows and gates), phases 33
     and 35's (``mesh_pipeline``, ``mesh_train``), phase 37's counted
     step (``dryrun``), phase 38's NCCL step, summed over its ranks
-    (``mesh_processes``), and phases 39-46's steps and engines, summed
+    (``mesh_processes``), and phases 39-47's steps and engines, summed
     over their ranks: every row adds those that launched it."""
     def err_of(check, res=results):
         return next(r["max_err"] for r in res if r["check"] == check)
@@ -7941,11 +8082,11 @@ def main():
     try:
         one = one_device_record(tmp)       # phases 39 and 40 hold to it
         free_memory()
-        fam_one = families_one_device_record(tmp)   # phases 44, 46 hold
+        fam_one = families_one_device_record(tmp)   # phases 44, 46-47
         free_memory()
         eng_one = engine_one_device_record(one[1])  # phase 45 holds to it
         free_memory()
-        spawned = run_card_ranks(tmp, one[1])   # phases 39-46's ranks
+        spawned = run_card_ranks(tmp, one[1])   # phases 39-47's ranks
         surface.update(phase_mesh_tensor_parallel(smi, one, spawned))
         free_memory()
         surface.update(phase_mesh_fsdp(smi, one, spawned))
@@ -7962,6 +8103,8 @@ def main():
         surface.update(phase_mesh_engine_fsdp(smi, spawned, eng_one))
         free_memory()
         surface.update(phase_mesh_ssm_tp(smi, spawned, fam_one))
+        free_memory()
+        surface.update(phase_mesh_cross_tp(smi, spawned, fam_one))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -379,15 +379,7 @@ def gqa_attention(cfg: ArchConfig, p: dict, x, positions, *,
     h, hkv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.resolved_head_dim
     into = (lambda t: t) if tp is None else tp.copy
     q = torch.einsum("bsd,dhk->bshk", into(x), p["wq"].to(x.dtype))
-    if tp is not None and p["wk"].shape[1] == hkv:
-        # every kv head on each rank: its k and v are whole, their
-        # cotangents partial (its own heads' groups), so those are
-        # all-reduced, and wk / wv and x take whole gradients from them
-        k = tp.copy(torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype)))
-        v = tp.copy(torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype)))
-    else:
-        k = torch.einsum("bsd,dhk->bshk", into(x), p["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dhk->bshk", into(x), p["wv"].to(x.dtype))
+    k, v = _project_kv(p, x, hkv, tp)
 
     cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
@@ -412,15 +404,7 @@ def gqa_attention(cfg: ArchConfig, p: dict, x, positions, *,
                                   device=x.device)
 
     heads = _local_heads(q.shape[2], tp)
-    if k_full.shape[2] == hkv and heads is not None:
-        # the kv heads whole on each rank: each local q head takes the kv
-        # group that global head reads
-        group = torch.arange(heads.start, heads.stop,
-                             device=x.device) // (h // hkv)
-        k_full, v_full = k_full[:, :, group], v_full[:, :, group]
-    else:
-        k_full = repeat_kv(k_full, h // hkv)
-        v_full = repeat_kv(v_full, h // hkv)
+    k_full, v_full = _kv_for_heads(k_full, v_full, h, hkv, heads)
     mask_pos = positions if causal else torch.full_like(positions, 2**29)
     # triangular only for the no-cache path, as in the reference
     out = chunked_attention(q, k_full, v_full, mask_pos, kv_valid,
@@ -434,6 +418,35 @@ def gqa_attention(cfg: ArchConfig, p: dict, x, positions, *,
     out = _mask_pad_heads(cfg, out, heads)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return (out if tp is None else tp.reduce(out)), new_cache
+
+
+def _project_kv(p: dict, src, hkv: int, tp):
+    """``src @ wk`` and ``src @ wv`` in ``src``'s dtype. With ``tp`` (a
+    tensor-parallel rank): ``copy_to`` at ``src`` where ``wk`` / ``wv`` hold
+    the rank's block of the kv heads; where they hold every kv head, ``k``
+    and ``v`` are whole and their cotangents partial (the rank's heads'
+    groups), so ``copy_to`` goes at their outputs, and ``wk``, ``wv`` and
+    ``src`` take whole gradients from them."""
+    wk, wv = p["wk"].to(src.dtype), p["wv"].to(src.dtype)
+    if tp is not None and p["wk"].shape[1] == hkv:
+        return (tp.copy(torch.einsum("bsd,dhk->bshk", src, wk)),
+                tp.copy(torch.einsum("bsd,dhk->bshk", src, wv)))
+    into = (lambda t: t) if tp is None else tp.copy
+    return (torch.einsum("bsd,dhk->bshk", into(src), wk),
+            torch.einsum("bsd,dhk->bshk", into(src), wv))
+
+
+def _kv_for_heads(k, v, h: int, hkv: int, heads: Optional[range]):
+    """``k`` and ``v`` (B, T, kv heads, D) repeated to the query heads: to
+    ``h`` of them, each group's kv head ``h / hkv`` times; on a
+    tensor-parallel rank (``heads``: its query heads' global indices)
+    holding every kv head, the group each of its heads reads in the whole
+    model."""
+    if k.shape[2] == hkv and heads is not None:
+        group = torch.arange(heads.start, heads.stop,
+                             device=k.device) // (h // hkv)
+        return k[:, :, group], v[:, :, group]
+    return repeat_kv(k, h // hkv), repeat_kv(v, h // hkv)
 
 
 def _local_heads(n_local: int, tp) -> Optional[range]:
@@ -463,19 +476,30 @@ def _mask_pad_heads(cfg: ArchConfig, out, heads: Optional[range] = None):
     return out * head_live.to(out.dtype)[None, None, :, None]
 
 
-def cross_attention(cfg: ArchConfig, p: dict, x, memory, memory_valid=None):
+def cross_attention(cfg: ArchConfig, p: dict, x, memory, memory_valid=None,
+                    tp=None):
     """Cross-attn to encoder/vision memory (B,T,d). Tanh-gated if gate in p.
 
     With the flash route enabled (on a CUDA device by default) it runs the
     blockwise-attention kernel in its non-causal mode with ``memory_valid``
     as ``kv_valid``: pure key-validity masking is exactly that mode, and
-    rows with no valid key output zeros either way."""
+    rows with no valid key output zeros either way.
+
+    ``tp`` (``models.sharding.TensorParallel``): as :func:`gqa_attention`'s,
+    ``p`` holds the rank's block of the heads and of the kv heads (or all
+    the kv heads, whose ``k`` and ``v`` then pass ``copy_to`` at their
+    outputs), ``copy_to`` at each projection's input (``x`` for ``q``,
+    ``memory`` for ``k`` and ``v``: the encoder's output takes its
+    cotangent summed over the model axis; the vision frontend's
+    embeddings take none) and ``reduce_from`` after ``wo``. The gate,
+    whole on every rank, scales the reduced output: its gradient is then
+    whole on every rank with no collective of its own."""
     h, hkv = cfg.n_heads_padded, cfg.n_kv_heads
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", memory, p["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", memory, p["wv"].to(x.dtype))
-    k = repeat_kv(k, h // hkv)
-    v = repeat_kv(v, h // hkv)
+    into = (lambda t: t) if tp is None else tp.copy
+    q = torch.einsum("bsd,dhk->bshk", into(x), p["wq"].to(x.dtype))
+    heads = _local_heads(q.shape[2], tp)
+    k, v = _kv_for_heads(*_project_kv(p, memory, hkv, tp), h,
+                         hkv, heads)
     b, t = memory.shape[:2]
     if memory_valid is None:
         memory_valid = torch.ones((b, t), dtype=torch.bool, device=x.device)
@@ -484,8 +508,10 @@ def cross_attention(cfg: ArchConfig, p: dict, x, memory, memory_valid=None):
         out = _flash_attention(q, k, v, memory_valid, causal=False)
     else:
         out = _masked_softmax_attn(q, k, v, memory_valid[:, None, None, :])
-    out = _mask_pad_heads(cfg, out)
+    out = _mask_pad_heads(cfg, out, heads)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if tp is not None:
+        out = tp.reduce(out)
     if "gate" in p:
         out = torch.tanh(p["gate"]).to(x.dtype) * out
     return out

@@ -420,44 +420,33 @@ def vocab_split(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
     return tp if tp is not None and tp.vocab else None
 
 
-def _tp_family(cfg: ArchConfig) -> bool:
-    """Whether the tensor-parallel route over processes runs ``cfg``: the
-    dense family; the MoE family, with GQA or MLA, whether the model
-    axis splits its experts' FFN (``expert_parallel=False``: each expert's
-    FFN split as the dense FFN) or its experts (``expert_parallel=True``:
-    each rank the block of experts the reference's rules give it), on the
+def tensor_parallel(cfg: ArchConfig,
+                    ctx: Optional[MeshCtx]) -> Optional[TensorParallel]:
+    """The rank's :class:`TensorParallel` where ``ctx`` holds a process mesh
+    whose model axis is above 1; None otherwise (one device, the stacked
+    route, a data-parallel mesh of processes). Every family runs on it: the
+    dense family; the MoE family, with GQA or MLA, whether the model axis
+    splits its experts' FFN (``expert_parallel=False``: each expert's FFN
+    split as the dense FFN) or its experts (``expert_parallel=True``: each
+    rank the block of experts the reference's rules give it), on the
     one-hot dispatch or the expert-parallel route (``models.moe.
     moe_block``: there each rank runs its block of the experts, held or
     re-laid by :func:`relay_experts`); the SSM and hybrid families, each
     mix layer on the rank's heads (:class:`InnerSplit`), the hybrid
-    family's shared block as a dense block."""
-    return cfg.family in ("dense", "moe", "ssm", "hybrid")
-
-
-def tensor_parallel(cfg: ArchConfig,
-                    ctx: Optional[MeshCtx]) -> Optional[TensorParallel]:
-    """The rank's :class:`TensorParallel` where ``ctx`` holds a process mesh
-    whose model axis is above 1 and ``cfg`` is of a family of
-    :func:`_tp_family`; None otherwise (one device, the stacked route, a
-    data-parallel mesh of processes, or the vision or encoder-decoder
-    family, whose forward on a process mesh keeps the global
-    parameters)."""
+    family's shared block as a dense block; the vision family's cross
+    layers and the encoder-decoder family's encoder and cross-attention on
+    the rank's heads and FFN columns, as its self-attention layers."""
     if ctx is None or not compat.is_process_mesh(ctx.mesh) \
-            or ctx.n_lanes == 1 or not _tp_family(cfg):
+            or ctx.n_lanes == 1:
         return None
     return TensorParallel(ctx.mesh, ctx.model_axis,
                           vocab=cfg.vocab_size % ctx.n_lanes == 0)
 
 
-# which queue item ports each other family's tensor-parallel train step
-TP_QUEUE = {
-    "vlm": "the cross layers under model over processes (ROADMAP Queue A, "
-           "A13c item 2.6)",
-}
-TP_QUEUE.update(audio=TP_QUEUE["vlm"])
-# ... and the SSM and hybrid families' FSDP step at model > 1
-FSDP_MODEL_QUEUE = "the SSM and hybrid families under FSDP with model > 1 " \
-    "(ROADMAP Queue A, A13c item 2.6)"
+# which queue item ports the SSM, hybrid, vision and encoder-decoder
+# families' FSDP step at model > 1
+FSDP_MODEL_QUEUE = "the SSM, hybrid, vision and encoder-decoder families " \
+    "under FSDP with model > 1 (ROADMAP Queue A, A13c item 2.6)"
 
 
 def _split_widths(cfg: ArchConfig) -> dict:
@@ -486,12 +475,11 @@ def _split_widths(cfg: ArchConfig) -> dict:
 
 
 def check_tensor_parallel(cfg: ArchConfig, ctx: Optional[MeshCtx],
-                          cache: bool = False, train: bool = False):
+                          cache: bool = False):
     """Raises ``NotImplementedError``, naming its queue item, for a layout
-    that the tensor-parallel route over processes does not take: with
-    ``train`` the vision and encoder-decoder families (``TP_QUEUE``); a
-    leaf split over model that the axis does not divide (other than the
-    kv heads, which a rank then reads whole, and the vocab, which it then
+    that the tensor-parallel route over processes does not take: a leaf
+    split over model that the axis does not divide (other than the kv
+    heads, which a rank then reads whole, and the vocab, which it then
     holds whole; a mix layer's heads and fused widths among them); with
     ``cache`` a KV cache split over ``kv_seq`` (MLA's latent cache has no
     head axis: every rank holds it whole).
@@ -501,12 +489,6 @@ def check_tensor_parallel(cfg: ArchConfig, ctx: Optional[MeshCtx],
         return
     m = ctx.n_lanes
     head = f"{cfg.name} with {ctx.model_axis}={m} on a process mesh"
-    if not _tp_family(cfg):
-        if not train:
-            return
-        raise NotImplementedError(f"{head}: the {cfg.family} family under "
-                                  f"the model axis; {TP_QUEUE[cfg.family]} "
-                                  f"is not ported")
     odd = [f"{k} {n}" for k, n in _split_widths(cfg).items() if n % m]
     if odd:
         raise NotImplementedError(
@@ -779,10 +761,10 @@ def serve_ctx(cfg: ArchConfig, ctx: Optional[MeshCtx]):
 def check_fsdp(cfg: ArchConfig, ctx: Optional[MeshCtx]):
     """Raises ``NotImplementedError``, naming its queue item, for FSDP over
     processes that the port does not run: the SSM, hybrid, vision and
-    encoder-decoder families on a mesh whose model axis is above 1 (the
-    first two's mix layers gathered by FSDP beside their re-lay over
-    ``model``, :data:`FSDP_MODEL_QUEUE`; the cross layers' heads under
-    ``model``, ``TP_QUEUE``). Every family's train, prefill and decode
+    encoder-decoder families on a mesh whose model axis is above 1
+    (:data:`FSDP_MODEL_QUEUE`: the mix layers gathered by FSDP beside their
+    re-lay over ``model``, the cross layers' and the encoder's gathers
+    beside their heads' split). Every family's train, prefill and decode
     steps, and the serving engine of every family that serves on one
     device, run FSDP over the batch axes where the model axis is 1, the
     dense and the MoE families' at any model axis. Nothing where FSDP
@@ -793,8 +775,7 @@ def check_fsdp(cfg: ArchConfig, ctx: Optional[MeshCtx]):
     if cfg.family not in ("dense", "moe") and ctx.n_lanes > 1:
         head = f"{cfg.name} with fsdp=True over {'x'.join(axes)} on a " \
             f"process mesh"
-        queue = f"{TP_QUEUE[cfg.family]} is" if cfg.family in TP_QUEUE \
-            else f"{FSDP_MODEL_QUEUE} are"
         raise NotImplementedError(
             f"{head} with {ctx.model_axis}={ctx.n_lanes}: the {cfg.family} "
-            f"family under FSDP and the model axis; {queue} not ported")
+            f"family under FSDP and the model axis; {FSDP_MODEL_QUEUE} are "
+            f"not ported")

@@ -39,7 +39,10 @@ without a mesh. On a mesh of processes whose ``model`` axis is above 1
 families run tensor-parallel on the rank's blocks of the parameters (a
 mix layer on its heads, its fused projections re-laid onto them on the
 activations: ``models.sharding.InnerSplit``; on a stacked mesh the same
-collectives are counted): the lookup into
+collectives are counted), and so do the vision and encoder-decoder
+families (the cross layers and the audio encoder on the rank's heads and
+FFN columns; the gate after the all-reduce, the encoder's output whole on
+every rank and in the cache): the lookup into
 its vocab block of the embedding, masked and all-reduced; the attention
 heads (GQA's, or MLA's over the whole latent cache), the FFN columns, the
 experts or each expert's FFN columns (``moe.moe_dense_dispatch``) and the
@@ -249,7 +252,7 @@ def dense_block(cfg, p, x, positions, cache=None, causal=True, memory=None,
     x = x + a
     if memory is not None and "xattn" in p:
         hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
-        x = x + cross_attention(cfg, p["xattn"], hx, memory)
+        x = x + cross_attention(cfg, p["xattn"], hx, memory, tp=tp)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + mlp(p["mlp"], h2, cfg.activation, tp)
     return x, new_cache
@@ -266,12 +269,14 @@ def moe_layer(cfg, p, x, positions, ctx=None, cache=None, tp=None):
     return x + y, aux, new_cache
 
 
-def _cross_block(cfg, p, x, memory):
-    """The vision model's gated cross-attention layer + FFN."""
+def _cross_block(cfg, p, x, memory, tp=None):
+    """The vision model's gated cross-attention layer + FFN. ``tp``: the
+    rank's ``models.sharding.TensorParallel`` (its blocks of ``p``), or
+    None."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + cross_attention(cfg, p["attn"], h, memory)
+    x = x + cross_attention(cfg, p["attn"], h, memory, tp=tp)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp(p["mlp"], h2, cfg.activation)
+    x = x + mlp(p["mlp"], h2, cfg.activation, tp)
     return x, None
 
 
@@ -455,11 +460,11 @@ def forward(cfg: ArchConfig, params: dict, tokens, *, ctx=None,
 
     def cross_block(p, x, memory):
         return run(lambda x: _cross_block(cfg, cross_params(p), x,
-                                          memory)[0], x)
+                                          memory, tp)[0], x)
 
     def encoder_block(p, x, enc_pos):
         return run(lambda x: dense_block(cfg, gathered(p, "enc_layers"), x,
-                                         enc_pos, causal=False)[0], x)
+                                         enc_pos, causal=False, tp=tp)[0], x)
 
     def mix(p, x, i):
         """Mixing layer ``i`` (under FSDP its blocks gathered, in the cache

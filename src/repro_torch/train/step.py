@@ -24,7 +24,7 @@ runs the same forward and backward on it, and averages every gradient
 leaf over the batch axes in place (``core.compat.pmean_in_place``, one
 call a leaf, counted as ``pmean``), and the loss metrics in one more;
 AdamW then updates the same parameters on every rank. With a ``model``
-axis above 1 the dense and MoE families' step is also tensor-parallel, as
+axis above 1 every family's step is also tensor-parallel, as
 the reference's partitioner runs it from the same specs: each rank holds its
 blocks of every leaf (the specs after :func:`sanitize_specs`; the
 bundle's ``abstract_state`` gives their shapes), runs the forward and
@@ -66,22 +66,26 @@ micro-batch whose rows the batch axes do not split raises
 tensor-parallel at ``model > 1`` too, in micro-batches on the dense
 family's contiguous strips: each rank holds its blocks of every
 ``d_inner`` leaf and runs its heads, re-laying the fused projections on
-the activations (``models.sharding.InnerSplit``). The vision and
-encoder-decoder families at ``model > 1``, and those four families under
-FSDP with ``model > 1``, raise ``NotImplementedError`` naming their queue
-item (2.6).
+the activations (``models.sharding.InnerSplit``); so do the vision and
+encoder-decoder families (``fsdp=False``), their cross layers and the
+audio encoder on the rank's heads and FFN columns, the frontend's
+embeddings cut by the tokens' rows (the caller's block on a data rank,
+each micro-batch's strip of it). Those four families under FSDP with
+``model > 1`` raise ``NotImplementedError`` naming their queue item
+(2.6).
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serve
 steps: the way the vision and encoder-decoder models serve, since they take
 the frontend's embeddings in the batch. With a stacked mesh, MLA's
 prefill runs its lane-local route (``models.attention.mla_chunked``). On
-a tensor-parallel mesh of processes a dense or MoE model serves with the
-rank's blocks and a cache of its kv heads (MLA: the latent cache whole;
-a GQA cache the reference splits over ``kv_seq`` raises; a MoE
-model's layers on the expert-parallel route at or above the gate), and
-the returned logits are gathered whole
-(``models.transformer.last_logits``); an SSM or hybrid model's cache
-holds its heads' states (``models.transformer.init_cache``). Under FSDP
+a tensor-parallel mesh of processes every family serves with the rank's
+blocks and a cache of its kv heads (MLA: the latent cache whole; a GQA
+cache the reference splits over ``kv_seq`` raises; a MoE model's layers
+on the expert-parallel route at or above the gate; the audio model's
+encoder output, ``memory``, whole on every rank), and the returned
+logits are gathered whole (``models.transformer.last_logits``); an SSM
+or hybrid model's cache holds its heads' states
+(``models.transformer.init_cache``). Under FSDP
 each rank serves its rows of the batch (the batch axes are its own, as in
 training: a MoE model's one dispatch group spans the ranks) with a cache
 of those rows,
@@ -236,21 +240,21 @@ def train_state_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict:
 
 def _check_process_route(cfg: ArchConfig, ctx: MeshCtx):
     """What the process route trains: the data-parallel step of every
-    family; the dense, MoE, SSM and hybrid families' tensor-parallel step
-    (``model > 1``; MLA's heads, the experts or their FFN split over it,
-    on the one-hot dispatch or the expert-parallel route; the mix layers'
-    ``d_inner`` and heads, ``models.sharding.InnerSplit``); every family's
-    FSDP step (``fsdp=True``; every embed, q_lora and kv_lora dimension
-    over the batch axes too), the SSM, hybrid, vision and encoder-decoder
-    families' on a model axis of 1; each in micro-batches too (a MoE
-    model's re-laid micro-major, :func:`micro_major`, which raises
-    ``ValueError`` where the batch axes do not split a micro-batch's
-    rows). Anything else raises ``NotImplementedError`` naming its queue
-    item (item 2.6: the vision and encoder-decoder families at ``model >
-    1``, and those four families under FSDP there; a head count that the
-    model axis does not divide)."""
+    family; every family's tensor-parallel step (``model > 1``; MLA's
+    heads, the experts or their FFN split over it, on the one-hot dispatch
+    or the expert-parallel route; the mix layers' ``d_inner`` and heads,
+    ``models.sharding.InnerSplit``; the cross layers' and the audio
+    encoder's heads and FFN columns); every family's FSDP step
+    (``fsdp=True``; every embed, q_lora and kv_lora dimension over the
+    batch axes too), the SSM, hybrid, vision and encoder-decoder families'
+    on a model axis of 1; each in micro-batches too (a MoE model's re-laid
+    micro-major, :func:`micro_major`, which raises ``ValueError`` where
+    the batch axes do not split a micro-batch's rows). Anything else
+    raises ``NotImplementedError`` naming its queue item (item 2.6: those
+    four families under FSDP with ``model > 1``; a head count or FFN width
+    that the model axis does not divide)."""
     check_fsdp(cfg, ctx)
-    check_tensor_parallel(cfg, ctx, train=True)
+    check_tensor_parallel(cfg, ctx)
 
 
 def micro_major(cfg: ArchConfig, ctx: MeshCtx, batch: dict,

@@ -9,8 +9,8 @@
   bytes of the train step within 1e-4 on (4,1), (1,4) and (2,2), and FSDP
   at (4,1) and (2,2) pinned at its measured ratio (ROADMAP Queue C);
   every kind of step that the dry run counts on a mesh (``CELLS``: prefill,
-  decode, the MoE, MLA, SSM and hybrid train steps, the hybrid family under
-  FSDP, and the expert-parallel
+  decode, the MoE, MLA, SSM, hybrid, vision and encoder-decoder train
+  steps, the hybrid family under FSDP, and the expert-parallel
   route at a gate lowered in both packages, ``GATES``, whose all-to-alls
   agree exactly), each within 1 % or pinned
   at its measured ratio with its cause, and flagged where its count is
@@ -96,6 +96,13 @@ CELLS = {
     # the mLSTM blocks under model: the cell whose ranks
     # tests/test_torch_ssm_processes.py runs (there at 8 x 32)
     "xlstm-1.3b train 1x4": ("xlstm-1.3b", "train", 1, 4),
+    # the cross layers under model: the cells whose ranks
+    # tests/test_torch_cross_processes.py runs (there at 8 x 32, the audio
+    # vocab 258) and chip_smoke.py's phase 47 at full width
+    "llama-3.2-vision-11b train 1x4": ("llama-3.2-vision-11b", "train", 1,
+                                       4, {"fsdp": False}),
+    "seamless-m4t-medium train 2x2": ("seamless-m4t-medium", "train", 2, 2,
+                                      {"fsdp": False}),
     # the hybrid family under FSDP: the cell whose ranks
     # tests/test_torch_processes.py runs (there at 4 layers)
     "zamba2-7b train 4x1 fsdp": ("zamba2-7b", "train", 4, 1,
@@ -124,7 +131,15 @@ COLL_TOL = {"4x1": 1e-4, "1x4": 1e-4, "2x2": 1e-4,
             "granite-moe-3b-a800m train 1x4": 1e-4,
             "tinyllama-1.1b prefill 1x4": 0.01,
             "tinyllama-1.1b decode 1x4": 0.01,
-            "zamba2-7b train 4x1": 0.01}
+            "zamba2-7b train 4x1": 0.01,
+            # all-reduces alone on both sides (test below); the reference's
+            # 96 and 76 bytes left are scalar members of its tuple
+            # all-reduces
+            "llama-3.2-vision-11b train 1x4": 1e-4,
+            "seamless-m4t-medium train 2x2": 1e-4}
+# the cross layers' cells, held kind by kind
+CROSS_CELLS = ("llama-3.2-vision-11b train 1x4",
+               "seamless-m4t-medium train 2x2")
 # FLOPs a device, port / reference, where the reference's partitioner does
 # not split the products evenly and the port's even split is a
 # perfect-division bound (ROADMAP Queue C, the dry run's deliberate
@@ -489,6 +504,24 @@ def test_collective_bytes_match_the_reference(ref, key):
                                               "reduce-scatter"}
         assert set(ref[key]["collective_by_kind"]) == {
             "all-gather", "all-reduce", "all-to-all"}
+
+
+@pytest.mark.parametrize("key", CROSS_CELLS)
+def test_the_cross_cells_match_the_reference_kind_by_kind(ref, key):
+    """The vision model's cross layers on (1,4) and the encoder-decoder
+    model on (2,2) without FSDP (the heads and FFN columns of the self,
+    cross and encoder layers and the vocab over model): all-reduces alone
+    on both sides, within 1e-4 of the reference's (4,137,984 and 1,710,080
+    bytes a device), the count short of nothing."""
+    st = _count(key)
+    want = ref[key]["collective_by_kind"]
+    assert set(st.collective_by_kind) == set(want) == {"all-reduce"}, (
+        st.collective_by_kind, want)
+    got = st.collective_by_kind["all-reduce"]
+    assert abs(got / want["all-reduce"] - 1) <= 1e-4, (got, want)
+    assert got == {"llama-3.2-vision-11b train 1x4": 4_137_984,
+                   "seamless-m4t-medium train 2x2": 1_710_080}[key]
+    assert not st.count_short, st.count_short
 
 
 @pytest.mark.parametrize("key", list(GATES))

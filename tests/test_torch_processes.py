@@ -327,14 +327,14 @@ def test_tensor_parallel_engine_emits_the_same_tokens_on_every_rank(res):
     pc.check_tp_engine(_case(res, "tp_serve"))
 
 
-@pytest.mark.parametrize("key", ["tp_vlm", "tp_audio", "tp_odd",
-                                 "tp_ssm_odd", "tp_kv_seq"])
+@pytest.mark.parametrize("key", ["tp_odd", "tp_ssm_odd", "tp_cross_odd",
+                                 "tp_kv_seq"])
 def test_tensor_parallel_refusals_name_their_queue_item(res, key):
-    """On model > 1: llama-3.2-vision-11b's and seamless-m4t-medium's
-    cross layers on (1,4), a dense config whose 6 heads 4 ranks do not
-    divide, a reduced xlstm-1.3b whose 2 mLSTM heads they do not divide,
-    and a KV cache that the reference splits over kv_seq, each a
-    NotImplementedError naming its queue item (2.6)."""
+    """On model > 1: a dense config whose 6 heads 4 ranks do not divide, a
+    reduced xlstm-1.3b whose 2 mLSTM heads they do not divide, a reduced
+    llama-3.2-vision-11b whose 6 heads (its self and cross layers') they
+    do not divide, and a KV cache that the reference splits over kv_seq,
+    each a NotImplementedError naming its queue item (2.6)."""
     got = _case(res, "refusals")[key]
     assert got is not None and pc.refusal_texts()[key] in got, got
     assert "A13c item 2." in got, got
@@ -417,8 +417,9 @@ def test_fsdp_serve_bytes_equal_the_dry_runs_count(res):
 def test_fsdp_refusals_name_their_queue_item(res, key, item):
     """FSDP over processes at model > 1 of zamba2-7b (its prefill step
     and its serving engine) and of the vision family (its decode step) on
-    (2,2): a NotImplementedError naming item 2.6, whose rules split their
-    d_inner and cross heads over model; the serving engine under FSDP on
+    (2,2): a NotImplementedError naming item 2.6, the SSM, hybrid, vision
+    and encoder-decoder families under FSDP with model > 1; the serving
+    engine under FSDP on
     (4,1) with 6 slots, which its 4 data ranks do not split: a ValueError
     naming the rule."""
     got = _case(res, "refusals")[key]

@@ -192,6 +192,27 @@ SSM_TP_CASES = ("ssm_tp",)
 # the reference's init of each of ``SSM_TP["archs"]`` (numpy trees by
 # arch), written into the spawn's directory by the caller
 REFERENCE_SSM = "reference_ssm.pt"
+# the vision and encoder-decoder cross layers under the model axis over
+# processes (``case_cross_tp``, its own spawn in
+# tests/test_torch_cross_processes.py): reduced llama-3.2-vision-11b (its
+# cross gates at ``CROSS_GATE``) and seamless-m4t-medium with a vocab of
+# 258 (whole on the 4 ranks of (1,4), split on the 2 of (2,2), as
+# 256,206 behaves at full width), in float64 with fsdp=False: one train
+# step on each of these meshes and one in ``MICRO`` micro-batches, against
+# the one-device step; the serve steps (8 prompts of 16 tokens with the
+# frontend's embeddings, 2 decode steps) on both meshes
+CROSS_TP = dict(archs=("llama-3.2-vision-11b", "seamless-m4t-medium"),
+                meshes=((1, 4), (2, 2)), accum=(2, 2), prompt=16,
+                audio_vocab=258)
+CROSS_TP_CASES = ("cross_tp",)
+# the planted faults' steps on one batch: AdamW's first update is lr
+# sign(g) (g far above eps), so a gate gradient left partial but of the
+# right sign moves the first step's parameters by eps's share alone; the
+# second step's update reads the two steps' gradients' ratio
+CROSS_FAULT_STEPS = 2
+# the reference's init of each of ``CROSS_TP["archs"]`` (numpy trees by
+# arch, the vision gates at ``CROSS_GATE``), written by the caller
+REFERENCE_CROSS = "reference_cross.pt"
 CASES = ("collectives", "chaining", "compression", "pipeline", "moe_ep",
          "mla", "local_axes", "held", "dp_train", "tp_train", "tp_serve",
          "fsdp_train", "fsdp_serve", "moe_train", "mla_train", "mla_fsdp",
@@ -2208,15 +2229,14 @@ def case_refusals(rank, meshes, out_dir):
             out[name] = None
     text("world", ValueError, lambda: make_process_mesh(3, 1, device="cpu"))
     cfg = reduced(get_config("tinyllama-1.1b"))
-    # the cross families under model (item 2.6), a dense config whose
-    # heads the model axis does not divide, and an SSM config whose mLSTM
-    # heads it does not divide
-    for name, acfg in (("tp_vlm", reduced(get_config(
-            "llama-3.2-vision-11b"))), ("tp_audio", reduced(get_config(
-                "seamless-m4t-medium"))), ("tp_odd", dataclasses.replace(
-                    cfg, n_heads=6, n_kv_heads=2)), ("tp_ssm_odd", reduced(
-                        get_config("xlstm-1.3b"), n_heads=2,
-                        n_kv_heads=2))):
+    # a dense config whose heads the model axis does not divide, an SSM
+    # config whose mLSTM heads it does not divide, and a vision config
+    # whose heads (those of its self and cross layers) it does not divide
+    for name, acfg in (("tp_odd", dataclasses.replace(
+            cfg, n_heads=6, n_kv_heads=2)), ("tp_ssm_odd", reduced(
+                get_config("xlstm-1.3b"), n_heads=2, n_kv_heads=2)),
+            ("tp_cross_odd", reduced(get_config("llama-3.2-vision-11b"),
+                                     n_heads=6, n_kv_heads=2))):
         text(name, NotImplementedError,
              lambda acfg=acfg: tstep.make_train_step(
                  acfg, adamw.OptConfig(), MeshCtx(mesh=meshes[1, 4])))
@@ -2291,63 +2311,70 @@ def ssm_tp_opt():
                            decay_steps=DP["steps"])
 
 
-def _ssm_step(cfg, params, mesh, grad_accum=1):
-    """One train step of ``cfg`` from ``params`` on ``mesh`` (the rank's
-    blocks, its rows of :func:`ssm_tp_batch`), or on one device where
-    ``mesh`` is None: the metrics, the global parameters after it, and the
-    collectives (forward, backward) on the ranks."""
-    opt, batch = ssm_tp_opt(), ssm_tp_batch(cfg)
+def _tp_step(cfg, params, mesh, batch, grad_accum=1, steps=1):
+    """``steps`` train steps of ``cfg`` from ``params`` on ``batch`` (the
+    global batch) on ``mesh`` (the rank's blocks, its rows of the batch),
+    or on one device where ``mesh`` is None: the metrics of the last, the
+    global parameters after it, and on the ranks the collectives (forward,
+    backward) and the blocks' shapes."""
+    opt = ssm_tp_opt()
     params = _detach(params)
-    if mesh is None:
-        step = tstep.make_train_step(cfg, opt, grad_accum=grad_accum)
-        state, m = step.step_fn({"params": params,
-                                 "opt": adamw.init(opt, params)}, batch)
-        return {"metrics": {k: float(v) for k, v in m.items()},
-                "params": state["params"]}
-    ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+    ctx, specs, blocks = None, None, params
+    if mesh is not None:
+        ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
+        specs = tstep.sanitize_specs(tstep.train_state_specs(cfg, ctx)[
+            "params"], params, mesh)
+        blocks = shard_params(params, specs, mesh)
+        rows = batch["tokens"].shape[0] // mesh.shape["data"]
+        mine = slice(mesh.coord("data") * rows,
+                     (mesh.coord("data") + 1) * rows)
+        batch = {k: v[mine] for k, v in batch.items()}
     step = tstep.make_train_step(cfg, opt, ctx, grad_accum=grad_accum)
-    specs = tstep.sanitize_specs(tstep.train_state_specs(cfg, ctx)["params"],
-                                 params, mesh)
-    blocks = shard_params(params, specs, mesh)
-    rows = batch["tokens"].shape[0] // mesh.shape["data"]
-    mine = slice(mesh.coord("data") * rows, (mesh.coord("data") + 1) * rows)
+    state = {"params": blocks, "opt": adamw.init(opt, blocks)}
     compat.reset_counts()
-    state, m = step.step_fn({"params": blocks, "opt": adamw.init(opt, blocks)},
-                            {k: v[mine] for k, v in batch.items()})
-    counts = _counts(mesh)
-    return {"metrics": {k: float(v) for k, v in m.items()},
-            "params": gather_params(state["params"], specs, mesh),
-            "counts": counts,
-            "blocks": [tuple(t.shape) for t in tree_leaves(blocks)]}
+    for _ in range(steps):
+        state, m = step.step_fn(state, batch)
+    out = {"metrics": {k: float(v) for k, v in m.items()}}
+    if mesh is None:
+        return dict(out, params=state["params"])
+    return dict(out, params=gather_params(state["params"], specs, mesh),
+                counts=_counts(mesh),
+                blocks=[tuple(t.shape) for t in tree_leaves(blocks)])
 
 
-def _ssm_serve(cfg, params, mesh):
-    """``cfg`` served on ``mesh`` (None: one device) from ``params``: the
-    prefill of ``TP_SERVE``'s prompts (16 tokens) and 2 decode steps, each
-    step's logits and collectives, and the cache after the last."""
+def _tp_serve(cfg, params, mesh, prompt, seed):
+    """``cfg`` served on ``mesh`` (None: one device) from ``params``, every
+    rank the whole batch: the prefill of ``TP_SERVE``'s 8 prompts of
+    ``prompt`` tokens from ``seed`` (with the frontend's embeddings of
+    :func:`cross_tp_batch` where the model takes them) and 2 decode steps
+    (the vision model reads the embeddings at each, the audio model its
+    encoder's output from the cache), each step's logits and collectives,
+    and the cache after the last."""
     ctx = None
     if mesh is not None:
         ctx = MeshCtx(mesh=mesh, batch_axes=("data",))
         params = shard_params(params, tstep.train_state_specs(cfg, ctx)[
             "params"], mesh)
-    r = np.random.RandomState(7)
-    b, s, n = TP_SERVE["batch"], SSM_TP["prompt"], TP_SERVE["steps"]
-    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, s)))
+    r = np.random.RandomState(seed)
+    b, n = TP_SERVE["batch"], TP_SERVE["steps"]
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, prompt)))
     steps = [torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, 1)))
              for _ in range(n)]
+    fe = {"frontend_emb": cross_tp_batch(cfg, b)["frontend_emb"]} \
+        if cfg.frontend_seq else {}
     outs, counts = [], []
     dt = torch_dtype(cfg.compute_dtype)
     with torch.no_grad():
         compat.reset_counts()
-        logits, cache = tstep.make_prefill_step(cfg, ctx, s + n,
+        logits, cache = tstep.make_prefill_step(cfg, ctx, prompt + n,
                                                 cache_dtype=dt)(
-            params, {"tokens": toks})
+            params, {"tokens": toks, **fe})
         outs.append(logits)
         counts.append(_counts(mesh) if ctx else None)
         dec = tstep.make_decode_step(cfg, ctx)
         for tok in steps:
             compat.reset_counts()
-            logits, cache = dec(params, cache, {"tokens": tok})
+            logits, cache = dec(params, cache, {"tokens": tok, **fe})
             outs.append(logits)
             counts.append(_counts(mesh) if ctx else None)
     return outs, counts, {k: v.clone() for k, v in cache.items()}
@@ -2431,13 +2458,15 @@ def case_ssm_tp(rank, meshes, out_dir):
         cfg = ssm_tp_cfg(arch)
         params = ssm_tp_params(cfg, out_dir)
         r = {}
+        batch = ssm_tp_batch(cfg)
         for shape in SSM_TP["meshes"]:
-            r[shape] = _ssm_step(cfg, params, meshes[shape])
-        r["accum"] = _ssm_step(cfg, params, meshes[SSM_TP["accum"]],
-                               grad_accum=MICRO)
+            r[shape] = _tp_step(cfg, params, meshes[shape], batch)
+        r["accum"] = _tp_step(cfg, params, meshes[SSM_TP["accum"]], batch,
+                              grad_accum=MICRO)
         mesh = meshes[SSM_TP["serve"]]
-        outs, counts, cache = _ssm_serve(cfg, params, mesh)
-        one = _ssm_serve(cfg, params, None)
+        outs, counts, cache = _tp_serve(cfg, params, mesh, SSM_TP["prompt"],
+                                        7)
+        one = _tp_serve(cfg, params, None, SSM_TP["prompt"], 7)
         m, k = mesh.shape["model"], mesh.coord("model")
         want = {key: one[2][key][ix] for key, ix in
                 ssm_state_slices(cfg, m, k).items()}
@@ -2468,11 +2497,168 @@ def case_ssm_tp(rank, meshes, out_dir):
         fault = norm_without_all_reduce() if arch == "xlstm-1.3b" \
             else conv_from_the_contiguous_block()
         with fault:
-            r["fault"] = _ssm_step(cfg, params, mesh)
+            r["fault"] = _tp_step(cfg, params, mesh, batch)
         if rank == 0:
-            r["one"] = _ssm_step(cfg, params, None)
-            r["one_accum"] = _ssm_step(cfg, params, None, grad_accum=MICRO)
+            r["one"] = _tp_step(cfg, params, None, batch)
+            r["one_accum"] = _tp_step(cfg, params, None, batch,
+                                      grad_accum=MICRO)
             r["engine_one"] = engine(eng_params, None)
+        out[arch] = r
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the vision and encoder-decoder cross layers under the model axis
+# ---------------------------------------------------------------------------
+
+
+def cross_tp_cfg(arch, dtype="float64", **kw):
+    """Reduced ``arch`` (llama-3.2-vision-11b, or seamless-m4t-medium with
+    ``CROSS_TP["audio_vocab"]``) with ``fsdp=False`` in ``dtype``."""
+    if arch == "seamless-m4t-medium":
+        kw = {"vocab_size": CROSS_TP["audio_vocab"], **kw}
+    return reduced(get_config(arch), fsdp=False, param_dtype=dtype,
+                   compute_dtype=dtype, **kw)
+
+
+def cross_tp_batch(cfg, batch=DP["global_batch"]) -> dict:
+    """The global batch of the cross cases, from a seed: tokens, labels
+    and the stub frontend's embeddings in the parameters' dtype."""
+    r = np.random.RandomState(38)
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size,
+                                      size=(batch, DP["seq_len"])))
+    fe = torch.from_numpy(r.randn(batch, cfg.frontend_seq,
+                                  cfg.frontend_dim or cfg.d_model))
+    return {"tokens": toks, "labels": torch.roll(toks, -1, 1),
+            "frontend_emb": fe.to(torch_dtype(cfg.param_dtype))}
+
+
+def cross_tp_params(cfg, out_dir):
+    """The whole parameters of ``cfg``: the reference's init, converted
+    from the numpy tree the caller wrote (``REFERENCE_CROSS``), else the
+    seeded init; the vision gates at ``CROSS_GATE`` either way."""
+    path = os.path.join(out_dir, REFERENCE_CROSS)
+    if os.path.exists(path):
+        tree = torch.load(path, weights_only=False)[cfg.name]
+        params = tree_map(lambda t: t.to(torch_dtype(cfg.param_dtype)),
+                          convert.params_from_numpy(tree, device="cpu"))
+    else:
+        params = init_params(ttf.model_template(cfg),
+                             torch.Generator().manual_seed(0),
+                             dtype=torch_dtype(cfg.param_dtype), device="cpu")
+    return _opened(cfg, {"params": params})["params"]
+
+
+def cross_cache_slices(cfg, m: int, r: int) -> dict:
+    """Where rank ``r`` of ``m``'s cache lies in the one-device cache: its
+    kv heads of ``k`` / ``v``; the audio model's ``memory`` whole."""
+    every = slice(None)
+    blk = slice(r * cfg.n_kv_heads // m, (r + 1) * cfg.n_kv_heads // m)
+    out = {"k": (every, every, every, blk), "v": (every, every, every, blk)}
+    if cfg.family == "audio":
+        out["memory"] = (every,)
+    return out
+
+
+class _Proxy:
+    """A rank's ``TensorParallel`` with some of its operators replaced (the
+    planted faults below)."""
+
+    def __init__(self, tp, **ops):
+        self._tp = tp
+        self.__dict__.update(ops)
+
+    def __getattr__(self, name):
+        return getattr(self._tp, name)
+
+
+@contextlib.contextmanager
+def _cross_fault(make_tp):
+    """The cross layers run with ``make_tp(tp, p, memory)`` in place of the
+    rank's ``tp``."""
+    orig = ttf.cross_attention
+
+    def faulty(cfg, p, x, memory, memory_valid=None, tp=None):
+        if tp is not None:
+            p, tp = make_tp(tp, p, memory)
+        return orig(cfg, p, x, memory, memory_valid, tp)
+    ttf.cross_attention = faulty
+    try:
+        yield
+    finally:
+        ttf.cross_attention = orig
+
+
+def gate_before_reduce():
+    """A planted fault: the vision cross layer's tanh gate applied to the
+    rank's partial output before the all-reduce, so that each rank's gate
+    gradient is its own heads' share (the forward is unchanged)."""
+    def make(tp, p, memory):
+        if "gate" not in p:
+            return p, tp
+        gate = p["gate"]
+        rest = {k: v for k, v in p.items() if k != "gate"}
+        return rest, _Proxy(tp, reduce=lambda t: tp.reduce(
+            torch.tanh(gate).to(t.dtype) * t))
+    return _cross_fault(make)
+
+
+def memory_without_copy():
+    """A planted fault: the audio decoder's cross-attention reads the
+    encoder's output without ``copy_to``, so that the encoder's gradient
+    is each rank's heads' share, not summed over the model axis."""
+    def make(tp, p, memory):
+        return p, _Proxy(tp, copy=lambda t: t if t is memory
+                         else tp.copy(t))
+    return _cross_fault(make)
+
+
+def case_cross_tp(rank, meshes, out_dir):
+    """The vision and encoder-decoder cross layers under the model axis,
+    reduced llama-3.2-vision-11b and seamless-m4t-medium in float64 with
+    ``fsdp=False`` (the reference's init where the caller wrote it): one
+    train step on each mesh of ``CROSS_TP["meshes"]`` and one in ``MICRO``
+    micro-batches on ``CROSS_TP["accum"]`` (on rank 0 the one-device
+    steps), the prefill and decode steps on each mesh (every rank against
+    the one-device steps, its cache against the one-device cache's slices
+    of its kv heads), and each model's planted fault's step on (1,4)."""
+    out = {}
+    for arch in CROSS_TP["archs"]:
+        cfg = cross_tp_cfg(arch)
+        params = cross_tp_params(cfg, out_dir)
+        r = {}
+        batch = cross_tp_batch(cfg)
+        for shape in CROSS_TP["meshes"]:
+            r[shape] = _tp_step(cfg, params, meshes[shape], batch)
+        r["accum"] = _tp_step(cfg, params, meshes[CROSS_TP["accum"]], batch,
+                              grad_accum=MICRO)
+        one = _tp_serve(cfg, params, None, CROSS_TP["prompt"], 9)
+        r["serve"] = {}
+        for shape in CROSS_TP["meshes"]:
+            mesh = meshes[shape]
+            outs, counts, cache = _tp_serve(cfg, params, mesh,
+                                            CROSS_TP["prompt"], 9)
+            m, k = mesh.shape["model"], mesh.coord("model")
+            want = {key: one[2][key][ix] for key, ix in
+                    cross_cache_slices(cfg, m, k).items()}
+            r["serve"][shape] = {
+                "logits": max(_err(a, b) for a, b in zip(outs, one[0])),
+                "max_logit": max(float(b.abs().max()) for b in one[0]),
+                "counts": counts,
+                "cache": _all_ranks({key: _err(cache[key], want[key])
+                                     for key in want}),
+                "keys": sorted(cache)}
+        fault = gate_before_reduce() if cfg.family == "vlm" \
+            else memory_without_copy()
+        with fault:
+            r["fault"] = _tp_step(cfg, params, meshes[1, 4], batch,
+                                  steps=CROSS_FAULT_STEPS)
+        if rank == 0:
+            r["one"] = _tp_step(cfg, params, None, batch)
+            r["one_accum"] = _tp_step(cfg, params, None, batch,
+                                      grad_accum=MICRO)
+            r["one_fault"] = _tp_step(cfg, params, None, batch,
+                                      steps=CROSS_FAULT_STEPS)
         out[arch] = r
     return out
 
@@ -2489,14 +2675,6 @@ def refusal_texts() -> dict:
     import torch.distributed as dist
     return {
         "world": "a (3, 1) mesh needs 3 processes, the world has 4",
-        "tp_vlm": "llama-3.2-vision-11b with model=4 on a process mesh: "
-                  "the vlm family under the model axis; the cross layers "
-                  "under model over processes (ROADMAP Queue A, A13c item "
-                  "2.6)",
-        "tp_audio": "seamless-m4t-medium with model=4 on a process mesh: "
-                    "the audio family under the model axis; the cross "
-                    "layers under model over processes (ROADMAP Queue A, "
-                    "A13c item 2.6)",
         "tp_odd": "tinyllama-1.1b with model=4 on a process mesh: heads 6 "
                   "do not split over 4 ranks; a rank holding a leaf that "
                   "the model axis should split whole (ROADMAP Queue A, "
@@ -2505,28 +2683,33 @@ def refusal_texts() -> dict:
                       "do not split over 4 ranks; a rank holding a leaf "
                       "that the model axis should split whole (ROADMAP "
                       "Queue A, A13c item 2.6)",
+        "tp_cross_odd": "llama-3.2-vision-11b with model=4 on a process "
+                        "mesh: heads 6 do not split over 4 ranks; a rank "
+                        "holding a leaf that the model axis should split "
+                        "whole (ROADMAP Queue A, A13c item 2.6)",
         "tp_kv_seq": "a sequence-split cache over processes (ROADMAP Queue "
                      "A, A13c item 2.6)",
         "fsdp_hybrid_model": "zamba2-7b with fsdp=True over data on a "
                              "process mesh with model=2: the hybrid family "
-                             "under FSDP and the model axis; the SSM and "
-                             "hybrid families under FSDP with model > 1 "
-                             "(ROADMAP Queue A, A13c item 2.6) are not "
-                             "ported",
+                             "under FSDP and the model axis; the SSM, "
+                             "hybrid, vision and encoder-decoder families "
+                             "under FSDP with model > 1 (ROADMAP Queue A, "
+                             "A13c item 2.6) are not ported",
         "fsdp_vision_model": "llama-3.2-vision-11b with fsdp=True over data "
                              "on a process mesh with model=2: the vlm "
                              "family under FSDP and the model axis; the "
-                             "cross layers under model over processes "
-                             "(ROADMAP Queue A, A13c item 2.6)",
+                             "SSM, hybrid, vision and encoder-decoder "
+                             "families under FSDP with model > 1 (ROADMAP "
+                             "Queue A, A13c item 2.6) are not ported",
         "fsdp_engine_slots": "tinyllama-1.1b under FSDP over 4 data ranks: "
                              "6 slots do not split; the slots must be a "
                              "multiple of the data extent",
         "fsdp_hybrid_engine": "zamba2-7b with fsdp=True over data on a "
                               "process mesh with model=2: the hybrid family "
-                              "under FSDP and the model axis; the SSM and "
-                              "hybrid families under FSDP with model > 1 "
-                              "(ROADMAP Queue A, A13c item 2.6) are not "
-                              "ported",
+                              "under FSDP and the model axis; the SSM, "
+                              "hybrid, vision and encoder-decoder families "
+                              "under FSDP with model > 1 (ROADMAP Queue A, "
+                              "A13c item 2.6) are not ported",
         "accum_rows": "granite-moe-3b-a800m on a process mesh: "
                       "grad_accum=4 cuts the global batch's 8 rows into "
                       "micro-batches of 2 rows, which 4 data ranks do not "
@@ -2609,6 +2792,8 @@ def check(name, res) -> dict:
         return check_families_fsdp(res)
     if name == "ssm_tp":
         return check_ssm_tp(res)
+    if name == "cross_tp":
+        return check_cross_tp(res)
     if name == "held":
         return {tag: check_held(res, tag) for tag in res}
     if name == "local_axes":
@@ -3301,18 +3486,16 @@ def ssm_step_errs(got, want) -> dict:
                 tree_leaves(got["params"]), tree_leaves(want["params"])))}
 
 
-def check_ssm_step(res, arch, tag) -> dict:
-    """``arch``'s step on mesh ``tag`` (a shape, or "accum") within
-    ``tp_f64`` of the one-device step (in as many micro-batches): the
-    metrics relative, the parameters after it absolute; the rank's blocks
-    of the reference's shard shapes."""
-    r = res[arch]
-    cfg = ssm_tp_cfg(arch)
+def check_tp_step(r, cfg, tag, accum) -> dict:
+    """A model's step on mesh ``tag`` (a shape, or "accum": on ``accum``
+    in ``MICRO`` micro-batches; ``r`` its results) within ``tp_f64`` of
+    the one-device step (in as many micro-batches): the metrics relative,
+    the parameters after it absolute; the rank's blocks of the
+    reference's shard shapes."""
     got, want = r[tag], r["one_accum" if tag == "accum" else "one"]
     errs = ssm_step_errs(got, want)
-    assert max(errs.values()) <= TOL["tp_f64"], (arch, tag, errs)
-    shape = SSM_TP["accum"] if tag == "accum" else tag
-    mesh = Mesh(("data", "model"), shape)
+    assert max(errs.values()) <= TOL["tp_f64"], (cfg.name, tag, errs)
+    mesh = Mesh(("data", "model"), accum if tag == "accum" else tag)
     tmpl = ttf.model_template(cfg)
     from repro_torch.models.layers import abstract_params, param_specs
     from repro_torch.models.sharding import make_rules, sanitize_specs
@@ -3322,8 +3505,13 @@ def check_ssm_step(res, arch, tag) -> dict:
     want_shapes = [NamedSharding(mesh, sp).shard_shape(t.shape)
                    for sp, t in zip(tree_leaves(specs),
                                     tree_leaves(aparams))]
-    assert got["blocks"] == want_shapes, (arch, tag)
+    assert got["blocks"] == want_shapes, (cfg.name, tag)
     return errs
+
+
+def check_ssm_step(res, arch, tag) -> dict:
+    """:func:`check_tp_step` of ``arch``'s step on ``tag``."""
+    return check_tp_step(res[arch], ssm_tp_cfg(arch), tag, SSM_TP["accum"])
 
 
 def ssm_extra(d: int, m: int, itemsize: int = 8) -> int:
@@ -3334,26 +3522,33 @@ def ssm_extra(d: int, m: int, itemsize: int = 8) -> int:
         + d * m * int(round(2 * (d - 1) / d * 3 * itemsize))
 
 
-def check_ssm_bytes(res, arch, tag, count=_dry_count) -> dict:
-    """The bytes by kind of ``arch``'s step on ``tag``, summed over the
-    ranks, equal to the dry run's count of the cell times the ranks (the
-    all-reduces less :func:`ssm_extra`), kind by kind: the fused
-    activation's all-gather and its reduce-scatter, the conv gathers, the
-    norm's and the gates' all-reduces, mLSTM's reduce-scatters, the
-    replicated leaves' gradient all-reduces and the tensor-parallel and
-    data-parallel all-reduces."""
+def check_tp_bytes_by_kind(r, cfg, tag, accum, count=_dry_count) -> dict:
+    """The bytes by kind of a model's step on ``tag`` (as
+    :func:`check_tp_step`), summed over the ranks, equal to the dry run's
+    count of the cell times the ranks (the all-reduces less
+    :func:`ssm_extra`), kind by kind, and the count short of nothing."""
     from repro_torch.launch.mesh import make_mesh
-    d, m = SSM_TP["accum"] if tag == "accum" else tag
-    cfg = ssm_tp_cfg(arch)
+    d, m = accum if tag == "accum" else tag
     st = count(cfg, tp_train_shape(), make_mesh(d, m),
                grad_accum=MICRO if tag == "accum" else 1)
-    got = by_kind(res[arch][tag]["counts"])
+    got = by_kind(r[tag]["counts"])
     got["all-reduce"] -= ssm_extra(d, m)
     want = {k: d * m * v for k, v in st.collective_by_kind.items()}
     assert set(got) == set(want) and all(
-        abs(got[k] - want[k]) <= d * m for k in got), (arch, tag, got, want)
+        abs(got[k] - want[k]) <= d * m for k in got), (cfg.name, tag, got,
+                                                       want)
     assert not st.count_short, st.count_short
     return got
+
+
+def check_ssm_bytes(res, arch, tag, count=_dry_count) -> dict:
+    """:func:`check_tp_bytes_by_kind` of ``arch``'s step on ``tag``: the
+    fused activation's all-gather and its reduce-scatter, the conv
+    gathers, the norm's and the gates' all-reduces, mLSTM's
+    reduce-scatters, the replicated leaves' gradient all-reduces and the
+    tensor-parallel and data-parallel all-reduces."""
+    return check_tp_bytes_by_kind(res[arch], ssm_tp_cfg(arch), tag,
+                                  SSM_TP["accum"], count)
 
 
 def check_ssm_serve(res, arch, count=_dry_count) -> dict:
@@ -3418,6 +3613,89 @@ def check_ssm_tp(res, count=_dry_count) -> dict:
         errs[f"{arch} serve"] = check_ssm_serve(res, arch, count)
         check_ssm_engine(res, arch)
         errs[f"{arch} fault"] = check_ssm_fault(res, arch)
+    return errs
+
+
+def check_cross_step(res, arch, tag) -> dict:
+    """:func:`check_tp_step` of ``arch``'s step on ``tag``."""
+    return check_tp_step(res[arch], cross_tp_cfg(arch), tag,
+                         CROSS_TP["accum"])
+
+
+def check_cross_bytes(res, arch, tag, count=_dry_count) -> dict:
+    """:func:`check_tp_bytes_by_kind` of ``arch``'s step on ``tag``: the
+    tensor-parallel all-reduces of the self, cross and encoder layers and
+    the head, and the data-parallel gradient mean, all-reduces alone."""
+    got = check_tp_bytes_by_kind(res[arch], cross_tp_cfg(arch), tag,
+                                 CROSS_TP["accum"], count)
+    assert set(got) == {"all-reduce"}, (arch, tag, got)
+    return got
+
+
+def cross_logit_bytes(cfg, shape, itemsize: int = 8) -> int:
+    """The bytes, summed over the ranks, of a serve step's all-gather of
+    the last position's logits over model, where the model axis splits
+    the vocab (every rank holds the whole batch: ``TP_SERVE``'s)."""
+    d, m = shape
+    if cfg.vocab_size % m:
+        return 0
+    return d * m * (m - 1) * TP_SERVE["batch"] * (cfg.vocab_size // m) \
+        * itemsize
+
+
+def check_cross_serve(res, arch, shape, count=_dry_count) -> dict:
+    """The prefill's and 2 decode steps' logits, whole on every rank,
+    within ``tp_f64`` of the one-device steps' (absolute); every rank's
+    cache within it of the one-device cache's slices of its kv heads (the
+    audio model's ``memory`` whole); each step's bytes by kind, summed
+    over the ranks, the dry run's count of the serve step times the ranks
+    and ``data`` (every rank serves the whole batch, which the count
+    splits over data), beside the last logits' gather over model."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    r = res[arch]["serve"][shape]
+    cfg = cross_tp_cfg(arch)
+    errs = {"logits": r["logits"],
+            "cache": max(max(e.values()) for e in r["cache"])}
+    assert max(errs.values()) <= TOL["tp_f64"], (arch, shape, errs,
+                                                 r["cache"])
+    assert set(r["cache"][0]) == set(cross_cache_slices(cfg, 1, 0)), r
+    d, m = shape
+    b, s = TP_SERVE["batch"], CROSS_TP["prompt"]
+    gathered = cross_logit_bytes(cfg, shape)
+    for i, c in enumerate(r["counts"]):
+        kind = "prefill" if i == 0 else "decode"
+        st = count(cfg, ShapeConfig(kind, s, b, kind), make_mesh(d, m))
+        want = {k: d * d * m * v for k, v in st.collective_by_kind.items()}
+        if gathered:
+            want["all-gather"] = want.get("all-gather", 0) + gathered
+        got = by_kind(c)
+        assert set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= d * m for k in got), (arch, shape, i,
+                                                           got, want)
+    return errs
+
+
+def check_cross_fault(res, arch) -> dict:
+    """The planted fault's step (the vision gate before the all-reduce,
+    the audio decoder's memory without ``copy_to``) on (1,4) fails the
+    parity that the step holds: its grad norm or parameters beyond
+    ``1e3 * tp_f64`` of the one-device step's."""
+    errs = ssm_step_errs(res[arch]["fault"], res[arch]["one_fault"])
+    assert max(errs.values()) > 1e3 * TOL["tp_f64"], (arch, errs)
+    return errs
+
+
+def check_cross_tp(res, count=_dry_count) -> dict:
+    errs = {}
+    for arch in CROSS_TP["archs"]:
+        for tag in CROSS_TP["meshes"] + ("accum",):
+            errs[f"{arch} {tag}"] = check_cross_step(res, arch, tag)
+            check_cross_bytes(res, arch, tag, count)
+        for shape in CROSS_TP["meshes"]:
+            errs[f"{arch} serve {shape}"] = check_cross_serve(res, arch,
+                                                              shape, count)
+        errs[f"{arch} fault"] = check_cross_fault(res, arch)
     return errs
 
 
